@@ -1,0 +1,279 @@
+"""Config / flag system of the port.
+
+Port of ``commefficient_tpu/config.py``, cut to what the ported slice
+reads: the same field names, flag names and defaults, except
+``--device``, whose default here is ``cuda``. The reference's other
+flags are known by name; passing one raises ``NotImplementedError``
+naming it (``parse_args``), and so does asking for a mode or a
+dataset the port does not have yet. Nothing is silently ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Optional
+
+MODES = ("sketch", "true_topk", "local_topk", "fedavg", "uncompressed")
+PORTED_MODES = ("sketch",)
+ERROR_TYPES = ("none", "local", "virtual")
+
+# dataset -> num classes (reference utils.py:37-44)
+FED_DATASETS = {
+    "CIFAR10": 10,
+    "CIFAR100": 100,
+    "EMNIST": 62,
+    "ImageNet": 1000,
+    "PERSONA": -1,
+    "Synthetic": 10,
+}
+
+# natural client counts when --num_clients is omitted
+NATURAL_NUM_CLIENTS = {
+    "EMNIST": 3500,
+    "CIFAR10": None,
+    "PERSONA": 17568,
+}
+
+# the reference trainer's flags that the port does not have yet
+NOT_PORTED_FLAGS = (
+    "--profile", "--seq_devices", "--seq_impl", "--dropout_prob",
+    "--mixup", "--mixup_alpha", "--tensorboard", "--finetune",
+    "--checkpoint", "--resume", "--checkpoint_every",
+    "--checkpoint_path", "--finetune_path", "--finetuned_from",
+    "--num_results_train", "--num_results_val", "--batchnorm",
+    "--topk_down", "--num_fedavg_epochs", "--fedavg_batch_size",
+    "--fedavg_lr_decay", "--port", "--num_devices", "--share_ps_gpu",
+    "--train_dataloader_workers", "--val_dataloader_workers",
+    "--model_checkpoint", "--num_candidates", "--val_candidates",
+    "--max_history", "--microbatch_size", "--lm_coef", "--mc_coef",
+    "--max_grad_norm", "--personality_permutations",
+    "--eval_before_start", "--dp", "--dp_clip", "--dp_noise_mult",
+    "--dp_delta", "--dp_epsilon", "--do_dp", "--dp_mode",
+    "--l2_norm_clip", "--noise_multiplier", "--mesh", "--param_dtype",
+    "--compute_dtype", "--approx_topk", "--approx_recall",
+    "--pipeline_depth", "--hf_export", "--coordinator_address",
+    "--num_processes", "--process_id", "--remat", "--tokens_per_chunk",
+    "--fused_ce", "--attn_impl", "--sketch_dtype", "--downlink_encoding",
+    "--overlap_depth", "--client_chunk", "--clientstore",
+    "--clientstore_bytes", "--clientstore_dir", "--ledger",
+    "--telemetry_console", "--probe_every", "--probe_full",
+    "--on_divergence", "--alarm_residual_ratio",
+    "--alarm_residual_rounds", "--alarm_recovery_error",
+    "--alarm_step_time_ratio", "--alarm_step_time_window",
+    "--alarm_collective_skew", "--robust_agg", "--robust_trim_frac",
+    "--robust_clip_norm", "--robust_median_groups",
+    "--alarm_byzantine_ratio", "--alarm_fold_rejection",
+    "--checkpoint_every_rounds", "--checkpoint_keep",
+    "--async_buffer_size", "--async_staleness_weight",
+    "--alarm_async_staleness", "--alarm_job_starvation", "--live_port",
+    "--flightrec_rounds", "--postmortem_dir", "--causal_trace",
+    "--slo_round_p95", "--slo_staleness_max", "--slo_eps_rounds",
+    "--slo_starvation", "--slo_error_budget", "--slo_window",
+    "--slo_fast_window", "--alarm_slo_burn", "--autopilot",
+    "--autopilot_band", "--autopilot_cooldown", "--autopilot_cache_size",
+    "--autopilot_warm_ahead", "--autopilot_pin", "--autopilot_geometry",
+)
+
+
+def num_classes_of_dataset(dataset_name: str) -> int:
+    return FED_DATASETS[dataset_name]
+
+
+@dataclasses.dataclass
+class Config:
+    """The reference ``Config`` fields the ported slice reads."""
+
+    # meta
+    do_test: bool = False
+    mode: str = "sketch"
+    # bfloat16 compute over float32 parameters and gradients
+    do_bf16: bool = False
+    seed: int = 21
+
+    # model/data
+    model: str = "ResNet9"
+    dataset_name: str = ""
+    dataset_dir: str = "./dataset"
+    nan_threshold: float = 999.0
+
+    # compression
+    k: int = 50000
+    num_cols: int = 500000
+    num_rows: int = 5
+    num_blocks: int = 20
+
+    # optimization
+    local_momentum: float = 0.9
+    virtual_momentum: float = 0.0
+    weight_decay: float = 5e-4
+    num_epochs: float = 24.0
+    schedule_epochs: Optional[float] = None
+    error_type: str = "none"
+    lr_scale: Optional[float] = None
+    pivot_epoch: float = 5.0
+
+    # parallelization
+    num_clients: Optional[int] = None
+    num_workers: int = 1  # participating clients per round
+    # "cuda" (default) or "cpu"; there is no fallback between them
+    device: str = "cuda"
+    do_iid: bool = False
+
+    local_batch_size: int = 8
+    valid_batch_size: int = 8
+
+    # Synthetic dataset dials (reference config.py:210-227)
+    classes_per_client: int = 1
+    synthetic_per_class: int = 64
+    synthetic_separation: float = 1.0
+    synthetic_num_val: int = 128
+    # sketch rotation granularity: -1 = auto, which resolves to 0 (full
+    # granularity) on the card -- quantized rotations only ever bought
+    # the TPU kernels a cheaper roll (core/rounds.py resolve_rot_lanes)
+    sketch_rot_lanes: int = -1
+
+    # populated at runtime
+    grad_size: int = 0
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> "Config":
+        """Parse-time checks (reference config.py:525-668, the ones
+        that concern these fields)."""
+        assert self.mode in MODES, self.mode
+        assert self.error_type in ERROR_TYPES, self.error_type
+        assert self.device in ("cuda", "cpu"), self.device
+        if self.mode == "fedavg":
+            assert self.local_batch_size == -1, \
+                "fedavg requires --local_batch_size -1"
+            assert self.local_momentum == 0, \
+                "fedavg requires --local_momentum 0"
+            assert self.error_type == "none", \
+                "fedavg requires --error_type none"
+        return self
+
+    def validate_runtime(self) -> "Config":
+        """Mode-lattice invariants checked when the runtime is built
+        (reference config.py:670-792), then the port's own limits."""
+        self.validate()
+        if self.do_test:
+            # the reference normalizes --test's default flag combo the
+            # same way (its smoke mode short-circuits these asserts)
+            if self.mode == "sketch" and self.local_momentum:
+                self.virtual_momentum = max(self.virtual_momentum,
+                                            self.local_momentum)
+                self.local_momentum = 0.0
+            if self.mode in ("sketch", "uncompressed") \
+                    and self.error_type == "local":
+                self.error_type = "virtual"
+        if self.mode not in PORTED_MODES:
+            raise NotImplementedError(f"--mode {self.mode} is not ported")
+        if self.mode == "sketch":
+            assert self.error_type != "local", \
+                "sketch mode cannot use local error accumulation"
+            assert self.local_momentum == 0, \
+                "sketch mode cannot use local momentum " \
+                "(momentum factor masking is impossible in sketch space)"
+        return self
+
+    @property
+    def resolved_num_clients(self) -> Optional[int]:
+        if self.num_clients is not None:
+            return self.num_clients
+        return NATURAL_NUM_CLIENTS.get(self.dataset_name)
+
+    @property
+    def transmit_shape(self):
+        """What one client transmits (and the server state's shape)."""
+        if self.mode == "sketch":
+            return (self.num_rows, self.num_cols)
+        return (self.grad_size,)
+
+    @property
+    def upload_floats_per_client(self) -> int:
+        return {
+            "uncompressed": self.grad_size,
+            "true_topk": self.grad_size,
+            "local_topk": self.k,
+            "sketch": self.num_rows * self.num_cols,
+            "fedavg": self.grad_size,
+        }[self.mode]
+
+    @property
+    def upload_wire_bytes_per_client(self) -> float:
+        """Bytes one participating client uploads per round (f32
+        wire: the port has no quantized wire yet)."""
+        from commefficient_tpu_torch import accounting
+        if self.mode == "sketch":
+            return accounting.sketch_wire_bytes(self.num_rows,
+                                                self.num_cols)
+        return accounting.bytes_of(self.upload_floats_per_client, "f32")
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+def build_parser(default_lr: Optional[float] = None
+                 ) -> argparse.ArgumentParser:
+    """The reference's flags that this slice reads, same names and
+    defaults (``--device`` defaults to cuda)."""
+    from commefficient_tpu_torch import models
+    parser = argparse.ArgumentParser(allow_abbrev=False)
+    parser.add_argument("--test", action="store_true", dest="do_test")
+    parser.add_argument("--mode", choices=MODES, default="sketch")
+    parser.add_argument("--bf16", action="store_true", dest="do_bf16")
+    parser.add_argument("--seed", type=int, default=21)
+
+    parser.add_argument("--model", default="ResNet9",
+                        choices=models.model_names())
+    parser.add_argument("--dataset_name", type=str, default="",
+                        choices=list(FED_DATASETS.keys()))
+    parser.add_argument("--dataset_dir", type=str, default="./dataset")
+    parser.add_argument("--nan_threshold", type=float, default=999)
+
+    parser.add_argument("--k", type=int, default=50000)
+    parser.add_argument("--num_cols", type=int, default=500000)
+    parser.add_argument("--num_rows", type=int, default=5)
+    parser.add_argument("--num_blocks", type=int, default=20)
+
+    parser.add_argument("--local_momentum", type=float, default=0.9)
+    parser.add_argument("--virtual_momentum", type=float, default=0)
+    parser.add_argument("--weight_decay", type=float, default=5e-4)
+    parser.add_argument("--num_epochs", type=float, default=24)
+    parser.add_argument("--schedule_epochs", type=float, default=None)
+    parser.add_argument("--error_type", choices=ERROR_TYPES,
+                        default="none")
+    parser.add_argument("--lr_scale", type=float, default=default_lr)
+    parser.add_argument("--pivot_epoch", type=float, default=5)
+
+    parser.add_argument("--num_clients", type=int)
+    parser.add_argument("--num_workers", type=int, default=1)
+    parser.add_argument("--device", type=str, choices=["cuda", "cpu"],
+                        default="cuda")
+    parser.add_argument("--iid", action="store_true", dest="do_iid")
+
+    parser.add_argument("--local_batch_size", type=int, default=8)
+    parser.add_argument("--valid_batch_size", type=int, default=8)
+
+    parser.add_argument("--classes_per_client", type=int, default=1)
+    parser.add_argument("--synthetic_per_class", type=int, default=64)
+    parser.add_argument("--synthetic_separation", type=float,
+                        default=1.0)
+    parser.add_argument("--synthetic_num_val", type=int, default=128)
+    parser.add_argument("--sketch_rot_lanes", type=int, default=-1)
+    return parser
+
+
+def parse_args(default_lr: Optional[float] = None, argv=None) -> Config:
+    import sys
+    argv = list(sys.argv[1:] if argv is None else argv)
+    for arg in argv:
+        flag = arg.split("=", 1)[0]
+        if flag in NOT_PORTED_FLAGS:
+            raise NotImplementedError(f"{flag} is not ported")
+    ns = build_parser(default_lr).parse_args(argv)
+    field_names = {f.name for f in dataclasses.fields(Config)}
+    return Config(**{k: v for k, v in vars(ns).items()
+                     if k in field_names})

@@ -1,0 +1,277 @@
+"""Count sketch (CSVec) -- the FetchSGD compression operator.
+
+Port of ``commefficient_tpu/ops/sketch.py``: the same rotation
+(circulant) count sketch, with identical hashes, so a table built by
+either package is recovered identically by the other.
+
+- An ``(r, c)`` table of buckets. The padded coordinate space is cut
+  into ``m = ceil(d/c)`` chunks of width c; row r sends coordinate
+  ``i`` (chunk ``t = i // c``, offset ``j = i % c``) to bucket
+  ``(j + o[r, t]) mod c`` with sign ``s_r(i)``.
+- Rotations ``o`` are host-side numpy (``_rotations``); signs are
+  murmur mixes of the coordinate index (``_mix``).
+- Recovery ``v[i] ~ median_r(s_r(i) * table[r, h_r(i)])``.
+
+The hash layer is bit-exact with the reference. torch has no full
+uint32 arithmetic on the CPU, so the plain versions hold uint32
+values in int64 and mask with ``& 0xFFFFFFFF``; a 32x32-bit product
+can exceed 2^63, so ``_mul32`` splits one factor into 16-bit halves.
+The CUDA kernels use ``uint32_t`` (csrc/hash.cuh).
+
+Dispatch: ``sketch`` and ``estimates`` call the kernel wrappers of
+``ops/sketch_kernels.py``, which launch the Hopper kernels for CUDA
+tensors and take the plain versions for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+_MASK32 = 0xFFFFFFFF
+_M1 = 0x85EBCA6B
+_M2 = 0xC2B2AE35
+_ROW_SALT = 0x9E3779B9
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 ``x`` in [0, 2^32) and a constant
+    ``c`` < 2^32, without int64 overflow: c = hi·2^16 + lo, and only
+    the low 16 bits of x·hi survive the shift."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _MASK32
+
+
+def _mix(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 fmix32 finalizer on uint32 values held in int64."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, _M1)
+    x = x ^ (x >> 13)
+    x = _mul32(x, _M2)
+    x = x ^ (x >> 16)
+    return x
+
+
+def _np_mix(x: np.ndarray) -> np.ndarray:
+    """numpy twin of _mix (uint32 wraparound)."""
+    x = np.asarray(x, np.uint32)
+    with np.errstate(over="ignore"):
+        x = x ^ (x >> np.uint32(16))
+        x = x * np.uint32(_M1)
+        x = x ^ (x >> np.uint32(13))
+        x = x * np.uint32(_M2)
+        x = x ^ (x >> np.uint32(16))
+    return x
+
+
+def sign_bits(idx: torch.Tensor, row: int, sign_seed: int,
+              one_mix: bool, h: torch.Tensor = None) -> torch.Tensor:
+    """0/1 int64 sign bit of ``row`` for coordinate indices ``idx``
+    (int64): bit 16+row of one mix per coordinate for r <= 16
+    (``h = _mix(idx ^ sign_seed)`` may be passed in to share it
+    across rows), else bit 16 of a per-row salted mix."""
+    if one_mix:
+        if h is None:
+            h = _mix(idx ^ sign_seed)
+        return (h >> (16 + row)) & 1
+    salt = ((row * _ROW_SALT) & _MASK32) ^ sign_seed
+    return (_mix(idx ^ salt) >> 16) & 1
+
+
+def signs_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    return 1.0 - 2.0 * bits.to(torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class CountSketch:
+    """Static description of a sketch operator (d, c, r, seed), as
+    the reference's ``CountSketch``. ``num_blocks`` is accepted for
+    CLI parity and unused. The reference's ``backend`` and
+    ``packed_signs`` fields have no counterpart: the tensor's device
+    picks kernel or plain version, and the kernels hash signs
+    in-register (native uint32 multiplies)."""
+
+    d: int
+    c: int
+    r: int
+    num_blocks: int = 20
+    seed: int = 42
+    approx_topk: bool = False
+    approx_recall: float = 0.95
+    rot_lanes: int = 0
+
+    def __post_init__(self):
+        assert self.d > 0 and self.c > 0 and self.r > 0
+        if self.approx_topk:
+            raise NotImplementedError(
+                "--approx_topk (approximate recovery) is not ported")
+        # (r, m) rotations on each device they were asked for
+        object.__setattr__(self, "_rot_cache", {})
+
+    # --- hashing ---------------------------------------------------------
+
+    @property
+    def _m(self) -> int:
+        """number of coordinate chunks"""
+        return -(-self.d // self.c)
+
+    @property
+    def _padded_d(self) -> int:
+        return self._m * self.c
+
+    def _seeds(self):
+        base = np.uint64(self.seed & _MASK32)
+        mask = np.uint64(_MASK32)
+        rot = np.uint32((base * np.uint64(0x9E3779B9) + np.uint64(1)) & mask)
+        sign = np.uint32((base * np.uint64(0x6C62272E) + np.uint64(2)) & mask)
+        return rot, sign
+
+    def _rotations(self) -> np.ndarray:
+        """(r, m) rotations in [0, c), host-side numpy; with
+        ``rot_lanes`` set, multiples of it drawn from c/rot_lanes."""
+        rot_seed, _ = self._seeds()
+        rows = np.arange(self.r, dtype=np.uint32)[:, None]
+        chunks = np.arange(self._m, dtype=np.uint32)[None, :]
+        with np.errstate(over="ignore"):
+            h = _np_mix(rows * np.uint32(0x7FEB352D)
+                        ^ chunks * np.uint32(0x846CA68B)
+                        ^ rot_seed)
+        if self.rot_lanes > 0:
+            assert self.c % self.rot_lanes == 0, (self.c, self.rot_lanes)
+            assert self.c // self.rot_lanes >= 8, \
+                f"rot_lanes {self.rot_lanes} too coarse for c={self.c}"
+            s = np.uint32(self.c // self.rot_lanes)
+            return ((h % s) * np.uint32(self.rot_lanes)).astype(np.int64)
+        return (h % np.uint32(self.c)).astype(np.int64)
+
+    def rotations_on(self, device) -> torch.Tensor:
+        """(r, m) int32 rotations on ``device`` (cached)."""
+        device = torch.device(device)
+        key = str(device)
+        rot = self._rot_cache.get(key)
+        if rot is None:
+            rot = torch.as_tensor(self._rotations().astype(np.int32),
+                                  device=device)
+            self._rot_cache[key] = rot
+        return rot
+
+    @property
+    def _one_mix_signs(self) -> bool:
+        """r <= 16: every row's sign is a distinct high bit of ONE
+        murmur mix per coordinate; larger r mixes per (row, coord)."""
+        return self.r <= 16
+
+    @property
+    def sign_seed(self) -> int:
+        return int(self._seeds()[1])
+
+    def _signs_row(self, row: int, device="cpu") -> torch.Tensor:
+        """(padded_d,) float32 signs of one row."""
+        idx = torch.arange(self._padded_d, dtype=torch.int64,
+                           device=device)
+        return signs_from_bits(sign_bits(idx, row, self.sign_seed,
+                                         self._one_mix_signs))
+
+    def hashes(self, idx: torch.Tensor):
+        """(buckets, signs) of int coordinate indices: buckets int64
+        (r, n) in [0, c); signs float32 (r, n) in {+-1}."""
+        i = idx.to(torch.int64)
+        rot = torch.as_tensor(self._rotations(), device=i.device)
+        t = i // self.c
+        j = i % self.c
+        buckets = (j[None, :] + rot[:, t]) % self.c
+        h = _mix(i ^ self.sign_seed) if self._one_mix_signs else None
+        signs = torch.stack([
+            signs_from_bits(sign_bits(i, row, self.sign_seed,
+                                      self._one_mix_signs, h))
+            for row in range(self.r)])
+        return buckets, signs
+
+    # --- sketching -------------------------------------------------------
+
+    def sketch(self, v: torch.Tensor) -> torch.Tensor:
+        """Dense (d,) vector -> (r, c) table."""
+        assert v.shape == (self.d,), v.shape
+        vp = torch.nn.functional.pad(v.to(torch.float32),
+                                     (0, self._padded_d - self.d))
+        return self._sketch_padded(vp)
+
+    def _sketch_padded(self, vp: torch.Tensor) -> torch.Tensor:
+        from commefficient_tpu_torch.ops.sketch_kernels import \
+            sketch_kernel
+        assert vp.shape == (self._padded_d,), vp.shape
+        return sketch_kernel(vp.contiguous(),
+                             self.rotations_on(vp.device), self.c,
+                             self.r, self.sign_seed, self._one_mix_signs)
+
+    # --- recovery --------------------------------------------------------
+
+    def estimates(self, table: torch.Tensor,
+                  padded: bool = False) -> torch.Tensor:
+        """Median-of-rows estimates of all coordinates. ``padded=True``
+        returns the (padded_d,) vector with the tail (>= d) zeroed;
+        otherwise the (d,) prefix."""
+        from commefficient_tpu_torch.ops.sketch_kernels import \
+            estimates_kernel
+        assert table.shape == (self.r, self.c), table.shape
+        valid = self.d if padded else self._padded_d
+        est = estimates_kernel(table.to(torch.float32).contiguous(),
+                               self.rotations_on(table.device), self.c,
+                               self.r, self.sign_seed,
+                               self._one_mix_signs, valid)
+        return est if padded else est[: self.d]
+
+    def unsketch(self, table: torch.Tensor, k: int,
+                 with_support: bool = False):
+        """(r, c) table -> dense (d,) vector keeping the k largest-
+        magnitude estimates (reference ``unsketch``, exact path). The
+        selected set is the threshold select's, which is lax.top_k's
+        set (lowest index wins ties); the (k,) indices come back in
+        ascending order rather than by magnitude."""
+        from commefficient_tpu_torch.ops.topk import threshold_topk_mask_1d
+        k = min(k, self.d)
+        est = self.estimates(table)
+        if k >= self.d:
+            mask = torch.ones_like(est, dtype=torch.bool)
+        else:
+            mask = threshold_topk_mask_1d(est * est, k)
+        dense = torch.where(mask, est, torch.zeros_like(est))
+        if not with_support:
+            return dense
+        idx = torch.nonzero(mask).flatten()
+        return dense, idx, est[idx]
+
+    def unsketch_dense_mask(self, table: torch.Tensor, k: int):
+        """Exact dense unsketch through the threshold-select mask:
+        ``(dense, mask)``, the k largest-magnitude estimates kept."""
+        from commefficient_tpu_torch.ops.topk import threshold_topk_mask_1d
+        k = min(k, self.d)
+        est = self.estimates(table)
+        mask = threshold_topk_mask_1d(est * est, k)
+        return torch.where(mask, est, torch.zeros_like(est)), mask
+
+    def prefer_threshold_unsketch(self, k: int) -> bool:
+        """Dense-regime exact recovery through the threshold mask:
+        the reference's gate, same predicate."""
+        from commefficient_tpu_torch.ops.topk import use_threshold_select
+        return (use_threshold_select(k, self.d, self.approx_topk)
+                and not self.prefer_sparse_resketch(k))
+
+    def prefer_sparse_resketch(self, k: int) -> bool:
+        """The reference's cost-model gate for re-sketching the
+        k-sparse update by scatter (d > ~90*r*k); same predicate."""
+        return self.d > 90 * self.r * k
+
+    # --- norms -----------------------------------------------------------
+
+    @staticmethod
+    def l2estimate(table: torch.Tensor) -> torch.Tensor:
+        """sqrt(median over rows of per-row sum of squares); the mean
+        of the two middle rows for even r, as jnp.median."""
+        sums = torch.sort(torch.sum(table * table, dim=1)).values
+        n = sums.shape[0]
+        med = (sums[n // 2] if n % 2
+               else (sums[n // 2 - 1] + sums[n // 2]) * 0.5)
+        return torch.sqrt(med)

@@ -1,0 +1,195 @@
+"""Sketch and estimates: Hopper kernels and their plain versions.
+
+Port of ``commefficient_tpu/ops/sketch_pallas.py``:
+
+- ``sketch_kernel`` replaces ``sketch_pallas`` (sketch_pallas.py:216);
+- ``estimates_kernel`` replaces ``estimates_pallas`` (:414).
+
+Both kernels live in ``csrc/sketch.cu``, whose header comment gives
+their design and bounds. Each wrapper launches its kernel for a CUDA
+tensor (or raises) and takes the plain PyTorch version, beside it
+here, for a CPU tensor; it counts its launches in ``.launches``.
+
+The plain sketch adds the chunks in the kernel's order (t = 0..m-1,
+from zero), so the two agree bit for bit; against the JAX package the
+tables agree to summation-order tolerance. Estimates from a given
+table are exact everywhere: the sign flip is exact and the median is
+an order statistic (or the mean of two, for even r).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from commefficient_tpu_torch import _build
+from commefficient_tpu_torch.ops.sketch import _mix, sign_bits, signs_from_bits
+
+_P = ctypes.c_void_p
+MAX_ROWS = 32  # CET_MAX_ROWS in csrc/sketch.cu
+
+
+def _row_signs(idx, h, row, sign_seed, one_mix):
+    return signs_from_bits(sign_bits(idx, row, sign_seed, one_mix, h))
+
+
+def sketch_plain(vp, rot, c: int, r: int, sign_seed: int,
+                 one_mix: bool) -> torch.Tensor:
+    """(m*c,) padded vector -> (r, c) table: for each row, the sum
+    over chunks t (in order) of the signed chunk gathered back by its
+    rotation: ``out[row, col] += s(g) * vp[g]``,
+    ``g = t*c + (col - o[row, t]) mod c``."""
+    m = vp.numel() // c
+    dev = vp.device
+    rots = rot.to("cpu", torch.int64).tolist()
+    idx = torch.arange(m * c, dtype=torch.int64, device=dev)
+    h = _mix(idx ^ sign_seed) if one_mix else None
+    cols = torch.arange(c, dtype=torch.int64, device=dev)
+    out = torch.empty((r, c), dtype=torch.float32, device=dev)
+    for row in range(r):
+        signed = vp * _row_signs(idx, h, row, sign_seed, one_mix)
+        acc = torch.zeros(c, dtype=torch.float32, device=dev)
+        for t in range(m):
+            acc = acc + signed[t * c + (cols - rots[row][t]) % c]
+        out[row] = acc
+    return out
+
+
+def median_network(vals):
+    """Elementwise median of a list of same-shape tensors by the
+    reference's network (sketch_pallas._median_network): a selection
+    network for r = 3 and 5, an odd-even transposition sort
+    otherwise, the mean of the two middles for even r."""
+    v = list(vals)
+    n = len(v)
+    if n == 1:
+        return v[0]
+
+    def med3(x, y, z):
+        return torch.maximum(torch.minimum(x, y),
+                             torch.minimum(torch.maximum(x, y), z))
+
+    if n == 3:
+        return med3(v[0], v[1], v[2])
+    if n == 5:
+        f = torch.maximum(torch.minimum(v[0], v[1]),
+                          torch.minimum(v[2], v[3]))
+        g = torch.minimum(torch.maximum(v[0], v[1]),
+                          torch.maximum(v[2], v[3]))
+        return med3(v[4], f, g)
+    for rnd in range(n):
+        for i in range(rnd % 2, n - 1, 2):
+            v[i], v[i + 1] = (torch.minimum(v[i], v[i + 1]),
+                              torch.maximum(v[i], v[i + 1]))
+    if n % 2 == 1:
+        return v[n // 2]
+    return 0.5 * (v[n // 2 - 1] + v[n // 2])
+
+
+def estimates_plain(table, rot, c: int, r: int, sign_seed: int,
+                    one_mix: bool, valid: int) -> torch.Tensor:
+    """(r, c) table -> (m*c,) median-of-rows estimates, zero at
+    positions >= ``valid``."""
+    m = rot.shape[1]
+    dev = table.device
+    rot = rot.to(dev, torch.int64)
+    idx = torch.arange(m * c, dtype=torch.int64, device=dev)
+    t = idx // c
+    j = idx - t * c
+    h = _mix(idx ^ sign_seed) if one_mix else None
+    vals = [table[row][(j + rot[row][t]) % c]
+            * _row_signs(idx, h, row, sign_seed, one_mix)
+            for row in range(r)]
+    med = median_network(vals)
+    if valid < m * c:
+        med = torch.where(idx < valid, med, torch.zeros_like(med))
+    return med
+
+
+def _check_cuda(name, **tensors):
+    dev = None
+    for key, (t, dtype) in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {key} is on {t.device}, not cuda")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {key} is {t.dtype}, want {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} is not contiguous")
+        if dev is not None and t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        dev = t.device
+    return dev
+
+
+def _check_index_range(name, m, c):
+    # the kernels hash and index coordinates as uint32 and widths as int
+    if m * c >= 2**32 or c >= 2**31:
+        raise ValueError(f"{name}: m*c = {m * c} coordinates exceed the "
+                         "kernels' 32-bit index range")
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def sketch_kernel(vp, rot, c: int, r: int, sign_seed: int,
+                  one_mix: bool) -> torch.Tensor:
+    """(m*c,) f32 padded vector, (r, m) int32 rotations -> (r, c)
+    f32 table. Kernel on CUDA (csrc/sketch.cu ``cet_sketch``), plain
+    version on the CPU."""
+    if vp.device.type == "cpu":
+        return sketch_plain(vp, rot, c, r, sign_seed, one_mix)
+    dev = _check_cuda("sketch_kernel", vp=(vp, torch.float32),
+                      rot=(rot, torch.int32))
+    m = rot.shape[1]
+    if vp.numel() != m * c or rot.shape[0] != r:
+        raise ValueError(f"sketch_kernel: vp {tuple(vp.shape)}, rot "
+                         f"{tuple(rot.shape)} do not fit r={r}, c={c}")
+    _check_index_range("sketch_kernel", m, c)
+    fn = _build.bind("sketch", "cet_sketch",
+                     [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_uint, ctypes.c_int, _P])
+    out = torch.empty((r, c), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = fn(vp.data_ptr(), rot.data_ptr(), out.data_ptr(), m, c, r,
+                  sign_seed, int(one_mix), _stream(dev))
+    _build.check(code, "cet_sketch")
+    sketch_kernel.launches += 1
+    return out
+
+
+sketch_kernel.launches = 0
+
+
+def estimates_kernel(table, rot, c: int, r: int, sign_seed: int,
+                     one_mix: bool, valid: int) -> torch.Tensor:
+    """(r, c) f32 table, (r, m) int32 rotations -> (m*c,) f32
+    estimates, zero at positions >= ``valid``. Kernel on CUDA
+    (csrc/sketch.cu ``cet_estimates``), plain version on the CPU."""
+    if table.device.type == "cpu":
+        return estimates_plain(table, rot, c, r, sign_seed, one_mix,
+                               valid)
+    dev = _check_cuda("estimates_kernel", table=(table, torch.float32),
+                      rot=(rot, torch.int32))
+    if tuple(table.shape) != (r, c) or rot.shape[0] != r:
+        raise ValueError(f"estimates_kernel: table {tuple(table.shape)},"
+                         f" rot {tuple(rot.shape)} do not fit r={r}, c={c}")
+    if r > MAX_ROWS:
+        raise ValueError(f"estimates_kernel: r={r} > {MAX_ROWS} rows")
+    m = rot.shape[1]
+    _check_index_range("estimates_kernel", m, c)
+    fn = _build.bind("sketch", "cet_estimates",
+                     [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+                      ctypes.c_longlong, _P])
+    out = torch.empty(m * c, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = fn(table.data_ptr(), rot.data_ptr(), out.data_ptr(), m, c,
+                  r, sign_seed, int(one_mix), valid, _stream(dev))
+    _build.check(code, "cet_estimates")
+    estimates_kernel.launches += 1
+    return out
+
+
+estimates_kernel.launches = 0

@@ -1,0 +1,126 @@
+"""Where the time of one full-width FetchSGD round goes, on the card.
+
+    python -m commefficient_tpu_torch.profile_round [--rounds 8]
+
+Runs the main path's configuration (ResNet9 at full width, bf16,
+Synthetic data, 8 clients x 8 samples, a 5 x 524 288 sketch, k =
+50 000) through FedModel/FedOptimizer and prints JSON lines:
+
+- ``round_wall``: wall seconds per round, data pull included, with no
+  added syncs and no profiler (the round ends when its metrics reach
+  the host);
+- ``phases``: mean seconds per round of the data pull, the client
+  half and the server half, each closed by ``torch.cuda.synchronize``
+  (syncs serialise what would overlap, so these sum to more than a
+  plain round);
+- ``device``: ``torch.profiler`` over as many more rounds: device
+  busy time per round, its share of the profiled wall time, and the
+  kernels and copies with the most device time.
+
+Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from commefficient_tpu_torch.config import parse_args
+from commefficient_tpu_torch.device import resolve_device
+from commefficient_tpu_torch.runtime import FedModel, FedOptimizer
+from commefficient_tpu_torch.train.cv_train import (build_model,
+                                                    get_data_loaders,
+                                                    make_compute_loss)
+
+ARGV = ["--dataset_name", "Synthetic", "--mode", "sketch",
+        "--error_type", "virtual", "--virtual_momentum", "0.9",
+        "--local_momentum", "0", "--num_rows", "5", "--num_cols", "524288",
+        "--k", "50000", "--num_workers", "8", "--local_batch_size", "8",
+        "--bf16", "--seed", "21"]
+
+
+def _device_us(evt) -> float:
+    return float(evt.self_device_time_total)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--rounds", type=int, default=8)
+    ap.add_argument("--top", type=int, default=12)
+    opts = ap.parse_args(argv)
+    args = parse_args(argv=ARGV)
+    device = resolve_device(args.device)
+    train_loader, _, train_ds = get_data_loaders(args)
+    args.num_clients = int(train_ds.num_clients)
+    module, params = build_model(args, device)
+    model = FedModel(module, params, make_compute_loss(module), args)
+    opt = FedOptimizer([{"lr": 0.01}], args)
+
+    def batches():
+        while True:
+            yield from train_loader
+
+    it = batches()
+
+    def one_round(sync=False):
+        marks = [time.perf_counter()]
+        batch = next(it)
+        marks.append(time.perf_counter())
+        model(batch)
+        if sync:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        opt.step()
+        if sync:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return np.diff(marks)
+
+    for _ in range(3):  # warm-up: cuDNN plans, kernel builds
+        one_round(sync=True)
+    torch.cuda.synchronize()
+
+    phases = np.mean([one_round(sync=True) for _ in range(opts.rounds)], 0)
+    print(json.dumps({"phase": "phases", "rounds": opts.rounds,
+                      "data_s": phases[0], "client_s": phases[1],
+                      "server_s": phases[2]}), flush=True)
+
+    walls = []
+    for _ in range(opts.rounds):
+        r0 = time.perf_counter()
+        one_round()
+        walls.append(time.perf_counter() - r0)
+    print(json.dumps({"phase": "round_wall", "seconds": walls,
+                      "median_s": float(np.median(walls))}), flush=True)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(opts.rounds):
+            one_round()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    # kernels and copies only: an aten op's row can repeat its
+    # kernel's device time
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+    busy_us = sum(_device_us(e) for e in events)
+    events.sort(key=_device_us, reverse=True)
+    print(json.dumps({
+        "phase": "device", "window_s": window,
+        "busy_ms_per_round": busy_us / 1e3 / opts.rounds,
+        "busy_share": busy_us / 1e6 / window,
+        "top": [{"name": e.key[:90], "calls": e.count,
+                 "ms_per_round": _device_us(e) / 1e3 / opts.rounds}
+                for e in events[:opts.top]]}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,215 @@
+"""High-level federated runtime: FedModel + FedOptimizer.
+
+Port of ``commefficient_tpu/runtime/fed_model.py`` (``FedModel`` :107,
+``FedOptimizer`` :1214, ``LambdaLR`` :1412), single device, with the
+reference's protocol:
+
+    model = FedModel(module, flat_params, compute_loss, args)
+    opt   = FedOptimizer(param_groups, args)
+    scheduler = LambdaLR(opt, lambda_fn)
+    ...
+    scheduler.step()
+    metrics = model(batch)     # one federated round (client pass)
+    opt.step()                 # server update
+
+and its per-client communication accounting: uploads bill one f32
+sketch table per participating client; downloads bill, per client,
+the coordinates updated since it last participated, tracked as
+per-coordinate ``last_updated`` round indices from the update's
+support. Telemetry, the autopilot, the host client store, pipelined
+dispatch and meshes are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from commefficient_tpu_torch import accounting
+from commefficient_tpu_torch.config import Config
+from commefficient_tpu_torch.core.rounds import (build_client_round,
+                                                 build_server_round)
+from commefficient_tpu_torch.core.server import ServerState
+from commefficient_tpu_torch.device import resolve_device
+
+# the most recently constructed FedModel, found by FedOptimizer(args)
+# as in the reference
+_CURRENT_MODEL: Optional["FedModel"] = None
+
+
+class FedModel:
+    """One federated model and its client-side runtime.
+
+    ``params`` is the flat f32 parameter vector (ravel_pytree order,
+    ops/vec.py). ``compute_loss(flat, batch, args) -> (loss,
+    metrics)`` returns masked-mean values over the last batch axis, so
+    a (W, B, ...) round batch gives per-client (W,) values and an
+    (S, B, ...) validation batch per-shard ones."""
+
+    def __init__(self, module, params: torch.Tensor,
+                 compute_loss: Callable, args: Config,
+                 compute_loss_val: Optional[Callable] = None):
+        global _CURRENT_MODEL
+        args.validate_runtime()
+        self.module = module
+        self.args = args
+        self.device = resolve_device(args.device)
+        self.compute_loss_train = compute_loss
+        self.compute_loss_val = compute_loss_val or compute_loss
+        args.grad_size = int(params.numel())
+        self.ps_weights = params.detach().to(self.device,
+                                             torch.float32).clone()
+
+        num_clients = args.resolved_num_clients
+        assert num_clients is not None, "num_clients unresolved"
+        self.num_clients = num_clients
+
+        def loss_fn(flat, batch):
+            return compute_loss(flat, batch, args)
+
+        self._client_round = build_client_round(args, loss_fn)
+        self.pending_aggregated = None
+        self.round_index = 0
+        self.training = True
+
+        # communication accounting
+        self.last_updated = np.full(args.grad_size, -1, np.int64)
+        self.client_last_seen = np.full(num_clients, -1, np.int64)
+        self._update_round = 0
+        self._rebuild_round_counts()
+        _CURRENT_MODEL = self
+
+    def train(self, training: bool):
+        self.training = training
+
+    def __call__(self, batch):
+        return (self._call_train(batch) if self.training
+                else self._call_val(batch))
+
+    def _to_device(self, batch) -> dict:
+        out = {}
+        for key, val in batch.items():
+            if key == "client_ids":
+                continue
+            t = torch.as_tensor(np.asarray(val))
+            if key == "y":
+                t = t.to(torch.int64)
+            out[key] = t.to(self.device, non_blocking=True)
+        return out
+
+    def _call_train(self, batch):
+        ids_np = np.asarray(batch["client_ids"])
+        res = self._client_round(self.ps_weights, self._to_device(batch))
+        self.pending_aggregated = res.aggregated
+        self.round_index += 1
+        metrics = [m.to("cpu").numpy() for m in res.metrics]
+        down, up = self._account_bytes(ids_np, batch["mask"])
+        return metrics + [down, up]
+
+    def _call_val(self, batch):
+        with torch.no_grad():
+            loss, metrics = self.compute_loss_val(
+                self.ps_weights, self._to_device(batch), self.args)
+        out = [m.to("cpu").numpy() for m in (loss,) + tuple(metrics)]
+        mask = np.asarray(batch["mask"])
+        counts = mask.reshape(mask.shape[0], -1).sum(axis=1)
+        return out + [counts]
+
+    # --- communication accounting ----------------------------------------
+
+    def _rebuild_round_counts(self):
+        """Histogram of ``last_updated`` by round (index = round + 1):
+        #coords changed since a client last synced at round s is the
+        suffix sum from index s + 2."""
+        self._round_counts = np.bincount(
+            self.last_updated + 1,
+            minlength=self._update_round + 2).astype(np.int64)
+
+    def _account_bytes(self, ids_np, mask=None):
+        """Per-round download/upload bytes per client. Clients whose
+        mask rows are all zero uploaded nothing."""
+        download_bytes = np.zeros(self.num_clients)
+        suffix = np.cumsum(self._round_counts[::-1])[::-1]
+        q = self.client_last_seen[ids_np] + 2
+        changed = np.where(
+            q < len(suffix), suffix[np.minimum(q, len(suffix) - 1)], 0)
+        download_bytes[ids_np] = changed * accounting.bytes_of(1, "f32")
+        self.client_last_seen[ids_np] = self._update_round
+        upload_bytes = np.zeros(self.num_clients)
+        up_ids = ids_np
+        if mask is not None:
+            up_ids = ids_np[np.asarray(mask).sum(axis=1) > 0]
+        upload_bytes[up_ids] = float(self.args.upload_wire_bytes_per_client)
+        return download_bytes, upload_bytes
+
+    def note_update(self, support: torch.Tensor):
+        """Record the server update's support (indices of the
+        coordinates it changed) for download accounting."""
+        self._update_round += 1
+        r = self._update_round
+        if len(self._round_counts) < r + 2:
+            self._round_counts = np.concatenate(
+                [self._round_counts,
+                 np.zeros(r + 2 - len(self._round_counts) + 64, np.int64)])
+        idx = support.to("cpu").numpy().astype(np.int64)
+        old = self.last_updated[idx] + 1
+        np.subtract.at(self._round_counts, old, 1)
+        self._round_counts[r + 1] += len(idx)
+        self.last_updated[idx] = r
+
+
+class FedOptimizer:
+    """Server-side optimizer. ``param_groups`` is torch-shaped so LR
+    schedulers port unchanged; one group (a scalar LR) is ported."""
+
+    def __init__(self, param_groups=None, args: Config = None,
+                 model: Optional[FedModel] = None):
+        self.model = model or _CURRENT_MODEL
+        assert self.model is not None, "construct FedModel first"
+        self.args = args or self.model.args
+        if param_groups is None:
+            param_groups = [{"lr": 1.0}]
+        if isinstance(param_groups, dict):
+            param_groups = [param_groups]
+        if len(param_groups) != 1:
+            raise NotImplementedError(
+                "per-group learning rates (Fixup LR groups) are not "
+                "ported")
+        self.param_groups = param_groups
+        self.server_state = ServerState.init(self.args, self.model.device)
+        self._server_round = build_server_round(self.args)
+
+    def get_lr(self):
+        return self.param_groups[0]["lr"]
+
+    def step(self):
+        m = self.model
+        assert m.pending_aggregated is not None, \
+            "call model(batch) before opt.step()"
+        lr = float(self.get_lr())
+        if lr == 0:
+            print("WARNING: LR is 0")
+        new_ps, self.server_state, _, support = self._server_round(
+            m.ps_weights, self.server_state, m.pending_aggregated, lr)
+        m.ps_weights = new_ps
+        m.pending_aggregated = None
+        m.note_update(support)
+
+
+class LambdaLR:
+    """Minimal torch-compatible LR scheduler: lr = base_lr *
+    lr_lambda(step)."""
+
+    def __init__(self, optimizer: FedOptimizer, lr_lambda, base_lrs=None):
+        self.optimizer = optimizer
+        self.lr_lambda = lr_lambda
+        self.base_lrs = base_lrs or [g["lr"]
+                                     for g in optimizer.param_groups]
+        self._step = 0
+
+    def step(self):
+        for g, base in zip(self.optimizer.param_groups, self.base_lrs):
+            g["lr"] = base * self.lr_lambda(self._step)
+        self._step += 1

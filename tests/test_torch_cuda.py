@@ -1,0 +1,70 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips with a reason where torch sees no
+CUDA device (as on the CPU-only test machines). On a machine with a
+card: ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``
+(``--noconftest``: the suite's conftest imports JAX, which the card's
+machine need not have).
+Tolerances: sketch tables |diff| <= 1e-5*max|table| + 1e-6*max|v|
+(the kernel adds in the plain version's order, so they are normally
+equal); estimates and masks exact.
+"""
+
+import pytest
+import torch
+
+from commefficient_tpu_torch.ops import sketch_kernels as sk
+from commefficient_tpu_torch.ops import topk_kernels as tk
+from commefficient_tpu_torch.ops.sketch import CountSketch
+from commefficient_tpu_torch.ops.topk import (_nibble_threshold_key,
+                                              keys_of,
+                                              threshold_topk_mask_1d)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("d,c,r", [(12_345, 1000, 5), (50_000, 4096, 17),
+                                   (9_000, 700, 4)])
+def test_sketch_and_estimates_kernels(dev, d, c, r):
+    s = CountSketch(d=d, c=c, r=r, seed=3)
+    v = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
+    vp = torch.nn.functional.pad(v, (0, s._padded_d - d))
+    rot = s.rotations_on(dev)
+    args = (c, r, s.sign_seed, s._one_mix_signs)
+    before = sk.sketch_kernel.launches
+    tab = sk.sketch_kernel(vp, rot, *args)
+    assert sk.sketch_kernel.launches == before + 1
+    ref = sk.sketch_plain(vp, rot, *args)
+    tol = 1e-5 * float(ref.abs().max()) + 1e-6 * float(v.abs().max())
+    assert float((tab - ref).abs().max()) <= tol
+    for valid in (d, s._padded_d):
+        assert torch.equal(sk.estimates_kernel(tab, rot, *args, valid),
+                           sk.estimates_plain(tab, rot, *args, valid))
+
+
+@pytest.mark.parametrize("d,k", [(70_000, 513), (2 * 2048 + 17, 4000)])
+def test_take_mask_kernel(dev, d, k):
+    sq = torch.rand(d, generator=torch.Generator().manual_seed(d)) ** 2
+    sq[::7] = 0.25  # ties
+    sq = sq.to(dev)
+    mask = threshold_topk_mask_1d(sq, k)
+    assert int(mask.sum()) == k
+    keys = keys_of(sq)
+    t = _nibble_threshold_key(keys, k)
+    need = k - torch.sum(keys > t)
+    assert torch.equal(mask, tk.take_mask_plain(sq, t, need))
+
+
+def test_wrapper_refuses_wrong_dtype(dev):
+    s = CountSketch(d=1000, c=100, r=3)
+    with pytest.raises(TypeError):
+        sk.sketch_kernel(torch.zeros(1000, dtype=torch.float64,
+                                     device=dev),
+                         s.rotations_on(dev), 100, 3, s.sign_seed, True)

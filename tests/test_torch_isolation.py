@@ -1,0 +1,38 @@
+"""The port stands alone: importing ``commefficient_tpu_torch``, every
+module in it and the module part of ``chip_smoke.py`` loads neither
+``jax`` nor anything of the JAX package (checked in a fresh
+interpreter, so this test process's own imports do not count)."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = r"""
+import importlib, importlib.util, pkgutil, sys
+sys.path.insert(0, {root!r})
+import commefficient_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    commefficient_tpu_torch.__path__, "commefficient_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location(
+    "chip_smoke", {smoke!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "flax",
+                                    "commefficient_tpu"))
+print(len(names), bad)
+sys.exit(1 if bad or len(names) < 15 else 0)
+"""
+
+
+def test_port_imports_no_jax():
+    code = PROBE.format(root=ROOT,
+                        smoke=os.path.join(ROOT, "chip_smoke.py"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd="/",
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

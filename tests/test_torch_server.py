@@ -1,0 +1,89 @@
+"""The port's FetchSGD server step against the JAX package's, on the
+same aggregated table and state, on the CPU.
+
+- The update and the selected set: bit-exact (estimates and the
+  threshold mask are exact, the momentum/error sums are elementwise).
+- ``keep = sketched_update == 0``: equal. The port re-sketches the
+  update in another summation order than XLA; a bucket is zero in
+  both only when no selected coordinate lands in it (the exact-zero
+  hazard of core/server.py:334).
+- Vvelocity / Verror: within 1e-6 relative.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from commefficient_tpu.config import Config as JaxConfig
+from commefficient_tpu.core.server import ServerState as JaxState
+from commefficient_tpu.core.server import server_update as jax_update
+from commefficient_tpu.ops.sketch import CountSketch as JaxSketch
+from commefficient_tpu_torch.config import Config
+from commefficient_tpu_torch.core.server import ServerState, server_update
+from commefficient_tpu_torch.ops.sketch import CountSketch
+
+# threshold path (d >= 2^20, dense re-sketch) and the small-d index path
+GEOMS = [(1_200_000, 131_072, 5, 5000), (5000, 500, 5, 50)]
+
+
+def _run(d, c, r, k, warm_state, error_type="virtual"):
+    rng = np.random.RandomState(d % 1000 + warm_state)
+    agg = (rng.randn(r, c) * 1e-3).astype(np.float32)
+    if warm_state:
+        vel, err = ((rng.randn(r, c) * 1e-3).astype(np.float32)
+                    for _ in range(2))
+    else:
+        vel = err = np.zeros((r, c), np.float32)
+    kw = dict(mode="sketch", error_type=error_type, local_momentum=0.0,
+              virtual_momentum=0.9, k=k, num_rows=r, num_cols=c, seed=5,
+              grad_size=d)
+    jres = jax_update(JaxConfig(**kw), jnp.asarray(agg),
+                      JaxState(jnp.asarray(vel), jnp.asarray(err)),
+                      jnp.float32(0.1),
+                      JaxSketch(d=d, c=c, r=r, seed=5, backend="xla"))
+    tres = server_update(Config(device="cpu", **kw), torch.from_numpy(agg),
+                         ServerState(torch.from_numpy(vel.copy()),
+                                     torch.from_numpy(err.copy())),
+                         torch.tensor(0.1, dtype=torch.float32),
+                         CountSketch(d=d, c=c, r=r, seed=5))
+    return jres, tres
+
+
+@pytest.mark.parametrize("d,c,r,k", GEOMS)
+@pytest.mark.parametrize("warm_state", [0, 1])
+def test_server_step_matches(d, c, r, k, warm_state):
+    jres, tres = _run(d, c, r, k, warm_state)
+    jupd = np.asarray(jres.weight_update)
+    tupd = tres.weight_update.numpy()
+    np.testing.assert_array_equal(tupd, jupd)
+    assert (tupd != 0).sum() == k
+    np.testing.assert_array_equal(np.sort(tres.support.numpy()),
+                                  np.nonzero(jupd)[0])
+    for name in ("Vvelocity", "Verror"):
+        jv = np.asarray(getattr(jres.state, name))
+        tv = getattr(tres.state, name).numpy()
+        # keep: the zeroed (transmitted) buckets are the same
+        np.testing.assert_array_equal(tv == 0, jv == 0)
+        np.testing.assert_allclose(tv, jv, rtol=1e-6,
+                                   atol=1e-6 * np.abs(jv).max())
+    assert ((np.asarray(jres.state.Vvelocity) == 0).sum()
+            > 0), "the re-sketch must zero some buckets"
+
+
+def test_error_type_none_gives_zero_update():
+    jres, tres = _run(5000, 500, 5, 50, 1, error_type="none")
+    np.testing.assert_array_equal(tres.weight_update.numpy(),
+                                  np.asarray(jres.weight_update))
+
+
+def test_sparse_resketch_not_ported():
+    d, c, r, k = 200_000, 1000, 5, 10
+    sketch = CountSketch(d=d, c=c, r=r)
+    assert sketch.prefer_sparse_resketch(k)
+    cfg = Config(device="cpu", mode="sketch", error_type="virtual",
+                 local_momentum=0.0, k=k, num_rows=r, num_cols=c,
+                 grad_size=d)
+    z = torch.zeros(r, c)
+    with pytest.raises(NotImplementedError, match="sparse re-sketch"):
+        server_update(cfg, z, ServerState(z, z), torch.tensor(0.1), sketch)
