@@ -5,16 +5,27 @@
 
 Builds the port's CUDA kernels from ``commefficient_tpu_torch/csrc``
 (one ``nvcc`` per source, in parallel), holds each kernel against its
-plain PyTorch version on the card at the shapes of the main path
-(ResNet9, d = 6 584 000, a 5 x 524 288 sketch, k = 50 000), times
-both, then drives the main path -- ``commefficient_tpu_torch.train.
-cv_train.main`` at full width for a few FetchSGD rounds and a
-validation pass -- and checks that every round went through the
-kernels (launch counts 2 sketch / 1 estimates / 1 take-mask per
-round) with a finite loss. Each phase prints one JSON line; a failed
-check raises, so the script exits nonzero before its last line, which
-is ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
-nonzero without one. Imports nothing of JAX.
+plain PyTorch version on the card at the shapes of its main path, times
+both, then drives the two main paths and checks that every round went
+through the kernels:
+
+- ResNet9 (d = 6 584 000, a 5 x 524 288 sketch, k = 50 000):
+  ``commefficient_tpu_torch.train.cv_train.main`` at full width for a
+  few FetchSGD rounds and a validation pass; launch counts 2 sketch /
+  1 estimates / 1 take-mask per round;
+- GPT-2 124M double heads (d = 124 444 417, vocab 50 262) on a
+  PersonaChat-format corpus fabricated offline:
+  ``commefficient_tpu_torch.train.gpt2_train.main`` at full width with
+  the fused cross-entropy kernels (M = 16 320 tokens a round, bf16);
+  launch counts 1 sketch / 1 estimates / 1 take-mask / 1 flce forward /
+  1 flce backward per round, plus one flce forward per validation step.
+
+The sketch, estimates and take-mask kernels are also timed at GPT-2's
+padded_d = 124 780 544, with the nibble threshold search beside them.
+Each phase prints one JSON line; a failed check raises, so the script
+exits nonzero before its last line, which is ``{"ok": true, "device":
+{...}}``. Needs one CUDA card; exits nonzero without one. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -23,29 +34,54 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from commefficient_tpu_torch import _build, profile_round
-from commefficient_tpu_torch.config import Config
+from commefficient_tpu_torch.config import Config, parse_args
 from commefficient_tpu_torch.core.server import ServerState, server_update
+from commefficient_tpu_torch.data.tokenizer import SPECIAL_TOKENS, load_tokenizer
+from commefficient_tpu_torch.ops import flce_kernels as fk
 from commefficient_tpu_torch.ops import sketch_kernels as sk
 from commefficient_tpu_torch.ops import topk_kernels as tk
 from commefficient_tpu_torch.ops.sketch import CountSketch
 from commefficient_tpu_torch.ops.topk import _nibble_threshold_key, keys_of
-from commefficient_tpu_torch.train import cv_train
+from commefficient_tpu_torch.runtime import fed_model
+from commefficient_tpu_torch.train import cv_train, gpt2_train
 
 # main-path geometry (the reference's bench.py config)
 D, C, R, K, SEED = 6_584_000, 524_288, 5, 50_000, 21
-# NVIDIA H100 SXM data sheet: HBM bytes/s, f32 (non-tensor) op/s
-HBM_BPS, F32_OPS = 3.35e12, 67e12
+# NVIDIA H100 SXM data sheet: HBM bytes/s, f32 (non-tensor) op/s,
+# dense bf16 tensor-core op/s
+HBM_BPS, F32_OPS, BF16_OPS = 3.35e12, 67e12, 989e12
 SKETCH_TOL = "1e-5*max|table| + 1e-6*max|v|"
 # the main-path configuration, 4 rounds (0.4 of a 10-round epoch)
 MAIN_ARGV = profile_round.ARGV + ["--num_epochs", "0.4", "--pivot_epoch",
                                   "0.2", "--lr_scale", "0.1"]
 KERNELS = (sk.sketch_kernel, sk.estimates_kernel, tk.take_mask_kernel)
+FLCE = (fk.flce_fwd_kernel, fk.flce_bwd_kernel)
+# GPT-2 124M with the tokenizer's 50 257 + 5 special tokens; one round
+# is W*B*N*(T-1) = 4*8*2*255 predicting tokens
+GPT2_D, GPT2_V, GPT2_C = 124_444_417, 50_262, 768
+GPT2_M = 4 * 8 * 2 * 255
+# the forward's f32 outputs: a few times the summation-order and
+# expf/logf differences (~4e-6 at lse ~ 12); one 64-row vocab tile left
+# out moves lse by ~1e-3
+FLCE_FWD_ATOL = 2e-5
+FLCE_FWD_TOL = "|kernel-plain| <= 2e-5 per token, lse and tok (f32)"
+# the backward's bf16 outputs, held row by row so that the small
+# softmax part of a row is not hidden under a large one-hot part
+# elsewhere. Kernel and plain version each round d to bf16 before the
+# products, from logits summed in another order: a one-ulp flip of a
+# term that dominates a row moves it by up to 2^-7, the output's
+# rounding by up to 2^-8. A dropped softmax term moves a row by 1, one
+# 64-row tile left out of a sum by ~2^-4 at the main path's shapes
+FLCE_BWD_RTOL = 2 ** -6
+FLCE_BWD_TOL = ("||kernel-plain|| <= 2^-6 ||plain|| per row of dX and dW "
+                "(bf16), with the LM loss's cotangents and with g_tok = 0")
 
 
 def emit(obj):
@@ -57,8 +93,11 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def bound(nbytes, ops):
-    t_b, t_o = nbytes / HBM_BPS, ops / F32_OPS
+def bound(nbytes, ops, peak=F32_OPS):
+    """Least time (ms) for ``nbytes`` of device memory traffic and
+    ``ops`` operations at ``peak`` op/s, and which of the two bounds
+    it."""
+    t_b, t_o = nbytes / HBM_BPS, ops / peak
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -79,6 +118,23 @@ def time_ms(fn, reps, flush):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def flce_fwd_err(lse_k, tok_k, lse_p, tok_p):
+    """Largest per-token |kernel - plain| over lse and tok."""
+    return max(float((lse_k - lse_p).abs().max()),
+               float((tok_k - tok_p).abs().max()))
+
+
+def row_rel_err(k, p):
+    """Largest per-row ||k - p|| / ||p|| of two (rows, C) matrices; a
+    row that is zero in ``p`` must be zero in ``k`` (inf otherwise)."""
+    k, p = k.float(), p.float()
+    num = torch.linalg.vector_norm(k - p, dim=1)
+    den = torch.linalg.vector_norm(p, dim=1)
+    rel = torch.where(den > 0, num / den.clamp_min(torch.finfo().tiny),
+                      torch.where(num > 0, math.inf, 0.0))
+    return float(rel.max())
 
 
 def median_ops(r):
@@ -254,6 +310,197 @@ def server_phase(dev):
           "exact": True})
 
 
+def flce_phases(dev, flush, m=GPT2_M, v=GPT2_V, c=GPT2_C):
+    """The fused cross-entropy kernels at the GPT-2 round's shapes (bf16
+    hidden states and tied embedding, labels with ignored positions),
+    each against its plain version on the same inputs."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(m, c, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn(v, c, generator=gen, device=dev) * 0.05).to(
+        torch.bfloat16)
+    lab = torch.randint(0, v, (m,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    lab[::7] = -1  # never matches a vocab id: tok = 0
+    rows = []
+
+    lse_k, tok_k = fk.flce_fwd_kernel(x, w, lab)
+    lse_p, tok_p = fk.flce_fwd_plain(x, w, lab)
+    err = flce_fwd_err(lse_k, tok_k, lse_p, tok_p)
+    check(err <= FLCE_FWD_ATOL,
+          f"flce_fwd: max|kernel-plain| {err} > {FLCE_FWD_ATOL}")
+    check(bool((tok_k[::7] == 0).all()), "flce_fwd: ignored label picked")
+    b_ms, b_by = bound(2 * m * c + 2 * v * c + 4 * m + 8 * m,
+                       2 * m * v * c, BF16_OPS)
+    logits = torch.empty(m, v, dtype=torch.bfloat16, device=dev)
+    rows.append(dict(
+        name="flce_fwd", route="cuda",
+        source="commefficient_tpu_torch/csrc/flce.cu",
+        replaces="commefficient_tpu/ops/flce_pallas.py:200",
+        max_abs_err=err,
+        ms=time_ms(lambda: fk.flce_fwd_kernel(x, w, lab), 5, flush),
+        plain_ms=time_ms(lambda: fk.flce_fwd_plain(x, w, lab), 3, flush),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.matmul(x, w.t(), out=logits), 5,
+                           flush)))
+    emit({"phase": "kernel", **rows[-1], "tolerance": FLCE_FWD_TOL,
+          "shapes": {"M": m, "V": v, "C": c, "dtype": "bfloat16"},
+          "library": "torch.matmul(x, w.T): the logits product alone"})
+
+    # the LM loss's cotangents: nll = lse - tok, so g_tok = -g_lse,
+    # zero at ignored positions. The one-hot part dominates the rows of
+    # dW that labels hit, so a second pass with g_tok = 0 holds the
+    # softmax part alone at its own scale
+    g_lse = torch.rand(m, generator=gen, device=dev) / m
+    g_lse[::7] = 0.0
+    g_tok = -g_lse
+    err, row_err = 0.0, {}
+    for case, gt in (("lm", g_tok), ("softmax", torch.zeros_like(g_tok))):
+        dx_k, dw_k = fk.flce_bwd_kernel(x, w, lab, lse_p, g_lse, gt)
+        dx_p, dw_p = fk.flce_bwd_plain(x, w, lab, lse_p, g_lse, gt)
+        check(dx_k.dtype == dw_k.dtype == torch.bfloat16, "flce_bwd: dtypes")
+        for name, a, b in (("dX", dx_k, dx_p), ("dW", dw_k, dw_p)):
+            e = row_rel_err(a, b)
+            check(e <= FLCE_BWD_RTOL, f"flce_bwd {name} ({case}): per-row "
+                  f"||kernel-plain||/||plain|| {e} > {FLCE_BWD_RTOL}")
+            row_err[f"{name}_{case}"] = e
+            err = max(err, float((a.float() - b.float()).abs().max()))
+        del dx_k, dw_k, dx_p, dw_p
+    b_ms, b_by = bound(2 * (2 * m * c + 2 * v * c) + 4 * m + 12 * m,
+                       6 * m * v * c, BF16_OPS)
+
+    def library_bwd():
+        torch.matmul(x, w.t(), out=logits)
+        torch.matmul(logits, w)
+        torch.matmul(logits.t(), x)
+
+    rows.append(dict(
+        name="flce_bwd", route="cuda",
+        source="commefficient_tpu_torch/csrc/flce.cu",
+        replaces="commefficient_tpu/ops/flce_pallas.py:244",
+        max_abs_err=err,
+        ms=time_ms(lambda: fk.flce_bwd_kernel(x, w, lab, lse_p, g_lse,
+                                              g_tok), 5, flush),
+        plain_ms=time_ms(lambda: fk.flce_bwd_plain(x, w, lab, lse_p, g_lse,
+                                                   g_tok), 3, flush),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(library_bwd, 5, flush)))
+    emit({"phase": "kernel", **rows[-1], "tolerance": FLCE_BWD_TOL,
+          "row_rel_err": row_err,
+          "library": "torch.matmul x3: logits, d.W and d^T.x"})
+    return rows
+
+
+def gpt2_shape_phase(dev, flush):
+    """The sketch, estimates and take-mask kernels at GPT-2's padded_d
+    (inputs far above the 50 MB L2), each against its plain version,
+    and the nibble threshold search that feeds the take-mask."""
+    sketch = CountSketch(d=GPT2_D, c=C, r=R, seed=SEED)
+    m, pd = sketch._m, sketch._padded_d
+    rot = sketch.rotations_on(dev)
+    seed, one_mix = sketch.sign_seed, sketch._one_mix_signs
+    gen = torch.Generator(device=dev).manual_seed(2)
+    vp = torch.nn.functional.pad(
+        torch.randn(GPT2_D, generator=gen, device=dev), (0, pd - GPT2_D))
+    out = {}
+
+    tab_k = sk.sketch_kernel(vp, rot, C, R, seed, one_mix)
+    tab_p = sk.sketch_plain(vp, rot, C, R, seed, one_mix)
+    err = float((tab_k - tab_p).abs().max())
+    tol = 1e-5 * float(tab_p.abs().max()) + 1e-6 * float(vp.abs().max())
+    check(err <= tol, f"sketch at GPT-2 shape: {err} > {tol}")
+    del tab_p
+    b_ms, b_by = bound(4 * pd + 4 * R * m + 4 * R * C, R * pd)
+    out["sketch"] = dict(
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        ms=time_ms(lambda: sk.sketch_kernel(vp, rot, C, R, seed, one_mix),
+                   10, flush),
+        plain_ms=time_ms(lambda: sk.sketch_plain(vp, rot, C, R, seed,
+                                                 one_mix), 3, flush))
+    del vp
+
+    est_k = sk.estimates_kernel(tab_k, rot, C, R, seed, one_mix, GPT2_D)
+    est_p = sk.estimates_plain(tab_k, rot, C, R, seed, one_mix, GPT2_D)
+    check(torch.equal(est_k, est_p), "estimates at GPT-2 shape")
+    del est_p
+    b_ms, b_by = bound(4 * R * C + 4 * R * m + 4 * pd, median_ops(R) * pd)
+    out["estimates"] = dict(
+        max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+        ms=time_ms(lambda: sk.estimates_kernel(tab_k, rot, C, R, seed,
+                                               one_mix, GPT2_D), 10, flush),
+        plain_ms=time_ms(lambda: sk.estimates_plain(
+            tab_k, rot, C, R, seed, one_mix, GPT2_D), 3, flush))
+
+    # the server's selection runs over the padded estimates (tail zero)
+    sq = (est_k * est_k).contiguous()
+    del est_k
+
+    def search():
+        keys = keys_of(sq)
+        t = _nibble_threshold_key(keys, K)
+        return t, K - torch.sum(keys > t)
+
+    t, need = search()
+    nibble_ms = time_ms(search, 5, flush)
+    mk = tk.take_mask_kernel(sq, t, need)
+    check(torch.equal(mk, tk.take_mask_plain(sq, t, need)),
+          "take_mask at GPT-2 shape")
+    check(int(mk.sum()) == K, "take_mask at GPT-2 shape: count")
+    b_ms, b_by = bound(4 * pd + pd + 16, 2 * pd)
+    out["take_mask"] = dict(
+        max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+        ms=time_ms(lambda: tk.take_mask_kernel(sq, t, need), 10, flush),
+        plain_ms=time_ms(lambda: tk.take_mask_plain(sq, t, need), 3,
+                         flush))
+    emit({"phase": "gpt2_shapes", "d": GPT2_D, "padded_d": pd, "r": R,
+          "c": C, "k": K, "kernels": out,
+          "nibble_search_ms": nibble_ms,
+          "nibble_search": "keys_of + _nibble_threshold_key + need, "
+                           "plain torch"})
+    return out
+
+
+def gpt2_main_path():
+    """Fabricates the vocabulary and a corpus of 4 rounds (16 clients x
+    8 items) with the port's own functions, then runs one epoch through
+    ``gpt2_train.main`` and checks losses and launch counts."""
+    with tempfile.TemporaryDirectory(prefix="gpt2_smoke_") as root:
+        data_dir, vocab_dir = gpt2_train.fabricate_assets(root)
+        argv = profile_round.gpt2_argv(data_dir, vocab_dir)
+        args = parse_args(default_lr=4e-2, argv=argv)
+        tok = load_tokenizer(vocab_dir)
+        tok.add_special_tokens(SPECIAL_TOKENS)
+        _, val_loader, _ = gpt2_train.get_data_loaders(args, tok)
+        val_steps = len(val_loader)
+        for kern in KERNELS + FLCE:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        results = gpt2_train.main(argv)
+        wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in KERNELS + FLCE}
+    d = fed_model._CURRENT_MODEL.args.grad_size
+    check(len(results) == 1, f"{len(results)} epochs ran, want 1")
+    row = results[-1]
+    rounds = len(row["round_times"])
+    for key in ("train_loss", "val_nll", "val_ppl", "val_acc"):
+        check(math.isfinite(row[key]), f"{key} = {row[key]}")
+    check(3 <= rounds <= 5, f"{rounds} rounds ran, want 3-5")
+    check(d == GPT2_D, f"GPT-2 flat size {d}, want {GPT2_D}")
+    want = {"sketch_kernel": rounds, "estimates_kernel": rounds,
+            "take_mask_kernel": rounds,
+            "flce_fwd_kernel": rounds + val_steps,
+            "flce_bwd_kernel": rounds}
+    check(counts == want, f"GPT-2 launch counts {counts}, want {want}")
+    emit({"phase": "gpt2_main_path", "argv_tail": argv[6:], "d": d,
+          "rounds": rounds, "val_steps": val_steps, "launches": counts,
+          "round_seconds": row["round_times"],
+          "train_loss": row["train_loss"], "val_nll": row["val_nll"],
+          "val_ppl": row["val_ppl"], "val_acc": row["val_acc"],
+          "up_MiB": row["up (MiB)"], "down_MiB": row["down (MiB)"],
+          "wall_seconds": wall,
+          "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30})
+    return counts
+
+
 def main_path():
     for kern in KERNELS:
         kern.launches = 0
@@ -303,19 +550,34 @@ def main():
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     rows = kernel_phases(dev, flush)
+    rows += flce_phases(dev, flush)
+    torch.cuda.empty_cache()
+    gpt2_shapes = gpt2_shape_phase(dev, flush)
     del flush
     edge_phases(dev)
     server_phase(dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     counts = main_path()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gpt2_counts = gpt2_main_path()
 
-    for row in rows:
-        row["launches"] = counts[f"{row['name']}_kernel"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
+    table = []
+    for row in rows:
+        kern = f"{row['name']}_kernel"
+        # launches: the main path that runs the kernel (ResNet9 for the
+        # sketch kernels, with their GPT-2 numbers beside; GPT-2 for flce)
+        row["launches"] = counts.get(kern, gpt2_counts[kern])
+        entry = {k: row[k] for k in keys}
+        if row["name"] in gpt2_shapes:
+            entry["gpt2"] = dict(gpt2_shapes[row["name"]],
+                                 launches=gpt2_counts[kern])
+        table.append(entry)
+    emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -45,16 +45,14 @@ NOT_PORTED_FLAGS = (
     "--topk_down", "--num_fedavg_epochs", "--fedavg_batch_size",
     "--fedavg_lr_decay", "--port", "--num_devices", "--share_ps_gpu",
     "--train_dataloader_workers", "--val_dataloader_workers",
-    "--model_checkpoint", "--num_candidates", "--val_candidates",
-    "--max_history", "--microbatch_size", "--lm_coef", "--mc_coef",
-    "--max_grad_norm", "--personality_permutations",
-    "--eval_before_start", "--dp", "--dp_clip", "--dp_noise_mult",
+    "--microbatch_size", "--max_grad_norm", "--dp", "--dp_clip",
+    "--dp_noise_mult",
     "--dp_delta", "--dp_epsilon", "--do_dp", "--dp_mode",
     "--l2_norm_clip", "--noise_multiplier", "--mesh", "--param_dtype",
     "--compute_dtype", "--approx_topk", "--approx_recall",
     "--pipeline_depth", "--hf_export", "--coordinator_address",
-    "--num_processes", "--process_id", "--remat", "--tokens_per_chunk",
-    "--fused_ce", "--attn_impl", "--sketch_dtype", "--downlink_encoding",
+    "--num_processes", "--process_id", "--remat", "--attn_impl",
+    "--sketch_dtype", "--downlink_encoding",
     "--overlap_depth", "--client_chunk", "--clientstore",
     "--clientstore_bytes", "--clientstore_dir", "--ledger",
     "--telemetry_console", "--probe_every", "--probe_full",
@@ -123,6 +121,21 @@ class Config:
     local_batch_size: int = 8
     valid_batch_size: int = 8
 
+    # GPT-2 / PersonaChat (reference config.py:131-147, 294-301)
+    model_checkpoint: str = "gpt2"
+    num_candidates: int = 2
+    # candidates evaluated at validation; 0 = the most any val item has
+    val_candidates: int = 0
+    max_history: int = 2
+    lm_coef: float = 1.0
+    mc_coef: float = 1.0
+    personality_permutations: int = 1
+    eval_before_start: bool = False
+    # tokens per logits chunk of the chunked LM loss (0 = auto, 1024)
+    tokens_per_chunk: int = 0
+    # fused tied-head cross-entropy kernels (ops/flce.py): auto|on|off
+    fused_ce: str = "off"
+
     # Synthetic dataset dials (reference config.py:210-227)
     classes_per_client: int = 1
     synthetic_per_class: int = 64
@@ -145,6 +158,10 @@ class Config:
         assert self.mode in MODES, self.mode
         assert self.error_type in ERROR_TYPES, self.error_type
         assert self.device in ("cuda", "cpu"), self.device
+        assert self.tokens_per_chunk >= 0, \
+            "--tokens_per_chunk must be >= 0 (0 = auto)"
+        assert self.fused_ce in ("auto", "on", "off"), \
+            "--fused_ce must be auto|on|off"
         if self.mode == "fedavg":
             assert self.local_batch_size == -1, \
                 "fedavg requires --local_batch_size -1"
@@ -256,6 +273,18 @@ def build_parser(default_lr: Optional[float] = None
 
     parser.add_argument("--local_batch_size", type=int, default=8)
     parser.add_argument("--valid_batch_size", type=int, default=8)
+
+    parser.add_argument("--model_checkpoint", type=str, default="gpt2")
+    parser.add_argument("--num_candidates", type=int, default=2)
+    parser.add_argument("--val_candidates", type=int, default=0)
+    parser.add_argument("--max_history", type=int, default=2)
+    parser.add_argument("--lm_coef", type=float, default=1.0)
+    parser.add_argument("--mc_coef", type=float, default=1.0)
+    parser.add_argument("--personality_permutations", type=int, default=1)
+    parser.add_argument("--eval_before_start", action="store_true")
+    parser.add_argument("--tokens_per_chunk", type=int, default=0)
+    parser.add_argument("--fused_ce", type=str, default="off",
+                        choices=["auto", "on", "off"])
 
     parser.add_argument("--classes_per_client", type=int, default=1)
     parser.add_argument("--synthetic_per_class", type=int, default=64)

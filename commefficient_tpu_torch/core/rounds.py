@@ -6,7 +6,8 @@ Port of the single-device sketch-mode path of
 ``fused_grad_eligible`` :138, ``round_plan`` :153, ``args2sketch``
 :218), the fused client round (``_fused_local`` :500 and the
 single-device branch of ``client_round_fused`` :741) and the server
-round (``build_server_round`` :1340, dense re-sketch branch).
+round (``build_server_round`` :1340, with the k-sized scatter of the
+sparse re-sketch branch).
 
 Batch layout: a dict of (W, B, ...) tensors with a (W, B) float "mask"
 marking real samples. The client round runs ONE forward/backward over
@@ -129,7 +130,10 @@ def build_server_round(cfg: Config) -> Callable:
     """Returns ``server_round(ps_weights, server_state, aggregated,
     lr) -> (new_ps_weights, new_server_state, weight_update,
     support)``; ``support`` holds the indices of the coordinates the
-    update changed (download accounting)."""
+    update changed (download accounting), or on the sparse re-sketch
+    branch ((k,) indices, (k,) lr-scaled values), where
+    ``weight_update`` is None and the update is applied as a k-sized
+    scatter instead of a dense (d,) subtraction."""
     cfg.validate_runtime()
     sketch = args2sketch(cfg)
 
@@ -138,7 +142,15 @@ def build_server_round(cfg: Config) -> Callable:
         lr = torch.as_tensor(lr, dtype=torch.float32,
                              device=ps_weights.device)
         res = server_update(cfg, aggregated, server_state, lr, sketch)
-        return (ps_weights - res.weight_update, res.state,
-                res.weight_update, res.support)
+        if res.weight_update is None:
+            # the indices are sorted and unique, so each coordinate
+            # takes one subtraction: ps[idx] - scaled, as the
+            # reference's ordered scatter-add of -scaled
+            idx, scaled = res.support
+            new_ps = ps_weights.clone()
+            new_ps[idx] = ps_weights[idx] - scaled
+        else:
+            new_ps = ps_weights - res.weight_update
+        return new_ps, res.state, res.weight_update, res.support
 
     return server_round

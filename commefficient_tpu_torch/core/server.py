@@ -2,7 +2,9 @@
 unsketching.
 
 Port of the sketch-mode parts of ``commefficient_tpu/core/server.py``
-(``ServerState`` :28, ``server_update`` :146, ``_sketched`` :279).
+(``ServerState`` :28, ``_lr_scaled_support`` :124, ``server_update``
+:146, ``_sketched`` :279, with its dense and its sparse re-sketch
+branches).
 ``gradient`` is the round's aggregated quantity: the (r, c) sketch
 table of the client-transmit sum divided by the round's total
 datapoint count. Functions return new tensors; nothing is updated in
@@ -33,12 +35,20 @@ class ServerState(NamedTuple):
 
 
 class ServerUpdate(NamedTuple):
-    # subtract from ps_weights (already lr-scaled)
-    weight_update: torch.Tensor
+    # subtract from ps_weights (already lr-scaled); None on the sparse
+    # re-sketch branch, where ``support`` carries the update
+    weight_update: Optional[torch.Tensor]
     state: ServerState
-    # (n,) int64 indices of the coordinates the lr-scaled update changes
-    # (nonzero), on the device: download accounting reads only these
-    support: torch.Tensor
+    # dense branch: (n,) int64 indices of the coordinates the lr-scaled
+    # update changes (nonzero); sparse branch: ((k,) ascending indices,
+    # (k,) lr-scaled values). On the device; download accounting reads
+    # only these
+    support: object
+
+
+def _lr_scaled_support(idx, vals, lr):
+    """Support of the weight update: its values scaled by the LR."""
+    return idx, vals * lr
 
 
 def server_update(cfg: Config, gradient: torch.Tensor, state: ServerState,
@@ -72,26 +82,36 @@ def _sketched(cfg: Config, sketched_grad: torch.Tensor,
     else:  # "none": Verror stays zero forever -> zero updates
         Verr = state.Verror
 
-    if sketch.prefer_sparse_resketch(cfg.k):
-        raise NotImplementedError(
-            "sparse re-sketch (d > 90*r*k, the reference's "
-            "sketch_sparse path) is not ported")
-    if sketch.prefer_threshold_unsketch(cfg.k):
+    # At large d (d > 90*r*k) the k-sparse form wins: the recovered
+    # update is re-sketched by O(r*k) scatter-adds and never exists as
+    # a dense (d,) vector. Otherwise exact recovery goes through the
+    # threshold mask (dense regime) or the index path.
+    sparse = sketch.prefer_sparse_resketch(cfg.k)
+    if sketch.prefer_threshold_unsketch(cfg.k):  # implies not sparse
         update, _ = sketch.unsketch_dense_mask(Verr, k=cfg.k)
+    elif sparse:
+        _, idx, vals = sketch.unsketch(Verr, k=cfg.k, with_support=True,
+                                       with_dense=False)
     else:
         update = sketch.unsketch(Verr, k=cfg.k)
 
     # re-sketch the recovered update to find which table buckets it
     # occupies; a bucket is kept only where no selected coordinate
-    # landed (exact zero: contributions of real values never cancel)
-    keep = sketch.sketch(update) == 0
+    # landed (exact zero: contributions of real values cancel only by
+    # exact cancellation, whatever the order of the scatter's sums)
+    sketched_update = (sketch.sketch_sparse(idx, vals) if sparse
+                       else sketch.sketch(update))
+    keep = sketched_update == 0
     zero = torch.zeros((), dtype=torch.float32, device=Verr.device)
     if cfg.error_type == "virtual":
         Verr = torch.where(keep, Verr, zero)
     Vvel = torch.where(keep, Vvel, zero)
     if cfg.error_type == "local":
         Verr = Vvel
+    state = ServerState(Vvel, Verr)
 
+    if sparse:
+        return ServerUpdate(None, state, _lr_scaled_support(idx, vals, lr))
     weight_update = update * lr
     support = torch.nonzero(weight_update).flatten()
-    return ServerUpdate(weight_update, ServerState(Vvel, Verr), support)
+    return ServerUpdate(weight_update, state, support)

@@ -1,7 +1,10 @@
-"""Round-batch construction (numpy-only copy of ``FedLoader`` and
-``ValLoader`` from ``commefficient_tpu/data/loader.py``): sampler
-output -> fixed-shape padded batches, client axis first, with a (W, B)
-mask for ragged clients."""
+"""Round-batch construction (numpy-only copy of ``FedLoader``,
+``ValLoader``, ``PersonaFedLoader`` and ``PersonaValLoader`` from
+``commefficient_tpu/data/loader.py``): sampler output -> fixed-shape
+padded batches, client axis first, with a (W, B) mask for ragged
+clients. The PersonaChat loaders build each batch synchronously (the
+reference's background prefetch thread is not ported); the items and
+every RNG stream are the reference's."""
 
 from __future__ import annotations
 
@@ -11,7 +14,8 @@ import numpy as np
 
 from commefficient_tpu_torch.utils import steps_per_epoch
 
-__all__ = ["FedLoader", "ValLoader"]
+__all__ = ["FedLoader", "ValLoader", "PersonaFedLoader",
+           "PersonaValLoader"]
 
 
 class FedLoader:
@@ -94,3 +98,80 @@ class ValLoader:
                 y[s, j] = target
                 mask[s, j] = 1.0
             yield {"x": x, "y": y, "mask": mask}
+
+
+class PersonaFedLoader(FedLoader):
+    """PersonaChat rounds (reference loader.py:226-336): ``client_ids``
+    (W,), ``input_ids`` / ``token_type_ids`` / ``lm_labels`` (W, B, N,
+    T) i32 (``lm_labels`` padded with -1), ``mc_token_ids`` (W, B, N),
+    ``mc_labels`` (W, B) and ``mask`` (W, B) f32."""
+
+    def __init__(self, dataset, sampler, num_candidates: int,
+                 max_seq_len: int, pad_id: int = 0):
+        super().__init__(dataset, sampler)
+        self.N, self.T, self.pad_id = num_candidates, max_seq_len, pad_id
+
+    def collate(self, round_spec) -> dict:
+        from commefficient_tpu_torch.data.fed_persona import persona_collate
+        W, B, N, T = self.W, self.B, self.N, self.T
+        batch = {
+            "input_ids": np.zeros((W, B, N, T), np.int32),
+            "token_type_ids": np.zeros((W, B, N, T), np.int32),
+            "lm_labels": np.full((W, B, N, T), -1, np.int32),
+            "mc_token_ids": np.zeros((W, B, N), np.int32),
+            "mc_labels": np.zeros((W, B), np.int32),
+            "mask": np.zeros((W, B), np.float32),
+        }
+        ids = np.zeros((W,), np.int32)
+        for i, (cid, idxs) in enumerate(round_spec):
+            ids[i] = cid
+            records = [self.dataset[int(ix)] for ix in idxs[:B]]
+            assert all(r[0] == cid for r in records)
+            _, arrs = persona_collate(records, N, T, self.pad_id)
+            n = len(records)
+            for k in ("input_ids", "token_type_ids", "lm_labels",
+                      "mc_token_ids", "mc_labels"):
+                batch[k][i, :n] = arrs[k]
+            batch["mask"][i, :n] = 1.0
+        batch["client_ids"] = ids
+        return batch
+
+
+class PersonaValLoader(ValLoader):
+    """PersonaChat validation shards (reference loader.py:338-417): the
+    arrays of ``PersonaFedLoader`` with a shard axis S first, plus
+    ``cand_mask`` (S, B, N), 1 on real candidate slots."""
+
+    def __init__(self, dataset, valid_batch_size: int,
+                 num_candidates: int, max_seq_len: int, pad_id: int = 0,
+                 shards_per_step: int = 8):
+        super().__init__(dataset, valid_batch_size, shards_per_step)
+        self.N, self.T, self.pad_id = num_candidates, max_seq_len, pad_id
+
+    def __iter__(self):
+        from commefficient_tpu_torch.data.fed_persona import persona_collate
+        S, B, N, T = self.S, self.B, self.N, self.T
+        n_items = len(self.dataset)
+        for start in range(0, n_items, B * S):
+            idxs = np.arange(start, min(start + B * S, n_items))
+            batch = {
+                "input_ids": np.zeros((S, B, N, T), np.int32),
+                "token_type_ids": np.zeros((S, B, N, T), np.int32),
+                "lm_labels": np.full((S, B, N, T), -1, np.int32),
+                "mc_token_ids": np.zeros((S, B, N), np.int32),
+                "mc_labels": np.zeros((S, B), np.int32),
+                "cand_mask": np.zeros((S, B, N), np.float32),
+                "mask": np.zeros((S, B), np.float32),
+            }
+            for s in range(S):
+                rows = idxs[s * B:(s + 1) * B]
+                if len(rows) == 0:
+                    break
+                records = [self.dataset[int(ix)] for ix in rows]
+                _, arrs = persona_collate(records, N, T, self.pad_id)
+                n = len(records)
+                for k in ("input_ids", "token_type_ids", "lm_labels",
+                          "mc_token_ids", "mc_labels", "cand_mask"):
+                    batch[k][s, :n] = arrs[k]
+                batch["mask"][s, :n] = 1.0
+            yield batch

@@ -1,7 +1,8 @@
 """Model registry (port of ``commefficient_tpu/models/__init__.py``).
 
-Only ResNet9 is ported; the reference's other model names are known
-so that asking for one raises ``NotImplementedError`` naming it.
+ResNet9 and GPT2DoubleHeads are ported; the reference's other model
+names are known so that asking for one raises ``NotImplementedError``
+naming it.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ _REGISTRY = {}
 
 # the reference's registered models that the port does not have yet
 NOT_PORTED = ("FixupResNet9", "FixupResNet50", "ResNet18",
-              "FixupResNet18", "GPT2DoubleHeads", "ResNet101LN",
+              "FixupResNet18", "ResNet101LN",
               "resnet18", "resnet34", "resnet50", "resnet101",
               "resnet152", "resnext50_32x4d", "resnext101_32x8d",
               "wide_resnet50_2", "wide_resnet101_2")
@@ -24,7 +25,7 @@ def register_model(name: str):
 
 
 def _ensure_loaded():
-    from commefficient_tpu_torch.models import resnet9  # noqa: F401
+    from commefficient_tpu_torch.models import gpt2, resnet9  # noqa: F401
 
 
 def get_model(name: str):

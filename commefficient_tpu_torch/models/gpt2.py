@@ -1,0 +1,285 @@
+"""GPT-2 with double heads (LM + multiple-choice).
+
+Port of ``commefficient_tpu/models/gpt2.py`` (``GPT2Config`` :35,
+``MLP`` :82, ``CausalSelfAttention`` :95 with its XLA branch,
+``Block`` :149, ``GPT2Transformer`` :164, ``GPT2DoubleHeads`` :190,
+``token_nll`` :243, ``lm_nll_sums_chunked`` :257).
+
+As for ResNet9, the parameters are not registered on the modules:
+``forward(flat, ...)`` views the flat f32 vector (``ops/vec.py``,
+ravel_pytree order) as the flax leaves. Sorted keys put ``mc_head``
+before ``transformer`` and the blocks in the order h_0, h_1, h_10,
+h_11, h_2, ...; Dense kernels stay (in, out).
+
+Numerics follow the flax model: GELU in its tanh form; causal
+attention with scale hd^-1/2 and no padding mask, its scores and
+softmax in f32; ``token_type_ids`` index ``wte``, so ``wte``'s
+gradient gets embedding, token-type and tied-head terms; the MC head
+reads the hidden state at ``clip(mc_token_ids, 0, T-1)`` and computes
+in f32. With ``dtype=torch.bfloat16`` (``--bf16``) the residual stream
+and the LayerNorms stay f32, Dense layers compute in bf16 and LM
+logits accumulate in f32.
+
+Flash attention, rematerialisation, sequence parallelism and the HF
+export are not ported (their flags raise at parse time).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from commefficient_tpu_torch.models import register_model
+from commefficient_tpu_torch.ops.vec import (flat_size, flatten_params,
+                                             ravel_order, unravel)
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    layer_norm_epsilon: float = 1e-5
+    initializer_range: float = 0.02
+    # computation dtype of the Dense layers (parameters stay float32)
+    dtype: torch.dtype = torch.float32
+
+    @staticmethod
+    def tiny() -> "GPT2Config":
+        """Test-scale config (the reference's ``GPT2Config.tiny``)."""
+        return GPT2Config(vocab_size=256, n_positions=64, n_embd=32,
+                          n_layer=2, n_head=2)
+
+
+def _dense_shapes(n_in, n_out):
+    return {"kernel": (n_in, n_out), "bias": (n_out,)}
+
+
+def _ln_shapes(n):
+    return {"scale": (n,), "bias": (n,)}
+
+
+def _dense(x, p, dtype):
+    """flax ``nn.Dense(dtype=dtype)``: input, kernel and bias cast to
+    ``dtype``, (in, out) kernel."""
+    return F.linear(x.to(dtype), p["kernel"].to(dtype).t(),
+                    p["bias"].to(dtype))
+
+
+def _layer_norm(x, p, eps):
+    return F.layer_norm(x, x.shape[-1:], p["scale"], p["bias"], eps)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.cfg = cfg
+
+    def leaf_shapes(self):
+        c = self.cfg.n_embd
+        return {"c_fc": _dense_shapes(c, 4 * c),
+                "c_proj": _dense_shapes(4 * c, c)}
+
+    def forward(self, p, x):
+        h = F.gelu(_dense(x, p["c_fc"], self.cfg.dtype), approximate="tanh")
+        return _dense(h, p["c_proj"], self.cfg.dtype)
+
+
+class CausalSelfAttention(nn.Module):
+    """One fused qkv projection, causal softmax attention (the
+    reference's ``jax.nn.dot_product_attention`` branch: f32 scores
+    from the compute-type q, k, f32 softmax, probabilities cast back
+    to the compute type before the value product)."""
+
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.cfg = cfg
+
+    def leaf_shapes(self):
+        c = self.cfg.n_embd
+        return {"c_attn": _dense_shapes(c, 3 * c),
+                "c_proj": _dense_shapes(c, c)}
+
+    def forward(self, p, x):
+        b, t, c = x.shape
+        h = self.cfg.n_head
+        qkv = _dense(x, p["c_attn"], self.cfg.dtype)
+        q, k, v = (z.reshape(b, t, h, c // h).transpose(1, 2)
+                   for z in qkv.split(c, dim=-1))
+        scores = (q.float() @ k.float().transpose(-1, -2)) \
+            * (c // h) ** -0.5
+        causal = torch.ones(t, t, dtype=torch.bool,
+                            device=x.device).tril()
+        scores = scores.masked_fill(~causal, float("-inf"))
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        out = (probs @ v).transpose(1, 2).reshape(b, t, c)
+        return _dense(out, p["c_proj"], self.cfg.dtype)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.cfg = cfg
+        self.attn = CausalSelfAttention(cfg)
+        self.mlp = MLP(cfg)
+
+    def leaf_shapes(self):
+        c = self.cfg.n_embd
+        return {"attn": self.attn.leaf_shapes(), "ln_1": _ln_shapes(c),
+                "ln_2": _ln_shapes(c), "mlp": self.mlp.leaf_shapes()}
+
+    def forward(self, p, x):
+        eps = self.cfg.layer_norm_epsilon
+        dt = self.cfg.dtype
+        x = x + self.attn(p["attn"], _layer_norm(x, p["ln_1"], eps).to(dt))
+        x = x + self.mlp(p["mlp"], _layer_norm(x, p["ln_2"], eps).to(dt))
+        return x
+
+
+class GPT2Transformer(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.cfg = cfg
+        self.block = Block(cfg)  # stateless: one instance serves h_i
+
+    def leaf_shapes(self):
+        cfg = self.cfg
+        shapes = {f"h_{i}": self.block.leaf_shapes()
+                  for i in range(cfg.n_layer)}
+        shapes.update(ln_f=_ln_shapes(cfg.n_embd),
+                      wpe=(cfg.n_positions, cfg.n_embd),
+                      wte=(cfg.vocab_size, cfg.n_embd))
+        return shapes
+
+    def forward(self, p, input_ids, token_type_ids=None):
+        cfg = self.cfg
+        t = input_ids.shape[1]
+        wte = p["wte"]
+        h = F.embedding(input_ids.long(), wte) + p["wpe"][:t][None]
+        if token_type_ids is not None:
+            # token types index the same embedding table, GPT-2 style
+            h = h + F.embedding(token_type_ids.long(), wte)
+        for i in range(cfg.n_layer):
+            h = self.block(p[f"h_{i}"], h)
+        return _layer_norm(h, p["ln_f"], cfg.layer_norm_epsilon), wte
+
+
+@register_model("GPT2DoubleHeads")
+class GPT2DoubleHeads(nn.Module):
+    """LM logits + per-candidate MC logits. ``return_hidden=True``
+    returns the final hidden states and the tied embedding instead of
+    the LM logits, for the chunked or fused LM loss."""
+
+    def __init__(self, cfg: GPT2Config = GPT2Config()):
+        super().__init__()
+        self.cfg = cfg
+        self.transformer = GPT2Transformer(cfg)
+
+    def leaf_shapes(self):
+        return {"mc_head": _dense_shapes(self.cfg.n_embd, 1),
+                "transformer": self.transformer.leaf_shapes()}
+
+    @property
+    def num_params(self) -> int:
+        return flat_size(self.leaf_shapes())
+
+    def init_flat(self, seed: int, device="cpu") -> torch.Tensor:
+        """Random flat parameters from ``seed`` with flax's initializers:
+        normal(0, initializer_range) for Dense kernels and embeddings,
+        zero biases, unit LayerNorm scales. Drawn on the CPU from a
+        seeded generator; the draws differ from jax.random's (tests
+        carry JAX weights over with ``from_jax_params``)."""
+        gen = torch.Generator().manual_seed(int(seed))
+        parts = []
+        for path, shape in ravel_order(self.leaf_shapes()):
+            n = math.prod(shape)
+            if path[-1] == "bias":
+                parts.append(torch.zeros(n))
+            elif path[-1] == "scale":
+                parts.append(torch.ones(n))
+            else:
+                parts.append(torch.randn(n, generator=gen)
+                             * self.cfg.initializer_range)
+        return torch.cat(parts).to(device)
+
+    def from_jax_params(self, params_np: dict, device="cpu") -> torch.Tensor:
+        """The JAX package's flax parameter tree, as numpy arrays -> the
+        port's flat vector (bit-identical to ravel_pytree)."""
+        want = [(p, tuple(s)) for p, s in ravel_order(self.leaf_shapes())]
+        got = [(p, tuple(a.shape)) for p, a in ravel_order(params_np)]
+        if want != got:
+            raise ValueError(f"parameter tree mismatch: {got} != {want}")
+        return flatten_params(params_np, device)
+
+    def forward(self, flat, input_ids, mc_token_ids, token_type_ids=None,
+                return_hidden=False):
+        """input_ids / token_type_ids (B, N, T), mc_token_ids (B, N) ->
+        (lm_logits (B, N, T, V) f32, mc_logits (B, N) f32), or with
+        ``return_hidden`` ((B*N, T, C) hidden states, wte, mc_logits)."""
+        p = unravel(flat, self.leaf_shapes())
+        b, n, t = input_ids.shape
+        tt = (token_type_ids.reshape(b * n, t)
+              if token_type_ids is not None else None)
+        h, wte = self.transformer(p["transformer"],
+                                  input_ids.reshape(b * n, t), tt)
+        h4 = h.reshape(b, n, t, -1)
+        idx = torch.clamp(mc_token_ids.long(), 0, t - 1)
+        cls_h = torch.gather(
+            h4, 2, idx[..., None, None].expand(b, n, 1, h4.shape[-1]))[:, :, 0]
+        mc = p["mc_head"]
+        mc_logits = (cls_h @ mc["kernel"] + mc["bias"])[..., 0]
+        if return_hidden:
+            return h, wte, mc_logits
+        dt = self.cfg.dtype
+        lm_logits = h.to(dt).float() @ wte.to(dt).float().t()
+        return lm_logits.reshape(b, n, t, -1), mc_logits
+
+
+def token_nll(logits, labels, ignore_index=-100):
+    """(..., T, V) logits + (..., T) labels -> ((..., T) f32 NLL,
+    (..., T) f32 validity), by logsumexp minus the label's logit."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).long()
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    tok = torch.gather(logits, -1, safe[..., None])[..., 0].float()
+    return lse - tok, valid.to(torch.float32)
+
+
+def _chunk_sums(hc, lc, wf, ignore_index):
+    nll, valid = token_nll(hc @ wf.t(), lc, ignore_index)
+    return torch.sum(nll * valid, -1), torch.sum(valid, -1)
+
+
+def lm_nll_sums_chunked(h, wte, labels, dtype, ignore_index=-100,
+                        tokens_per_chunk=1024):
+    """Per-example (Σ nll, Σ valid) of the tied-head LM cross-entropy
+    without the whole (E, T, V) logits tensor: the tokens go through
+    in chunks of ``tokens_per_chunk // E`` positions, each chunk's
+    logits recomputed in the backward (``torch.utils.checkpoint``, as
+    the reference's ``jax.checkpoint``). ``h`` (E, Tm, C) are the
+    final hidden states at the predicting positions, ``labels`` (E,
+    Tm) the shifted targets. The operands are rounded to ``dtype`` and
+    multiplied in f32 (the reference's bf16 product with f32
+    accumulation)."""
+    e, tm, _ = h.shape
+    tc = max(1, min(tm, tokens_per_chunk // max(e, 1)))
+    hf = h.to(dtype).float()
+    wf = wte.to(dtype).float()
+    sn = torch.zeros(e, dtype=torch.float32, device=h.device)
+    sv = torch.zeros(e, dtype=torch.float32, device=h.device)
+    for i in range(0, tm, tc):
+        hc, lc = hf[:, i:i + tc], labels[:, i:i + tc]
+        if torch.is_grad_enabled():
+            n, v = checkpoint(_chunk_sums, hc, lc, wf, ignore_index,
+                              use_reentrant=False)
+        else:
+            n, v = _chunk_sums(hc, lc, wf, ignore_index)
+        sn, sv = sn + n, sv + v
+    return sn, sv

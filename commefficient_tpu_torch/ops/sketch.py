@@ -178,7 +178,7 @@ class CountSketch:
         """(buckets, signs) of int coordinate indices: buckets int64
         (r, n) in [0, c); signs float32 (r, n) in {+-1}."""
         i = idx.to(torch.int64)
-        rot = torch.as_tensor(self._rotations(), device=i.device)
+        rot = self.rotations_on(i.device).to(torch.int64)
         t = i // self.c
         j = i % self.c
         buckets = (j[None, :] + rot[:, t]) % self.c
@@ -224,20 +224,33 @@ class CountSketch:
         return est if padded else est[: self.d]
 
     def unsketch(self, table: torch.Tensor, k: int,
-                 with_support: bool = False):
+                 with_support: bool = False, with_dense: bool = True):
         """(r, c) table -> dense (d,) vector keeping the k largest-
         magnitude estimates (reference ``unsketch``, exact path). The
         selected set is the threshold select's, which is lax.top_k's
         set (lowest index wins ties); the (k,) indices come back in
-        ascending order rather than by magnitude."""
-        from commefficient_tpu_torch.ops.topk import threshold_topk_mask_1d
+        ascending order rather than by magnitude. At d >= 2^20 the
+        selection runs over the padded estimates with the tail zeroed
+        (the same set, since k <= d). ``with_support`` also returns
+        the indices and their values; ``with_dense=False`` (with
+        ``with_support``) returns ``(None, idx, vals)`` without the
+        dense vector."""
+        from commefficient_tpu_torch.ops.topk import (
+            _THRESHOLD_SELECT_MIN_D, threshold_topk_indices,
+            threshold_topk_mask_1d)
         k = min(k, self.d)
-        est = self.estimates(table)
+        big_d = self.d >= _THRESHOLD_SELECT_MIN_D
+        est = self.estimates(table, padded=big_d)
+        if not with_dense:
+            assert with_support, "with_dense=False needs with_support"
+            idx = (threshold_topk_indices(est * est, k) if k < self.d
+                   else torch.arange(self.d, device=est.device))
+            return None, idx, est[idx]
         if k >= self.d:
             mask = torch.ones_like(est, dtype=torch.bool)
         else:
             mask = threshold_topk_mask_1d(est * est, k)
-        dense = torch.where(mask, est, torch.zeros_like(est))
+        dense = torch.where(mask, est, torch.zeros_like(est))[: self.d]
         if not with_support:
             return dense
         idx = torch.nonzero(mask).flatten()
@@ -258,6 +271,23 @@ class CountSketch:
         from commefficient_tpu_torch.ops.topk import use_threshold_select
         return (use_threshold_select(k, self.d, self.approx_topk)
                 and not self.prefer_sparse_resketch(k))
+
+    def sketch_sparse(self, idx: torch.Tensor,
+                      vals: torch.Tensor) -> torch.Tensor:
+        """(n,) indices + (n,) values -> (r, c) table, equal (to
+        summation order) to ``sketch`` of the dense scatter of ``vals``
+        at ``idx``: O(r*n) scatter-adds instead of an O(d) pass, the
+        form that wins for re-sketching a k-sparse update once d >> r*k
+        (``prefer_sparse_resketch``). Plain PyTorch, as the reference
+        leaves it to XLA (sketch.py:636)."""
+        buckets, signs = self.hashes(idx)
+        rows = torch.arange(self.r, device=idx.device)[:, None]
+        table = torch.zeros((self.r, self.c), dtype=torch.float32,
+                            device=idx.device)
+        table.index_put_((rows.expand_as(buckets), buckets),
+                         signs * vals.to(torch.float32)[None, :],
+                         accumulate=True)
+        return table
 
     def prefer_sparse_resketch(self, k: int) -> bool:
         """The reference's cost-model gate for re-sketching the

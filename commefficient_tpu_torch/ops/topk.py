@@ -2,7 +2,8 @@
 
 Port of the parts of ``commefficient_tpu/ops/topk.py`` that the
 FetchSGD server step uses: the gates, the nibble radix search for the
-k-th largest key and the 1-D threshold mask. The selected set is
+k-th largest key, the 1-D threshold mask and its ascending index set
+(``threshold_topk_indices``). The selected set is
 exactly k coordinates, the lowest index winning ties -- lax.top_k's
 set. ``torch.topk`` promises no tie order, so it is never used here.
 
@@ -90,3 +91,16 @@ def threshold_topk_mask_1d(sq: torch.Tensor, k: int) -> torch.Tensor:
     t = _nibble_threshold_key(keys, k)
     need = k - torch.sum(keys > t)
     return take_mask_kernel(sq.to(torch.float32).contiguous(), t, need)
+
+
+def threshold_topk_indices(sq: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact top-k indices, ascending, of non-negative 1-D ``sq``: the
+    threshold mask's exactly-k set bits, compacted. The reference
+    compacts by a hierarchical extraction that avoids a d-sized
+    scatter on the TPU; ``torch.nonzero`` compacts the mask in one
+    stream-ordered pass on the card and returns the same ascending
+    indices. It reads the count back to the host once (the round's
+    metrics sync anyway); ``nonzero_static`` would avoid that read but
+    is missing from some PyTorch builds' CUDA backends."""
+    assert sq.ndim == 1, "1-D selection"
+    return torch.nonzero(threshold_topk_mask_1d(sq, k)).flatten()

@@ -1,10 +1,14 @@
 """Where the time of one full-width FetchSGD round goes, on the card.
 
     python -m commefficient_tpu_torch.profile_round [--rounds 8]
+        [--model resnet9|gpt2]
 
-Runs the main path's configuration (ResNet9 at full width, bf16,
-Synthetic data, 8 clients x 8 samples, a 5 x 524 288 sketch, k =
-50 000) through FedModel/FedOptimizer and prints JSON lines:
+Runs a main path's configuration through FedModel/FedOptimizer and
+prints JSON lines. ``resnet9``: full width, bf16, Synthetic data, 8
+clients x 8 samples, a 5 x 524 288 sketch, k = 50 000. ``gpt2``: GPT-2
+124M double heads, bf16, fused cross-entropy, 4 clients x 8 PersonaChat
+items of 2 candidates x 256 tokens (a vocabulary and corpus fabricated
+offline in a temporary directory), the same sketch and k:
 
 - ``round_wall``: wall seconds per round, data pull included, with no
   added syncs and no profiler (the round ends when its metrics reach
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import tempfile
 import time
 
 import numpy as np
@@ -31,10 +36,9 @@ import torch
 
 from commefficient_tpu_torch.config import parse_args
 from commefficient_tpu_torch.device import resolve_device
+from commefficient_tpu_torch.ops.flce import resolve_fused_ce
 from commefficient_tpu_torch.runtime import FedModel, FedOptimizer
-from commefficient_tpu_torch.train.cv_train import (build_model,
-                                                    get_data_loaders,
-                                                    make_compute_loss)
+from commefficient_tpu_torch.train import cv_train, gpt2_train
 
 ARGV = ["--dataset_name", "Synthetic", "--mode", "sketch",
         "--error_type", "virtual", "--virtual_momentum", "0.9",
@@ -47,19 +51,61 @@ def _device_us(evt) -> float:
     return float(evt.self_device_time_total)
 
 
+def gpt2_argv(data_dir, vocab_dir):
+    """The GPT-2 main path: scripts/gpt2_personachat.sh's flags (exact
+    top-k), one epoch of the corpus."""
+    return ["--dataset_name", "PERSONA", "--dataset_dir", data_dir,
+            "--model_checkpoint", vocab_dir, "--mode", "sketch",
+            "--error_type", "virtual", "--local_momentum", "0",
+            "--virtual_momentum", "0.9", "--num_workers", "4",
+            "--local_batch_size", "8", "--valid_batch_size", "8",
+            "--num_candidates", "2", "--max_history", "2",
+            "--lr_scale", "4e-2", "--k", "50000", "--num_rows", "5",
+            "--num_cols", "524288", "--bf16", "--fused_ce", "on",
+            "--num_epochs", "1"]
+
+
+def _resnet9():
+    args = parse_args(argv=ARGV)
+    device = resolve_device(args.device)
+    train_loader, _, train_ds = cv_train.get_data_loaders(args)
+    args.num_clients = int(train_ds.num_clients)
+    module, params = cv_train.build_model(args, device)
+    model = FedModel(module, params, cv_train.make_compute_loss(module),
+                     args)
+    return model, FedOptimizer([{"lr": 0.01}], args), train_loader
+
+
+def _gpt2(root):
+    data_dir, vocab_dir = gpt2_train.fabricate_assets(root)
+    args = parse_args(default_lr=4e-2, argv=gpt2_argv(data_dir, vocab_dir))
+    device = resolve_device(args.device)
+    module, params, tok = gpt2_train.build_model_and_tokenizer(args,
+                                                               device)
+    fused = resolve_fused_ce(args.fused_ce, module.cfg.n_embd, device,
+                             module.cfg.dtype)
+    train_loader, _, train_ds = gpt2_train.get_data_loaders(args, tok)
+    args.num_clients = int(train_ds.num_clients)
+    model = FedModel(module, params,
+                     gpt2_train.make_compute_loss_train(module, args, fused),
+                     args)
+    return model, FedOptimizer([{"lr": 0.04}], args), train_loader
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--rounds", type=int, default=8)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--model", choices=["resnet9", "gpt2"],
+                    default="resnet9")
     opts = ap.parse_args(argv)
-    args = parse_args(argv=ARGV)
-    device = resolve_device(args.device)
-    train_loader, _, train_ds = get_data_loaders(args)
-    args.num_clients = int(train_ds.num_clients)
-    module, params = build_model(args, device)
-    model = FedModel(module, params, make_compute_loss(module), args)
-    opt = FedOptimizer([{"lr": 0.01}], args)
+    with tempfile.TemporaryDirectory(prefix="profile_round_") as root:
+        model, opt, train_loader = (_gpt2(root) if opts.model == "gpt2"
+                                    else _resnet9())
+        _profile(opts, model, opt, train_loader)
 
+
+def _profile(opts, model, opt, train_loader):
     def batches():
         while True:
             yield from train_loader
@@ -85,7 +131,8 @@ def main(argv=None):
     torch.cuda.synchronize()
 
     phases = np.mean([one_round(sync=True) for _ in range(opts.rounds)], 0)
-    print(json.dumps({"phase": "phases", "rounds": opts.rounds,
+    print(json.dumps({"phase": "phases", "model": opts.model,
+                      "rounds": opts.rounds,
                       "data_s": phases[0], "client_s": phases[1],
                       "server_s": phases[2]}), flush=True)
 
@@ -95,7 +142,10 @@ def main(argv=None):
         one_round()
         walls.append(time.perf_counter() - r0)
     print(json.dumps({"phase": "round_wall", "seconds": walls,
-                      "median_s": float(np.median(walls))}), flush=True)
+                      "median_s": float(np.median(walls)),
+                      "peak_mem_GiB":
+                          torch.cuda.max_memory_allocated() / 2**30}),
+          flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]

@@ -16,8 +16,9 @@ and its per-client communication accounting: uploads bill one f32
 sketch table per participating client; downloads bill, per client,
 the coordinates updated since it last participated, tracked as
 per-coordinate ``last_updated`` round indices from the update's
-support. Telemetry, the autopilot, the host client store, pipelined
-dispatch and meshes are not ported.
+support (its index vector, or on the sparse re-sketch branch the
+indices whose lr-scaled value is nonzero). Telemetry, the autopilot,
+the host client store, pipelined dispatch and meshes are not ported.
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ class FedModel:
     ops/vec.py). ``compute_loss(flat, batch, args) -> (loss,
     metrics)`` returns masked-mean values over the last batch axis, so
     a (W, B, ...) round batch gives per-client (W,) values and an
-    (S, B, ...) validation batch per-shard ones."""
+    (S, B, ...) validation batch per-shard ones (CV images, or
+    PersonaChat shards)."""
 
     def __init__(self, module, params: torch.Tensor,
                  compute_loss: Callable, args: Config,
@@ -94,7 +96,7 @@ class FedModel:
             if key == "client_ids":
                 continue
             t = torch.as_tensor(np.asarray(val))
-            if key == "y":
+            if not t.is_floating_point():
                 t = t.to(torch.int64)
             out[key] = t.to(self.device, non_blocking=True)
         return out
@@ -144,16 +146,23 @@ class FedModel:
         upload_bytes[up_ids] = float(self.args.upload_wire_bytes_per_client)
         return download_bytes, upload_bytes
 
-    def note_update(self, support: torch.Tensor):
-        """Record the server update's support (indices of the
-        coordinates it changed) for download accounting."""
+    def note_update(self, support):
+        """Record the server update's support for download accounting:
+        the (n,) indices of the coordinates it changed, or ((k,)
+        indices, (k,) lr-scaled values), of which the indices with a
+        nonzero value changed."""
         self._update_round += 1
         r = self._update_round
         if len(self._round_counts) < r + 2:
             self._round_counts = np.concatenate(
                 [self._round_counts,
                  np.zeros(r + 2 - len(self._round_counts) + 64, np.int64)])
-        idx = support.to("cpu").numpy().astype(np.int64)
+        if isinstance(support, tuple):
+            idx, vals = (t.to("cpu").numpy() for t in support)
+            idx = idx[vals != 0]
+        else:
+            idx = support.to("cpu").numpy()
+        idx = idx.astype(np.int64)
         old = self.last_updated[idx] + 1
         np.subtract.at(self._round_counts, old, 1)
         self._round_counts[r + 1] += len(idx)

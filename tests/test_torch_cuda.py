@@ -68,3 +68,55 @@ def test_wrapper_refuses_wrong_dtype(dev):
         sk.sketch_kernel(torch.zeros(1000, dtype=torch.float64,
                                      device=dev),
                          s.rotations_on(dev), 100, 3, s.sign_seed, True)
+
+
+# --- fused tied-head cross-entropy (csrc/flce.cu) ---------------------
+# Tolerances: lse and tok within 1e-4 * max(1, max|plain|) (f32 sums of
+# bf16 products, taken in another order); dX and dW within
+# 2^-7 * max|plain| (both round f32 sums to bf16 and d to bf16 before
+# the products, so one rounding may land on either side of a bf16 step).
+
+def _flce_case(dev, m, v, c, seed):
+    from commefficient_tpu_torch.ops import flce_kernels as fk
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, c, generator=gen).to(dev, torch.bfloat16)
+    w = (torch.randn(v, c, generator=gen) * 0.1).to(dev, torch.bfloat16)
+    lab = torch.randint(0, v, (m,), generator=gen, dtype=torch.int32)
+    # labels outside [0, V) pick no logit (tok = 0), also inside the
+    # kernel's padded last vocab tile
+    lab[::5] = -1
+    lab[1::9] = v
+    return fk, x, w, lab.to(dev)
+
+
+@pytest.mark.parametrize("m,v,c", [(17, 301, 128), (200, 2500, 256),
+                                   (65, 64, 64), (333, 5003, 768)])
+def test_flce_kernels_match_plain(dev, m, v, c):
+    fk, x, w, lab = _flce_case(dev, m, v, c, seed=m + v)
+    before = (fk.flce_fwd_kernel.launches, fk.flce_bwd_kernel.launches)
+    lse, tok = fk.flce_fwd_kernel(x, w, lab)
+    lse_p, tok_p = fk.flce_fwd_plain(x, w, lab)
+    for a, b in ((lse, lse_p), (tok, tok_p)):
+        tol = 1e-4 * max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= tol
+    gen = torch.Generator().manual_seed(1)
+    g_lse = torch.randn(m, generator=gen).to(dev)
+    g_tok = torch.randn(m, generator=gen).to(dev)
+    dx, dw = fk.flce_bwd_kernel(x, w, lab, lse_p, g_lse, g_tok)
+    dx_p, dw_p = fk.flce_bwd_plain(x, w, lab, lse_p, g_lse, g_tok)
+    torch.cuda.synchronize()
+    assert (fk.flce_fwd_kernel.launches, fk.flce_bwd_kernel.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    for a, b in ((dx, dx_p), (dw, dw_p)):
+        tol = 2 ** -7 * float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+def test_flce_kernels_refuse_f32_and_bad_width(dev):
+    fk, x, w, lab = _flce_case(dev, 8, 100, 128, seed=0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fk.flce_fwd_kernel(x.float(), w.float(), lab)
+    with pytest.raises(ValueError, match="width 96"):
+        fk.flce_fwd_kernel(x[:, :96].contiguous(), w[:, :96].contiguous(),
+                           lab)

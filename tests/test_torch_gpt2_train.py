@@ -1,0 +1,115 @@
+"""The port's GPT-2 trainer on the CPU, against the JAX trainer.
+
+``main(["--device", "cpu", "--test", ...])`` on a synthetic PersonaChat
+archive ends with a finite train loss and validation NLL; with the same
+seed its sampled cohorts (the client ids of every round) and its upload
+bytes equal the JAX trainer's, exactly (host-side numpy and integer
+counts). The weights differ (each package draws its own random init),
+so losses and download bytes are not compared here;
+tests/test_torch_gpt2_round.py compares them on shared weights.
+Without ``--device`` the trainer runs on cuda, and with no card it
+raises; ``--fused_ce on`` at a width the kernels cannot take raises;
+the options this slice leaves out raise.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from commefficient_tpu.train import gpt2_train as jax_gpt2_train
+from commefficient_tpu_torch.data import fed_persona as tfp
+from commefficient_tpu_torch.train import gpt2_train
+
+ARGV = ["--test", "--dataset_name", "PERSONA", "--mode", "sketch",
+        "--error_type", "virtual", "--local_momentum", "0",
+        "--virtual_momentum", "0.9", "--num_workers", "2",
+        "--local_batch_size", "2", "--valid_batch_size", "2",
+        "--num_epochs", "2", "--seed", "5"]
+
+
+def _recording(monkeypatch, module):
+    """Swap ``module.FedModel`` for a subclass that records each
+    training round's client ids and byte totals."""
+    rounds = []
+    base = module.FedModel
+
+    class Recording(base):
+        def __call__(self, batch):
+            out = super().__call__(batch)
+            if self.training:
+                rounds.append((np.asarray(batch["client_ids"]).copy(),
+                               np.asarray(out[-2]).sum(),
+                               np.asarray(out[-1]).sum()))
+            return out
+
+    monkeypatch.setattr(module, "FedModel", Recording)
+    return rounds
+
+
+def _run_both(monkeypatch, tmp_path, argv):
+    # without --test the JAX trainer saves its final model under ./runs
+    monkeypatch.chdir(tmp_path)
+    ours_log = _recording(monkeypatch, gpt2_train)
+    theirs_log = _recording(monkeypatch, jax_gpt2_train)
+    results = gpt2_train.main(
+        ["--device", "cpu", "--dataset_dir", str(tmp_path / "torch")]
+        + argv)
+    jax_results = jax_gpt2_train.main(
+        ["--dataset_dir", str(tmp_path / "jax")] + argv)
+    assert len(results) == len(jax_results) == 2
+    for row in results:
+        for key in ("train_loss", "val_nll", "val_ppl", "val_acc"):
+            assert np.isfinite(row[key]), (key, row[key])
+    return results, ours_log, theirs_log
+
+
+def _same_rounds(ours_log, theirs_log, up_per_client):
+    assert len(ours_log) == len(theirs_log) > 0
+    for (ids, _, up), (jids, _, jup) in zip(ours_log, theirs_log):
+        np.testing.assert_array_equal(ids, jids)
+        assert up == jup == len(ids) * up_per_client
+
+
+def test_trainer_finishes_and_matches_jax_cohorts_and_uploads(
+        tmp_path, monkeypatch):
+    results, ours_log, theirs_log = _run_both(monkeypatch, tmp_path, ARGV)
+    # --test: one round an epoch and a 1 x 100 f32 sketch. Only the
+    # first epoch is compared: after --test's early break the JAX
+    # loader's prefetch thread has drawn ahead from the sampler, so its
+    # next epoch's cohorts depend on how far it got
+    _same_rounds(ours_log[:1], theirs_log[:1], 4 * 100)
+    assert results[0]["up (MiB)"] == pytest.approx(2 * 400 / 2**20)
+
+
+def test_full_epochs_match_jax_cohorts_and_uploads(tmp_path, monkeypatch):
+    # whole epochs (no --test break) of the tiny model the byte-level
+    # tokenizer selects, on the same synthetic archive
+    for name in ("torch", "jax"):
+        tfp.generate_synthetic_personachat(str(tmp_path / name))
+    argv = [a for a in ARGV if a != "--test"] + [
+        "--k", "10", "--num_cols", "100", "--num_rows", "1"]
+    results, ours_log, theirs_log = _run_both(monkeypatch, tmp_path, argv)
+    assert len(ours_log) > 2 * 2
+    _same_rounds(ours_log, theirs_log, 4 * 100)
+
+
+def test_default_device_is_cuda_and_never_falls_back(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gpt2_train.main(["--dataset_dir", str(tmp_path)] + ARGV)
+
+
+def test_fused_ce_on_raises_at_unsupported_width(tmp_path):
+    # --test builds the tiny model (n_embd 32)
+    with pytest.raises(ValueError, match="width 32"):
+        gpt2_train.main(["--device", "cpu", "--dataset_dir", str(tmp_path),
+                         "--fused_ce", "on"] + ARGV)
+
+
+@pytest.mark.parametrize("flag", [["--attn_impl", "flash"], ["--remat"],
+                                  ["--hf_export"], ["--approx_topk"],
+                                  ["--resume"], ["--ledger", "x.jsonl"]])
+def test_unported_options_raise(tmp_path, flag):
+    with pytest.raises(NotImplementedError, match=flag[0]):
+        gpt2_train.main(["--device", "cpu", "--dataset_dir", str(tmp_path)]
+                        + ARGV + flag)
