@@ -13,15 +13,23 @@ through the kernels:
   ``commefficient_tpu_torch.train.cv_train.main`` at full width for a
   few FetchSGD rounds and a validation pass; launch counts 2 sketch /
   1 estimates / 1 take-mask per round;
+- the same ResNet9 round on the quantized wire, ``--sketch_dtype int8
+  --downlink_encoding delta`` for 4 rounds (launch counts 1 sketch-and-
+  quantize / 1 sketch / 1 estimates / 1 take-mask per round, the upload
+  exactly the int8 table and its 5 row scales per client), then
+  ``--sketch_dtype fp8 --overlap_depth 2`` for 2 rounds (2 sketch-and-
+  quantize launches a round, one per row chunk);
 - GPT-2 124M double heads (d = 124 444 417, vocab 50 262) on a
   PersonaChat-format corpus fabricated offline:
   ``commefficient_tpu_torch.train.gpt2_train.main`` at full width with
   the fused cross-entropy kernels (M = 16 320 tokens a round, bf16);
   launch counts 1 sketch / 1 estimates / 1 take-mask / 1 flce forward /
   1 flce backward per round, plus one flce forward per validation step.
+  The f32 paths launch the sketch-and-quantize kernel zero times.
 
-The sketch, estimates and take-mask kernels are also timed at GPT-2's
-padded_d = 124 780 544, with the nibble threshold search beside them.
+The sketch, estimates, take-mask and sketch-and-quantize kernels are
+also checked and timed at GPT-2's padded_d = 124 780 544, with the
+nibble threshold search beside them.
 Each phase prints one JSON line; a failed check raises, so the script
 exits nonzero before its last line, which is ``{"ok": true, "device":
 {...}}``. Needs one CUDA card; exits nonzero without one. Imports
@@ -41,14 +49,17 @@ import numpy as np
 import torch
 
 from commefficient_tpu_torch import _build, profile_round
+from commefficient_tpu_torch.accounting import sketch_wire_bytes
 from commefficient_tpu_torch.config import Config, parse_args
 from commefficient_tpu_torch.core.server import ServerState, server_update
 from commefficient_tpu_torch.data.tokenizer import SPECIAL_TOKENS, load_tokenizer
 from commefficient_tpu_torch.ops import flce_kernels as fk
+from commefficient_tpu_torch.ops import quant
 from commefficient_tpu_torch.ops import sketch_kernels as sk
 from commefficient_tpu_torch.ops import topk_kernels as tk
 from commefficient_tpu_torch.ops.sketch import CountSketch
 from commefficient_tpu_torch.ops.topk import _nibble_threshold_key, keys_of
+from commefficient_tpu_torch.parallel.wire import row_chunks
 from commefficient_tpu_torch.runtime import fed_model
 from commefficient_tpu_torch.train import cv_train, gpt2_train
 
@@ -61,7 +72,15 @@ SKETCH_TOL = "1e-5*max|table| + 1e-6*max|v|"
 # the main-path configuration, 4 rounds (0.4 of a 10-round epoch)
 MAIN_ARGV = profile_round.ARGV + ["--num_epochs", "0.4", "--pivot_epoch",
                                   "0.2", "--lr_scale", "0.1"]
-KERNELS = (sk.sketch_kernel, sk.estimates_kernel, tk.take_mask_kernel)
+# the quantized wire on the same round: int8 for 4 rounds, fp8 in two
+# row chunks for 2
+INT8_ARGV = MAIN_ARGV + ["--sketch_dtype", "int8",
+                         "--downlink_encoding", "delta"]
+FP8_ARGV = profile_round.ARGV + ["--num_epochs", "0.2", "--pivot_epoch",
+                                 "0.1", "--lr_scale", "0.1", "--sketch_dtype",
+                                 "fp8", "--overlap_depth", "2"]
+KERNELS = (sk.sketch_kernel, sk.estimates_kernel, tk.take_mask_kernel,
+           sk.sketch_quant_kernel)
 FLCE = (fk.flce_fwd_kernel, fk.flce_bwd_kernel)
 # GPT-2 124M with the tokenizer's 50 257 + 5 special tokens; one round
 # is W*B*N*(T-1) = 4*8*2*255 predicting tokens
@@ -137,9 +156,95 @@ def row_rel_err(k, p):
     return float(rel.max())
 
 
+def raw(q):
+    return q.view(torch.uint8)
+
+
+def sketch_quant_checks(vp, rot, c, r, seed, one_mix, wire, tag):
+    """The fused sketch-and-quantize kernel against its plain version,
+    against quantizing the sketch kernel's own table, per row chunk of
+    depths 2 and 4 against its rows of the whole, and on an all-zero
+    and a NaN-holding vector, all byte for byte. Returns the largest
+    |kernel - plain| of q."""
+    q, rm = sk.sketch_quant_kernel(vp, rot, c, r, seed, one_mix, wire)
+    qp, rmp = sk.sketch_quant_plain(vp, rot, c, r, seed, one_mix, wire)
+    check(torch.equal(raw(q), raw(qp)) and torch.equal(rm, rmp),
+          f"sketch_quant {wire} {tag}: kernel != plain")
+    qt, rmt = quant.quantize_local(sk.sketch_kernel(vp, rot, c, r, seed,
+                                                    one_mix), wire)
+    check(torch.equal(raw(q), raw(qt)) and torch.equal(rm, rmt),
+          f"sketch_quant {wire} {tag}: != quantize_local(cet_sketch table)")
+    for depth in (2, 4):
+        for off, cnt in row_chunks(r, depth):
+            qc, rmc = sk.sketch_quant_kernel(vp, rot[off:off + cnt], c, cnt,
+                                             seed, one_mix, wire, off)
+            check(torch.equal(raw(qc), raw(q[off:off + cnt]))
+                  and torch.equal(rmc, rm[off:off + cnt]),
+                  f"sketch_quant {wire} {tag}: chunk {off}+{cnt} of depth "
+                  f"{depth} != its rows of the whole table")
+    zero = torch.zeros_like(vp)
+    q0, rm0 = sk.sketch_quant_kernel(zero, rot, c, r, seed, one_mix, wire)
+    check(not bool(raw(q0).any()) and not bool(rm0.any())
+          and bool((quant._scale(rm0, quant.QMAX[wire]) == 1.0).all()),
+          f"sketch_quant {wire} {tag}: zero vector: q, rowmax 0, scale 1")
+    zero[c + 7] = float("nan")
+    _, rmn = sk.sketch_quant_kernel(zero, rot, c, r, seed, one_mix, wire)
+    check(bool(torch.isnan(rmn).all()),
+          f"sketch_quant {wire} {tag}: a NaN does not reach every rowmax")
+    return float((q.float() - qp.float()).abs().max())
+
+
+def sketch_quant_phase(dev, flush):
+    """Kernel 4 at the ResNet9 round's shapes, int8 (the main path's
+    wire) and fp8."""
+    sketch = CountSketch(d=D, c=C, r=R, seed=SEED)
+    m, pd = sketch._m, sketch._padded_d
+    rot = sketch.rotations_on(dev)
+    seed, one_mix = sketch.sign_seed, sketch._one_mix_signs
+    gen = torch.Generator(device=dev).manual_seed(4)
+    vp = torch.nn.functional.pad(torch.randn(D, generator=gen, device=dev),
+                                 (0, pd - D))
+    b_ms, b_by = bound(4 * pd + 4 * R * m + R * C + 4 * R, R * pd)
+    out = {}
+    for wire in ("int8", "fp8"):
+        err = sketch_quant_checks(vp, rot, C, R, seed, one_mix, wire,
+                                  "ResNet9")
+        out[wire] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: sk.sketch_quant_kernel(
+                vp, rot, C, R, seed, one_mix, wire), 20, flush),
+            plain_ms=time_ms(lambda: sk.sketch_quant_plain(
+                vp, rot, C, R, seed, one_mix, wire), 5, flush),
+            unfused_ms=time_ms(lambda: quant.quantize_local(
+                sk.sketch_kernel(vp, rot, C, R, seed, one_mix), wire), 20,
+                flush))
+    row = dict(name="sketch_quant", route="cuda",
+               source="commefficient_tpu_torch/csrc/sketch.cu",
+               replaces="commefficient_tpu/ops/sketch_pallas.py:295",
+               **out["int8"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               fp8=out["fp8"])
+    emit({"phase": "kernel", **row, "tolerance": "exact (bytes of q and "
+          "rowmax)", "library": "none (no single call)",
+          "unfused": "cet_sketch, then quant.quantize_local in torch"})
+    return [row]
+
+
 def median_ops(r):
     """min/max (and the final add and scale) of the median network."""
     return {1: 0, 3: 4, 5: 10}.get(r, r * (r - 1) + (2 if r % 2 == 0 else 0))
+
+
+def index_add_operands(vp, rot, seed, one_mix):
+    """The sketch as one ``index_add_`` (the library yardstick): the
+    flat (r*c) bucket of every (row, coordinate) and its signed value,
+    precomputed."""
+    idx = torch.arange(vp.numel(), device=vp.device)
+    h = sk._mix(idx ^ seed)
+    flat_bucket = torch.cat([
+        r * C + (idx % C + rot[r].long()[idx // C]) % C for r in range(R)])
+    signed = torch.cat([vp * sk._row_signs(idx, h, r, seed, one_mix)
+                        for r in range(R)])
+    return flat_bucket, signed
 
 
 def kernel_phases(dev, flush):
@@ -158,13 +263,7 @@ def kernel_phases(dev, flush):
     err = float((tab_k - tab_p).abs().max())
     tol = 1e-5 * float(tab_p.abs().max()) + 1e-6 * float(v.abs().max())
     check(err <= tol, f"sketch: max|kernel-plain| {err} > {tol}")
-    idx = torch.arange(pd, device=dev)
-    h = sk._mix(idx ^ seed)
-    flat_bucket = torch.cat([
-        r * C + (idx % C + rot[r].long()[idx // C]) % C for r in range(R)])
-    signed = torch.cat([vp * sk._row_signs(idx, h, r, seed, one_mix)
-                        for r in range(R)])
-    del idx, h
+    flat_bucket, signed = index_add_operands(vp, rot, seed, one_mix)
     lib_tab = torch.zeros(R * C, device=dev)
     b_ms, b_by = bound(4 * pd + 4 * R * m + 4 * R * C, R * pd)
     rows.append(dict(
@@ -416,6 +515,25 @@ def gpt2_shape_phase(dev, flush):
                    10, flush),
         plain_ms=time_ms(lambda: sk.sketch_plain(vp, rot, C, R, seed,
                                                  one_mix), 3, flush))
+    flat_bucket, signed = index_add_operands(vp, rot, seed, one_mix)
+    lib_tab = torch.zeros(R * C, device=dev)
+    out["sketch"]["library_ms"] = time_ms(lambda: lib_tab.zero_().index_add_(
+        0, flat_bucket, signed), 5, flush)
+    check(torch.allclose(lib_tab.view(R, C), tab_k, rtol=0, atol=tol),
+          "index_add_ yardstick disagrees with the sketch at GPT-2 shape")
+    del flat_bucket, signed, lib_tab
+    err = sketch_quant_checks(vp, rot, C, R, seed, one_mix, "int8",
+                              "GPT-2")
+    b_ms, b_by = bound(4 * pd + 4 * R * m + R * C + 4 * R, R * pd)
+    out["sketch_quant"] = dict(
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        ms=time_ms(lambda: sk.sketch_quant_kernel(vp, rot, C, R, seed,
+                                                  one_mix, "int8"), 10, flush),
+        plain_ms=time_ms(lambda: sk.sketch_quant_plain(
+            vp, rot, C, R, seed, one_mix, "int8"), 3, flush),
+        unfused_ms=time_ms(lambda: quant.quantize_local(
+            sk.sketch_kernel(vp, rot, C, R, seed, one_mix), "int8"), 10,
+            flush))
     del vp
 
     est_k = sk.estimates_kernel(tab_k, rot, C, R, seed, one_mix, GPT2_D)
@@ -450,7 +568,8 @@ def gpt2_shape_phase(dev, flush):
         max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
         ms=time_ms(lambda: tk.take_mask_kernel(sq, t, need), 10, flush),
         plain_ms=time_ms(lambda: tk.take_mask_plain(sq, t, need), 3,
-                         flush))
+                         flush),
+        library_ms=time_ms(lambda: torch.topk(sq, K), 5, flush))
     emit({"phase": "gpt2_shapes", "d": GPT2_D, "padded_d": pd, "r": R,
           "c": C, "k": K, "kernels": out,
           "nibble_search_ms": nibble_ms,
@@ -486,7 +605,7 @@ def gpt2_main_path():
     check(3 <= rounds <= 5, f"{rounds} rounds ran, want 3-5")
     check(d == GPT2_D, f"GPT-2 flat size {d}, want {GPT2_D}")
     want = {"sketch_kernel": rounds, "estimates_kernel": rounds,
-            "take_mask_kernel": rounds,
+            "take_mask_kernel": rounds, "sketch_quant_kernel": 0,
             "flce_fwd_kernel": rounds + val_steps,
             "flce_bwd_kernel": rounds}
     check(counts == want, f"GPT-2 launch counts {counts}, want {want}")
@@ -513,7 +632,7 @@ def main_path():
     rounds = len(row["round_times"])
     check(3 <= rounds <= 5, f"{rounds} rounds ran, want 3-5")
     want = {"sketch_kernel": 2 * rounds, "estimates_kernel": rounds,
-            "take_mask_kernel": rounds}
+            "take_mask_kernel": rounds, "sketch_quant_kernel": 0}
     check(counts == want, f"launch counts {counts}, want {want}")
     for key in ("train_loss", "test_loss", "test_acc"):
         check(math.isfinite(row[key]), f"{key} = {row[key]}")
@@ -522,6 +641,45 @@ def main_path():
           "train_loss": row["train_loss"], "test_loss": row["test_loss"],
           "test_acc": row["test_acc"], "up_MiB": row["up (MiB)"],
           "down_MiB": row["down (MiB)"], "wall_seconds": wall,
+          "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30})
+    return counts, row["up (MiB)"] / rounds
+
+
+def quant_main_path(argv, wire, chunks, f32_up_per_round=None):
+    """The ResNet9 round on the quantized wire: ``chunks`` sketch-and-
+    quantize launches a round (one per row chunk) and the server's one
+    re-sketch, estimates and take-mask; the upload exactly the wire
+    table and its row scales per client and round."""
+    for kern in KERNELS:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    results = cv_train.main(argv)
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in KERNELS}
+    check(len(results) == 1, f"{len(results)} epochs ran, want 1")
+    row = results[-1]
+    rounds = len(row["round_times"])
+    want = {"sketch_quant_kernel": chunks * rounds, "sketch_kernel": rounds,
+            "estimates_kernel": rounds, "take_mask_kernel": rounds}
+    check(counts == want, f"{wire} launch counts {counts}, want {want}")
+    for key in ("train_loss", "test_loss", "test_acc"):
+        check(math.isfinite(row[key]), f"{wire}: {key} = {row[key]}")
+    workers = fed_model._CURRENT_MODEL.args.num_workers
+    up = rounds * workers * sketch_wire_bytes(R, C, wire) / 2**20
+    check(row["up (MiB)"] == up, f"{wire}: up {row['up (MiB)']} MiB, want "
+          f"{rounds} x {workers} x sketch_wire_bytes = {up}")
+    ratio = None
+    if f32_up_per_round is not None:
+        # 4*r*c / (r*c + 4*r): the f32 table over the int8 one
+        ratio = f32_up_per_round / (row["up (MiB)"] / rounds)
+        check(3.99 < ratio < 4.0, f"{wire}: f32 upload / {wire} upload "
+              f"{ratio}, want 4*r*c / (r*c + 4*r)")
+    emit({"phase": f"quant_main_path_{wire}", "argv": argv, "rounds": rounds,
+          "launches": counts, "round_seconds": row["round_times"],
+          "train_loss": row["train_loss"], "test_loss": row["test_loss"],
+          "test_acc": row["test_acc"], "up_MiB": row["up (MiB)"],
+          "down_MiB": row["down (MiB)"], "f32_up_over_this_per_round": ratio,
+          "wall_seconds": wall,
           "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30})
     return counts
 
@@ -550,6 +708,7 @@ def main():
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     rows = kernel_phases(dev, flush)
+    rows += sketch_quant_phase(dev, flush)
     rows += flce_phases(dev, flush)
     torch.cuda.empty_cache()
     gpt2_shapes = gpt2_shape_phase(dev, flush)
@@ -558,7 +717,11 @@ def main():
     server_phase(dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counts = main_path()
+    counts, f32_up_per_round = main_path()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    quant_counts = quant_main_path(INT8_ARGV, "int8", 1, f32_up_per_round)
+    quant_main_path(FP8_ARGV, "fp8", len(row_chunks(R, 2)))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gpt2_counts = gpt2_main_path()
@@ -566,13 +729,19 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    # launches: the main path that runs the kernel (ResNet9 for the
+    # sketch kernels, with their GPT-2 numbers beside; the int8 ResNet9
+    # path for sketch-and-quantize; GPT-2 for flce)
+    launches = {**gpt2_counts, **counts,
+                "sketch_quant_kernel": quant_counts["sketch_quant_kernel"]}
     table = []
     for row in rows:
         kern = f"{row['name']}_kernel"
-        # launches: the main path that runs the kernel (ResNet9 for the
-        # sketch kernels, with their GPT-2 numbers beside; GPT-2 for flce)
-        row["launches"] = counts.get(kern, gpt2_counts[kern])
+        row["launches"] = launches[kern]
         entry = {k: row[k] for k in keys}
+        for extra in ("unfused_ms", "fp8"):
+            if extra in row:
+                entry[extra] = row[extra]
         if row["name"] in gpt2_shapes:
             entry["gpt2"] = dict(gpt2_shapes[row["name"]],
                                  launches=gpt2_counts[kern])

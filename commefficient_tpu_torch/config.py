@@ -17,6 +17,9 @@ from typing import Optional
 MODES = ("sketch", "true_topk", "local_topk", "fedavg", "uncompressed")
 PORTED_MODES = ("sketch",)
 ERROR_TYPES = ("none", "local", "virtual")
+# wire dtypes of the uplinked sketch table (accounting.WIRE_DTYPES)
+SKETCH_DTYPES = ("f32", "bf16", "int8", "fp8")
+DOWNLINK_ENCODINGS = ("dense", "delta")
 
 # dataset -> num classes (reference utils.py:37-44)
 FED_DATASETS = {
@@ -52,8 +55,7 @@ NOT_PORTED_FLAGS = (
     "--compute_dtype", "--approx_topk", "--approx_recall",
     "--pipeline_depth", "--hf_export", "--coordinator_address",
     "--num_processes", "--process_id", "--remat", "--attn_impl",
-    "--sketch_dtype", "--downlink_encoding",
-    "--overlap_depth", "--client_chunk", "--clientstore",
+    "--client_chunk", "--clientstore",
     "--clientstore_bytes", "--clientstore_dir", "--ledger",
     "--telemetry_console", "--probe_every", "--probe_full",
     "--on_divergence", "--alarm_residual_ratio",
@@ -145,6 +147,22 @@ class Config:
     # granularity) on the card -- quantized rotations only ever bought
     # the TPU kernels a cheaper roll (core/rounds.py resolve_rot_lanes)
     sketch_rot_lanes: int = -1
+    # wire dtype of the uplinked sketch table: f32, bf16, or int8/fp8
+    # with per-row f32 scales. The client emits the table quantized
+    # (ops/sketch.py sketch_quantized) and dequantizes it at once (one
+    # device holds every client, so no collective crosses between),
+    # so the server's momentum and error state stay f32
+    sketch_dtype: str = "f32"
+    # downlink byte encoding of the broadcast update: "dense" ships the
+    # changed coordinates as f32; "delta" ships (idx:int32,
+    # val:wire dtype) pairs plus a bitmap over the previous round's
+    # support for the repeated indices. Accounting only
+    # (runtime/fed_model.py)
+    downlink_encoding: str = "dense"
+    # emit the sketch table in min(N, rows) row chunks, each quantized
+    # on its own (per-row scales, so the folded table is the same at
+    # any depth); 1 = one whole-table emission
+    overlap_depth: int = 1
 
     # populated at runtime
     grad_size: int = 0
@@ -162,6 +180,12 @@ class Config:
             "--tokens_per_chunk must be >= 0 (0 = auto)"
         assert self.fused_ce in ("auto", "on", "off"), \
             "--fused_ce must be auto|on|off"
+        assert self.sketch_dtype in SKETCH_DTYPES, \
+            "--sketch_dtype must be f32|bf16|int8|fp8"
+        assert self.overlap_depth >= 1, \
+            "--overlap_depth must be >= 1 (1 = serial round)"
+        assert self.downlink_encoding in DOWNLINK_ENCODINGS, \
+            "--downlink_encoding must be dense|delta"
         if self.mode == "fedavg":
             assert self.local_batch_size == -1, \
                 "fedavg requires --local_batch_size -1"
@@ -185,6 +209,15 @@ class Config:
             if self.mode in ("sketch", "uncompressed") \
                     and self.error_type == "local":
                 self.error_type = "virtual"
+        if self.sketch_dtype != "f32":
+            # only the sketch table has a quantized wire path
+            assert self.mode == "sketch", \
+                "--sketch_dtype != f32 requires --mode sketch " \
+                "(only the sketch table has a quantized wire path)"
+        if self.overlap_depth > 1:
+            assert self.mode == "sketch", \
+                "--overlap_depth > 1 requires --mode sketch " \
+                "(only the sketch table emits in row chunks)"
         if self.mode not in PORTED_MODES:
             raise NotImplementedError(f"--mode {self.mode} is not ported")
         if self.mode == "sketch":
@@ -220,13 +253,23 @@ class Config:
 
     @property
     def upload_wire_bytes_per_client(self) -> float:
-        """Bytes one participating client uploads per round (f32
-        wire: the port has no quantized wire yet)."""
+        """Bytes one participating client uploads per round, at the
+        wire dtype: the sketch table plus (int8/fp8) its per-row f32
+        scales; every other mode ships f32."""
         from commefficient_tpu_torch import accounting
         if self.mode == "sketch":
-            return accounting.sketch_wire_bytes(self.num_rows,
-                                                self.num_cols)
+            return accounting.sketch_wire_bytes(
+                self.num_rows, self.num_cols, self.sketch_dtype)
         return accounting.bytes_of(self.upload_floats_per_client, "f32")
+
+    @property
+    def downlink_value_bytes(self) -> int:
+        """Bytes per broadcast value on the downlink: wire width under
+        --downlink_encoding delta, f32 under dense."""
+        from commefficient_tpu_torch import accounting
+        if self.downlink_encoding == "delta":
+            return accounting.dtype_bytes(self.sketch_dtype)
+        return accounting.dtype_bytes("f32")
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -292,6 +335,24 @@ def build_parser(default_lr: Optional[float] = None
                         default=1.0)
     parser.add_argument("--synthetic_num_val", type=int, default=128)
     parser.add_argument("--sketch_rot_lanes", type=int, default=-1)
+    parser.add_argument("--sketch_dtype", type=str, default="f32",
+                        choices=list(SKETCH_DTYPES),
+                        help="wire dtype of the uplinked sketch table "
+                        "(sketch mode): f32, bf16, or int8/fp8 with "
+                        "per-row scales; the client emits the table "
+                        "quantized (int8/fp8 in one fused kernel) and "
+                        "the server's state stays f32")
+    parser.add_argument("--downlink_encoding", type=str, default="dense",
+                        choices=list(DOWNLINK_ENCODINGS),
+                        help="downlink byte encoding: dense f32 "
+                        "coordinates, or delta -- (idx:int32, "
+                        "val:wire dtype) pairs plus a bitmap over the "
+                        "previous round's support for repeated indices "
+                        "(accounting only)")
+    parser.add_argument("--overlap_depth", type=int, default=1,
+                        help="emit and quantize the sketch table in "
+                        "min(N, rows) row chunks (1 = whole table); the "
+                        "result is the same at any depth")
     return parser
 
 

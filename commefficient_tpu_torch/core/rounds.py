@@ -5,9 +5,11 @@ Port of the single-device sketch-mode path of
 (``resolve_rot_lanes`` :97, ``sketch_is_late`` :128,
 ``fused_grad_eligible`` :138, ``round_plan`` :153, ``args2sketch``
 :218), the fused client round (``_fused_local`` :500 and the
-single-device branch of ``client_round_fused`` :741) and the server
-round (``build_server_round`` :1340, with the k-sized scatter of the
-sparse re-sketch branch).
+single-device branch of ``client_round_fused`` :741, with its
+quantized wire crossing ``_qdq_local`` / ``_qdq_local_overlapped``
+:407-425 applied at :747-755) and the server round
+(``build_server_round`` :1340, with the k-sized scatter of the sparse
+re-sketch branch).
 
 Batch layout: a dict of (W, B, ...) tensors with a (W, B) float "mask"
 marking real samples. The client round runs ONE forward/backward over
@@ -24,8 +26,11 @@ import torch
 
 from commefficient_tpu_torch.config import Config
 from commefficient_tpu_torch.core.server import (ServerState,
+                                                 fold_row_chunks,
                                                  server_update)
+from commefficient_tpu_torch.ops import quant
 from commefficient_tpu_torch.ops.sketch import CountSketch
+from commefficient_tpu_torch.parallel.wire import row_chunks
 
 
 class RoundResult(NamedTuple):
@@ -69,6 +74,9 @@ def round_plan(cfg: Config) -> dict:
         "transmit_shape": list(cfg.transmit_shape),
         "upload_floats_per_client": int(cfg.upload_floats_per_client),
         "fused_grad": fused_grad_eligible(cfg),
+        "overlap_depth": int(cfg.overlap_depth),
+        "sketch_dtype": cfg.sketch_dtype,
+        "downlink_encoding": cfg.downlink_encoding,
         "upload_wire_bytes_per_client": float(
             cfg.upload_wire_bytes_per_client),
     }
@@ -105,6 +113,27 @@ def build_client_round(cfg: Config, loss_fn: Callable) -> Callable:
     # Σ_i (wd/num_workers)·p·n_i / total = (wd/num_workers)·p: one
     # device holds every client, so the whole term lands here
     wd_coef = cfg.weight_decay / cfg.num_workers
+    # The quantized wire (--sketch_dtype): the table is emitted
+    # quantized at full range per row, harmonized onto the shared scale
+    # (the identity for the one addend of a single device) and
+    # dequantized, the same bytes as the reference's _qdq_local of the
+    # f32 table; under --overlap_depth N, in min(N, r) row chunks (per-row
+    # scales: a chunk is its row slice of the whole), folded in order.
+    # At f32 none of this runs.
+    wire = cfg.sketch_dtype
+    chunks = row_chunks(cfg.num_rows, cfg.overlap_depth)
+
+    def wire_crossing(g, rows):
+        q, rowmax = sketch.sketch_quantized(g, wire, rows)
+        return quant.dequantize(*quant.harmonize(q, rowmax, rowmax,
+                                                 wire, 1))
+
+    def emit(g):
+        if cfg.mode != "sketch":
+            return g
+        if wire == "f32":
+            return sketch.sketch(g)
+        return fold_row_chunks(wire_crossing(g, rows) for rows in chunks)
 
     def client_round(ps_weights: torch.Tensor, batch: dict) -> RoundResult:
         mask = batch["mask"]
@@ -118,7 +147,7 @@ def build_client_round(cfg: Config, loss_fn: Callable) -> Callable:
         (g,) = torch.autograd.grad(torch.sum(weighted) / total, p)
         if cfg.weight_decay != 0:
             g = g + wd_coef * ps_weights
-        t = sketch.sketch(g) if cfg.mode == "sketch" else g
+        t = emit(g)
         mets = tuple(((n > 0) * m).detach()
                      for m in (loss,) + tuple(metrics))
         return RoundResult(t, mets)

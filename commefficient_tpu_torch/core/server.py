@@ -2,9 +2,9 @@
 unsketching.
 
 Port of the sketch-mode parts of ``commefficient_tpu/core/server.py``
-(``ServerState`` :28, ``_lr_scaled_support`` :124, ``server_update``
-:146, ``_sketched`` :279, with its dense and its sparse re-sketch
-branches).
+(``ServerState`` :28, ``fold_row_chunks`` :66, ``_lr_scaled_support``
+:124, ``server_update`` :146, ``_sketched`` :279, with its dense and
+its sparse re-sketch branches).
 ``gradient`` is the round's aggregated quantity: the (r, c) sketch
 table of the client-transmit sum divided by the round's total
 datapoint count. Functions return new tensors; nothing is updated in
@@ -32,6 +32,13 @@ class ServerState(NamedTuple):
             return torch.zeros(cfg.transmit_shape, dtype=torch.float32,
                                device=device)
         return ServerState(z(), z())
+
+
+def fold_row_chunks(chunks) -> torch.Tensor:
+    """Reassemble the (r, c) table from its dequantized row chunks
+    (``--overlap_depth``) in emission order. The chunks cover disjoint
+    row ranges, so the fold is concatenation, with no summation."""
+    return torch.cat(list(chunks), dim=0)
 
 
 class ServerUpdate(NamedTuple):

@@ -1,5 +1,5 @@
 // Counter-based hashes of the rotation count sketch, shared by the
-// sketch and estimates kernels. Bit-identical to the JAX package's
+// sketch, sketch-and-quantize and estimates kernels. Bit-identical to the JAX package's
 // ops/sketch.py (_mix, _signs_row) and to the plain PyTorch versions in
 // ops/sketch.py of this package: uint32 arithmetic wraps mod 2^32 here
 // natively.

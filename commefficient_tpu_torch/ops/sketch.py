@@ -18,9 +18,9 @@ values in int64 and mask with ``& 0xFFFFFFFF``; a 32x32-bit product
 can exceed 2^63, so ``_mul32`` splits one factor into 16-bit halves.
 The CUDA kernels use ``uint32_t`` (csrc/hash.cuh).
 
-Dispatch: ``sketch`` and ``estimates`` call the kernel wrappers of
-``ops/sketch_kernels.py``, which launch the Hopper kernels for CUDA
-tensors and take the plain versions for CPU tensors.
+Dispatch: ``sketch``, ``sketch_quantized`` and ``estimates`` call the
+kernel wrappers of ``ops/sketch_kernels.py``, which launch the Hopper
+kernels for CUDA tensors and take the plain versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -205,6 +205,37 @@ class CountSketch:
         return sketch_kernel(vp.contiguous(),
                              self.rotations_on(vp.device), self.c,
                              self.r, self.sign_seed, self._one_mix_signs)
+
+    def sketch_quantized(self, v: torch.Tensor, wire: str, rows=None):
+        """Dense (d,) vector -> (wire-dtype table, (rows, 1) f32 rowmax),
+        quantized per row at full range (``quant.quantize_local``):
+        int8/fp8 through the fused emit + quantize kernel, whose f32
+        table never reaches device memory; bf16 is the f32 sketch cast,
+        with rowmax None. Callers harmonize onto the shared scale
+        (core/rounds.py).
+
+        ``rows=(offset, count)``: only those table rows (a row chunk of
+        ``--overlap_depth``), with the chunk's rows of the rotations and
+        signs keyed by the absolute row, so a chunk equals the same rows
+        of a whole-table call (scales are per row). Reference
+        ``CountSketch.sketch_quantized`` (ops/sketch.py:399)."""
+        from commefficient_tpu_torch.ops.quant import quantize_local
+        from commefficient_tpu_torch.ops.sketch_kernels import (
+            sketch_kernel, sketch_quant_kernel)
+        off, cnt = rows if rows is not None else (0, self.r)
+        assert 0 <= off and 0 < cnt and off + cnt <= self.r, \
+            (off, cnt, self.r)
+        assert v.shape == (self.d,), v.shape
+        vp = torch.nn.functional.pad(v.to(torch.float32),
+                                     (0, self._padded_d - self.d))
+        rot = self.rotations_on(vp.device)[off:off + cnt]
+        args = (vp.contiguous(), rot, self.c, cnt, self.sign_seed,
+                self._one_mix_signs)
+        if wire == "bf16":
+            # scale-free cast: nothing to fuse
+            return quantize_local(sketch_kernel(*args, row_offset=off),
+                                  wire)
+        return sketch_quant_kernel(*args, wire, row_offset=off)
 
     # --- recovery --------------------------------------------------------
 

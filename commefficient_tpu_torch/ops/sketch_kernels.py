@@ -1,11 +1,14 @@
-"""Sketch and estimates: Hopper kernels and their plain versions.
+"""Sketch, sketch-and-quantize and estimates: Hopper kernels and their
+plain versions.
 
 Port of ``commefficient_tpu/ops/sketch_pallas.py``:
 
 - ``sketch_kernel`` replaces ``sketch_pallas`` (sketch_pallas.py:216);
+- ``sketch_quant_kernel`` replaces ``sketch_quant_pallas`` (:293), the
+  fused emit + quantize of the ``--sketch_dtype int8|fp8`` wire;
 - ``estimates_kernel`` replaces ``estimates_pallas`` (:414).
 
-Both kernels live in ``csrc/sketch.cu``, whose header comment gives
+The kernels live in ``csrc/sketch.cu``, whose header comment gives
 their design and bounds. Each wrapper launches its kernel for a CUDA
 tensor (or raises) and takes the plain PyTorch version, beside it
 here, for a CPU tensor; it counts its launches in ``.launches``.
@@ -14,7 +17,14 @@ The plain sketch adds the chunks in the kernel's order (t = 0..m-1,
 from zero), so the two agree bit for bit; against the JAX package the
 tables agree to summation-order tolerance. Estimates from a given
 table are exact everywhere: the sign flip is exact and the median is
-an order statistic (or the mean of two, for even r).
+an order statistic (or the mean of two, for even r). The fused
+sketch-and-quantize's plain version is ``quantize_local``
+(ops/quant.py) of the plain sketch; the kernel's table is bit-equal to
+it and rounds the same way, so the two agree byte for byte.
+
+A row chunk (``--overlap_depth``) is sketched from the chunk's rows of
+the rotations and ``row_offset``, its first row: signs are keyed by the
+absolute row, so a chunk equals those rows of the whole table.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import ctypes
 import torch
 
 from commefficient_tpu_torch import _build
+from commefficient_tpu_torch.accounting import wire_torch_dtype
 from commefficient_tpu_torch.ops.sketch import _mix, sign_bits, signs_from_bits
 
 _P = ctypes.c_void_p
@@ -34,12 +45,28 @@ def _row_signs(idx, h, row, sign_seed, one_mix):
     return signs_from_bits(sign_bits(idx, row, sign_seed, one_mix, h))
 
 
+def _check_max_rows(name, r):
+    if r > MAX_ROWS:
+        raise ValueError(f"{name}: r={r} > {MAX_ROWS} rows")
+
+
+def _check_rows(name, r, one_mix, row_offset):
+    # the one-mix hash carries 16 sign bits: the absolute rows of a
+    # chunk must stay inside them
+    if row_offset < 0 or (one_mix and row_offset + r > 16):
+        raise ValueError(f"{name}: rows {row_offset}..{row_offset + r - 1}"
+                         f" out of range (one_mix={one_mix}: the one-mix "
+                         "hash carries 16 sign bits)")
+
+
 def sketch_plain(vp, rot, c: int, r: int, sign_seed: int,
-                 one_mix: bool) -> torch.Tensor:
+                 one_mix: bool, row_offset: int = 0) -> torch.Tensor:
     """(m*c,) padded vector -> (r, c) table: for each row, the sum
     over chunks t (in order) of the signed chunk gathered back by its
     rotation: ``out[row, col] += s(g) * vp[g]``,
-    ``g = t*c + (col - o[row, t]) mod c``."""
+    ``g = t*c + (col - o[row, t]) mod c``, with the signs of row
+    ``row_offset + row``."""
+    _check_rows("sketch_plain", r, one_mix, row_offset)
     m = vp.numel() // c
     dev = vp.device
     rots = rot.to("cpu", torch.int64).tolist()
@@ -48,12 +75,24 @@ def sketch_plain(vp, rot, c: int, r: int, sign_seed: int,
     cols = torch.arange(c, dtype=torch.int64, device=dev)
     out = torch.empty((r, c), dtype=torch.float32, device=dev)
     for row in range(r):
-        signed = vp * _row_signs(idx, h, row, sign_seed, one_mix)
+        signed = vp * _row_signs(idx, h, row_offset + row, sign_seed,
+                                 one_mix)
         acc = torch.zeros(c, dtype=torch.float32, device=dev)
         for t in range(m):
             acc = acc + signed[t * c + (cols - rots[row][t]) % c]
         out[row] = acc
     return out
+
+
+def sketch_quant_plain(vp, rot, c: int, r: int, sign_seed: int,
+                       one_mix: bool, wire: str, row_offset: int = 0):
+    """(m*c,) padded vector -> (q (r, c) in the wire dtype, rowmax
+    (r, 1) f32): the plain sketch of rows ``row_offset..+r``, quantized
+    per row at full range (``quant.quantize_local``)."""
+    from commefficient_tpu_torch.ops.quant import QMAX, quantize_local
+    assert wire in QMAX, wire
+    return quantize_local(
+        sketch_plain(vp, rot, c, r, sign_seed, one_mix, row_offset), wire)
 
 
 def median_network(vals):
@@ -133,33 +172,73 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _check_sketch_args(name, vp, rot, c, r):
+    dev = _check_cuda(name, vp=(vp, torch.float32), rot=(rot, torch.int32))
+    m = rot.shape[1]
+    if vp.numel() != m * c or rot.shape[0] != r:
+        raise ValueError(f"{name}: vp {tuple(vp.shape)}, rot "
+                         f"{tuple(rot.shape)} do not fit r={r}, c={c}")
+    _check_index_range(name, m, c)
+    return dev, m
+
+
 def sketch_kernel(vp, rot, c: int, r: int, sign_seed: int,
-                  one_mix: bool) -> torch.Tensor:
+                  one_mix: bool, row_offset: int = 0) -> torch.Tensor:
     """(m*c,) f32 padded vector, (r, m) int32 rotations -> (r, c)
     f32 table. Kernel on CUDA (csrc/sketch.cu ``cet_sketch``), plain
     version on the CPU."""
     if vp.device.type == "cpu":
-        return sketch_plain(vp, rot, c, r, sign_seed, one_mix)
-    dev = _check_cuda("sketch_kernel", vp=(vp, torch.float32),
-                      rot=(rot, torch.int32))
-    m = rot.shape[1]
-    if vp.numel() != m * c or rot.shape[0] != r:
-        raise ValueError(f"sketch_kernel: vp {tuple(vp.shape)}, rot "
-                         f"{tuple(rot.shape)} do not fit r={r}, c={c}")
-    _check_index_range("sketch_kernel", m, c)
+        return sketch_plain(vp, rot, c, r, sign_seed, one_mix, row_offset)
+    _check_rows("sketch_kernel", r, one_mix, row_offset)
+    dev, m = _check_sketch_args("sketch_kernel", vp, rot, c, r)
     fn = _build.bind("sketch", "cet_sketch",
                      [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
-                      ctypes.c_int, ctypes.c_uint, ctypes.c_int, _P])
+                      ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+                      ctypes.c_int, _P])
     out = torch.empty((r, c), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = fn(vp.data_ptr(), rot.data_ptr(), out.data_ptr(), m, c, r,
-                  sign_seed, int(one_mix), _stream(dev))
+                  sign_seed, int(one_mix), row_offset, _stream(dev))
     _build.check(code, "cet_sketch")
     sketch_kernel.launches += 1
     return out
 
 
 sketch_kernel.launches = 0
+
+
+def sketch_quant_kernel(vp, rot, c: int, r: int, sign_seed: int,
+                        one_mix: bool, wire: str, row_offset: int = 0):
+    """(m*c,) f32 padded vector, (r, m) int32 rotations (the chunk's
+    rows) -> (q (r, c) int8 or float8_e4m3fn, rowmax (r, 1) f32), the
+    table of rows ``row_offset..+r`` quantized per row. Kernel on CUDA
+    (csrc/sketch.cu ``cet_sketch_quant``, one cooperative launch), plain
+    version on the CPU."""
+    if wire not in ("int8", "fp8"):
+        raise ValueError(f"sketch_quant_kernel: wire {wire!r} is not "
+                         "int8 or fp8")
+    if vp.device.type == "cpu":
+        return sketch_quant_plain(vp, rot, c, r, sign_seed, one_mix, wire,
+                                  row_offset)
+    _check_rows("sketch_quant_kernel", r, one_mix, row_offset)
+    _check_max_rows("sketch_quant_kernel", r)
+    dev, m = _check_sketch_args("sketch_quant_kernel", vp, rot, c, r)
+    fn = _build.bind("sketch", "cet_sketch_quant",
+                     [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, _P])
+    q = torch.empty((r, c), dtype=wire_torch_dtype(wire), device=dev)
+    rowmax = torch.empty((r, 1), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = fn(vp.data_ptr(), rot.data_ptr(), q.data_ptr(),
+                  rowmax.data_ptr(), m, c, r, sign_seed, int(one_mix),
+                  row_offset, int(wire == "fp8"), _stream(dev))
+    _build.check(code, "cet_sketch_quant")
+    sketch_quant_kernel.launches += 1
+    return q, rowmax
+
+
+sketch_quant_kernel.launches = 0
 
 
 def estimates_kernel(table, rot, c: int, r: int, sign_seed: int,
@@ -175,8 +254,7 @@ def estimates_kernel(table, rot, c: int, r: int, sign_seed: int,
     if tuple(table.shape) != (r, c) or rot.shape[0] != r:
         raise ValueError(f"estimates_kernel: table {tuple(table.shape)},"
                          f" rot {tuple(rot.shape)} do not fit r={r}, c={c}")
-    if r > MAX_ROWS:
-        raise ValueError(f"estimates_kernel: r={r} > {MAX_ROWS} rows")
+    _check_max_rows("estimates_kernel", r)
     m = rot.shape[1]
     _check_index_range("estimates_kernel", m, c)
     fn = _build.bind("sketch", "cet_estimates",

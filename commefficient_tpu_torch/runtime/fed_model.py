@@ -12,13 +12,19 @@ reference's protocol:
     metrics = model(batch)     # one federated round (client pass)
     opt.step()                 # server update
 
-and its per-client communication accounting: uploads bill one f32
-sketch table per participating client; downloads bill, per client,
-the coordinates updated since it last participated, tracked as
+and its per-client communication accounting: uploads bill one sketch
+table per participating client at the wire dtype (``--sketch_dtype``,
+with per-row f32 scales for int8/fp8); downloads bill, per client, the
+coordinates updated since it last participated, tracked as
 per-coordinate ``last_updated`` round indices from the update's
 support (its index vector, or on the sparse re-sketch branch the
-indices whose lr-scaled value is nonzero). Telemetry, the autopilot,
-the host client store, pipelined dispatch and meshes are not ported.
+indices whose lr-scaled value is nonzero): 4 bytes each under
+``--downlink_encoding dense``, and under ``delta`` the value at wire
+width plus an int32 index for each coordinate that does not repeat
+the previous update's support, with a bitmap over that support for a
+client that saw it (``_account_bytes``, ``_note_delta_support``).
+Telemetry, the autopilot, the host client store, pipelined dispatch
+and meshes are not ported.
 """
 
 from __future__ import annotations
@@ -81,6 +87,13 @@ class FedModel:
         self.client_last_seen = np.full(num_clients, -1, np.int64)
         self._update_round = 0
         self._rebuild_round_counts()
+        # --downlink_encoding delta bookkeeping: the latest update's
+        # support indices, how many of them repeat the update before
+        # it, and that previous update's support size (the bitmap a
+        # round-fresh client holds)
+        self._prev_support_idx = np.zeros(0, np.int64)
+        self._repeat_count = 0
+        self._bitmap_bits = 0
         _CURRENT_MODEL = self
 
     def train(self, training: bool):
@@ -137,7 +150,19 @@ class FedModel:
         q = self.client_last_seen[ids_np] + 2
         changed = np.where(
             q < len(suffix), suffix[np.minimum(q, len(suffix) - 1)], 0)
-        download_bytes[ids_np] = changed * accounting.bytes_of(1, "f32")
+        if self.args.downlink_encoding == "delta":
+            # a client that saw the previous broadcast holds its support
+            # list, so repeats delta-code against it; anyone staler
+            # downloads every changed coordinate as (idx, val)
+            fresh = (self.client_last_seen[ids_np]
+                     == self._update_round - 1)
+            download_bytes[ids_np] = [
+                accounting.delta_downlink_bytes(
+                    c, self._repeat_count, self._bitmap_bits,
+                    self.args.sketch_dtype, have_prev=bool(hp))
+                for c, hp in zip(changed, fresh)]
+        else:
+            download_bytes[ids_np] = changed * accounting.bytes_of(1, "f32")
         self.client_last_seen[ids_np] = self._update_round
         upload_bytes = np.zeros(self.num_clients)
         up_ids = ids_np
@@ -167,6 +192,21 @@ class FedModel:
         np.subtract.at(self._round_counts, old, 1)
         self._round_counts[r + 1] += len(idx)
         self.last_updated[idx] = r
+        self._note_delta_support(idx)
+
+    def _note_delta_support(self, idx):
+        """Roll the --downlink_encoding delta bookkeeping forward one
+        update (reference ``_note_delta_support``, fed_model.py:1181):
+        how many of this update's support indices repeat the previous
+        update's (they ship as bitmap bits, not int32 indices, to a
+        client that saw the previous broadcast), and the previous
+        support's size (the bitmap's bit count). The port's updates
+        always name their support, so the reference's dense form
+        (``idx=None``) does not arise."""
+        prev = self._prev_support_idx
+        self._repeat_count = int(np.intersect1d(idx, prev).size)
+        self._bitmap_bits = len(prev)
+        self._prev_support_idx = idx
 
 
 class FedOptimizer:

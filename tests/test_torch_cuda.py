@@ -7,7 +7,8 @@ card: ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``
 machine need not have).
 Tolerances: sketch tables |diff| <= 1e-5*max|table| + 1e-6*max|v|
 (the kernel adds in the plain version's order, so they are normally
-equal); estimates and masks exact.
+equal); estimates and masks exact; the fused sketch-and-quantize bytes
+and row maxima exact.
 """
 
 import pytest
@@ -60,6 +61,43 @@ def test_take_mask_kernel(dev, d, k):
     t = _nibble_threshold_key(keys, k)
     need = k - torch.sum(keys > t)
     assert torch.equal(mask, tk.take_mask_plain(sq, t, need))
+
+
+@pytest.mark.parametrize("wire", ["int8", "fp8"])
+@pytest.mark.parametrize("d,c,r", [(12_345, 1000, 5), (50_000, 4096, 17),
+                                   (3_000, 256, 5)])
+def test_sketch_quant_kernel(dev, wire, d, c, r):
+    """Whole table and each row chunk of depths 2 and 4, against the
+    plain version and against quantizing the sketch kernel's table;
+    an all-zero vector gives q = 0 and rowmax = 0."""
+    from commefficient_tpu_torch.ops.quant import quantize_local
+    from commefficient_tpu_torch.parallel.wire import row_chunks
+    s = CountSketch(d=d, c=c, r=r, seed=5)
+    v = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
+    vp = torch.nn.functional.pad(v, (0, s._padded_d - d))
+    rot = s.rotations_on(dev)
+    seed, one_mix = s.sign_seed, s._one_mix_signs
+
+    def as_bytes(q):
+        return q.view(torch.uint8)
+
+    q_tab, rm_tab = quantize_local(sk.sketch_kernel(vp, rot, c, r, seed,
+                                                    one_mix), wire)
+    for off, cnt in [(0, r)] + row_chunks(r, 2) + row_chunks(r, 4):
+        before = sk.sketch_quant_kernel.launches
+        q, rm = sk.sketch_quant_kernel(vp, rot[off:off + cnt], c, cnt, seed,
+                                       one_mix, wire, off)
+        assert sk.sketch_quant_kernel.launches == before + 1
+        qp, rmp = sk.sketch_quant_plain(vp, rot[off:off + cnt], c, cnt,
+                                        seed, one_mix, wire, off)
+        torch.cuda.synchronize()
+        assert torch.equal(as_bytes(q), as_bytes(qp)), (off, cnt)
+        assert torch.equal(rm, rmp), (off, cnt)
+        assert torch.equal(as_bytes(q), as_bytes(q_tab[off:off + cnt]))
+        assert torch.equal(rm, rm_tab[off:off + cnt])
+    q0, rm0 = sk.sketch_quant_kernel(torch.zeros_like(vp), rot, c, r, seed,
+                                     one_mix, wire)
+    assert not bool(as_bytes(q0).any()) and not bool(rm0.any())
 
 
 def test_wrapper_refuses_wrong_dtype(dev):

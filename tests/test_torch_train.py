@@ -60,7 +60,7 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 @pytest.mark.parametrize("argv,name", [
     (["--mode", "true_topk", "--error_type", "virtual"], "--mode true_topk"),
-    (["--sketch_dtype", "int8"], "--sketch_dtype"),
+    (["--client_chunk", "2"], "--client_chunk"),
     (["--model", "FixupResNet9"], "--model FixupResNet9"),
     (["--dataset_name", "CIFAR10"], "--dataset_name CIFAR10"),
 ])
