@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -100,7 +101,15 @@ FLCE_FWD_TOL = "|kernel-plain| <= 2e-5 per token, lse and tok (f32)"
 # 64-row tile left out of a sum by ~2^-4 at the main path's shapes
 FLCE_BWD_RTOL = 2 ** -6
 FLCE_BWD_TOL = ("||kernel-plain|| <= 2^-6 ||plain|| per row of dX and dW "
-                "(bf16), with the LM loss's cotangents and with g_tok = 0")
+                "(bf16), with the LM loss's cotangents and with g_tok = 0; "
+                "two launches bit-identical")
+# one tile of each backward product through the kernel's shared-memory
+# layout and wgmma descriptors: f32 sums of exact bf16 products, taken
+# in another order than torch.matmul's; one 16-deep k step left out
+# moves an entry by ~2% of sum|a*b|
+WGMMA_TILE_RTOL = 2 ** -16
+WGMMA_TILE_TOL = ("|kernel-matmul| <= 2^-16 (|a|.|b|) per entry (f32), "
+                  "K-major a.s^T and MN-major dm.s")
 
 
 def emit(obj):
@@ -409,6 +418,72 @@ def server_phase(dev):
           "exact": True})
 
 
+def ptxas_report(log):
+    """{kernel: {registers, spill_stores, spill_loads}} from a ptxas -v
+    log, the flce kernels named by pass and width (bwd_dX_C768, ...)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            b = re.search(r"flce_bwd_kernelILb([01])ELi(\d+)E", name)
+            if b:
+                name = f"bwd_{'dX' if b.group(1) == '1' else 'dW'}_C" \
+                       f"{64 * int(b.group(2))}"
+            elif "flce_fwd_kernel" in name:
+                name = "fwd"
+            elif "wgmma_probe_kernel" in name:
+                name = "wgmma_probe_C" + str(64 * int(re.search(
+                    r"wgmma_probe_kernelILi(\d+)E", name).group(1)))
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def wgmma_tile_phase(dev):
+    """One tile of each product shape of the flce backward (logits
+    a . s^T with K-major operands, the gradient product dm . s with dm
+    in registers and s MN-major) against torch.matmul in f32, at an
+    odd and an even number of 64-column panels."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = {}
+    for c in fk.PROBE_WIDTHS:
+        a, s = (torch.randn(n, c, generator=gen, device=dev).to(
+            torch.bfloat16) for n in (64, 32))
+        dm = torch.randn(64, 32, generator=gen, device=dev).to(torch.bfloat16)
+        lk, gk = fk.wgmma_tile_products(a, s, dm)
+        lp, gp = fk.wgmma_tile_products_plain(a, s, dm)  # torch.matmul
+        sa = s.float().abs()
+        for name, k, p, bound_ in (
+                ("a.s^T", lk, lp, a.float().abs() @ sa.t()),
+                ("dm.s", gk, gp, dm.float().abs() @ sa)):
+            err = (k - p).abs()
+            ratio = float((err / bound_.clamp_min(1e-30)).max())
+            check(ratio <= WGMMA_TILE_RTOL, f"wgmma tile {name} at C={c}: "
+                  f"|kernel-matmul| / (|a|.|b|) {ratio} > {WGMMA_TILE_RTOL}")
+            out[f"{name}_C{c}"] = dict(max_abs_err=float(err.max()),
+                                       max_rel_to_abs_product=ratio)
+    emit({"phase": "wgmma_tile", "tolerance": WGMMA_TILE_TOL, "checked": out})
+
+
+def flce_bwd_rows_check(dx_k, dw_k, dx_p, dw_p, case):
+    """Per-row relative errors of dX and dW, each within FLCE_BWD_RTOL."""
+    errs = {}
+    for name, a, b in (("dX", dx_k, dx_p), ("dW", dw_k, dw_p)):
+        e = row_rel_err(a, b)
+        check(e <= FLCE_BWD_RTOL, f"flce_bwd {name} ({case}): per-row "
+              f"||kernel-plain||/||plain|| {e} > {FLCE_BWD_RTOL}")
+        errs[f"{name}_{case}"] = e
+    return errs
+
+
 def flce_phases(dev, flush, m=GPT2_M, v=GPT2_V, c=GPT2_C):
     """The fused cross-entropy kernels at the GPT-2 round's shapes (bf16
     hidden states and tied embedding, labels with ignored positions),
@@ -457,13 +532,23 @@ def flce_phases(dev, flush, m=GPT2_M, v=GPT2_V, c=GPT2_C):
         dx_k, dw_k = fk.flce_bwd_kernel(x, w, lab, lse_p, g_lse, gt)
         dx_p, dw_p = fk.flce_bwd_plain(x, w, lab, lse_p, g_lse, gt)
         check(dx_k.dtype == dw_k.dtype == torch.bfloat16, "flce_bwd: dtypes")
-        for name, a, b in (("dX", dx_k, dx_p), ("dW", dw_k, dw_p)):
-            e = row_rel_err(a, b)
-            check(e <= FLCE_BWD_RTOL, f"flce_bwd {name} ({case}): per-row "
-                  f"||kernel-plain||/||plain|| {e} > {FLCE_BWD_RTOL}")
-            row_err[f"{name}_{case}"] = e
+        row_err.update(flce_bwd_rows_check(dx_k, dw_k, dx_p, dw_p, case))
+        for a, b in ((dx_k, dx_p), (dw_k, dw_p)):
             err = max(err, float((a.float() - b.float()).abs().max()))
+        if case == "lm":
+            dx_2, dw_2 = fk.flce_bwd_kernel(x, w, lab, lse_p, g_lse, gt)
+            check(torch.equal(dx_k, dx_2) and torch.equal(dw_k, dw_2),
+                  "flce_bwd: two launches on the same inputs differ")
+            del dx_2, dw_2
         del dx_k, dw_k, dx_p, dw_p
+    # ragged: M - 37 tokens, so that the last owned token tile (64 rows)
+    # and the last streamed token tile (32) are partial, as is the last
+    # streamed vocab tile (V = 50 262 = 22 mod 32)
+    mr = m - 37
+    args = (x[:mr], w, lab[:mr], lse_p[:mr], g_lse[:mr], g_tok[:mr])
+    row_err.update(flce_bwd_rows_check(*fk.flce_bwd_kernel(*args),
+                                       *fk.flce_bwd_plain(*args),
+                                       f"ragged_M{mr}"))
     b_ms, b_by = bound(2 * (2 * m * c + 2 * v * c) + 4 * m + 12 * m,
                        6 * m * v * c, BF16_OPS)
 
@@ -484,7 +569,7 @@ def flce_phases(dev, flush, m=GPT2_M, v=GPT2_V, c=GPT2_C):
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(library_bwd, 5, flush)))
     emit({"phase": "kernel", **rows[-1], "tolerance": FLCE_BWD_TOL,
-          "row_rel_err": row_err,
+          "row_rel_err": row_err, "bit_identical_relaunch": True,
           "library": "torch.matmul x3: logits, d.W and d^T.x"})
     return rows
 
@@ -703,12 +788,16 @@ def main():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libs": {k: str(v.name) for k, v in libs.items()},
           "ptxas": {k: [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]
+                        if ("registers" in ln or "spill" in ln)
+                        and "C7519" not in ln]
                     for k, log in _build.BUILD_LOGS.items()}})
+    emit({"phase": "ptxas_flce", "kernels": ptxas_report(
+        _build.BUILD_LOGS.get("flce", ""))})
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     rows = kernel_phases(dev, flush)
     rows += sketch_quant_phase(dev, flush)
+    wgmma_tile_phase(dev)
     rows += flce_phases(dev, flush)
     torch.cuda.empty_cache()
     gpt2_shapes = gpt2_shape_phase(dev, flush)

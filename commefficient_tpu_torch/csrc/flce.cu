@@ -21,29 +21,52 @@
 // MB, W 77 MB, dW 77 MB) take 0.03-0.06 ms at 3.35 TB/s, so both
 // kernels are bound by operations.
 //
-// Design. Tile products run on the tensor cores through nvcuda::wmma
-// (mma.sync, 16x16x16 bf16 -> f32). A block of 8 warps owns a tile of
-// rows of one operand ("own", resident in shared memory) and streams
-// 64-row tiles of the other, always in the same order, so every sum is
-// taken in a fixed order: no float atomics, the same bits every run.
-// - Forward: own = 64 token rows of x, streamed = vocab tiles of W.
-//   Each 64 x 64 logits tile is folded into a running max and
-//   sum-of-exp per token (online softmax) and the label logit is
-//   picked; vocab ids >= V count as -inf.
-// - Backward: the TPU kernel carries dW across a sequential grid and
-//   writes per-vocab-block dX partials; blocks on Hopper run in no
-//   order, so the port runs the same template twice. With own = 32
-//   token rows of x and W streamed it accumulates those rows of dX;
-//   with own = 32 vocab rows of W and x streamed, those rows of dW.
-//   Each recomputes its logits tiles (4*M*V*C per pass, 8*M*V*C in
-//   all against the bound's 6), builds the bf16 d tile in shared
-//   memory and multiplies it into a (32, C) f32 accumulator held in
-//   registers (C / 64 fragments per warp, so C is a template
-//   parameter: widths 64..768 in steps of 64).
-// What the design leaves on the table (later work): loads are not
-// overlapped with the tile products (one 64-row tile buffer), warps
-// issue mma.sync rather than wgmma, and W (77 MB, above the 50 MB L2)
-// is streamed once per token tile.
+// Forward. nvcuda::wmma (mma.sync, 16x16x16 bf16 -> f32) tile
+// products: a block of 8 warps owns 64 token rows of x (resident in
+// shared memory) and streams 64-row vocab tiles of W, always in the
+// same order. Each 64 x 64 logits tile is folded into a running max and
+// sum-of-exp per token (online softmax) and the label logit is picked;
+// vocab ids >= V count as -inf. One tile buffer: loads do not overlap
+// the products (12.22 ms against the 1.274 ms bound on an NVIDIA H100
+// 80GB HBM3 at 700 W; its redesign is the next kernel of PERF.md).
+//
+// Backward. The TPU kernel carries dW across a sequential grid and
+// writes per-vocab-block dX partials; blocks on Hopper run in no order,
+// so one template runs twice: owning 64 token rows of x with W streamed
+// (rows of dX), then owning 64 vocab rows of W with x streamed (rows of
+// dW). Each pass recomputes its logits, so the work is 8*M*V*C (5.09 ms
+// of tensor-core time at the GPT-2 shapes) against the bound's 6*M*V*C;
+// in exchange every sum is taken in a fixed order with no atomics and
+// no scratch, and two launches give the same bits. A block is two
+// warpgroups (256 threads, one block an SM: ~210 KB of shared memory):
+// - the owned tile (64 x C bf16, 96 KB at C = 768) is loaded once; the
+//   streamed tiles (32 x C, 48 KB) come through a two-stage cp.async
+//   ring, tile t + 1 in flight while tile t is multiplied. Both are
+//   stored as SW128 panels (wgmma.cuh), which the same descriptors read
+//   K-major for the logits and MN-major for the gradient product;
+// - logits: warpgroup g computes the 64 x 32 tile over its half of K
+//   (wgmma m64n32k16, A and B from shared memory); the warpgroups swap
+//   partial sums through shared memory so that warpgroup g holds the
+//   whole logits of columns [16 g, 16 g + 16), the gradient product's
+//   k step g;
+// - there it forms d = g_lse * exp(logit - lse) + g_tok * onehot in
+//   registers and packs it to bf16 as that k step's A operand (the
+//   m64n16 accumulator layout is wgmma's register A layout); the two
+//   warpgroups swap these fragments (4 registers a thread), so neither
+//   logits nor d ever reach memory;
+// - out[:, panels of g] += d . str: warpgroup g owns half the output
+//   columns ((NF + 1) / 2 panels of 64; for odd NF both compute the
+//   middle one) in a 64 x C/2 f32 accumulator, 192 registers a thread at
+//   C = 768, so C is a template parameter (widths 64..768 in steps of
+//   64); pieces of n <= 256. Both warpgroups issue the same wgmma
+//   sequence (a divergent one is serialized by ptxas);
+// - the accumulator is cast to bf16, staged in shared memory and
+//   written out 16 bytes a thread.
+// Each pass re-reads the streamed operand through L2 once per owned
+// tile: 255 x W (77.2 MB) for dX, 786 x x (25.1 MB) for dW, ~19.7 GB
+// each. Left for later: clusters with TMA multicast to halve those
+// re-reads, a producer warp with deeper rings, and overlapping one
+// tile's logits with the previous tile's gradient product.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,32 +74,23 @@
 #include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
+#include "wgmma.cuh"
+
+using namespace nvcuda;
 
 namespace {
 
 constexpr int THREADS = 256;   // 8 warps
-constexpr int WARPS = THREADS / 32;
 constexpr int BS = 64;         // streamed rows per tile
 constexpr int PAD = 8;         // bf16 padding per shared row (16 bytes)
 constexpr int LDL = BS + 4;    // f32 logits tile row stride
-constexpr int LDD = BS + 8;    // bf16 d tile row stride
 constexpr int FWD_OWN = 64;    // token rows per forward block
-constexpr int BWD_OWN = 32;    // owned rows per backward block
+constexpr int BWD_OWN = 64;    // owned rows per backward block
+constexpr int BWD_STR = 32;    // streamed rows per backward tile
+constexpr int BWD_STAGES = 2;  // streamed tiles in the cp.async ring
+static_assert(BWD_STAGES == 2, "the backward's ring alternates two stages");
 constexpr int MAX_NF = 12;     // C <= 64 * MAX_NF
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
 
 // rows [row0, row0 + ROWS) of a row-major (nrows, C) bf16 matrix into
 // shared memory with row stride C + PAD; rows past nrows read as zero
@@ -195,6 +209,147 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ---- backward -----------------------------------------------------
+
+// One warpgroup's half of the logits of the owned rows (64, the A
+// operand) against the streamed rows (32, B), both SW128-panel tiles
+// used K-major: lg = own[:, K_wg] . str[:, K_wg]^T, K_wg the warpgroup's
+// half of the 4 * NF sixteen-deep k steps.
+template <int NF>
+__device__ __forceinline__ void bwd_logits_half(float* lg, uint64_t own_desc,
+                                                uint64_t str_desc, int wg) {
+  cet_wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 2 * NF; ++k) {
+    const uint32_t kk = wg * 2 * NF + k;
+    cet_wgmma_ss_n32(
+        lg, cet_desc_add(own_desc, (kk >> 2) * BWD_OWN * 128 + (kk & 3) * 32),
+        cet_desc_add(str_desc, (kk >> 2) * BWD_STR * 128 + (kk & 3) * 32),
+        k > 0);
+  }
+  cet_wgmma_commit();
+  cet_wgmma_wait_all();
+#pragma unroll
+  for (int i = 0; i < 16; ++i) cet_fence_operand(lg[i]);
+}
+
+// Warpgroup g finishes k step g of the gradient product, the logits
+// columns [16 g, 16 g + 16): it posts its partial sums of the other
+// warpgroup's 16 columns to `xbuf` and adds the other's partial sums of
+// its own, into h (h[j] is the accumulator entry 8 g + j of the 64 x 32
+// tile). Thread t of one warpgroup holds the same (row, column) entries
+// as thread t of the other.
+__device__ __forceinline__ void bwd_exchange_half(const float* lg, float* h,
+                                                  float* xbuf, int wg, int t) {
+  float* mine = xbuf + wg * 8 * 128;
+  const float* other = xbuf + (wg ^ 1) * 8 * 128;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) mine[j * 128 + t] = wg ? lg[j] : lg[8 + j];
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    h[j] = (wg ? lg[8 + j] : lg[j]) + other[j * 128 + t];
+}
+
+// The A fragments of both k steps: this warpgroup's (k step wg) and the
+// other's, swapped through `abuf`
+__device__ __forceinline__ void bwd_exchange_afr(const uint32_t* a,
+                                                 uint32_t (*afr)[4],
+                                                 uint32_t* abuf, int wg,
+                                                 int t) {
+  uint32_t* mine = abuf + wg * 4 * 128;
+  const uint32_t* other = abuf + (wg ^ 1) * 4 * 128;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) mine[j * 128 + t] = a[j];
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t b = other[j * 128 + t];
+    afr[0][j] = wg ? b : a[j];
+    afr[1][j] = wg ? a[j] : b;
+  }
+}
+
+// 2^x, flushing results below 2^-126 to zero (one MUFU.EX2)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// bf16 pair, low column in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// out[:, P panels] += d . str[:, P panels]: A = d (64 x 32) from
+// registers as two 16-deep k steps, B = the streamed tile used MN-major
+// from its panel at `desc` on. Pieces of at most 4 panels (n <= 256).
+template <int P>
+__device__ __forceinline__ void bwd_grad_panels(float* acc,
+                                                uint32_t (*afr)[4],
+                                                uint64_t desc) {
+  constexpr int PA = P <= 4 ? P : (P + 1) / 2;
+  constexpr int PB = P - PA;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    cet_wgmma_rs_tb<64 * PA>(acc, afr[kk], cet_desc_add(desc, kk * 16 * 128));
+    if constexpr (PB > 0)
+      cet_wgmma_rs_tb<64 * PB>(
+          acc + 32 * PA, afr[kk],
+          cet_desc_add(desc, PA * BWD_STR * 128 + kk * 16 * 128));
+  }
+}
+
+// Each warpgroup takes P = (NF + 1) / 2 panels of the output columns:
+// warpgroup 0 the first P, warpgroup 1 the last P (for odd NF both
+// compute the middle panel, and warpgroup 0 writes it). Both issue the
+// same wgmma sequence, only the descriptors differ: a wgmma on a path
+// that diverges between warpgroups makes ptxas serialize every wgmma of
+// the kernel.
+template <int NF>
+__device__ __forceinline__ int bwd_first_panel(int wg) {
+  return wg * (NF - (NF + 1) / 2);
+}
+
+template <int NF>
+__device__ __forceinline__ void bwd_grad(float* acc, uint32_t (*afr)[4],
+                                         uint64_t str_mn_desc, int wg) {
+  constexpr int P = (NF + 1) / 2;
+  cet_wgmma_fence();
+  bwd_grad_panels<P>(
+      acc, afr,
+      cet_desc_add(str_mn_desc, bwd_first_panel<NF>(wg) * BWD_STR * 128));
+  cet_wgmma_commit();
+  cet_wgmma_wait_all();
+#pragma unroll
+  for (int i = 0; i < 32 * P; ++i) cet_fence_operand(acc[i]);
+}
+
+struct BwdSmem {
+  unsigned char* own;  // (BWD_OWN, C) SW128 panels
+  unsigned char* str;  // BWD_STAGES x (BWD_STR, C) SW128 panels
+  float* xbuf;         // 2 x 8 x 128 f32 partial logits
+  uint32_t* abuf;      // 2 x 4 x 128 bf16 pairs of d
+  float* toks;         // label, lse, g_lse, g_tok per token
+};
+
+template <int NF>
+__device__ __forceinline__ BwdSmem bwd_carve(unsigned char* raw) {
+  constexpr int C = 64 * NF;
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
+  unsigned char* base = raw + ((CET_SW128_ATOM - (a & (CET_SW128_ATOM - 1))) &
+                               (CET_SW128_ATOM - 1));
+  BwdSmem s;
+  s.own = base;
+  s.str = base + BWD_OWN * C * 2;
+  s.xbuf = reinterpret_cast<float*>(s.str + BWD_STAGES * BWD_STR * C * 2);
+  s.abuf = reinterpret_cast<uint32_t*>(s.xbuf + 2 * 8 * 128);
+  s.toks = s.xbuf + 2 * 16 * 128;
+  return s;
+}
+
 // OWN_TOK: own rows are tokens (x) and the output is dX; otherwise own
 // rows are vocab ids (W) and the output is dW. C = 64 * NF.
 template <bool OWN_TOK, int NF>
@@ -206,93 +361,197 @@ __global__ void __launch_bounds__(THREADS, 1)
                     const float* __restrict__ g_tok, bf16* __restrict__ out,
                     long long M, long long V) {
   constexpr int C = 64 * NF;
-  constexpr int ld = C + PAD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* so = reinterpret_cast<bf16*>(smem);
-  bf16* ss = so + BWD_OWN * ld;
-  float* L = reinterpret_cast<float*>(ss + BS * ld);
-  bf16* D = reinterpret_cast<bf16*>(L + BWD_OWN * LDL);
-  // per-token label, lse, g_lse, g_tok of the owned (OWN_TOK) or the
-  // current streamed tile's tokens; tokens past M: label -1, zeros
-  int* t_lab = reinterpret_cast<int*>(D + BWD_OWN * LDD);
-  float* t_lse = reinterpret_cast<float*>(t_lab + BS);
-  float* t_gl = t_lse + BS;
-  float* t_gt = t_gl + BS;
+  constexpr int P = (NF + 1) / 2;  // output panels a warpgroup
+  constexpr int STR_BYTES = BWD_STR * C * 2;
+  extern __shared__ unsigned char smem_raw[];
+  const BwdSmem sm = bwd_carve<NF>(smem_raw);
 
+  const int tid = threadIdx.x, t = tid & 127;
+  // warp-uniform to the compiler, so descriptors live in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
   const bf16* own = OWN_TOK ? x : w;
   const bf16* str = OWN_TOK ? w : x;
   const long long n_own = OWN_TOK ? M : V;
   const long long n_str = OWN_TOK ? V : M;
   const long long o0 = (long long)blockIdx.x * BWD_OWN;
+  const long long n_tiles = (n_str + BWD_STR - 1) / BWD_STR;
 
-  auto load_tokens = [&](long long t0, int n) {
-    for (int i = threadIdx.x; i < n; i += THREADS) {
-      const long long t = t0 + i;
-      const bool ok = t < M;
-      t_lab[i] = ok ? labels[t] : -1;
-      t_lse[i] = ok ? lse[t] : 0.0f;
-      t_gl[i] = ok ? g_lse[t] : 0.0f;
-      t_gt[i] = ok ? g_tok[t] : 0.0f;
+  // label, lse, g_lse, g_tok of tokens [t0, t0 + n) as four arrays of n;
+  // tokens past M read as zero, which makes their d zero
+  auto load_tokens = [&](float* dst, long long t0, int n) {
+    for (int i = tid; i < 4 * n; i += THREADS) {
+      const int a = i / n, k = i - a * n;
+      const bool ok = t0 + k < M;
+      const long long tk = ok ? t0 + k : 0;
+      const void* src = a == 0   ? (const void*)(labels + tk)
+                        : a == 1 ? (const void*)(lse + tk)
+                        : a == 2 ? (const void*)(g_lse + tk)
+                                 : (const void*)(g_tok + tk);
+      cp_async4(dst + i, src, ok);
     }
   };
 
-  load_rows<BWD_OWN>(so, own, o0, n_own, C);
-  if (OWN_TOK) load_tokens(o0, BWD_OWN);
+  cet_load_tile_sw128<BWD_OWN, C>(sm.own, own, o0, n_own, tid, THREADS);
+  if (OWN_TOK) load_tokens(sm.toks, o0, BWD_OWN);
+  cet_load_tile_sw128<BWD_STR, C>(sm.str, str, 0, n_str, tid, THREADS);
+  if (!OWN_TOK) load_tokens(sm.toks, 0, BWD_STR);
+  cp_async_commit();
 
-  const int warp = threadIdx.x >> 5;
-  const int rb = warp >> 2;  // 16-row block of the accumulator
-  const int cb = warp & 3;   // C / 4 columns of the accumulator
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
+  const uint32_t own_a = static_cast<uint32_t>(__cvta_generic_to_shared(sm.own));
+  const uint32_t str_a = static_cast<uint32_t>(__cvta_generic_to_shared(sm.str));
+  const uint64_t own_desc = cet_sw128_desc(own_a, 16, CET_SW128_ATOM);
+  // this thread's accumulator rows (of 64) and column pair (of each 8)
+  const int rA = 16 * (t >> 5) + ((t & 31) >> 2), q2 = 2 * (t & 3);
+
+  float acc[32 * P];
 #pragma unroll
-  for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[f], 0.0f);
+  for (int i = 0; i < 32 * P; ++i) acc[i] = 0.0f;
 
-  for (long long s0 = 0; s0 < n_str; s0 += BS) {
-    load_rows<BS>(ss, str, s0, n_str, C);
-    if (!OWN_TOK) load_tokens(s0, BS);
-    cp_async_wait_all();
+  for (long long it = 0; it < n_tiles; ++it) {
+    const int s = (int)(it & 1);
+    // tile `it` has landed in stage s (every thread's copies, and the
+    // last tile's readers are done with stage s ^ 1)
+    cp_async_wait_group0();
+    cet_fence_proxy_async();
     __syncthreads();
-    tile_logits<BWD_OWN>(so, ss, C, L);
-    __syncthreads();
-    for (int e = threadIdx.x; e < BWD_OWN * BS; e += THREADS) {
-      const int o = e / BS, s = e - o * BS;
-      const int ti = OWN_TOK ? o : s;
-      const long long vid = OWN_TOK ? s0 + s : o0 + o;
-      // padded vocab rows are zero, so their logits are 0, not -inf:
-      // keep them out of the softmax
-      const float p = vid < V ? expf(L[o * LDL + s] - t_lse[ti]) : 0.0f;
-      float d = t_gl[ti] * p;
-      if (vid == t_lab[ti]) d += t_gt[ti];
-      D[o * LDD + s] = __float2bfloat16(d);
+    if (it + 1 < n_tiles) {
+      cet_load_tile_sw128<BWD_STR, C>(sm.str + (s ^ 1) * STR_BYTES, str,
+                                      (it + 1) * BWD_STR, n_str, tid, THREADS);
+      if (!OWN_TOK)
+        load_tokens(sm.toks + (s ^ 1) * 4 * BWD_STR, (it + 1) * BWD_STR,
+                    BWD_STR);
     }
-    __syncthreads();
+    cp_async_commit();
+
+    const uint32_t stage_a = str_a + s * STR_BYTES;
+    float lg[16] = {};
+    bwd_logits_half<NF>(lg, own_desc,
+                        cet_sw128_desc(stage_a, 16, CET_SW128_ATOM), wg);
+    float h[8];
+    bwd_exchange_half(lg, h, sm.xbuf, wg, t);
+
+    // d = g_lse * softmax + g_tok * onehot of this warpgroup's 16
+    // columns, vocab ids >= V left out, branch-free: exp as
+    // ex2.approx.ftz (a few f32 ulps, far below d's bf16 rounding).
+    // Vocab id = vbase + j for tile column j (dX) or owned row j (dW),
+    // valid for j < vlim. Ids fit in 31 bits (W, V x C bf16 with C >= 64,
+    // fits in device memory); a label compares as its offset from vbase,
+    // wrapping mod 2^32, so only an exact match lands in [0, 64)
+    const float* tk = OWN_TOK ? sm.toks : sm.toks + s * 4 * BWD_STR;
+    constexpr int NT = OWN_TOK ? BWD_OWN : BWD_STR;
+    const long long vbase = OWN_TOK ? it * BWD_STR : o0;
+    const int vlim = (int)min((long long)(OWN_TOK ? BWD_STR : BWD_OWN),
+                              V - vbase);
+    const unsigned vb = (unsigned)vbase;
+    constexpr float LOG2E = 1.4426950408889634f;
+    uint32_t a[4];
 #pragma unroll
-    for (int kk = 0; kk < BS / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, D + rb * 16 * LDD + kk * 16, LDD);
+    for (int j = 0; j < 8; j += 2) {
+      float dv[2];
 #pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, ss + kk * 16 * ld + (cb * NF + f) * 16,
-                               ld);
-        wmma::mma_sync(acc[f], a, b, acc[f]);
+      for (int e = 0; e < 2; ++e) {
+        const int o = rA + 8 * (((j + e) >> 1) & 1);
+        const int sc = 16 * wg + 8 * ((j + e) >> 2) + q2 + ((j + e) & 1);
+        const int ti = OWN_TOK ? o : sc;
+        const int vj = OWN_TOK ? sc : o;
+        const float lse_t = tk[NT + ti], gl = tk[2 * NT + ti];
+        const float gt = tk[3 * NT + ti];
+        const int lr = (int)((unsigned)__float_as_int(tk[ti]) - vb);
+        const float p = ex2_ftz((h[j + e] - lse_t) * LOG2E);
+        const float d = gl * p + (vj == lr ? gt : 0.0f);
+        dv[e] = vj < vlim ? d : 0.0f;
       }
+      a[j >> 1] = pack_bf16(dv[0], dv[1]);
     }
-    __syncthreads();  // the next tile overwrites ss, L, D and the tokens
+    uint32_t afr[2][4];
+    bwd_exchange_afr(a, afr, sm.abuf, wg, t);
+
+    bwd_grad<NF>(acc, afr,
+                 cet_sw128_desc(stage_a, BWD_STR * 128, CET_SW128_ATOM), wg);
   }
 
-  // f32 accumulator -> shared staging (the streamed buffer holds
-  // 64 * (C + 8) bf16 >= 32 * C f32) -> bf16 rows of the output
-  float* st = reinterpret_cast<float*>(ss);
-#pragma unroll
-  for (int f = 0; f < NF; ++f)
-    wmma::store_matrix_sync(st + rb * 16 * C + (cb * NF + f) * 16, acc[f], C,
-                            wmma::mem_row_major);
+  // bf16 rows staged in shared memory (row stride C + 8), then written
+  // out 16 bytes a thread
   __syncthreads();
-  for (int i = threadIdx.x; i < BWD_OWN * C; i += THREADS) {
-    const int r = i / C;
-    if (o0 + r < n_own)
-      out[(o0 + r) * (long long)C + (i - r * C)] = __float2bfloat16(st[i]);
+  bf16* st = reinterpret_cast<bf16*>(sm.own);
+  constexpr int LDS = C + 8;
+  // warpgroup 1 leaves the panel it shares with warpgroup 0 (odd NF)
+  const int col0 = 64 * bwd_first_panel<NF>(wg);
+  const int skip = wg * 32 * (2 * P - NF);
+#pragma unroll
+  for (int i = 0; i < 32 * P; i += 2) {
+    if (i >= skip) {
+      const int r = rA + 8 * ((i >> 1) & 1);
+      const int c = col0 + 8 * (i >> 2) + q2;
+      *reinterpret_cast<__nv_bfloat162*>(st + r * LDS + c) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
   }
+  __syncthreads();
+  for (int i = tid; i < BWD_OWN * (C / 8); i += THREADS) {
+    const int r = i / (C / 8), ch = i - r * (C / 8);
+    if (o0 + r < n_own)
+      *reinterpret_cast<uint4*>(out + (o0 + r) * (long long)C + ch * 8) =
+          *reinterpret_cast<const uint4*>(st + r * LDS + ch * 8);
+  }
+}
+
+// One tile of each product shape of the backward, for checking the
+// shared-memory layout and the descriptors against a plain matrix
+// product: l = a . s^T through bwd_logits_half + bwd_exchange_half (K-major
+// A and B), g = dm . s through bwd_grad (A from registers, B MN-major),
+// both in f32. a (64, C), s (32, C), dm (64, 32) bf16, row-major.
+template <int NF>
+__global__ void __launch_bounds__(THREADS, 1)
+    wgmma_probe_kernel(const bf16* __restrict__ a, const bf16* __restrict__ s,
+                       const bf16* __restrict__ dm, float* __restrict__ l,
+                       float* __restrict__ g) {
+  constexpr int C = 64 * NF;
+  constexpr int P = (NF + 1) / 2;
+  extern __shared__ unsigned char smem_raw[];
+  const BwdSmem sm = bwd_carve<NF>(smem_raw);
+  const int tid = threadIdx.x, t = tid & 127;
+  // warp-uniform to the compiler, so descriptors live in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  cet_load_tile_sw128<BWD_OWN, C>(sm.own, a, 0, BWD_OWN, tid, THREADS);
+  cet_load_tile_sw128<BWD_STR, C>(sm.str, s, 0, BWD_STR, tid, THREADS);
+  cp_async_commit();
+  cp_async_wait_group0();
+  cet_fence_proxy_async();
+  __syncthreads();
+  const uint32_t own_a = static_cast<uint32_t>(__cvta_generic_to_shared(sm.own));
+  const uint32_t str_a = static_cast<uint32_t>(__cvta_generic_to_shared(sm.str));
+  const int rA = 16 * (t >> 5) + ((t & 31) >> 2), q2 = 2 * (t & 3);
+
+  float lg[16] = {}, h[8];
+  bwd_logits_half<NF>(lg, cet_sw128_desc(own_a, 16, CET_SW128_ATOM),
+                      cet_sw128_desc(str_a, 16, CET_SW128_ATOM), wg);
+  bwd_exchange_half(lg, h, sm.xbuf, wg, t);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    l[(rA + 8 * ((j >> 1) & 1)) * BWD_STR + 16 * wg + 8 * (j >> 2) + q2 +
+      (j & 1)] = h[j];
+
+  const uint32_t* dm32 = reinterpret_cast<const uint32_t*>(dm);
+  uint32_t afr[2][4];
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      afr[kk][j] = dm32[((rA + 8 * (j & 1)) * BWD_STR + 16 * kk + 8 * (j >> 1) +
+                         q2) >> 1];
+  float acc[32 * P];
+#pragma unroll
+  for (int i = 0; i < 32 * P; ++i) acc[i] = 0.0f;
+  bwd_grad<NF>(acc, afr, cet_sw128_desc(str_a, BWD_STR * 128, CET_SW128_ATOM),
+               wg);
+  const int col0 = 64 * bwd_first_panel<NF>(wg);
+  const int skip = wg * 32 * (2 * P - NF);
+#pragma unroll
+  for (int i = 0; i < 32 * P; ++i)
+    if (i >= skip)
+      g[(rA + 8 * ((i >> 1) & 1)) * C + col0 + 8 * (i >> 2) + q2 + (i & 1)] =
+          acc[i];
 }
 
 size_t fwd_smem(int C) {
@@ -301,9 +560,10 @@ size_t fwd_smem(int C) {
 }
 
 size_t bwd_smem(int C) {
-  return (size_t)(BWD_OWN + BS) * (C + PAD) * sizeof(bf16) +
-         (size_t)BWD_OWN * LDL * sizeof(float) +
-         (size_t)BWD_OWN * LDD * sizeof(bf16) + (size_t)BS * 4 * 4;
+  return (size_t)CET_SW128_ATOM  // slack to align the panels
+         + (size_t)(BWD_OWN + BWD_STAGES * BWD_STR) * C * sizeof(bf16) +
+         2 * 16 * 128 * sizeof(float)                 // xbuf
+         + (size_t)BWD_STAGES * 4 * BWD_STR * 4;      // tokens (>= 4 * 64)
 }
 
 template <bool OWN_TOK, int NF>
@@ -333,6 +593,18 @@ cudaError_t bwd_both(const bf16* x, const bf16* w, const int* labels,
   if (err != cudaSuccess) return err;
   return launch_bwd<false, NF>(x, w, labels, lse, g_lse, g_tok, dw, M, V,
                                stream);
+}
+
+template <int NF>
+cudaError_t launch_probe(const bf16* a, const bf16* s, const bf16* dm,
+                         float* l, float* g, cudaStream_t stream) {
+  const size_t smem = bwd_smem(64 * NF);
+  cudaError_t err = cudaFuncSetAttribute(
+      wgmma_probe_kernel<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  wgmma_probe_kernel<NF><<<1, THREADS, smem, stream>>>(a, s, dm, l, g);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -389,6 +661,19 @@ int cet_flce_bwd(const void* x, const void* w, const int* labels,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// one tile of each backward product shape (wgmma_probe_kernel); widths
+// 320 and 768 (an odd and an even number of 64-column panels)
+int cet_wgmma_probe(const void* a, const void* s, const void* dm, float* l,
+                    float* g, int C, void* stream) {
+  const bf16* ab = static_cast<const bf16*>(a);
+  const bf16* sb = static_cast<const bf16*>(s);
+  const bf16* db = static_cast<const bf16*>(dm);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C == 320) return (int)launch_probe<5>(ab, sb, db, l, g, st);
+  if (C == 768) return (int)launch_probe<12>(ab, sb, db, l, g, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

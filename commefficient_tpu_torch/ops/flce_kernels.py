@@ -38,8 +38,8 @@ PLAIN_CHUNK = 4096
 
 def unsupported_reason(c: int):
     """Why the kernels cannot take embedding width ``c`` (None if they
-    can): the backward keeps a (32, C) f32 accumulator in registers,
-    C / 64 fragments per warp."""
+    can): the backward keeps a (64, C) f32 accumulator in the registers
+    of two warpgroups, C / 2 columns each, C a template parameter."""
     if c % WIDTH_STEP or not MIN_WIDTH <= c <= MAX_WIDTH:
         return (f"embedding width {c} is not a multiple of {WIDTH_STEP} "
                 f"in [{MIN_WIDTH}, {MAX_WIDTH}] (the flce kernels' "
@@ -172,3 +172,44 @@ def flce_bwd_kernel(x, w, labels, lse, g_lse, g_tok):
 
 
 flce_bwd_kernel.launches = 0
+
+# widths of the one-tile product check (an odd and an even number of
+# 64-column panels)
+PROBE_WIDTHS = (320, 768)
+
+
+def wgmma_tile_products_plain(a, s, dm):
+    """f32 ``(a . s^T, dm . s)`` of a (64, C), s (32, C), dm (64, 32)."""
+    sf = s.float()
+    return a.float() @ sf.t(), dm.float() @ sf
+
+
+def wgmma_tile_products(a, s, dm):
+    """One tile of each product shape of the flce backward, through its
+    shared-memory layout and ``wgmma`` descriptors (csrc/flce.cu
+    ``cet_wgmma_probe``): ``a . s^T`` with both operands K-major and
+    ``dm . s`` with ``dm`` in registers and ``s`` MN-major, summed in
+    f32. bf16 a (64, C), s (32, C), dm (64, 32), C in ``PROBE_WIDTHS``;
+    plain version on the CPU."""
+    if a.device.type == "cpu":
+        return wgmma_tile_products_plain(a, s, dm)
+    c = int(a.shape[1])
+    if c not in PROBE_WIDTHS or tuple(a.shape) != (64, c) \
+            or tuple(s.shape) != (32, c) or tuple(dm.shape) != (64, 32):
+        raise ValueError(f"wgmma_tile_products: shapes {tuple(a.shape)}, "
+                         f"{tuple(s.shape)}, {tuple(dm.shape)}; want (64, C), "
+                         f"(32, C), (64, 32) with C in {PROBE_WIDTHS}")
+    for t in (a, s, dm):
+        if t.dtype != torch.bfloat16 or t.device != a.device \
+                or not t.is_contiguous():
+            raise ValueError("wgmma_tile_products: operands must be "
+                             "contiguous bfloat16 on one device")
+    fn = _build.bind("flce", "cet_wgmma_probe",
+                     [_P, _P, _P, _P, _P, ctypes.c_int, _P])
+    lg = torch.empty(64, 32, dtype=torch.float32, device=a.device)
+    g = torch.empty(64, c, dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        code = fn(a.data_ptr(), s.data_ptr(), dm.data_ptr(), lg.data_ptr(),
+                  g.data_ptr(), c, _stream(a.device))
+    _build.check(code, "cet_wgmma_probe")
+    return lg, g

@@ -8,7 +8,7 @@ machine need not have).
 Tolerances: sketch tables |diff| <= 1e-5*max|table| + 1e-6*max|v|
 (the kernel adds in the plain version's order, so they are normally
 equal); estimates and masks exact; the fused sketch-and-quantize bytes
-and row maxima exact.
+and row maxima exact; flce as stated beside its tests.
 """
 
 import pytest
@@ -149,6 +149,57 @@ def test_flce_kernels_match_plain(dev, m, v, c):
     for a, b in ((dx, dx_p), (dw, dw_p)):
         tol = 2 ** -7 * float(b.float().abs().max())
         assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+def _flce_bwd_pair(dev, m, v, c, seed):
+    fk, x, w, lab = _flce_case(dev, m, v, c, seed)
+    lse, _ = fk.flce_fwd_plain(x, w, lab)
+    gen = torch.Generator().manual_seed(seed + 1)
+    g_lse = torch.randn(m, generator=gen).to(dev)
+    g_tok = torch.randn(m, generator=gen).to(dev)
+    return fk, (x, w, lab, lse, g_lse, g_tok)
+
+
+# the backward's tiling edges: widths whose half is not a whole number of
+# 64-column panels (320, 704), token counts around its 64-row owned and
+# 32-row streamed tiles, vocabularies around its 32-row streamed tile
+@pytest.mark.parametrize("m,v,c", [(63, 31, 320), (64, 33, 704),
+                                   (65, 4097, 320), (129, 31, 704),
+                                   (64, 4097, 768), (129, 33, 768),
+                                   (65, 31, 64), (63, 4097, 704)])
+def test_flce_backward_tiling_edges(dev, m, v, c):
+    fk, args = _flce_bwd_pair(dev, m, v, c, seed=m * v + c)
+    dx, dw = fk.flce_bwd_kernel(*args)
+    dx_p, dw_p = fk.flce_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in ((dx, dx_p), (dw, dw_p)):
+        tol = 2 ** -7 * float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+def test_flce_backward_relaunch_is_bit_identical(dev):
+    fk, args = _flce_bwd_pair(dev, 333, 5003, 768, seed=2)
+    first = fk.flce_bwd_kernel(*args)
+    second = fk.flce_bwd_kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1],
+                                                            second[1])
+
+
+@pytest.mark.parametrize("c", [320, 768])
+def test_wgmma_tile_products_match_matmul(dev, c):
+    # f32 sums of exact bf16 products in another order: within 2^-16 of
+    # sum |a * b| per entry
+    from commefficient_tpu_torch.ops import flce_kernels as fk
+    gen = torch.Generator().manual_seed(c)
+    a, s = (torch.randn(n, c, generator=gen).to(dev, torch.bfloat16)
+            for n in (64, 32))
+    dm = torch.randn(64, 32, generator=gen).to(dev, torch.bfloat16)
+    lk, gk = fk.wgmma_tile_products(a, s, dm)
+    for k, lhs, rhs in ((lk, a, s.t()), (gk, dm, s)):
+        ref = lhs.float() @ rhs.float()
+        bound = lhs.float().abs() @ rhs.float().abs()
+        assert bool(((k - ref).abs() <= 2 ** -16 * bound).all())
 
 
 def test_flce_kernels_refuse_f32_and_bad_width(dev):

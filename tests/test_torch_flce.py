@@ -153,6 +153,19 @@ def test_kernel_wrappers_count_only_kernel_launches():
             fk.flce_bwd_kernel.launches) == before
 
 
+def test_ablation_variants_take_out_their_pieces():
+    # flce_ablation patches the backward's tile loop; every variant must
+    # still find its piece in csrc/flce.cu and differ from the kernel
+    from commefficient_tpu_torch import _build, flce_ablation
+    src = (_build.SRC_DIR / "flce.cu").read_text()
+    out = flce_ablation.variants(src)
+    assert set(out) == {"base", "no_d", "no_grad", "loads_only"}
+    assert all("cet_ablation_pass" in v for v in out.values())
+    assert len({v for v in out.values()}) == 4
+    with pytest.raises(RuntimeError, match="update flce_ablation"):
+        flce_ablation.variants(src.replace("bwd_grad<NF>(acc, afr,", ""))
+
+
 def test_card_smoke_flce_checks_reject_wrong_results():
     # chip_smoke.py holds the flce kernels against their plain versions
     # on the card. Here, at the main path's regime (bf16, W * 0.05, the
@@ -160,7 +173,10 @@ def test_card_smoke_flce_checks_reject_wrong_results():
     # its checks must pass the kernel's numerics (logits summed in
     # another order, then the same bf16 rounding of d) and fail a
     # softmax term left out, an unlabelled row of dW zeroed and a
-    # 64-row tile left out of a sum
+    # 64-row tile left out of a sum; and the slips of the backward's own
+    # granularity: one 32-row streamed tile left out of a sum, one
+    # 16-deep k step left out of the logits (the card check fails where
+    # dX or dW fails)
     import chip_smoke as cs
     m, v, c = 1024, 4096, 768
     gen = torch.Generator().manual_seed(1)
@@ -197,3 +213,9 @@ def test_card_smoke_flce_checks_reject_wrong_results():
             assert cs.row_rel_err(wrong_w, dw) > cs.FLCE_BWD_RTOL
         assert cs.row_rel_err(torch.where(labelled[:, None], kw, 0), dw) \
             > cs.FLCE_BWD_RTOL
+        lg_k = (x[:, 16:].double() @ w[:, 16:].double().t()).float()
+        d_k = fk._onehot_add(g_lse[:, None] * torch.exp(lg_k - lse[:, None]),
+                             lab, g_tok).to(torch.bfloat16).double()
+        for wrong_x, wrong_w in (products(d, lo=32), products(d_k)):
+            assert max(cs.row_rel_err(wrong_x, dx),
+                       cs.row_rel_err(wrong_w, dw)) > cs.FLCE_BWD_RTOL
