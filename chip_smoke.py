@@ -12,24 +12,28 @@ through the kernels:
 - ResNet9 (d = 6 584 000, a 5 x 524 288 sketch, k = 50 000):
   ``commefficient_tpu_torch.train.cv_train.main`` at full width for a
   few FetchSGD rounds and a validation pass; launch counts 2 sketch /
-  1 estimates / 1 take-mask per round;
+  1 estimates / 1 threshold search / 1 take-mask per round;
 - the same ResNet9 round on the quantized wire, ``--sketch_dtype int8
   --downlink_encoding delta`` for 4 rounds (launch counts 1 sketch-and-
-  quantize / 1 sketch / 1 estimates / 1 take-mask per round, the upload
-  exactly the int8 table and its 5 row scales per client), then
+  quantize / 1 sketch / 1 estimates / 1 search / 1 take-mask per round,
+  the upload exactly the int8 table and its 5 row scales per client), then
   ``--sketch_dtype fp8 --overlap_depth 2`` for 2 rounds (2 sketch-and-
   quantize launches a round, one per row chunk);
 - GPT-2 124M double heads (d = 124 444 417, vocab 50 262) on a
   PersonaChat-format corpus fabricated offline:
   ``commefficient_tpu_torch.train.gpt2_train.main`` at full width with
   the fused cross-entropy kernels (M = 16 320 tokens a round, bf16);
-  launch counts 1 sketch / 1 estimates / 1 take-mask / 1 flce forward /
-  1 flce backward per round, plus one flce forward per validation step.
-  The f32 paths launch the sketch-and-quantize kernel zero times.
+  launch counts 1 sketch / 1 estimates / 1 search / 1 take-mask / 1 flce
+  forward / 1 flce backward per round, plus one flce forward per
+  validation step. The f32 paths launch the sketch-and-quantize kernel
+  zero times.
 
-The sketch, estimates, take-mask and sketch-and-quantize kernels are
-also checked and timed at GPT-2's padded_d = 124 780 544, with the
-nibble threshold search beside them.
+The sketch, estimates, threshold search, take-mask and sketch-and-
+quantize kernels are also checked and timed at GPT-2's padded_d =
+124 780 544. The selection (the radix-select search for the k-th key
+and ``need``, then the take-mask) is held exactly against its plain
+version at both shapes and on edge distributions, and must run with
+no host sync (``torch.cuda.set_sync_debug_mode("error")``).
 Each phase prints one JSON line; a failed check raises, so the script
 exits nonzero before its last line, which is ``{"ok": true, "device":
 {...}}``. Needs one CUDA card; exits nonzero without one. Imports
@@ -59,7 +63,7 @@ from commefficient_tpu_torch.ops import quant
 from commefficient_tpu_torch.ops import sketch_kernels as sk
 from commefficient_tpu_torch.ops import topk_kernels as tk
 from commefficient_tpu_torch.ops.sketch import CountSketch
-from commefficient_tpu_torch.ops.topk import _nibble_threshold_key, keys_of
+from commefficient_tpu_torch.ops.topk import threshold_topk_mask_1d
 from commefficient_tpu_torch.parallel.wire import row_chunks
 from commefficient_tpu_torch.runtime import fed_model
 from commefficient_tpu_torch.train import cv_train, gpt2_train
@@ -80,8 +84,8 @@ INT8_ARGV = MAIN_ARGV + ["--sketch_dtype", "int8",
 FP8_ARGV = profile_round.ARGV + ["--num_epochs", "0.2", "--pivot_epoch",
                                  "0.1", "--lr_scale", "0.1", "--sketch_dtype",
                                  "fp8", "--overlap_depth", "2"]
-KERNELS = (sk.sketch_kernel, sk.estimates_kernel, tk.take_mask_kernel,
-           sk.sketch_quant_kernel)
+KERNELS = (sk.sketch_kernel, sk.estimates_kernel, tk.threshold_key_kernel,
+           tk.take_mask_kernel, sk.sketch_quant_kernel)
 FLCE = (fk.flce_fwd_kernel, fk.flce_bwd_kernel)
 # GPT-2 124M with the tokenizer's 50 257 + 5 special tokens; one round
 # is W*B*N*(T-1) = 4*8*2*255 predicting tokens
@@ -110,6 +114,8 @@ FLCE_BWD_TOL = ("||kernel-plain|| <= 2^-6 ||plain|| per row of dX and dW "
 WGMMA_TILE_RTOL = 2 ** -16
 WGMMA_TILE_TOL = ("|kernel-matmul| <= 2^-16 (|a|.|b|) per entry (f32), "
                   "K-major a.s^T and MN-major dm.s")
+SELECT_TOL = ("exact: T and need of the search kernel equal to the plain "
+              "search's, the mask equal to the plain take-mask's on them")
 
 
 def emit(obj):
@@ -146,6 +152,56 @@ def time_ms(fn, reps, flush):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def selection_checks(sq, k, tag):
+    """The search kernel's T and need against the plain search's, and
+    ``threshold_topk_mask_1d`` (search and take-mask kernels) against
+    the plain take-mask on the plain T and need, all exact; exactly k
+    set for 1 <= k <= d. Returns the plain (T, need) and the largest
+    |kernel - plain| of the two."""
+    t, need = tk.threshold_key_kernel(sq, k)
+    tp, needp = tk.threshold_key_plain(sq, k)
+    check(torch.equal(t, tp), f"threshold_key {tag}: T {int(t):#x}, plain "
+          f"{int(tp):#x}")
+    check(torch.equal(need, needp), f"threshold_key {tag}: need {int(need)}, "
+          f"plain {int(needp)}")
+    mask = threshold_topk_mask_1d(sq, k)
+    check(torch.equal(mask, tk.take_mask_plain(sq, tp, needp)),
+          f"selection {tag}: mask != plain")
+    if 1 <= k <= sq.numel():
+        check(int(mask.sum()) == k, f"selection {tag}: {int(mask.sum())} "
+              f"set, want {k}")
+    return tp, needp, float(max(abs(t - tp), abs(need - needp)))
+
+
+def sync_free_check(sq, k, tag):
+    """``threshold_topk_mask_1d`` on the card with any host sync an
+    error; its mask must hold exactly k."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mask = threshold_topk_mask_1d(sq, k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(int(mask.sum()) == k, f"sync-free selection {tag}: count")
+
+
+def threshold_key_row(sq, k, err, flush, reps, plain_reps):
+    """The search kernel's numbers on ``sq``: its time, the plain
+    search's, the selection's (search + take-mask), ``torch.topk``'s
+    and the bound (one read of the keys)."""
+    d = sq.numel()
+    b_ms, b_by = bound(4 * d + 16, d)
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: tk.threshold_key_kernel(sq, k), reps, flush),
+        plain_ms=time_ms(lambda: tk.threshold_key_plain(sq, k), plain_reps,
+                         flush),
+        selection_ms=time_ms(lambda: threshold_topk_mask_1d(sq, k), reps,
+                             flush),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.topk(sq, k), reps, flush))
 
 
 def flce_fwd_err(lse_k, tok_k, lse_p, tok_p):
@@ -313,8 +369,17 @@ def kernel_phases(dev, flush):
     # 3. take-mask at the server's shapes: keys of est[:d]^2
     est = est_k[:D]
     sq = (est * est).contiguous()
-    t = _nibble_threshold_key(keys_of(sq), K)
-    need = K - torch.sum(keys_of(sq) > t)
+    t, need, err = selection_checks(sq, K, "ResNet9")
+    sync_free_check(sq, K, "ResNet9")
+    rows.append(dict(
+        name="threshold_key", route="cuda",
+        source="commefficient_tpu_torch/csrc/radix_select.cu",
+        replaces="commefficient_tpu/ops/topk.py:106",
+        **threshold_key_row(sq, K, err, flush, 20, 5)))
+    emit({"phase": "kernel", **rows[-1], "tolerance": SELECT_TOL,
+          "library": "torch.topk(sq, k) (index set, not T and need)",
+          "selection": "selection_ms: threshold_topk_mask_1d, search + "
+                       "take-mask"})
     mk = tk.take_mask_kernel(sq, t, need)
     mp = tk.take_mask_plain(sq, t, need)
     check(torch.equal(mk, mp), "take_mask: kernel != plain")
@@ -337,8 +402,10 @@ def kernel_phases(dev, flush):
     return rows
 
 
-def edge_phases(dev):
-    """Other geometries and the take-mask edges, kernel vs plain."""
+def edge_phases(dev, flush, padded_d):
+    """Other geometries, and the selection's edges, kernels vs plain:
+    the search (T, need) and the mask exact; the contention worst case
+    at GPT-2's padded d timed."""
     out = []
     for d, c, r in ((12_345, 1000, 4), (50_000, 4096, 17), (700, 64, 1),
                     (4_000, 500, 3)):
@@ -364,16 +431,16 @@ def edge_phases(dev):
         out.append(f"sketch+estimates d={d} c={c} r={r}")
 
     def mask_case(name, sq, k, need=None):
-        keys = keys_of(sq)
-        t = _nibble_threshold_key(keys, k)
-        nd = (k - torch.sum(keys > t)) if need is None else \
-            torch.tensor(need, device=dev)
+        if need is None:
+            t, nd, _ = selection_checks(sq, k, f"edge {name}")
+        else:
+            t, _ = tk.threshold_key_plain(sq, k)
+            nd = torch.tensor(need, device=dev)
         mk = tk.take_mask_kernel(sq, t, nd)
         check(torch.equal(mk, tk.take_mask_plain(sq, t, nd)),
               f"take_mask edge {name}")
-        if need is None:
-            check(int(mk.sum()) == k, f"take_mask edge {name}: count")
-        out.append(f"take_mask {name}")
+        out.append(f"selection {name}" if need is None else
+                   f"take_mask {name}")
         return mk
 
     mk = mask_case("all-equal", torch.ones(2 * 2048 + 17, device=dev), 2100)
@@ -388,7 +455,35 @@ def edge_phases(dev):
     mask_case("ragged-d", sq, 513)
     mask_case("need<=0", sq, 513, need=0)
     mask_case("need<0", sq, 513, need=-3)
-    emit({"phase": "edges", "checked": out})
+    mask_case("k=1", sq, 1)
+    mask_case("k=d-1", sq, sq.numel() - 1)
+    sq = torch.randn(100_003, generator=gen, device=dev) ** 2
+    sq[torch.randperm(sq.numel(), generator=gen, device=dev)[:40]] = math.inf
+    mask_case("+inf keys", sq, 25)
+    mask_case("+inf keys, T finite", sq, 1000)
+    sq[torch.randperm(sq.numel(), generator=gen, device=dev)[:7]] = math.nan
+    mask_case("+inf and NaN keys", sq, 45)
+    # 64 levels over 2M keys: ~31 000 ties at T in every stretch of the
+    # vector, across all blocks of both kernels
+    sq = (torch.randint(0, 64, (2_000_003,), generator=gen, device=dev)
+          .float() / 64) ** 2
+    mask_case("ties at T over all blocks", sq, 1_000_000)
+    # a view 4 bytes past an aligned start: the search's scalar head
+    # before its 16-byte loads
+    mask_case("view at a 4-byte offset", sq[1:], 999_999)
+
+    # contention: every key shares its top 24 bits, so the histograms
+    # of passes 0-2 each land on one bin
+    bits = torch.randint(0, 256, (padded_d,), generator=gen, device=dev,
+                         dtype=torch.int32) | 0x3F800000
+    sq = bits.view(torch.float32)
+    mask_case("top 24 bits shared, GPT-2 padded d", sq, K)
+    contention_ms = time_ms(lambda: tk.threshold_key_kernel(sq, K), 10,
+                            flush)
+    emit({"phase": "edges", "checked": out,
+          "contention_case": {"d": padded_d, "k": K, "ms": contention_ms,
+                              "what": "threshold_key_kernel, every key "
+                                      "in [1, 1 + 255 ulp]"}})
 
 
 def server_phase(dev):
@@ -575,9 +670,9 @@ def flce_phases(dev, flush, m=GPT2_M, v=GPT2_V, c=GPT2_C):
 
 
 def gpt2_shape_phase(dev, flush):
-    """The sketch, estimates and take-mask kernels at GPT-2's padded_d
-    (inputs far above the 50 MB L2), each against its plain version,
-    and the nibble threshold search that feeds the take-mask."""
+    """The sketch, estimates, search and take-mask kernels at GPT-2's
+    padded_d (inputs far above the 50 MB L2), each against its plain
+    version, and the selection's time beside ``torch.topk``."""
     sketch = CountSketch(d=GPT2_D, c=C, r=R, seed=SEED)
     m, pd = sketch._m, sketch._padded_d
     rot = sketch.rotations_on(dev)
@@ -637,13 +732,9 @@ def gpt2_shape_phase(dev, flush):
     sq = (est_k * est_k).contiguous()
     del est_k
 
-    def search():
-        keys = keys_of(sq)
-        t = _nibble_threshold_key(keys, K)
-        return t, K - torch.sum(keys > t)
-
-    t, need = search()
-    nibble_ms = time_ms(search, 5, flush)
+    t, need, err = selection_checks(sq, K, "GPT-2")
+    sync_free_check(sq, K, "GPT-2")
+    out["threshold_key"] = threshold_key_row(sq, K, err, flush, 10, 2)
     mk = tk.take_mask_kernel(sq, t, need)
     check(torch.equal(mk, tk.take_mask_plain(sq, t, need)),
           "take_mask at GPT-2 shape")
@@ -657,9 +748,10 @@ def gpt2_shape_phase(dev, flush):
         library_ms=time_ms(lambda: torch.topk(sq, K), 5, flush))
     emit({"phase": "gpt2_shapes", "d": GPT2_D, "padded_d": pd, "r": R,
           "c": C, "k": K, "kernels": out,
-          "nibble_search_ms": nibble_ms,
-          "nibble_search": "keys_of + _nibble_threshold_key + need, "
-                           "plain torch"})
+          "nibble_search_ms": out["threshold_key"]["ms"],
+          "nibble_search": "threshold_key_kernel (csrc/radix_select.cu); "
+                           "its plain_ms: keys_of + _nibble_threshold_key "
+                           "+ need in torch"})
     return out
 
 
@@ -690,6 +782,7 @@ def gpt2_main_path():
     check(3 <= rounds <= 5, f"{rounds} rounds ran, want 3-5")
     check(d == GPT2_D, f"GPT-2 flat size {d}, want {GPT2_D}")
     want = {"sketch_kernel": rounds, "estimates_kernel": rounds,
+            "threshold_key_kernel": rounds,
             "take_mask_kernel": rounds, "sketch_quant_kernel": 0,
             "flce_fwd_kernel": rounds + val_steps,
             "flce_bwd_kernel": rounds}
@@ -717,7 +810,8 @@ def main_path():
     rounds = len(row["round_times"])
     check(3 <= rounds <= 5, f"{rounds} rounds ran, want 3-5")
     want = {"sketch_kernel": 2 * rounds, "estimates_kernel": rounds,
-            "take_mask_kernel": rounds, "sketch_quant_kernel": 0}
+            "threshold_key_kernel": rounds, "take_mask_kernel": rounds,
+            "sketch_quant_kernel": 0}
     check(counts == want, f"launch counts {counts}, want {want}")
     for key in ("train_loss", "test_loss", "test_acc"):
         check(math.isfinite(row[key]), f"{key} = {row[key]}")
@@ -745,7 +839,8 @@ def quant_main_path(argv, wire, chunks, f32_up_per_round=None):
     row = results[-1]
     rounds = len(row["round_times"])
     want = {"sketch_quant_kernel": chunks * rounds, "sketch_kernel": rounds,
-            "estimates_kernel": rounds, "take_mask_kernel": rounds}
+            "estimates_kernel": rounds, "threshold_key_kernel": rounds,
+            "take_mask_kernel": rounds}
     check(counts == want, f"{wire} launch counts {counts}, want {want}")
     for key in ("train_loss", "test_loss", "test_acc"):
         check(math.isfinite(row[key]), f"{wire}: {key} = {row[key]}")
@@ -801,8 +896,9 @@ def main():
     rows += flce_phases(dev, flush)
     torch.cuda.empty_cache()
     gpt2_shapes = gpt2_shape_phase(dev, flush)
+    torch.cuda.empty_cache()
+    edge_phases(dev, flush, CountSketch(d=GPT2_D, c=C, r=R)._padded_d)
     del flush
-    edge_phases(dev)
     server_phase(dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -828,7 +924,7 @@ def main():
         kern = f"{row['name']}_kernel"
         row["launches"] = launches[kern]
         entry = {k: row[k] for k in keys}
-        for extra in ("unfused_ms", "fp8"):
+        for extra in ("unfused_ms", "fp8", "selection_ms"):
             if extra in row:
                 entry[extra] = row[extra]
         if row["name"] in gpt2_shapes:

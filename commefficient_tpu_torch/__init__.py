@@ -7,9 +7,9 @@ nothing of the JAX package. What is ported so far is one FetchSGD
 round of ResNet9 and the trainer that drives it:
 
 - ``ops/``: the rotation count sketch, the exact threshold select and
-  the flat parameter vector; the three hand-written Hopper kernels
-  (``csrc/sketch.cu``, ``csrc/take_mask.cu``) sit behind
-  ``ops/sketch_kernels.py`` and ``ops/topk_kernels.py``;
+  the flat parameter vector; their hand-written Hopper kernels
+  (``csrc/sketch.cu``, ``csrc/radix_select.cu``, ``csrc/take_mask.cu``)
+  sit behind ``ops/sketch_kernels.py`` and ``ops/topk_kernels.py``;
 - ``models/resnet9.py``, ``core/``, ``runtime/fed_model.py``,
   ``data/`` and ``train/cv_train.py``.
 

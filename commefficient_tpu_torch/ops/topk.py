@@ -2,7 +2,8 @@
 
 Port of the parts of ``commefficient_tpu/ops/topk.py`` that the
 FetchSGD server step uses: the gates, the nibble radix search for the
-k-th largest key, the 1-D threshold mask and its ascending index set
+k-th largest key (the plain version of the card's radix-select
+kernel), the 1-D threshold mask and its ascending index set
 (``threshold_topk_indices``). The selected set is
 exactly k coordinates, the lowest index winning ties -- lax.top_k's
 set. ``torch.topk`` promises no tie order, so it is never used here.
@@ -42,9 +43,12 @@ def keys_of(sq: torch.Tensor) -> torch.Tensor:
 def _nibble_threshold_key(keys: torch.Tensor, k: int) -> torch.Tensor:
     """k-th largest key of 1-D ``keys`` by an 8-pass 4-bit radix
     search: each pass histograms the current nibble among the keys
-    whose higher nibbles match the prefix found so far. Plain torch on
-    the keys' device (the reference runs this as XLA code, not as a
-    kernel); returns a 0-dim int64 tensor, with no host sync."""
+    whose higher nibbles match the prefix found so far; returns a 0-dim
+    int64 tensor. The search kernel's plain version, run on the CPU
+    (``topk_kernels.threshold_key_plain``). On a CUDA tensor it would
+    stop the host 25 times: each ``torch.bincount`` reads its input's
+    min and max back, each pass reads ``b`` to index ``suffix``, and
+    ``remaining`` is copied up once; so the card runs the kernel."""
     assert keys.ndim == 1
     dev = keys.device
     t = torch.zeros((), dtype=torch.int64, device=dev)
@@ -82,15 +86,16 @@ def _take_from_threshold_1d(keys: torch.Tensor, t_key: torch.Tensor,
 
 def threshold_topk_mask_1d(sq: torch.Tensor, k: int) -> torch.Tensor:
     """(d,) bool mask of the k largest of non-negative ``sq``: the
-    nibble search for the k-th key T, then every key > T plus the
-    first ``need`` keys == T in index order -- the take-mask kernel on
-    CUDA (ops/topk_kernels.py), its plain version on the CPU."""
-    from commefficient_tpu_torch.ops.topk_kernels import take_mask_kernel
+    search for the k-th key T and ``need`` = k - #(keys > T), then
+    every key > T plus the first ``need`` keys == T in index order --
+    the search and take-mask kernels on CUDA (ops/topk_kernels.py),
+    with no host read; their plain versions on the CPU."""
+    from commefficient_tpu_torch.ops.topk_kernels import (
+        take_mask_kernel, threshold_key_kernel)
     assert sq.ndim == 1
-    keys = keys_of(sq)
-    t = _nibble_threshold_key(keys, k)
-    need = k - torch.sum(keys > t)
-    return take_mask_kernel(sq.to(torch.float32).contiguous(), t, need)
+    sq = sq.to(torch.float32).contiguous()
+    t, need = threshold_key_kernel(sq, k)
+    return take_mask_kernel(sq, t, need)
 
 
 def threshold_topk_indices(sq: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,11 +1,18 @@
-"""Take-mask: the Hopper kernel and its plain version.
+"""The server's selection: Hopper kernels and their plain versions.
 
-Port of ``commefficient_tpu/ops/topk_pallas.py``: ``take_mask_kernel``
-replaces ``take_mask_pallas`` (topk_pallas.py:45). The kernel lives in
-``csrc/take_mask.cu``, whose header comment gives its design and
-bound. The wrapper launches it for a CUDA tensor (or raises) and takes
-the plain version for a CPU tensor; it counts its launches in
-``.launches``. Both compute the same exact mask, bit for bit.
+- ``take_mask_kernel`` replaces ``take_mask_pallas``
+  (``commefficient_tpu/ops/topk_pallas.py:45``); its kernel lives in
+  ``csrc/take_mask.cu``;
+- ``threshold_key_kernel`` is the k-th-key search that feeds it: the
+  reference's ``_nibble_threshold_key`` and ``need`` pass
+  (``commefficient_tpu/ops/topk.py:106-152``, ``:219``), which are XLA
+  code there, as a radix select in ``csrc/radix_select.cu``.
+
+Each source's header comment gives its design and bound. A wrapper
+launches its kernel for a CUDA tensor (or raises) and takes the plain
+version for a CPU tensor; it counts its launches in ``.launches``.
+Kernel and plain version give the same threshold, ``need`` and mask,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -15,9 +22,55 @@ import ctypes
 import torch
 
 from commefficient_tpu_torch import _build
-from commefficient_tpu_torch.ops.topk import _take_from_threshold_1d, keys_of
+from commefficient_tpu_torch.ops.topk import (_nibble_threshold_key,
+                                              _take_from_threshold_1d,
+                                              keys_of)
 
 _P = ctypes.c_void_p
+_RS_BINS = 256  # CET_RS_BINS in csrc/radix_select.cu
+
+
+def threshold_key_plain(sq, k: int):
+    """The search kernel's plain version: ``keys_of``, the nibble
+    search and ``need = k - #(keys > T)`` in torch; returns two 0-dim
+    int64 tensors (T, need)."""
+    keys = keys_of(sq)
+    t = _nibble_threshold_key(keys, k)
+    return t, k - torch.sum(keys > t)
+
+
+def threshold_key_kernel(sq, k: int):
+    """``sq`` (d,) contiguous f32 non-negative keys, ``k`` the count
+    to select (1 <= k < d at the call sites) -> (T, need): the bit
+    pattern of the k-th largest key and k - #(keys > T), two 0-dim
+    int64 tensors on ``sq``'s device. Kernel on CUDA (csrc/radix_select.cu
+    ``cet_threshold_key``: no host read), plain version on the CPU."""
+    if sq.dtype != torch.float32 or sq.ndim != 1 or not sq.is_contiguous():
+        raise ValueError("threshold_key_kernel wants a contiguous 1-D f32 "
+                         f"tensor, got {sq.dtype} {tuple(sq.shape)} "
+                         f"(contiguous: {sq.is_contiguous()})")
+    if sq.device.type == "cpu":
+        return threshold_key_plain(sq, k)
+    if sq.device.type != "cuda":
+        raise ValueError(f"threshold_key_kernel: no kernel on {sq.device}")
+    d = sq.numel()
+    if d >= 2 ** 31:
+        raise ValueError(f"threshold_key_kernel: d = {d} >= 2^31 overflows "
+                         "its 32-bit counts")
+    dev = sq.device
+    fn = _build.bind("radix_select", "cet_threshold_key",
+                     [_P, ctypes.c_longlong, ctypes.c_longlong, _P, _P, _P])
+    state = torch.empty(2, dtype=torch.int64, device=dev)
+    hist = torch.empty(_RS_BINS, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = fn(sq.data_ptr(), d, int(k), state.data_ptr(),
+                  hist.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "cet_threshold_key")
+    threshold_key_kernel.launches += 1
+    return state[0], state[1]
+
+
+threshold_key_kernel.launches = 0
 
 
 def take_mask_plain(sq, t_key, need) -> torch.Tensor:

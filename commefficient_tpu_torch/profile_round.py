@@ -18,6 +18,9 @@ offline in a temporary directory), the same sketch and k:
   half and the server half, each closed by ``torch.cuda.synchronize``
   (syncs serialise what would overlap, so these sum to more than a
   plain round);
+- ``host_syncs``: the host syncs of one round's client half and of
+  its server half, counted as the warnings that
+  ``torch.cuda.set_sync_debug_mode("warn")`` raises in each;
 - ``device``: ``torch.profiler`` over as many more rounds: device
   busy time per round, its share of the profiled wall time, and the
   kernels and copies with the most device time.
@@ -31,6 +34,7 @@ import argparse
 import json
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -50,6 +54,22 @@ ARGV = ["--dataset_name", "Synthetic", "--mode", "sketch",
 
 def _device_us(evt) -> float:
     return float(evt.self_device_time_total)
+
+
+def _host_syncs(fn) -> int:
+    """Host syncs in fn(): the warnings that sync debug mode "warn"
+    raises in it."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
 
 
 def gpt2_argv(data_dir, vocab_dir):
@@ -142,6 +162,11 @@ def _profile(opts, model, opt, train_loader):
                       "rounds": opts.rounds,
                       "data_s": phases[0], "client_s": phases[1],
                       "server_s": phases[2]}), flush=True)
+
+    batch = next(it)
+    print(json.dumps({"phase": "host_syncs",
+                      "client": _host_syncs(lambda: model(batch)),
+                      "server": _host_syncs(opt.step)}), flush=True)
 
     walls = []
     for _ in range(opts.rounds):

@@ -7,8 +7,9 @@ card: ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``
 machine need not have).
 Tolerances: sketch tables |diff| <= 1e-5*max|table| + 1e-6*max|v|
 (the kernel adds in the plain version's order, so they are normally
-equal); estimates and masks exact; the fused sketch-and-quantize bytes
-and row maxima exact; flce as stated beside its tests.
+equal); estimates, the search's T and need, and masks exact; the fused
+sketch-and-quantize bytes and row maxima exact; flce as stated beside
+its tests.
 """
 
 import pytest
@@ -17,9 +18,7 @@ import torch
 from commefficient_tpu_torch.ops import sketch_kernels as sk
 from commefficient_tpu_torch.ops import topk_kernels as tk
 from commefficient_tpu_torch.ops.sketch import CountSketch
-from commefficient_tpu_torch.ops.topk import (_nibble_threshold_key,
-                                              keys_of,
-                                              threshold_topk_mask_1d)
+from commefficient_tpu_torch.ops.topk import threshold_topk_mask_1d
 
 pytestmark = pytest.mark.cuda
 
@@ -57,9 +56,7 @@ def test_take_mask_kernel(dev, d, k):
     sq = sq.to(dev)
     mask = threshold_topk_mask_1d(sq, k)
     assert int(mask.sum()) == k
-    keys = keys_of(sq)
-    t = _nibble_threshold_key(keys, k)
-    need = k - torch.sum(keys > t)
+    t, need = tk.threshold_key_plain(sq, k)
     assert torch.equal(mask, tk.take_mask_plain(sq, t, need))
 
 
@@ -98,6 +95,88 @@ def test_sketch_quant_kernel(dev, wire, d, c, r):
     q0, rm0 = sk.sketch_quant_kernel(torch.zeros_like(vp), rot, c, r, seed,
                                      one_mix, wire)
     assert not bool(as_bytes(q0).any()) and not bool(rm0.any())
+
+
+# --- the k-th-key search (csrc/radix_select.cu) -------------------------
+# Exact: T and need equal to the plain search's, the mask to the plain
+# take-mask's on them.
+
+
+def _search_case(name, gen):
+    if name == "squared-gaussian":
+        return torch.randn(1_000_003, generator=gen) ** 2, 50_000
+    if name == "all-equal":
+        return torch.ones(70_001), 30_000
+    if name == "zero-threshold":
+        sq = torch.zeros(70_001)
+        sq[torch.randperm(sq.numel(), generator=gen)[:50]] = 1.0
+        return sq, sq.numel() - 3
+    if name in ("k=1", "k=d-1"):
+        sq = torch.rand(3 * 2048 + 11, generator=gen) ** 2
+        return sq, 1 if name == "k=1" else sq.numel() - 1
+    if name == "+inf":
+        sq = torch.randn(100_003, generator=gen) ** 2
+        sq[torch.randperm(sq.numel(), generator=gen)[:40]] = float("inf")
+        return sq, 25
+    if name == "ties-over-blocks":
+        return (torch.randint(0, 64, (2_000_003,), generator=gen).float()
+                / 64) ** 2, 1_000_000
+    if name == "4-byte-offset-view":  # cut on the card, below
+        return torch.randn(1_000_006, generator=gen) ** 2, 50_000
+    assert name == "top-24-bits"
+    bits = torch.randint(0, 256, (3_000_001,), generator=gen,
+                         dtype=torch.int32) | 0x3F800000
+    return bits.view(torch.float32), 50_000
+
+
+@pytest.mark.parametrize("name", ["squared-gaussian", "all-equal",
+                                  "zero-threshold", "k=1", "k=d-1", "+inf",
+                                  "ties-over-blocks", "4-byte-offset-view",
+                                  "top-24-bits"])
+def test_threshold_key_kernel_matches_plain(dev, name):
+    sq, k = _search_case(name, torch.Generator().manual_seed(len(name)))
+    sq = sq.to(dev)
+    if name == "4-byte-offset-view":
+        sq = sq[1:]  # 3 keys before the first 16-byte boundary, 2 after
+    before = tk.threshold_key_kernel.launches
+    t, need = tk.threshold_key_kernel(sq, k)
+    assert tk.threshold_key_kernel.launches == before + 1
+    tp, needp = tk.threshold_key_plain(sq, k)
+    assert torch.equal(t, tp) and torch.equal(need, needp)
+    mask = threshold_topk_mask_1d(sq, k)
+    assert torch.equal(mask, tk.take_mask_plain(sq, tp, needp))
+    assert int(mask.sum()) == k
+
+
+def test_selection_launches_each_kernel_once(dev):
+    sq = (torch.rand(100_000, generator=torch.Generator().manual_seed(1))
+          ** 2).to(dev)
+    counts = (tk.threshold_key_kernel.launches, tk.take_mask_kernel.launches)
+    threshold_topk_mask_1d(sq, 513)
+    assert (tk.threshold_key_kernel.launches,
+            tk.take_mask_kernel.launches) == (counts[0] + 1, counts[1] + 1)
+
+
+def test_threshold_key_relaunch_is_bit_identical(dev):
+    sq = (torch.randn(2_000_003, generator=torch.Generator().manual_seed(2))
+          ** 2).to(dev)
+    first = [x.clone() for x in tk.threshold_key_kernel(sq, 50_000)]
+    second = tk.threshold_key_kernel(sq, 50_000)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1],
+                                                            second[1])
+
+
+def test_selection_has_no_host_sync(dev):
+    sq = (torch.randn(6_584_000, generator=torch.Generator().manual_seed(3))
+          ** 2).to(dev)
+    threshold_topk_mask_1d(sq, 50_000)  # the libraries are loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mask = threshold_topk_mask_1d(sq, 50_000)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(mask.sum()) == 50_000
 
 
 def test_wrapper_refuses_wrong_dtype(dev):

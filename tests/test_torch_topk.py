@@ -1,7 +1,8 @@
 """The port's exact threshold select against the JAX package's, on the
 CPU. The JAX side runs ``threshold_topk_mask_1d`` with ``force_xla``
 and, where the Pallas kernel applies, ``interpret=True``; the port
-runs the nibble search and the take-mask kernel's plain version.
+runs the search and take-mask kernels' wrappers, which take their plain
+versions (the nibble search, the cumsum take rule) for CPU tensors.
 Tolerance: none -- the same keys give the same threshold and the same
 mask, bit for bit (exactly k set, the lowest index winning ties)."""
 
@@ -21,8 +22,10 @@ from commefficient_tpu_torch.ops.topk import (_nibble_threshold_key,
                                               selection_may_duplicate,
                                               threshold_topk_mask_1d,
                                               use_threshold_select)
+from commefficient_tpu_torch.ops import topk_kernels as tk
 from commefficient_tpu_torch.ops.topk_kernels import (take_mask_kernel,
-                                                      take_mask_plain)
+                                                      take_mask_plain,
+                                                      threshold_key_kernel)
 
 
 def _sq(d, seed, ties=True):
@@ -109,3 +112,116 @@ def test_gates_match_reference():
                          (5000, 1 << 20, False)):
         assert use_threshold_select(k, d, approx) == jax_gate(k, d, approx)
         assert selection_may_duplicate(d, approx) == jax_dup(d, approx)
+
+
+# --- the k-th-key search (threshold_key_kernel) ---------------------------
+
+
+def _search_case(name):
+    """(sq, k) of one edge distribution, from a numpy seed."""
+    rng = np.random.RandomState(len(name))
+    if name == "ties-at-T":
+        x = rng.randn(100_000).astype(np.float32)
+        x[rng.choice(x.size, 300, replace=False)] = 1.5
+        sq = np.square(x)
+        return sq, int((sq > np.float32(2.25)).sum()) + 100
+    if name == "zero-threshold":
+        x = np.zeros(70_001, np.float32)
+        x[rng.choice(x.size, 50, replace=False)] = rng.randn(50)
+        return np.square(x), x.size - 3
+    if name == "all-equal":
+        return np.ones(70_001, np.float32), 30_000
+    if name in ("k=1", "k=d-1"):
+        sq = _sq(50_000, 6)
+        return sq, 1 if name == "k=1" else sq.size - 1
+    if name.startswith("+inf"):
+        sq = _sq(60_000, 4)
+        sq[rng.choice(sq.size, 40, replace=False)] = np.inf
+        return sq, 25 if name == "+inf-T" else 1000
+    if name == "top-24-bits":
+        bits = np.uint32(0x3F800000) | rng.randint(0, 256, 100_000).astype(
+            np.uint32)
+        return bits.view(np.float32), 5000
+    assert name == "gaussian-2^20+7"
+    return np.square(rng.randn((1 << 20) + 7).astype(np.float32)), 50_000
+
+
+SEARCH_CASES = ["ties-at-T", "zero-threshold", "all-equal", "k=1", "k=d-1",
+                "+inf-T", "+inf-finite-T", "top-24-bits", "gaussian-2^20+7"]
+
+
+@pytest.mark.parametrize("name", SEARCH_CASES)
+def test_threshold_key_matches_jax_bit_exact(name):
+    """T against the reference's _nibble_threshold_key and need against
+    its k - sum(keys > t), as integers."""
+    sq, k = _search_case(name)
+    keys = jax.lax.bitcast_convert_type(jnp.asarray(sq), jnp.uint32)
+    want_t = jax_nibble(keys, k)
+    want_need = int(k - jnp.sum((keys > want_t).astype(jnp.int32)))
+    t, need = threshold_key_kernel(torch.from_numpy(sq), k)
+    assert (int(t), int(need)) == (int(want_t), want_need)
+
+
+@pytest.mark.parametrize("name", ["+inf-T", "top-24-bits", "ties-at-T"])
+def test_mask_edges_match_xla_and_pallas(name):
+    sq, k = _search_case(name)
+    got = _port_mask(sq, k)
+    assert got.sum() == k
+    for kw in ({"force_xla": True}, {"interpret": True}):
+        np.testing.assert_array_equal(
+            got, np.asarray(jax_mask(jnp.asarray(sq), k, **kw)))
+
+
+@pytest.mark.parametrize("bad", ["f64", "2-D", "non-contiguous"])
+def test_threshold_key_wrapper_refuses(bad):
+    sq = torch.rand(4096)
+    sq = {"f64": sq.double(), "2-D": sq.view(64, 64),
+          "non-contiguous": sq[::2]}[bad]
+    with pytest.raises(ValueError, match="contiguous 1-D f32"):
+        threshold_key_kernel(sq, 17)
+
+
+def _ties_input():
+    # T = 1.0 with 633 of its 2732 ties taken
+    sq = torch.ones(4099)
+    sq[::3] = 2.0
+    return sq, 2000
+
+
+def test_card_smoke_selection_checks_pass_right_result():
+    import chip_smoke as cs
+    sq, k = _ties_input()
+    t, need, err = cs.selection_checks(sq, k, "cpu")
+    assert (int(t), int(need), err) == (0x3F800000, 633, 0.0)
+
+
+@pytest.mark.parametrize("mutant", ["T one ulp up", "T one ulp down",
+                                    "need + 1", "need - 1", "one tie moved"])
+def test_card_smoke_selection_checks_reject_wrong_results(monkeypatch,
+                                                          mutant):
+    # chip_smoke.py holds the search and take-mask kernels exactly
+    # against their plain versions on the card; here the kernels'
+    # results are replaced by wrong ones and its checks must raise
+    import chip_smoke as cs
+    sq, k = _ties_input()
+    search, mask = tk.threshold_key_kernel, tk.take_mask_kernel
+
+    def wrong_search(s, kk):
+        t, need = search(s, kk)
+        dt, dn = {"T one ulp up": (1, 0), "T one ulp down": (-1, 0),
+                  "need + 1": (0, 1), "need - 1": (0, -1)}[mutant]
+        return t + dt, need + dn
+
+    def tie_moved(s, t, need):
+        m = mask(s, t, need).clone()
+        eq = keys_of(s) == t
+        m[torch.nonzero(m & eq)[0]] = False
+        m[torch.nonzero(~m & eq)[-1]] = True
+        return m
+
+    if mutant == "one tie moved":
+        monkeypatch.setattr(tk, "take_mask_kernel", tie_moved)
+    else:
+        monkeypatch.setattr(tk, "threshold_key_kernel", wrong_search)
+    with pytest.raises(AssertionError):
+        cs.selection_checks(sq, k, mutant)
