@@ -92,8 +92,8 @@ FLCE = (fk.flce_fwd_kernel, fk.flce_bwd_kernel)
 GPT2_D, GPT2_V, GPT2_C = 124_444_417, 50_262, 768
 GPT2_M = 4 * 8 * 2 * 255
 # the forward's f32 outputs: a few times the summation-order and
-# expf/logf differences (~4e-6 at lse ~ 12); one 64-row vocab tile left
-# out moves lse by ~1e-3
+# exp/log differences (~4e-6 at lse ~ 12); one 256-id vocab tile left
+# out moves lse by ~5e-3
 FLCE_FWD_ATOL = 2e-5
 FLCE_FWD_TOL = "|kernel-plain| <= 2e-5 per token, lse and tok (f32)"
 # the backward's bf16 outputs, held row by row so that the small
@@ -113,7 +113,8 @@ FLCE_BWD_TOL = ("||kernel-plain|| <= 2^-6 ||plain|| per row of dX and dW "
 # moves an entry by ~2% of sum|a*b|
 WGMMA_TILE_RTOL = 2 ** -16
 WGMMA_TILE_TOL = ("|kernel-matmul| <= 2^-16 (|a|.|b|) per entry (f32), "
-                  "K-major a.s^T and MN-major dm.s")
+                  "K-major a.s^T and f.b^T (the forward's 128 x 256 tile), "
+                  "MN-major dm.s")
 SELECT_TOL = ("exact: T and need of the search kernel equal to the plain "
               "search's, the mask equal to the plain take-mask's on them")
 
@@ -527,6 +528,8 @@ def ptxas_report(log):
                        f"{64 * int(b.group(2))}"
             elif "flce_fwd_kernel" in name:
                 name = "fwd"
+            elif "fwd_probe_kernel" in name:
+                name = "fwd_probe"
             elif "wgmma_probe_kernel" in name:
                 name = "wgmma_probe_C" + str(64 * int(re.search(
                     r"wgmma_probe_kernelILi(\d+)E", name).group(1)))
@@ -542,23 +545,40 @@ def ptxas_report(log):
     return out
 
 
+def flce_ptxas_checks(report):
+    """Every flce kernel compiled without spills, the forward included."""
+    check("fwd" in report and "registers" in report["fwd"],
+          f"ptxas_flce: no line for the forward in {sorted(report)}")
+    for name, props in report.items():
+        check(props.get("spill_stores", 0) == 0
+              and props.get("spill_loads", 0) == 0,
+              f"ptxas_flce: {name} spills {props}")
+
+
 def wgmma_tile_phase(dev):
     """One tile of each product shape of the flce backward (logits
     a . s^T with K-major operands, the gradient product dm . s with dm
-    in registers and s MN-major) against torch.matmul in f32, at an
-    odd and an even number of 64-column panels."""
+    in registers and s MN-major) and one 128 x 256 tile of the forward
+    (f . b^T over the whole width, through its cp.async ring) against
+    torch.matmul in f32, at an odd and an even number of 64-column
+    panels."""
     gen = torch.Generator(device=dev).manual_seed(6)
     out = {}
     for c in fk.PROBE_WIDTHS:
         a, s = (torch.randn(n, c, generator=gen, device=dev).to(
             torch.bfloat16) for n in (64, 32))
         dm = torch.randn(64, 32, generator=gen, device=dev).to(torch.bfloat16)
+        f, b = (torch.randn(n, c, generator=gen, device=dev).to(
+            torch.bfloat16) for n in fk.FWD_TILE)
         lk, gk = fk.wgmma_tile_products(a, s, dm)
         lp, gp = fk.wgmma_tile_products_plain(a, s, dm)  # torch.matmul
         sa = s.float().abs()
         for name, k, p, bound_ in (
                 ("a.s^T", lk, lp, a.float().abs() @ sa.t()),
-                ("dm.s", gk, gp, dm.float().abs() @ sa)):
+                ("dm.s", gk, gp, dm.float().abs() @ sa),
+                ("fwd f.b^T", fk.wgmma_fwd_tile(f, b),
+                 fk.wgmma_fwd_tile_plain(f, b),
+                 f.float().abs() @ b.float().abs().t())):
             err = (k - p).abs()
             ratio = float((err / bound_.clamp_min(1e-30)).max())
             check(ratio <= WGMMA_TILE_RTOL, f"wgmma tile {name} at C={c}: "
@@ -598,6 +618,17 @@ def flce_phases(dev, flush, m=GPT2_M, v=GPT2_V, c=GPT2_C):
     check(err <= FLCE_FWD_ATOL,
           f"flce_fwd: max|kernel-plain| {err} > {FLCE_FWD_ATOL}")
     check(bool((tok_k[::7] == 0).all()), "flce_fwd: ignored label picked")
+    lse_2, tok_2 = fk.flce_fwd_kernel(x, w, lab)
+    check(torch.equal(lse_k, lse_2) and torch.equal(tok_k, tok_2),
+          "flce_fwd: two launches on the same inputs differ")
+    del lse_2, tok_2
+    # ragged: M - 37 tokens leave the last 128-row token block partial
+    # (V = 50 262 already leaves the last 256-id vocab tile at 86 ids)
+    mr = m - 37
+    err_ragged = flce_fwd_err(*fk.flce_fwd_kernel(x[:mr], w, lab[:mr]),
+                              lse_p[:mr], tok_p[:mr])
+    check(err_ragged <= FLCE_FWD_ATOL, f"flce_fwd ragged M={mr}: "
+          f"max|kernel-plain| {err_ragged} > {FLCE_FWD_ATOL}")
     b_ms, b_by = bound(2 * m * c + 2 * v * c + 4 * m + 8 * m,
                        2 * m * v * c, BF16_OPS)
     logits = torch.empty(m, v, dtype=torch.bfloat16, device=dev)
@@ -613,6 +644,8 @@ def flce_phases(dev, flush, m=GPT2_M, v=GPT2_V, c=GPT2_C):
                            flush)))
     emit({"phase": "kernel", **rows[-1], "tolerance": FLCE_FWD_TOL,
           "shapes": {"M": m, "V": v, "C": c, "dtype": "bfloat16"},
+          f"max_abs_err_ragged_M{mr}": err_ragged,
+          "bit_identical_relaunch": True,
           "library": "torch.matmul(x, w.T): the logits product alone"})
 
     # the LM loss's cotangents: nll = lse - tok, so g_tok = -g_lse,
@@ -886,8 +919,11 @@ def main():
                         if ("registers" in ln or "spill" in ln)
                         and "C7519" not in ln]
                     for k, log in _build.BUILD_LOGS.items()}})
-    emit({"phase": "ptxas_flce", "kernels": ptxas_report(
-        _build.BUILD_LOGS.get("flce", ""))})
+    flce_log = _build.BUILD_LOGS.get("flce", "")
+    report = ptxas_report(flce_log)
+    emit({"phase": "ptxas_flce", "kernels": report,
+          "wgmma_serialized_C7520": "C7520" in flce_log})
+    flce_ptxas_checks(report)
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     rows = kernel_phases(dev, flush)

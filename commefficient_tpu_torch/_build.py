@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOCK = threading.Lock()
 _LIBS: dict = {}
 # ptxas register / shared-memory report of each build, by source stem
+# (kept beside the library, so a cached build still has its report)
 BUILD_LOGS: dict = {}
 
 
@@ -60,6 +61,9 @@ def _start(stem: str):
     returns (process or None, tmp path, final path)."""
     out = _target(stem)
     if out.exists():
+        log = out.with_suffix(".log")
+        if log.exists():
+            BUILD_LOGS[stem] = log.read_text()
         return None, None, out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -77,6 +81,7 @@ def _finish(stem: str, proc, tmp: Path, out: Path) -> Path:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for csrc/{stem}.cu "
                                f"(exit {proc.returncode}):\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     return out
 

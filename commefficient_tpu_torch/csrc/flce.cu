@@ -21,14 +21,27 @@
 // MB, W 77 MB, dW 77 MB) take 0.03-0.06 ms at 3.35 TB/s, so both
 // kernels are bound by operations.
 //
-// Forward. nvcuda::wmma (mma.sync, 16x16x16 bf16 -> f32) tile
-// products: a block of 8 warps owns 64 token rows of x (resident in
-// shared memory) and streams 64-row vocab tiles of W, always in the
-// same order. Each 64 x 64 logits tile is folded into a running max and
-// sum-of-exp per token (online softmax) and the label logit is picked;
-// vocab ids >= V count as -inf. One tile buffer: loads do not overlap
-// the products (12.22 ms against the 1.274 ms bound on an NVIDIA H100
-// 80GB HBM3 at 700 W; its redesign is the next kernel of PERF.md).
+// Forward. A block of two warpgroups (256 threads, one block an SM)
+// owns 128 token rows, warpgroup g rows [64 g, 64 g + 64), and walks the
+// vocab in tiles of 256 ids, always in the same order. Each tile is a K
+// loop over 64-deep chunks: the x chunk (128 x 64 bf16) and the W chunk
+// (256 x 64) come as SW128 panels through a four-stage cp.async ring
+// (48 KB a stage), the copies of the next three (tile, chunk) steps in
+// flight while one is multiplied. Each warpgroup multiplies its 64 rows
+// by the W chunk with four wgmma m64n256k16 (A and B from shared memory,
+// K-major), so that after the last chunk the 64 x 256 logits tile sits
+// in 128 accumulator registers a thread. There it is folded into the
+// thread's running (max, sum of exp) for each of its two rows, over its
+// own 64 columns of the tile (ex2.approx, ids >= V left out), and the
+// label's logit is picked by an unrolled compare-and-select; the logits
+// never reach shared or device memory. At the end the four threads of a
+// row merge their (max, sum) in a fixed order: no atomics, two launches
+// give the same bits. At the GPT-2 round's shapes the blocks together
+// read W once a block (128 x 77.2 MB) and x once a vocab tile (197 x
+// 25.1 MB), 14.8 GB through L2, against 1.27 ms of tensor-core work: the
+// L2 reads, ~2.6 ms at ~5.8 TB/s, set the design's pace. Measured: 2.756
+// ms, 46% of the 1.274 ms bound (255 registers, 0 spills), on an NVIDIA
+// H100 80GB HBM3 at 700 W.
 //
 // Backward. The TPU kernel carries dW across a sequential grid and
 // writes per-vocab-block dX partials; blocks on Hopper run in no order,
@@ -71,84 +84,220 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 typedef __nv_bfloat16 bf16;
 #include "wgmma.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int THREADS = 256;   // 8 warps
-constexpr int BS = 64;         // streamed rows per tile
-constexpr int PAD = 8;         // bf16 padding per shared row (16 bytes)
-constexpr int LDL = BS + 4;    // f32 logits tile row stride
-constexpr int FWD_OWN = 64;    // token rows per forward block
+constexpr int THREADS = 256;   // 8 warps, two warpgroups
+constexpr int FWD_BM = 128;    // token rows per forward block
+constexpr int FWD_BN = 256;    // vocab ids per forward tile
+constexpr int FWD_STAGES = 4;  // (x chunk, W chunk) pairs in the cp.async ring
+constexpr int FWD_X_BYTES = FWD_BM * 128;  // one 64-column SW128 panel
+constexpr int FWD_STAGE_BYTES = FWD_X_BYTES + FWD_BN * 128;
 constexpr int BWD_OWN = 64;    // owned rows per backward block
 constexpr int BWD_STR = 32;    // streamed rows per backward tile
 constexpr int BWD_STAGES = 2;  // streamed tiles in the cp.async ring
 static_assert(BWD_STAGES == 2, "the backward's ring alternates two stages");
 constexpr int MAX_NF = 12;     // C <= 64 * MAX_NF
 
-// rows [row0, row0 + ROWS) of a row-major (nrows, C) bf16 matrix into
-// shared memory with row stride C + PAD; rows past nrows read as zero
-template <int ROWS>
-__device__ __forceinline__ void load_rows(bf16* sm, const bf16* g,
-                                          long long row0, long long nrows,
-                                          int C) {
-  const int cpr = C >> 3;  // 16-byte chunks per row
-  const int ld = C + PAD;
-  for (int i = threadIdx.x; i < ROWS * cpr; i += THREADS) {
-    const int r = i / cpr, ch = i - r * cpr;
-    const long long gr = row0 + r;
-    const bool ok = gr < nrows;
-    cp_async16(sm + r * ld + ch * 8, g + (ok ? gr : 0) * (long long)C + ch * 8,
-               ok);
+// 2^x, flushing results below 2^-126 to zero (one MUFU.EX2)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the first 1024-byte boundary at or after `raw` (shared memory)
+__device__ __forceinline__ unsigned char* sw128_align(unsigned char* raw) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
+  return raw + ((CET_SW128_ATOM - (a & (CET_SW128_ATOM - 1))) &
+                (CET_SW128_ATOM - 1));
+}
+
+// Folds one 64 x 256 logits tile (this thread's 128 accumulator
+// registers) into the running max m and sum of exp s of the thread's two
+// rows, h = 0 and 1 (accumulator register i holds row h = (i / 2) % 2 and
+// tile column 8 (i / 4) + q2 + i % 2); tile columns >= vlim (ids >= V)
+// are left out when RAGGED. Every sum is taken in one fixed order.
+template <bool RAGGED>
+__device__ __forceinline__ void fwd_fold_tile(const float* acc, int q2,
+                                              int vlim, float* m, float* s) {
+  constexpr float LOG2E = 1.4426950408889634f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      const int col = 8 * (j >> 1) + q2 + (j & 1);
+      const float a = acc[4 * (j >> 1) + 2 * h + (j & 1)];
+      mx = fmaxf(mx, (!RAGGED || col < vlim) ? a : -INFINITY);
+    }
+    const float m_new = fmaxf(m[h], mx);
+    // a thread whose columns so far are all ids >= V keeps m = -inf
+    const float m_ref = m_new == -INFINITY ? 0.0f : m_new;
+    const float mL = m_ref * LOG2E;
+    float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      const int col = 8 * (j >> 1) + q2 + (j & 1);
+      const float e =
+          ex2_ftz(fmaf(acc[4 * (j >> 1) + 2 * h + (j & 1)], LOG2E, -mL));
+      p[j & 3] += (!RAGGED || col < vlim) ? e : 0.0f;
+    }
+    // first tile: m = -inf, s = 0 carries nothing
+    s[h] = s[h] * ex2_ftz((m[h] - m_ref) * LOG2E) +
+           ((p[0] + p[1]) + (p[2] + p[3]));
+    m[h] = m_new;
   }
 }
 
-// L[OWN][BS] (row stride LDL) = own (OWN x C) . str (BS x C)^T. Warp w
-// takes the column block w % 4 and the row blocks w / 4, w / 4 + 2, ...;
-// two accumulator chains per fragment (even and odd k steps).
-template <int OWN>
-__device__ __forceinline__ void tile_logits(const bf16* own, const bf16* str,
-                                            int C, float* L) {
-  constexpr int FM = OWN / 16;          // row blocks
-  constexpr int PER = FM / 2;           // row blocks per warp
-  static_assert(BS / 16 == 4 && FM % 2 == 0, "tile shape");
-  const int warp = threadIdx.x >> 5;
-  const int fn = warp & 3;
-  const int ld = C + PAD;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[PER][2];
+// The logit of tile column lc (< 256) of row h, which this thread holds:
+// lc % 8 / 2 == q2 / 2. Compare-and-select over the thread's registers,
+// never a register indexed at run time.
+__device__ __forceinline__ float fwd_pick(const float* acc, unsigned lc,
+                                          int h) {
+  const int want = (int)(lc >> 3);
+  const bool odd = lc & 1;
+  float p = 0.0f;
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    wmma::fill_fragment(acc[i][0], 0.0f);
-    wmma::fill_fragment(acc[i][1], 0.0f);
+  for (int jj = 0; jj < 32; ++jj) {
+    const float a = odd ? acc[4 * jj + 2 * h + 1] : acc[4 * jj + 2 * h];
+    p = jj == want ? a : p;
   }
-  for (int k = 0; k < C; k += 32) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, str + fn * 16 * ld + k + h * 16, ld);
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int fm = (warp >> 2) + 2 * i;
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, own + fm * 16 * ld + k + h * 16, ld);
-        wmma::mma_sync(acc[i][h], a, b, acc[i][h]);
+  return p;
+}
+
+// One forward block: tokens [m0, m0 + 128) of x (M, C) against every
+// vocab tile of W (V, C). PROBE: a single tile (M = 128, V = 256), whose
+// logits are written to `probe` (128 x 256 f32) in place of the softmax.
+template <bool PROBE>
+__device__ __forceinline__ void fwd_block(unsigned char* smem_raw,
+                                          const bf16* __restrict__ x,
+                                          const bf16* __restrict__ w,
+                                          const int* __restrict__ labels,
+                                          float* __restrict__ lse,
+                                          float* __restrict__ tok,
+                                          float* __restrict__ probe,
+                                          long long M, long long V, int C) {
+  unsigned char* ring = sw128_align(smem_raw);
+  const uint32_t ring_a = static_cast<uint32_t>(__cvta_generic_to_shared(ring));
+  const int tid = threadIdx.x, t = tid & 127;
+  // warp-uniform to the compiler, so descriptors live in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const long long m0 = (long long)blockIdx.x * FWD_BM;
+  const int nk = C >> 6;  // 64-deep chunks a tile
+  const int steps = (int)((V + FWD_BN - 1) / FWD_BN) * nk;
+
+  // (tile, chunk) steps in order, step j into stage j % FWD_STAGES
+  int ld_step = 0, ld_kc = 0;
+  long long ld_v0 = 0;
+  auto load_next = [&]() {
+    if (ld_step < steps) {
+      unsigned char* st = ring + (ld_step % FWD_STAGES) * FWD_STAGE_BYTES;
+      cet_load_chunk_sw128<FWD_BM, THREADS>(st, x, m0, M, C, 64 * ld_kc, tid);
+      cet_load_chunk_sw128<FWD_BN, THREADS>(st + FWD_X_BYTES, w, ld_v0, V, C,
+                                            64 * ld_kc, tid);
+      ++ld_step;
+      if (++ld_kc == nk) {
+        ld_kc = 0;
+        ld_v0 += FWD_BN;
       }
     }
+    cp_async_commit();  // an empty group past the last step keeps the count
+  };
+#pragma unroll
+  for (int j = 0; j < FWD_STAGES - 1; ++j) load_next();
+
+  // this thread's rows (of the warpgroup's 64) and column pair (of each 8)
+  const int rA = 16 * (t >> 5) + ((t & 31) >> 2), q2 = 2 * (t & 3);
+  long long row[2];
+  int lab[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = m0 + 64 * wg + rA + 8 * h;
+    const int l = (!PROBE && row[h] < M) ? labels[row[h]] : -1;
+    lab[h] = (l >= 0 && l < V) ? l : -1;  // outside [0, V): picks nothing
   }
+  float acc[128];
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int fm = (warp >> 2) + 2 * i;
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY}, s_run[2] = {0.0f, 0.0f};
+  float t_run[2] = {0.0f, 0.0f};
+
+  int kc = 0;
+  long long v0 = 0;
+  for (int i = 0; i < steps; ++i) {
+    // step i has landed (every thread's copies), and every wgmma of step
+    // i - 1 has retired, so its stage may be refilled
+    cp_async_wait_group<FWD_STAGES - 2>();
+    cet_fence_proxy_async();
+    __syncthreads();
+    load_next();  // step i + FWD_STAGES - 1
+
+    const uint32_t st = ring_a + (i % FWD_STAGES) * FWD_STAGE_BYTES;
+    const uint64_t da = cet_sw128_desc(st + wg * 64 * 128, 16, CET_SW128_ATOM);
+    const uint64_t db = cet_sw128_desc(st + FWD_X_BYTES, 16, CET_SW128_ATOM);
+    cet_wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < acc[i][0].num_elements; ++t)
-      acc[i][0].x[t] += acc[i][1].x[t];
-    wmma::store_matrix_sync(L + fm * 16 * LDL + fn * 16, acc[i][0], LDL,
-                            wmma::mem_row_major);
+    for (int kk = 0; kk < 4; ++kk)
+      cet_wgmma_ss_n256(acc, cet_desc_add(da, 32 * kk),
+                        cet_desc_add(db, 32 * kk), kc > 0 || kk > 0);
+    cet_wgmma_commit();
+    cet_wgmma_wait_all();
+#pragma unroll
+    for (int r = 0; r < 128; ++r) cet_fence_operand(acc[r]);
+    if (++kc < nk) continue;
+
+    // the tile's logits are complete
+    kc = 0;
+    if constexpr (PROBE) {
+#pragma unroll
+      for (int i2 = 0; i2 < 128; i2 += 2)
+        *reinterpret_cast<float2*>(
+            probe + (64 * wg + rA + 8 * ((i2 >> 1) & 1)) * FWD_BN +
+            8 * (i2 >> 2) + q2) = make_float2(acc[i2], acc[i2 + 1]);
+    } else {
+      const int vlim = (int)min((long long)FWD_BN, V - v0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // the label's tile column, wrapping mod 2^32 (ids fit in 31 bits)
+        const unsigned lc = (unsigned)lab[h] - (unsigned)v0;
+        if (lc < (unsigned)FWD_BN && (int)(lc & 6) == q2)
+          t_run[h] = fwd_pick(acc, lc, h);
+      }
+      if (vlim < FWD_BN)
+        fwd_fold_tile<true>(acc, q2, vlim, m_run, s_run);
+      else
+        fwd_fold_tile<false>(acc, q2, vlim, m_run, s_run);
+      v0 += FWD_BN;
+    }
+  }
+
+  if constexpr (!PROBE) {
+    constexpr float LOG2E = 1.4426950408889634f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // the quad's four (max, sum) pairs, then its one picked logit
+      // (the others hold 0), in a fixed order
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m_run[h], off);
+        const float so = __shfl_xor_sync(0xffffffffu, s_run[h], off);
+        const float mn = fmaxf(m_run[h], mo);
+        const float mr = mn == -INFINITY ? 0.0f : mn;
+        s_run[h] = s_run[h] * ex2_ftz((m_run[h] - mr) * LOG2E) +
+                   so * ex2_ftz((mo - mr) * LOG2E);
+        m_run[h] = mn;
+        t_run[h] += __shfl_xor_sync(0xffffffffu, t_run[h], off);
+      }
+      if (q2 == 0 && row[h] < M) {
+        lse[row[h]] = m_run[h] + logf(s_run[h]);
+        tok[row[h]] = t_run[h];
+      }
+    }
   }
 }
 
@@ -157,56 +306,19 @@ __global__ void __launch_bounds__(THREADS, 1)
                     const int* __restrict__ labels, float* __restrict__ lse,
                     float* __restrict__ tok, long long M, long long V,
                     int C) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = C + PAD;
-  bf16* sx = reinterpret_cast<bf16*>(smem);
-  bf16* sw = sx + FWD_OWN * ld;
-  float* L = reinterpret_cast<float*>(sw + BS * ld);
+  extern __shared__ unsigned char smem_raw[];
+  fwd_block<false>(smem_raw, x, w, labels, lse, tok, nullptr, M, V, C);
+}
 
-  const long long m0 = (long long)blockIdx.x * FWD_OWN;
-  load_rows<FWD_OWN>(sx, x, m0, M, C);
-  // four threads per token row, 16 logits columns each
-  const int row = threadIdx.x >> 2, q = threadIdx.x & 3;
-  const long long gm = m0 + row;
-  const int lab = gm < M ? labels[gm] : -1;
-  float m_run = -INFINITY, s_run = 0.0f, t_run = 0.0f;
-
-  for (long long v0 = 0; v0 < V; v0 += BS) {
-    load_rows<BS>(sw, w, v0, V, C);
-    cp_async_wait_all();
-    __syncthreads();
-    tile_logits<FWD_OWN>(sx, sw, C, L);
-    __syncthreads();
-    const float* Lr = L + row * LDL + q * 16;
-    float vals[16];
-    float bmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const long long vid = v0 + q * 16 + j;
-      const float v = vid < V ? Lr[j] : -INFINITY;
-      vals[j] = v;
-      bmax = fmaxf(bmax, v);
-      if (vid == lab && vid < V) t_run += v;  // labels outside [0, V): 0
-    }
-    bmax = fmaxf(bmax, __shfl_xor_sync(0xffffffffu, bmax, 1));
-    bmax = fmaxf(bmax, __shfl_xor_sync(0xffffffffu, bmax, 2));
-    const float m_new = fmaxf(m_run, bmax);
-    float se = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) se += expf(vals[j] - m_new);
-    se += __shfl_xor_sync(0xffffffffu, se, 1);
-    se += __shfl_xor_sync(0xffffffffu, se, 2);
-    // first tile: exp(-inf - finite) == 0 folds the empty carry in
-    s_run = s_run * expf(m_run - m_new) + se;
-    m_run = m_new;
-    __syncthreads();  // the next tile overwrites sw and L
-  }
-  t_run += __shfl_xor_sync(0xffffffffu, t_run, 1);
-  t_run += __shfl_xor_sync(0xffffffffu, t_run, 2);
-  if (q == 0 && gm < M) {
-    lse[gm] = m_run + logf(s_run);
-    tok[gm] = t_run;
-  }
+// One forward tile through the forward's ring and descriptors, for
+// checking them against a plain matrix product: probe = a . b^T in f32,
+// a (128, C) and b (256, C) bf16 row-major.
+__global__ void __launch_bounds__(THREADS, 1)
+    fwd_probe_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
+                     float* __restrict__ probe, int C) {
+  extern __shared__ unsigned char smem_raw[];
+  fwd_block<true>(smem_raw, a, b, nullptr, nullptr, nullptr, probe, FWD_BM,
+                  FWD_BN, C);
 }
 
 // ---- backward -----------------------------------------------------
@@ -268,13 +380,6 @@ __device__ __forceinline__ void bwd_exchange_afr(const uint32_t* a,
     afr[0][j] = wg ? b : a[j];
     afr[1][j] = wg ? a[j] : b;
   }
-}
-
-// 2^x, flushing results below 2^-126 to zero (one MUFU.EX2)
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // bf16 pair, low column in the low half
@@ -554,10 +659,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           acc[i];
 }
 
-size_t fwd_smem(int C) {
-  return (size_t)(FWD_OWN + BS) * (C + PAD) * sizeof(bf16) +
-         (size_t)FWD_OWN * LDL * sizeof(float);
-}
+constexpr size_t FWD_SMEM =
+    CET_SW128_ATOM + (size_t)FWD_STAGES * FWD_STAGE_BYTES;  // + alignment slack
 
 size_t bwd_smem(int C) {
   return (size_t)CET_SW128_ATOM  // slack to align the panels
@@ -618,13 +721,12 @@ int cet_flce_fwd(const void* x, const void* w, const int* labels, float* lse,
                  float* tok, long long M, long long V, int C, void* stream) {
   if (C % 64 != 0 || C < 64 || C > 64 * MAX_NF || M <= 0 || V <= 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_smem(C);
   cudaError_t err = cudaFuncSetAttribute(
       flce_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (int)FWD_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((M + FWD_OWN - 1) / FWD_OWN);
-  flce_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  const unsigned grid = (unsigned)((M + FWD_BM - 1) / FWD_BM);
+  flce_fwd_kernel<<<grid, THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), labels, lse,
       tok, M, V, C);
   return (int)cudaGetLastError();
@@ -674,6 +776,21 @@ int cet_wgmma_probe(const void* a, const void* s, const void* dm, float* l,
   if (C == 320) return (int)launch_probe<5>(ab, sb, db, l, g, st);
   if (C == 768) return (int)launch_probe<12>(ab, sb, db, l, g, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// one forward tile (fwd_probe_kernel): probe (128, 256) = a (128, C) .
+// b (256, C)^T in f32, any width the forward takes
+int cet_wgmma_fwd_probe(const void* a, const void* b, float* probe, int C,
+                        void* stream) {
+  if (C % 64 != 0 || C < 64 || C > 64 * MAX_NF)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)FWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  fwd_probe_kernel<<<1, THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b), probe, C);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

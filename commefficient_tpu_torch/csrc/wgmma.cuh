@@ -89,8 +89,11 @@ __device__ __forceinline__ void cp_async_wait_group0() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+// waits until at most N of this thread's committed cp.async groups are
+// still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // rows [row0, row0 + ROWS) of a row-major (nrows, C) bf16 matrix into an
@@ -110,6 +113,30 @@ __device__ __forceinline__ void cet_load_tile_sw128(unsigned char* tile,
     const bool ok = gr < nrows;
     cp_async16(tile + cet_sw128_offset(r, ch, ROWS),
                g + (ok ? gr : 0) * (long long)C + ch * 8, ok);
+  }
+}
+
+// rows [row0, row0 + ROWS) and columns [col0, col0 + 64) of a row-major
+// bf16 matrix with `nrows` rows of `ld` elements into one SW128 panel of
+// ROWS rows at `panel` (1024-byte aligned), by the NTHREADS threads of
+// the block (this is `tid`); rows past nrows read as zero. Thread `tid`
+// always copies 16-byte chunk tid % 8 of its rows. Issues cp.async only:
+// the caller commits and waits.
+template <int ROWS, int NTHREADS>
+__device__ __forceinline__ void cet_load_chunk_sw128(unsigned char* panel,
+                                                     const __nv_bfloat16* g,
+                                                     long long row0,
+                                                     long long nrows, int ld,
+                                                     int col0, int tid) {
+  static_assert(NTHREADS % 8 == 0 && (ROWS * 8) % NTHREADS == 0,
+                "whole rows of 16-byte chunks per pass");
+#pragma unroll
+  for (int k = 0; k < ROWS * 8 / NTHREADS; ++k) {
+    const int r = (tid >> 3) + k * (NTHREADS / 8), ch = tid & 7;
+    const long long gr = row0 + r;
+    const bool ok = gr < nrows;
+    cp_async16(panel + cet_sw128_offset(r, ch, ROWS),
+               g + (ok ? gr : 0) * (long long)ld + col0 + ch * 8, ok);
   }
 }
 
@@ -138,6 +165,29 @@ __device__ __forceinline__ void cet_wgmma_ss_n32(float* d, uint64_t da,
 // (t % 32) / 4), columns 2 (t % 4) + {0, 1} and 8 + 2 (t % 4) + {0, 1}:
 // the layout of an m64n16 accumulator, in the order a0 = (g, lo),
 // a1 = (g + 8, lo), a2 = (g, hi), a3 = (g + 8, hi).
+// D(64 x 256) = A . B (+ D if accumulate), A (64 x 16) and B (256 x 16)
+// K-major in shared memory; the accumulator layout as above, 128
+// registers a thread.
+__device__ __forceinline__ void cet_wgmma_ss_n256(float* d, uint64_t da,
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : CET_F8(0), CET_F8(8), CET_F8(16), CET_F8(24), CET_F8(32), CET_F8(40),
+        CET_F8(48), CET_F8(56), CET_F8(64), CET_F8(72), CET_F8(80),
+        CET_F8(88), CET_F8(96), CET_F8(104), CET_F8(112), CET_F8(120)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 template <int N>
 __device__ __forceinline__ void cet_wgmma_rs_tb(float* d, const uint32_t* a,
                                                 uint64_t db);

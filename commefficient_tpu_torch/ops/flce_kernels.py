@@ -173,9 +173,11 @@ def flce_bwd_kernel(x, w, labels, lse, g_lse, g_tok):
 
 flce_bwd_kernel.launches = 0
 
-# widths of the one-tile product check (an odd and an even number of
+# widths of the one-tile product checks (an odd and an even number of
 # 64-column panels)
 PROBE_WIDTHS = (320, 768)
+# the forward's tile: token rows a block, vocab ids a tile
+FWD_TILE = (128, 256)
 
 
 def wgmma_tile_products_plain(a, s, dm):
@@ -213,3 +215,38 @@ def wgmma_tile_products(a, s, dm):
                   g.data_ptr(), c, _stream(a.device))
     _build.check(code, "cet_wgmma_probe")
     return lg, g
+
+
+def wgmma_fwd_tile_plain(a, b):
+    """f32 ``a . b^T`` of a (128, C) and b (256, C)."""
+    return a.float() @ b.float().t()
+
+
+def wgmma_fwd_tile(a, b):
+    """One tile of the flce forward, through its cp.async ring, its
+    shared-memory layout and its ``wgmma`` descriptors (csrc/flce.cu
+    ``cet_wgmma_fwd_probe``): ``a . b^T`` with both operands K-major,
+    summed in f32 over the whole width. bf16 a (128, C) and b (256, C),
+    C a width the kernels take; plain version on the CPU."""
+    if a.device.type == "cpu":
+        return wgmma_fwd_tile_plain(a, b)
+    c = int(a.shape[1])
+    if unsupported_reason(c) is not None \
+            or tuple(a.shape) != (FWD_TILE[0], c) \
+            or tuple(b.shape) != (FWD_TILE[1], c):
+        raise ValueError(f"wgmma_fwd_tile: shapes {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}; want (128, C), (256, C) with "
+                         f"C % 64 == 0 in [64, 768]")
+    for t in (a, b):
+        if t.dtype != torch.bfloat16 or t.device != a.device \
+                or not t.is_contiguous():
+            raise ValueError("wgmma_fwd_tile: operands must be contiguous "
+                             "bfloat16 on one device")
+    fn = _build.bind("flce", "cet_wgmma_fwd_probe",
+                     [_P, _P, _P, ctypes.c_int, _P])
+    out = torch.empty(*FWD_TILE, dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), c,
+                  _stream(a.device))
+    _build.check(code, "cet_wgmma_fwd_probe")
+    return out

@@ -265,17 +265,54 @@ def test_flce_backward_relaunch_is_bit_identical(dev):
                                                             second[1])
 
 
+# the forward's tiling edges: token counts around its 128-row block,
+# vocabularies around its 256-id tile, widths of 1, 5 and 12 chunks of
+# 64; labels -1, V and V + 1 pick nothing (V + 1 inside the padded last
+# tile where V % 256 != 0)
+@pytest.mark.parametrize("m,v,c", [(1, 31, 64), (127, 255, 320),
+                                   (128, 256, 768), (129, 257, 64),
+                                   (255, 4097, 320), (1, 4097, 768),
+                                   (129, 31, 768), (255, 256, 64),
+                                   (128, 257, 320)])
+def test_flce_forward_tiling_edges(dev, m, v, c):
+    fk, x, w, lab = _flce_case(dev, m, v, c, seed=m * v + c)
+    lab[0] = -1
+    lab[1::7] = v
+    lab[2::7] = v + 1
+    lse, tok = fk.flce_fwd_kernel(x, w, lab)
+    lse_p, tok_p = fk.flce_fwd_plain(x, w, lab)
+    torch.cuda.synchronize()
+    for a, b in ((lse, lse_p), (tok, tok_p)):
+        tol = 1e-4 * max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= tol
+    outside = (lab < 0) | (lab >= v)
+    assert bool((tok[outside] == 0).all())
+
+
+def test_flce_forward_relaunch_is_bit_identical(dev):
+    fk, x, w, lab = _flce_case(dev, 333, 5003, 768, seed=3)
+    first = fk.flce_fwd_kernel(x, w, lab)
+    second = fk.flce_fwd_kernel(x, w, lab)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1],
+                                                            second[1])
+
+
 @pytest.mark.parametrize("c", [320, 768])
 def test_wgmma_tile_products_match_matmul(dev, c):
     # f32 sums of exact bf16 products in another order: within 2^-16 of
-    # sum |a * b| per entry
+    # sum |a * b| per entry; the backward's two product shapes and one
+    # 128 x 256 tile of the forward through its cp.async ring
     from commefficient_tpu_torch.ops import flce_kernels as fk
     gen = torch.Generator().manual_seed(c)
     a, s = (torch.randn(n, c, generator=gen).to(dev, torch.bfloat16)
             for n in (64, 32))
     dm = torch.randn(64, 32, generator=gen).to(dev, torch.bfloat16)
+    f, b = (torch.randn(n, c, generator=gen).to(dev, torch.bfloat16)
+            for n in fk.FWD_TILE)
     lk, gk = fk.wgmma_tile_products(a, s, dm)
-    for k, lhs, rhs in ((lk, a, s.t()), (gk, dm, s)):
+    fwd = fk.wgmma_fwd_tile(f, b)
+    for k, lhs, rhs in ((lk, a, s.t()), (gk, dm, s), (fwd, f, b.t())):
         ref = lhs.float() @ rhs.float()
         bound = lhs.float().abs() @ rhs.float().abs()
         assert bool(((k - ref).abs() <= 2 ** -16 * bound).all())

@@ -12,6 +12,8 @@ reference entry, within 2e-4 (the reference test's own bound for the
 fused against the chunked path).
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -166,30 +168,77 @@ def test_ablation_variants_take_out_their_pieces():
         flce_ablation.variants(src.replace("bwd_grad<NF>(acc, afr,", ""))
 
 
-def test_card_smoke_flce_checks_reject_wrong_results():
-    # chip_smoke.py holds the flce kernels against their plain versions
-    # on the card. Here, at the main path's regime (bf16, W * 0.05, the
-    # LM loss's cotangents g_tok = -g_lse, ignored labels) but smaller,
-    # its checks must pass the kernel's numerics (logits summed in
-    # another order, then the same bf16 rounding of d) and fail a
-    # softmax term left out, an unlabelled row of dW zeroed and a
-    # 64-row tile left out of a sum; and the slips of the backward's own
-    # granularity: one 32-row streamed tile left out of a sum, one
-    # 16-deep k step left out of the logits (the card check fails where
-    # dX or dW fails)
-    import chip_smoke as cs
-    m, v, c = 1024, 4096, 768
+def _main_path_regime(v):
+    # the main path's regime (bf16, W * 0.05, ignored labels), smaller
+    m, c = 1024, 768
     gen = torch.Generator().manual_seed(1)
     x = torch.randn(m, c, generator=gen).to(torch.bfloat16)
     w = (torch.randn(v, c, generator=gen) * 0.05).to(torch.bfloat16)
     lab = torch.randint(0, v, (m,), generator=gen, dtype=torch.int32)
     lab[::7] = -1
+    return m, c, gen, x, w, lab
+
+
+def _fwd_from_logits(lg_lse, lg_tok, lab):
+    """f32 (lse of ``lg_lse``, the label's logit in ``lg_tok`` or 0 for
+    label -1) from f64 logits."""
+    valid = lab >= 0
+    picked = lg_tok.gather(1, torch.where(valid, lab, 0).long()[:, None])
+    return (torch.logsumexp(lg_lse, 1).float(),
+            torch.where(valid, picked[:, 0], 0.0).float())
+
+
+@pytest.mark.parametrize("slip", ["none", "one 256-id vocab tile left out",
+                                  "one 64-deep K chunk left out",
+                                  "one 16-deep k step left out",
+                                  "padded ids counted as logit 0"])
+def test_card_smoke_flce_fwd_check_rejects_slips(slip):
+    # chip_smoke.py holds the forward to |kernel - plain| <= 2e-5 per
+    # token. At the main path's regime, with V = 4000 (its last 256-id
+    # tile holds 160 ids and 96 padded ones), the check must pass the
+    # exact result in f64 and fail each slip of the forward's tiling:
+    # 256-id vocab tiles, 64-deep K chunks of four 16-deep k steps
+    import chip_smoke as cs
+    v = 4000
+    _, _, _, x, w, lab = _main_path_regime(v)
+    lse, tok = fk.flce_fwd_plain(x, w, lab)
+    xd, wd = x.double(), w.double()
+    lo = {"one 64-deep K chunk left out": 64,
+          "one 16-deep k step left out": 16}.get(slip, 0)
+    lg = lg_lse = xd[:, lo:] @ wd[:, lo:].t()
+    # the softmax slips leave the label's logit as it is
+    if slip == "one 256-id vocab tile left out":
+        lg_lse = torch.cat([lg[:, :256], torch.full_like(lg[:, 256:512],
+                                                         -math.inf),
+                            lg[:, 512:]], 1)
+    if slip == "padded ids counted as logit 0":
+        lg_lse = torch.cat([lg, torch.zeros(lg.shape[0], 256 - v % 256,
+                                            dtype=lg.dtype)], 1)
+    err = cs.flce_fwd_err(*_fwd_from_logits(lg_lse, lg, lab), lse, tok)
+    if slip == "none":
+        assert err <= cs.FLCE_FWD_ATOL
+    else:
+        assert err > cs.FLCE_FWD_ATOL
+
+
+def test_card_smoke_flce_checks_reject_wrong_results():
+    # chip_smoke.py holds the flce kernels against their plain versions
+    # on the card (the forward's check: the test above). Here, at the
+    # main path's regime with the LM loss's cotangents g_tok = -g_lse,
+    # the backward's checks must pass the kernel's numerics (logits
+    # summed in another order, then the same bf16 rounding of d) and
+    # fail a softmax term left out, an unlabelled row of dW zeroed and a
+    # 64-row tile left out of a sum; and the slips of the backward's own
+    # granularity: one 32-row streamed tile left out of a sum, one
+    # 16-deep k step left out of the logits (the card check fails where
+    # dX or dW fails)
+    import chip_smoke as cs
+    m, c, gen, x, w, lab = _main_path_regime(4096)
+    v = 4096
     lse, tok = fk.flce_fwd_plain(x, w, lab)
     lg = (x.double() @ w.double().t()).float()
     assert cs.flce_fwd_err(torch.logsumexp(lg.double(), 1).float(), tok,
                            lse, tok) <= cs.FLCE_FWD_ATOL
-    assert cs.flce_fwd_err(torch.logsumexp(lg[:, 64:], 1), tok, lse,
-                           tok) > cs.FLCE_FWD_ATOL
     g_lse = torch.rand(m, generator=gen) / m
     g_lse[::7] = 0.0
     labelled = torch.zeros(v, dtype=torch.bool)
