@@ -30,10 +30,16 @@ through the kernels:
 
 The sketch, estimates, threshold search, take-mask and sketch-and-
 quantize kernels are also checked and timed at GPT-2's padded_d =
-124 780 544. The selection (the radix-select search for the k-th key
-and ``need``, then the take-mask) is held exactly against its plain
-version at both shapes and on edge distributions, and must run with
-no host sync (``torch.cuda.set_sync_debug_mode("error")``).
+124 780 544. The sketch is held bit-equal to its plain version (signs
+hashed, and read from the packed-sign stream as the main paths do) and
+the estimates exactly, at both shapes and in four other geometries;
+their rows carry ``design_floor_ms``, their L2 -> SM bytes at the rate
+``sketch_kernels.l2_read_rate`` measures on the card (``l2_read``
+line), and the ``ptxas_sketch`` line their registers and spills. The
+selection (the radix-select search for the k-th key and ``need``, then
+the take-mask) is held exactly against its plain version at both
+shapes and on edge distributions, and must run with no host sync
+(``torch.cuda.set_sync_debug_mode("error")``).
 Each phase prints one JSON line; a failed check raises, so the script
 exits nonzero before its last line, which is ``{"ok": true, "device":
 {...}}``. Needs one CUDA card; exits nonzero without one. Imports
@@ -73,7 +79,10 @@ D, C, R, K, SEED = 6_584_000, 524_288, 5, 50_000, 21
 # NVIDIA H100 SXM data sheet: HBM bytes/s, f32 (non-tensor) op/s,
 # dense bf16 tensor-core op/s
 HBM_BPS, F32_OPS, BF16_OPS = 3.35e12, 67e12, 989e12
-SKETCH_TOL = "1e-5*max|table| + 1e-6*max|v|"
+# the kernel adds the chunks in the plain version's order, from zero
+SKETCH_TOL = "exact (torch.equal with sketch_plain)"
+ESTIMATES_TOL = ("exact (torch.equal with estimates_plain at valid = d and "
+                 "at padded d; zero from valid on)")
 # the main-path configuration, 4 rounds (0.4 of a 10-round epoch)
 MAIN_ARGV = profile_round.ARGV + ["--num_epochs", "0.4", "--pivot_epoch",
                                   "0.2", "--lr_scale", "0.1"]
@@ -295,6 +304,38 @@ def sketch_quant_phase(dev, flush):
     return [row]
 
 
+def sketch_estimates_checks(vp, rot, c, r, seed, one_mix, valid, tag,
+                            signs=None):
+    """The sketch kernel bit-equal to ``sketch_plain`` with its signs
+    hashed and, given the packed-sign stream ``signs``, read from it;
+    the estimates kernel on its table bit-equal to ``estimates_plain``
+    at ``valid`` and at the padded d, zero from ``valid`` on. Returns
+    the kernel's table and its estimates at ``valid``."""
+    plain = sk.sketch_plain(vp, rot, c, r, seed, one_mix)
+    tab = sk.sketch_kernel(vp, rot, c, r, seed, one_mix)
+    check(torch.equal(tab, plain), f"sketch {tag}: kernel != plain")
+    if signs is not None:
+        tab = sk.sketch_kernel(vp, rot, c, r, seed, one_mix, signs=signs)
+        check(torch.equal(tab, plain),
+              f"sketch {tag}: kernel reading the sign stream != plain")
+    for val in dict.fromkeys((vp.numel(), valid)):  # `valid` last
+        est = sk.estimates_kernel(tab, rot, c, r, seed, one_mix, val)
+        check(torch.equal(est, sk.estimates_plain(tab, rot, c, r, seed,
+                                                  one_mix, val)),
+              f"estimates {tag} valid={val}: kernel != plain")
+        check(not bool(est[val:].any()),
+              f"estimates {tag}: tail from {val} not zeroed")
+    return tab, est
+
+
+def design_floor_ms(r, pd, l2_bps, sign_bytes=0):
+    """The sketch's and the estimates' design floor: r reads of 4*pd
+    bytes from L2 at the rate measured on this card (and of the
+    packed-sign stream, ``sign_bytes`` a coordinate, where the kernel
+    reads it)."""
+    return (4 + sign_bytes) * r * pd / l2_bps * 1e3
+
+
 def median_ops(r):
     """min/max (and the final add and scale) of the median network."""
     return {1: 0, 3: 4, 5: 10}.get(r, r * (r - 1) + (2 if r % 2 == 0 else 0))
@@ -313,7 +354,7 @@ def index_add_operands(vp, rot, seed, one_mix):
     return flat_bucket, signed
 
 
-def kernel_phases(dev, flush):
+def kernel_phases(dev, flush, l2_bps):
     sketch = CountSketch(d=D, c=C, r=R, seed=SEED)
     m, pd = sketch._m, sketch._padded_d
     rot = sketch.rotations_on(dev)
@@ -323,12 +364,12 @@ def kernel_phases(dev, flush):
     vp = torch.nn.functional.pad(v, (0, pd - D))
     rows = []
 
-    # 1. sketch
-    tab_k = sk.sketch_kernel(vp, rot, C, R, seed, one_mix)
-    tab_p = sk.sketch_plain(vp, rot, C, R, seed, one_mix)
-    err = float((tab_k - tab_p).abs().max())
-    tol = 1e-5 * float(tab_p.abs().max()) + 1e-6 * float(v.abs().max())
-    check(err <= tol, f"sketch: max|kernel-plain| {err} > {tol}")
+    # 1-2. sketch and estimates (padded, zeroed at >= d), both exact;
+    # the sketch timed as the main path runs it, reading the sign stream
+    signs = sketch.packed_signs_on(dev)
+    tab_k, est_k = sketch_estimates_checks(vp, rot, C, R, seed, one_mix, D,
+                                           "ResNet9", signs)
+    tol = 1e-5 * float(tab_k.abs().max()) + 1e-6 * float(v.abs().max())
     flat_bucket, signed = index_add_operands(vp, rot, seed, one_mix)
     lib_tab = torch.zeros(R * C, device=dev)
     b_ms, b_by = bound(4 * pd + 4 * R * m + 4 * R * C, R * pd)
@@ -336,36 +377,35 @@ def kernel_phases(dev, flush):
         name="sketch", route="cuda",
         source="commefficient_tpu_torch/csrc/sketch.cu",
         replaces="commefficient_tpu/ops/sketch_pallas.py:217",
-        max_abs_err=err,
-        ms=time_ms(lambda: sk.sketch_kernel(vp, rot, C, R, seed, one_mix),
-                   20, flush),
+        max_abs_err=0.0,
+        ms=time_ms(lambda: sk.sketch_kernel(vp, rot, C, R, seed, one_mix,
+                                            signs=signs), 20, flush),
         plain_ms=time_ms(lambda: sk.sketch_plain(vp, rot, C, R, seed,
                                                  one_mix), 5, flush),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: lib_tab.zero_().index_add_(
-            0, flat_bucket, signed), 10, flush)))
-    check(torch.allclose(lib_tab.view(R, C), tab_p, rtol=0, atol=tol),
+            0, flat_bucket, signed), 10, flush),
+        design_floor_ms=design_floor_ms(R, pd, l2_bps, 1)))
+    check(torch.allclose(lib_tab.view(R, C), tab_k, rtol=0, atol=tol),
           "index_add_ yardstick disagrees with the plain sketch")
     del flat_bucket, signed, lib_tab
-    emit({"phase": "kernel", **rows[-1], "tolerance": SKETCH_TOL})
+    emit({"phase": "kernel", **rows[-1], "tolerance": SKETCH_TOL,
+          "library": "index_add_ of precomputed signed values (within "
+                     "1e-5*max|table| + 1e-6*max|v|: another order)"})
 
-    # 2. estimates (padded, zeroed at >= d), exact
-    est_k = sk.estimates_kernel(tab_k, rot, C, R, seed, one_mix, D)
-    est_p = sk.estimates_plain(tab_k, rot, C, R, seed, one_mix, D)
-    check(torch.equal(est_k, est_p), "estimates: kernel != plain")
-    check(bool((est_k[D:] == 0).all()), "estimates: tail not zeroed")
     b_ms, b_by = bound(4 * R * C + 4 * R * m + 4 * pd, median_ops(R) * pd)
     rows.append(dict(
         name="estimates", route="cuda",
         source="commefficient_tpu_torch/csrc/sketch.cu",
         replaces="commefficient_tpu/ops/sketch_pallas.py:415",
-        max_abs_err=float((est_k - est_p).abs().max()),
+        max_abs_err=0.0,
         ms=time_ms(lambda: sk.estimates_kernel(tab_k, rot, C, R, seed,
                                                one_mix, D), 20, flush),
         plain_ms=time_ms(lambda: sk.estimates_plain(
             tab_k, rot, C, R, seed, one_mix, D), 5, flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    emit({"phase": "kernel", **rows[-1], "tolerance": "exact"})
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        design_floor_ms=design_floor_ms(R, pd, l2_bps)))
+    emit({"phase": "kernel", **rows[-1], "tolerance": ESTIMATES_TOL})
 
     # 3. take-mask at the server's shapes: keys of est[:d]^2
     est = est_k[:D]
@@ -415,20 +455,9 @@ def edge_phases(dev, flush, padded_d):
         v = torch.randn(d, generator=gen, device=dev)
         vp = torch.nn.functional.pad(v, (0, s._padded_d - d))
         rot = s.rotations_on(dev)
-        tab_k = sk.sketch_kernel(vp, rot, c, r, s.sign_seed,
-                                 s._one_mix_signs)
-        tab_p = sk.sketch_plain(vp, rot, c, r, s.sign_seed,
-                                s._one_mix_signs)
-        tol = 1e-5 * float(tab_p.abs().max()) + 1e-6 * float(v.abs().max())
-        check(float((tab_k - tab_p).abs().max()) <= tol,
-              f"sketch d={d} c={c} r={r}")
-        for valid in (d, s._padded_d):
-            check(torch.equal(
-                sk.estimates_kernel(tab_k, rot, c, r, s.sign_seed,
-                                    s._one_mix_signs, valid),
-                sk.estimates_plain(tab_k, rot, c, r, s.sign_seed,
-                                   s._one_mix_signs, valid)),
-                f"estimates d={d} c={c} r={r} valid={valid}")
+        sketch_estimates_checks(vp, rot, c, r, s.sign_seed,
+                                s._one_mix_signs, d, f"d={d} c={c} r={r}",
+                                s.packed_signs_on(dev))
         out.append(f"sketch+estimates d={d} c={c} r={r}")
 
     def mask_case(name, sq, k, need=None):
@@ -514,9 +543,46 @@ def server_phase(dev):
           "exact": True})
 
 
+def sketch_kernel_name(mangled):
+    """csrc/sketch.cu's instantiations by their template arguments:
+    sketch_RG5_C4_stream (rows a group, columns a thread, _ragged for
+    r > 8 in groups of 8, the sign source: _row_mix, _one_mix or
+    _stream), estimates_R5_one_mix (R0: r read at run time),
+    sketch_quant_K8_int8; other names as they are."""
+    m = re.search(r"cet_sketch_kernelILi(\d+)ELi(\d+)ELb([01])ELi([012])E",
+                  mangled)
+    if m:
+        return (f"sketch_RG{m.group(1)}_C{m.group(2)}"
+                + ("_ragged" if m.group(3) == "1" else "")
+                + ("_row_mix", "_one_mix", "_stream")[int(m.group(4))])
+    m = re.search(r"cet_estimates_kernelILi(\d+)ELb([01])E", mangled)
+    if m:
+        return (f"estimates_R{m.group(1)}"
+                + ("_one_mix" if m.group(2) == "1" else "_row_mix"))
+    m = re.search(r"cet_sketch_quant_kernelILi(\d+)ELb([01])E", mangled)
+    if m:
+        return f"sketch_quant_K{m.group(1)}_" + ("fp8" if m.group(2) == "1"
+                                                 else "int8")
+    return mangled
+
+
+def sketch_ptxas_checks(report):
+    """The main path's sketch and estimates instantiations (r = 5, the
+    sketch reading the sign stream, the estimates one mix a coordinate)
+    compiled without spills."""
+    for name in ("sketch_RG5_C4_stream", "estimates_R5_one_mix"):
+        props = report.get(name, {})
+        check("registers" in props,
+              f"ptxas_sketch: no line for {name} in {sorted(report)}")
+        check(props.get("spill_stores", 0) == 0
+              and props.get("spill_loads", 0) == 0,
+              f"ptxas_sketch: {name} spills {props}")
+
+
 def ptxas_report(log):
     """{kernel: {registers, spill_stores, spill_loads}} from a ptxas -v
-    log, the flce kernels named by pass and width (bwd_dX_C768, ...)."""
+    log, the flce kernels named by pass and width (bwd_dX_C768, ...),
+    the sketch kernels by ``sketch_kernel_name``."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
@@ -533,6 +599,8 @@ def ptxas_report(log):
             elif "wgmma_probe_kernel" in name:
                 name = "wgmma_probe_C" + str(64 * int(re.search(
                     r"wgmma_probe_kernelILi(\d+)E", name).group(1)))
+            else:
+                name = sketch_kernel_name(name)
             out[name] = {}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -702,7 +770,7 @@ def flce_phases(dev, flush, m=GPT2_M, v=GPT2_V, c=GPT2_C):
     return rows
 
 
-def gpt2_shape_phase(dev, flush):
+def gpt2_shape_phase(dev, flush, l2_bps):
     """The sketch, estimates, search and take-mask kernels at GPT-2's
     padded_d (inputs far above the 50 MB L2), each against its plain
     version, and the selection's time beside ``torch.topk``."""
@@ -715,17 +783,16 @@ def gpt2_shape_phase(dev, flush):
         torch.randn(GPT2_D, generator=gen, device=dev), (0, pd - GPT2_D))
     out = {}
 
-    tab_k = sk.sketch_kernel(vp, rot, C, R, seed, one_mix)
-    tab_p = sk.sketch_plain(vp, rot, C, R, seed, one_mix)
-    err = float((tab_k - tab_p).abs().max())
-    tol = 1e-5 * float(tab_p.abs().max()) + 1e-6 * float(vp.abs().max())
-    check(err <= tol, f"sketch at GPT-2 shape: {err} > {tol}")
-    del tab_p
+    signs = sketch.packed_signs_on(dev)
+    tab_k, est_k = sketch_estimates_checks(vp, rot, C, R, seed, one_mix,
+                                           GPT2_D, "GPT-2", signs)
+    tol = 1e-5 * float(tab_k.abs().max()) + 1e-6 * float(vp.abs().max())
     b_ms, b_by = bound(4 * pd + 4 * R * m + 4 * R * C, R * pd)
     out["sketch"] = dict(
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        ms=time_ms(lambda: sk.sketch_kernel(vp, rot, C, R, seed, one_mix),
-                   10, flush),
+        max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+        design_floor_ms=design_floor_ms(R, pd, l2_bps, 1),
+        ms=time_ms(lambda: sk.sketch_kernel(vp, rot, C, R, seed, one_mix,
+                                            signs=signs), 10, flush),
         plain_ms=time_ms(lambda: sk.sketch_plain(vp, rot, C, R, seed,
                                                  one_mix), 3, flush))
     flat_bucket, signed = index_add_operands(vp, rot, seed, one_mix)
@@ -749,13 +816,10 @@ def gpt2_shape_phase(dev, flush):
             flush))
     del vp
 
-    est_k = sk.estimates_kernel(tab_k, rot, C, R, seed, one_mix, GPT2_D)
-    est_p = sk.estimates_plain(tab_k, rot, C, R, seed, one_mix, GPT2_D)
-    check(torch.equal(est_k, est_p), "estimates at GPT-2 shape")
-    del est_p
     b_ms, b_by = bound(4 * R * C + 4 * R * m + 4 * pd, median_ops(R) * pd)
     out["estimates"] = dict(
         max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+        design_floor_ms=design_floor_ms(R, pd, l2_bps),
         ms=time_ms(lambda: sk.estimates_kernel(tab_k, rot, C, R, seed,
                                                one_mix, GPT2_D), 10, flush),
         plain_ms=time_ms(lambda: sk.estimates_plain(
@@ -924,14 +988,22 @@ def main():
     emit({"phase": "ptxas_flce", "kernels": report,
           "wgmma_serialized_C7520": "C7520" in flce_log})
     flce_ptxas_checks(report)
+    report = ptxas_report(_build.BUILD_LOGS.get("sketch", ""))
+    emit({"phase": "ptxas_sketch", "kernels": report})
+    sketch_ptxas_checks(report)
 
+    l2_bps = sk.l2_read_rate(dev)
+    emit({"phase": "l2_read", "bytes_per_s": l2_bps,
+          "what": "sketch_kernels.l2_read_rate: a 16 MiB buffer read 32 "
+                  "times through L2, 16-byte loads; the sketch's and the "
+                  "estimates' design_floor_ms is r*4*padded_d bytes at it"})
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
-    rows = kernel_phases(dev, flush)
+    rows = kernel_phases(dev, flush, l2_bps)
     rows += sketch_quant_phase(dev, flush)
     wgmma_tile_phase(dev)
     rows += flce_phases(dev, flush)
     torch.cuda.empty_cache()
-    gpt2_shapes = gpt2_shape_phase(dev, flush)
+    gpt2_shapes = gpt2_shape_phase(dev, flush, l2_bps)
     torch.cuda.empty_cache()
     edge_phases(dev, flush, CountSketch(d=GPT2_D, c=C, r=R)._padded_d)
     del flush
@@ -960,7 +1032,7 @@ def main():
         kern = f"{row['name']}_kernel"
         row["launches"] = launches[kern]
         entry = {k: row[k] for k in keys}
-        for extra in ("unfused_ms", "fp8", "selection_ms"):
+        for extra in ("unfused_ms", "fp8", "selection_ms", "design_floor_ms"):
             if extra in row:
                 entry[extra] = row[extra]
         if row["name"] in gpt2_shapes:

@@ -10,28 +10,58 @@
 // sketch_pallas.py:216-290). The TPU kernel streams chunk t through a
 // VMEM-resident table and rolls it into place, carrying the table across
 // a sequential grid. Hopper blocks run in no order, so the scatter
-// becomes a gather: thread (row, col) walks the chunks t = 0..m-1 in
-// order and sums s_row(g) * v[g] with g = t*c + ((col - o[row, t]) mod
-// c). No atomics, one fixed summation order (repeated runs agree bit
-// for bit, and so does the plain version, which adds in the same
-// order). Any rotation works, so quantized rotations (rot_lanes) need
-// no special path, and any c works (no 128-lane constraint). Signs are
-// hashed in-kernel: uint32 multiplies are native here, so the TPU's
-// packed-sign stream would only add a byte per element of traffic.
-// Bound: bytes. The least traffic is one read of v (4*m*c bytes) and one
-// write of the table (4*r*c); this kernel reads v once per row, the
-// rows of one chunk close together in time so that L2 (50 MB, which
-// holds the 27 MB ResNet9 vector) serves the repeats.
+// becomes a gather: bucket (row, col) sums s_row(g) * v[g] over the
+// chunks t = 0..m-1 in order, from zero, with g = t*c + ((col - o[row,
+// t]) mod c). No atomics, no split over t: one fixed summation order,
+// the plain version's, so the two agree bit for bit (and so does
+// kernel 4's table, which sums through cet_bucket in the same order).
+// Any rotation and any c work (no 128-lane constraint).
+//   HBM bound: one read of v (4*m*c) and one write of the table (4*r*c).
+//   L2 floor: every row reads all of v at its own rotation, so r*4*m*c
+// bytes (and r*m*c sign bytes, below) go from L2 to the SMs whatever
+// the design. At GPT-2 shapes v is 499 MB, ten times the 50 MB L2: if
+// the r rows' reads of chunk t fall far apart in time, each row reads v
+// from HBM again (as a grid of one thread a bucket, whose blocks run
+// row after row, does: 5 x 499 MB from HBM).
+//   Design: a thread owns CET_SK_COLS columns (CET_SK_THREADS apart, so
+// that each load of a warp is 32 consecutive floats) for all rows of a
+// row group (up to 8 rows; r > 8 runs in groups, one a grid row), with
+// rows x columns independent accumulators, and the grid (c / 1024
+// blocks a row group) fits one wave on 132 SMs at 4 blocks an SM
+// (__launch_bounds__): all blocks walk t together, the rows of chunk t
+// read it close together in time, and L2 serves rows 2..r from a
+// working set of a few 2 MB chunks. A block stages its rows'
+// rotations in shared memory, CET_SK_TT chunks at a time.
+//   Signs: the rows read different coordinates, so hashing costs one
+// murmur mix per (row, element). Where the sign source is one mix of
+// at most 8 rows (the main paths), the kernel reads the reference's
+// packed-sign stream instead (commefficient_tpu/ops/sketch.py:224-238:
+// a byte a coordinate, bit `row` the row's sign bit, made once per
+// CountSketch on the device): 0.18 ms less at GPT-2 shapes on an H100
+// 80GB HBM3 at 700 W (sketch_ablation: `hashed` against `base`), for
+// one 125 MB buffer.
+// Otherwise it hashes, the sign source a template argument.
 //
 // --- cet_estimates -- replaces estimates_pallas (commefficient_tpu/
-// ops/sketch_pallas.py:414-485). One thread per output coordinate g:
-// it reads the r table entries its hashes name, flips their sign bits
-// and takes the median by the same network as _median_network
-// (sketch_pallas.py:165-191): exact for odd r, the mean of the two
-// middles for even r. The (r, m*c) intermediate never exists. Entries
-// at g >= valid are written as 0. Bound: bytes, one read of the table
-// (4*r*c, L2-resident at 10.5 MB) and one write of the estimates
-// (4*m*c).
+// ops/sketch_pallas.py:414-485). Output g = t*c + j is the median over
+// rows of s_row(g) * table[row, (j + o[row, t]) mod c], by the same
+// network as _median_network (sketch_pallas.py:165-191): exact for odd
+// r, the mean of the two middles for even r; 0 at g >= valid. The
+// (r, m*c) intermediate never exists.
+//   HBM bound: one write of the estimates (4*m*c; the 4*r*c table is
+// L2-resident at 10.5 MB). L2 floor: each output reads r table entries
+// at rotations that differ per chunk, so tiles cannot share them:
+// r*4*m*c bytes from L2.
+//   Design: the grid is (column tile, chunk t), so t and j come from
+// the block indices with no 64-bit division; a block loads the r
+// rotations of its chunk once into shared memory; a thread takes
+// CET_ES_VEC consecutive outputs (one 16-byte store where c % 4 == 0),
+// r*CET_ES_VEC independent table loads in flight; one-mix signs take
+// one mix a coordinate for all rows (the sign source a template
+// argument, as in the sketch); a tile wholly at or past `valid` writes
+// zeros and loads nothing. Signs are hashed: reading the packed-sign
+// stream instead was slower here, 0.71 against 0.49 ms on the same
+// card (sketch_ablation `packed_signs`).
 //
 // --- cet_sketch_quant -- replaces sketch_quant_pallas (commefficient_
 // tpu/ops/sketch_pallas.py:293-411), the fused emit + quantize of the
@@ -77,6 +107,15 @@
 
 #define CET_MAX_ROWS 32
 #define CET_SQ_THREADS 256
+#define CET_SK_THREADS 256
+#define CET_SK_TT 128
+#define CET_ES_THREADS 256
+#define CET_ES_VEC 4
+// sign sources of the sketch kernel: a mix per (row, coordinate), one
+// mix per coordinate, or the packed-sign stream
+#define CET_SIGNS_ROW_MIX 0
+#define CET_SIGNS_ONE_MIX 1
+#define CET_SIGNS_STREAM 2
 
 namespace cg = cooperative_groups;
 
@@ -97,17 +136,75 @@ __device__ __forceinline__ float cet_bucket(const float* __restrict__ v,
   return acc;
 }
 
-__global__ void cet_sketch_kernel(const float* __restrict__ v,
-                                  const int* __restrict__ rot,
-                                  float* __restrict__ table, int m, int c,
-                                  uint32_t seed, int one_mix,
-                                  int row_offset) {
-  const int row = blockIdx.y;
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= c) return;
-  table[(size_t)row * c + col] =
-      cet_bucket(v, rot + (size_t)row * m, m, c, col, row_offset + row,
-                 seed, one_mix);
+// rows x columns of one block: a row group of up to RG rows (exactly RG
+// unless RAGGED), COLS columns a thread, CET_SK_THREADS apart. SIGNS
+// (CET_SIGNS_*) is a template argument so that each element takes one
+// sign source: with the choice made at run time the compiler computes
+// both mixes and selects.
+template <int RG, int COLS, bool RAGGED, int SIGNS>
+__global__ void __launch_bounds__(CET_SK_THREADS, 4)
+    cet_sketch_kernel(const float* __restrict__ v,
+                      const int* __restrict__ rot,
+                      const uint8_t* __restrict__ sgn,
+                      float* __restrict__ table, int m, int c, int r,
+                      uint32_t seed, int row_offset) {
+  __shared__ int srot[RG * CET_SK_TT];
+  const int row0 = blockIdx.y * RG;
+  const int nr = RAGGED ? min(RG, r - row0) : RG;
+  const int base = blockIdx.x * (CET_SK_THREADS * COLS) + threadIdx.x;
+  // a column past c recomputes the last one and is not stored, so the
+  // chunk loop needs no bounds test
+  int col[COLS];
+  float acc[RG][COLS];
+#pragma unroll
+  for (int k = 0; k < COLS; ++k) {
+    col[k] = min(base + k * CET_SK_THREADS, c - 1);
+#pragma unroll
+    for (int row = 0; row < RG; ++row) acc[row][k] = 0.f;
+  }
+  for (int t0 = 0; t0 < m; t0 += CET_SK_TT) {
+    const int nt = min(CET_SK_TT, m - t0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < nr * nt; i += CET_SK_THREADS) {
+      const int row = i / nt;
+      const int tt = i - row * nt;
+      srot[row * CET_SK_TT + tt] =
+          __ldg(rot + (size_t)(row0 + row) * m + t0 + tt);
+    }
+    __syncthreads();
+    for (int tt = 0; tt < nt; ++tt) {
+      const uint32_t tc = (uint32_t)(t0 + tt) * (uint32_t)c;
+#pragma unroll
+      for (int row = 0; row < RG; ++row) {
+        if (!RAGGED || row < nr) {
+          const int o = srot[row * CET_SK_TT + tt];
+          const int srow = row_offset + row0 + row;
+#pragma unroll
+          for (int k = 0; k < COLS; ++k) {
+            int j = col[k] - o;
+            if (j < 0) j += c;
+            const uint32_t g = tc + (uint32_t)j;
+            const float x = __ldg(v + g);
+            const uint32_t flip =
+                SIGNS == CET_SIGNS_STREAM
+                    ? cet_flip_from_byte(__ldg(sgn + g), srow)
+                    : cet_sign_flip(g, srow, seed, SIGNS == CET_SIGNS_ONE_MIX);
+            acc[row][k] += cet_apply_flip(x, flip);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int row = 0; row < RG; ++row) {
+    if (!RAGGED || row < nr) {
+#pragma unroll
+      for (int k = 0; k < COLS; ++k) {
+        const int cc = base + k * CET_SK_THREADS;
+        if (cc < c) table[(size_t)(row0 + row) * c + cc] = acc[row][k];
+      }
+    }
+  }
 }
 
 __device__ __forceinline__ void cet_sort2(float& a, float& b) {
@@ -139,35 +236,90 @@ __device__ __forceinline__ float cet_median(float* v, int n) {
   return 0.5f * (v[n / 2 - 1] + v[n / 2]);
 }
 
-// R > 0: row count known at compile time (registers); R == 0: any
-// r <= CET_MAX_ROWS read at run time
-template <int R>
-__global__ void cet_estimates_kernel(const float* __restrict__ table,
-                                     const int* __restrict__ rot,
-                                     float* __restrict__ out, int m, int c,
-                                     int r_rt, uint32_t seed, int one_mix,
-                                     long long valid) {
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long padded = (long long)m * c;
-  if (g >= padded) return;
-  if (g >= valid) {
-    out[g] = 0.f;
-    return;
-  }
-  const int r = R > 0 ? R : r_rt;
-  const int t = (int)(g / c);
-  const int j = (int)(g - (long long)t * c);
+// median over the rows of output g = t*c + j (srot: the rotations of
+// chunk t); R > 0: row count known at compile time (registers), R == 0:
+// any r <= CET_MAX_ROWS read at run time; ONE_MIX: one mix for all rows
+template <int R, bool ONE_MIX>
+__device__ __forceinline__ float cet_estimate(const float* __restrict__ table,
+                                              const int* srot, int r, int c,
+                                              int j, uint32_t g,
+                                              uint32_t seed) {
+  const uint32_t h = ONE_MIX ? cet_mix32(g ^ seed) : 0u;
   float vals[R > 0 ? R : CET_MAX_ROWS];
 #pragma unroll
   for (int row = 0; row < (R > 0 ? R : CET_MAX_ROWS); ++row) {
     if (row >= r) break;
-    int col = j + __ldg(rot + (size_t)row * m + t);
+    int col = j + srot[row];
     if (col >= c) col -= c;
-    vals[row] = cet_apply_flip(
-        __ldg(table + (size_t)row * c + col),
-        cet_sign_flip((uint32_t)g, row, seed, one_mix));
+    const float x = __ldg(table + (size_t)row * c + col);
+    const uint32_t flip = ONE_MIX ? cet_flip_from_mix(h, row)
+                                  : cet_sign_flip(g, row, seed, 0);
+    vals[row] = cet_apply_flip(x, flip);
   }
-  out[g] = cet_median<R>(vals, r);
+  return cet_median<R>(vals, r);
+}
+
+template <int R, bool ONE_MIX>
+__global__ void __launch_bounds__(CET_ES_THREADS)
+    cet_estimates_kernel(const float* __restrict__ table,
+                         const int* __restrict__ rot,
+                         float* __restrict__ out, int m, int c, int r_rt,
+                         uint32_t seed, long long valid) {
+  __shared__ int srot[R > 0 ? R : CET_MAX_ROWS];
+  const int r = R > 0 ? R : r_rt;
+  const int tile = blockIdx.x * (CET_ES_THREADS * CET_ES_VEC);
+  const int j0 = tile + threadIdx.x * CET_ES_VEC;
+  const bool vec = (c & 3) == 0 && j0 + CET_ES_VEC <= c;
+  for (int t = blockIdx.y; t < m; t += gridDim.y) {
+    const long long gt = (long long)t * c;
+    float res[CET_ES_VEC];
+    if (gt + tile >= valid) {  // the whole tile: zeros, no loads
+#pragma unroll
+      for (int e = 0; e < CET_ES_VEC; ++e) res[e] = 0.f;
+    } else {
+      __syncthreads();
+      if (threadIdx.x < r)
+        srot[threadIdx.x] = __ldg(rot + (size_t)threadIdx.x * m + t);
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < CET_ES_VEC; ++e) {
+        const int j = min(j0 + e, c - 1);
+        const long long g = gt + j0 + e;
+        const float x = cet_estimate<R, ONE_MIX>(table, srot, r, c, j,
+                                                 (uint32_t)g, seed);
+        res[e] = g < valid ? x : 0.f;
+      }
+    }
+    float* o = out + gt + j0;
+    if (vec) {
+#pragma unroll
+      for (int e = 0; e < CET_ES_VEC; e += 4)
+        *reinterpret_cast<float4*>(o + e) =
+            make_float4(res[e], res[e + 1], res[e + 2], res[e + 3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < CET_ES_VEC; ++e)
+        if (j0 + e < c) o[e] = res[e];
+    }
+  }
+}
+
+// L2 -> SM read rate probe (a measurement, on no path): each thread
+// reads its 16-byte words of an L2-resident buffer `passes` times,
+// through L2 only (ld.global.cg), and writes one sum
+__global__ void cet_l2_probe_kernel(const float4* __restrict__ buf,
+                                    long long n4, int passes,
+                                    float* __restrict__ out) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  float s = 0.f;
+  for (int p = 0; p < passes; ++p)
+#pragma unroll 4
+    for (long long i = tid; i < n4; i += stride) {
+      const float4 x = __ldcg(buf + i);
+      s += (x.x + x.y) + (x.z + x.w);
+    }
+  out[tid] = s;
 }
 
 // --- cet_sketch_quant ------------------------------------------------
@@ -321,15 +473,62 @@ static int cet_sq_dispatch(const float* v, const int* rot, void* q,
   return rc;
 }
 
+template <int RG, int COLS, bool RAGGED>
+static void cet_sketch_launch(const float* v, const int* rot,
+                              const uint8_t* sgn, float* table, int m, int c,
+                              int r, uint32_t seed, int one_mix,
+                              int row_offset, cudaStream_t s) {
+  const long long per_block = CET_SK_THREADS * COLS;
+  dim3 grid((unsigned)((c + per_block - 1) / per_block),
+            (unsigned)((r + RG - 1) / RG));
+  if constexpr (!RAGGED) {  // the stream holds 8 rows
+    if (sgn) {
+      cet_sketch_kernel<RG, COLS, RAGGED, CET_SIGNS_STREAM>
+          <<<grid, CET_SK_THREADS, 0, s>>>(v, rot, sgn, table, m, c, r, seed,
+                                           row_offset);
+      return;
+    }
+  }
+  if (one_mix)
+    cet_sketch_kernel<RG, COLS, RAGGED, CET_SIGNS_ONE_MIX>
+        <<<grid, CET_SK_THREADS, 0, s>>>(v, rot, sgn, table, m, c, r, seed,
+                                         row_offset);
+  else
+    cet_sketch_kernel<RG, COLS, RAGGED, CET_SIGNS_ROW_MIX>
+        <<<grid, CET_SK_THREADS, 0, s>>>(v, rot, sgn, table, m, c, r, seed,
+                                         row_offset);
+}
+
+// signs: the (m*c,) packed-sign bytes (one_mix, row_offset + r <= 8),
+// or null to hash the signs in the kernel
 extern "C" int cet_sketch(const float* v, const int* rot, float* table,
                           long long m, long long c, int r,
                           unsigned int seed, int one_mix, int row_offset,
-                          void* stream) {
+                          const unsigned char* signs, void* stream) {
+  if (signs && (!one_mix || row_offset < 0 || row_offset + r > 8))
+    return (int)cudaErrorInvalidValue;
   if (m > 0 && c > 0 && r > 0) {
-    const int threads = 256;
-    dim3 grid((unsigned)((c + threads - 1) / threads), (unsigned)r);
-    cet_sketch_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        v, rot, table, (int)m, (int)c, seed, one_mix, row_offset);
+    cudaStream_t s = (cudaStream_t)stream;
+    const int mi = (int)m, ci = (int)c;
+#define CET_SK_CASE(RG, COLS)                                              \
+  case RG:                                                                 \
+    cet_sketch_launch<RG, COLS, false>(v, rot, signs, table, mi, ci, r,    \
+                                       seed, one_mix, row_offset, s);      \
+    break;
+    switch (r) {
+      CET_SK_CASE(1, 4)
+      CET_SK_CASE(2, 4)
+      CET_SK_CASE(3, 4)
+      CET_SK_CASE(4, 4)
+      CET_SK_CASE(5, 4)
+      CET_SK_CASE(6, 2)
+      CET_SK_CASE(7, 2)
+      CET_SK_CASE(8, 2)
+      default:  // groups of 8 rows, the last one ragged
+        cet_sketch_launch<8, 2, true>(v, rot, signs, table, mi, ci, r, seed,
+                                      one_mix, row_offset, s);
+    }
+#undef CET_SK_CASE
   }
   return (int)cudaGetLastError();
 }
@@ -366,28 +565,38 @@ extern "C" int cet_estimates(const float* table, const int* rot,
                              unsigned int seed, int one_mix,
                              long long valid, void* stream) {
   if (r > CET_MAX_ROWS) return (int)cudaErrorInvalidValue;
-  const long long padded = m * c;
-  if (padded > 0 && r > 0) {
-    const int threads = 256;
-    const unsigned blocks = (unsigned)((padded + threads - 1) / threads);
+  if (m > 0 && c > 0 && r > 0) {
+    const long long per_block = CET_ES_THREADS * CET_ES_VEC;
+    dim3 grid((unsigned)((c + per_block - 1) / per_block),
+              (unsigned)(m < 65535 ? m : 65535));
     cudaStream_t s = (cudaStream_t)stream;
-    switch (r) {
-      case 1:
-        cet_estimates_kernel<1><<<blocks, threads, 0, s>>>(
-            table, rot, out, (int)m, (int)c, r, seed, one_mix, valid);
-        break;
-      case 3:
-        cet_estimates_kernel<3><<<blocks, threads, 0, s>>>(
-            table, rot, out, (int)m, (int)c, r, seed, one_mix, valid);
-        break;
-      case 5:
-        cet_estimates_kernel<5><<<blocks, threads, 0, s>>>(
-            table, rot, out, (int)m, (int)c, r, seed, one_mix, valid);
-        break;
-      default:
-        cet_estimates_kernel<0><<<blocks, threads, 0, s>>>(
-            table, rot, out, (int)m, (int)c, r, seed, one_mix, valid);
+    const int mi = (int)m, ci = (int)c;
+#define CET_ES_CASE(R)                                                     \
+  if (one_mix)                                                             \
+    cet_estimates_kernel<R, true><<<grid, CET_ES_THREADS, 0, s>>>(         \
+        table, rot, out, mi, ci, r, seed, valid);                          \
+  else                                                                     \
+    cet_estimates_kernel<R, false><<<grid, CET_ES_THREADS, 0, s>>>(        \
+        table, rot, out, mi, ci, r, seed, valid);
+    if (r == 1) {
+      CET_ES_CASE(1)
+    } else if (r == 3) {
+      CET_ES_CASE(3)
+    } else if (r == 5) {
+      CET_ES_CASE(5)
+    } else {
+      CET_ES_CASE(0)
     }
+#undef CET_ES_CASE
   }
+  return (int)cudaGetLastError();
+}
+
+// n4 16-byte words of buf read `passes` times by `blocks` blocks of
+// 256 threads; out holds blocks * 256 floats
+extern "C" int cet_l2_read_probe(const void* buf, long long n4, int passes,
+                                 float* out, int blocks, void* stream) {
+  cet_l2_probe_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      static_cast<const float4*>(buf), n4, passes, out);
   return (int)cudaGetLastError();
 }

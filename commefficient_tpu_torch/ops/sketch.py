@@ -9,7 +9,9 @@ either package is recovered identically by the other.
   ``i`` (chunk ``t = i // c``, offset ``j = i % c``) to bucket
   ``(j + o[r, t]) mod c`` with sign ``s_r(i)``.
 - Rotations ``o`` are host-side numpy (``_rotations``); signs are
-  murmur mixes of the coordinate index (``_mix``).
+  murmur mixes of the coordinate index (``_mix``), for r <= 8 also
+  packed a byte a coordinate (``packed_signs_on``), which the sketch
+  reads instead of hashing.
 - Recovery ``v[i] ~ median_r(s_r(i) * table[r, h_r(i)])``.
 
 The hash layer is bit-exact with the reference. torch has no full
@@ -88,10 +90,12 @@ def signs_from_bits(bits: torch.Tensor) -> torch.Tensor:
 class CountSketch:
     """Static description of a sketch operator (d, c, r, seed), as
     the reference's ``CountSketch``. ``num_blocks`` is accepted for
-    CLI parity and unused. The reference's ``backend`` and
-    ``packed_signs`` fields have no counterpart: the tensor's device
-    picks kernel or plain version, and the kernels hash signs
-    in-register (native uint32 multiplies)."""
+    CLI parity and unused. The reference's ``backend`` field has no
+    counterpart (the tensor's device picks kernel or plain version),
+    and its ``packed_signs`` (on by default there) is always on: where
+    eligible (``_packed_signs``) the sketch reads its signs from the
+    stream of ``packed_signs_on``; the estimates and sketch-and-quantize
+    kernels hash them in-register."""
 
     d: int
     c: int
@@ -107,8 +111,10 @@ class CountSketch:
         if self.approx_topk:
             raise NotImplementedError(
                 "--approx_topk (approximate recovery) is not ported")
-        # (r, m) rotations on each device they were asked for
+        # (r, m) rotations and the packed-sign stream on each device
+        # they were asked for
         object.__setattr__(self, "_rot_cache", {})
+        object.__setattr__(self, "_sign_cache", {})
 
     # --- hashing ---------------------------------------------------------
 
@@ -164,6 +170,38 @@ class CountSketch:
         return self.r <= 16
 
     @property
+    def _packed_signs(self) -> bool:
+        """One-mix signs of at most 8 rows fit a byte a coordinate: the
+        sketch kernel then reads them (``packed_signs_on``)."""
+        return self._one_mix_signs and self.r <= 8
+
+    def packed_signs_on(self, device):
+        """(padded_d,) uint8 packed-sign stream on ``device`` (cached),
+        or None where ``_packed_signs`` is false: bit ``row`` is bit
+        16+row of the coordinate's one mix, the sign bit that
+        ``sign_bits`` reads, as the reference's
+        ``_packed_signs_traced`` (ops/sketch.py:230). Made once, on the
+        device, in slices of 2^20 coordinates, so that the int64 scratch
+        of the uint32 math stays near 40 MB."""
+        if not self._packed_signs:
+            return None
+        device = torch.device(device)
+        key = str(device)
+        out = self._sign_cache.get(key)
+        if out is None:
+            out = torch.empty(self._padded_d, dtype=torch.uint8,
+                              device=device)
+            mask = (1 << self.r) - 1
+            step = 1 << 20
+            for lo in range(0, self._padded_d, step):
+                idx = torch.arange(lo, min(lo + step, self._padded_d),
+                                   dtype=torch.int64, device=device)
+                out[lo:lo + idx.numel()] = (
+                    (_mix(idx ^ self.sign_seed) >> 16) & mask).to(torch.uint8)
+            self._sign_cache[key] = out
+        return out
+
+    @property
     def sign_seed(self) -> int:
         return int(self._seeds()[1])
 
@@ -204,7 +242,8 @@ class CountSketch:
         assert vp.shape == (self._padded_d,), vp.shape
         return sketch_kernel(vp.contiguous(),
                              self.rotations_on(vp.device), self.c,
-                             self.r, self.sign_seed, self._one_mix_signs)
+                             self.r, self.sign_seed, self._one_mix_signs,
+                             signs=self.packed_signs_on(vp.device))
 
     def sketch_quantized(self, v: torch.Tensor, wire: str, rows=None):
         """Dense (d,) vector -> (wire-dtype table, (rows, 1) f32 rowmax),
@@ -233,8 +272,9 @@ class CountSketch:
                 self._one_mix_signs)
         if wire == "bf16":
             # scale-free cast: nothing to fuse
-            return quantize_local(sketch_kernel(*args, row_offset=off),
-                                  wire)
+            return quantize_local(sketch_kernel(
+                *args, row_offset=off,
+                signs=self.packed_signs_on(vp.device)), wire)
         return sketch_quant_kernel(*args, wire, row_offset=off)
 
     # --- recovery --------------------------------------------------------

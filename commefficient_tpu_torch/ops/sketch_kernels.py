@@ -15,9 +15,13 @@ here, for a CPU tensor; it counts its launches in ``.launches``.
 
 The plain sketch adds the chunks in the kernel's order (t = 0..m-1,
 from zero), so the two agree bit for bit; against the JAX package the
-tables agree to summation-order tolerance. Estimates from a given
-table are exact everywhere: the sign flip is exact and the median is
-an order statistic (or the mean of two, for even r). The fused
+tables agree to summation-order tolerance. The sketch takes its signs
+hashed or, given ``signs``, from the packed-sign stream
+(``CountSketch.packed_signs_on``: a byte a coordinate, the one-mix
+bits of rows 0..7), which holds the same bits; the estimates and
+sketch-and-quantize kernels hash. Estimates from a given table are
+exact everywhere: the sign flip is exact and the median is an order
+statistic (or the mean of two, for even r). The fused
 sketch-and-quantize's plain version is ``quantize_local``
 (ops/quant.py) of the plain sketch; the kernel's table is bit-equal to
 it and rounds the same way, so the two agree byte for byte.
@@ -59,24 +63,45 @@ def _check_rows(name, r, one_mix, row_offset):
                          "hash carries 16 sign bits)")
 
 
+def _check_signs(name, signs, m, c, r, one_mix, row_offset):
+    # the packed-sign stream: a byte a coordinate, bit `row` the one-mix
+    # sign bit of row `row`, for the first 8 rows
+    if signs.dtype != torch.uint8 or signs.numel() != m * c:
+        raise ValueError(f"{name}: signs {signs.dtype} {tuple(signs.shape)}"
+                         f" is not a ({m * c},) uint8 stream")
+    if not one_mix or row_offset + r > 8:
+        raise ValueError(f"{name}: the packed-sign stream holds the one-mix"
+                         f" signs of rows 0..7, not rows {row_offset}.."
+                         f"{row_offset + r - 1} (one_mix={one_mix})")
+
+
 def sketch_plain(vp, rot, c: int, r: int, sign_seed: int,
-                 one_mix: bool, row_offset: int = 0) -> torch.Tensor:
+                 one_mix: bool, row_offset: int = 0,
+                 signs=None) -> torch.Tensor:
     """(m*c,) padded vector -> (r, c) table: for each row, the sum
     over chunks t (in order) of the signed chunk gathered back by its
     rotation: ``out[row, col] += s(g) * vp[g]``,
     ``g = t*c + (col - o[row, t]) mod c``, with the signs of row
-    ``row_offset + row``."""
+    ``row_offset + row``: hashed, or read from the packed-sign stream
+    ``signs`` (``CountSketch.packed_signs_on``), which holds the same
+    bits."""
     _check_rows("sketch_plain", r, one_mix, row_offset)
     m = vp.numel() // c
     dev = vp.device
+    if signs is not None:
+        _check_signs("sketch_plain", signs, m, c, r, one_mix, row_offset)
     rots = rot.to("cpu", torch.int64).tolist()
     idx = torch.arange(m * c, dtype=torch.int64, device=dev)
-    h = _mix(idx ^ sign_seed) if one_mix else None
+    h = _mix(idx ^ sign_seed) if one_mix and signs is None else None
     cols = torch.arange(c, dtype=torch.int64, device=dev)
     out = torch.empty((r, c), dtype=torch.float32, device=dev)
     for row in range(r):
-        signed = vp * _row_signs(idx, h, row_offset + row, sign_seed,
-                                 one_mix)
+        if signs is not None:
+            sgn = signs_from_bits((signs.to(torch.int64)
+                                   >> (row_offset + row)) & 1)
+        else:
+            sgn = _row_signs(idx, h, row_offset + row, sign_seed, one_mix)
+        signed = vp * sgn
         acc = torch.zeros(c, dtype=torch.float32, device=dev)
         for t in range(m):
             acc = acc + signed[t * c + (cols - rots[row][t]) % c]
@@ -183,22 +208,30 @@ def _check_sketch_args(name, vp, rot, c, r):
 
 
 def sketch_kernel(vp, rot, c: int, r: int, sign_seed: int,
-                  one_mix: bool, row_offset: int = 0) -> torch.Tensor:
+                  one_mix: bool, row_offset: int = 0,
+                  signs=None) -> torch.Tensor:
     """(m*c,) f32 padded vector, (r, m) int32 rotations -> (r, c)
-    f32 table. Kernel on CUDA (csrc/sketch.cu ``cet_sketch``), plain
-    version on the CPU."""
+    f32 table; with ``signs``, the (m*c,) packed-sign stream, the
+    kernel reads the signs instead of hashing them. Kernel on CUDA
+    (csrc/sketch.cu ``cet_sketch``), plain version on the CPU."""
     if vp.device.type == "cpu":
-        return sketch_plain(vp, rot, c, r, sign_seed, one_mix, row_offset)
+        return sketch_plain(vp, rot, c, r, sign_seed, one_mix, row_offset,
+                            signs)
     _check_rows("sketch_kernel", r, one_mix, row_offset)
     dev, m = _check_sketch_args("sketch_kernel", vp, rot, c, r)
+    if signs is not None:
+        _check_signs("sketch_kernel", signs, m, c, r, one_mix, row_offset)
+        _check_cuda("sketch_kernel", vp=(vp, torch.float32),
+                    signs=(signs, torch.uint8))
     fn = _build.bind("sketch", "cet_sketch",
                      [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                       ctypes.c_int, ctypes.c_uint, ctypes.c_int,
-                      ctypes.c_int, _P])
+                      ctypes.c_int, _P, _P])
     out = torch.empty((r, c), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = fn(vp.data_ptr(), rot.data_ptr(), out.data_ptr(), m, c, r,
-                  sign_seed, int(one_mix), row_offset, _stream(dev))
+                  sign_seed, int(one_mix), row_offset,
+                  None if signs is None else signs.data_ptr(), _stream(dev))
     _build.check(code, "cet_sketch")
     sketch_kernel.launches += 1
     return out
@@ -271,3 +304,38 @@ def estimates_kernel(table, rot, c: int, r: int, sign_seed: int,
 
 
 estimates_kernel.launches = 0
+
+
+def l2_read_rate(dev, mib: int = 16, passes: int = 32,
+                 reps: int = 5) -> float:
+    """Bytes/s at which the SMs read an L2-resident ``mib`` MiB buffer
+    through L2, bypassing L1 (csrc/sketch.cu ``cet_l2_read_probe``,
+    16-byte loads, 8 blocks of 256 threads an SM): the rate behind the
+    sketch and estimates kernels' design floors. A measurement on the
+    card, on no path of the port; the median of ``reps`` timed launches
+    after one that warms L2."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        raise ValueError(f"l2_read_rate: {dev} is not a CUDA device")
+    fn = _build.bind("sketch", "cet_l2_read_probe",
+                     [_P, ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_int,
+                      _P])
+    n4 = mib * 2**20 // 16
+    buf = torch.ones(4 * n4, dtype=torch.float32, device=dev)
+    blocks = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(blocks * 256, dtype=torch.float32, device=dev)
+    times = []
+    with torch.cuda.device(dev):
+        for i in range(reps + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            code = fn(buf.data_ptr(), n4, passes, out.data_ptr(), blocks,
+                      _stream(dev))
+            end.record()
+            _build.check(code, "cet_l2_read_probe")
+            end.synchronize()
+            if i:
+                times.append(start.elapsed_time(end) * 1e-3)
+    times.sort()
+    return 16 * n4 * passes / times[len(times) // 2]

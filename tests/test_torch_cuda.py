@@ -5,11 +5,10 @@ CUDA device (as on the CPU-only test machines). On a machine with a
 card: ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``
 (``--noconftest``: the suite's conftest imports JAX, which the card's
 machine need not have).
-Tolerances: sketch tables |diff| <= 1e-5*max|table| + 1e-6*max|v|
-(the kernel adds in the plain version's order, so they are normally
-equal); estimates, the search's T and need, and masks exact; the fused
-sketch-and-quantize bytes and row maxima exact; flce as stated beside
-its tests.
+Tolerances: sketch tables and estimates exact (the sketch kernel adds
+in the plain version's order); the search's T and need, and masks
+exact; the fused sketch-and-quantize bytes and row maxima exact; flce
+as stated beside its tests.
 """
 
 import pytest
@@ -30,23 +29,43 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("d,c,r", [(12_345, 1000, 5), (50_000, 4096, 17),
-                                   (9_000, 700, 4)])
-def test_sketch_and_estimates_kernels(dev, d, c, r):
-    s = CountSketch(d=d, c=c, r=r, seed=3)
+@pytest.mark.parametrize("d,c,r,row_offset", [
+    (12_345, 1000, 5, 0), (50_000, 4096, 17, 0), (9_000, 700, 4, 0),
+    (7_000, 1500, 5, 0),      # the last 1024-column tile partial
+    (900, 1000, 3, 0),        # m = 1
+    (20_000, 3000, 1, 0),     # r = 1
+    (40_000, 2500, 32, 0),    # r = 32: four row groups of 8
+    (30_000, 2500, 12, 0),    # a last row group of 4
+    (12_345, 1000, 3, 2)])    # rows 2..4 of a 5-row sketch
+def test_sketch_and_estimates_kernels(dev, d, c, r, row_offset):
+    # both exact: the sketch adds in the plain version's order, its
+    # signs hashed or read from the packed-sign stream
+    total = r + row_offset
+    s = CountSketch(d=d, c=c, r=total, seed=3)
     v = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
     vp = torch.nn.functional.pad(v, (0, s._padded_d - d))
-    rot = s.rotations_on(dev)
+    rot_all = s.rotations_on(dev)
+    rot = rot_all[row_offset:]
     args = (c, r, s.sign_seed, s._one_mix_signs)
     before = sk.sketch_kernel.launches
-    tab = sk.sketch_kernel(vp, rot, *args)
+    tab = sk.sketch_kernel(vp, rot, *args, row_offset)
     assert sk.sketch_kernel.launches == before + 1
-    ref = sk.sketch_plain(vp, rot, *args)
-    tol = 1e-5 * float(ref.abs().max()) + 1e-6 * float(v.abs().max())
-    assert float((tab - ref).abs().max()) <= tol
+    assert torch.equal(tab, sk.sketch_plain(vp, rot, *args, row_offset))
+    assert torch.equal(tab, sk.sketch_kernel(vp, rot, *args, row_offset))
+    signs = s.packed_signs_on(dev)  # r <= 8: the main path's form
+    if signs is not None:
+        assert torch.equal(tab, sk.sketch_kernel(vp, rot, *args, row_offset,
+                                                 signs))
+    if row_offset:
+        whole = sk.sketch_kernel(vp, rot_all, c, total, s.sign_seed,
+                                 s._one_mix_signs)
+        assert torch.equal(tab, whole[row_offset:])
+        return
     for valid in (d, s._padded_d):
-        assert torch.equal(sk.estimates_kernel(tab, rot, *args, valid),
-                           sk.estimates_plain(tab, rot, *args, valid))
+        est = sk.estimates_kernel(tab, rot, *args, valid)
+        assert torch.equal(est, sk.estimates_plain(tab, rot, *args, valid))
+        assert torch.equal(est, sk.estimates_kernel(tab, rot, *args, valid))
+        assert not bool(est[valid:].any())
 
 
 @pytest.mark.parametrize("d,k", [(70_000, 513), (2 * 2048 + 17, 4000)])

@@ -136,3 +136,149 @@ def test_gates_match_reference():
 def test_approx_topk_not_ported():
     with pytest.raises(NotImplementedError, match="approx_topk"):
         CountSketch(d=100, c=10, r=1, approx_topk=True)
+
+
+@pytest.mark.parametrize("r", [1, 3, 5, 8])
+def test_packed_signs_bit_exact_with_reference(r):
+    # the port's packed-sign stream against the JAX package's
+    # _packed_signs_traced, byte for byte, and the plain sketch through
+    # it equal to the plain sketch through the hash
+    from commefficient_tpu_torch.ops import sketch_kernels as sk
+    rng = np.random.RandomState(r)
+    d, c = 9_001, 1_000
+    seed = int(rng.randint(0, 2**31))
+    js = JaxSketch(d=d, c=c, r=r, seed=seed, backend="xla")
+    ts = CountSketch(d=d, c=c, r=r, seed=seed)
+    got = ts.packed_signs_on("cpu")
+    assert got.dtype == torch.uint8 and got.shape == (ts._padded_d,)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(js._packed_signs_traced()))
+    assert ts.packed_signs_on("cpu") is got  # cached
+    vp = torch.nn.functional.pad(
+        torch.from_numpy(rng.randn(d).astype(np.float32)),
+        (0, ts._padded_d - d))
+    rot = ts.rotations_on("cpu")
+    args = (vp, rot, c, r, ts.sign_seed, True)
+    hashed = sk.sketch_plain(*args)
+    assert torch.equal(sk.sketch_plain(*args, signs=got), hashed)
+    # a row chunk, as the bf16 wire sketches it
+    if r > 1:
+        assert torch.equal(sk.sketch_plain(vp, rot[1:], c, r - 1,
+                                           ts.sign_seed, True, 1, got),
+                           hashed[1:])
+
+
+def test_packed_signs_only_where_eligible():
+    # one-mix signs of at most 8 rows: the stream; otherwise none, and
+    # the wrappers refuse a stream that does not hold the rows
+    from commefficient_tpu_torch.ops import sketch_kernels as sk
+    assert CountSketch(d=100, c=10, r=9).packed_signs_on("cpu") is None
+    assert CountSketch(d=100, c=10, r=17).packed_signs_on("cpu") is None
+    s = CountSketch(d=100, c=10, r=8)
+    signs = s.packed_signs_on("cpu")
+    vp = torch.zeros(100)
+    with pytest.raises(ValueError, match="rows 0..7"):
+        sk.sketch_plain(vp, s.rotations_on("cpu")[6:], 10, 2, s.sign_seed,
+                        True, 7, signs)
+    with pytest.raises(ValueError, match="uint8 stream"):
+        sk.sketch_plain(vp, s.rotations_on("cpu"), 10, 8, s.sign_seed, True,
+                        0, signs[:50])
+
+
+@pytest.mark.parametrize("slip", [
+    "none", "a chunk left out", "one row's sign dropped",
+    "a rotation off by one", "sketch: last partial column tile not written",
+    "estimates: last partial column tile not written",
+    "the valid tail not zeroed"])
+def test_card_smoke_sketch_checks_reject_slips(monkeypatch, slip):
+    # chip_smoke.py holds the sketch and estimates kernels exactly against
+    # their plain versions on the card. Here the kernels' results are the
+    # plain ones with one slip each, and its check must raise. c = 1500
+    # leaves the last 1024-column tile of both kernels partial; d = 5000
+    # leaves a tail of 1000 padded coordinates
+    import chip_smoke as cs
+    from commefficient_tpu_torch.ops import sketch_kernels as sk
+    d, c, r = 5_000, 1_500, 5
+    s = CountSketch(d=d, c=c, r=r, seed=7)
+    v = torch.from_numpy(np.random.RandomState(1).randn(d).astype(np.float32))
+    vp = torch.nn.functional.pad(v, (0, s._padded_d - d))
+    rot = s.rotations_on("cpu")
+    sketch, estimates = sk.sketch_plain, sk.estimates_plain
+
+    def slipped_sketch(vp, rot, c, r, seed, one_mix, row_offset=0,
+                       signs=None):
+        if slip == "a chunk left out":
+            vp = vp.clone()
+            vp[c:2 * c] = 0.0
+        if slip == "a rotation off by one":
+            rot = rot.clone()
+            rot[1, 2] = (rot[1, 2] + 1) % c
+        tab = sketch(vp, rot, c, r, seed, one_mix, row_offset, signs)
+        if slip == "one row's sign dropped":
+            cols = torch.arange(c)
+            tab[2] = sum(vp[t * c + (cols - int(rot[2, t])) % c]
+                         for t in range(rot.shape[1]))
+        if slip == "sketch: last partial column tile not written":
+            tab[:, 1024:] = 0.0
+        return tab
+
+    def slipped_estimates(table, rot, c, r, seed, one_mix, valid):
+        if slip == "the valid tail not zeroed":
+            valid = table.shape[1] * rot.shape[1]
+        est = estimates(table, rot, c, r, seed, one_mix, valid)
+        if slip == "estimates: last partial column tile not written":
+            est.view(-1, c)[:, 1024:] = 0.0
+        return est
+
+    monkeypatch.setattr(sk, "sketch_kernel", slipped_sketch)
+    monkeypatch.setattr(sk, "estimates_kernel", slipped_estimates)
+    args = (vp, rot, c, r, s.sign_seed, s._one_mix_signs, d, slip,
+            s.packed_signs_on("cpu"))
+    if slip == "none":
+        tab, est = cs.sketch_estimates_checks(*args)
+        assert tab.shape == (r, c) and est.shape == (s._padded_d,)
+    else:
+        with pytest.raises(AssertionError):
+            cs.sketch_estimates_checks(*args)
+
+
+def test_sketch_ablation_variants_replace_their_pieces():
+    # sketch_ablation patches the sketch and estimates kernels; every
+    # variant must differ from the source, and an edit of the kernels
+    # that removes a patched piece must fail loudly
+    from commefficient_tpu_torch import _build, sketch_ablation
+    src = (_build.SRC_DIR / "sketch.cu").read_text()
+    out = sketch_ablation.variants(src)
+    assert set(out) == {"base", "no_hash", "loads_only", "packed_signs"}
+    assert out["base"] == src
+    assert len(set(out.values())) == 4
+    assert "cet_ablation_signs + g" in out["packed_signs"]
+    assert sketch_ablation._SK_HASH not in out["no_hash"]
+    assert "cet_median<R>(vals, r)" not in out["loads_only"]
+    with pytest.raises(RuntimeError, match="update sketch_ablation"):
+        sketch_ablation.variants(src.replace("acc[row][k] +=",
+                                             "acc[row][k] ="))
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_Z17cet_sketch_kernelILi5ELi4ELb0ELi2EEvPKfPKiPKhPfiiiji",
+     "sketch_RG5_C4_stream"),
+    ("_Z17cet_sketch_kernelILi8ELi2ELb1ELi0EEvPKfPKiPKhPfiiiji",
+     "sketch_RG8_C2_ragged_row_mix"),
+    ("_Z20cet_estimates_kernelILi5ELb1EEvPKfPKiPfiiijx",
+     "estimates_R5_one_mix"),
+    ("_Z20cet_estimates_kernelILi0ELb0EEvPKfPKiPfiiijx",
+     "estimates_R0_row_mix"),
+    ("_Z23cet_sketch_quant_kernelILi8ELb0EEvPKfPKiPvPfiiiijii",
+     "sketch_quant_K8_int8")])
+def test_card_smoke_names_sketch_instantiations(mangled, name):
+    # chip_smoke.py's ptxas_sketch line names csrc/sketch.cu's template
+    # instantiations, and its check looks the main path's up by name
+    import chip_smoke as cs
+    assert cs.sketch_kernel_name(mangled) == name
+    log = (f"ptxas info    : Function properties for {mangled}\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\nptxas info    : Used 64 registers, used 1 barriers\n")
+    assert cs.ptxas_report(log) == {name: {"spill_stores": 0,
+                                           "spill_loads": 0,
+                                           "registers": 64}}
