@@ -36,10 +36,17 @@ the estimates exactly, at both shapes and in four other geometries;
 their rows carry ``design_floor_ms``, their L2 -> SM bytes at the rate
 ``sketch_kernels.l2_read_rate`` measures on the card (``l2_read``
 line), and the ``ptxas_sketch`` line their registers and spills. The
-selection (the radix-select search for the k-th key and ``need``, then
-the take-mask) is held exactly against its plain version at both
-shapes and on edge distributions, and must run with no host sync
-(``torch.cuda.set_sync_debug_mode("error")``).
+sketch-and-quantize is held byte-equal to its plain version and to
+quantizing the sketch kernel's table, hashed and through the stream,
+whole and in row chunks, at both shapes and in six other geometries,
+each line naming the route it took (``all_rows``: the sketch kernel's
+core; ``tiles``: where that grid is not co-resident). The selection
+(the radix-select search for the k-th key and ``need``, then the
+take-mask) is held exactly against its plain version at both shapes and
+on edge distributions, among them ties placed against the take-mask's
+tiles and two back-to-back launches, and must run with no host sync
+(``torch.cuda.set_sync_debug_mode("error")``); the ``ptxas_take_mask``
+line gives the take-mask's registers and spills.
 Each phase prints one JSON line; a failed check raises, so the script
 exits nonzero before its last line, which is ``{"ok": true, "device":
 {...}}``. Needs one CUDA card; exits nonzero without one. Imports
@@ -69,7 +76,8 @@ from commefficient_tpu_torch.ops import quant
 from commefficient_tpu_torch.ops import sketch_kernels as sk
 from commefficient_tpu_torch.ops import topk_kernels as tk
 from commefficient_tpu_torch.ops.sketch import CountSketch
-from commefficient_tpu_torch.ops.topk import threshold_topk_mask_1d
+from commefficient_tpu_torch.ops.topk import (keys_of,
+                                              threshold_topk_mask_1d)
 from commefficient_tpu_torch.parallel.wire import row_chunks
 from commefficient_tpu_torch.runtime import fed_model
 from commefficient_tpu_torch.train import cv_train, gpt2_train
@@ -235,72 +243,115 @@ def raw(q):
     return q.view(torch.uint8)
 
 
-def sketch_quant_checks(vp, rot, c, r, seed, one_mix, wire, tag):
-    """The fused sketch-and-quantize kernel against its plain version,
-    against quantizing the sketch kernel's own table, per row chunk of
-    depths 2 and 4 against its rows of the whole, and on an all-zero
-    and a NaN-holding vector, all byte for byte. Returns the largest
-    |kernel - plain| of q."""
-    q, rm = sk.sketch_quant_kernel(vp, rot, c, r, seed, one_mix, wire)
+def sketch_quant_checks(vp, rot, c, r, seed, one_mix, wire, tag,
+                        signs=None):
+    """The fused sketch-and-quantize kernel against its plain version and
+    against quantizing the sketch kernel's own table, with its signs
+    hashed and, given the packed-sign stream ``signs``, read from it (as
+    the main paths call it); per row chunk of depths 2 and 4 against its
+    rows of the whole and against the plain chunk; on an all-zero and a
+    NaN-holding vector; all byte for byte. Returns the largest |kernel -
+    plain| of q and the route the kernel took for the whole table."""
     qp, rmp = sk.sketch_quant_plain(vp, rot, c, r, seed, one_mix, wire)
-    check(torch.equal(raw(q), raw(qp)) and torch.equal(rm, rmp),
-          f"sketch_quant {wire} {tag}: kernel != plain")
     qt, rmt = quant.quantize_local(sk.sketch_kernel(vp, rot, c, r, seed,
                                                     one_mix), wire)
-    check(torch.equal(raw(q), raw(qt)) and torch.equal(rm, rmt),
-          f"sketch_quant {wire} {tag}: != quantize_local(cet_sketch table)")
-    for depth in (2, 4):
-        for off, cnt in row_chunks(r, depth):
-            qc, rmc = sk.sketch_quant_kernel(vp, rot[off:off + cnt], c, cnt,
-                                             seed, one_mix, wire, off)
-            check(torch.equal(raw(qc), raw(q[off:off + cnt]))
-                  and torch.equal(rmc, rm[off:off + cnt]),
-                  f"sketch_quant {wire} {tag}: chunk {off}+{cnt} of depth "
-                  f"{depth} != its rows of the whole table")
+    for how in ("hashed",) + (() if signs is None else ("sign stream",)):
+        sg = None if how == "hashed" else signs
+        q, rm = sk.sketch_quant_kernel(vp, rot, c, r, seed, one_mix, wire,
+                                       signs=sg)
+        check(torch.equal(raw(q), raw(qp)) and torch.equal(rm, rmp),
+              f"sketch_quant {wire} {tag} ({how}): kernel != plain")
+        check(torch.equal(raw(q), raw(qt)) and torch.equal(rm, rmt),
+              f"sketch_quant {wire} {tag} ({how}): != quantize_local("
+              "cet_sketch table)")
+        for depth in (2, 4):
+            for off, cnt in row_chunks(r, depth):
+                rc = rot[off:off + cnt]
+                qc, rmc = sk.sketch_quant_kernel(vp, rc, c, cnt, seed,
+                                                 one_mix, wire, off, sg)
+                qcp, rmcp = sk.sketch_quant_plain(vp, rc, c, cnt, seed,
+                                                  one_mix, wire, off)
+                check(torch.equal(raw(qc), raw(q[off:off + cnt]))
+                      and torch.equal(rmc, rm[off:off + cnt])
+                      and torch.equal(raw(qc), raw(qcp))
+                      and torch.equal(rmc, rmcp),
+                      f"sketch_quant {wire} {tag} ({how}): chunk {off}+"
+                      f"{cnt} of depth {depth} != its rows of the whole "
+                      "table or its plain version")
     zero = torch.zeros_like(vp)
-    q0, rm0 = sk.sketch_quant_kernel(zero, rot, c, r, seed, one_mix, wire)
+    q0, rm0 = sk.sketch_quant_kernel(zero, rot, c, r, seed, one_mix, wire,
+                                     signs=signs)
     check(not bool(raw(q0).any()) and not bool(rm0.any())
           and bool((quant._scale(rm0, quant.QMAX[wire]) == 1.0).all()),
           f"sketch_quant {wire} {tag}: zero vector: q, rowmax 0, scale 1")
     zero[c + 7] = float("nan")
-    _, rmn = sk.sketch_quant_kernel(zero, rot, c, r, seed, one_mix, wire)
+    _, rmn = sk.sketch_quant_kernel(zero, rot, c, r, seed, one_mix, wire,
+                                    signs=signs)
     check(bool(torch.isnan(rmn).all()),
           f"sketch_quant {wire} {tag}: a NaN does not reach every rowmax")
-    return float((q.float() - qp.float()).abs().max())
+    route = sk.sketch_quant_route(c, r, wire, one_mix, signs is not None,
+                                  vp.device)
+    return float((q.float() - qp.float()).abs().max()), route
 
 
-def sketch_quant_phase(dev, flush):
+def sketch_quant_numbers(vp, rot, r, seed, one_mix, signs, flush, reps,
+                         plain_reps, l2_bps):
+    """Kernel 4's checks and times at ``vp``'s shape, int8 and fp8, the
+    kernel reading the sign stream as the main paths do: its time, the
+    plain version's, the unfused pair's (``cet_sketch`` through the
+    stream, then ``quant.quantize_local``), bound, design floor and
+    route."""
+    m, pd = rot.shape[1], vp.numel()
+    c = pd // m
+    b_ms, b_by = bound(4 * pd + 4 * r * m + r * c + 4 * r, r * pd)
+    out = {}
+    for wire in ("int8", "fp8"):
+        err, route = sketch_quant_checks(vp, rot, c, r, seed, one_mix, wire,
+                                         f"padded d={pd}", signs)
+        out[wire] = dict(
+            max_abs_err=err, route_taken=route, bound_ms=b_ms, bound_by=b_by,
+            # the sketch's L2 floor (through the stream), and q to HBM
+            design_floor_ms=(design_floor_ms(r, pd, l2_bps, 1)
+                             + r * c / HBM_BPS * 1e3),
+            ms=time_ms(lambda: sk.sketch_quant_kernel(
+                vp, rot, c, r, seed, one_mix, wire, signs=signs), reps,
+                flush),
+            plain_ms=time_ms(lambda: sk.sketch_quant_plain(
+                vp, rot, c, r, seed, one_mix, wire), plain_reps, flush),
+            unfused_ms=time_ms(lambda: quant.quantize_local(
+                sk.sketch_kernel(vp, rot, c, r, seed, one_mix, signs=signs),
+                wire), reps, flush))
+    return out
+
+
+def sketch_quant_phase(dev, flush, l2_bps):
     """Kernel 4 at the ResNet9 round's shapes, int8 (the main path's
-    wire) and fp8."""
+    wire) and fp8, and the routes of the main paths' geometries."""
     sketch = CountSketch(d=D, c=C, r=R, seed=SEED)
-    m, pd = sketch._m, sketch._padded_d
+    pd = sketch._padded_d
     rot = sketch.rotations_on(dev)
     seed, one_mix = sketch.sign_seed, sketch._one_mix_signs
     gen = torch.Generator(device=dev).manual_seed(4)
     vp = torch.nn.functional.pad(torch.randn(D, generator=gen, device=dev),
                                  (0, pd - D))
-    b_ms, b_by = bound(4 * pd + 4 * R * m + R * C + 4 * R, R * pd)
-    out = {}
-    for wire in ("int8", "fp8"):
-        err = sketch_quant_checks(vp, rot, C, R, seed, one_mix, wire,
-                                  "ResNet9")
-        out[wire] = dict(
-            max_abs_err=err,
-            ms=time_ms(lambda: sk.sketch_quant_kernel(
-                vp, rot, C, R, seed, one_mix, wire), 20, flush),
-            plain_ms=time_ms(lambda: sk.sketch_quant_plain(
-                vp, rot, C, R, seed, one_mix, wire), 5, flush),
-            unfused_ms=time_ms(lambda: quant.quantize_local(
-                sk.sketch_kernel(vp, rot, C, R, seed, one_mix), wire), 20,
-                flush))
+    out = sketch_quant_numbers(vp, rot, R, seed, one_mix,
+                               sketch.packed_signs_on(dev), flush, 20, 5,
+                               l2_bps)
+    routes = {f"{wire} rows {off}+{cnt}": sk.sketch_quant_route(
+        C, cnt, wire, one_mix, True, dev)
+        for wire, depth in (("int8", 1), ("fp8", 2))
+        for off, cnt in row_chunks(R, depth)}
+    check(set(routes.values()) == {"all_rows"},
+          f"sketch_quant: the main paths' geometries take {routes}")
     row = dict(name="sketch_quant", route="cuda",
                source="commefficient_tpu_torch/csrc/sketch.cu",
                replaces="commefficient_tpu/ops/sketch_pallas.py:295",
-               **out["int8"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
-               fp8=out["fp8"])
+               **out["int8"], library_ms=None, fp8=out["fp8"],
+               main_path_routes=routes)
     emit({"phase": "kernel", **row, "tolerance": "exact (bytes of q and "
           "rowmax)", "library": "none (no single call)",
-          "unfused": "cet_sketch, then quant.quantize_local in torch"})
+          "unfused": "cet_sketch reading the sign stream, then "
+                     "quant.quantize_local in torch"})
     return [row]
 
 
@@ -334,6 +385,86 @@ def design_floor_ms(r, pd, l2_bps, sign_bytes=0):
     packed-sign stream, ``sign_bytes`` a coordinate, where the kernel
     reads it)."""
     return (4 + sign_bytes) * r * pd / l2_bps * 1e3
+
+
+def take_mask_main_checks(sq, t, need, k, tag):
+    """The take-mask as the selection calls it (with the search's tie
+    count: all or none of the ties, no scan) and without the count
+    (through the tie scan), both exact against the plain take-mask, with
+    exactly k set and no unselected key above a selected one. Returns
+    the kernel's mask, the plain one and the tie count."""
+    ties = (keys_of(sq) == t).sum()
+    mp = tk.take_mask_plain(sq, t, need)
+    for how, mk in (("with the tie count",
+                     tk.take_mask_kernel(sq, t, need, ties)),
+                    ("through the scan", tk.take_mask_kernel(sq, t, need))):
+        check(torch.equal(mk, mp), f"take_mask {tag} {how}: kernel != plain")
+        check(int(mk.sum()) == k,
+              f"take_mask {tag} {how}: {int(mk.sum())} set, want {k}")
+    check(float(sq[mk].min()) >= float(sq[~mk].max()),
+          f"take_mask {tag}: an unselected key beats a selected one")
+    return mk, mp, ties
+
+
+def take_mask_floor_ms(d):
+    """The take-mask's design floor: one read of the keys, one write of
+    the mask, and the look-back's 16 bytes of status a tile, at HBM's
+    rate."""
+    tiles = -(-d // tk.TAKE_MASK_TILE)
+    return (5 * d + 16 * tiles) / HBM_BPS * 1e3
+
+
+def take_mask_tie_checks(dev, flush):
+    """Ties at T placed against the take-mask's tiles of
+    ``tk.TAKE_MASK_TILE`` keys, each mask exact against
+    ``take_mask_plain``, with #(keys > T) + need set, without and with
+    the tie count (need = #ties then takes the path with no scan): ties
+    over tiles 0-4 with the cut inside tile 2 (0 < need < #ties) and with
+    need = #ties, ties only in the first tile, only in the ragged last
+    one; two back-to-back launches bit-identical (the look-back's counter
+    and status words are reset). Returns the cases checked and the
+    take-mask's time on the first."""
+    tile = tk.TAKE_MASK_TILE
+    d = 6 * tile + 1001
+    gen = torch.Generator(device=dev).manual_seed(8)
+    keys = torch.rand(d, generator=gen, device=dev) ** 2
+    tv = 0.5  # T: the bits of 0.5 as a key
+    t_key = torch.tensor(0x3F000000, dtype=torch.int64, device=dev)
+    span = torch.arange(tile - 500, 4 * tile + 500, 3, device=dev)
+    cases = (
+        ("ties over tiles 0-4, cut inside tile 2", span,
+         int((span < 2 * tile + tile // 2).sum())),
+        ("ties over tiles 0-4, need = #ties", span, None),
+        ("ties only in the first tile",
+         torch.arange(100, 3000, 5, device=dev), 200),
+        ("ties only in the last tile",
+         torch.arange(6 * tile + 10, d, 4, device=dev), 100))
+    checked, ms = [], None
+    for name, where, need in cases:
+        sq = keys.clone()
+        sq[where] = tv
+        ties = int((sq == tv).sum())
+        need = ties if need is None else need
+        check(0 < need <= ties, f"take_mask {name}: need {need} of {ties}")
+        nd = torch.tensor(need, dtype=torch.int64, device=dev)
+        mp = tk.take_mask_plain(sq, t_key, nd)
+        want = int((sq > tv).sum()) + need
+        for how, count in (("", None), (" with the tie count",
+                                        torch.tensor(ties, device=dev))):
+            mk = tk.take_mask_kernel(sq, t_key, nd, count)
+            check(torch.equal(mk, mp),
+                  f"take_mask {name}{how}: kernel != plain")
+            check(int(mk.sum()) == want,
+                  f"take_mask {name}{how}: {int(mk.sum())} set, want {want}")
+        if ms is None:
+            again = tk.take_mask_kernel(sq, t_key, nd)
+            check(torch.equal(mk, again),
+                  "take_mask: two back-to-back launches differ")
+            checked.append("two back-to-back launches bit-identical")
+            ms = time_ms(lambda: tk.take_mask_kernel(sq, t_key, nd), 10,
+                         flush)
+        checked.append(f"take_mask {name} (need {need} of {ties} ties)")
+    return checked, ms
 
 
 def median_ops(r):
@@ -421,25 +552,25 @@ def kernel_phases(dev, flush, l2_bps):
           "library": "torch.topk(sq, k) (index set, not T and need)",
           "selection": "selection_ms: threshold_topk_mask_1d, search + "
                        "take-mask"})
-    mk = tk.take_mask_kernel(sq, t, need)
-    mp = tk.take_mask_plain(sq, t, need)
-    check(torch.equal(mk, mp), "take_mask: kernel != plain")
-    check(int(mk.sum()) == K, f"take_mask: {int(mk.sum())} set, want {K}")
-    check(float(sq[mk].min()) >= float(sq[~mk].max()),
-          "take_mask: an unselected key beats a selected one")
+    mk, mp, ties = take_mask_main_checks(sq, t, need, K, "ResNet9")
     b_ms, b_by = bound(4 * D + D + 16, 2 * D)
     rows.append(dict(
         name="take_mask", route="cuda",
         source="commefficient_tpu_torch/csrc/take_mask.cu",
         replaces="commefficient_tpu/ops/topk_pallas.py:46",
         max_abs_err=float((mk.int() - mp.int()).abs().max()),
-        ms=time_ms(lambda: tk.take_mask_kernel(sq, t, need), 20, flush),
+        ms=time_ms(lambda: tk.take_mask_kernel(sq, t, need, ties), 20,
+                   flush),
+        scan_ms=time_ms(lambda: tk.take_mask_kernel(sq, t, need), 20, flush),
         plain_ms=time_ms(lambda: tk.take_mask_plain(sq, t, need), 5,
                          flush),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: torch.topk(sq, K), 10, flush)))
+        library_ms=time_ms(lambda: torch.topk(sq, K), 10, flush),
+        design_floor_ms=take_mask_floor_ms(D)))
     emit({"phase": "kernel", **rows[-1], "tolerance": "exact",
-          "library": "torch.topk(sq, k) (index set, not a mask)"})
+          "library": "torch.topk(sq, k) (index set, not a mask)",
+          "scan": "scan_ms: the same call without the tie count, through "
+                  "the tie scan and its look-back"})
     return rows
 
 
@@ -448,17 +579,31 @@ def edge_phases(dev, flush, padded_d):
     the search (T, need) and the mask exact; the contention worst case
     at GPT-2's padded d timed."""
     out = []
-    for d, c, r in ((12_345, 1000, 4), (50_000, 4096, 17), (700, 64, 1),
-                    (4_000, 500, 3)):
+    # kernel 4's route in each geometry: the all-rows grid co-resident,
+    # or not (17 rows in 3 groups, or 1024 column blocks, at c >= 2^19)
+    for d, c, r, route in ((12_345, 1000, 4, "all_rows"),
+                           (50_000, 4096, 17, "all_rows"),
+                           (700, 64, 1, "all_rows"),
+                           (4_000, 500, 3, "all_rows"),
+                           (600_000, 524_288, 17, "tiles"),
+                           (1_100_000, 1_048_576, 5, "tiles")):
         s = CountSketch(d=d, c=c, r=r, seed=7)
         gen = torch.Generator(device=dev).manual_seed(d)
         v = torch.randn(d, generator=gen, device=dev)
         vp = torch.nn.functional.pad(v, (0, s._padded_d - d))
         rot = s.rotations_on(dev)
-        sketch_estimates_checks(vp, rot, c, r, s.sign_seed,
-                                s._one_mix_signs, d, f"d={d} c={c} r={r}",
-                                s.packed_signs_on(dev))
-        out.append(f"sketch+estimates d={d} c={c} r={r}")
+        tag = f"d={d} c={c} r={r}"
+        signs = s.packed_signs_on(dev)
+        if route == "all_rows":
+            sketch_estimates_checks(vp, rot, c, r, s.sign_seed,
+                                    s._one_mix_signs, d, tag, signs)
+            out.append(f"sketch+estimates {tag}")
+        for wire in ("int8", "fp8"):
+            _, took = sketch_quant_checks(vp, rot, c, r, s.sign_seed,
+                                          s._one_mix_signs, wire, tag, signs)
+            check(took == route, f"sketch_quant {tag}: route {took}, want "
+                  f"{route}")
+            out.append(f"sketch_quant {wire} {tag}: route {took}")
 
     def mask_case(name, sq, k, need=None):
         if need is None:
@@ -498,9 +643,16 @@ def edge_phases(dev, flush, padded_d):
     sq = (torch.randint(0, 64, (2_000_003,), generator=gen, device=dev)
           .float() / 64) ** 2
     mask_case("ties at T over all blocks", sq, 1_000_000)
+    t, need = tk.threshold_key_plain(sq, 1_000_000)
+    tie_heavy = {"d": sq.numel(), "k": 1_000_000,
+                 "ties_at_T": int((keys_of(sq) == t).sum()),
+                 "take_mask_ms": time_ms(
+                     lambda: tk.take_mask_kernel(sq, t, need), 10, flush)}
     # a view 4 bytes past an aligned start: the search's scalar head
-    # before its 16-byte loads
+    # before its 16-byte loads, the take-mask's unaligned instantiation
     mask_case("view at a 4-byte offset", sq[1:], 999_999)
+    checked, tie_place_ms = take_mask_tie_checks(dev, flush)
+    out += checked
 
     # contention: every key shares its top 24 bits, so the histograms
     # of passes 0-2 each land on one bin
@@ -513,7 +665,10 @@ def edge_phases(dev, flush, padded_d):
     emit({"phase": "edges", "checked": out,
           "contention_case": {"d": padded_d, "k": K, "ms": contention_ms,
                               "what": "threshold_key_kernel, every key "
-                                      "in [1, 1 + 255 ulp]"}})
+                                      "in [1, 1 + 255 ulp]"},
+          "tie_heavy_case": dict(tie_heavy, what="take_mask_kernel, 64 "
+                                 "levels: ties at T in every tile"),
+          "tie_placement_take_mask_ms": tie_place_ms})
 
 
 def server_phase(dev):
@@ -547,14 +702,19 @@ def sketch_kernel_name(mangled):
     """csrc/sketch.cu's instantiations by their template arguments:
     sketch_RG5_C4_stream (rows a group, columns a thread, _ragged for
     r > 8 in groups of 8, the sign source: _row_mix, _one_mix or
-    _stream), estimates_R5_one_mix (R0: r read at run time),
-    sketch_quant_K8_int8; other names as they are."""
-    m = re.search(r"cet_sketch_kernelILi(\d+)ELi(\d+)ELb([01])ELi([012])E",
-                  mangled)
+    _stream), sketch_quant_RG5_C4_stream_int8 (kernel 4's all-rows
+    route, the same and the wire), estimates_R5_one_mix (R0: r read at
+    run time), sketch_quant_K8_int8 (kernel 4's tile route); other names
+    as they are."""
+    m = re.search(r"cet_sketch(_quant_rows)?_kernelILi(\d+)ELi(\d+)ELb([01])"
+                  r"ELi([012])E(Lb([01])E)?", mangled)
     if m:
-        return (f"sketch_RG{m.group(1)}_C{m.group(2)}"
-                + ("_ragged" if m.group(3) == "1" else "")
-                + ("_row_mix", "_one_mix", "_stream")[int(m.group(4))])
+        return (("sketch_quant" if m.group(1) else "sketch")
+                + f"_RG{m.group(2)}_C{m.group(3)}"
+                + ("_ragged" if m.group(4) == "1" else "")
+                + ("_row_mix", "_one_mix", "_stream")[int(m.group(5))]
+                + ("" if not m.group(1) else
+                   "_fp8" if m.group(7) == "1" else "_int8"))
     m = re.search(r"cet_estimates_kernelILi(\d+)ELb([01])E", mangled)
     if m:
         return (f"estimates_R{m.group(1)}"
@@ -567,10 +727,14 @@ def sketch_kernel_name(mangled):
 
 
 def sketch_ptxas_checks(report):
-    """The main path's sketch and estimates instantiations (r = 5, the
-    sketch reading the sign stream, the estimates one mix a coordinate)
-    compiled without spills."""
-    for name in ("sketch_RG5_C4_stream", "estimates_R5_one_mix"):
+    """The main paths' sketch, sketch-and-quantize and estimates
+    instantiations (r = 5, and kernel 4's r = 3 and 2 row chunks of
+    ``--overlap_depth 2``, reading the sign stream; the estimates one
+    mix a coordinate) compiled without spills."""
+    for name in ("sketch_RG5_C4_stream", "estimates_R5_one_mix",
+                 "sketch_quant_RG5_C4_stream_int8",
+                 "sketch_quant_RG3_C4_stream_fp8",
+                 "sketch_quant_RG2_C4_stream_fp8"):
         props = report.get(name, {})
         check("registers" in props,
               f"ptxas_sketch: no line for {name} in {sorted(report)}")
@@ -579,10 +743,23 @@ def sketch_ptxas_checks(report):
               f"ptxas_sketch: {name} spills {props}")
 
 
+def take_mask_ptxas_checks(report):
+    """Both take-mask instantiations (16-byte aligned keys and not)
+    compiled without spills."""
+    for name in ("take_mask_aligned", "take_mask_unaligned"):
+        props = report.get(name, {})
+        check("registers" in props,
+              f"ptxas_take_mask: no line for {name} in {sorted(report)}")
+        check(props.get("spill_stores", 0) == 0
+              and props.get("spill_loads", 0) == 0,
+              f"ptxas_take_mask: {name} spills {props}")
+
+
 def ptxas_report(log):
     """{kernel: {registers, spill_stores, spill_loads}} from a ptxas -v
     log, the flce kernels named by pass and width (bwd_dX_C768, ...),
-    the sketch kernels by ``sketch_kernel_name``."""
+    the take-mask by its alignment (take_mask_aligned), the sketch
+    kernels by ``sketch_kernel_name``."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
@@ -596,6 +773,9 @@ def ptxas_report(log):
                 name = "fwd"
             elif "fwd_probe_kernel" in name:
                 name = "fwd_probe"
+            elif "cet_take_mask_kernel" in name:
+                name = "take_mask_" + ("aligned" if "ILb1E" in name
+                                       else "unaligned")
             elif "wgmma_probe_kernel" in name:
                 name = "wgmma_probe_C" + str(64 * int(re.search(
                     r"wgmma_probe_kernelILi(\d+)E", name).group(1)))
@@ -802,18 +982,9 @@ def gpt2_shape_phase(dev, flush, l2_bps):
     check(torch.allclose(lib_tab.view(R, C), tab_k, rtol=0, atol=tol),
           "index_add_ yardstick disagrees with the sketch at GPT-2 shape")
     del flat_bucket, signed, lib_tab
-    err = sketch_quant_checks(vp, rot, C, R, seed, one_mix, "int8",
-                              "GPT-2")
-    b_ms, b_by = bound(4 * pd + 4 * R * m + R * C + 4 * R, R * pd)
-    out["sketch_quant"] = dict(
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        ms=time_ms(lambda: sk.sketch_quant_kernel(vp, rot, C, R, seed,
-                                                  one_mix, "int8"), 10, flush),
-        plain_ms=time_ms(lambda: sk.sketch_quant_plain(
-            vp, rot, C, R, seed, one_mix, "int8"), 3, flush),
-        unfused_ms=time_ms(lambda: quant.quantize_local(
-            sk.sketch_kernel(vp, rot, C, R, seed, one_mix), "int8"), 10,
-            flush))
+    sq_out = sketch_quant_numbers(vp, rot, R, seed, one_mix, signs, flush,
+                                  10, 2, l2_bps)
+    out["sketch_quant"] = dict(sq_out["int8"], fp8=sq_out["fp8"])
     del vp
 
     b_ms, b_by = bound(4 * R * C + 4 * R * m + 4 * pd, median_ops(R) * pd)
@@ -832,14 +1003,14 @@ def gpt2_shape_phase(dev, flush, l2_bps):
     t, need, err = selection_checks(sq, K, "GPT-2")
     sync_free_check(sq, K, "GPT-2")
     out["threshold_key"] = threshold_key_row(sq, K, err, flush, 10, 2)
-    mk = tk.take_mask_kernel(sq, t, need)
-    check(torch.equal(mk, tk.take_mask_plain(sq, t, need)),
-          "take_mask at GPT-2 shape")
-    check(int(mk.sum()) == K, "take_mask at GPT-2 shape: count")
+    _, _, ties = take_mask_main_checks(sq, t, need, K, "GPT-2")
     b_ms, b_by = bound(4 * pd + pd + 16, 2 * pd)
     out["take_mask"] = dict(
         max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
-        ms=time_ms(lambda: tk.take_mask_kernel(sq, t, need), 10, flush),
+        design_floor_ms=take_mask_floor_ms(pd),
+        ms=time_ms(lambda: tk.take_mask_kernel(sq, t, need, ties), 10,
+                   flush),
+        scan_ms=time_ms(lambda: tk.take_mask_kernel(sq, t, need), 10, flush),
         plain_ms=time_ms(lambda: tk.take_mask_plain(sq, t, need), 3,
                          flush),
         library_ms=time_ms(lambda: torch.topk(sq, K), 5, flush))
@@ -991,6 +1162,9 @@ def main():
     report = ptxas_report(_build.BUILD_LOGS.get("sketch", ""))
     emit({"phase": "ptxas_sketch", "kernels": report})
     sketch_ptxas_checks(report)
+    report = ptxas_report(_build.BUILD_LOGS.get("take_mask", ""))
+    emit({"phase": "ptxas_take_mask", "kernels": report})
+    take_mask_ptxas_checks(report)
 
     l2_bps = sk.l2_read_rate(dev)
     emit({"phase": "l2_read", "bytes_per_s": l2_bps,
@@ -999,7 +1173,7 @@ def main():
                   "estimates' design_floor_ms is r*4*padded_d bytes at it"})
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     rows = kernel_phases(dev, flush, l2_bps)
-    rows += sketch_quant_phase(dev, flush)
+    rows += sketch_quant_phase(dev, flush, l2_bps)
     wgmma_tile_phase(dev)
     rows += flce_phases(dev, flush)
     torch.cuda.empty_cache()
@@ -1032,7 +1206,8 @@ def main():
         kern = f"{row['name']}_kernel"
         row["launches"] = launches[kern]
         entry = {k: row[k] for k in keys}
-        for extra in ("unfused_ms", "fp8", "selection_ms", "design_floor_ms"):
+        for extra in ("unfused_ms", "fp8", "selection_ms", "design_floor_ms",
+                      "route_taken", "main_path_routes", "scan_ms"):
             if extra in row:
                 entry[extra] = row[extra]
         if row["name"] in gpt2_shapes:

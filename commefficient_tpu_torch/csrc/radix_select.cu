@@ -9,7 +9,9 @@
 // squared estimates), compared as bits, never as floats, as the
 // reference does: +inf and NaN patterns are ordered by their bits.
 // Output: state[0] = T, the k-th largest key; state[1] = need =
-// k - #(keys > T). Both stay on the device.
+// k - #(keys > T); state[2] = #(keys == T), the count of the last digit
+// step's bin, which lets the take-mask skip its tie scan where need
+// takes every tie. All stay on the device.
 //
 // Four passes of 8-bit digits, most significant first. Each pass is two
 // launches, so that a multi-card form can all-reduce the 256 counts
@@ -142,6 +144,7 @@ __global__ void __launch_bounds__(CET_RS_BINS)
     const long long prefix = P == 0 ? 0 : state[0];
     state[0] = prefix | ((long long)digit << (24 - 8 * P));
     state[1] = remaining - suf[digit + 1];
+    if (P == 3) state[2] = suf[digit] - suf[digit + 1];
   }
 }
 
@@ -179,7 +182,7 @@ static cudaError_t cet_rs_grid_cap(long long* cap) {
   return cudaSuccess;
 }
 
-// sq: (d,) f32 keys; state: 2 int64 (T, need) written; hist: 256
+// sq: (d,) f32 keys; state: 3 int64 (T, need, ties) written; hist: 256
 // uint32 counts, any contents (zeroed here)
 extern "C" int cet_threshold_key(const float* sq, long long d, long long k,
                                  long long* state, unsigned* hist,

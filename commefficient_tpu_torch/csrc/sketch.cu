@@ -14,7 +14,8 @@
 // chunks t = 0..m-1 in order, from zero, with g = t*c + ((col - o[row,
 // t]) mod c). No atomics, no split over t: one fixed summation order,
 // the plain version's, so the two agree bit for bit (and so does
-// kernel 4's table, which sums through cet_bucket in the same order).
+// kernel 4's table, which sums on the same core, or through cet_bucket
+// in the same order).
 // Any rotation and any c work (no 128-lane constraint).
 //   HBM bound: one read of v (4*m*c) and one write of the table (4*r*c).
 //   L2 floor: every row reads all of v at its own rotation, so r*4*m*c
@@ -70,27 +71,43 @@
 // then per row rm = max|row|, s = rm > 0 ? rm/qmax : 1, and
 // q = clip(rint(x/s), -127, 127) (int8) or e4m3fn(f16(x/s)) (fp8); out
 // come q (r, c) and rowmax (r, 1) f32. The TPU kernel keeps the f32
-// table in a VMEM scratch across its sequential grid. Here:
-//   1. gather: each thread sums its buckets exactly as cet_sketch does
-//      (cet_bucket, t = 0..m-1 in order, no atomics), so the table is
-//      bit-equal to kernel 1's, and keeps up to K of them in registers;
-//   2. row max: a warp max of the |x| bits (non-negative floats order
-//      as uint32, and NaN's bits lie above inf's, so NaN propagates as
-//      in jnp.max, where fmaxf would drop it), a shared-memory atomicMax
-//      per warp, one global atomicMax per row and block into the
-//      rowmax output, which the entry point zeroes first;
-//   3. grid barrier: a cooperative launch (cudaLaunchCooperativeKernel)
-//      with the grid sized by occupancy, then cg::this_grid().sync();
-//   4. quantize from registers and write q.
-// The f32 table never reaches device memory. K (8, 16 or 32 tiles of
-// 256 buckets a thread) is the smallest whose grid is co-resident; a
-// table larger than 32 tiles a resident thread (r*c above ~4M at the
-// occupancy of 256-thread blocks) recomputes the tiles past the 32nd
-// in step 4 from the same sums, in the same order, so it stays one
-// launch with no scratch buffer. Bound: bytes, one read of v (4*m*c),
-// of the rotations (4*r*m), one write of q (r*c) and rowmax (4*r).
-// Rounding matches ops/quant.py byte for byte: x/s and rm/qmax are IEEE
-// divisions (the build has no --use_fast_math, -prec-div=false or
+// table in a VMEM scratch across its sequential grid; here the table
+// stays in registers across one grid barrier and never reaches device
+// memory, in one cooperative launch (cudaLaunchCooperativeKernel).
+//   HBM bound: one read of v (4*m*c) and of the rotations (4*r*m), one
+// write of q (r*c) and rowmax (4*r). Design floor: kernel 1's L2 floor
+// (r reads of v, and of the sign stream where it is read) plus the q
+// write from HBM's side.
+//   Design (the all-rows route, cet_sketch_quant_rows_kernel): kernel
+// 1's core, cet_sketch_sums, unchanged -- a thread owns COLS columns of
+// every row of a row group, one co-resident wave, the packed-sign stream
+// where the sign source is one mix of at most 8 rows -- so the table is
+// bit-equal to cet_sketch's by construction. In place of the table
+// store:
+//   1. the row max of |x| as uint32 bits (non-negative floats order as
+//      uint32, and NaN's bits lie above inf's, so NaN propagates as in
+//      jnp.max, where fmaxf would drop it): a warp max, one shared
+//      atomicMax per warp and row, one global atomicMax per block and
+//      row into the rowmax output, which the entry point zeroes first;
+//   2. cg::this_grid().sync();
+//   3. quantize the RG x COLS accumulators from registers and store q.
+//   Dispatch by geometry, deterministic for a shape on a given card: the
+// all-rows route where its grid (cet_sketch's, c / (256*COLS) x row
+// groups) is co-resident at the kernel's occupancy, as on the main
+// paths (r = 5 whole, r = 3 and 2 in --overlap_depth 2 chunks: 512
+// blocks against 132 SMs x 4 at c = 524 288). Otherwise (many row groups
+// of r > 8, or a much larger c) the tile route, cet_sketch_quant_kernel,
+// the first design: one thread a bucket (cet_bucket, the same order, so
+// the same table), 256-bucket tiles of one row dealt round-robin to a
+// grid sized by occupancy, the first K (8, 16 or 32) tiles a thread kept
+// in registers and the tiles past the 32nd recomputed after the barrier;
+// it hashes the signs (the stream holds the same bits).
+// cet_sketch_quant_route names the route a shape takes. At GPT-2 shapes
+// (r = 5, c = 524 288, m = 238) the all-rows route took 0.52-0.58 ms
+// against the tile route's 1.27-1.33, int8 and fp8 (H100 80GB HBM3 at
+// 700 W, python -m commefficient_tpu_torch.kernel_ab).
+//   Rounding matches ops/quant.py byte for byte: x/s and rm/qmax are
+// IEEE divisions (the build has no --use_fast_math, -prec-div=false or
 // -ftz=true), rintf rounds half to even as torch.round and jnp.round,
 // and fp8 goes f32 -> f16 (__float2half_rn) -> e4m3fn
 // (__nv_cvt_halfraw_to_fp8, round to nearest even) as quant._to_fp8
@@ -116,6 +133,10 @@
 #define CET_SIGNS_ROW_MIX 0
 #define CET_SIGNS_ONE_MIX 1
 #define CET_SIGNS_STREAM 2
+// rows a group and columns a thread of the sketch's core for r = 1..8;
+// r > 8 runs in groups of 8 at 2 columns, the last group ragged
+#define CET_SK_GEOMETRY(X) \
+  X(1, 4) X(2, 4) X(3, 4) X(4, 4) X(5, 4) X(6, 2) X(7, 2) X(8, 2)
 
 namespace cg = cooperative_groups;
 
@@ -136,18 +157,17 @@ __device__ __forceinline__ float cet_bucket(const float* __restrict__ v,
   return acc;
 }
 
-// rows x columns of one block: a row group of up to RG rows (exactly RG
+// the sums of one block's buckets, t = 0..m-1 in order from zero, into
+// acc: rows x columns of a row group of up to RG rows (exactly RG
 // unless RAGGED), COLS columns a thread, CET_SK_THREADS apart. SIGNS
 // (CET_SIGNS_*) is a template argument so that each element takes one
 // sign source: with the choice made at run time the compiler computes
-// both mixes and selects.
+// both mixes and selects. The core of kernels 1 and 4.
 template <int RG, int COLS, bool RAGGED, int SIGNS>
-__global__ void __launch_bounds__(CET_SK_THREADS, 4)
-    cet_sketch_kernel(const float* __restrict__ v,
-                      const int* __restrict__ rot,
-                      const uint8_t* __restrict__ sgn,
-                      float* __restrict__ table, int m, int c, int r,
-                      uint32_t seed, int row_offset) {
+__device__ __forceinline__ void cet_sketch_sums(
+    const float* __restrict__ v, const int* __restrict__ rot,
+    const uint8_t* __restrict__ sgn, int m, int c, int r, uint32_t seed,
+    int row_offset, float (&acc)[RG][COLS]) {
   __shared__ int srot[RG * CET_SK_TT];
   const int row0 = blockIdx.y * RG;
   const int nr = RAGGED ? min(RG, r - row0) : RG;
@@ -155,7 +175,6 @@ __global__ void __launch_bounds__(CET_SK_THREADS, 4)
   // a column past c recomputes the last one and is not stored, so the
   // chunk loop needs no bounds test
   int col[COLS];
-  float acc[RG][COLS];
 #pragma unroll
   for (int k = 0; k < COLS; ++k) {
     col[k] = min(base + k * CET_SK_THREADS, c - 1);
@@ -195,6 +214,21 @@ __global__ void __launch_bounds__(CET_SK_THREADS, 4)
       }
     }
   }
+}
+
+template <int RG, int COLS, bool RAGGED, int SIGNS>
+__global__ void __launch_bounds__(CET_SK_THREADS, 4)
+    cet_sketch_kernel(const float* __restrict__ v,
+                      const int* __restrict__ rot,
+                      const uint8_t* __restrict__ sgn,
+                      float* __restrict__ table, int m, int c, int r,
+                      uint32_t seed, int row_offset) {
+  float acc[RG][COLS];
+  cet_sketch_sums<RG, COLS, RAGGED, SIGNS>(v, rot, sgn, m, c, r, seed,
+                                           row_offset, acc);
+  const int row0 = blockIdx.y * RG;
+  const int nr = RAGGED ? min(RG, r - row0) : RG;
+  const int base = blockIdx.x * (CET_SK_THREADS * COLS) + threadIdx.x;
 #pragma unroll
   for (int row = 0; row < RG; ++row) {
     if (!RAGGED || row < nr) {
@@ -348,8 +382,62 @@ __device__ __forceinline__ void cet_quant_store(void* q, size_t i, float x,
   }
 }
 
-// tile = 256 consecutive buckets of one row; block b takes tiles
-// b, b + grid, b + 2*grid, ...: the first K in registers
+// the all-rows route: cet_sketch_kernel's sums, then the row max, the
+// grid barrier and the quantize from the accumulators (cooperative
+// launch only)
+template <int RG, int COLS, bool RAGGED, int SIGNS, bool FP8>
+__global__ void __launch_bounds__(CET_SK_THREADS, 4)
+    cet_sketch_quant_rows_kernel(const float* __restrict__ v,
+                                 const int* __restrict__ rot,
+                                 const uint8_t* __restrict__ sgn, void* q,
+                                 float* rowmax, int m, int c, int r,
+                                 uint32_t seed, int row_offset) {
+  __shared__ unsigned int smax[RG];
+  if (threadIdx.x < RG) smax[threadIdx.x] = 0u;
+  __syncthreads();
+  float acc[RG][COLS];
+  cet_sketch_sums<RG, COLS, RAGGED, SIGNS>(v, rot, sgn, m, c, r, seed,
+                                           row_offset, acc);
+  const int row0 = blockIdx.y * RG;
+  const int nr = RAGGED ? min(RG, r - row0) : RG;
+  const int base = blockIdx.x * (CET_SK_THREADS * COLS) + threadIdx.x;
+  // a column past c holds column c - 1's sum again: the max is the same
+#pragma unroll
+  for (int row = 0; row < RG; ++row) {
+    if (!RAGGED || row < nr) {
+      unsigned int b = 0u;
+#pragma unroll
+      for (int k = 0; k < COLS; ++k)
+        b = max(b, __float_as_uint(acc[row][k]) & 0x7FFFFFFFu);
+      b = __reduce_max_sync(0xFFFFFFFFu, b);
+      if ((threadIdx.x & 31) == 0 && b) atomicMax(smax + row, b);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < nr && smax[threadIdx.x])
+    atomicMax(reinterpret_cast<unsigned int*>(rowmax) + row0 + threadIdx.x,
+              smax[threadIdx.x]);
+  cg::this_grid().sync();
+
+  const float qmax = FP8 ? 448.f : 127.f;
+#pragma unroll
+  for (int row = 0; row < RG; ++row) {
+    if (!RAGGED || row < nr) {
+      const float rm = __ldcg(rowmax + row0 + row);
+      const float sc = rm > 0.f ? rm / qmax : 1.f;
+#pragma unroll
+      for (int k = 0; k < COLS; ++k) {
+        const int cc = base + k * CET_SK_THREADS;
+        if (cc < c)
+          cet_quant_store<FP8>(q, (size_t)(row0 + row) * c + cc,
+                               acc[row][k], sc);
+      }
+    }
+  }
+}
+
+// the tile route: tile = 256 consecutive buckets of one row; block b
+// takes tiles b, b + grid, b + 2*grid, ...: the first K in registers
 template <int K, bool FP8>
 __global__ void __launch_bounds__(CET_SQ_THREADS)
     cet_sketch_quant_kernel(const float* __restrict__ v,
@@ -516,14 +604,7 @@ extern "C" int cet_sketch(const float* v, const int* rot, float* table,
                                        seed, one_mix, row_offset, s);      \
     break;
     switch (r) {
-      CET_SK_CASE(1, 4)
-      CET_SK_CASE(2, 4)
-      CET_SK_CASE(3, 4)
-      CET_SK_CASE(4, 4)
-      CET_SK_CASE(5, 4)
-      CET_SK_CASE(6, 2)
-      CET_SK_CASE(7, 2)
-      CET_SK_CASE(8, 2)
+      CET_SK_GEOMETRY(CET_SK_CASE)
       default:  // groups of 8 rows, the last one ragged
         cet_sketch_launch<8, 2, true>(v, rot, signs, table, mi, ci, r, seed,
                                       one_mix, row_offset, s);
@@ -533,31 +614,122 @@ extern "C" int cet_sketch(const float* v, const int* rot, float* table,
   return (int)cudaGetLastError();
 }
 
-// q: (r, c) int8 (fp8 == 0) or e4m3fn bytes (fp8 == 1); rowmax: (r,) f32
+typedef void (*cet_sqr_fn)(const float*, const int*, const uint8_t*, void*,
+                           float*, int, int, int, uint32_t, int);
+
+template <int RG, int COLS, bool RAGGED, bool FP8>
+static cet_sqr_fn cet_sqr_pick(bool stream, int one_mix) {
+  if constexpr (!RAGGED) {  // the stream holds 8 rows
+    if (stream)
+      return cet_sketch_quant_rows_kernel<RG, COLS, RAGGED, CET_SIGNS_STREAM,
+                                          FP8>;
+  }
+  if (one_mix)
+    return cet_sketch_quant_rows_kernel<RG, COLS, RAGGED, CET_SIGNS_ONE_MIX,
+                                        FP8>;
+  return cet_sketch_quant_rows_kernel<RG, COLS, RAGGED, CET_SIGNS_ROW_MIX,
+                                      FP8>;
+}
+
+// the all-rows kernel of r rows and its grid: cet_sketch's geometry
+template <bool FP8>
+static cet_sqr_fn cet_sqr_select(int c, int r, bool stream, int one_mix,
+                                 dim3* grid) {
+  int rg = 8, cols = 2;
+  cet_sqr_fn kern;
+#define CET_SQR_CASE(RG, COLS)                                    \
+  case RG:                                                        \
+    rg = RG;                                                      \
+    cols = COLS;                                                  \
+    kern = cet_sqr_pick<RG, COLS, false, FP8>(stream, one_mix);   \
+    break;
+  switch (r) {
+    CET_SK_GEOMETRY(CET_SQR_CASE)
+    default:  // groups of 8 rows, the last one ragged
+      kern = cet_sqr_pick<8, 2, true, FP8>(stream, one_mix);
+  }
+#undef CET_SQR_CASE
+  const int per_block = CET_SK_THREADS * cols;
+  *grid = dim3((unsigned)((c + per_block - 1) / per_block),
+               (unsigned)((r + rg - 1) / rg));
+  return kern;
+}
+
+// the route of a shape: *kern the all-rows kernel where its grid is
+// co-resident at its occupancy on this card, else null (the tile route)
+static cudaError_t cet_sq_plan(int c, int r, int one_mix, bool stream,
+                               int fp8, int* sms, cet_sqr_fn* kern,
+                               dim3* grid) {
+  int dev = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const cet_sqr_fn k = fp8 ? cet_sqr_select<true>(c, r, stream, one_mix, grid)
+                           : cet_sqr_select<false>(c, r, stream, one_mix, grid);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k,
+                                                      CET_SK_THREADS, 0);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)grid->x * grid->y;
+  *kern = blocks <= (long long)per_sm * *sms ? k : nullptr;
+  return cudaSuccess;
+}
+
+// q: (r, c) int8 (fp8 == 0) or e4m3fn bytes (fp8 == 1); rowmax: (r,) f32;
+// signs: the (m*c,) packed-sign bytes (one_mix, row_offset + r <= 8), or
+// null to hash the signs in the kernel
 extern "C" int cet_sketch_quant(const float* v, const int* rot, void* q,
                                 float* rowmax, long long m, long long c,
                                 int r, unsigned int seed, int one_mix,
-                                int row_offset, int fp8, void* stream) {
+                                int row_offset, int fp8,
+                                const unsigned char* signs, void* stream) {
   if (r < 0 || r > CET_MAX_ROWS) return (int)cudaErrorInvalidValue;
+  if (signs && (!one_mix || row_offset < 0 || row_offset + r > 8))
+    return (int)cudaErrorInvalidValue;
   if (m <= 0 || c <= 0 || r == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(rowmax, 0, sizeof(float) * r, s);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int mi = (int)m, ci = (int)c, sms = 0;
+  cet_sqr_fn kern = nullptr;
+  dim3 grid;
+  err = cet_sq_plan(ci, r, one_mix, signs != nullptr, fp8, &sms, &kern,
+                    &grid);
   if (err != cudaSuccess) return (int)err;
-  const int tiles_per_row = (int)((c + CET_SQ_THREADS - 1) / CET_SQ_THREADS);
+  if (kern) {
+    const uint8_t* sgn = signs;
+    void* args[] = {(void*)&v,    (void*)&rot, (void*)&sgn,  (void*)&q,
+                    (void*)&rowmax, (void*)&mi, (void*)&ci,  (void*)&r,
+                    (void*)&seed, (void*)&row_offset};
+    err = cudaLaunchCooperativeKernel((void*)kern, grid,
+                                      dim3(CET_SK_THREADS), args, 0, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
+  const int tiles_per_row = (ci + CET_SQ_THREADS - 1) / CET_SQ_THREADS;
   const int rc =
-      fp8 ? cet_sq_dispatch<true>(v, rot, q, rowmax, (int)m, (int)c, r,
+      fp8 ? cet_sq_dispatch<true>(v, rot, q, rowmax, mi, ci, r,
                                   tiles_per_row, seed, one_mix, row_offset,
                                   sms, s)
-          : cet_sq_dispatch<false>(v, rot, q, rowmax, (int)m, (int)c, r,
+          : cet_sq_dispatch<false>(v, rot, q, rowmax, mi, ci, r,
                                    tiles_per_row, seed, one_mix, row_offset,
                                    sms, s);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
+}
+
+// *route = 1 where cet_sketch_quant takes the all-rows route for this
+// shape on the current device, 0 where it takes the tile route
+extern "C" int cet_sketch_quant_route(long long c, int r, int one_mix,
+                                      int stream, int fp8, int* route) {
+  if (c <= 0 || r <= 0 || r > CET_MAX_ROWS) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  cet_sqr_fn kern = nullptr;
+  dim3 grid;
+  const cudaError_t err =
+      cet_sq_plan((int)c, r, one_mix, stream != 0, fp8, &sms, &kern, &grid);
+  *route = kern ? 1 : 0;
+  return (int)err;
 }
 
 extern "C" int cet_estimates(const float* table, const int* rot,

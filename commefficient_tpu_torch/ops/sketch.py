@@ -250,7 +250,9 @@ class CountSketch:
         quantized per row at full range (``quant.quantize_local``):
         int8/fp8 through the fused emit + quantize kernel, whose f32
         table never reaches device memory; bf16 is the f32 sketch cast,
-        with rowmax None. Callers harmonize onto the shared scale
+        with rowmax None. Both read their signs from the packed-sign
+        stream where the sketch has one (``packed_signs_on``), as
+        ``sketch`` does. Callers harmonize onto the shared scale
         (core/rounds.py).
 
         ``rows=(offset, count)``: only those table rows (a row chunk of
@@ -270,12 +272,12 @@ class CountSketch:
         rot = self.rotations_on(vp.device)[off:off + cnt]
         args = (vp.contiguous(), rot, self.c, cnt, self.sign_seed,
                 self._one_mix_signs)
+        signs = self.packed_signs_on(vp.device)
         if wire == "bf16":
             # scale-free cast: nothing to fuse
             return quantize_local(sketch_kernel(
-                *args, row_offset=off,
-                signs=self.packed_signs_on(vp.device)), wire)
-        return sketch_quant_kernel(*args, wire, row_offset=off)
+                *args, row_offset=off, signs=signs), wire)
+        return sketch_quant_kernel(*args, wire, row_offset=off, signs=signs)
 
     # --- recovery --------------------------------------------------------
 

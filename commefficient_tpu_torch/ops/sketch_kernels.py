@@ -18,13 +18,16 @@ from zero), so the two agree bit for bit; against the JAX package the
 tables agree to summation-order tolerance. The sketch takes its signs
 hashed or, given ``signs``, from the packed-sign stream
 (``CountSketch.packed_signs_on``: a byte a coordinate, the one-mix
-bits of rows 0..7), which holds the same bits; the estimates and
-sketch-and-quantize kernels hash. Estimates from a given table are
-exact everywhere: the sign flip is exact and the median is an order
-statistic (or the mean of two, for even r). The fused
+bits of rows 0..7), which holds the same bits; so does the fused
+sketch-and-quantize, and the estimates kernel hashes. Estimates from a
+given table are exact everywhere: the sign flip is exact and the median
+is an order statistic (or the mean of two, for even r). The fused
 sketch-and-quantize's plain version is ``quantize_local``
-(ops/quant.py) of the plain sketch; the kernel's table is bit-equal to
-it and rounds the same way, so the two agree byte for byte.
+(ops/quant.py) of the plain sketch; the kernel sums its table on the
+sketch kernel's core, so the table is bit-equal, and rounds the same
+way, so the two agree byte for byte. ``sketch_quant_route`` names the
+kernel's route for a shape (``csrc/sketch.cu`` dispatches by
+geometry).
 
 A row chunk (``--overlap_depth``) is sketched from the chunk's rows of
 the rotations and ``row_offset``, its first row: signs are keyed by the
@@ -110,14 +113,18 @@ def sketch_plain(vp, rot, c: int, r: int, sign_seed: int,
 
 
 def sketch_quant_plain(vp, rot, c: int, r: int, sign_seed: int,
-                       one_mix: bool, wire: str, row_offset: int = 0):
+                       one_mix: bool, wire: str, row_offset: int = 0,
+                       signs=None):
     """(m*c,) padded vector -> (q (r, c) in the wire dtype, rowmax
-    (r, 1) f32): the plain sketch of rows ``row_offset..+r``, quantized
-    per row at full range (``quant.quantize_local``)."""
+    (r, 1) f32): the plain sketch of rows ``row_offset..+r`` (signs
+    hashed, or read from the packed-sign stream ``signs``, which holds
+    the same bits), quantized per row at full range
+    (``quant.quantize_local``)."""
     from commefficient_tpu_torch.ops.quant import QMAX, quantize_local
     assert wire in QMAX, wire
     return quantize_local(
-        sketch_plain(vp, rot, c, r, sign_seed, one_mix, row_offset), wire)
+        sketch_plain(vp, rot, c, r, sign_seed, one_mix, row_offset, signs),
+        wire)
 
 
 def median_network(vals):
@@ -240,38 +247,73 @@ def sketch_kernel(vp, rot, c: int, r: int, sign_seed: int,
 sketch_kernel.launches = 0
 
 
+def _check_wire(name, wire):
+    if wire not in ("int8", "fp8"):
+        raise ValueError(f"{name}: wire {wire!r} is not int8 or fp8")
+
+
 def sketch_quant_kernel(vp, rot, c: int, r: int, sign_seed: int,
-                        one_mix: bool, wire: str, row_offset: int = 0):
+                        one_mix: bool, wire: str, row_offset: int = 0,
+                        signs=None):
     """(m*c,) f32 padded vector, (r, m) int32 rotations (the chunk's
     rows) -> (q (r, c) int8 or float8_e4m3fn, rowmax (r, 1) f32), the
-    table of rows ``row_offset..+r`` quantized per row. Kernel on CUDA
-    (csrc/sketch.cu ``cet_sketch_quant``, one cooperative launch), plain
-    version on the CPU."""
-    if wire not in ("int8", "fp8"):
-        raise ValueError(f"sketch_quant_kernel: wire {wire!r} is not "
-                         "int8 or fp8")
+    table of rows ``row_offset..+r`` quantized per row; with ``signs``,
+    the (m*c,) packed-sign stream, the kernel reads the signs instead of
+    hashing them. Kernel on CUDA (csrc/sketch.cu ``cet_sketch_quant``,
+    one cooperative launch on the sketch kernel's core, or on its tile
+    route where that grid cannot be co-resident), plain version on the
+    CPU."""
+    _check_wire("sketch_quant_kernel", wire)
     if vp.device.type == "cpu":
         return sketch_quant_plain(vp, rot, c, r, sign_seed, one_mix, wire,
-                                  row_offset)
+                                  row_offset, signs)
     _check_rows("sketch_quant_kernel", r, one_mix, row_offset)
     _check_max_rows("sketch_quant_kernel", r)
     dev, m = _check_sketch_args("sketch_quant_kernel", vp, rot, c, r)
+    if signs is not None:
+        _check_signs("sketch_quant_kernel", signs, m, c, r, one_mix,
+                     row_offset)
+        _check_cuda("sketch_quant_kernel", vp=(vp, torch.float32),
+                    signs=(signs, torch.uint8))
     fn = _build.bind("sketch", "cet_sketch_quant",
                      [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                       ctypes.c_int, ctypes.c_uint, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, _P])
+                      ctypes.c_int, ctypes.c_int, _P, _P])
     q = torch.empty((r, c), dtype=wire_torch_dtype(wire), device=dev)
     rowmax = torch.empty((r, 1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = fn(vp.data_ptr(), rot.data_ptr(), q.data_ptr(),
                   rowmax.data_ptr(), m, c, r, sign_seed, int(one_mix),
-                  row_offset, int(wire == "fp8"), _stream(dev))
+                  row_offset, int(wire == "fp8"),
+                  None if signs is None else signs.data_ptr(), _stream(dev))
     _build.check(code, "cet_sketch_quant")
     sketch_quant_kernel.launches += 1
     return q, rowmax
 
 
 sketch_quant_kernel.launches = 0
+
+
+def sketch_quant_route(c: int, r: int, wire: str, one_mix: bool,
+                       signs: bool, device) -> str:
+    """The route ``sketch_quant_kernel`` takes for r rows of width c on
+    ``device``: "all_rows" (the sketch kernel's core, one co-resident
+    wave) or "tiles" (where that grid is not co-resident: one thread a
+    bucket), as csrc/sketch.cu ``cet_sketch_quant_route`` decides it;
+    "plain" on the CPU. ``signs``: whether the call passes the stream."""
+    _check_wire("sketch_quant_route", wire)
+    device = torch.device(device)
+    if device.type == "cpu":
+        return "plain"
+    fn = _build.bind("sketch", "cet_sketch_quant_route",
+                     [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, _P])
+    route = ctypes.c_int(-1)
+    with torch.cuda.device(device):
+        code = fn(c, r, int(one_mix), int(signs), int(wire == "fp8"),
+                  ctypes.addressof(route))
+    _build.check(code, "cet_sketch_quant_route")
+    return ("tiles", "all_rows")[route.value]
 
 
 def estimates_kernel(table, rot, c: int, r: int, sign_seed: int,

@@ -94,8 +94,8 @@ def threshold_topk_mask_1d(sq: torch.Tensor, k: int) -> torch.Tensor:
         take_mask_kernel, threshold_key_kernel)
     assert sq.ndim == 1
     sq = sq.to(torch.float32).contiguous()
-    t, need = threshold_key_kernel(sq, k)
-    return take_mask_kernel(sq, t, need)
+    t, need, ties = threshold_key_kernel(sq, k, with_ties=True)
+    return take_mask_kernel(sq, t, need, ties)
 
 
 def threshold_topk_indices(sq: torch.Tensor, k: int) -> torch.Tensor:

@@ -17,7 +17,7 @@ import torch
 from commefficient_tpu_torch.ops import sketch_kernels as sk
 from commefficient_tpu_torch.ops import topk_kernels as tk
 from commefficient_tpu_torch.ops.sketch import CountSketch
-from commefficient_tpu_torch.ops.topk import threshold_topk_mask_1d
+from commefficient_tpu_torch.ops.topk import keys_of, threshold_topk_mask_1d
 
 pytestmark = pytest.mark.cuda
 
@@ -68,24 +68,41 @@ def test_sketch_and_estimates_kernels(dev, d, c, r, row_offset):
         assert not bool(est[valid:].any())
 
 
-@pytest.mark.parametrize("d,k", [(70_000, 513), (2 * 2048 + 17, 4000)])
-def test_take_mask_kernel(dev, d, k):
-    sq = torch.rand(d, generator=torch.Generator().manual_seed(d)) ** 2
+@pytest.mark.parametrize("d,k,offset", [
+    (70_000, 513, 0), (2 * 2048 + 17, 4000, 0),
+    (6 * tk.TAKE_MASK_TILE + 1001, 25_000, 0),  # ties at T in every tile
+    (6 * tk.TAKE_MASK_TILE + 1001, 25_000, 1)])  # a view 4 bytes in
+def test_take_mask_kernel(dev, d, k, offset):
+    sq = torch.rand(d + offset, generator=torch.Generator().manual_seed(d))
+    sq = sq ** 2
     sq[::7] = 0.25  # ties
-    sq = sq.to(dev)
+    sq = sq.to(dev)[offset:]
     mask = threshold_topk_mask_1d(sq, k)
     assert int(mask.sum()) == k
     t, need = tk.threshold_key_plain(sq, k)
     assert torch.equal(mask, tk.take_mask_plain(sq, t, need))
+    # no tie, every tie, and the search's need, each twice: exact and
+    # bit-identical (the look-back's counter and status words reset)
+    ties = int((keys_of(sq) == t).sum())
+    for nd in (0, ties, int(need)):
+        nd = torch.tensor(nd, device=dev)
+        first = tk.take_mask_kernel(sq, t, nd)
+        assert torch.equal(first, tk.take_mask_plain(sq, t, nd))
+        assert torch.equal(first, tk.take_mask_kernel(sq, t, nd))
 
 
 @pytest.mark.parametrize("wire", ["int8", "fp8"])
-@pytest.mark.parametrize("d,c,r", [(12_345, 1000, 5), (50_000, 4096, 17),
-                                   (3_000, 256, 5)])
-def test_sketch_quant_kernel(dev, wire, d, c, r):
-    """Whole table and each row chunk of depths 2 and 4, against the
-    plain version and against quantizing the sketch kernel's table;
-    an all-zero vector gives q = 0 and rowmax = 0."""
+@pytest.mark.parametrize("d,c,r,route", [
+    (12_345, 1000, 5, "all_rows"), (50_000, 4096, 17, "all_rows"),
+    (3_000, 256, 5, "all_rows"),
+    (7_000, 1500, 5, "all_rows"),        # the last 1024-column tile partial
+    (600_000, 524_288, 17, "tiles"),     # 3 row groups: not co-resident
+    (1_100_000, 1_048_576, 5, "tiles")])  # 1024 column blocks
+def test_sketch_quant_kernel(dev, wire, d, c, r, route):
+    """Whole table and each row chunk of depths 2 and 4, signs hashed
+    and (r <= 8) read from the packed-sign stream, against the plain
+    version and against quantizing the sketch kernel's table; the route
+    by geometry; an all-zero vector gives q = 0 and rowmax = 0."""
     from commefficient_tpu_torch.ops.quant import quantize_local
     from commefficient_tpu_torch.parallel.wire import row_chunks
     s = CountSketch(d=d, c=c, r=r, seed=5)
@@ -97,20 +114,24 @@ def test_sketch_quant_kernel(dev, wire, d, c, r):
     def as_bytes(q):
         return q.view(torch.uint8)
 
+    signs = s.packed_signs_on(dev)
+    assert sk.sketch_quant_route(c, r, wire, one_mix, signs is not None,
+                                 dev) == route
     q_tab, rm_tab = quantize_local(sk.sketch_kernel(vp, rot, c, r, seed,
                                                     one_mix), wire)
     for off, cnt in [(0, r)] + row_chunks(r, 2) + row_chunks(r, 4):
-        before = sk.sketch_quant_kernel.launches
-        q, rm = sk.sketch_quant_kernel(vp, rot[off:off + cnt], c, cnt, seed,
-                                       one_mix, wire, off)
-        assert sk.sketch_quant_kernel.launches == before + 1
         qp, rmp = sk.sketch_quant_plain(vp, rot[off:off + cnt], c, cnt,
                                         seed, one_mix, wire, off)
-        torch.cuda.synchronize()
-        assert torch.equal(as_bytes(q), as_bytes(qp)), (off, cnt)
-        assert torch.equal(rm, rmp), (off, cnt)
-        assert torch.equal(as_bytes(q), as_bytes(q_tab[off:off + cnt]))
-        assert torch.equal(rm, rm_tab[off:off + cnt])
+        for sg in (None, signs) if signs is not None else (None,):
+            before = sk.sketch_quant_kernel.launches
+            q, rm = sk.sketch_quant_kernel(vp, rot[off:off + cnt], c, cnt,
+                                           seed, one_mix, wire, off, sg)
+            assert sk.sketch_quant_kernel.launches == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(as_bytes(q), as_bytes(qp)), (off, cnt)
+            assert torch.equal(rm, rmp), (off, cnt)
+            assert torch.equal(as_bytes(q), as_bytes(q_tab[off:off + cnt]))
+            assert torch.equal(rm, rm_tab[off:off + cnt])
     q0, rm0 = sk.sketch_quant_kernel(torch.zeros_like(vp), rot, c, r, seed,
                                      one_mix, wire)
     assert not bool(as_bytes(q0).any()) and not bool(rm0.any())

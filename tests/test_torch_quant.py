@@ -263,3 +263,72 @@ def test_byte_checks_reject_mutant_quantizers(wire, mutant):
     t = tie_table()
     assert same_as_jax(quant.quantize_table, t, wire)
     assert not same_as_jax(mutant, t, wire)
+
+
+# --- chip_smoke.py's byte checks of the fused kernel reject slips ---------
+
+
+@pytest.mark.parametrize("wire", ["int8", "fp8"])
+@pytest.mark.parametrize("slip", [
+    "none", "a q byte off by one in the last partial column tile",
+    "a row's sign dropped in a row_offset chunk"])
+def test_card_smoke_sketch_quant_checks_reject_slips(monkeypatch, slip,
+                                                      wire):
+    # chip_smoke.py holds the fused sketch-and-quantize byte-equal to its
+    # plain version, to quantizing the sketch kernel's table and per row
+    # chunk, hashed and through the sign stream. Here the kernel's output
+    # is the plain one with one slip, and the check must raise. c = 1500
+    # leaves the last 1024-column tile of the all-rows core partial
+    import chip_smoke as cs
+    d, c, r = 5_000, 1_500, 5
+    s = CountSketch(d=d, c=c, r=r, seed=7)
+    v = torch.from_numpy(np.random.RandomState(2).randn(d).astype(np.float32))
+    vp = torch.nn.functional.pad(v, (0, s._padded_d - d))
+    rot = s.rotations_on("cpu")
+    plain = sk.sketch_quant_plain
+
+    def slipped(vp, rot, c, r, seed, one_mix, wire, row_offset=0,
+                signs=None):
+        if slip == "a row's sign dropped in a row_offset chunk" \
+                and row_offset > 0:
+            tab = sk.sketch_plain(vp, rot, c, r, seed, one_mix, row_offset,
+                                  signs)
+            cols = torch.arange(c)
+            tab[0] = sum(vp[t * c + (cols - int(rot[0, t])) % c]
+                         for t in range(rot.shape[1]))
+            return quant.quantize_local(tab, wire)
+        q, rm = plain(vp, rot, c, r, seed, one_mix, wire, row_offset, signs)
+        if slip == "a q byte off by one in the last partial column tile":
+            q = q.clone()
+            q.view(torch.uint8)[0, 1024 + 5] += 1
+        return q, rm
+
+    monkeypatch.setattr(sk, "sketch_quant_kernel", slipped)
+    args = (vp, rot, c, r, s.sign_seed, s._one_mix_signs, wire, slip,
+            s.packed_signs_on("cpu"))
+    if slip == "none":
+        err, route = cs.sketch_quant_checks(*args)
+        assert (err, route) == (0.0, "plain")
+    else:
+        with pytest.raises(AssertionError):
+            cs.sketch_quant_checks(*args)
+
+
+def test_sketch_quantized_reads_the_sign_stream(monkeypatch):
+    # the fused path gets the packed-sign stream, as the bf16 path and
+    # the f32 sketch do
+    s = CountSketch(d=3000, c=256, r=5, seed=3)
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append(kw.get("signs"))
+        return real(*args, **kw)
+
+    real = sk.sketch_quant_kernel
+    monkeypatch.setattr(sk, "sketch_quant_kernel", spy)
+    v = torch.from_numpy(np.random.RandomState(0).randn(3000)
+                         .astype(np.float32))
+    for rows in (None, (0, 3), (3, 2)):
+        s.sketch_quantized(v, "int8", rows=rows)
+    assert len(seen) == 3
+    assert all(x is s.packed_signs_on("cpu") for x in seen)

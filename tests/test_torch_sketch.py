@@ -270,7 +270,11 @@ def test_sketch_ablation_variants_replace_their_pieces():
     ("_Z20cet_estimates_kernelILi0ELb0EEvPKfPKiPfiiijx",
      "estimates_R0_row_mix"),
     ("_Z23cet_sketch_quant_kernelILi8ELb0EEvPKfPKiPvPfiiiijii",
-     "sketch_quant_K8_int8")])
+     "sketch_quant_K8_int8"),
+    ("_Z28cet_sketch_quant_rows_kernelILi5ELi4ELb0ELi2ELb0EEvPKfPKiPKhPvPf"
+     "iiiji", "sketch_quant_RG5_C4_stream_int8"),
+    ("_Z28cet_sketch_quant_rows_kernelILi8ELi2ELb1ELi0ELb1EEvPKfPKiPKhPvPf"
+     "iiiji", "sketch_quant_RG8_C2_ragged_row_mix_fp8")])
 def test_card_smoke_names_sketch_instantiations(mangled, name):
     # chip_smoke.py's ptxas_sketch line names csrc/sketch.cu's template
     # instantiations, and its check looks the main path's up by name

@@ -206,14 +206,14 @@ def test_card_smoke_selection_checks_reject_wrong_results(monkeypatch,
     sq, k = _ties_input()
     search, mask = tk.threshold_key_kernel, tk.take_mask_kernel
 
-    def wrong_search(s, kk):
-        t, need = search(s, kk)
+    def wrong_search(s, kk, with_ties=False):
+        t, need, *ties = search(s, kk, with_ties)
         dt, dn = {"T one ulp up": (1, 0), "T one ulp down": (-1, 0),
                   "need + 1": (0, 1), "need - 1": (0, -1)}[mutant]
-        return t + dt, need + dn
+        return (t + dt, need + dn, *ties)
 
-    def tie_moved(s, t, need):
-        m = mask(s, t, need).clone()
+    def tie_moved(s, t, need, ties=None):
+        m = mask(s, t, need, ties).clone()
         eq = keys_of(s) == t
         m[torch.nonzero(m & eq)[0]] = False
         m[torch.nonzero(~m & eq)[-1]] = True
@@ -225,3 +225,91 @@ def test_card_smoke_selection_checks_reject_wrong_results(monkeypatch,
         monkeypatch.setattr(tk, "threshold_key_kernel", wrong_search)
     with pytest.raises(AssertionError):
         cs.selection_checks(sq, k, mutant)
+
+
+# --- chip_smoke.py's take-mask checks (tie placement against the tiles) ---
+
+
+@pytest.mark.parametrize("slip", [
+    "none", "one tie too many at a tile boundary",
+    "ties taken from the highest index",
+    "the shortcut taken when need < #ties"])
+def test_card_smoke_take_mask_checks_reject_slips(monkeypatch, slip):
+    # chip_smoke.py holds the take-mask exactly against its plain version
+    # with ties placed against its tiles; here the kernel's mask is the
+    # plain one with one slip, and the checks must raise
+    import chip_smoke as cs
+    plain = tk.take_mask_plain
+    tile = tk.TAKE_MASK_TILE
+
+    def slipped(s, t, need, ties=None):
+        m = plain(s, t, need).clone()
+        eq = keys_of(s) == t
+        n = int(need)
+        if slip == "one tie too many at a tile boundary":
+            left = torch.nonzero(eq & ~m).flatten()
+            taken = torch.nonzero(eq & m).flatten()
+            start = (int(taken[-1]) // tile + 1) * tile if taken.numel() \
+                else 0
+            left = left[left >= start]
+            if left.numel():
+                m[left[0]] = True
+        elif slip == "ties taken from the highest index":
+            from_end = torch.flip(torch.cumsum(torch.flip(eq, (0,)).long(),
+                                               0), (0,))
+            m = (keys_of(s) > t) | (eq & (from_end <= n))
+        elif slip == "the shortcut taken when need < #ties" and n > 0:
+            m = (keys_of(s) > t) | eq
+        return m
+
+    monkeypatch.setattr(tk, "take_mask_kernel", slipped)
+    monkeypatch.setattr(cs, "time_ms", lambda fn, reps, flush: 0.0)
+    if slip == "none":
+        checked, _ = cs.take_mask_tie_checks(torch.device("cpu"), None)
+        assert len(checked) == 5
+    else:
+        with pytest.raises(AssertionError):
+            cs.take_mask_tie_checks(torch.device("cpu"), None)
+
+
+@pytest.mark.parametrize("spill", [0, 8])
+def test_card_smoke_ptxas_take_mask(spill):
+    # chip_smoke.py's ptxas_take_mask line names both instantiations, and
+    # its check refuses a spill
+    import chip_smoke as cs
+    log = "".join(
+        f"ptxas info    : Function properties for _Z20cet_take_mask_kernel"
+        f"ILb{a}EEvPKfxPKxS2_S2_PyPh\n    0 bytes stack frame, {spill} bytes "
+        f"spill stores, {spill} bytes spill loads\nptxas info    : Used 48 "
+        "registers, used 1 barriers\n" for a in (0, 1))
+    report = cs.ptxas_report(log)
+    assert set(report) == {"take_mask_aligned", "take_mask_unaligned"}
+    if spill:
+        with pytest.raises(AssertionError, match="spills"):
+            cs.take_mask_ptxas_checks(report)
+    else:
+        cs.take_mask_ptxas_checks(report)
+
+
+def test_kernel_ab_child_and_round_summary():
+    # kernel_ab runs its child code in each tree and reads profile_round's
+    # lines; the code must compile and the summary find its fields
+    from commefficient_tpu_torch import kernel_ab
+    compile(kernel_ab._KERNELS, "<kernel_ab child>", "exec")
+    lines = [
+        {"phase": "phases", "data_s": 0.01, "client_s": 0.02,
+         "server_s": 0.03},
+        {"phase": "host_syncs", "client": 1, "server": 4},
+        {"phase": "round_wall", "median_s": 0.1, "peak_mem_GiB": 10.0},
+        {"phase": "device", "busy_ms_per_round": 87.0, "busy_share": 0.7,
+         "top": [{"name": "void cet_take_mask_kernel<true>(...)",
+                  "ms_per_round": 0.3},
+                 {"name": "cet_eq_count(float const*, ...)",
+                  "ms_per_round": 0.4},
+                 {"name": "void other_kernel(...)", "ms_per_round": 9.0}]}]
+    out = kernel_ab._round_summary(lines)
+    assert out["busy_ms_per_round"] == 87.0
+    assert out["host_syncs"] == [1, 4]
+    assert out["watched_ms_per_round"] == {
+        "void cet_take_mask_kernel<true>(...)": 0.3,
+        "cet_eq_count(float const*, ...)": 0.4}
