@@ -26,7 +26,24 @@ through the kernels:
   launch counts 1 sketch / 1 estimates / 1 search / 1 take-mask / 1 flce
   forward / 1 flce backward per round, plus one flce forward per
   validation step. The f32 paths launch the sketch-and-quantize kernel
-  zero times.
+  zero times;
+- the other modes and the per-client round on the ResNet9 geometry
+  (``MODE_PATHS``), 3-4 rounds each through ``cv_train.main``: true_topk
+  with local momentum (the server masks the clients' velocities; 1
+  search and 1 take-mask a round), local_topk with local error and
+  momentum (W of each: one selection a client), fedavg (local SGD over
+  each client's data; none of the kernels), uncompressed with
+  ``--topk_down --microbatch_size 4`` (W of each: one stale-weight
+  selection a client) and sketch mode under ``--max_grad_norm`` (W + 1
+  sketches: each client's clipped table and the server's re-sketch).
+  Each checks its launches, its upload against
+  ``upload_wire_bytes_per_client`` times the live clients, and a
+  finite train loss that falls below its first round's. The local_topk
+  phase also holds one round's per-client selection, made by the
+  kernels row by row, equal to the plain batched mask on the same rows,
+  and the all-zero rows of a first ``--topk_down`` diff (T = 0, every
+  key tied: the take-mask's scan takes the first k), and times the W
+  selections against ``torch.topk`` over the (W, d) rows.
 
 The sketch, estimates, threshold search, take-mask and sketch-and-
 quantize kernels are also checked and timed at GPT-2's padded_d =
@@ -69,6 +86,7 @@ import torch
 from commefficient_tpu_torch import _build, profile_round
 from commefficient_tpu_torch.accounting import sketch_wire_bytes
 from commefficient_tpu_torch.config import Config, parse_args
+from commefficient_tpu_torch.core.grad import make_forward_grad
 from commefficient_tpu_torch.core.server import ServerState, server_update
 from commefficient_tpu_torch.data.tokenizer import SPECIAL_TOKENS, load_tokenizer
 from commefficient_tpu_torch.ops import flce_kernels as fk
@@ -76,7 +94,9 @@ from commefficient_tpu_torch.ops import quant
 from commefficient_tpu_torch.ops import sketch_kernels as sk
 from commefficient_tpu_torch.ops import topk_kernels as tk
 from commefficient_tpu_torch.ops.sketch import CountSketch
-from commefficient_tpu_torch.ops.topk import (keys_of,
+from commefficient_tpu_torch.ops.topk import (_threshold_topk_mask,
+                                              _threshold_topk_mask_plain,
+                                              keys_of,
                                               threshold_topk_mask_1d)
 from commefficient_tpu_torch.parallel.wire import row_chunks
 from commefficient_tpu_torch.runtime import fed_model
@@ -101,6 +121,45 @@ INT8_ARGV = MAIN_ARGV + ["--sketch_dtype", "int8",
 FP8_ARGV = profile_round.ARGV + ["--num_epochs", "0.2", "--pivot_epoch",
                                  "0.1", "--lr_scale", "0.1", "--sketch_dtype",
                                  "fp8", "--overlap_depth", "2"]
+# the other modes and the per-client round on the same geometry: (phase,
+# argv beyond it, launches a round for W clients). 4 rounds (0.4 of a
+# 10-round epoch); fedavg's epoch is one round of 8 of the 10 clients
+# (the loader skips the partial one), so it runs 3 epochs. The LRs are
+# ones at which these rounds from random weights lower the train loss
+# (on the CPU too): at lr_scale 0.1 the unnormalised ResNet9's loss on
+# one-class clients rises some thirtyfold within two rounds, at 0.01 it
+# doubles; the clipped sketch path moves least and takes 0.01
+
+
+def mode_rounds(lr):
+    return ["--num_epochs", "0.4", "--pivot_epoch", "0.2", "--lr_scale", lr]
+
+
+MODE_PATHS = (
+    ("true_topk_path",
+     ["--mode", "true_topk", "--error_type", "virtual", "--local_momentum",
+      "0.9", "--virtual_momentum", "0"] + mode_rounds("0.001"),
+     lambda w: {"threshold_key_kernel": 1, "take_mask_kernel": 1}),
+    ("local_topk_path",
+     ["--mode", "local_topk", "--error_type", "local", "--local_momentum",
+      "0.9"] + mode_rounds("0.001"),
+     lambda w: {"threshold_key_kernel": w, "take_mask_kernel": w}),
+    ("fedavg_path",
+     ["--mode", "fedavg", "--error_type", "none", "--local_momentum", "0",
+      "--local_batch_size", "-1", "--fedavg_batch_size", "16",
+      "--num_fedavg_epochs", "1", "--num_epochs", "3", "--pivot_epoch",
+      "1", "--lr_scale", "0.01"],
+     lambda w: {}),
+    ("uncompressed_path",
+     ["--mode", "uncompressed", "--error_type", "none", "--topk_down",
+      "--microbatch_size", "4"] + mode_rounds("0.001"),
+     lambda w: {"threshold_key_kernel": w, "take_mask_kernel": w}),
+    ("sketch_clip_path",
+     ["--mode", "sketch", "--error_type", "virtual", "--max_grad_norm",
+      "10"] + mode_rounds("0.01"),
+     lambda w: {"sketch_kernel": w + 1, "estimates_kernel": 1,
+                "threshold_key_kernel": 1, "take_mask_kernel": 1}),
+)
 KERNELS = (sk.sketch_kernel, sk.estimates_kernel, tk.threshold_key_kernel,
            tk.take_mask_kernel, sk.sketch_quant_kernel)
 FLCE = (fk.flce_fwd_kernel, fk.flce_bwd_kernel)
@@ -1132,6 +1191,109 @@ def quant_main_path(argv, wire, chunks, f32_up_per_round=None):
     return counts
 
 
+def mode_path(phase, argv, per_round):
+    """One of ``MODE_PATHS`` through ``cv_train.main``: its launches a
+    round exactly, its upload per round ``upload_wire_bytes_per_client``
+    times the W live clients, and its train loss finite and below its
+    first round's. Returns the model."""
+    kernels = KERNELS + FLCE
+    for kern in kernels:
+        kern.launches = 0
+    argv = profile_round.ARGV + argv
+    t0 = time.perf_counter()
+    results = cv_train.main(argv)
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in kernels}
+    model = fed_model._CURRENT_MODEL
+    args = model.args
+    w = args.num_workers
+    rounds = sum(len(row["round_times"]) for row in results)
+    check(3 <= rounds <= 4, f"{phase}: {rounds} rounds ran, want 3-4")
+    want = {k.__name__: 0 for k in kernels}
+    want.update({name: n * rounds for name, n in per_round(w).items()})
+    check(counts == want, f"{phase}: launch counts {counts}, want {want}")
+    losses = [x for row in results for x in row["round_losses"]]
+    check(len(losses) == rounds and all(map(math.isfinite, losses))
+          and losses[-1] < losses[0],
+          f"{phase}: train losses {losses}, want finite, the last below "
+          "the first")
+    for row in results:
+        up = (len(row["round_times"]) * w
+              * args.upload_wire_bytes_per_client / 2**20)
+        check(row["up (MiB)"] == up, f"{phase}: up {row['up (MiB)']} "
+              f"MiB, want rounds x {w} x upload_wire_bytes_per_client "
+              f"= {up}")
+    up = sum(row["up (MiB)"] for row in results)
+    down = sum(row["down (MiB)"] for row in results)
+    emit({"phase": phase, "argv_tail": argv[len(profile_round.ARGV):],
+          "rounds": rounds, "launches": counts,
+          "launches_per_round": {k: v / rounds for k, v in counts.items()
+                                 if v},
+          "round_seconds": [t for row in results
+                            for t in row["round_times"]],
+          "round_losses": losses, "test_acc": results[-1]["test_acc"],
+          "up_MiB_per_round": up / rounds,
+          "down_MiB_per_round": down / rounds, "wall_seconds": wall,
+          "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30})
+    return model
+
+
+def local_topk_selection_phase(model, dev):
+    """One round's per-client selection of the local_topk path: the
+    (W, d) rows each client would select from (its local error plus its
+    momentum step, from a round batch at the model's weights), through
+    the search and take-mask kernels row by row and through the plain
+    batched mask, held equal (``torch.equal``), exactly k a row; the
+    same for all-zero rows (a first ``--topk_down`` diff: T = 0, every
+    key tied, the first k taken through the take-mask's scan). Times
+    the W selections against one ``torch.topk`` over the rows (index
+    set)."""
+    args = model.args
+    k, w = args.k, args.num_workers
+    loader = cv_train.get_data_loaders(args)[0]
+    batch = next(iter(loader))
+    dev_batch = model._to_device(batch)
+    ids = torch.as_tensor(batch["client_ids"].astype(np.int64), device=dev)
+    forward_grad = make_forward_grad(
+        args, lambda p, b: model.compute_loss_train(p, b, args), None,
+        loader.B)
+    states = model.client_states
+    rows = []
+    for i in range(w):
+        slot = {key: v[i] for key, v in dev_batch.items()}
+        g_unit, _ = forward_grad(model.ps_weights, slot)
+        row = ids[i:i + 1]
+        vel = (g_unit * torch.sum(slot["mask"]) + args.local_momentum
+               * states.velocities.index_select(0, row)[0])
+        rows.append(states.errors.index_select(0, row)[0] + vel)
+    stack = torch.stack(rows)
+    out = {}
+    for case, sq in (("round", stack * stack),
+                     ("all_zero", torch.zeros_like(stack))):
+        got = _threshold_topk_mask(sq, k)
+        plain = _threshold_topk_mask_plain(sq, k)
+        check(torch.equal(got, plain),
+              f"local_topk selection ({case}): kernels != plain")
+        check(bool((got.sum(1) == k).all()),
+              f"local_topk selection ({case}): not k a row")
+        out[case] = {"rows": w, "d": sq.shape[1], "k": k, "exact": True}
+    check(bool(got[:, :k].all()) and not bool(got[:, k:].any()),
+          "local_topk selection (all_zero): not the first k")
+    sq = stack * stack
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+
+    def per_row():
+        for r in sq:
+            threshold_topk_mask_1d(r, k)
+
+    emit({"phase": "local_topk_selection", "checked": out,
+          "tolerance": "exact (torch.equal with _threshold_topk_mask_plain)",
+          "ms": time_ms(per_row, 10, flush),
+          "what": f"{w} searches + {w} take-masks, one a row",
+          "library_ms": time_ms(lambda: torch.topk(sq, k, dim=1), 10, flush),
+          "library": "torch.topk(sq, k, dim=1), index set"})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1189,6 +1351,13 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     quant_counts = quant_main_path(INT8_ARGV, "int8", 1, f32_up_per_round)
     quant_main_path(FP8_ARGV, "fp8", len(row_chunks(R, 2)))
+    for phase, argv, per_round in MODE_PATHS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = mode_path(phase, argv, per_round)
+        if phase == "local_topk_path":
+            local_topk_selection_phase(model, dev)
+        del model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gpt2_counts = gpt2_main_path()

@@ -1,10 +1,10 @@
 """Config / flag system of the port.
 
-Port of ``commefficient_tpu/config.py``, cut to what the ported slice
-reads: the same field names, flag names and defaults, except
+Port of ``commefficient_tpu/config.py``, cut to what the ported slices
+read: the same field names, flag names and defaults, except
 ``--device``, whose default here is ``cuda``. The reference's other
 flags are known by name; passing one raises ``NotImplementedError``
-naming it (``parse_args``), and so does asking for a mode or a
+naming it (``parse_args``), and so does asking for a combination or a
 dataset the port does not have yet. Nothing is silently ignored.
 """
 
@@ -15,7 +15,6 @@ import dataclasses
 from typing import Optional
 
 MODES = ("sketch", "true_topk", "local_topk", "fedavg", "uncompressed")
-PORTED_MODES = ("sketch",)
 ERROR_TYPES = ("none", "local", "virtual")
 # wire dtypes of the uplinked sketch table (accounting.WIRE_DTYPES)
 SKETCH_DTYPES = ("f32", "bf16", "int8", "fp8")
@@ -45,10 +44,9 @@ NOT_PORTED_FLAGS = (
     "--checkpoint", "--resume", "--checkpoint_every",
     "--checkpoint_path", "--finetune_path", "--finetuned_from",
     "--num_results_train", "--num_results_val", "--batchnorm",
-    "--topk_down", "--num_fedavg_epochs", "--fedavg_batch_size",
-    "--fedavg_lr_decay", "--port", "--num_devices", "--share_ps_gpu",
+    "--port", "--num_devices", "--share_ps_gpu",
     "--train_dataloader_workers", "--val_dataloader_workers",
-    "--microbatch_size", "--max_grad_norm", "--dp", "--dp_clip",
+    "--dp", "--dp_clip",
     "--dp_noise_mult",
     "--dp_delta", "--dp_epsilon", "--do_dp", "--dp_mode",
     "--l2_norm_clip", "--noise_multiplier", "--mesh", "--param_dtype",
@@ -103,6 +101,15 @@ class Config:
     num_rows: int = 5
     num_blocks: int = 20
 
+    # compression: stale top-k weight downloads (reference
+    # config.py:98)
+    do_topk_down: bool = False
+
+    # fedavg local SGD (reference config.py:110-112)
+    num_fedavg_epochs: int = 1
+    fedavg_batch_size: int = -1
+    fedavg_lr_decay: float = 1.0
+
     # optimization
     local_momentum: float = 0.9
     virtual_momentum: float = 0.0
@@ -122,6 +129,11 @@ class Config:
 
     local_batch_size: int = 8
     valid_batch_size: int = 8
+    # per-client gradient in microbatches of this size (-1 = one)
+    microbatch_size: int = -1
+    # per-client L2 clip of the gradient (the sketch table's
+    # l2estimate in sketch mode); None = off
+    max_grad_norm: Optional[float] = None
 
     # GPT-2 / PersonaChat (reference config.py:131-147, 294-301)
     model_checkpoint: str = "gpt2"
@@ -218,14 +230,28 @@ class Config:
             assert self.mode == "sketch", \
                 "--overlap_depth > 1 requires --mode sketch " \
                 "(only the sketch table emits in row chunks)"
-        if self.mode not in PORTED_MODES:
-            raise NotImplementedError(f"--mode {self.mode} is not ported")
         if self.mode == "sketch":
             assert self.error_type != "local", \
                 "sketch mode cannot use local error accumulation"
             assert self.local_momentum == 0, \
                 "sketch mode cannot use local momentum " \
                 "(momentum factor masking is impossible in sketch space)"
+        if self.mode == "true_topk":
+            assert self.error_type == "virtual", \
+                "true_topk requires --error_type virtual"
+        if self.mode == "local_topk":
+            assert self.error_type in ("local", "none"), \
+                "local_topk cannot use virtual error"
+        if self.mode == "uncompressed":
+            assert self.error_type != "local", \
+                "local error accumulation is pointless uncompressed"
+        if self.max_grad_norm is not None and self.sketch_dtype != "f32":
+            # each client's clipped table would cross the wire
+            # quantized on its own (reference core/rounds.py:814-821)
+            raise NotImplementedError(
+                "--max_grad_norm with --sketch_dtype "
+                f"{self.sketch_dtype} (the per-client quantized wire) "
+                "is not ported")
         return self
 
     @property
@@ -294,6 +320,8 @@ def build_parser(default_lr: Optional[float] = None
     parser.add_argument("--nan_threshold", type=float, default=999)
 
     parser.add_argument("--k", type=int, default=50000)
+    parser.add_argument("--topk_down", action="store_true",
+                        dest="do_topk_down")
     parser.add_argument("--num_cols", type=int, default=500000)
     parser.add_argument("--num_rows", type=int, default=5)
     parser.add_argument("--num_blocks", type=int, default=20)
@@ -307,6 +335,9 @@ def build_parser(default_lr: Optional[float] = None
                         default="none")
     parser.add_argument("--lr_scale", type=float, default=default_lr)
     parser.add_argument("--pivot_epoch", type=float, default=5)
+    parser.add_argument("--num_fedavg_epochs", type=int, default=1)
+    parser.add_argument("--fedavg_batch_size", type=int, default=-1)
+    parser.add_argument("--fedavg_lr_decay", type=float, default=1)
 
     parser.add_argument("--num_clients", type=int)
     parser.add_argument("--num_workers", type=int, default=1)
@@ -316,6 +347,8 @@ def build_parser(default_lr: Optional[float] = None
 
     parser.add_argument("--local_batch_size", type=int, default=8)
     parser.add_argument("--valid_batch_size", type=int, default=8)
+    parser.add_argument("--microbatch_size", type=int, default=-1)
+    parser.add_argument("--max_grad_norm", type=float)
 
     parser.add_argument("--model_checkpoint", type=str, default="gpt2")
     parser.add_argument("--num_candidates", type=int, default=2)

@@ -1,21 +1,28 @@
 """The federated round: client half and server half.
 
-Port of the single-device sketch-mode path of
-``commefficient_tpu/core/rounds.py``: the plan predicates
-(``resolve_rot_lanes`` :97, ``sketch_is_late`` :128,
-``fused_grad_eligible`` :138, ``round_plan`` :153, ``args2sketch``
-:218), the fused client round (``_fused_local`` :500 and the
-single-device branch of ``client_round_fused`` :741, with its
-quantized wire crossing ``_qdq_local`` / ``_qdq_local_overlapped``
-:407-425 applied at :747-755) and the server round
+Port of the single-device paths of ``commefficient_tpu/core/rounds.py``:
+the per-client state (``ClientStates`` :42, ``_state_ids`` :1179,
+``_scatter`` :1194), the plan predicates (``resolve_rot_lanes`` :97,
+``sketch_is_late`` :128, ``fused_grad_eligible`` :138, ``round_plan``
+:153, ``args2sketch`` :218), the client round (``client_round`` :766:
+the fused path of ``_fused_local`` :500, with its quantized wire
+crossing ``_qdq_local`` / ``_qdq_local_overlapped`` :407-425, and the
+per-client path of ``_build_sgd_client_step`` :1200 and
+``_build_fedavg_client_step`` :1247) and the server round
 (``build_server_round`` :1340, with the k-sized scatter of the sparse
-re-sketch branch).
+re-sketch branch and true_topk's masking of client velocities).
 
 Batch layout: a dict of (W, B, ...) tensors with a (W, B) float "mask"
-marking real samples. The client round runs ONE forward/backward over
-all W·B samples: the aggregated quantity is the gradient of the
-sample-weighted mean loss plus the weight-decay term, sketched once
-(the FetchSGD linearity identity; no per-client gradient exists).
+marking real samples. Where no per-client transform touches the
+gradient (``fused_grad_eligible``) the client round runs ONE
+forward/backward over all W·B samples: the aggregated quantity is the
+gradient of the sample-weighted mean loss plus the weight-decay term,
+sketched once (the FetchSGD linearity identity). Otherwise it loops
+over the W slots in order, as the reference's serial worker does:
+each slot gathers its client's state rows, runs its own forward and
+backward, its momentum, error and compression step, and writes the
+rows back; transmits are summed in slot order. No device value is read
+on the host in the loop.
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from commefficient_tpu_torch.config import Config
+from commefficient_tpu_torch.core.client import (accumulate_and_compress,
+                                                 stale_weight_download)
+from commefficient_tpu_torch.core.grad import make_forward_grad
 from commefficient_tpu_torch.core.server import (ServerState,
                                                  fold_row_chunks,
                                                  server_update)
@@ -33,9 +43,40 @@ from commefficient_tpu_torch.ops.sketch import CountSketch
 from commefficient_tpu_torch.parallel.wire import row_chunks
 
 
+class ClientStates(NamedTuple):
+    """Per-client persistent state, (num_clients + 1, ...) tensors on
+    the device, updated in place by the client round. The last row is
+    the dead-slot row: ``_state_ids`` sends a slot with an all-zero
+    mask there, so its gathers and scatters touch no client's row
+    (the reference's out-of-range sentinel, whose scatters drop).
+    Fields a mode does not use are None."""
+    velocities: Optional[torch.Tensor]  # (rows, *transmit_shape)
+    errors: Optional[torch.Tensor]      # (rows, *transmit_shape)
+    weights: Optional[torch.Tensor]     # (rows, grad_size), topk_down
+
+    @staticmethod
+    def init(cfg: Config, num_clients: int,
+             ps_weights: Optional[torch.Tensor] = None,
+             device="cuda") -> "ClientStates":
+        shape = (num_clients + 1,) + tuple(cfg.transmit_shape)
+
+        def z():
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+
+        vel = z() if cfg.local_momentum > 0 else None
+        err = z() if cfg.error_type == "local" else None
+        wts = None
+        if cfg.do_topk_down:
+            assert ps_weights is not None
+            wts = ps_weights.detach().to(device, torch.float32)[None, :] \
+                .repeat(num_clients + 1, 1)
+        return ClientStates(vel, err, wts)
+
+
 class RoundResult(NamedTuple):
     aggregated: torch.Tensor  # transmit-sum / total datapoints
     metrics: tuple            # per-client batch-mean metrics, each (W,)
+    client_states: Optional[ClientStates] = None
 
 
 def resolve_rot_lanes(cfg: Config) -> int:
@@ -51,17 +92,20 @@ def resolve_rot_lanes(cfg: Config) -> int:
 
 def sketch_is_late(cfg: Config) -> bool:
     """Sketching after the local dense sum is legal when no per-client
-    op touches the table (the port has no per-sketch clip or robust
-    fold, so every sketch-mode round qualifies)."""
-    return cfg.mode == "sketch"
+    op touches the table: absent ``max_grad_norm``'s per-sketch clip
+    (the port has no robust fold)."""
+    return cfg.mode == "sketch" and cfg.max_grad_norm is None
 
 
 def fused_grad_eligible(cfg: Config) -> bool:
     """The aggregated quantity is exactly the gradient of the
     sample-weighted mean loss (one backward) when no per-client
-    transform touches the gradient."""
+    transform touches the gradient: no local momentum or error, no
+    topk_down, clip or microbatching."""
     return (cfg.mode in ("sketch", "uncompressed", "true_topk")
-            and cfg.local_momentum == 0 and cfg.error_type != "local")
+            and cfg.local_momentum == 0 and cfg.error_type != "local"
+            and not cfg.do_topk_down and cfg.max_grad_norm is None
+            and cfg.microbatch_size <= 0)
 
 
 def round_plan(cfg: Config) -> dict:
@@ -87,6 +131,8 @@ def round_plan(cfg: Config) -> dict:
                           "k": int(cfg.k),
                           "late": sketch_is_late(cfg),
                           "rot_lanes": resolve_rot_lanes(cfg)}
+    if cfg.mode in ("true_topk", "local_topk"):
+        plan["k"] = int(cfg.k)
     return plan
 
 
@@ -98,18 +144,28 @@ def args2sketch(cfg: Config) -> Optional[CountSketch]:
                        rot_lanes=resolve_rot_lanes(cfg))
 
 
-def build_client_round(cfg: Config, loss_fn: Callable) -> Callable:
-    """Returns ``client_round(ps_weights, batch) -> RoundResult``.
+def build_client_round(cfg: Config, loss_fn: Callable,
+                       padded_batch_size: Optional[int] = None
+                       ) -> Callable:
+    """Returns ``client_round(ps_weights, batch, client_states=None,
+    client_ids=None, fedavg_lr=1.0) -> RoundResult``.
 
-    ``loss_fn(flat_params, batch) -> (loss, metrics)`` takes the whole
-    (W, B, ...) batch and returns per-client masked-mean values, each
-    (W,)."""
+    ``loss_fn(flat_params, batch) -> (loss, metrics)`` returns masked
+    means over the last batch axis: per-client (W,) values for the
+    whole (W, B, ...) batch (the fused path), scalars for one client's
+    (B, ...) batch (the per-client path). ``padded_batch_size`` is B,
+    which splits microbatches and fedavg's local batches (default
+    ``--local_batch_size``, or 1 where that is -1). The per-client
+    path reads and updates ``client_states`` (``ClientStates``, in
+    place) at the rows of ``client_ids`` ((W,) int64 on the device);
+    ``fedavg_lr`` is the LR of fedavg's local SGD."""
     cfg.validate_runtime()
-    if not fused_grad_eligible(cfg):
-        raise NotImplementedError(
-            "the per-client round path (local momentum/error, clip, "
-            "DP, topk_down, microbatching) is not ported")
+    if padded_batch_size is None:
+        padded_batch_size = (cfg.local_batch_size
+                             if cfg.local_batch_size > 0 else 1)
     sketch = args2sketch(cfg)
+    late = sketch_is_late(cfg)
+    fused = fused_grad_eligible(cfg)
     # Σ_i (wd/num_workers)·p·n_i / total = (wd/num_workers)·p: one
     # device holds every client, so the whole term lands here
     wd_coef = cfg.weight_decay / cfg.num_workers
@@ -135,7 +191,7 @@ def build_client_round(cfg: Config, loss_fn: Callable) -> Callable:
             return sketch.sketch(g)
         return fold_row_chunks(wire_crossing(g, rows) for rows in chunks)
 
-    def client_round(ps_weights: torch.Tensor, batch: dict) -> RoundResult:
+    def fused_round(ps_weights, batch, client_states):
         mask = batch["mask"]
         total = torch.clamp(torch.sum(mask), min=1.0)
         p = ps_weights.detach().requires_grad_(True)
@@ -150,26 +206,189 @@ def build_client_round(cfg: Config, loss_fn: Callable) -> Callable:
         t = emit(g)
         mets = tuple(((n > 0) * m).detach()
                      for m in (loss,) + tuple(metrics))
-        return RoundResult(t, mets)
+        return RoundResult(t, mets, client_states)
+
+    if fused:
+        return (lambda ps_weights, batch, client_states=None,
+                client_ids=None, fedavg_lr=1.0:
+                fused_round(ps_weights, batch, client_states))
+
+    if cfg.mode == "fedavg":
+        per_client = _build_fedavg_client_step(cfg, loss_fn,
+                                               padded_batch_size)
+    else:
+        # sketch late: each client sends its dense sum and the round
+        # sketches the slots' sum once (the linearity identity)
+        step_cfg = (cfg.replace(mode="uncompressed", error_type="none")
+                    if late else cfg)
+        per_client = _build_sgd_client_step(step_cfg, loss_fn,
+                                            None if late else sketch,
+                                            padded_batch_size)
+
+    def client_round(ps_weights, batch, client_states=None,
+                     client_ids=None, fedavg_lr=1.0) -> RoundResult:
+        mask = batch["mask"]
+        W = mask.shape[0]
+        total = torch.clamp(torch.sum(mask), min=1.0)
+        if client_states is None:  # a mode with no per-client state
+            client_states = ClientStates(None, None, None)
+            client_ids = torch.zeros(W, dtype=torch.int64,
+                                     device=mask.device)
+        ids = _state_ids(client_ids, batch, _dead_row(client_states))
+        acc, mets = None, []
+        for i in range(W):
+            row = ids[i:i + 1]
+            rows = [None if a is None else a.index_select(0, row)[0]
+                    for a in client_states]
+            t, m, *new_rows = per_client(ps_weights, *rows,
+                                         {k: v[i] for k, v in batch.items()},
+                                         fedavg_lr)
+            for arr, new in zip(client_states, new_rows):
+                _scatter(arr, row, new)
+            acc = t if acc is None else acc + t
+            mets.append(m)
+        aggregated = (emit(acc) if late else acc) / total
+        metrics = tuple(torch.stack(col) for col in zip(*mets))
+        return RoundResult(aggregated, metrics, client_states)
 
     return client_round
 
 
+def _dead_row(client_states: ClientStates) -> int:
+    """Index of the dead-slot row (the last row of the state tensors;
+    0 when the mode keeps no per-client state)."""
+    arr = next((a for a in client_states if a is not None), None)
+    return 0 if arr is None else arr.shape[0] - 1
+
+
+def _state_ids(client_ids: torch.Tensor, batch: dict,
+               dead_row: int) -> torch.Tensor:
+    """Ids for per-client STATE gathers and scatters: a dead slot (an
+    all-zero mask row) goes to ``dead_row``, so it can never alias a
+    live client's row (reference ``_state_ids``, core/rounds.py:1179)."""
+    mask = batch["mask"]
+    alive = torch.sum(mask.reshape(mask.shape[0], -1), dim=1) > 0
+    ids = client_ids.to(mask.device, torch.int64)
+    return torch.where(alive, ids, torch.full_like(ids, dead_row))
+
+
+def _scatter(arr, row, new):
+    """Write one client's row back (reference ``_scatter``)."""
+    if arr is not None and new is not None:
+        arr.index_copy_(0, row, new[None])
+
+
+def _build_sgd_client_step(cfg, loss_fn, sketch, padded_batch_size):
+    """One client's round for every mode but fedavg (the reference
+    worker's process_batch + local_step): ``step(ps_weights, velocity,
+    error, client_weights, batch, fedavg_lr) -> (transmit, metrics,
+    velocity, error, client_weights)``."""
+    forward_grad = make_forward_grad(cfg, loss_fn, sketch,
+                                     padded_batch_size)
+
+    def step(ps_weights, velocity, error, client_weights, batch,
+             fedavg_lr):
+        del fedavg_lr
+        batch_size = torch.sum(batch["mask"])
+        alive = batch_size > 0
+        if cfg.do_topk_down:
+            weights = stale_weight_download(cfg, ps_weights,
+                                            client_weights)
+            # a dead slot did not download: its stale weights stay
+            new_wts = torch.where(alive, weights, client_weights)
+        else:
+            weights, new_wts = ps_weights, client_weights
+        g_unit, metrics = forward_grad(weights, batch)
+        upd = accumulate_and_compress(
+            cfg, g_unit,
+            velocity if cfg.local_momentum > 0 else None,
+            error if cfg.error_type == "local" else None, batch_size)
+        # a dead slot ran nothing: it sends 0 and its momentum and
+        # error stay as they were
+        transmit = upd.transmit * alive.to(upd.transmit.dtype)
+
+        def keep(new, old):
+            if new is None or old is None:
+                return old if new is None else new
+            return torch.where(alive, new, old)
+
+        return (transmit, metrics, keep(upd.velocity, velocity),
+                keep(upd.error, error), new_wts)
+
+    return step
+
+
+def _build_fedavg_client_step(cfg, loss_fn, padded_batch_size):
+    """One client's FedAvg round: local SGD over its whole (padded)
+    dataset in batches of ``--fedavg_batch_size`` for
+    ``--num_fedavg_epochs`` epochs, the LR decayed by
+    ``--fedavg_lr_decay`` a step; it sends the weight delta times its
+    sample count (the reference worker's fedavg loop)."""
+    if cfg.fedavg_batch_size == -1:
+        sub = padded_batch_size
+    else:
+        sub = min(cfg.fedavg_batch_size, padded_batch_size)
+    n_batches = -(-padded_batch_size // sub)
+    pad_to = n_batches * sub
+    forward_grad = make_forward_grad(cfg, loss_fn, None, sub)
+
+    def step(ps_weights, velocity, error, client_weights, batch,
+             fedavg_lr):
+        def pad(x):
+            extra = x.new_zeros((pad_to - x.shape[0],) + x.shape[1:])
+            return torch.cat([x, extra]) if pad_to > x.shape[0] else x
+
+        padded = {k: pad(v) for k, v in batch.items()}
+        client_size = torch.sum(batch["mask"])
+        w = ps_weights
+        step_i = torch.zeros((), dtype=torch.float32,
+                             device=ps_weights.device)
+        sums = None
+        for _ in range(cfg.num_fedavg_epochs):
+            for j in range(n_batches):
+                mb = {k: v[j * sub:(j + 1) * sub] for k, v in padded.items()}
+                valid = torch.sum(mb["mask"]) > 0
+                g_unit, metrics = forward_grad(w, mb)
+                # an all-padding batch changes nothing and is no step
+                w_new = w - g_unit * fedavg_lr * (cfg.fedavg_lr_decay
+                                                  ** step_i)
+                w = torch.where(valid, w_new, w)
+                step_i = step_i + valid.to(torch.float32)
+                got = tuple(torch.where(valid, m, torch.zeros_like(m))
+                            for m in metrics)
+                sums = got if sums is None else tuple(
+                    a + b for a, b in zip(sums, got))
+        # metrics: the mean over the local steps taken
+        n_steps = torch.clamp(step_i, min=1.0)
+        metrics = tuple(m / n_steps for m in sums)
+        transmit = (ps_weights - w) * client_size
+        return transmit, metrics, velocity, error, client_weights
+
+    return step
+
+
 def build_server_round(cfg: Config) -> Callable:
-    """Returns ``server_round(ps_weights, server_state, aggregated,
-    lr) -> (new_ps_weights, new_server_state, weight_update,
-    support)``; ``support`` holds the indices of the coordinates the
-    update changed (download accounting), or on the sparse re-sketch
-    branch ((k,) indices, (k,) lr-scaled values), where
-    ``weight_update`` is None and the update is applied as a k-sized
-    scatter instead of a dense (d,) subtraction."""
+    """Returns ``server_round(ps_weights, server_state, aggregated, lr,
+    client_velocities=None, client_ids=None) -> (new_ps_weights,
+    new_server_state, client_velocities, weight_update, support)``.
+    ``support`` holds the indices of the coordinates the update changed
+    (download accounting), or ((k,) indices, (k,) lr-scaled values) --
+    on the sparse re-sketch branch, where ``weight_update`` is None and
+    the update is applied as a k-sized scatter instead of a dense (d,)
+    subtraction, and on true_topk's index branch -- or None for a dense
+    update (runtime/fed_model.py decides its form). fedavg's server
+    takes lr = 1 (the clients applied the LR). Under true_topk with
+    local momentum, the participating clients' velocity rows
+    (``client_ids``, dead slots at the dead-slot row) are zeroed where
+    the server sent, in place."""
     cfg.validate_runtime()
     sketch = args2sketch(cfg)
 
     def server_round(ps_weights: torch.Tensor, server_state: ServerState,
-                     aggregated: torch.Tensor, lr):
-        lr = torch.as_tensor(lr, dtype=torch.float32,
-                             device=ps_weights.device)
+                     aggregated: torch.Tensor, lr, client_velocities=None,
+                     client_ids=None):
+        lr = torch.as_tensor(1.0 if cfg.mode == "fedavg" else lr,
+                             dtype=torch.float32, device=ps_weights.device)
         res = server_update(cfg, aggregated, server_state, lr, sketch)
         if res.weight_update is None:
             # the indices are sorted and unique, so each coordinate
@@ -180,6 +399,14 @@ def build_server_round(cfg: Config) -> Callable:
             new_ps[idx] = ps_weights[idx] - scaled
         else:
             new_ps = ps_weights - res.weight_update
-        return new_ps, res.state, res.weight_update, res.support
+        if (cfg.mode == "true_topk" and cfg.local_momentum > 0
+                and client_velocities is not None):
+            assert client_ids is not None
+            rows = client_velocities.index_select(0, client_ids)
+            client_velocities.index_copy_(
+                0, client_ids,
+                rows * res.client_velocity_keep.to(rows.dtype))
+        return (new_ps, res.state, client_velocities, res.weight_update,
+                res.support)
 
     return server_round

@@ -1,14 +1,15 @@
 """Server-side update: virtual momentum, virtual error feedback,
-unsketching.
+unsketching and top-k recovery.
 
-Port of the sketch-mode parts of ``commefficient_tpu/core/server.py``
-(``ServerState`` :28, ``fold_row_chunks`` :66, ``_lr_scaled_support``
-:124, ``server_update`` :146, ``_sketched`` :279, with its dense and
-its sparse re-sketch branches).
-``gradient`` is the round's aggregated quantity: the (r, c) sketch
-table of the client-transmit sum divided by the round's total
-datapoint count. Functions return new tensors; nothing is updated in
-place, so a caller may keep the previous state.
+Port of ``commefficient_tpu/core/server.py`` (``ServerState`` :28,
+``fold_row_chunks`` :66, ``_lr_scaled_support`` :124,
+``server_update`` :146, ``_fedavg`` :194, ``_uncompressed`` :205
+without server DP, ``_true_topk`` :225, ``_local_topk`` :267 and
+``_sketched`` :279 with its dense and its sparse re-sketch branches).
+``gradient`` is the round's aggregated quantity: the client-transmit
+sum divided by the round's total datapoint count, a flat (d,) vector
+or, in sketch mode, an (r, c) table. Functions return new tensors;
+nothing is updated in place, so a caller may keep the previous state.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from commefficient_tpu_torch.ops.sketch import CountSketch
 
 
 class ServerState(NamedTuple):
-    """Virtual momentum and error buffers, sketch-table shaped."""
+    """Virtual momentum and error buffers, transmit shaped."""
     Vvelocity: torch.Tensor
     Verror: torch.Tensor
 
@@ -46,11 +47,16 @@ class ServerUpdate(NamedTuple):
     # re-sketch branch, where ``support`` carries the update
     weight_update: Optional[torch.Tensor]
     state: ServerState
-    # dense branch: (n,) int64 indices of the coordinates the lr-scaled
-    # update changes (nonzero); sparse branch: ((k,) ascending indices,
-    # (k,) lr-scaled values). On the device; download accounting reads
-    # only these
-    support: object
+    # true_topk: (d,) bool, True where nothing was sent, for the
+    # momentum factor masking of the participating clients' local
+    # velocities; None for the other modes
+    client_velocity_keep: Optional[torch.Tensor] = None
+    # the coordinates the lr-scaled update changes: (n,) int64 indices
+    # (nonzero), or ((k,) indices, (k,) lr-scaled values), of which
+    # those with a nonzero value; None for a dense update (the caller
+    # decides, runtime/fed_model.py). On the device; download
+    # accounting reads only these
+    support: object = None
 
 
 def _lr_scaled_support(idx, vals, lr):
@@ -61,11 +67,65 @@ def _lr_scaled_support(idx, vals, lr):
 def server_update(cfg: Config, gradient: torch.Tensor, state: ServerState,
                   lr: torch.Tensor, sketch: Optional[CountSketch] = None
                   ) -> ServerUpdate:
-    """Dispatch on mode (reference ``server_update``); only sketch
-    mode is ported."""
-    if cfg.mode != "sketch":
-        raise NotImplementedError(f"--mode {cfg.mode} is not ported")
-    return _sketched(cfg, gradient, state, lr, sketch)
+    """Dispatch on mode (reference ``server_update``). For fedavg the
+    caller passes lr = 1: the clients' local SGD applied the LR."""
+    helper = {
+        "sketch": _sketched,
+        "local_topk": _local_topk,
+        "true_topk": _true_topk,
+        "fedavg": _fedavg,
+        "uncompressed": _uncompressed,
+    }[cfg.mode]
+    return helper(cfg, gradient, state, lr, sketch)
+
+
+def _fedavg(cfg, avg_update, state, lr, sketch):
+    """``avg_update`` is the data-weighted mean of the clients' weight
+    deltas, their LR already applied."""
+    assert cfg.error_type == "none" and cfg.local_momentum == 0
+    Vvel = avg_update + cfg.virtual_momentum * state.Vvelocity
+    return ServerUpdate(Vvel, ServerState(Vvel, state.Verror))
+
+
+def _uncompressed(cfg, gradient, state, lr, sketch):
+    Vvel = gradient + cfg.virtual_momentum * state.Vvelocity
+    return ServerUpdate(Vvel * lr, ServerState(Vvel, state.Verror))
+
+
+def _true_topk(cfg, gradient, state, lr, sketch):
+    """Virtual momentum and error in the dense space, exact top-k of
+    the error sent; error feedback and momentum factor masking where
+    it was sent."""
+    from commefficient_tpu_torch.ops.topk import (threshold_topk_mask_1d,
+                                                  topk_with_support,
+                                                  use_threshold_select)
+    assert cfg.error_type == "virtual"
+    Vvel = gradient + cfg.virtual_momentum * state.Vvelocity
+    Verr = state.Verror + Vvel
+    k = min(cfg.k, cfg.grad_size)
+    if use_threshold_select(k, cfg.grad_size, False):
+        # the dense update's support is the value-compare of the
+        # lr-scaled update, as the reference's bitmap
+        mask = threshold_topk_mask_1d(Verr * Verr, k)
+        update = torch.where(mask, Verr, torch.zeros_like(Verr))
+        support = torch.nonzero(update * lr).flatten()
+    else:
+        update, idx, vals = topk_with_support(Verr, k)
+        support = _lr_scaled_support(idx, vals, lr)
+    keep = update == 0
+    zero = torch.zeros((), dtype=torch.float32, device=Verr.device)
+    state = ServerState(torch.where(keep, Vvel, zero),
+                        torch.where(keep, Verr, zero))
+    return ServerUpdate(update * lr, state, keep, support)
+
+
+def _local_topk(cfg, local_topk_grad, state, lr, sketch):
+    """Momentum only: the clients sent a sparse quantity, so there is
+    no virtual error, and masking the virtual momentum would zero all
+    of it."""
+    assert cfg.error_type in ("local", "none")
+    Vvel = local_topk_grad + cfg.virtual_momentum * state.Vvelocity
+    return ServerUpdate(Vvel * lr, ServerState(Vvel, state.Verror))
 
 
 def _sketched(cfg: Config, sketched_grad: torch.Tensor,
@@ -118,7 +178,8 @@ def _sketched(cfg: Config, sketched_grad: torch.Tensor,
     state = ServerState(Vvel, Verr)
 
     if sparse:
-        return ServerUpdate(None, state, _lr_scaled_support(idx, vals, lr))
+        return ServerUpdate(None, state,
+                            support=_lr_scaled_support(idx, vals, lr))
     weight_update = update * lr
     support = torch.nonzero(weight_update).flatten()
-    return ServerUpdate(weight_update, state, support)
+    return ServerUpdate(weight_update, state, support=support)

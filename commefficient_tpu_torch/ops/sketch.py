@@ -378,3 +378,15 @@ class CountSketch:
         med = (sums[n // 2] if n % 2
                else (sums[n // 2 - 1] + sums[n // 2]) * 0.5)
         return torch.sqrt(med)
+
+
+def clip_record(record: torch.Tensor, clip: float, *,
+                is_sketch: bool) -> torch.Tensor:
+    """L2-clip a dense vector, or a sketch table by its l2estimate;
+    only ever shrinks (reference ``clip_record``, ops/sketch.py:683)."""
+    if not is_sketch:
+        from commefficient_tpu_torch.ops.vec import clip_by_l2
+        return clip_by_l2(record, clip)
+    norm = CountSketch.l2estimate(record)
+    scale = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
+    return record * scale

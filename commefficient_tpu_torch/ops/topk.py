@@ -1,12 +1,17 @@
 """Exact magnitude top-k selection by threshold.
 
-Port of the parts of ``commefficient_tpu/ops/topk.py`` that the
-FetchSGD server step uses: the gates, the nibble radix search for the
-k-th largest key (the plain version of the card's radix-select
-kernel), the 1-D threshold mask and its ascending index set
-(``threshold_topk_indices``). The selected set is
-exactly k coordinates, the lowest index winning ties -- lax.top_k's
-set. ``torch.topk`` promises no tie order, so it is never used here.
+Port of ``commefficient_tpu/ops/topk.py``: the gates, the nibble radix
+search for the k-th largest key (the plain version of the card's
+radix-select kernel), the 1-D threshold mask and its ascending index
+set (``threshold_topk_indices``), the mask batched over rows
+(``_threshold_topk_mask``), and the selections the modes use:
+``topk`` (1-D and row-wise 2-D), ``topk_values_indices`` and
+``topk_with_support``. The selected set is exactly k coordinates, the
+lowest index winning ties -- lax.top_k's set. The reference takes
+lax.top_k below 2^20 coordinates and the threshold mask at or above;
+both give that set, so the port selects through the threshold mask at
+every d. ``torch.topk`` promises no tie order, so it is never used
+here.
 
 Keys are the uint32 bit patterns of non-negative f32 values (their
 order is the value order), held in int64.
@@ -38,6 +43,57 @@ def keys_of(sq: torch.Tensor) -> torch.Tensor:
     """Non-negative f32 -> their uint32 bit patterns, in int64."""
     bits = sq.to(torch.float32).contiguous().view(torch.int32)
     return bits.to(torch.int64) & _MASK32
+
+
+def _blocked_cumsum(x: torch.Tensor, block: int = 1024) -> torch.Tensor:
+    """Inclusive cumsum along the last axis as intra-block scans plus a
+    scan of the block offsets (reference ``_blocked_cumsum``,
+    ops/topk.py:48); the same values as one flat cumsum."""
+    *lead, d = x.shape
+    pad = (-d) % block
+    xp = torch.nn.functional.pad(x, (0, pad))
+    xb = xp.reshape(tuple(lead) + (-1, block))
+    intra = torch.cumsum(xb, dim=-1)
+    offs = torch.cumsum(intra[..., -1], dim=-1)
+    offs = torch.cat([torch.zeros_like(offs[..., :1]), offs[..., :-1]],
+                     dim=-1)
+    out = (intra + offs[..., None]).reshape(tuple(lead) + (d + pad,))
+    return out[..., :d]
+
+
+def _threshold_topk_mask_plain(sq: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact top-k mask of non-negative ``sq`` along the last axis,
+    batched over the leading axes, by the reference's construction
+    (``_threshold_topk_mask``, ops/topk.py:67): 32 single-bit passes
+    find each row's k-th largest key T, then every key > T and the
+    first k - #(keys > T) keys == T in index order. Exactly k set a
+    row. Runs on any device without a host read; the row-by-row
+    kernels' plain version."""
+    shape = sq.shape
+    keys = keys_of(sq).reshape(-1, shape[-1])
+    t = torch.zeros(keys.shape[0], dtype=torch.int64, device=sq.device)
+    for bit in range(31, -1, -1):
+        cand = t | (1 << bit)
+        cnt = torch.sum(keys >= cand[:, None], dim=-1)
+        t = torch.where(cnt >= k, cand, t)
+    gt = keys > t[:, None]
+    eq = keys == t[:, None]
+    need = k - torch.sum(gt, dim=-1, keepdim=True)
+    take = gt | (eq & (_blocked_cumsum(eq.to(torch.int64)) <= need))
+    return take.reshape(shape)
+
+
+def _threshold_topk_mask(sq: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact top-k mask of non-negative ``sq`` along the last axis,
+    batched over the leading axes. On the card each row runs the
+    search and take-mask kernels (``threshold_topk_mask_1d``), with no
+    host read; on the CPU the plain batched construction runs. The
+    same set either way."""
+    if sq.device.type == "cpu":
+        return _threshold_topk_mask_plain(sq, k)
+    rows = sq.reshape(-1, sq.shape[-1])
+    return torch.stack([threshold_topk_mask_1d(row, k) for row in rows]
+                       ).reshape(sq.shape)
 
 
 def _nibble_threshold_key(keys: torch.Tensor, k: int) -> torch.Tensor:
@@ -109,3 +165,60 @@ def threshold_topk_indices(sq: torch.Tensor, k: int) -> torch.Tensor:
     is missing from some PyTorch builds' CUDA backends."""
     assert sq.ndim == 1, "1-D selection"
     return torch.nonzero(threshold_topk_mask_1d(sq, k)).flatten()
+
+
+def _selection_mask(vec: torch.Tensor, k: int) -> torch.Tensor:
+    """Mask of the ``k`` largest-magnitude entries along the last axis
+    (all of them when k >= the row length)."""
+    if k >= vec.shape[-1]:
+        return torch.ones_like(vec, dtype=torch.bool)
+    sq = vec.to(torch.float32) * vec.to(torch.float32)
+    if vec.ndim == 1:
+        return threshold_topk_mask_1d(sq, k)
+    return _threshold_topk_mask(sq, k)
+
+
+def _exact_only(approx: bool):
+    if approx:
+        raise NotImplementedError(
+            "--approx_topk (approximate selection) is not ported")
+
+
+def topk(vec: torch.Tensor, k: int, approx: bool = False) -> torch.Tensor:
+    """A copy of ``vec`` with all but its ``k`` largest-magnitude
+    entries zeroed: 1-D, or row-wise along the last axis of a 2-D
+    input (reference ``topk``, ops/topk.py:305)."""
+    _exact_only(approx)
+    if vec.ndim not in (1, 2):
+        raise ValueError(
+            f"topk supports 1-D/2-D inputs, got ndim={vec.ndim}")
+    k = min(k, vec.shape[-1])
+    return torch.where(_selection_mask(vec, k), vec,
+                       torch.zeros_like(vec))
+
+
+def topk_values_indices(vec: torch.Tensor, k: int, approx: bool = False):
+    """(values, indices) of the ``k`` largest-magnitude entries of a
+    1-D vector, in lax.top_k's order: by magnitude, descending, the
+    lower index first among equals (reference ``topk_values_indices``,
+    ops/topk.py:356). The set comes from the threshold mask, and only
+    its k members are sorted (a stable sort of the ascending indices).
+    ``torch.nonzero`` reads the count back to the host once."""
+    _exact_only(approx)
+    assert vec.ndim == 1, "1-D selection"
+    k = min(k, vec.shape[-1])
+    idx = torch.nonzero(_selection_mask(vec, k)).flatten()
+    vals = vec[idx]
+    order = torch.sort(vals.to(torch.float32) * vals.to(torch.float32),
+                       descending=True, stable=True).indices
+    return vals[order], idx[order]
+
+
+def topk_with_support(vec: torch.Tensor, k: int, approx: bool = False):
+    """``(dense, indices, values)`` top-k of a 1-D vector: the zeroed
+    dense form and its sparse support (reference ``topk_with_support``,
+    ops/topk.py:365)."""
+    vals, idx = topk_values_indices(vec, k, approx)
+    dense = torch.zeros_like(vec)
+    dense[idx] = vals
+    return dense, idx, vals

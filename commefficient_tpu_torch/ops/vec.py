@@ -105,3 +105,15 @@ def flatten_params(params: dict, device="cpu") -> torch.Tensor:
              for _, leaf in ravel_order(params)]
     return torch.cat(parts).to(device)
 
+
+
+def global_norm(vec: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(vec * vec))
+
+
+def clip_by_l2(vec: torch.Tensor, clip) -> torch.Tensor:
+    """L2-clip to norm ``clip``, which may be a 0-dim tensor: only
+    shrinks, never grows (reference ``clip_by_l2``, ops/vec.py:69)."""
+    norm = global_norm(vec)
+    scale = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
+    return vec * scale

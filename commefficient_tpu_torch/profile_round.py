@@ -1,11 +1,14 @@
-"""Where the time of one full-width FetchSGD round goes, on the card.
+"""Where the time of one full-width federated round goes, on the card.
 
     python -m commefficient_tpu_torch.profile_round [--rounds 8]
         [--model resnet9|gpt2] [--sketch_dtype f32|bf16|int8|fp8]
+        [trainer flags ...]
 
 Runs a main path's configuration through FedModel/FedOptimizer, on the
 sketch table's wire dtype ``--sketch_dtype`` (default f32), and prints
-JSON lines. ``resnet9``: full width, bf16, Synthetic data, 8
+JSON lines. Any other flags are the trainer's and go after the main
+path's own, e.g. ``--mode local_topk --error_type local`` to profile
+another mode's round. ``resnet9``: full width, bf16, Synthetic data, 8
 clients x 8 samples, a 5 x 524 288 sketch, k = 50 000. ``gpt2``: GPT-2
 124M double heads, bf16, fused cross-entropy, 4 clients x 8 PersonaChat
 items of 2 candidates x 256 tokens (a vocabulary and corpus fabricated
@@ -86,22 +89,22 @@ def gpt2_argv(data_dir, vocab_dir):
             "--num_epochs", "1"]
 
 
-def _resnet9(wire):
-    args = parse_args(argv=ARGV + ["--sketch_dtype", wire])
+def _resnet9(wire, extra=()):
+    args = parse_args(argv=ARGV + ["--sketch_dtype", wire] + list(extra))
     device = resolve_device(args.device)
     train_loader, _, train_ds = cv_train.get_data_loaders(args)
     args.num_clients = int(train_ds.num_clients)
     module, params = cv_train.build_model(args, device)
     model = FedModel(module, params, cv_train.make_compute_loss(module),
-                     args)
+                     args, padded_batch_size=train_loader.B)
     return model, FedOptimizer([{"lr": 0.01}], args), train_loader
 
 
-def _gpt2(root, wire):
+def _gpt2(root, wire, extra=()):
     data_dir, vocab_dir = gpt2_train.fabricate_assets(root)
     args = parse_args(default_lr=4e-2,
                       argv=gpt2_argv(data_dir, vocab_dir)
-                      + ["--sketch_dtype", wire])
+                      + ["--sketch_dtype", wire] + list(extra))
     device = resolve_device(args.device)
     module, params, tok = gpt2_train.build_model_and_tokenizer(args,
                                                                device)
@@ -116,22 +119,22 @@ def _gpt2(root, wire):
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__)
+    ap = argparse.ArgumentParser(description=__doc__, allow_abbrev=False)
     ap.add_argument("--rounds", type=int, default=8)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--model", choices=["resnet9", "gpt2"],
                     default="resnet9")
     ap.add_argument("--sketch_dtype", choices=list(SKETCH_DTYPES),
                     default="f32")
-    opts = ap.parse_args(argv)
+    opts, extra = ap.parse_known_args(argv)
     with tempfile.TemporaryDirectory(prefix="profile_round_") as root:
         model, opt, train_loader = (
-            _gpt2(root, opts.sketch_dtype) if opts.model == "gpt2"
-            else _resnet9(opts.sketch_dtype))
-        _profile(opts, model, opt, train_loader)
+            _gpt2(root, opts.sketch_dtype, extra) if opts.model == "gpt2"
+            else _resnet9(opts.sketch_dtype, extra))
+        _profile(opts, model, opt, train_loader, extra)
 
 
-def _profile(opts, model, opt, train_loader):
+def _profile(opts, model, opt, train_loader, extra=()):
     def batches():
         while True:
             yield from train_loader
@@ -159,6 +162,7 @@ def _profile(opts, model, opt, train_loader):
     phases = np.mean([one_round(sync=True) for _ in range(opts.rounds)], 0)
     print(json.dumps({"phase": "phases", "model": opts.model,
                       "sketch_dtype": opts.sketch_dtype,
+                      "trainer_flags": list(extra),
                       "rounds": opts.rounds,
                       "data_s": phases[0], "client_s": phases[1],
                       "server_s": phases[2]}), flush=True)

@@ -12,17 +12,21 @@ reference's protocol:
     metrics = model(batch)     # one federated round (client pass)
     opt.step()                 # server update
 
-and its per-client communication accounting: uploads bill one sketch
-table per participating client at the wire dtype (``--sketch_dtype``,
-with per-row f32 scales for int8/fp8); downloads bill, per client, the
-coordinates updated since it last participated, tracked as
-per-coordinate ``last_updated`` round indices from the update's
-support (its index vector, or on the sparse re-sketch branch the
-indices whose lr-scaled value is nonzero): 4 bytes each under
+the per-client state of the modes that keep one (``client_states``,
+on the device), fedavg's local-SGD LR handed from each server step to
+the next round's clients, and the reference's per-client
+communication accounting: uploads bill what one participating client
+sends (one sketch table at the wire dtype, ``--sketch_dtype``, with
+per-row f32 scales for int8/fp8; k values under local_topk; d values
+otherwise); downloads bill, per client, the coordinates updated since
+it last participated, tracked as per-coordinate ``last_updated`` round
+indices from the update's support (its index vector; the indices whose
+lr-scaled value is nonzero of an (indices, values) support; every
+coordinate of a dense update): 4 bytes each under
 ``--downlink_encoding dense``, and under ``delta`` the value at wire
 width plus an int32 index for each coordinate that does not repeat
 the previous update's support, with a bitmap over that support for a
-client that saw it (``_account_bytes``, ``_note_delta_support``).
+client that saw it (``_account_bytes``, ``note_update``).
 Telemetry, the autopilot, the host client store, pipelined dispatch
 and meshes are not ported.
 """
@@ -36,7 +40,9 @@ import torch
 
 from commefficient_tpu_torch import accounting
 from commefficient_tpu_torch.config import Config
-from commefficient_tpu_torch.core.rounds import (build_client_round,
+from commefficient_tpu_torch.core.rounds import (ClientStates, _dead_row,
+                                                 _state_ids,
+                                                 build_client_round,
                                                  build_server_round)
 from commefficient_tpu_torch.core.server import ServerState
 from commefficient_tpu_torch.device import resolve_device
@@ -58,7 +64,8 @@ class FedModel:
 
     def __init__(self, module, params: torch.Tensor,
                  compute_loss: Callable, args: Config,
-                 compute_loss_val: Optional[Callable] = None):
+                 compute_loss_val: Optional[Callable] = None,
+                 padded_batch_size: Optional[int] = None):
         global _CURRENT_MODEL
         args.validate_runtime()
         self.module = module
@@ -77,8 +84,25 @@ class FedModel:
         def loss_fn(flat, batch):
             return compute_loss(flat, batch, args)
 
-        self._client_round = build_client_round(args, loss_fn)
+        # per-client state on the device (rows of the clients, plus
+        # the dead-slot row)
+        self.client_states = ClientStates.init(args, num_clients,
+                                               self.ps_weights,
+                                               self.device)
+        if padded_batch_size is None:
+            padded_batch_size = (args.local_batch_size
+                                 if args.local_batch_size > 0 else 1)
+        self.padded_batch_size = padded_batch_size
+        self._client_round = build_client_round(args, loss_fn,
+                                                padded_batch_size)
         self.pending_aggregated = None
+        # the round's state ids, dead slots at the dead-slot row: the
+        # server round's velocity rewrite (true_topk) scatters there
+        self.pending_client_ids = None
+        # fedavg's local-SGD LR: zero until the first FedOptimizer.step
+        # sets it, as the reference's shared g_lr; clients read the
+        # value the previous round's step set
+        self.fedavg_lr = 0.0
         self.round_index = 0
         self.training = True
 
@@ -87,11 +111,10 @@ class FedModel:
         self.client_last_seen = np.full(num_clients, -1, np.int64)
         self._update_round = 0
         self._rebuild_round_counts()
-        # --downlink_encoding delta bookkeeping: the latest update's
-        # support indices, how many of them repeat the update before
-        # it, and that previous update's support size (the bitmap a
+        # --downlink_encoding delta bookkeeping: how many of the latest
+        # update's support indices repeat the update before it, and
+        # that previous update's support size (the bitmap a
         # round-fresh client holds)
-        self._prev_support_idx = np.zeros(0, np.int64)
         self._repeat_count = 0
         self._bitmap_bits = 0
         _CURRENT_MODEL = self
@@ -116,8 +139,15 @@ class FedModel:
 
     def _call_train(self, batch):
         ids_np = np.asarray(batch["client_ids"])
-        res = self._client_round(self.ps_weights, self._to_device(batch))
+        dev_batch = self._to_device(batch)
+        ids = torch.as_tensor(ids_np.astype(np.int64)).to(
+            self.device, non_blocking=True)
+        res = self._client_round(self.ps_weights, dev_batch,
+                                 self.client_states, ids, self.fedavg_lr)
+        self.client_states = res.client_states
         self.pending_aggregated = res.aggregated
+        self.pending_client_ids = _state_ids(
+            ids, dev_batch, _dead_row(self.client_states))
         self.round_index += 1
         metrics = [m.to("cpu").numpy() for m in res.metrics]
         down, up = self._account_bytes(ids_np, batch["mask"])
@@ -172,16 +202,36 @@ class FedModel:
         return download_bytes, upload_bytes
 
     def note_update(self, support):
-        """Record the server update's support for download accounting:
-        the (n,) indices of the coordinates it changed, or ((k,)
-        indices, (k,) lr-scaled values), of which the indices with a
-        nonzero value changed."""
+        """Record the server update's support for download accounting
+        (reference ``_apply_note`` and ``_note_delta_support``,
+        fed_model.py:1146-1212): the (n,) indices of the coordinates it
+        changed; or ((k,) indices, (k,) lr-scaled values), of which the
+        indices with a nonzero value changed; or None, a dense update:
+        every coordinate changed.
+
+        The --downlink_encoding delta bookkeeping rolls forward with
+        it: how many of this update's indices repeat the previous
+        update's support (they ship as bitmap bits, not int32 indices,
+        to a client that saw the previous broadcast), and that
+        support's size (the bitmap's bit count). The previous support
+        is exactly the coordinates whose ``last_updated`` is the
+        previous update, so both are counts taken here -- the
+        reference's ``intersect1d`` with a kept index array gives the
+        same numbers, in a sort of both supports."""
         self._update_round += 1
         r = self._update_round
         if len(self._round_counts) < r + 2:
             self._round_counts = np.concatenate(
                 [self._round_counts,
                  np.zeros(r + 2 - len(self._round_counts) + 64, np.int64)])
+        # coordinates last changed by update r - 1 sit at index r
+        self._bitmap_bits = int(self._round_counts[r])
+        if support is None:
+            self._repeat_count = self._bitmap_bits
+            self.last_updated[:] = r
+            self._round_counts[:] = 0
+            self._round_counts[r + 1] = self.args.grad_size
+            return
         if isinstance(support, tuple):
             idx, vals = (t.to("cpu").numpy() for t in support)
             idx = idx[vals != 0]
@@ -189,24 +239,11 @@ class FedModel:
             idx = support.to("cpu").numpy()
         idx = idx.astype(np.int64)
         old = self.last_updated[idx] + 1
-        np.subtract.at(self._round_counts, old, 1)
+        self._repeat_count = int(np.count_nonzero(old == r))
+        self._round_counts -= np.bincount(
+            old, minlength=len(self._round_counts))
         self._round_counts[r + 1] += len(idx)
         self.last_updated[idx] = r
-        self._note_delta_support(idx)
-
-    def _note_delta_support(self, idx):
-        """Roll the --downlink_encoding delta bookkeeping forward one
-        update (reference ``_note_delta_support``, fed_model.py:1181):
-        how many of this update's support indices repeat the previous
-        update's (they ship as bitmap bits, not int32 indices, to a
-        client that saw the previous broadcast), and the previous
-        support's size (the bitmap's bit count). The port's updates
-        always name their support, so the reference's dense form
-        (``idx=None``) does not arise."""
-        prev = self._prev_support_idx
-        self._repeat_count = int(np.intersect1d(idx, prev).size)
-        self._bitmap_bits = len(prev)
-        self._prev_support_idx = idx
 
 
 class FedOptimizer:
@@ -240,10 +277,28 @@ class FedOptimizer:
         lr = float(self.get_lr())
         if lr == 0:
             print("WARNING: LR is 0")
-        new_ps, self.server_state, _, support = self._server_round(
-            m.ps_weights, self.server_state, m.pending_aggregated, lr)
+        if self.args.mode == "fedavg":
+            # the next round's clients run their local SGD at this LR;
+            # the server step itself takes lr = 1
+            m.fedavg_lr = lr
+        new_ps, self.server_state, new_vel, update, support = \
+            self._server_round(m.ps_weights, self.server_state,
+                               m.pending_aggregated, lr,
+                               m.client_states.velocities,
+                               m.pending_client_ids)
         m.ps_weights = new_ps
+        m.client_states = m.client_states._replace(velocities=new_vel)
         m.pending_aggregated = None
+        if support is None:
+            # a dense update (uncompressed, local_topk, fedavg). A zero
+            # LR moves nothing; local_topk's update holds only the union
+            # of past top-k selections, and fedavg's first one is zero
+            # (its clients ran at LR 0), so both take the reference's
+            # value-compare; otherwise every coordinate changed
+            if self.args.mode != "fedavg" and lr == 0:
+                support = torch.zeros(0, dtype=torch.int64)
+            elif self.args.mode in ("local_topk", "fedavg"):
+                support = torch.nonzero(update).flatten()
         m.note_update(support)
 
 

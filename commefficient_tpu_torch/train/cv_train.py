@@ -65,12 +65,13 @@ def _ce_loss_and_acc(logits, batch):
 
 
 def run_batches(model, opt, lr_scheduler, loader, args, training,
-                epoch_fraction=1.0, round_times=None):
+                epoch_fraction=1.0, round_times=None, round_losses=None):
     """(reference cv_train.py:177-292). ``round_times``, if given,
     receives each training round's wall seconds, from the scheduler
     step to the round's metrics on the host after ``opt.step()``
     queued the server half (so each interval also holds the previous
-    round's server work)."""
+    round's server work); ``round_losses`` each round's sample-weighted
+    train loss (rounds with no real sample give none)."""
     if training:
         model.train(True)
         losses, accs = [], []
@@ -100,6 +101,8 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
             if w.sum() > 0:
                 losses.append(float(np.sum(loss * w) / w.sum()))
                 accs.append(float(np.sum(acc * w) / w.sum()))
+                if round_losses is not None:
+                    round_losses.append(losses[-1])
                 if not math.isfinite(losses[-1]) or \
                         losses[-1] > args.nan_threshold:
                     print(f"Stopping at batch {i}: diverged "
@@ -129,17 +132,17 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
 def train(model, opt, lr_scheduler, train_loader, val_loader, args,
           logger=None, timer=None):
     """Epoch loop (reference cv_train.py:295-361). Each result row
-    also carries the epoch's per-round wall times (``round_times``),
-    which the table does not print."""
+    also carries the epoch's per-round wall times (``round_times``) and
+    train losses (``round_losses``), which the table does not print."""
     timer = timer or Timer()
     logger = logger or TableLogger()
     results = []
     for epoch in range(math.ceil(args.num_epochs)):
         epoch_fraction = min(1.0, args.num_epochs - epoch)
-        round_times = []
+        round_times, round_losses = [], []
         out = run_batches(model, opt, lr_scheduler, train_loader, args,
                           training=True, epoch_fraction=epoch_fraction,
-                          round_times=round_times)
+                          round_times=round_times, round_losses=round_losses)
         if out is None:
             print("NaN detected, aborting training")
             return results
@@ -162,7 +165,8 @@ def train(model, opt, lr_scheduler, train_loader, val_loader, args,
             "total_time": timer.total_time,
         }
         logger.append(row)
-        results.append(dict(row, round_times=round_times))
+        results.append(dict(row, round_times=round_times,
+                            round_losses=round_losses))
     return results
 
 
@@ -220,7 +224,8 @@ def main(argv=None):
 
     module, params = build_model(args, device)
     compute_loss = make_compute_loss(module)
-    model = FedModel(module, params, compute_loss, args)
+    model = FedModel(module, params, compute_loss, args,
+                     padded_batch_size=train_loader.B)
     opt = FedOptimizer([{"lr": 1.0}], args)
 
     spe = steps_per_epoch(args.local_batch_size, train_ds,

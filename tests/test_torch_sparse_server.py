@@ -126,7 +126,7 @@ def test_sparse_server_step_matches_jax(d, c, r, k, error_type):
     jround = jax_server_round(jcfg)
     jps = jround(jnp.asarray(ps), jstate, jnp.asarray(agg),
                  jnp.float32(0.1))[0]
-    tps, _, upd, support = build_server_round(tcfg)(
+    tps, _, _, upd, support = build_server_round(tcfg)(
         torch.from_numpy(ps), tstate, torch.from_numpy(agg), 0.1)
     assert upd is None and support[0].shape == (k,)
     np.testing.assert_array_equal(tps.numpy(), np.asarray(jps))

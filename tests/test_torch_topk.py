@@ -12,15 +12,25 @@ import numpy as np
 import pytest
 import torch
 
+from commefficient_tpu.core.client import \
+    stale_weight_download as jax_stale_download
 from commefficient_tpu.ops.topk import _nibble_threshold_key as jax_nibble
+from commefficient_tpu.ops.topk import topk as jax_topk
+from commefficient_tpu.ops.topk import topk_with_support as jax_support
 from commefficient_tpu.ops.topk import threshold_topk_mask_1d as jax_mask
 from commefficient_tpu.ops.topk import selection_may_duplicate as jax_dup
 from commefficient_tpu.ops.topk import use_threshold_select as jax_gate
 from commefficient_tpu.ops.topk_pallas import _CHUNK
-from commefficient_tpu_torch.ops.topk import (_nibble_threshold_key,
+from commefficient_tpu_torch.config import Config
+from commefficient_tpu_torch.core.client import stale_weight_download
+from commefficient_tpu_torch.ops.topk import (_blocked_cumsum,
+                                              _nibble_threshold_key,
+                                              _threshold_topk_mask,
+                                              _threshold_topk_mask_plain,
                                               keys_of,
                                               selection_may_duplicate,
                                               threshold_topk_mask_1d,
+                                              topk, topk_with_support,
                                               use_threshold_select)
 from commefficient_tpu_torch.ops import topk_kernels as tk
 from commefficient_tpu_torch.ops.topk_kernels import (take_mask_kernel,
@@ -112,6 +122,89 @@ def test_gates_match_reference():
                          (5000, 1 << 20, False)):
         assert use_threshold_select(k, d, approx) == jax_gate(k, d, approx)
         assert selection_may_duplicate(d, approx) == jax_dup(d, approx)
+
+
+# --- the modes' selections: topk, topk_with_support ----------------------
+
+
+def _tie_rows(d, seed):
+    """Three rows with ties: all equal, magnitude ties (+-1.5) among
+    random values, and a few nonzeros among zeros."""
+    rng = np.random.RandomState(seed)
+    equal = np.full(d, -0.25, np.float32)
+    ties = rng.randn(d).astype(np.float32)
+    ties[rng.choice(d, d // 4, replace=False)] = 1.5
+    ties[rng.choice(d, d // 8, replace=False)] = -1.5
+    sparse = np.zeros(d, np.float32)
+    sparse[rng.choice(d, 3, replace=False)] = rng.randn(3)
+    return np.stack([equal, ties, sparse])
+
+
+@pytest.mark.parametrize("d,k", [(33, 5), (4096, 700), (4096, 4096),
+                                 ((1 << 20) + 3, 50_000)])
+def test_topk_2d_rows_of_ties_match_jax(d, k):
+    """Row-wise topk exact against the JAX package's (lax.top_k below
+    2^20, its batched threshold mask at 2^20 + 3, one row there)."""
+    rows = _tie_rows(d, d % 101)
+    if d >= 1 << 20:
+        rows = rows[1:2]
+    want = np.asarray(jax_topk(jnp.asarray(rows), k))
+    got = topk(torch.from_numpy(rows), k).numpy()
+    assert got.tobytes() == want.tobytes()
+    assert ((got != 0).sum(1) <= min(k, d)).all()
+    for row, want_row in zip(rows, want):
+        assert topk(torch.from_numpy(row), k).numpy().tobytes() == \
+            want_row.tobytes()
+
+
+def test_threshold_topk_mask_rows_equal_1d_selection():
+    """The batched plain mask (what the card's row-by-row kernels are
+    held to) picks each row's 1-D selection, and its blocked cumsum is
+    the flat one."""
+    rows = torch.from_numpy(np.square(_tie_rows(5000, 3)))
+    got = _threshold_topk_mask_plain(rows, 777)
+    assert torch.equal(got, _threshold_topk_mask(rows, 777))
+    for row, mask in zip(rows, got):
+        assert torch.equal(mask, threshold_topk_mask_1d(row, 777))
+    x = torch.randint(0, 3, (3, 5000))
+    assert torch.equal(_blocked_cumsum(x), torch.cumsum(x, -1))
+
+
+@pytest.mark.parametrize("case", ["all-zero", "ties"])
+def test_topk_with_support_matches_jax(case):
+    """(dense, indices, values) exact, in lax.top_k's order; an
+    all-zero vector (T = 0, every key ties) selects the first k."""
+    d, k = 1000, 64
+    vec = (np.zeros(d, np.float32) if case == "all-zero"
+           else _tie_rows(d, 8)[1])
+    want = [np.asarray(a) for a in jax_support(jnp.asarray(vec), k)]
+    got = [t.numpy() for t in topk_with_support(torch.from_numpy(vec), k)]
+    for g, w in zip(got, want):
+        assert g.tobytes() == w.astype(g.dtype).tobytes()
+    if case == "all-zero":
+        np.testing.assert_array_equal(got[1], np.arange(k))
+
+
+@pytest.mark.parametrize("case", ["all-zero-diff", "ties"])
+def test_stale_weight_download_matches_jax(case):
+    """--topk_down: the client applies the top-k of ps - its weights;
+    at a zero diff (T = 0) it takes the first k of the zeros."""
+    from test_modes import make_cfg
+    d, k = 2000, 50
+    rng = np.random.RandomState(11)
+    client = rng.randn(d).astype(np.float32)
+    ps = client.copy()
+    if case == "ties":
+        ps += _tie_rows(d, 12)[1]
+    kw = dict(mode="uncompressed", do_topk_down=True, k=k, grad_size=d)
+    want = np.asarray(jax_stale_download(
+        make_cfg(**kw), jnp.asarray(ps), jnp.asarray(client)))
+    got = stale_weight_download(Config(device="cpu", **kw),
+                                torch.from_numpy(ps),
+                                torch.from_numpy(client)).numpy()
+    assert got.tobytes() == want.tobytes()
+    if case == "all-zero-diff":
+        assert got.tobytes() == client.tobytes()
 
 
 # --- the k-th-key search (threshold_key_kernel) ---------------------------
@@ -225,6 +318,48 @@ def test_card_smoke_selection_checks_reject_wrong_results(monkeypatch,
         monkeypatch.setattr(tk, "threshold_key_kernel", wrong_search)
     with pytest.raises(AssertionError):
         cs.selection_checks(sq, k, mutant)
+
+
+# --- chip_smoke.py's per-client selection check (local_topk_path) --------
+
+
+@pytest.fixture(scope="module")
+def local_topk_model():
+    """A --test local_topk model with local error and momentum, after
+    one epoch on the CPU."""
+    from commefficient_tpu_torch.runtime import fed_model
+    from commefficient_tpu_torch.train import cv_train
+    cv_train.main(["--device", "cpu", "--test", "--dataset_name",
+                   "Synthetic", "--mode", "local_topk", "--error_type",
+                   "local", "--local_momentum", "0.9", "--num_clients",
+                   "10", "--num_workers", "2", "--num_epochs", "1"])
+    return fed_model._CURRENT_MODEL
+
+
+@pytest.mark.parametrize("slip", ["none", "one bit moved",
+                                  "one bit dropped"])
+def test_card_smoke_local_topk_selection_rejects_slips(monkeypatch, slip,
+                                                       local_topk_model):
+    # chip_smoke.py holds the row-by-row selection kernels exactly
+    # against the plain batched mask on one round's rows and on
+    # all-zero rows; here the kernels' masks slip and it must raise
+    import chip_smoke as cs
+    monkeypatch.setattr(cs, "time_ms", lambda fn, reps, flush: 0.0)
+    right = cs._threshold_topk_mask
+
+    def slipped(sq, k):
+        m = right(sq, k).clone()
+        m[0, torch.nonzero(m[0])[0]] = False
+        if slip == "one bit moved":
+            m[0, torch.nonzero(~m[0])[-1]] = True
+        return m
+
+    if slip == "none":
+        cs.local_topk_selection_phase(local_topk_model, torch.device("cpu"))
+        return
+    monkeypatch.setattr(cs, "_threshold_topk_mask", slipped)
+    with pytest.raises(AssertionError, match="local_topk selection"):
+        cs.local_topk_selection_phase(local_topk_model, torch.device("cpu"))
 
 
 # --- chip_smoke.py's take-mask checks (tie placement against the tiles) ---

@@ -3,10 +3,14 @@
 ``main(["--device", "cpu", "--test", ...])`` finishes with a finite
 loss; with the same seed its sampled cohorts and round batches and its
 upload/download byte totals equal the JAX trainer's (exactly: both are
-host-side numpy and integer counts). Without ``--device`` the trainer
-runs on cuda, and with no card it raises instead of falling back.
+host-side numpy and integer counts). Started from the JAX trainer's
+initial weights, the other modes' rounds also give the JAX trainer's
+bytes exactly and its losses within rtol 1e-5. Without ``--device`` the
+trainer runs on cuda, and with no card it raises instead of falling
+back.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -58,8 +62,60 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         cv_train.main(ARGV)
 
 
+MODE_ARGV = {
+    "true_topk": ["--mode", "true_topk", "--error_type", "virtual",
+                  "--local_momentum", "0.9"],
+    "local_topk": ["--mode", "local_topk", "--error_type", "local",
+                   "--local_momentum", "0.9"],
+    "fedavg": ["--mode", "fedavg", "--error_type", "none",
+               "--local_momentum", "0", "--local_batch_size", "-1",
+               "--fedavg_batch_size", "2"],
+    # the delta-coded downlink over a dense update (every coordinate)
+    # and over local_topk's value-compared support; with 2 clients both
+    # take part in every round (--iid: two clients are no natural
+    # partition), so each holds the previous support and
+    # the repeats ship as bitmap bits
+    "uncompressed_delta": ["--mode", "uncompressed", "--error_type",
+                           "none", "--downlink_encoding", "delta",
+                           "--num_clients", "2", "--iid"],
+    "local_topk_delta": ["--mode", "local_topk", "--error_type", "none",
+                         "--local_momentum", "0", "--virtual_momentum",
+                         "0.9", "--downlink_encoding", "delta",
+                         "--num_clients", "2", "--iid"],
+}
+
+
+@pytest.mark.parametrize("mode", sorted(MODE_ARGV))
+def test_mode_trainer_matches_jax_bytes_and_losses(mode, monkeypatch):
+    """Three --test rounds (one an epoch) of each mode from the JAX
+    trainer's initial weights: per-round upload and download bytes
+    equal, per-round train losses within rtol 1e-5."""
+    argv = ARGV + MODE_ARGV[mode] + ["--num_epochs", "3"]
+    port_build = cv_train.build_model
+
+    def build_model(args, device="cpu"):
+        module, _ = port_build(args, device)
+        _, params, _ = jax_cv_train.build_model(
+            jax_parse_args(default_lr=cv_train.DEFAULT_LR, argv=argv))
+        return module, module.from_jax_params(
+            jax.tree_util.tree_map(np.asarray, params), device)
+
+    monkeypatch.setattr(cv_train, "build_model", build_model)
+    results = cv_train.main(["--device", "cpu"] + argv)
+    jax_results = jax_cv_train.main(argv)
+    assert len(results) == len(jax_results) == 3
+    for row, jrow in zip(results, jax_results):
+        assert row["up (MiB)"] == jrow["up (MiB)"] > 0
+        assert row["down (MiB)"] == jrow["down (MiB)"]
+        np.testing.assert_allclose(row["train_loss"], jrow["train_loss"],
+                                   rtol=1e-5)
+        assert np.isfinite(row["test_loss"])
+    # the rounds moved the weights: some download was billed
+    assert sum(row["down (MiB)"] for row in results) > 0
+
+
 @pytest.mark.parametrize("argv,name", [
-    (["--mode", "true_topk", "--error_type", "virtual"], "--mode true_topk"),
+    (["--do_dp"], "--do_dp"),
     (["--client_chunk", "2"], "--client_chunk"),
     (["--model", "FixupResNet9"], "--model FixupResNet9"),
     (["--dataset_name", "CIFAR10"], "--dataset_name CIFAR10"),
@@ -71,3 +127,20 @@ def test_unported_options_raise(argv, name):
         base += ["--dataset_name", "Synthetic"]
     with pytest.raises(NotImplementedError, match=name):
         cv_train.main(base + argv)
+
+
+def test_per_client_quantized_wire_raises():
+    """Each client's clipped table would cross the wire quantized on
+    its own: not ported."""
+    with pytest.raises(NotImplementedError,
+                       match="--max_grad_norm with --sketch_dtype int8"):
+        cv_train.main(["--device", "cpu"] + ARGV + [
+            "--max_grad_norm", "1", "--sketch_dtype", "int8"])
+
+
+def test_gpt2_trainer_other_modes_raise():
+    from commefficient_tpu_torch.train import gpt2_train
+    with pytest.raises(NotImplementedError,
+                       match="gpt2_train --mode true_topk"):
+        gpt2_train.main(["--device", "cpu", "--test", "--mode",
+                         "true_topk", "--error_type", "virtual"])
