@@ -34,16 +34,32 @@ through the kernels:
   momentum (W of each: one selection a client), fedavg (local SGD over
   each client's data; none of the kernels), uncompressed with
   ``--topk_down --microbatch_size 4`` (W of each: one stale-weight
-  selection a client) and sketch mode under ``--max_grad_norm`` (W + 1
-  sketches: each client's clipped table and the server's re-sketch).
-  Each checks its launches, its upload against
+  selection a client), sketch mode under ``--max_grad_norm`` (W + 1
+  sketches: each client's clipped table and the server's re-sketch) and
+  the same on the int8 wire (``sketch_clip_int8_path``: each client's
+  clipped table quantized on its own after kernel 1, so W + 1 sketches
+  and no sketch-and-quantize; the upload priced at the int8 table and
+  its row scales). The clients of these paths run in one batched
+  pass (``--client_chunk 0``). Each checks its launches, its upload against
   ``upload_wire_bytes_per_client`` times the live clients, and a
   finite train loss that falls below its first round's. The local_topk
   phase also holds one round's per-client selection, made by the
   kernels row by row, equal to the plain batched mask on the same rows,
   and the all-zero rows of a first ``--topk_down`` diff (T = 0, every
   key tied: the take-mask's scan takes the first k), and times the W
-  selections against ``torch.topk`` over the (W, d) rows.
+  selections against ``torch.topk`` over the (W, d) rows;
+- ``client_chunk``: one local_topk round (W = 8) through ``FedModel`` at
+  ``--client_chunk 3`` (chunks of 3, 3 and 2 + a dead slot) and at 1,
+  from the same weights and batch, f32 compute with TF32 off: the
+  aggregated quantity within relative L2 ``CHUNK_RTOL``, the launches
+  equal (W searches and W take-masks: a pad slot selects nothing), both
+  walls printed;
+- ``pipelined``: the fused sketch path and the local_topk path, 5 rounds
+  each through ``cv_train.main`` at ``--pipeline_depth 3`` against 1,
+  cuDNN deterministic: every round at depth 3 is dispatched
+  (``FedModel._call_train`` and ``FedOptimizer.step``) under
+  ``torch.cuda.set_sync_debug_mode("error")``, the flushes outside it;
+  losses within ``PIPE_RTOL``, bytes and launches equal.
 
 The sketch, estimates, threshold search, take-mask and sketch-and-
 quantize kernels are also checked and timed at GPT-2's padded_d =
@@ -72,6 +88,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -87,6 +104,7 @@ from commefficient_tpu_torch import _build, profile_round
 from commefficient_tpu_torch.accounting import sketch_wire_bytes
 from commefficient_tpu_torch.config import Config, parse_args
 from commefficient_tpu_torch.core.grad import make_forward_grad
+from commefficient_tpu_torch.core.rounds import ClientStates
 from commefficient_tpu_torch.core.server import ServerState, server_update
 from commefficient_tpu_torch.data.tokenizer import SPECIAL_TOKENS, load_tokenizer
 from commefficient_tpu_torch.ops import flce_kernels as fk
@@ -159,7 +177,33 @@ MODE_PATHS = (
       "10"] + mode_rounds("0.01"),
      lambda w: {"sketch_kernel": w + 1, "estimates_kernel": 1,
                 "threshold_key_kernel": 1, "take_mask_kernel": 1}),
+    # each client's clipped table crosses the int8 wire on its own: the
+    # clip sits between the sketch and the quantize, so kernel 1 runs
+    # once a client and kernel 4 not at all
+    ("sketch_clip_int8_path",
+     ["--mode", "sketch", "--error_type", "virtual", "--max_grad_norm",
+      "10", "--sketch_dtype", "int8"] + mode_rounds("0.01"),
+     lambda w: {"sketch_kernel": w + 1, "estimates_kernel": 1,
+                "threshold_key_kernel": 1, "take_mask_kernel": 1}),
 )
+# --client_chunk: the local_topk path (W = 8) in chunks of 3 (3, 3, and
+# 2 + a dead slot) against chunks of 1, one round from the same weights,
+# f32 compute with TF32 off; the aggregated quantity's relative L2
+# difference at most CHUNK_RTOL
+CHUNK_TAIL = ["--mode", "local_topk", "--error_type", "local",
+              "--local_momentum", "0.9", "--lr_scale", "0.001"]
+CHUNK_ARGV = [a for a in profile_round.ARGV if a != "--bf16"] + CHUNK_TAIL
+CHUNK_RTOL = 1e-4
+# --pipeline_depth 3 against 1, 5 rounds (0.5 of a 10-round epoch: a
+# flush of 3, then the last 2 at the epoch's end) of the fused sketch
+# path and of the local_topk path, cuDNN deterministic; the losses
+# within PIPE_RTOL, the bytes equal
+PIPE_PATHS = (
+    ("sketch", ["--lr_scale", "0.1"]),
+    ("local_topk", ["--mode", "local_topk", "--error_type", "local",
+                    "--local_momentum", "0.9", "--lr_scale", "0.001"]),
+)
+PIPE_RTOL = 1e-5
 KERNELS = (sk.sketch_kernel, sk.estimates_kernel, tk.threshold_key_kernel,
            tk.take_mask_kernel, sk.sketch_quant_kernel)
 FLCE = (fk.flce_fwd_kernel, fk.flce_bwd_kernel)
@@ -752,9 +796,11 @@ def server_phase(dev):
     check(torch.equal(gpu.state.Verror.cpu(), cpu.state.Verror)
           and torch.equal(gpu.state.Vvelocity.cpu(), cpu.state.Vvelocity),
           "server: state differs between kernels and plain")
-    check(gpu.support.numel() == K, "server: support size")
-    emit({"phase": "server_step", "support": int(gpu.support.numel()),
-          "exact": True})
+    check(torch.equal(gpu.support["bitmap"].cpu(), cpu.support["bitmap"]),
+          "server: support bitmap differs between kernels and plain")
+    n = int(np.unpackbits(cpu.support["bitmap"].numpy())[:D].sum())
+    check(n == K, f"server: support size {n}, want {K}")
+    emit({"phase": "server_step", "support": n, "exact": True})
 
 
 def sketch_kernel_name(mangled):
@@ -1258,15 +1304,10 @@ def local_topk_selection_phase(model, dev):
         args, lambda p, b: model.compute_loss_train(p, b, args), None,
         loader.B)
     states = model.client_states
-    rows = []
-    for i in range(w):
-        slot = {key: v[i] for key, v in dev_batch.items()}
-        g_unit, _ = forward_grad(model.ps_weights, slot)
-        row = ids[i:i + 1]
-        vel = (g_unit * torch.sum(slot["mask"]) + args.local_momentum
-               * states.velocities.index_select(0, row)[0])
-        rows.append(states.errors.index_select(0, row)[0] + vel)
-    stack = torch.stack(rows)
+    g_unit, _ = forward_grad(model.ps_weights, dev_batch)
+    vel = (g_unit * torch.sum(dev_batch["mask"], dim=1)[:, None]
+           + args.local_momentum * states.velocities.index_select(0, ids))
+    stack = states.errors.index_select(0, ids) + vel
     out = {}
     for case, sq in (("round", stack * stack),
                      ("all_zero", torch.zeros_like(stack))):
@@ -1292,6 +1333,137 @@ def local_topk_selection_phase(model, dev):
           "what": f"{w} searches + {w} take-masks, one a row",
           "library_ms": time_ms(lambda: torch.topk(sq, k, dim=1), 10, flush),
           "library": "torch.topk(sq, k, dim=1), index set"})
+
+
+def client_chunk_phase(dev):
+    """One local_topk round (W = 8, local error and momentum) through
+    ``FedModel`` at ``--client_chunk 3`` and at ``--client_chunk 1``,
+    from the same weights and batch, f32 compute with TF32 off: the
+    aggregated quantity within ``CHUNK_RTOL`` (relative L2), the
+    launches equal (one search and one take-mask a client)."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for chunk in ("1", "3"):
+            args = parse_args(argv=CHUNK_ARGV + ["--client_chunk", chunk])
+            loader, _, train_ds = cv_train.get_data_loaders(args)
+            args.num_clients = int(train_ds.num_clients)
+            module, params = cv_train.build_model(args, dev)
+            model = fed_model.FedModel(
+                module, params, cv_train.make_compute_loss(module), args,
+                padded_batch_size=loader.B)
+            batch = next(iter(loader))
+            model(batch)  # warm-up: cuDNN plans, scratch
+            model.client_states = ClientStates.init(
+                args, args.num_clients, model.ps_weights, dev)
+            for kern in KERNELS:
+                kern.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(batch)
+            torch.cuda.synchronize()
+            out[chunk] = {"wall_s": time.perf_counter() - t0,
+                          "launches": {k.__name__: k.launches
+                                       for k in KERNELS},
+                          "aggregated": model.pending_aggregated}
+            del model
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    a1, a3 = out["1"].pop("aggregated"), out["3"].pop("aggregated")
+    rel = float(torch.linalg.vector_norm(a3 - a1)
+                / torch.linalg.vector_norm(a1))
+    w = args.num_workers
+    want = {k.__name__: 0 for k in KERNELS}
+    want.update(threshold_key_kernel=w, take_mask_kernel=w)
+    for chunk in out:
+        check(out[chunk]["launches"] == want,
+              f"client_chunk {chunk}: launches {out[chunk]['launches']}, "
+              f"want {want}")
+    emit({"phase": "client_chunk", "argv_tail": CHUNK_TAIL + ["no --bf16"],
+          "chunks": out,
+          "rel_l2_diff": rel, "rtol": CHUNK_RTOL,
+          "selected_differ": int(torch.sum((a3 != 0) != (a1 != 0))),
+          "what": "aggregated quantity of one round, chunks of 3 "
+                  "(3, 3, 2 + a dead slot) against chunks of 1"})
+    check(rel <= CHUNK_RTOL, f"client_chunk: aggregated differs by "
+          f"{rel} (relative L2), want <= {CHUNK_RTOL}")
+
+
+@contextlib.contextmanager
+def sync_free_dispatch():
+    """Every round dispatched (``FedModel._call_train`` and
+    ``FedOptimizer.step``) runs under sync debug mode "error": a host
+    sync in it raises. ``flush`` and the data pull stay outside."""
+    saved = fed_model.FedModel._call_train, fed_model.FedOptimizer.step
+
+    def guarded(fn):
+        def run(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+
+    fed_model.FedModel._call_train = guarded(saved[0])
+    fed_model.FedOptimizer.step = guarded(saved[1])
+    try:
+        yield
+    finally:
+        fed_model.FedModel._call_train, fed_model.FedOptimizer.step = saved
+
+
+def pipelined_phase():
+    """``PIPE_PATHS`` through ``cv_train.main`` at ``--pipeline_depth
+    3`` (each round dispatched with no host sync) and at 1, cuDNN
+    deterministic: per-round losses within ``PIPE_RTOL``, bytes and
+    launches equal."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for name, extra in PIPE_PATHS:
+            argv = profile_round.ARGV + ["--num_epochs", "0.5",
+                                         "--pivot_epoch", "0.2"] + extra
+            runs = {}
+            for depth in ("1", "3"):
+                for kern in KERNELS:
+                    kern.launches = 0
+                t0 = time.perf_counter()
+                if depth == "1":
+                    results = cv_train.main(argv)
+                else:
+                    with sync_free_dispatch():
+                        results = cv_train.main(
+                            argv + ["--pipeline_depth", depth])
+                row = results[-1]
+                runs[depth] = {
+                    "wall_s": time.perf_counter() - t0,
+                    "round_seconds": row["round_times"],
+                    "round_losses": row["round_losses"],
+                    "up_MiB": row["up (MiB)"], "down_MiB": row["down (MiB)"],
+                    "launches": {k.__name__: k.launches for k in KERNELS}}
+            one, three = runs["1"], runs["3"]
+            check(len(one["round_losses"]) == 5,
+                  f"pipelined {name}: {len(one['round_losses'])} rounds, "
+                  "want 5")
+            check(np.allclose(three["round_losses"], one["round_losses"],
+                              rtol=PIPE_RTOL, atol=0),
+                  f"pipelined {name}: losses {three['round_losses']} "
+                  f"against {one['round_losses']}")
+            for key in ("up_MiB", "down_MiB", "launches"):
+                check(three[key] == one[key], f"pipelined {name}: {key} "
+                      f"{three[key]} against {one[key]}")
+            out[name] = runs
+    finally:
+        torch.backends.cudnn.deterministic = det
+    emit({"phase": "pipelined", "paths": out, "rtol": PIPE_RTOL,
+          "what": "--pipeline_depth 3 against 1, 5 rounds; each round "
+                  "at depth 3 dispatched under sync debug mode error"})
 
 
 def main():
@@ -1358,6 +1530,11 @@ def main():
         if phase == "local_topk_path":
             local_topk_selection_phase(model, dev)
         del model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    client_chunk_phase(dev)
+    torch.cuda.empty_cache()
+    pipelined_phase()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gpt2_counts = gpt2_main_path()

@@ -51,9 +51,9 @@ NOT_PORTED_FLAGS = (
     "--dp_delta", "--dp_epsilon", "--do_dp", "--dp_mode",
     "--l2_norm_clip", "--noise_multiplier", "--mesh", "--param_dtype",
     "--compute_dtype", "--approx_topk", "--approx_recall",
-    "--pipeline_depth", "--hf_export", "--coordinator_address",
+    "--hf_export", "--coordinator_address",
     "--num_processes", "--process_id", "--remat", "--attn_impl",
-    "--client_chunk", "--clientstore",
+    "--clientstore",
     "--clientstore_bytes", "--clientstore_dir", "--ledger",
     "--telemetry_console", "--probe_every", "--probe_full",
     "--on_divergence", "--alarm_residual_ratio",
@@ -134,6 +134,14 @@ class Config:
     # per-client L2 clip of the gradient (the sketch table's
     # l2estimate in sketch mode); None = off
     max_grad_norm: Optional[float] = None
+    # the per-client round in chunks of this many clients, each chunk
+    # one batched (torch.func.vmap) pass; 0 = all W clients at once
+    # (reference config.py:277)
+    client_chunk: int = 0
+    # rounds the host may run ahead of the device before their
+    # metrics and accounting cross to the host (1 = synchronous;
+    # reference config.py:195)
+    pipeline_depth: int = 1
 
     # GPT-2 / PersonaChat (reference config.py:131-147, 294-301)
     model_checkpoint: str = "gpt2"
@@ -188,6 +196,8 @@ class Config:
         assert self.mode in MODES, self.mode
         assert self.error_type in ERROR_TYPES, self.error_type
         assert self.device in ("cuda", "cpu"), self.device
+        assert self.pipeline_depth >= 1, \
+            "--pipeline_depth must be >= 1"
         assert self.tokens_per_chunk >= 0, \
             "--tokens_per_chunk must be >= 0 (0 = auto)"
         assert self.fused_ce in ("auto", "on", "off"), \
@@ -245,13 +255,6 @@ class Config:
         if self.mode == "uncompressed":
             assert self.error_type != "local", \
                 "local error accumulation is pointless uncompressed"
-        if self.max_grad_norm is not None and self.sketch_dtype != "f32":
-            # each client's clipped table would cross the wire
-            # quantized on its own (reference core/rounds.py:814-821)
-            raise NotImplementedError(
-                "--max_grad_norm with --sketch_dtype "
-                f"{self.sketch_dtype} (the per-client quantized wire) "
-                "is not ported")
         return self
 
     @property
@@ -349,6 +352,14 @@ def build_parser(default_lr: Optional[float] = None
     parser.add_argument("--valid_batch_size", type=int, default=8)
     parser.add_argument("--microbatch_size", type=int, default=-1)
     parser.add_argument("--max_grad_norm", type=float)
+    parser.add_argument("--client_chunk", type=int, default=0,
+                        help="run the per-client round in chunks of "
+                        "this many clients, each one batched pass "
+                        "(0 = all at once)")
+    parser.add_argument("--pipeline_depth", type=int, default=1,
+                        help="rounds the host may run ahead of the "
+                        "device before their metrics and accounting "
+                        "cross to the host (1 = synchronous)")
 
     parser.add_argument("--model_checkpoint", type=str, default="gpt2")
     parser.add_argument("--num_candidates", type=int, default=2)

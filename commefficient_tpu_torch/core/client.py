@@ -10,6 +10,9 @@ reference worker's ``local_step``:
 - local_topk sends the top-k of that, then zeroes the error (error
   feedback) and the velocity (momentum factor masking) where it sent.
 
+Every tensor here carries a leading client axis: the C clients of a
+chunk of the round (core/rounds.py), where the reference maps one
+client's step with ``jax.vmap``. local_topk selects row by row.
 State a mode does not use is ``None``.
 """
 
@@ -29,19 +32,33 @@ class ClientUpdate(NamedTuple):
     error: Optional[torch.Tensor]        # new local error, or None
 
 
+def topk_rows(x: torch.Tensor, k: int, live: Optional[int] = None
+              ) -> torch.Tensor:
+    """Row-wise top-k of the (C, d) stack ``x``, in its first ``live``
+    rows only: the rows after them are a chunk's padding, dead slots
+    whose results the round drops, so they pass unselected and launch
+    no selection."""
+    if live is None or live >= x.shape[0]:
+        return topk(x, k=k)
+    return torch.cat([topk(x[:live], k=k), x[live:]])
+
+
 def accumulate_and_compress(cfg: Config, g_unit: torch.Tensor,
                             velocity: Optional[torch.Tensor],
                             error: Optional[torch.Tensor],
-                            batch_size: torch.Tensor) -> ClientUpdate:
-    """``g_unit`` is the client's per-sample-mean gradient (the output
-    of ``core/grad.py`` ``forward_grad``: weight-decayed, clipped and
-    in sketch mode sketched); ``batch_size`` its real sample count."""
+                            batch_size: torch.Tensor,
+                            live: Optional[int] = None) -> ClientUpdate:
+    """``g_unit`` is the (C, ...) stack of the clients' per-sample-mean
+    gradients (the output of ``core/grad.py`` ``forward_grad``:
+    weight-decayed, clipped and in sketch mode sketched);
+    ``batch_size`` their (C,) real sample counts; rows from ``live`` on
+    are padding (``topk_rows``)."""
     has_velocity = cfg.local_momentum > 0
     has_error = cfg.error_type == "local"
     assert (velocity is not None) == has_velocity
     assert (error is not None) == has_error
 
-    g = g_unit * batch_size
+    g = g_unit * batch_size.reshape((-1,) + (1,) * (g_unit.ndim - 1))
     if has_velocity:
         velocity = g + cfg.local_momentum * velocity
     if has_error:
@@ -52,7 +69,7 @@ def accumulate_and_compress(cfg: Config, g_unit: torch.Tensor,
 
     if cfg.mode == "local_topk":
         assert cfg.error_type in ("local", "none")
-        to_transmit = topk(to_transmit, k=cfg.k)
+        to_transmit = topk_rows(to_transmit, cfg.k, live)
         kept = to_transmit != 0
         zero = torch.zeros((), dtype=to_transmit.dtype,
                            device=to_transmit.device)
@@ -69,11 +86,13 @@ def accumulate_and_compress(cfg: Config, g_unit: torch.Tensor,
 
 
 def stale_weight_download(cfg: Config, ps_weights: torch.Tensor,
-                          client_weights: torch.Tensor) -> torch.Tensor:
-    """``--topk_down``: the client catches up to the server by applying
-    only the top-k of the weight difference to its stale weights
-    (reference ``get_new_worker_weights``)."""
+                          client_weights: torch.Tensor,
+                          live: Optional[int] = None) -> torch.Tensor:
+    """``--topk_down``: each client catches up to the server by
+    applying only the top-k of the weight difference to its stale
+    weights, (C, d) rows (reference ``get_new_worker_weights``); rows
+    from ``live`` on are padding (``topk_rows``)."""
     diff = ps_weights - client_weights
     if cfg.do_topk_down:
-        diff = topk(diff, k=cfg.k)
+        diff = topk_rows(diff, cfg.k, live)
     return client_weights + diff

@@ -1,5 +1,5 @@
-"""One client's gradient: microbatching, clipping, weight decay,
-sketching.
+"""Clients' gradients: microbatching, clipping, weight decay,
+sketching, for a chunk of clients in one batched pass.
 
 Port of ``commefficient_tpu/core/grad.py`` (``make_forward_grad`` :49),
 without DP (its flags raise at parse time). A loss function here is
@@ -8,7 +8,11 @@ without DP (its flags raise at parse time). A loss function here is
 
 over one client's batch, a dict of tensors whose leading axis is the
 sample axis with a float ``"mask"`` marking real samples; ``loss`` and
-the metrics are masked means over the real samples.
+the metrics are masked means over the real samples. It must compose
+with ``torch.func`` (plain PyTorch operations: no kernel launch, no
+in-place write to its inputs), because the clients of a chunk run it
+under ``torch.func.vmap`` (the reference's ``jax.vmap`` of
+``per_client``, core/rounds.py:799-808).
 
 The reference's semantics:
 - with microbatching, the gradient is the sum over microbatches of
@@ -19,7 +23,9 @@ The reference's semantics:
   from the mask;
 - weight decay ``g += (wd / num_workers) * weights``;
 - sketch mode: sketch the gradient, then clip the table by its
-  l2estimate when ``max_grad_norm`` is set.
+  l2estimate when ``max_grad_norm`` is set. The sketch is a kernel
+  launch, so it runs after the batched pass, once a client, on the
+  (C, d) gradient stack.
 """
 
 from __future__ import annotations
@@ -34,58 +40,58 @@ from commefficient_tpu_torch.ops.sketch import CountSketch, clip_record
 from commefficient_tpu_torch.ops.vec import clip_by_l2
 
 
-def _masked_count(batch) -> torch.Tensor:
-    return torch.clamp(torch.sum(batch["mask"]), min=1.0)
+def pad_samples(batch: dict, n: int) -> dict:
+    """Zero-pad the sample axis (axis 1 of a (C, B, ...) chunk) to
+    ``n``: the padding's mask is 0."""
+    def pad(x):
+        extra = n - x.shape[1]
+        if extra <= 0:
+            return x
+        return torch.cat([x, x.new_zeros((x.shape[0], extra)
+                                         + x.shape[2:])], dim=1)
+
+    return {k: pad(v) for k, v in batch.items()}
 
 
-def make_forward_grad(cfg: Config, loss_fn: Callable,
-                      sketch: Optional[CountSketch],
-                      padded_batch_size: int) -> Callable:
-    """Returns ``forward_grad(params_flat, batch) -> (transmit_unit,
-    metrics)``: the per-sample-mean gradient (the (r, c) table of it in
-    sketch mode) and the batch-mean metrics, loss first. Nothing in it
-    reads a device value on the host."""
-    if cfg.microbatch_size > 0:
-        mb = min(cfg.microbatch_size, padded_batch_size)
-        num_iters = math.ceil(padded_batch_size / mb)
-    else:
-        mb, num_iters = padded_batch_size, 1
-    pad_to = num_iters * mb
+def make_client_grad(cfg: Config, loss_fn: Callable,
+                     padded_batch_size: int) -> Callable:
+    """Returns ``client_grad(params_flat, batch) -> (g, metrics)`` for
+    ONE client, a function to run under ``torch.func.vmap``: the
+    per-sample-mean dense gradient (clipped outside sketch mode,
+    weight-decayed) and the batch-mean metrics, loss first. ``batch``
+    holds ``num_iters * mb`` samples (``pad_samples`` to
+    ``padded_to(cfg, padded_batch_size)``)."""
+    mb, num_iters = _microbatching(cfg, padded_batch_size)
+
+    def loss_and_aux(p, microbatch):
+        loss, metrics = loss_fn(p, microbatch)
+        return loss, (loss,) + tuple(metrics)
+
+    grad_fn = torch.func.grad(loss_and_aux, has_aux=True)
 
     def one_microbatch(params_flat, microbatch):
-        p = params_flat.detach().requires_grad_(True)
-        loss, metrics = loss_fn(p, microbatch)
-        (g,) = torch.autograd.grad(loss, p)
+        g, mets = grad_fn(params_flat, microbatch)
         n = torch.sum(microbatch["mask"])
         # an all-padding microbatch contributes nothing
         valid = n > 0
         g = torch.where(valid, g, torch.zeros_like(g))
-        weighted = tuple(torch.where(valid, m.detach(),
-                                     torch.zeros_like(m)) * n
-                         for m in (loss,) + tuple(metrics))
+        weighted = tuple(torch.where(valid, m, torch.zeros_like(m)) * n
+                         for m in mets)
         return g, weighted
 
-    def forward_grad(params_flat, batch):
-        if num_iters == 1:
-            g, weighted = one_microbatch(params_flat, batch)
-        else:
-            def pad(x):
-                extra = x.new_zeros((pad_to - x.shape[0],) + x.shape[1:])
-                return torch.cat([x, extra])
+    def client_grad(params_flat, batch):
+        g, weighted = None, None
+        for i in range(num_iters):
+            g_i, w_i = one_microbatch(
+                params_flat,
+                {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()})
+            if g is None:
+                g, weighted = g_i, w_i
+            else:
+                g = g + g_i
+                weighted = tuple(a + w for a, w in zip(weighted, w_i))
 
-            padded = {k: pad(v) for k, v in batch.items()}
-            g, weighted = None, None
-            for i in range(num_iters):
-                g_i, w_i = one_microbatch(
-                    params_flat,
-                    {k: v[i * mb:(i + 1) * mb] for k, v in padded.items()})
-                if g is None:
-                    g, weighted = g_i, w_i
-                else:
-                    g = g + g_i
-                    weighted = tuple(a + w for a, w in zip(weighted, w_i))
-
-        batch_size = _masked_count(batch)
+        batch_size = torch.clamp(torch.sum(batch["mask"]), min=1.0)
         metrics = tuple(w / batch_size for w in weighted)
 
         if cfg.max_grad_norm is not None and cfg.mode != "sketch":
@@ -94,14 +100,49 @@ def make_forward_grad(cfg: Config, loss_fn: Callable,
 
         if cfg.weight_decay != 0:
             g = g + (cfg.weight_decay / cfg.num_workers) * params_flat
-
-        if cfg.mode == "sketch":
-            assert sketch is not None
-            table = sketch.sketch(g)
-            if cfg.max_grad_norm is not None:
-                table = clip_record(table, cfg.max_grad_norm,
-                                    is_sketch=True)
-            return table, metrics
         return g, metrics
+
+    return client_grad
+
+
+def _microbatching(cfg: Config, padded_batch_size: int):
+    """(microbatch size, microbatches a client)."""
+    if cfg.microbatch_size > 0:
+        mb = min(cfg.microbatch_size, padded_batch_size)
+        return mb, math.ceil(padded_batch_size / mb)
+    return padded_batch_size, 1
+
+
+def padded_to(cfg: Config, padded_batch_size: int) -> int:
+    """Samples a client's batch is padded to for its microbatches."""
+    mb, num_iters = _microbatching(cfg, padded_batch_size)
+    return mb * num_iters
+
+
+def make_forward_grad(cfg: Config, loss_fn: Callable,
+                      sketch: Optional[CountSketch],
+                      padded_batch_size: int) -> Callable:
+    """Returns ``forward_grad(params_flat, batch) -> (transmit_unit,
+    metrics)`` over a chunk of C clients: ``batch`` holds (C, B, ...)
+    tensors, ``params_flat`` is the shared (d,) vector or a (C, d) stack
+    (``--topk_down``'s stale weights). It gives the (C, d) per-sample-
+    mean gradients (in sketch mode the (C, r, c) tables of them, each
+    clipped by its own l2estimate under ``max_grad_norm``) and (C,)
+    metrics, loss first. Nothing in it reads a device value on the
+    host."""
+    client_grad = make_client_grad(cfg, loss_fn, padded_batch_size)
+    n = padded_to(cfg, padded_batch_size)
+
+    def forward_grad(params_flat, batch):
+        in_p = 0 if params_flat.ndim == 2 else None
+        g, metrics = torch.func.vmap(client_grad, in_dims=(in_p, 0))(
+            params_flat, pad_samples(batch, n))
+        if cfg.mode != "sketch":
+            return g, metrics
+        assert sketch is not None
+        table = torch.stack([sketch.sketch(row) for row in g])
+        if cfg.max_grad_norm is not None:
+            table = clip_record(table, cfg.max_grad_norm, is_sketch=True)
+        return table, metrics
 
     return forward_grad

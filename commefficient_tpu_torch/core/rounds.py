@@ -1,14 +1,15 @@
 """The federated round: client half and server half.
 
 Port of the single-device paths of ``commefficient_tpu/core/rounds.py``:
-the per-client state (``ClientStates`` :42, ``_state_ids`` :1179,
-``_scatter`` :1194), the plan predicates (``resolve_rot_lanes`` :97,
+the per-client state (``ClientStates`` :42, ``_state_ids`` :1179, its
+row scatter :1194), the plan predicates (``resolve_rot_lanes`` :97,
 ``sketch_is_late`` :128, ``fused_grad_eligible`` :138, ``round_plan``
 :153, ``args2sketch`` :218), the client round (``client_round`` :766:
 the fused path of ``_fused_local`` :500, with its quantized wire
-crossing ``_qdq_local`` / ``_qdq_local_overlapped`` :407-425, and the
+crossing ``_qdq_local`` / ``_qdq_local_overlapped`` :407-425, the
 per-client path of ``_build_sgd_client_step`` :1200 and
-``_build_fedavg_client_step`` :1247) and the server round
+``_build_fedavg_client_step`` :1247, and ``--client_chunk``'s
+``_client_round_chunked`` :914) and the server round
 (``build_server_round`` :1340, with the k-sized scatter of the sparse
 re-sketch branch and true_topk's masking of client velocities).
 
@@ -17,12 +18,17 @@ marking real samples. Where no per-client transform touches the
 gradient (``fused_grad_eligible``) the client round runs ONE
 forward/backward over all W·B samples: the aggregated quantity is the
 gradient of the sample-weighted mean loss plus the weight-decay term,
-sketched once (the FetchSGD linearity identity). Otherwise it loops
-over the W slots in order, as the reference's serial worker does:
-each slot gathers its client's state rows, runs its own forward and
-backward, its momentum, error and compression step, and writes the
-rows back; transmits are summed in slot order. No device value is read
-on the host in the loop.
+sketched once (the FetchSGD linearity identity). Otherwise the clients
+run as the reference runs them: all W in one batched pass
+(``--client_chunk 0``, the reference's ``jax.vmap``), or ceil(W/C)
+chunks of C (``--client_chunk C``, the last padded with dead slots).
+A chunk gathers its clients' state rows once, runs their forward and
+backward passes under ``torch.func.vmap``, then their sketches,
+selections, momentum, error and clips on the (C, ...) stacks (the
+kernels launch outside ``vmap``), and scatters the rows back once.
+Transmits are summed within a chunk, then across chunks. Under
+``--max_grad_norm`` on a quantized wire each client's clipped table
+crosses the wire on its own. No device value is read on the host.
 """
 
 from __future__ import annotations
@@ -34,7 +40,9 @@ import torch
 from commefficient_tpu_torch.config import Config
 from commefficient_tpu_torch.core.client import (accumulate_and_compress,
                                                  stale_weight_download)
-from commefficient_tpu_torch.core.grad import make_forward_grad
+from commefficient_tpu_torch.core.grad import (make_client_grad,
+                                               make_forward_grad,
+                                               pad_samples, padded_to)
 from commefficient_tpu_torch.core.server import (ServerState,
                                                  fold_row_chunks,
                                                  server_update)
@@ -218,12 +226,37 @@ def build_client_round(cfg: Config, loss_fn: Callable,
                                                padded_batch_size)
     else:
         # sketch late: each client sends its dense sum and the round
-        # sketches the slots' sum once (the linearity identity)
+        # sketches the sum once (the linearity identity)
         step_cfg = (cfg.replace(mode="uncompressed", error_type="none")
                     if late else cfg)
         per_client = _build_sgd_client_step(step_cfg, loss_fn,
                                             None if late else sketch,
                                             padded_batch_size)
+
+    def qdq(table):
+        """One wire crossing at full range (the reference's
+        ``_qdq_local``): quantize, then dequantize. Scales are per row,
+        so a (C, r, c) stack crosses table by table, and an all-zero
+        table stays exactly zero (the scale guard of ops/quant.py)."""
+        return quant.dequantize(*quant.quantize_table(table, wire))
+
+    def run_chunk(ps_weights, client_states, ids, batch, fedavg_lr,
+                  live=None):
+        """The clients of one chunk (from ``live`` on, padding): gather
+        their state rows, run the batched step, scatter the rows back;
+        their transmits' sum and (C,) metrics."""
+        rows = [None if a is None else a.index_select(0, ids)
+                for a in client_states]
+        t, mets, *new_rows = per_client(ps_weights, *rows, batch,
+                                        fedavg_lr, live)
+        if wire != "f32" and cfg.mode == "sketch" and not late:
+            # each client's (clipped) table crosses the wire on its own
+            # (reference core/rounds.py:814-821)
+            t = qdq(t)
+        for arr, new in zip(client_states, new_rows):
+            if arr is not None and new is not None:
+                arr.index_copy_(0, ids, new)
+        return torch.sum(t, dim=0), mets
 
     def client_round(ps_weights, batch, client_states=None,
                      client_ids=None, fedavg_lr=1.0) -> RoundResult:
@@ -234,22 +267,39 @@ def build_client_round(cfg: Config, loss_fn: Callable,
             client_states = ClientStates(None, None, None)
             client_ids = torch.zeros(W, dtype=torch.int64,
                                      device=mask.device)
-        ids = _state_ids(client_ids, batch, _dead_row(client_states))
+        dead = _dead_row(client_states)
+        ids = _state_ids(client_ids, batch, dead)
+        chunk = cfg.client_chunk
+        if not 0 < chunk < W:
+            # all W clients in one batched pass (reference client_round)
+            acc, metrics = run_chunk(ps_weights, client_states, ids,
+                                     batch, fedavg_lr)
+            aggregated = (emit(acc) if late else acc) / total
+            return RoundResult(aggregated, metrics, client_states)
+        # ceil(W / chunk) chunks, the last padded with dead slots
+        # (reference _client_round_chunked): transmits summed within a
+        # chunk, then across chunks; under a late sketch each chunk's
+        # dense sum is sketched and the tables summed
+        n_chunks = -(-W // chunk)
+        pad = n_chunks * chunk - W
+        ids = torch.cat([ids, torch.full((pad,), dead, dtype=ids.dtype,
+                                         device=ids.device)])
+        batch = {k: torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
+                 for k, v in batch.items()}
         acc, mets = None, []
-        for i in range(W):
-            row = ids[i:i + 1]
-            rows = [None if a is None else a.index_select(0, row)[0]
-                    for a in client_states]
-            t, m, *new_rows = per_client(ps_weights, *rows,
-                                         {k: v[i] for k, v in batch.items()},
-                                         fedavg_lr)
-            for arr, new in zip(client_states, new_rows):
-                _scatter(arr, row, new)
-            acc = t if acc is None else acc + t
+        for c in range(n_chunks):
+            part = slice(c * chunk, (c + 1) * chunk)
+            s, m = run_chunk(ps_weights, client_states, ids[part],
+                             {k: v[part] for k, v in batch.items()},
+                             fedavg_lr, live=min(chunk, W - c * chunk))
+            if late:
+                s = sketch.sketch(s)
+            acc = s if acc is None else acc + s
             mets.append(m)
-        aggregated = (emit(acc) if late else acc) / total
-        metrics = tuple(torch.stack(col) for col in zip(*mets))
-        return RoundResult(aggregated, metrics, client_states)
+        if late and wire != "f32":
+            acc = qdq(acc)
+        metrics = tuple(torch.cat(col)[:W] for col in zip(*mets))
+        return RoundResult(acc / total, metrics, client_states)
 
     return client_round
 
@@ -272,45 +322,50 @@ def _state_ids(client_ids: torch.Tensor, batch: dict,
     return torch.where(alive, ids, torch.full_like(ids, dead_row))
 
 
-def _scatter(arr, row, new):
-    """Write one client's row back (reference ``_scatter``)."""
-    if arr is not None and new is not None:
-        arr.index_copy_(0, row, new[None])
+def _lead(alive: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(C,) -> (C, 1, ...), broadcastable against ``like``."""
+    return alive.reshape((-1,) + (1,) * (like.ndim - 1))
 
 
 def _build_sgd_client_step(cfg, loss_fn, sketch, padded_batch_size):
-    """One client's round for every mode but fedavg (the reference
-    worker's process_batch + local_step): ``step(ps_weights, velocity,
-    error, client_weights, batch, fedavg_lr) -> (transmit, metrics,
-    velocity, error, client_weights)``."""
+    """A chunk of clients' round for every mode but fedavg (the
+    reference worker's process_batch + local_step, one batched pass):
+    ``step(ps_weights, velocity, error, client_weights, batch,
+    fedavg_lr) -> (transmit, metrics, velocity, error,
+    client_weights)``, the state and the transmits (C, ...) stacks;
+    the rows from ``live`` on are padding, which selects nothing."""
     forward_grad = make_forward_grad(cfg, loss_fn, sketch,
                                      padded_batch_size)
 
     def step(ps_weights, velocity, error, client_weights, batch,
-             fedavg_lr):
+             fedavg_lr, live=None):
         del fedavg_lr
-        batch_size = torch.sum(batch["mask"])
+        mask = batch["mask"]
+        batch_size = torch.sum(mask.reshape(mask.shape[0], -1), dim=1)
         alive = batch_size > 0
         if cfg.do_topk_down:
             weights = stale_weight_download(cfg, ps_weights,
-                                            client_weights)
+                                            client_weights, live)
             # a dead slot did not download: its stale weights stay
-            new_wts = torch.where(alive, weights, client_weights)
+            new_wts = torch.where(_lead(alive, weights), weights,
+                                  client_weights)
         else:
             weights, new_wts = ps_weights, client_weights
         g_unit, metrics = forward_grad(weights, batch)
         upd = accumulate_and_compress(
             cfg, g_unit,
             velocity if cfg.local_momentum > 0 else None,
-            error if cfg.error_type == "local" else None, batch_size)
+            error if cfg.error_type == "local" else None, batch_size,
+            live)
         # a dead slot ran nothing: it sends 0 and its momentum and
         # error stay as they were
-        transmit = upd.transmit * alive.to(upd.transmit.dtype)
+        ran = _lead(alive, upd.transmit)
+        transmit = upd.transmit * ran.to(upd.transmit.dtype)
 
         def keep(new, old):
             if new is None or old is None:
                 return old if new is None else new
-            return torch.where(alive, new, old)
+            return torch.where(ran, new, old)
 
         return (transmit, metrics, keep(upd.velocity, velocity),
                 keep(upd.error, error), new_wts)
@@ -319,26 +374,22 @@ def _build_sgd_client_step(cfg, loss_fn, sketch, padded_batch_size):
 
 
 def _build_fedavg_client_step(cfg, loss_fn, padded_batch_size):
-    """One client's FedAvg round: local SGD over its whole (padded)
-    dataset in batches of ``--fedavg_batch_size`` for
-    ``--num_fedavg_epochs`` epochs, the LR decayed by
-    ``--fedavg_lr_decay`` a step; it sends the weight delta times its
-    sample count (the reference worker's fedavg loop)."""
+    """A chunk of clients' FedAvg round, one batched pass: each runs
+    local SGD over its whole (padded) dataset in batches of
+    ``--fedavg_batch_size`` for ``--num_fedavg_epochs`` epochs, the LR
+    decayed by ``--fedavg_lr_decay`` a step, and sends its weight
+    delta times its sample count (the reference worker's fedavg
+    loop)."""
     if cfg.fedavg_batch_size == -1:
         sub = padded_batch_size
     else:
         sub = min(cfg.fedavg_batch_size, padded_batch_size)
     n_batches = -(-padded_batch_size // sub)
-    pad_to = n_batches * sub
-    forward_grad = make_forward_grad(cfg, loss_fn, None, sub)
+    client_grad = make_client_grad(cfg, loss_fn, sub)
+    n = padded_to(cfg, sub)
 
-    def step(ps_weights, velocity, error, client_weights, batch,
-             fedavg_lr):
-        def pad(x):
-            extra = x.new_zeros((pad_to - x.shape[0],) + x.shape[1:])
-            return torch.cat([x, extra]) if pad_to > x.shape[0] else x
-
-        padded = {k: pad(v) for k, v in batch.items()}
+    def local_sgd(ps_weights, batch, fedavg_lr):
+        # batch: (n_batches, n, ...), the local batches
         client_size = torch.sum(batch["mask"])
         w = ps_weights
         step_i = torch.zeros((), dtype=torch.float32,
@@ -346,9 +397,9 @@ def _build_fedavg_client_step(cfg, loss_fn, padded_batch_size):
         sums = None
         for _ in range(cfg.num_fedavg_epochs):
             for j in range(n_batches):
-                mb = {k: v[j * sub:(j + 1) * sub] for k, v in padded.items()}
+                mb = {k: v[j] for k, v in batch.items()}
                 valid = torch.sum(mb["mask"]) > 0
-                g_unit, metrics = forward_grad(w, mb)
+                g_unit, metrics = client_grad(w, mb)
                 # an all-padding batch changes nothing and is no step
                 w_new = w - g_unit * fedavg_lr * (cfg.fedavg_lr_decay
                                                   ** step_i)
@@ -361,7 +412,21 @@ def _build_fedavg_client_step(cfg, loss_fn, padded_batch_size):
         # metrics: the mean over the local steps taken
         n_steps = torch.clamp(step_i, min=1.0)
         metrics = tuple(m / n_steps for m in sums)
-        transmit = (ps_weights - w) * client_size
+        return (ps_weights - w) * client_size, metrics
+
+    def step(ps_weights, velocity, error, client_weights, batch,
+             fedavg_lr, live=None):
+        del live
+        # (C, B, ...) -> (C, n_batches, n, ...): the local batches of
+        # sub samples, each padded for its microbatches
+        c = batch["mask"].shape[0]
+        batch = pad_samples(batch, n_batches * sub)
+        batch = pad_samples({k: v.reshape((c * n_batches, sub) + v.shape[2:])
+                             for k, v in batch.items()}, n)
+        batch = {k: v.reshape((c, n_batches) + v.shape[1:])
+                 for k, v in batch.items()}
+        transmit, metrics = torch.func.vmap(
+            lambda b: local_sgd(ps_weights, b, fedavg_lr))(batch)
         return transmit, metrics, velocity, error, client_weights
 
     return step
@@ -371,13 +436,14 @@ def build_server_round(cfg: Config) -> Callable:
     """Returns ``server_round(ps_weights, server_state, aggregated, lr,
     client_velocities=None, client_ids=None) -> (new_ps_weights,
     new_server_state, client_velocities, weight_update, support)``.
-    ``support`` holds the indices of the coordinates the update changed
-    (download accounting), or ((k,) indices, (k,) lr-scaled values) --
-    on the sparse re-sketch branch, where ``weight_update`` is None and
+    ``support`` names the coordinates the update changed (download
+    accounting): {"bitmap": the packed mask} on the threshold-select
+    paths; ((k,) indices, (k,) lr-scaled values) on the index paths and
+    the sparse re-sketch branch, where ``weight_update`` is None and
     the update is applied as a k-sized scatter instead of a dense (d,)
-    subtraction, and on true_topk's index branch -- or None for a dense
-    update (runtime/fed_model.py decides its form). fedavg's server
-    takes lr = 1 (the clients applied the LR). Under true_topk with
+    subtraction; or None for a dense update (runtime/fed_model.py
+    decides its form). fedavg's server takes lr = 1 (the clients
+    applied the LR). Under true_topk with
     local momentum, the participating clients' velocity rows
     (``client_ids``, dead slots at the dead-slot row) are zeroed where
     the server sent, in place."""
@@ -387,8 +453,9 @@ def build_server_round(cfg: Config) -> Callable:
     def server_round(ps_weights: torch.Tensor, server_state: ServerState,
                      aggregated: torch.Tensor, lr, client_velocities=None,
                      client_ids=None):
-        lr = torch.as_tensor(1.0 if cfg.mode == "fedavg" else lr,
-                             dtype=torch.float32, device=ps_weights.device)
+        # made on the device: a copy up would stop the host
+        lr = torch.full((), 1.0 if cfg.mode == "fedavg" else float(lr),
+                        dtype=torch.float32, device=ps_weights.device)
         res = server_update(cfg, aggregated, server_state, lr, sketch)
         if res.weight_update is None:
             # the indices are sorted and unique, so each coordinate

@@ -20,6 +20,7 @@ import torch
 
 from commefficient_tpu_torch.config import Config
 from commefficient_tpu_torch.ops.sketch import CountSketch
+from commefficient_tpu_torch.ops.vec import packbits
 
 
 class ServerState(NamedTuple):
@@ -51,11 +52,12 @@ class ServerUpdate(NamedTuple):
     # momentum factor masking of the participating clients' local
     # velocities; None for the other modes
     client_velocity_keep: Optional[torch.Tensor] = None
-    # the coordinates the lr-scaled update changes: (n,) int64 indices
-    # (nonzero), or ((k,) indices, (k,) lr-scaled values), of which
-    # those with a nonzero value; None for a dense update (the caller
-    # decides, runtime/fed_model.py). On the device; download
-    # accounting reads only these
+    # the coordinates the lr-scaled update changes: {"bitmap": the
+    # packed (update * lr != 0) mask} (ops/vec.py packbits, the
+    # threshold-select paths), or ((k,) indices, (k,) lr-scaled
+    # values), of which those with a nonzero value; None for a dense
+    # update (the caller decides, runtime/fed_model.py). On the device,
+    # made with no host read; download accounting reads only these
     support: object = None
 
 
@@ -105,10 +107,11 @@ def _true_topk(cfg, gradient, state, lr, sketch):
     k = min(cfg.k, cfg.grad_size)
     if use_threshold_select(k, cfg.grad_size, False):
         # the dense update's support is the value-compare of the
-        # lr-scaled update, as the reference's bitmap
+        # lr-scaled update, packed on the device (reference
+        # core/server.py:242)
         mask = threshold_topk_mask_1d(Verr * Verr, k)
         update = torch.where(mask, Verr, torch.zeros_like(Verr))
-        support = torch.nonzero(update * lr).flatten()
+        support = {"bitmap": packbits((update * lr) != 0)}
     else:
         update, idx, vals = topk_with_support(Verr, k)
         support = _lr_scaled_support(idx, vals, lr)
@@ -154,13 +157,14 @@ def _sketched(cfg: Config, sketched_grad: torch.Tensor,
     # a dense (d,) vector. Otherwise exact recovery goes through the
     # threshold mask (dense regime) or the index path.
     sparse = sketch.prefer_sparse_resketch(cfg.k)
+    support = None
     if sketch.prefer_threshold_unsketch(cfg.k):  # implies not sparse
         update, _ = sketch.unsketch_dense_mask(Verr, k=cfg.k)
-    elif sparse:
-        _, idx, vals = sketch.unsketch(Verr, k=cfg.k, with_support=True,
-                                       with_dense=False)
     else:
-        update = sketch.unsketch(Verr, k=cfg.k)
+        update, idx, vals = sketch.unsketch(Verr, k=cfg.k,
+                                            with_support=True,
+                                            with_dense=not sparse)
+        support = _lr_scaled_support(idx, vals, lr)
 
     # re-sketch the recovered update to find which table buckets it
     # occupies; a bucket is kept only where no selected coordinate
@@ -178,8 +182,11 @@ def _sketched(cfg: Config, sketched_grad: torch.Tensor,
     state = ServerState(Vvel, Verr)
 
     if sparse:
-        return ServerUpdate(None, state,
-                            support=_lr_scaled_support(idx, vals, lr))
+        return ServerUpdate(None, state, support=support)
     weight_update = update * lr
-    support = torch.nonzero(weight_update).flatten()
+    if support is None:
+        # the threshold path's support: the value-compare of the
+        # lr-scaled update, packed on the device (reference
+        # core/server.py:318)
+        support = {"bitmap": packbits(weight_update != 0)}
     return ServerUpdate(weight_update, state, support=support)

@@ -15,6 +15,10 @@ Port of the single-device part of ``commefficient_tpu/ops/quant.py``
    an integer (or a value fp8 holds) gives it back.
 3. ``dequantize(q, scale)`` back to f32, so server state stays f32.
 
+Every function takes one (r, c) table or a (C, r, c) stack of them
+(the per-client wire, ``core/rounds.py``): scales are per row along
+the last axis, so a stack gives each table's own bytes.
+
 ``bf16`` is scale-free: a cast. The reference's collectives
 (``wire_psum``, ``global_rowmax_over``) belong to the multi-GPU path.
 
@@ -54,7 +58,8 @@ def local_rowmax(table: torch.Tensor) -> torch.Tensor:
 def _scale(rowmax: torch.Tensor, q: float) -> torch.Tensor:
     """rowmax/q, and exactly 1.0 for an all-zero row (the guard keeps
     0/0 out; a zero row dequantizes to zero either way)."""
-    qt = torch.tensor(q, dtype=torch.float32, device=rowmax.device)
+    # made on the device (a copy up would stop the host)
+    qt = torch.full((), q, dtype=torch.float32, device=rowmax.device)
     one = torch.ones((), dtype=torch.float32, device=rowmax.device)
     return torch.where(rowmax > 0.0, rowmax / qt, one)
 
@@ -71,7 +76,7 @@ def _round_clip_int8(x: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_local(table: torch.Tensor, wire: str):
-    """f32 table -> (wire-dtype table, f32 rowmax (rows, 1)), full-range
+    """f32 table -> (wire-dtype table, f32 rowmax (..., rows, 1)), full-range
     local quantization. bf16 is a cast with rowmax None."""
     if wire == "bf16":
         return table.to(torch.bfloat16), None

@@ -158,8 +158,11 @@ class CountSketch:
         key = str(device)
         rot = self._rot_cache.get(key)
         if rot is None:
-            rot = torch.as_tensor(self._rotations().astype(np.int32),
-                                  device=device)
+            rot = torch.from_numpy(self._rotations().astype(np.int32))
+            if device.type == "cuda":
+                # from pinned memory, so that the first round that asks
+                # for them does not stop the host
+                rot = rot.pin_memory().to(device, non_blocking=True)
             self._rot_cache[key] = rot
         return rot
 
@@ -372,21 +375,23 @@ class CountSketch:
     @staticmethod
     def l2estimate(table: torch.Tensor) -> torch.Tensor:
         """sqrt(median over rows of per-row sum of squares); the mean
-        of the two middle rows for even r, as jnp.median."""
-        sums = torch.sort(torch.sum(table * table, dim=1)).values
-        n = sums.shape[0]
-        med = (sums[n // 2] if n % 2
-               else (sums[n // 2 - 1] + sums[n // 2]) * 0.5)
+        of the two middle rows for even r, as jnp.median. A (C, r, c)
+        stack gives each table's estimate, (C,)."""
+        sums = torch.sort(torch.sum(table * table, dim=-1), dim=-1).values
+        n = sums.shape[-1]
+        med = (sums[..., n // 2] if n % 2
+               else (sums[..., n // 2 - 1] + sums[..., n // 2]) * 0.5)
         return torch.sqrt(med)
 
 
 def clip_record(record: torch.Tensor, clip: float, *,
                 is_sketch: bool) -> torch.Tensor:
     """L2-clip a dense vector, or a sketch table by its l2estimate;
-    only ever shrinks (reference ``clip_record``, ops/sketch.py:683)."""
+    only ever shrinks (reference ``clip_record``, ops/sketch.py:683).
+    A (C, r, c) stack of tables is clipped table by table."""
     if not is_sketch:
         from commefficient_tpu_torch.ops.vec import clip_by_l2
         return clip_by_l2(record, clip)
     norm = CountSketch.l2estimate(record)
     scale = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
-    return record * scale
+    return record * scale[..., None, None]

@@ -49,12 +49,20 @@ class _Unravel(torch.autograd.Function):
     """All leaf views of the flat vector at once. The backward
     concatenates the leaves' gradients into ONE flat gradient; slicing
     leaf by leaf would have autograd build a zero-filled flat-sized
-    tensor per leaf (some 150 of 124M floats each for GPT-2)."""
+    tensor per leaf (some 150 of 124M floats each for GPT-2). The
+    separate ``setup_context`` and the generated vmap rule let
+    ``torch.func.grad`` and ``vmap`` run through it (the batched
+    per-client pass, core/grad.py)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, flat, shapes):
-        ctx.shapes = shapes
+    def forward(flat, shapes):
         return _views(flat, shapes)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.shapes = inputs[1]
 
     @staticmethod
     def backward(ctx, *grads):
@@ -117,3 +125,16 @@ def clip_by_l2(vec: torch.Tensor, clip) -> torch.Tensor:
     norm = global_norm(vec)
     scale = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
     return vec * scale
+
+
+def packbits(mask: torch.Tensor) -> torch.Tensor:
+    """(n,) bool -> (ceil(n/8),) uint8, big-endian bit order within a
+    byte and the tail zero-padded: ``np.packbits`` and ``jnp.packbits``
+    of the same mask. Runs on the tensor's device (the download
+    support crosses to the host as this bitmap, 1/64 of int64 indices);
+    ``np.unpackbits`` inverts it."""
+    bits = mask.reshape(-1).to(torch.uint8)
+    bits = torch.nn.functional.pad(bits, (0, (-bits.numel()) % 8))
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=mask.device)
+    return torch.sum(bits.reshape(-1, 8) << shifts, dim=1,
+                     dtype=torch.uint8)

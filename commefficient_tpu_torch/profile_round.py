@@ -16,14 +16,19 @@ offline in a temporary directory), the same sketch and k:
 
 - ``round_wall``: wall seconds per round, data pull included, with no
   added syncs and no profiler (the round ends when its metrics reach
-  the host);
+  the host; pipelined, when it is dispatched and a due flush is done,
+  so the mean is the figure to read);
 - ``phases``: mean seconds per round of the data pull, the client
   half and the server half, each closed by ``torch.cuda.synchronize``
   (syncs serialise what would overlap, so these sum to more than a
-  plain round);
+  plain round), and of ``--pipeline_depth``'s flushes (the replayed
+  accounting; 0 at depth 1);
 - ``host_syncs``: the host syncs of one round's client half and of
   its server half, counted as the warnings that
-  ``torch.cuda.set_sync_debug_mode("warn")`` raises in each;
+  ``torch.cuda.set_sync_debug_mode("warn")`` raises in each; under
+  ``--pipeline_depth N`` > 1 also the flushes over N rounds that waited
+  on the card (one event wait each, which the debug mode does not
+  count) and the syncs inside them;
 - ``device``: ``torch.profiler`` over as many more rounds: device
   busy time per round, its share of the profiled wall time, and the
   kernels and copies with the most device time.
@@ -153,6 +158,8 @@ def _profile(opts, model, opt, train_loader, extra=()):
         if sync:
             torch.cuda.synchronize()
         marks.append(time.perf_counter())
+        model.flush(force=False)
+        marks.append(time.perf_counter())
         return np.diff(marks)
 
     for _ in range(3):  # warm-up: cuDNN plans, kernel builds
@@ -165,20 +172,37 @@ def _profile(opts, model, opt, train_loader, extra=()):
                       "trainer_flags": list(extra),
                       "rounds": opts.rounds,
                       "data_s": phases[0], "client_s": phases[1],
-                      "server_s": phases[2]}), flush=True)
+                      "server_s": phases[2], "flush_s": phases[3]}),
+          flush=True)
 
-    batch = next(it)
-    print(json.dumps({"phase": "host_syncs",
-                      "client": _host_syncs(lambda: model(batch)),
-                      "server": _host_syncs(opt.step)}), flush=True)
+    depth = model.pipeline_depth
+    model.flush()
+    syncs = {"client": [], "server": [], "flush": []}
+    waits = 0
+    for _ in range(depth):
+        batch = next(it)
+        syncs["client"].append(_host_syncs(lambda: model(batch)))
+        syncs["server"].append(_host_syncs(opt.step))
+        out = []
+        syncs["flush"].append(_host_syncs(
+            lambda: out.extend(model.flush(force=False))))
+        waits += bool(out)
+    print(json.dumps({"phase": "host_syncs", "pipeline_depth": depth,
+                      "client": syncs["client"][0],
+                      "server": syncs["server"][0],
+                      "per_round": syncs,
+                      "flush_waits_per_round": waits / depth}),
+          flush=True)
 
     walls = []
     for _ in range(opts.rounds):
         r0 = time.perf_counter()
         one_round()
         walls.append(time.perf_counter() - r0)
+    model.flush()
     print(json.dumps({"phase": "round_wall", "seconds": walls,
                       "median_s": float(np.median(walls)),
+                      "mean_s": float(np.mean(walls)),
                       "peak_mem_GiB":
                           torch.cuda.max_memory_allocated() / 2**30}),
           flush=True)
@@ -190,6 +214,7 @@ def _profile(opts, model, opt, train_loader, extra=()):
         t0 = time.perf_counter()
         for _ in range(opts.rounds):
             one_round()
+        model.flush()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
     # kernels and copies only: an aten op's row can repeat its

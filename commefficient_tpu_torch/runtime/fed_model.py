@@ -26,9 +26,21 @@ coordinate of a dense update): 4 bytes each under
 ``--downlink_encoding dense``, and under ``delta`` the value at wire
 width plus an int32 index for each coordinate that does not repeat
 the previous update's support, with a bitmap over that support for a
-client that saw it (``_account_bytes``, ``note_update``).
-Telemetry, the autopilot, the host client store, pipelined dispatch
-and meshes are not ported.
+client that saw it (``_account_bytes``, ``note_update``). A support
+crosses to the host as the server made it on the device: a packed
+bitmap of the changed coordinates (the dense-update modes and the
+threshold-select paths), or k (index, value) pairs.
+
+``--pipeline_depth N`` > 1 (reference fed_model.py:340-348, ``flush``
+:828, ``drain_rounds`` :1203): ``model(batch)`` returns None and keeps
+the round's metrics on the device; the round's accounting and the
+server's note wait in a log, in dispatch order. ``flush`` brings up to
+N rounds' metrics and supports to the host at once (pinned buffers,
+one event wait) and replays the log, so a round makes no host sync
+and the host runs up to N rounds ahead of the device. The per-round
+math, bytes and losses are those of depth 1.
+Telemetry, the autopilot, the host client store and meshes are not
+ported.
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ from commefficient_tpu_torch.core.rounds import (ClientStates, _dead_row,
                                                  build_server_round)
 from commefficient_tpu_torch.core.server import ServerState
 from commefficient_tpu_torch.device import resolve_device
+from commefficient_tpu_torch.ops.vec import packbits
 
 # the most recently constructed FedModel, found by FedOptimizer(args)
 # as in the reference
@@ -117,6 +130,12 @@ class FedModel:
         # round-fresh client holds)
         self._repeat_count = 0
         self._bitmap_bits = 0
+        # --pipeline_depth: rounds dispatched but not yet flushed, their
+        # device metrics, and the log of deferred ("account", ids, mask)
+        # and ("note", support) host ops
+        self.pipeline_depth = int(args.pipeline_depth)
+        self._inflight = []
+        self._oplog = []
         _CURRENT_MODEL = self
 
     def train(self, training: bool):
@@ -149,9 +168,45 @@ class FedModel:
         self.pending_client_ids = _state_ids(
             ids, dev_batch, _dead_row(self.client_states))
         self.round_index += 1
+        if self.pipeline_depth > 1:
+            self._inflight.append(list(res.metrics))
+            self._oplog.append(("account", ids_np.copy(),
+                                np.array(batch["mask"])))
+            return None
         metrics = [m.to("cpu").numpy() for m in res.metrics]
         down, up = self._account_bytes(ids_np, batch["mask"])
         return metrics + [down, up]
+
+    def flush(self, force=True):
+        """Bring the dispatched rounds' metrics and the server's
+        supports to the host in one batch, and replay the deferred
+        accounting and notes in dispatch order. Returns each round's
+        outputs as a synchronous ``model(batch)`` returns them; nothing
+        until ``pipeline_depth`` rounds wait, unless ``force``."""
+        if self.pipeline_depth <= 1 or not self._inflight:
+            return []
+        if not force and len(self._inflight) < self.pipeline_depth:
+            return []
+        notes = [op[1] for op in self._oplog if op[0] == "note"]
+        host = iter(_to_host(
+            [t for ms in self._inflight for t in ms]
+            + [t for sup in notes for t in _support_tensors(sup)]))
+        rounds = [[next(host) for _ in ms] for ms in self._inflight]
+        self._inflight = []
+        oplog, self._oplog = self._oplog, []
+        results = []
+        for op in oplog:
+            if op[0] == "account":
+                down, up = self._account_bytes(op[1], op[2])
+                results.append(rounds[len(results)] + [down, up])
+            else:
+                sup = op[1]
+                if isinstance(sup, dict):
+                    sup = {"bitmap": next(host)}
+                elif sup is not None:
+                    sup = (next(host), next(host))
+                self._apply_note(sup)
+        return results
 
     def _call_val(self, batch):
         with torch.no_grad():
@@ -203,11 +258,13 @@ class FedModel:
 
     def note_update(self, support):
         """Record the server update's support for download accounting
-        (reference ``_apply_note`` and ``_note_delta_support``,
-        fed_model.py:1146-1212): the (n,) indices of the coordinates it
-        changed; or ((k,) indices, (k,) lr-scaled values), of which the
-        indices with a nonzero value changed; or None, a dense update:
-        every coordinate changed.
+        (reference ``note_update``, ``_apply_note`` and
+        ``_note_delta_support``, fed_model.py:1128-1212), at once or,
+        pipelined, at the next ``flush``: {"bitmap": (ceil(d/8),)
+        uint8}, the packed mask of the coordinates it changed (big-endian
+        bits, ``ops/vec.py packbits``); or ((k,) indices, (k,) lr-scaled
+        values), of which the indices with a nonzero value changed; or
+        None, a dense update: every coordinate changed.
 
         The --downlink_encoding delta bookkeeping rolls forward with
         it: how many of this update's indices repeat the previous
@@ -218,6 +275,12 @@ class FedModel:
         previous update, so both are counts taken here -- the
         reference's ``intersect1d`` with a kept index array gives the
         same numbers, in a sort of both supports."""
+        if self.pipeline_depth > 1:
+            self._oplog.append(("note", support))
+            return
+        self._apply_note(support)
+
+    def _apply_note(self, support):
         self._update_round += 1
         r = self._update_round
         if len(self._round_counts) < r + 2:
@@ -232,18 +295,62 @@ class FedModel:
             self._round_counts[:] = 0
             self._round_counts[r + 1] = self.args.grad_size
             return
-        if isinstance(support, tuple):
-            idx, vals = (t.to("cpu").numpy() for t in support)
-            idx = idx[vals != 0]
+        if isinstance(support, dict):
+            # unpacked and trimmed to d (fed_model.py:1170-1172); the
+            # 0/1 bytes read as bool, where np.flatnonzero is fastest
+            bits = np.unpackbits(_np(support["bitmap"]),
+                                 count=self.args.grad_size)
+            idx = np.flatnonzero(bits.view(bool))
         else:
-            idx = support.to("cpu").numpy()
-        idx = idx.astype(np.int64)
+            idx, vals = (_np(t) for t in support)
+            idx = idx[vals != 0].astype(np.int64)
         old = self.last_updated[idx] + 1
         self._repeat_count = int(np.count_nonzero(old == r))
         self._round_counts -= np.bincount(
             old, minlength=len(self._round_counts))
         self._round_counts[r + 1] += len(idx)
         self.last_updated[idx] = r
+
+
+def _np(x) -> np.ndarray:
+    return x.to("cpu").numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def _support_tensors(support) -> list:
+    if support is None:
+        return []
+    if isinstance(support, dict):
+        return [support["bitmap"]]
+    return list(support)
+
+
+def _to_host(tensors) -> list:
+    """Tensors -> numpy arrays, in one batch: on the card each is
+    copied into a pinned buffer with ``non_blocking=True``, then one
+    event wait (the pipelined rounds' one host sync)."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return [t.numpy() for t in tensors]
+    bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for buf, t in zip(bufs, tensors):
+        buf.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return [buf.numpy() for buf in bufs]
+
+
+def drain_rounds(model, pending, process, force) -> bool:
+    """The trainer's side of the pipeline (reference ``drain_rounds``,
+    fed_model.py:1203): ``model.flush(force)``'s rounds in dispatch
+    order, each passed to ``process(metrics, *context)`` with the
+    context its dispatch queued in ``pending``. False as soon as
+    ``process`` returns False (a divergence stop)."""
+    for metrics in model.flush(force=force):
+        if not process(metrics, *pending.pop(0)):
+            return False
+    return True
 
 
 class FedOptimizer:
@@ -294,11 +401,14 @@ class FedOptimizer:
             # LR moves nothing; local_topk's update holds only the union
             # of past top-k selections, and fedavg's first one is zero
             # (its clients ran at LR 0), so both take the reference's
-            # value-compare; otherwise every coordinate changed
+            # value-compare, packed on the device
+            # (fed_model.py:1384-1391); otherwise every coordinate
+            # changed
             if self.args.mode != "fedavg" and lr == 0:
-                support = torch.zeros(0, dtype=torch.int64)
+                none = torch.zeros(0, device=m.device)
+                support = (none.to(torch.int64), none)
             elif self.args.mode in ("local_topk", "fedavg"):
-                support = torch.nonzero(update).flatten()
+                support = {"bitmap": packbits(update != 0)}
         m.note_update(support)
 
 

@@ -2,7 +2,9 @@
 
 Same CLI (the flags the port has), same round loop: the LR scheduler
 stepped *before* the round, the LR==0 "HACK STEP", the NaN abort,
-fractional epochs, the byte-accounting totals and TableLogger rows.
+fractional epochs, the byte-accounting totals and TableLogger rows;
+under ``--pipeline_depth`` > 1 rounds are dispatched ahead and
+processed as they are flushed (reference cv_train.py:249-266).
 Runs on the card unless ``--device cpu`` is given.
 
 Run e.g.:
@@ -27,7 +29,8 @@ from commefficient_tpu_torch.data import (FedLoader, FedSampler, ValLoader,
                                           get_dataset_cls)
 from commefficient_tpu_torch.device import resolve_device
 from commefficient_tpu_torch.models import get_model
-from commefficient_tpu_torch.runtime import FedModel, FedOptimizer, LambdaLR
+from commefficient_tpu_torch.runtime import (FedModel, FedOptimizer,
+                                             LambdaLR, drain_rounds)
 from commefficient_tpu_torch.utils import (PiecewiseLinear, TableLogger,
                                            Timer, steps_per_epoch)
 
@@ -70,8 +73,13 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
     receives each training round's wall seconds, from the scheduler
     step to the round's metrics on the host after ``opt.step()``
     queued the server half (so each interval also holds the previous
-    round's server work); ``round_losses`` each round's sample-weighted
-    train loss (rounds with no real sample give none)."""
+    round's server work); under ``--pipeline_depth`` > 1, from the
+    scheduler step to the round's dispatch, and the flush that a
+    dispatch triggers counts in its round. ``round_losses`` receives
+    each round's sample-weighted train loss (rounds with no real
+    sample give none). Pipelined rounds are processed as ``flush``
+    brings them to the host, in dispatch order; the divergence stop
+    fires at the flush that sees the bad loss."""
     if training:
         model.train(True)
         losses, accs = [], []
@@ -79,6 +87,25 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
         upload_total = np.zeros(model.num_clients)
         spe = len(loader)
         max_batches = max(1, int(spe * epoch_fraction))
+        pending = []
+
+        def process(metrics, i, w):
+            loss, acc, download, upload = (metrics[0], metrics[1],
+                                           metrics[-2], metrics[-1])
+            download_total[:] += download
+            upload_total[:] += upload
+            if w.sum() > 0:
+                losses.append(float(np.sum(loss * w) / w.sum()))
+                accs.append(float(np.sum(acc * w) / w.sum()))
+                if round_losses is not None:
+                    round_losses.append(losses[-1])
+                if not math.isfinite(losses[-1]) or \
+                        losses[-1] > args.nan_threshold:
+                    print(f"Stopping at batch {i}: diverged "
+                          f"(loss {losses[-1]})")
+                    return False
+            return True
+
         for i, batch in enumerate(loader):
             if i >= max_batches:
                 break
@@ -91,25 +118,21 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
                     g["lr"] = 1e-10
             metrics = model(batch)
             opt.step()
+            w = np.asarray(batch["mask"]).sum(axis=1)
+            if metrics is None:
+                # pipelined: the round's results come with a flush
+                pending.append((i, w))
+                ok = drain_rounds(model, pending, process, force=False)
+            else:
+                ok = process(metrics, i, w)
             if round_times is not None:
                 round_times.append(time.perf_counter() - t0)
-            loss, acc, download, upload = (metrics[0], metrics[1],
-                                           metrics[-2], metrics[-1])
-            download_total[:] += download
-            upload_total[:] += upload
-            w = np.asarray(batch["mask"]).sum(axis=1)
-            if w.sum() > 0:
-                losses.append(float(np.sum(loss * w) / w.sum()))
-                accs.append(float(np.sum(acc * w) / w.sum()))
-                if round_losses is not None:
-                    round_losses.append(losses[-1])
-                if not math.isfinite(losses[-1]) or \
-                        losses[-1] > args.nan_threshold:
-                    print(f"Stopping at batch {i}: diverged "
-                          f"(loss {losses[-1]})")
-                    return None
+            if not ok:
+                return None
             if args.do_test:
                 break
+        if not drain_rounds(model, pending, process, force=True):
+            return None
         if not losses:
             return (float("nan"), float("nan"),
                     download_total, upload_total)

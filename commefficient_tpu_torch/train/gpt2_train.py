@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from commefficient_tpu_torch.config import Config, parse_args
+from commefficient_tpu_torch.core.rounds import fused_grad_eligible
 from commefficient_tpu_torch.data.fed_persona import (
     FedPERSONA, generate_learnable_personachat,
     generate_synthetic_personachat)
@@ -308,6 +309,19 @@ def main(argv=None):
         # the host client store
         raise NotImplementedError(
             f"gpt2_train --mode {args.mode} is not ported")
+    if args.pipeline_depth > 1:
+        # the sparse re-sketch branch compacts its support with
+        # torch.nonzero (ops/sketch.py unsketch), a host read: such a
+        # round cannot run ahead of the card
+        raise NotImplementedError(
+            "gpt2_train --pipeline_depth > 1 is not ported")
+    if not fused_grad_eligible(args):
+        # the per-client round runs the loss under torch.func.vmap;
+        # GPT-2's loss launches the fused CE kernels or checkpoints its
+        # chunks, and neither composes with torch.func yet
+        raise NotImplementedError(
+            "gpt2_train's per-client round (--max_grad_norm, "
+            "--microbatch_size) is not ported")
     device = resolve_device(args.device)
     np.random.seed(args.seed)
 

@@ -28,6 +28,11 @@ the CPU.
   flipped buckets can move (lr x the steps carried by momentum and
   error feedback); selection sets equal; upload and delta-downlink
   byte totals equal exactly.
+- **The per-client wire** (``--max_grad_norm`` on int8/fp8, fp8 also
+  at ``--overlap_depth 2``): the clipped client table, quantized on its
+  own, bit-exact against the op-by-op JAX round as the fused wire is;
+  the (C, r, c) batched quantize-dequantize bit-exact against JAX
+  ``quantize_table`` on each table.
 - **Config.** The three flags parse, and a non-f32 wire outside sketch
   mode is refused as the reference refuses it.
 """
@@ -100,7 +105,9 @@ def _port_table(g, **kw):
     gt = torch.from_numpy(g)
 
     def loss(p, batch):
-        val = torch.sum(p * gt) * torch.ones(batch["mask"].shape[0])
+        # per client of a (W, B) round batch (the fused round), a
+        # scalar for one client's (B,) batch (the per-client round)
+        val = torch.sum(p * gt) * torch.ones(batch["mask"].shape[:-1])
         return val, (val * 0.0,)
 
     fn = build_client_round(cfg, loss)
@@ -121,6 +128,49 @@ def test_round_table_matches_jax_bitwise(wire, depth):
     f32 = _port_table(g)
     assert f32.tobytes() == _jax_table(g).tobytes()
     assert port.tobytes() != f32.tobytes()
+
+
+@pytest.mark.parametrize("wire,depth", [("int8", 1), ("fp8", 1),
+                                        ("fp8", 2)])
+def test_clipped_round_table_matches_jax_bitwise(wire, depth):
+    """--max_grad_norm on a quantized wire: the client's table is
+    sketched, clipped by its l2estimate, then crosses the wire on its
+    own (the reference's per-client ``_qdq_local``), at any
+    --overlap_depth."""
+    g = _gradient()
+    kw = dict(sketch_dtype=wire, overlap_depth=depth, max_grad_norm=10.0)
+    port = _port_table(g, **kw)
+    assert port.tobytes() == _jax_table(g, **kw).tobytes()
+    # the clip acted, and the wire quantized the clipped table
+    unclipped = _port_table(g, sketch_dtype=wire, overlap_depth=depth)
+    assert np.abs(port).max() < np.abs(unclipped).max()
+    f32 = _port_table(g, max_grad_norm=10.0)
+    assert f32.tobytes() == _jax_table(g, max_grad_norm=10.0).tobytes()
+    assert port.tobytes() != f32.tobytes()
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_batched_qdq_matches_jax_table_by_table(wire):
+    """The per-client wire crosses a (C, r, c) stack of tables at once:
+    each table's bytes and scales are JAX ``quantize_table``'s of that
+    table alone, and an all-zero table (a dead slot) stays zero."""
+    from commefficient_tpu.ops import quant as jax_quant
+    from commefficient_tpu_torch.ops import quant
+    rs = np.random.RandomState(9)
+    stack = (rs.randn(3, R, C) * np.array([1.0, 1e-3, 0.0])[:, None, None]
+             ).astype(np.float32)
+    q, scale = quant.quantize_table(torch.from_numpy(stack), wire)
+    got = quant.dequantize(q, scale).numpy()
+    for i in range(3):
+        jq, jscale = jax_quant.quantize_table(jnp.asarray(stack[i]), wire)
+        assert q[i].contiguous().view(torch.uint8).numpy().tobytes() \
+            == np.asarray(jq).tobytes(), i
+        want = np.asarray(jax_quant.dequantize(jq, jscale))
+        if jscale is not None:
+            assert scale[i].numpy().tobytes() == \
+                np.asarray(jscale).tobytes(), i
+        assert got[i].tobytes() == want.tobytes(), i
+    assert not got[2].any()
 
 
 @pytest.mark.parametrize("wire", WIRES)

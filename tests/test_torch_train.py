@@ -116,7 +116,7 @@ def test_mode_trainer_matches_jax_bytes_and_losses(mode, monkeypatch):
 
 @pytest.mark.parametrize("argv,name", [
     (["--do_dp"], "--do_dp"),
-    (["--client_chunk", "2"], "--client_chunk"),
+    (["--robust_agg", "median"], "--robust_agg"),
     (["--model", "FixupResNet9"], "--model FixupResNet9"),
     (["--dataset_name", "CIFAR10"], "--dataset_name CIFAR10"),
 ])
@@ -130,12 +130,18 @@ def test_unported_options_raise(argv, name):
 
 
 def test_per_client_quantized_wire_raises():
-    """Each client's clipped table would cross the wire quantized on
-    its own: not ported."""
-    with pytest.raises(NotImplementedError,
-                       match="--max_grad_norm with --sketch_dtype int8"):
-        cv_train.main(["--device", "cpu"] + ARGV + [
-            "--max_grad_norm", "1", "--sketch_dtype", "int8"])
+    """The per-client quantized wire (each client's clipped table
+    crosses the wire quantized on its own) raised until it was ported;
+    now it runs, and each client's upload is priced at the int8
+    wire."""
+    results = cv_train.main(["--device", "cpu"] + ARGV + [
+        "--max_grad_norm", "1", "--sketch_dtype", "int8"])
+    assert len(results) == 2
+    for row in results:
+        assert np.isfinite(row["train_loss"])
+        # one round an epoch (--test) of 2 clients, each one 1 x 10
+        # int8 table and its row scale
+        assert row["up (MiB)"] == 2 * (10 + 4) / 2**20
 
 
 def test_gpt2_trainer_other_modes_raise():
@@ -144,3 +150,177 @@ def test_gpt2_trainer_other_modes_raise():
                        match="gpt2_train --mode true_topk"):
         gpt2_train.main(["--device", "cpu", "--test", "--mode",
                          "true_topk", "--error_type", "virtual"])
+
+
+# --- the download support as a packed bitmap; --pipeline_depth -------------
+
+
+@pytest.mark.parametrize("d", [1, 13, 6_584_003])
+def test_packbits_matches_numpy(d):
+    """The device-side pack of a support mask (ops/vec.py) is
+    ``np.packbits`` of it, bit for bit, at d not a multiple of 8."""
+    from commefficient_tpu_torch.ops.vec import packbits
+    mask = np.random.RandomState(d % 97).rand(d) < 0.3
+    got = packbits(torch.from_numpy(mask)).numpy()
+    assert got.dtype == np.uint8
+    assert got.tobytes() == np.packbits(mask).tobytes()
+    assert np.array_equal(np.unpackbits(got)[:d].astype(bool), mask)
+
+
+SUPPORT_ARGV = {
+    "local_topk": MODE_ARGV["local_topk"],
+    "fedavg": MODE_ARGV["fedavg"],
+    "true_topk": MODE_ARGV["true_topk"],
+    "sketch": [],
+}
+
+
+@pytest.mark.parametrize("mode", sorted(SUPPORT_ARGV))
+def test_support_bitmap_bills_the_bytes_of_int64_indices(mode,
+                                                         monkeypatch):
+    """Four --test rounds of each mode, their supports crossing as packed
+    bitmaps and, as before the bitmap, as the int64 indices of the
+    changed coordinates (``torch.nonzero``): per-round, per-client
+    download and upload bytes equal. The threshold-select paths (true_topk's
+    and the sketch's bitmap) are made to engage at this small d."""
+    from commefficient_tpu_torch.core import server
+    from commefficient_tpu_torch.ops import topk
+    from commefficient_tpu_torch.runtime import fed_model
+    monkeypatch.setattr(topk, "_THRESHOLD_SELECT_MIN_D", 16)
+    argv = (["--device", "cpu"] + ARGV + SUPPORT_ARGV[mode]
+            + ["--num_epochs", "4"])
+
+    def run():
+        billed, forms = [], []
+        account = fed_model.FedModel._account_bytes
+
+        def record(self, *a, **kw):
+            billed.append(account(self, *a, **kw))
+            return billed[-1]
+
+        note = fed_model.FedModel.note_update
+
+        def seen(self, support):
+            forms.append(type(support).__name__)
+            return note(self, support)
+
+        with monkeypatch.context() as m:
+            m.setattr(fed_model.FedModel, "_account_bytes", record)
+            m.setattr(fed_model.FedModel, "note_update", seen)
+            cv_train.main(argv)
+        return billed, forms
+
+    bitmap, forms = run()
+    assert len(bitmap) == 4 and set(forms) == {"dict"}
+
+    def indices(mask):
+        return torch.nonzero(mask).flatten()
+
+    apply_note = fed_model.FedModel._apply_note
+
+    def apply_indices(self, support):
+        if isinstance(support, dict):  # the indices' form before
+            idx = support["bitmap"]
+            assert idx.dtype == torch.int64
+            support = (idx, torch.ones(idx.shape))
+        return apply_note(self, support)
+
+    monkeypatch.setattr(server, "packbits", indices)
+    monkeypatch.setattr(fed_model, "packbits", indices)
+    monkeypatch.setattr(fed_model.FedModel, "_apply_note", apply_indices)
+    before, _ = run()
+    assert len(before) == 4
+    for r, ((down, up), (down0, up0)) in enumerate(zip(bitmap, before)):
+        np.testing.assert_array_equal(down, down0, err_msg=f"round {r}")
+        np.testing.assert_array_equal(up, up0, err_msg=f"round {r}")
+    assert sum(d.sum() for d, _ in bitmap) > 0
+
+
+def _tiny_build(monkeypatch):
+    """``--test``'s one-channel ResNet9, without ``--test``'s one round
+    an epoch."""
+    port_build = cv_train.build_model
+    monkeypatch.setattr(cv_train, "build_model", lambda args, device="cpu":
+                        port_build(args.replace(do_test=True), device))
+
+
+# 5 rounds: 0.0625 of an 80-round epoch (10 clients x 64 samples in
+# rounds of 2 x 4), the --test sketch
+PIPE_ARGV = ["--device", "cpu", "--dataset_name", "Synthetic",
+             "--num_clients", "10", "--num_workers", "2",
+             "--local_batch_size", "4", "--k", "10", "--num_cols", "10",
+             "--num_rows", "1", "--num_blocks", "1", "--num_epochs",
+             "0.0625", "--pivot_epoch", "0.03", "--lr_scale", "0.1"]
+PIPE_MODES = {
+    "sketch": ["--mode", "sketch", "--error_type", "virtual",
+               "--local_momentum", "0", "--virtual_momentum", "0.9"],
+    "local_topk": ["--mode", "local_topk", "--error_type", "local",
+                   "--local_momentum", "0.9"],
+}
+
+
+@pytest.mark.parametrize("mode", sorted(PIPE_MODES))
+def test_pipelined_trainer_matches_depth_one(mode, monkeypatch):
+    """5 rounds at --pipeline_depth 3 (a flush of 3, then a ragged one
+    of 2 at the epoch's end) against depth 1: per-round losses, the
+    epoch's accuracies and byte totals, bit for bit."""
+    _tiny_build(monkeypatch)
+    argv = PIPE_ARGV + PIPE_MODES[mode]
+    one = cv_train.main(argv)
+    model = fed_model_current()
+    assert model.pipeline_depth == 1
+    three = cv_train.main(argv + ["--pipeline_depth", "3"])
+    model = fed_model_current()
+    assert model.pipeline_depth == 3 and not model._inflight \
+        and not model._oplog
+    assert len(one) == len(three) == 1
+    assert len(one[0]["round_losses"]) == 5
+    for key in ("round_losses", "train_loss", "train_acc", "test_loss",
+                "test_acc", "down (MiB)", "up (MiB)"):
+        assert one[0][key] == three[0][key], key
+    assert one[0]["down (MiB)"] > 0
+
+
+def fed_model_current():
+    from commefficient_tpu_torch.runtime import fed_model
+    return fed_model._CURRENT_MODEL
+
+
+def test_pipelined_divergence_stop(monkeypatch, capsys):
+    """A loss over --nan_threshold stops training at the flush that
+    brings it to the host: the first round's, after 3 rounds were
+    dispatched at --pipeline_depth 3 (1 at depth 1)."""
+    _tiny_build(monkeypatch)
+    argv = PIPE_ARGV + PIPE_MODES["sketch"] + ["--nan_threshold", "-1"]
+    for depth, dispatched in (("1", 1), ("3", 3)):
+        assert cv_train.main(argv + ["--pipeline_depth", depth]) == []
+        assert fed_model_current().round_index == dispatched
+        assert "Stopping at batch 0: diverged" in capsys.readouterr().out
+
+
+def test_chunk_and_pipeline_flags():
+    """``--client_chunk`` and ``--pipeline_depth`` parse (the reference's
+    defaults, 0 and 1); a depth below 1 is refused with the reference's
+    message; gpt2_train refuses a depth above 1 and the per-client
+    round."""
+    from commefficient_tpu.config import Config as JaxConfig
+    from commefficient_tpu_torch.config import NOT_PORTED_FLAGS, Config
+    from commefficient_tpu_torch.train import gpt2_train
+    assert "--client_chunk" not in NOT_PORTED_FLAGS
+    assert "--pipeline_depth" not in NOT_PORTED_FLAGS
+    cfg = parse_args(argv=["--client_chunk", "3", "--pipeline_depth", "2"])
+    assert (cfg.client_chunk, cfg.pipeline_depth) == (3, 2)
+    default = parse_args(argv=[])
+    jdefault = jax_parse_args(argv=[])
+    assert (default.client_chunk, default.pipeline_depth) == \
+        (jdefault.client_chunk, jdefault.pipeline_depth) == (0, 1)
+    with pytest.raises(AssertionError) as port_err:
+        Config(pipeline_depth=0)
+    with pytest.raises(AssertionError) as jax_err:
+        JaxConfig(pipeline_depth=0)
+    assert str(port_err.value) == str(jax_err.value)
+    base = ["--device", "cpu", "--test"]
+    with pytest.raises(NotImplementedError, match="--pipeline_depth"):
+        gpt2_train.main(base + ["--pipeline_depth", "2"])
+    with pytest.raises(NotImplementedError, match="per-client round"):
+        gpt2_train.main(base + ["--max_grad_norm", "1"])
