@@ -27,6 +27,20 @@ through the kernels:
   forward / 1 flce backward per round, plus one flce forward per
   validation step. The f32 paths launch the sketch-and-quantize kernel
   zero times;
+- the image models on fixtures the script writes (``data/fixtures.py``:
+  random pixels in the archives' own formats), the same sketch, k and
+  8 clients x 8 samples, 4 rounds each through ``cv_train.main``:
+  ``emnist_path``, ResNet101LN at full width (d = 43 124 350, padded d
+  83 x 524 288) on LEAF FEMNIST shards, past the 90*r*k gate so the
+  server takes the sparse re-sketch branch (``sketch_sparse`` once a
+  round; launches 1 sketch / 1 estimates / 1 search / 1 take-mask a
+  round), the upload W f32 tables a round, finite losses, then
+  ``profile_round`` of it for the wall a round, the device's busy share
+  and its top ops; ``cifar_fixup_path``, FixupResNet9 at full width
+  (d = 6 568 673) with its three LR groups (a (d,) LR vector each step)
+  and ``--mixup``, on the dense re-sketch (2 sketch launches a round);
+  ``batchnorm_path``, ResNet9 ``--batchnorm``, whose running statistics
+  must move every round and be what validation normalizes by;
 - the other modes and the per-client round on the ResNet9 geometry
   (``MODE_PATHS``), 3-4 rounds each through ``cv_train.main``: true_topk
   with local momentum (the server masks the clients' velocities; 1
@@ -63,7 +77,8 @@ through the kernels:
 
 The sketch, estimates, threshold search, take-mask and sketch-and-
 quantize kernels are also checked and timed at GPT-2's padded_d =
-124 780 544. The sketch is held bit-equal to its plain version (signs
+124 780 544, and all but the sketch-and-quantize at ResNet101LN's
+43 515 904. The sketch is held bit-equal to its plain version (signs
 hashed, and read from the packed-sign stream as the main paths do) and
 the estimates exactly, at both shapes and in four other geometries;
 their rows carry ``design_floor_ms``, their L2 -> SM bytes at the rate
@@ -106,6 +121,7 @@ from commefficient_tpu_torch.config import Config, parse_args
 from commefficient_tpu_torch.core.grad import make_forward_grad
 from commefficient_tpu_torch.core.rounds import ClientStates
 from commefficient_tpu_torch.core.server import ServerState, server_update
+from commefficient_tpu_torch.data.fixtures import write_fixture
 from commefficient_tpu_torch.data.tokenizer import SPECIAL_TOKENS, load_tokenizer
 from commefficient_tpu_torch.ops import flce_kernels as fk
 from commefficient_tpu_torch.ops import quant
@@ -204,6 +220,28 @@ PIPE_PATHS = (
                     "--local_momentum", "0.9", "--lr_scale", "0.001"]),
 )
 PIPE_RTOL = 1e-5
+# the image models (ROADMAP item 10) on fixtures the script writes
+# (data/fixtures.py): the same sketch, k and W x B as the ResNet9 path.
+# ResNet101LN on LEAF FEMNIST (1 x 28 x 28, 62 classes, f32: the ResNet
+# family has no bf16) is past the 90*r*k gate, so its server takes the
+# sparse re-sketch branch; 4 rounds (0.45 of a 9-round epoch)
+EMNIST_D, EMNIST_PADDED_D = 43_124_350, 83 * 524_288
+IMAGE_SKETCH = ["--mode", "sketch", "--error_type", "virtual",
+                "--virtual_momentum", "0.9", "--local_momentum", "0",
+                "--num_rows", "5", "--num_cols", "524288", "--k", "50000",
+                "--num_workers", "8", "--local_batch_size", "8",
+                "--seed", "21", "--lr_scale", "0.1", "--pivot_epoch", "0.2"]
+EMNIST_ARGV = (["--dataset_name", "EMNIST", "--model", "ResNet101LN",
+                "--num_epochs", "0.45"] + IMAGE_SKETCH)
+# FixupResNet9 (its three LR groups) with mixup, and ResNet9 with
+# --batchnorm, on a CIFAR10 fixture: 4 rounds (0.4 of a 10-round
+# epoch), bf16 as the ResNet9 main path
+FIXUP_D, BN_D = 6_568_673, 6_588_480
+FIXUP_ARGV = (["--dataset_name", "CIFAR10", "--model", "FixupResNet9",
+               "--bf16", "--mixup", "--mixup_alpha", "0.2",
+               "--num_epochs", "0.4"] + IMAGE_SKETCH)
+BN_ARGV = (["--dataset_name", "CIFAR10", "--model", "ResNet9",
+            "--batchnorm", "--bf16", "--num_epochs", "0.4"] + IMAGE_SKETCH)
 KERNELS = (sk.sketch_kernel, sk.estimates_kernel, tk.threshold_key_kernel,
            tk.take_mask_kernel, sk.sketch_quant_kernel)
 FLCE = (fk.flce_fwd_kernel, fk.flce_bwd_kernel)
@@ -1055,22 +1093,25 @@ def flce_phases(dev, flush, m=GPT2_M, v=GPT2_V, c=GPT2_C):
     return rows
 
 
-def gpt2_shape_phase(dev, flush, l2_bps):
-    """The sketch, estimates, search and take-mask kernels at GPT-2's
-    padded_d (inputs far above the 50 MB L2), each against its plain
-    version, and the selection's time beside ``torch.topk``."""
-    sketch = CountSketch(d=GPT2_D, c=C, r=R, seed=SEED)
+def shape_phase(dev, flush, l2_bps, d=GPT2_D, tag="GPT-2",
+                phase="gpt2_shapes", quant=True):
+    """The sketch, estimates, search and take-mask kernels at a main
+    path's padded_d (GPT-2's, ResNet101LN's: inputs far above the 50 MB
+    L2), each against its plain version, and the selection's time
+    beside ``torch.topk``; with ``quant`` the sketch-and-quantize
+    kernel too."""
+    sketch = CountSketch(d=d, c=C, r=R, seed=SEED)
     m, pd = sketch._m, sketch._padded_d
     rot = sketch.rotations_on(dev)
     seed, one_mix = sketch.sign_seed, sketch._one_mix_signs
     gen = torch.Generator(device=dev).manual_seed(2)
     vp = torch.nn.functional.pad(
-        torch.randn(GPT2_D, generator=gen, device=dev), (0, pd - GPT2_D))
+        torch.randn(d, generator=gen, device=dev), (0, pd - d))
     out = {}
 
     signs = sketch.packed_signs_on(dev)
     tab_k, est_k = sketch_estimates_checks(vp, rot, C, R, seed, one_mix,
-                                           GPT2_D, "GPT-2", signs)
+                                           d, tag, signs)
     tol = 1e-5 * float(tab_k.abs().max()) + 1e-6 * float(vp.abs().max())
     b_ms, b_by = bound(4 * pd + 4 * R * m + 4 * R * C, R * pd)
     out["sketch"] = dict(
@@ -1085,11 +1126,12 @@ def gpt2_shape_phase(dev, flush, l2_bps):
     out["sketch"]["library_ms"] = time_ms(lambda: lib_tab.zero_().index_add_(
         0, flat_bucket, signed), 5, flush)
     check(torch.allclose(lib_tab.view(R, C), tab_k, rtol=0, atol=tol),
-          "index_add_ yardstick disagrees with the sketch at GPT-2 shape")
+          f"index_add_ yardstick disagrees with the sketch at {tag} shape")
     del flat_bucket, signed, lib_tab
-    sq_out = sketch_quant_numbers(vp, rot, R, seed, one_mix, signs, flush,
-                                  10, 2, l2_bps)
-    out["sketch_quant"] = dict(sq_out["int8"], fp8=sq_out["fp8"])
+    if quant:
+        sq_out = sketch_quant_numbers(vp, rot, R, seed, one_mix, signs,
+                                      flush, 10, 2, l2_bps)
+        out["sketch_quant"] = dict(sq_out["int8"], fp8=sq_out["fp8"])
     del vp
 
     b_ms, b_by = bound(4 * R * C + 4 * R * m + 4 * pd, median_ops(R) * pd)
@@ -1097,18 +1139,18 @@ def gpt2_shape_phase(dev, flush, l2_bps):
         max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
         design_floor_ms=design_floor_ms(R, pd, l2_bps),
         ms=time_ms(lambda: sk.estimates_kernel(tab_k, rot, C, R, seed,
-                                               one_mix, GPT2_D), 10, flush),
+                                               one_mix, d), 10, flush),
         plain_ms=time_ms(lambda: sk.estimates_plain(
-            tab_k, rot, C, R, seed, one_mix, GPT2_D), 3, flush))
+            tab_k, rot, C, R, seed, one_mix, d), 3, flush))
 
     # the server's selection runs over the padded estimates (tail zero)
     sq = (est_k * est_k).contiguous()
     del est_k
 
-    t, need, err = selection_checks(sq, K, "GPT-2")
-    sync_free_check(sq, K, "GPT-2")
+    t, need, err = selection_checks(sq, K, tag)
+    sync_free_check(sq, K, tag)
     out["threshold_key"] = threshold_key_row(sq, K, err, flush, 10, 2)
-    _, _, ties = take_mask_main_checks(sq, t, need, K, "GPT-2")
+    _, _, ties = take_mask_main_checks(sq, t, need, K, tag)
     b_ms, b_by = bound(4 * pd + pd + 16, 2 * pd)
     out["take_mask"] = dict(
         max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
@@ -1119,7 +1161,7 @@ def gpt2_shape_phase(dev, flush, l2_bps):
         plain_ms=time_ms(lambda: tk.take_mask_plain(sq, t, need), 3,
                          flush),
         library_ms=time_ms(lambda: torch.topk(sq, K), 5, flush))
-    emit({"phase": "gpt2_shapes", "d": GPT2_D, "padded_d": pd, "r": R,
+    emit({"phase": phase, "d": d, "padded_d": pd, "r": R,
           "c": C, "k": K, "kernels": out,
           "nibble_search_ms": out["threshold_key"]["ms"],
           "nibble_search": "threshold_key_kernel (csrc/radix_select.cu); "
@@ -1235,6 +1277,206 @@ def quant_main_path(argv, wire, chunks, f32_up_per_round=None):
           "wall_seconds": wall,
           "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30})
     return counts
+
+
+@contextlib.contextmanager
+def counting(owner, name):
+    """Counts the calls of ``owner.name`` (a method or a module
+    function) while the block runs: ``calls[0]``."""
+    calls = [0]
+    orig = getattr(owner, name)
+
+    def wrapped(*a, **kw):
+        calls[0] += 1
+        return orig(*a, **kw)
+
+    setattr(owner, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, orig)
+
+
+def sketch_round_launches(rounds, sketches=1):
+    """Launch counts of ``rounds`` f32 FetchSGD rounds: ``sketches``
+    sketch launches a round (1: the clients' emit; 2 with the server's
+    dense re-sketch), one estimates, one search and one take-mask."""
+    want = {k.__name__: 0 for k in KERNELS + FLCE}
+    want.update(sketch_kernel=sketches * rounds, estimates_kernel=rounds,
+                threshold_key_kernel=rounds, take_mask_kernel=rounds)
+    return want
+
+
+def image_run(argv):
+    """``cv_train.main(argv)`` with every launch count from 0: (results,
+    launch counts, rounds, wall seconds, the model)."""
+    for kern in KERNELS + FLCE:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    results = cv_train.main(argv)
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in KERNELS + FLCE}
+    check(len(results) == 1, f"{len(results)} epochs ran, want 1")
+    return (results[-1], counts, len(results[-1]["round_times"]), wall,
+            fed_model._CURRENT_MODEL)
+
+
+def image_checks(tag, row, counts, rounds, model, d, sketches):
+    """The image paths' common checks: d, 3-5 rounds, the launches a
+    round, the upload exactly W f32 r x c tables a round, every round's
+    train loss and the validation loss finite."""
+    args = model.args
+    check(args.grad_size == d, f"{tag}: d = {args.grad_size}, want {d}")
+    check(3 <= rounds <= 5, f"{tag}: {rounds} rounds ran, want 3-5")
+    want = sketch_round_launches(rounds, sketches)
+    check(counts == want, f"{tag}: launch counts {counts}, want {want}")
+    up = rounds * args.num_workers * R * C * 4 / 2**20
+    check(row["up (MiB)"] == up, f"{tag}: up {row['up (MiB)']} MiB, want "
+          f"rounds x W x 4*r*c bytes = {up}")
+    losses = row["round_losses"]
+    check(len(losses) == rounds and all(map(math.isfinite, losses)),
+          f"{tag}: train losses {losses}, want {rounds} finite")
+    check(math.isfinite(row["test_loss"]),
+          f"{tag}: validation loss {row['test_loss']}")
+
+
+def emnist_checks(row, counts, rounds, model, sparse_calls):
+    """``emnist_path``'s checks: ResNet101LN's d, the server on the
+    sparse re-sketch branch every round (``sketch_sparse`` called once
+    a round, the sketch kernel only for the clients' emit), and the
+    common checks."""
+    check(sparse_calls == rounds, f"emnist: the sparse re-sketch ran "
+          f"{sparse_calls} times in {rounds} rounds: the server took the "
+          "dense branch")
+    image_checks("emnist", row, counts, rounds, model, EMNIST_D, 1)
+
+
+def emnist_path():
+    """ResNet101LN at full width (d = 43 124 350) on a LEAF FEMNIST
+    fixture through ``cv_train.main``: 4 rounds and a validation pass,
+    the server on the sparse re-sketch branch. Then ``profile_round``
+    of the same configuration for the wall a round, the device's busy
+    share and the top device ops."""
+    with tempfile.TemporaryDirectory(prefix="emnist_smoke_") as root:
+        data = write_fixture("EMNIST", root)
+        with counting(CountSketch, "sketch_sparse") as sparse:
+            row, counts, rounds, wall, model = image_run(
+                EMNIST_ARGV + ["--dataset_dir", data])
+        emnist_checks(row, counts, rounds, model, sparse[0])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del model
+        fed_model._CURRENT_MODEL = None
+        torch.cuda.empty_cache()
+        report = profile_round.main(["--model", "ResNet101LN", "--rounds",
+                                     "4", "--dataset_name", "EMNIST",
+                                     "--dataset_dir", data])
+    emit({"phase": "emnist_path", "argv": EMNIST_ARGV, "d": EMNIST_D,
+          "padded_d": EMNIST_PADDED_D, "branch": "sparse re-sketch",
+          "sketch_sparse_calls": sparse[0], "rounds": rounds,
+          "launches": counts,
+          "launches_per_round": {k: v / rounds for k, v in counts.items()
+                                 if v},
+          "round_seconds": row["round_times"],
+          "round_losses": row["round_losses"],
+          "test_loss": row["test_loss"], "up_MiB": row["up (MiB)"],
+          "down_MiB": row["down (MiB)"], "wall_seconds": wall,
+          "peak_mem_GiB": peak,
+          "profile_round_median_s": report["round_wall"]["median_s"],
+          "profile_phases": {k: report["phases"][k] for k in
+                             ("data_s", "client_s", "server_s")},
+          "host_syncs": {k: report["host_syncs"][k]
+                         for k in ("client", "server")},
+          "device_busy_ms_per_round": report["device"]["busy_ms_per_round"],
+          "device_busy_share": report["device"]["busy_share"],
+          "device_top": report["device"]["top"][:6]})
+    return counts
+
+
+def cifar_fixup_path(data):
+    """FixupResNet9 at full width (d = 6 568 673) on the CIFAR10
+    fixture through ``cv_train.main``, its three LR groups (a (d,) LR on
+    the card every step) and ``--mixup``: the dense re-sketch, so 2
+    sketch launches a round."""
+    lrs = []
+    orig = fed_model.FedOptimizer.get_lr
+
+    def get_lr(self):
+        lr = orig(self)
+        lrs.append((len(self.param_groups), isinstance(lr, torch.Tensor)
+                    and tuple(lr.shape)))
+        return lr
+
+    fed_model.FedOptimizer.get_lr = get_lr
+    try:
+        with counting(cv_train, "apply_mixup") as mixed:
+            row, counts, rounds, wall, model = image_run(
+                FIXUP_ARGV + ["--dataset_dir", data])
+    finally:
+        fed_model.FedOptimizer.get_lr = orig
+    image_checks("cifar_fixup", row, counts, rounds, model, FIXUP_D, 2)
+    check(lrs == [(3, (FIXUP_D,))] * rounds,
+          f"cifar_fixup: the server's LRs {lrs}, want 3 groups as a "
+          f"({FIXUP_D},) vector each of {rounds} rounds")
+    check(mixed[0] == rounds, f"cifar_fixup: {mixed[0]} rounds mixed, "
+          f"want {rounds}")
+    emit({"phase": "cifar_fixup_path", "argv": FIXUP_ARGV, "d": FIXUP_D,
+          "rounds": rounds, "launches": counts, "lr_groups": 3,
+          "mixup_rounds": mixed[0], "round_seconds": row["round_times"],
+          "round_losses": row["round_losses"],
+          "test_loss": row["test_loss"], "up_MiB": row["up (MiB)"],
+          "down_MiB": row["down (MiB)"], "wall_seconds": wall,
+          "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30})
+    return counts
+
+
+def batchnorm_path(data):
+    """ResNet9 ``--batchnorm`` on the CIFAR10 fixture through
+    ``cv_train.main``: the server's running statistics move every round
+    (a copy of them taken after each round's dispatch), and validation
+    normalizes by them (the eval loss of one validation batch changes
+    when they do)."""
+    seen = []
+    orig = fed_model.FedModel._call_train
+
+    def call_train(self, batch):
+        out = orig(self, batch)
+        seen.append(torch.cat([v.reshape(-1) for v in
+                               self.model_state.values()]).cpu())
+        return out
+
+    fed_model.FedModel._call_train = call_train
+    try:
+        row, counts, rounds, wall, model = image_run(
+            BN_ARGV + ["--dataset_dir", data])
+    finally:
+        fed_model.FedModel._call_train = orig
+    image_checks("batchnorm", row, counts, rounds, model, BN_D, 2)
+    init = torch.cat([v.reshape(-1) for v in
+                      model.module.init_state().values()])
+    moved = [not torch.equal(a, b) for a, b in zip([init] + seen, seen)]
+    check(len(seen) == rounds and all(moved),
+          f"batchnorm: running statistics moved in rounds {moved}, want "
+          f"all {rounds}")
+    args = model.args
+    batch = next(iter(cv_train.get_data_loaders(args)[1]))
+    model.train(False)
+    loss = float(model(batch)[0][0])
+    state = model.model_state
+    model.model_state = {k: v * 4.0 if k[-1] == "var" else v + 0.5
+                         for k, v in state.items()}
+    moved_loss = float(model(batch)[0][0])
+    model.model_state = state
+    check(math.isfinite(loss) and loss != moved_loss,
+          f"batchnorm: eval loss {loss} with the running statistics, "
+          f"{moved_loss} with others: validation does not read them")
+    emit({"phase": "batchnorm_path", "argv": BN_ARGV, "rounds": rounds,
+          "launches": counts, "stats_sites": len(state),
+          "running_stats_l1": [float(t.abs().sum()) for t in seen],
+          "eval_loss_running": loss, "eval_loss_other_stats": moved_loss,
+          "round_seconds": row["round_times"],
+          "round_losses": row["round_losses"],
+          "test_loss": row["test_loss"], "wall_seconds": wall,
+          "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30})
 
 
 def mode_path(phase, argv, per_round):
@@ -1511,7 +1753,13 @@ def main():
     wgmma_tile_phase(dev)
     rows += flce_phases(dev, flush)
     torch.cuda.empty_cache()
-    gpt2_shapes = gpt2_shape_phase(dev, flush, l2_bps)
+    gpt2_shapes = shape_phase(dev, flush, l2_bps)
+    torch.cuda.empty_cache()
+    pd = CountSketch(d=EMNIST_D, c=C, r=R)._padded_d
+    check(pd == EMNIST_PADDED_D,
+          f"ResNet101LN padded d {pd}, want {EMNIST_PADDED_D}")
+    ln_shapes = shape_phase(dev, flush, l2_bps, EMNIST_D, "ResNet101LN",
+                            "resnet101ln_shapes", quant=False)
     torch.cuda.empty_cache()
     edge_phases(dev, flush, CountSketch(d=GPT2_D, c=C, r=R)._padded_d)
     del flush
@@ -1537,6 +1785,18 @@ def main():
     pipelined_phase()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    emnist_counts = emnist_path()
+    with tempfile.TemporaryDirectory(prefix="cifar_smoke_") as root:
+        data = write_fixture("CIFAR10", root)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cifar_fixup_path(data)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        batchnorm_path(data)
+    fed_model._CURRENT_MODEL = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     gpt2_counts = gpt2_main_path()
 
     keys = ("name", "route", "source", "replaces", "launches",
@@ -1559,6 +1819,9 @@ def main():
         if row["name"] in gpt2_shapes:
             entry["gpt2"] = dict(gpt2_shapes[row["name"]],
                                  launches=gpt2_counts[kern])
+        if row["name"] in ln_shapes:
+            entry["resnet101ln"] = dict(ln_shapes[row["name"]],
+                                        launches=emnist_counts[kern])
         table.append(entry)
     emit({"kernels": table})
     print(smi, flush=True)

@@ -3,15 +3,19 @@
 The JAX package beside this one is the reference: this package keeps
 its module layout and names (``ops/sketch.py`` ports ``ops/sketch.py``
 and so on) so every counterpart is easy to find, and it imports
-nothing of the JAX package. What is ported so far is one FetchSGD
-round of ResNet9 and the trainer that drives it:
+nothing of the JAX package. What is ported so far: the FetchSGD round
+and the reference's other modes, with the CV trainer and every CV model
+of the reference's registry, and GPT-2 on PersonaChat:
 
-- ``ops/``: the rotation count sketch, the exact threshold select and
-  the flat parameter vector; their hand-written Hopper kernels
-  (``csrc/sketch.cu``, ``csrc/radix_select.cu``, ``csrc/take_mask.cu``)
-  sit behind ``ops/sketch_kernels.py`` and ``ops/topk_kernels.py``;
-- ``models/resnet9.py``, ``core/``, ``runtime/fed_model.py``,
-  ``data/`` and ``train/cv_train.py``.
+- ``ops/``: the rotation count sketch, the exact threshold select, the
+  quantized wire and the flat parameter vector; their hand-written
+  Hopper kernels (``csrc/sketch.cu``, ``csrc/radix_select.cu``,
+  ``csrc/take_mask.cu``, ``csrc/flce.cu``) sit behind
+  ``ops/sketch_kernels.py``, ``ops/topk_kernels.py`` and
+  ``ops/flce_kernels.py``;
+- ``models/`` (ResNet9, the ResNet family with ResNet101LN, the Fixup
+  ResNets, ResNet18, GPT-2), ``core/``, ``runtime/fed_model.py``,
+  ``data/`` (CIFAR, FEMNIST, PersonaChat, Synthetic) and ``train/``.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``, ``--device cpu``), where every kernel wrapper takes

@@ -40,10 +40,10 @@ NATURAL_NUM_CLIENTS = {
 # the reference trainer's flags that the port does not have yet
 NOT_PORTED_FLAGS = (
     "--profile", "--seq_devices", "--seq_impl", "--dropout_prob",
-    "--mixup", "--mixup_alpha", "--tensorboard", "--finetune",
+    "--tensorboard", "--finetune",
     "--checkpoint", "--resume", "--checkpoint_every",
     "--checkpoint_path", "--finetune_path", "--finetuned_from",
-    "--num_results_train", "--num_results_val", "--batchnorm",
+    "--num_results_train", "--num_results_val",
     "--port", "--num_devices", "--share_ps_gpu",
     "--train_dataloader_workers", "--val_dataloader_workers",
     "--dp", "--dp_clip",
@@ -94,6 +94,13 @@ class Config:
     dataset_name: str = ""
     dataset_dir: str = "./dataset"
     nan_threshold: float = 999.0
+    # ResNet9's norms train on each client's batch statistics; the
+    # server blends them into running statistics that eval reads
+    do_batchnorm: bool = False
+    # mixup within each client's real rows, lam ~ Beta(alpha, alpha)
+    # once a round (reference config.py:68-73)
+    do_mixup: bool = False
+    mixup_alpha: float = 1.0
 
     # compression
     k: int = 50000
@@ -321,6 +328,10 @@ def build_parser(default_lr: Optional[float] = None
                         choices=list(FED_DATASETS.keys()))
     parser.add_argument("--dataset_dir", type=str, default="./dataset")
     parser.add_argument("--nan_threshold", type=float, default=999)
+    parser.add_argument("--batchnorm", action="store_true",
+                        dest="do_batchnorm")
+    parser.add_argument("--mixup", action="store_true", dest="do_mixup")
+    parser.add_argument("--mixup_alpha", type=float, default=1.0)
 
     parser.add_argument("--k", type=int, default=50000)
     parser.add_argument("--topk_down", action="store_true",

@@ -85,6 +85,9 @@ class RoundResult(NamedTuple):
     aggregated: torch.Tensor  # transmit-sum / total datapoints
     metrics: tuple            # per-client batch-mean metrics, each (W,)
     client_states: Optional[ClientStates] = None
+    # --batchnorm: ({site path: (C,) sample-weighted mean of the
+    # clients' batch statistics}, the round's real-sample count)
+    bn_stats: Optional[tuple] = None
 
 
 def resolve_rot_lanes(cfg: Config) -> int:
@@ -153,8 +156,8 @@ def args2sketch(cfg: Config) -> Optional[CountSketch]:
 
 
 def build_client_round(cfg: Config, loss_fn: Callable,
-                       padded_batch_size: Optional[int] = None
-                       ) -> Callable:
+                       padded_batch_size: Optional[int] = None,
+                       stats_fn: Optional[Callable] = None) -> Callable:
     """Returns ``client_round(ps_weights, batch, client_states=None,
     client_ids=None, fedavg_lr=1.0) -> RoundResult``.
 
@@ -166,7 +169,40 @@ def build_client_round(cfg: Config, loss_fn: Callable,
     ``--local_batch_size``, or 1 where that is -1). The per-client
     path reads and updates ``client_states`` (``ClientStates``, in
     place) at the rows of ``client_ids`` ((W,) int64 on the device);
-    ``fedavg_lr`` is the LR of fedavg's local SGD."""
+    ``fedavg_lr`` is the LR of fedavg's local SGD. ``stats_fn(ps_weights,
+    batch)`` (``--batchnorm``), where given, records every client's batch
+    statistics at the round's weights; their sample-weighted mean rides
+    on the result (``round_bn_stats``)."""
+    round_fn = _build_client_round(cfg, loss_fn, padded_batch_size)
+    if stats_fn is None:
+        return round_fn
+
+    def with_stats(ps_weights, batch, *args, **kw):
+        res = round_fn(ps_weights, batch, *args, **kw)
+        return res._replace(bn_stats=round_bn_stats(stats_fn, ps_weights,
+                                                    batch))
+
+    return with_stats
+
+
+def round_bn_stats(stats_fn: Callable, ps_weights: torch.Tensor,
+                   batch: dict) -> tuple:
+    """Sample-weighted mean of the participating clients' batch
+    statistics (reference ``_round_bn_stats``, core/rounds.py:1082):
+    one extra forward over the round's clients, each normalized by its
+    own batch; dead and padded clients weigh zero, and the round's
+    sample count lets the server skip the blend of an empty round."""
+    with torch.no_grad():
+        n = torch.sum(batch["mask"], dim=-1)  # (W,)
+        w = n / torch.clamp(torch.sum(n), min=1.0)
+        per_client = stats_fn(ps_weights, batch)
+        mean = {k: torch.tensordot(w.to(s.dtype), s, dims=([0], [0]))
+                for k, s in per_client.items()}
+    return mean, torch.sum(n)
+
+
+def _build_client_round(cfg: Config, loss_fn: Callable,
+                        padded_batch_size: Optional[int]) -> Callable:
     cfg.validate_runtime()
     if padded_batch_size is None:
         padded_batch_size = (cfg.local_batch_size
@@ -442,8 +478,9 @@ def build_server_round(cfg: Config) -> Callable:
     the sparse re-sketch branch, where ``weight_update`` is None and
     the update is applied as a k-sized scatter instead of a dense (d,)
     subtraction; or None for a dense update (runtime/fed_model.py
-    decides its form). fedavg's server takes lr = 1 (the clients
-    applied the LR). Under true_topk with
+    decides its form). ``lr`` is a scalar or a (d,) tensor of
+    per-coordinate LRs on the device (index param groups). fedavg's
+    server takes lr = 1 (the clients applied the LR). Under true_topk with
     local momentum, the participating clients' velocity rows
     (``client_ids``, dead slots at the dead-slot row) are zeroed where
     the server sent, in place."""
@@ -453,9 +490,14 @@ def build_server_round(cfg: Config) -> Callable:
     def server_round(ps_weights: torch.Tensor, server_state: ServerState,
                      aggregated: torch.Tensor, lr, client_velocities=None,
                      client_ids=None):
-        # made on the device: a copy up would stop the host
-        lr = torch.full((), 1.0 if cfg.mode == "fedavg" else float(lr),
-                        dtype=torch.float32, device=ps_weights.device)
+        if isinstance(lr, torch.Tensor) and lr.ndim:
+            # per-coordinate LRs (index param groups), on the device
+            assert cfg.mode != "fedavg", "fedavg supports scalar lr only"
+            lr = lr.to(ps_weights.device, torch.float32)
+        else:
+            # made on the device: a copy up would stop the host
+            lr = torch.full((), 1.0 if cfg.mode == "fedavg" else float(lr),
+                            dtype=torch.float32, device=ps_weights.device)
         res = server_update(cfg, aggregated, server_state, lr, sketch)
         if res.weight_update is None:
             # the indices are sorted and unique, so each coordinate

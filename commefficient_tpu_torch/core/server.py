@@ -3,7 +3,7 @@ unsketching and top-k recovery.
 
 Port of ``commefficient_tpu/core/server.py`` (``ServerState`` :28,
 ``fold_row_chunks`` :66, ``_lr_scaled_support`` :124,
-``server_update`` :146, ``_fedavg`` :194, ``_uncompressed`` :205
+``server_update`` :146, with a 0-dim or a per-coordinate (d,) LR, ``_fedavg`` :194, ``_uncompressed`` :205
 without server DP, ``_true_topk`` :225, ``_local_topk`` :267 and
 ``_sketched`` :279 with its dense and its sparse re-sketch branches).
 ``gradient`` is the round's aggregated quantity: the client-transmit
@@ -62,8 +62,11 @@ class ServerUpdate(NamedTuple):
 
 
 def _lr_scaled_support(idx, vals, lr):
-    """Support of the weight update: its values scaled by the LR."""
-    return idx, vals * lr
+    """Support of the weight update: its values scaled by the (scalar
+    or per-coordinate) LR, gathered at the indices, so a coordinate
+    whose LR is 0 reads as unchanged, as a value-compare on ``update *
+    lr`` would."""
+    return idx, vals * (lr[idx] if lr.ndim else lr)
 
 
 def server_update(cfg: Config, gradient: torch.Tensor, state: ServerState,

@@ -5,8 +5,9 @@ A dataset is a natural partition of records over clients
 (``images_per_client``); ``--iid`` applies a global permutation while
 keeping synthetic client ids; ``--num_clients`` re-splits natural
 partitions. Items are ``(client_id, image, target)`` with client_id -1
-for validation records. Same seeds give the same partitions as the
-reference.
+for validation records, the image passed through ``transform`` where
+one is given (the numpy stacks of ``data/transforms.py``). Same seeds
+give the same partitions as the reference.
 """
 
 from __future__ import annotations
@@ -20,10 +21,11 @@ __all__ = ["FedDataset"]
 
 
 class FedDataset:
-    def __init__(self, dataset_dir, dataset_name, do_iid=False,
-                 num_clients=None, train=True, seed=None):
+    def __init__(self, dataset_dir, dataset_name, transform=None,
+                 do_iid=False, num_clients=None, train=True, seed=None):
         self.dataset_dir = dataset_dir
         self.dataset_name = dataset_name
+        self.transform = transform
         self.do_iid = do_iid
         self._num_clients = num_clients
         self.type = "train" if train else "val"
@@ -125,6 +127,8 @@ class FedDataset:
         else:
             image, target = self._get_val_item(idx)
             client_id = -1
+        if self.transform is not None:
+            image = self.transform(image)
         return client_id, image, target
 
     def stats_fn(self):

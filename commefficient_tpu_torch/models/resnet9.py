@@ -1,8 +1,8 @@
 """ResNet9 -- the cifar10_fast-style 9-layer ResNet (default CV model).
 
-Port of ``commefficient_tpu/models/resnet9.py`` (BN-free default):
-ConvBN blocks (3x3 conv, ReLU, optional 2x2 max-pool), two residual
-blocks, a bias-free linear head scaled by 0.125.
+Port of ``commefficient_tpu/models/resnet9.py``: ConvBN blocks (3x3
+conv, optional ``--batchnorm`` norm, ReLU, optional 2x2 max-pool), two
+residual blocks, a bias-free linear head scaled by 0.125.
 
 The parameters are NOT registered on the module: ``forward(flat, x)``
 takes the flat f32 vector (``ops/vec.py``, ravel_pytree order) and
@@ -19,87 +19,106 @@ flax's ``dtype=bfloat16``; the logits come back in f32.
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional
 
-import numpy as np
 import torch
-import torch.nn as nn
 import torch.nn.functional as F
 
 from commefficient_tpu_torch.models import register_model
-from commefficient_tpu_torch.ops.vec import (flat_size, flatten_params,
-                                             ravel_order, unravel)
-
-# flax layout -> torch layout (the reference's models/torch_export.py
-# _TRANSFORMS, export direction)
-_CONV_TO_TORCH = (3, 2, 0, 1)  # (kh, kw, cin, cout) -> (cout, cin, kh, kw)
-
-
-def _conv(x, kernel):
-    return F.conv2d(x, kernel.to(x.dtype).permute(*_CONV_TO_TORCH),
-                    padding=1)
+from commefficient_tpu_torch.models.layers import (Ctx, FlatModel, Leaf,
+                                                   conv, he_normal,
+                                                   to_nhwc_flat)
+from commefficient_tpu_torch.models.norms import BatchStatNorm
+from commefficient_tpu_torch.ops.vec import unravel
 
 
-class ConvBN(nn.Module):
-    """3x3 conv (no bias), ReLU, optional 2x2 max-pool (reference
-    resnet9.py:34-61, BN-free)."""
+class ConvBN:
+    """3x3 conv (no bias), with ``do_batchnorm`` a tracking
+    ``BatchStatNorm``, ReLU, optional 2x2 max-pool (reference
+    resnet9.py:34-61)."""
 
-    def __init__(self, c_in: int, c_out: int, pool: bool = False):
-        super().__init__()
-        self.c_in, self.c_out, self.pool = c_in, c_out, pool
+    def __init__(self, c_in: int, c_out: int, path: tuple,
+                 pool: bool = False, do_batchnorm: bool = False):
+        self.pool = pool
+        self.leaves = {"Conv_0": {"kernel": Leaf((3, 3, c_in, c_out),
+                                                 he_normal)}}
+        self.norm = None
+        if do_batchnorm:
+            self.norm = BatchStatNorm(c_out, tuple(path)
+                                      + ("BatchStatNorm_0",),
+                                      track_stats=True)
+            self.leaves["BatchStatNorm_0"] = self.norm.spec()
 
-    def leaf_shapes(self):
-        return {"Conv_0": {"kernel": (3, 3, self.c_in, self.c_out)}}
+    def state_spec(self):
+        return ({"BatchStatNorm_0": self.norm.state_spec()}
+                if self.norm else {})
 
-    def forward(self, p, x):
-        x = F.relu(_conv(x, p["Conv_0"]["kernel"]))
+    def __call__(self, p, x, ctx):
+        x = conv(x, p["Conv_0"]["kernel"], 1, 1)
+        if self.norm is not None:
+            x = self.norm(p["BatchStatNorm_0"], x, ctx)
+        x = F.relu(x)
         if self.pool:
-            x = F.max_pool2d(x, 2)
+            x = F.max_pool2d(x, 2, 2)
         return x
 
 
-class Residual(nn.Module):
+class Residual:
     """x + relu(ConvBN(ConvBN(x))) (reference resnet9.py:64-76)."""
 
-    def __init__(self, c: int):
-        super().__init__()
-        self.ConvBN_0 = ConvBN(c, c)
-        self.ConvBN_1 = ConvBN(c, c)
+    def __init__(self, c: int, path: tuple, do_batchnorm: bool = False):
+        self.convs = [ConvBN(c, c, tuple(path) + (f"ConvBN_{i}",),
+                             do_batchnorm=do_batchnorm) for i in range(2)]
+        self.leaves = {f"ConvBN_{i}": cb.leaves
+                       for i, cb in enumerate(self.convs)}
 
-    def leaf_shapes(self):
-        return {"ConvBN_0": self.ConvBN_0.leaf_shapes(),
-                "ConvBN_1": self.ConvBN_1.leaf_shapes()}
+    def state_spec(self):
+        return {f"ConvBN_{i}": cb.state_spec()
+                for i, cb in enumerate(self.convs) if cb.norm}
 
-    def forward(self, p, x):
-        y = self.ConvBN_1(p["ConvBN_1"], self.ConvBN_0(p["ConvBN_0"], x))
+    def __call__(self, p, x, ctx):
+        y = x
+        for i, cb in enumerate(self.convs):
+            y = cb(p[f"ConvBN_{i}"], y, ctx)
         return x + F.relu(y)
 
 
 @register_model("ResNet9")
-class ResNet9(nn.Module):
+class ResNet9(FlatModel):
     """(reference resnet9.py:79-119). Submodules carry the flax names
     (``ConvBN_0`` ... ``Dense_0``), so the leaf paths are the flax
-    parameter paths."""
+    parameter paths. With ``do_batchnorm`` each ConvBN's norm trains on
+    its client's masked batch statistics and records them
+    (``record``); eval normalizes by the server's running statistics
+    (``running``)."""
+    supports_bf16 = True
 
     def __init__(self, num_classes: int = 10, do_batchnorm: bool = False,
-                 initial_channels: int = 3,
                  channels: Optional[Dict[str, int]] = None,
-                 weight: float = 0.125, dtype=torch.float32):
+                 weight: float = 0.125, dtype=torch.float32,
+                 sample_shape=(32, 32, 3)):
         super().__init__()
-        if do_batchnorm:
-            raise NotImplementedError("--batchnorm is not ported")
         ch = channels or {"prep": 64, "layer1": 128,
                           "layer2": 256, "layer3": 512}
         self.num_classes, self.weight, self.dtype = num_classes, weight, dtype
-        self.ConvBN_0 = ConvBN(initial_channels, ch["prep"])
-        self.ConvBN_1 = ConvBN(ch["prep"], ch["layer1"], pool=True)
-        self.Residual_0 = Residual(ch["layer1"])
-        self.ConvBN_2 = ConvBN(ch["layer1"], ch["layer2"], pool=True)
-        self.ConvBN_3 = ConvBN(ch["layer2"], ch["layer3"], pool=True)
-        self.Residual_1 = Residual(ch["layer3"])
-        # after three pools and the head's pool a 32x32 input is 2x2
-        self.head_in = ch["layer3"] * 2 * 2
+        h, w, c_in = sample_shape
+        bn = do_batchnorm
+        self.stages = [
+            ("ConvBN_0", ConvBN(c_in, ch["prep"], ("ConvBN_0",),
+                                do_batchnorm=bn)),
+            ("ConvBN_1", ConvBN(ch["prep"], ch["layer1"], ("ConvBN_1",),
+                                pool=True, do_batchnorm=bn)),
+            ("Residual_0", Residual(ch["layer1"], ("Residual_0",), bn)),
+            ("ConvBN_2", ConvBN(ch["layer1"], ch["layer2"], ("ConvBN_2",),
+                                pool=True, do_batchnorm=bn)),
+            ("ConvBN_3", ConvBN(ch["layer2"], ch["layer3"], ("ConvBN_3",),
+                                pool=True, do_batchnorm=bn)),
+            ("Residual_1", Residual(ch["layer3"], ("Residual_1",), bn))]
+        # three pools and the head's pool: a 32x32 input is 2x2
+        self.head_in = ch["layer3"] * (h // 16) * (w // 16)
+        self._spec = {name: st.leaves for name, st in self.stages}
+        self._spec["Dense_0"] = {"kernel": Leaf((self.head_in, num_classes),
+                                                he_normal)}
 
     @staticmethod
     def test_config(num_classes: int = 10):
@@ -109,59 +128,22 @@ class ResNet9(nn.Module):
                               "layer2": 1, "layer3": 1},
                     num_classes=num_classes)
 
-    def leaf_shapes(self):
-        return {
-            "ConvBN_0": self.ConvBN_0.leaf_shapes(),
-            "ConvBN_1": self.ConvBN_1.leaf_shapes(),
-            "Residual_0": self.Residual_0.leaf_shapes(),
-            "ConvBN_2": self.ConvBN_2.leaf_shapes(),
-            "ConvBN_3": self.ConvBN_3.leaf_shapes(),
-            "Residual_1": self.Residual_1.leaf_shapes(),
-            "Dense_0": {"kernel": (self.head_in, self.num_classes)},
-        }
+    def spec(self):
+        return self._spec
 
-    @property
-    def num_params(self) -> int:
-        return flat_size(self.leaf_shapes())
+    def state_spec(self):
+        out = {name: st.state_spec() for name, st in self.stages}
+        return {k: v for k, v in out.items() if v}
 
-    def init_flat(self, seed: int, device="cpu") -> torch.Tensor:
-        """Random flat parameters from ``seed``: flax's he_normal
-        (variance 2/fan_in, normal truncated at two std devs) for every
-        kernel, drawn on the CPU from a seeded generator. The draws
-        differ from jax.random's; tests carry JAX weights over with
-        ``from_jax_params`` instead."""
-        gen = torch.Generator().manual_seed(int(seed))
-        parts = []
-        for _, shape in ravel_order(self.leaf_shapes()):
-            fan_in = int(np.prod(shape[:-1]))
-            std = math.sqrt(2.0 / fan_in) / .87962566103423978
-            w = torch.empty(shape, dtype=torch.float32)
-            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                  generator=gen)
-            parts.append(w.reshape(-1))
-        return torch.cat(parts).to(device)
-
-    def from_jax_params(self, params_np: dict, device="cpu") -> torch.Tensor:
-        """The JAX package's flax parameter tree, as numpy arrays ->
-        the port's flat vector (bit-identical to ravel_pytree)."""
-        want = [(p, tuple(s)) for p, s in ravel_order(self.leaf_shapes())]
-        got = [(p, tuple(np.shape(a))) for p, a in ravel_order(params_np)]
-        if want != got:
-            raise ValueError(f"parameter tree mismatch: {got} != {want}")
-        return flatten_params(params_np, device)
-
-    def forward(self, flat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, flat: torch.Tensor, x: torch.Tensor, groups=1,
+                mask=None, running=None, record=None) -> torch.Tensor:
         """flat (d,) f32 parameters, x (N, H, W, C) images -> (N,
         num_classes) f32 logits."""
         p = unravel(flat, self.leaf_shapes())
+        ctx = Ctx(groups, mask, running, record)
         x = x.to(self.dtype).permute(0, 3, 1, 2)
-        x = self.ConvBN_0(p["ConvBN_0"], x)
-        x = self.ConvBN_1(p["ConvBN_1"], x)
-        x = self.Residual_0(p["Residual_0"], x)
-        x = self.ConvBN_2(p["ConvBN_2"], x)
-        x = self.ConvBN_3(p["ConvBN_3"], x)
-        x = self.Residual_1(p["Residual_1"], x)
-        x = F.max_pool2d(x, 2)
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        for name, st in self.stages:
+            x = st(p[name], x, ctx)
+        x = to_nhwc_flat(F.max_pool2d(x, 2, 2))
         x = x @ p["Dense_0"]["kernel"].to(x.dtype)
         return (x * self.weight).to(torch.float32)

@@ -114,6 +114,31 @@ def flatten_params(params: dict, device="cpu") -> torch.Tensor:
     return torch.cat(parts).to(device)
 
 
+def keystr(path: Path) -> str:
+    """A leaf path as ``jax.tree_util.keystr`` prints a dict path:
+    ``['FixupLayer_0']['bias1a']``."""
+    return "".join(f"[{key!r}]" for key in path)
+
+
+def param_group_indices(shapes: dict, *predicates) -> List[np.ndarray]:
+    """Flat-vector index arrays grouping leaves by parameter-path name
+    (reference ``param_group_indices``, ops/vec.py:31-60): each
+    predicate receives the leaf's ``keystr`` path; a leaf joins the
+    first predicate that matches, unmatched leaves a final catch-all
+    group. Indices are positions in the flat vector (ravel order), so
+    per-coordinate LRs built from them line up with the gradient."""
+    spans: List[list] = [[] for _ in range(len(predicates) + 1)]
+    offset = 0
+    for path, shape in ravel_order(shapes):
+        n = _numel(shape)
+        name = keystr(path)
+        group = next((i for i, pred in enumerate(predicates) if pred(name)),
+                     len(predicates))
+        spans[group].append((offset, n))
+        offset += n
+    return [np.concatenate([np.arange(o, o + n) for o, n in s])
+            if s else np.empty(0, np.int64) for s in spans]
+
 
 def global_norm(vec: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(vec * vec))

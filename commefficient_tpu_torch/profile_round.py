@@ -1,7 +1,7 @@
 """Where the time of one full-width federated round goes, on the card.
 
     python -m commefficient_tpu_torch.profile_round [--rounds 8]
-        [--model resnet9|gpt2] [--sketch_dtype f32|bf16|int8|fp8]
+        [--model resnet9|gpt2|<CV model>] [--sketch_dtype f32|bf16|int8|fp8]
         [trainer flags ...]
 
 Runs a main path's configuration through FedModel/FedOptimizer, on the
@@ -12,7 +12,14 @@ another mode's round. ``resnet9``: full width, bf16, Synthetic data, 8
 clients x 8 samples, a 5 x 524 288 sketch, k = 50 000. ``gpt2``: GPT-2
 124M double heads, bf16, fused cross-entropy, 4 clients x 8 PersonaChat
 items of 2 candidates x 256 tokens (a vocabulary and corpus fabricated
-offline in a temporary directory), the same sketch and k:
+offline in a temporary directory), the same sketch and k. Any other
+CV model of the registry runs on the ``resnet9`` flags, built as
+``cv_train.main`` builds it (running statistics under ``--batchnorm``,
+the Fixup LR groups); an image dataset (``--dataset_name EMNIST``,
+``CIFAR10``, ``CIFAR100``) without a ``--dataset_dir`` gets the smoke
+fixture of ``data/fixtures.py`` in the temporary directory, e.g.
+``--model ResNet101LN --dataset_name EMNIST`` (f32: the ResNet family
+has no bf16):
 
 - ``round_wall``: wall seconds per round, data pull included, with no
   added syncs and no profiler (the round ends when its metrics reach
@@ -48,11 +55,13 @@ import numpy as np
 import torch
 
 from commefficient_tpu_torch.config import SKETCH_DTYPES, parse_args
+from commefficient_tpu_torch.data.fixtures import write_fixture
 from commefficient_tpu_torch.device import resolve_device
 from commefficient_tpu_torch.ops.flce import resolve_fused_ce
 from commefficient_tpu_torch.runtime import FedModel, FedOptimizer
 from commefficient_tpu_torch.train import cv_train, gpt2_train
 
+FIXTURE_DATASETS = ("EMNIST", "CIFAR10", "CIFAR100")
 ARGV = ["--dataset_name", "Synthetic", "--mode", "sketch",
         "--error_type", "virtual", "--virtual_momentum", "0.9",
         "--local_momentum", "0", "--num_rows", "5", "--num_cols", "524288",
@@ -94,15 +103,26 @@ def gpt2_argv(data_dir, vocab_dir):
             "--num_epochs", "1"]
 
 
-def _resnet9(wire, extra=()):
-    args = parse_args(argv=ARGV + ["--sketch_dtype", wire] + list(extra))
+def _cv(model, wire, extra, root):
+    """FedModel/FedOptimizer built as ``cv_train.main`` builds them
+    (running statistics under ``--batchnorm``, the Fixup LR groups) on
+    the CV main path's flags with ``extra`` after them. An image dataset
+    without a ``--dataset_dir`` gets its smoke fixture under ``root``
+    (data/fixtures.py)."""
+    argv = ARGV + ["--model", model, "--sketch_dtype", wire] + list(extra)
+    args = parse_args(argv=argv)
+    if args.dataset_name in FIXTURE_DATASETS and "--dataset_dir" not in argv:
+        args.dataset_dir = write_fixture(args.dataset_name, root)
     device = resolve_device(args.device)
     train_loader, _, train_ds = cv_train.get_data_loaders(args)
     args.num_clients = int(train_ds.num_clients)
     module, params = cv_train.build_model(args, device)
-    model = FedModel(module, params, cv_train.make_compute_loss(module),
-                     args, padded_batch_size=train_loader.B)
-    return model, FedOptimizer([{"lr": 0.01}], args), train_loader
+    model = cv_train.make_fed_model(module, params, args, train_loader.B,
+                                    device)
+    groups = cv_train.param_groups_of(args, module)
+    for g in groups:
+        g["lr"] *= 0.01
+    return model, FedOptimizer(groups, args), train_loader
 
 
 def _gpt2(root, wire, extra=()):
@@ -127,19 +147,30 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, allow_abbrev=False)
     ap.add_argument("--rounds", type=int, default=8)
     ap.add_argument("--top", type=int, default=12)
-    ap.add_argument("--model", choices=["resnet9", "gpt2"],
-                    default="resnet9")
+    ap.add_argument("--model", default="resnet9",
+                    help="resnet9, gpt2, or a CV model of the registry "
+                    "(e.g. ResNet101LN with --dataset_name EMNIST)")
     ap.add_argument("--sketch_dtype", choices=list(SKETCH_DTYPES),
                     default="f32")
     opts, extra = ap.parse_known_args(argv)
     with tempfile.TemporaryDirectory(prefix="profile_round_") as root:
-        model, opt, train_loader = (
-            _gpt2(root, opts.sketch_dtype, extra) if opts.model == "gpt2"
-            else _resnet9(opts.sketch_dtype, extra))
-        _profile(opts, model, opt, train_loader, extra)
+        if opts.model == "gpt2":
+            model, opt, train_loader = _gpt2(root, opts.sketch_dtype, extra)
+        else:
+            model, opt, train_loader = _cv(
+                "ResNet9" if opts.model == "resnet9" else opts.model,
+                opts.sketch_dtype, extra, root)
+        return _profile(opts, model, opt, train_loader, extra)
 
 
 def _profile(opts, model, opt, train_loader, extra=()):
+    """Prints the JSON lines and returns them by phase."""
+    report = {}
+
+    def emit(obj):
+        report[obj["phase"]] = obj
+        print(json.dumps(obj), flush=True)
+
     def batches():
         while True:
             yield from train_loader
@@ -167,13 +198,10 @@ def _profile(opts, model, opt, train_loader, extra=()):
     torch.cuda.synchronize()
 
     phases = np.mean([one_round(sync=True) for _ in range(opts.rounds)], 0)
-    print(json.dumps({"phase": "phases", "model": opts.model,
-                      "sketch_dtype": opts.sketch_dtype,
-                      "trainer_flags": list(extra),
-                      "rounds": opts.rounds,
-                      "data_s": phases[0], "client_s": phases[1],
-                      "server_s": phases[2], "flush_s": phases[3]}),
-          flush=True)
+    emit({"phase": "phases", "model": opts.model,
+          "sketch_dtype": opts.sketch_dtype, "trainer_flags": list(extra),
+          "rounds": opts.rounds, "data_s": phases[0], "client_s": phases[1],
+          "server_s": phases[2], "flush_s": phases[3]})
 
     depth = model.pipeline_depth
     model.flush()
@@ -187,12 +215,9 @@ def _profile(opts, model, opt, train_loader, extra=()):
         syncs["flush"].append(_host_syncs(
             lambda: out.extend(model.flush(force=False))))
         waits += bool(out)
-    print(json.dumps({"phase": "host_syncs", "pipeline_depth": depth,
-                      "client": syncs["client"][0],
-                      "server": syncs["server"][0],
-                      "per_round": syncs,
-                      "flush_waits_per_round": waits / depth}),
-          flush=True)
+    emit({"phase": "host_syncs", "pipeline_depth": depth,
+          "client": syncs["client"][0], "server": syncs["server"][0],
+          "per_round": syncs, "flush_waits_per_round": waits / depth})
 
     walls = []
     for _ in range(opts.rounds):
@@ -200,12 +225,10 @@ def _profile(opts, model, opt, train_loader, extra=()):
         one_round()
         walls.append(time.perf_counter() - r0)
     model.flush()
-    print(json.dumps({"phase": "round_wall", "seconds": walls,
-                      "median_s": float(np.median(walls)),
-                      "mean_s": float(np.mean(walls)),
-                      "peak_mem_GiB":
-                          torch.cuda.max_memory_allocated() / 2**30}),
-          flush=True)
+    emit({"phase": "round_wall", "seconds": walls,
+          "median_s": float(np.median(walls)),
+          "mean_s": float(np.mean(walls)),
+          "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30})
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -224,13 +247,14 @@ def _profile(opts, model, opt, train_loader, extra=()):
               == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
     busy_us = sum(_device_us(e) for e in events)
     events.sort(key=_device_us, reverse=True)
-    print(json.dumps({
+    emit({
         "phase": "device", "window_s": window,
         "busy_ms_per_round": busy_us / 1e3 / opts.rounds,
         "busy_share": busy_us / 1e6 / window,
         "top": [{"name": e.key[:90], "calls": e.count,
                  "ms_per_round": _device_us(e) / 1e3 / opts.rounds}
-                for e in events[:opts.top]]}), flush=True)
+                for e in events[:opts.top]]})
+    return report
 
 
 if __name__ == "__main__":

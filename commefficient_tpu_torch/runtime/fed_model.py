@@ -39,6 +39,11 @@ N rounds' metrics and supports to the host at once (pinned buffers,
 one event wait) and replays the log, so a round makes no host sync
 and the host runs up to N rounds ahead of the device. The per-round
 math, bytes and losses are those of depth 1.
+With ``stats_fn`` (``--batchnorm``) the round also records the
+clients' batch statistics, which the model blends into running
+statistics on the device (``model_state``) that eval normalizes by.
+``FedOptimizer`` takes one LR group, or index groups (the Fixup bias
+and scale LRs), whose per-coordinate LR the server applies.
 Telemetry, the autopilot, the host client store and meshes are not
 ported.
 """
@@ -78,7 +83,9 @@ class FedModel:
     def __init__(self, module, params: torch.Tensor,
                  compute_loss: Callable, args: Config,
                  compute_loss_val: Optional[Callable] = None,
-                 padded_batch_size: Optional[int] = None):
+                 padded_batch_size: Optional[int] = None,
+                 stats_fn: Optional[Callable] = None,
+                 init_model_state: Optional[dict] = None):
         global _CURRENT_MODEL
         args.validate_runtime()
         self.module = module
@@ -86,6 +93,16 @@ class FedModel:
         self.device = resolve_device(args.device)
         self.compute_loss_train = compute_loss
         self.compute_loss_val = compute_loss_val or compute_loss
+        # --batchnorm: ``stats_fn(ps_weights, batch)`` records every
+        # client's batch statistics; the round's sample-weighted mean
+        # is blended into ``model_state`` (torch BatchNorm's momentum
+        # 0.1, on the device), and eval normalizes by it:
+        # ``compute_loss_val`` then takes (params, batch, args, state)
+        self.stats_fn = stats_fn
+        self.model_state = None
+        if stats_fn is not None:
+            self.model_state = {k: v.to(self.device, torch.float32)
+                                for k, v in init_model_state.items()}
         args.grad_size = int(params.numel())
         self.ps_weights = params.detach().to(self.device,
                                              torch.float32).clone()
@@ -107,7 +124,7 @@ class FedModel:
                                  if args.local_batch_size > 0 else 1)
         self.padded_batch_size = padded_batch_size
         self._client_round = build_client_round(args, loss_fn,
-                                                padded_batch_size)
+                                                padded_batch_size, stats_fn)
         self.pending_aggregated = None
         # the round's state ids, dead slots at the dead-slot row: the
         # server round's velocity rewrite (true_topk) scatters there
@@ -168,6 +185,13 @@ class FedModel:
         self.pending_client_ids = _state_ids(
             ids, dev_batch, _dead_row(self.client_states))
         self.round_index += 1
+        if res.bn_stats is not None:
+            # running-stats blend; a round with no real sample leaves
+            # them as they were. Device ops, no host read
+            new_stats, alive = res.bn_stats
+            self.model_state = {
+                k: torch.where(alive > 0, 0.9 * ra + 0.1 * new_stats[k], ra)
+                for k, ra in self.model_state.items()}
         if self.pipeline_depth > 1:
             self._inflight.append(list(res.metrics))
             self._oplog.append(("account", ids_np.copy(),
@@ -209,9 +233,10 @@ class FedModel:
         return results
 
     def _call_val(self, batch):
+        extra = () if self.stats_fn is None else (self.model_state,)
         with torch.no_grad():
             loss, metrics = self.compute_loss_val(
-                self.ps_weights, self._to_device(batch), self.args)
+                self.ps_weights, self._to_device(batch), self.args, *extra)
         out = [m.to("cpu").numpy() for m in (loss,) + tuple(metrics)]
         mask = np.asarray(batch["mask"])
         counts = mask.reshape(mask.shape[0], -1).sum(axis=1)
@@ -355,7 +380,12 @@ def drain_rounds(model, pending, process, force) -> bool:
 
 class FedOptimizer:
     """Server-side optimizer. ``param_groups`` is torch-shaped so LR
-    schedulers port unchanged; one group (a scalar LR) is ported."""
+    schedulers port unchanged. One group gives a scalar LR; several,
+    each with an ``index`` array of flat coordinates
+    (``ops/vec.py param_group_indices``: the Fixup bias and scale
+    groups), a per-coordinate LR: one indicator vector per group on the
+    device, built once, and ``get_lr`` their LR-weighted sum (reference
+    fed_model.py:1230-1288), so a step ships only scalars."""
 
     def __init__(self, param_groups=None, args: Config = None,
                  model: Optional[FedModel] = None):
@@ -366,25 +396,39 @@ class FedOptimizer:
             param_groups = [{"lr": 1.0}]
         if isinstance(param_groups, dict):
             param_groups = [param_groups]
-        if len(param_groups) != 1:
-            raise NotImplementedError(
-                "per-group learning rates (Fixup LR groups) are not "
-                "ported")
         self.param_groups = param_groups
+        self._lr_indicators = None
+        if len(param_groups) > 1:
+            assert all("index" in g for g in param_groups), \
+                "multi-group LR needs each group's flat 'index'"
+            inds = []
+            for group in param_groups:
+                ind = torch.zeros(self.args.grad_size, dtype=torch.float32)
+                ind[torch.as_tensor(np.asarray(group["index"], np.int64))] = 1
+                inds.append(ind.to(self.model.device))
+            self._lr_indicators = inds
         self.server_state = ServerState.init(self.args, self.model.device)
         self._server_round = build_server_round(self.args)
 
     def get_lr(self):
-        return self.param_groups[0]["lr"]
+        """A float, or with index groups a (d,) tensor on the device."""
+        if self._lr_indicators is None:
+            return self.param_groups[0]["lr"]
+        return sum(float(g["lr"]) * ind for g, ind in
+                   zip(self.param_groups, self._lr_indicators))
 
     def step(self):
         m = self.model
         assert m.pending_aggregated is not None, \
             "call model(batch) before opt.step()"
-        lr = float(self.get_lr())
-        if lr == 0:
+        lr = self.get_lr()
+        vector_lr = isinstance(lr, torch.Tensor)
+        if not vector_lr:
+            lr = float(lr)
+        if all(float(g["lr"]) == 0 for g in self.param_groups):
             print("WARNING: LR is 0")
         if self.args.mode == "fedavg":
+            assert not vector_lr, "fedavg supports scalar lr only"
             # the next round's clients run their local SGD at this LR;
             # the server step itself takes lr = 1
             m.fedavg_lr = lr
@@ -402,12 +446,13 @@ class FedOptimizer:
             # of past top-k selections, and fedavg's first one is zero
             # (its clients ran at LR 0), so both take the reference's
             # value-compare, packed on the device
-            # (fed_model.py:1384-1391); otherwise every coordinate
-            # changed
-            if self.args.mode != "fedavg" and lr == 0:
+            # (fed_model.py:1384-1391), as does a per-coordinate LR
+            # (a group at LR 0 changes nothing); otherwise every
+            # coordinate changed
+            if self.args.mode != "fedavg" and not vector_lr and lr == 0:
                 none = torch.zeros(0, device=m.device)
                 support = (none.to(torch.int64), none)
-            elif self.args.mode in ("local_topk", "fedavg"):
+            elif self.args.mode in ("local_topk", "fedavg") or vector_lr:
                 support = {"bitmap": packbits(update != 0)}
         m.note_update(support)
 

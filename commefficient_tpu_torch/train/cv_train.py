@@ -4,7 +4,10 @@ Same CLI (the flags the port has), same round loop: the LR scheduler
 stepped *before* the round, the LR==0 "HACK STEP", the NaN abort,
 fractional epochs, the byte-accounting totals and TableLogger rows;
 under ``--pipeline_depth`` > 1 rounds are dispatched ahead and
-processed as they are flushed (reference cv_train.py:249-266).
+processed as they are flushed (reference cv_train.py:249-266). Every
+CV model of the registry, sized for the dataset's samples; the Fixup LR
+groups, ``--batchnorm``'s running-stats eval, ``--mixup``, and the
+numpy transform stack of each dataset (Synthetic, CIFAR10/100, EMNIST).
 Runs on the card unless ``--device cpu`` is given.
 
 Run e.g.:
@@ -17,8 +20,10 @@ Run e.g.:
 from __future__ import annotations
 
 import math
+import re
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -27,8 +32,11 @@ from commefficient_tpu_torch.config import (Config, num_classes_of_dataset,
                                             parse_args)
 from commefficient_tpu_torch.data import (FedLoader, FedSampler, ValLoader,
                                           get_dataset_cls)
+from commefficient_tpu_torch.data import transforms as T
 from commefficient_tpu_torch.device import resolve_device
 from commefficient_tpu_torch.models import get_model
+from commefficient_tpu_torch.models.configs import get_model_config
+from commefficient_tpu_torch.ops.vec import param_group_indices
 from commefficient_tpu_torch.runtime import (FedModel, FedOptimizer,
                                              LambdaLR, drain_rounds)
 from commefficient_tpu_torch.utils import (PiecewiseLinear, TableLogger,
@@ -41,34 +49,129 @@ def masked_mean(values, mask):
             / torch.clamp(torch.sum(mask, dim=-1), min=1.0))
 
 
+def _forward(module, flat_params, batch, **kw):
+    """One forward over every leading axis of the batch (the W clients
+    of a round, the S shards of a validation step, or none under the
+    per-client ``vmap``), logits back in the batch's (..., B) shape.
+    The leading axes are the groups that batch-statistics norms
+    normalize on their own; a model whose norms track statistics
+    (``--batchnorm``) also gets the (groups, B) mask, so padded rows
+    stay out of them."""
+    x, mask = batch["x"], batch["mask"]
+    lead = mask.shape
+    groups = math.prod(lead[:-1])
+    if getattr(module, "tracks_stats", False):
+        kw.setdefault("mask", mask.reshape(groups, lead[-1]))
+    logits = module(flat_params, x.reshape((-1,) + x.shape[len(lead):]),
+                    groups=groups, **kw)
+    return logits.reshape(lead + logits.shape[-1:])
+
+
 def make_compute_loss(module):
     """CE loss + accuracy (reference compute_loss_ce), masked mean over
     real samples. The batch may carry any leading axes before the
     sample axis: one forward runs over all of them, and the values
-    come back per leading index (per client of a (W, B) round)."""
+    come back per leading index (per client of a (W, B) round). Under
+    ``--mixup`` the batch carries ``y_b`` and ``lam`` (``apply_mixup``)
+    and the loss is lam*CE(y) + (1-lam)*CE(y_b)."""
 
     def compute_loss(flat_params, batch, args):
-        x = batch["x"]
-        lead = batch["mask"].shape
-        logits = module(flat_params, x.reshape((-1,) + x.shape[len(lead):]))
-        return _ce_loss_and_acc(logits.reshape(lead + logits.shape[-1:]),
-                                batch)
+        return _ce_loss_and_acc(_forward(module, flat_params, batch), batch)
 
     return compute_loss
+
+
+def make_compute_loss_eval(module):
+    """Eval loss of a model whose norms track statistics: normalize by
+    the server's running statistics ``model_state``, so the metrics do
+    not depend on the eval batch's composition (reference
+    cv_train.py:88-102)."""
+
+    def compute_loss(flat_params, batch, args, model_state):
+        return _ce_loss_and_acc(
+            _forward(module, flat_params, batch, running=model_state), batch)
+
+    return compute_loss
+
+
+def make_bn_stats_fn(module):
+    """``stats_fn(flat_params, batch) -> {site path: (W, C)}``: each
+    client's raw batch statistics (masked mean and Bessel-corrected
+    variance), from one train-mode forward over the round's (W, B)
+    batch (reference ``make_bn_stats_fn``, cv_train.py:105-124, one
+    forward a client under vmap there)."""
+
+    def stats_fn(flat_params, batch):
+        record = {}
+        _forward(module, flat_params, batch, record=record)
+        return record
+
+    return stats_fn
 
 
 def _ce_loss_and_acc(logits, batch):
     labels = batch["y"].to(torch.int64)
     logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+
+    def nll_of(lab):
+        return -torch.gather(logp, -1, lab[..., None])[..., 0]
+
+    if "y_b" in batch:
+        lam = batch["lam"]  # per sample: the round's lam
+        y_b = batch["y_b"].to(torch.int64)
+        nll = lam * nll_of(labels) + (1.0 - lam) * nll_of(y_b)
+        dominant = torch.where(lam >= 0.5, labels, y_b)
+    else:
+        nll = nll_of(labels)
+        dominant = labels
     loss = masked_mean(nll, batch["mask"])
-    acc = masked_mean((torch.argmax(logits, -1) == labels).to(torch.float32),
-                      batch["mask"])
+    acc = masked_mean((torch.argmax(logits, -1) == dominant)
+                      .to(torch.float32), batch["mask"])
     return loss, (acc,)
 
 
+# Fixup scalar leaf names, matched as the exact final path segment
+# (reference cv_train.py:127-150): the biases (bias1a/1b/2a/2b/3a/3b,
+# bias1/bias2, add1a/1b/2a/2b, and the Dense head's bias) and the
+# scales (scale, mul) train at 0.1x
+_FIXUP_BIAS_RE = re.compile(r"\['(?:bias(?:[123][ab]?)?|add[12][ab])'\]$")
+_FIXUP_SCALE_RE = re.compile(r"\['(?:scale|mul)'\]$")
+
+
+def fixup_bias_name(name: str) -> bool:
+    return _FIXUP_BIAS_RE.search(name) is not None
+
+
+def fixup_scale_name(name: str) -> bool:
+    return _FIXUP_SCALE_RE.search(name) is not None
+
+
+def apply_mixup(batch, alpha, rng):
+    """Host-side mixup (reference ``apply_mixup``, cv_train.py:153):
+    one lam ~ Beta(alpha, alpha) a round; each client's real rows are
+    mixed with a permutation of themselves (never across clients)."""
+    lam = float(rng.beta(alpha, alpha)) if alpha > 0 else 1.0
+    x = np.asarray(batch["x"]).copy()
+    y = np.asarray(batch["y"])
+    mask = np.asarray(batch["mask"])
+    y_b = y.copy()
+    for w in range(x.shape[0]):
+        real = np.nonzero(mask[w] > 0)[0]
+        if len(real) < 2:
+            continue
+        perm = real[rng.permutation(len(real))]
+        x[w, real] = lam * x[w, real] + (1 - lam) * x[w, perm]
+        y_b[w, real] = y[w, perm]
+    out = dict(batch)
+    out["x"] = x
+    out["y_b"] = y_b
+    out["lam"] = np.full_like(mask, lam)
+    return out
+
+
 def run_batches(model, opt, lr_scheduler, loader, args, training,
-                epoch_fraction=1.0, round_times=None, round_losses=None):
+                epoch_fraction=1.0, round_times=None, round_losses=None,
+                mixup_rng=None):
     """(reference cv_train.py:177-292). ``round_times``, if given,
     receives each training round's wall seconds, from the scheduler
     step to the round's metrics on the host after ``opt.step()``
@@ -79,7 +182,8 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
     each round's sample-weighted train loss (rounds with no real
     sample give none). Pipelined rounds are processed as ``flush``
     brings them to the host, in dispatch order; the divergence stop
-    fires at the flush that sees the bad loss."""
+    fires at the flush that sees the bad loss. ``mixup_rng`` (under
+    ``--mixup``) mixes each round's batch before it is dispatched."""
     if training:
         model.train(True)
         losses, accs = [], []
@@ -110,6 +214,8 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
             if i >= max_batches:
                 break
             t0 = time.perf_counter()
+            if mixup_rng is not None:
+                batch = apply_mixup(batch, args.mixup_alpha, mixup_rng)
             lr_scheduler.step()
             if opt.param_groups[0]["lr"] == 0:
                 # "HACK STEP": keep FedAvg's schedule aligned when the
@@ -160,12 +266,16 @@ def train(model, opt, lr_scheduler, train_loader, val_loader, args,
     timer = timer or Timer()
     logger = logger or TableLogger()
     results = []
+    # one mixup stream across epochs (reference cv_train.py:316-318)
+    mixup_rng = (np.random.RandomState(args.seed + 77)
+                 if args.do_mixup else None)
     for epoch in range(math.ceil(args.num_epochs)):
         epoch_fraction = min(1.0, args.num_epochs - epoch)
         round_times, round_losses = [], []
         out = run_batches(model, opt, lr_scheduler, train_loader, args,
                           training=True, epoch_fraction=epoch_fraction,
-                          round_times=round_times, round_losses=round_losses)
+                          round_times=round_times, round_losses=round_losses,
+                          mixup_rng=mixup_rng)
         if out is None:
             print("NaN detected, aborting training")
             return results
@@ -193,18 +303,39 @@ def train(model, opt, lr_scheduler, train_loader, val_loader, args,
     return results
 
 
+# the datasets' sample shapes (H, W, C); the rest are 32 x 32 x 3
+# (reference cv_train.py:424-427)
+SAMPLE_SHAPES = {"EMNIST": (28, 28, 1), "ImageNet": (224, 224, 3)}
+
+
+def get_transforms(name: str):
+    """(train, val) numpy transform stacks of a dataset (reference
+    cv_train.py:367-379); None for Synthetic."""
+    if name in ("CIFAR10", "CIFAR100"):
+        mean = T.CIFAR10_MEAN if name == "CIFAR10" else T.CIFAR100_MEAN
+        std = T.CIFAR10_STD if name == "CIFAR10" else T.CIFAR100_STD
+        return (T.cifar_train_transform(mean, std),
+                T.cifar_val_transform(mean, std))
+    if name == "EMNIST":
+        return T.femnist_train_transform(), T.femnist_val_transform()
+    return None, None
+
+
 def get_data_loaders(args: Config):
-    """(reference cv_train.py:364-403); Synthetic only."""
-    cls = get_dataset_cls(args.dataset_name)
+    """(reference cv_train.py:364-403) with the numpy loader."""
+    name = args.dataset_name
+    cls = get_dataset_cls(name)
+    train_t, val_t = get_transforms(name)
     common = dict(do_iid=args.do_iid, num_clients=args.num_clients,
-                  seed=args.seed,
-                  classes_per_client=args.classes_per_client,
-                  per_class=args.synthetic_per_class,
-                  separation=args.synthetic_separation,
-                  num_val=args.synthetic_num_val)
-    train_ds = cls(args.dataset_dir, args.dataset_name, train=True,
+                  seed=args.seed)
+    if name == "Synthetic":
+        common.update(classes_per_client=args.classes_per_client,
+                      per_class=args.synthetic_per_class,
+                      separation=args.synthetic_separation,
+                      num_val=args.synthetic_num_val)
+    train_ds = cls(args.dataset_dir, name, transform=train_t, train=True,
                    **common)
-    val_ds = cls(args.dataset_dir, args.dataset_name, train=False,
+    val_ds = cls(args.dataset_dir, name, transform=val_t, train=False,
                  **common)
     sampler = FedSampler(train_ds, args.num_workers,
                          args.local_batch_size, seed=args.seed)
@@ -215,15 +346,54 @@ def get_data_loaders(args: Config):
 
 
 def build_model(args: Config, device="cpu"):
-    """(module, flat f32 parameters from ``args.seed``)."""
+    """(module, flat f32 parameters from ``args.seed``), sized for the
+    dataset's samples (reference cv_train.py:406-429)."""
     model_cls = get_model(args.model)
-    kw = dict(num_classes=num_classes_of_dataset(args.dataset_name))
+    kw = dict(num_classes=num_classes_of_dataset(args.dataset_name),
+              sample_shape=SAMPLE_SHAPES.get(args.dataset_name, (32, 32, 3)))
+    if args.model == "ResNet9":
+        kw["do_batchnorm"] = args.do_batchnorm
     if args.do_bf16:
-        kw["dtype"] = torch.bfloat16
-    if args.do_test:
+        if getattr(model_cls, "supports_bf16", False):
+            kw["dtype"] = torch.bfloat16
+        else:
+            warnings.warn(f"--bf16 not supported by {args.model}; "
+                          "training in float32")
+    if args.do_test and hasattr(model_cls, "test_config"):
         kw.update(model_cls.test_config(kw["num_classes"]))
     module = model_cls(**kw)
     return module, module.init_flat(args.seed, device)
+
+
+def make_fed_model(module, params, args: Config, padded_batch_size, device):
+    """The FedModel of a CV model: the CE loss, and for a model whose
+    norms track statistics (``--batchnorm``) the stats forward and the
+    running-stats eval."""
+    kw = {}
+    if getattr(module, "tracks_stats", False):
+        kw = dict(stats_fn=make_bn_stats_fn(module),
+                  compute_loss_val=make_compute_loss_eval(module),
+                  init_model_state=module.init_state(device))
+    return FedModel(module, params, make_compute_loss(module), args,
+                    padded_batch_size=padded_batch_size, **kw)
+
+
+def param_groups_of(args: Config, module):
+    """The Fixup LR groups (reference cv_train.py:537-556): bias and
+    scale parameters at 0.1x, as flat-vector index groups, the
+    nominal-LR group first so the logged LR is the schedule's. fedavg's
+    clients run one scalar LR, so there the groups are not applied."""
+    if args.model.startswith("Fixup"):
+        if args.mode != "fedavg":
+            bias_idx, scale_idx, other_idx = param_group_indices(
+                module.leaf_shapes(), fixup_bias_name, fixup_scale_name)
+            print("using fixup learning rates")
+            return [{"lr": 1.0, "index": other_idx},
+                    {"lr": 0.1, "index": bias_idx},
+                    {"lr": 0.1, "index": scale_idx}]
+        print("WARNING: fedavg uses a scalar LR; Fixup bias/scale "
+              "0.1x groups are not applied")
+    return [{"lr": 1.0}]
 
 
 DEFAULT_LR = 0.4
@@ -233,6 +403,18 @@ def main(argv=None):
     args = parse_args(default_lr=DEFAULT_LR, argv=argv)
     device = resolve_device(args.device)
     np.random.seed(args.seed)
+
+    model_cfg = None
+    if not args.do_test:
+        # per-model recommended hyperparameters onto fields left at
+        # their defaults (models/configs.py)
+        model_cfg = get_model_config(args.model)
+        if model_cfg is not None:
+            defaults = vars(parse_args(default_lr=DEFAULT_LR, argv=[]))
+            applied = model_cfg.set_args(args, defaults)
+            if applied:
+                print(f"model config {type(model_cfg).__name__}: "
+                      f"{applied}")
 
     if args.do_test:
         # tiny sketch like the reference smoke mode
@@ -246,18 +428,21 @@ def main(argv=None):
         args.num_clients = int(train_ds.num_clients)
 
     module, params = build_model(args, device)
-    compute_loss = make_compute_loss(module)
-    model = FedModel(module, params, compute_loss, args,
-                     padded_batch_size=train_loader.B)
-    opt = FedOptimizer([{"lr": 1.0}], args)
+    model = make_fed_model(module, params, args, train_loader.B, device)
+    opt = FedOptimizer(param_groups_of(args, module), args)
 
     spe = steps_per_epoch(args.local_batch_size, train_ds,
                           args.num_workers)
-    horizon = args.schedule_epochs or args.num_epochs
-    lambda_step = PiecewiseLinear(
-        [0, args.pivot_epoch * spe, horizon * spe],
-        [0, args.lr_scale, 0])
-    lr_scheduler = LambdaLR(opt, lambda x: lambda_step(x))
+    if model_cfg is not None and model_cfg.lr_schedule_shape is not None:
+        # the config's epoch-indexed shape x --lr_scale
+        shape = model_cfg.lr_schedule_shape
+        lr_scheduler = LambdaLR(opt, lambda x: args.lr_scale * shape(x / spe))
+    else:
+        horizon = args.schedule_epochs or args.num_epochs
+        lambda_step = PiecewiseLinear(
+            [0, args.pivot_epoch * spe, horizon * spe],
+            [0, args.lr_scale, 0])
+        lr_scheduler = LambdaLR(opt, lambda x: lambda_step(x))
     return train(model, opt, lr_scheduler, train_loader, val_loader, args)
 
 

@@ -1,7 +1,8 @@
 """The port stands alone: importing ``commefficient_tpu_torch``, every
 module in it and the module part of ``chip_smoke.py`` loads neither
-``jax`` nor anything of the JAX package (checked in a fresh
-interpreter, so this test process's own imports do not count)."""
+``jax`` nor anything of the JAX package, nor PIL (the image transforms
+resize in numpy; checked in a fresh interpreter, so this test
+process's own imports do not count)."""
 
 import os
 import subprocess
@@ -21,7 +22,7 @@ spec = importlib.util.spec_from_file_location(
     "chip_smoke", {smoke!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "flax",
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "PIL",
                                     "commefficient_tpu"))
 print(len(names), bad)
 sys.exit(1 if bad or len(names) < 15 else 0)

@@ -103,5 +103,13 @@ def test_bf16_logits_close_to_f32(pair):
 
 
 def test_batchnorm_not_ported():
-    with pytest.raises(NotImplementedError, match="batchnorm"):
-        ResNet9(do_batchnorm=True)
+    """--batchnorm raised until it was ported; now ResNet9 builds a
+    tracking norm after each conv, with the flax tree's leaves (scale
+    and bias) and running statistics (mean 0, var 1 at init)."""
+    tm = ResNet9(do_batchnorm=True)
+    assert tm.tracks_stats
+    assert tm.num_params == 6_584_000 + 2 * (64 + 128 * 3 + 256 + 512 * 3)
+    state = tm.init_state()
+    assert len(state) == 2 * 8
+    assert all(float(v.sum()) == (0.0 if path[-1] == "mean" else v.numel())
+               for path, v in state.items())

@@ -117,8 +117,8 @@ def test_mode_trainer_matches_jax_bytes_and_losses(mode, monkeypatch):
 @pytest.mark.parametrize("argv,name", [
     (["--do_dp"], "--do_dp"),
     (["--robust_agg", "median"], "--robust_agg"),
-    (["--model", "FixupResNet9"], "--model FixupResNet9"),
-    (["--dataset_name", "CIFAR10"], "--dataset_name CIFAR10"),
+    (["--finetune"], "--finetune"),
+    (["--dataset_name", "ImageNet"], "--dataset_name ImageNet"),
 ])
 def test_unported_options_raise(argv, name):
     base = ["--device", "cpu", "--test", "--local_momentum", "0",
