@@ -27,6 +27,11 @@ through the kernels:
   forward / 1 flce backward per round, plus one flce forward per
   validation step. The f32 paths launch the sketch-and-quantize kernel
   zero times;
+- the same GPT-2 path with ``--attn_impl flash`` (``gpt2_flash_path``:
+  12 flash attention forwards, 12 dK/dV and 12 dQ a round, 12 forwards
+  a validation step) and with ``--remat`` as well
+  (``gpt2_flash_remat_path``: 24 forwards a round, the same per-round
+  losses within ``REMAT_LOSS_RTOL``), each with its peak memory;
 - the image models on fixtures the script writes (``data/fixtures.py``:
   random pixels in the archives' own formats), the same sketch, k and
   8 clients x 8 samples, 4 rounds each through ``cv_train.main``:
@@ -94,7 +99,13 @@ take-mask) is held exactly against its plain version at both shapes and
 on edge distributions, among them ties placed against the take-mask's
 tiles and two back-to-back launches, and must run with no host sync
 (``torch.cuda.set_sync_debug_mode("error")``); the ``ptxas_take_mask``
-line gives the take-mask's registers and spills.
+line gives the take-mask's registers and spills. The three flash
+attention kernels (``attention`` lines) are held against their plain
+versions at the GPT-2 round's shape (64 sequences x 12 heads x T 256 x
+hd 64, bf16: the library's single step), at T 1024 (two online K blocks
+of 512) and at small f32 and hd-16 shapes, and timed at the first two
+beside ``scaled_dot_product_attention``, forward and forward +
+backward (a yardstick the port never calls).
 Each phase prints one JSON line; a failed check raises, so the script
 exits nonzero before its last line, which is ``{"ok": true, "device":
 {...}}``. Needs one CUDA card; exits nonzero without one. Imports
@@ -123,6 +134,7 @@ from commefficient_tpu_torch.core.rounds import ClientStates
 from commefficient_tpu_torch.core.server import ServerState, server_update
 from commefficient_tpu_torch.data.fixtures import write_fixture
 from commefficient_tpu_torch.data.tokenizer import SPECIAL_TOKENS, load_tokenizer
+from commefficient_tpu_torch.ops import attention_kernels as ak
 from commefficient_tpu_torch.ops import flce_kernels as fk
 from commefficient_tpu_torch.ops import quant
 from commefficient_tpu_torch.ops import sketch_kernels as sk
@@ -245,6 +257,7 @@ BN_ARGV = (["--dataset_name", "CIFAR10", "--model", "ResNet9",
 KERNELS = (sk.sketch_kernel, sk.estimates_kernel, tk.threshold_key_kernel,
            tk.take_mask_kernel, sk.sketch_quant_kernel)
 FLCE = (fk.flce_fwd_kernel, fk.flce_bwd_kernel)
+ATTN = (ak.attn_fwd_kernel, ak.attn_bwd_dkv_kernel, ak.attn_bwd_dq_kernel)
 # GPT-2 124M with the tokenizer's 50 257 + 5 special tokens; one round
 # is W*B*N*(T-1) = 4*8*2*255 predicting tokens
 GPT2_D, GPT2_V, GPT2_C = 124_444_417, 50_262, 768
@@ -275,6 +288,36 @@ WGMMA_TILE_TOL = ("|kernel-matmul| <= 2^-16 (|a|.|b|) per entry (f32), "
                   "MN-major dm.s")
 SELECT_TOL = ("exact: T and need of the search kernel equal to the plain "
               "search's, the mask equal to the plain take-mask's on them")
+# flash attention: (name, B, H, T, hd, dtype). The GPT-2 round's shape
+# (W 4 x B 8 x 2 candidates, 12 heads of 64, T 256: the single step),
+# GPT-2's n_positions (two online K blocks of 512), then small shapes:
+# f32, and hd 16 (the tiny model's heads)
+GPT2_LAYERS = 12
+ATTN_SHAPES = (("round", 64, 12, 256, 64, torch.bfloat16),
+               ("t1024", 8, 12, 1024, 64, torch.bfloat16),
+               ("f32", 4, 12, 256, 64, torch.float32),
+               ("f32_hd16_t1024", 2, 2, 1024, 16, torch.float32),
+               ("hd16", 8, 2, 256, 16, torch.bfloat16))
+# o: the kernel and the plain version round the same f32 products to
+# bf16 (p before its product, o at the end), summed in another order: a
+# one-ulp flip of a dominant term moves a row by up to 2^-8, the
+# output's rounding by 2^-9. Dropping the causal mask moves rows by
+# O(1); skipping the bf16 cast of p by ~2^-9 a term (caught in f32 by
+# the l/m checks and per element). f32: summation order only
+ATTN_O_RTOL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-5}
+# the mean over rows (bf16): the two round the same f32 values, so
+# rows differ only by rare one-ulp flips; a p left unrounded before its
+# product moves every row by ~2^-9 (2.4e-3 mean at T 256, hd 64)
+ATTN_O_MEAN_RTOL = 2 ** -10
+ATTN_ML_RTOL = 1e-5
+# dQ/dK/dV: p and ds rounded to bf16 before their products, as
+# FLCE_BWD_RTOL's d
+ATTN_GRAD_RTOL = 2 ** -6
+ATTN_TOL = ("o: per-row ||kernel-plain||/||plain|| <= 2^-7 (bf16; their "
+            "mean over rows <= 2^-10), 1e-5 (f32); m: |kernel-plain| <= 1e-5 max(|plain|, 1); l: "
+            "|kernel-plain| <= 1e-5 |plain|; dQ, dK, dV: per-row <= 2^-6 "
+            "(dQ's row 0, zero in exact arithmetic, against dQ's rms row "
+            "norm); the backward bit-identical on relaunch")
 
 
 def emit(obj):
@@ -1093,6 +1136,163 @@ def flce_phases(dev, flush, m=GPT2_M, v=GPT2_V, c=GPT2_C):
     return rows
 
 
+def attn_inputs(dev, b, h, t, hd, dtype, seed):
+    """q, k, v as the model cuts them ((B, H, T, hd) views of a (B, T,
+    3C) projection) and a cotangent laid out as autograd hands it back
+    (a view of a (B, T, H, hd) tensor)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = h * hd
+    qkv = torch.randn(b, t, 3 * c, generator=gen, device=dev).to(dtype)
+    q, k, v = (z.reshape(b, t, h, hd).transpose(1, 2)
+               for z in qkv.split(c, dim=-1))
+    do = torch.randn(b, t, h, hd, generator=gen, device=dev).to(
+        dtype).transpose(1, 2)
+    return q, k, v, do
+
+
+def dq_rel_err(a, b):
+    """dQ's per-row error over rows t >= 1; row 0 of each head is zero
+    in exact arithmetic (p = 1 at its one column, so ds = dp - di = 0)
+    and both versions hold rounding noise there, held against the rms
+    row norm of dQ instead."""
+    rest = row_rel_err(a[..., 1:, :].flatten(0, 2),
+                       b[..., 1:, :].flatten(0, 2))
+    scale = torch.linalg.vector_norm(b.float(), dim=-1).square().mean()
+    first = torch.linalg.vector_norm((a.float() - b.float())[..., 0, :],
+                                     dim=-1).max()
+    return max(rest, float(first / scale.sqrt()))
+
+
+def attn_checks(q, k, v, do, tag):
+    """Each attention kernel against its plain version on the same
+    inputs (the backward's from the plain forward's m, l and di);
+    returns (outputs of the plain versions, errors)."""
+    scale = q.shape[-1] ** -0.5
+    o, m, l = ak.attn_fwd_kernel(q, k, v, scale)
+    op, mp, lp = ak.attn_fwd_plain(q, k, v, scale)
+    o_err = row_rel_err(o.flatten(0, 2), op.flatten(0, 2))
+    check(o_err <= ATTN_O_RTOL[q.dtype], f"attn_fwd {tag}: per-row "
+          f"||o-plain||/||plain|| {o_err} > {ATTN_O_RTOL[q.dtype]}")
+    of, opf = o.flatten(0, 2).float(), op.flatten(0, 2).float()
+    o_mean = float((torch.linalg.vector_norm(of - opf, dim=1)
+                    / torch.linalg.vector_norm(opf, dim=1)).mean())
+    if q.dtype == torch.bfloat16:
+        check(o_mean <= ATTN_O_MEAN_RTOL, f"attn_fwd {tag}: mean per-row "
+              f"||o-plain||/||plain|| {o_mean} > {ATTN_O_MEAN_RTOL}")
+    # m against max(|m|, 1): a row max near 0 is a score summed in
+    # another order, and exp(s - m) moves by |dm| relative (l >= 1)
+    ml_err = max(float(((m - mp).abs() / mp.abs().clamp_min(1.0)).max()),
+                 float(((l - lp).abs() / lp).max()))
+    check(ml_err <= ATTN_ML_RTOL,
+          f"attn_fwd {tag}: m, l relative error {ml_err} > {ATTN_ML_RTOL}")
+    di = (op.float() * do.float()).sum(-1).contiguous()
+    bwd = (ak.attn_bwd_dq_kernel(q, k, v, mp, lp, do, di, scale),
+           *ak.attn_bwd_dkv_kernel(q, k, v, mp, lp, do, di, scale))
+    plain = (ak.attn_bwd_dq_plain(q, k, v, mp, lp, do, di, scale),
+             *ak.attn_bwd_dkv_plain(q, k, v, mp, lp, do, di, scale))
+    errs = {"o": o_err, "o_mean": o_mean, "m_l": ml_err}
+    for name, a, b in zip(("dq", "dk", "dv"), bwd, plain):
+        e = (dq_rel_err(a, b) if name == "dq"
+             else row_rel_err(a.flatten(0, 2), b.flatten(0, 2)))
+        check(e <= ATTN_GRAD_RTOL, f"attn {name} {tag}: per-row "
+              f"||kernel-plain||/||plain|| {e} > {ATTN_GRAD_RTOL}")
+        errs[name] = e
+    abs_err = {"fwd": float((o.float() - op.float()).abs().max()),
+               "dq": float((bwd[0].float() - plain[0].float()).abs().max()),
+               "dkv": max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(bwd[1:], plain[1:]))}
+    dq2 = ak.attn_bwd_dq_kernel(q, k, v, mp, lp, do, di, scale)
+    dk2, dv2 = ak.attn_bwd_dkv_kernel(q, k, v, mp, lp, do, di, scale)
+    check(torch.equal(dq2, bwd[0]) and torch.equal(dk2, bwd[1])
+          and torch.equal(dv2, bwd[2]),
+          f"attn backward {tag}: two launches on the same inputs differ")
+    return (op, mp, lp, di), errs, abs_err
+
+
+def attn_bounds(b, h, t, hd, dtype):
+    """Bound (ms, by) of each kernel: each operand read once and each
+    output written once; the causal products' operations (T(T+1)/2
+    score entries a head, 2 hd flops each a product) at the type's
+    peak: 2 products forward, 4 for dK/dV, 3 for dQ."""
+    es = torch.finfo(dtype).bits // 8
+    n, rows = b * h * t * hd * es, b * h * t * 4
+    pairs = b * h * t * (t + 1) // 2
+    peak = BF16_OPS if dtype == torch.bfloat16 else F32_OPS
+    return {"attn_fwd": bound(4 * n + 2 * rows, 4 * hd * pairs, peak),
+            "attn_bwd_dkv": bound(6 * n + 3 * rows, 8 * hd * pairs, peak),
+            "attn_bwd_dq": bound(5 * n + 3 * rows, 6 * hd * pairs, peak)}
+
+
+def attention_phases(dev, flush):
+    """The three flash attention kernels against their plain versions
+    at ``ATTN_SHAPES``, timed with their bounds at the first two
+    beside ``scaled_dot_product_attention`` (the yardstick: timed only,
+    the port never calls it)."""
+    F = torch.nn.functional
+    timed = {}
+    for tag, b, h, t, hd, dtype in ATTN_SHAPES:
+        q, k, v, do = attn_inputs(dev, b, h, t, hd, dtype, seed=t + hd)
+        (op, mp, lp, di), errs, abs_err = attn_checks(q, k, v, do, tag)
+        out = {"shape": [b, h, t, hd], "dtype": str(dtype).split(".")[-1],
+               "block": ak.block_size(t),
+               "path": "single step" if ak.block_size(t) == t else "online",
+               "row_rel_err": errs}
+        if tag in ("round", "t1024"):
+            scale = hd ** -0.5
+            bounds = attn_bounds(b, h, t, hd, dtype)
+            reps = 10 if tag == "round" else 5
+            qs, ks, vs = (x.contiguous() for x in (q, k, v))
+            sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, scale=scale), reps, flush)
+            leaf = [x.clone().requires_grad_() for x in (qs, ks, vs)]
+            dos = do.contiguous()
+
+            def sdpa_fwd_bwd():
+                o = F.scaled_dot_product_attention(*leaf, is_causal=True,
+                                                   scale=scale)
+                torch.autograd.grad(o, leaf, dos)
+
+            sdpa_fb = time_ms(sdpa_fwd_bwd, reps, flush)
+            bwd_args = (q, k, v, mp, lp, do, di, scale)
+            kern = {
+                "attn_fwd": (lambda: ak.attn_fwd_kernel(q, k, v, scale),
+                             lambda: ak.attn_fwd_plain(q, k, v, scale),
+                             sdpa, abs_err["fwd"]),
+                "attn_bwd_dkv": (lambda: ak.attn_bwd_dkv_kernel(*bwd_args),
+                                 lambda: ak.attn_bwd_dkv_plain(*bwd_args),
+                                 None, abs_err["dkv"]),
+                "attn_bwd_dq": (lambda: ak.attn_bwd_dq_kernel(*bwd_args),
+                                lambda: ak.attn_bwd_dq_plain(*bwd_args),
+                                None, abs_err["dq"])}
+            for name, (fn, plain, lib, err) in kern.items():
+                b_ms, b_by = bounds[name]
+                ms = time_ms(fn, reps, flush)
+                timed.setdefault(name, {})[tag] = dict(
+                    max_abs_err=err, ms=ms,
+                    plain_ms=time_ms(plain, 3, flush), bound_ms=b_ms,
+                    bound_by=b_by, share_of_bound=b_ms / ms, library_ms=lib,
+                    sdpa_fwd_bwd_ms=sdpa_fb)
+            out.update(kernels={name: by_tag[tag]
+                                for name, by_tag in timed.items()},
+                       sdpa_ms=sdpa, sdpa_fwd_bwd_ms=sdpa_fb)
+        emit({"phase": "attention", "case": tag, **out,
+              "tolerance": ATTN_TOL})
+        del q, k, v, do, op, mp, lp, di
+        torch.cuda.empty_cache()
+    table = []
+    # the library kernels the repo's flash branch calls
+    # (commefficient_tpu/models/gpt2.py:131), in jax 0.9.0
+    lib = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    replaces = {"attn_fwd": f"{lib}:758", "attn_bwd_dkv": f"{lib}:1121",
+                "attn_bwd_dq": f"{lib}:1456"}
+    for name, by_tag in timed.items():
+        table.append(dict(name=name, route="cuda",
+                          source="commefficient_tpu_torch/csrc/flash_attn.cu",
+                          replaces=replaces[name], **by_tag["round"],
+                          t1024=by_tag["t1024"]))
+    return table
+
+
 def shape_phase(dev, flush, l2_bps, d=GPT2_D, tag="GPT-2",
                 phase="gpt2_shapes", quant=True):
     """The sketch, estimates, search and take-mask kernels at a main
@@ -1170,46 +1370,113 @@ def shape_phase(dev, flush, l2_bps, d=GPT2_D, tag="GPT-2",
     return out
 
 
-def gpt2_main_path():
+@contextlib.contextmanager
+def round_losses(module):
+    """Records the mask-weighted train loss of every round that
+    ``module.FedModel`` runs while the block runs (as ``run_batches``
+    averages them)."""
+    losses = []
+    base = module.FedModel
+
+    class Recording(base):
+        def __call__(self, batch):
+            out = super().__call__(batch)
+            if self.training:
+                w = np.asarray(batch["mask"]).sum(axis=1)
+                losses.append(float(np.sum(out[0] * w) / w.sum()))
+            return out
+
+    module.FedModel = Recording
+    try:
+        yield losses
+    finally:
+        module.FedModel = base
+
+
+def gpt2_main_path(phase="gpt2_main_path", extra=(), attn_fwd_per_round=0):
     """Fabricates the vocabulary and a corpus of 4 rounds (16 clients x
     8 items) with the port's own functions, then runs one epoch through
-    ``gpt2_train.main`` and checks losses and launch counts."""
+    ``gpt2_train.main`` (the main path's flags, then ``extra``) and
+    checks losses and launch counts: each round's backward runs
+    ``attn_fwd_per_round`` attention forwards a layer (0: the plain
+    attention; 1 with ``--attn_impl flash``; 2 under ``--remat``, which
+    runs each block's forward again in the backward), one dK/dV and
+    one dQ a layer where it runs any, and each validation step one
+    forward a layer. Returns (launch counts, per-round train losses)."""
     with tempfile.TemporaryDirectory(prefix="gpt2_smoke_") as root:
         data_dir, vocab_dir = gpt2_train.fabricate_assets(root)
-        argv = profile_round.gpt2_argv(data_dir, vocab_dir)
+        argv = profile_round.gpt2_argv(data_dir, vocab_dir) + list(extra)
         args = parse_args(default_lr=4e-2, argv=argv)
         tok = load_tokenizer(vocab_dir)
         tok.add_special_tokens(SPECIAL_TOKENS)
         _, val_loader, _ = gpt2_train.get_data_loaders(args, tok)
         val_steps = len(val_loader)
-        for kern in KERNELS + FLCE:
+        for kern in KERNELS + FLCE + ATTN:
             kern.launches = 0
         t0 = time.perf_counter()
-        results = gpt2_train.main(argv)
+        with round_losses(gpt2_train) as losses:
+            results = gpt2_train.main(argv)
         wall = time.perf_counter() - t0
-    counts = {k.__name__: k.launches for k in KERNELS + FLCE}
+    counts = {k.__name__: k.launches for k in KERNELS + FLCE + ATTN}
     d = fed_model._CURRENT_MODEL.args.grad_size
     check(len(results) == 1, f"{len(results)} epochs ran, want 1")
     row = results[-1]
     rounds = len(row["round_times"])
     for key in ("train_loss", "val_nll", "val_ppl", "val_acc"):
         check(math.isfinite(row[key]), f"{key} = {row[key]}")
+    check(len(losses) == rounds and all(map(math.isfinite, losses)),
+          f"{phase}: per-round losses {losses}")
     check(3 <= rounds <= 5, f"{rounds} rounds ran, want 3-5")
     check(d == GPT2_D, f"GPT-2 flat size {d}, want {GPT2_D}")
+    flash = attn_fwd_per_round > 0
     want = {"sketch_kernel": rounds, "estimates_kernel": rounds,
             "threshold_key_kernel": rounds,
             "take_mask_kernel": rounds, "sketch_quant_kernel": 0,
             "flce_fwd_kernel": rounds + val_steps,
-            "flce_bwd_kernel": rounds}
-    check(counts == want, f"GPT-2 launch counts {counts}, want {want}")
-    emit({"phase": "gpt2_main_path", "argv_tail": argv[6:], "d": d,
+            "flce_bwd_kernel": rounds,
+            "attn_fwd_kernel": GPT2_LAYERS * (
+                attn_fwd_per_round * rounds + val_steps) if flash else 0,
+            "attn_bwd_dkv_kernel": GPT2_LAYERS * rounds if flash else 0,
+            "attn_bwd_dq_kernel": GPT2_LAYERS * rounds if flash else 0}
+    check(counts == want, f"{phase} launch counts {counts}, want {want}")
+    emit({"phase": phase, "argv_tail": argv[6:], "d": d,
           "rounds": rounds, "val_steps": val_steps, "launches": counts,
-          "round_seconds": row["round_times"],
+          "round_seconds": row["round_times"], "round_losses": losses,
           "train_loss": row["train_loss"], "val_nll": row["val_nll"],
           "val_ppl": row["val_ppl"], "val_acc": row["val_acc"],
           "up_MiB": row["up (MiB)"], "down_MiB": row["down (MiB)"],
           "wall_seconds": wall,
           "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30})
+    return counts, losses
+
+
+# --remat recomputes each block's forward with the same kernels on the
+# same inputs, so its gradients, and the next round's loss, are the
+# same numbers
+REMAT_LOSS_RTOL = 1e-6
+
+
+def gpt2_flash_paths():
+    """``gpt2_flash_path`` (the GPT-2 main path with ``--attn_impl
+    flash``) and ``gpt2_flash_remat_path`` (and ``--remat``): launch
+    counts, and the same per-round train losses. Returns the flash
+    path's counts."""
+    fed_model._CURRENT_MODEL = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts, losses = gpt2_main_path("gpt2_flash_path",
+                                    ["--attn_impl", "flash"], 1)
+    fed_model._CURRENT_MODEL = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, remat = gpt2_main_path("gpt2_flash_remat_path",
+                              ["--attn_impl", "flash", "--remat"], 2)
+    err = max(abs(a - b) / abs(b) for a, b in zip(remat, losses))
+    check(len(remat) == len(losses) and err <= REMAT_LOSS_RTOL,
+          f"--remat per-round losses {remat} against {losses}: "
+          f"relative {err} > {REMAT_LOSS_RTOL}")
+    emit({"phase": "gpt2_flash_remat_losses", "max_rel_diff": err,
+          "bit_equal": remat == losses, "rtol": REMAT_LOSS_RTOL})
     return counts
 
 
@@ -1753,6 +2020,8 @@ def main():
     wgmma_tile_phase(dev)
     rows += flce_phases(dev, flush)
     torch.cuda.empty_cache()
+    attn_rows = attention_phases(dev, flush)
+    torch.cuda.empty_cache()
     gpt2_shapes = shape_phase(dev, flush, l2_bps)
     torch.cuda.empty_cache()
     pd = CountSketch(d=EMNIST_D, c=C, r=R)._padded_d
@@ -1797,7 +2066,8 @@ def main():
     fed_model._CURRENT_MODEL = None
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    gpt2_counts = gpt2_main_path()
+    gpt2_counts, _ = gpt2_main_path()
+    flash_counts = gpt2_flash_paths()
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1806,14 +2076,16 @@ def main():
     # sketch kernels, with their GPT-2 numbers beside; the int8 ResNet9
     # path for sketch-and-quantize; GPT-2 for flce)
     launches = {**gpt2_counts, **counts,
-                "sketch_quant_kernel": quant_counts["sketch_quant_kernel"]}
+                "sketch_quant_kernel": quant_counts["sketch_quant_kernel"],
+                **{k.__name__: flash_counts[k.__name__] for k in ATTN}}
     table = []
-    for row in rows:
+    for row in rows + attn_rows:
         kern = f"{row['name']}_kernel"
         row["launches"] = launches[kern]
         entry = {k: row[k] for k in keys}
         for extra in ("unfused_ms", "fp8", "selection_ms", "design_floor_ms",
-                      "route_taken", "main_path_routes", "scan_ms"):
+                      "route_taken", "main_path_routes", "scan_ms",
+                      "share_of_bound", "sdpa_fwd_bwd_ms", "t1024"):
             if extra in row:
                 entry[extra] = row[extra]
         if row["name"] in gpt2_shapes:

@@ -52,8 +52,7 @@ NOT_PORTED_FLAGS = (
     "--l2_norm_clip", "--noise_multiplier", "--mesh", "--param_dtype",
     "--compute_dtype", "--approx_topk", "--approx_recall",
     "--hf_export", "--coordinator_address",
-    "--num_processes", "--process_id", "--remat", "--attn_impl",
-    "--clientstore",
+    "--num_processes", "--process_id", "--clientstore",
     "--clientstore_bytes", "--clientstore_dir", "--ledger",
     "--telemetry_console", "--probe_every", "--probe_full",
     "--on_divergence", "--alarm_residual_ratio",
@@ -164,6 +163,13 @@ class Config:
     tokens_per_chunk: int = 0
     # fused tied-head cross-entropy kernels (ops/flce.py): auto|on|off
     fused_ce: str = "off"
+    # GPT-2: recompute each block's activations in the backward
+    # (reference config.py:228-230)
+    do_remat: bool = False
+    # GPT-2 attention: "xla" (the plain causal softmax) or "flash" (the
+    # flash attention kernels, ops/attention.py; reference
+    # config.py:231-234)
+    attn_impl: str = "xla"
 
     # Synthetic dataset dials (reference config.py:210-227)
     classes_per_client: int = 1
@@ -209,6 +215,8 @@ class Config:
             "--tokens_per_chunk must be >= 0 (0 = auto)"
         assert self.fused_ce in ("auto", "on", "off"), \
             "--fused_ce must be auto|on|off"
+        assert self.attn_impl in ("xla", "flash"), \
+            "--attn_impl must be xla|flash"
         assert self.sketch_dtype in SKETCH_DTYPES, \
             "--sketch_dtype must be f32|bf16|int8|fp8"
         assert self.overlap_depth >= 1, \
@@ -383,6 +391,11 @@ def build_parser(default_lr: Optional[float] = None
     parser.add_argument("--tokens_per_chunk", type=int, default=0)
     parser.add_argument("--fused_ce", type=str, default="off",
                         choices=["auto", "on", "off"])
+    parser.add_argument("--remat", action="store_true", dest="do_remat")
+    parser.add_argument("--attn_impl", type=str, default="xla",
+                        choices=["xla", "flash"],
+                        help="GPT-2 attention: the plain causal softmax "
+                        "or the flash attention kernels")
 
     parser.add_argument("--classes_per_client", type=int, default=1)
     parser.add_argument("--synthetic_per_class", type=int, default=64)

@@ -20,8 +20,15 @@ in f32. With ``dtype=torch.bfloat16`` (``--bf16``) the residual stream
 and the LayerNorms stay f32, Dense layers compute in bf16 and LM
 logits accumulate in f32.
 
-Flash attention, rematerialisation, sequence parallelism and the HF
-export are not ported (their flags raise at parse time).
+``attn_impl="flash"`` (``--attn_impl flash``) runs the attention of a
+sequence whose length is a multiple of 128 through the flash attention
+kernels (``ops/attention.py``), as the reference runs JAX's library
+flash attention there (gpt2.py:115-135); other lengths take the plain
+branch, as in the reference. ``remat=True`` (``--remat``) recomputes
+each block's activations in the backward
+(``torch.utils.checkpoint``, the reference's ``nn.remat(Block)``,
+gpt2.py:183). Sequence parallelism and the HF export are not ported
+(their flags raise at parse time).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from commefficient_tpu_torch.models import register_model
+from commefficient_tpu_torch.ops.attention import flash_attention
 from commefficient_tpu_torch.ops.vec import (flat_size, flatten_params,
                                              ravel_order, unravel)
 
@@ -50,6 +58,12 @@ class GPT2Config:
     initializer_range: float = 0.02
     # computation dtype of the Dense layers (parameters stay float32)
     dtype: torch.dtype = torch.float32
+    # attention lowering: "xla" = the plain causal softmax (the
+    # reference's jax.nn.dot_product_attention branch), "flash" = the
+    # flash attention kernels where T % 128 == 0
+    attn_impl: str = "xla"
+    # recompute each block's activations in the backward
+    remat: bool = False
 
     @staticmethod
     def tiny() -> "GPT2Config":
@@ -93,10 +107,13 @@ class MLP(nn.Module):
 
 
 class CausalSelfAttention(nn.Module):
-    """One fused qkv projection, causal softmax attention (the
-    reference's ``jax.nn.dot_product_attention`` branch: f32 scores
-    from the compute-type q, k, f32 softmax, probabilities cast back
-    to the compute type before the value product)."""
+    """One fused qkv projection, causal softmax attention: with
+    ``attn_impl="flash"`` and T % 128 == 0 the flash attention kernels
+    (the reference's library flash attention, scale hd^-1/2, every
+    block the first of 512, 256, 128 dividing T), else the reference's
+    ``jax.nn.dot_product_attention`` branch (f32 scores from the
+    compute-type q, k, f32 softmax, probabilities cast back to the
+    compute type before the value product)."""
 
     def __init__(self, cfg: GPT2Config):
         super().__init__()
@@ -113,6 +130,13 @@ class CausalSelfAttention(nn.Module):
         qkv = _dense(x, p["c_attn"], self.cfg.dtype)
         q, k, v = (z.reshape(b, t, h, c // h).transpose(1, 2)
                    for z in qkv.split(c, dim=-1))
+        if self.cfg.attn_impl == "flash" and t % 128 == 0:
+            # the (B, H, T, hd) views of qkv go in as they are (the
+            # kernels read their strides); o comes back as a view of a
+            # (B, T, H, hd) tensor
+            out = flash_attention(q, k, v, float((c // h) ** -0.5))
+            out = out.transpose(1, 2).reshape(b, t, c)
+            return _dense(out, p["c_proj"], self.cfg.dtype)
         scores = (q.float() @ k.float().transpose(-1, -2)) \
             * (c // h) ** -0.5
         causal = torch.ones(t, t, dtype=torch.bool,
@@ -166,8 +190,13 @@ class GPT2Transformer(nn.Module):
         if token_type_ids is not None:
             # token types index the same embedding table, GPT-2 style
             h = h + F.embedding(token_type_ids.long(), wte)
+        remat = cfg.remat and torch.is_grad_enabled()
         for i in range(cfg.n_layer):
-            h = self.block(p[f"h_{i}"], h)
+            if remat:
+                h = checkpoint(self.block, p[f"h_{i}"], h,
+                               use_reentrant=False)
+            else:
+                h = self.block(p[f"h_{i}"], h)
         return _layer_norm(h, p["ln_f"], cfg.layer_norm_epsilon), wte
 
 

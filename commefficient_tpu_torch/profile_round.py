@@ -19,7 +19,9 @@ the Fixup LR groups); an image dataset (``--dataset_name EMNIST``,
 ``CIFAR10``, ``CIFAR100``) without a ``--dataset_dir`` gets the smoke
 fixture of ``data/fixtures.py`` in the temporary directory, e.g.
 ``--model ResNet101LN --dataset_name EMNIST`` (f32: the ResNet family
-has no bf16):
+has no bf16). ``--model gpt2 --attn_impl flash [--remat]`` profiles
+the GPT-2 round through the flash attention kernels (and with each
+block recomputed in the backward):
 
 - ``round_wall``: wall seconds per round, data pull included, with no
   added syncs and no profiler (the round ends when its metrics reach

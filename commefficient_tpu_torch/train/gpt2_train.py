@@ -8,6 +8,10 @@ PersonaChat batches, the linear LR decay
 PiecewiseLinear([0, epochs*spe], [lr_scale, 0]), the NaN abort. Runs on
 the card unless ``--device cpu`` is given.
 
+``--attn_impl flash`` runs the attention through the flash attention
+kernels (``ops/attention.py``) and ``--remat`` recomputes each block in
+the backward, as in the reference.
+
 The LM term is the tied-head cross-entropy, computed without the
 (tokens, vocab) logits: chunked (``models/gpt2.py``), or with
 ``--fused_ce on|auto`` by the fused kernels (``ops/flce.py``), one
@@ -59,6 +63,8 @@ from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
                                                  GPT2DoubleHeads,
                                                  lm_nll_sums_chunked,
                                                  token_nll)
+from commefficient_tpu_torch.ops.attention import \
+    unsupported_reason as attention_unsupported_reason
 from commefficient_tpu_torch.ops.flce import (lm_nll_sums_fused,
                                               resolve_fused_ce)
 from commefficient_tpu_torch.runtime import FedModel, FedOptimizer, LambdaLR
@@ -226,7 +232,9 @@ def build_model_and_tokenizer(args: Config, device="cpu"):
     """(reference gpt2_train.py:284-351) -> (module, flat f32
     parameters from ``args.seed``, tokenizer). The full GPT-2 geometry
     with the vocabulary's size, or with ``--test`` (or the byte
-    tokenizer) the tiny config."""
+    tokenizer) the tiny config; ``--remat`` and ``--attn_impl`` set on
+    it (reference gpt2_train.py:316-319). ``--attn_impl flash`` on a
+    card at a head dim or compute type the kernels lack raises."""
     tokenizer = load_tokenizer(args.model_checkpoint)
     tokenizer.add_special_tokens(SPECIAL_TOKENS)
     if os.path.isdir(args.model_checkpoint):
@@ -245,6 +253,13 @@ def build_model_and_tokenizer(args: Config, device="cpu"):
         cfg = GPT2Config(vocab_size=len(tokenizer), n_positions=1024)
     if args.do_bf16:
         cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    cfg = dataclasses.replace(cfg, remat=args.do_remat,
+                              attn_impl=args.attn_impl)
+    if cfg.attn_impl == "flash" and torch.device(device).type == "cuda":
+        reason = attention_unsupported_reason(cfg.n_embd // cfg.n_head,
+                                              cfg.dtype)
+        if reason is not None:
+            raise ValueError(f"--attn_impl flash: {reason}")
     module = GPT2DoubleHeads(cfg)
     return module, module.init_flat(args.seed, device), tokenizer
 

@@ -8,9 +8,13 @@ counts). The weights differ (each package draws its own random init),
 so losses and download bytes are not compared here;
 tests/test_torch_gpt2_round.py compares them on shared weights.
 Without ``--device`` the trainer runs on cuda, and with no card it
-raises; ``--fused_ce on`` at a width the kernels cannot take raises;
-the options this slice leaves out raise.
+raises; ``--fused_ce on`` at a width the kernels cannot take raises,
+and so does ``--attn_impl flash`` on the card at a head dim the flash
+kernels lack; the options the port leaves out raise, also beside
+``--attn_impl flash``.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -46,14 +50,14 @@ def _recording(monkeypatch, module):
     return rounds
 
 
-def _run_both(monkeypatch, tmp_path, argv):
+def _run_both(monkeypatch, tmp_path, argv, ours_extra=()):
     # without --test the JAX trainer saves its final model under ./runs
     monkeypatch.chdir(tmp_path)
     ours_log = _recording(monkeypatch, gpt2_train)
     theirs_log = _recording(monkeypatch, jax_gpt2_train)
     results = gpt2_train.main(
         ["--device", "cpu", "--dataset_dir", str(tmp_path / "torch")]
-        + argv)
+        + argv + list(ours_extra))
     jax_results = jax_gpt2_train.main(
         ["--dataset_dir", str(tmp_path / "jax")] + argv)
     assert len(results) == len(jax_results) == 2
@@ -106,10 +110,32 @@ def test_fused_ce_on_raises_at_unsupported_width(tmp_path):
                          "--fused_ce", "on"] + ARGV)
 
 
-@pytest.mark.parametrize("flag", [["--attn_impl", "flash"], ["--remat"],
-                                  ["--hf_export"], ["--approx_topk"],
+@pytest.mark.parametrize("flag", [["--hf_export"], ["--approx_topk"],
                                   ["--resume"], ["--ledger", "x.jsonl"]])
 def test_unported_options_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match=flag[0]):
         gpt2_train.main(["--device", "cpu", "--dataset_dir", str(tmp_path)]
                         + ARGV + flag)
+
+
+@pytest.mark.parametrize("flag", [["--max_grad_norm", "1.0"],
+                                  ["--pipeline_depth", "2"]])
+def test_flash_on_a_path_that_raises_still_raises(tmp_path, flag):
+    with pytest.raises(NotImplementedError):
+        gpt2_train.main(["--device", "cpu", "--dataset_dir", str(tmp_path),
+                         "--attn_impl", "flash"] + ARGV + flag)
+
+
+@pytest.mark.cuda
+def test_flash_raises_at_an_unsupported_head_dim_on_the_card(tmp_path,
+                                                             monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    # the tiny model with 2 heads of 24: no kernel instantiation
+    tiny = gpt2_train.GPT2Config.tiny()
+    monkeypatch.setattr(gpt2_train.GPT2Config, "tiny",
+                        staticmethod(lambda: dataclasses.replace(
+                            tiny, n_embd=48)))
+    with pytest.raises(ValueError, match="head dim 24"):
+        gpt2_train.main(["--device", "cuda", "--dataset_dir", str(tmp_path),
+                         "--attn_impl", "flash"] + ARGV)
