@@ -100,12 +100,16 @@ on edge distributions, among them ties placed against the take-mask's
 tiles and two back-to-back launches, and must run with no host sync
 (``torch.cuda.set_sync_debug_mode("error")``); the ``ptxas_take_mask``
 line gives the take-mask's registers and spills. The three flash
-attention kernels (``attention`` lines) are held against their plain
+attention kernels (``attention`` lines, each naming the design, wgmma
+or fma, that its instantiation runs) are held against their plain
 versions at the GPT-2 round's shape (64 sequences x 12 heads x T 256 x
 hd 64, bf16: the library's single step), at T 1024 (two online K blocks
-of 512) and at small f32 and hd-16 shapes, and timed at the first two
-beside ``scaled_dot_product_attention``, forward and forward +
-backward (a yardstick the port never calls).
+of 512), at T 512 (a single step wider than the forward's registers
+hold), at hd 128 and at small f32 and hd-16 shapes, and timed at the
+first two beside ``scaled_dot_product_attention``: forward, backward
+alone, forward + backward (a yardstick the port never calls); the
+``ptxas_attn`` line gives their registers and spills (none allowed in a
+wgmma instantiation, nor a serialized wgmma).
 Each phase prints one JSON line; a failed check raises, so the script
 exits nonzero before its last line, which is ``{"ok": true, "device":
 {...}}``. Needs one CUDA card; exits nonzero without one. Imports
@@ -290,11 +294,15 @@ SELECT_TOL = ("exact: T and need of the search kernel equal to the plain "
               "search's, the mask equal to the plain take-mask's on them")
 # flash attention: (name, B, H, T, hd, dtype). The GPT-2 round's shape
 # (W 4 x B 8 x 2 candidates, 12 heads of 64, T 256: the single step),
-# GPT-2's n_positions (two online K blocks of 512), then small shapes:
-# f32, and hd 16 (the tiny model's heads)
+# GPT-2's n_positions (two online K blocks of 512), the single step at
+# T 512 (a block wider than the forward's 256 score columns in
+# registers), hd 128 (the other wgmma instantiation), then small
+# shapes: f32, and hd 16 (the tiny model's heads)
 GPT2_LAYERS = 12
 ATTN_SHAPES = (("round", 64, 12, 256, 64, torch.bfloat16),
                ("t1024", 8, 12, 1024, 64, torch.bfloat16),
+               ("t512", 8, 12, 512, 64, torch.bfloat16),
+               ("hd128", 8, 12, 256, 128, torch.bfloat16),
                ("f32", 4, 12, 256, 64, torch.float32),
                ("f32_hd16_t1024", 2, 2, 1024, 16, torch.float32),
                ("hd16", 8, 2, 256, 16, torch.bfloat16))
@@ -962,6 +970,8 @@ def ptxas_report(log):
             elif "cet_take_mask_kernel" in name:
                 name = "take_mask_" + ("aligned" if "ILb1E" in name
                                        else "unaligned")
+            elif attn_kernel_name(name):
+                name = attn_kernel_name(name)
             elif "wgmma_probe_kernel" in name:
                 name = "wgmma_probe_C" + str(64 * int(re.search(
                     r"wgmma_probe_kernelILi(\d+)E", name).group(1)))
@@ -977,6 +987,40 @@ def ptxas_report(log):
         if m and name:
             out[name]["registers"] = int(m.group(1))
     return out
+
+
+def attn_kernel_name(mangled):
+    """csrc/flash_attn.cu's instantiations: fwd_wgmma_bf16_hd64_single
+    (the wgmma forward's single step; _online its online update),
+    bwd_dkv_fma_f32_hd16, ...; None for other kernels."""
+    m = re.search(r"attn_(fwd|bwd_dkv|bwd_dq)(_tc)?_kernelI(f|13__nv_bfloat16)?"
+                  r"Li(\d+)E(Lb([01])E)?", mangled)
+    if m is None:
+        return None
+    kind = "wgmma_bf16" if m.group(2) else \
+        "fma_" + ("f32" if m.group(3) == "f" else "bf16")
+    mode = "" if m.group(5) is None else \
+        ("_single" if m.group(6) == "1" else "_online")
+    return f"{m.group(1)}_{kind}_hd{m.group(4)}{mode}"
+
+
+def attn_ptxas_checks(report, log):
+    """The wgmma forward (single step and online update) and dK/dV at
+    every head dim they take compiled without spills, and ptxas
+    serialized no wgmma (C7520)."""
+    modes = {"fwd": ("_single", "_online"), "bwd_dkv": ("",)}
+    for name in (f"{kind}_wgmma_bf16_hd{hd}{mode}"
+                 for hd in ak.WGMMA_HEAD_DIMS
+                 for kind, kind_modes in modes.items()
+                 for mode in kind_modes):
+        props = report.get(name, {})
+        check("registers" in props,
+              f"ptxas_attn: no line for {name} in {sorted(report)}")
+        check(props.get("spill_stores", 0) == 0
+              and props.get("spill_loads", 0) == 0,
+              f"ptxas_attn: {name} spills {props}")
+    check("C7520" not in log,
+          "ptxas_attn: wgmma serialized (C7520) in csrc/flash_attn.cu")
 
 
 def flce_ptxas_checks(report):
@@ -1234,6 +1278,7 @@ def attention_phases(dev, flush):
         q, k, v, do = attn_inputs(dev, b, h, t, hd, dtype, seed=t + hd)
         (op, mp, lp, di), errs, abs_err = attn_checks(q, k, v, do, tag)
         out = {"shape": [b, h, t, hd], "dtype": str(dtype).split(".")[-1],
+               "design": ak.kernel_design(dtype, hd),
                "block": ak.block_size(t),
                "path": "single step" if ak.block_size(t) == t else "online",
                "row_rel_err": errs}
@@ -1253,6 +1298,12 @@ def attention_phases(dev, flush):
                 torch.autograd.grad(o, leaf, dos)
 
             sdpa_fb = time_ms(sdpa_fwd_bwd, reps, flush)
+            # SDPA's backward alone: the yardstick of dK/dV and dQ together
+            o_s = F.scaled_dot_product_attention(*leaf, is_causal=True,
+                                                 scale=scale)
+            sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+                o_s, leaf, dos, retain_graph=True), reps, flush)
+            del o_s
             bwd_args = (q, k, v, mp, lp, do, di, scale)
             kern = {
                 "attn_fwd": (lambda: ak.attn_fwd_kernel(q, k, v, scale),
@@ -1271,10 +1322,12 @@ def attention_phases(dev, flush):
                     max_abs_err=err, ms=ms,
                     plain_ms=time_ms(plain, 3, flush), bound_ms=b_ms,
                     bound_by=b_by, share_of_bound=b_ms / ms, library_ms=lib,
-                    sdpa_fwd_bwd_ms=sdpa_fb)
+                    sdpa_fwd_bwd_ms=sdpa_fb, sdpa_bwd_ms=sdpa_bwd,
+                    design=out["design"][name])
             out.update(kernels={name: by_tag[tag]
                                 for name, by_tag in timed.items()},
-                       sdpa_ms=sdpa, sdpa_fwd_bwd_ms=sdpa_fb)
+                       sdpa_ms=sdpa, sdpa_fwd_bwd_ms=sdpa_fb,
+                       sdpa_bwd_ms=sdpa_bwd)
         emit({"phase": "attention", "case": tag, **out,
               "tolerance": ATTN_TOL})
         del q, k, v, do, op, mp, lp, di
@@ -2002,6 +2055,11 @@ def main():
     emit({"phase": "ptxas_flce", "kernels": report,
           "wgmma_serialized_C7520": "C7520" in flce_log})
     flce_ptxas_checks(report)
+    attn_log = _build.BUILD_LOGS.get("flash_attn", "")
+    report = ptxas_report(attn_log)
+    emit({"phase": "ptxas_attn", "kernels": report,
+          "wgmma_serialized_C7520": "C7520" in attn_log})
+    attn_ptxas_checks(report, attn_log)
     report = ptxas_report(_build.BUILD_LOGS.get("sketch", ""))
     emit({"phase": "ptxas_sketch", "kernels": report})
     sketch_ptxas_checks(report)
@@ -2085,7 +2143,8 @@ def main():
         entry = {k: row[k] for k in keys}
         for extra in ("unfused_ms", "fp8", "selection_ms", "design_floor_ms",
                       "route_taken", "main_path_routes", "scan_ms",
-                      "share_of_bound", "sdpa_fwd_bwd_ms", "t1024"):
+                      "share_of_bound", "sdpa_fwd_bwd_ms", "sdpa_bwd_ms",
+                      "design", "t1024"):
             if extra in row:
                 entry[extra] = row[extra]
         if row["name"] in gpt2_shapes:

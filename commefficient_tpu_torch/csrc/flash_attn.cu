@@ -22,12 +22,9 @@
 // block of b columns: m' = max(m, rowmax), p = exp(s - m'),
 // l' = sum p + exp(m - m') l, acc = acc (exp(m - m') l / l') +
 // ((p cast, unnormalised) . v) / l'. The two round p to bf16 at
-// different scales, so this kernel keeps the reference's K blocking: it
-// walks the K blocks of b columns and, inside each, first takes the
-// block's row max and sum over 64-column tiles (pass 1), then recomputes
-// the scores and forms p against the block's m' (pass 2). The sum of a
-// block is taken against the running max of its tiles and rescaled, so
-// l differs from the reference's by f32 rounding only.
+// different scales, so both designs below keep the reference's K
+// blocking: p is cast against the max of a whole block of b columns (and,
+// in the single step, after the division by the whole row's l).
 //   Backward (:254-318, :796-940, :1146-1286): p = exp(s - m) * (1 / l),
 // dv = (p cast)^T . do, dp = do . v^T, ds = ((dp - di) * p) * sm_scale,
 // dk = (ds cast)^T . q, dq = (ds cast) . k, each f32 sums cast to the
@@ -36,8 +33,8 @@
 // (ops/attention.py). The backward's numbers do not depend on its
 // blocking. dK/dV and dQ are two kernels, each owning its outputs, so
 // the backward is deterministic and uses no atomics.
-//   A 64 x 64 tile that lies wholly above the diagonal contributes exact
-// zeros in the reference (exp(MASK - m) = 0) and is skipped here.
+//   Work wholly above the diagonal contributes exact zeros in the
+// reference (exp(MASK - m) = 0) and is skipped here.
 //
 // Layout: the kernels read q, k, v and do through strides (batch, head,
 // token; the head dim is unit-stride), so the (B, T, H, hd) views the
@@ -45,7 +42,48 @@
 // they write o, dq, dk and dv with the strides they are given, and m and
 // l as (B, H, T) f32.
 //
-// Design (the simple first kernel): one block of 256 threads per
+// Two designs, fixed per template instantiation (tc_design(); never a
+// fallback at run time):
+// - tensor cores (wgmma) for the forward and dK/dV at bf16, hd 64 and
+//   128 (GPT-2's 12 heads of 64 take hd 64);
+// - FMA for f32 at every hd (a bf16 or TF32 product would change its
+//   results), bf16 at hd 16 and 32 (narrower than a 64-column SW128
+//   panel), and dQ everywhere.
+//
+// Tensor-core forward (attn_fwd_tc_kernel, single step and online update
+// as two instantiations). A block is one warpgroup (128 threads) and owns
+// a 64-row q tile of one (batch, head); the tiles with most work launch
+// first. Q, K and V come into SW128 panels (csrc/wgmma.cuh) by cp.async
+// through their strides, the next step's K chunk and V chunk in flight
+// while the current one is used. S = Q . K^T over a chunk of up to 256
+// columns is one shared-shared wgmma (m64nNk16, hd / 16 k steps) into f32
+// registers (128 a thread for 64 x 256); there the mask (+ MASK, as
+// masked()), the row max across the four threads of a row, exp, l, and
+// (single step) p * (1 / l) are taken, p is packed to bf16 pairs (the
+// accumulator layout of one product is the register-A layout of the
+// next) and multiplied by V, MN-major, with register-A wgmmas. A
+// reference block of at most one chunk (the single step at T <= 256 at
+// hd 64, the round's shape) makes one q . k^T pass; a wider block
+// (b = 512, or T 512's single step) takes its row max and sum chunk by
+// chunk first and recomputes each chunk's scores to form p. The online
+// update keeps p . v of the block apart and folds it in as
+// acc (l_corr / l') + oc / l'. Chunks are 256 columns in the single step
+// at hd 64, 128 in its online update and at hd 128, 64 in the online
+// update at hd 128: what fits in 255 registers with no spill. 1 / l is
+// rounded once a row and multiplied (within an f32 ulp of the reference's
+// p / l; one IEEE division an element took half the kernel's time).
+//
+// Tensor-core dK/dV (attn_bwd_dkv_tc_kernel). A block (one warpgroup)
+// owns a 64-row K/V tile, held in SW128 panels, and walks the q tiles
+// from the diagonal to T, each tile's Q, dO, m, l and di through a
+// two-stage cp.async ring (1 / l taken once a row there). Per q tile:
+// S^T = K . Q^T and dP^T = V . dO^T (shared-shared wgmma n64); P^T and
+// dS^T in registers, in the plain version's order, each rounded to bf16
+// as the A operand of dV += P^T . dO and dK += dS^T . Q (register-A
+// wgmma, dO and Q MN-major from the same panels); dK and dV go out
+// through shared memory, 16 bytes a thread.
+//
+// FMA design (the first kernels, and dQ): one block of 256 threads per
 // (batch * head, 64-row tile); the tiles it multiplies staged in shared
 // memory as f32 (the bf16 products are exact in f32, so the sums are
 // the reference's f32 sums of exact products, in another order); f32
@@ -53,20 +91,31 @@
 // 4 rows x 4 columns of a 64 x 64 score tile (rows ty + 16 i, columns
 // tx + 16 j) and 4 rows x hd/16 consecutive columns of an output tile;
 // a row's max and sum cross its 16 threads by shuffles. The products
-// are scalar FMAs from shared memory, with 16-byte loads.
-//   Bound at the GPT-2 round's shape (64 sequences x 12 heads x T 256 x
+// are scalar FMAs from shared memory, with 16-byte loads. The forward
+// walks the K blocks and, inside each, takes the block's row max and sum
+// over 64-column tiles (pass 1), then recomputes the scores and forms p
+// against the block's m' (pass 2); the sum of a block is taken against
+// the running max of its tiles and rescaled, so l differs from the
+// reference's by f32 rounding only.
+//
+// Bound at the GPT-2 round's shape (64 sequences x 12 heads x T 256 x
 // hd 64, bf16), by bytes: the forward reads q, k, v and writes o (and
-// m, l): 100.7 MB, 0.030 ms at 3.35 TB/s against 6.4 GFLOP of causal
-// products, 0.0065 ms at 989 TFLOP/s. The backward reads q, k, v, do, m,
-// l, di and writes dq, dk, dv. These kernels run their products on the
-// FMA units (67 TFLOP/s f32), not the tensor cores, and the forward
-// computes q . k^T twice: they are bounded by that arithmetic, far off
-// the byte bound; a wgmma/TMA design is the next step.
+// m, l): 100.7 MB, 0.0305 ms at 3.35 TB/s against 6.4 GFLOP of causal
+// products, 0.0065 ms at 989 TFLOP/s; dK/dV reads q, k, v, do, m, l, di
+// and writes dk, dv: 0.0458 ms. At T 1024 (8 x 12 heads) the forward is
+// bound by bytes (0.0153 ms), dK/dV by operations (0.0261 ms). The
+// tensor-core kernels run at a small share of those bounds: each block
+// is one warpgroup that waits on its own copies and products in turn,
+// with two blocks an SM at 216-255 registers; the exact exp of every
+// score is a large part of the forward's time. The FMA kernels run
+// their products at 67 TFLOP/s f32, far off the byte bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -518,6 +567,614 @@ __global__ void __launch_bounds__(THREADS)
   store_rows<T, HD>(dq, dqs, b, h, q0, ty, tx, dq_acc);
 }
 
+// ---------------------------------------------------------------------
+// The tensor-core design (bf16 at hd 64 and 128): one warpgroup (128
+// threads) a block, operand tiles in SW128 panels (csrc/wgmma.cuh) filled
+// by cp.async, products on wgmma with f32 accumulators in registers.
+// Accumulator register i of thread t holds row rA + 8 ((i / 2) % 2) and
+// column 8 (i / 4) + q2 + i % 2 of its tile (rA = 16 (t / 32) +
+// (t % 32) / 4, q2 = 2 (t % 4)); registers 8 kk .. 8 kk + 7, packed to
+// bf16 pairs in order, are the A operand of k step kk of the next product.
+
+constexpr int TC_THREADS = 128;  // one warpgroup
+constexpr int TC_STAGES = 2;     // (Q, dO) tiles in the dK/dV ring
+
+// score columns a forward step holds in registers (32 a thread for
+// every 64), so that no instantiation spills: 256 in the single step at
+// hd 64; 128 in its online update (a second output accumulator) and in
+// the single step at hd 128 (output accumulators of 64 registers); 64 in
+// the online update at hd 128
+template <int HD, bool SINGLE>
+__host__ __device__ constexpr int tc_chunk() {
+  return HD == 64 ? (SINGLE ? 256 : 128) : (SINGLE ? 128 : 64);
+}
+
+// the first 1024-byte boundary at or after `raw` (shared memory)
+__device__ __forceinline__ unsigned char* tc_align(unsigned char* raw) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
+  return raw + ((CET_SW128_ATOM - (a & (CET_SW128_ATOM - 1))) &
+                (CET_SW128_ATOM - 1));
+}
+
+__device__ __forceinline__ uint32_t tc_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// bf16 pair, the low column in the low half
+__device__ __forceinline__ uint32_t tc_pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// the rows of head (b, h) of a strided tensor
+template <typename T>
+__device__ __forceinline__ T* head_rows(T* src, Strides s, int b, int h) {
+  return src + b * s.b + h * s.h;
+}
+
+// rows [row0, row0 + n) of a head's bf16 rows (token stride st) into an
+// SW128-panel tile of CAP rows; issues cp.async only
+template <int CAP, int HD>
+__device__ __forceinline__ void tc_load_rows(unsigned char* tile,
+                                             const __nv_bfloat16* base,
+                                             long long st, int row0, int n) {
+  constexpr int CPR = HD / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < n * CPR; i += TC_THREADS) {
+    const int r = i / CPR, ch = i % CPR;
+    cp_async16(tile + cet_sw128_offset(r, ch, CAP),
+               base + (long long)(row0 + r) * st + ch * 8, true);
+  }
+}
+
+// A (64 x HD) K-major at `a` (panel stride 64 rows) times B^T, B (N x HD)
+// K-major at `b` with panel stride BCAP rows: d = A . B^T over HD / 16
+// k steps
+template <int HD, int N, int BCAP>
+__device__ __forceinline__ void tc_qk(float* d, uint32_t a, uint32_t b) {
+  const uint64_t da = cet_sw128_desc(a, 16, CET_SW128_ATOM);
+  const uint64_t db = cet_sw128_desc(b, 16, CET_SW128_ATOM);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    cet_wgmma_ss<N>(d, cet_desc_add(da, (kk >> 2) * 64 * 128 + (kk & 3) * 32),
+                    cet_desc_add(db, (kk >> 2) * BCAP * 128 + (kk & 3) * 32),
+                    kk > 0);
+}
+
+// ---------------------------------------------------------------------
+// Forward (tensor cores). A q tile's work is a list of steps, one q . k^T
+// product each over a chunk of at most tc_chunk() columns:
+// - FUSED: a reference K block whose columns up to the diagonal fit in
+//   one chunk: scores, the block's max and sum, p and p . v from the same
+//   registers (the single step at T <= 256 at hd 64: one q . k^T pass);
+// - STATS, then PV: a block wider than a chunk. The STATS steps take the
+//   block's row max and sum chunk by chunk; the PV steps recompute each
+//   chunk's scores and form p against the block's max (and, in the
+//   single step, divided by its l) before the cast.
+enum : int { STEP_FUSED = 0, STEP_STATS = 1, STEP_PV = 2 };
+
+struct FwdPlan {
+  int blk, ch, q_last, n_blocks, spf, total;
+};
+
+struct FwdStep {
+  int k0, nt, kind;
+  bool first_pv, last;  // the block's first PV step; its last step
+};
+
+__device__ __forceinline__ int fwd_steps_in(int width, int ch) {
+  return width <= ch ? 1 : 2 * ((width + ch - 1) / ch);
+}
+
+__device__ __forceinline__ FwdPlan fwd_plan(int blk, int ch, int q0) {
+  FwdPlan p;
+  p.blk = blk;
+  p.ch = ch;
+  p.q_last = q0 + TILE - 1;
+  p.n_blocks = q0 / blk + 1;
+  p.spf = fwd_steps_in(blk, ch);
+  p.total = (p.n_blocks - 1) * p.spf +
+            fwd_steps_in(p.q_last + 1 - (p.n_blocks - 1) * blk, ch);
+  return p;
+}
+
+__device__ __forceinline__ FwdStep fwd_step(const FwdPlan& p, int s) {
+  const int kb = min(s / p.spf, p.n_blocks - 1);
+  const int r = s - kb * p.spf;
+  const int width = kb == p.n_blocks - 1 ? p.q_last + 1 - kb * p.blk : p.blk;
+  const int n = fwd_steps_in(width, p.ch);
+  FwdStep st;
+  int c = 0;
+  if (n == 1) {
+    st.kind = STEP_FUSED;
+    st.first_pv = st.last = true;
+  } else {
+    const int nch = n / 2;
+    c = r % nch;
+    st.kind = r < nch ? STEP_STATS : STEP_PV;
+    st.first_pv = r == nch;
+    st.last = r == n - 1;
+  }
+  st.k0 = kb * p.blk + c * p.ch;
+  // the whole chunk up to the block's end, also past the diagonal (those
+  // columns are masked to exact zeros): a tile count per block size, so
+  // two step bodies at most
+  st.nt = min(p.ch, p.blk - c * p.ch) / TILE;
+  return st;
+}
+
+// the first step after s that multiplies by V (-1: none)
+__device__ __forceinline__ int fwd_next_pv(const FwdPlan& p, int s) {
+  for (++s; s < p.total; ++s)
+    if (fwd_step(p, s).kind != STEP_STATS) return s;
+  return -1;
+}
+
+// SINGLE: p . v goes straight into acc (one K block, divided by l
+// before the cast); otherwise into oc, folded into acc at the block's end
+template <int HD, bool SINGLE>
+struct FwdState {
+  float acc[HD / 2];                 // the output so far
+  float oc[SINGLE ? 1 : HD / 2];     // (p cast) . v of the current K block
+  float m_prev[2], l_prev[2];  // running max and sum of the thread's rows
+  float mb[2], lb[2];          // the current block's (STATS steps)
+  float m_new[2], l_new[2], l_corr[2];
+};
+
+struct FwdCtx {
+  const __nv_bfloat16 *k, *v;  // head (b, h)'s rows
+  long long kt, vt;            // their token strides
+  FwdPlan plan;
+  unsigned char *sK, *sV;
+  uint32_t aQ, aK, aV;
+  int q0, rA, q2;
+  float scale;
+};
+
+template <int HD, bool SINGLE>
+__device__ __forceinline__ void fwd_load_k(const FwdCtx& c, int s) {
+  if (s < c.plan.total) {
+    const FwdStep st = fwd_step(c.plan, s);
+    tc_load_rows<tc_chunk<HD, SINGLE>(), HD>(c.sK, c.k, c.kt, st.k0,
+                                             st.nt * TILE);
+  }
+  cp_async_commit();  // an empty group past the last keeps the count
+}
+
+template <int HD, bool SINGLE>
+__device__ __forceinline__ void fwd_load_v(const FwdCtx& c, int s) {
+  if (s >= 0) {
+    const FwdStep st = fwd_step(c.plan, s);
+    tc_load_rows<tc_chunk<HD, SINGLE>(), HD>(c.sV, c.v, c.vt, st.k0,
+                                             st.nt * TILE);
+  }
+  cp_async_commit();
+}
+
+// Step s over NT 64-column tiles. Every step commits two cp.async groups,
+// the next step's K chunk and then (after its p . v, or empty) the next
+// PV step's V chunk, so "all but the newest group" is always the one
+// waited for.
+template <int HD, bool SINGLE, int NT>
+__device__ __forceinline__ void fwd_step_body(const FwdCtx& c,
+                                              FwdState<HD, SINGLE>& st,
+                                              const FwdStep& step, int s,
+                                              int& v_step) {
+  constexpr int CH = tc_chunk<HD, SINGLE>();
+  constexpr int NS = 32 * NT;  // score registers
+  cp_async_wait_group<1>();  // this step's K (the V copy may still fly)
+  cet_fence_proxy_async();
+  __syncthreads();
+  float sc[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) sc[i] = 0.0f;
+  cet_wgmma_fence();
+  tc_qk<HD, 64 * NT, CH>(sc, c.aQ, c.aK);
+  cet_wgmma_commit();
+  cet_wgmma_wait_all();
+#pragma unroll
+  for (int i = 0; i < NS; ++i) cet_fence_operand(sc[i]);
+  __syncthreads();  // every warp's products are done with sK
+  fwd_load_k<HD, SINGLE>(c, s + 1);
+
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int hr = (i >> 1) & 1;
+    sc[i] = masked(sc[i], c.scale, c.q0 + c.rA + 8 * hr,
+                   step.k0 + 8 * (i >> 2) + c.q2 + (i & 1));
+    mx[hr] = fmaxf(mx[hr], sc[i]);
+  }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+
+  if (step.kind == STEP_STATS) {
+    float sum[2] = {0.0f, 0.0f}, mn[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) mn[hr] = fmaxf(st.mb[hr], mx[hr]);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int hr = (i >> 1) & 1;
+      sum[hr] += expf(sc[i] - mn[hr]);
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      st.lb[hr] = st.lb[hr] * expf(st.mb[hr] - mn[hr]) + quad_sum(sum[hr]);
+      st.mb[hr] = mn[hr];
+    }
+    cp_async_commit();  // no V this step
+    return;
+  }
+
+  // the single step has one block: nothing before it (m = -inf, l = 0),
+  // so m' is the block's max and l' its sum
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (step.kind == STEP_FUSED) {
+      st.m_new[hr] = SINGLE ? mx[hr] : fmaxf(st.m_prev[hr], mx[hr]);
+    } else if (step.first_pv) {
+      if constexpr (SINGLE) {
+        st.m_new[hr] = st.mb[hr];
+        st.l_new[hr] = st.lb[hr];
+      } else {
+        st.m_new[hr] = fmaxf(st.m_prev[hr], st.mb[hr]);
+        st.l_corr[hr] = expf(st.m_prev[hr] - st.m_new[hr]) * st.l_prev[hr];
+        st.l_new[hr] =
+            st.lb[hr] * expf(st.mb[hr] - st.m_new[hr]) + st.l_corr[hr];
+      }
+    }
+  }
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int hr = (i >> 1) & 1;
+    sc[i] = expf(sc[i] - st.m_new[hr]);
+    sum[hr] += sc[i];
+  }
+  if (step.kind == STEP_FUSED) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      if constexpr (SINGLE) {
+        st.l_new[hr] = quad_sum(sum[hr]);
+      } else {
+        st.l_corr[hr] = expf(st.m_prev[hr] - st.m_new[hr]) * st.l_prev[hr];
+        st.l_new[hr] = quad_sum(sum[hr]) + st.l_corr[hr];
+      }
+    }
+  }
+  if constexpr (SINGLE) {
+    // the single step casts p after p /= l, here p * (1 / l) with 1 / l
+    // rounded once a row (within an f32 ulp of the division; one IEEE
+    // division an element took half the kernel's time)
+    const float linv[2] = {1.0f / st.l_new[0], 1.0f / st.l_new[1]};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] = sc[i] * linv[(i >> 1) & 1];
+  }
+  uint32_t pa[4 * NT][4];
+#pragma unroll
+  for (int kk = 0; kk < 4 * NT; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      pa[kk][j] = tc_pack(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+
+  cp_async_wait_group<1>();  // this step's V (the next K may still fly)
+  cet_fence_proxy_async();
+  __syncthreads();
+  float* out = SINGLE ? st.acc : st.oc;
+  const uint64_t dv = cet_sw128_desc(c.aV, CH * 128, CET_SW128_ATOM);
+  cet_wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4 * NT; ++kk)
+    cet_wgmma_rs_tb<HD>(out, pa[kk], cet_desc_add(dv, kk * 16 * 128));
+  cet_wgmma_commit();
+  cet_wgmma_wait_all();
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) cet_fence_operand(out[i]);
+  __syncthreads();  // every warp's products are done with sV
+  v_step = fwd_next_pv(c.plan, s);
+  fwd_load_v<HD, SINGLE>(c, v_step);
+
+  if (step.last) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      if constexpr (!SINGLE) {
+        const float inv = 1.0f / st.l_new[hr];
+        const float corr = st.l_corr[hr] * inv;
+#pragma unroll
+        for (int i = 2 * hr; i < HD / 2; i += 4)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            st.acc[i + e] = st.acc[i + e] * corr + st.oc[i + e] * inv;
+            st.oc[i + e] = 0.0f;
+          }
+      }
+      if constexpr (!SINGLE) {
+        st.m_prev[hr] = st.m_new[hr];
+        st.l_prev[hr] = st.l_new[hr];
+      }
+      st.mb[hr] = -INFINITY;
+      st.lb[hr] = 0.0f;
+    }
+  }
+}
+
+// the step body for the step's tile count: CH / 64, or 2 where a block
+// of 128 columns is narrower than a chunk of 256 (a block-uniform
+// branch: every thread takes the same one)
+template <int HD, bool SINGLE>
+__device__ __forceinline__ void fwd_dispatch(const FwdCtx& c,
+                                             FwdState<HD, SINGLE>& st,
+                                             const FwdStep& step, int s,
+                                             int& v_step) {
+  constexpr int NT = tc_chunk<HD, SINGLE>() / TILE;
+  if constexpr (NT > 2) {
+    if (step.nt == 2) {
+      fwd_step_body<HD, SINGLE, 2>(c, st, step, s, v_step);
+      return;
+    }
+  }
+  fwd_step_body<HD, SINGLE, NT>(c, st, step, s, v_step);
+}
+
+// grid (T / 64 q tiles, B * H), the q tiles with most work first.
+// Shared: Q (64 x HD), a K chunk and a V chunk (tc_chunk() x HD each),
+// SW128 panels. SINGLE: blk == T.
+template <int HD, bool SINGLE>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ m_out, float* __restrict__ l_out,
+                       int H, int Tn, int blk, float scale, Strides qs,
+                       Strides ks, Strides vs, Strides os) {
+  constexpr int CH = tc_chunk<HD, SINGLE>();
+  extern __shared__ unsigned char tc_smem_raw[];
+  unsigned char* sQ = tc_align(tc_smem_raw);
+  unsigned char* sK = sQ + TILE * HD * 2;
+  unsigned char* sV = sK + CH * HD * 2;
+  const int t = threadIdx.x;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+
+  FwdCtx c;
+  c.k = head_rows(k, ks, b, h);
+  c.v = head_rows(v, vs, b, h);
+  c.kt = ks.t;
+  c.vt = vs.t;
+  c.plan = fwd_plan(blk, CH, q0);
+  c.sK = sK;
+  c.sV = sV;
+  c.aQ = tc_addr(sQ);
+  c.aK = tc_addr(sK);
+  c.aV = tc_addr(sV);
+  c.q0 = q0;
+  c.rA = 16 * (t >> 5) + ((t & 31) >> 2);
+  c.q2 = 2 * (t & 3);
+  c.scale = scale;
+
+  tc_load_rows<TILE, HD>(sQ, head_rows(q, qs, b, h), qs.t, q0, TILE);
+  fwd_load_k<HD, SINGLE>(c, 0);  // one group: Q and step 0's K
+  int v_step = fwd_next_pv(c.plan, -1);
+  fwd_load_v<HD, SINGLE>(c, v_step);
+
+  FwdState<HD, SINGLE> st;
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) st.acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < (SINGLE ? 1 : HD / 2); ++i) st.oc[i] = 0.0f;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    st.m_prev[hr] = st.mb[hr] = -INFINITY;
+    st.l_prev[hr] = st.lb[hr] = 0.0f;
+    st.m_new[hr] = st.l_new[hr] = st.l_corr[hr] = 0.0f;
+  }
+  for (int s = 0; s < c.plan.total; ++s) {
+    const FwdStep step = fwd_step(c.plan, s);
+    fwd_dispatch<HD, SINGLE>(c, st, step, s, v_step);
+  }
+
+  // o through shared memory (row stride HD + 8), 16 bytes a thread
+  cp_async_wait_group0();
+  __syncthreads();
+  constexpr int LDS = HD + 8;
+  __nv_bfloat16* stg = reinterpret_cast<__nv_bfloat16*>(sK);
+#pragma unroll
+  for (int i = 0; i < HD / 2; i += 2)
+    *reinterpret_cast<__nv_bfloat162*>(
+        stg + (c.rA + 8 * ((i >> 1) & 1)) * LDS + 8 * (i >> 2) + c.q2) =
+        __floats2bfloat162_rn(st.acc[i], st.acc[i + 1]);
+  __syncthreads();
+  __nv_bfloat16* obase = o + b * os.b + h * os.h;
+  for (int i = t; i < TILE * (HD / 8); i += TC_THREADS) {
+    const int r = i / (HD / 8), ch = i % (HD / 8);
+    *reinterpret_cast<uint4*>(obase + (long long)(q0 + r) * os.t + ch * 8) =
+        *reinterpret_cast<const uint4*>(stg + r * LDS + ch * 8);
+  }
+  if ((t & 3) == 0) {
+    const long long base = ((long long)blockIdx.y) * Tn + q0 + c.rA;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      m_out[base + 8 * hr] = SINGLE ? st.m_new[hr] : st.m_prev[hr];
+      l_out[base + 8 * hr] = SINGLE ? st.l_new[hr] : st.l_prev[hr];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// dK/dV (tensor cores): grid (T / 64 k tiles, B * H); a block owns its
+// K/V tile and walks the q tiles from the diagonal to T, each tile's Q,
+// dO and m, l, di through a two-stage cp.async ring. Per q tile:
+// S^T = K . Q^T and dP^T = V . dO^T (wgmma, both K-major from shared
+// memory); P^T and dS^T in registers, rounded to bf16 as the next
+// products' A operands; dV += P^T . dO and dK += dS^T . Q (wgmma, dO and
+// Q MN-major from the same tiles).
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    attn_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ m,
+                           const float* __restrict__ l,
+                           const float* __restrict__ di,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int H, int Tn,
+                           float scale, Strides qs, Strides ks, Strides vs,
+                           Strides dos, Strides dks, Strides dvs) {
+  constexpr int TB = TILE * HD * 2;  // bytes of a 64-row tile
+  extern __shared__ unsigned char tc_smem_raw[];
+  unsigned char* sK = tc_align(tc_smem_raw);
+  unsigned char* sV = sK + TB;
+  unsigned char* ring = sV + TB;  // stage j: Q, then dO
+  float* stats = reinterpret_cast<float*>(ring + TC_STAGES * 2 * TB);
+  const int t = threadIdx.x;
+  const int k0 = blockIdx.x * TILE;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const long long row_base = ((long long)blockIdx.y) * Tn;
+  const int n_q = (Tn - k0) / TILE;
+  const int rA = 16 * (t >> 5) + ((t & 31) >> 2), q2 = 2 * (t & 3);
+  const __nv_bfloat16* qb = head_rows(q, qs, b, h);
+  const __nv_bfloat16* dob = head_rows(dout, dos, b, h);
+
+  // q tile j (rows k0 + 64 j ..) into stage j % 2: Q, dO, and m, l, di as
+  // three arrays of 64 f32
+  auto load_q = [&](int j) {
+    if (j < n_q) {
+      const int q0 = k0 + j * TILE;
+      unsigned char* st = ring + (j % TC_STAGES) * 2 * TB;
+      tc_load_rows<TILE, HD>(st, qb, qs.t, q0, TILE);
+      tc_load_rows<TILE, HD>(st + TB, dob, dos.t, q0, TILE);
+      if (t < 48) {
+        const float* src = t < 16 ? m : t < 32 ? l : di;
+        cp_async16(stats + (j % TC_STAGES) * 3 * TILE + 4 * t,
+                   src + row_base + q0 + 4 * (t & 15), true);
+      }
+    }
+    cp_async_commit();
+  };
+  tc_load_rows<TILE, HD>(sK, head_rows(k, ks, b, h), ks.t, k0, TILE);
+  tc_load_rows<TILE, HD>(sV, head_rows(v, vs, b, h), vs.t, k0, TILE);
+  load_q(0);  // one group: K, V and q tile 0
+  load_q(1);
+
+  float dk_acc[HD / 2], dv_acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+  const uint32_t aK = tc_addr(sK), aV = tc_addr(sV);
+  const int krow[2] = {k0 + rA, k0 + rA + 8};
+
+  for (int j = 0; j < n_q; ++j) {
+    cp_async_wait_group<1>();  // q tile j (tile j + 1 may still fly)
+    cet_fence_proxy_async();
+    __syncthreads();
+    const int q0 = k0 + j * TILE;
+    const uint32_t aQ = tc_addr(ring + (j % TC_STAGES) * 2 * TB);
+    const uint32_t aDO = aQ + TB;
+    float* sM = stats + (j % TC_STAGES) * 3 * TILE;
+    // 1 / l once a row, as the plain version takes it
+    if (t < TILE) sM[TILE + t] = 1.0f / sM[TILE + t];
+    __syncthreads();
+
+    float s_t[32], dp_t[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s_t[i] = dp_t[i] = 0.0f;
+    cet_wgmma_fence();
+    tc_qk<HD, 64, TILE>(s_t, aK, aQ);
+    tc_qk<HD, 64, TILE>(dp_t, aV, aDO);
+    cet_wgmma_commit();
+    cet_wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      cet_fence_operand(s_t[i]);
+      cet_fence_operand(dp_t[i]);
+    }
+
+    // p and ds of k row krow[(i / 2) % 2], q column q0 + qc; the rows'
+    // statistics for the thread's 16 columns, two at a time
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int cp = 0; cp < 8; ++cp) {
+      const int qc = 8 * cp + q2;
+      const float2 mm = *reinterpret_cast<const float2*>(sM + qc);
+      const float2 ll = *reinterpret_cast<const float2*>(sM + TILE + qc);
+      const float2 dd = *reinterpret_cast<const float2*>(sM + 2 * TILE + qc);
+      const float mv[2] = {mm.x, mm.y}, li[2] = {ll.x, ll.y};
+      const float dv2[2] = {dd.x, dd.y};
+      float pv[4], dsv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * cp + e, c2 = e & 1;
+        const float p = expf(masked(s_t[i], scale, q0 + qc + c2,
+                                    krow[(e >> 1) & 1]) -
+                             mv[c2]) *
+                        li[c2];
+        pv[e] = p;
+        dsv[e] = ((dp_t[i] - dv2[c2]) * p) * scale;
+      }
+      // accumulator registers 4 cp .. 4 cp + 3: k step cp / 2, pairs
+      // (row rA, row rA + 8) of its low (cp even) or high half
+      pa[cp >> 1][2 * (cp & 1)] = tc_pack(pv[0], pv[1]);
+      pa[cp >> 1][2 * (cp & 1) + 1] = tc_pack(pv[2], pv[3]);
+      da[cp >> 1][2 * (cp & 1)] = tc_pack(dsv[0], dsv[1]);
+      da[cp >> 1][2 * (cp & 1) + 1] = tc_pack(dsv[2], dsv[3]);
+    }
+
+    const uint64_t d_do = cet_sw128_desc(aDO, TILE * 128, CET_SW128_ATOM);
+    const uint64_t d_q = cet_sw128_desc(aQ, TILE * 128, CET_SW128_ATOM);
+    cet_wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      cet_wgmma_rs_tb<HD>(dv_acc, pa[kk], cet_desc_add(d_do, kk * 16 * 128));
+      cet_wgmma_rs_tb<HD>(dk_acc, da[kk], cet_desc_add(d_q, kk * 16 * 128));
+    }
+    cet_wgmma_commit();
+    cet_wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) {
+      cet_fence_operand(dv_acc[i]);
+      cet_fence_operand(dk_acc[i]);
+    }
+    __syncthreads();  // every warp is done with stage j % 2
+    load_q(j + 2);
+  }
+
+  // dK and dV through shared memory (row stride HD + 8), 16 bytes a
+  // thread
+  cp_async_wait_group0();
+  __syncthreads();
+  constexpr int LDS = HD + 8;
+  __nv_bfloat16* stg_k = reinterpret_cast<__nv_bfloat16*>(ring);
+  __nv_bfloat16* stg_v = reinterpret_cast<__nv_bfloat16*>(ring + 2 * TB);
+#pragma unroll
+  for (int i = 0; i < HD / 2; i += 2) {
+    const int at = (rA + 8 * ((i >> 1) & 1)) * LDS + 8 * (i >> 2) + q2;
+    *reinterpret_cast<__nv_bfloat162*>(stg_k + at) =
+        __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(stg_v + at) =
+        __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+  }
+  __syncthreads();
+  __nv_bfloat16* kbase = head_rows(dk, dks, b, h);
+  __nv_bfloat16* vbase = head_rows(dv, dvs, b, h);
+  for (int i = t; i < TILE * (HD / 8); i += TC_THREADS) {
+    const int r = i / (HD / 8), ch = i % (HD / 8);
+    *reinterpret_cast<uint4*>(kbase + (long long)(k0 + r) * dks.t + ch * 8) =
+        *reinterpret_cast<const uint4*>(stg_k + r * LDS + ch * 8);
+    *reinterpret_cast<uint4*>(vbase + (long long)(k0 + r) * dvs.t + ch * 8) =
+        *reinterpret_cast<const uint4*>(stg_v + r * LDS + ch * 8);
+  }
+}
+
 inline Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
@@ -535,22 +1192,65 @@ constexpr size_t dq_smem() {
   return sizeof(float) * (4 * TILE * (HD + 4) + TILE * SLD);
 }
 
+// the instantiations that run the tensor-core design (the rest run the
+// FMA kernels: f32, whose results a bf16 or TF32 product would change,
+// and bf16 at hd 16 and 32, narrower than a 64-column SW128 panel)
+template <typename T, int HD>
+constexpr bool tc_design() {
+  return sizeof(T) == 2 && (HD == 64 || HD == 128);
+}
+template <int HD, bool SINGLE>
+constexpr size_t fwd_tc_smem() {
+  return CET_SW128_ATOM +
+         (size_t)(TILE + 2 * tc_chunk<HD, SINGLE>()) * HD * 2;
+}
+template <int HD, bool SINGLE>
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
+                          void* o, float* m, float* l, int B, int H, int Tn,
+                          int blk, float scale, const long long* st,
+                          cudaStream_t stream) {
+  constexpr size_t smem = fwd_tc_smem<HD, SINGLE>();
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_tc_kernel<HD, SINGLE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Tn / TILE, B * H);
+  attn_fwd_tc_kernel<HD, SINGLE><<<grid, TC_THREADS, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, m, l, H, Tn, blk, scale,
+      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+      strides_at(st, 3));
+  return cudaGetLastError();
+}
+template <int HD>
+constexpr size_t dkv_tc_smem() {
+  return CET_SW128_ATOM + (size_t)(2 + 2 * TC_STAGES) * TILE * HD * 2 +
+         TC_STAGES * 3 * TILE * sizeof(float);
+}
+
 template <typename T, int HD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        float* m, float* l, int B, int H, int Tn, int blk,
                        float scale, const long long* st,
                        cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(Tn / TILE, B * H);
-  attn_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, m, l, H, Tn, blk, scale,
-      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-      strides_at(st, 3));
-  return cudaGetLastError();
+  if constexpr (tc_design<T, HD>()) {
+    return blk == Tn ? launch_fwd_tc<HD, true>(q, k, v, o, m, l, B, H, Tn,
+                                               blk, scale, st, stream)
+                     : launch_fwd_tc<HD, false>(q, k, v, o, m, l, B, H, Tn,
+                                                blk, scale, st, stream);
+  } else {
+    constexpr size_t smem = fwd_smem<HD>();
+    cudaError_t err = cudaFuncSetAttribute(
+        attn_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(Tn / TILE, B * H);
+    attn_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, m, l, H, Tn, blk,
+        scale, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+        strides_at(st, 3));
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int HD>
@@ -559,18 +1259,33 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const float* di, void* dk, void* dv, int B, int H,
                        int Tn, float scale, const long long* st,
                        cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dkv_kernel<T, HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid(Tn / TILE, B * H);
-  attn_bwd_dkv_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, m, l, di,
-      (T*)dk, (T*)dv, H, Tn, scale, strides_at(st, 0), strides_at(st, 1),
-      strides_at(st, 2), strides_at(st, 3), strides_at(st, 4),
-      strides_at(st, 5));
-  return cudaGetLastError();
+  if constexpr (tc_design<T, HD>()) {
+    constexpr size_t smem = dkv_tc_smem<HD>();
+    cudaError_t err = cudaFuncSetAttribute(
+        attn_bwd_dkv_tc_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    attn_bwd_dkv_tc_kernel<HD><<<grid, TC_THREADS, smem, stream>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, m, l, di,
+        (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, H, Tn, scale,
+        strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+        strides_at(st, 3), strides_at(st, 4), strides_at(st, 5));
+    return cudaGetLastError();
+  } else {
+    constexpr size_t smem = dkv_smem<HD>();
+    cudaError_t err = cudaFuncSetAttribute(
+        attn_bwd_dkv_kernel<T, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    attn_bwd_dkv_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, m, l, di,
+        (T*)dk, (T*)dv, H, Tn, scale, strides_at(st, 0), strides_at(st, 1),
+        strides_at(st, 2), strides_at(st, 3), strides_at(st, 4),
+        strides_at(st, 5));
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int HD>

@@ -243,7 +243,7 @@ __device__ __forceinline__ void fwd_block(unsigned char* smem_raw,
     cet_wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      cet_wgmma_ss_n256(acc, cet_desc_add(da, 32 * kk),
+      cet_wgmma_ss<256>(acc, cet_desc_add(da, 32 * kk),
                         cet_desc_add(db, 32 * kk), kc > 0 || kk > 0);
     cet_wgmma_commit();
     cet_wgmma_wait_all();
@@ -334,7 +334,7 @@ __device__ __forceinline__ void bwd_logits_half(float* lg, uint64_t own_desc,
 #pragma unroll
   for (int k = 0; k < 2 * NF; ++k) {
     const uint32_t kk = wg * 2 * NF + k;
-    cet_wgmma_ss_n32(
+    cet_wgmma_ss<32>(
         lg, cet_desc_add(own_desc, (kk >> 2) * BWD_OWN * 128 + (kk & 3) * 32),
         cet_desc_add(str_desc, (kk >> 2) * BWD_STR * 128 + (kk & 3) * 32),
         k > 0);

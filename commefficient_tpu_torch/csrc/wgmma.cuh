@@ -144,12 +144,18 @@ __device__ __forceinline__ void cet_load_chunk_sw128(unsigned char* panel,
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// D(64 x 32) = A . B (+ D if accumulate), A and B K-major in shared
-// memory. Accumulator register i of thread t of the warpgroup holds row
-// 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2), column
-// 8 (i / 4) + 2 (t % 4) + i % 2 (as for every m64nNk16 below).
-__device__ __forceinline__ void cet_wgmma_ss_n32(float* d, uint64_t da,
-                                                 uint64_t db, int accumulate) {
+// D(64 x N) = A . B (+ D if accumulate), A (64 x 16) and B (N x 16)
+// K-major in shared memory, N in {32, 64, 128, 192, 256}; N / 2
+// accumulator registers a thread. Register i of thread t of the
+// warpgroup holds row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2),
+// column 8 (i / 4) + 2 (t % 4) + i % 2 (as for every m64nNk16 below).
+template <int N>
+__device__ __forceinline__ void cet_wgmma_ss(float* d, uint64_t da,
+                                             uint64_t db, int accumulate);
+
+template <>
+__device__ __forceinline__ void cet_wgmma_ss<32>(float* d, uint64_t da,
+                                                  uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
@@ -159,17 +165,57 @@ __device__ __forceinline__ void cet_wgmma_ss_n32(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// D(64 x N) += A . B with A (64 x 16 bf16) in registers and B from
-// shared memory MN-major (transpose bit set). A's four registers hold
-// bf16 pairs, low half first: rows g and g + 8 (g = 16 (t / 32) +
-// (t % 32) / 4), columns 2 (t % 4) + {0, 1} and 8 + 2 (t % 4) + {0, 1}:
-// the layout of an m64n16 accumulator, in the order a0 = (g, lo),
-// a1 = (g + 8, lo), a2 = (g, hi), a3 = (g + 8, hi).
-// D(64 x 256) = A . B (+ D if accumulate), A (64 x 16) and B (256 x 16)
-// K-major in shared memory; the accumulator layout as above, 128
-// registers a thread.
-__device__ __forceinline__ void cet_wgmma_ss_n256(float* d, uint64_t da,
-                                                  uint64_t db, int accumulate) {
+template <>
+__device__ __forceinline__ void cet_wgmma_ss<64>(float* d, uint64_t da,
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : CET_F8(0), CET_F8(8), CET_F8(16), CET_F8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void cet_wgmma_ss<128>(float* d, uint64_t da,
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : CET_F8(0), CET_F8(8), CET_F8(16), CET_F8(24), CET_F8(32), CET_F8(40),
+        CET_F8(48), CET_F8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void cet_wgmma_ss<192>(float* d, uint64_t da,
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : CET_F8(0), CET_F8(8), CET_F8(16), CET_F8(24), CET_F8(32), CET_F8(40),
+        CET_F8(48), CET_F8(56), CET_F8(64), CET_F8(72), CET_F8(80),
+        CET_F8(88)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void cet_wgmma_ss<256>(float* d, uint64_t da,
+                                                   uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -188,6 +234,12 @@ __device__ __forceinline__ void cet_wgmma_ss_n256(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D(64 x N) += A . B with A (64 x 16 bf16) in registers and B from
+// shared memory MN-major (transpose bit set). A's four registers hold
+// bf16 pairs, low half first: rows g and g + 8 (g = 16 (t / 32) +
+// (t % 32) / 4), columns 2 (t % 4) + {0, 1} and 8 + 2 (t % 4) + {0, 1}:
+// the layout of an m64n16 accumulator, in the order a0 = (g, lo),
+// a1 = (g + 8, lo), a2 = (g, hi), a3 = (g + 8, hi).
 template <int N>
 __device__ __forceinline__ void cet_wgmma_rs_tb(float* d, const uint32_t* a,
                                                 uint64_t db);
@@ -219,7 +271,7 @@ __device__ __forceinline__ void cet_wgmma_rs_tb<128>(float* d,
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : CET_F8(0), CET_F8(8), CET_F8(16), CET_F8(24), CET_F8(32), CET_F8(40)
+      : CET_F8(0), CET_F8(8), CET_F8(16), CET_F8(24), CET_F8(32), CET_F8(40),
         CET_F8(48), CET_F8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(1));
@@ -239,8 +291,8 @@ __device__ __forceinline__ void cet_wgmma_rs_tb<192>(float* d,
       "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
       "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      : CET_F8(0), CET_F8(8), CET_F8(16), CET_F8(24), CET_F8(32), CET_F8(40)
-        CET_F8(48), CET_F8(56), CET_F8(64), CET_F8(72), CET_F8(80)
+      : CET_F8(0), CET_F8(8), CET_F8(16), CET_F8(24), CET_F8(32), CET_F8(40),
+        CET_F8(48), CET_F8(56), CET_F8(64), CET_F8(72), CET_F8(80),
         CET_F8(88)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(1));
@@ -262,8 +314,8 @@ __device__ __forceinline__ void cet_wgmma_rs_tb<256>(float* d,
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
       "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : CET_F8(0), CET_F8(8), CET_F8(16), CET_F8(24), CET_F8(32), CET_F8(40)
-        CET_F8(48), CET_F8(56), CET_F8(64), CET_F8(72), CET_F8(80)
+      : CET_F8(0), CET_F8(8), CET_F8(16), CET_F8(24), CET_F8(32), CET_F8(40),
+        CET_F8(48), CET_F8(56), CET_F8(64), CET_F8(72), CET_F8(80),
         CET_F8(88), CET_F8(96), CET_F8(104), CET_F8(112), CET_F8(120)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(1));

@@ -1,25 +1,33 @@
-"""A parent tree against this one on the card: the selection and
-sketch-and-quantize kernels, and the rounds that run them.
+"""A parent tree against this one on the card: one suite of kernels,
+and the rounds that run them.
 
-    python -m commefficient_tpu_torch.kernel_ab PARENT [--skip_rounds]
-        [--out DIR]
+    python -m commefficient_tpu_torch.kernel_ab PARENT [--suite SUITE]
+        [--skip_rounds] [--out DIR]
 
 PARENT is a checkout of the parent commit (``git archive`` unpacked into
 a directory that ``.gitignore`` lists). Each run is a process of its
 own started from the root of its tree, in the order parent, change,
-change, parent:
+change, parent. Suites:
 
-- kernels: that tree's ``chip_smoke.py`` phases ``kernel_phases``,
+- ``attention`` (the default): that tree's ``chip_smoke.py``
+  ``attention_phases`` (the three flash attention kernels checked
+  against their plain versions, then timed at the GPT-2 round's shape
+  and at T 1024 beside ``scaled_dot_product_attention``), then the three
+  at f32 (4 x 12 heads x T 256 x hd 64); rounds:
+  ``profile_round --model gpt2 --attn_impl flash --rounds 6`` and the
+  same with ``--remat``, with the device time a round of the three
+  kernels;
+- ``selection``: that tree's ``chip_smoke.py`` phases ``kernel_phases``,
   ``sketch_quant_phase`` and ``gpt2_shape_phase`` (each checks its
-  kernels against their plain versions before it times them), then, with
-  that tree's ``chip_smoke.time_ms`` (L2 flushed before each launch):
-  the take-mask on a tie-heavy input (64 levels over 2 000 003 keys,
-  k = 10^6: ~31 000 ties at T in every stretch of the vector, the
+  kernels against their plain versions before it times them), then,
+  with that tree's ``chip_smoke.time_ms`` (L2 flushed before each
+  launch): the take-mask on a tie-heavy input (64 levels over 2 000 003
+  keys, k = 10^6: ~31 000 ties at T in every stretch of the vector, the
   ``edge_phases`` case), and the fp8 sketch-and-quantize at GPT-2's
   padded d (held byte-equal to quantizing the sketch kernel's table);
-- rounds (unless ``--skip_rounds``): ``profile_round --model gpt2
-  --rounds 6 --top 400`` and ``profile_round --sketch_dtype int8 --rounds
-  8 --top 400``, with the device time a round of the kernels under test.
+  rounds: ``profile_round --model gpt2 --rounds 6`` and ``--sketch_dtype
+  int8 --rounds 8``, with the device time a round of the take-mask and
+  the sketch-and-quantize.
 
 Every run's JSON lines go to ``OUT/<kind>_<i>_<tree>.jsonl``; standard
 output gets one summary line a run, then the card's name and power limit
@@ -103,13 +111,50 @@ print(json.dumps({"summary": {
               for stem in ("take_mask", "sketch")}}}), flush=True)
 '''
 
-_ROUNDS = (("gpt2", ["--model", "gpt2", "--rounds", "6", "--top", "400"]),
-           ("int8", ["--sketch_dtype", "int8", "--rounds", "8", "--top",
-                     "400"]))
-# device-time rows of the kernels under test, by name: the take-mask
-# (in the parent tree also its three kernels cet_eq_count, cet_eq_scan and
-# cet_take_write) and the sketch-and-quantize
-_WATCH = ("take_mask", "cet_eq_", "cet_take_write", "sketch_quant")
+_ATTENTION = r'''
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from commefficient_tpu_torch import _build
+_build.build_all(["flash_attn"])
+dev = torch.device("cuda", 0)
+flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+rows = cs.attention_phases(dev, flush)
+# the f32 instantiations (attention_phases checks them, times bf16 only)
+from commefficient_tpu_torch.ops import attention_kernels as ak
+q, k, v, do = cs.attn_inputs(dev, 4, 12, 256, 64, torch.float32, seed=320)
+scale = 64 ** -0.5
+op, mp, lp = ak.attn_fwd_plain(q, k, v, scale)
+bwd = (q, k, v, mp, lp, do, (op * do).sum(-1).contiguous(), scale)
+f32 = {"attn_fwd": lambda: ak.attn_fwd_kernel(q, k, v, scale),
+       "attn_bwd_dkv": lambda: ak.attn_bwd_dkv_kernel(*bwd),
+       "attn_bwd_dq": lambda: ak.attn_bwd_dq_kernel(*bwd)}
+print(json.dumps({"summary": {
+    r["name"]: {"ms": [r["ms"], r["t1024"]["ms"]],
+                "f32_ms": cs.time_ms(f32[r["name"]], 10, flush),
+                "bound_ms": [r["bound_ms"], r["t1024"]["bound_ms"]],
+                "library_ms": [r["library_ms"], r["t1024"]["library_ms"]]}
+    for r in rows}}), flush=True)
+'''
+
+_GPT2 = ["--model", "gpt2", "--rounds", "6", "--top", "400"]
+# suite: (kernels script, rounds (kind, profile_round flags), the
+# device-time rows of the kernels under test by name)
+_SUITES = {
+    "attention": (_ATTENTION,
+                  (("gpt2_flash", _GPT2 + ["--attn_impl", "flash"]),
+                   ("gpt2_flash_remat",
+                    _GPT2 + ["--attn_impl", "flash", "--remat"])),
+                  ("attn_",)),
+    # the take-mask (in older trees also its three kernels cet_eq_count,
+    # cet_eq_scan and cet_take_write) and the sketch-and-quantize
+    "selection": (_KERNELS,
+                  (("gpt2", _GPT2),
+                   ("int8", ["--sketch_dtype", "int8", "--rounds", "8",
+                             "--top", "400"])),
+                  ("take_mask", "cet_eq_", "cet_take_write",
+                   "sketch_quant")),
+}
 
 
 def _run(cmd, cwd: Path, log: Path) -> list:
@@ -122,7 +167,7 @@ def _run(cmd, cwd: Path, log: Path) -> list:
             if ln.startswith("{")]
 
 
-def _round_summary(lines) -> dict:
+def _round_summary(lines, watch=_SUITES["selection"][2]) -> dict:
     by = {ln.get("phase"): ln for ln in lines}
     dev = by["device"]
     return {"busy_ms_per_round": dev["busy_ms_per_round"],
@@ -135,33 +180,36 @@ def _round_summary(lines) -> dict:
                            by["host_syncs"]["server"]],
             "watched_ms_per_round": {
                 e["name"]: e["ms_per_round"] for e in dev["top"]
-                if any(w in e["name"] for w in _WATCH)}}
+                if any(w in e["name"] for w in watch)}}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("parent", type=Path)
+    ap.add_argument("--suite", choices=sorted(_SUITES), default="attention")
     ap.add_argument("--skip_rounds", action="store_true")
     ap.add_argument("--out", type=Path, default=Path("build/kernel_ab"))
     opts = ap.parse_args(argv)
     trees = {"parent": opts.parent.resolve(),
              "change": Path(__file__).resolve().parent.parent}
     opts.out.mkdir(parents=True, exist_ok=True)
+    script, rounds, watch = _SUITES[opts.suite]
     order = ("parent", "change", "change", "parent")
     for i, tree in enumerate(order):
-        lines = _run([sys.executable, "-c", _KERNELS], trees[tree],
+        lines = _run([sys.executable, "-c", script], trees[tree],
                      opts.out.resolve() / f"kernels_{i}_{tree}.jsonl")
         print(json.dumps({"run": i, "tree": tree, "kind": "kernels",
                           **lines[-1]["summary"]}), flush=True)
     if not opts.skip_rounds:
-        for kind, args in _ROUNDS:
+        for kind, args in rounds:
             for i, tree in enumerate(order):
                 lines = _run([sys.executable, "-m",
                               "commefficient_tpu_torch.profile_round", *args],
                              trees[tree],
                              opts.out.resolve() / f"{kind}_{i}_{tree}.jsonl")
                 print(json.dumps({"run": i, "tree": tree, "kind": kind,
-                                  **_round_summary(lines)}), flush=True)
+                                  **_round_summary(lines, watch)}),
+                      flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)

@@ -190,32 +190,54 @@ def test_kernel_wrappers_refuse_what_the_kernels_lack():
         ak._check("attn_fwd_kernel", (("q", q),))
 
 
-def _single_step_variant(q, k, v, sm_scale, mask=True, cast=True):
+def _single_step_variant(q, k, v, sm_scale, mask=True, cast=True,
+                         late_norm=False):
     """The single-step forward with the causal mask or the bf16 cast of
-    p left out: what a broken kernel would return."""
+    p left out, or with p cast before it is divided by l (and o divided
+    after p . v, FlashAttention-2's habit): what a broken kernel would
+    return."""
     qf, kf, vf = q.float(), k.float(), v.float()
     s = (ak._scores(qf, kf, sm_scale, 0, 0) if mask
          else (qf @ kf.transpose(-1, -2)) * sm_scale)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
-    p = p / l
-    o = (p.to(q.dtype).float() if cast else p) @ vf
+    if late_norm:
+        o = (p.to(q.dtype).float() @ vf) / l
+    else:
+        p = p / l
+        o = (p.to(q.dtype).float() if cast else p) @ vf
     return o.to(q.dtype), m[..., 0], l[..., 0]
 
 
-@pytest.mark.parametrize("slip", ["no_mask", "no_cast", "dq_row", "dv_tile"])
+def _narrow_block_forward(q, k, v, sm_scale):
+    """The online forward at T 1024 with p cast against the max of
+    128-column K blocks, not the reference's 512."""
+    real = ak.block_size
+    ak.block_size = lambda t: 128
+    try:
+        return ak.attn_fwd_plain(q, k, v, sm_scale)
+    finally:
+        ak.block_size = real
+
+
+@pytest.mark.parametrize("slip", ["no_mask", "no_cast", "dq_row", "dv_tile",
+                                  "late_norm", "online_narrow_block"])
 def test_card_smoke_attention_checks_reject_slips(monkeypatch, slip):
     import chip_smoke
 
+    t = 1024 if slip == "online_narrow_block" else 256
     q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
-                   for x in _inputs((1, 2, 256, 64), seed=4))
+                   for x in _inputs((1, 2, t, 64), seed=4))
     # the plain versions pass the card's checks
     chip_smoke.attn_checks(q, k, v, do, "plain")
-    if slip in ("no_mask", "no_cast"):
+    if slip in ("no_mask", "no_cast", "late_norm"):
         monkeypatch.setattr(ak, "attn_fwd_kernel", lambda *a: (
             _single_step_variant(*a, mask=slip != "no_mask",
-                                 cast=slip != "no_cast")))
+                                 cast=slip != "no_cast",
+                                 late_norm=slip == "late_norm")))
+    elif slip == "online_narrow_block":
+        monkeypatch.setattr(ak, "attn_fwd_kernel", _narrow_block_forward)
     elif slip == "dq_row":
         def dq_slip(*a):
             dq = ak.attn_bwd_dq_plain(*a).clone()
@@ -233,6 +255,33 @@ def test_card_smoke_attention_checks_reject_slips(monkeypatch, slip):
         chip_smoke.attn_checks(q, k, v, do, slip)
 
 
+def test_kernel_ab_attention_suite():
+    # kernel_ab's attention suite runs its child code in each tree (it
+    # must compile) and watches the three kernels in the flash rounds
+    from commefficient_tpu_torch import kernel_ab
+    script, rounds, watch = kernel_ab._SUITES["attention"]
+    compile(script, "<kernel_ab attention child>", "exec")
+    assert [kind for kind, _ in rounds] == ["gpt2_flash", "gpt2_flash_remat"]
+    assert all("--attn_impl" in args for _, args in rounds)
+    assert "--remat" in rounds[1][1]
+    lines = [
+        {"phase": "phases", "data_s": 0.01, "client_s": 0.02,
+         "server_s": 0.03},
+        {"phase": "host_syncs", "client": 1, "server": 3},
+        {"phase": "round_wall", "median_s": 0.09, "peak_mem_GiB": 6.3},
+        {"phase": "device", "busy_ms_per_round": 74.5, "busy_share": 0.7,
+         "top": [{"name": "void attn_fwd_tc_kernel<64, true>(...)",
+                  "ms_per_round": 1.5},
+                 {"name": "void attn_bwd_dq_kernel<bf16, 64>(...)",
+                  "ms_per_round": 5.5},
+                 {"name": "void cet_take_mask_kernel<true>(...)",
+                  "ms_per_round": 0.3}]}]
+    out = kernel_ab._round_summary(lines, watch)
+    assert out["watched_ms_per_round"] == {
+        "void attn_fwd_tc_kernel<64, true>(...)": 1.5,
+        "void attn_bwd_dq_kernel<bf16, 64>(...)": 5.5}
+
+
 # ---------------------------------------------------------------------
 # on the card
 
@@ -248,6 +297,8 @@ def dev():
 @pytest.mark.parametrize("b,h,t,hd,dtype", [
     (2, 3, 256, 64, torch.bfloat16),    # single step
     (1, 2, 1024, 64, torch.bfloat16),   # online, two K blocks of 512
+    (1, 2, 512, 64, torch.bfloat16),    # single step, wider than a chunk
+    (2, 2, 256, 128, torch.bfloat16),   # single step, hd 128
     (1, 2, 768, 32, torch.bfloat16),    # online, three K blocks of 256
     (2, 2, 256, 16, torch.float32),
     (1, 1, 384, 128, torch.float32)])   # online, three K blocks of 128
