@@ -1005,10 +1005,11 @@ def attn_kernel_name(mangled):
 
 
 def attn_ptxas_checks(report, log):
-    """The wgmma forward (single step and online update) and dK/dV at
-    every head dim they take compiled without spills, and ptxas
+    """The wgmma forward (single step and online update), dK/dV and dQ
+    at every head dim they take compiled without spills, and ptxas
     serialized no wgmma (C7520)."""
-    modes = {"fwd": ("_single", "_online"), "bwd_dkv": ("",)}
+    modes = {"fwd": ("_single", "_online"), "bwd_dkv": ("",),
+             "bwd_dq": ("",)}
     for name in (f"{kind}_wgmma_bf16_hd{hd}{mode}"
                  for hd in ak.WGMMA_HEAD_DIMS
                  for kind, kind_modes in modes.items()

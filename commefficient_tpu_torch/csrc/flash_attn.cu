@@ -44,11 +44,11 @@
 //
 // Two designs, fixed per template instantiation (tc_design(); never a
 // fallback at run time):
-// - tensor cores (wgmma) for the forward and dK/dV at bf16, hd 64 and
-//   128 (GPT-2's 12 heads of 64 take hd 64);
+// - tensor cores (wgmma) for the forward, dK/dV and dQ at bf16, hd 64
+//   and 128 (GPT-2's 12 heads of 64 take hd 64);
 // - FMA for f32 at every hd (a bf16 or TF32 product would change its
-//   results), bf16 at hd 16 and 32 (narrower than a 64-column SW128
-//   panel), and dQ everywhere.
+//   results) and bf16 at hd 16 and 32 (narrower than a 64-column SW128
+//   panel).
 //
 // Tensor-core forward (attn_fwd_tc_kernel, single step and online update
 // as two instantiations). A block is one warpgroup (128 threads) and owns
@@ -83,7 +83,19 @@
 // wgmma, dO and Q MN-major from the same panels); dK and dV go out
 // through shared memory, 16 bytes a thread.
 //
-// FMA design (the first kernels, and dQ): one block of 256 threads per
+// Tensor-core dQ (attn_bwd_dq_tc_kernel), the transpose of dK/dV. A
+// block (one warpgroup) owns a 64-row q tile, Q and dO held in SW128
+// panels and its rows' m, 1 / l and di in registers (a thread's two rows
+// for the whole walk; 1 / l taken once a row), the tiles with most work
+// first, and walks the K/V tiles from 0 to the diagonal through a
+// two-stage cp.async ring. Per K/V tile: S = Q . K^T and dP = dO . V^T
+// (shared-shared wgmma n64, two groups: p is taken while dP's products
+// run); dS in registers, in the plain version's order, rounded to bf16
+// as the A operand of dQ += dS . K (register-A wgmma, K MN-major from
+// the same panel); dQ goes out through shared memory, 16 bytes a thread.
+// 168 registers at hd 64 (three blocks an SM), 222 at hd 128.
+//
+// FMA design (the first kernels): one block of 256 threads per
 // (batch * head, 64-row tile); the tiles it multiplies staged in shared
 // memory as f32 (the bf16 products are exact in f32, so the sums are
 // the reference's f32 sums of exact products, in another order); f32
@@ -102,13 +114,16 @@
 // hd 64, bf16), by bytes: the forward reads q, k, v and writes o (and
 // m, l): 100.7 MB, 0.0305 ms at 3.35 TB/s against 6.4 GFLOP of causal
 // products, 0.0065 ms at 989 TFLOP/s; dK/dV reads q, k, v, do, m, l, di
-// and writes dk, dv: 0.0458 ms. At T 1024 (8 x 12 heads) the forward is
-// bound by bytes (0.0153 ms), dK/dV by operations (0.0261 ms). The
+// and writes dk, dv: 0.0458 ms; dQ reads q, k, v, do, m, l, di and
+// writes dq: 0.0383 ms. At T 1024 (8 x 12 heads) the forward is bound by
+// bytes (0.0153 ms), dK/dV and dQ by operations (0.0261 ms, 0.0196 ms:
+// four and three causal products of 2 hd flops a score entry). The
 // tensor-core kernels run at a small share of those bounds: each block
 // is one warpgroup that waits on its own copies and products in turn,
-// with two blocks an SM at 216-255 registers; the exact exp of every
-// score is a large part of the forward's time. The FMA kernels run
-// their products at 67 TFLOP/s f32, far off the byte bound.
+// with two blocks an SM at 216-255 registers (dQ three at 168); the
+// exact exp of every score is a large part of the forward's time. The
+// FMA kernels run their products at 67 TFLOP/s f32, far off the byte
+// bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -577,7 +592,7 @@ __global__ void __launch_bounds__(THREADS)
 // bf16 pairs in order, are the A operand of k step kk of the next product.
 
 constexpr int TC_THREADS = 128;  // one warpgroup
-constexpr int TC_STAGES = 2;     // (Q, dO) tiles in the dK/dV ring
+constexpr int TC_STAGES = 2;  // tiles in the dK/dV (Q, dO) and dQ (K, V) rings
 
 // score columns a forward step holds in registers (32 a thread for
 // every 64), so that no instantiation spills: 256 in the single step at
@@ -1175,6 +1190,147 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------
+// dQ (tensor cores): grid (T / 64 q tiles, B * H), the q tiles with most
+// work first; a block owns its q tile and walks the K/V tiles from 0 to
+// the diagonal, each tile's K and V through a two-stage cp.async ring.
+// Per K/V tile: S = Q . K^T and dP = dO . V^T (wgmma, both K-major from
+// shared memory); dS in registers, rounded to bf16 as the A operand of
+// dQ += dS . K (wgmma, K MN-major from the same tile). The accumulators'
+// rows are the thread's two q rows, so m, 1 / l and di are two
+// constants a thread; a column is a key. Compiled for three blocks an SM
+// at hd 64 (no spill there; uncapped, ptxas fits two, which timed
+// slower); at hd 128 that cap spills.
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS, HD == 64 ? 3 : 1)
+    attn_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ m,
+                          const float* __restrict__ l,
+                          const float* __restrict__ di,
+                          __nv_bfloat16* __restrict__ dq, int H, int Tn,
+                          float scale, Strides qs, Strides ks, Strides vs,
+                          Strides dos, Strides dqs) {
+  constexpr int TB = TILE * HD * 2;  // bytes of a 64-row tile
+  extern __shared__ unsigned char tc_smem_raw[];
+  unsigned char* sQ = tc_align(tc_smem_raw);
+  unsigned char* sDO = sQ + TB;
+  unsigned char* ring = sDO + TB;  // stage j: K, then V
+  const int t = threadIdx.x;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int n_k = q0 / TILE + 1;
+  const int rA = 16 * (t >> 5) + ((t & 31) >> 2), q2 = 2 * (t & 3);
+  const __nv_bfloat16* kb = head_rows(k, ks, b, h);
+  const __nv_bfloat16* vb = head_rows(v, vs, b, h);
+
+  // K/V tile j (rows 64 j ..) into stage j % 2
+  auto load_k = [&](int j) {
+    if (j < n_k) {
+      unsigned char* st = ring + (j % TC_STAGES) * 2 * TB;
+      tc_load_rows<TILE, HD>(st, kb, ks.t, j * TILE, TILE);
+      tc_load_rows<TILE, HD>(st + TB, vb, vs.t, j * TILE, TILE);
+    }
+    cp_async_commit();
+  };
+  tc_load_rows<TILE, HD>(sQ, head_rows(q, qs, b, h), qs.t, q0, TILE);
+  tc_load_rows<TILE, HD>(sDO, head_rows(dout, dos, b, h), dos.t, q0, TILE);
+  load_k(0);  // one group: Q, dO and K/V tile 0
+  load_k(1);
+
+  // the thread's rows q0 + rA and q0 + rA + 8: m, 1 / l (once a row, as
+  // the plain version takes it) and di
+  const long long at = ((long long)blockIdx.y) * Tn + q0 + rA;
+  const int qrow[2] = {q0 + rA, q0 + rA + 8};
+  float mv[2], li[2], dd[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    mv[hr] = m[at + 8 * hr];
+    li[hr] = 1.0f / l[at + 8 * hr];
+    dd[hr] = di[at + 8 * hr];
+  }
+  float dq_acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq_acc[i] = 0.0f;
+  const uint32_t aQ = tc_addr(sQ), aDO = tc_addr(sDO);
+
+  for (int j = 0; j < n_k; ++j) {
+    cp_async_wait_group<1>();  // K/V tile j (tile j + 1 may still fly)
+    cet_fence_proxy_async();
+    __syncthreads();
+    const int k0 = j * TILE;
+    const uint32_t aK = tc_addr(ring + (j % TC_STAGES) * 2 * TB);
+    const uint32_t aV = aK + TB;
+
+    // S and dP as two groups: p is taken while dP's products run
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+    cet_wgmma_fence();
+    tc_qk<HD, 64, TILE>(s, aQ, aK);
+    cet_wgmma_commit();
+    tc_qk<HD, 64, TILE>(dp, aDO, aV);
+    cet_wgmma_commit();
+    cet_wgmma_wait<1>();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) cet_fence_operand(s[i]);
+    // p of q row qrow[(i / 2) % 2], key k0 + 8 (i / 4) + q2 + i % 2
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hr = (i >> 1) & 1;
+      s[i] = expf(masked(s[i], scale, qrow[hr],
+                         k0 + 8 * (i >> 2) + q2 + (i & 1)) -
+                  mv[hr]) *
+             li[hr];
+    }
+    cet_wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) cet_fence_operand(dp[i]);
+    // ds; registers 8 kk .. 8 kk + 7, packed in pairs, are k step kk's A
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int hr = jj & 1, i = 8 * kk + 2 * jj;
+        da[kk][jj] = tc_pack(((dp[i] - dd[hr]) * s[i]) * scale,
+                             ((dp[i + 1] - dd[hr]) * s[i + 1]) * scale);
+      }
+
+    const uint64_t d_k = cet_sw128_desc(aK, TILE * 128, CET_SW128_ATOM);
+    cet_wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      cet_wgmma_rs_tb<HD>(dq_acc, da[kk], cet_desc_add(d_k, kk * 16 * 128));
+    cet_wgmma_commit();
+    cet_wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) cet_fence_operand(dq_acc[i]);
+    __syncthreads();  // every warp is done with stage j % 2
+    load_k(j + 2);
+  }
+
+  // dQ through shared memory (row stride HD + 8), 16 bytes a thread
+  cp_async_wait_group0();
+  __syncthreads();
+  constexpr int LDS = HD + 8;
+  __nv_bfloat16* stg = reinterpret_cast<__nv_bfloat16*>(ring);
+#pragma unroll
+  for (int i = 0; i < HD / 2; i += 2)
+    *reinterpret_cast<__nv_bfloat162*>(
+        stg + (rA + 8 * ((i >> 1) & 1)) * LDS + 8 * (i >> 2) + q2) =
+        __floats2bfloat162_rn(dq_acc[i], dq_acc[i + 1]);
+  __syncthreads();
+  __nv_bfloat16* qbase = head_rows(dq, dqs, b, h);
+  for (int i = t; i < TILE * (HD / 8); i += TC_THREADS) {
+    const int r = i / (HD / 8), ch = i % (HD / 8);
+    *reinterpret_cast<uint4*>(qbase + (long long)(q0 + r) * dqs.t + ch * 8) =
+        *reinterpret_cast<const uint4*>(stg + r * LDS + ch * 8);
+  }
+}
+
 inline Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
@@ -1226,6 +1382,10 @@ template <int HD>
 constexpr size_t dkv_tc_smem() {
   return CET_SW128_ATOM + (size_t)(2 + 2 * TC_STAGES) * TILE * HD * 2 +
          TC_STAGES * 3 * TILE * sizeof(float);
+}
+template <int HD>
+constexpr size_t dq_tc_smem() {
+  return CET_SW128_ATOM + (size_t)(2 + 2 * TC_STAGES) * TILE * HD * 2;
 }
 
 template <typename T, int HD>
@@ -1294,17 +1454,32 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const float* di, void* dq, int B, int H, int Tn,
                       float scale, const long long* st,
                       cudaStream_t stream) {
-  constexpr size_t smem = dq_smem<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid(Tn / TILE, B * H);
-  attn_bwd_dq_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, m, l, di,
-      (T*)dq, H, Tn, scale, strides_at(st, 0), strides_at(st, 1),
-      strides_at(st, 2), strides_at(st, 3), strides_at(st, 4));
-  return cudaGetLastError();
+  if constexpr (tc_design<T, HD>()) {
+    constexpr size_t smem = dq_tc_smem<HD>();
+    cudaError_t err = cudaFuncSetAttribute(
+        attn_bwd_dq_tc_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    attn_bwd_dq_tc_kernel<HD><<<grid, TC_THREADS, smem, stream>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, m, l, di,
+        (__nv_bfloat16*)dq, H, Tn, scale, strides_at(st, 0),
+        strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
+        strides_at(st, 4));
+    return cudaGetLastError();
+  } else {
+    constexpr size_t smem = dq_smem<HD>();
+    cudaError_t err = cudaFuncSetAttribute(
+        attn_bwd_dq_kernel<T, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    attn_bwd_dq_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, m, l, di,
+        (T*)dq, H, Tn, scale, strides_at(st, 0), strides_at(st, 1),
+        strides_at(st, 2), strides_at(st, 3), strides_at(st, 4));
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace

@@ -51,6 +51,13 @@ __device__ __forceinline__ void cet_wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// waits until at most N of the warpgroup's committed wgmma groups are
+// still in flight
+template <int N>
+__device__ __forceinline__ void cet_wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
 // keeps the compiler from moving an accumulator register across a
 // wgmma fence, commit or wait
 __device__ __forceinline__ void cet_fence_operand(float& r) {

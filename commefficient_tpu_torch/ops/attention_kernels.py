@@ -16,20 +16,23 @@ All three live in ``csrc/flash_attn.cu``, whose header comment gives
 their design and bound. Two designs, fixed per template instantiation
 (``kernel_design`` names them):
 
-- ``wgmma``: the forward and dK/dV at bf16, hd in ``WGMMA_HEAD_DIMS``
-  (64, 128; GPT-2's heads are 64). One warpgroup a 64-row tile, operand
-  tiles copied by ``cp.async`` into 128-byte-swizzled shared memory,
-  q . k^T and the products with v, dO and q on the tensor cores
-  (``wgmma``), the softmax in the f32 accumulator registers and cast to
-  bf16 as the next product's register operand. The forward makes one
-  q . k^T pass where a reference K block fits in its registers (the
-  single step at T <= 256, hd 64: GPT-2's round) and two where it does
-  not (T 512's single step, the online update's 512-column blocks),
-  casting p against the whole block's max either way. Registers
-  (ptxas, sm_90a): 255 (single step) and 249 (online) for the forward
-  at hd 64, 216 for dK/dV, no spill; two blocks an SM.
-- ``fma``: f32 at every hd, bf16 at hd 16 and 32, and dQ everywhere:
-  64-row tiles staged as f32 in shared memory, scalar f32 FMAs.
+- ``wgmma``: the forward, dK/dV and dQ at bf16, hd in
+  ``WGMMA_HEAD_DIMS`` (64, 128; GPT-2's heads are 64). One warpgroup a
+  64-row tile, operand tiles copied by ``cp.async`` into
+  128-byte-swizzled shared memory, q . k^T, do . v^T and the products
+  with v, dO, q and k on the tensor cores (``wgmma``), the softmax and
+  ds in the f32 accumulator registers and cast to bf16 as the next
+  product's register operand. The forward makes one q . k^T pass where
+  a reference K block fits in its registers (the single step at
+  T <= 256, hd 64: GPT-2's round) and two where it does not (T 512's
+  single step, the online update's 512-column blocks), casting p
+  against the whole block's max either way. dQ is dK/dV's transpose: a
+  block owns a q tile and walks the K/V tiles up to the diagonal.
+  Registers (ptxas, sm_90a) at hd 64: 255 (single step) and 249
+  (online) for the forward, 216 for dK/dV (two blocks an SM), 168 for
+  dQ (three); no spill.
+- ``fma``: f32 at every hd, bf16 at hd 16 and 32: 64-row tiles staged
+  as f32 in shared memory, scalar f32 FMAs.
 
 Each wrapper launches its kernel for a CUDA
 tensor (or raises) and takes the plain PyTorch version, beside it here,
@@ -62,9 +65,9 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 SUPPORTED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MIN_BLOCK = 128
-# head dims at which bf16 operands take the tensor-core (wgmma) forward
-# and dK/dV of csrc/flash_attn.cu; f32, bf16 at hd 16 and 32, and dQ
-# everywhere take the FMA design
+# head dims at which bf16 operands take the tensor-core (wgmma) kernels
+# of csrc/flash_attn.cu; f32, and bf16 at hd 16 and 32, take the FMA
+# design
 WGMMA_HEAD_DIMS = (64, 128)
 
 
@@ -82,9 +85,9 @@ def kernel_design(dtype, head_dim: int) -> dict:
     operands of this type and head dim, fixed per template
     instantiation (never a fallback at run time)."""
     tc = dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS
-    return {"attn_fwd": "wgmma" if tc else "fma",
-            "attn_bwd_dkv": "wgmma" if tc else "fma",
-            "attn_bwd_dq": "fma"}
+    design = "wgmma" if tc else "fma"
+    return {"attn_fwd": design, "attn_bwd_dkv": design,
+            "attn_bwd_dq": design}
 
 
 def unsupported_reason(head_dim: int, dtype, t=None):

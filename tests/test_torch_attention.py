@@ -182,6 +182,19 @@ def test_block_size_and_unsupported_reason():
     assert "T = 200" in unsupported_reason(64, torch.float32, 200)
 
 
+@pytest.mark.parametrize("dtype,hd,design", [
+    (torch.bfloat16, 16, "fma"), (torch.bfloat16, 32, "fma"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.float32, 16, "fma"), (torch.float32, 64, "fma"),
+    (torch.float32, 128, "fma")])
+def test_kernel_design_names_each_instantiation(dtype, hd, design):
+    # the three kernels share one design per (type, head dim): wgmma at
+    # bf16 hd 64 and 128, the FMA kernels elsewhere (f32 keeps its f32
+    # products; hd 16 and 32 are narrower than a 64-column panel)
+    assert ak.kernel_design(dtype, hd) == {
+        "attn_fwd": design, "attn_bwd_dkv": design, "attn_bwd_dq": design}
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_lack():
     # the checks run before any build or launch; a CPU tensor never
     # reaches them (the wrappers take the plain version for it)
@@ -221,8 +234,18 @@ def _narrow_block_forward(q, k, v, sm_scale):
         ak.block_size = real
 
 
+def _dq_without_diagonal_tiles(q, k, v, m, l, do, di, sm_scale):
+    """dQ with each 64-row q tile's diagonal 64-key tile left out: a
+    kernel whose walk over the K/V tiles stops before the diagonal."""
+    _, ds = ak._p_ds(q, k, v, m, l, do, di, sm_scale)
+    for j in range(0, ds.shape[-1], 64):
+        ds[..., j:j + 64, j:j + 64] = 0.0
+    return (ds.to(k.dtype).float() @ k.float()).to(q.dtype)
+
+
 @pytest.mark.parametrize("slip", ["no_mask", "no_cast", "dq_row", "dv_tile",
-                                  "late_norm", "online_narrow_block"])
+                                  "late_norm", "online_narrow_block",
+                                  "dq_diag"])
 def test_card_smoke_attention_checks_reject_slips(monkeypatch, slip):
     import chip_smoke
 
@@ -244,6 +267,9 @@ def test_card_smoke_attention_checks_reject_slips(monkeypatch, slip):
             dq[0, 1, 77] = 0
             return dq
         monkeypatch.setattr(ak, "attn_bwd_dq_kernel", dq_slip)
+    elif slip == "dq_diag":
+        monkeypatch.setattr(ak, "attn_bwd_dq_kernel",
+                            _dq_without_diagonal_tiles)
     else:
         def dkv_slip(*a):
             dk, dv = ak.attn_bwd_dkv_plain(*a)
@@ -274,12 +300,15 @@ def test_kernel_ab_attention_suite():
                   "ms_per_round": 1.5},
                  {"name": "void attn_bwd_dq_kernel<bf16, 64>(...)",
                   "ms_per_round": 5.5},
+                 {"name": "void attn_bwd_dq_tc_kernel<64>(...)",
+                  "ms_per_round": 1.4},
                  {"name": "void cet_take_mask_kernel<true>(...)",
                   "ms_per_round": 0.3}]}]
     out = kernel_ab._round_summary(lines, watch)
     assert out["watched_ms_per_round"] == {
         "void attn_fwd_tc_kernel<64, true>(...)": 1.5,
-        "void attn_bwd_dq_kernel<bf16, 64>(...)": 5.5}
+        "void attn_bwd_dq_kernel<bf16, 64>(...)": 5.5,
+        "void attn_bwd_dq_tc_kernel<64>(...)": 1.4}
 
 
 # ---------------------------------------------------------------------
