@@ -32,6 +32,27 @@ through the kernels:
   a validation step) and with ``--remat`` as well
   (``gpt2_flash_remat_path``: 24 forwards a round, the same per-round
   losses within ``REMAT_LOSS_RTOL``), each with its peak memory;
+- GPT-2's weights in and out (``gpt2_weights_path``): a full-size
+  ``pytorch_model.bin`` written from random init (the hub's layout:
+  50 257 wte rows, no ``transformer.`` prefix, the attention buffers,
+  the hub's ``config.json``, whose 50 257 ids grow to the tokenizer's),
+  one epoch of the GPT-2 path from it with ``--hf_export``, then the
+  saved run directory reloaded: the run's start, the saved
+  ``flax_model.msgpack`` and both reloads checked bit for bit;
+  ``gpt2_pipelined_path``: the GPT-2 path and its flash path at
+  ``--pipeline_depth 3``, each dispatched round under sync debug mode
+  "error" (the sparse re-sketch's support compacted with no host read),
+  losses within ``PIPE_RTOL`` of the depth-1 runs, bytes and launches
+  equal; ``gpt2_clients_path``: the per-client round
+  (``CLIENTS_EXTRA``: ``--max_grad_norm 10 --microbatch_size 4``), W
+  sketches, 2 flce forwards (the vmap rule folds the clients into the
+  tokens) and 2 W flce backwards a round, the flce kernels held against
+  their plain versions at those launches' shapes beforehand
+  (``flce_client_checks``: the forward at 8 160 tokens, the backward at
+  2 040). Every GPT-2 run works in a
+  temporary directory, where ``gpt2_train.main`` saves its final model
+  (~0.5 GB), and the script fails if a weights file is left under
+  ./runs;
 - the image models on fixtures the script writes (``data/fixtures.py``:
   random pixels in the archives' own formats), the same sketch, k and
   8 clients x 8 samples, 4 rounds each through ``cv_train.main``:
@@ -121,7 +142,9 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -138,6 +161,9 @@ from commefficient_tpu_torch.core.rounds import ClientStates
 from commefficient_tpu_torch.core.server import ServerState, server_update
 from commefficient_tpu_torch.data.fixtures import write_fixture
 from commefficient_tpu_torch.data.tokenizer import SPECIAL_TOKENS, load_tokenizer
+from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
+                                                 convert_gpt2_to_hf,
+                                                 convert_torch_gpt2)
 from commefficient_tpu_torch.ops import attention_kernels as ak
 from commefficient_tpu_torch.ops import flce_kernels as fk
 from commefficient_tpu_torch.ops import quant
@@ -150,6 +176,7 @@ from commefficient_tpu_torch.ops.topk import (_threshold_topk_mask,
                                               threshold_topk_mask_1d)
 from commefficient_tpu_torch.parallel.wire import row_chunks
 from commefficient_tpu_torch.runtime import fed_model
+from commefficient_tpu_torch.serialization import msgpack_restore
 from commefficient_tpu_torch.train import cv_train, gpt2_train
 
 # main-path geometry (the reference's bench.py config)
@@ -266,6 +293,11 @@ ATTN = (ak.attn_fwd_kernel, ak.attn_bwd_dkv_kernel, ak.attn_bwd_dq_kernel)
 # is W*B*N*(T-1) = 4*8*2*255 predicting tokens
 GPT2_D, GPT2_V, GPT2_C = 124_444_417, 50_262, 768
 GPT2_M = 4 * 8 * 2 * 255
+# the per-client round (CLIENTS_EXTRA: microbatches of 4 of a client's
+# 8 items): the forward's vmap rule folds the W = 4 clients into
+# 4*4*2*255 tokens, the backward's launches one client's 4*2*255
+GPT2_CLIENT_M = 4 * 2 * 255
+GPT2_CLIENTS_FWD_M = 4 * GPT2_CLIENT_M
 # the forward's f32 outputs: a few times the summation-order and
 # exp/log differences (~4e-6 at lse ~ 12); one 256-id vocab tile left
 # out moves lse by ~5e-3
@@ -1078,17 +1110,27 @@ def flce_bwd_rows_check(dx_k, dw_k, dx_p, dw_p, case):
     return errs
 
 
-def flce_phases(dev, flush, m=GPT2_M, v=GPT2_V, c=GPT2_C):
-    """The fused cross-entropy kernels at the GPT-2 round's shapes (bf16
-    hidden states and tied embedding, labels with ignored positions),
-    each against its plain version on the same inputs."""
-    gen = torch.Generator(device=dev).manual_seed(1)
+def flce_inputs(dev, m, v=GPT2_V, c=GPT2_C, seed=1):
+    """bf16 hidden states (m, c) and tied embedding (v, c), labels with
+    every 7th position ignored (-1 never matches a vocab id: tok = 0),
+    and the LM loss's g_lse (0 at ignored positions; g_tok = -g_lse)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(m, c, generator=gen, device=dev).to(torch.bfloat16)
     w = (torch.randn(v, c, generator=gen, device=dev) * 0.05).to(
         torch.bfloat16)
     lab = torch.randint(0, v, (m,), generator=gen, device=dev,
                         dtype=torch.int32)
-    lab[::7] = -1  # never matches a vocab id: tok = 0
+    lab[::7] = -1
+    g_lse = torch.rand(m, generator=gen, device=dev) / m
+    g_lse[::7] = 0.0
+    return x, w, lab, g_lse
+
+
+def flce_phases(dev, flush, m=GPT2_M, v=GPT2_V, c=GPT2_C):
+    """The fused cross-entropy kernels at the GPT-2 round's shapes (bf16
+    hidden states and tied embedding, labels with ignored positions),
+    each against its plain version on the same inputs."""
+    x, w, lab, g_lse = flce_inputs(dev, m, v, c)
     rows = []
 
     lse_k, tok_k = fk.flce_fwd_kernel(x, w, lab)
@@ -1131,8 +1173,6 @@ def flce_phases(dev, flush, m=GPT2_M, v=GPT2_V, c=GPT2_C):
     # zero at ignored positions. The one-hot part dominates the rows of
     # dW that labels hit, so a second pass with g_tok = 0 holds the
     # softmax part alone at its own scale
-    g_lse = torch.rand(m, generator=gen, device=dev) / m
-    g_lse[::7] = 0.0
     g_tok = -g_lse
     err, row_err = 0.0, {}
     for case, gt in (("lm", g_tok), ("softmax", torch.zeros_like(g_tok))):
@@ -1179,6 +1219,34 @@ def flce_phases(dev, flush, m=GPT2_M, v=GPT2_V, c=GPT2_C):
           "row_rel_err": row_err, "bit_identical_relaunch": True,
           "library": "torch.matmul x3: logits, d.W and d^T.x"})
     return rows
+
+
+def flce_client_checks(dev):
+    """The fused cross-entropy kernels at the per-client round's shapes,
+    each against its plain version at ``flce_phases``' tolerances: the
+    forward at the W clients folded into the tokens
+    (``GPT2_CLIENTS_FWD_M``), the backward at one client's tokens
+    (``GPT2_CLIENT_M``), with the LM loss's cotangents and with the
+    softmax part alone. Both leave their last token tiles partial
+    (8 160 = 96 mod 128; 2 040 = 56 mod 64 = 24 mod 32), and at 2 040
+    tokens dW's split over blocks differs from the round's."""
+    x, w, lab, g_lse = flce_inputs(dev, GPT2_CLIENTS_FWD_M, seed=2)
+    lse_p, tok_p = fk.flce_fwd_plain(x, w, lab)
+    fwd_err = flce_fwd_err(*fk.flce_fwd_kernel(x, w, lab), lse_p, tok_p)
+    check(fwd_err <= FLCE_FWD_ATOL, f"flce_fwd M={GPT2_CLIENTS_FWD_M}: "
+          f"max|kernel-plain| {fwd_err} > {FLCE_FWD_ATOL}")
+    m = GPT2_CLIENT_M
+    row_err = {}
+    for case, gt in (("lm", -g_lse[:m]),
+                     ("softmax", torch.zeros_like(g_lse[:m]))):
+        args = (x[:m], w, lab[:m], lse_p[:m], g_lse[:m], gt)
+        row_err.update(flce_bwd_rows_check(*fk.flce_bwd_kernel(*args),
+                                           *fk.flce_bwd_plain(*args),
+                                           f"{case}_M{m}"))
+    emit({"phase": "flce_client_shapes", "fwd_M": GPT2_CLIENTS_FWD_M,
+          "fwd_max_abs_err": fwd_err, "fwd_tolerance": FLCE_FWD_TOL,
+          "bwd_M": m, "bwd_row_rel_err": row_err,
+          "bwd_tolerance": FLCE_BWD_TOL})
 
 
 def attn_inputs(dev, b, h, t, hd, dtype, seed):
@@ -1425,83 +1493,127 @@ def shape_phase(dev, flush, l2_bps, d=GPT2_D, tag="GPT-2",
 
 
 @contextlib.contextmanager
-def round_losses(module):
-    """Records the mask-weighted train loss of every round that
-    ``module.FedModel`` runs while the block runs (as ``run_batches``
-    averages them)."""
-    losses = []
-    base = module.FedModel
-
-    class Recording(base):
-        def __call__(self, batch):
-            out = super().__call__(batch)
-            if self.training:
-                w = np.asarray(batch["mask"]).sum(axis=1)
-                losses.append(float(np.sum(out[0] * w) / w.sum()))
-            return out
-
-    module.FedModel = Recording
+def working_dir(path):
+    """Runs the block in ``path``: ``gpt2_train.main`` saves its final
+    model (~0.5 GB, twice that with ``--hf_export``) under ./runs, and
+    none of it may land in the repo tree."""
+    saved = os.getcwd()
+    os.chdir(path)
     try:
-        yield losses
+        yield
     finally:
-        module.FedModel = base
+        os.chdir(saved)
 
 
-def gpt2_main_path(phase="gpt2_main_path", extra=(), attn_fwd_per_round=0):
+def reset_launches():
+    for kern in KERNELS + FLCE + ATTN:
+        kern.launches = 0
+
+
+def launch_counts():
+    return {k.__name__: k.launches for k in KERNELS + FLCE + ATTN}
+
+
+def gpt2_run(root, extra=(), sync_free=False, before=None):
     """Fabricates the vocabulary and a corpus of 4 rounds (16 clients x
-    8 items) with the port's own functions, then runs one epoch through
-    ``gpt2_train.main`` (the main path's flags, then ``extra``) and
-    checks losses and launch counts: each round's backward runs
-    ``attn_fwd_per_round`` attention forwards a layer (0: the plain
-    attention; 1 with ``--attn_impl flash``; 2 under ``--remat``, which
-    runs each block's forward again in the backward), one dK/dV and
-    one dQ a layer where it runs any, and each validation step one
-    forward a layer. Returns (launch counts, per-round train losses)."""
-    with tempfile.TemporaryDirectory(prefix="gpt2_smoke_") as root:
-        data_dir, vocab_dir = gpt2_train.fabricate_assets(root)
-        argv = profile_round.gpt2_argv(data_dir, vocab_dir) + list(extra)
-        args = parse_args(default_lr=4e-2, argv=argv)
-        tok = load_tokenizer(vocab_dir)
-        tok.add_special_tokens(SPECIAL_TOKENS)
-        _, val_loader, _ = gpt2_train.get_data_loaders(args, tok)
-        val_steps = len(val_loader)
-        for kern in KERNELS + FLCE + ATTN:
-            kern.launches = 0
-        t0 = time.perf_counter()
-        with round_losses(gpt2_train) as losses:
-            results = gpt2_train.main(argv)
-        wall = time.perf_counter() - t0
-    counts = {k.__name__: k.launches for k in KERNELS + FLCE + ATTN}
-    d = fed_model._CURRENT_MODEL.args.grad_size
+    8 items) under ``root`` with the port's own functions, then runs one
+    epoch through ``gpt2_train.main`` (the main path's flags, then
+    ``extra``) with ``root`` as the working directory, every launch
+    count from 0 (``sync_free``: each round dispatched under sync debug
+    mode "error"). ``before(vocab_dir)`` runs first. Returns (argv,
+    launch counts, the epoch's result row, validation steps, wall
+    seconds, the FedModel)."""
+    data_dir, vocab_dir = gpt2_train.fabricate_assets(root)
+    if before is not None:
+        before(vocab_dir)
+    argv = profile_round.gpt2_argv(data_dir, vocab_dir) + list(extra)
+    args = parse_args(default_lr=4e-2, argv=argv)
+    tok = load_tokenizer(vocab_dir)
+    tok.add_special_tokens(SPECIAL_TOKENS)
+    _, val_loader, _ = gpt2_train.get_data_loaders(args, tok)
+    fed_model._CURRENT_MODEL = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with working_dir(root), \
+            (sync_free_dispatch() if sync_free else contextlib.nullcontext()):
+        results = gpt2_train.main(argv)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
     check(len(results) == 1, f"{len(results)} epochs ran, want 1")
-    row = results[-1]
-    rounds = len(row["round_times"])
-    for key in ("train_loss", "val_nll", "val_ppl", "val_acc"):
-        check(math.isfinite(row[key]), f"{key} = {row[key]}")
-    check(len(losses) == rounds and all(map(math.isfinite, losses)),
-          f"{phase}: per-round losses {losses}")
-    check(3 <= rounds <= 5, f"{rounds} rounds ran, want 3-5")
-    check(d == GPT2_D, f"GPT-2 flat size {d}, want {GPT2_D}")
+    return (argv, counts, results[-1], len(val_loader), wall,
+            fed_model._CURRENT_MODEL)
+
+
+def gpt2_launches(rounds, val_steps, attn_fwd_per_round=0, clients=0,
+                  microbatches=1):
+    """The launch counts of ``rounds`` GPT-2 rounds and ``val_steps``
+    validation steps: each round 1 estimates, 1 search and 1 take-mask;
+    the fused round 1 sketch, 1 flce forward and 1 flce backward; the
+    per-client round (``clients`` W > 0) W sketches (each client's
+    clipped table; the sparse re-sketch branch needs no server sketch),
+    one flce forward a microbatch (the vmap rule folds the clients into
+    the tokens) and W flce backwards a microbatch (dW is per client);
+    each round's backward ``attn_fwd_per_round`` flash attention
+    forwards a layer (0: the plain attention; 1 with ``--attn_impl
+    flash``; 2 under ``--remat``, which runs each block's forward
+    again), one dK/dV and one dQ a layer where it runs any; each
+    validation step one flce forward and one attention forward a
+    layer."""
     flash = attn_fwd_per_round > 0
-    want = {"sketch_kernel": rounds, "estimates_kernel": rounds,
-            "threshold_key_kernel": rounds,
+    return {"sketch_kernel": rounds * max(clients, 1),
+            "estimates_kernel": rounds, "threshold_key_kernel": rounds,
             "take_mask_kernel": rounds, "sketch_quant_kernel": 0,
-            "flce_fwd_kernel": rounds + val_steps,
-            "flce_bwd_kernel": rounds,
+            "flce_fwd_kernel": rounds * microbatches + val_steps,
+            "flce_bwd_kernel": rounds * microbatches * max(clients, 1),
             "attn_fwd_kernel": GPT2_LAYERS * (
                 attn_fwd_per_round * rounds + val_steps) if flash else 0,
             "attn_bwd_dkv_kernel": GPT2_LAYERS * rounds if flash else 0,
             "attn_bwd_dq_kernel": GPT2_LAYERS * rounds if flash else 0}
+
+
+def gpt2_checks(phase, counts, row, val_steps, want_kw=None):
+    """Finite losses, 3-5 rounds, d and the exact launch counts
+    (``gpt2_launches(rounds, val_steps, **want_kw)``); returns the
+    rounds."""
+    d = fed_model._CURRENT_MODEL.args.grad_size
+    rounds = len(row["round_times"])
+    losses = row["round_losses"]
+    for key in ("train_loss", "val_nll", "val_ppl", "val_acc"):
+        check(math.isfinite(row[key]), f"{phase}: {key} = {row[key]}")
+    check(len(losses) == rounds and all(map(math.isfinite, losses)),
+          f"{phase}: per-round losses {losses}")
+    check(3 <= rounds <= 5, f"{phase}: {rounds} rounds ran, want 3-5")
+    check(d == GPT2_D, f"{phase}: GPT-2 flat size {d}, want {GPT2_D}")
+    want = gpt2_launches(rounds, val_steps, **(want_kw or {}))
     check(counts == want, f"{phase} launch counts {counts}, want {want}")
-    emit({"phase": phase, "argv_tail": argv[6:], "d": d,
-          "rounds": rounds, "val_steps": val_steps, "launches": counts,
-          "round_seconds": row["round_times"], "round_losses": losses,
+    return rounds
+
+
+def gpt2_emit(phase, argv, counts, row, val_steps, wall, **extra):
+    emit({"phase": phase, "argv_tail": argv[6:], "d": GPT2_D,
+          "rounds": len(row["round_times"]), "val_steps": val_steps,
+          "launches": counts, "round_seconds": row["round_times"],
+          "round_losses": row["round_losses"],
           "train_loss": row["train_loss"], "val_nll": row["val_nll"],
           "val_ppl": row["val_ppl"], "val_acc": row["val_acc"],
           "up_MiB": row["up (MiB)"], "down_MiB": row["down (MiB)"],
           "wall_seconds": wall,
-          "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30})
-    return counts, losses
+          "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30,
+          **extra})
+
+
+def gpt2_main_path(phase="gpt2_main_path", extra=(), attn_fwd_per_round=0):
+    """One epoch of the GPT-2 main path (``gpt2_run``) with ``extra``
+    flags: losses and the exact launch counts. Returns (launch counts,
+    the result row)."""
+    with tempfile.TemporaryDirectory(prefix="gpt2_smoke_") as root:
+        argv, counts, row, val_steps, wall, _ = gpt2_run(root, extra)
+    gpt2_checks(phase, counts, row, val_steps,
+                {"attn_fwd_per_round": attn_fwd_per_round})
+    gpt2_emit(phase, argv, counts, row, val_steps, wall)
+    return counts, row
 
 
 # --remat recomputes each block's forward with the same kernels on the
@@ -1514,24 +1626,202 @@ def gpt2_flash_paths():
     """``gpt2_flash_path`` (the GPT-2 main path with ``--attn_impl
     flash``) and ``gpt2_flash_remat_path`` (and ``--remat``): launch
     counts, and the same per-round train losses. Returns the flash
-    path's counts."""
-    fed_model._CURRENT_MODEL = None
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    counts, losses = gpt2_main_path("gpt2_flash_path",
-                                    ["--attn_impl", "flash"], 1)
-    fed_model._CURRENT_MODEL = None
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    _, remat = gpt2_main_path("gpt2_flash_remat_path",
-                              ["--attn_impl", "flash", "--remat"], 2)
+    path's counts and result row."""
+    counts, row = gpt2_main_path("gpt2_flash_path",
+                                 ["--attn_impl", "flash"], 1)
+    losses = row["round_losses"]
+    _, remat_row = gpt2_main_path("gpt2_flash_remat_path",
+                                  ["--attn_impl", "flash", "--remat"], 2)
+    remat = remat_row["round_losses"]
     err = max(abs(a - b) / abs(b) for a, b in zip(remat, losses))
     check(len(remat) == len(losses) and err <= REMAT_LOSS_RTOL,
           f"--remat per-round losses {remat} against {losses}: "
           f"relative {err} > {REMAT_LOSS_RTOL}")
     emit({"phase": "gpt2_flash_remat_losses", "max_rel_diff": err,
           "bit_equal": remat == losses, "rtol": REMAT_LOSS_RTOL})
+    return counts, row
+
+
+def random_hf_state_dict(cfg, seed=SEED):
+    """A full-size ``transformers`` GPT-2 state dict from random init
+    and its ``config.json``, as the hub's bare ``gpt2`` checkpoint lays
+    them out: no ``transformer.`` prefix, Conv1D kernels (in, out), the
+    vocabulary without the special tokens (``cfg.vocab_size`` rows of
+    wte, and in the config), and the ``attn.bias`` /
+    ``attn.masked_bias`` buffers the model does not use."""
+    module = gpt2_train.GPT2DoubleHeads(cfg)
+    tree = module.to_params_tree(module.init_flat(seed))
+    sd, hf_cfg = convert_gpt2_to_hf(tree, cfg)
+    out = {}
+    for key, val in sd.items():
+        if key.startswith("transformer."):
+            out[key.removeprefix("transformer.")] = torch.from_numpy(
+                np.array(val, copy=True))
+    n = cfg.n_positions
+    for i in range(cfg.n_layer):
+        out[f"h.{i}.attn.bias"] = torch.ones(n, n).tril().view(1, 1, n, n)
+        out[f"h.{i}.attn.masked_bias"] = torch.tensor(-1e4)
+    return out, hf_cfg
+
+
+@contextlib.contextmanager
+def start_weights(module):
+    """Records, while the block runs, the weights that each FedModel
+    of ``module`` starts from (host copies): ``start[i]``."""
+    start = []
+    base = module.FedModel
+
+    class Recording(base):
+        def __init__(self, mod, params, *a, **kw):
+            start.append(params.detach().to("cpu", copy=True))
+            super().__init__(mod, params, *a, **kw)
+
+    module.FedModel = Recording
+    try:
+        yield start
+    finally:
+        module.FedModel = base
+
+
+def saved_weights(logdir):
+    """The flat weights ``gpt2_train`` reloads from a saved run
+    directory, through ``build_model_and_tokenizer``."""
+    args = parse_args(default_lr=4e-2,
+                      argv=["--model_checkpoint", logdir, "--bf16"])
+    _, flat, _ = gpt2_train.build_model_and_tokenizer(args, "cpu")
+    return flat
+
+
+def gpt2_weights_path():
+    """Pretrained weights in, the fine-tuned model out: a full-size
+    ``pytorch_model.bin`` written from random init (50 257 wte rows,
+    keys without the ``transformer.`` prefix, the attention buffers)
+    and the hub's ``config.json`` (50 257 ids) beside the fabricated
+    vocabulary; one epoch of the GPT-2 main path through
+    ``gpt2_train.main`` with ``--hf_export`` from it; then the saved
+    run directory reloaded. Checks: the model has the tokenizer's
+    50 262 ids; bit for bit, the run started from
+    ``convert_torch_gpt2`` of the file (its 5 new special-token rows
+    the mean of wte's rows); the saved ``flax_model.msgpack``
+    (``serialization.msgpack_restore``) is the final server weights;
+    the directory without its ``pytorch_model.bin`` reloads to them
+    (``config.json`` + ``flax_model.msgpack``); the HF directory
+    reloads to them on every coordinate but the MC head, which
+    ``convert_torch_gpt2`` draws anew (``np.random.RandomState(0)``,
+    as the run's start did). The launch counts are the main path's."""
+    hub = GPT2Config(vocab_size=50_257, n_positions=1024)
+    sd, hub_cfg = random_hf_state_dict(hub)
+    with tempfile.TemporaryDirectory(prefix="gpt2_weights_") as root:
+        def write_checkpoint(vocab_dir):
+            torch.save(sd, os.path.join(vocab_dir, "pytorch_model.bin"))
+            with open(os.path.join(vocab_dir, "config.json"), "w") as f:
+                json.dump(hub_cfg, f)
+
+        with start_weights(gpt2_train) as start:
+            argv, counts, row, val_steps, wall, model = gpt2_run(
+                root, ["--hf_export"], before=write_checkpoint)
+        gpt2_checks("gpt2_weights_path", counts, row, val_steps)
+        module = model.module
+        want_start = module.from_jax_params(convert_torch_gpt2(
+            {k: v.numpy() for k, v in sd.items()}, module.cfg))
+        final = model.ps_weights.to("cpu")
+        (logdir,) = [dirpath for dirpath, _, files
+                     in os.walk(os.path.join(root, "runs"))
+                     if "flax_model.msgpack" in files]
+        names = sorted(os.listdir(logdir))
+        for name in ("config.json", "flax_model.msgpack",
+                     "pytorch_model.bin", "vocab.json"):
+            check(name in names, f"gpt2_weights: {name} not in {names}")
+        with open(os.path.join(logdir, "flax_model.msgpack"), "rb") as f:
+            saved = module.from_jax_params(msgpack_restore(f.read()))
+        flax_dir = os.path.join(root, "flax_only")
+        shutil.copytree(logdir, flax_dir,
+                        ignore=shutil.ignore_patterns("pytorch_model.bin"))
+        from_flax = saved_weights(flax_dir)
+        from_hf = saved_weights(logdir)
+        sizes = {name: os.path.getsize(os.path.join(logdir, name))
+                 for name in names}
+    mc = torch.zeros(GPT2_D, dtype=torch.bool)
+    mc[:GPT2_C + 1] = True  # mc_head's bias and kernel sort first
+    checks = {
+        "vocab_is_the_tokenizers": module.cfg.vocab_size == GPT2_V,
+        "start_is_the_checkpoint": torch.equal(start[0], want_start),
+        "msgpack_is_final": torch.equal(saved, final),
+        "flax_dir_reloads_final": torch.equal(from_flax, final),
+        "hf_dir_reloads_final_but_mc_head": torch.equal(from_hf[~mc],
+                                                        final[~mc]),
+        "hf_mc_head_redrawn": torch.equal(from_hf[mc], want_start[mc]),
+        "weights_moved": not torch.equal(final, want_start),
+    }
+    for key, ok in checks.items():
+        check(ok, f"gpt2_weights: {key} failed")
+    gpt2_emit("gpt2_weights_path", argv, counts, row, val_steps, wall,
+              checks=checks, saved_files=sizes)
     return counts
+
+
+def gpt2_pipelined_path(runs):
+    """``--pipeline_depth 3`` on the GPT-2 main path and on its
+    ``--attn_impl flash`` path: every round dispatched under sync debug
+    mode "error" (the sparse re-sketch's support compacted with no
+    host read), against the depth-1 runs of the same flags (``runs``:
+    name -> (extra flags, attention forwards a round, the depth-1
+    result row)). Per-round losses within ``PIPE_RTOL`` (the sparse
+    re-sketch's accumulating scatter may sum in another order on the
+    card), bytes and the exact launch counts equal."""
+    out = {}
+    for name, (extra, attn, one) in runs.items():
+        with tempfile.TemporaryDirectory(prefix="gpt2_pipe_") as root:
+            argv, counts, row, val_steps, wall, _ = gpt2_run(
+                root, list(extra) + ["--pipeline_depth", "3"],
+                sync_free=True)
+        gpt2_checks(f"gpt2_pipelined_path {name}", counts, row, val_steps,
+                    {"attn_fwd_per_round": attn})
+        check(np.allclose(row["round_losses"], one["round_losses"],
+                          rtol=PIPE_RTOL, atol=0),
+              f"gpt2_pipelined {name}: losses {row['round_losses']} "
+              f"against {one['round_losses']}")
+        for key in ("up (MiB)", "down (MiB)"):
+            check(row[key] == one[key], f"gpt2_pipelined {name}: {key} "
+                  f"{row[key]} against {one[key]}")
+        gpt2_emit(f"gpt2_pipelined_path_{name}", argv, counts, row,
+                  val_steps, wall, depth1_round_seconds=one["round_times"],
+                  depth1_round_losses=one["round_losses"])
+        out[name] = counts
+    return out
+
+
+# the per-client GPT-2 round: each client's gradient clipped (its
+# table's l2 estimate) in microbatches of 4 of its 8 items
+CLIENTS_EXTRA = ["--max_grad_norm", "10", "--microbatch_size", "4"]
+
+
+def gpt2_clients_path():
+    """The per-client GPT-2 round (``CLIENTS_EXTRA``): W = 4 clients
+    under ``torch.func.vmap``, two microbatches each, the fused CE
+    through its vmap rules: launches W sketches, 2 flce forwards (the
+    clients folded into the tokens) and 2 W flce backwards a round;
+    finite losses and the upload W f32 tables a round."""
+    with tempfile.TemporaryDirectory(prefix="gpt2_clients_") as root:
+        argv, counts, row, val_steps, wall, model = gpt2_run(
+            root, CLIENTS_EXTRA)
+    w = model.args.num_workers
+    rounds = gpt2_checks("gpt2_clients_path", counts, row, val_steps,
+                         {"clients": w, "microbatches": 2})
+    up = rounds * w * sketch_wire_bytes(R, C, "f32") / 2**20
+    check(row["up (MiB)"] == up, f"gpt2_clients: up {row['up (MiB)']} "
+          f"MiB, want {up}")
+    gpt2_emit("gpt2_clients_path", argv, counts, row, val_steps, wall)
+    return counts
+
+
+def no_weights_left():
+    """No weights file under the working directory's ./runs: every
+    GPT-2 phase saved into its own temporary directory."""
+    left = [os.path.join(dirpath, name)
+            for dirpath, _, files in os.walk("runs") for name in files
+            if name in ("flax_model.msgpack", "pytorch_model.bin")]
+    check(not left, f"weights left in the tree: {left}")
 
 
 def main_path():
@@ -2078,6 +2368,7 @@ def main():
     rows += sketch_quant_phase(dev, flush, l2_bps)
     wgmma_tile_phase(dev)
     rows += flce_phases(dev, flush)
+    flce_client_checks(dev)
     torch.cuda.empty_cache()
     attn_rows = attention_phases(dev, flush)
     torch.cuda.empty_cache()
@@ -2122,11 +2413,19 @@ def main():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         batchnorm_path(data)
-    fed_model._CURRENT_MODEL = None
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    gpt2_counts, _ = gpt2_main_path()
-    flash_counts = gpt2_flash_paths()
+    gpt2_counts, gpt2_row = gpt2_main_path()
+    flash_counts, flash_row = gpt2_flash_paths()
+    # the launches of every GPT-2 path, for the kernels line
+    gpt2_paths = {"gpt2_main_path": gpt2_counts,
+                  "gpt2_flash_path": flash_counts,
+                  "gpt2_weights_path": gpt2_weights_path()}
+    pipelined = gpt2_pipelined_path({
+        "default": ((), 0, gpt2_row),
+        "flash": (("--attn_impl", "flash"), 1, flash_row)})
+    gpt2_paths.update({f"gpt2_pipelined_path_{k}": v
+                       for k, v in pipelined.items()})
+    gpt2_paths["gpt2_clients_path"] = gpt2_clients_path()
+    no_weights_left()
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2148,6 +2447,9 @@ def main():
                       "design", "t1024"):
             if extra in row:
                 entry[extra] = row[extra]
+        if kern in gpt2_counts:
+            entry["gpt2_paths_launches"] = {
+                path: c[kern] for path, c in gpt2_paths.items()}
         if row["name"] in gpt2_shapes:
             entry["gpt2"] = dict(gpt2_shapes[row["name"]],
                                  launches=gpt2_counts[kern])

@@ -15,7 +15,9 @@ of the reference's registry, and GPT-2 on PersonaChat:
   ``ops/flce_kernels.py``;
 - ``models/`` (ResNet9, the ResNet family with ResNet101LN, the Fixup
   ResNets, ResNet18, GPT-2), ``core/``, ``runtime/fed_model.py``,
-  ``data/`` (CIFAR, FEMNIST, PersonaChat, Synthetic) and ``train/``.
+  ``data/`` (CIFAR, FEMNIST, PersonaChat, Synthetic) and ``train/``;
+- ``serialization.py``: flax's msgpack format of a parameter tree, in
+  which GPT-2's final model is saved and from which it reloads.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``, ``--device cpu``), where every kernel wrapper takes

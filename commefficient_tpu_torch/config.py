@@ -51,7 +51,7 @@ NOT_PORTED_FLAGS = (
     "--dp_delta", "--dp_epsilon", "--do_dp", "--dp_mode",
     "--l2_norm_clip", "--noise_multiplier", "--mesh", "--param_dtype",
     "--compute_dtype", "--approx_topk", "--approx_recall",
-    "--hf_export", "--coordinator_address",
+    "--coordinator_address",
     "--num_processes", "--process_id", "--clientstore",
     "--clientstore_bytes", "--clientstore_dir", "--ledger",
     "--telemetry_console", "--probe_every", "--probe_full",
@@ -170,6 +170,9 @@ class Config:
     # flash attention kernels, ops/attention.py; reference
     # config.py:231-234)
     attn_impl: str = "xla"
+    # GPT-2: the final save also writes the HF transformers files
+    # (pytorch_model.bin and its config.json; reference config.py:209)
+    do_hf_export: bool = False
 
     # Synthetic dataset dials (reference config.py:210-227)
     classes_per_client: int = 1
@@ -396,6 +399,11 @@ def build_parser(default_lr: Optional[float] = None
                         choices=["xla", "flash"],
                         help="GPT-2 attention: the plain causal softmax "
                         "or the flash attention kernels")
+    parser.add_argument("--hf_export", action="store_true",
+                        dest="do_hf_export",
+                        help="GPT-2: also save the final model as an HF "
+                        "transformers directory (pytorch_model.bin + "
+                        "config.json)")
 
     parser.add_argument("--classes_per_client", type=int, default=1)
     parser.add_argument("--synthetic_per_class", type=int, default=64)

@@ -27,8 +27,15 @@ flash attention there (gpt2.py:115-135); other lengths take the plain
 branch, as in the reference. ``remat=True`` (``--remat``) recomputes
 each block's activations in the backward
 (``torch.utils.checkpoint``, the reference's ``nn.remat(Block)``,
-gpt2.py:183). Sequence parallelism and the HF export are not ported
-(their flags raise at parse time).
+gpt2.py:183). Sequence parallelism is not ported (its flags raise at
+parse time).
+
+Weights in and out: ``convert_torch_gpt2`` (reference :399) reads a
+``transformers`` GPT-2 state dict, ``convert_gpt2_to_hf`` (:327) writes
+one with its HF config, ``saved_config`` is the ``config.json`` that
+``FedModel.save_pretrained`` writes beside ``flax_model.msgpack``, and
+``GPT2DoubleHeads.to_params_tree`` turns the flat vector back into the
+flax tree (the inverse of ``from_jax_params``).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -44,7 +52,8 @@ from torch.utils.checkpoint import checkpoint
 from commefficient_tpu_torch.models import register_model
 from commefficient_tpu_torch.ops.attention import flash_attention
 from commefficient_tpu_torch.ops.vec import (flat_size, flatten_params,
-                                             ravel_order, unravel)
+                                             params_tree, ravel_order,
+                                             unravel)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,6 +256,12 @@ class GPT2DoubleHeads(nn.Module):
             raise ValueError(f"parameter tree mismatch: {got} != {want}")
         return flatten_params(params_np, device)
 
+    def to_params_tree(self, flat: torch.Tensor) -> dict:
+        """The flat vector -> the flax parameter tree as numpy f32
+        arrays, keys sorted as flax's tree is (the inverse of
+        ``from_jax_params``)."""
+        return params_tree(flat, self.leaf_shapes())
+
     def forward(self, flat, input_ids, mc_token_ids, token_type_ids=None,
                 return_hidden=False):
         """input_ids / token_type_ids (B, N, T), mc_token_ids (B, N) ->
@@ -281,6 +296,20 @@ def token_nll(logits, labels, ignore_index=-100):
     return lse - tok, valid.to(torch.float32)
 
 
+def gpt2_double_heads_loss(lm_logits, mc_logits, lm_labels, mc_labels,
+                           lm_coef=1.0, mc_coef=1.0, ignore_index=-100):
+    """lm_coef * CE(LM, shifted) + mc_coef * CE(MC) (reference
+    gpt2.py:310): returns (loss, lm_loss, mc_loss), each a scalar mean
+    over the valid positions / the examples."""
+    nll, valid = token_nll(lm_logits[..., :-1, :], lm_labels[..., 1:],
+                           ignore_index)
+    lm_loss = torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1)
+    mc_nll, _ = token_nll(mc_logits[..., None, :], mc_labels[..., None],
+                          ignore_index)
+    mc_loss = torch.mean(mc_nll[..., 0])
+    return lm_coef * lm_loss + mc_coef * mc_loss, lm_loss, mc_loss
+
+
 def _chunk_sums(hc, lc, wf, ignore_index):
     nll, valid = token_nll(hc @ wf.t(), lc, ignore_index)
     return torch.sum(nll * valid, -1), torch.sum(valid, -1)
@@ -296,19 +325,173 @@ def lm_nll_sums_chunked(h, wte, labels, dtype, ignore_index=-100,
     final hidden states at the predicting positions, ``labels`` (E,
     Tm) the shifted targets. The operands are rounded to ``dtype`` and
     multiplied in f32 (the reference's bf16 product with f32
-    accumulation)."""
+    accumulation). Under a ``torch.func`` transform (the per-client
+    round) every chunk's logits are kept for the backward instead: the
+    same numbers, more memory, and no ``torch.utils.checkpoint``, which
+    does not compose with ``torch.func``."""
     e, tm, _ = h.shape
     tc = max(1, min(tm, tokens_per_chunk // max(e, 1)))
     hf = h.to(dtype).float()
     wf = wte.to(dtype).float()
     sn = torch.zeros(e, dtype=torch.float32, device=h.device)
     sv = torch.zeros(e, dtype=torch.float32, device=h.device)
+    recompute = (torch.is_grad_enabled()
+                 and torch._C._functorch.peek_interpreter_stack() is None)
     for i in range(0, tm, tc):
         hc, lc = hf[:, i:i + tc], labels[:, i:i + tc]
-        if torch.is_grad_enabled():
+        if recompute:
             n, v = checkpoint(_chunk_sums, hc, lc, wf, ignore_index,
                               use_reentrant=False)
         else:
             n, v = _chunk_sums(hc, lc, wf, ignore_index)
         sn, sv = sn + n, sv + v
     return sn, sv
+
+
+# the reference GPT2Config's sequence-parallel fields and their
+# defaults: not ported (--seq_devices and --seq_impl raise at parse
+# time), but a saved config.json carries them as the reference's does
+SEQ_PARALLEL_DEFAULTS = {"seq_axis": None, "seq_impl": "ring"}
+
+
+def saved_config(cfg: GPT2Config) -> dict:
+    """The ``config.json`` of a saved run (reference
+    ``FedModel.save_pretrained``, fed_model.py:623-628): the config's
+    fields whose values are int, float, str, bool or None, in the
+    reference's field order. ``dtype`` (a torch dtype here, a jnp dtype
+    there) is not such a value; the sequence-parallel fields take its
+    place in that order."""
+    out = {}
+    for key, val in dataclasses.asdict(cfg).items():
+        if key == "dtype":
+            out.update(SEQ_PARALLEL_DEFAULTS)
+        if isinstance(val, (int, float, str, bool, type(None))):
+            out[key] = val
+    return out
+
+
+def config_from_saved(blob: dict) -> GPT2Config:
+    """The architecture of a saved ``config.json`` (a run's, or an HF
+    export's), as the reference's reload reads it (gpt2_train.py:
+    292-305): the GPT2Config fields it names, without ``attn_impl`` (a
+    runtime choice, not architecture). A config that asks for sequence
+    parallelism raises: the port has none."""
+    for key, default in SEQ_PARALLEL_DEFAULTS.items():
+        if blob.get(key, default) != default:
+            raise NotImplementedError(
+                f"config.json sets {key}={blob[key]!r}: sequence "
+                "parallelism is not ported")
+    fields = {f.name for f in dataclasses.fields(GPT2Config)}
+    fields -= {"attn_impl", "dtype"}
+    return GPT2Config(**{k: v for k, v in blob.items() if k in fields})
+
+
+_BLOCK_LEAVES = (
+    # (HF key under transformer.h.{i}., flax path in the block)
+    ("ln_1.weight", ("ln_1", "scale")), ("ln_1.bias", ("ln_1", "bias")),
+    ("attn.c_attn.weight", ("attn", "c_attn", "kernel")),
+    ("attn.c_attn.bias", ("attn", "c_attn", "bias")),
+    ("attn.c_proj.weight", ("attn", "c_proj", "kernel")),
+    ("attn.c_proj.bias", ("attn", "c_proj", "bias")),
+    ("ln_2.weight", ("ln_2", "scale")), ("ln_2.bias", ("ln_2", "bias")),
+    ("mlp.c_fc.weight", ("mlp", "c_fc", "kernel")),
+    ("mlp.c_fc.bias", ("mlp", "c_fc", "bias")),
+    ("mlp.c_proj.weight", ("mlp", "c_proj", "kernel")),
+    ("mlp.c_proj.bias", ("mlp", "c_proj", "bias")),
+)
+
+
+def _get(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _put(tree, path, val):
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = val
+
+
+def convert_torch_gpt2(state_dict, cfg: GPT2Config) -> dict:
+    """A ``transformers`` GPT-2 state dict (numpy arrays) -> the flax
+    parameter tree (reference ``convert_torch_gpt2``, gpt2.py:399-453).
+    Keys with or without the ``transformer.`` prefix; Conv1D kernels
+    are (in, out) as the model's, so no transpose; ``wte`` grows to
+    ``cfg.vocab_size`` with rows equal to the mean of its rows (the new
+    special tokens); ``mc_head`` is drawn from
+    ``np.random.RandomState(0)``; keys the model does not use (the
+    ``attn.bias`` / ``attn.masked_bias`` buffers, ``lm_head``) are
+    ignored."""
+
+    def a(name):
+        if name in state_dict:
+            return np.asarray(state_dict[name])
+        return np.asarray(state_dict[name.removeprefix("transformer.")])
+
+    t = {}
+    wte = a("transformer.wte.weight")
+    if wte.shape[0] < cfg.vocab_size:
+        extra = np.tile(wte.mean(0, keepdims=True),
+                        (cfg.vocab_size - wte.shape[0], 1))
+        wte = np.concatenate([wte, extra], 0)
+    t["wte"] = wte
+    t["wpe"] = a("transformer.wpe.weight")
+    for i in range(cfg.n_layer):
+        block = {}
+        for hf, path in _BLOCK_LEAVES:
+            _put(block, path, a(f"transformer.h.{i}.{hf}"))
+        t[f"h_{i}"] = block
+    t["ln_f"] = {"scale": a("transformer.ln_f.weight"),
+                 "bias": a("transformer.ln_f.bias")}
+    rng = np.random.RandomState(0)
+    mc_head = {"kernel": rng.normal(0, cfg.initializer_range,
+                                    (cfg.n_embd, 1)).astype(np.float32),
+               "bias": np.zeros((1,), np.float32)}
+    return {"transformer": t, "mc_head": mc_head}
+
+
+def convert_gpt2_to_hf(params: dict, cfg: GPT2Config):
+    """The flax parameter tree -> (a ``transformers``
+    GPT2DoubleHeadsModel state dict of numpy arrays, its HF config
+    dict) (reference ``convert_gpt2_to_hf``, gpt2.py:327-397): LayerNorm
+    ``weight`` is flax's ``scale``, Conv1D kernels stay (in, out), the
+    MC head is a torch Linear (out, in), so transposed, and
+    ``lm_head.weight`` is the tied ``wte``."""
+    t = params["transformer"]
+    sd = {"transformer.wte.weight": np.asarray(t["wte"]),
+          "transformer.wpe.weight": np.asarray(t["wpe"]),
+          "transformer.ln_f.weight": np.asarray(t["ln_f"]["scale"]),
+          "transformer.ln_f.bias": np.asarray(t["ln_f"]["bias"]),
+          "lm_head.weight": np.asarray(t["wte"])}
+    for i in range(cfg.n_layer):
+        for hf, path in _BLOCK_LEAVES:
+            sd[f"transformer.h.{i}.{hf}"] = np.asarray(
+                _get(t[f"h_{i}"], path))
+    if "mc_head" in params:
+        sd["multiple_choice_head.summary.weight"] = \
+            np.asarray(params["mc_head"]["kernel"]).T
+        sd["multiple_choice_head.summary.bias"] = \
+            np.asarray(params["mc_head"]["bias"])
+    # the HF extras make the directory load with transformers'
+    # from_pretrained; num_labels 1 gives the summary head its
+    # (1, n_embd) projection
+    hf_config = {
+        "model_type": "gpt2",
+        "architectures": ["GPT2DoubleHeadsModel"],
+        "vocab_size": cfg.vocab_size,
+        "n_positions": cfg.n_positions,
+        "n_ctx": cfg.n_positions,
+        "n_embd": cfg.n_embd,
+        "n_layer": cfg.n_layer,
+        "n_head": cfg.n_head,
+        "layer_norm_epsilon": cfg.layer_norm_epsilon,
+        "initializer_range": cfg.initializer_range,
+        "activation_function": "gelu_new",
+        "summary_type": "cls_index",
+        "summary_use_proj": True,
+        "summary_proj_to_labels": True,
+        "summary_first_dropout": 0.0,
+        "num_labels": 1,
+    }
+    return sd, hf_config

@@ -8,6 +8,11 @@ flce backward kernel (``ops/flce_kernels.py``, ``csrc/flce.cu``),
 ``resolve_fused_ce`` (:305). The (tokens, vocab) logits never exist in
 device memory.
 
+``FlceLseTok`` and its backward ``FlceBwd`` have ``torch.func``
+``vmap`` rules, so the per-client round (``core/grad.py``: every
+client's gradient under ``vmap``) runs the kernels too: the forward
+once over all clients' tokens, the backward once a client.
+
 Unlike the JAX package, the fused path never falls back to the chunked
 one: ``--fused_ce on`` at a width the kernels cannot take raises with
 the reason, and on the card it needs bf16 compute (``--bf16``), since
@@ -52,15 +57,33 @@ def resolve_fused_ce(flag: str, n_embd: int, device,
     return True
 
 
+def _batched(t, dim, size):
+    """``t`` with its batch axis ``dim`` first, (size, ...); an
+    unbatched operand (``dim`` None) expanded to it."""
+    if dim is None:
+        return t.expand((size,) + tuple(t.shape))
+    return t.movedim(dim, 0)
+
+
 class FlceLseTok(torch.autograd.Function):
     """Per-token (logsumexp, label logit) of ``x . w^T``, differentiable
-    in x and w."""
+    in x and w; the forward is the flce forward kernel, the backward
+    ``FlceBwd`` (the backward kernel).
+
+    Under ``torch.func.vmap`` (the per-client round, core/grad.py) the
+    ``vmap`` rule runs the kernels on the unbatched tensors: with x
+    batched over clients and w shared, the client axis folds into the
+    tokens, one forward launch for (W·M, C); with w batched too, one
+    launch a client."""
 
     @staticmethod
-    def forward(ctx, x, w, labels):
-        lse, tok = flce_fwd_kernel(x, w, labels)
-        ctx.save_for_backward(x, w, labels, lse)
-        return lse, tok
+    def forward(x, w, labels):
+        return flce_fwd_kernel(x, w, labels)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, labels = inputs
+        ctx.save_for_backward(x, w, labels, output[0])
 
     @staticmethod
     def backward(ctx, g_lse, g_tok):
@@ -71,8 +94,56 @@ class FlceLseTok(torch.autograd.Function):
                 return torch.zeros_like(lse)
             return g.to(torch.float32).contiguous()
 
-        dx, dw = flce_bwd_kernel(x, w, labels, lse, cot(g_lse), cot(g_tok))
+        dx, dw = FlceBwd.apply(x, w, labels, lse, cot(g_lse), cot(g_tok))
         return dx, dw, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, labels):
+        n = info.batch_size
+        xb, lb = (_batched(t, d, n) for t, d in
+                  ((x, in_dims[0]), (labels, in_dims[2])))
+        if in_dims[1] is None:
+            m = xb.shape[1]
+            lse, tok = flce_fwd_kernel(
+                xb.reshape((n * m,) + tuple(xb.shape[2:])).contiguous(),
+                w, lb.reshape(n * m).contiguous())
+            return (lse.reshape(n, m), tok.reshape(n, m)), (0, 0)
+        wb = w.movedim(in_dims[1], 0)
+        outs = [flce_fwd_kernel(xb[i].contiguous(), wb[i].contiguous(),
+                                lb[i].contiguous()) for i in range(n)]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs])), (0, 0)
+
+
+class FlceBwd(torch.autograd.Function):
+    """The flce backward kernel as a Function of its own: (dX, dW) of
+    ``g_lse . lse + g_tok . tok``. Its ``vmap`` rule (the backward of a
+    vmapped ``FlceLseTok``) launches the kernel once a client: each
+    client's dW_i = d_i^T x_i is its own product. Not differentiable
+    again."""
+
+    @staticmethod
+    def forward(x, w, labels, lse, g_lse, g_tok):
+        return flce_bwd_kernel(x, w, labels, lse, g_lse, g_tok)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g_dx, g_dw):
+        raise NotImplementedError(
+            "the fused CE has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, labels, lse, g_lse, g_tok):
+        n = info.batch_size
+        ops = [_batched(t, d, n) for t, d in
+               zip((x, w, labels, lse, g_lse, g_tok), in_dims)]
+        outs = [flce_bwd_kernel(*(t[i].contiguous() for t in ops))
+                for i in range(n)]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs])), (0, 0)
 
 
 def flce_lse_tok(x, w, labels):

@@ -312,7 +312,7 @@ class CountSketch:
         ``with_support``) returns ``(None, idx, vals)`` without the
         dense vector."""
         from commefficient_tpu_torch.ops.topk import (
-            _THRESHOLD_SELECT_MIN_D, threshold_topk_indices,
+            _THRESHOLD_SELECT_MIN_D, compact_mask, threshold_topk_indices,
             threshold_topk_mask_1d)
         k = min(k, self.d)
         big_d = self.d >= _THRESHOLD_SELECT_MIN_D
@@ -329,7 +329,7 @@ class CountSketch:
         dense = torch.where(mask, est, torch.zeros_like(est))[: self.d]
         if not with_support:
             return dense
-        idx = torch.nonzero(mask).flatten()
+        idx = compact_mask(mask[: self.d], k)
         return dense, idx, est[idx]
 
     def unsketch_dense_mask(self, table: torch.Tensor, k: int):
@@ -360,9 +360,13 @@ class CountSketch:
         rows = torch.arange(self.r, device=idx.device)[:, None]
         table = torch.zeros((self.r, self.c), dtype=torch.float32,
                             device=idx.device)
-        table.index_put_((rows.expand_as(buckets), buckets),
-                         signs * vals.to(torch.float32)[None, :],
-                         accumulate=True)
+        # index_put_(accumulate=True) without its range check: on the
+        # card the check reads the indices' max and min back to the
+        # host (two syncs a round); rows and buckets are in range by
+        # construction. The sums run in the same (sorted) order
+        torch.ops.aten._index_put_impl_(
+            table, (rows.expand_as(buckets), buckets),
+            signs * vals.to(torch.float32)[None, :], True, True)
         return table
 
     def prefer_sparse_resketch(self, k: int) -> bool:

@@ -154,17 +154,32 @@ def threshold_topk_mask_1d(sq: torch.Tensor, k: int) -> torch.Tensor:
     return take_mask_kernel(sq, t, need, ties)
 
 
+def compact_mask(mask: torch.Tensor, k: int) -> torch.Tensor:
+    """The (k,) ascending int64 indices of a 1-D ``mask`` that has
+    exactly k set bits, with no host read: the inclusive prefix count
+    of the mask (int32 while d < 2^31) is non-decreasing, so the slot
+    s's index is the first position whose count reaches s + 1, a
+    ``searchsorted`` of the k slots. The reference's hierarchical
+    extraction (``threshold_topk_indices``, ops/topk.py:264-289) finds
+    each slot's block by a search over the blocks' totals, then its
+    column in the gathered block row; one search over the whole count
+    gives the same indices. The output's shape is fixed (k), so the
+    caller's stream never waits for a count; ``torch.nonzero`` reads
+    its count back to the host."""
+    assert mask.ndim == 1, "1-D compaction"
+    d = mask.shape[0]
+    count = torch.cumsum(mask, 0,
+                         dtype=torch.int32 if d < 2 ** 31 else torch.int64)
+    slots = torch.arange(1, k + 1, dtype=count.dtype, device=mask.device)
+    return torch.searchsorted(count, slots)
+
+
 def threshold_topk_indices(sq: torch.Tensor, k: int) -> torch.Tensor:
     """Exact top-k indices, ascending, of non-negative 1-D ``sq``: the
-    threshold mask's exactly-k set bits, compacted. The reference
-    compacts by a hierarchical extraction that avoids a d-sized
-    scatter on the TPU; ``torch.nonzero`` compacts the mask in one
-    stream-ordered pass on the card and returns the same ascending
-    indices. It reads the count back to the host once (the round's
-    metrics sync anyway); ``nonzero_static`` would avoid that read but
-    is missing from some PyTorch builds' CUDA backends."""
+    threshold mask's exactly-k set bits, compacted with no host read
+    (``compact_mask``)."""
     assert sq.ndim == 1, "1-D selection"
-    return torch.nonzero(threshold_topk_mask_1d(sq, k)).flatten()
+    return compact_mask(threshold_topk_mask_1d(sq, k), k)
 
 
 def _selection_mask(vec: torch.Tensor, k: int) -> torch.Tensor:
@@ -202,12 +217,12 @@ def topk_values_indices(vec: torch.Tensor, k: int, approx: bool = False):
     1-D vector, in lax.top_k's order: by magnitude, descending, the
     lower index first among equals (reference ``topk_values_indices``,
     ops/topk.py:356). The set comes from the threshold mask, and only
-    its k members are sorted (a stable sort of the ascending indices).
-    ``torch.nonzero`` reads the count back to the host once."""
+    its k members are sorted (a stable sort of the ascending indices,
+    ``compact_mask``: no host read)."""
     _exact_only(approx)
     assert vec.ndim == 1, "1-D selection"
     k = min(k, vec.shape[-1])
-    idx = torch.nonzero(_selection_mask(vec, k)).flatten()
+    idx = compact_mask(_selection_mask(vec, k), k)
     vals = vec[idx]
     order = torch.sort(vals.to(torch.float32) * vals.to(torch.float32),
                        descending=True, stable=True).indices

@@ -114,6 +114,20 @@ def flatten_params(params: dict, device="cpu") -> torch.Tensor:
     return torch.cat(parts).to(device)
 
 
+def params_tree(flat: torch.Tensor, shapes: dict) -> dict:
+    """Flat vector -> nested dict of numpy f32 arrays in their flax
+    layouts, keys sorted at every level (the order
+    ``jax.tree_util.tree_map`` leaves a flax tree in): the inverse of
+    ``flatten_params``, one copy to the host."""
+    host = flat.detach().to("cpu", torch.float32, copy=True)
+    return _numpy_leaves(unravel(host, shapes))
+
+
+def _numpy_leaves(tree: dict) -> dict:
+    return {key: _numpy_leaves(sub) if isinstance(sub, dict)
+            else sub.numpy() for key, sub in tree.items()}
+
+
 def keystr(path: Path) -> str:
     """A leaf path as ``jax.tree_util.keystr`` prints a dict path:
     ``['FixupLayer_0']['bias1a']``."""

@@ -44,12 +44,18 @@ clients' batch statistics, which the model blends into running
 statistics on the device (``model_state``) that eval normalizes by.
 ``FedOptimizer`` takes one LR group, or index groups (the Fixup bias
 and scale LRs), whose per-coordinate LR the server applies.
+``params()`` is the current weights as the module's flax tree and
+``save_pretrained`` writes them as the reference's run directory
+(``flax_model.msgpack`` through ``serialization.py``, ``config.json``;
+with ``hf_format`` the HF ``transformers`` files).
 Telemetry, the autopilot, the host client store and meshes are not
 ported.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -63,7 +69,8 @@ from commefficient_tpu_torch.core.rounds import (ClientStates, _dead_row,
                                                  build_server_round)
 from commefficient_tpu_torch.core.server import ServerState
 from commefficient_tpu_torch.device import resolve_device
-from commefficient_tpu_torch.ops.vec import packbits
+from commefficient_tpu_torch.ops.vec import packbits, params_tree
+from commefficient_tpu_torch.serialization import msgpack_serialize
 
 # the most recently constructed FedModel, found by FedOptimizer(args)
 # as in the reference
@@ -135,6 +142,9 @@ class FedModel:
         self.fedavg_lr = 0.0
         self.round_index = 0
         self.training = True
+        # set by the trainer when a round's loss diverged: its weights
+        # are not a final model
+        self.diverged = False
 
         # communication accounting
         self.last_updated = np.full(args.grad_size, -1, np.int64)
@@ -241,6 +251,56 @@ class FedModel:
         mask = np.asarray(batch["mask"])
         counts = mask.reshape(mask.shape[0], -1).sum(axis=1)
         return out + [counts]
+
+    # --- the final model ---------------------------------------------------
+
+    def params(self) -> dict:
+        """The current server weights as the module's flax parameter
+        tree of numpy f32 arrays (reference ``params``,
+        fed_model.py:565)."""
+        return params_tree(self.ps_weights, self.module.leaf_shapes())
+
+    def save_pretrained(self, save_dir: str, hf_format: bool = False,
+                        torch_format: bool = False):
+        """The final model as a run directory (reference
+        ``save_pretrained``, fed_model.py:570-634): the weights as
+        ``flax_model.msgpack`` (byte-equal to the reference's for the
+        same weights) and, for GPT-2, the module's config as
+        ``config.json``, its fields whose values are int, float, str,
+        bool or None (``models/gpt2.py saved_config``; the port's CV
+        modules carry no config object). ``hf_format`` (GPT-2 only)
+        writes the HF ``transformers`` ``config.json`` in its place and
+        ``pytorch_model.bin`` beside it, so the directory loads with
+        ``GPT2DoubleHeadsModel.from_pretrained`` and with this
+        package's and the reference's reload. ``torch_format`` (the
+        CV models' ``state_dict.pt``) is not ported."""
+        from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
+                                                         convert_gpt2_to_hf,
+                                                         saved_config)
+        if torch_format:
+            raise NotImplementedError(
+                "save_pretrained(torch_format=True), the CV models' "
+                "state_dict.pt, is not ported")
+        cfg = getattr(self.module, "cfg", None)
+        if hf_format and not isinstance(cfg, GPT2Config):
+            raise ValueError("hf_format export is defined for GPT-2 "
+                             "modules only")
+        os.makedirs(save_dir, exist_ok=True)
+        params = self.params()
+        # config first: weights without a config would rebuild the
+        # wrong architecture on reload
+        if hf_format:
+            sd, hf_cfg = convert_gpt2_to_hf(params, cfg)
+            with open(os.path.join(save_dir, "config.json"), "w") as f:
+                json.dump(hf_cfg, f, indent=2)
+            torch.save({k: torch.from_numpy(np.array(v, copy=True))
+                        for k, v in sd.items()},
+                       os.path.join(save_dir, "pytorch_model.bin"))
+        elif isinstance(cfg, GPT2Config):
+            with open(os.path.join(save_dir, "config.json"), "w") as f:
+                json.dump(saved_config(cfg), f, indent=2)
+        with open(os.path.join(save_dir, "flax_model.msgpack"), "wb") as f:
+            f.write(msgpack_serialize(params))
 
     # --- communication accounting ----------------------------------------
 

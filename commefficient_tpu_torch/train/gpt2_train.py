@@ -18,10 +18,24 @@ The LM term is the tied-head cross-entropy, computed without the
 forward over every token of the round (and one backward) where the
 reference maps the loss over clients.
 
-Telemetry, checkpoint resume, autosave and the final save of the model
-and tokenizer are not ported (their flags raise); neither is loading
-pretrained weights: with no weights in ``--model_checkpoint`` the
-model starts from random initialisation, as the reference does.
+Pretrained weights come from ``--model_checkpoint``, as in the
+reference: a ``transformers`` ``pytorch_model.bin`` (with the
+directory's ``config.json``, if any, for the architecture), or a run
+directory this trainer or the reference's saved (``config.json`` and
+``flax_model.msgpack``); with neither the model starts from random
+initialisation. Without ``--test`` the run ends by saving the model
+and the tokenizer into its log directory (``runs/...``, ``make_logdir``):
+``flax_model.msgpack`` and ``config.json``, and with ``--hf_export``
+the HF ``config.json`` and ``pytorch_model.bin`` too. Telemetry,
+checkpoint resume and autosave are not ported (their flags raise).
+
+``--pipeline_depth N`` lets the host run N rounds ahead of the card
+(``run_batches`` drains them, ``runtime/fed_model.py drain_rounds``).
+``--max_grad_norm`` and ``--microbatch_size`` run the per-client round
+(``core/rounds.py``): every client's gradient under ``torch.func.vmap``,
+with the fused CE's own vmap rules (``ops/flce.py``) or the chunked CE
+without its checkpoints; ``--remat`` and ``--attn_impl flash`` there
+raise.
 
 Assets are made offline (``fabricate_assets``): a full-size GPT-2-layout
 vocabulary and a learnable PersonaChat-format corpus. Run e.g.:
@@ -39,6 +53,7 @@ vocabulary and a learnable PersonaChat-format corpus. Run e.g.:
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import os
 import sys
@@ -61,15 +76,20 @@ from commefficient_tpu_torch.data.tokenizer import (SPECIAL_TOKENS,
 from commefficient_tpu_torch.device import resolve_device
 from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
                                                  GPT2DoubleHeads,
+                                                 config_from_saved,
+                                                 convert_torch_gpt2,
                                                  lm_nll_sums_chunked,
                                                  token_nll)
 from commefficient_tpu_torch.ops.attention import \
     unsupported_reason as attention_unsupported_reason
 from commefficient_tpu_torch.ops.flce import (lm_nll_sums_fused,
                                               resolve_fused_ce)
-from commefficient_tpu_torch.runtime import FedModel, FedOptimizer, LambdaLR
+from commefficient_tpu_torch.runtime import (FedModel, FedOptimizer,
+                                             LambdaLR, drain_rounds)
+from commefficient_tpu_torch.serialization import msgpack_restore
 from commefficient_tpu_torch.utils import (PiecewiseLinear, TableLogger,
-                                           Timer, steps_per_epoch)
+                                           Timer, make_logdir,
+                                           steps_per_epoch)
 
 MAX_SEQ_LEN = 256  # static pad length (persona sequences are short)
 
@@ -88,9 +108,13 @@ def _lm_nll_sums(module, flat, batch, tokens_per_chunk=0, fused=False):
                                batch["token_type_ids"].reshape(-1, n, t),
                                return_hidden=True)
     labels = batch["lm_labels"].reshape(-1, t)
-    lm = lm_nll_sums_fused if fused else lm_nll_sums_chunked
-    sn, sv = lm(h[:, :-1], wte, labels[:, 1:], module.cfg.dtype,
-                ignore_index=-1, tokens_per_chunk=tokens_per_chunk or 1024)
+    kw = dict(ignore_index=-1, tokens_per_chunk=tokens_per_chunk or 1024)
+    if fused:
+        sn, sv = lm_nll_sums_fused(h[:, :-1], wte, labels[:, 1:],
+                                   module.cfg.dtype, **kw)
+    else:
+        sn, sv = lm_nll_sums_chunked(h[:, :-1], wte, labels[:, 1:],
+                                     module.cfg.dtype, **kw)
     return sn, sv, mc_logits, lead
 
 
@@ -98,7 +122,8 @@ def make_compute_loss_train(module, args, fused=False):
     """(reference gpt2_train.py:90-122) per example: lm_coef * its
     token-mean NLL over its valid positions + mc_coef * the MC
     cross-entropy; per client: the mask-weighted mean over its
-    examples, (W,)."""
+    examples, (W,) (or one client's scalar, under the per-client
+    round's ``torch.func.vmap``)."""
 
     def compute_loss(flat, batch, cfg):
         sn, sv, mc_logits, lead = _lm_nll_sums(
@@ -152,33 +177,52 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
     round loss (None on divergence) and, when ``stats`` is a dict,
     fills it with each round's wall seconds (``round_times``: from the
     scheduler step to the round's metrics on the host after
-    ``opt.step()`` queued the server half) and the per-client
-    download/upload byte totals. Validation returns (nll, acc, ppl)."""
+    ``opt.step()`` queued the server half; under ``--pipeline_depth``
+    > 1, to the round's dispatch and any flush it made due), its train
+    loss (``round_losses``) and the per-client download/upload byte
+    totals. Validation returns (nll, acc, ppl)."""
     if training:
         model.train(True)
         losses, round_times = [], []
         download = np.zeros(model.num_clients)
         upload = np.zeros(model.num_clients)
+        pending = []
+
+        def process(metrics, i, w):
+            download[:] += metrics[-2]
+            upload[:] += metrics[-1]
+            # fully dropped rounds trained on nothing: excluded
+            if w.sum() == 0:
+                return True
+            loss = float(np.sum(metrics[0] * w) / w.sum())
+            losses.append(loss)
+            if not math.isfinite(loss) or loss > args.nan_threshold:
+                print(f"diverged at round {i} (loss {loss})")
+                return False
+            return True
+
         for i, batch in enumerate(loader):
             t0 = time.perf_counter()
             lr_scheduler.step()
             metrics = model(batch)
             opt.step()
-            round_times.append(time.perf_counter() - t0)
-            download += metrics[-2]
-            upload += metrics[-1]
             w = np.asarray(batch["mask"]).sum(axis=1)
-            if w.sum() > 0:
-                loss = float(np.sum(metrics[0] * w) / w.sum())
-                losses.append(loss)
-                if not math.isfinite(loss) or loss > args.nan_threshold:
-                    print(f"diverged at round {i} (loss {loss})")
-                    return None
+            if metrics is None:
+                # pipelined: the round's results come with a flush
+                pending.append((i, w))
+                ok = drain_rounds(model, pending, process, force=False)
+            else:
+                ok = process(metrics, i, w)
+            round_times.append(time.perf_counter() - t0)
+            if not ok:
+                return None
             if args.do_test:
                 break
+        if not drain_rounds(model, pending, process, force=True):
+            return None
         if stats is not None:
-            stats.update(round_times=round_times, download=download,
-                         upload=upload)
+            stats.update(round_times=round_times, round_losses=losses,
+                         download=download, upload=upload)
         return float(np.mean(losses)) if losses else float("nan")
     model.train(False)
     nlls, accs, counts = [], [], []
@@ -198,9 +242,10 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
 def train_gpt2(model, opt, lr_scheduler, train_loader, val_loader, args,
                logger=None):
     """Epoch loop (reference gpt2_train.py:231-281). Each result row
-    also carries the epoch's per-round wall times (``round_times``)
-    and byte totals (``down (MiB)``, ``up (MiB)``), which the table
-    does not print."""
+    also carries the epoch's per-round wall times (``round_times``),
+    train losses (``round_losses``) and byte totals (``down (MiB)``,
+    ``up (MiB)``), which the table does not print. A divergence stops
+    the loop and marks ``model.diverged``."""
     logger = logger or TableLogger()
     timer = Timer()
     results = []
@@ -210,6 +255,7 @@ def train_gpt2(model, opt, lr_scheduler, train_loader, val_loader, args,
                                  args, training=True, stats=stats)
         if train_loss is None:
             print("NaN detected, aborting")
+            model.diverged = True
             return results
         train_time = timer()
         nll, acc, ppl = run_batches(model, opt, lr_scheduler, val_loader,
@@ -223,6 +269,7 @@ def train_gpt2(model, opt, lr_scheduler, train_loader, val_loader, args,
         logger.append(row)
         results.append(dict(
             row, round_times=stats["round_times"],
+            round_losses=stats["round_losses"],
             **{"down (MiB)": float(stats["download"].sum() / 2**20),
                "up (MiB)": float(stats["upload"].sum() / 2**20)}))
     return results
@@ -230,21 +277,37 @@ def train_gpt2(model, opt, lr_scheduler, train_loader, val_loader, args,
 
 def build_model_and_tokenizer(args: Config, device="cpu"):
     """(reference gpt2_train.py:284-351) -> (module, flat f32
-    parameters from ``args.seed``, tokenizer). The full GPT-2 geometry
-    with the vocabulary's size, or with ``--test`` (or the byte
-    tokenizer) the tiny config; ``--remat`` and ``--attn_impl`` set on
-    it (reference gpt2_train.py:316-319). ``--attn_impl flash`` on a
-    card at a head dim or compute type the kernels lack raises."""
+    parameters, tokenizer). The architecture: ``config.json`` in the
+    ``--model_checkpoint`` directory (without ``attn_impl``; a
+    ``transformers`` config's vocabulary grown to the tokenizer's, so
+    that the special tokens have rows, where the reference's gather
+    clamps them to the last row), else the full GPT-2 geometry with
+    the vocabulary's size, or with ``--test`` (or the byte tokenizer)
+    the tiny config; ``--bf16``, ``--remat``
+    and ``--attn_impl`` set on it (reference gpt2_train.py:313-319).
+    The weights: the directory's ``pytorch_model.bin``
+    (``convert_torch_gpt2``), else its ``flax_model.msgpack``, which
+    needs the ``config.json`` beside it, else random ones from
+    ``args.seed``. ``--attn_impl flash`` on a card at a head dim or
+    compute type the kernels lack raises."""
     tokenizer = load_tokenizer(args.model_checkpoint)
     tokenizer.add_special_tokens(SPECIAL_TOKENS)
-    if os.path.isdir(args.model_checkpoint):
-        for name in ("config.json", "pytorch_model.bin",
-                     "flax_model.msgpack"):
-            if os.path.exists(os.path.join(args.model_checkpoint, name)):
-                raise NotImplementedError(
-                    f"loading {name} from --model_checkpoint is not "
-                    "ported; the port starts from random weights")
-    if args.do_test or type(tokenizer).__name__ == "ByteTokenizer":
+    ckpt = args.model_checkpoint if os.path.isdir(args.model_checkpoint) \
+        else None
+    cfg_json = os.path.join(ckpt, "config.json") if ckpt else ""
+    if os.path.exists(cfg_json):
+        # a saved run's (or an HF export's) config defines the
+        # architecture its weights fit
+        with open(cfg_json) as f:
+            blob = json.load(f)
+        cfg = config_from_saved(blob)
+        if "model_type" in blob:
+            # a transformers config (the hub's gpt2 counts 50 257 ids)
+            # knows nothing of the special tokens: wte grows to the
+            # tokenizer's ids, as without a config.json
+            cfg = dataclasses.replace(
+                cfg, vocab_size=max(cfg.vocab_size, len(tokenizer)))
+    elif args.do_test or type(tokenizer).__name__ == "ByteTokenizer":
         cfg = GPT2Config.tiny()
         cfg = dataclasses.replace(
             cfg, vocab_size=max(len(tokenizer), cfg.vocab_size),
@@ -253,15 +316,46 @@ def build_model_and_tokenizer(args: Config, device="cpu"):
         cfg = GPT2Config(vocab_size=len(tokenizer), n_positions=1024)
     if args.do_bf16:
         cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
-    cfg = dataclasses.replace(cfg, remat=args.do_remat,
-                              attn_impl=args.attn_impl)
+    if args.do_remat:
+        cfg = dataclasses.replace(cfg, remat=True)
+    cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     if cfg.attn_impl == "flash" and torch.device(device).type == "cuda":
         reason = attention_unsupported_reason(cfg.n_embd // cfg.n_head,
                                               cfg.dtype)
         if reason is not None:
             raise ValueError(f"--attn_impl flash: {reason}")
     module = GPT2DoubleHeads(cfg)
-    return module, module.init_flat(args.seed, device), tokenizer
+    params = load_pretrained(module, ckpt, device) if ckpt else None
+    if params is None:
+        params = module.init_flat(args.seed, device)
+    return module, params, tokenizer
+
+
+def load_pretrained(module, ckpt: str, device="cpu"):
+    """The flat weights in directory ``ckpt`` for ``module``, or None
+    where it holds none (reference gpt2_train.py:327-350):
+    ``pytorch_model.bin`` (a ``transformers`` GPT-2 state dict of
+    tensors, read with ``weights_only``), else ``flax_model.msgpack``,
+    which raises without the ``config.json`` that gives its
+    architecture."""
+    torch_ckpt = os.path.join(ckpt, "pytorch_model.bin")
+    flax_ckpt = os.path.join(ckpt, "flax_model.msgpack")
+    if os.path.exists(torch_ckpt):
+        sd = torch.load(torch_ckpt, map_location="cpu", weights_only=True)
+        tree = convert_torch_gpt2({k: v.numpy() for k, v in sd.items()},
+                                  module.cfg)
+        print(f"loaded GPT-2 weights from {torch_ckpt}")
+    elif os.path.exists(flax_ckpt):
+        if not os.path.exists(os.path.join(ckpt, "config.json")):
+            raise FileNotFoundError(
+                f"{flax_ckpt} has no config.json beside it; cannot "
+                "reconstruct the saved architecture")
+        with open(flax_ckpt, "rb") as f:
+            tree = msgpack_restore(f.read())
+        print(f"loaded GPT-2 weights from {flax_ckpt}")
+    else:
+        return None
+    return module.from_jax_params(tree, device)
 
 
 def get_data_loaders(args: Config, tokenizer):
@@ -317,6 +411,25 @@ def fabricate_assets(root: str, num_personalities: int = 16,
     return data_dir, vocab_dir
 
 
+def _check_per_client(args: Config, remat: bool):
+    """The per-client round runs the loss under torch.func.vmap: the
+    fused CE has vmap rules, the flash attention kernels and the
+    blocks' checkpoints do not. Raises naming both flags."""
+    if fused_grad_eligible(args):
+        return
+    round_flags = " ".join(
+        flag for flag, on in (("--max_grad_norm",
+                               args.max_grad_norm is not None),
+                              ("--microbatch_size",
+                               args.microbatch_size > 0)) if on)
+    for flag, on in (("--remat", remat),
+                     ("--attn_impl flash", args.attn_impl == "flash")):
+        if on:
+            raise NotImplementedError(
+                f"gpt2_train {flag} with {round_flags} (the per-client "
+                "round) is not ported")
+
+
 def main(argv=None):
     args = parse_args(default_lr=4e-2, argv=argv)
     if args.mode != "sketch":
@@ -324,19 +437,6 @@ def main(argv=None):
         # the host client store
         raise NotImplementedError(
             f"gpt2_train --mode {args.mode} is not ported")
-    if args.pipeline_depth > 1:
-        # the sparse re-sketch branch compacts its support with
-        # torch.nonzero (ops/sketch.py unsketch), a host read: such a
-        # round cannot run ahead of the card
-        raise NotImplementedError(
-            "gpt2_train --pipeline_depth > 1 is not ported")
-    if not fused_grad_eligible(args):
-        # the per-client round runs the loss under torch.func.vmap;
-        # GPT-2's loss launches the fused CE kernels or checkpoints its
-        # chunks, and neither composes with torch.func yet
-        raise NotImplementedError(
-            "gpt2_train's per-client round (--max_grad_norm, "
-            "--microbatch_size) is not ported")
     device = resolve_device(args.device)
     np.random.seed(args.seed)
 
@@ -348,6 +448,8 @@ def main(argv=None):
         args.num_blocks = 1
 
     module, params, tokenizer = build_model_and_tokenizer(args, device)
+    # remat from --remat or from a saved config.json
+    _check_per_client(args, module.cfg.remat)
     fused = resolve_fused_ce(args.fused_ce, module.cfg.n_embd, device,
                              module.cfg.dtype)
     print(f"fused_ce {args.fused_ce}: "
@@ -372,8 +474,19 @@ def main(argv=None):
                           training=False)
         print({"epoch": 0, "val_nll": out[0], "val_acc": out[1],
                "val_ppl": out[2]})
-    return train_gpt2(model, opt, lr_scheduler, train_loader, val_loader,
-                      args)
+    # one log directory a run, for the final save (reference
+    # gpt2_train.py:466-468)
+    logdir = make_logdir(args) if not args.do_test else None
+    results = train_gpt2(model, opt, lr_scheduler, train_loader,
+                         val_loader, args)
+    if logdir is not None and not getattr(model, "diverged", False):
+        # the final model and tokenizer, HF-style (reference
+        # gpt2_train.py:500-508); diverged weights are not a model
+        model.save_pretrained(logdir, hf_format=args.do_hf_export)
+        tokenizer.save_pretrained(logdir)
+        print(f"saved model + tokenizer to {logdir}"
+              + (" (HF torch format)" if args.do_hf_export else ""))
+    return results
 
 
 if __name__ == "__main__":

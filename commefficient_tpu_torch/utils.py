@@ -1,10 +1,12 @@
-"""LR schedules, loggers, timers (port of the parts of
-``commefficient_tpu/utils.py`` the trainer uses)."""
+"""LR schedules, loggers, timers and the run's log directory (port of
+the parts of ``commefficient_tpu/utils.py`` the trainers use)."""
 
 from __future__ import annotations
 
+import os
 import time
 from collections import namedtuple
+from datetime import datetime
 
 import numpy as np
 
@@ -15,6 +17,20 @@ class PiecewiseLinear(namedtuple("PiecewiseLinear", ("knots", "vals"))):
 
     def __call__(self, t):
         return float(np.interp([t], self.knots, self.vals)[0])
+
+
+def make_logdir(args) -> str:
+    """``runs/<time>_<workers>/<clients>_<mode>...``, relative to the
+    working directory: the run's log directory, where ``gpt2_train``
+    saves the final model and tokenizer (reference utils.py:85-93)."""
+    rows, cols, k, mode = args.num_rows, args.num_cols, args.k, args.mode
+    sketch_str = f"{mode}: {rows} x {cols}" if mode == "sketch" else f"{mode}"
+    k_str = f"k: {k}" if mode in ["sketch", "true_topk", "local_topk"] else ""
+    clients_str = f"{args.num_workers}/{args.num_clients}"
+    current_time = datetime.now().strftime("%b%d_%H-%M-%S")
+    return os.path.join(
+        "runs",
+        current_time + "_" + clients_str + "_" + sketch_str + "_" + k_str)
 
 
 class TableLogger:

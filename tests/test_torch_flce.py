@@ -268,3 +268,43 @@ def test_card_smoke_flce_checks_reject_wrong_results():
         for wrong_x, wrong_w in (products(d, lo=32), products(d_k)):
             assert max(cs.row_rel_err(wrong_x, dx),
                        cs.row_rel_err(wrong_w, dw)) > cs.FLCE_BWD_RTOL
+
+
+@pytest.mark.parametrize("slip", ["none", "dW without the partial tile",
+                                  "forward without the partial tile"])
+def test_card_smoke_flce_client_checks_reject_slips(monkeypatch, slip):
+    # chip_smoke.flce_client_checks holds the kernels at the per-client
+    # round's launch shapes (the forward over the clients folded into
+    # the tokens, the backward over one client's). At a small M of the
+    # same raggedness it must pass the plain versions and fail a kernel
+    # that leaves out the last partial token tile, where the round's
+    # own shape has none to leave out
+    import chip_smoke as cs
+    monkeypatch.setattr(cs, "GPT2_CLIENT_M", 100)
+    monkeypatch.setattr(cs, "GPT2_CLIENTS_FWD_M", 4 * 100)
+    emitted = []
+    monkeypatch.setattr(cs, "emit", emitted.append)
+    plain_fwd, plain_bwd = fk.flce_fwd_plain, fk.flce_bwd_plain
+
+    def fwd(x, w, lab):
+        lse, tok = plain_fwd(x, w, lab)
+        n = x.shape[0] // 128 * 128
+        return torch.cat([lse[:n], torch.zeros_like(lse[n:])]), tok
+
+    def bwd(x, w, lab, lse, g_lse, g_tok):
+        n = x.shape[0] // 64 * 64
+        dx, _ = plain_bwd(x, w, lab, lse, g_lse, g_tok)
+        return dx, plain_bwd(x[:n], w, lab[:n], lse[:n], g_lse[:n],
+                             g_tok[:n])[1]
+
+    if slip == "dW without the partial tile":
+        monkeypatch.setattr(fk, "flce_bwd_kernel", bwd)
+    if slip == "forward without the partial tile":
+        monkeypatch.setattr(fk, "flce_fwd_kernel", fwd)
+    if slip == "none":
+        cs.flce_client_checks(torch.device("cpu"))
+        assert emitted[-1]["fwd_M"] == 400 and emitted[-1]["bwd_M"] == 100
+        assert emitted[-1]["fwd_max_abs_err"] == 0.0
+    else:
+        with pytest.raises(AssertionError, match="flce_"):
+            cs.flce_client_checks(torch.device("cpu"))

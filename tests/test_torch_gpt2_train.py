@@ -10,8 +10,9 @@ tests/test_torch_gpt2_round.py compares them on shared weights.
 Without ``--device`` the trainer runs on cuda, and with no card it
 raises; ``--fused_ce on`` at a width the kernels cannot take raises,
 and so does ``--attn_impl flash`` on the card at a head dim the flash
-kernels lack; the options the port leaves out raise, also beside
-``--attn_impl flash``.
+kernels lack; the options the port leaves out raise, and so does the
+per-client round beside ``--attn_impl flash``, while its
+``--pipeline_depth 2`` run gives depth 1's numbers.
 """
 
 import dataclasses
@@ -110,8 +111,9 @@ def test_fused_ce_on_raises_at_unsupported_width(tmp_path):
                          "--fused_ce", "on"] + ARGV)
 
 
-@pytest.mark.parametrize("flag", [["--hf_export"], ["--approx_topk"],
-                                  ["--resume"], ["--ledger", "x.jsonl"]])
+@pytest.mark.parametrize("flag", [["--checkpoint_every", "1"],
+                                  ["--approx_topk"], ["--resume"],
+                                  ["--ledger", "x.jsonl"]])
 def test_unported_options_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match=flag[0]):
         gpt2_train.main(["--device", "cpu", "--dataset_dir", str(tmp_path)]
@@ -119,11 +121,26 @@ def test_unported_options_raise(tmp_path, flag):
 
 
 @pytest.mark.parametrize("flag", [["--max_grad_norm", "1.0"],
-                                  ["--pipeline_depth", "2"]])
+                                  ["--microbatch_size", "1"]])
 def test_flash_on_a_path_that_raises_still_raises(tmp_path, flag):
-    with pytest.raises(NotImplementedError):
+    # the per-client round runs the loss under torch.func.vmap, which
+    # the flash attention kernels have no rule for
+    with pytest.raises(NotImplementedError, match=flag[0]):
         gpt2_train.main(["--device", "cpu", "--dataset_dir", str(tmp_path),
                          "--attn_impl", "flash"] + ARGV + flag)
+
+
+def test_flash_pipelined_matches_depth_1(tmp_path):
+    # --test: one round an epoch, so each epoch's round waits for the
+    # final flush
+    argv = ["--device", "cpu", "--dataset_dir", str(tmp_path),
+            "--attn_impl", "flash"] + ARGV
+    one = gpt2_train.main(argv)
+    two = gpt2_train.main(argv + ["--pipeline_depth", "2"])
+    for a, b in zip(one, two, strict=True):
+        for key in ("round_losses", "train_loss", "val_nll", "val_acc",
+                    "up (MiB)", "down (MiB)"):
+            assert a[key] == b[key], key
 
 
 @pytest.mark.cuda

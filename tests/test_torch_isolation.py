@@ -1,6 +1,7 @@
 """The port stands alone: importing ``commefficient_tpu_torch``, every
 module in it and the module part of ``chip_smoke.py`` loads neither
-``jax`` nor anything of the JAX package, nor PIL (the image transforms
+``jax`` nor anything of the JAX package, nor flax's ``msgpack`` (the
+port has its own codec, ``serialization.py``), nor PIL (the image transforms
 resize in numpy; checked in a fresh interpreter, so this test
 process's own imports do not count)."""
 
@@ -22,8 +23,8 @@ spec = importlib.util.spec_from_file_location(
     "chip_smoke", {smoke!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "flax", "PIL",
-                                    "commefficient_tpu"))
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack",
+                                    "PIL", "commefficient_tpu"))
 print(len(names), bad)
 sys.exit(1 if bad or len(names) < 15 else 0)
 """

@@ -301,8 +301,8 @@ def test_pipelined_divergence_stop(monkeypatch, capsys):
 def test_chunk_and_pipeline_flags():
     """``--client_chunk`` and ``--pipeline_depth`` parse (the reference's
     defaults, 0 and 1); a depth below 1 is refused with the reference's
-    message; gpt2_train refuses a depth above 1 and the per-client
-    round."""
+    message; gpt2_train refuses the per-client round only beside
+    ``--remat`` (and ``--attn_impl flash``), naming both flags."""
     from commefficient_tpu.config import Config as JaxConfig
     from commefficient_tpu_torch.config import NOT_PORTED_FLAGS, Config
     from commefficient_tpu_torch.train import gpt2_train
@@ -320,7 +320,10 @@ def test_chunk_and_pipeline_flags():
         JaxConfig(pipeline_depth=0)
     assert str(port_err.value) == str(jax_err.value)
     base = ["--device", "cpu", "--test"]
-    with pytest.raises(NotImplementedError, match="--pipeline_depth"):
-        gpt2_train.main(base + ["--pipeline_depth", "2"])
-    with pytest.raises(NotImplementedError, match="per-client round"):
-        gpt2_train.main(base + ["--max_grad_norm", "1"])
+    with pytest.raises(NotImplementedError,
+                       match="--attn_impl flash with --microbatch_size"):
+        gpt2_train.main(base + ["--pipeline_depth", "2", "--attn_impl",
+                                "flash", "--microbatch_size", "1"])
+    with pytest.raises(NotImplementedError,
+                       match="--remat with --max_grad_norm"):
+        gpt2_train.main(base + ["--max_grad_norm", "1", "--remat"])
