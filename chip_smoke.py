@@ -99,7 +99,32 @@ through the kernels:
   cuDNN deterministic: every round at depth 3 is dispatched
   (``FedModel._call_train`` and ``FedOptimizer.step``) under
   ``torch.cuda.set_sync_debug_mode("error")``, the flushes outside it;
-  losses within ``PIPE_RTOL``, bytes and launches equal.
+  losses within ``PIPE_RTOL``, bytes and launches equal;
+- the CV round's features on the ResNet9 cell, 4 rounds each through
+  ``cv_train.main`` (``ROBUST_PATHS``, ``DP_PATHS``, ``LEGACY_DP_PATHS``,
+  ``DROPOUT_ARGV``), each with its exact launches a
+  round and finite losses: ``robust_paths`` (``--robust_agg median``,
+  ``trimmed --robust_trim_frac 0.25`` and ``clip`` with the auto tau:
+  every client sketches, W + 1 sketch launches a round),
+  ``robust_fold_card`` (a fixed 8 x 5 x 524 288 f32 stack, two clients
+  sign-flipped by ``data/chaos.py``'s hook and one dead slot, folded on
+  the card and on the CPU: the median bit for bit, the trimmed mean and
+  the clip fold within ``FOLD_RTOL``/``FOLD_ATOL``, each fold timed),
+  ``dp_paths`` (``--dp sketch --dp_clip 1 --dp_noise_mult 1`` at f32 and
+  at int8, where the sketch-and-quantize kernel launches 0 times:
+  the noise lands on the f32 table before the one qdq; ``privacy_epsilon()``
+  equal to the accountant stepped once a round; the table noise on a
+  zero 5 x 524 288 table within 1% of ``table_noise_std`` and the same
+  (seed, round) bit for bit, timed), ``legacy_dp_paths`` (``--do_dp``
+  worker noise in sketch mode, server noise uncompressed),
+  ``dropout_path`` (``--dropout_prob 0.25`` on the fused round: the
+  masks those of a numpy replay of ``RandomState(seed).rand(W) < p``,
+  a dropped client uploads nothing) and ``checkpoint_finetune_path``
+  (``--checkpoint`` after 2 rounds into a temporary directory: the
+  ``.pkl`` leaf for leaf ``FedModel.params()``, the ``.pt`` the
+  reference torch ResNet9's keys and shapes; then ``--finetune`` from it
+  on a CIFAR100 fixture: every leaf but the 100-class head the saved
+  one, the head fresh; no weights file left in the working directory).
 
 The sketch, estimates, threshold search, take-mask and sketch-and-
 quantize kernels are also checked and timed at GPT-2's padded_d =
@@ -157,8 +182,10 @@ from commefficient_tpu_torch import _build, profile_round
 from commefficient_tpu_torch.accounting import sketch_wire_bytes
 from commefficient_tpu_torch.config import Config, parse_args
 from commefficient_tpu_torch.core.grad import make_forward_grad
+from commefficient_tpu_torch.core.robust import robust_fold
 from commefficient_tpu_torch.core.rounds import ClientStates
 from commefficient_tpu_torch.core.server import ServerState, server_update
+from commefficient_tpu_torch.data.chaos import ChaosConfig, ChaosInjector
 from commefficient_tpu_torch.data.fixtures import write_fixture
 from commefficient_tpu_torch.data.tokenizer import SPECIAL_TOKENS, load_tokenizer
 from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
@@ -175,6 +202,9 @@ from commefficient_tpu_torch.ops.topk import (_threshold_topk_mask,
                                               keys_of,
                                               threshold_topk_mask_1d)
 from commefficient_tpu_torch.parallel.wire import row_chunks
+from commefficient_tpu_torch.privacy import (NOISE_TAG, PrivacyAccountant,
+                                             add_table_noise, noise_generator,
+                                             table_noise_std)
 from commefficient_tpu_torch.runtime import fed_model
 from commefficient_tpu_torch.serialization import msgpack_restore
 from commefficient_tpu_torch.train import cv_train, gpt2_train
@@ -245,6 +275,56 @@ MODE_PATHS = (
      lambda w: {"sketch_kernel": w + 1, "estimates_kernel": 1,
                 "threshold_key_kernel": 1, "take_mask_kernel": 1}),
 )
+# the CV round's features on the same geometry (phase, argv beyond it,
+# launches a round for W clients), 4 rounds each at LR 0.01: a robust
+# fold needs every client's own table (W sketches and the server's
+# re-sketch); --dp sketch, the legacy worker DP and dropout keep the one
+# late sketch of the summed gradient; uncompressed server DP runs no
+# kernel
+LATE_SKETCH = {"sketch_kernel": 2, "estimates_kernel": 1,
+               "threshold_key_kernel": 1, "take_mask_kernel": 1}
+ROBUST_PATHS = tuple(
+    (f"robust_{name}_path", argv + mode_rounds("0.01"),
+     lambda w: {"sketch_kernel": w + 1, "estimates_kernel": 1,
+                "threshold_key_kernel": 1, "take_mask_kernel": 1})
+    for name, argv in (
+        ("median", ["--robust_agg", "median"]),
+        ("trimmed", ["--robust_agg", "trimmed", "--robust_trim_frac", "0.25"]),
+        ("clip", ["--robust_agg", "clip"])))
+DP_ARGV = ["--dp", "sketch", "--dp_clip", "1", "--dp_noise_mult", "1"]
+DP_PATHS = (
+    ("dp_f32_path", DP_ARGV + mode_rounds("0.01"), lambda w: LATE_SKETCH),
+    ("dp_int8_path", DP_ARGV + ["--sketch_dtype", "int8"] + mode_rounds("0.01"),
+     lambda w: LATE_SKETCH))
+LEGACY_DP_PATHS = (
+    ("legacy_dp_worker_path",
+     ["--do_dp", "--dp_mode", "worker", "--l2_norm_clip", "1",
+      "--noise_multiplier", "1e-3"] + mode_rounds("0.01"),
+     lambda w: LATE_SKETCH),
+    ("legacy_dp_server_path",
+     ["--mode", "uncompressed", "--error_type", "none", "--do_dp",
+      "--dp_mode", "server", "--l2_norm_clip", "1", "--noise_multiplier",
+      "1e-3"] + mode_rounds("0.01"),
+     lambda w: {}))
+DROPOUT_P = 0.25
+DROPOUT_ARGV = ["--dropout_prob", str(DROPOUT_P)] + mode_rounds("0.01")
+# the robust folds on the card against the CPU: the median sorts and
+# averages two ranks (exact); the trimmed mean and the clip fold sum in
+# an order of the card's choosing
+FOLD_RTOL, FOLD_ATOL = 1e-6, 1e-7
+# the reference torch ResNet9's state_dict (no --batchnorm): its key
+# names and shapes at full width (models/torch_export.py)
+RESNET9_TORCH_KEYS = {
+    "n.prep.conv.weight": (64, 3, 3, 3),
+    "n.layer1.conv.weight": (128, 64, 3, 3),
+    "n.layer2.conv.weight": (256, 128, 3, 3),
+    "n.layer3.conv.weight": (512, 256, 3, 3),
+    "n.linear.weight": (10, 2048),
+    "n.res1.res1.conv.weight": (128, 128, 3, 3),
+    "n.res1.res2.conv.weight": (128, 128, 3, 3),
+    "n.res3.res1.conv.weight": (512, 512, 3, 3),
+    "n.res3.res2.conv.weight": (512, 512, 3, 3),
+}
 # --client_chunk: the local_topk path (W = 8) in chunks of 3 (3, 3, and
 # 2 + a dead slot) against chunks of 1, one round from the same weights,
 # f32 compute with TF32 off; the aggregated quantity's relative L2
@@ -2090,11 +2170,11 @@ def batchnorm_path(data):
           "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30})
 
 
-def mode_path(phase, argv, per_round):
+def mode_path(phase, argv, per_round, falling=True):
     """One of ``MODE_PATHS`` through ``cv_train.main``: its launches a
     round exactly, its upload per round ``upload_wire_bytes_per_client``
-    times the W live clients, and its train loss finite and below its
-    first round's. Returns the model."""
+    times the W live clients, and its train loss finite and (where
+    ``falling``) below its first round's. Returns the model."""
     kernels = KERNELS + FLCE
     for kern in kernels:
         kern.launches = 0
@@ -2113,9 +2193,9 @@ def mode_path(phase, argv, per_round):
     check(counts == want, f"{phase}: launch counts {counts}, want {want}")
     losses = [x for row in results for x in row["round_losses"]]
     check(len(losses) == rounds and all(map(math.isfinite, losses))
-          and losses[-1] < losses[0],
-          f"{phase}: train losses {losses}, want finite, the last below "
-          "the first")
+          and (losses[-1] < losses[0] or not falling),
+          f"{phase}: train losses {losses}, want finite"
+          + (", the last below the first" if falling else ""))
     for row in results:
         up = (len(row["round_times"]) * w
               * args.upload_wire_bytes_per_client / 2**20)
@@ -2319,6 +2399,254 @@ def pipelined_phase():
                   "at depth 3 dispatched under sync debug mode error"})
 
 
+def feature_paths(phase, paths):
+    """``paths`` (``ROBUST_PATHS``, ``DP_PATHS``, ``LEGACY_DP_PATHS``)
+    through ``mode_path``: exact launches a round, the upload, finite
+    losses. Returns {path: its model's privacy_epsilon() and rounds}."""
+    out = {}
+    for name, argv, per_round in paths:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = mode_path(name, argv, per_round, falling=False)
+        out[name] = (model.privacy_epsilon(), model.round_index)
+        del model
+    emit({"phase": phase, "paths": [p[0] for p in paths]})
+    return out
+
+
+def robust_fold_phase(dev, flush):
+    """The three robust folds of one fixed (W, r, c) f32 stack on the
+    card and on the CPU: clients 1 and 6 sign-flipped by the chaos
+    harness's hook, slot 5 dead. The median bit for bit, the trimmed
+    mean and the clip fold within ``FOLD_RTOL``/``FOLD_ATOL``; each
+    fold's time on the card."""
+    W, B = 8, 8
+    gen = torch.Generator().manual_seed(SEED)
+    mask = torch.ones(W, B)
+    mask[5] = 0.0
+    mask[2, 5:] = 0.0
+    n = mask.sum(dim=1)
+    stack = torch.randn(W, R, C, generator=gen) * n[:, None, None]
+    attack = ChaosInjector(ChaosConfig(seed=SEED, attack="sign_flip",
+                                       byzantine_ids=[1, 6]), W)
+    stack = attack.transmit_transform()(stack, {"mask": mask},
+                                        torch.arange(W), 0)
+    stack_d, mask_d = stack.to(dev), mask.to(dev)
+    row = {"phase": "robust_fold_card", "shape": [W, R, C],
+           "byzantine": [1, 6], "dead": [5], "rtol": FOLD_RTOL,
+           "atol": FOLD_ATOL, "folds": {}}
+    for mode, extra in (("median", {}),
+                        ("trimmed", {"robust_trim_frac": 0.25}),
+                        ("clip", {})):
+        cfg = Config(device=dev.type, robust_agg=mode, **extra)
+        want = robust_fold(cfg, stack, {"mask": mask})
+        got = robust_fold(cfg, stack_d, {"mask": mask_d}).cpu()
+        err = float((got - want).abs().max())
+        if mode == "median":
+            check(torch.equal(got, want), f"robust median on the card "
+                  f"differs from the CPU's by {err}")
+        else:
+            check(torch.allclose(got, want, rtol=FOLD_RTOL, atol=FOLD_ATOL),
+                  f"robust {mode} on the card differs from the CPU's by "
+                  f"{err}")
+        check(bool(torch.isfinite(got).all()), f"robust {mode}: non-finite")
+        ms = time_ms(lambda: robust_fold(cfg, stack_d, {"mask": mask_d}),
+                     10, flush)
+        # the stack read once, the (r, c) aggregate written once
+        bms, by = bound(4 * (W + 1) * R * C, 0)
+        row["folds"][mode] = {"ms": ms, "max_abs_err": err,
+                              "bound_ms": bms, "bound_by": by}
+    emit(row)
+    return row
+
+
+def dp_phase(dev, flush, runs):
+    """``DP_PATHS``' spent ε against the accountant stepped once a round,
+    then the table noise: on a zero 5 x 524 288 table, its sample std
+    within 1% of ``table_noise_std``, the same (seed, round) bit for bit
+    and another round other bits; the draw timed."""
+    for name, (eps, rounds) in runs.items():
+        acc = PrivacyAccountant(1.0, 1.0, 1e-5)
+        for _ in range(rounds):
+            acc.step()
+        check(rounds == 4 and eps == acc.epsilon(),
+              f"{name}: privacy_epsilon() {eps} after {rounds} rounds, "
+              f"want {acc.epsilon()} after 4")
+    cfg = parse_args(argv=profile_round.ARGV + DP_ARGV)
+    std = table_noise_std(cfg)
+    zero = torch.zeros(R, C, device=dev)
+
+    def draw(r=3):
+        return add_table_noise(zero, noise_generator(SEED, r, NOISE_TAG,
+                                                     dev), std)
+
+    a, b = draw(), draw()
+    check(torch.equal(a, b), "table noise: one (seed, round), two draws")
+    check(not torch.equal(a, draw(4)), "table noise: rounds 3 and 4 equal")
+    ratio = float(a.std()) / std
+    check(abs(ratio - 1.0) < 0.01, f"table noise std / table_noise_std "
+          f"= {ratio}, want within 1%")
+    ms = time_ms(draw, 10, flush)
+    bms, by = bound(8 * R * C, 0)
+    emit({"phase": "dp_paths", "epsilon": {k: v[0] for k, v in runs.items()},
+          "noise_std": std, "sample_std_over_std": ratio,
+          "noise_ms": ms, "noise_bound_ms": bms, "noise_bound_by": by})
+
+
+@contextlib.contextmanager
+def recording_masks(record):
+    """Appends each training round's (client ids, mask) to ``record``
+    while the block runs."""
+    orig = fed_model.FedModel._call_train
+
+    def wrapped(self, batch):
+        record.append((np.array(batch["client_ids"]),
+                       np.array(batch["mask"])))
+        return orig(self, batch)
+
+    fed_model.FedModel._call_train = wrapped
+    try:
+        yield
+    finally:
+        fed_model.FedModel._call_train = orig
+
+
+def dropout_path():
+    """``--dropout_prob`` on the fused sketch round: each round's masks
+    those of a numpy replay of ``RandomState(--seed).rand(W) < p`` (the
+    dropped clients' rows zero, the others full), the upload billed to
+    the live clients only, the late sketch's launches, finite losses."""
+    for kern in KERNELS + FLCE:
+        kern.launches = 0
+    masks = []
+    argv = profile_round.ARGV + DROPOUT_ARGV
+    t0 = time.perf_counter()
+    with recording_masks(masks):
+        results = cv_train.main(argv)
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in KERNELS + FLCE}
+    model = fed_model._CURRENT_MODEL
+    w, b = model.args.num_workers, model.args.local_batch_size
+    rounds = len(masks)
+    check(rounds == 4, f"dropout_path: {rounds} rounds, want 4")
+    replay = np.random.RandomState(SEED)
+    live = 0
+    for _, mask in masks:
+        drop = replay.rand(w) < DROPOUT_P
+        check(not mask[drop].any() and (mask[~drop].sum(axis=1) == b).all(),
+              f"dropout_path: mask rows {mask.sum(axis=1)}, want zero "
+              f"exactly at the replayed drops {np.flatnonzero(drop)}")
+        live += int((~drop).sum())
+    want = {k.__name__: 0 for k in KERNELS + FLCE}
+    want.update({k: v * rounds for k, v in LATE_SKETCH.items()})
+    check(counts == want, f"dropout_path: launch counts {counts}, "
+          f"want {want}")
+    row = results[-1]
+    up = live * model.args.upload_wire_bytes_per_client / 2**20
+    check(row["up (MiB)"] == up, f"dropout_path: up {row['up (MiB)']} "
+          f"MiB, want {live} live uploads = {up}")
+    losses = row["round_losses"]
+    check(losses and all(map(math.isfinite, losses)),
+          f"dropout_path: train losses {losses}")
+    emit({"phase": "dropout_path", "argv_tail": DROPOUT_ARGV,
+          "rounds": rounds, "launches": counts,
+          "alive_per_round": [int((m.sum(axis=1) > 0).sum())
+                              for _, m in masks],
+          "round_seconds": row["round_times"], "round_losses": losses,
+          "up_MiB": row["up (MiB)"], "wall_seconds": wall,
+          "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30})
+
+
+def _tree_leaves(tree, path=()):
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            yield from _tree_leaves(sub, path + (key,))
+        else:
+            yield path + (key,), sub
+
+
+def checkpoint_finetune_path():
+    """``--checkpoint`` after 2 ResNet9 rounds into a temporary
+    directory, reloaded: the ``.pkl`` leaf for leaf (keys in the same
+    order) ``FedModel.params()``, the ``.pt`` the reference torch
+    ResNet9's keys and shapes with the same values. Then ``--finetune``
+    from it on a CIFAR100 fixture for 2 rounds: the run's start every
+    saved leaf but the head, the 100-class head its fresh init. Nothing
+    is written outside the temporary directory."""
+    import pickle
+    before = set(os.listdir("."))
+    rounds_argv = ["--num_epochs", "0.2", "--pivot_epoch", "0.1",
+                   "--lr_scale", "0.01"]
+    with tempfile.TemporaryDirectory(prefix="ckpt_smoke_") as root, \
+            working_dir(root):
+        ckpt = os.path.join(root, "ckpt")
+        t0 = time.perf_counter()
+        results = cv_train.main(profile_round.ARGV + rounds_argv + [
+            "--checkpoint", "--checkpoint_path", ckpt])
+        model = fed_model._CURRENT_MODEL
+        check(model.round_index == 2 and all(
+            math.isfinite(x) for x in results[-1]["round_losses"]),
+            f"checkpoint run: {model.round_index} rounds, losses "
+            f"{results[-1]['round_losses']}")
+        params = model.params()
+        with open(os.path.join(ckpt, "ResNet9.pkl"), "rb") as f:
+            saved = pickle.load(f)
+        mine, theirs = list(_tree_leaves(params)), list(_tree_leaves(saved))
+        check([p for p, _ in mine] == [p for p, _ in theirs],
+              "the .pkl's leaves are not params()'s, in its order")
+        for (path, a), (_, b) in zip(mine, theirs):
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f".pkl leaf {path} differs from params()")
+        sd = torch.load(os.path.join(ckpt, "ResNet9.pt"), weights_only=True)
+        shapes = {k: tuple(v.shape) for k, v in sd.items()}
+        check(shapes == RESNET9_TORCH_KEYS, f".pt keys and shapes {shapes}")
+        check(np.array_equal(sd["n.linear.weight"].numpy(),
+                             saved["Dense_0"]["kernel"].T),
+              ".pt n.linear.weight is not the saved head transposed")
+        del model
+        data = write_fixture("CIFAR100", os.path.join(root, "cifar100"))
+        ft_argv = list(profile_round.ARGV)
+        ft_argv[ft_argv.index("--dataset_name") + 1] = "CIFAR100"
+        ft_argv += ["--dataset_dir", data, "--num_epochs", "0.02",
+                    "--pivot_epoch", "0.01", "--lr_scale", "0.01",
+                    "--finetune", "--finetune_path", ckpt,
+                    "--finetuned_from", "Synthetic"]
+        starts = []
+        orig = cv_train.make_fed_model
+
+        def recording(module, params, *a, **kw):
+            starts.append(module.to_params_tree(params))
+            return orig(module, params, *a, **kw)
+
+        cv_train.make_fed_model = recording
+        try:
+            ft = cv_train.main(ft_argv)
+        finally:
+            cv_train.make_fed_model = orig
+        wall = time.perf_counter() - t0
+        args = parse_args(argv=ft_argv)
+        module, fresh = cv_train.build_model(args)
+        fresh = module.to_params_tree(fresh)
+        head = ("Dense_0", "kernel")
+        for path, leaf in _tree_leaves(starts[0]):
+            src = fresh if path == head else saved
+            ref = src
+            for key in path:
+                ref = ref[key]
+            check(np.array_equal(leaf, ref), f"finetune start {path} is "
+                  f"not the {'fresh' if path == head else 'saved'} leaf")
+        check(starts[0]["Dense_0"]["kernel"].shape == (2048, 100),
+              "finetune head shape")
+        ft_losses = ft[-1]["round_losses"]
+        check(len(ft_losses) == 2 and all(map(math.isfinite, ft_losses)),
+              f"finetune losses {ft_losses}")
+    left = sorted(set(os.listdir(".")) - before)
+    check(not left, f"files left in the working directory: {left}")
+    emit({"phase": "checkpoint_finetune_path",
+          "pt_keys": sorted(RESNET9_TORCH_KEYS), "finetune_losses": ft_losses,
+          "wall_seconds": wall})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2402,6 +2730,17 @@ def main():
     client_chunk_phase(dev)
     torch.cuda.empty_cache()
     pipelined_phase()
+    feature_paths("robust_paths", ROBUST_PATHS)
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    robust_fold_phase(dev, flush)
+    dp_phase(dev, flush, feature_paths("dp_path_runs", DP_PATHS))
+    del flush
+    feature_paths("legacy_dp_paths", LEGACY_DP_PATHS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dropout_path()
+    checkpoint_finetune_path()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     emnist_counts = emnist_path()

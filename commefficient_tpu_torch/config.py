@@ -19,6 +19,9 @@ ERROR_TYPES = ("none", "local", "virtual")
 # wire dtypes of the uplinked sketch table (accounting.WIRE_DTYPES)
 SKETCH_DTYPES = ("f32", "bf16", "int8", "fp8")
 DOWNLINK_ENCODINGS = ("dense", "delta")
+# the legacy --do_dp mechanism's modes (reference config.py:18)
+DP_MODES = ("worker", "server")
+ROBUST_AGGS = ("none", "median", "trimmed", "clip")
 
 # dataset -> num classes (reference utils.py:37-44)
 FED_DATASETS = {
@@ -39,17 +42,12 @@ NATURAL_NUM_CLIENTS = {
 
 # the reference trainer's flags that the port does not have yet
 NOT_PORTED_FLAGS = (
-    "--profile", "--seq_devices", "--seq_impl", "--dropout_prob",
-    "--tensorboard", "--finetune",
-    "--checkpoint", "--resume", "--checkpoint_every",
-    "--checkpoint_path", "--finetune_path", "--finetuned_from",
+    "--profile", "--seq_devices", "--seq_impl",
+    "--tensorboard", "--resume", "--checkpoint_every",
     "--num_results_train", "--num_results_val",
     "--port", "--num_devices", "--share_ps_gpu",
     "--train_dataloader_workers", "--val_dataloader_workers",
-    "--dp", "--dp_clip",
-    "--dp_noise_mult",
-    "--dp_delta", "--dp_epsilon", "--do_dp", "--dp_mode",
-    "--l2_norm_clip", "--noise_multiplier", "--mesh", "--param_dtype",
+    "--mesh", "--param_dtype",
     "--compute_dtype", "--approx_topk", "--approx_recall",
     "--coordinator_address",
     "--num_processes", "--process_id", "--clientstore",
@@ -58,9 +56,8 @@ NOT_PORTED_FLAGS = (
     "--on_divergence", "--alarm_residual_ratio",
     "--alarm_residual_rounds", "--alarm_recovery_error",
     "--alarm_step_time_ratio", "--alarm_step_time_window",
-    "--alarm_collective_skew", "--robust_agg", "--robust_trim_frac",
-    "--robust_clip_norm", "--robust_median_groups",
-    "--alarm_byzantine_ratio", "--alarm_fold_rejection",
+    "--alarm_collective_skew", "--alarm_byzantine_ratio",
+    "--alarm_fold_rejection",
     "--checkpoint_every_rounds", "--checkpoint_keep",
     "--async_buffer_size", "--async_staleness_weight",
     "--alarm_async_staleness", "--alarm_job_starvation", "--live_port",
@@ -90,6 +87,14 @@ class Config:
 
     # model/data
     model: str = "ResNet9"
+    # start from finetune_path/<model>.pkl (trained on --finetuned_from);
+    # gpt2_train: one validation pass and nothing else
+    do_finetune: bool = False
+    # end-of-run checkpoint_path/<model>.pkl (+ <model>.pt)
+    do_checkpoint: bool = False
+    checkpoint_path: str = "./checkpoint"
+    finetune_path: str = "./finetune"
+    finetuned_from: Optional[str] = None
     dataset_name: str = ""
     dataset_dir: str = "./dataset"
     nan_threshold: float = 999.0
@@ -200,6 +205,43 @@ class Config:
     # any depth); 1 = one whole-table emission
     overlap_depth: int = 1
 
+    # each sampled client drops out of the round with this probability
+    # (its mask rows zeroed; the round renormalises over the survivors)
+    dropout_prob: float = 0.0
+
+    # differential privacy, the legacy worker/server mechanism: L2-clip
+    # each client's gradient to --l2_norm_clip; "worker" adds
+    # noise_multiplier * N(0, 1) * sqrt(num_workers) to it, "server"
+    # noise_multiplier * N(0, 1) to the server's momentum (uncompressed)
+    do_dp: bool = False
+    dp_mode: str = "worker"
+    l2_norm_clip: float = 1.0
+    noise_multiplier: float = 0.0
+    # DP sketching (privacy/): "sketch" L2-clips each client's summed
+    # gradient to --dp_clip and adds calibrated Gaussian noise to the
+    # aggregated sketch table before any wire quantization; an RDP
+    # accountant charges each dispatched round
+    dp: str = "off"
+    dp_clip: float = 1.0
+    dp_noise_mult: float = 0.0
+    # the accountant's delta and total epsilon budget (0 = unlimited)
+    dp_delta: float = 1e-5
+    dp_epsilon: float = 0.0
+
+    # robust aggregation (core/robust.py): how the round folds the
+    # per-client transmits. "none" = the plain datapoint-weighted mean;
+    # "median" = coordinate-wise median of the per-client (or grouped)
+    # per-datapoint means; "trimmed" = coordinate-wise trimmed mean
+    # without --robust_trim_frac of each tail; "clip" = each client's
+    # transmit norm-clipped to --robust_clip_norm (0 = the median alive
+    # norm) before the plain fold
+    robust_agg: str = "none"
+    robust_trim_frac: float = 0.1
+    robust_clip_norm: float = 0.0
+    # --robust_agg median: this many client groups (0 = every client
+    # its own); must divide num_workers
+    robust_median_groups: int = 0
+
     # populated at runtime
     grad_size: int = 0
 
@@ -226,6 +268,32 @@ class Config:
             "--overlap_depth must be >= 1 (1 = serial round)"
         assert self.downlink_encoding in DOWNLINK_ENCODINGS, \
             "--downlink_encoding must be dense|delta"
+        assert self.dp_mode in DP_MODES, self.dp_mode
+        assert self.dp in ("off", "sketch"), \
+            "--dp must be off|sketch"
+        assert self.dp_clip > 0, "--dp_clip must be > 0"
+        assert self.dp_noise_mult >= 0, \
+            "--dp_noise_mult must be >= 0"
+        assert 0.0 < self.dp_delta < 1.0, \
+            "--dp_delta must be in (0, 1)"
+        assert self.dp_epsilon >= 0, \
+            "--dp_epsilon must be >= 0 (0 = unlimited budget)"
+        if self.dp_epsilon > 0:
+            assert self.dp != "off", \
+                "--dp_epsilon budget needs --dp sketch (nothing " \
+                "spends the budget otherwise)"
+            assert self.dp_noise_mult > 0, \
+                "--dp_epsilon budget needs --dp_noise_mult > 0 " \
+                "(a noiseless release exhausts any finite ε " \
+                "immediately)"
+        assert self.robust_agg in ROBUST_AGGS, \
+            "--robust_agg must be none|median|trimmed|clip"
+        assert 0.0 <= self.robust_trim_frac < 0.5, \
+            "--robust_trim_frac must be in [0, 0.5)"
+        assert self.robust_clip_norm >= 0, \
+            "--robust_clip_norm must be >= 0 (0 = auto)"
+        assert self.robust_median_groups >= 0, \
+            "--robust_median_groups must be >= 0 (0 = per-client)"
         if self.mode == "fedavg":
             assert self.local_batch_size == -1, \
                 "fedavg requires --local_batch_size -1"
@@ -258,6 +326,42 @@ class Config:
             assert self.mode == "sketch", \
                 "--overlap_depth > 1 requires --mode sketch " \
                 "(only the sketch table emits in row chunks)"
+        if self.dp != "off":
+            assert self.mode == "sketch", \
+                "--dp sketch requires --mode sketch (the mechanism " \
+                "noises the aggregated sketch table)"
+            assert not self.do_dp, \
+                "--dp sketch replaces the legacy --do_dp worker/" \
+                "server mechanism; enable only one"
+            assert self.client_chunk == 0, \
+                "--dp sketch noises the round's aggregated table " \
+                "once; incompatible with --client_chunk (the " \
+                "chunked scan never materialises it pre-wire)"
+            # the accountant charges a per-client sqrt(r)·C/W bound;
+            # median/trimmed releases do not have it, and a
+            # cohort-derived clip cap couples every client's scale to
+            # everyone's data
+            assert self.robust_agg in ("none", "clip"), \
+                "--dp sketch composes only with --robust_agg " \
+                "{none,clip}: median/trimmed folds do not have the " \
+                "sqrt(r)*clip/W sensitivity the accountant charges"
+            assert self.robust_agg != "clip" \
+                or self.robust_clip_norm > 0, \
+                "--dp sketch with the clip fold needs a fixed " \
+                "--robust_clip_norm > 0 (the auto median-of-norms " \
+                "cap couples every client's scale to the whole " \
+                "cohort, voiding the per-client sensitivity bound)"
+        if self.robust_agg != "none":
+            # robust folds need the round's per-client transmits at
+            # once; the chunked round only ever holds a running sum
+            assert self.client_chunk == 0, \
+                "--robust_agg needs the full per-client transmit " \
+                "stack; incompatible with --client_chunk"
+            if self.robust_agg == "median" \
+                    and self.robust_median_groups > 1:
+                assert self.num_workers % self.robust_median_groups \
+                    == 0, "--robust_median_groups must divide " \
+                    "--num_workers"
         if self.mode == "sketch":
             assert self.error_type != "local", \
                 "sketch mode cannot use local error accumulation"
@@ -335,6 +439,16 @@ def build_parser(default_lr: Optional[float] = None
 
     parser.add_argument("--model", default="ResNet9",
                         choices=models.model_names())
+    parser.add_argument("--finetune", action="store_true",
+                        dest="do_finetune")
+    parser.add_argument("--checkpoint", action="store_true",
+                        dest="do_checkpoint")
+    parser.add_argument("--checkpoint_path", type=str,
+                        default="./checkpoint")
+    parser.add_argument("--finetune_path", type=str, default="./finetune")
+    parser.add_argument("--finetuned_from", type=str,
+                        choices=list(FED_DATASETS.keys()))
+    parser.add_argument("--dropout_prob", type=float, default=0.0)
     parser.add_argument("--dataset_name", type=str, default="",
                         choices=list(FED_DATASETS.keys()))
     parser.add_argument("--dataset_dir", type=str, default="./dataset")
@@ -425,6 +539,38 @@ def build_parser(default_lr: Optional[float] = None
                         "val:wire dtype) pairs plus a bitmap over the "
                         "previous round's support for repeated indices "
                         "(accounting only)")
+    parser.add_argument("--dp", choices=["off", "sketch"], default="off",
+                        help="DP sketching: clip each client's gradient "
+                        "to --dp_clip and noise the aggregated sketch "
+                        "table, charged by an RDP accountant")
+    parser.add_argument("--dp_clip", type=float, default=1.0,
+                        help="per-client L2 clip cap for --dp sketch")
+    parser.add_argument("--dp_noise_mult", type=float, default=0.0,
+                        help="noise multiplier for --dp sketch (noise "
+                        "std = it x the per-client table sensitivity)")
+    parser.add_argument("--dp_delta", type=float, default=1e-5,
+                        help="accountant delta for the eps(delta) "
+                        "conversion")
+    parser.add_argument("--dp_epsilon", type=float, default=0.0,
+                        help="total epsilon budget (0 = unlimited)")
+    parser.add_argument("--do_dp", action="store_true", dest="do_dp")
+    parser.add_argument("--dp_mode", choices=DP_MODES, default="worker")
+    parser.add_argument("--l2_norm_clip", type=float, default=1.0)
+    parser.add_argument("--noise_multiplier", type=float, default=0.0)
+    parser.add_argument("--robust_agg", type=str, default="none",
+                        choices=list(ROBUST_AGGS),
+                        help="robust fold over per-client transmits: "
+                        "median, trimmed mean or norm clip")
+    parser.add_argument("--robust_trim_frac", type=float, default=0.1,
+                        help="fraction trimmed from each tail per "
+                        "coordinate under --robust_agg trimmed")
+    parser.add_argument("--robust_clip_norm", type=float, default=0.0,
+                        help="per-client transmit-norm clip under "
+                        "--robust_agg clip (0 = the median alive norm)")
+    parser.add_argument("--robust_median_groups", type=int, default=0,
+                        help="client groups for the median of group "
+                        "means (0 = every client its own group; must "
+                        "divide --num_workers)")
     parser.add_argument("--overlap_depth", type=int, default=1,
                         help="emit and quantize the sketch table in "
                         "min(N, rows) row chunks (1 = whole table); the "

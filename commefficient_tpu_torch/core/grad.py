@@ -1,8 +1,8 @@
 """Clients' gradients: microbatching, clipping, weight decay,
 sketching, for a chunk of clients in one batched pass.
 
-Port of ``commefficient_tpu/core/grad.py`` (``make_forward_grad`` :49),
-without DP (its flags raise at parse time). A loss function here is
+Port of ``commefficient_tpu/core/grad.py`` (``make_forward_grad`` :49).
+A loss function here is
 
     loss_fn(params_flat, batch) -> (loss, metrics_tuple)
 
@@ -22,6 +22,12 @@ The reference's semantics:
 - the non-sketch clip at ``max_grad_norm * ceil(n / mb)``, n taken
   from the mask;
 - weight decay ``g += (wd / num_workers) * weights``;
+- the legacy ``--do_dp``: L2-clip to ``--l2_norm_clip``; under
+  ``--dp_mode worker`` add ``noise_multiplier`` · N(0, 1) ·
+  sqrt(num_workers), drawn outside ``vmap`` from the round's worker
+  noise stream (privacy/mechanism.py), a (C, d) block a chunk;
+- ``--dp sketch``: L2-clip the gradient to ``--dp_clip`` before it is
+  sketched (``dp_clip``);
 - sketch mode: sketch the gradient, then clip the table by its
   l2estimate when ``max_grad_norm`` is set. The sketch is a kernel
   launch, so it runs after the batched pass, once a client, on the
@@ -38,6 +44,7 @@ import torch
 from commefficient_tpu_torch.config import Config
 from commefficient_tpu_torch.ops.sketch import CountSketch, clip_record
 from commefficient_tpu_torch.ops.vec import clip_by_l2
+from commefficient_tpu_torch.privacy.mechanism import dp_clip, gaussian_noise
 
 
 def pad_samples(batch: dict, n: int) -> dict:
@@ -58,7 +65,8 @@ def make_client_grad(cfg: Config, loss_fn: Callable,
     """Returns ``client_grad(params_flat, batch) -> (g, metrics)`` for
     ONE client, a function to run under ``torch.func.vmap``: the
     per-sample-mean dense gradient (clipped outside sketch mode,
-    weight-decayed) and the batch-mean metrics, loss first. ``batch``
+    weight-decayed, DP-clipped) and the batch-mean metrics, loss first.
+    The worker DP noise is not in it (``worker_noise``). ``batch``
     holds ``num_iters * mb`` samples (``pad_samples`` to
     ``padded_to(cfg, padded_batch_size)``)."""
     mb, num_iters = _microbatching(cfg, padded_batch_size)
@@ -100,9 +108,25 @@ def make_client_grad(cfg: Config, loss_fn: Callable,
 
         if cfg.weight_decay != 0:
             g = g + (cfg.weight_decay / cfg.num_workers) * params_flat
+
+        if cfg.do_dp:
+            g = clip_by_l2(g, cfg.l2_norm_clip)
+        if cfg.dp == "sketch":
+            g = dp_clip(g, cfg.dp_clip)
         return g, metrics
 
     return client_grad
+
+
+def worker_noise(cfg: Config, gen: Optional[torch.Generator], shape):
+    """The legacy ``--do_dp --dp_mode worker`` noise of ``shape``,
+    noise_multiplier · N(0, 1) · sqrt(num_workers) from ``gen``; None
+    where the round adds none (no generator: DP off, server mode, or a
+    zero multiplier, whose draw would add exact zeros)."""
+    if gen is None:
+        return None
+    return (gaussian_noise(gen, shape, std=cfg.noise_multiplier)
+            * math.sqrt(float(cfg.num_workers)))
 
 
 def _microbatching(cfg: Config, padded_batch_size: int):
@@ -122,8 +146,9 @@ def padded_to(cfg: Config, padded_batch_size: int) -> int:
 def make_forward_grad(cfg: Config, loss_fn: Callable,
                       sketch: Optional[CountSketch],
                       padded_batch_size: int) -> Callable:
-    """Returns ``forward_grad(params_flat, batch) -> (transmit_unit,
-    metrics)`` over a chunk of C clients: ``batch`` holds (C, B, ...)
+    """Returns ``forward_grad(params_flat, batch, noise_gen=None) ->
+    (transmit_unit, metrics)`` over a chunk of C clients, ``noise_gen``
+    the round's worker noise stream: ``batch`` holds (C, B, ...)
     tensors, ``params_flat`` is the shared (d,) vector or a (C, d) stack
     (``--topk_down``'s stale weights). It gives the (C, d) per-sample-
     mean gradients (in sketch mode the (C, r, c) tables of them, each
@@ -133,10 +158,13 @@ def make_forward_grad(cfg: Config, loss_fn: Callable,
     client_grad = make_client_grad(cfg, loss_fn, padded_batch_size)
     n = padded_to(cfg, padded_batch_size)
 
-    def forward_grad(params_flat, batch):
+    def forward_grad(params_flat, batch, noise_gen=None):
         in_p = 0 if params_flat.ndim == 2 else None
         g, metrics = torch.func.vmap(client_grad, in_dims=(in_p, 0))(
             params_flat, pad_samples(batch, n))
+        noise = worker_noise(cfg, noise_gen, g.shape)
+        if noise is not None:
+            g = g + noise
         if cfg.mode != "sketch":
             return g, metrics
         assert sketch is not None

@@ -12,6 +12,14 @@ per-client path of ``_build_sgd_client_step`` :1200 and
 ``_client_round_chunked`` :914) and the server round
 (``build_server_round`` :1340, with the k-sized scatter of the sparse
 re-sketch branch and true_topk's masking of client velocities).
+The per-client round also carries the reference's robust folds
+(``--robust_agg``, core/robust.py, in place of the sum :860-863), the
+``transmit_transform`` hook on the per-client transmit stack (:287-292,
+applied at :811), and ``--dp sketch``'s release (:857-888): the fold
+divided by the static W·B capacity, the table emitted at f32, one noise
+draw on the aggregated table, then the one wire qdq of the noisy table.
+The fused round's weight-decay share under ``--dropout_prob``
+(:548-563) is the round's alive fraction of its datapoints.
 
 Batch layout: a dict of (W, B, ...) tensors with a (W, B) float "mask"
 marking real samples. Where no per-client transform touches the
@@ -27,8 +35,9 @@ backward passes under ``torch.func.vmap``, then their sketches,
 selections, momentum, error and clips on the (C, ...) stacks (the
 kernels launch outside ``vmap``), and scatters the rows back once.
 Transmits are summed within a chunk, then across chunks. Under
-``--max_grad_norm`` on a quantized wire each client's clipped table
-crosses the wire on its own. No device value is read on the host.
+``--max_grad_norm`` or ``--robust_agg`` on a quantized wire each
+client's table crosses the wire on its own. No device value is read on
+the host.
 """
 
 from __future__ import annotations
@@ -42,13 +51,20 @@ from commefficient_tpu_torch.core.client import (accumulate_and_compress,
                                                  stale_weight_download)
 from commefficient_tpu_torch.core.grad import (make_client_grad,
                                                make_forward_grad,
-                                               pad_samples, padded_to)
+                                               pad_samples, padded_to,
+                                               worker_noise)
+from commefficient_tpu_torch.core.robust import robust_fold
 from commefficient_tpu_torch.core.server import (ServerState,
                                                  fold_row_chunks,
                                                  server_update)
 from commefficient_tpu_torch.ops import quant
 from commefficient_tpu_torch.ops.sketch import CountSketch
 from commefficient_tpu_torch.parallel.wire import row_chunks
+from commefficient_tpu_torch.privacy.mechanism import (NOISE_TAG,
+                                                       WORKER_NOISE_TAG,
+                                                       add_table_noise,
+                                                       noise_generator,
+                                                       table_noise_std)
 
 
 class ClientStates(NamedTuple):
@@ -104,19 +120,23 @@ def resolve_rot_lanes(cfg: Config) -> int:
 def sketch_is_late(cfg: Config) -> bool:
     """Sketching after the local dense sum is legal when no per-client
     op touches the table: absent ``max_grad_norm``'s per-sketch clip
-    (the port has no robust fold)."""
-    return cfg.mode == "sketch" and cfg.max_grad_norm is None
+    and a robust fold, which needs every client's own table (the
+    median of sketches)."""
+    return (cfg.mode == "sketch" and cfg.max_grad_norm is None
+            and cfg.robust_agg == "none")
 
 
 def fused_grad_eligible(cfg: Config) -> bool:
     """The aggregated quantity is exactly the gradient of the
     sample-weighted mean loss (one backward) when no per-client
     transform touches the gradient: no local momentum or error, no
-    topk_down, clip or microbatching."""
+    topk_down, clip, DP, microbatching or robust fold."""
     return (cfg.mode in ("sketch", "uncompressed", "true_topk")
             and cfg.local_momentum == 0 and cfg.error_type != "local"
-            and not cfg.do_topk_down and cfg.max_grad_norm is None
-            and cfg.microbatch_size <= 0)
+            and not cfg.do_topk_down and not cfg.do_dp
+            and cfg.dp == "off"
+            and cfg.max_grad_norm is None and cfg.microbatch_size <= 0
+            and cfg.robust_agg == "none")
 
 
 def round_plan(cfg: Config) -> dict:
@@ -129,12 +149,20 @@ def round_plan(cfg: Config) -> dict:
         "transmit_shape": list(cfg.transmit_shape),
         "upload_floats_per_client": int(cfg.upload_floats_per_client),
         "fused_grad": fused_grad_eligible(cfg),
+        "robust_agg": cfg.robust_agg,
         "overlap_depth": int(cfg.overlap_depth),
         "sketch_dtype": cfg.sketch_dtype,
         "downlink_encoding": cfg.downlink_encoding,
         "upload_wire_bytes_per_client": float(
             cfg.upload_wire_bytes_per_client),
     }
+    if cfg.dp != "off":
+        # enough to re-derive the accountant from the plan alone
+        plan["dp"] = {"mode": str(cfg.dp),
+                      "clip": float(cfg.dp_clip),
+                      "noise_mult": float(cfg.dp_noise_mult),
+                      "delta": float(cfg.dp_delta),
+                      "epsilon_budget": float(cfg.dp_epsilon)}
     if cfg.mode == "sketch":
         plan["sketch"] = {"rows": int(cfg.num_rows),
                           "cols": int(cfg.num_cols),
@@ -157,9 +185,11 @@ def args2sketch(cfg: Config) -> Optional[CountSketch]:
 
 def build_client_round(cfg: Config, loss_fn: Callable,
                        padded_batch_size: Optional[int] = None,
-                       stats_fn: Optional[Callable] = None) -> Callable:
+                       stats_fn: Optional[Callable] = None,
+                       transmit_transform: Optional[Callable] = None
+                       ) -> Callable:
     """Returns ``client_round(ps_weights, batch, client_states=None,
-    client_ids=None, fedavg_lr=1.0) -> RoundResult``.
+    client_ids=None, fedavg_lr=1.0, round_index=0) -> RoundResult``.
 
     ``loss_fn(flat_params, batch) -> (loss, metrics)`` returns masked
     means over the last batch axis: per-client (W,) values for the
@@ -172,8 +202,17 @@ def build_client_round(cfg: Config, loss_fn: Callable,
     ``fedavg_lr`` is the LR of fedavg's local SGD. ``stats_fn(ps_weights,
     batch)`` (``--batchnorm``), where given, records every client's batch
     statistics at the round's weights; their sample-weighted mean rides
-    on the result (``round_bn_stats``)."""
-    round_fn = _build_client_round(cfg, loss_fn, padded_batch_size)
+    on the result (``round_bn_stats``). ``round_index`` picks the
+    round's noise streams (privacy/mechanism.py).
+
+    ``transmit_transform(transmit, batch, client_ids, round_index) ->
+    transmit``, where given, rewrites the (W, ...) per-client transmit
+    stack before the fold (the chaos harness's byzantine hook,
+    data/chaos.py, which no module of the round imports), with the
+    round's real client ids; it forces the per-client round. At None
+    nothing changes."""
+    round_fn = _build_client_round(cfg, loss_fn, padded_batch_size,
+                                   transmit_transform)
     if stats_fn is None:
         return round_fn
 
@@ -202,14 +241,27 @@ def round_bn_stats(stats_fn: Callable, ps_weights: torch.Tensor,
 
 
 def _build_client_round(cfg: Config, loss_fn: Callable,
-                        padded_batch_size: Optional[int]) -> Callable:
+                        padded_batch_size: Optional[int],
+                        transmit_transform: Optional[Callable]) -> Callable:
     cfg.validate_runtime()
     if padded_batch_size is None:
         padded_batch_size = (cfg.local_batch_size
                              if cfg.local_batch_size > 0 else 1)
+    if transmit_transform is not None:
+        assert cfg.client_chunk == 0, \
+            "transmit_transform needs the full per-client transmit " \
+            "stack; incompatible with --client_chunk"
     sketch = args2sketch(cfg)
     late = sketch_is_late(cfg)
-    fused = fused_grad_eligible(cfg)
+    fused = fused_grad_eligible(cfg) and transmit_transform is None
+    robust = cfg.robust_agg != "none"
+    # --dp sketch: the noise lands on the f32 aggregated table, so the
+    # tables cross at f32 and the round's one wire qdq runs on the
+    # noisy table
+    dp_on = cfg.dp == "sketch"
+    noise_std = table_noise_std(cfg) if dp_on else 0.0
+    noisy_workers = (cfg.do_dp and cfg.dp_mode == "worker"
+                     and cfg.noise_multiplier != 0)
     # Σ_i (wd/num_workers)·p·n_i / total = (wd/num_workers)·p: one
     # device holds every client, so the whole term lands here
     wd_coef = cfg.weight_decay / cfg.num_workers
@@ -231,7 +283,7 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
     def emit(g):
         if cfg.mode != "sketch":
             return g
-        if wire == "f32":
+        if wire == "f32" or dp_on:
             return sketch.sketch(g)
         return fold_row_chunks(wire_crossing(g, rows) for rows in chunks)
 
@@ -246,7 +298,14 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
         weighted = torch.where(n > 0, loss * n, torch.zeros_like(loss))
         (g,) = torch.autograd.grad(torch.sum(weighted) / total, p)
         if cfg.weight_decay != 0:
-            g = g + wd_coef * ps_weights
+            if cfg.dropout_prob > 0:
+                # the round's alive fraction of its datapoints: the
+                # whole term while any client is alive, exactly 0 on a
+                # round whose clients all dropped, as the per-client
+                # round's dead transmits are
+                g = g + (wd_coef * (torch.sum(mask) / total)) * ps_weights
+            else:
+                g = g + wd_coef * ps_weights
         t = emit(g)
         mets = tuple(((n > 0) * m).detach()
                      for m in (loss,) + tuple(metrics))
@@ -254,7 +313,7 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
 
     if fused:
         return (lambda ps_weights, batch, client_states=None,
-                client_ids=None, fedavg_lr=1.0:
+                client_ids=None, fedavg_lr=1.0, round_index=0:
                 fused_round(ps_weights, batch, client_states))
 
     if cfg.mode == "fedavg":
@@ -276,41 +335,79 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
         table stays exactly zero (the scale guard of ops/quant.py)."""
         return quant.dequantize(*quant.quantize_table(table, wire))
 
+    # each client's table crosses the wire on its own where the clients
+    # sketch (the clipped and robust paths; reference
+    # core/rounds.py:814-821), except under DP
+    per_client_wire = (wire != "f32" and cfg.mode == "sketch"
+                       and not late and not dp_on)
+
     def run_chunk(ps_weights, client_states, ids, batch, fedavg_lr,
-                  live=None):
+                  live=None, noise_gen=None):
         """The clients of one chunk (from ``live`` on, padding): gather
         their state rows, run the batched step, scatter the rows back;
-        their transmits' sum and (C,) metrics."""
+        their (C, ...) transmits and (C,) metrics."""
         rows = [None if a is None else a.index_select(0, ids)
                 for a in client_states]
         t, mets, *new_rows = per_client(ps_weights, *rows, batch,
-                                        fedavg_lr, live)
-        if wire != "f32" and cfg.mode == "sketch" and not late:
-            # each client's (clipped) table crosses the wire on its own
-            # (reference core/rounds.py:814-821)
-            t = qdq(t)
+                                        fedavg_lr, live, noise_gen)
         for arr, new in zip(client_states, new_rows):
             if arr is not None and new is not None:
                 arr.index_copy_(0, ids, new)
-        return torch.sum(t, dim=0), mets
+        return t, mets
+
+    def release(aggregated, round_index):
+        """``--dp sketch``'s release (reference core/rounds.py:874-888):
+        one draw from the round's noise stream on the f32 aggregated
+        table, then the deferred wire qdq of the noisy table, in the
+        ``--overlap_depth`` row chunks."""
+        gen = noise_generator(cfg.seed, round_index, NOISE_TAG,
+                              aggregated.device)
+        aggregated = add_table_noise(aggregated, gen, noise_std)
+        if wire != "f32":
+            aggregated = fold_row_chunks(qdq(aggregated[off:off + cnt])
+                                         for off, cnt in chunks)
+        return aggregated
 
     def client_round(ps_weights, batch, client_states=None,
-                     client_ids=None, fedavg_lr=1.0) -> RoundResult:
+                     client_ids=None, fedavg_lr=1.0,
+                     round_index=0) -> RoundResult:
         mask = batch["mask"]
         W = mask.shape[0]
-        total = torch.clamp(torch.sum(mask), min=1.0)
-        if client_states is None:  # a mode with no per-client state
-            client_states = ClientStates(None, None, None)
+        if dp_on:
+            # the static padded capacity W·B: every client's share of
+            # the release stays within the sqrt(r)·C/W the accountant
+            # charges, on every round (reference core/rounds.py:836-858)
+            total = torch.full((), float(mask.numel()),
+                               dtype=torch.float32, device=mask.device)
+        else:
+            total = torch.clamp(torch.sum(mask), min=1.0)
+        if client_ids is None:
             client_ids = torch.zeros(W, dtype=torch.int64,
                                      device=mask.device)
+        real_ids = client_ids
+        if client_states is None:  # a mode with no per-client state
+            client_states = ClientStates(None, None, None)
         dead = _dead_row(client_states)
         ids = _state_ids(client_ids, batch, dead)
+        gen = (noise_generator(cfg.seed, round_index, WORKER_NOISE_TAG,
+                               mask.device) if noisy_workers else None)
         chunk = cfg.client_chunk
         if not 0 < chunk < W:
             # all W clients in one batched pass (reference client_round)
-            acc, metrics = run_chunk(ps_weights, client_states, ids,
-                                     batch, fedavg_lr)
-            aggregated = (emit(acc) if late else acc) / total
+            t, metrics = run_chunk(ps_weights, client_states, ids,
+                                   batch, fedavg_lr, noise_gen=gen)
+            if transmit_transform is not None:
+                t = transmit_transform(t, batch, real_ids, round_index)
+            if per_client_wire:
+                t = qdq(t)
+            if robust:
+                aggregated = robust_fold(cfg, t, batch)
+            elif late:
+                aggregated = emit(torch.sum(t, dim=0)) / total
+            else:
+                aggregated = torch.sum(t, dim=0) / total
+            if dp_on:
+                aggregated = release(aggregated, round_index)
             return RoundResult(aggregated, metrics, client_states)
         # ceil(W / chunk) chunks, the last padded with dead slots
         # (reference _client_round_chunked): transmits summed within a
@@ -325,9 +422,11 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
         acc, mets = None, []
         for c in range(n_chunks):
             part = slice(c * chunk, (c + 1) * chunk)
-            s, m = run_chunk(ps_weights, client_states, ids[part],
+            t, m = run_chunk(ps_weights, client_states, ids[part],
                              {k: v[part] for k, v in batch.items()},
-                             fedavg_lr, live=min(chunk, W - c * chunk))
+                             fedavg_lr, live=min(chunk, W - c * chunk),
+                             noise_gen=gen)
+            s = torch.sum(qdq(t) if per_client_wire else t, dim=0)
             if late:
                 s = sketch.sketch(s)
             acc = s if acc is None else acc + s
@@ -374,7 +473,7 @@ def _build_sgd_client_step(cfg, loss_fn, sketch, padded_batch_size):
                                      padded_batch_size)
 
     def step(ps_weights, velocity, error, client_weights, batch,
-             fedavg_lr, live=None):
+             fedavg_lr, live=None, noise_gen=None):
         del fedavg_lr
         mask = batch["mask"]
         batch_size = torch.sum(mask.reshape(mask.shape[0], -1), dim=1)
@@ -387,7 +486,7 @@ def _build_sgd_client_step(cfg, loss_fn, sketch, padded_batch_size):
                                   client_weights)
         else:
             weights, new_wts = ps_weights, client_weights
-        g_unit, metrics = forward_grad(weights, batch)
+        g_unit, metrics = forward_grad(weights, batch, noise_gen)
         upd = accumulate_and_compress(
             cfg, g_unit,
             velocity if cfg.local_momentum > 0 else None,
@@ -415,7 +514,9 @@ def _build_fedavg_client_step(cfg, loss_fn, padded_batch_size):
     ``--fedavg_batch_size`` for ``--num_fedavg_epochs`` epochs, the LR
     decayed by ``--fedavg_lr_decay`` a step, and sends its weight
     delta times its sample count (the reference worker's fedavg
-    loop)."""
+    loop). Under ``--do_dp --dp_mode worker`` every local step's
+    gradient takes its own draw of the worker noise, drawn for all
+    steps before the batched pass."""
     if cfg.fedavg_batch_size == -1:
         sub = padded_batch_size
     else:
@@ -424,18 +525,21 @@ def _build_fedavg_client_step(cfg, loss_fn, padded_batch_size):
     client_grad = make_client_grad(cfg, loss_fn, sub)
     n = padded_to(cfg, sub)
 
-    def local_sgd(ps_weights, batch, fedavg_lr):
-        # batch: (n_batches, n, ...), the local batches
+    def local_sgd(ps_weights, batch, fedavg_lr, noise=None):
+        # batch: (n_batches, n, ...), the local batches; noise:
+        # (epochs * n_batches, d) or None
         client_size = torch.sum(batch["mask"])
         w = ps_weights
         step_i = torch.zeros((), dtype=torch.float32,
                              device=ps_weights.device)
         sums = None
-        for _ in range(cfg.num_fedavg_epochs):
+        for e in range(cfg.num_fedavg_epochs):
             for j in range(n_batches):
                 mb = {k: v[j] for k, v in batch.items()}
                 valid = torch.sum(mb["mask"]) > 0
                 g_unit, metrics = client_grad(w, mb)
+                if noise is not None:
+                    g_unit = g_unit + noise[e * n_batches + j]
                 # an all-padding batch changes nothing and is no step
                 w_new = w - g_unit * fedavg_lr * (cfg.fedavg_lr_decay
                                                   ** step_i)
@@ -451,7 +555,7 @@ def _build_fedavg_client_step(cfg, loss_fn, padded_batch_size):
         return (ps_weights - w) * client_size, metrics
 
     def step(ps_weights, velocity, error, client_weights, batch,
-             fedavg_lr, live=None):
+             fedavg_lr, live=None, noise_gen=None):
         del live
         # (C, B, ...) -> (C, n_batches, n, ...): the local batches of
         # sub samples, each padded for its microbatches
@@ -461,8 +565,16 @@ def _build_fedavg_client_step(cfg, loss_fn, padded_batch_size):
                              for k, v in batch.items()}, n)
         batch = {k: v.reshape((c, n_batches) + v.shape[1:])
                  for k, v in batch.items()}
-        transmit, metrics = torch.func.vmap(
-            lambda b: local_sgd(ps_weights, b, fedavg_lr))(batch)
+        noise = worker_noise(cfg, noise_gen,
+                             (c, cfg.num_fedavg_epochs * n_batches,
+                              ps_weights.shape[-1]))
+        if noise is None:
+            transmit, metrics = torch.func.vmap(
+                lambda b: local_sgd(ps_weights, b, fedavg_lr))(batch)
+        else:
+            transmit, metrics = torch.func.vmap(
+                lambda b, z: local_sgd(ps_weights, b, fedavg_lr, z))(
+                    batch, noise)
         return transmit, metrics, velocity, error, client_weights
 
     return step
@@ -470,7 +582,8 @@ def _build_fedavg_client_step(cfg, loss_fn, padded_batch_size):
 
 def build_server_round(cfg: Config) -> Callable:
     """Returns ``server_round(ps_weights, server_state, aggregated, lr,
-    client_velocities=None, client_ids=None) -> (new_ps_weights,
+    client_velocities=None, client_ids=None, noise_gen=None) ->
+    (new_ps_weights,
     new_server_state, client_velocities, weight_update, support)``.
     ``support`` names the coordinates the update changed (download
     accounting): {"bitmap": the packed mask} on the threshold-select
@@ -483,13 +596,14 @@ def build_server_round(cfg: Config) -> Callable:
     server takes lr = 1 (the clients applied the LR). Under true_topk with
     local momentum, the participating clients' velocity rows
     (``client_ids``, dead slots at the dead-slot row) are zeroed where
-    the server sent, in place."""
+    the server sent, in place. ``noise_gen`` is the step's server noise
+    stream under ``--do_dp --dp_mode server``."""
     cfg.validate_runtime()
     sketch = args2sketch(cfg)
 
     def server_round(ps_weights: torch.Tensor, server_state: ServerState,
                      aggregated: torch.Tensor, lr, client_velocities=None,
-                     client_ids=None):
+                     client_ids=None, noise_gen=None):
         if isinstance(lr, torch.Tensor) and lr.ndim:
             # per-coordinate LRs (index param groups), on the device
             assert cfg.mode != "fedavg", "fedavg supports scalar lr only"
@@ -498,7 +612,8 @@ def build_server_round(cfg: Config) -> Callable:
             # made on the device: a copy up would stop the host
             lr = torch.full((), 1.0 if cfg.mode == "fedavg" else float(lr),
                             dtype=torch.float32, device=ps_weights.device)
-        res = server_update(cfg, aggregated, server_state, lr, sketch)
+        res = server_update(cfg, aggregated, server_state, lr, sketch,
+                            noise_gen)
         if res.weight_update is None:
             # the indices are sorted and unique, so each coordinate
             # takes one subtraction: ps[idx] - scaled, as the

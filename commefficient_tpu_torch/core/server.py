@@ -3,8 +3,9 @@ unsketching and top-k recovery.
 
 Port of ``commefficient_tpu/core/server.py`` (``ServerState`` :28,
 ``fold_row_chunks`` :66, ``_lr_scaled_support`` :124,
-``server_update`` :146, with a 0-dim or a per-coordinate (d,) LR, ``_fedavg`` :194, ``_uncompressed`` :205
-without server DP, ``_true_topk`` :225, ``_local_topk`` :267 and
+``server_update`` :146, with a 0-dim or a per-coordinate (d,) LR,
+``_fedavg`` :194, ``_uncompressed`` :205 with the legacy ``--do_dp
+--dp_mode server`` noise, ``_true_topk`` :225, ``_local_topk`` :267 and
 ``_sketched`` :279 with its dense and its sparse re-sketch branches).
 ``gradient`` is the round's aggregated quantity: the client-transmit
 sum divided by the round's total datapoint count, a flat (d,) vector
@@ -21,6 +22,7 @@ import torch
 from commefficient_tpu_torch.config import Config
 from commefficient_tpu_torch.ops.sketch import CountSketch
 from commefficient_tpu_torch.ops.vec import packbits
+from commefficient_tpu_torch.privacy.mechanism import gaussian_noise
 
 
 class ServerState(NamedTuple):
@@ -70,10 +72,15 @@ def _lr_scaled_support(idx, vals, lr):
 
 
 def server_update(cfg: Config, gradient: torch.Tensor, state: ServerState,
-                  lr: torch.Tensor, sketch: Optional[CountSketch] = None
+                  lr: torch.Tensor, sketch: Optional[CountSketch] = None,
+                  noise_gen: Optional[torch.Generator] = None
                   ) -> ServerUpdate:
     """Dispatch on mode (reference ``server_update``). For fedavg the
-    caller passes lr = 1: the clients' local SGD applied the LR."""
+    caller passes lr = 1: the clients' local SGD applied the LR.
+    ``noise_gen`` is the step's server noise stream (``--do_dp
+    --dp_mode server``, uncompressed)."""
+    if cfg.mode == "uncompressed":
+        return _uncompressed(cfg, gradient, state, lr, sketch, noise_gen)
     helper = {
         "sketch": _sketched,
         "local_topk": _local_topk,
@@ -92,8 +99,15 @@ def _fedavg(cfg, avg_update, state, lr, sketch):
     return ServerUpdate(Vvel, ServerState(Vvel, state.Verror))
 
 
-def _uncompressed(cfg, gradient, state, lr, sketch):
+def _uncompressed(cfg, gradient, state, lr, sketch, noise_gen=None):
     Vvel = gradient + cfg.virtual_momentum * state.Vvelocity
+    if cfg.do_dp and cfg.dp_mode == "server" and cfg.noise_multiplier != 0:
+        assert noise_gen is not None, \
+            "server-mode DP with noise needs a noise generator"
+        # the reference adds the noise in place on Vvelocity, so it
+        # stays in the momentum buffer
+        Vvel = Vvel + gaussian_noise(noise_gen, Vvel.shape, Vvel.dtype,
+                                     std=cfg.noise_multiplier)
     return ServerUpdate(Vvel * lr, ServerState(Vvel, state.Verror))
 
 

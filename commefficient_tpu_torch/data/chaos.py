@@ -1,0 +1,215 @@
+"""Deterministic adversary and dropout-trace injection (the chaos
+harness), byzantine and dropout-trace half.
+
+Port of ``commefficient_tpu/data/chaos.py`` (``ChaosConfig`` :62,
+``ChaosInjector`` :92 with ``poison_batch`` :123,
+``transmit_transform`` :137, ``drop_slots`` :190, ``wrap_loader`` :198,
+and ``_ChaosLoader``). Everything is seeded and replayable: the same
+``ChaosConfig`` gives the same byzantine client set and the same
+dropout trace on every run.
+
+Byzantine clients
+    A seeded subset of client ids turns adversarial. ``label_flip``
+    poisons the data (y -> (num_classes-1) - y on the byzantine rows,
+    by ``wrap_loader``). ``sign_flip`` (transmit x -1), ``scale``
+    (transmit x C) and ``noise`` (transmit replaced by
+    N(0, noise_std²) times the client's datapoint count) act on the
+    per-client transmit stack in the round, through the function
+    ``transmit_transform`` returns, passed to
+    ``build_client_round(..., transmit_transform=...)``.
+
+Dropout traces
+    Beside the loader's i.i.d. ``--dropout_prob``: a seeded two-state
+    Markov chain (calm/burst) drops a correlated subset of the round's
+    client slots for the whole burst.
+
+No module of the port's round, runtime or trainers imports this file:
+the round's hook is a plain parameter, and the attacks live here, for
+tests and scripts. The reference's host faults (``FlakyStore``,
+``PreemptionDrill``, ``kill_prefetch_worker``, the straggler sleeps of
+``wrap_loader``) and ``ArrivalSchedule`` belong to the client store
+and asynchronous rounds, which the port does not have.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, Optional, Sequence
+
+import numpy as np
+import torch
+
+__all__ = ["ATTACKS", "ChaosConfig", "ChaosInjector"]
+
+ATTACKS = ("none", "label_flip", "sign_flip", "scale", "noise")
+
+
+@dataclasses.dataclass
+class ChaosConfig:
+    """One replayable fault scenario. Every schedule derives from
+    ``seed``; a field's zero value disables that fault family."""
+
+    seed: int = 0
+    # -- byzantine clients ------------------------------------------
+    attack: str = "none"
+    byzantine_frac: float = 0.0        # fraction of the client pool
+    byzantine_ids: Optional[Sequence[int]] = None  # explicit override
+    attack_scale: float = 10.0         # C for the "scale" attack
+    noise_std: float = 1.0             # sigma for the "noise" attack
+    num_classes: int = 0               # required for label_flip
+    # -- correlated dropout trace -----------------------------------
+    burst_start_prob: float = 0.0      # calm -> burst per round
+    burst_stop_prob: float = 0.5       # burst -> calm per round
+    burst_drop_frac: float = 0.5       # slots dropped during a burst
+
+    def __post_init__(self):
+        assert self.attack in ATTACKS, self.attack
+        if self.attack == "label_flip":
+            assert self.num_classes > 1, \
+                "label_flip needs ChaosConfig.num_classes"
+
+
+# the noise attack's stream tag (the reference folds 7 into its
+# (round key, seed + 2) key)
+_NOISE_ATTACK_TAG = 7
+
+
+class ChaosInjector:
+    """One ``ChaosConfig`` against a pool of ``num_clients`` clients."""
+
+    def __init__(self, cfg: ChaosConfig, num_clients: int):
+        self.cfg = cfg
+        self.num_clients = int(num_clients)
+        rng = np.random.RandomState(cfg.seed)
+        if cfg.byzantine_ids is not None:
+            ids = np.asarray(sorted(set(int(i) for i
+                                        in cfg.byzantine_ids)), np.int32)
+        elif cfg.attack != "none" and cfg.byzantine_frac > 0:
+            k = max(1, int(round(cfg.byzantine_frac * num_clients)))
+            ids = np.sort(rng.choice(num_clients, size=min(
+                k, num_clients), replace=False)).astype(np.int32)
+        else:
+            ids = np.zeros((0,), np.int32)
+        self.byzantine = ids
+        # independent streams: toggling one fault family never moves
+        # another's schedule
+        self._drop_rng = np.random.RandomState(cfg.seed + 1)
+        self._noise_seed = cfg.seed + 2
+        self._in_burst = False
+        self._burst_slots: Optional[np.ndarray] = None
+
+    # -- byzantine side ---------------------------------------------
+
+    def is_byzantine(self, client_ids) -> np.ndarray:
+        return np.isin(np.asarray(client_ids), self.byzantine)
+
+    def poison_batch(self, batch: dict) -> dict:
+        """label_flip: y -> (num_classes-1) - y on the byzantine rows.
+        The other attacks act on transmits: a no-op here."""
+        if self.cfg.attack != "label_flip" or "y" not in batch:
+            return batch
+        bad = self.is_byzantine(batch["client_ids"])
+        if not bad.any():
+            return batch
+        batch = dict(batch)
+        y = batch["y"].copy()
+        y[bad] = (self.cfg.num_classes - 1) - y[bad]
+        batch["y"] = y
+        return batch
+
+    def transmit_transform(self):
+        """``(transmit, batch, client_ids, round_index) -> transmit``
+        for ``build_client_round``, or None where the attack acts on the
+        data. Membership in the byzantine set is tested on the device
+        (``torch.isin``), so no client id is read on the host. The noise
+        attack draws from a generator on the transmit's device seeded
+        by (seed + 2, round, 7) (privacy/mechanism.py
+        ``noise_generator``): the same round gives the same bits."""
+        if self.cfg.attack not in ("sign_flip", "scale", "noise"):
+            return None
+        from commefficient_tpu_torch.privacy.mechanism import (
+            gaussian_noise, noise_generator)
+        byz_np = self.byzantine.astype(np.int64)
+        attack = self.cfg.attack
+        C = float(self.cfg.attack_scale)
+        sigma = float(self.cfg.noise_std)
+        noise_seed = self._noise_seed
+
+        def transform(transmit, batch, client_ids, round_index):
+            if byz_np.size == 0:
+                return transmit
+            byz = torch.as_tensor(byz_np, device=transmit.device)
+            bad = torch.isin(client_ids.to(transmit.device, torch.int64),
+                             byz)
+            badx = bad.reshape((-1,) + (1,) * (transmit.ndim - 1))
+            if attack == "sign_flip":
+                evil = -transmit
+            elif attack == "scale":
+                evil = C * transmit
+            else:  # sigma * N(0, 1) * datapoint count, scaled as an
+                # honest transmit is by its batch size
+                mask = batch["mask"]
+                n = torch.sum(mask.reshape(mask.shape[0], -1), dim=1)
+                gen = noise_generator(noise_seed, round_index,
+                                      _NOISE_ATTACK_TAG, transmit.device)
+                evil = gaussian_noise(gen, transmit.shape, transmit.dtype,
+                                      std=sigma) * n.reshape(badx.shape)
+            return torch.where(badx, evil, transmit)
+
+        return transform
+
+    # -- dropout trace ----------------------------------------------
+
+    def _advance_burst(self, W: int):
+        c = self.cfg
+        if self._in_burst:
+            if self._drop_rng.rand() < c.burst_stop_prob:
+                self._in_burst, self._burst_slots = False, None
+        elif c.burst_start_prob > 0 \
+                and self._drop_rng.rand() < c.burst_start_prob:
+            self._in_burst = True
+            k = max(1, int(round(c.burst_drop_frac * W)))
+            self._burst_slots = self._drop_rng.choice(
+                W, size=min(k, W), replace=False)
+
+    def drop_slots(self, W: int) -> Optional[np.ndarray]:
+        """This round's correlated-drop slot indices (None when calm);
+        the same subset for the burst's whole lifetime."""
+        self._advance_burst(W)
+        return self._burst_slots if self._in_burst else None
+
+    # -- loader wrapping --------------------------------------------
+
+    def wrap_loader(self, loader) -> Iterator[dict]:
+        """Iterate ``loader`` with the data poisoning and the correlated
+        dropout trace applied, in round order."""
+        for batch in loader:
+            batch = self.poison_batch(batch)
+            slots = self.drop_slots(batch["mask"].shape[0])
+            if slots is not None and len(slots):
+                batch = dict(batch)
+                mask = batch["mask"].copy()
+                mask[slots] = 0.0
+                batch["mask"] = mask
+            yield batch
+
+    def wrap(self, loader):
+        return _ChaosLoader(self, loader)
+
+
+class _ChaosLoader:
+    """Loader facade: chaos-wrapped iteration, everything else (len,
+    W, B) delegated."""
+
+    def __init__(self, injector: ChaosInjector, loader):
+        self._injector = injector
+        self._loader = loader
+
+    def __iter__(self):
+        return self._injector.wrap_loader(self._loader)
+
+    def __len__(self):
+        return len(self._loader)
+
+    def __getattr__(self, name):
+        return getattr(self._loader, name)

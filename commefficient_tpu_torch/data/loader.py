@@ -4,7 +4,8 @@
 padded batches, client axis first, with a (W, B) mask for ragged
 clients. The PersonaChat loaders build each batch synchronously (the
 reference's background prefetch thread is not ported); the items and
-every RNG stream are the reference's."""
+every RNG stream are the reference's, the ``--dropout_prob`` client
+drops (``_apply_dropout``, reference loader.py:41-65) included."""
 
 from __future__ import annotations
 
@@ -21,11 +22,19 @@ __all__ = ["FedLoader", "ValLoader", "PersonaFedLoader",
 class FedLoader:
     """CV rounds: ``client_ids`` (W,), ``x`` (W, B, ...) f32, ``y``
     (W, B) i32, ``mask`` (W, B) f32. Rounds with fewer than
-    ``num_workers`` clients are skipped, as the reference does."""
+    ``num_workers`` clients are skipped, as the reference does.
+
+    ``dropout_prob`` injects client failures: each sampled client drops
+    with that probability, from the loader's own
+    ``RandomState(dropout_seed)`` (``rand(W) < p`` a round), and its
+    mask row is zeroed. The round leaves its state untouched and
+    renormalises over the survivors; a round whose clients all dropped
+    still runs, with a zero aggregate."""
 
     _img_shape = None
 
-    def __init__(self, dataset, sampler):
+    def __init__(self, dataset, sampler, dropout_prob: float = 0.0,
+                 dropout_seed: int = 0):
         self.dataset = dataset
         self.sampler = sampler
         if sampler.local_batch_size != -1:
@@ -33,12 +42,26 @@ class FedLoader:
         else:
             self.B = int(np.max(dataset.data_per_client))
         self.W = sampler.num_workers
+        self.dropout_prob = dropout_prob
+        self._dropout_rng = np.random.RandomState(dropout_seed)
+
+    def _apply_dropout(self, batch: dict) -> dict:
+        """Zero the dropped clients' mask rows."""
+        if self.dropout_prob <= 0.0:
+            return batch
+        drop = self._dropout_rng.rand(self.W) < self.dropout_prob
+        if drop.any():
+            batch = dict(batch)
+            mask = batch["mask"].copy()
+            mask[drop] = 0.0
+            batch["mask"] = mask
+        return batch
 
     def __iter__(self) -> Iterator[dict]:
         for round_spec in self.sampler:
             if len(round_spec) < self.W:
                 continue  # incomplete round: skip
-            yield self.collate(round_spec)
+            yield self._apply_dropout(self.collate(round_spec))
 
     def __len__(self):
         return steps_per_epoch(self.sampler.local_batch_size,
@@ -107,8 +130,9 @@ class PersonaFedLoader(FedLoader):
     ``mc_labels`` (W, B) and ``mask`` (W, B) f32."""
 
     def __init__(self, dataset, sampler, num_candidates: int,
-                 max_seq_len: int, pad_id: int = 0):
-        super().__init__(dataset, sampler)
+                 max_seq_len: int, pad_id: int = 0,
+                 dropout_prob: float = 0.0, dropout_seed: int = 0):
+        super().__init__(dataset, sampler, dropout_prob, dropout_seed)
         self.N, self.T, self.pad_id = num_candidates, max_seq_len, pad_id
 
     def collate(self, round_spec) -> dict:

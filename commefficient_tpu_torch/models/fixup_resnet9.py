@@ -187,6 +187,7 @@ class FixupResNet50(FlatModel):
                  dtype=torch.float32, sample_shape=(224, 224, 3)):
         super().__init__()
         self.num_classes, self.dtype = num_classes, dtype
+        self.stage_sizes = tuple(stage_sizes)
         L = sum(stage_sizes)
         cin = sample_shape[2]
         self._spec = {**scalar_leaves("bias1", "bias2"),

@@ -28,7 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from commefficient_tpu_torch.ops.vec import (flat_size, flatten_params,
-                                             ravel_order)
+                                             params_tree, ravel_order)
 
 # flax layout -> torch layout: (kh, kw, cin, cout) -> (cout, cin, kh, kw)
 CONV_TO_TORCH = (3, 2, 0, 1)
@@ -164,6 +164,13 @@ class FlatModel(nn.Module):
         {leaf path: tensor}."""
         return {path: leaf.init(leaf.shape, None).to(device)
                 for path, leaf in ravel_order(self.state_spec())}
+
+    def to_params_tree(self, flat: torch.Tensor) -> dict:
+        """The flat vector -> the flax parameter tree as numpy f32
+        arrays, keys sorted at every level as the JAX package's
+        ``unravel`` of its flat vector gives them (the inverse of
+        ``from_jax_params``)."""
+        return params_tree(flat, self.leaf_shapes())
 
     def from_jax_params(self, params_np: dict, device="cpu") -> torch.Tensor:
         """The JAX package's flax parameter tree, as numpy arrays ->

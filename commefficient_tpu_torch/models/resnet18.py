@@ -105,6 +105,7 @@ class ResNet18(FlatModel):
                  sample_shape=(32, 32, 3)):
         super().__init__()
         self.num_classes, self.dtype = num_classes, torch.float32
+        self.num_blocks = tuple(num_blocks)
         cin = sample_shape[2]
         self._spec = {"Conv_0": {"kernel": Leaf((3, 3, cin, 64),
                                                 he_normal)}}
@@ -150,6 +151,7 @@ class FixupResNet18(FlatModel):
                  dtype=torch.float32, sample_shape=(32, 32, 3)):
         super().__init__()
         self.num_classes, self.dtype = num_classes, dtype
+        self.num_blocks = tuple(num_blocks)
         L = sum(num_blocks)
         cin = sample_shape[2]
         self._spec = {"Conv_0": conv_leaf(3, cin, 64)}

@@ -135,6 +135,7 @@ class ResNet(FlatModel):
                  groups: int = 1, sample_shape=(28, 28, 1)):
         super().__init__()
         self.num_classes, self.norm = num_classes, norm
+        self.block, self.layers = block, tuple(layers)
         self.dtype = torch.float32
         h, w, cin = sample_shape
         names = Names()

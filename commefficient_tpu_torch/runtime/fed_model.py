@@ -47,9 +47,18 @@ and scale LRs), whose per-coordinate LR the server applies.
 ``params()`` is the current weights as the module's flax tree and
 ``save_pretrained`` writes them as the reference's run directory
 (``flax_model.msgpack`` through ``serialization.py``, ``config.json``;
-with ``hf_format`` the HF ``transformers`` files).
-Telemetry, the autopilot, the host client store and meshes are not
-ported.
+with ``hf_format`` the HF ``transformers`` files; with ``torch_format``
+a CV model's reference-named ``state_dict.pt``).
+Each round gets its index (``round_index``), which seeds its noise
+streams (privacy/mechanism.py); under ``--dp sketch`` the run's RDP
+accountant (privacy/accountant.py, reference fed_model.py:372-378,
+868-918) is charged once a dispatched round at σ = ``--dp_noise_mult``
+and weight scale 1 (the port has no asynchronous rounds), and
+``privacy_epsilon()`` reads the ε spent. ``FedOptimizer`` draws the
+legacy ``--do_dp --dp_mode server`` noise from a seed + 1 stream, one a
+server step (reference fed_model.py:1267-1270, 1306-1308).
+Telemetry and its ledger keys, the privacy budget alarm, the autopilot,
+the host client store and meshes are not ported.
 """
 
 from __future__ import annotations
@@ -69,7 +78,10 @@ from commefficient_tpu_torch.core.rounds import (ClientStates, _dead_row,
                                                  build_server_round)
 from commefficient_tpu_torch.core.server import ServerState
 from commefficient_tpu_torch.device import resolve_device
-from commefficient_tpu_torch.ops.vec import packbits, params_tree
+from commefficient_tpu_torch.ops.vec import packbits
+from commefficient_tpu_torch.privacy.accountant import build_accountant
+from commefficient_tpu_torch.privacy.mechanism import (SERVER_NOISE_TAG,
+                                                       noise_generator)
 from commefficient_tpu_torch.serialization import msgpack_serialize
 
 # the most recently constructed FedModel, found by FedOptimizer(args)
@@ -141,6 +153,9 @@ class FedModel:
         # value the previous round's step set
         self.fedavg_lr = 0.0
         self.round_index = 0
+        # --dp sketch: the run's RDP accountant, charged once a
+        # dispatched round; None with --dp off
+        self._accountant = build_accountant(args)
         self.training = True
         # set by the trainer when a round's loss diverged: its weights
         # are not a final model
@@ -189,11 +204,17 @@ class FedModel:
         ids = torch.as_tensor(ids_np.astype(np.int64)).to(
             self.device, non_blocking=True)
         res = self._client_round(self.ps_weights, dev_batch,
-                                 self.client_states, ids, self.fedavg_lr)
+                                 self.client_states, ids, self.fedavg_lr,
+                                 round_index=self.round_index)
         self.client_states = res.client_states
         self.pending_aggregated = res.aggregated
         self.pending_client_ids = _state_ids(
             ids, dev_batch, _dead_row(self.client_states))
+        if self._accountant is not None:
+            # the round released its noised table whether or not its
+            # metrics ever reach the host
+            self._accountant.step(weight_scale=1.0,
+                                  sigma=float(self.args.dp_noise_mult))
         self.round_index += 1
         if res.bn_stats is not None:
             # running-stats blend; a round with no real sample leaves
@@ -252,13 +273,21 @@ class FedModel:
         counts = mask.reshape(mask.shape[0], -1).sum(axis=1)
         return out + [counts]
 
+    def privacy_epsilon(self) -> Optional[float]:
+        """The ε spent so far at ``--dp_delta`` under ``--dp sketch``
+        (0.0 before the first round); None with ``--dp off``."""
+        if self._accountant is None:
+            return None
+        return self._accountant.epsilon()
+
     # --- the final model ---------------------------------------------------
 
     def params(self) -> dict:
         """The current server weights as the module's flax parameter
-        tree of numpy f32 arrays (reference ``params``,
+        tree of numpy f32 arrays, keys sorted as the reference's
+        ``unravel`` gives them (reference ``params``,
         fed_model.py:565)."""
-        return params_tree(self.ps_weights, self.module.leaf_shapes())
+        return self.module.to_params_tree(self.ps_weights)
 
     def save_pretrained(self, save_dir: str, hf_format: bool = False,
                         torch_format: bool = False):
@@ -272,21 +301,25 @@ class FedModel:
         writes the HF ``transformers`` ``config.json`` in its place and
         ``pytorch_model.bin`` beside it, so the directory loads with
         ``GPT2DoubleHeadsModel.from_pretrained`` and with this
-        package's and the reference's reload. ``torch_format`` (the
-        CV models' ``state_dict.pt``) is not ported."""
+        package's and the reference's reload. ``torch_format`` (a CV
+        model) also writes ``state_dict.pt``, a torch ``state_dict``
+        with the reference torch modules' key names and layouts
+        (``models/torch_export.py``), with the running statistics where
+        the model tracks them."""
         from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
                                                          convert_gpt2_to_hf,
                                                          saved_config)
-        if torch_format:
-            raise NotImplementedError(
-                "save_pretrained(torch_format=True), the CV models' "
-                "state_dict.pt, is not ported")
+        from commefficient_tpu_torch.models.torch_export import \
+            save_torch_state_dict
         cfg = getattr(self.module, "cfg", None)
         if hf_format and not isinstance(cfg, GPT2Config):
             raise ValueError("hf_format export is defined for GPT-2 "
                              "modules only")
         os.makedirs(save_dir, exist_ok=True)
         params = self.params()
+        if torch_format:
+            save_torch_state_dict(self.module, params, self.model_state,
+                                  os.path.join(save_dir, "state_dict.pt"))
         # config first: weights without a config would rebuild the
         # wrong architecture on reload
         if hf_format:
@@ -469,6 +502,12 @@ class FedOptimizer:
             self._lr_indicators = inds
         self.server_state = ServerState.init(self.args, self.model.device)
         self._server_round = build_server_round(self.args)
+        # the legacy --do_dp server noise: step s draws from the
+        # (seed + 1, s) stream
+        self._server_noise = (self.args.do_dp
+                              and self.args.dp_mode == "server"
+                              and self.args.noise_multiplier != 0)
+        self._step_count = 0
 
     def get_lr(self):
         """A float, or with index groups a (d,) tensor on the device."""
@@ -492,11 +531,15 @@ class FedOptimizer:
             # the next round's clients run their local SGD at this LR;
             # the server step itself takes lr = 1
             m.fedavg_lr = lr
+        self._step_count += 1
+        gen = (noise_generator(self.args.seed + 1, self._step_count,
+                               SERVER_NOISE_TAG, m.device)
+               if self._server_noise else None)
         new_ps, self.server_state, new_vel, update, support = \
             self._server_round(m.ps_weights, self.server_state,
                                m.pending_aggregated, lr,
                                m.client_states.velocities,
-                               m.pending_client_ids)
+                               m.pending_client_ids, gen)
         m.ps_weights = new_ps
         m.client_states = m.client_states._replace(velocities=new_vel)
         m.pending_aggregated = None

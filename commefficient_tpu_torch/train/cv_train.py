@@ -8,6 +8,13 @@ processed as they are flushed (reference cv_train.py:249-266). Every
 CV model of the registry, sized for the dataset's samples; the Fixup LR
 groups, ``--batchnorm``'s running-stats eval, ``--mixup``, and the
 numpy transform stack of each dataset (Synthetic, CIFAR10/100, EMNIST).
+``--finetune`` starts from ``finetune_path/<model>.pkl`` wherever its
+leaves fit (``merge_finetune_params``); ``--checkpoint`` ends a run
+that did not diverge by writing ``checkpoint_path/<model>.pkl``, the
+pickled flax parameter tree, and ``<model>.pt``, the reference-named
+torch ``state_dict`` (``save_checkpoint``). The round features
+``--robust_agg``, ``--dp``, ``--do_dp`` and ``--dropout_prob`` live in
+the round and the loader (core/rounds.py, data/loader.py).
 Runs on the card unless ``--device cpu`` is given.
 
 Run e.g.:
@@ -20,6 +27,8 @@ Run e.g.:
 from __future__ import annotations
 
 import math
+import os
+import pickle
 import re
 import sys
 import time
@@ -36,6 +45,8 @@ from commefficient_tpu_torch.data import transforms as T
 from commefficient_tpu_torch.device import resolve_device
 from commefficient_tpu_torch.models import get_model
 from commefficient_tpu_torch.models.configs import get_model_config
+from commefficient_tpu_torch.models.torch_export import (
+    save_torch_state_dict, supports_torch_export)
 from commefficient_tpu_torch.ops.vec import param_group_indices
 from commefficient_tpu_torch.runtime import (FedModel, FedOptimizer,
                                              LambdaLR, drain_rounds)
@@ -278,6 +289,8 @@ def train(model, opt, lr_scheduler, train_loader, val_loader, args,
                           mixup_rng=mixup_rng)
         if out is None:
             print("NaN detected, aborting training")
+            # its weights are not a model: --checkpoint saves nothing
+            model.diverged = True
             return results
         train_loss, train_acc, download, upload = out
         train_time = timer()
@@ -339,7 +352,9 @@ def get_data_loaders(args: Config):
                  **common)
     sampler = FedSampler(train_ds, args.num_workers,
                          args.local_batch_size, seed=args.seed)
-    train_loader = FedLoader(train_ds, sampler)
+    train_loader = FedLoader(train_ds, sampler,
+                             dropout_prob=args.dropout_prob,
+                             dropout_seed=args.seed)
     val_loader = ValLoader(val_ds, args.valid_batch_size,
                            shards_per_step=max(1, args.num_workers))
     return train_loader, val_loader, train_ds
@@ -396,6 +411,66 @@ def param_groups_of(args: Config, module):
     return [{"lr": 1.0}]
 
 
+def merge_finetune_params(target: dict, source: dict):
+    """Overlay ``source`` (a loaded checkpoint tree) onto ``target``
+    (freshly initialised for the new dataset) wherever a leaf's path
+    and shape match; the others, the classifier head when the class
+    count changed, keep their fresh initialisation (reference
+    ``merge_finetune_params``, cv_train.py:435-459). Returns (merged,
+    the replaced paths)."""
+    replaced = []
+
+    def rec(t, s, path):
+        if isinstance(t, dict):
+            out = {}
+            for k, v in t.items():
+                if isinstance(s, dict) and k in s:
+                    out[k] = rec(v, s[k], path + (k,))
+                else:
+                    replaced.append("/".join(path + (k,)))
+                    out[k] = v
+            return out
+        if getattr(s, "shape", None) == getattr(t, "shape", None):
+            return np.asarray(s)
+        replaced.append("/".join(path))
+        return t
+
+    return rec(target, source, ()), replaced
+
+
+def load_finetune_params(args: Config, module, params: torch.Tensor
+                         ) -> torch.Tensor:
+    """Load finetune_path/<model>.pkl (trained on --finetuned_from) and
+    merge it into the fresh flat ``params`` (reference
+    ``load_finetune_params``, cv_train.py:462-474)."""
+    path = os.path.join(args.finetune_path, args.model + ".pkl")
+    with open(path, "rb") as f:
+        source = pickle.load(f)
+    merged, replaced = merge_finetune_params(
+        module.to_params_tree(params), source)
+    print(f"finetune: loaded {path}; reinitialised: "
+          f"{replaced or 'nothing'}")
+    return module.from_jax_params(merged, params.device)
+
+
+def save_checkpoint(model, args: Config):
+    """The end-of-run ``--checkpoint`` (reference cv_train.py:614-637):
+    ``checkpoint_path/<model>.pkl``, the pickled flax parameter tree of
+    numpy arrays, and, for the families ``supports_torch_export``
+    names, ``<model>.pt``, the reference-named torch ``state_dict``
+    with the running statistics where the model tracks them."""
+    os.makedirs(args.checkpoint_path, exist_ok=True)
+    path = os.path.join(args.checkpoint_path, args.model + ".pkl")
+    params = model.params()
+    with open(path, "wb") as f:
+        pickle.dump(params, f)
+    print(f"saved checkpoint to {path}")
+    if supports_torch_export(model.module):
+        tpath = os.path.join(args.checkpoint_path, args.model + ".pt")
+        save_torch_state_dict(model.module, params, model.model_state, tpath)
+        print(f"saved torch state_dict to {tpath}")
+
+
 DEFAULT_LR = 0.4
 
 
@@ -428,6 +503,8 @@ def main(argv=None):
         args.num_clients = int(train_ds.num_clients)
 
     module, params = build_model(args, device)
+    if args.do_finetune:
+        params = load_finetune_params(args, module, params)
     model = make_fed_model(module, params, args, train_loader.B, device)
     opt = FedOptimizer(param_groups_of(args, module), args)
 
@@ -443,7 +520,10 @@ def main(argv=None):
             [0, args.pivot_epoch * spe, horizon * spe],
             [0, args.lr_scale, 0])
         lr_scheduler = LambdaLR(opt, lambda x: lambda_step(x))
-    return train(model, opt, lr_scheduler, train_loader, val_loader, args)
+    results = train(model, opt, lr_scheduler, train_loader, val_loader, args)
+    if args.do_checkpoint and not model.diverged:
+        save_checkpoint(model, args)
+    return results
 
 
 if __name__ == "__main__":

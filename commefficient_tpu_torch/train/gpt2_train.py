@@ -26,8 +26,12 @@ directory this trainer or the reference's saved (``config.json`` and
 initialisation. Without ``--test`` the run ends by saving the model
 and the tokenizer into its log directory (``runs/...``, ``make_logdir``):
 ``flax_model.msgpack`` and ``config.json``, and with ``--hf_export``
-the HF ``config.json`` and ``pytorch_model.bin`` too. Telemetry,
-checkpoint resume and autosave are not ported (their flags raise).
+the HF ``config.json`` and ``pytorch_model.bin`` too. ``--finetune`` is
+one validation pass and nothing else (reference gpt2_train.py:445-450);
+``--dropout_prob`` drops clients in the loader. Telemetry, checkpoint
+resume and autosave are not ported (their flags raise), and neither
+are the robust folds and DP in this trainer: ``--robust_agg``, ``--dp``
+and ``--do_dp`` raise, naming themselves.
 
 ``--pipeline_depth N`` lets the host run N rounds ahead of the card
 (``run_batches`` drains them, ``runtime/fed_model.py drain_rounds``).
@@ -378,7 +382,9 @@ def get_data_loaders(args: Config, tokenizer):
     sampler = FedSampler(train_ds, args.num_workers, args.local_batch_size,
                          seed=args.seed)
     train_loader = PersonaFedLoader(train_ds, sampler, args.num_candidates,
-                                    MAX_SEQ_LEN, pad_id)
+                                    MAX_SEQ_LEN, pad_id,
+                                    dropout_prob=args.dropout_prob,
+                                    dropout_seed=args.seed)
     # full-candidate validation: every candidate a val item carries
     n_val = args.val_candidates
     if n_val <= 0:
@@ -432,6 +438,10 @@ def _check_per_client(args: Config, remat: bool):
 
 def main(argv=None):
     args = parse_args(default_lr=4e-2, argv=argv)
+    for flag, on in (("--robust_agg", args.robust_agg != "none"),
+                     ("--dp", args.dp != "off"), ("--do_dp", args.do_dp)):
+        if on:
+            raise NotImplementedError(f"gpt2_train {flag} is not ported")
     if args.mode != "sketch":
         # at PersonaChat's 17 568 clients their per-client state needs
         # the host client store
@@ -468,6 +478,13 @@ def main(argv=None):
     horizon = args.schedule_epochs or args.num_epochs
     lambda_step = PiecewiseLinear([0, horizon * spe], [args.lr_scale, 0])
     lr_scheduler = LambdaLR(opt, lambda x: lambda_step(x))
+
+    if args.do_finetune:
+        # --finetune is evaluation only (reference gpt2_train.py:445-450)
+        out = run_batches(model, opt, lr_scheduler, val_loader, args,
+                          training=False)
+        print({"val_nll": out[0], "val_acc": out[1], "val_ppl": out[2]})
+        return out
 
     if args.eval_before_start:
         out = run_batches(model, opt, lr_scheduler, val_loader, args,

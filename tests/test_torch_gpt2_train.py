@@ -120,6 +120,41 @@ def test_unported_options_raise(tmp_path, flag):
                         + ARGV + flag)
 
 
+def test_finetune_is_one_validation_pass(tmp_path):
+    out = gpt2_train.main(["--device", "cpu", "--dataset_dir",
+                           str(tmp_path)] + ARGV + ["--finetune"])
+    nll, acc, ppl = out
+    assert np.isfinite(nll) and ppl == pytest.approx(np.exp(nll))
+    from commefficient_tpu_torch.runtime import fed_model
+    assert fed_model._CURRENT_MODEL.round_index == 0
+
+
+def test_dropout_prob_drops_the_replayed_clients(tmp_path, monkeypatch):
+    """--dropout_prob 0.5: the loader zeroes the mask rows of
+    RandomState(--seed).rand(W) < 0.5 a round, and a dropped client
+    uploads nothing."""
+    log = _recording(monkeypatch, gpt2_train)
+    results = gpt2_train.main(["--device", "cpu", "--dataset_dir",
+                               str(tmp_path)] + ARGV
+                              + ["--dropout_prob", "0.5"])
+    assert len(results) == 2 and len(log) == 2
+    replay = np.random.RandomState(5)
+    for ids, _, up in log:
+        drop = replay.rand(len(ids)) < 0.5
+        assert up == (~drop).sum() * 4 * 100
+
+
+@pytest.mark.parametrize("flag", [["--robust_agg", "median"],
+                                  ["--dp", "sketch"], ["--do_dp"]])
+def test_robust_and_dp_raise_naming_the_flag(tmp_path, flag):
+    """The CV trainer runs the robust folds and DP; gpt2_train does not
+    have them yet and raises, naming the flag."""
+    with pytest.raises(NotImplementedError,
+                       match=f"gpt2_train {flag[0]} is not ported"):
+        gpt2_train.main(["--device", "cpu", "--dataset_dir", str(tmp_path)]
+                        + ARGV + flag)
+
+
 @pytest.mark.parametrize("flag", [["--max_grad_norm", "1.0"],
                                   ["--microbatch_size", "1"]])
 def test_flash_on_a_path_that_raises_still_raises(tmp_path, flag):

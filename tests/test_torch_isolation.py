@@ -38,3 +38,40 @@ def test_port_imports_no_jax():
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+CONFINED = r"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {root!r})
+import commefficient_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    commefficient_tpu_torch.__path__, "commefficient_tpu_torch.")]
+new = {{"commefficient_tpu_torch.core.robust",
+        "commefficient_tpu_torch.privacy.accountant",
+        "commefficient_tpu_torch.privacy.mechanism",
+        "commefficient_tpu_torch.models.torch_export",
+        "commefficient_tpu_torch.data.chaos"}}
+assert new <= set(names), sorted(new - set(names))
+for name in names:
+    if name != "commefficient_tpu_torch.data.chaos":
+        importlib.import_module(name)
+leaked = "commefficient_tpu_torch.data.chaos" in sys.modules
+importlib.import_module("commefficient_tpu_torch.data.chaos")
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "flax",
+                                    "commefficient_tpu"))
+print(leaked, bad)
+sys.exit(1 if leaked or bad else 0)
+"""
+
+
+def test_chaos_harness_is_imported_by_no_module_of_the_port():
+    """The robust fold, DP, export and chaos modules import no JAX, and
+    no module of the port imports the chaos harness (the round's hook
+    is a parameter; the attacks are for tests and scripts)."""
+    code = CONFINED.format(root=ROOT)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd="/",
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

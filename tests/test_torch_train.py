@@ -115,9 +115,9 @@ def test_mode_trainer_matches_jax_bytes_and_losses(mode, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,name", [
-    (["--do_dp"], "--do_dp"),
-    (["--robust_agg", "median"], "--robust_agg"),
-    (["--finetune"], "--finetune"),
+    (["--resume"], "--resume"),
+    (["--checkpoint_every", "1"], "--checkpoint_every"),
+    (["--approx_topk"], "--approx_topk"),
     (["--dataset_name", "ImageNet"], "--dataset_name ImageNet"),
 ])
 def test_unported_options_raise(argv, name):
