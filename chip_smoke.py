@@ -124,7 +124,29 @@ through the kernels:
   ``.pkl`` leaf for leaf ``FedModel.params()``, the ``.pt`` the
   reference torch ResNet9's keys and shapes; then ``--finetune`` from it
   on a CIFAR100 fixture: every leaf but the 100-class head the saved
-  one, the head fresh; no weights file left in the working directory).
+  one, the head fresh; no weights file left in the working directory);
+- the per-client state off the card, GPT-2's other modes and resume,
+  under cuDNN's and PyTorch's deterministic algorithms
+  (``deterministic()``): ``clientstore_paths`` (ResNet9 local_topk,
+  W = 8, local error and momentum, 64 clients, 4 rounds under
+  ``--clientstore device`` and ``host`` with a 3-client arena: the final
+  weights and every round's selected set bit for bit, 8 + 8 selections
+  a round; then ``clientstore_10000``: 10 000 clients, ``auto`` must
+  resolve to host, 2 rounds, the store's stats, each round's gather,
+  H2D, D2H, write-back and spill seconds and the peak memory);
+  ``gpt2_mode_paths`` (GPT-2 at full width, W = 4, 4 rounds each:
+  local_topk with local error through the per-client round under
+  ``host`` (an 8-row arena, the spill in a temporary directory the
+  phase removes) and ``device``, bit for bit; true_topk, uncompressed
+  and fedavg; their exact launches (``GPT2_MODE_PATHS``);
+  ``gpt2_natural_clients``: PersonaChat's 17 568 clients resolve to the
+  host store, not run); ``resume_paths`` (the ResNet9 sketch path and
+  local_topk under the host store, 2 epochs of 2 rounds straight
+  against ``--checkpoint --checkpoint_every_rounds 1`` stopped by a
+  ``PreemptionDrill`` SIGTERM after round 3's autosave and resumed with
+  ``--resume``: the weights and every round's selected set bit for bit,
+  the two halves' launches the straight run's; archive size, save and
+  load seconds).
 
 The sketch, estimates, threshold search, take-mask and sketch-and-
 quantize kernels are also checked and timed at GPT-2's padded_d =
@@ -170,6 +192,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -180,12 +203,15 @@ import torch
 
 from commefficient_tpu_torch import _build, profile_round
 from commefficient_tpu_torch.accounting import sketch_wire_bytes
+from commefficient_tpu_torch.clientstore import (resolve_clientstore,
+                                                 state_row_bytes)
 from commefficient_tpu_torch.config import Config, parse_args
 from commefficient_tpu_torch.core.grad import make_forward_grad
 from commefficient_tpu_torch.core.robust import robust_fold
 from commefficient_tpu_torch.core.rounds import ClientStates
 from commefficient_tpu_torch.core.server import ServerState, server_update
-from commefficient_tpu_torch.data.chaos import ChaosConfig, ChaosInjector
+from commefficient_tpu_torch.data.chaos import (ChaosConfig, ChaosInjector,
+                                                PreemptionDrill)
 from commefficient_tpu_torch.data.fixtures import write_fixture
 from commefficient_tpu_torch.data.tokenizer import SPECIAL_TOKENS, load_tokenizer
 from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
@@ -205,7 +231,7 @@ from commefficient_tpu_torch.parallel.wire import row_chunks
 from commefficient_tpu_torch.privacy import (NOISE_TAG, PrivacyAccountant,
                                              add_table_noise, noise_generator,
                                              table_noise_std)
-from commefficient_tpu_torch.runtime import fed_model
+from commefficient_tpu_torch.runtime import checkpoint, fed_model
 from commefficient_tpu_torch.serialization import msgpack_restore
 from commefficient_tpu_torch.train import cv_train, gpt2_train
 
@@ -2647,6 +2673,396 @@ def checkpoint_finetune_path():
           "wall_seconds": wall})
 
 
+
+# --- the host client store, GPT-2's other modes, resume (PR 18) ----------
+
+# the local_topk path (W = 8, local error and momentum) at 64 clients,
+# one epoch's first 4 rounds, under --clientstore device and host (a
+# budget of 3 rows: rows spill to the mmap tier). The 64 clients share
+# the 640 Synthetic samples, 10 each (--iid: a non-iid split needs a
+# multiple of the 10 classes)
+STORE_TAIL = ["--mode", "local_topk", "--error_type", "local",
+              "--local_momentum", "0.9", "--pivot_epoch", "0.2",
+              "--lr_scale", "0.001"]
+ROW_BYTES_RESNET9 = 4 * D  # one field's row
+STORE_ARGV = STORE_TAIL + ["--num_clients", "64", "--iid",
+                           "--num_epochs", "0.4"]
+STORE_HOST = ["--clientstore", "host", "--clientstore_bytes",
+              str(3 * 2 * ROW_BYTES_RESNET9)]
+# 10 000 clients of one sample each, local error alone (263 GB of error
+# rows): auto must resolve to host; 2 of the epoch's 157 rounds
+# (ceil(10 000 samples / (W = 8 x B = 8))), a 4-row arena
+BIG_ARGV = STORE_TAIL[:4] + ["--local_momentum", "0",
+    "--num_clients", "10000", "--synthetic_per_class", "1000",
+    "--num_epochs", "0.013", "--pivot_epoch", "0.0065", "--lr_scale",
+    "0.001", "--clientstore", "auto", "--clientstore_bytes",
+    str(4 * ROW_BYTES_RESNET9)]
+# GPT-2's other modes on the fabricated corpus (16 clients, W = 4, 4
+# rounds): (phase, flags, launches of `rounds` rounds and `val` steps
+# for W clients). local_topk runs the per-client round with the
+# gpt2_clients_path flags (2 microbatches: 2 flce forwards, the clients
+# folded in, and 2 W backwards a round; W selections); fedavg's local
+# SGD takes 2 steps of 4 items: the first step's weights are shared
+# (one forward launch), the second's are each client's own (W), and
+# every backward is a client's
+GPT2_MODE_PATHS = (
+    ("gpt2_local_topk_path",
+     ["--mode", "local_topk", "--error_type", "local", "--local_momentum",
+      "0"] + CLIENTS_EXTRA,
+     lambda r, v, w: {"threshold_key_kernel": w * r, "take_mask_kernel": w * r,
+                      "flce_fwd_kernel": 2 * r + v,
+                      "flce_bwd_kernel": 2 * w * r}),
+    ("gpt2_true_topk_path",
+     ["--mode", "true_topk", "--error_type", "virtual", "--local_momentum",
+      "0", "--virtual_momentum", "0.9"],
+     lambda r, v, w: {"threshold_key_kernel": r, "take_mask_kernel": r,
+                      "flce_fwd_kernel": r + v, "flce_bwd_kernel": r}),
+    ("gpt2_uncompressed_path",
+     ["--mode", "uncompressed", "--error_type", "none", "--local_momentum",
+      "0", "--virtual_momentum", "0.9"],
+     lambda r, v, w: {"flce_fwd_kernel": r + v, "flce_bwd_kernel": r}),
+    ("gpt2_fedavg_path",
+     ["--mode", "fedavg", "--error_type", "none", "--local_momentum", "0",
+      "--local_batch_size", "-1", "--fedavg_batch_size", "4"],
+     lambda r, v, w: {"flce_fwd_kernel": (1 + w) * r + v,
+                      "flce_bwd_kernel": 2 * w * r}),
+)
+# GPT-2's local_topk host store: an 8-row arena (~4 GB), the spill in
+# a temporary directory
+GPT2_STORE_ROWS = 8
+# resume: an epoch of 2 rounds (16 samples a client), 2 epochs straight
+# against a run stopped by SIGTERM after round 3's autosave (mid-epoch)
+# and resumed
+RESUME_ARGV = ["--synthetic_per_class", "16", "--num_epochs", "2",
+               "--pivot_epoch", "0.5"]
+RESUME_PATHS = (
+    ("sketch", ["--lr_scale", "0.1"]),
+    ("local_topk_host", ["--mode", "local_topk", "--error_type", "local",
+                         "--local_momentum", "0.9", "--lr_scale", "0.001",
+                         "--clientstore", "host"]),
+)
+RESUME_KILL_ROUND = 3
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms and PyTorch's deterministic
+    implementations (warnings where an op has none): two runs of the
+    same rounds give the same bits."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+@contextlib.contextmanager
+def timing(owner, name):
+    """The wall seconds of each call of ``owner.name`` while the block
+    runs, in a list."""
+    seconds = []
+    orig = getattr(owner, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **kw)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    setattr(owner, name, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(owner, name, orig)
+
+
+@contextlib.contextmanager
+def recording_supports(record):
+    """Appends each server update's support (the changed coordinates'
+    packed bitmap, or its index and value arrays) to ``record`` as
+    numpy arrays."""
+    orig = fed_model.FedModel.note_update
+
+    def note(self, support):
+        if isinstance(support, dict):
+            record.append((support["bitmap"].to("cpu").numpy(),))
+        elif support is not None:
+            record.append(tuple(t.to("cpu").numpy() for t in support))
+        else:
+            record.append(None)
+        return orig(self, support)
+
+    fed_model.FedModel.note_update = note
+    try:
+        yield
+    finally:
+        fed_model.FedModel.note_update = orig
+
+
+def same_supports(a, b):
+    return len(a) == len(b) and all(
+        (x is None and y is None) or (
+            x is not None and y is not None and len(x) == len(y)
+            and all(np.array_equal(p, q) for p, q in zip(x, y)))
+        for x, y in zip(a, b))
+
+
+def model_summary():
+    """What the store phases read of the run's FedModel, the weights on
+    the host; the model itself is let go, so that the next run's peak
+    memory is its own."""
+    model = fed_model._CURRENT_MODEL
+    fed_model._CURRENT_MODEL = None
+    return {"weights": model.ps_weights.to("cpu"),
+            "clientstore": model.clientstore,
+            "round_index": model.round_index,
+            "num_workers": model.args.num_workers,
+            "grad_size": model.args.grad_size,
+            "upload": model.args.upload_wire_bytes_per_client,
+            "store_timings": model.store_timings,
+            "store_stats": model.store_stats}
+
+
+def store_run(argv):
+    """``cv_train.main(argv)`` with every launch count from 0 and the
+    supports recorded: (results, counts, supports, ``model_summary()``,
+    wall s, peak GiB)."""
+    fed_model._CURRENT_MODEL = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    supports = []
+    t0 = time.perf_counter()
+    with recording_supports(supports):
+        results = cv_train.main(argv)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return (results, launch_counts(), supports, model_summary(), wall,
+            peak)
+
+
+def store_seconds(timings):
+    """The host store's seconds a round (``FedModel.store_timings``):
+    gather (prefetch take or synchronous), H2D and D2H (CUDA events
+    around the copies), write-back (into the arena) and, inside it, the
+    spill writes."""
+    keys = ("gather_s", "h2d_s", "d2h_s", "writeback_s", "spill_s")
+    return {"rounds": [{k: t.get(k) for k in keys + ("prefetch_hit",)}
+                       for t in timings],
+            "median": {k: float(np.median([t[k] for t in timings
+                                           if t.get(k) is not None]))
+                       for k in keys}}
+
+
+def clientstore_paths():
+    """The local_topk path at 64 clients under ``--clientstore device``
+    and ``host`` (a 3-row arena, so rows spill), cuDNN and PyTorch
+    deterministic: the final weights and every round's selected set
+    bit for bit, the launches equal (8 searches and 8 take-masks a
+    round). Then 10 000 clients under ``--clientstore auto``, which
+    must resolve to host (263 GB of error rows), 2 rounds: the store's
+    stats and the peak device memory."""
+    argv = profile_round.ARGV + STORE_ARGV
+    runs = {}
+    with deterministic(), \
+            tempfile.TemporaryDirectory(prefix="store_smoke_") as spill:
+        for placement, extra in (("device", []),
+                                 ("host", STORE_HOST + ["--clientstore_dir",
+                                                        spill])):
+            results, counts, sup, model, wall, peak = store_run(
+                argv + extra)
+            runs[placement] = (results, counts, sup, model, wall, peak)
+        check(not os.listdir(spill), f"spill files left: {os.listdir(spill)}")
+    dev, host = runs["device"], runs["host"]
+    rounds = len(dev[2])
+    check(3 <= rounds <= 6 and len(host[2]) == rounds,
+          f"clientstore: {rounds} / {len(host[2])} rounds")
+    check(dev[3]["clientstore"] == "device"
+          and host[3]["clientstore"] == "host", "clientstore placements")
+    check(torch.equal(dev[3]["weights"], host[3]["weights"]),
+          "clientstore: host-store weights differ from the device run's")
+    check(same_supports(dev[2], host[2]),
+          "clientstore: a round's selected set differs")
+    check(dev[0][-1]["round_losses"] == host[0][-1]["round_losses"],
+          "clientstore: losses differ")
+    want = {k.__name__: 0 for k in KERNELS + FLCE + ATTN}
+    want.update(threshold_key_kernel=8 * rounds, take_mask_kernel=8 * rounds)
+    for name, run in runs.items():
+        check(run[1] == want, f"clientstore {name}: launches {run[1]}, "
+              f"want {want}")
+    stats = host[3]["store_stats"]
+    check(stats["evictions"] > 0, f"clientstore: no row spilled {stats}")
+    emit({"phase": "clientstore_paths", "argv_tail": STORE_ARGV,
+          "rounds": rounds, "launches": host[1], "bit_exact": True,
+          "device": {"wall_s": dev[4], "peak_mem_GiB": dev[5],
+                     "round_seconds": dev[0][-1]["round_times"]},
+          "host": {"wall_s": host[4], "peak_mem_GiB": host[5],
+                   "round_seconds": host[0][-1]["round_times"],
+                   "store": store_seconds(host[3]["store_timings"]),
+                   "stats": stats}})
+    del runs, dev, host
+    with tempfile.TemporaryDirectory(prefix="store_smoke_") as spill:
+        results, counts, _, model, wall, peak = store_run(
+            profile_round.ARGV + BIG_ARGV + ["--clientstore_dir", spill])
+        check(not os.listdir(spill), "spill files left")
+    rounds = model["round_index"]
+    check(model["clientstore"] == "host",
+          f"10 000 clients resolved to {model['clientstore']}, want host")
+    check(rounds == 2, f"10 000 clients: {rounds} rounds, want 2")
+    losses = results[-1]["round_losses"]
+    check(len(losses) == 2 and all(map(math.isfinite, losses)),
+          f"10 000 clients: losses {losses}")
+    want.update(threshold_key_kernel=8 * rounds, take_mask_kernel=8 * rounds)
+    check(counts == want, f"10 000 clients: launches {counts}, want {want}")
+    emit({"phase": "clientstore_10000", "argv_tail": BIG_ARGV,
+          "rounds": rounds, "launches": counts, "round_losses": losses,
+          "round_seconds": results[-1]["round_times"],
+          "dense_rows_GB": 10_000 * ROW_BYTES_RESNET9 / 1e9,
+          "stats": model["store_stats"],
+          "store": store_seconds(model["store_timings"]),
+          "wall_s": wall, "peak_mem_GiB": peak})
+
+
+def gpt2_mode_run(phase, extra, want_of):
+    """One epoch of GPT-2 in ``extra``'s mode (``gpt2_run``): 4 rounds,
+    finite losses, d, the exact launches. Returns (counts, row, model,
+    supports, wall)."""
+    supports = []
+    with tempfile.TemporaryDirectory(prefix="gpt2_modes_") as root, \
+            recording_supports(supports):
+        argv, counts, row, val_steps, wall, _ = gpt2_run(root, extra)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model = model_summary()
+    rounds = len(row["round_times"])
+    w = model["num_workers"]
+    check(rounds == 4, f"{phase}: {rounds} rounds, want 4")
+    check(model["grad_size"] == GPT2_D, f"{phase}: d {model['grad_size']}")
+    for key in ("train_loss", "val_nll"):
+        check(math.isfinite(row[key]), f"{phase}: {key} = {row[key]}")
+    check(all(map(math.isfinite, row["round_losses"])),
+          f"{phase}: losses {row['round_losses']}")
+    want = {k.__name__: 0 for k in KERNELS + FLCE + ATTN}
+    want.update(want_of(rounds, val_steps, w))
+    check(counts == want, f"{phase}: launches {counts}, want {want}")
+    up = rounds * w * model["upload"] / 2**20
+    check(row["up (MiB)"] == up, f"{phase}: up {row['up (MiB)']}, want {up}")
+    gpt2_emit(phase, argv, counts, row, val_steps, wall,
+              store=(store_seconds(model["store_timings"])
+                     if model["store_timings"] else None),
+              stats=model["store_stats"], peak_mem_GiB=peak)
+    return counts, row, model, supports
+
+
+def gpt2_mode_paths():
+    """GPT-2's other modes at full width (``GPT2_MODE_PATHS``): local_topk
+    with local error under ``--clientstore host`` (an 8-row arena, the
+    spill in a temporary directory the phase removes) and under
+    ``device``, deterministic, bit for bit (weights and every round's
+    selected set); true_topk, uncompressed and fedavg; PersonaChat's
+    natural 17 568 clients resolve to the host store (not run: its
+    sparse spill file would be 8.7 TB). Returns {path: launches}."""
+    out = {}
+    name, flags, want_of = GPT2_MODE_PATHS[0]
+    with deterministic(), \
+            tempfile.TemporaryDirectory(prefix="gpt2_spill_") as spill:
+        host = gpt2_mode_run(
+            name + "_host", flags + [
+                "--clientstore", "host", "--clientstore_bytes",
+                str(GPT2_STORE_ROWS * 4 * GPT2_D), "--clientstore_dir",
+                spill], want_of)
+        check(not os.listdir(spill), "GPT-2 spill files left")
+        dev = gpt2_mode_run(name + "_device", flags, want_of)
+    check(host[2]["clientstore"] == "host"
+          and dev[2]["clientstore"] == "device", "GPT-2 local_topk placements")
+    check(torch.equal(host[2]["weights"], dev[2]["weights"]),
+          "GPT-2 local_topk: host-store weights differ from the device's")
+    check(same_supports(host[3], dev[3]),
+          "GPT-2 local_topk: a round's selected set differs")
+    check(host[1]["round_losses"] == dev[1]["round_losses"],
+          "GPT-2 local_topk: losses differ")
+    out[name + "_host"], out[name + "_device"] = host[0], dev[0]
+    del host, dev
+    for name, flags, want_of in GPT2_MODE_PATHS[1:]:
+        out[name] = gpt2_mode_run(name, flags, want_of)[0]
+    cfg = parse_args(argv=["--mode", "local_topk", "--error_type", "local",
+                           "--local_momentum", "0", "--clientstore", "auto",
+                           "--dataset_name", "PERSONA"])
+    cfg.grad_size = GPT2_D
+    placement = resolve_clientstore(cfg, cfg.resolved_num_clients)
+    check(cfg.resolved_num_clients == 17_568 and placement == "host",
+          f"PersonaChat's clients resolve to {placement}")
+    emit({"phase": "gpt2_natural_clients", "num_clients": 17_568,
+          "row_bytes": state_row_bytes(cfg),
+          "dense_TB": 17_568 * state_row_bytes(cfg) / 1e12,
+          "resolves_to": placement})
+    return out
+
+
+def resume_paths():
+    """``RESUME_PATHS`` on ResNet9: 2 epochs of 2 rounds straight, against
+    a run with ``--checkpoint --checkpoint_every_rounds 1`` stopped by a
+    ``PreemptionDrill`` SIGTERM after round 3's autosave (mid-epoch;
+    nothing saved at the signal) and resumed with ``--resume``:
+    deterministic, the final weights bit for bit; the two halves'
+    launches add up to the straight run's."""
+    out = {}
+    for name, extra in RESUME_PATHS:
+        argv = profile_round.ARGV + RESUME_ARGV + extra
+        with deterministic(), \
+                tempfile.TemporaryDirectory(prefix="resume_smoke_") as ck:
+            straight = store_run(argv)
+            drill = PreemptionDrill(min_round=RESUME_KILL_ROUND,
+                                    max_round=RESUME_KILL_ROUND,
+                                    signals=(signal.SIGTERM,))
+            saver = checkpoint.RoundAutosaver.__call__
+
+            def autosave_then_drill(self, epoch):
+                saver(self, epoch)
+                if drill.should_kill(self.model.round_index):
+                    drill.execute()
+
+            flags = ["--checkpoint", "--checkpoint_path", ck,
+                     "--checkpoint_every_rounds", "1"]
+            checkpoint.RoundAutosaver.__call__ = autosave_then_drill
+            try:
+                with timing(checkpoint, "save_checkpoint") as saves:
+                    cut = store_run(argv + flags)
+            finally:
+                checkpoint.RoundAutosaver.__call__ = saver
+            check(drill.fired and cut[0] == [],
+                  f"resume {name}: the drill did not stop the run")
+            size = os.path.getsize(checkpoint.checkpoint_file(ck, "ResNet9"))
+            with timing(checkpoint, "load_checkpoint") as loads:
+                rest = store_run(argv + flags + ["--resume"])
+        total = straight[3]["round_index"]
+        check(total == 4 and cut[3]["round_index"] == RESUME_KILL_ROUND
+              and rest[3]["round_index"] == total,
+              f"resume {name}: rounds {total} / {cut[3]['round_index']} / "
+              f"{rest[3]['round_index']}")
+        check(torch.equal(straight[3]["weights"], rest[3]["weights"]),
+              f"resume {name}: resumed weights differ from the straight "
+              "run's")
+        check(same_supports(straight[2], cut[2] + rest[2]),
+              f"resume {name}: a round's selected set differs")
+        both = {k: cut[1][k] + rest[1][k] for k in cut[1]}
+        check(both == straight[1], f"resume {name}: launches {both} "
+              f"against {straight[1]}")
+        out[name] = {"rounds": total, "launches": straight[1],
+                     "archive_MB": size / 1e6,
+                     "autosave_seconds": saves, "load_seconds": loads,
+                     "straight_wall_s": straight[4],
+                     "cut_wall_s": cut[4], "resumed_wall_s": rest[4]}
+    emit({"phase": "resume_paths", "paths": out, "bit_exact": True,
+          "kill_round": RESUME_KILL_ROUND, "argv_tail": RESUME_ARGV})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2764,6 +3180,12 @@ def main():
     gpt2_paths.update({f"gpt2_pipelined_path_{k}": v
                        for k, v in pipelined.items()})
     gpt2_paths["gpt2_clients_path"] = gpt2_clients_path()
+    torch.cuda.empty_cache()
+    clientstore_paths()
+    torch.cuda.empty_cache()
+    gpt2_paths.update(gpt2_mode_paths())
+    torch.cuda.empty_cache()
+    resume_paths()
     no_weights_left()
 
     keys = ("name", "route", "source", "replaces", "launches",

@@ -43,22 +43,20 @@ NATURAL_NUM_CLIENTS = {
 # the reference trainer's flags that the port does not have yet
 NOT_PORTED_FLAGS = (
     "--profile", "--seq_devices", "--seq_impl",
-    "--tensorboard", "--resume", "--checkpoint_every",
+    "--tensorboard",
     "--num_results_train", "--num_results_val",
     "--port", "--num_devices", "--share_ps_gpu",
     "--train_dataloader_workers", "--val_dataloader_workers",
     "--mesh", "--param_dtype",
     "--compute_dtype", "--approx_topk", "--approx_recall",
     "--coordinator_address",
-    "--num_processes", "--process_id", "--clientstore",
-    "--clientstore_bytes", "--clientstore_dir", "--ledger",
+    "--num_processes", "--process_id", "--ledger",
     "--telemetry_console", "--probe_every", "--probe_full",
     "--on_divergence", "--alarm_residual_ratio",
     "--alarm_residual_rounds", "--alarm_recovery_error",
     "--alarm_step_time_ratio", "--alarm_step_time_window",
     "--alarm_collective_skew", "--alarm_byzantine_ratio",
     "--alarm_fold_rejection",
-    "--checkpoint_every_rounds", "--checkpoint_keep",
     "--async_buffer_size", "--async_staleness_weight",
     "--alarm_async_staleness", "--alarm_job_starvation", "--live_port",
     "--flightrec_rounds", "--postmortem_dir", "--causal_trace",
@@ -90,8 +88,13 @@ class Config:
     # start from finetune_path/<model>.pkl (trained on --finetuned_from);
     # gpt2_train: one validation pass and nothing else
     do_finetune: bool = False
-    # end-of-run checkpoint_path/<model>.pkl (+ <model>.pt)
+    # full-state checkpoint_path/ckpt_<tag>.npz at the last epoch
+    # (runtime/checkpoint.py); the CV trainer also writes the end-of-run
+    # checkpoint_path/<model>.pkl (+ <model>.pt)
     do_checkpoint: bool = False
+    # restore ckpt_<tag>.npz and continue (requires --checkpoint)
+    do_resume: bool = False
+    checkpoint_every: int = 0  # epochs; 0 = end of training only
     checkpoint_path: str = "./checkpoint"
     finetune_path: str = "./finetune"
     finetuned_from: Optional[str] = None
@@ -153,6 +156,25 @@ class Config:
     # metrics and accounting cross to the host (1 = synchronous;
     # reference config.py:195)
     pipeline_depth: int = 1
+    # per-client state placement (clientstore/): "device" keeps the
+    # dense (num_clients, *transmit_shape) tensors on the card; "host"
+    # keeps them in a budgeted host arena with an mmap spill tier and
+    # puts only the round's participants on the card; "auto" resolves
+    # when the model is built: host when the dense population would
+    # exceed --clientstore_bytes, device otherwise (reference
+    # config.py:302-314)
+    clientstore: str = "device"
+    # arena budget for --clientstore host/auto (bytes); rows beyond it
+    # are evicted LRU-first to the mmap spill tier
+    clientstore_bytes: int = 1 << 30
+    # spill-tier directory ("" = private temp dir, removed on close)
+    clientstore_dir: str = ""
+    # round-cadence autosave: a full resumable checkpoint every N
+    # completed training rounds (0 = off), mid-epoch included; keep
+    # this many round-stamped history snapshots besides the latest
+    # (reference config.py:397-404)
+    checkpoint_every_rounds: int = 0
+    checkpoint_keep: int = 0
 
     # GPT-2 / PersonaChat (reference config.py:131-147, 294-301)
     model_checkpoint: str = "gpt2"
@@ -256,6 +278,14 @@ class Config:
         assert self.device in ("cuda", "cpu"), self.device
         assert self.pipeline_depth >= 1, \
             "--pipeline_depth must be >= 1"
+        assert self.clientstore in ("device", "host", "auto"), \
+            "--clientstore must be device|host|auto"
+        assert self.clientstore_bytes >= 0, \
+            "--clientstore_bytes must be >= 0"
+        assert self.checkpoint_every_rounds >= 0, \
+            "--checkpoint_every_rounds must be >= 0 (0 = off)"
+        assert self.checkpoint_keep >= 0, \
+            "--checkpoint_keep must be >= 0"
         assert self.tokens_per_chunk >= 0, \
             "--tokens_per_chunk must be >= 0 (0 = auto)"
         assert self.fused_ce in ("auto", "on", "off"), \
@@ -443,6 +473,9 @@ def build_parser(default_lr: Optional[float] = None
                         dest="do_finetune")
     parser.add_argument("--checkpoint", action="store_true",
                         dest="do_checkpoint")
+    parser.add_argument("--resume", action="store_true",
+                        dest="do_resume")
+    parser.add_argument("--checkpoint_every", type=int, default=0)
     parser.add_argument("--checkpoint_path", type=str,
                         default="./checkpoint")
     parser.add_argument("--finetune_path", type=str, default="./finetune")
@@ -496,6 +529,28 @@ def build_parser(default_lr: Optional[float] = None
                         help="rounds the host may run ahead of the "
                         "device before their metrics and accounting "
                         "cross to the host (1 = synchronous)")
+    parser.add_argument("--clientstore", type=str, default="device",
+                        choices=["device", "host", "auto"],
+                        help="per-client state placement: dense tensors "
+                        "on the card (device), budgeted host arena + "
+                        "mmap spill with per-round participant gather "
+                        "(host), or resolve by footprint vs "
+                        "--clientstore_bytes (auto)")
+    parser.add_argument("--clientstore_bytes", type=int,
+                        default=1 << 30,
+                        help="host client-store arena budget in bytes "
+                        "(rows beyond it spill to mmap)")
+    parser.add_argument("--clientstore_dir", type=str, default="",
+                        help="client-store spill directory "
+                        "(default: private temp dir)")
+    parser.add_argument("--checkpoint_every_rounds", type=int,
+                        default=0,
+                        help="autosave the checkpoint every N rounds "
+                        "(0 = off; independent of the epoch-cadence "
+                        "--checkpoint_every)")
+    parser.add_argument("--checkpoint_keep", type=int, default=0,
+                        help="history snapshots retained by the round "
+                        "autosaver (0 = latest only)")
 
     parser.add_argument("--model_checkpoint", type=str, default="gpt2")
     parser.add_argument("--num_candidates", type=int, default=2)

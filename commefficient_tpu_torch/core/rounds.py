@@ -186,8 +186,8 @@ def args2sketch(cfg: Config) -> Optional[CountSketch]:
 def build_client_round(cfg: Config, loss_fn: Callable,
                        padded_batch_size: Optional[int] = None,
                        stats_fn: Optional[Callable] = None,
-                       transmit_transform: Optional[Callable] = None
-                       ) -> Callable:
+                       transmit_transform: Optional[Callable] = None,
+                       dense_rows: bool = False) -> Callable:
     """Returns ``client_round(ps_weights, batch, client_states=None,
     client_ids=None, fedavg_lr=1.0, round_index=0) -> RoundResult``.
 
@@ -210,9 +210,16 @@ def build_client_round(cfg: Config, loss_fn: Callable,
     stack before the fold (the chaos harness's byzantine hook,
     data/chaos.py, which no module of the round imports), with the
     round's real client ids; it forces the per-client round. At None
-    nothing changes."""
+    nothing changes.
+
+    ``dense_rows`` (the host client store, runtime/fed_model.py;
+    reference core/rounds.py:268-273, 777-785): ``client_states`` holds
+    only the round's W participant rows, ordered like ``client_ids``,
+    plus the dead-slot row, so state rows are indexed by slot POSITION
+    (``_state_ids`` of ``arange(W)``; dead slots still go to the
+    dead-slot row), while ``transmit_transform`` keeps the real ids."""
     round_fn = _build_client_round(cfg, loss_fn, padded_batch_size,
-                                   transmit_transform)
+                                   transmit_transform, dense_rows)
     if stats_fn is None:
         return round_fn
 
@@ -242,7 +249,8 @@ def round_bn_stats(stats_fn: Callable, ps_weights: torch.Tensor,
 
 def _build_client_round(cfg: Config, loss_fn: Callable,
                         padded_batch_size: Optional[int],
-                        transmit_transform: Optional[Callable]) -> Callable:
+                        transmit_transform: Optional[Callable],
+                        dense_rows: bool = False) -> Callable:
     cfg.validate_runtime()
     if padded_batch_size is None:
         padded_batch_size = (cfg.local_batch_size
@@ -388,6 +396,11 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
         if client_states is None:  # a mode with no per-client state
             client_states = ClientStates(None, None, None)
         dead = _dead_row(client_states)
+        if dense_rows:
+            # state rows are slot positions; the real ids stay in
+            # real_ids
+            client_ids = torch.arange(W, dtype=torch.int64,
+                                      device=mask.device)
         ids = _state_ids(client_ids, batch, dead)
         gen = (noise_generator(cfg.seed, round_index, WORKER_NOISE_TAG,
                                mask.device) if noisy_workers else None)

@@ -25,21 +25,29 @@ Dropout traces
 
 No module of the port's round, runtime or trainers imports this file:
 the round's hook is a plain parameter, and the attacks live here, for
-tests and scripts. The reference's host faults (``FlakyStore``,
-``PreemptionDrill``, ``kill_prefetch_worker``, the straggler sleeps of
-``wrap_loader``) and ``ArrivalSchedule`` belong to the client store
-and asynchronous rounds, which the port does not have.
+tests and scripts.
+
+Host faults (reference :363-447): ``PreemptionDrill`` signals this
+process once at a seeded round, ``FlakyStore`` makes a client store's
+gathers fail or stall on a seeded schedule, and ``kill_prefetch_worker``
+marks a ``StorePrefetcher``'s worker dead. The straggler sleeps of the
+reference's ``wrap_loader`` and ``ArrivalSchedule`` belong to the
+asynchronous rounds, which the port does not have yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import signal
+import time
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["ATTACKS", "ChaosConfig", "ChaosInjector"]
+__all__ = ["ATTACKS", "ChaosConfig", "ChaosInjector", "FlakyStore",
+           "PreemptionDrill", "kill_prefetch_worker"]
 
 ATTACKS = ("none", "label_flip", "sign_flip", "scale", "noise")
 
@@ -61,6 +69,10 @@ class ChaosConfig:
     burst_start_prob: float = 0.0      # calm -> burst per round
     burst_stop_prob: float = 0.5       # burst -> calm per round
     burst_drop_frac: float = 0.5       # slots dropped during a burst
+    # -- host faults ------------------------------------------------
+    shard_fail_prob: float = 0.0       # FlakyStore transient failures
+    shard_fail_streak: int = 1         # consecutive failures per hit
+    shard_delay_s: float = 0.0         # FlakyStore read latency
 
     def __post_init__(self):
         assert self.attack in ATTACKS, self.attack
@@ -213,3 +225,90 @@ class _ChaosLoader:
 
     def __getattr__(self, name):
         return getattr(self._loader, name)
+
+
+class PreemptionDrill:
+    """Seeded self-preemption: kill THIS process mid-round, once.
+
+    The elastic-restore drill's first act. A seeded RandomState picks
+    the kill round from ``[min_round, max_round]`` and the signal from
+    ``signals`` (SIGTERM for the graceful-shutdown path, SIGKILL for
+    the torn-write path), so the same seed always dies at the same
+    point — a failed drill is a repro, not a flake. The driving test
+    calls :meth:`should_kill` each round at the chosen fault point
+    (between forward and fold, after the autosave, wherever it wants
+    the cut) and :meth:`execute` delivers the signal to ``os.getpid``.
+
+    Like everything in this module the drill is test/bench-only; the
+    survivor half of the story (restart on fewer hosts, resume from
+    the last valid autosave, converge-or-alarm) lives in the chaos
+    tests, not here.
+    """
+
+    def __init__(self, seed: int = 0, min_round: int = 1,
+                 max_round: int = 4,
+                 signals: Sequence[int] = (signal.SIGTERM,
+                                           signal.SIGKILL)):
+        assert 0 <= min_round <= max_round
+        rng = np.random.RandomState(seed)
+        self.kill_round = int(rng.randint(min_round, max_round + 1))
+        self.signal = int(signals[int(rng.randint(len(signals)))])
+        self.fired = False
+
+    def should_kill(self, round_index: int) -> bool:
+        """True once ``round_index`` reaches the drawn kill round (and
+        the drill has not fired yet)."""
+        return not self.fired and int(round_index) >= self.kill_round
+
+    def execute(self) -> None:
+        """Deliver the drawn signal to this process. SIGKILL never
+        returns; SIGTERM returns to let the harness's handler (e.g.
+        ``sigterm_raises``) unwind the run."""
+        self.fired = True
+        os.kill(os.getpid(), self.signal)
+
+
+class FlakyStore:
+    """Clientstore wrapper whose ``gather`` transiently fails and/or
+    stalls on a seeded schedule — the fixture behind the prefetch
+    retry/backoff tests. A scheduled hit raises for
+    ``shard_fail_streak`` consecutive attempts, then succeeds: with
+    bounded retry (3 tries) a streak of 2 recovers invisibly and a
+    streak of 3+ surfaces as the worker-death RuntimeError."""
+
+    def __init__(self, store, cfg: ChaosConfig):
+        self._store = store
+        self._cfg = cfg
+        self._rng = np.random.RandomState(cfg.seed + 3)
+        self._streak_left = 0
+        self.attempts = 0
+        self.failures = 0
+
+    def gather(self, ids, out=None):
+        self.attempts += 1
+        if self._cfg.shard_delay_s > 0:
+            time.sleep(self._cfg.shard_delay_s)
+        if self._streak_left == 0 \
+                and self._cfg.shard_fail_prob > 0 \
+                and self._rng.rand() < self._cfg.shard_fail_prob:
+            self._streak_left = max(1, int(self._cfg.shard_fail_streak))
+        if self._streak_left > 0:
+            self._streak_left -= 1
+            self.failures += 1
+            raise OSError("chaos: transient shard read failure")
+        return self._store.gather(ids, out=out)
+
+    def __getattr__(self, name):
+        return getattr(self._store, name)
+
+
+def kill_prefetch_worker(prefetcher) -> None:
+    """Simulate a prefetch-worker crash: poison the work queue so the
+    worker thread exits its loop as if it had died mid-run. The next
+    ``take``/``submit`` must surface the worker-death
+    RuntimeError rather than hang."""
+    fail = getattr(prefetcher, "_fail_for_test", None)
+    if callable(fail):
+        fail(RuntimeError("chaos: prefetch worker killed"))
+        return
+    raise RuntimeError("prefetcher exposes no kill hook")

@@ -5,7 +5,11 @@ padded batches, client axis first, with a (W, B) mask for ragged
 clients. The PersonaChat loaders build each batch synchronously (the
 reference's background prefetch thread is not ported); the items and
 every RNG stream are the reference's, the ``--dropout_prob`` client
-drops (``_apply_dropout``, reference loader.py:41-65) included."""
+drops (``_apply_dropout``, reference loader.py:41-65) included. A
+checkpoint saves and restores the dropout stream (``_dropout_rng``) and
+the PersonaChat dataset's ``_rng`` (runtime/checkpoint.py); the round
+counter it also carries belongs to the reference's native loader,
+which seeds its augmentation from it and is not ported."""
 
 from __future__ import annotations
 
@@ -62,6 +66,19 @@ class FedLoader:
             if len(round_spec) < self.W:
                 continue  # incomplete round: skip
             yield self._apply_dropout(self.collate(round_spec))
+
+    def peek_next_client_ids(self):
+        """Next round's participant ids one round ahead (the host client
+        store's prefetch feed, runtime/fed_model.py; reference
+        loader.py:73-84). None when the sampler cannot see ahead or the
+        peeked round is incomplete (it would be skipped): the store
+        then gathers synchronously, so a miss costs time, never
+        correctness."""
+        peek = getattr(self.sampler, "peek_next_client_ids", None)
+        ids = peek() if peek is not None else None
+        if ids is None or len(ids) < self.W:
+            return None
+        return ids
 
     def __len__(self):
         return steps_per_epoch(self.sampler.local_batch_size,

@@ -121,6 +121,7 @@ def _cv(model, wire, extra, root):
     module, params = cv_train.build_model(args, device)
     model = cv_train.make_fed_model(module, params, args, train_loader.B,
                                     device)
+    model.attach_participant_feed(train_loader.peek_next_client_ids)
     groups = cv_train.param_groups_of(args, module)
     for g in groups:
         g["lr"] *= 0.01
@@ -141,7 +142,8 @@ def _gpt2(root, wire, extra=()):
     args.num_clients = int(train_ds.num_clients)
     model = FedModel(module, params,
                      gpt2_train.make_compute_loss_train(module, args, fused),
-                     args)
+                     args, padded_batch_size=train_loader.B)
+    model.attach_participant_feed(train_loader.peek_next_client_ids)
     return model, FedOptimizer([{"lr": 0.04}], args), train_loader
 
 

@@ -57,20 +57,38 @@ and weight scale 1 (the port has no asynchronous rounds), and
 ``privacy_epsilon()`` reads the ε spent. ``FedOptimizer`` draws the
 legacy ``--do_dp --dp_mode server`` noise from a seed + 1 stream, one a
 server step (reference fed_model.py:1267-1270, 1306-1308).
-Telemetry and its ledger keys, the privacy budget alarm, the autopilot,
-the host client store and meshes are not ported.
+``--clientstore host`` (reference fed_model.py:170-201, 477-561)
+keeps the per-client rows in ``clientstore.HostClientStore`` instead of
+on the card: each round gathers its W participants' rows (prefetched a
+round ahead by ``StorePrefetcher`` from the sampler's lookahead,
+``attach_participant_feed``, into page-locked buffers), copies them up
+as a (W + 1, ...) stack (the last row the dead-slot row), runs the
+round on slot positions (``dense_rows``), and after the server step
+copies the rows down and writes the live ones back (``_store_writeback``).
+``store_timings`` keeps each round's gather, H2D, D2H, write-back and
+spill times. ``finalize`` closes the prefetcher and the store (its last
+``stats`` kept in ``store_stats``);
+``interrupted`` drops a round that a signal cut short.
+Telemetry and its ledger keys, the privacy budget alarm, the autopilot
+and meshes are not ported.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from commefficient_tpu_torch import accounting
+from commefficient_tpu_torch.clientstore import (HostClientStore,
+                                                 StorePrefetcher,
+                                                 resolve_clientstore,
+                                                 shard_range, state_fields)
+from commefficient_tpu_torch.clientstore.prefetch import staging_buffers
 from commefficient_tpu_torch.config import Config
 from commefficient_tpu_torch.core.rounds import (ClientStates, _dead_row,
                                                  _state_ids,
@@ -133,17 +151,52 @@ class FedModel:
         def loss_fn(flat, batch):
             return compute_loss(flat, batch, args)
 
-        # per-client state on the device (rows of the clients, plus
-        # the dead-slot row)
-        self.client_states = ClientStates.init(args, num_clients,
-                                               self.ps_weights,
-                                               self.device)
+        # per-client state placement: on the device (rows of the
+        # clients, plus the dead-slot row), or in the host store with
+        # only the round's participants on the device
+        self.clientstore = resolve_clientstore(args, num_clients)
+        self.client_store = None
+        self._prefetcher = None
+        self._participant_feed = None
+        self._store_pending = None
+        self._staging = {}
+        self._d2h = {}
+        self._h2d_events = None
+        self.store_timings = []
+        self.store_stats = None
+        if self.clientstore == "host":
+            if int(args.pipeline_depth) > 1:
+                raise ValueError(
+                    "--clientstore host requires --pipeline_depth 1: "
+                    "round N's write-back must land before round "
+                    "N+1's gather reads the store")
+            lo, hi = shard_range(num_clients)
+            if (lo, hi) != (0, num_clients):
+                raise NotImplementedError(
+                    "--clientstore host over several processes (the "
+                    "store shards of the multi-GPU runtime) is not "
+                    "ported")
+            fields = state_fields(
+                args, init_weights=(self.ps_weights.to("cpu").numpy()
+                                    if args.do_topk_down else None))
+            self.client_store = HostClientStore(
+                num_clients, fields, budget_bytes=args.clientstore_bytes,
+                spill_dir=(args.clientstore_dir or None), owned=(lo, hi))
+            self.client_states = ClientStates(None, None, None)
+            if fields:
+                self._prefetcher = StorePrefetcher(
+                    self.client_store, pin=self.device.type == "cuda")
+        else:
+            self.client_states = ClientStates.init(args, num_clients,
+                                                   self.ps_weights,
+                                                   self.device)
         if padded_batch_size is None:
             padded_batch_size = (args.local_batch_size
                                  if args.local_batch_size > 0 else 1)
         self.padded_batch_size = padded_batch_size
-        self._client_round = build_client_round(args, loss_fn,
-                                                padded_batch_size, stats_fn)
+        self._client_round = build_client_round(
+            args, loss_fn, padded_batch_size, stats_fn,
+            dense_rows=self.client_store is not None)
         self.pending_aggregated = None
         # the round's state ids, dead slots at the dead-slot row: the
         # server round's velocity rewrite (true_topk) scatters there
@@ -203,13 +256,30 @@ class FedModel:
         dev_batch = self._to_device(batch)
         ids = torch.as_tensor(ids_np.astype(np.int64)).to(
             self.device, non_blocking=True)
-        res = self._client_round(self.ps_weights, dev_batch,
-                                 self.client_states, ids, self.fedavg_lr,
+        cs_in = self.client_states
+        if self.client_store is not None:
+            # normally a no-op: opt.step() already wrote the previous
+            # round's rows back
+            self._store_writeback()
+            cs_in = self._gather_states(ids_np)
+        res = self._client_round(self.ps_weights, dev_batch, cs_in, ids,
+                                 self.fedavg_lr,
                                  round_index=self.round_index)
         self.client_states = res.client_states
         self.pending_aggregated = res.aggregated
-        self.pending_client_ids = _state_ids(
-            ids, dev_batch, _dead_row(self.client_states))
+        if self.client_store is not None:
+            # state rows are slot positions (dense_rows): the server
+            # round's velocity rewrite scatters there too
+            W = ids_np.shape[0]
+            self.pending_client_ids = _state_ids(
+                torch.arange(W, dtype=torch.int64, device=self.device),
+                dev_batch, W)
+            alive = np.asarray(batch["mask"]).reshape(W, -1).sum(1) > 0
+            self._store_pending = (ids_np.astype(np.int64), alive)
+            self._submit_prefetch()
+        else:
+            self.pending_client_ids = _state_ids(
+                ids, dev_batch, _dead_row(self.client_states))
         if self._accountant is not None:
             # the round released its noised table whether or not its
             # metrics ever reach the host
@@ -272,6 +342,145 @@ class FedModel:
         mask = np.asarray(batch["mask"])
         counts = mask.reshape(mask.shape[0], -1).sum(axis=1)
         return out + [counts]
+
+    # --- the host client store -------------------------------------------
+
+    def attach_participant_feed(self, feed: Callable):
+        """``feed() -> next round's participant client ids (or None)``:
+        the sampler's one-round lookahead (``FedLoader.
+        peek_next_client_ids``), which drives the prefetch thread so
+        round N+1's gather overlaps round N (reference
+        fed_model.py:477-484). A no-op under ``--clientstore device``."""
+        self._participant_feed = feed
+
+    def _submit_prefetch(self):
+        if self._prefetcher is None or self._participant_feed is None:
+            return
+        ids = self._participant_feed()
+        if ids is not None:
+            self._prefetcher.submit(np.asarray(ids, np.int64))
+
+    def _gather_states(self, ids_np) -> ClientStates:
+        """The round's participants' rows from the store (prefetched
+        when the lookahead predicted them, else gathered now into
+        page-locked staging on the card's runs), copied up as (W + 1,
+        ...) tensors, the last row the dead-slot row (zeros)."""
+        ids64 = np.asarray(ids_np, np.int64)
+        W = len(ids64)
+        t0 = time.perf_counter()
+        rows = None
+        if self._prefetcher is not None:
+            rows = self._prefetcher.take(ids64)
+        hit = rows is not None
+        if rows is None:
+            bufs = staging_buffers(self.client_store, W,
+                                   self.device.type == "cuda",
+                                   self._staging)
+            rows, _ = self.client_store.gather(ids64, out=bufs)
+        t1 = time.perf_counter()
+        cuda = self.device.type == "cuda"
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+        out = {}
+        for name, arr in rows.items():
+            t = torch.empty((W + 1,) + arr.shape[1:], dtype=torch.float32,
+                            device=self.device)
+            t[:W].copy_(torch.from_numpy(arr), non_blocking=True)
+            t[W].zero_()
+            out[name] = t
+        h2d_s = None
+        if cuda:
+            end.record()
+            self._h2d_events = (start, end)
+        else:
+            h2d_s = time.perf_counter() - t1
+        self.store_timings.append({"gather_s": t1 - t0, "h2d_s": h2d_s,
+                                   "prefetch_hit": hit})
+        return ClientStates(out.get("velocities"), out.get("errors"),
+                            out.get("weights"))
+
+    def _store_writeback(self):
+        """Copy the pending round's participant rows down and write the
+        live ones into the store (reference fed_model.py:530-561). Runs
+        from ``FedOptimizer.step`` after the server round's velocity
+        rewrite (true_topk's momentum masking lands in the store), and
+        before the next gather, at a checkpoint save and at shutdown.
+        Dead slots (dropout, padding) are not written, as the device
+        path's dead-slot row keeps them out of every client's row."""
+        if self.client_store is None or self._store_pending is None:
+            return
+        ids_np, alive = self._store_pending
+        self._store_pending = None
+        cs = self.client_states
+        self.client_states = ClientStates(None, None, None)
+        W = len(ids_np)
+        dev = {name: val[:W] for name, val in
+               (("velocities", cs.velocities), ("errors", cs.errors),
+                ("weights", cs.weights)) if val is not None}
+        if not dev:
+            return
+        timing = self.store_timings[-1] if self.store_timings else {}
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            bufs = self._d2h
+            for name, t in dev.items():
+                buf = bufs.get(name)
+                if buf is None or tuple(buf.shape) != tuple(t.shape):
+                    bufs[name] = torch.empty(t.shape, dtype=torch.float32,
+                                             pin_memory=True)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            rows = {}
+            for name, t in dev.items():
+                bufs[name].copy_(t, non_blocking=True)
+                rows[name] = bufs[name].numpy()
+            end.record()
+            end.synchronize()
+            timing["d2h_s"] = start.elapsed_time(end) / 1e3
+            if self._h2d_events is not None:
+                h0, h1 = self._h2d_events
+                timing["h2d_s"] = h0.elapsed_time(h1) / 1e3
+                self._h2d_events = None
+        else:
+            rows = {name: t.numpy() for name, t in dev.items()}
+            timing["d2h_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        spill0 = self.client_store.spill_s
+        if alive.all():
+            self.client_store.write(ids_np, rows)
+        elif alive.any():
+            self.client_store.write(ids_np[alive],
+                                    {k: v[alive] for k, v in rows.items()})
+        timing["writeback_s"] = time.perf_counter() - t1
+        timing["spill_s"] = self.client_store.spill_s - spill0
+
+    def finalize(self):
+        """Shutdown (reference fed_model.py:445-456): the pending
+        round's write-back, then the prefetch thread joined and the
+        store closed (its temporary spill directory removed)."""
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+            self._prefetcher = None
+        self._store_writeback()
+        if self.client_store is not None:
+            self.store_stats = dict(self.client_store.stats)
+            self.client_store.close()
+            self.client_store = None
+
+    def interrupted(self):
+        """After a signal cut a round short (reference
+        fed_model.py:458-475): drop every dispatched round's host-side
+        state, so ``finalize`` writes nothing the last autosave did not
+        see (a half-written-back round would put the store's rows out
+        of step with the saved server state)."""
+        self._inflight = []
+        self._oplog = []
+        self.pending_aggregated = None
+        self.pending_client_ids = None
+        self._store_pending = None
 
     def privacy_epsilon(self) -> Optional[float]:
         """The ε spent so far at ``--dp_delta`` under ``--dp sketch``
@@ -543,6 +752,9 @@ class FedOptimizer:
         m.ps_weights = new_ps
         m.client_states = m.client_states._replace(velocities=new_vel)
         m.pending_aggregated = None
+        # the host store: the round's rows (with the velocity rewrite
+        # above) go back to the host now
+        m._store_writeback()
         if support is None:
             # a dense update (uncompressed, local_topk, fedavg). A zero
             # LR moves nothing; local_topk's update holds only the union

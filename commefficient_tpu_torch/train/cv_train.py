@@ -9,10 +9,18 @@ CV model of the registry, sized for the dataset's samples; the Fixup LR
 groups, ``--batchnorm``'s running-stats eval, ``--mixup``, and the
 numpy transform stack of each dataset (Synthetic, CIFAR10/100, EMNIST).
 ``--finetune`` starts from ``finetune_path/<model>.pkl`` wherever its
-leaves fit (``merge_finetune_params``); ``--checkpoint`` ends a run
-that did not diverge by writing ``checkpoint_path/<model>.pkl``, the
-pickled flax parameter tree, and ``<model>.pt``, the reference-named
-torch ``state_dict`` (``save_checkpoint``). The round features
+leaves fit (``merge_finetune_params``); ``--checkpoint`` writes the
+full round state ``checkpoint_path/ckpt_<model>.npz`` at the last epoch
+(and every ``--checkpoint_every`` epochs, and every
+``--checkpoint_every_rounds`` rounds with ``--checkpoint_keep``
+snapshots; runtime/checkpoint.py), which ``--resume`` continues from,
+and ends a run that did not diverge by writing
+``checkpoint_path/<model>.pkl``, the pickled flax parameter tree, and
+``<model>.pt``, the reference-named torch ``state_dict``
+(``save_checkpoint``). A SIGTERM ends the run without a save; it
+resumes from the last autosave. ``--clientstore host`` keeps the
+per-client rows on the host, prefetched from the loader's lookahead
+(runtime/fed_model.py). The round features
 ``--robust_agg``, ``--dp``, ``--do_dp`` and ``--dropout_prob`` live in
 the round and the loader (core/rounds.py, data/loader.py).
 Runs on the card unless ``--device cpu`` is given.
@@ -50,8 +58,11 @@ from commefficient_tpu_torch.models.torch_export import (
 from commefficient_tpu_torch.ops.vec import param_group_indices
 from commefficient_tpu_torch.runtime import (FedModel, FedOptimizer,
                                              LambdaLR, drain_rounds)
-from commefficient_tpu_torch.utils import (PiecewiseLinear, TableLogger,
-                                           Timer, steps_per_epoch)
+from commefficient_tpu_torch.runtime.checkpoint import setup_resume
+from commefficient_tpu_torch.utils import (GracefulShutdown,
+                                           PiecewiseLinear, TableLogger,
+                                           Timer, sigterm_raises,
+                                           steps_per_epoch)
 
 
 def masked_mean(values, mask):
@@ -182,7 +193,7 @@ def apply_mixup(batch, alpha, rng):
 
 def run_batches(model, opt, lr_scheduler, loader, args, training,
                 epoch_fraction=1.0, round_times=None, round_losses=None,
-                mixup_rng=None):
+                mixup_rng=None, round_hook=None, epoch=0):
     """(reference cv_train.py:177-292). ``round_times``, if given,
     receives each training round's wall seconds, from the scheduler
     step to the round's metrics on the host after ``opt.step()``
@@ -194,7 +205,9 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
     sample give none). Pipelined rounds are processed as ``flush``
     brings them to the host, in dispatch order; the divergence stop
     fires at the flush that sees the bad loss. ``mixup_rng`` (under
-    ``--mixup``) mixes each round's batch before it is dispatched."""
+    ``--mixup``) mixes each round's batch before it is dispatched.
+    ``round_hook(epoch)`` runs after every completed round (the
+    round-cadence autosave, runtime/checkpoint.py)."""
     if training:
         model.train(True)
         losses, accs = [], []
@@ -246,6 +259,8 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
                 round_times.append(time.perf_counter() - t0)
             if not ok:
                 return None
+            if round_hook is not None:
+                round_hook(epoch)
             if args.do_test:
                 break
         if not drain_rounds(model, pending, process, force=True):
@@ -270,23 +285,28 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
 
 
 def train(model, opt, lr_scheduler, train_loader, val_loader, args,
-          logger=None, timer=None):
-    """Epoch loop (reference cv_train.py:295-361). Each result row
-    also carries the epoch's per-round wall times (``round_times``) and
-    train losses (``round_losses``), which the table does not print."""
+          logger=None, timer=None, start_epoch=0, epoch_hook=None,
+          round_hook=None):
+    """Epoch loop (reference cv_train.py:295-361) from ``start_epoch``.
+    ``epoch_hook(ep)`` runs after each completed epoch and
+    ``round_hook(epoch)`` after each completed round (checkpointing).
+    Each result row also carries the epoch's per-round wall times
+    (``round_times``) and train losses (``round_losses``), which the
+    table does not print."""
     timer = timer or Timer()
     logger = logger or TableLogger()
     results = []
     # one mixup stream across epochs (reference cv_train.py:316-318)
     mixup_rng = (np.random.RandomState(args.seed + 77)
                  if args.do_mixup else None)
-    for epoch in range(math.ceil(args.num_epochs)):
+    for epoch in range(start_epoch, math.ceil(args.num_epochs)):
         epoch_fraction = min(1.0, args.num_epochs - epoch)
         round_times, round_losses = [], []
         out = run_batches(model, opt, lr_scheduler, train_loader, args,
                           training=True, epoch_fraction=epoch_fraction,
                           round_times=round_times, round_losses=round_losses,
-                          mixup_rng=mixup_rng)
+                          mixup_rng=mixup_rng, round_hook=round_hook,
+                          epoch=epoch)
         if out is None:
             print("NaN detected, aborting training")
             # its weights are not a model: --checkpoint saves nothing
@@ -313,6 +333,8 @@ def train(model, opt, lr_scheduler, train_loader, val_loader, args,
         logger.append(row)
         results.append(dict(row, round_times=round_times,
                             round_losses=round_losses))
+        if epoch_hook is not None:
+            epoch_hook(epoch + 1)
     return results
 
 
@@ -506,6 +528,9 @@ def main(argv=None):
     if args.do_finetune:
         params = load_finetune_params(args, module, params)
     model = make_fed_model(module, params, args, train_loader.B, device)
+    # the host store's prefetch follows the loader's lookahead (a no-op
+    # under --clientstore device)
+    model.attach_participant_feed(train_loader.peek_next_client_ids)
     opt = FedOptimizer(param_groups_of(args, module), args)
 
     spe = steps_per_epoch(args.local_batch_size, train_ds,
@@ -520,8 +545,24 @@ def main(argv=None):
             [0, args.pivot_epoch * spe, horizon * spe],
             [0, args.lr_scale, 0])
         lr_scheduler = LambdaLR(opt, lambda x: lambda_step(x))
-    results = train(model, opt, lr_scheduler, train_loader, val_loader, args)
-    if args.do_checkpoint and not model.diverged:
+    start_epoch, epoch_hook, round_hook = setup_resume(
+        args, model, opt, lr_scheduler, train_loader, tag=args.model)
+    interrupted = False
+    try:
+        with sigterm_raises():
+            results = train(model, opt, lr_scheduler, train_loader,
+                            val_loader, args, start_epoch=start_epoch,
+                            epoch_hook=epoch_hook, round_hook=round_hook)
+    except GracefulShutdown as e:
+        # nothing is saved here: the last round-cadence autosave is the
+        # consistent resume point, and a save now would hold a round
+        # cut in half (reference cv_train.py:585-600)
+        print(f"interrupted ({e}); resume from the last autosave")
+        interrupted = True
+        results = []
+        model.interrupted()
+    model.finalize()
+    if args.do_checkpoint and not interrupted and not model.diverged:
         save_checkpoint(model, args)
     return results
 

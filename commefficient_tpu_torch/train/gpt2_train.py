@@ -28,18 +28,27 @@ and the tokenizer into its log directory (``runs/...``, ``make_logdir``):
 ``flax_model.msgpack`` and ``config.json``, and with ``--hf_export``
 the HF ``config.json`` and ``pytorch_model.bin`` too. ``--finetune`` is
 one validation pass and nothing else (reference gpt2_train.py:445-450);
-``--dropout_prob`` drops clients in the loader. Telemetry, checkpoint
-resume and autosave are not ported (their flags raise), and neither
-are the robust folds and DP in this trainer: ``--robust_agg``, ``--dp``
-and ``--do_dp`` raise, naming themselves.
+``--dropout_prob`` drops clients in the loader. ``--checkpoint`` writes
+the full round state ``checkpoint_path/ckpt_gpt2.npz`` at the last
+epoch (and at ``--checkpoint_every`` / ``--checkpoint_every_rounds``),
+from which ``--resume`` continues (runtime/checkpoint.py); a SIGTERM
+ends the run without a save. Telemetry is not ported, and neither are
+the robust folds and DP in this trainer: ``--robust_agg``, ``--dp`` and
+``--do_dp`` raise, naming themselves.
+
+Every ``--mode`` runs. ``true_topk`` and ``uncompressed`` with virtual
+state run the fused round (one forward and backward over every token);
+``local_topk``, ``fedavg`` and any local state run the per-client
+round, and ``--clientstore host`` keeps their per-client rows on the
+host (PersonaChat's 17 568 clients hold 8.7 TB of GPT-2 error rows).
 
 ``--pipeline_depth N`` lets the host run N rounds ahead of the card
 (``run_batches`` drains them, ``runtime/fed_model.py drain_rounds``).
-``--max_grad_norm`` and ``--microbatch_size`` run the per-client round
-(``core/rounds.py``): every client's gradient under ``torch.func.vmap``,
-with the fused CE's own vmap rules (``ops/flce.py``) or the chunked CE
-without its checkpoints; ``--remat`` and ``--attn_impl flash`` there
-raise.
+The per-client round (``core/rounds.py``; also under ``--max_grad_norm``
+and ``--microbatch_size``) runs every client's gradient under
+``torch.func.vmap``, with the fused CE's own vmap rules
+(``ops/flce.py``) or the chunked CE without its checkpoints;
+``--remat`` and ``--attn_impl flash`` there raise.
 
 Assets are made offline (``fabricate_assets``): a full-size GPT-2-layout
 vocabulary and a learnable PersonaChat-format corpus. Run e.g.:
@@ -90,10 +99,12 @@ from commefficient_tpu_torch.ops.flce import (lm_nll_sums_fused,
                                               resolve_fused_ce)
 from commefficient_tpu_torch.runtime import (FedModel, FedOptimizer,
                                              LambdaLR, drain_rounds)
+from commefficient_tpu_torch.runtime.checkpoint import setup_resume
 from commefficient_tpu_torch.serialization import msgpack_restore
-from commefficient_tpu_torch.utils import (PiecewiseLinear, TableLogger,
+from commefficient_tpu_torch.utils import (GracefulShutdown,
+                                           PiecewiseLinear, TableLogger,
                                            Timer, make_logdir,
-                                           steps_per_epoch)
+                                           sigterm_raises, steps_per_epoch)
 
 MAX_SEQ_LEN = 256  # static pad length (persona sequences are short)
 
@@ -176,7 +187,7 @@ def make_compute_loss_val(module, args, fused=False):
 
 
 def run_batches(model, opt, lr_scheduler, loader, args, training,
-                stats=None):
+                stats=None, round_hook=None, epoch=0):
     """(reference gpt2_train.py:157-228). Training returns the mean
     round loss (None on divergence) and, when ``stats`` is a dict,
     fills it with each round's wall seconds (``round_times``: from the
@@ -184,7 +195,8 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
     ``opt.step()`` queued the server half; under ``--pipeline_depth``
     > 1, to the round's dispatch and any flush it made due), its train
     loss (``round_losses``) and the per-client download/upload byte
-    totals. Validation returns (nll, acc, ppl)."""
+    totals. ``round_hook(epoch)`` runs after every completed round (the
+    round-cadence autosave). Validation returns (nll, acc, ppl)."""
     if training:
         model.train(True)
         losses, round_times = [], []
@@ -220,6 +232,8 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
             round_times.append(time.perf_counter() - t0)
             if not ok:
                 return None
+            if round_hook is not None:
+                round_hook(epoch)
             if args.do_test:
                 break
         if not drain_rounds(model, pending, process, force=True):
@@ -244,8 +258,10 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
 
 
 def train_gpt2(model, opt, lr_scheduler, train_loader, val_loader, args,
-               logger=None):
-    """Epoch loop (reference gpt2_train.py:231-281). Each result row
+               logger=None, start_epoch=0, epoch_hook=None, round_hook=None):
+    """Epoch loop (reference gpt2_train.py:231-281) from
+    ``start_epoch``; ``epoch_hook(ep)`` runs after each completed epoch
+    and ``round_hook(epoch)`` after each completed round. Each result row
     also carries the epoch's per-round wall times (``round_times``),
     train losses (``round_losses``) and byte totals (``down (MiB)``,
     ``up (MiB)``), which the table does not print. A divergence stops
@@ -253,10 +269,11 @@ def train_gpt2(model, opt, lr_scheduler, train_loader, val_loader, args,
     logger = logger or TableLogger()
     timer = Timer()
     results = []
-    for epoch in range(math.ceil(args.num_epochs)):
+    for epoch in range(start_epoch, math.ceil(args.num_epochs)):
         stats = {}
         train_loss = run_batches(model, opt, lr_scheduler, train_loader,
-                                 args, training=True, stats=stats)
+                                 args, training=True, stats=stats,
+                                 round_hook=round_hook, epoch=epoch)
         if train_loss is None:
             print("NaN detected, aborting")
             model.diverged = True
@@ -276,6 +293,8 @@ def train_gpt2(model, opt, lr_scheduler, train_loader, val_loader, args,
             round_losses=stats["round_losses"],
             **{"down (MiB)": float(stats["download"].sum() / 2**20),
                "up (MiB)": float(stats["upload"].sum() / 2**20)}))
+        if epoch_hook is not None:
+            epoch_hook(epoch + 1)
     return results
 
 
@@ -424,10 +443,13 @@ def _check_per_client(args: Config, remat: bool):
     if fused_grad_eligible(args):
         return
     round_flags = " ".join(
-        flag for flag, on in (("--max_grad_norm",
-                               args.max_grad_norm is not None),
-                              ("--microbatch_size",
-                               args.microbatch_size > 0)) if on)
+        flag for flag, on in (
+            (f"--mode {args.mode}", args.mode in ("local_topk", "fedavg")),
+            ("--local_momentum", args.local_momentum > 0),
+            ("--error_type local", args.error_type == "local"),
+            ("--topk_down", args.do_topk_down),
+            ("--max_grad_norm", args.max_grad_norm is not None),
+            ("--microbatch_size", args.microbatch_size > 0)) if on)
     for flag, on in (("--remat", remat),
                      ("--attn_impl flash", args.attn_impl == "flash")):
         if on:
@@ -442,11 +464,6 @@ def main(argv=None):
                      ("--dp", args.dp != "off"), ("--do_dp", args.do_dp)):
         if on:
             raise NotImplementedError(f"gpt2_train {flag} is not ported")
-    if args.mode != "sketch":
-        # at PersonaChat's 17 568 clients their per-client state needs
-        # the host client store
-        raise NotImplementedError(
-            f"gpt2_train --mode {args.mode} is not ported")
     device = resolve_device(args.device)
     np.random.seed(args.seed)
 
@@ -458,7 +475,9 @@ def main(argv=None):
         args.num_blocks = 1
 
     module, params, tokenizer = build_model_and_tokenizer(args, device)
-    # remat from --remat or from a saved config.json
+    # remat from --remat or from a saved config.json; the flags as the
+    # round will read them (--test's sketch defaults normalized)
+    args.validate_runtime()
     _check_per_client(args, module.cfg.remat)
     fused = resolve_fused_ce(args.fused_ce, module.cfg.n_embd, device,
                              module.cfg.dtype)
@@ -471,7 +490,10 @@ def main(argv=None):
     model = FedModel(module, params,
                      make_compute_loss_train(module, args, fused), args,
                      compute_loss_val=make_compute_loss_val(module, args,
-                                                            fused))
+                                                            fused),
+                     padded_batch_size=train_loader.B)
+    # the host store's prefetch follows the loader's lookahead
+    model.attach_participant_feed(train_loader.peek_next_client_ids)
     opt = FedOptimizer([{"lr": 1.0}], args)
 
     spe = steps_per_epoch(args.local_batch_size, train_ds, args.num_workers)
@@ -486,7 +508,10 @@ def main(argv=None):
         print({"val_nll": out[0], "val_acc": out[1], "val_ppl": out[2]})
         return out
 
-    if args.eval_before_start:
+    start_epoch, epoch_hook, round_hook = setup_resume(
+        args, model, opt, lr_scheduler, train_loader, tag="gpt2")
+    if args.eval_before_start and start_epoch == 0:
+        # skipped on resume: the restored model is not "before start"
         out = run_batches(model, opt, lr_scheduler, val_loader, args,
                           training=False)
         print({"epoch": 0, "val_nll": out[0], "val_acc": out[1],
@@ -494,9 +519,23 @@ def main(argv=None):
     # one log directory a run, for the final save (reference
     # gpt2_train.py:466-468)
     logdir = make_logdir(args) if not args.do_test else None
-    results = train_gpt2(model, opt, lr_scheduler, train_loader,
-                         val_loader, args)
-    if logdir is not None and not getattr(model, "diverged", False):
+    interrupted = False
+    try:
+        with sigterm_raises():
+            results = train_gpt2(model, opt, lr_scheduler, train_loader,
+                                 val_loader, args, start_epoch=start_epoch,
+                                 epoch_hook=epoch_hook,
+                                 round_hook=round_hook)
+    except GracefulShutdown as e:
+        # no save here: the last round-cadence autosave is the resume
+        # point (reference gpt2_train.py:478-486)
+        print(f"interrupted ({e}); resume from the last autosave")
+        interrupted = True
+        results = []
+        model.interrupted()
+    model.finalize()
+    if logdir is not None and not getattr(model, "diverged", False) \
+            and not interrupted:
         # the final model and tokenizer, HF-style (reference
         # gpt2_train.py:500-508); diverged weights are not a model
         model.save_pretrained(logdir, hf_format=args.do_hf_export)

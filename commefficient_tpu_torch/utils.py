@@ -1,14 +1,52 @@
-"""LR schedules, loggers, timers and the run's log directory (port of
-the parts of ``commefficient_tpu/utils.py`` the trainers use)."""
+"""LR schedules, loggers, timers, the run's log directory and the
+trainers' SIGTERM handling (port of the parts of
+``commefficient_tpu/utils.py`` the trainers use)."""
 
 from __future__ import annotations
 
 import os
+import signal
+import threading
 import time
 from collections import namedtuple
+from contextlib import contextmanager
 from datetime import datetime
 
 import numpy as np
+
+
+class GracefulShutdown(Exception):
+    """Raised in the main thread when a termination signal arrives
+    (``sigterm_raises``; reference utils.py:21-30). Unwinds the round
+    loop so the trainer can drop the cut round (``FedModel.interrupted``)
+    and close the store (``finalize``) instead of dying mid-write; the
+    last round-cadence autosave is where the run resumes."""
+
+    def __init__(self, signum: int):
+        super().__init__(f"received signal {signum}")
+        self.signum = signum
+
+
+@contextmanager
+def sigterm_raises(signums=(signal.SIGTERM,)):
+    """Install handlers that raise ``GracefulShutdown``, restoring the
+    previous ones on exit (reference utils.py:33-53). A no-op outside
+    the main thread, where ``signal.signal`` is illegal."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+
+    def _handler(signum, frame):
+        raise GracefulShutdown(signum)
+
+    prev = {}
+    for s in signums:
+        prev[s] = signal.signal(s, _handler)
+    try:
+        yield
+    finally:
+        for s, h in prev.items():
+            signal.signal(s, h)
 
 
 class PiecewiseLinear(namedtuple("PiecewiseLinear", ("knots", "vals"))):

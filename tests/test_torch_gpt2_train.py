@@ -111,8 +111,8 @@ def test_fused_ce_on_raises_at_unsupported_width(tmp_path):
                          "--fused_ce", "on"] + ARGV)
 
 
-@pytest.mark.parametrize("flag", [["--checkpoint_every", "1"],
-                                  ["--approx_topk"], ["--resume"],
+@pytest.mark.parametrize("flag", [["--async_buffer_size", "2"],
+                                  ["--approx_topk"], ["--tensorboard"],
                                   ["--ledger", "x.jsonl"]])
 def test_unported_options_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match=flag[0]):

@@ -116,16 +116,19 @@ def test_mode_trainer_matches_jax_bytes_and_losses(mode, monkeypatch):
 
 @pytest.mark.parametrize("argv,name", [
     (["--resume"], "--resume"),
-    (["--checkpoint_every", "1"], "--checkpoint_every"),
+    (["--async_buffer_size", "2"], "--async_buffer_size"),
     (["--approx_topk"], "--approx_topk"),
     (["--dataset_name", "ImageNet"], "--dataset_name ImageNet"),
 ])
 def test_unported_options_raise(argv, name):
+    """Options the port lacks raise naming themselves; ``--resume`` is
+    ported, and raises naming itself without ``--checkpoint``."""
     base = ["--device", "cpu", "--test", "--local_momentum", "0",
             "--num_clients", "10", "--num_workers", "2"]
     if "--dataset_name" not in argv:
         base += ["--dataset_name", "Synthetic"]
-    with pytest.raises(NotImplementedError, match=name):
+    exc = ValueError if name == "--resume" else NotImplementedError
+    with pytest.raises(exc, match=name):
         cv_train.main(base + argv)
 
 
@@ -144,12 +147,23 @@ def test_per_client_quantized_wire_raises():
         assert row["up (MiB)"] == 2 * (10 + 4) / 2**20
 
 
-def test_gpt2_trainer_other_modes_raise():
+def test_gpt2_trainer_other_modes_raise(tmp_path):
+    """GPT-2's other modes run (tests/test_torch_gpt2_modes.py); what
+    still raises is a mode of the per-client round beside ``--attn_impl
+    flash``, whose kernels have no vmap rule."""
     from commefficient_tpu_torch.train import gpt2_train
+    base = ["--device", "cpu", "--test", "--dataset_dir", str(tmp_path),
+            "--num_workers", "2", "--local_batch_size", "2",
+            "--valid_batch_size", "2", "--num_epochs", "1"]
+    results = gpt2_train.main(base + ["--mode", "true_topk",
+                                      "--error_type", "virtual",
+                                      "--local_momentum", "0"])
+    assert np.isfinite(results[-1]["train_loss"])
     with pytest.raises(NotImplementedError,
-                       match="gpt2_train --mode true_topk"):
-        gpt2_train.main(["--device", "cpu", "--test", "--mode",
-                         "true_topk", "--error_type", "virtual"])
+                       match="--attn_impl flash with --mode local_topk"):
+        gpt2_train.main(base + ["--mode", "local_topk", "--error_type",
+                                "local", "--local_momentum", "0",
+                                "--attn_impl", "flash"])
 
 
 # --- the download support as a packed bitmap; --pipeline_depth -------------
@@ -169,7 +183,9 @@ def test_packbits_matches_numpy(d):
 
 SUPPORT_ARGV = {
     "local_topk": MODE_ARGV["local_topk"],
-    "fedavg": MODE_ARGV["fedavg"],
+    # the bytes depend on the update's support, not on how much local
+    # work made it: one local step over each client's whole batch
+    "fedavg": MODE_ARGV["fedavg"] + ["--fedavg_batch_size", "-1"],
     "true_topk": MODE_ARGV["true_topk"],
     "sketch": [],
 }
