@@ -146,7 +146,27 @@ through the kernels:
   ``PreemptionDrill`` SIGTERM after round 3's autosave and resumed with
   ``--resume``: the weights and every round's selected set bit for bit,
   the two halves' launches the straight run's; archive size, save and
-  load seconds).
+  load seconds);
+- GPT-2's per-client round under ``--attn_impl flash`` and its robust
+  folds and DP: ``attn_client_shapes`` (the three flash kernels against
+  their plain versions at the shapes the vmap rules fold the W = 4
+  clients into: 64 and, at ``--microbatch_size 4``, 32 sequences, each
+  client's q, k, v cut from its own projection; timed),
+  ``gpt2_clients_flash_path`` (``--attn_impl flash --max_grad_norm 10``:
+  one forward, one dK/dV and one dQ launch a layer a round over all
+  clients, W sketches, W flce backwards), ``gpt2_robust_dp_paths``
+  (``--robust_agg median``, ``trimmed``, ``--dp sketch --dp_clip 1
+  --dp_noise_mult 1`` and ``--do_dp``, 4 rounds each at full width: W
+  sketches a round under a robust fold, 1 under DP; finite losses, peak
+  memory, ε);
+- the asynchronous rounds (``async_paths``, ResNet9): K = the cohort at
+  alpha 0, punctual, ``torch.equal`` with the synchronous run
+  (``async_degenerate``); the fused sketch round and local_topk under
+  the host store at K = 4, alpha 0.5, on a churny ``ArrivalSchedule``
+  attached through ``FedModel.attach_arrival_process``
+  (``async_churny``: the synchronous paths' launches, the staleness
+  statistics, the prefetch hits); a resume mid-backlog bit for bit
+  (``async_resume``).
 
 The sketch, estimates, threshold search, take-mask and sketch-and-
 quantize kernels are also checked and timed at GPT-2's padded_d =
@@ -203,6 +223,7 @@ import torch
 
 from commefficient_tpu_torch import _build, profile_round
 from commefficient_tpu_torch.accounting import sketch_wire_bytes
+from commefficient_tpu_torch.asyncfed import AsyncRoundDriver
 from commefficient_tpu_torch.clientstore import (resolve_clientstore,
                                                  state_row_bytes)
 from commefficient_tpu_torch.config import Config, parse_args
@@ -210,7 +231,8 @@ from commefficient_tpu_torch.core.grad import make_forward_grad
 from commefficient_tpu_torch.core.robust import robust_fold
 from commefficient_tpu_torch.core.rounds import ClientStates
 from commefficient_tpu_torch.core.server import ServerState, server_update
-from commefficient_tpu_torch.data.chaos import (ChaosConfig, ChaosInjector,
+from commefficient_tpu_torch.data.chaos import (ArrivalSchedule, ChaosConfig,
+                                                ChaosInjector,
                                                 PreemptionDrill)
 from commefficient_tpu_torch.data.fixtures import write_fixture
 from commefficient_tpu_torch.data.tokenizer import SPECIAL_TOKENS, load_tokenizer
@@ -218,6 +240,7 @@ from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
                                                  convert_gpt2_to_hf,
                                                  convert_torch_gpt2)
 from commefficient_tpu_torch.ops import attention_kernels as ak
+from commefficient_tpu_torch.ops.attention import _fold
 from commefficient_tpu_torch.ops import flce_kernels as fk
 from commefficient_tpu_torch.ops import quant
 from commefficient_tpu_torch.ops import sketch_kernels as sk
@@ -1653,7 +1676,7 @@ def gpt2_run(root, extra=(), sync_free=False, before=None):
 
 
 def gpt2_launches(rounds, val_steps, attn_fwd_per_round=0, clients=0,
-                  microbatches=1):
+                  microbatches=1, sketches=None):
     """The launch counts of ``rounds`` GPT-2 rounds and ``val_steps``
     validation steps: each round 1 estimates, 1 search and 1 take-mask;
     the fused round 1 sketch, 1 flce forward and 1 flce backward; the
@@ -1666,9 +1689,12 @@ def gpt2_launches(rounds, val_steps, attn_fwd_per_round=0, clients=0,
     flash``; 2 under ``--remat``, which runs each block's forward
     again), one dK/dV and one dQ a layer where it runs any; each
     validation step one flce forward and one attention forward a
-    layer."""
+    layer. ``sketches`` overrides the sketch launches a round (the
+    per-client round's DP paths sketch the clients' sum once)."""
     flash = attn_fwd_per_round > 0
-    return {"sketch_kernel": rounds * max(clients, 1),
+    if sketches is None:
+        sketches = max(clients, 1)
+    return {"sketch_kernel": rounds * sketches,
             "estimates_kernel": rounds, "threshold_key_kernel": rounds,
             "take_mask_kernel": rounds, "sketch_quant_kernel": 0,
             "flce_fwd_kernel": rounds * microbatches + val_steps,
@@ -1918,6 +1944,112 @@ def gpt2_clients_path():
     check(row["up (MiB)"] == up, f"gpt2_clients: up {row['up (MiB)']} "
           f"MiB, want {up}")
     gpt2_emit("gpt2_clients_path", argv, counts, row, val_steps, wall)
+    return counts
+
+
+# GPT-2's robust folds and DP through its per-client round (W = 4, no
+# microbatching): (phase, flags, sketch launches a round for W clients).
+# A robust fold needs every client's own table (W sketches; the sparse
+# re-sketch branch needs no server sketch); --dp sketch and the legacy
+# --do_dp sketch the summed clipped gradients once
+GPT2_ROBUST_DP_PATHS = (
+    ("gpt2_robust_median_path", ["--robust_agg", "median"], lambda w: w),
+    ("gpt2_robust_trimmed_path", ["--robust_agg", "trimmed",
+                                  "--robust_trim_frac", "0.25"],
+     lambda w: w),
+    ("gpt2_dp_sketch_path", DP_ARGV, lambda w: 1),
+    ("gpt2_legacy_dp_path", ["--do_dp", "--l2_norm_clip", "1",
+                             "--noise_multiplier", "1e-3"], lambda w: 1),
+)
+# GPT-2's per-client round under --attn_impl flash: every client's
+# table clipped, no microbatching
+CLIENTS_FLASH_EXTRA = ["--attn_impl", "flash", "--max_grad_norm", "10"]
+
+
+def gpt2_robust_dp_paths():
+    """``GPT2_ROBUST_DP_PATHS`` at full width, one epoch of 4 rounds
+    each through ``gpt2_train.main``: the exact launches (the sketches
+    above, 1 estimates, 1 search and 1 take-mask a round, 1 flce forward
+    a round with the clients folded into the tokens and W flce
+    backwards), finite losses, the upload W f32 tables a round, peak
+    memory; under ``--dp sketch`` ε spent. Returns {path: launches}."""
+    out = {}
+    for phase, flags, sketches in GPT2_ROBUST_DP_PATHS:
+        with tempfile.TemporaryDirectory(prefix="gpt2_robust_") as root:
+            argv, counts, row, val_steps, wall, model = gpt2_run(root,
+                                                                 flags)
+        w = model.args.num_workers
+        rounds = gpt2_checks(phase, counts, row, val_steps,
+                             {"clients": w, "sketches": sketches(w)})
+        up = rounds * w * sketch_wire_bytes(R, C, "f32") / 2**20
+        check(row["up (MiB)"] == up, f"{phase}: up {row['up (MiB)']} MiB, "
+              f"want {up}")
+        eps = model.privacy_epsilon()
+        check((eps is not None) == ("--dp" in flags)
+              and (eps is None or (math.isfinite(eps) and eps > 0)),
+              f"{phase}: epsilon {eps}")
+        gpt2_emit(phase, argv, counts, row, val_steps, wall, epsilon=eps)
+        out[phase] = counts
+        fed_model._CURRENT_MODEL = None
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def attn_client_checks(dev, flush):
+    """The flash attention kernels at the shapes the per-client round's
+    vmap rules give them: each client's (B·N, 12, 256, 64) q, k, v cut
+    from its own projection, the W = 4 clients folded into B
+    (``ops/attention.py _fold``): 64 sequences without microbatching,
+    32 at ``--microbatch_size 4``. Each against its plain version at
+    ``attn_checks``' tolerances, and timed."""
+    out = {}
+    for tag, per_client in (("clients_fold", 16), ("clients_fold_mb4", 8)):
+        gen = torch.Generator(device=dev).manual_seed(per_client)
+        w, h, t, hd = 4, 12, 256, 64
+        c = h * hd
+        qkv = torch.randn(w, per_client, t, 3 * c, generator=gen,
+                          device=dev).to(torch.bfloat16)
+        q, k, v = (_fold(z.reshape(w, per_client, t, h, hd).transpose(2, 3),
+                         0, w) for z in qkv.split(c, dim=-1))
+        do = _fold(torch.randn(w, per_client, t, h, hd, generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   .transpose(2, 3), 0, w)
+        (op, mp, lp, di), errs, abs_err = attn_checks(q, k, v, do, tag)
+        scale = hd ** -0.5
+        bwd = (q, k, v, mp, lp, do, di, scale)
+        out[tag] = {
+            "shape": list(q.shape), "row_rel_err": errs,
+            "max_abs_err": abs_err,
+            "ms": {"attn_fwd": time_ms(lambda: ak.attn_fwd_kernel(
+                       q, k, v, scale), 10, flush),
+                   "attn_bwd_dkv": time_ms(lambda: ak.attn_bwd_dkv_kernel(
+                       *bwd), 10, flush),
+                   "attn_bwd_dq": time_ms(lambda: ak.attn_bwd_dq_kernel(
+                       *bwd), 10, flush)}}
+        del q, k, v, do, op, mp, lp, di, qkv
+        torch.cuda.empty_cache()
+    emit({"phase": "attn_client_shapes", "cases": out,
+          "tolerance": ATTN_TOL})
+
+
+def gpt2_clients_flash_path():
+    """GPT-2's per-client round under ``--attn_impl flash``
+    (``CLIENTS_FLASH_EXTRA``): the flash attention's vmap rules fold the
+    W = 4 clients into B, so a round launches 12 forwards, 12 dK/dV and
+    12 dQ (one a layer), beside W sketches, 1 flce forward and W flce
+    backwards; finite losses, the upload W f32 tables a round."""
+    with tempfile.TemporaryDirectory(prefix="gpt2_clients_flash_") as root:
+        argv, counts, row, val_steps, wall, model = gpt2_run(
+            root, CLIENTS_FLASH_EXTRA)
+    w = model.args.num_workers
+    rounds = gpt2_checks("gpt2_clients_flash_path", counts, row, val_steps,
+                         {"clients": w, "attn_fwd_per_round": 1})
+    up = rounds * w * sketch_wire_bytes(R, C, "f32") / 2**20
+    check(row["up (MiB)"] == up, f"gpt2_clients_flash: up "
+          f"{row['up (MiB)']} MiB, want {up}")
+    gpt2_emit("gpt2_clients_flash_path", argv, counts, row, val_steps, wall)
+    fed_model._CURRENT_MODEL = None
     return counts
 
 
@@ -2742,6 +2874,13 @@ RESUME_PATHS = (
                          "--clientstore", "host"]),
 )
 RESUME_KILL_ROUND = 3
+# the asynchronous rounds on the ResNet9 cell (W = 8): K = the cohort at
+# alpha 0 (the synchronous round, bit for bit), and K = 4 at alpha 0.5
+# on a churny schedule (half the clients late by 1-2 rounds)
+ASYNC_DEGENERATE = ["--async_buffer_size", "8", "--async_staleness_weight",
+                    "0"]
+ASYNC_K4 = ["--async_buffer_size", "4", "--async_staleness_weight", "0.5"]
+ASYNC_CHURN = dict(kind="churny", seed=3, max_delay=2, churn_frac=0.5)
 
 
 @contextlib.contextmanager
@@ -2827,7 +2966,8 @@ def model_summary():
             "grad_size": model.args.grad_size,
             "upload": model.args.upload_wire_bytes_per_client,
             "store_timings": model.store_timings,
-            "store_stats": model.store_stats}
+            "store_stats": model.store_stats,
+            "async_stats": model.async_round_stats}
 
 
 def store_run(argv):
@@ -3005,62 +3145,231 @@ def gpt2_mode_paths():
     return out
 
 
-def resume_paths():
-    """``RESUME_PATHS`` on ResNet9: 2 epochs of 2 rounds straight, against
-    a run with ``--checkpoint --checkpoint_every_rounds 1`` stopped by a
+def resume_case(name, argv, schedule=None):
+    """``argv`` on ResNet9: 2 epochs of 2 rounds straight, against a run
+    with ``--checkpoint --checkpoint_every_rounds 1`` stopped by a
     ``PreemptionDrill`` SIGTERM after round 3's autosave (mid-epoch;
     nothing saved at the signal) and resumed with ``--resume``:
-    deterministic, the final weights bit for bit; the two halves'
-    launches add up to the straight run's."""
-    out = {}
-    for name, extra in RESUME_PATHS:
-        argv = profile_round.ARGV + RESUME_ARGV + extra
-        with deterministic(), \
-                tempfile.TemporaryDirectory(prefix="resume_smoke_") as ck:
+    deterministic, the final weights and every round's selected set bit
+    for bit; the two halves' launches add up to the straight run's.
+    ``schedule(rounds_done)``, where given, makes each run's arrival
+    schedule (``arrivals``), the resumed run's advanced past the rounds
+    the cut run issued. Returns (its summary, the straight run's
+    ``model_summary()``)."""
+    def arrived(done):
+        if schedule is None:
+            return contextlib.nullcontext()
+        return arrivals(lambda: schedule(done))
+
+    with deterministic(), \
+            tempfile.TemporaryDirectory(prefix="resume_smoke_") as ck:
+        with arrived(0):
             straight = store_run(argv)
-            drill = PreemptionDrill(min_round=RESUME_KILL_ROUND,
-                                    max_round=RESUME_KILL_ROUND,
-                                    signals=(signal.SIGTERM,))
-            saver = checkpoint.RoundAutosaver.__call__
+        drill = PreemptionDrill(min_round=RESUME_KILL_ROUND,
+                                max_round=RESUME_KILL_ROUND,
+                                signals=(signal.SIGTERM,))
+        saver = checkpoint.RoundAutosaver.__call__
 
-            def autosave_then_drill(self, epoch):
-                saver(self, epoch)
-                if drill.should_kill(self.model.round_index):
-                    drill.execute()
+        def autosave_then_drill(self, epoch):
+            saver(self, epoch)
+            if drill.should_kill(self.model.round_index):
+                drill.execute()
 
-            flags = ["--checkpoint", "--checkpoint_path", ck,
-                     "--checkpoint_every_rounds", "1"]
-            checkpoint.RoundAutosaver.__call__ = autosave_then_drill
-            try:
-                with timing(checkpoint, "save_checkpoint") as saves:
-                    cut = store_run(argv + flags)
-            finally:
-                checkpoint.RoundAutosaver.__call__ = saver
-            check(drill.fired and cut[0] == [],
-                  f"resume {name}: the drill did not stop the run")
-            size = os.path.getsize(checkpoint.checkpoint_file(ck, "ResNet9"))
-            with timing(checkpoint, "load_checkpoint") as loads:
-                rest = store_run(argv + flags + ["--resume"])
-        total = straight[3]["round_index"]
-        check(total == 4 and cut[3]["round_index"] == RESUME_KILL_ROUND
-              and rest[3]["round_index"] == total,
-              f"resume {name}: rounds {total} / {cut[3]['round_index']} / "
-              f"{rest[3]['round_index']}")
-        check(torch.equal(straight[3]["weights"], rest[3]["weights"]),
-              f"resume {name}: resumed weights differ from the straight "
-              "run's")
-        check(same_supports(straight[2], cut[2] + rest[2]),
-              f"resume {name}: a round's selected set differs")
-        both = {k: cut[1][k] + rest[1][k] for k in cut[1]}
-        check(both == straight[1], f"resume {name}: launches {both} "
-              f"against {straight[1]}")
-        out[name] = {"rounds": total, "launches": straight[1],
-                     "archive_MB": size / 1e6,
-                     "autosave_seconds": saves, "load_seconds": loads,
-                     "straight_wall_s": straight[4],
-                     "cut_wall_s": cut[4], "resumed_wall_s": rest[4]}
+        flags = ["--checkpoint", "--checkpoint_path", ck,
+                 "--checkpoint_every_rounds", "1"]
+        checkpoint.RoundAutosaver.__call__ = autosave_then_drill
+        try:
+            with timing(checkpoint, "save_checkpoint") as saves, \
+                    arrived(0):
+                cut = store_run(argv + flags)
+        finally:
+            checkpoint.RoundAutosaver.__call__ = saver
+        check(drill.fired and cut[0] == [],
+              f"resume {name}: the drill did not stop the run")
+        size = os.path.getsize(checkpoint.checkpoint_file(ck, "ResNet9"))
+        with timing(checkpoint, "load_checkpoint") as loads, \
+                arrived(RESUME_KILL_ROUND):
+            rest = store_run(argv + flags + ["--resume"])
+    total = straight[3]["round_index"]
+    check(total == 4 and cut[3]["round_index"] == RESUME_KILL_ROUND
+          and rest[3]["round_index"] == total,
+          f"resume {name}: rounds {total} / {cut[3]['round_index']} / "
+          f"{rest[3]['round_index']}")
+    check(torch.equal(straight[3]["weights"], rest[3]["weights"]),
+          f"resume {name}: resumed weights differ from the straight "
+          "run's")
+    check(same_supports(straight[2], cut[2] + rest[2]),
+          f"resume {name}: a round's selected set differs")
+    both = {k: cut[1][k] + rest[1][k] for k in cut[1]}
+    check(both == straight[1], f"resume {name}: launches {both} "
+          f"against {straight[1]}")
+    return ({"rounds": total, "launches": straight[1],
+             "archive_MB": size / 1e6,
+             "autosave_seconds": saves, "load_seconds": loads,
+             "straight_wall_s": straight[4],
+             "cut_wall_s": cut[4], "resumed_wall_s": rest[4]},
+            straight[3])
+
+
+def resume_paths():
+    """``RESUME_PATHS`` through ``resume_case``."""
+    out = {name: resume_case(name, profile_round.ARGV + RESUME_ARGV
+                             + extra)[0]
+           for name, extra in RESUME_PATHS}
     emit({"phase": "resume_paths", "paths": out, "bit_exact": True,
           "kill_round": RESUME_KILL_ROUND, "argv_tail": RESUME_ARGV})
+
+
+@contextlib.contextmanager
+def arrivals(make):
+    """Every FedModel built in the block gets ``make()``, a fresh
+    arrival schedule, through ``FedModel.attach_arrival_process`` (the
+    trainers take no schedule flag: runs keep punctual arrival)."""
+    orig = fed_model.FedModel.__init__
+
+    def init(self, *a, **kw):
+        orig(self, *a, **kw)
+        self.attach_arrival_process(make())
+
+    fed_model.FedModel.__init__ = init
+    try:
+        yield
+    finally:
+        fed_model.FedModel.__init__ = orig
+
+
+@contextlib.contextmanager
+def recording_folds(record):
+    """Appends each fold's distinct live client ids to ``record``: what
+    the round bills an upload (a client folded twice uploads once)."""
+    orig = AsyncRoundDriver.step
+
+    def step(self, batch):
+        fold, staleness = orig(self, batch)
+        mask = np.asarray(fold["mask"])
+        alive = mask.reshape(mask.shape[0], -1).sum(axis=1) > 0
+        record.append(np.unique(np.asarray(fold["client_ids"])[alive]))
+        return fold, staleness
+
+    AsyncRoundDriver.step = step
+    try:
+        yield
+    finally:
+        AsyncRoundDriver.step = orig
+
+
+def churny(rounds_done=0):
+    """The async phases' churny arrival schedule, past ``rounds_done``
+    issued cohorts of W = 8."""
+    sched = ArrivalSchedule(**ASYNC_CHURN)
+    for r in range(rounds_done):
+        sched(r, 8)
+    return sched
+
+
+def async_stats_summary(stats):
+    return {"occupancy": [s["async_buffer_occupancy"] for s in stats],
+            "backlog": [s["async_backlog"] for s in stats],
+            "staleness_mean": [s["async_staleness_mean"] for s in stats],
+            "staleness_max": [s["async_staleness_max"] for s in stats],
+            "staleness_hist": [s["async_staleness_hist"] for s in stats]}
+
+
+def async_paths():
+    """The asynchronous rounds (asyncfed/) on the ResNet9 cell, cuDNN and
+    PyTorch deterministic where runs are compared:
+
+    - ``--async_buffer_size 8 --async_staleness_weight 0`` (K = the
+      cohort), punctual, against the synchronous main path: weights
+      ``torch.equal``, every round's loss, selected set and bytes equal,
+      the launches equal;
+    - the fused sketch round at K = 4, alpha 0.5, and local_topk with
+      local error under ``--clientstore host`` at K = 4, each on the
+      churny ``ArrivalSchedule`` attached through
+      ``FedModel.attach_arrival_process``: the launches of the
+      synchronous path (2 sketches, 1 estimates, 1 search, 1 take-mask a
+      round; W searches and W take-masks a round, the pad slots
+      included), the upload K live clients a round, finite losses, the
+      staleness statistics printed (some fold stale);
+    - a resume mid-backlog (``resume_case`` with the schedule): bit for
+      bit, the archive holding updates in flight."""
+    argv = MAIN_ARGV
+    with deterministic():
+        sync = store_run(argv)
+        deg = store_run(argv + ASYNC_DEGENERATE)
+    rounds = len(sync[2])
+    check(torch.equal(sync[3]["weights"], deg[3]["weights"]),
+          "async K = W: weights differ from the synchronous run's")
+    check(same_supports(sync[2], deg[2]),
+          "async K = W: a round's selected set differs")
+    for key in ("round_losses", "up (MiB)", "down (MiB)"):
+        check(sync[0][-1][key] == deg[0][-1][key],
+              f"async K = W: {key} {deg[0][-1][key]} against "
+              f"{sync[0][-1][key]}")
+    want = sketch_round_launches(rounds, 2)
+    want.update({k.__name__: 0 for k in ATTN})
+    check(sync[1] == deg[1] == want,
+          f"async K = W: launches {deg[1]} / {sync[1]}, want {want}")
+    emit({"phase": "async_degenerate", "argv_tail": ASYNC_DEGENERATE,
+          "rounds": rounds, "bit_exact": True, "launches": deg[1],
+          "sync_round_seconds": sync[0][-1]["round_times"],
+          "async_round_seconds": deg[0][-1]["round_times"],
+          "sync_wall_s": sync[4], "async_wall_s": deg[4],
+          "async": async_stats_summary(deg[3]["async_stats"])})
+    del sync, deg
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="async_spill_") as spill:
+        for name, extra, per_round in (
+                ("async_sketch_k4", MAIN_ARGV + ASYNC_K4,
+                 lambda n: sketch_round_launches(n, 2)),
+                ("async_local_topk_host_k4",
+                 profile_round.ARGV + STORE_ARGV + STORE_HOST
+                 + ["--clientstore_dir", spill] + ASYNC_K4,
+                 lambda n: dict(sketch_round_launches(0),
+                                threshold_key_kernel=8 * n,
+                                take_mask_kernel=8 * n))):
+            folds = []
+            with arrivals(churny), recording_folds(folds):
+                results, counts, _, model, wall, peak = store_run(extra)
+            row = results[-1]
+            n = model["round_index"]
+            stats = model["async_stats"]
+            want = dict(per_round(n), **{k.__name__: 0 for k in ATTN})
+            check(3 <= n <= 5 and counts == want,
+                  f"{name}: {n} rounds, launches {counts}, want {want}")
+            check(all(map(math.isfinite, row["round_losses"])),
+                  f"{name}: losses {row['round_losses']}")
+            check(len(stats) == n and max(s["async_staleness_max"]
+                                          for s in stats) > 0,
+                  f"{name}: no fold was stale ({stats})")
+            up = sum(len(f) for f in folds) * model["upload"] / 2**20
+            check(len(folds) == n and row["up (MiB)"] == up,
+                  f"{name}: up {row['up (MiB)']} MiB, want the folded "
+                  f"clients' {up}")
+            runs[name] = {"rounds": n, "launches": counts,
+                          "round_seconds": row["round_times"],
+                          "round_losses": row["round_losses"],
+                          "folded_clients": [len(f) for f in folds],
+                          "up_MiB": row["up (MiB)"],
+                          "down_MiB": row["down (MiB)"],
+                          "wall_s": wall, "peak_mem_GiB": peak,
+                          "async": async_stats_summary(stats)}
+            if model["store_timings"]:
+                runs[name]["store"] = store_seconds(model["store_timings"])
+                runs[name]["prefetch_hits"] = sum(
+                    bool(t["prefetch_hit"]) for t in model["store_timings"])
+        check(not os.listdir(spill), "async: spill files left")
+    emit({"phase": "async_churny", "schedule": ASYNC_CHURN,
+          "argv_tail": ASYNC_K4, "paths": runs})
+    out, straight = resume_case("async_sketch_k4",
+                                profile_round.ARGV + RESUME_ARGV
+                                + ["--lr_scale", "0.1"] + ASYNC_K4,
+                                schedule=churny)
+    check(any(s["async_backlog"] > 0 for s in straight["async_stats"]),
+          "async resume: no backlog in flight")
+    emit({"phase": "async_resume", "bit_exact": True,
+          "kill_round": RESUME_KILL_ROUND, "argv_tail": ASYNC_K4, **out,
+          "async": async_stats_summary(straight["async_stats"])})
 
 
 def main():
@@ -3181,11 +3490,19 @@ def main():
                        for k, v in pipelined.items()})
     gpt2_paths["gpt2_clients_path"] = gpt2_clients_path()
     torch.cuda.empty_cache()
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    attn_client_checks(dev, flush)
+    del flush
+    gpt2_paths["gpt2_clients_flash_path"] = gpt2_clients_flash_path()
+    torch.cuda.empty_cache()
+    gpt2_paths.update(gpt2_robust_dp_paths())
+    torch.cuda.empty_cache()
     clientstore_paths()
     torch.cuda.empty_cache()
     gpt2_paths.update(gpt2_mode_paths())
     torch.cuda.empty_cache()
     resume_paths()
+    async_paths()
     no_weights_left()
 
     keys = ("name", "route", "source", "replaces", "launches",

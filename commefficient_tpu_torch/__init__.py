@@ -16,6 +16,9 @@ of the reference's registry, and GPT-2 on PersonaChat:
 - ``models/`` (ResNet9, the ResNet family with ResNet101LN, the Fixup
   ResNets, ResNet18, GPT-2), ``core/``, ``runtime/fed_model.py``,
   ``data/`` (CIFAR, FEMNIST, PersonaChat, Synthetic) and ``train/``;
+- ``clientstore/`` (per-client state off the card), ``privacy/``,
+  ``runtime/checkpoint.py`` and ``asyncfed/`` (buffered asynchronous
+  rounds);
 - ``serialization.py``: flax's msgpack format of a parameter tree, in
   which GPT-2's final model is saved and from which it reloads.
 

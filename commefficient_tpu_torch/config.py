@@ -57,7 +57,6 @@ NOT_PORTED_FLAGS = (
     "--alarm_step_time_ratio", "--alarm_step_time_window",
     "--alarm_collective_skew", "--alarm_byzantine_ratio",
     "--alarm_fold_rejection",
-    "--async_buffer_size", "--async_staleness_weight",
     "--alarm_async_staleness", "--alarm_job_starvation", "--live_port",
     "--flightrec_rounds", "--postmortem_dir", "--causal_trace",
     "--slo_round_p95", "--slo_staleness_max", "--slo_eps_rounds",
@@ -175,6 +174,15 @@ class Config:
     # (reference config.py:397-404)
     checkpoint_every_rounds: int = 0
     checkpoint_keep: int = 0
+    # buffered asynchronous rounds (asyncfed/): fold up to K arrived
+    # client updates a round instead of waiting for the whole cohort
+    # (0 = synchronous; K in [1, num_workers], the round keeps its
+    # width and pads dead slots); an update folded s rounds after it
+    # was issued weighs (1 + s)^-alpha (alpha 0 = unweighted: at K =
+    # cohort with punctual arrivals the synchronous round, bit for
+    # bit; reference config.py:405-418)
+    async_buffer_size: int = 0
+    async_staleness_weight: float = 0.0
 
     # GPT-2 / PersonaChat (reference config.py:131-147, 294-301)
     model_checkpoint: str = "gpt2"
@@ -286,6 +294,14 @@ class Config:
             "--checkpoint_every_rounds must be >= 0 (0 = off)"
         assert self.checkpoint_keep >= 0, \
             "--checkpoint_keep must be >= 0"
+        assert self.async_buffer_size >= 0, \
+            "--async_buffer_size must be >= 0 (0 = synchronous)"
+        assert self.async_staleness_weight >= 0, \
+            "--async_staleness_weight must be >= 0"
+        if self.async_buffer_size > 0:
+            assert self.async_buffer_size <= self.num_workers, \
+                "--async_buffer_size must be <= --num_workers " \
+                "(the round's cohort width is num_workers)"
         assert self.tokens_per_chunk >= 0, \
             "--tokens_per_chunk must be >= 0 (0 = auto)"
         assert self.fused_ce in ("auto", "on", "off"), \
@@ -392,6 +408,17 @@ class Config:
                 assert self.num_workers % self.robust_median_groups \
                     == 0, "--robust_median_groups must divide " \
                     "--num_workers"
+        if self.async_buffer_size > 0:
+            # the buffered fold weights the round's per-client
+            # transmits by staleness; the chunked round only ever holds
+            # a running sum, and the arrival buffer is itself the
+            # rounds' overlap, so the dispatch stays at depth 1
+            assert self.client_chunk == 0, \
+                "--async_buffer_size needs the full per-client " \
+                "transmit stack; incompatible with --client_chunk"
+            assert self.pipeline_depth == 1, \
+                "--async_buffer_size overlaps rounds via the " \
+                "arrival buffer; incompatible with --pipeline_depth"
         if self.mode == "sketch":
             assert self.error_type != "local", \
                 "sketch mode cannot use local error accumulation"
@@ -551,6 +578,16 @@ def build_parser(default_lr: Optional[float] = None
     parser.add_argument("--checkpoint_keep", type=int, default=0,
                         help="history snapshots retained by the round "
                         "autosaver (0 = latest only)")
+    parser.add_argument("--async_buffer_size", type=int, default=0,
+                        help="fold the arrival buffer every K arrived "
+                        "clients instead of barriering on the cohort "
+                        "(0 = synchronous; K <= --num_workers)")
+    parser.add_argument("--async_staleness_weight", type=float,
+                        default=0.0,
+                        help="staleness exponent alpha: an update "
+                        "folded s rounds late is weighted "
+                        "1/(1+s)^alpha (0 = unweighted; at K = cohort "
+                        "it reduces bit-exactly to the sync round)")
 
     parser.add_argument("--model_checkpoint", type=str, default="gpt2")
     parser.add_argument("--num_candidates", type=int, default=2)

@@ -19,7 +19,10 @@ applied at :811), and ``--dp sketch``'s release (:857-888): the fold
 divided by the static W·B capacity, the table emitted at f32, one noise
 draw on the aggregated table, then the one wire qdq of the noisy table.
 The fused round's weight-decay share under ``--dropout_prob``
-(:548-563) is the round's alive fraction of its datapoints.
+(:548-563) is the round's alive fraction of its datapoints. The
+asynchronous rounds' staleness-weighted fold (``client_weights``,
+:238-330, 501-562, 620-631, 820-864) weights each client's transmit and
+datapoint count by ``(1 + staleness)^-alpha``.
 
 Batch layout: a dict of (W, B, ...) tensors with a (W, B) float "mask"
 marking real samples. Where no per-client transform touches the
@@ -56,7 +59,8 @@ from commefficient_tpu_torch.core.grad import (make_client_grad,
 from commefficient_tpu_torch.core.robust import robust_fold
 from commefficient_tpu_torch.core.server import (ServerState,
                                                  fold_row_chunks,
-                                                 server_update)
+                                                 server_update,
+                                                 staleness_weights)
 from commefficient_tpu_torch.ops import quant
 from commefficient_tpu_torch.ops.sketch import CountSketch
 from commefficient_tpu_torch.parallel.wire import row_chunks
@@ -187,9 +191,11 @@ def build_client_round(cfg: Config, loss_fn: Callable,
                        padded_batch_size: Optional[int] = None,
                        stats_fn: Optional[Callable] = None,
                        transmit_transform: Optional[Callable] = None,
-                       dense_rows: bool = False) -> Callable:
+                       dense_rows: bool = False,
+                       client_weights: bool = False) -> Callable:
     """Returns ``client_round(ps_weights, batch, client_states=None,
-    client_ids=None, fedavg_lr=1.0, round_index=0) -> RoundResult``.
+    client_ids=None, fedavg_lr=1.0, round_index=0, staleness=None) ->
+    RoundResult``.
 
     ``loss_fn(flat_params, batch) -> (loss, metrics)`` returns masked
     means over the last batch axis: per-client (W,) values for the
@@ -217,9 +223,21 @@ def build_client_round(cfg: Config, loss_fn: Callable,
     only the round's W participant rows, ordered like ``client_ids``,
     plus the dead-slot row, so state rows are indexed by slot POSITION
     (``_state_ids`` of ``arange(W)``; dead slots still go to the
-    dead-slot row), while ``transmit_transform`` keeps the real ids."""
+    dead-slot row), while ``transmit_transform`` keeps the real ids.
+
+    ``client_weights`` (the asynchronous rounds, asyncfed/; reference
+    core/rounds.py:238-330): the round takes ``staleness``, (W,) f32
+    rounds each folded update waited, and weights each client's
+    transmit and datapoint count by ``(1 + staleness)^-alpha``
+    (``--async_staleness_weight``): the fused round weights each
+    client's share of the loss and of the weight decay, the per-client
+    round folds cw·transmit over Σ cw·n (over the static W·B under
+    ``--dp sketch``; the robust folds take cw as their weights). At
+    alpha == 0 the branch is not taken, so the round is the synchronous
+    one, bit for bit."""
     round_fn = _build_client_round(cfg, loss_fn, padded_batch_size,
-                                   transmit_transform, dense_rows)
+                                   transmit_transform, dense_rows,
+                                   client_weights)
     if stats_fn is None:
         return round_fn
 
@@ -250,7 +268,8 @@ def round_bn_stats(stats_fn: Callable, ps_weights: torch.Tensor,
 def _build_client_round(cfg: Config, loss_fn: Callable,
                         padded_batch_size: Optional[int],
                         transmit_transform: Optional[Callable],
-                        dense_rows: bool = False) -> Callable:
+                        dense_rows: bool = False,
+                        client_weights: bool = False) -> Callable:
     cfg.validate_runtime()
     if padded_batch_size is None:
         padded_batch_size = (cfg.local_batch_size
@@ -258,6 +277,14 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
     if transmit_transform is not None:
         assert cfg.client_chunk == 0, \
             "transmit_transform needs the full per-client transmit " \
+            "stack; incompatible with --client_chunk"
+    # the staleness-weighted fold: at alpha == 0 every weight is 1, and
+    # the branch is skipped
+    alpha = float(cfg.async_staleness_weight)
+    weighted = client_weights and alpha != 0.0
+    if client_weights:
+        assert cfg.client_chunk == 0, \
+            "client_weights needs the full per-client transmit " \
             "stack; incompatible with --client_chunk"
     sketch = args2sketch(cfg)
     late = sketch_is_late(cfg)
@@ -295,18 +322,30 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
             return sketch.sketch(g)
         return fold_row_chunks(wire_crossing(g, rows) for rows in chunks)
 
-    def fused_round(ps_weights, batch, client_states):
+    def fused_round(ps_weights, batch, client_states, staleness=None):
         mask = batch["mask"]
-        total = torch.clamp(torch.sum(mask), min=1.0)
+        n = torch.sum(mask, dim=-1)
+        cw = staleness_weights(staleness, alpha) if weighted else None
+        if cw is not None:
+            total = torch.clamp(torch.sum(cw * n), min=1.0)
+        else:
+            total = torch.clamp(torch.sum(mask), min=1.0)
         p = ps_weights.detach().requires_grad_(True)
         loss, metrics = loss_fn(p, batch)
-        n = torch.sum(mask, dim=-1)
         # all-padding clients: their (meaningless) loss must not
         # poison the weighted sum
-        weighted = torch.where(n > 0, loss * n, torch.zeros_like(loss))
-        (g,) = torch.autograd.grad(torch.sum(weighted) / total, p)
+        terms = torch.where(n > 0, loss * n, torch.zeros_like(loss))
+        if cw is not None:
+            # each client's term by its weight, against the weighted
+            # total: the gradient is Σ cw_i·t_i / Σ cw_i·n_i
+            terms = terms * cw
+        (g,) = torch.autograd.grad(torch.sum(terms) / total, p)
         if cfg.weight_decay != 0:
-            if cfg.dropout_prob > 0:
+            if cw is not None:
+                # the weighted alive fraction: the per-client round's
+                # Σ cw_i·n_i·(wd/num_workers)·p / total
+                g = g + (wd_coef * (torch.sum(cw * n) / total)) * ps_weights
+            elif cfg.dropout_prob > 0:
                 # the round's alive fraction of its datapoints: the
                 # whole term while any client is alive, exactly 0 on a
                 # round whose clients all dropped, as the per-client
@@ -321,8 +360,9 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
 
     if fused:
         return (lambda ps_weights, batch, client_states=None,
-                client_ids=None, fedavg_lr=1.0, round_index=0:
-                fused_round(ps_weights, batch, client_states))
+                client_ids=None, fedavg_lr=1.0, round_index=0,
+                staleness=None:
+                fused_round(ps_weights, batch, client_states, staleness))
 
     if cfg.mode == "fedavg":
         per_client = _build_fedavg_client_step(cfg, loss_fn,
@@ -378,15 +418,20 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
 
     def client_round(ps_weights, batch, client_states=None,
                      client_ids=None, fedavg_lr=1.0,
-                     round_index=0) -> RoundResult:
+                     round_index=0, staleness=None) -> RoundResult:
         mask = batch["mask"]
         W = mask.shape[0]
+        cw = staleness_weights(staleness, alpha) if weighted else None
         if dp_on:
             # the static padded capacity W·B: every client's share of
             # the release stays within the sqrt(r)·C/W the accountant
             # charges, on every round (reference core/rounds.py:836-858)
             total = torch.full((), float(mask.numel()),
                                dtype=torch.float32, device=mask.device)
+        elif cw is not None:
+            # the weighted per-datapoint mean: Σ cw·transmit / Σ cw·n
+            n = torch.sum(mask.reshape(W, -1), dim=1)
+            total = torch.clamp(torch.sum(cw * n), min=1.0)
         else:
             total = torch.clamp(torch.sum(mask), min=1.0)
         if client_ids is None:
@@ -413,12 +458,15 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
                 t = transmit_transform(t, batch, real_ids, round_index)
             if per_client_wire:
                 t = qdq(t)
+            # the weighted fold scales each client's transmit; the
+            # robust folds take the weights themselves
+            t_fold = t if cw is None else t * _lead(cw, t)
             if robust:
-                aggregated = robust_fold(cfg, t, batch)
+                aggregated = robust_fold(cfg, t, batch, weights=cw)
             elif late:
-                aggregated = emit(torch.sum(t, dim=0)) / total
+                aggregated = emit(torch.sum(t_fold, dim=0)) / total
             else:
-                aggregated = torch.sum(t, dim=0) / total
+                aggregated = torch.sum(t_fold, dim=0) / total
             if dp_on:
                 aggregated = release(aggregated, round_index)
             return RoundResult(aggregated, metrics, client_states)

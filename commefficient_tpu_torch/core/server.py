@@ -4,6 +4,7 @@ unsketching and top-k recovery.
 Port of ``commefficient_tpu/core/server.py`` (``ServerState`` :28,
 ``fold_row_chunks`` :66, ``_lr_scaled_support`` :124,
 ``server_update`` :146, with a 0-dim or a per-coordinate (d,) LR,
+``staleness_weights`` :102 for the asynchronous rounds' fold,
 ``_fedavg`` :194, ``_uncompressed`` :205 with the legacy ``--do_dp
 --dp_mode server`` noise, ``_true_topk`` :225, ``_local_topk`` :267 and
 ``_sketched`` :279 with its dense and its sparse re-sketch branches).
@@ -43,6 +44,14 @@ def fold_row_chunks(chunks) -> torch.Tensor:
     (``--overlap_depth``) in emission order. The chunks cover disjoint
     row ranges, so the fold is concatenation, with no summation."""
     return torch.cat(list(chunks), dim=0)
+
+
+def staleness_weights(staleness: torch.Tensor, alpha: float) -> torch.Tensor:
+    """The asynchronous rounds' staleness discount ``(1 + s)^-alpha``
+    in f32 (reference core/server.py:102), applied to a folded client's
+    transmit and to its datapoint count, so the fold stays a weighted
+    per-datapoint mean. The round skips it at alpha == 0."""
+    return (1.0 + staleness.to(torch.float32)) ** (-float(alpha))
 
 
 class ServerUpdate(NamedTuple):

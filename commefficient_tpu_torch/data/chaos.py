@@ -27,12 +27,16 @@ No module of the port's round, runtime or trainers imports this file:
 the round's hook is a plain parameter, and the attacks live here, for
 tests and scripts.
 
+Arrival schedules (``ArrivalSchedule``, reference :241-362): when each
+issued client's update lands, in fold steps, for the asynchronous
+rounds' driver (asyncfed/), attached with
+``FedModel.attach_arrival_process``; no module of the port builds one.
+
 Host faults (reference :363-447): ``PreemptionDrill`` signals this
 process once at a seeded round, ``FlakyStore`` makes a client store's
 gathers fail or stall on a seeded schedule, and ``kill_prefetch_worker``
 marks a ``StorePrefetcher``'s worker dead. The straggler sleeps of the
-reference's ``wrap_loader`` and ``ArrivalSchedule`` belong to the
-asynchronous rounds, which the port does not have yet.
+reference's ``wrap_loader`` are not ported.
 """
 
 from __future__ import annotations
@@ -46,8 +50,8 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["ATTACKS", "ChaosConfig", "ChaosInjector", "FlakyStore",
-           "PreemptionDrill", "kill_prefetch_worker"]
+__all__ = ["ATTACKS", "ArrivalSchedule", "ChaosConfig", "ChaosInjector",
+           "FlakyStore", "PreemptionDrill", "kill_prefetch_worker"]
 
 ATTACKS = ("none", "label_flip", "sign_flip", "scale", "noise")
 
@@ -225,6 +229,115 @@ class _ChaosLoader:
 
     def __getattr__(self, name):
         return getattr(self._loader, name)
+
+
+class ArrivalSchedule:
+    """Seeded, replayable per-client arrival process: when each issued
+    client's update lands, in fold steps (reference ``ArrivalSchedule``,
+    data/chaos.py:241). Three kinds:
+
+    ``uniform``
+        Every client arrives the round it was issued (delay 0); with
+        ``--async_buffer_size`` at the cohort size this is the
+        synchronous round.
+    ``churny``
+        Each client is late with probability ``churn_frac``, by
+        1..``max_delay`` rounds, independently.
+    ``bursty``
+        A two-state Markov chain (calm/burst, the transition logic of
+        ``ChaosInjector.drop_slots``) delays a correlated ``drop_frac``
+        subset of each issued cohort by ``max_delay`` rounds for the
+        burst's whole lifetime.
+
+    Delays come from one sequential ``np.random.RandomState(seed)``
+    stream, drawn in the reference's order, so the same seed replays
+    the reference's trace bit for bit; ``reset()`` rewinds it.
+    Instances are callable as ``(round_index, n) -> delays``, the
+    signature of ``AsyncRoundDriver.attach_arrival_process``."""
+
+    KINDS = ("uniform", "churny", "bursty")
+
+    def __init__(self, kind: str = "uniform", seed: int = 0,
+                 max_delay: int = 4, churn_frac: float = 0.5,
+                 burst_start_prob: float = 0.15,
+                 burst_stop_prob: float = 0.5,
+                 drop_frac: float = 0.5):
+        assert kind in self.KINDS, kind
+        assert max_delay >= 1, "max_delay must be >= 1"
+        self.kind = kind
+        self.seed = int(seed)
+        self.max_delay = int(max_delay)
+        self.churn_frac = float(churn_frac)
+        self.burst_start_prob = float(burst_start_prob)
+        self.burst_stop_prob = float(burst_stop_prob)
+        self.drop_frac = float(drop_frac)
+        self.reset()
+
+    def reset(self) -> None:
+        """Rewind to round 0 of the trace."""
+        self._rng = np.random.RandomState(self.seed)
+        self._in_burst = False
+        self._burst_slots: Optional[np.ndarray] = None
+        self._round = 0
+
+    def delays(self, n: int) -> np.ndarray:
+        """Arrival delays (int64, >= 0) of the next issued cohort of
+        ``n`` clients. Consumes the stream: call in round order."""
+        self._round += 1
+        if self.kind == "uniform":
+            return np.zeros((n,), np.int64)
+        if self.kind == "churny":
+            late = self._rng.rand(n) < self.churn_frac
+            lag = self._rng.randint(1, self.max_delay + 1, size=n)
+            return np.where(late, lag, 0).astype(np.int64)
+        # bursty: advance the calm/burst chain, then stall the burst's
+        # slot subset by the full max_delay
+        if self._in_burst:
+            if self._rng.rand() < self.burst_stop_prob:
+                self._in_burst, self._burst_slots = False, None
+        elif self.burst_start_prob > 0 \
+                and self._rng.rand() < self.burst_start_prob:
+            self._in_burst = True
+            k = max(1, int(round(self.drop_frac * n)))
+            self._burst_slots = self._rng.choice(
+                n, size=min(k, n), replace=False)
+        out = np.zeros((n,), np.int64)
+        if self._in_burst and self._burst_slots is not None:
+            out[self._burst_slots[self._burst_slots < n]] = self.max_delay
+        return out
+
+    def __call__(self, round_index: int, n: int) -> np.ndarray:
+        return self.delays(n)
+
+    @staticmethod
+    def replay_stats(alive: Sequence[float], cohort: int) -> dict:
+        """Burst statistics of a replayed trace from the per-round alive
+        fractions a run observed (reference :333): bursts, burst rounds,
+        the longest burst, the alive fraction's minimum and mean, and
+        the client rounds lost."""
+        alive = [float(a) for a in alive]
+        ragged = [a for a in alive if a < 1.0]
+        burst_rounds, bursts, in_burst = 0, 0, False
+        longest, cur = 0, 0
+        for a in alive:
+            if a < 1.0:
+                burst_rounds += 1
+                cur += 1
+                if not in_burst:
+                    bursts += 1
+                in_burst = True
+                longest = max(longest, cur)
+            else:
+                in_burst, cur = False, 0
+        return {
+            "burst_count": bursts,
+            "burst_rounds": burst_rounds,
+            "longest_burst": longest,
+            "alive_frac_min": round(min(alive), 3) if alive else 1.0,
+            "alive_frac_mean": round(sum(alive) / max(len(alive), 1), 3),
+            "dropped_client_rounds": round(
+                sum(1.0 - a for a in ragged) * cohort),
+        }
 
 
 class PreemptionDrill:

@@ -26,9 +26,15 @@ restores them.
 Either placement restores into either: a device-placement archive
 fills the host store with every client's row, a host-store archive is
 densified over its init rows. An archive written by several processes
-(store side shards) or by the asynchronous driver (``asyncfed`` keys)
-raises ``NotImplementedError``: those come with the multi-GPU runtime
-and the asynchronous rounds.
+(store side shards) raises ``NotImplementedError``: those come with the
+multi-GPU runtime. The asynchronous driver's backlog (reference
+:326-343, 698-725) rides as ``meta["asyncfed"]`` (fold, seq, totals,
+pending, slot keys) and the ``async_arrive_at``, ``async_issue_seq``,
+``async_issue`` and ``async:slot:<key>`` arrays; a resume rebuilds the
+arrival heap, so the in-flight updates fold as in the uninterrupted
+run. An archive with a backlog resumed without ``--async_buffer_size``
+raises; an asynchronous run resumed from an archive without one warns
+and starts with an empty buffer.
 """
 
 from __future__ import annotations
@@ -226,6 +232,23 @@ def save_checkpoint(path: str, model, opt, scheduler=None,
         if stamp_ids.size:
             arrays["store_stamp_ids"] = stamp_ids
             arrays["store_stamp_rounds"] = stamp_rounds
+    drv = getattr(model, "_async_driver", None)
+    if drv is not None:
+        # the buffered-arrival backlog: without it a resumed run would
+        # drop every update in flight
+        st = drv.export_state()
+        meta["asyncfed"] = {
+            "fold": st["fold"], "seq": st["seq"],
+            "issued_total": st["issued_total"],
+            "folded_total": st["folded_total"],
+            "pending": int(st["arrive_at"].shape[0]),
+            "slot_keys": list(st["slot_keys"]),
+        }
+        arrays["async_arrive_at"] = st["arrive_at"]
+        arrays["async_issue_seq"] = st["issue_seq"]
+        arrays["async_issue"] = st["issue"]
+        for k, v in st["slots"].items():
+            arrays["async:slot:" + k] = v
     acc = getattr(model, "_accountant", None)
     if acc is not None:
         meta["privacy"] = acc.state_dict()
@@ -279,12 +302,6 @@ def load_checkpoint(path: str, model, opt, scheduler=None,
     validate_checkpoint(path)
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["meta"]))
-        if meta.get("asyncfed") is not None or any(
-                k.startswith("async") for k in z.files):
-            raise NotImplementedError(
-                f"checkpoint {path} holds asynchronous-round state "
-                "(--async_buffer_size's arrival backlog); the port has "
-                "no asynchronous driver yet")
         ck_store = meta.get("clientstore")
         if ck_store is not None and int(ck_store.get("processes", 1)) > 1:
             raise NotImplementedError(
@@ -435,6 +452,32 @@ def load_checkpoint(path: str, model, opt, scheduler=None,
                 st["spec_sizes"] = np.asarray(z["sampler_mid_spec_sizes"])
                 st["spec_idx"] = np.asarray(z["sampler_mid_spec_idx"])
             sampler.import_state(st)
+        # the asynchronous backlog: the arrival heap and counters
+        drv = getattr(model, "_async_driver", None)
+        ck_async = meta.get("asyncfed")
+        if drv is not None and ck_async is not None:
+            keys = list(ck_async.get("slot_keys", []))
+            drv.import_state({
+                "fold": ck_async["fold"], "seq": ck_async["seq"],
+                "issued_total": ck_async["issued_total"],
+                "folded_total": ck_async["folded_total"],
+                "slot_keys": keys,
+                "arrive_at": np.asarray(z["async_arrive_at"]),
+                "issue_seq": np.asarray(z["async_issue_seq"]),
+                "issue": np.asarray(z["async_issue"]),
+                "slots": {k: np.asarray(z["async:slot:" + k])
+                          for k in keys},
+            })
+        elif drv is not None:
+            warnings.warn(
+                "checkpoint has no asyncfed state (written by a "
+                "synchronous run); the arrival buffer resumes empty")
+        elif ck_async is not None and int(ck_async.get("pending", 0)):
+            raise ValueError(
+                f"checkpoint holds {ck_async['pending']} queued async "
+                "arrival(s) but this run is synchronous; resume with "
+                "--async_buffer_size or the buffered rounds in flight "
+                f"are dropped ({path})")
         # the spent privacy budget: a DP resume from a DP-less archive
         # would reset the spent ε to zero, so it refuses
         ck_priv = meta.get("privacy")

@@ -53,8 +53,8 @@ Each round gets its index (``round_index``), which seeds its noise
 streams (privacy/mechanism.py); under ``--dp sketch`` the run's RDP
 accountant (privacy/accountant.py, reference fed_model.py:372-378,
 868-918) is charged once a dispatched round at σ = ``--dp_noise_mult``
-and weight scale 1 (the port has no asynchronous rounds), and
-``privacy_epsilon()`` reads the ε spent. ``FedOptimizer`` draws the
+and weight scale 1 (under weighted asynchronous rounds the largest
+alive staleness weight), and ``privacy_epsilon()`` reads the ε spent. ``FedOptimizer`` draws the
 legacy ``--do_dp --dp_mode server`` noise from a seed + 1 stream, one a
 server step (reference fed_model.py:1267-1270, 1306-1308).
 ``--clientstore host`` (reference fed_model.py:170-201, 477-561)
@@ -69,7 +69,17 @@ copies the rows down and writes the live ones back (``_store_writeback``).
 spill times. ``finalize`` closes the prefetcher and the store (its last
 ``stats`` kept in ``store_stats``);
 ``interrupted`` drops a round that a signal cut short.
-Telemetry and its ledger keys, the privacy budget alarm, the autopilot
+``--async_buffer_size K`` (reference fed_model.py:210-223, 487-493,
+527-536, 656-662, 813-826, 868-905) puts ``asyncfed.AsyncRoundDriver``
+in front of the round: ``model(batch)`` issues the sampled cohort into
+the arrival queue and runs the round on the fold batch of up to K
+arrived updates (dead pad slots after them) with their staleness; the
+host store's issue stamps come from the driver, its prefetch follows
+the driver's exact next-fold ids where the backlog holds a full buffer
+(the sampler's lookahead otherwise), only alive fold slots are billed,
+and each round's ``round_stats()`` is kept in ``async_round_stats``.
+``attach_arrival_process`` attaches a seeded arrival schedule (tests
+and scripts). Telemetry and its ledger keys, the privacy budget alarm, the autopilot
 and meshes are not ported.
 """
 
@@ -84,6 +94,7 @@ import numpy as np
 import torch
 
 from commefficient_tpu_torch import accounting
+from commefficient_tpu_torch.asyncfed import AsyncRoundDriver
 from commefficient_tpu_torch.clientstore import (HostClientStore,
                                                  StorePrefetcher,
                                                  resolve_clientstore,
@@ -190,13 +201,23 @@ class FedModel:
             self.client_states = ClientStates.init(args, num_clients,
                                                    self.ps_weights,
                                                    self.device)
+        # --async_buffer_size K: the buffered-arrival front end; the
+        # host store's participants get issue-round stamps
+        self.async_k = int(args.async_buffer_size)
+        self._async_driver = None
+        self.async_round_stats = []
+        if self.async_k > 0:
+            self._async_driver = AsyncRoundDriver(
+                args, stamp=(self.client_store.stamp_rounds
+                             if self.client_store is not None else None))
         if padded_batch_size is None:
             padded_batch_size = (args.local_batch_size
                                  if args.local_batch_size > 0 else 1)
         self.padded_batch_size = padded_batch_size
         self._client_round = build_client_round(
             args, loss_fn, padded_batch_size, stats_fn,
-            dense_rows=self.client_store is not None)
+            dense_rows=self.client_store is not None,
+            client_weights=self.async_k > 0)
         self.pending_aggregated = None
         # the round's state ids, dead slots at the dead-slot row: the
         # server round's velocity rewrite (true_topk) scatters there
@@ -252,10 +273,17 @@ class FedModel:
         return out
 
     def _call_train(self, batch):
+        staleness = None
+        if self._async_driver is not None:
+            # issue the sampled cohort, then fold what has arrived: the
+            # round runs on the buffer's head, dead-padded to W
+            batch, staleness = self._async_driver.step(batch)
         ids_np = np.asarray(batch["client_ids"])
         dev_batch = self._to_device(batch)
         ids = torch.as_tensor(ids_np.astype(np.int64)).to(
             self.device, non_blocking=True)
+        stale_dev = (None if staleness is None else torch.from_numpy(
+            staleness).to(self.device, non_blocking=True))
         cs_in = self.client_states
         if self.client_store is not None:
             # normally a no-op: opt.step() already wrote the previous
@@ -264,7 +292,8 @@ class FedModel:
             cs_in = self._gather_states(ids_np)
         res = self._client_round(self.ps_weights, dev_batch, cs_in, ids,
                                  self.fedavg_lr,
-                                 round_index=self.round_index)
+                                 round_index=self.round_index,
+                                 staleness=stale_dev)
         self.client_states = res.client_states
         self.pending_aggregated = res.aggregated
         if self.client_store is not None:
@@ -283,8 +312,7 @@ class FedModel:
         if self._accountant is not None:
             # the round released its noised table whether or not its
             # metrics ever reach the host
-            self._accountant.step(weight_scale=1.0,
-                                  sigma=float(self.args.dp_noise_mult))
+            self._charge_privacy(staleness, batch["mask"])
         self.round_index += 1
         if res.bn_stats is not None:
             # running-stats blend; a round with no real sample leaves
@@ -293,13 +321,20 @@ class FedModel:
             self.model_state = {
                 k: torch.where(alive > 0, 0.9 * ra + 0.1 * new_stats[k], ra)
                 for k, ra in self.model_state.items()}
+        acct_ids, acct_mask = ids_np, np.asarray(batch["mask"])
+        if self._async_driver is not None:
+            self.async_round_stats.append(self._async_driver.round_stats())
+            # dead pad slots (id 0, mask 0) are queue padding, not
+            # participants: they must not bill client 0 a download
+            alive = acct_mask.reshape(len(ids_np), -1).sum(axis=1) > 0
+            acct_ids, acct_mask = ids_np[alive], acct_mask[alive]
         if self.pipeline_depth > 1:
             self._inflight.append(list(res.metrics))
-            self._oplog.append(("account", ids_np.copy(),
-                                np.array(batch["mask"])))
+            self._oplog.append(("account", acct_ids.copy(),
+                                np.array(acct_mask)))
             return None
         metrics = [m.to("cpu").numpy() for m in res.metrics]
-        down, up = self._account_bytes(ids_np, batch["mask"])
+        down, up = self._account_bytes(acct_ids, acct_mask)
         return metrics + [down, up]
 
     def flush(self, force=True):
@@ -353,10 +388,25 @@ class FedModel:
         fed_model.py:477-484). A no-op under ``--clientstore device``."""
         self._participant_feed = feed
 
+    def attach_arrival_process(self, fn):
+        """A seeded arrival schedule for the asynchronous driver,
+        ``fn(round_index, n) -> delays`` (tests and scripts, e.g.
+        ``data/chaos.py ArrivalSchedule``; runs keep punctual arrival).
+        Needs ``--async_buffer_size`` (reference fed_model.py:487)."""
+        assert self._async_driver is not None, \
+            "attach_arrival_process needs --async_buffer_size > 0"
+        self._async_driver.attach_arrival_process(fn)
+
     def _submit_prefetch(self):
-        if self._prefetcher is None or self._participant_feed is None:
+        if self._prefetcher is None:
             return
-        ids = self._participant_feed()
+        # the driver knows the next fold's ids exactly when its backlog
+        # holds a full buffer; the sampler's lookahead covers the rest,
+        # and a wrong guess is a prefetch miss (a synchronous gather)
+        ids = (self._async_driver.peek_next_ids()
+               if self._async_driver is not None else None)
+        if ids is None and self._participant_feed is not None:
+            ids = self._participant_feed()
         if ids is not None:
             self._prefetcher.submit(np.asarray(ids, np.int64))
 
@@ -481,6 +531,25 @@ class FedModel:
         self.pending_aggregated = None
         self.pending_client_ids = None
         self._store_pending = None
+
+    def _charge_privacy(self, staleness, mask):
+        """Charge the round's ``--dp sketch`` release (reference
+        ``_charge_privacy``, fed_model.py:868-905). A staleness-weighted
+        round charges the reduced sensitivity ``weight_scale = (1 +
+        s_min)^-alpha``, the largest fold weight among the round's
+        alive slots: the DP fold divides by the static W·B, so a
+        client's released share is genuinely scaled by its weight. A
+        round with no alive slot charges 1."""
+        w = 1.0
+        alpha = float(self.args.async_staleness_weight)
+        if staleness is not None and alpha > 0.0:
+            s = np.asarray(staleness, np.float64)
+            alive = np.asarray(mask).reshape(s.shape[0], -1).sum(axis=1) > 0
+            if alive.any():
+                w = float(min((1.0 + float(s[alive].min())) ** (-alpha),
+                              1.0))
+        self._accountant.step(weight_scale=w,
+                              sigma=float(self.args.dp_noise_mult))
 
     def privacy_epsilon(self) -> Optional[float]:
         """The ε spent so far at ``--dp_delta`` under ``--dp sketch``

@@ -32,9 +32,15 @@ one validation pass and nothing else (reference gpt2_train.py:445-450);
 the full round state ``checkpoint_path/ckpt_gpt2.npz`` at the last
 epoch (and at ``--checkpoint_every`` / ``--checkpoint_every_rounds``),
 from which ``--resume`` continues (runtime/checkpoint.py); a SIGTERM
-ends the run without a save. Telemetry is not ported, and neither are
-the robust folds and DP in this trainer: ``--robust_agg``, ``--dp`` and
-``--do_dp`` raise, naming themselves.
+ends the run without a save. Telemetry is not ported.
+
+``--robust_agg median|trimmed|clip``, ``--dp sketch`` and the legacy
+``--do_dp`` run through the per-client round (``core/rounds.py``), every
+client sketching its own table; the noise streams are the port's
+``torch.Generator`` streams seeded by (seed, round, tag)
+(privacy/mechanism.py). ``--async_buffer_size`` runs the buffered
+asynchronous rounds (asyncfed/) through the FedModel, as in the CV
+trainer.
 
 Every ``--mode`` runs. ``true_topk`` and ``uncompressed`` with virtual
 state run the fused round (one forward and backward over every token);
@@ -46,9 +52,9 @@ host (PersonaChat's 17 568 clients hold 8.7 TB of GPT-2 error rows).
 (``run_batches`` drains them, ``runtime/fed_model.py drain_rounds``).
 The per-client round (``core/rounds.py``; also under ``--max_grad_norm``
 and ``--microbatch_size``) runs every client's gradient under
-``torch.func.vmap``, with the fused CE's own vmap rules
-(``ops/flce.py``) or the chunked CE without its checkpoints;
-``--remat`` and ``--attn_impl flash`` there raise.
+``torch.func.vmap``, with the fused CE's and the flash attention's own
+vmap rules (``ops/flce.py``, ``ops/attention.py``) or the chunked CE
+without its checkpoints; ``--remat`` there raises.
 
 Assets are made offline (``fabricate_assets``): a full-size GPT-2-layout
 vocabulary and a learnable PersonaChat-format corpus. Run e.g.:
@@ -438,8 +444,8 @@ def fabricate_assets(root: str, num_personalities: int = 16,
 
 def _check_per_client(args: Config, remat: bool):
     """The per-client round runs the loss under torch.func.vmap: the
-    fused CE has vmap rules, the flash attention kernels and the
-    blocks' checkpoints do not. Raises naming both flags."""
+    fused CE and the flash attention have vmap rules, the blocks'
+    checkpoints (``--remat``) do not. Raises naming both flags."""
     if fused_grad_eligible(args):
         return
     round_flags = " ".join(
@@ -449,21 +455,18 @@ def _check_per_client(args: Config, remat: bool):
             ("--error_type local", args.error_type == "local"),
             ("--topk_down", args.do_topk_down),
             ("--max_grad_norm", args.max_grad_norm is not None),
-            ("--microbatch_size", args.microbatch_size > 0)) if on)
-    for flag, on in (("--remat", remat),
-                     ("--attn_impl flash", args.attn_impl == "flash")):
-        if on:
-            raise NotImplementedError(
-                f"gpt2_train {flag} with {round_flags} (the per-client "
-                "round) is not ported")
+            ("--microbatch_size", args.microbatch_size > 0),
+            (f"--robust_agg {args.robust_agg}", args.robust_agg != "none"),
+            ("--dp sketch", args.dp != "off"),
+            ("--do_dp", args.do_dp)) if on)
+    if remat:
+        raise NotImplementedError(
+            f"gpt2_train --remat with {round_flags} (the per-client "
+            "round) is not ported")
 
 
 def main(argv=None):
     args = parse_args(default_lr=4e-2, argv=argv)
-    for flag, on in (("--robust_agg", args.robust_agg != "none"),
-                     ("--dp", args.dp != "off"), ("--do_dp", args.do_dp)):
-        if on:
-            raise NotImplementedError(f"gpt2_train {flag} is not ported")
     device = resolve_device(args.device)
     np.random.seed(args.seed)
 

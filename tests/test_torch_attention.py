@@ -20,6 +20,11 @@ numpy from a seed and handed to both; the port takes its plain versions
   dQ/dK/dV 3.3e-3/2.8e-3/2.1e-3 at T = 256; o 1.7e-3 and 3.7e-3/2.9e-3/
   2.0e-3 at T = 1024).
 
+Under ``torch.func.vmap`` (GPT-2's per-client round) the vmap rules
+fold the client axis into B: the gradients equal a per-client loop bit
+for bit, with one launch a kernel, and one per-client flash GPT-2 round
+matches the JAX package's per-client round.
+
 A ``cuda``-marked test holds the three kernels against their plain
 versions on the card; it skips without one. On a card run it with
 ``python -m pytest --noconftest tests/test_torch_attention.py -m cuda``
@@ -162,7 +167,7 @@ def test_causal_rows_see_only_the_past():
     # output reaches no later key or value
     q, k, v, _ = (torch.from_numpy(x) for x in _inputs((1, 1, 128, 16), 2))
     tk, tv = k.clone().requires_grad_(), v.clone().requires_grad_()
-    o = FlashAttention.apply(q, tk, tv, 0.25)
+    o = FlashAttention.apply(q, tk, tv, 0.25)[0]
     o[0, 0, 40].sum().backward()
     assert float(tk.grad[0, 0, 41:].abs().max()) == 0.0
     assert float(tv.grad[0, 0, 41:].abs().max()) == 0.0
@@ -279,6 +284,136 @@ def test_card_smoke_attention_checks_reject_slips(monkeypatch, slip):
         monkeypatch.setattr(ak, "attn_bwd_dkv_kernel", dkv_slip)
     with pytest.raises(AssertionError):
         chip_smoke.attn_checks(q, k, v, do, slip)
+
+
+@pytest.mark.parametrize("dims", [(0, 0, 0), (0, None, None)],
+                         ids=["all_batched", "kv_shared"])
+def test_vmap_rules_fold_clients_and_match_a_per_client_loop(monkeypatch,
+                                                             dims):
+    """GPT-2's per-client round takes every client's gradient under
+    ``torch.func.vmap``: the rules fold the client axis into B, so each
+    of the three kernels launches once over all clients (here their
+    plain versions, recorded), and the gradients equal a loop over the
+    clients through autograd, bit for bit. An unbatched operand (None)
+    is expanded to every client."""
+    from commefficient_tpu_torch.ops import attention as attn
+    nc, b, h, t, hd = 3, 2, 2, 128, 16
+    gen = torch.Generator().manual_seed(5)
+    q, k, v, do = (torch.randn(nc, b, h, t, hd, generator=gen)
+                   for _ in range(4))
+    k, v = (x if d == 0 else x[0] for x, d in zip((k, v), dims[1:]))
+    calls = []
+    for name in ("attn_fwd_kernel", "attn_bwd_dkv_kernel",
+                 "attn_bwd_dq_kernel"):
+        fn = getattr(attn, name)
+        monkeypatch.setattr(attn, name, lambda *a, _n=name, _f=fn: (
+            calls.append((_n, tuple(a[0].shape))), _f(*a))[1])
+
+    def loss(q, k, v, do):
+        return torch.sum(flash_attention(q, k, v, hd ** -0.5) * do)
+
+    grads = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)),
+                            in_dims=dims + (0,))(q, k, v, do)
+    folded = (nc * b, h, t, hd)
+    assert calls == [("attn_fwd_kernel", folded),
+                     ("attn_bwd_dkv_kernel", folded),
+                     ("attn_bwd_dq_kernel", folded)]
+    for i in range(nc):
+        ops = [x[i] if d == 0 else x for x, d in zip((q, k, v), dims)]
+        ops = [x.clone().requires_grad_(True) for x in ops]
+        want = torch.autograd.grad(loss(*ops, do[i]), ops)
+        for got, w in zip(grads, want):
+            assert torch.equal(got[i], w)
+
+
+def test_per_client_flash_gpt2_round_matches_jax(monkeypatch):
+    """One per-client GPT-2 round (``--max_grad_norm``: each client's
+    table clipped by its l2 estimate) through the port's FedModel under
+    ``attn_impl="flash"`` (the vmap rules; one forward, one dK/dV and one
+    dQ launch a layer over both clients) against the JAX package's
+    FedModel round, jitted. The JAX round takes its plain attention: its
+    interpret-mode flash kernel does not batch under ``vmap`` (jax
+    0.9.0). The two attentions are the same function; at the
+    tolerances of tests/test_torch_gpt2_clients.py (losses rtol 1e-5,
+    weights rtol 1e-4 / atol 1e-6, bytes and the selected set exact)."""
+    import jax
+    import jax.numpy as jnp
+
+    from commefficient_tpu.config import Config as JaxConfig
+    from commefficient_tpu.models.gpt2 import GPT2Config as JaxGPT2Config
+    from commefficient_tpu.models.gpt2 import GPT2DoubleHeads as JaxGPT2
+    from commefficient_tpu.parallel.mesh import make_mesh
+    from commefficient_tpu.runtime.fed_model import FedModel as JaxFedModel
+    from commefficient_tpu.runtime.fed_model import \
+        FedOptimizer as JaxFedOpt
+    from commefficient_tpu.train.gpt2_train import \
+        make_compute_loss_train as jax_loss
+    from commefficient_tpu_torch.config import Config
+    from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
+                                                     GPT2DoubleHeads)
+    from commefficient_tpu_torch.ops import attention as attn
+    from commefficient_tpu_torch.runtime.fed_model import (FedModel,
+                                                           FedOptimizer)
+    from commefficient_tpu_torch.train.gpt2_train import \
+        make_compute_loss_train
+
+    geom = dict(vocab_size=256, n_positions=128, n_embd=64, n_layer=1,
+                n_head=2)
+    nw, b, n, t, k = 2, 1, 2, 128, 50
+    rng = np.random.RandomState(9)
+    lab = rng.randint(0, 256, (nw, b, n, t)).astype(np.int32)
+    lab[:, :, :, :7] = -1
+    batch = {"client_ids": np.array([3, 1], np.int32),
+             "input_ids": rng.randint(0, 256, (nw, b, n, t)).astype(np.int32),
+             "token_type_ids": rng.randint(253, 256, (nw, b, n, t))
+             .astype(np.int32),
+             "lm_labels": lab,
+             "mc_token_ids": rng.randint(t - 8, t, (nw, b, n))
+             .astype(np.int32),
+             "mc_labels": rng.randint(0, n, (nw, b)).astype(np.int32),
+             "mask": np.ones((nw, b), np.float32)}
+    kw = dict(mode="sketch", error_type="virtual", local_momentum=0.0,
+              virtual_momentum=0.9, num_workers=nw, local_batch_size=b,
+              k=k, num_rows=3, num_cols=512, seed=0, num_clients=4,
+              dataset_name="PERSONA", num_candidates=n, max_grad_norm=0.05)
+    jm = JaxGPT2(JaxGPT2Config(**geom))
+    dummy = jnp.zeros((1, n, 8), jnp.int32)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), dummy,
+                              jnp.zeros((1, n), jnp.int32), dummy)["params"]
+    tm = GPT2DoubleHeads(GPT2Config(**geom, attn_impl="flash"))
+    flat = tm.from_jax_params(jax.tree_util.tree_map(np.asarray, params))
+    jcfg = JaxConfig(fused_ce="off", **kw)
+    jmodel = JaxFedModel(jm, params, jax_loss(jm, jcfg), jcfg,
+                         padded_batch_size=b,
+                         mesh=make_mesh([jax.devices()[0]]))
+    jopt = JaxFedOpt([{"lr": 0.04}], jcfg)
+    tcfg = Config(device="cpu", fused_ce="on", attn_impl="flash", **kw)
+    tmodel = FedModel(tm, flat, make_compute_loss_train(tm, tcfg, True),
+                      tcfg)
+    topt = FedOptimizer([{"lr": 0.04}], tcfg)
+    calls = []
+    for name in ("attn_fwd_kernel", "attn_bwd_dkv_kernel",
+                 "attn_bwd_dq_kernel"):
+        fn = getattr(attn, name)
+        monkeypatch.setattr(attn, name, lambda *a, _n=name, _f=fn: (
+            calls.append((_n, tuple(a[0].shape))), _f(*a))[1])
+    jmet = jmodel(batch)
+    jopt.step()
+    tmet = tmodel(batch)
+    topt.step()
+    folded = (nw * b * n, 2, t, 32)
+    assert calls == [("attn_fwd_kernel", folded),
+                     ("attn_bwd_dkv_kernel", folded),
+                     ("attn_bwd_dq_kernel", folded)]
+    np.testing.assert_allclose(tmet[0], jmet[0], rtol=1e-5)
+    np.testing.assert_allclose(tmodel.ps_weights.numpy(),
+                               np.asarray(jmodel.ps_weights),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_array_equal(tmet[-1], jmet[-1])
+    np.testing.assert_array_equal(tmet[-2], jmet[-2])
+    sel = tmodel.last_updated == 1
+    assert sel.sum() == k
+    np.testing.assert_array_equal(sel, jmodel.last_updated == 1)
 
 
 def test_kernel_ab_attention_suite():

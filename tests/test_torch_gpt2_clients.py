@@ -15,8 +15,10 @@ on the CPU.
   batched.
 - The chunked CE under ``torch.func`` (no checkpoints) gives the
   numbers it gives under autograd (checkpointed chunks).
-- ``--remat`` (also from a saved ``config.json``) or ``--attn_impl
-  flash`` with the per-client round raise, naming both flags.
+- ``--remat`` (also from a saved ``config.json``, and beside
+  ``--attn_impl flash``) with the per-client round raises, naming both
+  flags; the per-client round under ``--attn_impl flash`` runs
+  (tests/test_torch_attention.py).
 """
 
 import json
@@ -188,7 +190,8 @@ def test_chunked_ce_without_checkpoints_is_the_same_function(monkeypatch):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("flag", [["--remat"], ["--attn_impl", "flash"]])
+@pytest.mark.parametrize("flag", [["--remat"],
+                                  ["--remat", "--attn_impl", "flash"]])
 @pytest.mark.parametrize("round_flag", [["--max_grad_norm", "1.0"],
                                         ["--microbatch_size", "1"]])
 def test_per_client_round_with_remat_or_flash_raises(tmp_path, flag,

@@ -11,7 +11,7 @@ Without ``--device`` the trainer runs on cuda, and with no card it
 raises; ``--fused_ce on`` at a width the kernels cannot take raises,
 and so does ``--attn_impl flash`` on the card at a head dim the flash
 kernels lack; the options the port leaves out raise, and so does the
-per-client round beside ``--attn_impl flash``, while its
+per-client round beside ``--remat``, while the flash
 ``--pipeline_depth 2`` run gives depth 1's numbers.
 """
 
@@ -111,7 +111,7 @@ def test_fused_ce_on_raises_at_unsupported_width(tmp_path):
                          "--fused_ce", "on"] + ARGV)
 
 
-@pytest.mark.parametrize("flag", [["--async_buffer_size", "2"],
+@pytest.mark.parametrize("flag", [["--alarm_async_staleness", "2"],
                                   ["--approx_topk"], ["--tensorboard"],
                                   ["--ledger", "x.jsonl"]])
 def test_unported_options_raise(tmp_path, flag):
@@ -147,22 +147,25 @@ def test_dropout_prob_drops_the_replayed_clients(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag", [["--robust_agg", "median"],
                                   ["--dp", "sketch"], ["--do_dp"]])
 def test_robust_and_dp_raise_naming_the_flag(tmp_path, flag):
-    """The CV trainer runs the robust folds and DP; gpt2_train does not
-    have them yet and raises, naming the flag."""
+    """gpt2_train runs the robust folds and DP through its per-client
+    round (tests/test_torch_gpt2_robust_dp.py); beside ``--remat``, which
+    that round lacks, it raises naming both flags."""
     with pytest.raises(NotImplementedError,
-                       match=f"gpt2_train {flag[0]} is not ported"):
-        gpt2_train.main(["--device", "cpu", "--dataset_dir", str(tmp_path)]
-                        + ARGV + flag)
+                       match=f"gpt2_train --remat with {flag[0]}"):
+        gpt2_train.main(["--device", "cpu", "--dataset_dir", str(tmp_path),
+                         "--remat"] + ARGV + flag)
 
 
 @pytest.mark.parametrize("flag", [["--max_grad_norm", "1.0"],
                                   ["--microbatch_size", "1"]])
 def test_flash_on_a_path_that_raises_still_raises(tmp_path, flag):
-    # the per-client round runs the loss under torch.func.vmap, which
-    # the flash attention kernels have no rule for
-    with pytest.raises(NotImplementedError, match=flag[0]):
+    # the per-client round runs the loss under torch.func.vmap: the
+    # flash attention has a vmap rule, the blocks' checkpoints of
+    # --remat do not
+    with pytest.raises(NotImplementedError,
+                       match=f"--remat with {flag[0]}"):
         gpt2_train.main(["--device", "cpu", "--dataset_dir", str(tmp_path),
-                         "--attn_impl", "flash"] + ARGV + flag)
+                         "--attn_impl", "flash", "--remat"] + ARGV + flag)
 
 
 def test_flash_pipelined_matches_depth_1(tmp_path):

@@ -50,6 +50,9 @@ new = {{"commefficient_tpu_torch.core.robust",
         "commefficient_tpu_torch.privacy.accountant",
         "commefficient_tpu_torch.privacy.mechanism",
         "commefficient_tpu_torch.models.torch_export",
+        "commefficient_tpu_torch.asyncfed",
+        "commefficient_tpu_torch.asyncfed.driver",
+        "commefficient_tpu_torch.asyncfed.queue",
         "commefficient_tpu_torch.data.chaos"}}
 assert new <= set(names), sorted(new - set(names))
 for name in names:
@@ -66,9 +69,10 @@ sys.exit(1 if leaked or bad else 0)
 
 
 def test_chaos_harness_is_imported_by_no_module_of_the_port():
-    """The robust fold, DP, export and chaos modules import no JAX, and
-    no module of the port imports the chaos harness (the round's hook
-    is a parameter; the attacks are for tests and scripts)."""
+    """The robust fold, DP, export, asynchronous-round and chaos modules
+    import no JAX, and no module of the port imports the chaos harness
+    (the round's hook is a parameter; the attacks and the arrival
+    schedules are for tests and scripts)."""
     code = CONFINED.format(root=ROOT)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd="/",

@@ -16,8 +16,10 @@
   the JAX trainer's uninterrupted run.
 - A torn archive falls back to the newest valid autosave,
   ``--checkpoint_keep`` keeps the newest snapshots, ``--resume`` without
-  ``--checkpoint`` raises, and archives of asynchronous rounds or of
-  several processes raise ``NotImplementedError``.
+  ``--checkpoint`` raises, an archive holding asynchronous updates in
+  flight raises in a synchronous run (``ValueError``, as the
+  reference), and one of several processes raises
+  ``NotImplementedError``.
 """
 
 import json
@@ -248,14 +250,16 @@ def test_archives_the_port_cannot_restore_raise(what, tmp_path):
     path = str(tmp_path / "ckpt_ResNet9.npz")
     meta, arrays = _load(path)
     if what == "asyncfed":
-        meta["asyncfed"] = {"pending": 0}
-        match = "asynchronous"
+        # a backlog in flight, resumed by a synchronous run: its updates
+        # would be dropped (the reference refuses it too)
+        meta["asyncfed"] = {"pending": 2}
+        match, exc = "synchronous", ValueError
     else:
         meta["clientstore"] = {"fields": [], "processes": 2}
         np.savez(path + ".shard1.npz", ids=np.zeros(0, np.int64))
-        match = "2 processes"
+        match, exc = "2 processes", NotImplementedError
     np.savez_compressed(path, meta=json.dumps(meta), **arrays)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         cv_train.main(argv + ["--resume", "--num_epochs", "2"])
 
 

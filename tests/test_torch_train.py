@@ -116,7 +116,7 @@ def test_mode_trainer_matches_jax_bytes_and_losses(mode, monkeypatch):
 
 @pytest.mark.parametrize("argv,name", [
     (["--resume"], "--resume"),
-    (["--async_buffer_size", "2"], "--async_buffer_size"),
+    (["--alarm_async_staleness", "2"], "--alarm_async_staleness"),
     (["--approx_topk"], "--approx_topk"),
     (["--dataset_name", "ImageNet"], "--dataset_name ImageNet"),
 ])
@@ -149,8 +149,8 @@ def test_per_client_quantized_wire_raises():
 
 def test_gpt2_trainer_other_modes_raise(tmp_path):
     """GPT-2's other modes run (tests/test_torch_gpt2_modes.py); what
-    still raises is a mode of the per-client round beside ``--attn_impl
-    flash``, whose kernels have no vmap rule."""
+    still raises is a mode of the per-client round beside ``--remat``,
+    whose checkpoints do not compose with ``torch.func``."""
     from commefficient_tpu_torch.train import gpt2_train
     base = ["--device", "cpu", "--test", "--dataset_dir", str(tmp_path),
             "--num_workers", "2", "--local_batch_size", "2",
@@ -160,10 +160,10 @@ def test_gpt2_trainer_other_modes_raise(tmp_path):
                                       "--local_momentum", "0"])
     assert np.isfinite(results[-1]["train_loss"])
     with pytest.raises(NotImplementedError,
-                       match="--attn_impl flash with --mode local_topk"):
+                       match="--remat with --mode local_topk"):
         gpt2_train.main(base + ["--mode", "local_topk", "--error_type",
                                 "local", "--local_momentum", "0",
-                                "--attn_impl", "flash"])
+                                "--remat"])
 
 
 # --- the download support as a packed bitmap; --pipeline_depth -------------
@@ -317,8 +317,9 @@ def test_pipelined_divergence_stop(monkeypatch, capsys):
 def test_chunk_and_pipeline_flags():
     """``--client_chunk`` and ``--pipeline_depth`` parse (the reference's
     defaults, 0 and 1); a depth below 1 is refused with the reference's
-    message; gpt2_train refuses the per-client round only beside
-    ``--remat`` (and ``--attn_impl flash``), naming both flags."""
+    message; gpt2_train runs the per-client round beside ``--attn_impl
+    flash`` (its vmap rules) and refuses it only beside ``--remat``,
+    naming both flags."""
     from commefficient_tpu.config import Config as JaxConfig
     from commefficient_tpu_torch.config import NOT_PORTED_FLAGS, Config
     from commefficient_tpu_torch.train import gpt2_train
@@ -336,10 +337,11 @@ def test_chunk_and_pipeline_flags():
         JaxConfig(pipeline_depth=0)
     assert str(port_err.value) == str(jax_err.value)
     base = ["--device", "cpu", "--test"]
-    with pytest.raises(NotImplementedError,
-                       match="--attn_impl flash with --microbatch_size"):
-        gpt2_train.main(base + ["--pipeline_depth", "2", "--attn_impl",
-                                "flash", "--microbatch_size", "1"])
+    # the per-client round beside --attn_impl flash passes the check (it
+    # runs in tests/test_torch_attention.py)
+    flash = parse_args(argv=base + ["--pipeline_depth", "2", "--attn_impl",
+                                    "flash", "--microbatch_size", "1"])
+    gpt2_train._check_per_client(flash.validate_runtime(), remat=False)
     with pytest.raises(NotImplementedError,
                        match="--remat with --max_grad_norm"):
         gpt2_train.main(base + ["--max_grad_norm", "1", "--remat"])
