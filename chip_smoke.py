@@ -166,7 +166,27 @@ through the kernels:
   attached through ``FedModel.attach_arrival_process``
   (``async_churny``: the synchronous paths' launches, the staleness
   statistics, the prefetch hits); a resume mid-backlog bit for bit
-  (``async_resume``).
+  (``async_resume``);
+- the round ledger (``telemetry_paths``, ResNet9's 4 rounds with
+  ``--ledger --probe_every 2 --probe_full --telemetry_console
+  --flightrec_rounds 4``): every record valid, every round record with
+  its spans and FedModel's bytes, the recovery error finite in [0, 1.5],
+  2 sketch / 2 estimates / 2 search / 2 take-mask launches a round (the
+  recovery probe's second recovery); the same at ``--pipeline_depth 3``
+  under sync debug mode "error" with depth 1's probes;
+  ``telemetry_costs``: ``--profile`` device busy of a plain, a probed
+  and a ``--probe_full`` round, the round wall with and without
+  ``--ledger``; ``divergence_path``: ``--on_divergence abort`` with a
+  NaN in one client's batch stops at that round and leaves one
+  postmortem bundle that ``load_postmortem`` reads;
+- GPT-2 per client beside ``--remat`` (``gpt2_remat_clients_path``,
+  ``..._flash_path``): the clients one after another, each block
+  checkpointed: exact flce and flash launches, losses and final weights
+  within 2^-10 of the vmap round's, both peak memories;
+  ``gpt2_profile_path``: ``--profile`` of the GPT-2 flash round, each
+  round's device-time buckets summing to its window with busy > 0, the
+  flce backward and the three flash kernels in the trace, a device lane
+  required.
 
 The sketch, estimates, threshold search, take-mask and sketch-and-
 quantize kernels are also checked and timed at GPT-2's padded_d =
@@ -1933,10 +1953,14 @@ def gpt2_clients_path():
     under ``torch.func.vmap``, two microbatches each, the fused CE
     through its vmap rules: launches W sketches, 2 flce forwards (the
     clients folded into the tokens) and 2 W flce backwards a round;
-    finite losses and the upload W f32 tables a round."""
+    finite losses and the upload W f32 tables a round. Returns (launch
+    counts, (the result row, its peak memory in GiB, the final weights
+    on the host))."""
     with tempfile.TemporaryDirectory(prefix="gpt2_clients_") as root:
         argv, counts, row, val_steps, wall, model = gpt2_run(
             root, CLIENTS_EXTRA)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    final = model.ps_weights.to("cpu")
     w = model.args.num_workers
     rounds = gpt2_checks("gpt2_clients_path", counts, row, val_steps,
                          {"clients": w, "microbatches": 2})
@@ -1944,7 +1968,7 @@ def gpt2_clients_path():
     check(row["up (MiB)"] == up, f"gpt2_clients: up {row['up (MiB)']} "
           f"MiB, want {up}")
     gpt2_emit("gpt2_clients_path", argv, counts, row, val_steps, wall)
-    return counts
+    return counts, (row, peak, final)
 
 
 # GPT-2's robust folds and DP through its per-client round (W = 4, no
@@ -2042,6 +2066,8 @@ def gpt2_clients_flash_path():
     with tempfile.TemporaryDirectory(prefix="gpt2_clients_flash_") as root:
         argv, counts, row, val_steps, wall, model = gpt2_run(
             root, CLIENTS_FLASH_EXTRA)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    final = model.ps_weights.to("cpu")
     w = model.args.num_workers
     rounds = gpt2_checks("gpt2_clients_flash_path", counts, row, val_steps,
                          {"clients": w, "attn_fwd_per_round": 1})
@@ -2050,7 +2076,7 @@ def gpt2_clients_flash_path():
           f"{row['up (MiB)']} MiB, want {up}")
     gpt2_emit("gpt2_clients_flash_path", argv, counts, row, val_steps, wall)
     fed_model._CURRENT_MODEL = None
-    return counts
+    return counts, (row, peak, final)
 
 
 def no_weights_left():
@@ -3372,6 +3398,406 @@ def async_paths():
           "async": async_stats_summary(straight["async_stats"])})
 
 
+# --- the round ledger, probes, alarms and device-time attribution -------
+
+# the ledger phase's flags on the main path's 4 ResNet9 rounds
+TELEMETRY_ARGV = ["--probe_every", "2", "--probe_full", "--telemetry_console",
+                  "--flightrec_rounds", "4"]
+# the spans every round record carries (the loader's ``sampler`` span
+# lands on the round open while the next batch is pulled: every round
+# but the last; a pipelined round's metrics_host span is its flush's,
+# on the record open when the flush runs)
+ROUND_SPANS = ("h2d", "round_dispatch", "metrics_host", "server")
+PIPELINED_ROUND_SPANS = ("h2d", "round_dispatch", "server")
+# the recovery error of a 5 x 524 288 sketch at k = 50 000 on ResNet9
+RECOVERY_RANGE = (0.0, 1.5)
+
+
+def ledger_records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def ledger_run(argv, path, sync_free=False):
+    """``cv_train.main(argv + --ledger path)`` with every launch count
+    from 0: (the result row, launch counts, rounds, the ledger's
+    records, wall seconds)."""
+    for kern in KERNELS + FLCE:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    with (sync_free_dispatch() if sync_free else contextlib.nullcontext()):
+        results = cv_train.main(list(argv) + ["--ledger", path])
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in KERNELS + FLCE}
+    check(len(results) == 1, f"{len(results)} epochs ran, want 1")
+    row = results[-1]
+    return row, counts, len(row["round_times"]), ledger_records(path), wall
+
+
+def telemetry_checks(tag, row, rounds, recs, spans=ROUND_SPANS):
+    """Every record valid; one round record a round, each with the round
+    spans, its bytes summing to the row's totals, and (probed) finite
+    probes with a recovery error in ``RECOVERY_RANGE``. Returns the
+    round records."""
+    from commefficient_tpu_torch.telemetry.record import validate_record
+    for rec in recs:
+        problems = validate_record(rec)
+        check(not problems, f"{tag}: invalid record {problems}: {rec}")
+    rnds = [r for r in recs if r["kind"] == "round"]
+    check([r["round"] for r in rnds] == list(range(rounds)),
+          f"{tag}: round records {[r['round'] for r in rnds]}, want "
+          f"{rounds}")
+    for r in rnds:
+        missing = [s for s in spans if s not in r["spans"]]
+        check(not missing, f"{tag}: round {r['round']} lacks spans "
+              f"{missing}: {sorted(r['spans'])}")
+    for key, total in (("uplink_bytes", row["up (MiB)"]),
+                       ("downlink_bytes", row["down (MiB)"])):
+        got = sum(r[key] for r in rnds) / 2**20
+        check(abs(got - total) <= 1e-9 * max(1.0, total),
+              f"{tag}: ledger {key} {got} MiB, FedModel's {total} MiB")
+    return rnds
+
+
+def probed_launches(rounds, recovery_rounds):
+    """The main path's launches a round, and a recovery probe's second
+    estimates, threshold search and take-mask on each probed round."""
+    want = sketch_round_launches(rounds, 2)
+    for name in ("estimates_kernel", "threshold_key_kernel",
+                 "take_mask_kernel"):
+        want[name] += recovery_rounds
+    return want
+
+
+def busy_by_round(recs):
+    return [r["device_time"]["busy_s"] for r in recs
+            if r["kind"] == "round"]
+
+
+def telemetry_paths():
+    """The round ledger on the main path's 4 ResNet9 rounds with
+    ``TELEMETRY_ARGV``: every record valid, every round record with its
+    spans and the bytes of FedModel's counters, the recovery error
+    finite in ``RECOVERY_RANGE``, each probed round's launches the plain
+    round's and one more estimates, search and take-mask; then the
+    same flags at ``--pipeline_depth 3``, every round dispatched under
+    sync debug mode "error", with depth 1's probes (both cuDNN
+    deterministic). Then the measurements: ``--profile`` device time
+    (busy) of a plain round, of ``--probe_every 2``'s cheap and its
+    recovery rounds and of ``--probe_full``'s; the main path's round
+    wall with and without ``--ledger`` (no probes), run off, on, on,
+    off."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ledger_smoke_") as root, \
+            working_dir(root), deterministic():
+        argv = MAIN_ARGV + TELEMETRY_ARGV + ["--postmortem_dir",
+                                             os.path.join(root, "pm")]
+        row, counts, rounds, recs, wall = ledger_run(
+            argv, os.path.join(root, "d1.jsonl"))
+        rnds = telemetry_checks("telemetry_paths", row, rounds, recs)
+        want = probed_launches(rounds, rounds)
+        check(counts == want, f"telemetry_paths: launch counts {counts}, "
+              f"want {want}")
+        errs = [r["probes"]["recovery_error"] for r in rnds]
+        lo, hi = RECOVERY_RANGE
+        check(all(math.isfinite(e) and lo <= e <= hi for e in errs),
+              f"telemetry_paths: recovery errors {errs} outside {lo}-{hi}")
+        for r in rnds:
+            bad = {k: v for k, v in r["probes"].items()
+                   if not math.isfinite(v)}
+            check(not bad, f"telemetry_paths: round {r['round']} "
+                  f"probes not finite: {bad}")
+        emit({"phase": "telemetry_paths", "argv_tail": TELEMETRY_ARGV,
+              "rounds": rounds, "launches": counts,
+              "round_seconds": row["round_times"], "wall_seconds": wall,
+              "records": len(recs), "probes": [r["probes"] for r in rnds],
+              "spans_ms": [{k: 1e3 * v for k, v in r["spans"].items()}
+                           for r in rnds],
+              "hbm_peak_GiB": [(r["hbm_peak_bytes"] or 0) / 2**30
+                               for r in rnds],
+              "compile_events": sum(r["counters"]["compile_events"]
+                                    for r in rnds),
+              "postmortems": sorted(os.listdir(os.path.join(root, "pm")))
+              if os.path.isdir(os.path.join(root, "pm")) else []})
+        row3, counts3, rounds3, recs3, _ = ledger_run(
+            argv + ["--pipeline_depth", "3"],
+            os.path.join(root, "d3.jsonl"), sync_free=True)
+        rnds3 = telemetry_checks("telemetry_paths depth 3", row3, rounds3,
+                                 recs3, PIPELINED_ROUND_SPANS)
+        check(counts3 == counts, f"telemetry_paths depth 3: launch counts "
+              f"{counts3}, want depth 1's {counts}")
+        diffs = []
+        for a, b in zip(rnds, rnds3):
+            check(sorted(a["probes"]) == sorted(b["probes"]),
+                  f"depth 3 probe keys {sorted(b['probes'])}")
+            for k, v in a["probes"].items():
+                w = b["probes"][k]
+                diffs.append(abs(v - w) / max(abs(v), 1e-30))
+                check(math.isclose(v, w, rel_tol=PIPE_RTOL, abs_tol=0),
+                      f"depth 3 probe {k} round {a['round']}: {w} "
+                      f"against depth 1's {v}")
+        emit({"phase": "telemetry_paths_pipelined", "depth": 3,
+              "rounds": rounds3, "launches": counts3,
+              "max_rel_probe_diff": max(diffs), "rtol": PIPE_RTOL,
+              "bit_equal": all(a["probes"] == b["probes"]
+                               for a, b in zip(rnds, rnds3))})
+        # the measurements
+        busy = {}
+        for name, extra in (("plain", []), ("probe_every_2",
+                                            ["--probe_every", "2"]),
+                            ("probe_full", ["--probe_full"])):
+            _, _, _, recs_p, _ = ledger_run(
+                MAIN_ARGV + extra + ["--profile"],
+                os.path.join(root, f"prof_{name}.jsonl"))
+            busy[name] = busy_by_round(recs_p)
+            out[name] = recs_p
+        walls = {}
+        for i, on in enumerate(LEDGER_WALL_RUNS):
+            for kern in KERNELS + FLCE:
+                kern.launches = 0
+            extra = (["--ledger", os.path.join(root, f"w{i}.jsonl")]
+                     if on else [])
+            row_w = cv_train.main(MAIN_ARGV + ["--num_epochs", "1"]
+                                  + extra)[-1]
+            walls.setdefault("ledger" if on else "off", []).extend(
+                row_w["round_times"][1:])
+        host_us = ledger_host_cost(os.path.join(root, "synthetic.jsonl"))
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    emit({"phase": "telemetry_costs",
+          "busy_ms": {k: [1e3 * b for b in v] for k, v in busy.items()},
+          "busy_ms_median": {
+              "plain": 1e3 * float(np.median(busy["plain"][1:])),
+              "cheap_probes": 1e3 * float(np.median(
+                  busy["probe_every_2"][1::2])),
+              "recovery_probe": 1e3 * float(np.median(
+                  busy["probe_every_2"][2::2])),
+              "probe_full": 1e3 * float(np.median(busy["probe_full"][1:]))},
+          "device_time_ms": {k: [{b: 1e3 * v for b, v in r["device_time"]
+                                  .items() if isinstance(v, float)}
+                                 for r in recs if r["kind"] == "round"]
+                             for k, recs in out.items()},
+          "round_wall_ms": {k: [1e3 * t for t in v]
+                            for k, v in walls.items()},
+          "ledger_over_off": med["ledger"] / med["off"],
+          "ledger_host_us_per_round": host_us,
+          "what": "busy: --profile's device busy time a round (rounds "
+                  "after the first); the wall of rounds 2-10 of a "
+                  "10-round epoch of the main path with --ledger (no "
+                  "probes) and without, runs off, on, on, off, off, on; "
+                  "the host cost a round of the ledger's calls alone"})
+
+
+# the ledger's wall cost: runs with (True) and without it, interleaved
+LEDGER_WALL_RUNS = (False, True, True, False, False, True)
+
+
+def ledger_host_cost(path, rounds=2000):
+    """Microseconds a round of the calls ``FedModel`` and the trainer
+    make on the round ledger (``begin_round``, the round's eight spans,
+    a counter, ``set_round_bytes``, a JSONL record written and flushed),
+    against the same calls on a disabled Telemetry."""
+    from commefficient_tpu_torch.telemetry.core import Telemetry
+    from commefficient_tpu_torch.telemetry.sinks import JSONLSink
+    out = {}
+    for name in ("off", "ledger"):
+        tel = Telemetry([JSONLSink(path)] if name == "ledger" else [],
+                        device=torch.device("cuda", 0))
+        t0 = time.perf_counter()
+        for r in range(rounds):
+            tel.begin_round(r)
+            for span in ("sampler", "h2d", "round_dispatch",
+                         "metrics_host", "server", "writeback", "gather",
+                         "h2d_state"):
+                with tel.span(span):
+                    pass
+            tel.count("prefetch_hit")
+            tel.set_round_bytes(r, 1.0e6, 2.0e6)
+        tel.close()
+        out[name] = 1e6 * (time.perf_counter() - t0) / rounds
+    return out
+
+
+# the NaN the divergence phase puts into one client's images
+DIVERGE_ROUND = 2
+DIVERGE_ARGV = ["--probe_every", "1", "--on_divergence", "abort",
+                "--flightrec_rounds", "4"]
+
+
+@contextlib.contextmanager
+def nan_client(round_index, slot=1):
+    """Client ``slot``'s images of round ``round_index`` become NaN as
+    the round is dispatched."""
+    orig = fed_model.FedModel._call_train
+
+    def call(self, batch):
+        if self.round_index == round_index:
+            batch = dict(batch)
+            x = np.array(batch["x"], copy=True)
+            x[slot] = np.nan
+            batch["x"] = x
+        return orig(self, batch)
+
+    fed_model.FedModel._call_train = call
+    try:
+        yield
+    finally:
+        fed_model.FedModel._call_train = orig
+
+
+def divergence_path():
+    """``--on_divergence abort`` on the main path with a NaN in one
+    client's batch at round ``DIVERGE_ROUND``: the nan_inf alarm stops
+    the run at that round (``DivergenceAbort``, the model marked
+    diverged, no epoch row), the ledger's last round record is that
+    round, flagged, and one postmortem bundle is left, which
+    ``load_postmortem`` reads without a problem."""
+    from commefficient_tpu_torch.telemetry.flightrec import load_postmortem
+    with tempfile.TemporaryDirectory(prefix="diverge_smoke_") as root, \
+            working_dir(root):
+        pm = os.path.join(root, "pm")
+        path = os.path.join(root, "ledger.jsonl")
+        for kern in KERNELS + FLCE:
+            kern.launches = 0
+        with nan_client(DIVERGE_ROUND):
+            results = cv_train.main(MAIN_ARGV + DIVERGE_ARGV + [
+                "--ledger", path, "--postmortem_dir", pm])
+        model = fed_model._CURRENT_MODEL
+        rnds = [r for r in ledger_records(path) if r["kind"] == "round"]
+        bundles = sorted(os.listdir(pm)) if os.path.isdir(pm) else []
+        check(results == [] and model.diverged,
+              f"divergence: {len(results)} epochs finished, diverged "
+              f"{model.diverged}")
+        check(model.round_index == DIVERGE_ROUND + 1,
+              f"divergence: {model.round_index} rounds ran, want "
+              f"{DIVERGE_ROUND + 1}")
+        last = rnds[-1]
+        check(last["round"] == DIVERGE_ROUND and last["alarms"]
+              and last["alarms"][0]["rule"] == "nan_inf"
+              and last["alarms"][0]["action"] == "abort",
+              f"divergence: last round record {last['round']} alarms "
+              f"{last['alarms']}")
+        check(len(bundles) == 1, f"divergence: postmortems {bundles}")
+        bundle, problems = load_postmortem(os.path.join(pm, bundles[0]))
+        check(not problems and bundle["rule"] == "nan_inf"
+              and bundle["rounds"][-1]["round"] == DIVERGE_ROUND,
+              f"divergence: bundle problems {problems}, rule "
+              f"{bundle['rule']}")
+        counts = {k.__name__: k.launches for k in KERNELS + FLCE}
+    emit({"phase": "divergence_path", "argv_tail": DIVERGE_ARGV,
+          "nan_round": DIVERGE_ROUND, "rounds_run": model.round_index,
+          "alarm": last["alarms"][0], "postmortem": bundles[0],
+          "bundle_rounds": [r["round"] for r in bundle["rounds"]],
+          "launches": counts})
+
+
+def gpt2_profile_path():
+    """``--profile --ledger`` over the one epoch of the GPT-2 ``--attn_impl
+    flash`` round: every round's record has ``device_time`` buckets
+    that sum to its window, busy > 0, and the flce backward and the
+    three flash attention kernels among the trace's kernels; the trace
+    must have a device lane. Launch counts are the flash path's."""
+    from commefficient_tpu_torch.telemetry import trace
+    with tempfile.TemporaryDirectory(prefix="gpt2_profile_") as root:
+        path = os.path.join(root, "ledger.jsonl")
+        argv, counts, row, val_steps, wall, _ = gpt2_run(
+            root, ["--attn_impl", "flash", "--profile", "--ledger", path])
+        gpt2_checks("gpt2_profile_path", counts, row, val_steps,
+                    {"attn_fwd_per_round": 1})
+        (trace_file,) = [os.path.join(d, f)
+                         for d, _, fs in os.walk(os.path.join(root, "runs"))
+                         for f in fs if f == "trace.json"]
+        events = trace.load_trace_events(trace_file)
+        lanes = trace.lane_devices(events)
+        check(lanes, "gpt2_profile: the trace has no device lane")
+        kernels = sorted({e["name"] for e in events
+                          if e.get("cat") == "kernel"})
+        for want in ("flce_bwd_kernel", "attn_fwd", "attn_bwd_dkv",
+                     "attn_bwd_dq"):
+            check(any(want in k for k in kernels),
+                  f"gpt2_profile: no {want} kernel in the trace")
+        rnds = [r for r in ledger_records(path) if r["kind"] == "round"]
+        check(len(rnds) == len(row["round_times"]),
+              f"gpt2_profile: {len(rnds)} round records")
+        buckets = []
+        for r in rnds:
+            b = r["device_time"]
+            check(b is not None, f"gpt2_profile: round {r['round']} has no "
+                  "device_time")
+            parts = (b["compute_s"] + b["collective_s"] + b["transfer_s"]
+                     + b["host_gap_s"])
+            check(abs(parts - b["window_s"]) <= 1e-9 and b["busy_s"] > 0,
+                  f"gpt2_profile: round {r['round']} buckets {b}")
+            buckets.append({k: v for k, v in b.items()
+                            if isinstance(v, float)})
+        size = os.path.getsize(trace_file)
+    gpt2_emit("gpt2_profile_path", argv, counts, row, val_steps, wall,
+              device_time=buckets, device_lanes=len(lanes),
+              trace_MiB=size / 2**20,
+              trace_kernels=[k for k in kernels
+                             if "flce" in k or "attn" in k][:12])
+    return counts
+
+
+# the per-client round with --remat against the vmap round: the same
+# function in another order of bf16 operations (each client's matmuls
+# on their own instead of batched), held at the attention checks'
+# mean-row tolerance
+REMAT_CLIENTS_RTOL = 2 ** -10
+
+
+def gpt2_remat_clients_path(plain_rows):
+    """GPT-2's per-client round beside ``--remat`` (``CLIENTS_EXTRA``, and
+    ``CLIENTS_FLASH_EXTRA``): the clients run one after another in plain
+    autograd, each block checkpointed, so each client's forward
+    launches its own flce forward (W a microbatch) and, under flash,
+    each block's attention forward twice (the recomputation) and its
+    backwards once a client; the per-round losses those of the round
+    without ``--remat`` (``plain_rows``, the vmap round) within
+    ``PIPE_RTOL``, the bytes equal; peak memory of both."""
+    out = {}
+    for name, extra in (("gpt2_remat_clients_path", CLIENTS_EXTRA),
+                        ("gpt2_remat_clients_flash_path",
+                         CLIENTS_FLASH_EXTRA)):
+        flash = "flash" in extra
+        mb = 1 if flash else 2
+        with tempfile.TemporaryDirectory(prefix="gpt2_remat_") as root:
+            argv, counts, row, val_steps, wall, model = gpt2_run(
+                root, list(extra) + ["--remat"])
+        w = model.args.num_workers
+        rounds = len(row["round_times"])
+        want = gpt2_launches(rounds, val_steps, clients=w,
+                             microbatches=mb,
+                             attn_fwd_per_round=1 if flash else 0)
+        want["flce_fwd_kernel"] = rounds * w * mb + val_steps
+        if flash:
+            want["attn_fwd_kernel"] = GPT2_LAYERS * (2 * w * rounds
+                                                     + val_steps)
+            want["attn_bwd_dkv_kernel"] = GPT2_LAYERS * w * rounds
+            want["attn_bwd_dq_kernel"] = GPT2_LAYERS * w * rounds
+        check(counts == want, f"{name} launch counts {counts}, want {want}")
+        plain, plain_peak, plain_final = plain_rows[name]
+        err = max(abs(a - b) / abs(b) for a, b in
+                  zip(row["round_losses"], plain["round_losses"]))
+        check(len(row["round_losses"]) == len(plain["round_losses"])
+              and err <= REMAT_CLIENTS_RTOL, f"{name}: losses "
+              f"{row['round_losses']} against {plain['round_losses']}")
+        check(row["up (MiB)"] == plain["up (MiB)"], f"{name}: up "
+              f"{row['up (MiB)']} against {plain['up (MiB)']}")
+        final = model.ps_weights.to("cpu")
+        werr = float(torch.linalg.vector_norm(final - plain_final)
+                     / torch.linalg.vector_norm(plain_final))
+        check(werr <= REMAT_CLIENTS_RTOL, f"{name}: final weights differ "
+              f"by {werr} (relative L2) from the round's without --remat")
+        gpt2_emit(name, argv, counts, row, val_steps, wall,
+                  peak_mem_GiB_without_remat=plain_peak,
+                  max_rel_loss_diff=err, weights_rel_l2=werr,
+                  down_MiB_without_remat=plain["down (MiB)"],
+                  rtol=REMAT_CLIENTS_RTOL)
+        out[name] = counts
+        fed_model._CURRENT_MODEL = None
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3455,6 +3881,9 @@ def main():
     client_chunk_phase(dev)
     torch.cuda.empty_cache()
     pipelined_phase()
+    torch.cuda.empty_cache()
+    telemetry_paths()
+    divergence_path()
     feature_paths("robust_paths", ROBUST_PATHS)
     torch.cuda.empty_cache()
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
@@ -3488,12 +3917,20 @@ def main():
         "flash": (("--attn_impl", "flash"), 1, flash_row)})
     gpt2_paths.update({f"gpt2_pipelined_path_{k}": v
                        for k, v in pipelined.items()})
-    gpt2_paths["gpt2_clients_path"] = gpt2_clients_path()
+    gpt2_paths["gpt2_clients_path"], clients_run = gpt2_clients_path()
     torch.cuda.empty_cache()
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     attn_client_checks(dev, flush)
     del flush
-    gpt2_paths["gpt2_clients_flash_path"] = gpt2_clients_flash_path()
+    gpt2_paths["gpt2_clients_flash_path"], flash_clients_run = \
+        gpt2_clients_flash_path()
+    torch.cuda.empty_cache()
+    gpt2_paths.update(gpt2_remat_clients_path({
+        "gpt2_remat_clients_path": clients_run,
+        "gpt2_remat_clients_flash_path": flash_clients_run}))
+    del clients_run, flash_clients_run
+    torch.cuda.empty_cache()
+    gpt2_paths["gpt2_profile_path"] = gpt2_profile_path()
     torch.cuda.empty_cache()
     gpt2_paths.update(gpt2_robust_dp_paths())
     torch.cuda.empty_cache()

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -34,6 +35,8 @@ _LIBS: dict = {}
 # ptxas register / shared-memory report of each build, by source stem
 # (kept beside the library, so a cached build still has its report)
 BUILD_LOGS: dict = {}
+# kernel libraries loaded in this process and the seconds it took
+COMPILES = {"events": 0, "secs": 0.0}
 
 
 def nvcc_path() -> str:
@@ -96,15 +99,20 @@ def build_all(stems=None) -> dict:
 
 
 def load(stem: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<stem>.cu``, built on first use."""
+    """The loaded library of ``csrc/<stem>.cu``, built on first use.
+    Each first load in a process counts in ``COMPILES`` (the round
+    ledger's compile events, telemetry/core.py), with its seconds."""
     lib = _LIBS.get(stem)
     if lib is None:
+        t0 = time.perf_counter()
         path = build_all([stem])[stem]
         with _LOCK:
             lib = _LIBS.get(stem)
             if lib is None:
                 lib = ctypes.CDLL(str(path))
                 _LIBS[stem] = lib
+                COMPILES["events"] += 1
+                COMPILES["secs"] += time.perf_counter() - t0
     return lib
 
 

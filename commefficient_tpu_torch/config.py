@@ -42,23 +42,15 @@ NATURAL_NUM_CLIENTS = {
 
 # the reference trainer's flags that the port does not have yet
 NOT_PORTED_FLAGS = (
-    "--profile", "--seq_devices", "--seq_impl",
-    "--tensorboard",
+    "--seq_devices", "--seq_impl",
     "--num_results_train", "--num_results_val",
     "--port", "--num_devices", "--share_ps_gpu",
     "--train_dataloader_workers", "--val_dataloader_workers",
     "--mesh", "--param_dtype",
     "--compute_dtype", "--approx_topk", "--approx_recall",
     "--coordinator_address",
-    "--num_processes", "--process_id", "--ledger",
-    "--telemetry_console", "--probe_every", "--probe_full",
-    "--on_divergence", "--alarm_residual_ratio",
-    "--alarm_residual_rounds", "--alarm_recovery_error",
-    "--alarm_step_time_ratio", "--alarm_step_time_window",
-    "--alarm_collective_skew", "--alarm_byzantine_ratio",
-    "--alarm_fold_rejection",
-    "--alarm_async_staleness", "--alarm_job_starvation", "--live_port",
-    "--flightrec_rounds", "--postmortem_dir", "--causal_trace",
+    "--num_processes", "--process_id",
+    "--alarm_job_starvation", "--live_port", "--causal_trace",
     "--slo_round_p95", "--slo_staleness_max", "--slo_eps_rounds",
     "--slo_starvation", "--slo_error_budget", "--slo_window",
     "--slo_fast_window", "--alarm_slo_burn", "--autopilot",
@@ -235,6 +227,39 @@ class Config:
     # any depth); 1 = one whole-table emission
     overlap_depth: int = 1
 
+    # telemetry (telemetry/): the JSONL round ledger ("" = off, the
+    # no-op fast path), its end-of-run console summary, TensorBoard
+    # scalars and a torch.profiler trace of the first epoch
+    ledger: str = ""
+    telemetry_console: bool = False
+    use_tensorboard: bool = False
+    do_profile: bool = False
+    # algorithm probes (schema v2): 0 = off (the rounds are built
+    # without them); N > 0 = the cheap probes every round and the
+    # sketch-recovery-error probe on rounds where round % N == 0;
+    # --probe_full = every probe every round
+    probe_every: int = 0
+    probe_full: bool = False
+    # the alarm engine's action when a rule fires: "log" (warn + ledger
+    # flag), "ledger-flag" (ledger flag only), "abort" (flag, then
+    # DivergenceAbort stops the trainer at that round)
+    on_divergence: str = "log"
+    alarm_residual_ratio: float = 2.0
+    alarm_residual_rounds: int = 3
+    alarm_recovery_error: float = 1.0
+    # the rules below are off at 0
+    alarm_step_time_ratio: float = 0.0
+    alarm_step_time_window: int = 16
+    alarm_collective_skew: float = 0.0
+    alarm_byzantine_ratio: float = 0.0
+    alarm_fold_rejection: float = 0.0
+    alarm_async_staleness: float = 0.0
+    # flight recorder: the last N round records in memory, dumped as a
+    # postmortem bundle on an alarm, a graceful shutdown or a crash
+    # (0 = off)
+    flightrec_rounds: int = 0
+    postmortem_dir: str = "runs/postmortems"
+
     # each sampled client drops out of the round with this probability
     # (its mask rows zeroed; the round renormalises over the survivors)
     dropout_prob: float = 0.0
@@ -298,6 +323,26 @@ class Config:
             "--async_buffer_size must be >= 0 (0 = synchronous)"
         assert self.async_staleness_weight >= 0, \
             "--async_staleness_weight must be >= 0"
+        assert self.probe_every >= 0, \
+            "--probe_every must be >= 0 (0 = probes off)"
+        assert self.on_divergence in ("log", "ledger-flag", "abort"), \
+            "--on_divergence must be log|ledger-flag|abort"
+        assert self.alarm_residual_rounds >= 1, \
+            "--alarm_residual_rounds must be >= 1"
+        assert self.alarm_step_time_ratio >= 0, \
+            "--alarm_step_time_ratio must be >= 0 (0 = rule off)"
+        assert self.alarm_step_time_window >= 2, \
+            "--alarm_step_time_window must be >= 2"
+        assert self.alarm_collective_skew >= 0, \
+            "--alarm_collective_skew must be >= 0 (0 = rule off)"
+        assert self.alarm_byzantine_ratio >= 0, \
+            "--alarm_byzantine_ratio must be >= 0 (0 = rule off)"
+        assert self.alarm_fold_rejection >= 0, \
+            "--alarm_fold_rejection must be >= 0 (0 = rule off)"
+        assert self.alarm_async_staleness >= 0, \
+            "--alarm_async_staleness must be >= 0 (0 = rule off)"
+        assert self.flightrec_rounds >= 0, \
+            "--flightrec_rounds must be >= 0 (0 = off)"
         if self.async_buffer_size > 0:
             assert self.async_buffer_size <= self.num_workers, \
                 "--async_buffer_size must be <= --num_workers " \
@@ -437,6 +482,12 @@ class Config:
         return self
 
     @property
+    def probe_period(self) -> int:
+        """The probe cadence: 0 = probes off; --probe_full probes every
+        round whatever --probe_every says."""
+        return 1 if self.probe_full else self.probe_every
+
+    @property
     def resolved_num_clients(self) -> Optional[int]:
         if self.num_clients is not None:
             return self.num_clients
@@ -491,6 +542,10 @@ def build_parser(default_lr: Optional[float] = None
     parser = argparse.ArgumentParser(allow_abbrev=False)
     parser.add_argument("--test", action="store_true", dest="do_test")
     parser.add_argument("--mode", choices=MODES, default="sketch")
+    parser.add_argument("--profile", action="store_true",
+                        dest="do_profile")
+    parser.add_argument("--tensorboard", dest="use_tensorboard",
+                        action="store_true")
     parser.add_argument("--bf16", action="store_true", dest="do_bf16")
     parser.add_argument("--seed", type=int, default=21)
 
@@ -667,6 +722,79 @@ def build_parser(default_lr: Optional[float] = None
                         help="emit and quantize the sketch table in "
                         "min(N, rows) row chunks (1 = whole table); the "
                         "result is the same at any depth")
+    parser.add_argument("--ledger", type=str, default="",
+                        help="write one JSONL telemetry record per "
+                        "training round to this path (spans, comm "
+                        "bytes, memory watermarks)")
+    parser.add_argument("--telemetry_console", action="store_true",
+                        help="print an end-of-run summary of the "
+                        "round telemetry (span totals/means, bytes)")
+    parser.add_argument("--probe_every", type=int, default=0,
+                        help="algorithm probes (ledger schema v2): "
+                        "cheap norm/NaN probes every round, the "
+                        "sketch-recovery-error probe every N rounds "
+                        "(0 = probes off, no compiled overhead)")
+    parser.add_argument("--probe_full", action="store_true",
+                        help="shorthand for --probe_every 1")
+    parser.add_argument("--on_divergence", type=str, default="log",
+                        choices=["log", "ledger-flag", "abort"],
+                        help="alarm action when a probe rule fires "
+                        "(NaN/Inf, residual growth, recovery error): "
+                        "warn, flag the ledger record, or abort the "
+                        "run at the offending round")
+    parser.add_argument("--alarm_residual_ratio", type=float,
+                        default=2.0,
+                        help="fire when the error-feedback residual "
+                        "norm grows by more than this ratio for "
+                        "--alarm_residual_rounds consecutive rounds")
+    parser.add_argument("--alarm_residual_rounds", type=int, default=3)
+    parser.add_argument("--alarm_recovery_error", type=float,
+                        default=1.0,
+                        help="fire when relative sketch-recovery "
+                        "error exceeds this")
+    parser.add_argument("--alarm_step_time_ratio", type=float,
+                        default=0.0,
+                        help="step_time_regression rule: fire when a "
+                        "round's wall step time exceeds this ratio x "
+                        "the rolling median (0 = off; action from "
+                        "--on_divergence)")
+    parser.add_argument("--alarm_step_time_window", type=int,
+                        default=16,
+                        help="rolling-median window (rounds) for "
+                        "--alarm_step_time_ratio")
+    parser.add_argument("--alarm_collective_skew", type=float,
+                        default=0.0,
+                        help="collective_skew rule: fire when a traced "
+                        "round's max cross-device collective "
+                        "enter-delta exceeds this ratio x its "
+                        "collective seconds (0 = off; needs --profile; "
+                        "action from --on_divergence)")
+    parser.add_argument("--alarm_byzantine_ratio", type=float,
+                        default=0.0,
+                        help="byzantine_suspect rule: fire when "
+                        "max/mean per-client transmit norm exceeds "
+                        "this ratio (0 = off; needs probes; action "
+                        "from --on_divergence)")
+    parser.add_argument("--alarm_fold_rejection", type=float,
+                        default=0.0,
+                        help="fold_rejection_rate rule: fire when the "
+                        "robust fold deviates from the plain mean by "
+                        "more than this relative rate (0 = off; needs "
+                        "probes; action from --on_divergence)")
+    parser.add_argument("--alarm_async_staleness", type=float,
+                        default=0.0,
+                        help="async_staleness rule: fire when the "
+                        "round's max folded staleness exceeds this "
+                        "many rounds (0 = off; action from "
+                        "--on_divergence)")
+    parser.add_argument("--flightrec_rounds", type=int, default=0,
+                        help="flight recorder: keep the last N round "
+                        "records in memory and dump an atomic "
+                        "postmortem bundle on alarm fire / graceful "
+                        "shutdown / crash (0 = off)")
+    parser.add_argument("--postmortem_dir", type=str,
+                        default="runs/postmortems",
+                        help="directory postmortem bundles land in")
     return parser
 
 

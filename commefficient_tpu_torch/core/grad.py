@@ -32,6 +32,14 @@ The reference's semantics:
   l2estimate when ``max_grad_norm`` is set. The sketch is a kernel
   launch, so it runs after the batched pass, once a client, on the
   (C, d) gradient stack.
+
+Under ``--remat`` (GPT-2's blocks recomputed in the backward by
+``torch.utils.checkpoint``, which does not compose with ``torch.func``
+transforms) the clients of a chunk run one after another in plain
+autograd (``map_clients``), each gradient by ``torch.autograd.grad``:
+the same function of each client's batch, the same (C, ...) stacks
+after. Peak memory is then one client's checkpointed activations
+where the batched pass holds every client's.
 """
 
 from __future__ import annotations
@@ -75,7 +83,8 @@ def make_client_grad(cfg: Config, loss_fn: Callable,
         loss, metrics = loss_fn(p, microbatch)
         return loss, (loss,) + tuple(metrics)
 
-    grad_fn = torch.func.grad(loss_and_aux, has_aux=True)
+    grad_fn = (_autograd_grad(loss_and_aux) if cfg.do_remat
+               else torch.func.grad(loss_and_aux, has_aux=True))
 
     def one_microbatch(params_flat, microbatch):
         g, mets = grad_fn(params_flat, microbatch)
@@ -116,6 +125,51 @@ def make_client_grad(cfg: Config, loss_fn: Callable,
         return g, metrics
 
     return client_grad
+
+
+def _autograd_grad(f: Callable) -> Callable:
+    """``torch.func.grad(f, has_aux=True)`` in plain autograd, for one
+    client outside any ``torch.func`` transform (``--remat``)."""
+
+    def grad_fn(p, *args):
+        p = p.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss, aux = f(p, *args)
+            (g,) = torch.autograd.grad(loss, p)
+        return g, tuple(a.detach() for a in aux)
+
+    return grad_fn
+
+
+def map_clients(fn: Callable, in_dims, serial: bool) -> Callable:
+    """``torch.func.vmap(fn, in_dims)`` over a chunk's client axis, or
+    with ``serial`` the same map as a loop over the clients whose
+    outputs are stacked (``--remat``). ``in_dims`` holds 0 (the client
+    axis leads; a dict's tensors each) or None (shared) per
+    argument."""
+    if not serial:
+        return torch.func.vmap(fn, in_dims=in_dims)
+
+    def pick(arg, dim, i):
+        if dim is None:
+            return arg
+        if isinstance(arg, dict):
+            return {k: v[i] for k, v in arg.items()}
+        return arg[i]
+
+    def stack(outs):
+        if isinstance(outs[0], torch.Tensor):
+            return torch.stack(outs)
+        return tuple(stack(col) for col in zip(*outs))
+
+    def looped(*args):
+        lead = next(a for a, d in zip(args, in_dims) if d is not None)
+        n = (next(iter(lead.values())) if isinstance(lead, dict)
+             else lead).shape[0]
+        return stack([fn(*(pick(a, d, i) for a, d in zip(args, in_dims)))
+                      for i in range(n)])
+
+    return looped
 
 
 def worker_noise(cfg: Config, gen: Optional[torch.Generator], shape):
@@ -160,7 +214,7 @@ def make_forward_grad(cfg: Config, loss_fn: Callable,
 
     def forward_grad(params_flat, batch, noise_gen=None):
         in_p = 0 if params_flat.ndim == 2 else None
-        g, metrics = torch.func.vmap(client_grad, in_dims=(in_p, 0))(
+        g, metrics = map_clients(client_grad, (in_p, 0), cfg.do_remat)(
             params_flat, pad_samples(batch, n))
         noise = worker_noise(cfg, noise_gen, g.shape)
         if noise is not None:

@@ -21,8 +21,10 @@ padded or dropped client) carries no datapoints and enters no
 statistic (dead rows sort to +inf past every alive value), and a round
 with no alive client folds to zeros. The server only ever sees the
 robust aggregate, so rejected mass never enters its momentum or error.
-The reference's ``fold_rejection_rate`` is read only by its probes,
-which the port does not have.
+Given a ``probes`` dict the fold also writes its
+``fold_rejection_rate`` probe (reference :176-180): the robust
+aggregate's distance from the plain fold, relative to the plain
+fold's norm.
 """
 
 from __future__ import annotations
@@ -100,7 +102,7 @@ def _group_means(flat_t: torch.Tensor, n: torch.Tensor, alive: torch.Tensor,
 
 
 def robust_fold(cfg, transmit: torch.Tensor, batch: dict,
-                weights=None) -> torch.Tensor:
+                weights=None, probes=None) -> torch.Tensor:
     """The robust fold of the per-client transmit stack ``transmit``
     (W, *transmit_shape), each client's transmit already scaled by its
     datapoint count; ``batch["mask"]`` is the (W, B) aliveness mask.
@@ -108,7 +110,8 @@ def robust_fold(cfg, transmit: torch.Tensor, batch: dict,
     per-datapoint-mean scale. ``weights`` ((W,) > 0) scales each
     client's transmit and datapoint count before any statistic. Under
     ``--dp sketch`` the clip fold divides by the static W·B capacity,
-    as the plain DP fold does (core/rounds.py)."""
+    as the plain DP fold does (core/rounds.py). ``probes``, a dict,
+    receives ``fold_rejection_rate``."""
     W = transmit.shape[0]
     flat_t = transmit.reshape(W, -1).to(torch.float32)
     mask = batch["mask"]
@@ -157,4 +160,9 @@ def robust_fold(cfg, transmit: torch.Tensor, batch: dict,
         agg = agg / total
     else:
         raise ValueError(f"unknown robust_agg {mode!r}")
+    if probes is not None:
+        plain = torch.sum(flat_t, dim=0) / total
+        probes["fold_rejection_rate"] = (
+            torch.linalg.vector_norm(plain - agg)
+            / torch.clamp(torch.linalg.vector_norm(plain), min=_TINY))
     return agg.reshape(transmit.shape[1:])

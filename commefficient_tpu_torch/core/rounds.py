@@ -22,7 +22,12 @@ The fused round's weight-decay share under ``--dropout_prob``
 (:548-563) is the round's alive fraction of its datapoints. The
 asynchronous rounds' staleness-weighted fold (``client_weights``,
 :238-330, 501-562, 620-631, 820-864) weights each client's transmit and
-datapoint count by ``(1 + staleness)^-alpha``.
+datapoint count by ``(1 + staleness)^-alpha``. The schema-v2 probes
+(``probes=``/``probe_recovery=``, :235-296; ``_agg_probes`` :1047,
+``_client_norm_stats`` :1059, the recovery error's dense ground truth
+:642-764, 891-912, 975-1042; the server's through
+``build_server_round(probes=)``, :1340) are 0-dim tensors on the
+device; a round built without them is the plain round.
 
 Batch layout: a dict of (W, B, ...) tensors with a (W, B) float "mask"
 marking real samples. Where no per-client transform touches the
@@ -54,8 +59,8 @@ from commefficient_tpu_torch.core.client import (accumulate_and_compress,
                                                  stale_weight_download)
 from commefficient_tpu_torch.core.grad import (make_client_grad,
                                                make_forward_grad,
-                                               pad_samples, padded_to,
-                                               worker_noise)
+                                               map_clients, pad_samples,
+                                               padded_to, worker_noise)
 from commefficient_tpu_torch.core.robust import robust_fold
 from commefficient_tpu_torch.core.server import (ServerState,
                                                  fold_row_chunks,
@@ -108,6 +113,8 @@ class RoundResult(NamedTuple):
     # --batchnorm: ({site path: (C,) sample-weighted mean of the
     # clients' batch statistics}, the round's real-sample count)
     bn_stats: Optional[tuple] = None
+    # probes=True: {name: 0-dim tensor on the device}
+    probes: Optional[dict] = None
 
 
 def resolve_rot_lanes(cfg: Config) -> int:
@@ -192,7 +199,9 @@ def build_client_round(cfg: Config, loss_fn: Callable,
                        stats_fn: Optional[Callable] = None,
                        transmit_transform: Optional[Callable] = None,
                        dense_rows: bool = False,
-                       client_weights: bool = False) -> Callable:
+                       client_weights: bool = False,
+                       probes: bool = False,
+                       probe_recovery: bool = False) -> Callable:
     """Returns ``client_round(ps_weights, batch, client_states=None,
     client_ids=None, fedavg_lr=1.0, round_index=0, staleness=None) ->
     RoundResult``.
@@ -234,10 +243,21 @@ def build_client_round(cfg: Config, loss_fn: Callable,
     round folds cw·transmit over Σ cw·n (over the static W·B under
     ``--dp sketch``; the robust folds take cw as their weights). At
     alpha == 0 the branch is not taken, so the round is the synchronous
-    one, bit for bit."""
+    one, bit for bit.
+
+    ``probes`` (``--probe_every``; reference core/rounds.py:235-296)
+    fills ``RoundResult.probes`` with the aggregate's norm and NaN/Inf
+    counts, and where per-client transmits exist their norms' alive
+    mean, max and std, and the robust fold's ``fold_rejection_rate``.
+    ``probe_recovery`` (sketch mode, the cadence rounds) adds
+    ``recovery_error``, the sketch's top-k recovery against the dense
+    aggregate: the fused round's gradient, the late sketch's dense sum
+    (chunked: summed dense over the chunks, then sketched once); the
+    clients' own tables (clip, robust) have none, and omit it. Without
+    them nothing of the probes is computed."""
     round_fn = _build_client_round(cfg, loss_fn, padded_batch_size,
                                    transmit_transform, dense_rows,
-                                   client_weights)
+                                   client_weights, probes, probe_recovery)
     if stats_fn is None:
         return round_fn
 
@@ -269,8 +289,13 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
                         padded_batch_size: Optional[int],
                         transmit_transform: Optional[Callable],
                         dense_rows: bool = False,
-                        client_weights: bool = False) -> Callable:
+                        client_weights: bool = False,
+                        probes: bool = False,
+                        probe_recovery: bool = False) -> Callable:
     cfg.validate_runtime()
+    # the recovery probe needs probes on and a sketch to recover from
+    probe_recovery = bool(probes and probe_recovery
+                          and cfg.mode == "sketch")
     if padded_batch_size is None:
         padded_batch_size = (cfg.local_batch_size
                              if cfg.local_batch_size > 0 else 1)
@@ -356,7 +381,13 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
         t = emit(g)
         mets = tuple(((n > 0) * m).detach()
                      for m in (loss,) + tuple(metrics))
-        return RoundResult(t, mets, client_states)
+        pr = None
+        if probes:
+            pr = _agg_probes(t)
+            if probe_recovery:
+                # the dense gradient is this round's own
+                pr["recovery_error"] = sketch.recovery_error(t, g, cfg.k)
+        return RoundResult(t, mets, client_states, probes=pr)
 
     if fused:
         return (lambda ps_weights, batch, client_states=None,
@@ -461,15 +492,28 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
             # the weighted fold scales each client's transmit; the
             # robust folds take the weights themselves
             t_fold = t if cw is None else t * _lead(cw, t)
+            fold_pr = {} if probes else None
             if robust:
-                aggregated = robust_fold(cfg, t, batch, weights=cw)
+                aggregated = robust_fold(cfg, t, batch, weights=cw,
+                                         probes=fold_pr)
             elif late:
                 aggregated = emit(torch.sum(t_fold, dim=0)) / total
             else:
                 aggregated = torch.sum(t_fold, dim=0) / total
             if dp_on:
                 aggregated = release(aggregated, round_index)
-            return RoundResult(aggregated, metrics, client_states)
+            pr = None
+            if probes:
+                # the clients' norms are of what they sent, unweighted
+                pr = _agg_probes(aggregated)
+                pr.update(_client_norm_stats(_row_norms(t), mask))
+                pr.update(fold_pr)
+                if probe_recovery and late:
+                    pr["recovery_error"] = sketch.recovery_error(
+                        aggregated, torch.sum(t_fold, dim=0) / total,
+                        cfg.k)
+            return RoundResult(aggregated, metrics, client_states,
+                               probes=pr)
         # ceil(W / chunk) chunks, the last padded with dead slots
         # (reference _client_round_chunked): transmits summed within a
         # chunk, then across chunks; under a late sketch each chunk's
@@ -480,24 +524,72 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
                                          device=ids.device)])
         batch = {k: torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
                  for k, v in batch.items()}
-        acc, mets = None, []
+        acc, mets, norms = None, [], []
         for c in range(n_chunks):
             part = slice(c * chunk, (c + 1) * chunk)
             t, m = run_chunk(ps_weights, client_states, ids[part],
                              {k: v[part] for k, v in batch.items()},
                              fedavg_lr, live=min(chunk, W - c * chunk),
                              noise_gen=gen)
-            s = torch.sum(qdq(t) if per_client_wire else t, dim=0)
-            if late:
+            if per_client_wire:
+                t = qdq(t)
+            if probes:
+                norms.append(_row_norms(t))
+            s = torch.sum(t, dim=0)
+            if late and not probe_recovery:
                 s = sketch.sketch(s)
             acc = s if acc is None else acc + s
             mets.append(m)
+        dense_g = None
+        if late and probe_recovery:
+            # the probed round sums dense and sketches once (linearity:
+            # the same table), keeping the recovery's ground truth
+            dense_g = acc / total
+            acc = sketch.sketch(acc)
         if late and wire != "f32":
             acc = qdq(acc)
         metrics = tuple(torch.cat(col)[:W] for col in zip(*mets))
-        return RoundResult(acc / total, metrics, client_states)
+        aggregated = acc / total
+        pr = None
+        if probes:
+            pr = _agg_probes(aggregated)
+            pr.update(_client_norm_stats(torch.cat(norms)[:W], mask))
+            if dense_g is not None:
+                pr["recovery_error"] = sketch.recovery_error(
+                    aggregated, dense_g, cfg.k)
+        return RoundResult(aggregated, metrics, client_states, probes=pr)
 
     return client_round
+
+
+def _agg_probes(aggregated: torch.Tensor) -> dict:
+    """The aggregate's norm and NaN/Inf element counts (reference
+    ``_agg_probes``, core/rounds.py:1047)."""
+    return {
+        "agg_norm": torch.sqrt(torch.sum(aggregated * aggregated)),
+        "agg_nan": torch.sum(torch.isnan(aggregated)).to(torch.float32),
+        "agg_inf": torch.sum(torch.isinf(aggregated)).to(torch.float32),
+    }
+
+
+def _row_norms(transmit: torch.Tensor) -> torch.Tensor:
+    """(C, ...) -> (C,) L2 norms of each client's transmit."""
+    flat = transmit.reshape(transmit.shape[0], -1)
+    return torch.sqrt(torch.sum(flat * flat, dim=1))
+
+
+def _client_norm_stats(norms: torch.Tensor, mask: torch.Tensor) -> dict:
+    """Mean, max and population std of the alive clients' transmit
+    norms (reference ``_client_norm_stats``, core/rounds.py:1059); dead
+    slots send zeros and are left out."""
+    alive = (torch.sum(mask.reshape(mask.shape[0], -1), dim=1) > 0).to(
+        torch.float32)
+    n = torch.clamp(torch.sum(alive), min=1.0)
+    mean = torch.sum(norms * alive) / n
+    var = torch.sum(alive * torch.square(norms - mean)) / n
+    return {"client_norm_mean": mean,
+            "client_norm_max": torch.max(norms * alive),
+            "client_norm_std": torch.sqrt(torch.clamp(var, min=0.0))}
 
 
 def _dead_row(client_states: ClientStates) -> int:
@@ -630,18 +722,19 @@ def _build_fedavg_client_step(cfg, loss_fn, padded_batch_size):
                              (c, cfg.num_fedavg_epochs * n_batches,
                               ps_weights.shape[-1]))
         if noise is None:
-            transmit, metrics = torch.func.vmap(
-                lambda b: local_sgd(ps_weights, b, fedavg_lr))(batch)
+            transmit, metrics = map_clients(
+                lambda b: local_sgd(ps_weights, b, fedavg_lr), (0,),
+                cfg.do_remat)(batch)
         else:
-            transmit, metrics = torch.func.vmap(
-                lambda b, z: local_sgd(ps_weights, b, fedavg_lr, z))(
-                    batch, noise)
+            transmit, metrics = map_clients(
+                lambda b, z: local_sgd(ps_weights, b, fedavg_lr, z),
+                (0, 0), cfg.do_remat)(batch, noise)
         return transmit, metrics, velocity, error, client_weights
 
     return step
 
 
-def build_server_round(cfg: Config) -> Callable:
+def build_server_round(cfg: Config, probes: bool = False) -> Callable:
     """Returns ``server_round(ps_weights, server_state, aggregated, lr,
     client_velocities=None, client_ids=None, noise_gen=None) ->
     (new_ps_weights,
@@ -658,7 +751,8 @@ def build_server_round(cfg: Config) -> Callable:
     local momentum, the participating clients' velocity rows
     (``client_ids``, dead slots at the dead-slot row) are zeroed where
     the server sent, in place. ``noise_gen`` is the step's server noise
-    stream under ``--do_dp --dp_mode server``."""
+    stream under ``--do_dp --dp_mode server``. ``probes=True`` appends
+    a sixth output, the server's probe dict (core/server.py)."""
     cfg.validate_runtime()
     sketch = args2sketch(cfg)
 
@@ -674,7 +768,7 @@ def build_server_round(cfg: Config) -> Callable:
             lr = torch.full((), 1.0 if cfg.mode == "fedavg" else float(lr),
                             dtype=torch.float32, device=ps_weights.device)
         res = server_update(cfg, aggregated, server_state, lr, sketch,
-                            noise_gen)
+                            noise_gen, probes)
         if res.weight_update is None:
             # the indices are sorted and unique, so each coordinate
             # takes one subtraction: ps[idx] - scaled, as the
@@ -691,7 +785,8 @@ def build_server_round(cfg: Config) -> Callable:
             client_velocities.index_copy_(
                 0, client_ids,
                 rows * res.client_velocity_keep.to(rows.dtype))
-        return (new_ps, res.state, client_velocities, res.weight_update,
-                res.support)
+        out = (new_ps, res.state, client_velocities, res.weight_update,
+               res.support)
+        return out + (res.probes,) if probes else out
 
     return server_round

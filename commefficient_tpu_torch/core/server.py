@@ -7,7 +7,9 @@ Port of ``commefficient_tpu/core/server.py`` (``ServerState`` :28,
 ``staleness_weights`` :102 for the asynchronous rounds' fold,
 ``_fedavg`` :194, ``_uncompressed`` :205 with the legacy ``--do_dp
 --dp_mode server`` noise, ``_true_topk`` :225, ``_local_topk`` :267 and
-``_sketched`` :279 with its dense and its sparse re-sketch branches).
+``_sketched`` :279 with its dense and its sparse re-sketch branches),
+and their schema-v2 probes (``probes=True``: ``_state_probes`` :185,
+``_coverage`` :137).
 ``gradient`` is the round's aggregated quantity: the client-transmit
 sum divided by the round's total datapoint count, a flat (d,) vector
 or, in sketch mode, an (r, c) table. Functions return new tensors;
@@ -70,6 +72,9 @@ class ServerUpdate(NamedTuple):
     # update (the caller decides, runtime/fed_model.py). On the device,
     # made with no host read; download accounting reads only these
     support: object = None
+    # probes=True: {update_norm, momentum_norm, residual_norm and, for
+    # the selecting modes, mass_coverage}, 0-dim tensors on the device
+    probes: Optional[dict] = None
 
 
 def _lr_scaled_support(idx, vals, lr):
@@ -80,16 +85,42 @@ def _lr_scaled_support(idx, vals, lr):
     return idx, vals * (lr[idx] if lr.ndim else lr)
 
 
+def _l2(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(x * x))
+
+
+def _coverage(selected_mass, dense_mass) -> torch.Tensor:
+    """‖selected‖² / ‖dense‖²: the share of the pre-selection vector's
+    energy the sent support carries; a zero denominator (cold buffers)
+    reads as full coverage."""
+    return torch.where(dense_mass > 0,
+                       selected_mass / torch.clamp(dense_mass, min=1e-30),
+                       torch.ones_like(dense_mass))
+
+
+def _state_probes(update_norm, state: ServerState, extra=None) -> dict:
+    pr = {"update_norm": update_norm,
+          "momentum_norm": _l2(state.Vvelocity),
+          "residual_norm": _l2(state.Verror)}
+    if extra:
+        pr.update(extra)
+    return pr
+
+
 def server_update(cfg: Config, gradient: torch.Tensor, state: ServerState,
                   lr: torch.Tensor, sketch: Optional[CountSketch] = None,
-                  noise_gen: Optional[torch.Generator] = None
-                  ) -> ServerUpdate:
+                  noise_gen: Optional[torch.Generator] = None,
+                  probes: bool = False) -> ServerUpdate:
     """Dispatch on mode (reference ``server_update``). For fedavg the
     caller passes lr = 1: the clients' local SGD applied the LR.
     ``noise_gen`` is the step's server noise stream (``--do_dp
-    --dp_mode server``, uncompressed)."""
-    if cfg.mode == "uncompressed":
-        return _uncompressed(cfg, gradient, state, lr, sketch, noise_gen)
+    --dp_mode server``, uncompressed). ``probes=True`` also fills
+    ``ServerUpdate.probes``: ``update_norm`` (of the lr-scaled update),
+    ``residual_norm`` and ``momentum_norm`` (of the new Verror and
+    Vvelocity, table space in sketch mode) and, for true_topk and
+    sketch, ``mass_coverage`` (the selected support's energy over the
+    pre-selection error's, sketch mode estimating the denominator by
+    ``l2estimate``). Probes off computes none of them."""
     helper = {
         "sketch": _sketched,
         "local_topk": _local_topk,
@@ -97,18 +128,22 @@ def server_update(cfg: Config, gradient: torch.Tensor, state: ServerState,
         "fedavg": _fedavg,
         "uncompressed": _uncompressed,
     }[cfg.mode]
-    return helper(cfg, gradient, state, lr, sketch)
+    return helper(cfg, gradient, state, lr, sketch, noise_gen, probes)
 
 
-def _fedavg(cfg, avg_update, state, lr, sketch):
+def _fedavg(cfg, avg_update, state, lr, sketch, noise_gen=None,
+            probes=False):
     """``avg_update`` is the data-weighted mean of the clients' weight
     deltas, their LR already applied."""
     assert cfg.error_type == "none" and cfg.local_momentum == 0
     Vvel = avg_update + cfg.virtual_momentum * state.Vvelocity
-    return ServerUpdate(Vvel, ServerState(Vvel, state.Verror))
+    new_state = ServerState(Vvel, state.Verror)
+    pr = _state_probes(_l2(Vvel), new_state) if probes else None
+    return ServerUpdate(Vvel, new_state, probes=pr)
 
 
-def _uncompressed(cfg, gradient, state, lr, sketch, noise_gen=None):
+def _uncompressed(cfg, gradient, state, lr, sketch, noise_gen=None,
+                  probes=False):
     Vvel = gradient + cfg.virtual_momentum * state.Vvelocity
     if cfg.do_dp and cfg.dp_mode == "server" and cfg.noise_multiplier != 0:
         assert noise_gen is not None, \
@@ -117,10 +152,13 @@ def _uncompressed(cfg, gradient, state, lr, sketch, noise_gen=None):
         # stays in the momentum buffer
         Vvel = Vvel + gaussian_noise(noise_gen, Vvel.shape, Vvel.dtype,
                                      std=cfg.noise_multiplier)
-    return ServerUpdate(Vvel * lr, ServerState(Vvel, state.Verror))
+    new_state = ServerState(Vvel, state.Verror)
+    pr = _state_probes(_l2(Vvel * lr), new_state) if probes else None
+    return ServerUpdate(Vvel * lr, new_state, probes=pr)
 
 
-def _true_topk(cfg, gradient, state, lr, sketch):
+def _true_topk(cfg, gradient, state, lr, sketch, noise_gen=None,
+               probes=False):
     """Virtual momentum and error in the dense space, exact top-k of
     the error sent; error feedback and momentum factor masking where
     it was sent."""
@@ -141,25 +179,36 @@ def _true_topk(cfg, gradient, state, lr, sketch):
     else:
         update, idx, vals = topk_with_support(Verr, k)
         support = _lr_scaled_support(idx, vals, lr)
+    dense_mass = torch.sum(Verr * Verr) if probes else None
     keep = update == 0
     zero = torch.zeros((), dtype=torch.float32, device=Verr.device)
     state = ServerState(torch.where(keep, Vvel, zero),
                         torch.where(keep, Verr, zero))
-    return ServerUpdate(update * lr, state, keep, support)
+    pr = None
+    if probes:
+        pr = _state_probes(
+            _l2(update * lr), state,
+            {"mass_coverage": _coverage(torch.sum(update * update),
+                                        dense_mass)})
+    return ServerUpdate(update * lr, state, keep, support, probes=pr)
 
 
-def _local_topk(cfg, local_topk_grad, state, lr, sketch):
+def _local_topk(cfg, local_topk_grad, state, lr, sketch, noise_gen=None,
+                probes=False):
     """Momentum only: the clients sent a sparse quantity, so there is
     no virtual error, and masking the virtual momentum would zero all
     of it."""
     assert cfg.error_type in ("local", "none")
     Vvel = local_topk_grad + cfg.virtual_momentum * state.Vvelocity
-    return ServerUpdate(Vvel * lr, ServerState(Vvel, state.Verror))
+    new_state = ServerState(Vvel, state.Verror)
+    pr = _state_probes(_l2(Vvel * lr), new_state) if probes else None
+    return ServerUpdate(Vvel * lr, new_state, probes=pr)
 
 
 def _sketched(cfg: Config, sketched_grad: torch.Tensor,
               state: ServerState, lr: torch.Tensor,
-              sketch: CountSketch) -> ServerUpdate:
+              sketch: CountSketch, noise_gen=None,
+              probes: bool = False) -> ServerUpdate:
     """FetchSGD server step: momentum and error accumulate in (r, c)
     table space; exact top-k recovery; error feedback and momentum
     factor masking at the nonzero buckets of the recovered update's
@@ -184,13 +233,20 @@ def _sketched(cfg: Config, sketched_grad: torch.Tensor,
     # threshold mask (dense regime) or the index path.
     sparse = sketch.prefer_sparse_resketch(cfg.k)
     support = None
+    # the pre-mask residual's energy for the coverage probe: the dense
+    # residual never exists in sketch mode, so it is the table's own
+    # median-of-rows l2estimate
+    dense_mass = (torch.square(CountSketch.l2estimate(Verr)) if probes
+                  else None)
     if sketch.prefer_threshold_unsketch(cfg.k):  # implies not sparse
         update, _ = sketch.unsketch_dense_mask(Verr, k=cfg.k)
+        sel_mass = torch.sum(update * update) if probes else None
     else:
         update, idx, vals = sketch.unsketch(Verr, k=cfg.k,
                                             with_support=True,
                                             with_dense=not sparse)
         support = _lr_scaled_support(idx, vals, lr)
+        sel_mass = torch.sum(vals * vals) if probes else None
 
     # re-sketch the recovered update to find which table buckets it
     # occupies; a bucket is kept only where no selected coordinate
@@ -206,13 +262,20 @@ def _sketched(cfg: Config, sketched_grad: torch.Tensor,
     if cfg.error_type == "local":
         Verr = Vvel
     state = ServerState(Vvel, Verr)
+    pr = None
+    if probes:
+        # the sparse branch never makes the dense update: its norm is
+        # the lr-scaled support's
+        pr = _state_probes(
+            _l2(support[1]) if sparse else _l2(update * lr), state,
+            {"mass_coverage": _coverage(sel_mass, dense_mass)})
 
     if sparse:
-        return ServerUpdate(None, state, support=support)
+        return ServerUpdate(None, state, support=support, probes=pr)
     weight_update = update * lr
     if support is None:
         # the threshold path's support: the value-compare of the
         # lr-scaled update, packed on the device (reference
         # core/server.py:318)
         support = {"bitmap": packbits(weight_update != 0)}
-    return ServerUpdate(weight_update, state, support=support)
+    return ServerUpdate(weight_update, state, support=support, probes=pr)

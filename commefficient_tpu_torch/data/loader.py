@@ -2,17 +2,21 @@
 ``ValLoader``, ``PersonaFedLoader`` and ``PersonaValLoader`` from
 ``commefficient_tpu/data/loader.py``): sampler output -> fixed-shape
 padded batches, client axis first, with a (W, B) mask for ragged
-clients. The PersonaChat loaders build each batch synchronously (the
-reference's background prefetch thread is not ported); the items and
-every RNG stream are the reference's, the ``--dropout_prob`` client
-drops (``_apply_dropout``, reference loader.py:41-65) included. A
-checkpoint saves and restores the dropout stream (``_dropout_rng``) and
-the PersonaChat dataset's ``_rng`` (runtime/checkpoint.py); the round
-counter it also carries belongs to the reference's native loader,
-which seeds its augmentation from it and is not ported."""
+clients. ``PersonaFedLoader`` tokenizes and collates on one background
+thread up to 2 rounds ahead of the consumer, as the
+reference does (loader.py:252-310); the items and every RNG stream are
+the reference's, the ``--dropout_prob`` client drops
+(``_apply_dropout``, reference loader.py:41-65) included. A checkpoint
+saves and restores the dropout stream (``_dropout_rng``) and the
+PersonaChat dataset's ``_rng`` (runtime/checkpoint.py) as they stand,
+the prefetched rounds' draws included, as the reference's does; the
+round counter it also carries belongs to the reference's native
+loader, which seeds its augmentation from it and is not ported."""
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -144,13 +148,96 @@ class PersonaFedLoader(FedLoader):
     """PersonaChat rounds (reference loader.py:226-336): ``client_ids``
     (W,), ``input_ids`` / ``token_type_ids`` / ``lm_labels`` (W, B, N,
     T) i32 (``lm_labels`` padded with -1), ``mc_token_ids`` (W, B, N),
-    ``mc_labels`` (W, B) and ``mask`` (W, B) f32."""
+    ``mc_labels`` (W, B) and ``mask`` (W, B) f32.
+
+    The batches are built on ONE background thread, up to
+    ``PREFETCH_DEPTH`` rounds ahead, so the host's item preparation
+    overlaps the card's round. The one in-order producer keeps every
+    RNG stream (sampler, the dataset's personality shuffles, dropout)
+    the synchronous path's; it draws them ahead of the consumer, so a
+    consumer that stops early (``--test``'s one round an epoch) leaves
+    the streams where the reference's leaves them. Every put is
+    stop-aware and bounded, a producer error is raised in the consumer,
+    and an abandoned iterator retires its thread (5 s join). While the
+    thread runs, ``peek_next_client_ids`` reads the head of its queue
+    (the consumer's next round) instead of the sampler, which only the
+    producer touches."""
+
+    #: rounds the producer may run ahead (the reference's default)
+    PREFETCH_DEPTH = 2
 
     def __init__(self, dataset, sampler, num_candidates: int,
                  max_seq_len: int, pad_id: int = 0,
                  dropout_prob: float = 0.0, dropout_seed: int = 0):
         super().__init__(dataset, sampler, dropout_prob, dropout_seed)
         self.N, self.T, self.pad_id = num_candidates, max_seq_len, pad_id
+        # the running producer's queue; None when no thread runs
+        self._queue = None
+        self.thread = None
+
+    def __iter__(self) -> Iterator[dict]:
+        q: "queue.Queue" = queue.Queue(maxsize=self.PREFETCH_DEPTH)
+        stop = threading.Event()
+
+        def put_or_stop(item) -> bool:
+            # bounded and stop-aware: an abandoning consumer can never
+            # leave this thread blocked past the join
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                for batch in FedLoader.__iter__(self):
+                    if stop.is_set() or not put_or_stop(("batch", batch)):
+                        return
+            except BaseException as e:  # raised again in the consumer
+                put_or_stop(("error", e))
+                return
+            put_or_stop(("done", None))
+
+        t = threading.Thread(target=produce, daemon=True,
+                             name="persona-prefetch")
+        self._queue, self.thread = q, t
+        t.start()
+        try:
+            while True:
+                kind, val = q.get()
+                if kind == "batch":
+                    yield val
+                elif kind == "error":
+                    raise val
+                else:
+                    break
+        finally:
+            # abandoned mid-epoch (--test, a divergence stop) or done:
+            # unblock and retire the producer, so it cannot race a later
+            # epoch's iteration of the same sampler
+            stop.set()
+            while not q.empty():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join(timeout=5.0)
+            self._queue = None
+
+    def peek_next_client_ids(self):
+        """The consumer's next round's ids: the head of the producer's
+        queue while the thread runs (None when it has not produced that
+        round yet, a prefetch miss), else the sampler's lookahead."""
+        q = self._queue
+        if q is None:
+            return super().peek_next_client_ids()
+        with q.mutex:
+            head = q.queue[0] if q.queue else None
+        if head is None or head[0] != "batch":
+            return None
+        return head[1]["client_ids"]
 
     def collate(self, round_spec) -> dict:
         from commefficient_tpu_torch.data.fed_persona import persona_collate

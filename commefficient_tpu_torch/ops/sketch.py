@@ -387,6 +387,21 @@ class CountSketch:
                else (sums[..., n // 2 - 1] + sums[..., n // 2]) * 0.5)
         return torch.sqrt(med)
 
+    def recovery_error(self, table: torch.Tensor, dense: torch.Tensor,
+                       k: int) -> torch.Tensor:
+        """Relative top-k recovery error ‖unsketch(table, k) − dense‖ /
+        ‖dense‖ against the true dense vector (reference
+        ``recovery_error``, ops/sketch.py:668; ``--probe_full``'s
+        probe). It runs the recovery again: the estimates kernel, the
+        threshold search and the take-mask. A zero vector reports 0."""
+        assert dense.shape == (self.d,), dense.shape
+        est = self.unsketch(table, k)
+        dense = dense.to(torch.float32)
+        num = torch.linalg.vector_norm(est - dense)
+        den = torch.linalg.vector_norm(dense)
+        return torch.where(den > 0, num / torch.clamp(den, min=1e-30),
+                           torch.zeros_like(den))
+
 
 def clip_record(record: torch.Tensor, clip: float, *,
                 is_sketch: bool) -> torch.Tensor:

@@ -79,8 +79,27 @@ the driver's exact next-fold ids where the backlog holds a full buffer
 (the sampler's lookahead otherwise), only alive fold slots are billed,
 and each round's ``round_stats()`` is kept in ``async_round_stats``.
 ``attach_arrival_process`` attaches a seeded arrival schedule (tests
-and scripts). Telemetry and its ledger keys, the privacy budget alarm, the autopilot
-and meshes are not ported.
+and scripts).
+The round ledger (reference fed_model.py:355-422, 549-713, 771-858,
+938): ``self.telemetry`` (telemetry/core.py; disabled without
+``--ledger``/``--telemetry_console``, then every call below is a flag
+check) gets the spans ``async_fold``, ``h2d``, ``gather``,
+``h2d_state``, ``round_dispatch``, ``metrics_host``, ``server`` and
+``writeback``, the ``prefetch_hit``/``prefetch_miss`` counters, each
+round's bytes (``set_round_bytes``) and DP trail, and the meta record.
+``--probe_every N``/``--probe_full`` build the rounds with probes: the
+plain variant (cheap probes) and, in sketch mode, the probed one (with
+the recovery error) for rounds where ``round % N == 0``. Synchronous
+rounds read their probe scalars in one copy in ``metrics_host``;
+pipelined rounds keep them on the device in ``_probe_log`` until the
+flush, which copies them with the metrics and supports.
+``_finish_probes`` adds the residual growth ratio, merges the probes
+onto the ledger and runs the alarm engine (telemetry/alarms.py; under
+``--on_divergence abort`` it raises ``DivergenceAbort``);
+``--flightrec_rounds`` attaches the flight recorder as a sink
+(``self.flightrec``). ``trace`` markers bracket each round and its
+device phases while a ``--profile`` window is open. The autopilot and
+meshes are not ported.
 """
 
 from __future__ import annotations
@@ -104,7 +123,8 @@ from commefficient_tpu_torch.config import Config
 from commefficient_tpu_torch.core.rounds import (ClientStates, _dead_row,
                                                  _state_ids,
                                                  build_client_round,
-                                                 build_server_round)
+                                                 build_server_round,
+                                                 round_plan)
 from commefficient_tpu_torch.core.server import ServerState
 from commefficient_tpu_torch.device import resolve_device
 from commefficient_tpu_torch.ops.vec import packbits
@@ -112,6 +132,11 @@ from commefficient_tpu_torch.privacy.accountant import build_accountant
 from commefficient_tpu_torch.privacy.mechanism import (SERVER_NOISE_TAG,
                                                        noise_generator)
 from commefficient_tpu_torch.serialization import msgpack_serialize
+from commefficient_tpu_torch.telemetry import clock, trace
+from commefficient_tpu_torch.telemetry.alarms import build_alarm_engine
+from commefficient_tpu_torch.telemetry.core import build_telemetry
+from commefficient_tpu_torch.telemetry.flightrec import (FlightRecorder,
+                                                         config_hash)
 
 # the most recently constructed FedModel, found by FedOptimizer(args)
 # as in the reference
@@ -214,10 +239,23 @@ class FedModel:
             padded_batch_size = (args.local_batch_size
                                  if args.local_batch_size > 0 else 1)
         self.padded_batch_size = padded_batch_size
-        self._client_round = build_client_round(
-            args, loss_fn, padded_batch_size, stats_fn,
-            dense_rows=self.client_store is not None,
-            client_weights=self.async_k > 0)
+        # --probe_every/--probe_full: the probes are built into the
+        # round; in sketch mode a second variant with the recovery
+        # probe runs the cadence rounds
+        self.probe_period = int(args.probe_period)
+        probes_on = self.probe_period > 0
+
+        def build_round(with_recovery):
+            return build_client_round(
+                args, loss_fn, padded_batch_size, stats_fn,
+                dense_rows=self.client_store is not None,
+                client_weights=self.async_k > 0, probes=probes_on,
+                probe_recovery=with_recovery)
+
+        self._client_round = build_round(False)
+        self._client_round_probed = (build_round(True)
+                                     if probes_on and args.mode == "sketch"
+                                     else None)
         self.pending_aggregated = None
         # the round's state ids, dead slots at the dead-slot row: the
         # server round's velocity rewrite (true_topk) scatters there
@@ -252,6 +290,32 @@ class FedModel:
         self.pipeline_depth = int(args.pipeline_depth)
         self._inflight = []
         self._oplog = []
+
+        # the round ledger; _probe_host holds a synchronous round's
+        # client-pass probe values until the server pass completes its
+        # dict, _probe_log a pipelined round's device scalars until the
+        # flush. The alarm engine (None with no rule armed) evaluates
+        # without sinks too, so --on_divergence abort works ledgerless
+        self.telemetry = build_telemetry(args, device=self.device)
+        self._probe_host = {}
+        self._probe_log = {}
+        self._prev_residual = None
+        self.alarm_engine = build_alarm_engine(args, self.telemetry)
+        if self.alarm_engine is not None:
+            self.telemetry.on_device_time = \
+                self.alarm_engine.check_device_time
+        # the flight recorder attaches before the meta record is
+        # emitted, so its bundles carry it
+        self.flightrec = None
+        if int(args.flightrec_rounds) > 0:
+            self.flightrec = FlightRecorder(
+                args, int(args.flightrec_rounds),
+                labels={"process": 0, "run": config_hash(args)[:8]})
+            self.telemetry.add_sink(self.flightrec)
+        self.telemetry.emit_meta(
+            num_clients=num_clients, num_devices=1, process_index=0,
+            process_count=1, clientstore=self.clientstore,
+            mesh_shape={"clients": 1}, plan=round_plan(args))
         _CURRENT_MODEL = self
 
     def train(self, training: bool):
@@ -273,27 +337,43 @@ class FedModel:
         return out
 
     def _call_train(self, batch):
+        tel = self.telemetry
+        ridx = self.round_index
+        tel.begin_round(ridx)
+        # the profiler's round range, on the ledger record's lifecycle
+        # (a flag check with no trace window open)
+        trace.begin_round_marker(ridx)
+        eng = self.alarm_engine
+        step_t0 = (clock.tick()
+                   if eng is not None and eng.step_time_ratio > 0
+                   and self.pipeline_depth <= 1 else None)
         staleness = None
         if self._async_driver is not None:
             # issue the sampled cohort, then fold what has arrived: the
             # round runs on the buffer's head, dead-padded to W
-            batch, staleness = self._async_driver.step(batch)
+            with tel.span("async_fold"):
+                batch, staleness = self._async_driver.step(batch)
         ids_np = np.asarray(batch["client_ids"])
-        dev_batch = self._to_device(batch)
-        ids = torch.as_tensor(ids_np.astype(np.int64)).to(
-            self.device, non_blocking=True)
-        stale_dev = (None if staleness is None else torch.from_numpy(
-            staleness).to(self.device, non_blocking=True))
+        with tel.span("h2d"), trace.phase("h2d"):
+            dev_batch = self._to_device(batch)
+            ids = torch.as_tensor(ids_np.astype(np.int64)).to(
+                self.device, non_blocking=True)
+            stale_dev = (None if staleness is None else torch.from_numpy(
+                staleness).to(self.device, non_blocking=True))
         cs_in = self.client_states
         if self.client_store is not None:
             # normally a no-op: opt.step() already wrote the previous
             # round's rows back
             self._store_writeback()
             cs_in = self._gather_states(ids_np)
-        res = self._client_round(self.ps_weights, dev_batch, cs_in, ids,
-                                 self.fedavg_lr,
-                                 round_index=self.round_index,
-                                 staleness=stale_dev)
+        probed = (self._client_round_probed is not None
+                  and ridx % self.probe_period == 0)
+        round_fn = (self._client_round_probed if probed
+                    else self._client_round)
+        with tel.span("round_dispatch"), trace.phase("round_dispatch"):
+            res = round_fn(self.ps_weights, dev_batch, cs_in, ids,
+                           self.fedavg_lr, round_index=ridx,
+                           staleness=stale_dev)
         self.client_states = res.client_states
         self.pending_aggregated = res.aggregated
         if self.client_store is not None:
@@ -312,7 +392,7 @@ class FedModel:
         if self._accountant is not None:
             # the round released its noised table whether or not its
             # metrics ever reach the host
-            self._charge_privacy(staleness, batch["mask"])
+            self._charge_privacy(ridx, staleness, batch["mask"])
         self.round_index += 1
         if res.bn_stats is not None:
             # running-stats blend; a round with no real sample leaves
@@ -322,58 +402,131 @@ class FedModel:
                 k: torch.where(alive > 0, 0.9 * ra + 0.1 * new_stats[k], ra)
                 for k, ra in self.model_state.items()}
         acct_ids, acct_mask = ids_np, np.asarray(batch["mask"])
+        astats = None
         if self._async_driver is not None:
-            self.async_round_stats.append(self._async_driver.round_stats())
+            astats = self._async_driver.round_stats()
+            self.async_round_stats.append(astats)
             # dead pad slots (id 0, mask 0) are queue padding, not
             # participants: they must not bill client 0 a download
             alive = acct_mask.reshape(len(ids_np), -1).sum(axis=1) > 0
             acct_ids, acct_mask = ids_np[alive], acct_mask[alive]
         if self.pipeline_depth > 1:
+            # the bytes attach at the flush replay, the probes stay on
+            # the device until then: no host read here
             self._inflight.append(list(res.metrics))
             self._oplog.append(("account", acct_ids.copy(),
-                                np.array(acct_mask)))
+                                np.array(acct_mask), ridx))
+            if res.probes is not None:
+                self._probe_log.setdefault(ridx, {}).update(res.probes)
             return None
-        metrics = [m.to("cpu").numpy() for m in res.metrics]
+        with tel.span("metrics_host"), trace.phase("metrics_host"):
+            metrics = [m.to("cpu").numpy() for m in res.metrics]
+            probe_vals = (None if res.probes is None
+                          else _probe_values(res.probes))
+        if probe_vals is not None:
+            # merged now; the server pass completes the dict and runs
+            # the alarms (_finish_probes)
+            tel.merge_round_probes(ridx, probe_vals)
+            self._probe_host[ridx] = probe_vals
+        if astats is not None:
+            # the asynchronous driver's round stats ride the ledger and
+            # reach the alarms with the round's probes, or alone when
+            # no probes are built
+            tel.merge_round_probes(ridx, astats)
+            if probe_vals is not None:
+                self._probe_host[ridx].update(astats)
+            elif eng is not None:
+                eng.check(ridx, astats)
+        if step_t0 is not None:
+            # wall step time through the metrics read, checked before
+            # the bytes so an aborting alarm lands on a record the
+            # close still flushes
+            eng.check_step_time(ridx, clock.tick() - step_t0)
         down, up = self._account_bytes(acct_ids, acct_mask)
+        tel.set_round_bytes(ridx, float(down.sum()), float(up.sum()))
         return metrics + [down, up]
 
     def flush(self, force=True):
-        """Bring the dispatched rounds' metrics and the server's
-        supports to the host in one batch, and replay the deferred
-        accounting and notes in dispatch order. Returns each round's
-        outputs as a synchronous ``model(batch)`` returns them; nothing
-        until ``pipeline_depth`` rounds wait, unless ``force``."""
+        """Bring the dispatched rounds' metrics, the server's supports
+        and the rounds' probes to the host in one batch, and replay the
+        deferred accounting and notes in dispatch order (each round's
+        probes finished before its bytes, which make its ledger record
+        ready to emit). Returns each round's outputs as a synchronous
+        ``model(batch)`` returns them; nothing until ``pipeline_depth``
+        rounds wait, unless ``force``."""
         if self.pipeline_depth <= 1 or not self._inflight:
             return []
         if not force and len(self._inflight) < self.pipeline_depth:
             return []
         notes = [op[1] for op in self._oplog if op[0] == "note"]
-        host = iter(_to_host(
-            [t for ms in self._inflight for t in ms]
-            + [t for sup in notes for t in _support_tensors(sup)]))
-        rounds = [[next(host) for _ in ms] for ms in self._inflight]
+        metric_ts = [t for ms in self._inflight for t in ms]
+        support_ts = [t for sup in notes for t in _support_tensors(sup)]
+        rounds_probed = [op[3] for op in self._oplog
+                         if op[0] == "account" and op[3] in self._probe_log]
+        probe_keys = [(r, k) for r in rounds_probed
+                      for k in self._probe_log[r]]
+        with self.telemetry.span("metrics_host"):
+            host = _to_host(metric_ts + support_ts
+                            + [self._probe_log[r][k] for r, k in probe_keys])
+        probe_vals = {}
+        for (r, k), v in zip(probe_keys,
+                             host[len(metric_ts) + len(support_ts):]):
+            probe_vals.setdefault(r, {})[k] = float(v)
+        for r in rounds_probed:
+            del self._probe_log[r]
+        it_m = iter(host[:len(metric_ts)])
+        it_s = iter(host[len(metric_ts):len(metric_ts) + len(support_ts)])
+        rounds = [[next(it_m) for _ in ms] for ms in self._inflight]
         self._inflight = []
         oplog, self._oplog = self._oplog, []
         results = []
         for op in oplog:
             if op[0] == "account":
+                ridx = op[3]
+                if ridx in probe_vals:
+                    self._finish_probes(ridx, probe_vals[ridx])
                 down, up = self._account_bytes(op[1], op[2])
+                self.telemetry.set_round_bytes(ridx, float(down.sum()),
+                                               float(up.sum()))
                 results.append(rounds[len(results)] + [down, up])
             else:
                 sup = op[1]
                 if isinstance(sup, dict):
-                    sup = {"bitmap": next(host)}
+                    sup = {"bitmap": next(it_s)}
                 elif sup is not None:
-                    sup = (next(host), next(host))
+                    sup = (next(it_s), next(it_s))
                 self._apply_note(sup)
         return results
+
+    def _finish_probes(self, ridx: int, vals: dict):
+        """Complete round ``ridx``'s probe dict on the host (reference
+        ``_finish_probes``, fed_model.py:938): the client-pass values
+        kept for it, the residual growth ratio against the previous
+        round's residual norm (rounds finish in dispatch order on both
+        paths, so the ratio is always of consecutive rounds), merged
+        onto the ledger record, then the alarm rules, which raise
+        ``DivergenceAbort`` under ``--on_divergence abort``."""
+        full = self._probe_host.pop(ridx, {})
+        full.update(vals)
+        rn = full.get("residual_norm")
+        if rn is not None:
+            prev = self._prev_residual
+            if prev is not None and prev > 0:
+                full["residual_growth"] = rn / prev
+            self._prev_residual = rn
+        self.telemetry.merge_round_probes(ridx, full)
+        if self.alarm_engine is not None:
+            self.alarm_engine.check(ridx, full)
 
     def _call_val(self, batch):
         extra = () if self.stats_fn is None else (self.model_state,)
         with torch.no_grad():
             loss, metrics = self.compute_loss_val(
                 self.ps_weights, self._to_device(batch), self.args, *extra)
-        out = [m.to("cpu").numpy() for m in (loss,) + tuple(metrics)]
+        # the eval read is attributed like the train one (a no-op span
+        # with no round open)
+        with self.telemetry.span("metrics_host"):
+            out = [m.to("cpu").numpy() for m in (loss,) + tuple(metrics)]
         mask = np.asarray(batch["mask"])
         counts = mask.reshape(mask.shape[0], -1).sum(axis=1)
         return out + [counts]
@@ -417,35 +570,40 @@ class FedModel:
         ...) tensors, the last row the dead-slot row (zeros)."""
         ids64 = np.asarray(ids_np, np.int64)
         W = len(ids64)
+        tel = self.telemetry
         t0 = time.perf_counter()
-        rows = None
-        if self._prefetcher is not None:
-            rows = self._prefetcher.take(ids64)
-        hit = rows is not None
-        if rows is None:
-            bufs = staging_buffers(self.client_store, W,
-                                   self.device.type == "cuda",
-                                   self._staging)
-            rows, _ = self.client_store.gather(ids64, out=bufs)
+        with tel.span("gather"):
+            rows = None
+            if self._prefetcher is not None:
+                rows = self._prefetcher.take(ids64)
+                tel.count("prefetch_hit" if rows is not None
+                          else "prefetch_miss")
+            hit = rows is not None
+            if rows is None:
+                bufs = staging_buffers(self.client_store, W,
+                                       self.device.type == "cuda",
+                                       self._staging)
+                rows, _ = self.client_store.gather(ids64, out=bufs)
         t1 = time.perf_counter()
         cuda = self.device.type == "cuda"
-        if cuda:
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-        out = {}
-        for name, arr in rows.items():
-            t = torch.empty((W + 1,) + arr.shape[1:], dtype=torch.float32,
-                            device=self.device)
-            t[:W].copy_(torch.from_numpy(arr), non_blocking=True)
-            t[W].zero_()
-            out[name] = t
-        h2d_s = None
-        if cuda:
-            end.record()
-            self._h2d_events = (start, end)
-        else:
-            h2d_s = time.perf_counter() - t1
+        with tel.span("h2d_state"):
+            if cuda:
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+            out = {}
+            for name, arr in rows.items():
+                t = torch.empty((W + 1,) + arr.shape[1:],
+                                dtype=torch.float32, device=self.device)
+                t[:W].copy_(torch.from_numpy(arr), non_blocking=True)
+                t[W].zero_()
+                out[name] = t
+            h2d_s = None
+            if cuda:
+                end.record()
+                self._h2d_events = (start, end)
+            else:
+                h2d_s = time.perf_counter() - t1
         self.store_timings.append({"gather_s": t1 - t0, "h2d_s": h2d_s,
                                    "prefetch_hit": hit})
         return ClientStates(out.get("velocities"), out.get("errors"),
@@ -461,56 +619,59 @@ class FedModel:
         path's dead-slot row keeps them out of every client's row."""
         if self.client_store is None or self._store_pending is None:
             return
-        ids_np, alive = self._store_pending
-        self._store_pending = None
-        cs = self.client_states
-        self.client_states = ClientStates(None, None, None)
-        W = len(ids_np)
-        dev = {name: val[:W] for name, val in
-               (("velocities", cs.velocities), ("errors", cs.errors),
-                ("weights", cs.weights)) if val is not None}
-        if not dev:
-            return
-        timing = self.store_timings[-1] if self.store_timings else {}
-        t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            bufs = self._d2h
-            for name, t in dev.items():
-                buf = bufs.get(name)
-                if buf is None or tuple(buf.shape) != tuple(t.shape):
-                    bufs[name] = torch.empty(t.shape, dtype=torch.float32,
-                                             pin_memory=True)
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            rows = {}
-            for name, t in dev.items():
-                bufs[name].copy_(t, non_blocking=True)
-                rows[name] = bufs[name].numpy()
-            end.record()
-            end.synchronize()
-            timing["d2h_s"] = start.elapsed_time(end) / 1e3
-            if self._h2d_events is not None:
-                h0, h1 = self._h2d_events
-                timing["h2d_s"] = h0.elapsed_time(h1) / 1e3
-                self._h2d_events = None
-        else:
-            rows = {name: t.numpy() for name, t in dev.items()}
-            timing["d2h_s"] = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        spill0 = self.client_store.spill_s
-        if alive.all():
-            self.client_store.write(ids_np, rows)
-        elif alive.any():
-            self.client_store.write(ids_np[alive],
-                                    {k: v[alive] for k, v in rows.items()})
-        timing["writeback_s"] = time.perf_counter() - t1
-        timing["spill_s"] = self.client_store.spill_s - spill0
+        with self.telemetry.span("writeback"):
+            ids_np, alive = self._store_pending
+            self._store_pending = None
+            cs = self.client_states
+            self.client_states = ClientStates(None, None, None)
+            W = len(ids_np)
+            dev = {name: val[:W] for name, val in
+                   (("velocities", cs.velocities), ("errors", cs.errors),
+                    ("weights", cs.weights)) if val is not None}
+            if not dev:
+                return
+            timing = self.store_timings[-1] if self.store_timings else {}
+            t0 = time.perf_counter()
+            if self.device.type == "cuda":
+                bufs = self._d2h
+                for name, t in dev.items():
+                    buf = bufs.get(name)
+                    if buf is None or tuple(buf.shape) != tuple(t.shape):
+                        bufs[name] = torch.empty(
+                            t.shape, dtype=torch.float32, pin_memory=True)
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                rows = {}
+                for name, t in dev.items():
+                    bufs[name].copy_(t, non_blocking=True)
+                    rows[name] = bufs[name].numpy()
+                end.record()
+                end.synchronize()
+                timing["d2h_s"] = start.elapsed_time(end) / 1e3
+                if self._h2d_events is not None:
+                    h0, h1 = self._h2d_events
+                    timing["h2d_s"] = h0.elapsed_time(h1) / 1e3
+                    self._h2d_events = None
+            else:
+                rows = {name: t.numpy() for name, t in dev.items()}
+                timing["d2h_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            spill0 = self.client_store.spill_s
+            if alive.all():
+                self.client_store.write(ids_np, rows)
+            elif alive.any():
+                self.client_store.write(
+                    ids_np[alive], {k: v[alive] for k, v in rows.items()})
+            timing["writeback_s"] = time.perf_counter() - t1
+            timing["spill_s"] = self.client_store.spill_s - spill0
 
     def finalize(self):
-        """Shutdown (reference fed_model.py:445-456): the pending
-        round's write-back, then the prefetch thread joined and the
-        store closed (its temporary spill directory removed)."""
+        """Shutdown (reference fed_model.py:445-456): the open profiler
+        round range closed, the pending round's write-back, then the
+        prefetch thread joined, the store closed (its temporary spill
+        directory removed) and the telemetry flushed and closed."""
+        trace.end_round_marker()
         if self._prefetcher is not None:
             self._prefetcher.close()
             self._prefetcher = None
@@ -519,6 +680,7 @@ class FedModel:
             self.store_stats = dict(self.client_store.stats)
             self.client_store.close()
             self.client_store = None
+        self.telemetry.close()
 
     def interrupted(self):
         """After a signal cut a round short (reference
@@ -528,18 +690,24 @@ class FedModel:
         of step with the saved server state)."""
         self._inflight = []
         self._oplog = []
+        self._probe_log = {}
+        self._probe_host = {}
         self.pending_aggregated = None
         self.pending_client_ids = None
         self._store_pending = None
 
-    def _charge_privacy(self, staleness, mask):
+    def _charge_privacy(self, ridx, staleness, mask):
         """Charge the round's ``--dp sketch`` release (reference
         ``_charge_privacy``, fed_model.py:868-905). A staleness-weighted
         round charges the reduced sensitivity ``weight_scale = (1 +
         s_min)^-alpha``, the largest fold weight among the round's
         alive slots: the DP fold divides by the static W·B, so a
         client's released share is genuinely scaled by its weight. A
-        round with no alive slot charges 1."""
+        round with no alive slot charges 1. The round's ledger record
+        gets the ε after the charge, its δ and σ / w (schema v5); with
+        a budget (``--dp_epsilon`` > 0) the ε goes to the alarm engine,
+        so ``--on_divergence abort`` stops the run at the round that
+        spent it."""
         w = 1.0
         alpha = float(self.args.async_staleness_weight)
         if staleness is not None and alpha > 0.0:
@@ -548,8 +716,19 @@ class FedModel:
             if alive.any():
                 w = float(min((1.0 + float(s[alive].min())) ** (-alpha),
                               1.0))
-        self._accountant.step(weight_scale=w,
-                              sigma=float(self.args.dp_noise_mult))
+        acc = self._accountant
+        sigma = float(self.args.dp_noise_mult)
+        acc.step(weight_scale=w, sigma=sigma)
+        eps = acc.epsilon()
+        self.telemetry.set_round_privacy(ridx, eps, acc.delta, sigma / w)
+        budget = float(self.args.dp_epsilon)
+        if self.alarm_engine is not None and budget > 0:
+            self.alarm_engine.check(ridx, {
+                "dp_epsilon": eps, "dp_delta": acc.delta,
+                "dp_sigma": sigma / w,
+                # projected at weight scale 1: later rounds' staleness
+                # weights are not known yet
+                "dp_rounds_left": acc.rounds_left(budget, sigma=sigma)})
 
     def privacy_epsilon(self) -> Optional[float]:
         """The ε spent so far at ``--dp_delta`` under ``--dp sketch``
@@ -708,6 +887,14 @@ class FedModel:
         self.last_updated[idx] = r
 
 
+def _probe_values(probes: dict) -> dict:
+    """A round's probe scalars (0-dim device tensors) as floats, copied
+    to the host in one batch."""
+    keys = list(probes)
+    return {k: float(v) for k, v in
+            zip(keys, _to_host([probes[k] for k in keys]))}
+
+
 def _np(x) -> np.ndarray:
     return x.to("cpu").numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
@@ -779,7 +966,9 @@ class FedOptimizer:
                 inds.append(ind.to(self.model.device))
             self._lr_indicators = inds
         self.server_state = ServerState.init(self.args, self.model.device)
-        self._server_round = build_server_round(self.args)
+        self._probes = self.model.probe_period > 0
+        self._server_round = build_server_round(self.args,
+                                                probes=self._probes)
         # the legacy --do_dp server noise: step s draws from the
         # (seed + 1, s) stream
         self._server_noise = (self.args.do_dp
@@ -813,11 +1002,16 @@ class FedOptimizer:
         gen = (noise_generator(self.args.seed + 1, self._step_count,
                                SERVER_NOISE_TAG, m.device)
                if self._server_noise else None)
-        new_ps, self.server_state, new_vel, update, support = \
-            self._server_round(m.ps_weights, self.server_state,
-                               m.pending_aggregated, lr,
-                               m.client_states.velocities,
-                               m.pending_client_ids, gen)
+        # the round's ledger record is still current (the next round's
+        # begin closes it), so the span lands on the round whose
+        # aggregate it consumes
+        with m.telemetry.span("server"), trace.phase("server"):
+            out = self._server_round(m.ps_weights, self.server_state,
+                                     m.pending_aggregated, lr,
+                                     m.client_states.velocities,
+                                     m.pending_client_ids, gen)
+        sprobes = out[5] if self._probes else None
+        new_ps, self.server_state, new_vel, update, support = out[:5]
         m.ps_weights = new_ps
         m.client_states = m.client_states._replace(velocities=new_vel)
         m.pending_aggregated = None
@@ -839,6 +1033,18 @@ class FedOptimizer:
             elif self.args.mode in ("local_topk", "fedavg") or vector_lr:
                 support = {"bitmap": packbits(update != 0)}
         m.note_update(support)
+        if sprobes is not None:
+            # the round this server pass belongs to (_call_train already
+            # advanced round_index)
+            sridx = m.round_index - 1
+            if m.pipeline_depth > 1:
+                # stays on the device: read at the flush, in round
+                # order, with the client-pass probes
+                m._probe_log.setdefault(sridx, {}).update(sprobes)
+            else:
+                with m.telemetry.span("metrics_host"):
+                    svals = _probe_values(sprobes)
+                m._finish_probes(sridx, svals)
 
 
 class LambdaLR:

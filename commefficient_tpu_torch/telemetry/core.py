@@ -1,0 +1,321 @@
+"""Round-ledger telemetry: spans, counters and the record lifecycle.
+
+Port of ``commefficient_tpu/telemetry/core.py``. One ``Telemetry``
+observes one run. The hot-path contract is the reference's:
+
+- **disabled** (no sinks): ``begin_round`` is one truthiness check,
+  ``span()`` returns one shared no-op context manager and ``count()``
+  returns at once: no allocation a round, nothing kept.
+- **enabled**: ``begin_round`` opens a round record; ``span(name)``
+  adds wall time to it; ``count(name)`` bumps a counter. Records reach
+  every sink in round order once they are (a) no longer the current
+  round and (b) carry their uplink/downlink bytes
+  (``set_round_bytes``, deferred under ``--pipeline_depth`` until the
+  trainer drains). ``close()`` flushes what remains.
+
+Round lifecycle (runtime/fed_model.py):
+
+    begin_round(r)        # top of FedModel._call_train
+      span("h2d") ...     # client pass spans
+      set_round_bytes(r)  # sync path: end of _call_train;
+                          # pipelined: FedModel.flush replay
+      span("server") ...  # FedOptimizer.step (record still current)
+    begin_round(r+1)      # closes r -> watermarks -> emit
+
+Compile events: the reference counts XLA compiles through
+``jax.monitoring``, which has no torch twin. The port's compiles are
+its kernel builds, so a record's ``compile_events``/``compile_secs``
+counters are the kernel libraries loaded (nvcc build or cached
+library, ``_build.load``) while it was current, and their seconds.
+``hbm_peak_bytes`` is the card's ``torch.cuda.max_memory_allocated``
+since the process started (the reference's ``peak_bytes_in_use``); it
+never resets the peak, which would cut a caller's own measurement
+window short. The two peaks are read with the cheapest calls that give
+their numbers: an enabled ledger costs ~0.12-0.15 ms a round on the
+H100's machine (PERF.md §6).
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+from commefficient_tpu_torch import _build
+from commefficient_tpu_torch.telemetry import clock
+from commefficient_tpu_torch.telemetry.record import (make_epoch_record,
+                                                      make_meta_record,
+                                                      make_round_record,
+                                                      make_summary_record)
+
+
+class _NullSpan:
+    """Shared, allocation-free no-op context manager."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    __slots__ = ("_spans", "_name", "_t0")
+
+    def __init__(self, spans, name):
+        self._spans = spans
+        self._name = name
+
+    def __enter__(self):
+        self._t0 = clock.tick()
+        return self
+
+    def __exit__(self, *exc):
+        dt = clock.tick() - self._t0
+        self._spans[self._name] = self._spans.get(self._name, 0.0) + dt
+        return False
+
+
+def compile_mark():
+    """Snapshot of the process-wide kernel-build accumulator."""
+    return (_build.COMPILES["events"], _build.COMPILES["secs"])
+
+
+def host_rss_peak_bytes():
+    """Peak resident set size of this process (bytes), or None: Linux's
+    ``ru_maxrss`` (KiB), the number the reference reads as ``VmHWM``
+    from ``/proc/self/status``, whose read cost 0.12 ms a call on the
+    H100's machine against 3 us (PERF.md §6)."""
+    try:
+        import resource
+        return int(resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss) * 1024
+    except (ImportError, OSError):
+        return None
+
+
+def hbm_peak_bytes(device=None):
+    """Peak bytes the caching allocator held on ``device`` (a CUDA
+    ``torch.device``) since the process started, or None for a CPU run
+    or a card that reports nothing: ``max_memory_allocated``'s number,
+    read from the nested stats (``max_memory_allocated`` flattens them
+    in Python, 79 against 13 us a call on the H100's machine)."""
+    if device is None or getattr(device, "type", None) != "cuda":
+        return None
+    import torch
+    stats = torch.cuda.memory_stats_as_nested_dict(device)
+    peak = stats.get("allocated_bytes", {}).get("all", {}).get("peak", 0)
+    return int(peak) or None
+
+
+class Telemetry:
+    """Span/counter recorder and sink fan-out for one run. ``device``
+    is the run's device, whose memory peak the round records carry."""
+
+    def __init__(self, sinks=None, device=None):
+        self._sinks = list(sinks or ())
+        self.device = device
+        self._records = OrderedDict()   # round index -> record
+        self._closed_rounds = set()     # indices no longer current
+        self._alarm_counts = {}         # rule -> fires this run
+        self._current = None            # the open round record
+        self._compile_mark = (0, 0.0)
+        self._shut = False
+        # a profiler trace window holds closed records until its trace
+        # is parsed, so the device-time buckets merge before the
+        # records reach the sinks; round order is unchanged
+        self._hold = False
+        # optional callback(round_index, buckets) run when trace
+        # buckets merge: FedModel points it at the alarm engine's
+        # collective-skew check
+        self.on_device_time = None
+
+    # --- configuration --------------------------------------------------
+
+    @property
+    def enabled(self) -> bool:
+        return bool(self._sinks)
+
+    def add_sink(self, sink):
+        """Attach a sink mid-run (the trainers attach the TensorBoard
+        sink once the run's log directory exists)."""
+        self._sinks.append(sink)
+
+    def emit(self, rec):
+        for sink in self._sinks:
+            sink.write(rec)
+
+    def emit_meta(self, **fields):
+        if self._sinks:
+            self.emit(make_meta_record(**fields))
+
+    # --- round lifecycle ------------------------------------------------
+
+    def begin_round(self, index: int):
+        """Open round ``index``; closes (and may emit) the previous
+        round. A no-op when disabled."""
+        if not self._sinks:
+            return None
+        self._close_current()
+        rec = make_round_record(index)
+        self._records[index] = rec
+        self._current = rec
+        self._compile_mark = compile_mark()
+        return rec
+
+    def _close_current(self):
+        rec, self._current = self._current, None
+        if rec is None:
+            return
+        rec["host_rss_peak_bytes"] = host_rss_peak_bytes()
+        rec["hbm_peak_bytes"] = hbm_peak_bytes(self.device)
+        ev0, s0 = self._compile_mark
+        ev1, s1 = compile_mark()
+        rec["counters"]["compile_events"] = ev1 - ev0
+        rec["counters"]["compile_secs"] = round(s1 - s0, 6)
+        self._closed_rounds.add(rec["round"])
+        self._drain()
+
+    def span(self, name: str):
+        """Context manager adding wall time to the current round
+        record; the shared no-op outside a round or when disabled."""
+        if self._current is None:
+            return NULL_SPAN
+        return _Span(self._current["spans"], name)
+
+    def count(self, name: str, n: int = 1):
+        if self._current is not None:
+            c = self._current["counters"]
+            c[name] = c.get(name, 0) + n
+
+    def set_round_bytes(self, index: int, downlink, uplink):
+        """Attach the round's FedModel accounting totals: at the end of
+        the client pass (synchronous) or at the flush replay
+        (``--pipeline_depth`` > 1)."""
+        rec = self._records.get(index)
+        if rec is None:
+            return
+        rec["downlink_bytes"] = float(downlink)
+        rec["uplink_bytes"] = float(uplink)
+        self._drain()
+
+    def set_round_privacy(self, index: int, epsilon, delta, sigma):
+        """Stamp the round's DP trail (schema v5): the cumulative
+        ε(δ) after the round was charged, its δ, and the noise
+        multiplier charged."""
+        rec = self._records.get(index)
+        if rec is None:
+            return
+        rec["dp_epsilon"] = float(epsilon)
+        rec["dp_delta"] = float(delta)
+        rec["dp_sigma"] = float(sigma)
+
+    def merge_round_probes(self, index: int, probes: dict):
+        """Merge algorithm-probe values onto round ``index``'s record
+        (schema v2), always before it can emit: emission waits on
+        ``set_round_bytes``, which arrives last."""
+        rec = self._records.get(index)
+        if rec is None or not probes:
+            return
+        if rec.get("probes") is None:
+            rec["probes"] = {}
+        rec["probes"].update(probes)
+
+    def hold_emission(self, on: bool):
+        """Buffer emission while a profiler trace window is open;
+        releasing the hold drains what became eligible meanwhile."""
+        self._hold = bool(on)
+        if not self._hold:
+            self._drain()
+
+    def merge_round_device_time(self, index: int, buckets: dict):
+        """Attach trace-derived device-time buckets (schema v3) to round
+        ``index``'s record: called by the trace window at its exit,
+        while ``hold_emission`` keeps the records buffered."""
+        rec = self._records.get(index)
+        if rec is None or not buckets:
+            return
+        rec["device_time"] = dict(buckets)
+        cb = self.on_device_time
+        if cb is not None:
+            cb(index, rec["device_time"])
+
+    def flag_alarm(self, index: int, alarm: dict):
+        """Append an alarm dict to round ``index``'s record and bump
+        the run's fire count of its rule."""
+        rule = str(alarm.get("rule"))
+        self._alarm_counts[rule] = self._alarm_counts.get(rule, 0) + 1
+        rec = self._records.get(index)
+        if rec is None:
+            return
+        rec.setdefault("alarms", []).append(alarm)
+
+    def _drain(self, force: bool = False):
+        """Emit the front records that are closed and carry their
+        bytes (every closed one when forced): ledger order is round
+        order."""
+        if self._hold and not force:
+            return
+        while self._records:
+            idx, rec = next(iter(self._records.items()))
+            if idx not in self._closed_rounds:
+                break
+            if rec["uplink_bytes"] is None and not force:
+                break
+            self._records.pop(idx)
+            self._closed_rounds.discard(idx)
+            self.emit(rec)
+
+    # --- non-round records ----------------------------------------------
+
+    def epoch(self, row: dict, epoch: int):
+        """Emit the trainer's per-epoch row."""
+        if self._sinks:
+            self.emit(make_epoch_record(row, epoch))
+
+    # --- shutdown -------------------------------------------------------
+
+    def close(self):
+        """Flush every pending record and close the sinks; idempotent.
+        A run in which an alarm fired also emits one summary record of
+        the per-rule ``alarm_fired`` totals."""
+        if self._shut:
+            return
+        self._shut = True
+        self._close_current()
+        self._drain(force=True)
+        if self._alarm_counts and self._sinks:
+            self.emit(make_summary_record(
+                alarm_fired=dict(sorted(self._alarm_counts.items()))))
+        for sink in self._sinks:
+            sink.close()
+        self._sinks = []
+
+
+#: a disabled instance: everything on it is a no-op
+NULL_TELEMETRY = Telemetry()
+
+
+def build_telemetry(args, device=None, extra_sinks=()) -> Telemetry:
+    """A run's Telemetry from its Config: ``--ledger PATH`` attaches a
+    JSONL sink, ``--telemetry_console`` the end-of-run console summary.
+    The TensorBoard sink is attached by the trainer, which owns the run
+    log directory. A ``--resume`` run appends to the same ledger: the
+    sink truncates a torn tail and drops replayed round records at or
+    below the file's last round id, so round ids stay monotone. (The
+    reference's per-process ledger shards belong to the multi-process
+    runtime, which is not ported.)"""
+    from commefficient_tpu_torch.telemetry.sinks import (ConsoleSink,
+                                                         JSONLSink,
+                                                         last_round_index)
+    sinks = list(extra_sinks)
+    path = getattr(args, "ledger", "") or ""
+    if path:
+        resume_after = (last_round_index(path)
+                        if getattr(args, "do_resume", False) else None)
+        sinks.append(JSONLSink(path, resume_after=resume_after))
+    if getattr(args, "telemetry_console", False):
+        sinks.append(ConsoleSink())
+    return Telemetry(sinks, device=device)

@@ -23,6 +23,13 @@ per-client rows on the host, prefetched from the loader's lookahead
 (runtime/fed_model.py). The round features
 ``--robust_agg``, ``--dp``, ``--do_dp`` and ``--dropout_prob`` live in
 the round and the loader (core/rounds.py, data/loader.py).
+Telemetry (reference cv_train.py:224-323, 581-601): the loader's wait
+is the ledger's ``sampler`` span, ``--on_divergence abort`` stops the
+run at the alarming round (``DivergenceAbort``, as a diverged loss
+does), ``--tensorboard`` attaches the TensorBoard sink and
+``--profile`` traces the first epoch (telemetry/profiler.py), both in
+the run's log directory; a SIGTERM dumps the flight recorder's
+``graceful_shutdown`` bundle.
 Runs on the card unless ``--device cpu`` is given.
 
 Run e.g.:
@@ -59,10 +66,13 @@ from commefficient_tpu_torch.ops.vec import param_group_indices
 from commefficient_tpu_torch.runtime import (FedModel, FedOptimizer,
                                              LambdaLR, drain_rounds)
 from commefficient_tpu_torch.runtime.checkpoint import setup_resume
+from commefficient_tpu_torch.telemetry.alarms import DivergenceAbort
+from commefficient_tpu_torch.telemetry.profiler import profile_epoch
+from commefficient_tpu_torch.telemetry.sinks import TensorBoardSink
 from commefficient_tpu_torch.utils import (GracefulShutdown,
                                            PiecewiseLinear, TableLogger,
-                                           Timer, sigterm_raises,
-                                           steps_per_epoch)
+                                           Timer, make_logdir,
+                                           sigterm_raises, steps_per_epoch)
 
 
 def masked_mean(values, mask):
@@ -207,7 +217,9 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
     fires at the flush that sees the bad loss. ``mixup_rng`` (under
     ``--mixup``) mixes each round's batch before it is dispatched.
     ``round_hook(epoch)`` runs after every completed round (the
-    round-cadence autosave, runtime/checkpoint.py)."""
+    round-cadence autosave, runtime/checkpoint.py). A
+    ``DivergenceAbort`` (``--on_divergence abort``) stops it like a
+    diverged loss: None, ``model.diverged`` set."""
     if training:
         model.train(True)
         losses, accs = [], []
@@ -234,36 +246,53 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
                     return False
             return True
 
-        for i, batch in enumerate(loader):
-            if i >= max_batches:
-                break
-            t0 = time.perf_counter()
-            if mixup_rng is not None:
-                batch = apply_mixup(batch, args.mixup_alpha, mixup_rng)
-            lr_scheduler.step()
-            if opt.param_groups[0]["lr"] == 0:
-                # "HACK STEP": keep FedAvg's schedule aligned when the
-                # triangular LR hits 0 (reference cv_train.py:198-203)
-                for g in opt.param_groups:
-                    g["lr"] = 1e-10
-            metrics = model(batch)
-            opt.step()
-            w = np.asarray(batch["mask"]).sum(axis=1)
-            if metrics is None:
-                # pipelined: the round's results come with a flush
-                pending.append((i, w))
-                ok = drain_rounds(model, pending, process, force=False)
-            else:
-                ok = process(metrics, i, w)
-            if round_times is not None:
-                round_times.append(time.perf_counter() - t0)
-            if not ok:
+        tel = model.telemetry
+        it = enumerate(loader)
+        try:
+            while True:
+                # a manual pull, so that the loader's wait is the
+                # ledger's sampler span (on the previous round's record)
+                with tel.span("sampler"):
+                    nxt = next(it, None)
+                if nxt is None:
+                    break
+                i, batch = nxt
+                if i >= max_batches:
+                    break
+                t0 = time.perf_counter()
+                if mixup_rng is not None:
+                    batch = apply_mixup(batch, args.mixup_alpha, mixup_rng)
+                lr_scheduler.step()
+                if opt.param_groups[0]["lr"] == 0:
+                    # "HACK STEP": keep FedAvg's schedule aligned when
+                    # the triangular LR hits 0 (reference
+                    # cv_train.py:198-203)
+                    for g in opt.param_groups:
+                        g["lr"] = 1e-10
+                metrics = model(batch)
+                opt.step()
+                w = np.asarray(batch["mask"]).sum(axis=1)
+                if metrics is None:
+                    # pipelined: the round's results come with a flush
+                    pending.append((i, w))
+                    ok = drain_rounds(model, pending, process, force=False)
+                else:
+                    ok = process(metrics, i, w)
+                if round_times is not None:
+                    round_times.append(time.perf_counter() - t0)
+                if not ok:
+                    return None
+                if round_hook is not None:
+                    round_hook(epoch)
+                if args.do_test:
+                    break
+            if not drain_rounds(model, pending, process, force=True):
                 return None
-            if round_hook is not None:
-                round_hook(epoch)
-            if args.do_test:
-                break
-        if not drain_rounds(model, pending, process, force=True):
+        except DivergenceAbort as e:
+            # the alarm is flagged on the round's ledger record, which
+            # becomes the run's last when the telemetry closes
+            print(f"Stopping at round {e.round_index}: {e}")
+            model.diverged = True
             return None
         if not losses:
             return (float("nan"), float("nan"),
@@ -292,49 +321,64 @@ def train(model, opt, lr_scheduler, train_loader, val_loader, args,
     ``round_hook(epoch)`` after each completed round (checkpointing).
     Each result row also carries the epoch's per-round wall times
     (``round_times``) and train losses (``round_losses``), which the
-    table does not print."""
+    table does not print. ``--tensorboard`` and ``--profile`` write into
+    the run's log directory (``make_logdir``); the telemetry closes at
+    the end, an abort included."""
     timer = timer or Timer()
     logger = logger or TableLogger()
     results = []
     # one mixup stream across epochs (reference cv_train.py:316-318)
     mixup_rng = (np.random.RandomState(args.seed + 77)
                  if args.do_mixup else None)
-    for epoch in range(start_epoch, math.ceil(args.num_epochs)):
-        epoch_fraction = min(1.0, args.num_epochs - epoch)
-        round_times, round_losses = [], []
-        out = run_batches(model, opt, lr_scheduler, train_loader, args,
-                          training=True, epoch_fraction=epoch_fraction,
-                          round_times=round_times, round_losses=round_losses,
-                          mixup_rng=mixup_rng, round_hook=round_hook,
-                          epoch=epoch)
-        if out is None:
-            print("NaN detected, aborting training")
-            # its weights are not a model: --checkpoint saves nothing
-            model.diverged = True
-            return results
-        train_loss, train_acc, download, upload = out
-        train_time = timer()
-        val_loss, val_acc = run_batches(model, opt, lr_scheduler,
-                                        val_loader, args, training=False)
-        val_time = timer()
-        row = {
-            "epoch": epoch + 1,
-            "lr": float(opt.param_groups[0]["lr"]),
-            "train_time": train_time,
-            "train_loss": float(train_loss),
-            "train_acc": float(train_acc),
-            "test_time": val_time,
-            "test_loss": float(val_loss),
-            "test_acc": float(val_acc),
-            "down (MiB)": float(download.sum() / (1024 * 1024)),
-            "up (MiB)": float(upload.sum() / (1024 * 1024)),
-            "total_time": timer.total_time,
-        }
-        logger.append(row)
-        results.append(dict(row, round_times=round_times,
-                            round_losses=round_losses))
-        if epoch_hook is not None:
-            epoch_hook(epoch + 1)
+    tel = model.telemetry
+    logdir = (make_logdir(args)
+              if args.use_tensorboard or args.do_profile else None)
+    if args.use_tensorboard:
+        tel.add_sink(TensorBoardSink(logdir))
+    try:
+        for epoch in range(start_epoch, math.ceil(args.num_epochs)):
+            epoch_fraction = min(1.0, args.num_epochs - epoch)
+            round_times, round_losses = [], []
+            with profile_epoch(args, epoch, start_epoch, logdir,
+                               telemetry=tel):
+                out = run_batches(
+                    model, opt, lr_scheduler, train_loader, args,
+                    training=True, epoch_fraction=epoch_fraction,
+                    round_times=round_times, round_losses=round_losses,
+                    mixup_rng=mixup_rng, round_hook=round_hook, epoch=epoch)
+            if out is None:
+                print("NaN detected, aborting training")
+                # its weights are not a model: --checkpoint saves nothing
+                model.diverged = True
+                return results
+            train_loss, train_acc, download, upload = out
+            train_time = timer()
+            val_loss, val_acc = run_batches(model, opt, lr_scheduler,
+                                            val_loader, args, training=False)
+            val_time = timer()
+            row = {
+                "epoch": epoch + 1,
+                "lr": float(opt.param_groups[0]["lr"]),
+                "train_time": train_time,
+                "train_loss": float(train_loss),
+                "train_acc": float(train_acc),
+                "test_time": val_time,
+                "test_loss": float(val_loss),
+                "test_acc": float(val_acc),
+                "down (MiB)": float(download.sum() / (1024 * 1024)),
+                "up (MiB)": float(upload.sum() / (1024 * 1024)),
+                "total_time": timer.total_time,
+            }
+            logger.append(row)
+            results.append(dict(row, round_times=round_times,
+                                round_losses=round_losses))
+            tel.epoch(row, epoch + 1)
+            if epoch_hook is not None:
+                epoch_hook(epoch + 1)
+    finally:
+        # the sinks flush and close even on an abort; finalize's close
+        # is then a no-op
+        tel.close()
     return results
 
 
@@ -560,6 +604,11 @@ def main(argv=None):
         print(f"interrupted ({e}); resume from the last autosave")
         interrupted = True
         results = []
+        if model.flightrec is not None:
+            # the postmortem keeps the rounds the ledger may not have
+            # flushed; dumped before interrupted() drops their state
+            model.flightrec.dump("graceful_shutdown",
+                                 context={"signal": str(e)})
         model.interrupted()
     model.finalize()
     if args.do_checkpoint and not interrupted and not model.diverged:

@@ -32,7 +32,9 @@ one validation pass and nothing else (reference gpt2_train.py:445-450);
 the full round state ``checkpoint_path/ckpt_gpt2.npz`` at the last
 epoch (and at ``--checkpoint_every`` / ``--checkpoint_every_rounds``),
 from which ``--resume`` continues (runtime/checkpoint.py); a SIGTERM
-ends the run without a save. Telemetry is not ported.
+ends the run without a save. The round ledger, probes, alarms, flight
+recorder, ``--tensorboard`` and ``--profile`` are the CV trainer's
+(telemetry/, train/cv_train.py).
 
 ``--robust_agg median|trimmed|clip``, ``--dp sketch`` and the legacy
 ``--do_dp`` run through the per-client round (``core/rounds.py``), every
@@ -54,7 +56,8 @@ The per-client round (``core/rounds.py``; also under ``--max_grad_norm``
 and ``--microbatch_size``) runs every client's gradient under
 ``torch.func.vmap``, with the fused CE's and the flash attention's own
 vmap rules (``ops/flce.py``, ``ops/attention.py``) or the chunked CE
-without its checkpoints; ``--remat`` there raises.
+without its checkpoints; beside ``--remat`` it runs the clients one
+after another in plain autograd (core/grad.py ``map_clients``).
 
 Assets are made offline (``fabricate_assets``): a full-size GPT-2-layout
 vocabulary and a learnable PersonaChat-format corpus. Run e.g.:
@@ -82,7 +85,6 @@ import numpy as np
 import torch
 
 from commefficient_tpu_torch.config import Config, parse_args
-from commefficient_tpu_torch.core.rounds import fused_grad_eligible
 from commefficient_tpu_torch.data.fed_persona import (
     FedPERSONA, generate_learnable_personachat,
     generate_synthetic_personachat)
@@ -107,6 +109,9 @@ from commefficient_tpu_torch.runtime import (FedModel, FedOptimizer,
                                              LambdaLR, drain_rounds)
 from commefficient_tpu_torch.runtime.checkpoint import setup_resume
 from commefficient_tpu_torch.serialization import msgpack_restore
+from commefficient_tpu_torch.telemetry.alarms import DivergenceAbort
+from commefficient_tpu_torch.telemetry.profiler import profile_epoch
+from commefficient_tpu_torch.telemetry.sinks import TensorBoardSink
 from commefficient_tpu_torch.utils import (GracefulShutdown,
                                            PiecewiseLinear, TableLogger,
                                            Timer, make_logdir,
@@ -202,7 +207,10 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
     > 1, to the round's dispatch and any flush it made due), its train
     loss (``round_losses``) and the per-client download/upload byte
     totals. ``round_hook(epoch)`` runs after every completed round (the
-    round-cadence autosave). Validation returns (nll, acc, ppl)."""
+    round-cadence autosave). Validation returns (nll, acc, ppl). The
+    loader's wait is the ledger's ``sampler`` span; a
+    ``DivergenceAbort`` (``--on_divergence abort``) stops training like
+    a diverged loss (None, ``model.diverged`` set)."""
     if training:
         model.train(True)
         losses, round_times = [], []
@@ -223,26 +231,40 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
                 return False
             return True
 
-        for i, batch in enumerate(loader):
-            t0 = time.perf_counter()
-            lr_scheduler.step()
-            metrics = model(batch)
-            opt.step()
-            w = np.asarray(batch["mask"]).sum(axis=1)
-            if metrics is None:
-                # pipelined: the round's results come with a flush
-                pending.append((i, w))
-                ok = drain_rounds(model, pending, process, force=False)
-            else:
-                ok = process(metrics, i, w)
-            round_times.append(time.perf_counter() - t0)
-            if not ok:
+        tel = model.telemetry
+        it = enumerate(loader)
+        try:
+            while True:
+                # a manual pull, so that the loader's wait is the
+                # ledger's sampler span (on the previous round's record)
+                with tel.span("sampler"):
+                    nxt = next(it, None)
+                if nxt is None:
+                    break
+                i, batch = nxt
+                t0 = time.perf_counter()
+                lr_scheduler.step()
+                metrics = model(batch)
+                opt.step()
+                w = np.asarray(batch["mask"]).sum(axis=1)
+                if metrics is None:
+                    # pipelined: the round's results come with a flush
+                    pending.append((i, w))
+                    ok = drain_rounds(model, pending, process, force=False)
+                else:
+                    ok = process(metrics, i, w)
+                round_times.append(time.perf_counter() - t0)
+                if not ok:
+                    return None
+                if round_hook is not None:
+                    round_hook(epoch)
+                if args.do_test:
+                    break
+            if not drain_rounds(model, pending, process, force=True):
                 return None
-            if round_hook is not None:
-                round_hook(epoch)
-            if args.do_test:
-                break
-        if not drain_rounds(model, pending, process, force=True):
+        except DivergenceAbort as e:
+            print(f"Stopping at round {e.round_index}: {e}")
+            model.diverged = True
             return None
         if stats is not None:
             stats.update(round_times=round_times, round_losses=losses,
@@ -264,43 +286,59 @@ def run_batches(model, opt, lr_scheduler, loader, args, training,
 
 
 def train_gpt2(model, opt, lr_scheduler, train_loader, val_loader, args,
-               logger=None, start_epoch=0, epoch_hook=None, round_hook=None):
+               logger=None, start_epoch=0, epoch_hook=None, round_hook=None,
+               logdir=None):
     """Epoch loop (reference gpt2_train.py:231-281) from
     ``start_epoch``; ``epoch_hook(ep)`` runs after each completed epoch
     and ``round_hook(epoch)`` after each completed round. Each result row
     also carries the epoch's per-round wall times (``round_times``),
     train losses (``round_losses``) and byte totals (``down (MiB)``,
     ``up (MiB)``), which the table does not print. A divergence stops
-    the loop and marks ``model.diverged``."""
+    the loop and marks ``model.diverged``. ``--tensorboard`` and
+    ``--profile`` (the first epoch's trace) write into ``logdir``
+    (reference gpt2_train.py:235-251); the telemetry closes at the end,
+    an abort included."""
     logger = logger or TableLogger()
     timer = Timer()
     results = []
-    for epoch in range(start_epoch, math.ceil(args.num_epochs)):
-        stats = {}
-        train_loss = run_batches(model, opt, lr_scheduler, train_loader,
-                                 args, training=True, stats=stats,
-                                 round_hook=round_hook, epoch=epoch)
-        if train_loss is None:
-            print("NaN detected, aborting")
-            model.diverged = True
-            return results
-        train_time = timer()
-        nll, acc, ppl = run_batches(model, opt, lr_scheduler, val_loader,
-                                    args, training=False)
-        val_time = timer()
-        row = {"epoch": epoch + 1,
-               "lr": float(opt.param_groups[0]["lr"]),
-               "train_time": train_time, "train_loss": train_loss,
-               "val_time": val_time, "val_nll": nll, "val_acc": acc,
-               "val_ppl": ppl, "total_time": timer.total_time}
-        logger.append(row)
-        results.append(dict(
-            row, round_times=stats["round_times"],
-            round_losses=stats["round_losses"],
-            **{"down (MiB)": float(stats["download"].sum() / 2**20),
-               "up (MiB)": float(stats["upload"].sum() / 2**20)}))
-        if epoch_hook is not None:
-            epoch_hook(epoch + 1)
+    tel = model.telemetry
+    if (args.use_tensorboard or args.do_profile) and logdir is None:
+        logdir = make_logdir(args)
+    if args.use_tensorboard:
+        tel.add_sink(TensorBoardSink(logdir))
+    try:
+        for epoch in range(start_epoch, math.ceil(args.num_epochs)):
+            stats = {}
+            with profile_epoch(args, epoch, start_epoch, logdir,
+                               telemetry=tel):
+                train_loss = run_batches(model, opt, lr_scheduler,
+                                         train_loader, args, training=True,
+                                         stats=stats, round_hook=round_hook,
+                                         epoch=epoch)
+            if train_loss is None:
+                print("NaN detected, aborting")
+                model.diverged = True
+                return results
+            train_time = timer()
+            nll, acc, ppl = run_batches(model, opt, lr_scheduler,
+                                        val_loader, args, training=False)
+            val_time = timer()
+            row = {"epoch": epoch + 1,
+                   "lr": float(opt.param_groups[0]["lr"]),
+                   "train_time": train_time, "train_loss": train_loss,
+                   "val_time": val_time, "val_nll": nll, "val_acc": acc,
+                   "val_ppl": ppl, "total_time": timer.total_time}
+            logger.append(row)
+            results.append(dict(
+                row, round_times=stats["round_times"],
+                round_losses=stats["round_losses"],
+                **{"down (MiB)": float(stats["download"].sum() / 2**20),
+                   "up (MiB)": float(stats["upload"].sum() / 2**20)}))
+            tel.epoch(row, epoch + 1)
+            if epoch_hook is not None:
+                epoch_hook(epoch + 1)
+    finally:
+        tel.close()
     return results
 
 
@@ -442,29 +480,6 @@ def fabricate_assets(root: str, num_personalities: int = 16,
     return data_dir, vocab_dir
 
 
-def _check_per_client(args: Config, remat: bool):
-    """The per-client round runs the loss under torch.func.vmap: the
-    fused CE and the flash attention have vmap rules, the blocks'
-    checkpoints (``--remat``) do not. Raises naming both flags."""
-    if fused_grad_eligible(args):
-        return
-    round_flags = " ".join(
-        flag for flag, on in (
-            (f"--mode {args.mode}", args.mode in ("local_topk", "fedavg")),
-            ("--local_momentum", args.local_momentum > 0),
-            ("--error_type local", args.error_type == "local"),
-            ("--topk_down", args.do_topk_down),
-            ("--max_grad_norm", args.max_grad_norm is not None),
-            ("--microbatch_size", args.microbatch_size > 0),
-            (f"--robust_agg {args.robust_agg}", args.robust_agg != "none"),
-            ("--dp sketch", args.dp != "off"),
-            ("--do_dp", args.do_dp)) if on)
-    if remat:
-        raise NotImplementedError(
-            f"gpt2_train --remat with {round_flags} (the per-client "
-            "round) is not ported")
-
-
 def main(argv=None):
     args = parse_args(default_lr=4e-2, argv=argv)
     device = resolve_device(args.device)
@@ -478,10 +493,10 @@ def main(argv=None):
         args.num_blocks = 1
 
     module, params, tokenizer = build_model_and_tokenizer(args, device)
-    # remat from --remat or from a saved config.json; the flags as the
-    # round will read them (--test's sketch defaults normalized)
+    # remat from --remat or from a saved config.json: the per-client
+    # round reads it from the flags (core/grad.py map_clients)
+    args.do_remat = module.cfg.remat
     args.validate_runtime()
-    _check_per_client(args, module.cfg.remat)
     fused = resolve_fused_ce(args.fused_ce, module.cfg.n_embd, device,
                              module.cfg.dtype)
     print(f"fused_ce {args.fused_ce}: "
@@ -528,13 +543,18 @@ def main(argv=None):
             results = train_gpt2(model, opt, lr_scheduler, train_loader,
                                  val_loader, args, start_epoch=start_epoch,
                                  epoch_hook=epoch_hook,
-                                 round_hook=round_hook)
+                                 round_hook=round_hook, logdir=logdir)
     except GracefulShutdown as e:
         # no save here: the last round-cadence autosave is the resume
         # point (reference gpt2_train.py:478-486)
         print(f"interrupted ({e}); resume from the last autosave")
         interrupted = True
         results = []
+        if model.flightrec is not None:
+            # the postmortem keeps the rounds the ledger may not have
+            # flushed; dumped before interrupted() drops their state
+            model.flightrec.dump("graceful_shutdown",
+                                 context={"signal": str(e)})
         model.interrupted()
     model.finalize()
     if logdir is not None and not getattr(model, "diverged", False) \

@@ -28,6 +28,7 @@ CPU.
 - The config: the flags parse, and the reference's asserts fire.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import dataclasses
 import json
 
@@ -569,8 +570,8 @@ def test_config_asserts_as_the_reference(argv, match):
     cfg = parse_args(argv=BASE_ARGV + ["--async_buffer_size", "3",
                                        "--async_staleness_weight", "0.5"])
     assert (cfg.async_buffer_size, cfg.async_staleness_weight) == (3, 0.5)
-    with pytest.raises(NotImplementedError, match="--alarm_async_staleness"):
-        parse_args(argv=BASE_ARGV + ["--alarm_async_staleness", "2"])
+    with pytest.raises(NotImplementedError, match="--alarm_job_starvation"):
+        parse_args(argv=BASE_ARGV + ["--alarm_job_starvation", "2"])
 
 
 def test_both_trainers_run_buffered_rounds(tmp_path):

@@ -31,6 +31,7 @@ versions on the card; it skips without one. On a card run it with
 (the JAX side is imported only by the CPU tests).
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import math
 
 import numpy as np

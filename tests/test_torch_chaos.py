@@ -15,6 +15,7 @@ against the JAX package on the CPU.
   round whose clients all dropped.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import dataclasses
 
 import jax

@@ -26,6 +26,7 @@ package on the CPU.
   names; ``save_pretrained(torch_format=True)``'s ``state_dict.pt``.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import io
 import os
 import pickle

@@ -27,6 +27,7 @@ package's chunked round, on the CPU.
   largest entry, for the entries that cancel to near zero).
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@
   ``kill_prefetch_worker`` making ``take`` raise.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import os
 
 import numpy as np

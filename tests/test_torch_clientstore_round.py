@@ -15,6 +15,7 @@ through ``FedModel``/``FedOptimizer``:
   round's selected set (the coordinates the update changed) equal.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import dataclasses
 
 import jax

@@ -11,6 +11,7 @@ exact; the fused sketch-and-quantize bytes and row maxima exact; flce
 as stated beside its tests.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import pytest
 import torch
 

@@ -12,6 +12,7 @@ order, so every comparison is exact:
   and the Python loader's transformed round batches, bit for bit.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import numpy as np
 import pytest
 from PIL import Image

@@ -15,6 +15,7 @@ Tolerances:
   the W clients: outputs and recorded statistics within 1e-6.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import functools
 
 import jax

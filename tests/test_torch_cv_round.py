@@ -27,6 +27,7 @@ amplify the frameworks' f32 rounding (the fused gradient agrees to
 trainer's losses within 1e-5.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import types
 
 import jax

@@ -3,6 +3,7 @@ names, correct tensor layouts, lossless round-trip. The image has no
 torchvision, so layout correctness is proven op-by-op against torch
 functional ops and structurally by schema + round-trip."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

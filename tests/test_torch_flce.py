@@ -12,6 +12,7 @@ reference entry, within 2e-4 (the reference test's own bound for the
 fused against the chunked path).
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import math
 
 import jax

@@ -14,6 +14,7 @@ package's, on the CPU.
   logits).
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import filecmp
 import os
 

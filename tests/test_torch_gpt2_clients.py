@@ -16,11 +16,15 @@ on the CPU.
 - The chunked CE under ``torch.func`` (no checkpoints) gives the
   numbers it gives under autograd (checkpointed chunks).
 - ``--remat`` (also from a saved ``config.json``, and beside
-  ``--attn_impl flash``) with the per-client round raises, naming both
-  flags; the per-client round under ``--attn_impl flash`` runs
+  ``--attn_impl flash``) with the per-client round runs its clients one
+  after another in plain autograd, each block checkpointed: one round
+  against the JAX per-client round with ``nn.remat`` blocks, and the
+  trainer's losses equal the round's without ``--remat``; the
+  per-client round under ``--attn_impl flash`` runs
   (tests/test_torch_attention.py).
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import json
 
 import jax
@@ -196,10 +200,17 @@ def test_chunked_ce_without_checkpoints_is_the_same_function(monkeypatch):
                                         ["--microbatch_size", "1"]])
 def test_per_client_round_with_remat_or_flash_raises(tmp_path, flag,
                                                      round_flag):
-    with pytest.raises(NotImplementedError) as err:
-        gpt2_train.main(["--device", "cpu", "--dataset_dir", str(tmp_path)]
-                        + ARGV + flag + round_flag)
-    assert flag[0] in str(err.value) and round_flag[0] in str(err.value)
+    # raised until --remat's per-client round was ported: now its
+    # losses and bytes are the round's without --remat
+    argv = ["--device", "cpu", "--dataset_dir", str(tmp_path)] + ARGV \
+        + round_flag
+    remat = gpt2_train.main(argv + flag)
+    plain = gpt2_train.main(argv + flag[1:])
+    assert len(remat) == len(plain) == 2
+    for a, b in zip(remat, plain):
+        np.testing.assert_allclose(a["round_losses"], b["round_losses"],
+                                   rtol=1e-5)
+        assert a["up (MiB)"] == b["up (MiB)"]
 
 
 def test_per_client_trainer_runs(tmp_path):
@@ -215,7 +226,8 @@ def test_per_client_trainer_runs(tmp_path):
 
 
 def test_per_client_round_refuses_remat_from_a_saved_config(tmp_path):
-    # a run saved with --remat carries it in its config.json
+    # a run saved with --remat carries it in its config.json, and the
+    # per-client round takes it from there (it raised until ported)
     ckpt = tmp_path / "run"
     ckpt.mkdir()
     tiny = GPT2Config.tiny()
@@ -223,8 +235,58 @@ def test_per_client_round_refuses_remat_from_a_saved_config(tmp_path):
         json.dump({"vocab_size": 261, "n_positions": 256,
                    "n_embd": tiny.n_embd, "n_layer": tiny.n_layer,
                    "n_head": tiny.n_head, "remat": True}, f)
-    with pytest.raises(NotImplementedError,
-                       match="--remat with --max_grad_norm"):
-        gpt2_train.main(["--device", "cpu", "--dataset_dir",
-                         str(tmp_path / "data"), "--model_checkpoint",
-                         str(ckpt)] + ARGV + ["--max_grad_norm", "1.0"])
+    results = gpt2_train.main(["--device", "cpu", "--dataset_dir",
+                               str(tmp_path / "data"), "--model_checkpoint",
+                               str(ckpt)] + ARGV + ["--max_grad_norm", "1.0"])
+    from commefficient_tpu_torch.runtime import fed_model
+    assert fed_model._CURRENT_MODEL.args.do_remat
+    assert fed_model._CURRENT_MODEL.module.cfg.remat
+    assert all(np.isfinite(row["train_loss"]) for row in results)
+
+
+def test_per_client_remat_round_matches_jax(monkeypatch):
+    """One per-client round with every block rematerialised: the port's
+    clients one after another in plain autograd (torch.utils.checkpoint
+    blocks, the fused CE's plain versions) against the JAX per-client
+    round's vmap of ``nn.remat`` blocks, at the three-round test's
+    geometry and tolerances."""
+    kw = dict(mode="sketch", error_type="virtual", local_momentum=0.0,
+              virtual_momentum=0.9, num_workers=W, local_batch_size=B,
+              k=K, num_rows=R, num_cols=C, seed=SEED,
+              num_clients=NUM_CLIENTS, dataset_name="PERSONA",
+              num_candidates=N, max_grad_norm=CLIP, microbatch_size=1,
+              do_remat=True)
+    jm = JaxGPT2(JaxGPT2Config(remat=True, **GEOM))
+    dummy = jnp.zeros((1, N, 8), jnp.int32)
+    params = jm.init(jax.random.PRNGKey(SEED), dummy,
+                     jnp.zeros((1, N), jnp.int32), dummy)["params"]
+    tm = GPT2DoubleHeads(GPT2Config(remat=True, **GEOM))
+    flat = tm.from_jax_params(jax.tree_util.tree_map(np.asarray, params))
+    jcfg = JaxConfig(fused_ce="off", **kw)
+    tcfg = Config(device="cpu", fused_ce="on", **kw)
+    jmodel = JaxFedModel(jm, params, jax_loss(jm, jcfg), jcfg,
+                         padded_batch_size=B,
+                         mesh=make_mesh([jax.devices()[0]]))
+    jopt = JaxFedOpt([{"lr": 1.0}], jcfg)
+    tmodel = FedModel(tm, flat, make_compute_loss_train(tm, tcfg, True),
+                      tcfg)
+    topt = FedOptimizer([{"lr": 1.0}], tcfg)
+    # every block is checkpointed, in every client's backward
+    ckpts = []
+    orig = tgpt2.checkpoint
+    monkeypatch.setattr(tgpt2, "checkpoint", lambda *a, **k: (
+        ckpts.append(1), orig(*a, **k))[1])
+    batch = _batch(np.random.RandomState(SEED + 1))
+    for g in jopt.param_groups + topt.param_groups:
+        g["lr"] = 0.04
+    jmet = jmodel(batch)
+    jopt.step()
+    tmet = tmodel(batch)
+    topt.step()
+    np.testing.assert_allclose(tmet[0], jmet[0], rtol=1e-5)
+    np.testing.assert_allclose(tmodel.ps_weights.numpy(),
+                               np.asarray(jmodel.ps_weights),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_array_equal(tmet[-1], jmet[-1])
+    np.testing.assert_array_equal(tmet[-2], jmet[-2])
+    assert len(ckpts) == W * B * GEOM["n_layer"]

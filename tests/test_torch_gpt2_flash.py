@@ -34,6 +34,7 @@ same seed, within 1e-5 relative (the two attentions differ in f32
 rounding only).
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

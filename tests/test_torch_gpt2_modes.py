@@ -15,6 +15,7 @@
   a full-width GPT-2 row is ~0.5 GB, so its resume is held here).
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,7 @@ compaction it needs, on the CPU.
   1's per-round losses, validation numbers and byte totals exactly.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

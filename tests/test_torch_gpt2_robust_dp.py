@@ -29,6 +29,7 @@ One round a case: the JAX package compiles its GPT-2 round twice (the
 first two rounds), ~8 s each on the CPU.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import functools
 
 import jax

@@ -16,6 +16,7 @@ no relative scale); the round's losses within 1e-5 relative; round 1's
 selected set and the upload/download byte totals exactly.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

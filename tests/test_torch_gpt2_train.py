@@ -10,12 +10,17 @@ tests/test_torch_gpt2_round.py compares them on shared weights.
 Without ``--device`` the trainer runs on cuda, and with no card it
 raises; ``--fused_ce on`` at a width the kernels cannot take raises,
 and so does ``--attn_impl flash`` on the card at a head dim the flash
-kernels lack; the options the port leaves out raise, and so does the
-per-client round beside ``--remat``, while the flash
-``--pipeline_depth 2`` run gives depth 1's numbers.
+kernels lack; the options the port leaves out raise; the per-client round runs
+beside ``--remat`` (also with ``--attn_impl flash``), and the flash
+``--pipeline_depth 2`` run gives depth 1's numbers. The PersonaChat
+loader's prefetch thread leaves the sampler where the reference's does
+after ``--test``'s one round, so the second epoch's cohorts agree too,
+and an abandoned iterator retires its thread.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -78,11 +83,12 @@ def _same_rounds(ours_log, theirs_log, up_per_client):
 def test_trainer_finishes_and_matches_jax_cohorts_and_uploads(
         tmp_path, monkeypatch):
     results, ours_log, theirs_log = _run_both(monkeypatch, tmp_path, ARGV)
-    # --test: one round an epoch and a 1 x 100 f32 sketch. Only the
-    # first epoch is compared: after --test's early break the JAX
-    # loader's prefetch thread has drawn ahead from the sampler, so its
-    # next epoch's cohorts depend on how far it got
-    _same_rounds(ours_log[:1], theirs_log[:1], 4 * 100)
+    # --test: one round an epoch and a 1 x 100 f32 sketch. Both loaders'
+    # prefetch threads have drawn ahead of --test's early break (until
+    # their queues filled), so the second epoch starts from the same
+    # sampler state on both sides
+    assert len(ours_log) == 2
+    _same_rounds(ours_log, theirs_log, 4 * 100)
     assert results[0]["up (MiB)"] == pytest.approx(2 * 400 / 2**20)
 
 
@@ -111,9 +117,9 @@ def test_fused_ce_on_raises_at_unsupported_width(tmp_path):
                          "--fused_ce", "on"] + ARGV)
 
 
-@pytest.mark.parametrize("flag", [["--alarm_async_staleness", "2"],
-                                  ["--approx_topk"], ["--tensorboard"],
-                                  ["--ledger", "x.jsonl"]])
+@pytest.mark.parametrize("flag", [["--alarm_job_starvation", "2"],
+                                  ["--approx_topk"], ["--live_port", "9"],
+                                  ["--causal_trace"]])
 def test_unported_options_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match=flag[0]):
         gpt2_train.main(["--device", "cpu", "--dataset_dir", str(tmp_path)]
@@ -148,24 +154,27 @@ def test_dropout_prob_drops_the_replayed_clients(tmp_path, monkeypatch):
                                   ["--dp", "sketch"], ["--do_dp"]])
 def test_robust_and_dp_raise_naming_the_flag(tmp_path, flag):
     """gpt2_train runs the robust folds and DP through its per-client
-    round (tests/test_torch_gpt2_robust_dp.py); beside ``--remat``, which
-    that round lacks, it raises naming both flags."""
-    with pytest.raises(NotImplementedError,
-                       match=f"gpt2_train --remat with {flag[0]}"):
-        gpt2_train.main(["--device", "cpu", "--dataset_dir", str(tmp_path),
-                         "--remat"] + ARGV + flag)
+    round (tests/test_torch_gpt2_robust_dp.py), beside ``--remat`` too,
+    which raised until the round ran its clients one after another
+    under it."""
+    results = gpt2_train.main(["--device", "cpu", "--dataset_dir",
+                               str(tmp_path), "--remat"] + ARGV + flag)
+    assert len(results) == 2
+    for row in results:
+        assert np.isfinite(row["train_loss"]) and np.isfinite(row["val_nll"])
 
 
 @pytest.mark.parametrize("flag", [["--max_grad_norm", "1.0"],
                                   ["--microbatch_size", "1"]])
 def test_flash_on_a_path_that_raises_still_raises(tmp_path, flag):
-    # the per-client round runs the loss under torch.func.vmap: the
-    # flash attention has a vmap rule, the blocks' checkpoints of
-    # --remat do not
-    with pytest.raises(NotImplementedError,
-                       match=f"--remat with {flag[0]}"):
-        gpt2_train.main(["--device", "cpu", "--dataset_dir", str(tmp_path),
-                         "--attn_impl", "flash", "--remat"] + ARGV + flag)
+    # the per-client round beside --attn_impl flash --remat, which
+    # raised until the clients ran one after another in plain autograd
+    # (the blocks' checkpoints do not compose with torch.func)
+    results = gpt2_train.main(["--device", "cpu", "--dataset_dir",
+                               str(tmp_path), "--attn_impl", "flash",
+                               "--remat"] + ARGV + flag)
+    assert len(results) == 2
+    assert all(np.isfinite(row["train_loss"]) for row in results)
 
 
 def test_flash_pipelined_matches_depth_1(tmp_path):
@@ -194,3 +203,36 @@ def test_flash_raises_at_an_unsupported_head_dim_on_the_card(tmp_path,
     with pytest.raises(ValueError, match="head dim 24"):
         gpt2_train.main(["--device", "cuda", "--dataset_dir", str(tmp_path),
                          "--attn_impl", "flash"] + ARGV)
+
+
+def test_abandoned_prefetch_iterator_retires_its_thread(tmp_path):
+    """The PersonaChat loader's producer thread: ``peek_next_client_ids``
+    reads the head of its queue (the consumer's next round), an
+    abandoned iterator retires the thread, and a producer error is
+    raised in the consumer."""
+    from commefficient_tpu_torch.config import parse_args
+    args = parse_args(default_lr=4e-2, argv=["--device", "cpu",
+                                             "--dataset_dir", str(tmp_path)]
+                      + ARGV)
+    _, _, tok = gpt2_train.build_model_and_tokenizer(args)
+    loader = gpt2_train.get_data_loaders(args, tok)[0]
+    assert loader.PREFETCH_DEPTH == 2
+    it = iter(loader)
+    next(it)
+    thread = loader.thread
+    deadline = time.time() + 30
+    while loader._queue.empty() and time.time() < deadline:
+        time.sleep(0.01)
+    ids = loader.peek_next_client_ids()
+    np.testing.assert_array_equal(ids, next(it)["client_ids"])
+    assert thread.is_alive()
+    it.close()
+    assert not thread.is_alive() and loader._queue is None
+
+    def broken(round_spec):
+        raise RuntimeError("collate failed")
+
+    loader.collate = broken
+    with pytest.raises(RuntimeError, match="collate failed"):
+        next(iter(loader))
+    assert not loader.thread.is_alive()

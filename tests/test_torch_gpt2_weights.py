@@ -18,6 +18,7 @@ the CPU.
   ``gpt2_train.main`` saves into ``runs/`` without ``--test``.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import dataclasses
 import json
 import os

@@ -5,6 +5,7 @@ port has its own codec, ``serialization.py``), nor PIL (the image transforms
 resize in numpy; checked in a fresh interpreter, so this test
 process's own imports do not count)."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import os
 import subprocess
 import sys
@@ -53,7 +54,16 @@ new = {{"commefficient_tpu_torch.core.robust",
         "commefficient_tpu_torch.asyncfed",
         "commefficient_tpu_torch.asyncfed.driver",
         "commefficient_tpu_torch.asyncfed.queue",
-        "commefficient_tpu_torch.data.chaos"}}
+        "commefficient_tpu_torch.data.chaos",
+        "commefficient_tpu_torch.telemetry",
+        "commefficient_tpu_torch.telemetry.alarms",
+        "commefficient_tpu_torch.telemetry.clock",
+        "commefficient_tpu_torch.telemetry.core",
+        "commefficient_tpu_torch.telemetry.flightrec",
+        "commefficient_tpu_torch.telemetry.profiler",
+        "commefficient_tpu_torch.telemetry.record",
+        "commefficient_tpu_torch.telemetry.sinks",
+        "commefficient_tpu_torch.telemetry.trace"}}
 assert new <= set(names), sorted(new - set(names))
 for name in names:
     if name != "commefficient_tpu_torch.data.chaos":
@@ -69,8 +79,9 @@ sys.exit(1 if leaked or bad else 0)
 
 
 def test_chaos_harness_is_imported_by_no_module_of_the_port():
-    """The robust fold, DP, export, asynchronous-round and chaos modules
-    import no JAX, and no module of the port imports the chaos harness
+    """The robust fold, DP, export, asynchronous-round, telemetry and
+    chaos modules import no JAX, and no module of the port imports the
+    chaos harness
     (the round's hook is a parameter; the attacks and the arrival
     schedules are for tests and scripts)."""
     code = CONFINED.format(root=ROOT)

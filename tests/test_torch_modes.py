@@ -16,6 +16,7 @@ order); each round's selected set (the coordinates the aggregate or the
 server's update touches) exactly.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import dataclasses
 
 import jax

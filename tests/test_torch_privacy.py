@@ -23,6 +23,7 @@ core/rounds.py) against the JAX package on the CPU.
   accountant stepped 3 times, and None without ``--dp``.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import dataclasses
 import json
 import math

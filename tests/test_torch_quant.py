@@ -16,6 +16,7 @@ Tolerance: none. Both sides add the chunks in the same order, so the
 f32 tables are bit-equal, and the quantizers round the same way.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np

@@ -37,6 +37,7 @@ the CPU.
   mode is refused as the reference refuses it.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ Tolerances (convolutions sum in another order in each framework):
 - flat gradient: rtol 1e-4, atol 1e-6.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -22,6 +22,7 @@
   ``NotImplementedError``.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import json
 import os
 import signal

@@ -18,6 +18,7 @@ harness's byzantine hook, the port against the JAX package on the CPU.
 - the DP and robust flags' checks, with the reference's messages.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import types
 
 import jax

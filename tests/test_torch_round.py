@@ -13,6 +13,7 @@ and coordinates near zero have no relative scale); round 1's selected
 set and the upload/download byte totals exactly.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

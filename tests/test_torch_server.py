@@ -10,6 +10,7 @@ same aggregated table and state, on the CPU.
 - Vvelocity / Verror: within 1e-6 relative.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

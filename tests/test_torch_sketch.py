@@ -14,6 +14,7 @@ Tolerances:
   and the median is an order statistic (or the mean of two).
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

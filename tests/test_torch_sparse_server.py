@@ -14,6 +14,7 @@ whole server step at d > 90*r*k.
   exact, everything else is elementwise).
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -6,6 +6,7 @@ versions (the nibble search, the cumsum take rule) for CPU tensors.
 Tolerance: none -- the same keys give the same threshold and the same
 mask, bit for bit (exactly k set, the lowest index winning ties)."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ trainer runs on cuda, and with no card it raises instead of falling
 back.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 import jax
 import numpy as np
 import pytest
@@ -116,7 +117,7 @@ def test_mode_trainer_matches_jax_bytes_and_losses(mode, monkeypatch):
 
 @pytest.mark.parametrize("argv,name", [
     (["--resume"], "--resume"),
-    (["--alarm_async_staleness", "2"], "--alarm_async_staleness"),
+    (["--alarm_job_starvation", "2"], "--alarm_job_starvation"),
     (["--approx_topk"], "--approx_topk"),
     (["--dataset_name", "ImageNet"], "--dataset_name ImageNet"),
 ])
@@ -148,9 +149,10 @@ def test_per_client_quantized_wire_raises():
 
 
 def test_gpt2_trainer_other_modes_raise(tmp_path):
-    """GPT-2's other modes run (tests/test_torch_gpt2_modes.py); what
-    still raises is a mode of the per-client round beside ``--remat``,
-    whose checkpoints do not compose with ``torch.func``."""
+    """GPT-2's other modes run (tests/test_torch_gpt2_modes.py), and so
+    does a mode of the per-client round beside ``--remat``, which raised
+    until its clients ran one after another in plain autograd
+    (core/grad.py ``map_clients``)."""
     from commefficient_tpu_torch.train import gpt2_train
     base = ["--device", "cpu", "--test", "--dataset_dir", str(tmp_path),
             "--num_workers", "2", "--local_batch_size", "2",
@@ -159,11 +161,10 @@ def test_gpt2_trainer_other_modes_raise(tmp_path):
                                       "--error_type", "virtual",
                                       "--local_momentum", "0"])
     assert np.isfinite(results[-1]["train_loss"])
-    with pytest.raises(NotImplementedError,
-                       match="--remat with --mode local_topk"):
-        gpt2_train.main(base + ["--mode", "local_topk", "--error_type",
-                                "local", "--local_momentum", "0",
-                                "--remat"])
+    results = gpt2_train.main(base + ["--mode", "local_topk",
+                                      "--error_type", "local",
+                                      "--local_momentum", "0", "--remat"])
+    assert np.isfinite(results[-1]["train_loss"])
 
 
 # --- the download support as a packed bitmap; --pipeline_depth -------------
@@ -314,12 +315,11 @@ def test_pipelined_divergence_stop(monkeypatch, capsys):
         assert "Stopping at batch 0: diverged" in capsys.readouterr().out
 
 
-def test_chunk_and_pipeline_flags():
+def test_chunk_and_pipeline_flags(tmp_path):
     """``--client_chunk`` and ``--pipeline_depth`` parse (the reference's
     defaults, 0 and 1); a depth below 1 is refused with the reference's
     message; gpt2_train runs the per-client round beside ``--attn_impl
-    flash`` (its vmap rules) and refuses it only beside ``--remat``,
-    naming both flags."""
+    flash`` (its vmap rules) and beside ``--remat``."""
     from commefficient_tpu.config import Config as JaxConfig
     from commefficient_tpu_torch.config import NOT_PORTED_FLAGS, Config
     from commefficient_tpu_torch.train import gpt2_train
@@ -341,7 +341,7 @@ def test_chunk_and_pipeline_flags():
     # runs in tests/test_torch_attention.py)
     flash = parse_args(argv=base + ["--pipeline_depth", "2", "--attn_impl",
                                     "flash", "--microbatch_size", "1"])
-    gpt2_train._check_per_client(flash.validate_runtime(), remat=False)
-    with pytest.raises(NotImplementedError,
-                       match="--remat with --max_grad_norm"):
-        gpt2_train.main(base + ["--max_grad_norm", "1", "--remat"])
+    assert flash.validate_runtime().attn_impl == "flash"
+    results = gpt2_train.main(base + ["--max_grad_norm", "1", "--remat",
+                                      "--dataset_dir", str(tmp_path)])
+    assert np.isfinite(results[-1]["train_loss"])
