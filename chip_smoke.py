@@ -186,7 +186,27 @@ through the kernels:
   ``gpt2_profile_path``: ``--profile`` of the GPT-2 flash round, each
   round's device-time buckets summing to its window with busy > 0, the
   flce backward and the three flash kernels in the trace, a device lane
-  required.
+  required (the cost model's FLOP count, which runs the client pass once
+  before the first traced round, adds one flce forward and backward and
+  one F1/F2/F3 launch a layer);
+- the reference's recipes: ``approx_paths`` (the ResNet9 cell and the
+  GPT-2 recipe's cell with ``--approx_topk``, each bit for bit against
+  the same run without it under ``deterministic()``: the exact
+  selection on the index route; on ResNet9 no dense-mask recovery and
+  2/1/1/1 launches a round), ``imagenet_path`` (``scripts/imagenet.sh``'s
+  flags, FixupResNet50 at full width, d = 25 504 026, 7 clients x 64 in
+  one fused pass for 2 rounds: JPEGs written here and decoded through
+  Pillow, or, where Pillow is missing, a line saying the decode did not
+  run and a ``FedSynthetic`` at 224 x 224 x 3 and 1000 classes; the
+  walls and the peak memory);
+- ``registry_gate``: two 2-round ``--ledger`` runs of the ResNet9 cell
+  write run manifests naming the card and one device, then ``perf_gate
+  --write-baseline`` and ``--check`` (the verdict printed, not
+  asserted); ``roofline``: the cost model of ``telemetry_costs``' plain
+  ResNet9 ``--profile`` run and of ``gpt2_profile_path``: total FLOPs,
+  expected round seconds, each round's ``roofline_utilization`` at most
+  1.05, and the flce and flash kernels' added FLOPs equal to their
+  formulas at the round's shapes.
 
 The sketch, estimates, threshold search, take-mask and sketch-and-
 quantize kernels are also checked and timed at GPT-2's padded_d =
@@ -218,7 +238,8 @@ first two beside ``scaled_dot_product_attention``: forward, backward
 alone, forward + backward (a yardstick the port never calls); the
 ``ptxas_attn`` line gives their registers and spills (none allowed in a
 wgmma instantiation, nor a serialized wgmma).
-Each phase prints one JSON line; a failed check raises, so the script
+Each phase prints one JSON line, with the seconds since the script
+started (``t_s``); a failed check raises, so the script
 exits nonzero before its last line, which is ``{"ok": true, "device":
 {...}}``. Needs one CUDA card; exits nonzero without one. Imports
 nothing of JAX.
@@ -251,6 +272,8 @@ from commefficient_tpu_torch.core.grad import make_forward_grad
 from commefficient_tpu_torch.core.robust import robust_fold
 from commefficient_tpu_torch.core.rounds import ClientStates
 from commefficient_tpu_torch.core.server import ServerState, server_update
+from commefficient_tpu_torch.data import (FedLoader, FedSampler, FedSynthetic,
+                                          ValLoader)
 from commefficient_tpu_torch.data.chaos import (ArrivalSchedule, ChaosConfig,
                                                 ChaosInjector,
                                                 PreemptionDrill)
@@ -277,6 +300,7 @@ from commefficient_tpu_torch.privacy import (NOISE_TAG, PrivacyAccountant,
 from commefficient_tpu_torch.runtime import checkpoint, fed_model
 from commefficient_tpu_torch.serialization import msgpack_restore
 from commefficient_tpu_torch.train import cv_train, gpt2_train
+from commefficient_tpu_torch.utils import recipe_argv
 
 # main-path geometry (the reference's bench.py config)
 D, C, R, K, SEED = 6_584_000, 524_288, 5, 50_000, 21
@@ -509,7 +533,13 @@ ATTN_TOL = ("o: per-row ||kernel-plain||/||plain|| <= 2^-7 (bf16; their "
             "norm); the backward bit-identical on relaunch")
 
 
+# the script's start, for each phase line's elapsed seconds (``t_s``)
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    if "phase" in obj:
+        obj = dict(obj, t_s=round(time.perf_counter() - T_START, 3))
     print(json.dumps(obj), flush=True)
 
 
@@ -3585,6 +3615,7 @@ def telemetry_paths():
                   "10-round epoch of the main path with --ledger (no "
                   "probes) and without, runs off, on, on, off, off, on; "
                   "the host cost a round of the ledger's calls alone"})
+    return out["plain"]
 
 
 # the ledger's wall cost: runs with (True) and without it, interleaved
@@ -3701,8 +3732,15 @@ def gpt2_profile_path():
         path = os.path.join(root, "ledger.jsonl")
         argv, counts, row, val_steps, wall, _ = gpt2_run(
             root, ["--attn_impl", "flash", "--profile", "--ledger", path])
-        gpt2_checks("gpt2_profile_path", counts, row, val_steps,
-                    {"attn_fwd_per_round": 1})
+        # the cost model's FLOP count (FedModel._emit_cost_model) runs
+        # the client pass once more before the first traced round: one
+        # flce forward and backward and a flash forward, dK/dV and dQ a
+        # layer, taken off before the round's launches are checked
+        extra = {"flce_fwd_kernel": 1, "flce_bwd_kernel": 1,
+                 **{k.__name__: GPT2_LAYERS for k in ATTN}}
+        gpt2_checks("gpt2_profile_path",
+                    {k: v - extra.get(k, 0) for k, v in counts.items()},
+                    row, val_steps, {"attn_fwd_per_round": 1})
         (trace_file,) = [os.path.join(d, f)
                          for d, _, fs in os.walk(os.path.join(root, "runs"))
                          for f in fs if f == "trace.json"]
@@ -3715,7 +3753,8 @@ def gpt2_profile_path():
                      "attn_bwd_dq"):
             check(any(want in k for k in kernels),
                   f"gpt2_profile: no {want} kernel in the trace")
-        rnds = [r for r in ledger_records(path) if r["kind"] == "round"]
+        recs = ledger_records(path)
+        rnds = [r for r in recs if r["kind"] == "round"]
         check(len(rnds) == len(row["round_times"]),
               f"gpt2_profile: {len(rnds)} round records")
         buckets = []
@@ -3735,7 +3774,7 @@ def gpt2_profile_path():
               trace_MiB=size / 2**20,
               trace_kernels=[k for k in kernels
                              if "flce" in k or "attn" in k][:12])
-    return counts
+    return counts, recs
 
 
 # the per-client round with --remat against the vmap round: the same
@@ -3796,6 +3835,285 @@ def gpt2_remat_clients_path(plain_rows):
         out[name] = counts
         fed_model._CURRENT_MODEL = None
     return out
+
+
+# --- the reference's recipes, the registry and gate, the roofline ------
+
+
+def approx_paths():
+    """``--approx_topk`` on the ResNet9 cell and on the GPT-2 recipe's
+    cell, each against the same run without it, both deterministic.
+    The port selects the exact set on the index route (the search and
+    take-mask kernels, then ``compact_mask``), so the weights, losses
+    and supports must be the runs' without the flag, bit for bit. On
+    ResNet9 the flag moves recovery off the dense mask
+    (``unsketch_dense_mask`` never called, ``unsketch`` once a round:
+    the selected estimates scatter-added into zeros); the launches a
+    round stay 2 sketch, 1 estimates, 1 search and 1 take-mask. GPT-2
+    takes the index route either way, with the launches of
+    ``gpt2_launches``."""
+    out = {}
+    with deterministic():
+        runs = {}
+        for tag, extra in (("approx", ["--approx_topk"]), ("exact", [])):
+            with counting(CountSketch, "unsketch_dense_mask") as dense, \
+                    counting(CountSketch, "unsketch") as index:
+                results, counts, sup, model, wall, _ = store_run(
+                    MAIN_ARGV + extra)
+            check(len(results) == 1, f"{len(results)} epochs ran, want 1")
+            runs[tag] = (results[-1], counts, sup, model, dense[0],
+                         index[0], wall)
+        (row, counts, sup, model, dense, index, wall), exact = \
+            runs["approx"], runs["exact"]
+        rounds = len(row["round_times"])
+        want = sketch_round_launches(rounds, 2)
+        want = {k: want.get(k, 0) for k in counts}
+        check(counts == want, f"approx ResNet9: launches {counts}, want "
+              f"{want}")
+        check(dense == 0 and index == rounds and exact[4] == rounds
+              and exact[5] == 0, f"approx ResNet9: dense-mask recoveries "
+              f"{dense}, index recoveries {index} (exact run: {exact[4]}, "
+              f"{exact[5]})")
+        same = {"weights": torch.equal(model["weights"], exact[3]["weights"]),
+                "losses": row["round_losses"] == exact[0]["round_losses"],
+                "launches": counts == exact[1]}
+        check(all(same.values()), f"approx ResNet9 against exact: {same}")
+        out["resnet9"] = {"rounds": rounds, "launches": counts,
+                          "unsketch_dense_mask_calls": dense,
+                          "unsketch_calls": index, "bit_equal": same,
+                          "supports": ("index" if sup and len(sup[0]) == 2
+                                       else "bitmap"),
+                          "exact_supports": ("index" if exact[2]
+                                             and len(exact[2][0]) == 2
+                                             else "bitmap"),
+                          "wall_seconds": [wall, exact[6]]}
+        del runs, model, exact
+        gpt2 = {}
+        for tag, extra in (("approx", ["--approx_topk"]), ("exact", [])):
+            sup = []
+            with tempfile.TemporaryDirectory(prefix="gpt2_approx_") as root,\
+                    recording_supports(sup):
+                argv, counts, row, val_steps, wall, _ = gpt2_run(root, extra)
+            gpt2_checks(f"approx_paths gpt2 {tag}", counts, row, val_steps)
+            gpt2[tag] = (counts, row, sup, model_summary(), wall)
+        a, e = gpt2["approx"], gpt2["exact"]
+        same = {"weights": torch.equal(a[3]["weights"], e[3]["weights"]),
+                "losses": a[1]["round_losses"] == e[1]["round_losses"],
+                "supports": same_supports(a[2], e[2]),
+                "launches": a[0] == e[0]}
+        check(all(same.values()), f"approx GPT-2 against exact: {same}")
+        out["gpt2"] = {"rounds": len(a[1]["round_times"]), "launches": a[0],
+                       "bit_equal": same, "round_losses": a[1]["round_losses"],
+                       "wall_seconds": [a[4], e[4]]}
+        del gpt2, a, e
+    emit({"phase": "approx_paths", **out,
+          "what": "--approx_topk against the same run without it, under "
+                  "deterministic(): the exact selection on the index "
+                  "route gives the same bits"})
+
+
+IMAGENET_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "scripts", "imagenet.sh")
+# two rounds of the recipe: 7 clients x 64 = 448 images a round
+IMAGENET_TRAIN_IMAGES = 2 * 7 * 64 + 4
+FIXUP50_D = 25_504_026
+
+
+def imagenet_argv(data_dir):
+    """scripts/imagenet.sh's flags, one epoch of two rounds."""
+    return recipe_argv(IMAGENET_SCRIPT, {"DATASET_DIR": data_dir}) + [
+        "--num_epochs", "1"]
+
+
+def write_jpeg_tree(root, train, val, classes=8, seed=SEED):
+    """A small ImageNet tree of random JPEGs (``train``/``val`` images
+    over ``classes`` wnids, 40 x 48 pixels), as the reference's tests
+    write one; needs Pillow."""
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    for split, n in (("train", train), ("val", val)):
+        for i in range(n):
+            d = os.path.join(root, split, f"n{i % classes:08d}")
+            os.makedirs(d, exist_ok=True)
+            arr = rng.randint(0, 255, (40, 48, 3), np.uint8)
+            Image.fromarray(arr).save(os.path.join(d, f"img{i}.JPEG"))
+
+
+def synthetic_imagenet_loaders(args):
+    """``cv_train.get_data_loaders``'s loaders over a ``FedSynthetic``
+    at ImageNet's width: 224 x 224 x 3 images of 1000 classes, one a
+    class, 1000 validation images."""
+    common = dict(do_iid=args.do_iid, num_clients=args.num_clients,
+                  seed=args.seed, num_classes=1000, image_shape=(224, 224, 3),
+                  per_class=1, num_val=1000)
+    train_ds = FedSynthetic(args.dataset_dir, "ImageNet", train=True,
+                            **common)
+    val_ds = FedSynthetic(args.dataset_dir, "ImageNet", train=False,
+                          **common)
+    sampler = FedSampler(train_ds, args.num_workers, args.local_batch_size,
+                         seed=args.seed)
+    return (FedLoader(train_ds, sampler),
+            ValLoader(val_ds, args.valid_batch_size,
+                      shards_per_step=max(1, args.num_workers)), train_ds)
+
+
+def imagenet_path():
+    """scripts/imagenet.sh's run (FixupResNet50, uncompressed, virtual
+    error and momentum 0.9, 7 iid clients x 64, ``--mixup``) for two
+    rounds through ``cv_train.main``. With Pillow the data is a tree of
+    JPEGs written here, decoded by ``FedImageNet``; without it the line
+    says the decode did not run, and the same flags run on a
+    ``FedSynthetic`` at ImageNet's width. d, finite losses, no kernel
+    launch (the uncompressed round runs none), the round walls and the
+    peak memory."""
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    with tempfile.TemporaryDirectory(prefix="imagenet_smoke_") as root, \
+            working_dir(root):
+        argv = imagenet_argv(root)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if have_pil:
+            write_jpeg_tree(root, IMAGENET_TRAIN_IMAGES, 14)
+            loaders = contextlib.nullcontext()
+        else:
+            loaders = patched(cv_train, "get_data_loaders",
+                              synthetic_imagenet_loaders)
+        with loaders:
+            row, counts, rounds, wall, model = image_run(argv)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    d = model.args.grad_size
+    check(d == FIXUP50_D, f"imagenet: d = {d}, want {FIXUP50_D}")
+    check(rounds == 2, f"imagenet: {rounds} rounds ran, want 2")
+    check(all(v == 0 for v in counts.values()),
+          f"imagenet: launches {counts}, want none")
+    losses = row["round_losses"]
+    check(all(map(math.isfinite, losses)) and math.isfinite(row["test_loss"]),
+          f"imagenet: losses {losses}, validation {row['test_loss']}")
+    emit({"phase": "imagenet_path",
+          "jpeg_decode": ("ran: FedImageNet over JPEGs written here"
+                          if have_pil else "not run: no Pillow"),
+          "data": ("FedImageNet" if have_pil else
+                   "FedSynthetic(image_shape=(224, 224, 3), "
+                   "num_classes=1000)"),
+          "argv": argv, "model": "FixupResNet50", "d": d, "rounds": rounds,
+          "fused_pass_images": 7 * 64, "client_chunk": model.args.client_chunk,
+          "launches": counts, "round_seconds": row["round_times"],
+          "round_losses": losses, "test_loss": row["test_loss"],
+          "wall_seconds": wall, "peak_mem_GiB": peak})
+
+
+@contextlib.contextmanager
+def patched(owner, name, value):
+    orig = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def registry_gate():
+    """Two 2-round ``--ledger`` runs of the ResNet9 cell write run
+    manifests (``telemetry/registry.py``); the manifests name this card
+    and one device. Then ``perf_gate --write-baseline`` on the first
+    run's ledger and ``--check`` of the newest registered run against
+    it; the verdict is printed, its pass or fail is not asserted."""
+    import io
+    from commefficient_tpu_torch import perf_gate
+    from commefficient_tpu_torch.telemetry import registry
+    argv = MAIN_ARGV + ["--num_epochs", "0.2"]
+    with tempfile.TemporaryDirectory(prefix="gate_smoke_") as root, \
+            working_dir(root):
+        ledgers = [os.path.join(root, f"run{i}.jsonl") for i in (0, 1)]
+        for path in ledgers:
+            cv_train.main(argv + ["--ledger", path])
+        manifests = registry.list_manifests("runs")
+        check(len(manifests) == 2, f"registry: {len(manifests)} manifests")
+        for _, m in manifests:
+            check(m["device_kind"] == torch.cuda.get_device_name(0)
+                  and m["device_count"] == 1 and m["process_count"] == 1
+                  and m["backend"] == "gpu",
+                  f"registry: manifest environment {m.get('backend')} "
+                  f"{m.get('device_kind')} {m.get('device_count')}")
+        check(manifests[0][1]["config_hash"] == manifests[1][1]["config_hash"],
+              "registry: two runs of one config hash differently")
+        base = os.path.join(root, "baseline.json")
+        outs = {}
+        for tag, gate_argv in (
+                ("write_baseline", ["--ledger", ledgers[0],
+                                    "--write-baseline", base]),
+                ("check", ["--runs_dir", "runs", "--baseline", base,
+                           "--check", "--json",
+                           os.path.join(root, "verdict.json")])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = perf_gate.main(gate_argv)
+            outs[tag] = (rc, buf.getvalue())
+        check(outs["write_baseline"][0] == 0,
+              f"perf_gate --write-baseline: {outs['write_baseline']}")
+        with open(os.path.join(root, "verdict.json")) as f:
+            verdict = json.load(f)
+        key = registry.run_key(manifests[-1][1])
+    emit({"phase": "registry_gate", "manifests": len(manifests),
+          "environment": {k: manifests[-1][1].get(k) for k in (
+              "backend", "device_kind", "device_count", "process_count",
+              "torch_version")},
+          "run_key": list(key), "check_rc": outs["check"][0],
+          "verdict": verdict, "gate_stdout": outs["check"][1].splitlines()})
+
+
+ROOFLINE_MAX = 1.05
+
+
+def roofline_phase(resnet_recs, gpt2_recs):
+    """The cost model of the two ``--profile --ledger`` runs
+    (``telemetry_paths``' plain ResNet9 run and ``gpt2_profile_path``'s
+    flash GPT-2 run): the meta record's ``cost_model`` (total FLOPs,
+    expected round seconds), each round's ``roofline_utilization``
+    present and at most ``ROOFLINE_MAX``, and, on GPT-2, the flce and
+    flash kernels' added FLOPs equal to their formulas at the round's
+    shapes (2·M·V·C, 6·M·V·C; 4, 8 and 6 hd FLOPs a causal score a
+    layer)."""
+    from commefficient_tpu_torch.analysis import cost
+    out = {}
+    _, b, h, t, hd, _ = ATTN_SHAPES[0]
+    attn = cost.attn_flops(b, h, t, hd)
+    want_kernels = {
+        "resnet9": {},
+        "gpt2_flash": {"flce_fwd": cost.flce_fwd_flops(GPT2_M, GPT2_V, GPT2_C),
+                       "flce_bwd": cost.flce_bwd_flops(GPT2_M, GPT2_V, GPT2_C),
+                       **{k: GPT2_LAYERS * v for k, v in attn.items()}}}
+    for tag, recs in (("resnet9", resnet_recs), ("gpt2_flash", gpt2_recs)):
+        (model,) = [r["cost_model"] for r in recs
+                    if r["kind"] == "meta" and "cost_model" in r]
+        utils = [r["device_time"]["roofline_utilization"] for r in recs
+                 if r["kind"] == "round"]
+        check(model["chip"] == "h100" and model["total_flops"] > 0,
+              f"roofline {tag}: cost model {model}")
+        check(model["kernel_flops"] == want_kernels[tag],
+              f"roofline {tag}: kernel FLOPs {model['kernel_flops']}, "
+              f"want {want_kernels[tag]}")
+        check(utils and all(0 < u <= ROOFLINE_MAX for u in utils),
+              f"roofline {tag}: utilizations {utils}")
+        out[tag] = {"total_flops": model["total_flops"],
+                    "dot_flops": model["dot_flops"],
+                    "conv_flops": model["conv_flops"],
+                    "flops_by_dtype": model["flops_by_dtype"],
+                    "kernel_flops": model["kernel_flops"],
+                    "expected_round_s": model["expected_round_s"],
+                    "roofline_utilization": utils,
+                    "busy_s": [r["device_time"]["busy_s"] for r in recs
+                               if r["kind"] == "round"]}
+    emit({"phase": "roofline", **out,
+          "what": "expected_round_s = total FLOPs of the client pass "
+                  "(FlopCounterMode + the kernels' own counts) at the "
+                  "H100's 989e12 FLOP/s; utilization = expected / the "
+                  "round's --profile busy time"})
+
 
 
 def main():
@@ -3882,7 +4200,7 @@ def main():
     torch.cuda.empty_cache()
     pipelined_phase()
     torch.cuda.empty_cache()
-    telemetry_paths()
+    resnet_profile = telemetry_paths()
     divergence_path()
     feature_paths("robust_paths", ROBUST_PATHS)
     torch.cuda.empty_cache()
@@ -3930,7 +4248,9 @@ def main():
         "gpt2_remat_clients_flash_path": flash_clients_run}))
     del clients_run, flash_clients_run
     torch.cuda.empty_cache()
-    gpt2_paths["gpt2_profile_path"] = gpt2_profile_path()
+    gpt2_paths["gpt2_profile_path"], gpt2_profile = gpt2_profile_path()
+    roofline_phase(resnet_profile, gpt2_profile)
+    del resnet_profile, gpt2_profile
     torch.cuda.empty_cache()
     gpt2_paths.update(gpt2_robust_dp_paths())
     torch.cuda.empty_cache()
@@ -3940,6 +4260,12 @@ def main():
     torch.cuda.empty_cache()
     resume_paths()
     async_paths()
+    torch.cuda.empty_cache()
+    approx_paths()
+    torch.cuda.empty_cache()
+    imagenet_path()
+    torch.cuda.empty_cache()
+    registry_gate()
     no_weights_left()
 
     keys = ("name", "route", "source", "replaces", "launches",

@@ -16,6 +16,13 @@ raises; nothing falls back to pageable memory. Correctness does not
 depend on the prediction: ``take`` checks that the ids match, patches
 any row written after the gather's snapshot (store write versions), and
 returns ``None`` on a miss, where the caller gathers synchronously.
+
+One thing the port adds: ``settle`` waits for the staged gathers to
+finish. The write-back calls it first, so a staged gather always reads
+the store before the round's write-back lands, whatever the thread
+timing: a gather touches its rows in the arena's LRU, so the order of
+the two decides which rows the write-back evicts. The reference leaves
+that order to the threads (its ``evictions`` count moves with it).
 """
 
 from __future__ import annotations
@@ -48,6 +55,10 @@ class StorePrefetcher:
         self._done: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
         self._pending = 0
+        # staged gathers submitted and finished, under _settled
+        self._submitted = 0
+        self._gathered = 0
+        self._settled = threading.Condition()
         self._buffers = [{}, {}]
         self._buf_i = 0
         self.hits = 0
@@ -78,6 +89,10 @@ class StorePrefetcher:
                     self._done.put((ids, rows, version, None))
                 except BaseException as exc:  # surfaced by take()
                     self._done.put((ids, None, 0, exc))
+                finally:
+                    with self._settled:
+                        self._gathered += 1
+                        self._settled.notify_all()
         except BaseException as exc:
             self._failure = exc
 
@@ -128,7 +143,22 @@ class StorePrefetcher:
         self._buf_i ^= 1
         staging_buffers(self._store, len(ids), self._pin, buf)
         self._pending += 1
+        with self._settled:
+            self._submitted += 1
         self._jobs.put((ids, buf))
+
+    def settle(self, timeout=60.0):
+        """Wait until every staged gather has read the store (a dead or
+        stopped worker, or ``timeout``, ends the wait: ``take`` patches
+        the rows written after a gather's snapshot either way)."""
+        deadline = time.monotonic() + timeout
+        with self._settled:
+            while self._gathered < self._submitted:
+                left = deadline - time.monotonic()
+                if left <= 0 or self._stop.is_set() \
+                        or not self._thread.is_alive():
+                    return
+                self._settled.wait(min(left, 0.1))
 
     def take(self, ids, timeout=60.0):
         """Rows for ``ids`` if a staged gather matches, else ``None``.

@@ -2,10 +2,11 @@
 
 Port of ``commefficient_tpu/config.py``, cut to what the ported slices
 read: the same field names, flag names and defaults, except
-``--device``, whose default here is ``cuda``. The reference's other
-flags are known by name; passing one raises ``NotImplementedError``
-naming it (``parse_args``), and so does asking for a combination or a
-dataset the port does not have yet. Nothing is silently ignored.
+``--device``, whose default here is ``cuda``. The flags the reference
+parses and never reads are parsed here too and read nowhere. The
+reference's other flags are known by name; passing one raises
+``NotImplementedError`` naming it (``parse_args``), and so does asking
+for a combination the port does not have yet.
 """
 
 from __future__ import annotations
@@ -43,11 +44,7 @@ NATURAL_NUM_CLIENTS = {
 # the reference trainer's flags that the port does not have yet
 NOT_PORTED_FLAGS = (
     "--seq_devices", "--seq_impl",
-    "--num_results_train", "--num_results_val",
-    "--port", "--num_devices", "--share_ps_gpu",
-    "--train_dataloader_workers", "--val_dataloader_workers",
-    "--mesh", "--param_dtype",
-    "--compute_dtype", "--approx_topk", "--approx_recall",
+    "--num_devices", "--mesh",
     "--coordinator_address",
     "--num_processes", "--process_id",
     "--alarm_job_starvation", "--live_port", "--causal_trace",
@@ -89,6 +86,17 @@ class Config:
     checkpoint_path: str = "./checkpoint"
     finetune_path: str = "./finetune"
     finetuned_from: Optional[str] = None
+    # parsed for the reference's command lines and read nowhere, as
+    # in the reference (its config.py:86-87, 118, 126, 128-129,
+    # 180-181): none of their values changes a computation
+    num_results_train: int = 2
+    num_results_val: int = 2
+    port: int = 5315
+    share_ps_gpu: bool = False
+    train_dataloader_workers: int = 0
+    val_dataloader_workers: int = 0
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
     dataset_name: str = ""
     dataset_dir: str = "./dataset"
     nan_threshold: float = 999.0
@@ -109,6 +117,15 @@ class Config:
     # compression: stale top-k weight downloads (reference
     # config.py:98)
     do_topk_down: bool = False
+    # the reference's lax.approx_max_k for the index-producing
+    # selections, at recall approx_recall (its config.py:182-192). The
+    # port selects exactly (the threshold search and take-mask), an
+    # answer that meets any recall target; the flag still routes as
+    # the reference's does: recovery takes the index path
+    # (prefer_threshold_unsketch is false) and true_topk the index
+    # selection
+    approx_topk: bool = False
+    approx_recall: float = 0.95
 
     # fedavg local SGD (reference config.py:110-112)
     num_fedavg_epochs: int = 1
@@ -309,6 +326,8 @@ class Config:
         assert self.mode in MODES, self.mode
         assert self.error_type in ERROR_TYPES, self.error_type
         assert self.device in ("cuda", "cpu"), self.device
+        assert 0.0 < self.approx_recall <= 1.0, \
+            "--approx_recall must be in (0, 1]"
         assert self.pipeline_depth >= 1, \
             "--pipeline_depth must be >= 1"
         assert self.clientstore in ("device", "host", "auto"), \
@@ -563,6 +582,8 @@ def build_parser(default_lr: Optional[float] = None
     parser.add_argument("--finetune_path", type=str, default="./finetune")
     parser.add_argument("--finetuned_from", type=str,
                         choices=list(FED_DATASETS.keys()))
+    parser.add_argument("--num_results_train", type=int, default=2)
+    parser.add_argument("--num_results_val", type=int, default=2)
     parser.add_argument("--dropout_prob", type=float, default=0.0)
     parser.add_argument("--dataset_name", type=str, default="",
                         choices=list(FED_DATASETS.keys()))
@@ -593,11 +614,15 @@ def build_parser(default_lr: Optional[float] = None
     parser.add_argument("--fedavg_batch_size", type=int, default=-1)
     parser.add_argument("--fedavg_lr_decay", type=float, default=1)
 
+    parser.add_argument("--port", type=int, default=5315)
     parser.add_argument("--num_clients", type=int)
     parser.add_argument("--num_workers", type=int, default=1)
     parser.add_argument("--device", type=str, choices=["cuda", "cpu"],
                         default="cuda")
+    parser.add_argument("--share_ps_gpu", action="store_true")
     parser.add_argument("--iid", action="store_true", dest="do_iid")
+    parser.add_argument("--train_dataloader_workers", type=int, default=0)
+    parser.add_argument("--val_dataloader_workers", type=int, default=0)
 
     parser.add_argument("--local_batch_size", type=int, default=8)
     parser.add_argument("--valid_batch_size", type=int, default=8)
@@ -660,6 +685,10 @@ def build_parser(default_lr: Optional[float] = None
                         choices=["xla", "flash"],
                         help="GPT-2 attention: the plain causal softmax "
                         "or the flash attention kernels")
+    parser.add_argument("--param_dtype", type=str, default="float32")
+    parser.add_argument("--compute_dtype", type=str, default="float32")
+    parser.add_argument("--approx_topk", action="store_true")
+    parser.add_argument("--approx_recall", type=float, default=0.95)
     parser.add_argument("--hf_export", action="store_true",
                         dest="do_hf_export",
                         help="GPT-2: also save the final model as an HF "

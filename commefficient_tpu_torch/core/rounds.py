@@ -191,6 +191,8 @@ def args2sketch(cfg: Config) -> Optional[CountSketch]:
         return None
     return CountSketch(d=cfg.grad_size, c=cfg.num_cols, r=cfg.num_rows,
                        num_blocks=cfg.num_blocks, seed=cfg.seed,
+                       approx_topk=cfg.approx_topk,
+                       approx_recall=cfg.approx_recall,
                        rot_lanes=resolve_rot_lanes(cfg))
 
 
@@ -770,9 +772,10 @@ def build_server_round(cfg: Config, probes: bool = False) -> Callable:
         res = server_update(cfg, aggregated, server_state, lr, sketch,
                             noise_gen, probes)
         if res.weight_update is None:
-            # the indices are sorted and unique, so each coordinate
-            # takes one subtraction: ps[idx] - scaled, as the
-            # reference's ordered scatter-add of -scaled
+            # the indices are sorted and unique (also under
+            # --approx_topk: the selection is exact), so each
+            # coordinate takes one subtraction: ps[idx] - scaled, as
+            # the reference's ordered scatter-add of -scaled
             idx, scaled = res.support
             new_ps = ps_weights.clone()
             new_ps[idx] = ps_weights[idx] - scaled

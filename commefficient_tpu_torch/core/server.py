@@ -169,7 +169,9 @@ def _true_topk(cfg, gradient, state, lr, sketch, noise_gen=None,
     Vvel = gradient + cfg.virtual_momentum * state.Vvelocity
     Verr = state.Verror + Vvel
     k = min(cfg.k, cfg.grad_size)
-    if use_threshold_select(k, cfg.grad_size, False):
+    # under --approx_topk the reference selects by index (its
+    # approx_max_k); the port's index selection is the exact set
+    if use_threshold_select(k, cfg.grad_size, cfg.approx_topk):
         # the dense update's support is the value-compare of the
         # lr-scaled update, packed on the device (reference
         # core/server.py:242)

@@ -35,8 +35,9 @@ rounds' driver (asyncfed/), attached with
 Host faults (reference :363-447): ``PreemptionDrill`` signals this
 process once at a seeded round, ``FlakyStore`` makes a client store's
 gathers fail or stall on a seeded schedule, and ``kill_prefetch_worker``
-marks a ``StorePrefetcher``'s worker dead. The straggler sleeps of the
-reference's ``wrap_loader`` are not ported.
+marks a ``StorePrefetcher``'s worker dead, and ``wrap_loader`` sleeps
+``straggler_delay_s`` on every ``straggler_every``-th round (reference
+:198-208).
 """
 
 from __future__ import annotations
@@ -77,6 +78,8 @@ class ChaosConfig:
     shard_fail_prob: float = 0.0       # FlakyStore transient failures
     shard_fail_streak: int = 1         # consecutive failures per hit
     shard_delay_s: float = 0.0         # FlakyStore read latency
+    straggler_every: int = 0           # every Nth round is a straggler
+    straggler_delay_s: float = 0.0     # how long the slow lane sleeps
 
     def __post_init__(self):
         assert self.attack in ATTACKS, self.attack
@@ -113,6 +116,7 @@ class ChaosInjector:
         self._noise_seed = cfg.seed + 2
         self._in_burst = False
         self._burst_slots: Optional[np.ndarray] = None
+        self._round = 0
 
     # -- byzantine side ---------------------------------------------
 
@@ -197,9 +201,15 @@ class ChaosInjector:
     # -- loader wrapping --------------------------------------------
 
     def wrap_loader(self, loader) -> Iterator[dict]:
-        """Iterate ``loader`` with the data poisoning and the correlated
-        dropout trace applied, in round order."""
+        """Iterate ``loader`` with the data poisoning, the correlated
+        dropout trace and the straggler sleeps applied, in round
+        order."""
+        c = self.cfg
         for batch in loader:
+            self._round += 1
+            if c.straggler_every > 0 and c.straggler_delay_s > 0 \
+                    and self._round % c.straggler_every == 0:
+                time.sleep(c.straggler_delay_s)
             batch = self.poison_batch(batch)
             slots = self.drop_slots(batch["mask"].shape[0])
             if slots is not None and len(slots):

@@ -1,10 +1,10 @@
-"""Image transforms (numpy-only copy of the CIFAR and FEMNIST stacks of
-``commefficient_tpu/data/transforms.py``). All operate on HWC arrays
+"""Image transforms (numpy-only copy of the CIFAR, FEMNIST and ImageNet
+stacks of ``commefficient_tpu/data/transforms.py``). All operate on HWC arrays
 and draw from the same numpy RNG (``np.random`` unless one is given)
 in the same order as the JAX package's, so a seeded run transforms a
 batch bit for bit as the JAX loader does.
 
-``RandomResizedCrop`` resizes as PIL's ``Image.resize(BILINEAR)`` does,
+``RandomResizedCrop`` and ``Resize`` resize as PIL's ``Image.resize(BILINEAR)`` does,
 without PIL: ``pil_bilinear_resize`` is PIL's separable resample
 (Resample.c) in numpy -- a triangle filter whose support widens by the
 downscale factor, coefficients normalized in float64 and rounded to
@@ -24,6 +24,8 @@ CIFAR100_MEAN = np.array([0.5071, 0.4865, 0.4409], np.float32)
 CIFAR100_STD = np.array([0.2673, 0.2564, 0.2762], np.float32)
 FEMNIST_MEAN = np.array([0.9637], np.float32)
 FEMNIST_STD = np.array([0.1597], np.float32)
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 class Compose:
@@ -188,6 +190,21 @@ def resize(x, nh, nw):
     return out
 
 
+class Resize:
+    """Shorter side -> ``size`` (PIL bilinear), HWC uint8/float."""
+
+    def __init__(self, size):
+        self.size = size
+
+    def __call__(self, x):
+        h, w = x.shape[:2]
+        if h < w:
+            nh, nw = self.size, max(1, round(w * self.size / h))
+        else:
+            nh, nw = max(1, round(h * self.size / w)), self.size
+        return resize(x, nh, nw)
+
+
 class CenterCrop:
     def __init__(self, size):
         self.size = size
@@ -250,3 +267,14 @@ def femnist_train_transform(rng=None):
 
 def femnist_val_transform():
     return Compose([ToFloat(), Normalize(FEMNIST_MEAN, FEMNIST_STD)])
+
+
+def imagenet_train_transform(rng=None):
+    return Compose([RandomResizedCrop(224, rng=rng),
+                    RandomHorizontalFlip(rng=rng), ToFloat(),
+                    Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+
+
+def imagenet_val_transform():
+    return Compose([Resize(256), CenterCrop(224), ToFloat(),
+                    Normalize(IMAGENET_MEAN, IMAGENET_STD)])

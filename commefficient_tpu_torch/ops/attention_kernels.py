@@ -57,6 +57,7 @@ import ctypes
 import torch
 
 from commefficient_tpu_torch import _build
+from commefficient_tpu_torch.analysis import cost
 
 _P = ctypes.c_void_p
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
@@ -298,6 +299,8 @@ def attn_fwd_kernel(q, k, v, sm_scale):
         out = _fwd_launch(_bound("cet_attn_fwd"), q, k, v, sm_scale,
                           _stream(q.device))
     attn_fwd_kernel.launches += 1
+    cost.add_kernel_flops("attn_fwd",
+                          cost.attn_flops(*q.shape)["attn_fwd"], q.dtype)
     return out
 
 
@@ -318,6 +321,8 @@ def attn_bwd_dkv_kernel(q, k, v, m, l, do, di, sm_scale):
         out = _dkv_launch(_bound("cet_attn_bwd_dkv"), q, k, v, m, l, do,
                           di, sm_scale, _stream(q.device))
     attn_bwd_dkv_kernel.launches += 1
+    cost.add_kernel_flops("attn_bwd_dkv",
+                          cost.attn_flops(*q.shape)["attn_bwd_dkv"], q.dtype)
     return out
 
 
@@ -337,6 +342,8 @@ def attn_bwd_dq_kernel(q, k, v, m, l, do, di, sm_scale):
         out = _dq_launch(_bound("cet_attn_bwd_dq"), q, k, v, m, l, do, di,
                          sm_scale, _stream(q.device))
     attn_bwd_dq_kernel.launches += 1
+    cost.add_kernel_flops("attn_bwd_dq",
+                          cost.attn_flops(*q.shape)["attn_bwd_dq"], q.dtype)
     return out
 
 

@@ -29,6 +29,7 @@ import ctypes
 import torch
 
 from commefficient_tpu_torch import _build
+from commefficient_tpu_torch.analysis import cost
 
 _P = ctypes.c_void_p
 MIN_WIDTH, WIDTH_STEP, MAX_WIDTH = 64, 64, 768  # csrc/flce.cu MAX_NF
@@ -140,6 +141,8 @@ def flce_fwd_kernel(x, w, labels):
                   _stream(x.device))
     _build.check(code, "cet_flce_fwd")
     flce_fwd_kernel.launches += 1
+    cost.add_kernel_flops("flce_fwd", cost.flce_fwd_flops(m, w.shape[0], c),
+                          x.dtype)
     return lse, tok
 
 
@@ -168,6 +171,8 @@ def flce_bwd_kernel(x, w, labels, lse, g_lse, g_tok):
                   _stream(x.device))
     _build.check(code, "cet_flce_bwd")
     flce_bwd_kernel.launches += 1
+    cost.add_kernel_flops("flce_bwd", cost.flce_bwd_flops(m, w.shape[0], c),
+                          x.dtype)
     return dx, dw
 
 

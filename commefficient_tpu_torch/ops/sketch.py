@@ -108,9 +108,6 @@ class CountSketch:
 
     def __post_init__(self):
         assert self.d > 0 and self.c > 0 and self.r > 0
-        if self.approx_topk:
-            raise NotImplementedError(
-                "--approx_topk (approximate recovery) is not ported")
         # (r, m) rotations and the packed-sign stream on each device
         # they were asked for
         object.__setattr__(self, "_rot_cache", {})
@@ -302,26 +299,51 @@ class CountSketch:
     def unsketch(self, table: torch.Tensor, k: int,
                  with_support: bool = False, with_dense: bool = True):
         """(r, c) table -> dense (d,) vector keeping the k largest-
-        magnitude estimates (reference ``unsketch``, exact path). The
-        selected set is the threshold select's, which is lax.top_k's
-        set (lowest index wins ties); the (k,) indices come back in
-        ascending order rather than by magnitude. At d >= 2^20 the
-        selection runs over the padded estimates with the tail zeroed
-        (the same set, since k <= d). ``with_support`` also returns
-        the indices and their values; ``with_dense=False`` (with
-        ``with_support``) returns ``(None, idx, vals)`` without the
-        dense vector."""
+        magnitude estimates (reference ``unsketch``). The selected set
+        is the threshold select's, which is lax.top_k's set (lowest
+        index wins ties); the (k,) indices come back in ascending
+        order rather than by magnitude. At d >= 2^20 the selection
+        runs over the padded estimates with the tail zeroed (the same
+        set, since k <= d). ``with_support`` also returns the indices
+        and their values; ``with_dense=False`` (with ``with_support``)
+        returns ``(None, idx, vals)`` without the dense vector.
+
+        ``approx_topk`` takes the reference's approximate route: the
+        indices first, then their values scattered into zeros. Where
+        the reference asks ``lax.approx_max_k`` for a set at recall
+        ``approx_recall``, the port selects the exact set, which meets
+        any recall target (and is what approx_max_k returns on the
+        CPU)."""
         from commefficient_tpu_torch.ops.topk import (
             _THRESHOLD_SELECT_MIN_D, compact_mask, threshold_topk_indices,
             threshold_topk_mask_1d)
         k = min(k, self.d)
         big_d = self.d >= _THRESHOLD_SELECT_MIN_D
         est = self.estimates(table, padded=big_d)
-        if not with_dense:
-            assert with_support, "with_dense=False needs with_support"
+        if self.approx_topk or not with_dense:
             idx = (threshold_topk_indices(est * est, k) if k < self.d
                    else torch.arange(self.d, device=est.device))
-            return None, idx, est[idx]
+            vals = est[idx]
+            if self.approx_topk and big_d:
+                # the reference's guard for approximate picks in the
+                # zeroed tail: clamp them in range with value 0. An
+                # exact selection never reaches the tail (lowest index
+                # wins ties and k <= d), so here it changes nothing
+                oob = idx >= self.d
+                idx = torch.clamp(idx, max=self.d - 1)
+                vals = torch.where(oob, torch.zeros_like(vals), vals)
+            if not with_dense:
+                assert with_support, "with_dense=False needs with_support"
+                return None, idx, vals
+            # scatter-ADD into zeros, as the reference: a guarded
+            # (d-1, 0) duplicate is inert under add. Unchecked indices
+            # (in range by construction): the public index_put_ reads
+            # their range back to the host
+            dense = torch.zeros(self.d, dtype=torch.float32,
+                                device=est.device)
+            torch.ops.aten._index_put_impl_(dense, (idx,), vals, True,
+                                            True)
+            return (dense, idx, vals) if with_support else dense
         if k >= self.d:
             mask = torch.ones_like(est, dtype=torch.bool)
         else:
@@ -343,7 +365,8 @@ class CountSketch:
 
     def prefer_threshold_unsketch(self, k: int) -> bool:
         """Dense-regime exact recovery through the threshold mask:
-        the reference's gate, same predicate."""
+        the reference's gate, same predicate (false under
+        ``approx_topk``, which keeps the index route)."""
         from commefficient_tpu_torch.ops.topk import use_threshold_select
         return (use_threshold_select(k, self.d, self.approx_topk)
                 and not self.prefer_sparse_resketch(k))

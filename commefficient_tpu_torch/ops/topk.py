@@ -34,8 +34,11 @@ def use_threshold_select(k: int, d: int, approx: bool) -> bool:
 
 
 def selection_may_duplicate(d: int, approx: bool) -> bool:
-    """Whether a k-selection's index vector can carry duplicates
-    (only the reference's big-d approx path, which is not ported)."""
+    """The reference's predicate for when a k-selection's index vector
+    can carry duplicates: its big-d approx path, whose guard clamps
+    tail picks to (d-1, 0). The port's selection is exact there and
+    never duplicates, but keeps the scatter-ADD the predicate asks
+    for (``CountSketch.unsketch``)."""
     return approx and d >= _THRESHOLD_SELECT_MIN_D
 
 
@@ -193,17 +196,12 @@ def _selection_mask(vec: torch.Tensor, k: int) -> torch.Tensor:
     return _threshold_topk_mask(sq, k)
 
 
-def _exact_only(approx: bool):
-    if approx:
-        raise NotImplementedError(
-            "--approx_topk (approximate selection) is not ported")
-
-
-def topk(vec: torch.Tensor, k: int, approx: bool = False) -> torch.Tensor:
+def topk(vec: torch.Tensor, k: int) -> torch.Tensor:
     """A copy of ``vec`` with all but its ``k`` largest-magnitude
     entries zeroed: 1-D, or row-wise along the last axis of a 2-D
-    input (reference ``topk``, ops/topk.py:305)."""
-    _exact_only(approx)
+    input (reference ``topk``, ops/topk.py:305). The reference's
+    ``approx`` (``lax.approx_max_k`` below 2^20 coordinates) has no
+    counterpart: the exact set meets any recall target."""
     if vec.ndim not in (1, 2):
         raise ValueError(
             f"topk supports 1-D/2-D inputs, got ndim={vec.ndim}")
@@ -212,14 +210,13 @@ def topk(vec: torch.Tensor, k: int, approx: bool = False) -> torch.Tensor:
                        torch.zeros_like(vec))
 
 
-def topk_values_indices(vec: torch.Tensor, k: int, approx: bool = False):
+def topk_values_indices(vec: torch.Tensor, k: int):
     """(values, indices) of the ``k`` largest-magnitude entries of a
     1-D vector, in lax.top_k's order: by magnitude, descending, the
     lower index first among equals (reference ``topk_values_indices``,
     ops/topk.py:356). The set comes from the threshold mask, and only
     its k members are sorted (a stable sort of the ascending indices,
     ``compact_mask``: no host read)."""
-    _exact_only(approx)
     assert vec.ndim == 1, "1-D selection"
     k = min(k, vec.shape[-1])
     idx = compact_mask(_selection_mask(vec, k), k)
@@ -229,11 +226,11 @@ def topk_values_indices(vec: torch.Tensor, k: int, approx: bool = False):
     return vals[order], idx[order]
 
 
-def topk_with_support(vec: torch.Tensor, k: int, approx: bool = False):
+def topk_with_support(vec: torch.Tensor, k: int):
     """``(dense, indices, values)`` top-k of a 1-D vector: the zeroed
     dense form and its sparse support (reference ``topk_with_support``,
     ops/topk.py:365)."""
-    vals, idx = topk_values_indices(vec, k, approx)
+    vals, idx = topk_values_indices(vec, k)
     dense = torch.zeros_like(vec)
     dense[idx] = vals
     return dense, idx, vals

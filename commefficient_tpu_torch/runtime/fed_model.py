@@ -135,8 +135,8 @@ from commefficient_tpu_torch.serialization import msgpack_serialize
 from commefficient_tpu_torch.telemetry import clock, trace
 from commefficient_tpu_torch.telemetry.alarms import build_alarm_engine
 from commefficient_tpu_torch.telemetry.core import build_telemetry
-from commefficient_tpu_torch.telemetry.flightrec import (FlightRecorder,
-                                                         config_hash)
+from commefficient_tpu_torch.telemetry.flightrec import FlightRecorder
+from commefficient_tpu_torch.telemetry.registry import config_hash
 
 # the most recently constructed FedModel, found by FedOptimizer(args)
 # as in the reference
@@ -305,13 +305,18 @@ class FedModel:
             self.telemetry.on_device_time = \
                 self.alarm_engine.check_device_time
         # the flight recorder attaches before the meta record is
-        # emitted, so its bundles carry it
+        # emitted, so its bundles carry it; its registry lineage arms
+        # only when the run writes a ledger, as the manifest does
         self.flightrec = None
         if int(args.flightrec_rounds) > 0:
             self.flightrec = FlightRecorder(
                 args, int(args.flightrec_rounds),
-                labels={"process": 0, "run": config_hash(args)[:8]})
+                labels={"process": 0, "run": config_hash(args)[:8]},
+                runs_dir="runs" if args.ledger else "")
             self.telemetry.add_sink(self.flightrec)
+        # the roofline cost model (analysis/cost.py), made on the first
+        # --profile'd round
+        self._cost_model = None
         self.telemetry.emit_meta(
             num_clients=num_clients, num_devices=1, process_index=0,
             process_count=1, clientstore=self.clientstore,
@@ -339,6 +344,12 @@ class FedModel:
     def _call_train(self, batch):
         tel = self.telemetry
         ridx = self.round_index
+        if (self._cost_model is None and tel.enabled
+                and self.args.do_profile and trace.tracing()):
+            # the roofline expectation, once a run, from the first
+            # traced round's batch; before its round range opens, so
+            # the count's work falls in no round's window
+            self._emit_cost_model(batch)
         tel.begin_round(ridx)
         # the profiler's round range, on the ledger record's lifecycle
         # (a flag check with no trace window open)
@@ -656,6 +667,11 @@ class FedModel:
             else:
                 rows = {name: t.numpy() for name, t in dev.items()}
                 timing["d2h_s"] = time.perf_counter() - t0
+            if self._prefetcher is not None:
+                # the staged gather of the next round reads the store
+                # first: its LRU touches, then the write-back's
+                # evictions, in one order whatever the threads do
+                self._prefetcher.settle()
             t1 = time.perf_counter()
             spill0 = self.client_store.spill_s
             if alive.all():
@@ -791,6 +807,53 @@ class FedModel:
                 json.dump(saved_config(cfg), f, indent=2)
         with open(os.path.join(save_dir, "flax_model.msgpack"), "wb") as f:
             f.write(msgpack_serialize(params))
+
+    def _emit_cost_model(self, batch):
+        """Roofline expectation for this run's round (analysis/cost.py):
+        the model's forward and backward once on ``batch`` under the
+        FLOP counter (the reference lowers its round program instead),
+        then the cost model as a ledger meta record. Registers
+        ``expected_round_s`` on the telemetry, so the trace window's
+        device-time buckets carry ``roofline_utilization``. The pass
+        writes no state and steps nothing: its gradient is dropped and
+        the random generators are restored. A failure degrades to a
+        warning and is not retried."""
+        self._cost_model = {}
+        try:
+            from commefficient_tpu_torch.analysis.cost import (
+                build_cost_model, flop_inventory)
+            dev_batch = self._to_device(batch)
+            mask = dev_batch["mask"]
+
+            def client_pass():
+                # a leaf of its own, whose .grad is dropped with it
+                # (the counter's module hooks refuse autograd.grad)
+                p = self.ps_weights.detach().requires_grad_(True)
+                loss, _ = self.compute_loss_train(p, dev_batch, self.args)
+                torch.sum(loss * torch.sum(mask, dim=-1)).backward()
+
+            on_gpu = self.device.type == "cuda"
+            with torch.random.fork_rng(
+                    devices=[self.device] if on_gpu else []):
+                flops = flop_inventory(client_pass)
+            if on_gpu:
+                torch.cuda.synchronize(self.device)
+            cost = build_cost_model(
+                flops, backend="gpu" if on_gpu else "cpu",
+                device_kind=(torch.cuda.get_device_name(self.device)
+                             if on_gpu else "cpu"),
+                n_devices=1,
+                allreduce_payload_bytes=float(
+                    self.args.upload_wire_bytes_per_client),
+                wire_dtype=self.args.sketch_dtype,
+                label=f"{self.args.mode}/{self.clientstore}/1dev")
+            cost["kernel_flops"] = flops["kernel_flops"]
+            self._cost_model = cost
+            self.telemetry.expected_round_s = cost["expected_round_s"]
+            self.telemetry.emit_meta(cost_model=cost)
+        except Exception as e:  # noqa: BLE001 -- observability only
+            print(f"WARNING: roofline cost model skipped "
+                  f"({type(e).__name__}: {e})")
 
     # --- communication accounting ----------------------------------------
 

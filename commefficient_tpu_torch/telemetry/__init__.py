@@ -1,11 +1,11 @@
 """Run observability of the port: the round ledger, its spans and
-sinks, algorithm-probe alarms, the flight recorder and device-time
-attribution on ``torch.profiler``.
+sinks, algorithm-probe alarms, the flight recorder, device-time
+attribution on ``torch.profiler``, the run registry and the perf gate.
 
 Port of ``commefficient_tpu/telemetry`` (``clock``, ``record``,
 ``core``, ``sinks``, ``alarms``, ``flightrec``, ``trace``,
-``profiler``). Not ported yet: the run registry and perf gate, SLOs,
-the live exporter, causal round tracing and critical paths.
+``profiler``, ``registry``, ``gate``). Not ported yet: SLOs, the live
+exporter, causal round tracing and critical paths.
 """
 
 from commefficient_tpu_torch.telemetry import clock, trace

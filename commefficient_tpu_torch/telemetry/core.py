@@ -131,6 +131,10 @@ class Telemetry:
         # buckets merge: FedModel points it at the alarm engine's
         # collective-skew check
         self.on_device_time = None
+        # the round's roofline bound (analysis/cost.py), set by the
+        # cost model; the trace's buckets derive roofline_utilization
+        # from it
+        self.expected_round_s = None
 
     # --- configuration --------------------------------------------------
 
@@ -233,11 +237,20 @@ class Telemetry:
     def merge_round_device_time(self, index: int, buckets: dict):
         """Attach trace-derived device-time buckets (schema v3) to round
         ``index``'s record: called by the trace window at its exit,
-        while ``hold_emission`` keeps the records buffered."""
+        while ``hold_emission`` keeps the records buffered. Derives
+        ``roofline_utilization`` where a cost model registered
+        ``expected_round_s``."""
         rec = self._records.get(index)
         if rec is None or not buckets:
             return
-        rec["device_time"] = dict(buckets)
+        buckets = dict(buckets)
+        exp = self.expected_round_s
+        busy = buckets.get("busy_s")
+        if exp and busy:
+            # 6 dp, as the reference: CPU-scale utilizations sit at
+            # 1e-6..1e-3 and must not round to zero
+            buckets["roofline_utilization"] = round(exp / busy, 6)
+        rec["device_time"] = buckets
         cb = self.on_device_time
         if cb is not None:
             cb(index, rec["device_time"])

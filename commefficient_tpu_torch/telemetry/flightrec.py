@@ -1,12 +1,12 @@
 """Flight recorder: bounded round ring + atomic postmortem bundles.
 
 Port of ``commefficient_tpu/telemetry/flightrec.py``. The reference
-attaches the recorder with its live exporter (``live.attach_live_plane``)
-and stamps bundles into its run registry; neither is ported, so the
-port's FedModel attaches the recorder as a sink of its own, the
-bundle's ``config``/``config_hash``/``environment`` come from this
-module (the registry's definitions), and the critical-path diff waits
-with ``--causal_trace``.
+attaches the recorder with its live exporter (``live.attach_live_plane``),
+which is not ported: the port's FedModel attaches the recorder as a
+sink of its own. The bundle's ``config``/``config_hash``/``environment``
+are the run registry's (``telemetry/registry.py``), and a run that
+writes a ledger stamps each bundle into the registry (``runs_dir``).
+The critical-path diff waits with ``--causal_trace``.
 
 A crashed or alarming run's most valuable evidence is the last few
 rounds of full-fidelity telemetry — exactly the records the ledger
@@ -35,10 +35,7 @@ import sys
 import threading
 from collections import deque
 
-import dataclasses
-import hashlib
-
-from commefficient_tpu_torch.telemetry import clock
+from commefficient_tpu_torch.telemetry import clock, registry
 from commefficient_tpu_torch.telemetry.record import validate_record
 from commefficient_tpu_torch.telemetry.sinks import _json_default
 
@@ -71,52 +68,15 @@ BUNDLE_REQUIRED_KEYS = (
 )
 
 
-#: observability knobs left out of the configuration a bundle hashes
-#: (the reference registry's ``_HASH_EXCLUDE``)
-_HASH_EXCLUDE = ("ledger", "telemetry_console", "use_tensorboard",
-                 "do_profile", "clientstore_dir", "live_port",
-                 "flightrec_rounds", "postmortem_dir", "causal_trace")
-
-
-def config_dict(args) -> dict:
-    """JSON-able view of a Config: its scalar fields, the hash-excluded
-    knobs dropped."""
-    if dataclasses.is_dataclass(args):
-        src = dataclasses.asdict(args)
-    else:
-        src = dict(getattr(args, "__dict__", {}) or {})
-    return {k: v for k, v in sorted(src.items())
-            if k not in _HASH_EXCLUDE
-            and isinstance(v, (int, float, str, bool, type(None)))}
-
-
-def config_hash(args) -> str:
-    """SHA-256 of the sorted scalar config."""
-    blob = json.dumps(config_dict(args), sort_keys=True)
-    return hashlib.sha256(blob.encode()).hexdigest()
-
-
-def _environment() -> dict:
-    import torch
-    env = {"python": sys.version.split()[0],
-           "torch_version": torch.__version__}
-    if torch.cuda.is_available():
-        env.update(backend="cuda",
-                   device_count=torch.cuda.device_count(),
-                   device_kind=torch.cuda.get_device_name(0))
-    else:
-        env.update(backend="cpu", device_count=1, device_kind="cpu")
-    return env
-
-
 class FlightRecorder:
     """Sink-shaped ring of the last ``ring_rounds`` emitted records.
 
-    ``labels`` (process/run) stamp the bundle. ``out_dir`` overrides
+    ``labels`` (process/run) stamp the bundle; ``runs_dir`` (optional)
+    arms the registry lineage stamp. ``out_dir`` overrides
     ``cfg.postmortem_dir`` (tests)."""
 
     def __init__(self, cfg, ring_rounds: int, labels=None,
-                 out_dir: str = ""):
+                 runs_dir: str = "", out_dir: str = ""):
         if int(ring_rounds) <= 0:
             raise ValueError(f"ring_rounds must be > 0, not {ring_rounds}")
         self._cfg = cfg
@@ -126,11 +86,12 @@ class FlightRecorder:
         self._events = deque(maxlen=EVENT_QUEUE)
         self._meta = None
         self.labels = {k: str(v) for k, v in (labels or {}).items()}
+        self.runs_dir = runs_dir
         self.out_dir = (out_dir
                         or str(getattr(cfg, "postmortem_dir", "")
                                or "runs/postmortems"))
-        self._config = config_dict(cfg)
-        self._config_hash = config_hash(cfg)
+        self._config = registry.config_dict(cfg)
+        self._config_hash = registry.config_hash(cfg)
         self._dumped = set()
         #: path of the most recent bundle (None before any dump)
         self.last_bundle = None
@@ -203,7 +164,7 @@ class FlightRecorder:
             "meta": meta,
         }
         try:
-            bundle["environment"] = _environment()
+            bundle["environment"] = registry._environment()
             os.makedirs(self.out_dir, exist_ok=True)
             tag = f"{reason}" + (f"_{rule}" if rule else "")
             name = f"{POSTMORTEM_PREFIX}{int(bundle['ts'])}_{tag}"
@@ -229,6 +190,29 @@ class FlightRecorder:
             return None
         with self._lock:
             self.last_bundle = path
+        if self.runs_dir:
+            try:
+                manifest = registry.write_manifest(
+                    self.runs_dir, args=self._cfg,
+                    ledger=str(getattr(self._cfg, "ledger", "")
+                               or ""),
+                    extra={"postmortem": os.path.abspath(path),
+                           "postmortem_reason": str(reason),
+                           "postmortem_rule": bundle["rule"],
+                           "job_id": self.labels.get("job")})
+                # back-pointer: the bundle's registry lineage entry
+                bundle["manifest"] = os.path.abspath(manifest)
+                tmp = path + ".tmp"
+                with open(tmp, "w") as f:
+                    json.dump(bundle, f, indent=1, sort_keys=True,
+                              default=_json_default)
+                    f.write("\n")
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(tmp, path)
+            except Exception as e:  # noqa: BLE001
+                print(f"WARNING: postmortem registry stamp failed "
+                      f"({type(e).__name__}: {e})", file=sys.stderr)
         return path
 
 

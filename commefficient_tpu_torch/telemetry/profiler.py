@@ -88,7 +88,8 @@ class trace_window:
                     trace_rounds=len(self.round_buckets),
                     trace_busy_s=round(sum(b["busy_s"] for b in vals), 9),
                     trace_window_s=round(sum(b["window_s"] for b in vals),
-                                         9))
+                                         9),
+                    expected_round_s=tel.expected_round_s)
         except DivergenceAbort:
             raise
         except (OSError, ValueError, KeyError, TypeError) as e:

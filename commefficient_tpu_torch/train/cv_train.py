@@ -65,7 +65,9 @@ from commefficient_tpu_torch.models.torch_export import (
 from commefficient_tpu_torch.ops.vec import param_group_indices
 from commefficient_tpu_torch.runtime import (FedModel, FedOptimizer,
                                              LambdaLR, drain_rounds)
-from commefficient_tpu_torch.runtime.checkpoint import setup_resume
+from commefficient_tpu_torch.runtime.checkpoint import (
+    resume_manifest_extra, setup_resume)
+from commefficient_tpu_torch.telemetry import registry
 from commefficient_tpu_torch.telemetry.alarms import DivergenceAbort
 from commefficient_tpu_torch.telemetry.profiler import profile_epoch
 from commefficient_tpu_torch.telemetry.sinks import TensorBoardSink
@@ -397,6 +399,8 @@ def get_transforms(name: str):
                 T.cifar_val_transform(mean, std))
     if name == "EMNIST":
         return T.femnist_train_transform(), T.femnist_val_transform()
+    if name == "ImageNet":
+        return T.imagenet_train_transform(), T.imagenet_val_transform()
     return None, None
 
 
@@ -611,6 +615,14 @@ def main(argv=None):
                                  context={"signal": str(e)})
         model.interrupted()
     model.finalize()
+    # a manifest only for a run that wrote a ledger, never under --test
+    # (reference cv_train.py)
+    registry.maybe_write_manifest(
+        args, mesh_shape={"clients": 1},
+        extra={"trainer": "cv_train", "epochs": len(results),
+               "interrupted": interrupted,
+               "diverged": bool(getattr(model, "diverged", False)),
+               **resume_manifest_extra(model)})
     if args.do_checkpoint and not interrupted and not model.diverged:
         save_checkpoint(model, args)
     return results

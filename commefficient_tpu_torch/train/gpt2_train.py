@@ -107,7 +107,9 @@ from commefficient_tpu_torch.ops.flce import (lm_nll_sums_fused,
                                               resolve_fused_ce)
 from commefficient_tpu_torch.runtime import (FedModel, FedOptimizer,
                                              LambdaLR, drain_rounds)
-from commefficient_tpu_torch.runtime.checkpoint import setup_resume
+from commefficient_tpu_torch.runtime.checkpoint import (
+    resume_manifest_extra, setup_resume)
+from commefficient_tpu_torch.telemetry import registry
 from commefficient_tpu_torch.serialization import msgpack_restore
 from commefficient_tpu_torch.telemetry.alarms import DivergenceAbort
 from commefficient_tpu_torch.telemetry.profiler import profile_epoch
@@ -484,6 +486,8 @@ def main(argv=None):
     args = parse_args(default_lr=4e-2, argv=argv)
     device = resolve_device(args.device)
     np.random.seed(args.seed)
+    # as the reference (gpt2_train.py:401); nothing reads it
+    args.num_results_train = 1
 
     if args.do_test:
         # tiny sketch like the reference smoke mode
@@ -557,6 +561,14 @@ def main(argv=None):
                                  context={"signal": str(e)})
         model.interrupted()
     model.finalize()
+    # a manifest only for a run that wrote a ledger, never under --test
+    # (reference gpt2_train.py)
+    registry.maybe_write_manifest(
+        args, mesh_shape={"clients": 1},
+        extra={"trainer": "gpt2_train", "epochs": len(results),
+               "interrupted": interrupted,
+               "diverged": bool(getattr(model, "diverged", False)),
+               **resume_manifest_extra(model)})
     if logdir is not None and not getattr(model, "diverged", False) \
             and not interrupted:
         # the final model and tokenizer, HF-style (reference

@@ -1,10 +1,12 @@
 """LR schedules, loggers, timers, the run's log directory and the
 trainers' SIGTERM handling (port of the parts of
-``commefficient_tpu/utils.py`` the trainers use)."""
+``commefficient_tpu/utils.py`` the trainers use), and the flags of the
+repo's recipe scripts (``recipe_argv``)."""
 
 from __future__ import annotations
 
 import os
+import shlex
 import signal
 import threading
 import time
@@ -106,3 +108,28 @@ def steps_per_epoch(local_batch_size: int, dataset, num_workers: int) -> int:
         return int(dataset.num_clients // num_workers)
     batch_size = local_batch_size * num_workers
     return int(np.ceil(len(dataset) / batch_size))
+
+
+def recipe_argv(script: str, values=None) -> list:
+    """The trainer flags of a recipe script (``scripts/*.sh``): the
+    arguments of its ``python -m ...`` command, continuation lines
+    joined, ``"$@"`` dropped. A flag whose value is a shell variable
+    (``--dataset_dir "$DATASET_DIR"``) takes ``values[name]``, or is
+    dropped with its flag where ``values`` has no such name."""
+    with open(script) as f:
+        text = f.read().replace("\\\n", " ")
+    (line,) = [ln for ln in text.splitlines()
+               if ln.strip().startswith("python")]
+    words = shlex.split(line)[3:]
+    values = values or {}
+    out = []
+    for word in words:
+        if word == "$@":
+            continue
+        if word.startswith("$"):
+            flag = out.pop()
+            if word[1:] in values:
+                out += [flag, str(values[word[1:]])]
+            continue
+        out.append(word)
+    return out

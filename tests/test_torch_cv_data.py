@@ -150,11 +150,6 @@ def test_datasets_and_loader_batches_match_jax(name, iid, tmp_path):
             np.testing.assert_array_equal(a[key], b_[key])
 
 
-def test_imagenet_still_raises():
-    with pytest.raises(NotImplementedError, match="ImageNet"):
-        get_dataset_cls("ImageNet")
-
-
 def test_missing_archive_raises(tmp_path):
     with pytest.raises(FileNotFoundError, match="never downloads"):
         FedCIFAR10(str(tmp_path), "CIFAR10", train=True)

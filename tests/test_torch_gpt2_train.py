@@ -118,7 +118,8 @@ def test_fused_ce_on_raises_at_unsupported_width(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--alarm_job_starvation", "2"],
-                                  ["--approx_topk"], ["--live_port", "9"],
+                                  ["--seq_devices", "2"],
+                                  ["--live_port", "9"],
                                   ["--causal_trace"]])
 def test_unported_options_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match=flag[0]):

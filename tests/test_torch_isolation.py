@@ -2,8 +2,9 @@
 module in it and the module part of ``chip_smoke.py`` loads neither
 ``jax`` nor anything of the JAX package, nor flax's ``msgpack`` (the
 port has its own codec, ``serialization.py``), nor PIL (the image transforms
-resize in numpy; checked in a fresh interpreter, so this test
-process's own imports do not count)."""
+resize in numpy, and ImageNet imports it only to decode a JPEG; checked
+in a fresh interpreter, so this test process's own imports do not
+count)."""
 
 import torch_threads  # noqa: F401  (the worker's share of the cores)
 import os
@@ -63,7 +64,13 @@ new = {{"commefficient_tpu_torch.core.robust",
         "commefficient_tpu_torch.telemetry.profiler",
         "commefficient_tpu_torch.telemetry.record",
         "commefficient_tpu_torch.telemetry.sinks",
-        "commefficient_tpu_torch.telemetry.trace"}}
+        "commefficient_tpu_torch.telemetry.trace",
+        "commefficient_tpu_torch.telemetry.registry",
+        "commefficient_tpu_torch.telemetry.gate",
+        "commefficient_tpu_torch.perf_gate",
+        "commefficient_tpu_torch.analysis",
+        "commefficient_tpu_torch.analysis.cost",
+        "commefficient_tpu_torch.data.fed_imagenet"}}
 assert new <= set(names), sorted(new - set(names))
 for name in names:
     if name != "commefficient_tpu_torch.data.chaos":
@@ -79,9 +86,10 @@ sys.exit(1 if leaked or bad else 0)
 
 
 def test_chaos_harness_is_imported_by_no_module_of_the_port():
-    """The robust fold, DP, export, asynchronous-round, telemetry and
-    chaos modules import no JAX, and no module of the port imports the
-    chaos harness
+    """The robust fold, DP, export, asynchronous-round, telemetry (the
+    run registry and perf gate too), cost-model, ImageNet and chaos
+    modules import no JAX, and no module of the port imports the chaos
+    harness
     (the round's hook is a parameter; the attacks and the arrival
     schedules are for tests and scripts)."""
     code = CONFINED.format(root=ROOT)

@@ -134,11 +134,6 @@ def test_gates_match_reference():
             js.prefer_threshold_unsketch(k)
 
 
-def test_approx_topk_not_ported():
-    with pytest.raises(NotImplementedError, match="approx_topk"):
-        CountSketch(d=100, c=10, r=1, approx_topk=True)
-
-
 @pytest.mark.parametrize("r", [1, 3, 5, 8])
 def test_packed_signs_bit_exact_with_reference(r):
     # the port's packed-sign stream against the JAX package's

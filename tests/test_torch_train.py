@@ -118,8 +118,8 @@ def test_mode_trainer_matches_jax_bytes_and_losses(mode, monkeypatch):
 @pytest.mark.parametrize("argv,name", [
     (["--resume"], "--resume"),
     (["--alarm_job_starvation", "2"], "--alarm_job_starvation"),
-    (["--approx_topk"], "--approx_topk"),
-    (["--dataset_name", "ImageNet"], "--dataset_name ImageNet"),
+    (["--seq_devices", "2"], "--seq_devices"),
+    (["--slo_window", "4"], "--slo_window"),
 ])
 def test_unported_options_raise(argv, name):
     """Options the port lacks raise naming themselves; ``--resume`` is
