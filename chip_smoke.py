@@ -238,6 +238,19 @@ first two beside ``scaled_dot_product_attention``: forward, backward
 alone, forward + backward (a yardstick the port never calls); the
 ``ptxas_attn`` line gives their registers and spills (none allowed in a
 wgmma instantiation, nor a serialized wgmma).
+The operations plane and the round variants run last on the ResNet9
+cell: ``autopilot_paths`` (the dtype walk f32 -> bf16 -> int8 under a
+band above the cell's recovery error, kernel 4 once an int8 round; the
+geometry walk, whose halved column count's kernels 1, 2 and 4 are held
+against their plain versions and whose server tables follow the shape;
+``--autopilot_pin`` bit-equal to the static config; a switched variant
+bit-equal to a FedModel built fresh at its point), ``slo_live_path`` (the
+exporter scraped on 127.0.0.1, the ``slo_burn`` alarm), ``causal_paths``
+(each round's DAG and critical path against its wall, the asynchronous
+spans, the flag inert bit for bit, a bundle's ``critpath_diff``) and
+``service_paths`` (two tenants on the card bit-equal to their solo runs,
+``job_starvation`` under ``backlog``, refused admissions counted, a
+migration to time-sliced and back bit-equal, one scrape for all).
 Each phase prints one JSON line, with the seconds since the script
 started (``t_s``); a failed check raises, so the script
 exits nonzero before its last line, which is ``{"ok": true, "device":
@@ -248,6 +261,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -278,6 +292,7 @@ from commefficient_tpu_torch.data.chaos import (ArrivalSchedule, ChaosConfig,
                                                 ChaosInjector,
                                                 PreemptionDrill)
 from commefficient_tpu_torch.data.fixtures import write_fixture
+from commefficient_tpu_torch.device import resolve_device
 from commefficient_tpu_torch.data.tokenizer import SPECIAL_TOKENS, load_tokenizer
 from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
                                                  convert_gpt2_to_hf,
@@ -4066,6 +4081,595 @@ def registry_gate():
           "verdict": verdict, "gate_stdout": outs["check"][1].splitlines()})
 
 
+# --- the autopilot, SLOs and the live plane, causal tracing, the job
+# service (the ResNet9 cell at full width)
+
+# the cell's recovery error at f32 is 0.756-0.805 (PERF.md §6, PR 20):
+# a band above it, so the controller cheapens every cooldown and each
+# observed error must stay at or under HI
+AP_BAND = "1.0:1.5"
+# the geometry walk's band: room above for the halved columns' error
+AP_GEOM_BAND = "1.0:3.0"
+AP_WALK = ["--autopilot", "on", "--probe_every", "1",
+           "--autopilot_cooldown", "1"]
+# 5 rounds (half a 10-round epoch); the geometry walk 7
+AP_ARGV = profile_round.ARGV + ["--num_epochs", "0.5", "--pivot_epoch", "0.2",
+                            "--lr_scale", "0.1"]
+AP_GEOM_ARGV = profile_round.ARGV + ["--num_epochs", "0.7", "--pivot_epoch",
+                                 "0.2", "--lr_scale", "0.1"]
+# the static config of the int8 point, 3 rounds
+AP_PIN_ARGV = profile_round.ARGV + ["--num_epochs", "0.3", "--pivot_epoch", "0.2",
+                                "--lr_scale", "0.1", "--probe_every", "1"]
+AP_PIN = f"int8-k{K}-r{R}-c{C}-re9500"
+
+
+@contextlib.contextmanager
+def recording_steps(record):
+    """Appends, after each ``FedOptimizer.step``, (the optimizer, the
+    variant key its server round ran, the server tables' shape)."""
+    orig = fed_model.FedOptimizer.step
+
+    def step(self):
+        key = self.model.pending_variant_key
+        orig(self)
+        record.append((self, key, tuple(self.server_state.Vvelocity.shape)))
+
+    with patched(fed_model.FedOptimizer, "step", step):
+        yield
+
+
+def dispatch_keys(rec, rounds):
+    """The lattice point each round ran: the initial one, then the point
+    the controller held after each observation."""
+    keys = [rec["initial"]] + [t["key"] for t in rec["trajectory"]]
+    return keys[:rounds]
+
+
+def walk_launches(keys):
+    """Launches of probed rounds at these lattice points: f32 and bf16
+    sketch the clients' sum (kernel 1) and re-sketch on the server
+    (kernel 1 again), int8 emits through kernel 4 and re-sketches; every
+    round one estimates, search and take-mask, and the recovery probe's
+    second of each."""
+    want = sketch_round_launches(0)
+    for key in keys:
+        int8 = key.startswith("int8")
+        want["sketch_kernel"] += 1 if int8 else 2
+        want["sketch_quant_kernel"] += 1 if int8 else 0
+        for name in ("estimates_kernel", "threshold_key_kernel",
+                     "take_mask_kernel"):
+            want[name] += 2
+    return want
+
+
+def autopilot_run(phase, argv, band):
+    """``cv_train.main`` under the autopilot: launch counts from 0 against
+    ``walk_launches`` of the rounds' points, every observed error at or
+    under HI, the uplink priced at each round's wire, cache misses at
+    most the points visited, the trajectory replayed exactly. Returns
+    (the record, the rounds' keys, the FedModel, its optimizer steps)."""
+    from commefficient_tpu_torch.autopilot import parse_band, replay_record
+    steps = []
+    reset_launches()
+    t0 = time.perf_counter()
+    with recording_steps(steps):
+        results = cv_train.main(argv + AP_WALK + ["--autopilot_band", band])
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    model = fed_model._CURRENT_MODEL
+    row = results[-1]
+    rounds = len(row["round_times"])
+    rec = model.autopilot_record()
+    keys = dispatch_keys(rec, rounds)
+    want = dict(walk_launches(keys), **{k.__name__: 0 for k in ATTN})
+    check(counts == want, f"{phase}: launches {counts}, want {want} for "
+          f"the points {keys}")
+    lo, hi = parse_band(band)
+    errs = [t["recovery_error"] for t in rec["trajectory"]]
+    check(all(e is not None and math.isfinite(e) and e <= hi for e in errs),
+          f"{phase}: recovery errors {errs} above HI {hi}")
+    visited = set(keys) | {rec["final"]}
+    cache = model._variants.counters()
+    check(cache["misses"] <= len(visited),
+          f"{phase}: {cache['misses']} variants built for {len(visited)} "
+          "points visited")
+    check(replay_record(rec) == [t["key"] for t in rec["trajectory"]],
+          f"{phase}: the replayed trajectory differs")
+    workers = model.args.num_workers
+    up = sum(sketch_wire_bytes(R, int(k.split("-c")[1].split("-")[0]),
+                               k.split("-")[0]) for k in keys)
+    up = workers * up / 2**20
+    check(abs(row["up (MiB)"] - up) <= 1e-9 * up,
+          f"{phase}: up {row['up (MiB)']} MiB, want {up} at the rounds' "
+          "points")
+    emit({"phase": phase, "band": band, "rounds": rounds, "keys": keys,
+          "recovery_errors": errs,
+          "actions": [t["action"] for t in rec["trajectory"]],
+          "launches": counts, "cache": cache, "up_MiB": row["up (MiB)"],
+          "up_bytes_per_client": [sketch_wire_bytes(
+              R, int(k.split("-c")[1].split("-")[0]), k.split("-")[0])
+              for k in keys],
+          "train_loss": row["train_loss"], "round_seconds": row["round_times"],
+          "wall_seconds": wall})
+    return rec, keys, model, steps
+
+
+def geometry_kernel_checks(cfg, dev):
+    """Kernels 1, 2 and 4 against their plain versions at the halved
+    column count of a geometry move, on the sketch the variant builds."""
+    from commefficient_tpu_torch.core.rounds import args2sketch
+    sketch = args2sketch(cfg)
+    c, pd = sketch.c, sketch._padded_d
+    rot = sketch.rotations_on(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    vp = torch.nn.functional.pad(torch.randn(D, generator=gen, device=dev),
+                                 (0, pd - D))
+    signs = sketch.packed_signs_on(dev)
+    sketch_estimates_checks(vp, rot, c, R, sketch.sign_seed,
+                            sketch._one_mix_signs, D, f"c={c}", signs)
+    err, route = sketch_quant_checks(vp, rot, c, R, sketch.sign_seed,
+                                     sketch._one_mix_signs, "int8", f"c={c}",
+                                     signs)
+    return {"cols": c, "sketch": SKETCH_TOL, "estimates": ESTIMATES_TOL,
+            "sketch_quant_max_abs_err": err, "sketch_quant_route": route}
+
+
+def switch_exactness(model, steps, dev):
+    """One round through the cached variant the walk switched to, against
+    a FedModel built fresh at that lattice point (its base variant) from
+    the same weights, client state and server tables: weights, metrics
+    and tables bit for bit."""
+    from commefficient_tpu_torch.autopilot import key_str
+    opt = steps[-1][0]
+    var = model._variants.get(model._variant_key)
+    cfg = var.cfg
+    check(cfg is model.args, "switch: the model's config is not its variant's")
+    module, params = cv_train.build_model(cfg, dev)
+    fresh_args = cfg.replace(autopilot="off", autopilot_band="")
+    fresh = cv_train.make_fed_model(module, params, fresh_args,
+                                    model.padded_batch_size, dev)
+    fresh_opt = fed_model.FedOptimizer([{"lr": 0.01}], fresh_args,
+                                       model=fresh)
+    check(fresh._variant_key == var.key, "switch: the fresh build's point")
+    fresh.ps_weights = model.ps_weights.clone()
+    fresh.round_index = model.round_index
+    fresh_opt.server_state = ServerState(*(t.clone()
+                                           for t in opt.server_state))
+    opt.param_groups = [{"lr": 0.01}]
+    loader = cv_train.get_data_loaders(model.args)[0]
+    batch = next(iter(loader))
+    out = []
+    for m, o in ((model, opt), (fresh, fresh_opt)):
+        m.train(True)  # the trainer left the model on its eval pass
+        metrics = m(batch)
+        o.step()
+        out.append((m.ps_weights.clone(), metrics,
+                    [t.clone() for t in o.server_state]))
+    (wa, ma, sa), (wb, mb, sb) = out
+    check(torch.equal(wa, wb), "switch: weights differ from a fresh build's")
+    # losses and accuracies (the bytes follow each model's own history)
+    check(all(np.array_equal(x, y) for x, y in zip(ma[:-2], mb[:-2])),
+          "switch: metrics differ from a fresh build's")
+    check(all(torch.equal(x, y) for x, y in zip(sa, sb)),
+          "switch: server tables differ from a fresh build's")
+    fresh.finalize()
+    return key_str(var.key)
+
+
+def autopilot_paths(dev):
+    """The compression autopilot on the ResNet9 cell:
+
+    - (a) the dtype walk from f32 under ``AP_BAND`` (above the f32
+      recovery error), every round probed, cooldown 1: f32 -> bf16 ->
+      int8 within 5 rounds, every observed error at or under HI, kernel 4
+      once an int8 round and kernel 1 then only on the server, the
+      uplink 4·r·c bytes a client at f32 and bf16 2·r·c, int8 r·c + 4·r;
+    - (b) ``--autopilot_geometry`` over 7 rounds: the columns halved at
+      least once, the server's tables re-seeded at the new shape, and
+      kernels 1, 2 and 4 held against their plain versions at it;
+    - (c) ``--autopilot_pin`` at the int8 point bit-equal to the static
+      int8 config (cuDNN and PyTorch deterministic);
+    - (d) one round through the variant the walk switched to bit-equal to
+      a FedModel built fresh at that point from the same state.
+    Each run's cache built at most the points it visited and its
+    trajectory replays exactly."""
+    with deterministic():
+        rec, keys, model, steps = autopilot_run("autopilot_walk", AP_ARGV,
+                                                AP_BAND)
+        check([k.split("-")[0] for k in keys] == ["f32", "bf16", "bf16",
+                                                  "int8", "int8"],
+              f"autopilot_walk: the points {keys}, want f32, bf16, bf16, "
+              "int8, int8")
+        switched = switch_exactness(model, steps, dev)
+    emit({"phase": "autopilot_switch", "key": switched, "bit_exact": True})
+    model.finalize()
+    del model, steps
+    torch.cuda.empty_cache()
+    rec, keys, model, steps = autopilot_run("autopilot_geometry",
+                                            AP_GEOM_ARGV + [
+                                                "--autopilot_geometry"],
+                                            AP_GEOM_BAND)
+    cols = [int(k.split("-c")[1].split("-")[0]) for k in keys]
+    check(min(cols) < C, f"autopilot_geometry: the columns never halved: "
+          f"{keys}")
+    for _, key, shape in steps:
+        kc = int(key.cols)
+        check(shape == (R, kc), f"autopilot_geometry: server tables {shape} "
+              f"after a round at {kc} columns")
+    halved = model._variants.peek(next(
+        k for k in model._variants.keys() if k.cols < C))
+    geom = geometry_kernel_checks(halved.cfg, dev)
+    emit({"phase": "autopilot_geometry_kernels", **geom,
+          "server_shapes": [list(s) for _, _, s in steps]})
+    model.finalize()
+    del model, steps
+    torch.cuda.empty_cache()
+    weights = {}
+    with deterministic():
+        for name, extra in (("static", ["--sketch_dtype", "int8"]),
+                            ("pinned", ["--autopilot", "on",
+                                        "--autopilot_band", AP_BAND,
+                                        "--autopilot_pin", AP_PIN])):
+            reset_launches()
+            cv_train.main(AP_PIN_ARGV + extra)
+            m = fed_model._CURRENT_MODEL
+            weights[name] = (m.ps_weights.to("cpu"), launch_counts(),
+                             m.autopilot_record(), m._variants.counters())
+    from commefficient_tpu_torch.autopilot import replay_record
+    rec, cache = weights["pinned"][2], weights["pinned"][3]
+    check(cache["misses"] == 1, f"autopilot_pin: variants built {cache}")
+    check(replay_record(rec) == [t["key"] for t in rec["trajectory"]],
+          "autopilot_pin: the replayed trajectory differs")
+    check(torch.equal(weights["static"][0], weights["pinned"][0]),
+          "autopilot_pin: weights differ from the static int8 config's")
+    check(weights["static"][1] == weights["pinned"][1],
+          f"autopilot_pin: launches {weights['pinned'][1]} against "
+          f"{weights['static'][1]}")
+    check(all(t["action"] == "pinned" for t in rec["trajectory"]),
+          "autopilot_pin: the controller moved")
+    emit({"phase": "autopilot_pin", "key": AP_PIN, "bit_exact": True,
+          "launches": weights["pinned"][1], "cache": cache})
+
+
+SLO_ARGV = ["--slo_round_p95", "1e-4", "--slo_window", "4",
+            "--slo_fast_window", "2", "--alarm_slo_burn", "1",
+            "--flightrec_rounds", "4"]
+
+
+def scrape(port, path):
+    """GET ``path`` from the exporter on 127.0.0.1:``port``, directly (no
+    proxy from the environment)."""
+    import urllib.request
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    with opener.open(f"http://127.0.0.1:{port}{path}", timeout=30) as resp:
+        return resp.read().decode()
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def series_value(text, name, **labels):
+    """The value of the first series ``name`` whose labels hold
+    ``labels``, or None."""
+    for line in text.splitlines():
+        if not line.startswith(name + "{"):
+            continue
+        if all(f'{k}="{v}"' in line for k, v in labels.items()):
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+def slo_live_path():
+    """The main path's 4 rounds with the live exporter on a free port, an
+    SLO of 0.1 ms a round (below every round's wall), its burn alarm at
+    1 and the flight recorder: ``/metrics`` and ``/healthz`` scraped on
+    127.0.0.1 (``commeff_rounds_total`` the rounds run,
+    ``commeff_slo_burn{objective="round_latency"}`` 20); the ``slo_burn``
+    alarm on every round after the fast window's first, with its
+    objective breakdown; the recorder's bundle for it; the launches the
+    main path's."""
+    from commefficient_tpu_torch.telemetry import live
+    port = free_port()
+    with tempfile.TemporaryDirectory(prefix="slo_smoke_") as root, \
+            working_dir(root):
+        pm = os.path.join(root, "pm")
+        row, counts, rounds, recs, wall = ledger_run(
+            MAIN_ARGV + SLO_ARGV + ["--live_port", str(port),
+                                    "--postmortem_dir", pm],
+            os.path.join(root, "slo.jsonl"))
+        try:
+            text, health = scrape(port, "/metrics"), scrape(port, "/healthz")
+        finally:
+            live.shutdown_plane()
+        bundles = sorted(os.listdir(pm)) if os.path.isdir(pm) else []
+    want = sketch_round_launches(rounds, 2)
+    check(counts == want, f"slo_live_path: launches {counts}, want {want}")
+    check(min(row["round_times"]) > 1e-4, "slo_live_path: a round faster "
+          f"than the 0.1 ms SLO: {row['round_times']}")
+    check(health == "ok\n", f"slo_live_path: /healthz {health!r}")
+    got = series_value(text, "commeff_rounds_total")
+    check(got == rounds, f"slo_live_path: commeff_rounds_total {got}, want "
+          f"{rounds}")
+    burn = series_value(text, "commeff_slo_burn", objective="round_latency")
+    check(burn == 20.0, f"slo_live_path: slo_burn round_latency {burn}")
+    rnds = [r for r in recs if r["kind"] == "round"]
+    fired = [[a for a in r["alarms"] if a["rule"] == "slo_burn"]
+             for r in rnds]
+    check([bool(f) for f in fired] == [False] + [True] * (rounds - 1),
+          f"slo_live_path: slo_burn on rounds {[bool(f) for f in fired]}")
+    check(all(f[0]["slo_burn_round_latency"] == 20.0 for f in fired[1:]),
+          "slo_live_path: the alarm lacks its objective breakdown")
+    check(any("slo_burn" in b for b in bundles),
+          f"slo_live_path: no slo_burn bundle in {bundles}")
+    emit({"phase": "slo_live_path", "rounds": rounds, "launches": counts,
+          "round_seconds": row["round_times"], "wall_seconds": wall,
+          "slo": rnds[-1]["slo"], "alarm": fired[1][0], "bundles": bundles,
+          "scrape_lines": len(text.splitlines()),
+          "scrape": [ln for ln in text.splitlines()
+                     if "rounds_total" in ln or "slo_burn" in ln]})
+
+
+def causal_checks(tag, recs, spans=()):
+    """Every round record carries a DAG with no orphan parent whose
+    critical path (the device-time overlay applied) sums to its wall
+    within ``CLOCK_TOLERANCE``; ``spans`` name spans each must hold.
+    Returns each round's bucket seconds."""
+    from commefficient_tpu_torch.telemetry.causal import assemble_traces
+    from commefficient_tpu_torch.telemetry.critpath import (CLOCK_TOLERANCE,
+                                                            critical_path)
+    rnds = [r for r in recs if r["kind"] == "round"]
+    traces = assemble_traces(rnds)
+    crits = []
+    for r in rnds:
+        t = traces.get(r["causal"]["trace"])
+        check(t is not None and not t["orphans"],
+              f"{tag}: round {r['round']} orphans {t and t['orphans']}")
+        names = {s["name"] for s in r["causal"]["spans"]}
+        check(set(spans) <= names, f"{tag}: round {r['round']} lacks "
+              f"{set(spans) - names}")
+        crit = critical_path(r["causal"], r.get("device_time"))
+        total = sum(crit["buckets"].values())
+        check(abs(total - r["causal"]["wall"]) <= CLOCK_TOLERANCE,
+              f"{tag}: round {r['round']} buckets {total} against the wall "
+              f"{r['causal']['wall']}")
+        crits.append({k: v for k, v in crit["buckets"].items() if v > 0})
+    return crits
+
+
+def causal_paths():
+    """Causal round tracing on the ResNet9 cell:
+
+    - (a) ``--causal_trace --profile --ledger`` on the main path with the
+      slow-round SLO alarm and the flight recorder: every round's DAG
+      whole and its critical path summing to its wall, the ``--profile``
+      device-time overlay applied; (d) the alarm's bundle carries
+      ``critpath_diff``;
+    - (b) ``--async_buffer_size 4`` on the churny schedule: the records
+      carry ``cohort_issue``/``arrival_dequeue`` under ``async_fold``;
+    - (c) the flag is inert: 3 rounds with and without it, the weights
+      bit-equal (cuDNN and PyTorch deterministic)."""
+    from commefficient_tpu_torch.telemetry.flightrec import load_postmortem
+    with tempfile.TemporaryDirectory(prefix="causal_smoke_") as root, \
+            working_dir(root):
+        pm = os.path.join(root, "pm")
+        row, counts, rounds, recs, wall = ledger_run(
+            MAIN_ARGV + SLO_ARGV + ["--causal_trace", "--profile",
+                                    "--postmortem_dir", pm],
+            os.path.join(root, "traced.jsonl"))
+        want = sketch_round_launches(rounds, 2)
+        check(counts == want, f"causal_paths: launches {counts}, want {want}")
+        crits = causal_checks("causal_paths", recs,
+                              ("round", "h2d", "round_dispatch", "server"))
+        bundle = [b for b in sorted(os.listdir(pm)) if "slo_burn" in b]
+        check(bundle, f"causal_paths: no slo_burn bundle in {os.listdir(pm)}")
+        data, problems = load_postmortem(os.path.join(pm, bundle[0]))
+        diff = data["context"].get("critpath_diff")
+        check(not problems and diff is not None,
+              f"causal_paths: the bundle's critpath_diff {diff}, {problems}")
+        emit({"phase": "causal_traced", "rounds": rounds, "launches": counts,
+              "critical_path_s": crits, "wall_seconds": wall,
+              "device_time_rounds": sum("device_time" in r for r in recs
+                                        if r["kind"] == "round"),
+              "bundle_critpath_diff": diff["rows"][:3]})
+        with arrivals(churny):
+            _, counts_a, rounds_a, recs_a, _ = ledger_run(
+                MAIN_ARGV + ASYNC_K4 + ["--causal_trace"],
+                os.path.join(root, "async.jsonl"))
+        causal_checks("causal_async", recs_a,
+                      ("async_fold", "cohort_issue", "arrival_dequeue"))
+        for r in recs_a:
+            if r["kind"] != "round":
+                continue
+            by_id = {s["id"]: s["name"] for s in r["causal"]["spans"]}
+            parents = {s["name"]: by_id.get(s["parent"])
+                       for s in r["causal"]["spans"]}
+            check(parents["cohort_issue"] == parents["arrival_dequeue"]
+                  == "async_fold", f"causal_async: parents {parents}")
+        weights = []
+        with deterministic():
+            for i, extra in enumerate(([], ["--causal_trace"])):
+                ledger_run(profile_round.ARGV + ["--num_epochs", "0.3",
+                                             "--pivot_epoch", "0.2",
+                                             "--lr_scale", "0.1"] + extra,
+                           os.path.join(root, f"inert{i}.jsonl"))
+                weights.append(fed_model._CURRENT_MODEL.ps_weights.to("cpu"))
+        check(torch.equal(*weights), "causal_paths: --causal_trace moved "
+              "the weights")
+    emit({"phase": "causal_async_inert", "async_rounds": rounds_a,
+          "async_launches": counts_a, "inert_bit_exact": True})
+
+
+def svc_cfg(extra=()):
+    return parse_args(default_lr=cv_train.DEFAULT_LR,
+                      argv=profile_round.ARGV + list(extra))
+
+
+def svc_tenant(seed, rounds):
+    """A tenant's config and its first ``rounds`` batches (copies: the
+    loader may reuse its buffers)."""
+    args = svc_cfg(["--seed", str(seed)])
+    loader, _, ds = cv_train.get_data_loaders(args)
+    args.num_clients = int(ds.num_clients)
+    batches = [{k: np.array(v, copy=True) for k, v in b.items()}
+               for b in itertools.islice(iter(loader), rounds)]
+    return args, batches
+
+
+SVC_LR = 0.01
+SVC_ROUNDS = 3
+
+
+def svc_builder(cfg, device):
+    """A full-width ResNet9 tenant at a constant LR, on the card the
+    service reserved (the pod's first where time-sliced)."""
+    dev = device if device is not None else resolve_device(cfg.device)
+    module, params = cv_train.build_model(cfg, dev)
+    model = cv_train.make_fed_model(module, params, cfg, cfg.local_batch_size,
+                                    dev)
+    return model, fed_model.FedOptimizer([{"lr": SVC_LR}], cfg, model=model)
+
+
+def svc_solo(cfg, batches, ledger):
+    model, opt = svc_builder(cfg.replace(ledger=ledger), None)
+    for batch in batches:
+        model(batch)
+        opt.step()
+    weights = model.ps_weights.to("cpu").numpy().copy()
+    model.finalize()
+    return weights
+
+
+def canon(path):
+    skip = ("ts", "spans", "counters", "device_time", "host_rss_peak_bytes",
+            "hbm_peak_bytes")
+    return [{k: v for k, v in r.items() if k not in skip}
+            for r in ledger_records(path) if r["kind"] == "round"]
+
+
+def service_paths(dev):
+    """The job service (fedservice/) with two full-width ResNet9 tenants
+    (seeds 21 and 22) on the one card, cuDNN and PyTorch deterministic:
+
+    - (a) ``fair``: each tenant's final weights and ledger shard bit-equal
+      to its solo run; the launches of 2 x 3 rounds;
+    - (b) ``backlog`` with ``--alarm_job_starvation 2``: the 2-round
+      tenant starves behind the 5-round one and fires ``job_starvation``;
+    - (c) a seed-colliding spec and a ``(2, 1)`` spec refused, each
+      counted as ``admission_rejected``;
+    - (d) a tenant migrated from ``(1, 1)`` to time-sliced and back
+      finishes bit-equal to its unmigrated run;
+    - (e) one scrape of the live plane carries ``job="service"`` and each
+      tenant's series."""
+    from commefficient_tpu_torch.fedservice import (AdmissionError,
+                                                    FedService, JobSpec)
+    from commefficient_tpu_torch.telemetry import live
+    from commefficient_tpu_torch.telemetry.sinks import job_ledger_path
+    tenants = {seed: svc_tenant(seed, SVC_ROUNDS + 2) for seed in (21, 22)}
+    port = free_port()
+    with tempfile.TemporaryDirectory(prefix="svc_smoke_") as root, \
+            working_dir(root), deterministic():
+        solo = {s: svc_solo(a, b[:SVC_ROUNDS],
+                            os.path.join(root, f"solo{s}.jsonl"))
+                for s, (a, b) in tenants.items()}
+        led = os.path.join(root, "svc.jsonl")
+        svc = FedService(svc_cfg(["--ledger", led, "--live_port", str(port)]),
+                         devices=[dev])
+        reset_launches()
+        try:
+            for s, (a, b) in tenants.items():
+                svc.admit(JobSpec(f"t{s}", a, svc_builder,
+                                  lambda r, b=b: b[r], rounds=SVC_ROUNDS))
+            rejected = []
+            for spec in (JobSpec("dup", tenants[21][0], svc_builder,
+                                 lambda r: None, rounds=1),
+                         JobSpec("wide", tenants[22][0].replace(seed=23),
+                                 svc_builder, lambda r: None, rounds=1,
+                                 mesh_demand=(2, 1))):
+                try:
+                    svc.admit(spec)
+                except AdmissionError as e:
+                    rejected.append(str(e))
+            ticks = svc.run()
+            counts = launch_counts()
+            text = scrape(port, "/metrics")
+            got = {f"t{s}": svc.job_state(f"t{s}") for s in tenants}
+        finally:
+            svc.close()
+            live.shutdown_plane()
+        for j, s in enumerate(tenants):
+            check(np.array_equal(got[f"t{s}"], solo[s]),
+                  f"service_paths: tenant {s}'s weights differ from its solo "
+                  "run's")
+            check(canon(job_ledger_path(led, j)) ==
+                  canon(os.path.join(root, f"solo{s}.jsonl")),
+                  f"service_paths: tenant {s}'s shard differs from its solo "
+                  "ledger")
+        want = sketch_round_launches(2 * SVC_ROUNDS, 2)
+        want.update({k.__name__: 0 for k in ATTN})
+        check(counts == want, f"service_paths: launches {counts}, want {want}")
+        check(len(rejected) == 2, f"service_paths: refused {rejected}")
+        recs = ledger_records(led)
+        refused = [r for r in recs if r["kind"] == "round"
+                   and r["probes"].get("admission_rejected")]
+        check(len(refused) == 2 and all(
+            [a["rule"] for a in r["alarms"]] == ["admission_rejected"]
+            for r in refused), "service_paths: the refusals' alarms")
+        check(series_value(text, "commeff_job_active", job="service")
+              is not None, "service_paths: no job=\"service\" series")
+        for j in range(2):
+            got_r = series_value(text, "commeff_rounds_total", job=str(j))
+            check(got_r == SVC_ROUNDS, f"service_paths: job {j} scraped "
+                  f"{got_r} rounds")
+        emit({"phase": "service_fair", "ticks": ticks, "launches": counts,
+              "bit_exact": True, "refused": rejected,
+              "scrape": [ln for ln in text.splitlines()
+                         if "rounds_total" in ln or "job_" in ln]})
+        led_b = os.path.join(root, "backlog.jsonl")
+        svc = FedService(svc_cfg(["--ledger", led_b,
+                                  "--alarm_job_starvation", "2"]),
+                         policy="backlog", devices=[dev])
+        fired = []
+        try:
+            for s, rounds in ((21, SVC_ROUNDS + 2), (22, 2)):
+                a, b = tenants[s]
+                svc.admit(JobSpec(f"t{s}", a, svc_builder,
+                                  lambda r, b=b: b[r], rounds=rounds))
+            while svc.active_jobs():
+                fired += svc.tick()
+        finally:
+            svc.close()
+        starved = [a for a in fired if a["rule"] == "job_starvation"]
+        check(starved and starved[0]["job"] == 1.0,
+              f"service_paths: backlog alarms {fired}")
+        emit({"phase": "service_backlog", "alarms": fired})
+        svc = FedService(svc_cfg(), ckpt_dir=os.path.join(root, "ckpt"),
+                         devices=[dev])
+        a, b = tenants[21]
+        try:
+            svc.admit(JobSpec("m", a, svc_builder, lambda r: b[r],
+                              rounds=SVC_ROUNDS, mesh_demand=(1, 1)))
+            svc.tick()
+            before = svc.job_state("m")
+            svc.migrate("m", mesh_demand=None)
+            check(np.array_equal(before, svc.job_state("m")),
+                  "service_paths: the migration's restore")
+            svc.tick()
+            svc.migrate("m", mesh_demand=(1, 1))
+            svc.run()
+            migrated = svc.job_state("m")
+        finally:
+            svc.close()
+        check(np.array_equal(migrated, solo[21]),
+              "service_paths: the migrated tenant differs from its "
+              "unmigrated run")
+    emit({"phase": "service_migrate", "bit_exact": True,
+          "path": ["(1, 1)", "time-sliced", "(1, 1)"]})
+
+
 ROOFLINE_MAX = 1.05
 
 
@@ -4266,6 +4870,14 @@ def main():
     imagenet_path()
     torch.cuda.empty_cache()
     registry_gate()
+    torch.cuda.empty_cache()
+    autopilot_paths(dev)
+    torch.cuda.empty_cache()
+    slo_live_path()
+    causal_paths()
+    torch.cuda.empty_cache()
+    service_paths(dev)
+    torch.cuda.empty_cache()
     no_weights_left()
 
     keys = ("name", "route", "source", "replaces", "launches",

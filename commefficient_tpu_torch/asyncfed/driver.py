@@ -1,8 +1,8 @@
 """The asynchronous round driver: issue cohorts, fold what has arrived.
 
 Port of ``commefficient_tpu/asyncfed/driver.py`` (``AsyncRoundDriver``
-:31-209), without the reference's tracer spans. Host-side bookkeeping
-only. Each trainer step the driver issues the sampled cohort (every
+:31-209), with its ``cohort_issue``/``arrival_dequeue`` causal spans
+(:42-45, 74-90) under ``--causal_trace``. Host-side bookkeeping only. Each trainer step the driver issues the sampled cohort (every
 slot gets an arrival delay from the attached arrival process; punctual
 by default), then assembles the fold batch from up to K updates that
 have arrived. The fold batch keeps the cohort width: arrived updates
@@ -17,6 +17,7 @@ accounting are exact.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -39,6 +40,10 @@ class AsyncRoundDriver:
         self.queue = ArrivalQueue()
         self._arrival: Optional[ArrivalProcess] = None
         self._stamp = stamp
+        # optional CausalTracer (--causal_trace), attached by FedModel:
+        # cohort_issue / arrival_dequeue spans nest under the enclosing
+        # async_fold telemetry span
+        self.causal = None
         self._fold = 0
         self.issued_total = 0
         self.folded_total = 0
@@ -64,13 +69,20 @@ class AsyncRoundDriver:
             delays = np.zeros((W,), np.int64)
         if self._stamp is not None:
             self._stamp(ids, now)
-        for i in range(W):
-            self.queue.push(now + int(delays[i]), {
-                "issue": now,
-                "slot": {k: np.asarray(v)[i] for k, v in batch.items()},
-            })
-        self.issued_total += W
-        arrived = self.queue.pop_arrived(now, self.k)
+        causal = self.causal
+        ctx = (causal.span("cohort_issue") if causal is not None
+               else contextlib.nullcontext())
+        with ctx:
+            for i in range(W):
+                self.queue.push(now + int(delays[i]), {
+                    "issue": now,
+                    "slot": {k: np.asarray(v)[i] for k, v in batch.items()},
+                })
+            self.issued_total += W
+        ctx = (causal.span("arrival_dequeue") if causal is not None
+               else contextlib.nullcontext())
+        with ctx:
+            arrived = self.queue.pop_arrived(now, self.k)
         self.folded_total += len(arrived)
         fold_batch = self._assemble(arrived, batch)
         staleness = np.zeros((self.num_workers,), np.float32)

@@ -41,18 +41,13 @@ NATURAL_NUM_CLIENTS = {
     "PERSONA": 17568,
 }
 
-# the reference trainer's flags that the port does not have yet
+# the reference trainer's flags that the port does not have yet: the
+# multi-GPU runtime's and sequence parallelism's
 NOT_PORTED_FLAGS = (
     "--seq_devices", "--seq_impl",
     "--num_devices", "--mesh",
     "--coordinator_address",
     "--num_processes", "--process_id",
-    "--alarm_job_starvation", "--live_port", "--causal_trace",
-    "--slo_round_p95", "--slo_staleness_max", "--slo_eps_rounds",
-    "--slo_starvation", "--slo_error_budget", "--slo_window",
-    "--slo_fast_window", "--alarm_slo_burn", "--autopilot",
-    "--autopilot_band", "--autopilot_cooldown", "--autopilot_cache_size",
-    "--autopilot_warm_ahead", "--autopilot_pin", "--autopilot_geometry",
 )
 
 
@@ -276,6 +271,92 @@ class Config:
     # (0 = off)
     flightrec_rounds: int = 0
     postmortem_dir: str = "runs/postmortems"
+    # job_starvation rule (telemetry/alarms.py), evaluated by the
+    # job service's own engine: fire when a runnable job has
+    # waited more than this many scheduler ticks since it last ran.
+    # 0 = off; shares the --on_divergence action.
+    alarm_job_starvation: float = 0.0
+    # live operations plane (telemetry/live.py): serve the process's
+    # in-memory metric registry in Prometheus text exposition format
+    # from a localhost-only exporter thread at this port (/metrics +
+    # /healthz). 0 = off: nothing is constructed and the run stays
+    # bit-identical. Entirely host-side; excluded from the registry
+    # run key like the other observability taps.
+    live_port: int = 0
+    # causal round tracing (telemetry/causal.py): record the round's
+    # span DAG with deterministic ids and stamp it on the round
+    # record (optional schema-v7 "causal" key) for the critical-path
+    # explainer (telemetry/critpath.py). Off (default): no tracer is
+    # constructed and no ledger field appears; on or off, the round's
+    # numbers are the same. Entirely host-side; hash-excluded like the
+    # other observability taps.
+    causal_trace: bool = False
+    # per-job SLO targets (telemetry/slo.py) — each 0 leaves that
+    # objective un-armed; any nonzero target arms the SLO engine,
+    # which merges slo_burn_* probes into the round record and stamps
+    # the v6 "slo" key:
+    # round-latency objective: a round slower than this p95 target
+    # (seconds) is an SLO violation
+    slo_round_p95: float = 0.0
+    # staleness objective: a round whose max folded staleness exceeds
+    # this ceiling (rounds) is a violation
+    slo_staleness_max: float = 0.0
+    # privacy-burn objective: ε must stay under the linear spend
+    # schedule dp_epsilon * (round+1) / slo_eps_rounds over this
+    # horizon (rounds); needs --dp sketch with a hard --dp_epsilon
+    slo_eps_rounds: int = 0
+    # starvation objective (job service): a tick whose max
+    # job wait exceeds this many ticks is a violation
+    slo_starvation: float = 0.0
+    # fraction of windowed rounds allowed to violate before the burn
+    # rate reads 1.0 (the error budget)
+    slo_error_budget: float = 0.05
+    # slow / fast rolling windows (rounds) for the multi-window burn
+    # rate: burn = min(fast_rate, slow_rate) / error_budget — the
+    # fast window gives detection latency, the slow window keeps a
+    # transient spike from paging
+    slo_window: int = 32
+    slo_fast_window: int = 8
+    # slo_burn rule (telemetry/alarms.py): fire when slo_burn_max
+    # reaches this burn rate. 0 = off; shares the --on_divergence
+    # action.
+    alarm_slo_burn: float = 0.0
+    # adaptive compression autopilot (autopilot/): "on" runs the
+    # seeded between-rounds controller that walks the discrete knob
+    # lattice (sketch_dtype x k x rows x cols x recall) toward the
+    # cheapest round whose recovery error stays inside
+    # --autopilot_band, dispatching through a bounded LRU of round
+    # variants. "off" (default): no controller, and the round is the
+    # one a build without the flag runs (the base variant is built
+    # from THIS config object unchanged).
+    autopilot: str = "off"
+    # target recovery-error band "LO:HI" (required with --autopilot
+    # on): the controller cheapens below LO after the cooldown, backs
+    # off above HI immediately and never re-enters the offending
+    # point. The LO..HI gap is the hysteresis that prevents
+    # oscillation.
+    autopilot_band: str = ""
+    # in-band probed rounds to wait between cheapening moves (back-off
+    # ignores it — safety beats cooldown)
+    autopilot_cooldown: int = 2
+    # bound of the round-variant LRU (variant bundles kept alive);
+    # evicted variants are rebuilt on re-visit, stamped in the ledger
+    autopilot_cache_size: int = 4
+    # build a decided move's round variant under the current round's
+    # host phase (span autopilot_warm), so the next round's dispatch
+    # does not; only DECIDED points are ever warmed — unvisited
+    # lattice points are never built
+    autopilot_warm_ahead: bool = True
+    # hold the controller at one lattice point (variant-key spelling,
+    # e.g. "int8-k50000-r5-c500000-re9500"): the full autopilot
+    # machinery engages (cache, trajectory, manifest record) but no
+    # move is ever made — bit-identical to the equivalent static
+    # config
+    autopilot_pin: str = ""
+    # let the ladder extend past the dtype axis into column-halving
+    # geometry steps; a geometry move changes the sketch table shape
+    # and RESETS server momentum/error feedback (runtime/fed_model.py)
+    autopilot_geometry: bool = False
 
     # each sampled client drops out of the round with this probability
     # (its mask rows zeroed; the round renormalises over the survivors)
@@ -362,6 +443,54 @@ class Config:
             "--alarm_async_staleness must be >= 0 (0 = rule off)"
         assert self.flightrec_rounds >= 0, \
             "--flightrec_rounds must be >= 0 (0 = off)"
+        assert self.alarm_job_starvation >= 0, \
+            "--alarm_job_starvation must be >= 0 (0 = rule off)"
+        assert 0 <= self.live_port <= 65535, \
+            "--live_port must be in [0, 65535] (0 = off)"
+        assert self.slo_round_p95 >= 0, \
+            "--slo_round_p95 must be >= 0 (0 = objective off)"
+        assert self.slo_staleness_max >= 0, \
+            "--slo_staleness_max must be >= 0 (0 = objective off)"
+        assert self.slo_eps_rounds >= 0, \
+            "--slo_eps_rounds must be >= 0 (0 = objective off)"
+        if self.slo_eps_rounds > 0:
+            assert self.dp != "off" and self.dp_epsilon > 0, \
+                "--slo_eps_rounds needs --dp sketch with a hard " \
+                "--dp_epsilon budget (nothing spends ε otherwise)"
+        assert self.slo_starvation >= 0, \
+            "--slo_starvation must be >= 0 (0 = objective off)"
+        assert 0.0 < self.slo_error_budget <= 1.0, \
+            "--slo_error_budget must be in (0, 1]"
+        assert self.slo_window >= 1, \
+            "--slo_window must be >= 1"
+        assert 1 <= self.slo_fast_window <= self.slo_window, \
+            "--slo_fast_window must be in [1, --slo_window]"
+        assert self.alarm_slo_burn >= 0, \
+            "--alarm_slo_burn must be >= 0 (0 = rule off)"
+        assert self.autopilot in ("off", "on"), \
+            "--autopilot must be off|on"
+        assert self.autopilot_cooldown >= 0, \
+            "--autopilot_cooldown must be >= 0"
+        assert self.autopilot_cache_size >= 1, \
+            "--autopilot_cache_size must be >= 1"
+        if self.autopilot == "on":
+            assert self.mode == "sketch", \
+                "--autopilot on requires --mode sketch (the knob " \
+                "lattice is sketch geometry + wire dtype)"
+            assert self.autopilot_band, \
+                "--autopilot on requires --autopilot_band LO:HI"
+            try:
+                lo, hi = (float(p)
+                          for p in self.autopilot_band.split(":"))
+            except ValueError:
+                raise AssertionError(
+                    "--autopilot_band must be LO:HI, e.g. 0.2:0.6 "
+                    f"(got {self.autopilot_band!r})") from None
+            assert 0.0 <= lo < hi, \
+                "--autopilot_band needs 0 <= LO < HI"
+            assert self.probe_period > 0, \
+                "--autopilot on needs probes (--probe_every N > 0): " \
+                "the controller steers on the recovery-error probe"
         if self.async_buffer_size > 0:
             assert self.async_buffer_size <= self.num_workers, \
                 "--async_buffer_size must be <= --num_workers " \
@@ -824,6 +953,103 @@ def build_parser(default_lr: Optional[float] = None
     parser.add_argument("--postmortem_dir", type=str,
                         default="runs/postmortems",
                         help="directory postmortem bundles land in")
+    parser.add_argument("--alarm_job_starvation", type=float,
+                        default=0.0,
+                        help="job_starvation rule (job "
+                        "service): fire when a runnable job waited "
+                        "more than this many scheduler ticks since "
+                        "it last ran (0 = off; action from "
+                        "--on_divergence)")
+    parser.add_argument("--live_port", type=int, default=0,
+                        help="serve live metrics (Prometheus text "
+                        "exposition) from a localhost-only exporter "
+                        "thread at this port: /metrics + /healthz "
+                        "(0 = off, nothing constructed)")
+    parser.add_argument("--causal_trace", action="store_true",
+                        dest="causal_trace",
+                        help="causal round tracing: record the "
+                        "round's span DAG (deterministic ids) onto "
+                        "round records for the critical-path "
+                        "explainer (telemetry/critpath.py); "
+                        "host-side only, the round's numbers stay "
+                        "bit-identical")
+    parser.add_argument("--slo_round_p95", type=float, default=0.0,
+                        help="SLO round-latency objective: a round "
+                        "slower than this many seconds is a "
+                        "violation (0 = objective off)")
+    parser.add_argument("--slo_staleness_max", type=float,
+                        default=0.0,
+                        help="SLO staleness objective: a round whose "
+                        "max folded staleness exceeds this many "
+                        "rounds is a violation (0 = off)")
+    parser.add_argument("--slo_eps_rounds", type=int, default=0,
+                        help="SLO privacy-burn objective: ε must "
+                        "stay under the linear spend schedule "
+                        "--dp_epsilon * (round+1) / horizon over "
+                        "this many rounds (0 = off; needs --dp "
+                        "sketch with a hard --dp_epsilon)")
+    parser.add_argument("--slo_starvation", type=float, default=0.0,
+                        help="SLO starvation objective (job "
+                        "service): a tick whose max job wait exceeds "
+                        "this many ticks is a violation (0 = off)")
+    parser.add_argument("--slo_error_budget", type=float,
+                        default=0.05,
+                        help="fraction of windowed rounds allowed to "
+                        "violate an SLO before its burn rate reads "
+                        "1.0")
+    parser.add_argument("--slo_window", type=int, default=32,
+                        help="slow rolling window (rounds) for the "
+                        "multi-window burn rate")
+    parser.add_argument("--slo_fast_window", type=int, default=8,
+                        help="fast rolling window (rounds); burn = "
+                        "min(fast, slow rate) / error budget")
+    parser.add_argument("--alarm_slo_burn", type=float, default=0.0,
+                        help="slo_burn rule: fire when the worst "
+                        "per-objective burn rate (slo_burn_max) "
+                        "reaches this (0 = off; action from "
+                        "--on_divergence)")
+    parser.add_argument("--autopilot", type=str, default="off",
+                        choices=["off", "on"],
+                        help="adaptive compression autopilot "
+                        "(autopilot/): walk the "
+                        "discrete knob lattice (sketch_dtype x k x "
+                        "rows x cols x recall) toward the cheapest "
+                        "round program whose recovery error stays "
+                        "inside --autopilot_band, dispatching round "
+                        "variants through a bounded LRU cache. off "
+                        "(default) runs the round of a build "
+                        "without the flag")
+    parser.add_argument("--autopilot_band", type=str, default="",
+                        help="target recovery-error band LO:HI "
+                        "(required with --autopilot on); cheapen "
+                        "below LO after the cooldown, back off above "
+                        "HI immediately and never re-enter the "
+                        "offending point")
+    parser.add_argument("--autopilot_cooldown", type=int, default=2,
+                        help="in-band probed rounds between "
+                        "cheapening moves (back-off ignores it)")
+    parser.add_argument("--autopilot_cache_size", type=int, default=4,
+                        help="round-variant LRU bound; evicted "
+                        "variants are rebuilt on re-visit (ledger-"
+                        "stamped)")
+    parser.add_argument("--autopilot_warm_ahead", type=int, default=1,
+                        help="1 = build a decided move's round "
+                        "variant under the current round's host "
+                        "phase; 0 = build it at the switch "
+                        "round's dispatch")
+    parser.add_argument("--autopilot_pin", type=str, default="",
+                        help="hold the controller at one lattice "
+                        "point (variant-key spelling, e.g. "
+                        "int8-k50000-r5-c500000-re9500) — full "
+                        "autopilot machinery, zero moves, "
+                        "bit-identical to the equivalent static "
+                        "config")
+    parser.add_argument("--autopilot_geometry", action="store_true",
+                        help="extend the knob ladder past the dtype "
+                        "axis into column-halving geometry steps "
+                        "(a geometry move resets server momentum/"
+                        "error feedback)")
+
     return parser
 
 

@@ -183,6 +183,21 @@ def round_plan(cfg: Config) -> dict:
                           "rot_lanes": resolve_rot_lanes(cfg)}
     if cfg.mode in ("true_topk", "local_topk"):
         plan["k"] = int(cfg.k)
+    if cfg.autopilot == "on":
+        # the knob-lattice walk (reference core/rounds.py:199-210):
+        # enough to interpret and replay-check a ledger whose rounds
+        # were dispatched through the variant cache
+        from commefficient_tpu_torch.autopilot.lattice import (
+            build_ladder, key_of, key_str)
+        plan["autopilot"] = {
+            "band": str(cfg.autopilot_band),
+            "cooldown": int(cfg.autopilot_cooldown),
+            "cache_size": int(cfg.autopilot_cache_size),
+            "warm_ahead": bool(cfg.autopilot_warm_ahead),
+            "pin": str(cfg.autopilot_pin or ""),
+            "base": key_str(key_of(cfg)),
+            "ladder": [key_str(k) for k in build_ladder(cfg)],
+        }
     return plan
 
 

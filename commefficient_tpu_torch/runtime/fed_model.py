@@ -98,8 +98,36 @@ onto the ledger and runs the alarm engine (telemetry/alarms.py; under
 ``--on_divergence abort`` it raises ``DivergenceAbort``);
 ``--flightrec_rounds`` attaches the flight recorder as a sink
 (``self.flightrec``). ``trace`` markers bracket each round and its
-device phases while a ``--profile`` window is open. The autopilot and
-meshes are not ported.
+device phases while a ``--profile`` window is open.
+The live plane (reference fed_model.py:393-409): ``telemetry/live.py
+attach_live_plane`` attaches the ``--live_port`` exporter's sink
+(``self.live_sink``, labelled with the process, the run key and, on a
+job service's ``.job<j>`` shard, the job) and the ``--flightrec_rounds``
+flight recorder (``self.flightrec``) before the meta record. With a
+``--slo_*`` target the run's SLO engine (``self._slo``) observes every
+synchronous round (``_observe_slo``, reference :918-936); with
+``--causal_trace`` every telemetry span is also a causal frame of the
+round's DAG (``telemetry/causal.py``), which the round record carries.
+The round variants (reference :84-105, 274-296, 681-692, 957-1017): the
+client rounds live in a bounded LRU (``autopilot/cache.py``) of
+``_RoundVariant`` bundles keyed by the knob lattice point
+(``autopilot/lattice.py``); the base variant's config is ``args``
+itself, so with ``--autopilot off`` the round is the one the port ran
+before variants. A variant is a knob-substituted Config and its eager
+round closures (``build_client_round`` of the plain and the probed
+flavor, each with its ``CountSketch`` hash and sign state), plus the
+server round ``FedOptimizer`` builds on first use; nothing is compiled.
+Under ``--autopilot on`` the controller observes each finished round's
+probes and moves the dispatch point (``_switch_variant``);
+``FedOptimizer`` runs the server round of the variant that emitted the
+aggregate and re-seeds its tables when a geometry move changes their
+shape. The first dispatch of each flavor of each variant stamps
+``vcompile_events:<key>`` (kernel libraries loaded during it),
+``vcompile_secs:<key>`` (its host wall seconds) and
+``vcompile_programs:<key>`` (1) on the round's record, with the
+autopilot off too; a flavor built ahead under ``--autopilot_warm_ahead``
+is stamped on the switch round instead, with its build, as the
+reference stamps its ahead-of-time compile. Meshes are not ported.
 """
 
 from __future__ import annotations
@@ -114,6 +142,9 @@ import torch
 
 from commefficient_tpu_torch import accounting
 from commefficient_tpu_torch.asyncfed import AsyncRoundDriver
+from commefficient_tpu_torch.autopilot import (RoundVariantCache, apply_knobs,
+                                               build_controller, key_of,
+                                               key_str)
 from commefficient_tpu_torch.clientstore import (HostClientStore,
                                                  StorePrefetcher,
                                                  resolve_clientstore,
@@ -134,13 +165,37 @@ from commefficient_tpu_torch.privacy.mechanism import (SERVER_NOISE_TAG,
 from commefficient_tpu_torch.serialization import msgpack_serialize
 from commefficient_tpu_torch.telemetry import clock, trace
 from commefficient_tpu_torch.telemetry.alarms import build_alarm_engine
-from commefficient_tpu_torch.telemetry.core import build_telemetry
-from commefficient_tpu_torch.telemetry.flightrec import FlightRecorder
+from commefficient_tpu_torch.telemetry.causal import build_causal_tracer
+from commefficient_tpu_torch.telemetry.core import (build_telemetry,
+                                                    compile_delta,
+                                                    compile_mark)
+from commefficient_tpu_torch.telemetry.live import attach_live_plane
 from commefficient_tpu_torch.telemetry.registry import config_hash
+from commefficient_tpu_torch.telemetry.sinks import job_index_of_ledger
+from commefficient_tpu_torch.telemetry.slo import build_slo_engine
 
 # the most recently constructed FedModel, found by FedOptimizer(args)
 # as in the reference
 _CURRENT_MODEL: Optional["FedModel"] = None
+
+
+class _RoundVariant:
+    """One lattice point's round bundle (reference fed_model.py:84-105):
+    the knob-substituted Config and its eager client rounds, the plain
+    flavor and (sketch mode with probes) the probed one. ``server_fn``
+    is built by FedOptimizer on first use; ``compiled`` holds the
+    flavors whose first dispatch is already stamped on the ledger."""
+
+    __slots__ = ("key", "cfg", "round_fn", "round_probed", "server_fn",
+                 "compiled")
+
+    def __init__(self, key, cfg, round_fn, round_probed):
+        self.key = key
+        self.cfg = cfg
+        self.round_fn = round_fn
+        self.round_probed = round_probed
+        self.server_fn = None
+        self.compiled = set()
 
 
 class FedModel:
@@ -245,17 +300,40 @@ class FedModel:
         self.probe_period = int(args.probe_period)
         probes_on = self.probe_period > 0
 
-        def build_round(with_recovery):
+        def build_round(cfg, with_recovery):
             return build_client_round(
-                args, loss_fn, padded_batch_size, stats_fn,
+                cfg, loss_fn, padded_batch_size, stats_fn,
                 dense_rows=self.client_store is not None,
                 client_weights=self.async_k > 0, probes=probes_on,
                 probe_recovery=with_recovery)
 
-        self._client_round = build_round(False)
-        self._client_round_probed = (build_round(True)
-                                     if probes_on and args.mode == "sketch"
-                                     else None)
+        # the round variants, keyed by the knob lattice point; the base
+        # variant's config IS ``args`` (apply_knobs returns the same
+        # object at the base key), so with the autopilot off the round
+        # is built from exactly the config a build without variants
+        # would use
+        def build_variant(key):
+            cfg = apply_knobs(args, key)
+            return _RoundVariant(
+                key, cfg, build_round(cfg, False),
+                (build_round(cfg, True)
+                 if probes_on and cfg.mode == "sketch" else None))
+
+        self._variants = RoundVariantCache(
+            build_variant, max_size=int(args.autopilot_cache_size))
+        self._variant_key = key_of(args)
+        self._autopilot = build_controller(args)
+        if self._autopilot is not None:
+            # --autopilot_pin starts (and holds) at the pinned point
+            self._variant_key = self._autopilot.key
+            if self._variant_key != key_of(args):
+                self.args = args = apply_knobs(args, self._variant_key)
+        # the config the variants' knobs are applied to
+        self._autopilot_base = args
+        self.pending_variant_key = self._variant_key
+        # the dispatch point's bundle is built now, as the round was
+        # before variants (a misconfigured round fails at construction)
+        self._variants.get(self._variant_key)
         self.pending_aggregated = None
         # the round's state ids, dead slots at the dead-slot row: the
         # server round's velocity rewrite (true_topk) scatters there
@@ -304,16 +382,28 @@ class FedModel:
         if self.alarm_engine is not None:
             self.telemetry.on_device_time = \
                 self.alarm_engine.check_device_time
-        # the flight recorder attaches before the meta record is
-        # emitted, so its bundles carry it; its registry lineage arms
-        # only when the run writes a ledger, as the manifest does
-        self.flightrec = None
-        if int(args.flightrec_rounds) > 0:
-            self.flightrec = FlightRecorder(
-                args, int(args.flightrec_rounds),
-                labels={"process": 0, "run": config_hash(args)[:8]},
-                runs_dir="runs" if args.ledger else "")
-            self.telemetry.add_sink(self.flightrec)
+        # the live plane: exporter sink and flight recorder attach
+        # before the meta record is emitted (the live sink derives
+        # clients/s from the plan, the recorder stamps the bundle's
+        # meta); both stay None with the knobs unset. The job label is
+        # the job service's ledger shard index; the registry lineage
+        # arms only when the run writes a ledger, as the manifest does
+        job = job_index_of_ledger(args.ledger)
+        labels = {"process": 0, "run": config_hash(args)[:8]}
+        if job is not None:
+            labels["job"] = job
+        self.live_sink, self.flightrec = attach_live_plane(
+            self.telemetry, args, labels=labels,
+            runs_dir="runs" if args.ledger else "")
+        # the run's SLO engine (None unless a --slo_* target is set),
+        # observed once a synchronous round
+        self._slo = build_slo_engine(args)
+        # the causal tracer (None unless --causal_trace): every span
+        # also records a causal frame, keyed by the job index so the
+        # job service's grant spans stitch in by id
+        self.telemetry.set_causal_tracer(build_causal_tracer(args, job=job))
+        if self._async_driver is not None:
+            self._async_driver.causal = self.telemetry.causal
         # the roofline cost model (analysis/cost.py), made on the first
         # --profile'd round
         self._cost_model = None
@@ -358,6 +448,12 @@ class FedModel:
         step_t0 = (clock.tick()
                    if eng is not None and eng.step_time_ratio > 0
                    and self.pipeline_depth <= 1 else None)
+        # an SLO latency sample needs a wall clock on every synchronous
+        # round (pipelined dispatch times measure the host, not the
+        # round)
+        slo_t0 = (clock.tick()
+                  if self._slo is not None and self.pipeline_depth <= 1
+                  else None)
         staleness = None
         if self._async_driver is not None:
             # issue the sampled cohort, then fold what has arrived: the
@@ -377,14 +473,25 @@ class FedModel:
             # round's rows back
             self._store_writeback()
             cs_in = self._gather_states(ids_np)
-        probed = (self._client_round_probed is not None
+        var = self._variants.get(self._variant_key)
+        probed = (var.round_probed is not None
                   and ridx % self.probe_period == 0)
-        round_fn = (self._client_round_probed if probed
-                    else self._client_round)
+        flavor = "probed" if probed else "plain"
+        round_fn = var.round_probed if probed else var.round_fn
+        # the server pass consumes this aggregate with the SAME
+        # variant's round: the dispatch-time key, not whatever the
+        # controller moves to afterwards
+        self.pending_variant_key = var.key
+        first = flavor not in var.compiled
+        cmark = compile_mark() if first else None
+        t0 = clock.tick() if first else None
         with tel.span("round_dispatch"), trace.phase("round_dispatch"):
             res = round_fn(self.ps_weights, dev_batch, cs_in, ids,
                            self.fedavg_lr, round_index=ridx,
                            staleness=stale_dev)
+        if first:
+            var.compiled.add(flavor)
+            self._stamp_vcompile(var.key, cmark, clock.tick() - t0)
         self.client_states = res.client_states
         self.pending_aggregated = res.aggregated
         if self.client_store is not None:
@@ -403,7 +510,7 @@ class FedModel:
         if self._accountant is not None:
             # the round released its noised table whether or not its
             # metrics ever reach the host
-            self._charge_privacy(ridx, staleness, batch["mask"])
+            self._charge_privacy(ridx, var.cfg, staleness, batch["mask"])
         self.round_index += 1
         if res.bn_stats is not None:
             # running-stats blend; a round with no real sample leaves
@@ -426,7 +533,7 @@ class FedModel:
             # the device until then: no host read here
             self._inflight.append(list(res.metrics))
             self._oplog.append(("account", acct_ids.copy(),
-                                np.array(acct_mask), ridx))
+                                np.array(acct_mask), ridx, var.cfg))
             if res.probes is not None:
                 self._probe_log.setdefault(ridx, {}).update(res.probes)
             return None
@@ -453,7 +560,9 @@ class FedModel:
             # the bytes so an aborting alarm lands on a record the
             # close still flushes
             eng.check_step_time(ridx, clock.tick() - step_t0)
-        down, up = self._account_bytes(acct_ids, acct_mask)
+        if slo_t0 is not None:
+            self._observe_slo(ridx, clock.tick() - slo_t0, astats)
+        down, up = self._account_bytes(acct_ids, acct_mask, var.cfg)
         tel.set_round_bytes(ridx, float(down.sum()), float(up.sum()))
         return metrics + [down, up]
 
@@ -496,7 +605,7 @@ class FedModel:
                 ridx = op[3]
                 if ridx in probe_vals:
                     self._finish_probes(ridx, probe_vals[ridx])
-                down, up = self._account_bytes(op[1], op[2])
+                down, up = self._account_bytes(op[1], op[2], op[4])
                 self.telemetry.set_round_bytes(ridx, float(down.sum()),
                                                float(up.sum()))
                 results.append(rounds[len(results)] + [down, up])
@@ -528,6 +637,86 @@ class FedModel:
         self.telemetry.merge_round_probes(ridx, full)
         if self.alarm_engine is not None:
             self.alarm_engine.check(ridx, full)
+        if self._autopilot is not None:
+            # one observation a finished round, in dispatch order on
+            # both the synchronous and the flush-replay path: the
+            # controller (and its trajectory) sees the run's probe
+            # stream exactly
+            new_key = self._autopilot.observe(ridx, full)
+            if new_key is not None:
+                self._switch_variant(new_key)
+
+    def _observe_slo(self, ridx: int, round_s: float, astats=None):
+        """One SLO observation a synchronous round (reference
+        fed_model.py:918-936): latency is the dispatch-through-metrics
+        wall time, staleness the asynchronous driver's round stats, ε
+        the accountant's after its charge. The burn probes ride the
+        ledger record (where the live plane's ``slo_burn`` gauges read
+        them), the per-objective stamp lands on the v6 ``slo`` key, and
+        the slo_burn rule runs through ``check_slo``, never ``check``,
+        which is stateful and already ran this round."""
+        slo = self._slo
+        eps = (self._accountant.epsilon()
+               if self._accountant is not None else None)
+        smax = (astats or {}).get("async_staleness_max")
+        probes = slo.observe(ridx, round_s=round_s, staleness_max=smax,
+                             dp_epsilon=eps)
+        self.telemetry.merge_round_probes(ridx, probes)
+        self.telemetry.set_round_slo(ridx, slo.stamp())
+        if self.alarm_engine is not None:
+            self.alarm_engine.check_slo(ridx, probes)
+
+    def _switch_variant(self, key):
+        """Move the dispatch point to lattice point ``key`` (reference
+        fed_model.py:966-1001) and swap ``self.args`` to its config, so
+        the byte accounting reprices from the next round on. With
+        ``--autopilot_warm_ahead`` (the default) the variant is built
+        now, in the current round's host phase, under the span
+        ``autopilot_warm`` where it is not cached, and the flavor the
+        next round dispatches is stamped here, as the reference stamps
+        its ahead-of-time compile; only the point the controller just
+        committed to is ever built. Without it an uncached variant is
+        built at the next round's dispatch."""
+        tel = self.telemetry
+        warm = bool(self.args.autopilot_warm_ahead)
+        if key in self._variants or warm:
+            cmark, t0 = compile_mark(), clock.tick()
+            if key in self._variants:
+                var = self._variants.get(key)
+            else:
+                with tel.span("autopilot_warm"):
+                    var = self._variants.get(key)
+            nridx = self.round_index  # the next round to dispatch
+            probed = (var.round_probed is not None
+                      and nridx % self.probe_period == 0)
+            flavor = "probed" if probed else "plain"
+            if warm and flavor not in var.compiled:
+                var.compiled.add(flavor)
+                self._stamp_vcompile(key, cmark, clock.tick() - t0)
+            self.args = var.cfg
+        else:
+            self.args = apply_knobs(self._autopilot_base, key)
+        self._variant_key = key
+        tel.count("autopilot_moves")
+
+    def _stamp_vcompile(self, key, mark, secs):
+        """Charge a variant flavor's first dispatch (or its warm-ahead
+        build) to lattice point ``key`` on the current ledger record
+        (reference fed_model.py:1003-1015): the kernel libraries loaded
+        during it (``_build.load``), its host wall seconds, and one
+        program."""
+        ev, _ = compile_delta(mark)
+        ks = key_str(key)
+        tel = self.telemetry
+        tel.count(f"vcompile_events:{ks}", ev)
+        tel.count(f"vcompile_secs:{ks}", round(secs, 6))
+        tel.count(f"vcompile_programs:{ks}", 1)
+
+    def autopilot_record(self):
+        """The controller's replayable trajectory record (a manifest's
+        ``autopilot`` block), or None with the autopilot off."""
+        return (None if self._autopilot is None
+                else self._autopilot.record())
 
     def _call_val(self, batch):
         extra = () if self.stats_fn is None else (self.model_state,)
@@ -712,7 +901,7 @@ class FedModel:
         self.pending_client_ids = None
         self._store_pending = None
 
-    def _charge_privacy(self, ridx, staleness, mask):
+    def _charge_privacy(self, ridx, cfg, staleness, mask):
         """Charge the round's ``--dp sketch`` release (reference
         ``_charge_privacy``, fed_model.py:868-905). A staleness-weighted
         round charges the reduced sensitivity ``weight_scale = (1 +
@@ -723,9 +912,10 @@ class FedModel:
         gets the ε after the charge, its δ and σ / w (schema v5); with
         a budget (``--dp_epsilon`` > 0) the ε goes to the alarm engine,
         so ``--on_divergence abort`` stops the run at the round that
-        spent it."""
+        spent it. σ is the dispatched variant's ``dp_noise_mult`` (a
+        geometry move recalibrates it: autopilot/lattice.py)."""
         w = 1.0
-        alpha = float(self.args.async_staleness_weight)
+        alpha = float(cfg.async_staleness_weight)
         if staleness is not None and alpha > 0.0:
             s = np.asarray(staleness, np.float64)
             alive = np.asarray(mask).reshape(s.shape[0], -1).sum(axis=1) > 0
@@ -733,11 +923,11 @@ class FedModel:
                 w = float(min((1.0 + float(s[alive].min())) ** (-alpha),
                               1.0))
         acc = self._accountant
-        sigma = float(self.args.dp_noise_mult)
+        sigma = float(cfg.dp_noise_mult)
         acc.step(weight_scale=w, sigma=sigma)
         eps = acc.epsilon()
         self.telemetry.set_round_privacy(ridx, eps, acc.delta, sigma / w)
-        budget = float(self.args.dp_epsilon)
+        budget = float(cfg.dp_epsilon)
         if self.alarm_engine is not None and budget > 0:
             self.alarm_engine.check(ridx, {
                 "dp_epsilon": eps, "dp_delta": acc.delta,
@@ -865,15 +1055,18 @@ class FedModel:
             self.last_updated + 1,
             minlength=self._update_round + 2).astype(np.int64)
 
-    def _account_bytes(self, ids_np, mask=None):
+    def _account_bytes(self, ids_np, mask=None, cfg=None):
         """Per-round download/upload bytes per client. Clients whose
-        mask rows are all zero uploaded nothing."""
+        mask rows are all zero uploaded nothing. ``cfg`` is the
+        dispatched round variant's config (its wire dtype and sketch
+        geometry price the round); ``self.args`` by default."""
+        cfg = self.args if cfg is None else cfg
         download_bytes = np.zeros(self.num_clients)
         suffix = np.cumsum(self._round_counts[::-1])[::-1]
         q = self.client_last_seen[ids_np] + 2
         changed = np.where(
             q < len(suffix), suffix[np.minimum(q, len(suffix) - 1)], 0)
-        if self.args.downlink_encoding == "delta":
+        if cfg.downlink_encoding == "delta":
             # a client that saw the previous broadcast holds its support
             # list, so repeats delta-code against it; anyone staler
             # downloads every changed coordinate as (idx, val)
@@ -882,7 +1075,7 @@ class FedModel:
             download_bytes[ids_np] = [
                 accounting.delta_downlink_bytes(
                     c, self._repeat_count, self._bitmap_bits,
-                    self.args.sketch_dtype, have_prev=bool(hp))
+                    cfg.sketch_dtype, have_prev=bool(hp))
                 for c, hp in zip(changed, fresh)]
         else:
             download_bytes[ids_np] = changed * accounting.bytes_of(1, "f32")
@@ -891,7 +1084,7 @@ class FedModel:
         up_ids = ids_np
         if mask is not None:
             up_ids = ids_np[np.asarray(mask).sum(axis=1) > 0]
-        upload_bytes[up_ids] = float(self.args.upload_wire_bytes_per_client)
+        upload_bytes[up_ids] = float(cfg.upload_wire_bytes_per_client)
         return download_bytes, upload_bytes
 
     def note_update(self, support):
@@ -1029,6 +1222,10 @@ class FedOptimizer:
                 inds.append(ind.to(self.model.device))
             self._lr_indicators = inds
         self.server_state = ServerState.init(self.args, self.model.device)
+        # the geometry the live server state was allocated for: a knob
+        # move that changes transmit_shape (--autopilot_geometry)
+        # re-seeds the momentum/error tables at the new shape
+        self._server_geom = tuple(self.args.transmit_shape)
         self._probes = self.model.probe_period > 0
         self._server_round = build_server_round(self.args,
                                                 probes=self._probes)
@@ -1065,14 +1262,37 @@ class FedOptimizer:
         gen = (noise_generator(self.args.seed + 1, self._step_count,
                                SERVER_NOISE_TAG, m.device)
                if self._server_noise else None)
+        server_fn, svar = self._server_round, None
+        if m._autopilot is not None:
+            # the pending aggregate was emitted by one round variant:
+            # its server round (the wire dequant and the unsketch
+            # geometry) must match (reference fed_model.py:1305-1350)
+            svar = m._variants.get(m.pending_variant_key)
+            if svar.server_fn is None:
+                svar.server_fn = build_server_round(svar.cfg,
+                                                    probes=self._probes)
+            geom = tuple(svar.cfg.transmit_shape)
+            if geom != self._server_geom:
+                # a geometry move: the sketch-shaped server tables are
+                # re-seeded at the new shape (momentum restarts; the
+                # geometry steps are opt-in for this reason)
+                self.server_state = ServerState.init(svar.cfg, m.device)
+                self._server_geom = geom
+            server_fn = svar.server_fn
+        sfirst = svar is not None and "server" not in svar.compiled
+        cmark = compile_mark() if sfirst else None
+        t0 = clock.tick() if sfirst else None
         # the round's ledger record is still current (the next round's
         # begin closes it), so the span lands on the round whose
         # aggregate it consumes
         with m.telemetry.span("server"), trace.phase("server"):
-            out = self._server_round(m.ps_weights, self.server_state,
-                                     m.pending_aggregated, lr,
-                                     m.client_states.velocities,
-                                     m.pending_client_ids, gen)
+            out = server_fn(m.ps_weights, self.server_state,
+                            m.pending_aggregated, lr,
+                            m.client_states.velocities,
+                            m.pending_client_ids, gen)
+        if sfirst:
+            svar.compiled.add("server")
+            m._stamp_vcompile(svar.key, cmark, clock.tick() - t0)
         sprobes = out[5] if self._probes else None
         new_ps, self.server_state, new_vel, update, support = out[:5]
         m.ps_weights = new_ps

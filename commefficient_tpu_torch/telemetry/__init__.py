@@ -1,11 +1,13 @@
 """Run observability of the port: the round ledger, its spans and
 sinks, algorithm-probe alarms, the flight recorder, device-time
-attribution on ``torch.profiler``, the run registry and the perf gate.
+attribution on ``torch.profiler``, the run registry and the perf gate,
+per-job SLOs and the live exporter, causal round tracing and critical
+paths.
 
 Port of ``commefficient_tpu/telemetry`` (``clock``, ``record``,
 ``core``, ``sinks``, ``alarms``, ``flightrec``, ``trace``,
-``profiler``, ``registry``, ``gate``). Not ported yet: SLOs, the live
-exporter, causal round tracing and critical paths.
+``profiler``, ``registry``, ``gate``, ``slo``, ``live``, ``causal``,
+``critpath``).
 """
 
 from commefficient_tpu_torch.telemetry import clock, trace
@@ -27,7 +29,10 @@ from commefficient_tpu_torch.telemetry.record import (LEDGER_SCHEMA_VERSION,
                                                       validate_record)
 from commefficient_tpu_torch.telemetry.sinks import (ConsoleSink,
                                                      JSONLSink,
-                                                     TensorBoardSink)
+                                                     TensorBoardSink,
+                                                     job_index_of_ledger,
+                                                     job_ledger_path,
+                                                     recover_ledger_shards)
 
 __all__ = [
     "clock", "trace", "AlarmEngine", "DivergenceAbort",
@@ -36,5 +41,6 @@ __all__ = [
     "FlightRecorder", "install_crash_hook", "load_postmortem",
     "LEDGER_SCHEMA_VERSION", "make_bench_record", "make_meta_record",
     "make_round_record", "validate_record", "ConsoleSink", "JSONLSink",
-    "TensorBoardSink",
+    "TensorBoardSink", "job_index_of_ledger", "job_ledger_path",
+    "recover_ledger_shards",
 ]

@@ -1,9 +1,9 @@
 """Declarative probe alarms (``--on_divergence``).
 
 Port of ``commefficient_tpu/telemetry/alarms.py``: the same rules,
-thresholds, actions and messages. The reference's ``job_starvation``,
-``admission_rejected`` (the job service) and ``slo_burn`` (the SLO
-engine) rules wait with the modules that feed them.
+thresholds, actions and messages, ``slo_burn`` with ``check_slo``
+(:173-174, 285-315) and the job service's ``job_starvation`` and
+always-armed ``admission_rejected`` among them.
 
 The probe layer (core/rounds.py + core/server.py, schema-v2 records)
 gives every round a handful of host-side scalars; this module turns
@@ -69,6 +69,35 @@ round instead of silently training on garbage. Three rules:
                        pre-charge projection, 0 when already over) so
                        the ledger names the predicted exhaustion
                        round.
+``job_starvation``   — job service health (fedservice/): a
+                       runnable job waited more than
+                       ``--alarm_job_starvation`` scheduler ticks
+                       since it last ran. Fired by the daemon's OWN
+                       alarm engine against its fairness probes (the
+                       per-job engines never see other jobs), so a
+                       greedy scheduling policy that starves a tenant
+                       fails loudly instead of silently serving one
+                       job's traffic.
+``admission_rejected`` — a JobSpec was refused at admission (capacity,
+                       duplicate id/seed — the ``admission_rejected``
+                       probe counts this tick's refusals). Always
+                       armed on the daemon's engine, like ``nan_inf``:
+                       a rejected manifest is an operator-visible
+                       event whatever the thresholds say.
+``slo_burn``         — declarative SLO health (telemetry/slo.py): the
+                       run's worst multi-window error-budget burn
+                       rate (``slo_burn_max`` probe) reached
+                       ``--alarm_slo_burn``. Burn 1.0 means the run
+                       is consuming its error budget exactly as fast
+                       as the budget allows; the conventional paging
+                       threshold is well above 1 (e.g. 2: the budget
+                       dies in half its window). Evaluated via
+                       ``check_slo`` on runs with their own SLO
+                       engine, or through ``check`` when the SLO
+                       probes arrive merged (the fedservice daemon's
+                       fairness tick). Fires once per burning round —
+                       the flight recorder's one-bundle-per-rule
+                       policy keeps the postmortem volume bounded.
 ``collective_skew``  — trace-derived (schema-v4 ``device_time``): a
                        profiled round's straggler wait dominates its
                        collective bucket — max cross-device
@@ -146,6 +175,10 @@ class AlarmEngine:
             getattr(cfg, "alarm_fold_rejection", 0.0) or 0.0)
         self.async_staleness = float(
             getattr(cfg, "alarm_async_staleness", 0.0) or 0.0)
+        self.job_starvation = float(
+            getattr(cfg, "alarm_job_starvation", 0.0) or 0.0)
+        self.slo_burn = float(
+            getattr(cfg, "alarm_slo_burn", 0.0) or 0.0)
         self.privacy_budget = (
             float(getattr(cfg, "dp_epsilon", 0.0) or 0.0)
             if str(getattr(cfg, "dp", "off")) != "off" else 0.0)
@@ -223,6 +256,25 @@ class AlarmEngine:
                         "async_buffer_occupancy"),
                     "backlog": probes.get("async_backlog")})
 
+        if self.job_starvation > 0:
+            waited = probes.get("job_starved_rounds")
+            if waited is not None and (not _finite(waited)
+                                       or waited > self.job_starvation):
+                fired.append({
+                    "rule": "job_starvation",
+                    "value": float(waited),
+                    "threshold": self.job_starvation,
+                    "job": probes.get("job_starved_index"),
+                    "occupancy": probes.get("job_occupancy_min")})
+
+        fired.extend(self._slo_rule(probes))
+
+        rejected = probes.get("admission_rejected")
+        if rejected is not None and float(rejected) > 0:
+            fired.append({"rule": "admission_rejected",
+                          "value": float(rejected),
+                          "threshold": 0.0})
+
         if self.privacy_budget > 0:
             eps = probes.get("dp_epsilon")
             if eps is not None and (not _finite(eps)
@@ -236,6 +288,38 @@ class AlarmEngine:
                     "rounds_left": probes.get("dp_rounds_left")})
 
         return self._escalate(round_index, fired)
+
+    def _slo_rule(self, probes) -> list:
+        """The ``slo_burn`` rule body (no escalation — callers own
+        that): fires when the worst per-objective burn rate reaches
+        ``--alarm_slo_burn``. The alarm dict carries every
+        ``slo_burn_*`` probe so the ledger names WHICH objective is
+        burning, not just that one is."""
+        if self.slo_burn <= 0:
+            return []
+        burn = probes.get("slo_burn_max")
+        if burn is None:
+            return []
+        if _finite(burn) and burn < self.slo_burn:
+            return []
+        alarm = {"rule": "slo_burn", "value": float(burn),
+                 "threshold": self.slo_burn}
+        for key, v in sorted(probes.items()):
+            if key.startswith("slo_burn_") and key != "slo_burn_max":
+                alarm[key] = None if v is None else float(v)
+        return [alarm]
+
+    def check_slo(self, round_index: int, slo_probes) -> list:
+        """Evaluate ONLY the ``slo_burn`` rule on one round's SLO
+        probes. The runtime routes the SLO engine's output here
+        (rather than through ``check``) because ``check`` is stateful
+        — calling it twice per round would double-advance the
+        consecutive-residual counter. Same flag/log/abort escalation
+        as every other rule."""
+        if not slo_probes:
+            return []
+        return self._escalate(round_index,
+                              self._slo_rule(slo_probes))
 
     def check_step_time(self, round_index: int, step_s: float) -> list:
         """``step_time_regression``: fires when this round's wall
@@ -318,6 +402,10 @@ def build_alarm_engine(cfg, telemetry=None):
             or float(getattr(cfg, "alarm_fold_rejection", 0.0)
                      or 0.0) > 0
             or float(getattr(cfg, "alarm_async_staleness", 0.0)
+                     or 0.0) > 0
+            or float(getattr(cfg, "alarm_job_starvation", 0.0)
+                     or 0.0) > 0
+            or float(getattr(cfg, "alarm_slo_burn", 0.0)
                      or 0.0) > 0
             or (str(getattr(cfg, "dp", "off")) != "off"
                 and float(getattr(cfg, "dp_epsilon", 0.0) or 0.0)

@@ -32,7 +32,11 @@ since the process started (the reference's ``peak_bytes_in_use``); it
 never resets the peak, which would cut a caller's own measurement
 window short. The two peaks are read with the cheapest calls that give
 their numbers: an enabled ledger costs ~0.12-0.15 ms a round on the
-H100's machine (PERF.md §6).
+H100's machine (PERF.md §6). With a causal tracer attached
+(``--causal_trace``, ``set_causal_tracer``) every span is also a frame
+of the round's DAG, and closing a round stamps the DAG on its record as
+the optional v7 ``causal`` key (reference core.py:56-75, 195-198,
+220-237); ``set_round_slo`` attaches the SLO engine's v6 ``slo`` stamp.
 """
 
 from __future__ import annotations
@@ -62,25 +66,42 @@ NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("_spans", "_name", "_t0")
+    __slots__ = ("_spans", "_name", "_t0", "_causal")
 
-    def __init__(self, spans, name):
+    def __init__(self, spans, name, causal=None):
         self._spans = spans
         self._name = name
+        self._causal = causal
 
     def __enter__(self):
         self._t0 = clock.tick()
+        if self._causal is not None:
+            # open AFTER t0 so the causal frame nests inside the
+            # accumulated span second-for-second; nesting (driver
+            # spans inside async_fold) comes from the tracer's stack
+            self._causal.open(self._name)
         return self
 
     def __exit__(self, *exc):
+        if self._causal is not None:
+            self._causal.close_span()
         dt = clock.tick() - self._t0
         self._spans[self._name] = self._spans.get(self._name, 0.0) + dt
         return False
 
 
 def compile_mark():
-    """Snapshot of the process-wide kernel-build accumulator."""
+    """Snapshot of the process-wide kernel-build accumulator; pair with
+    ``compile_delta`` to attribute the builds between two points to a
+    cause (FedModel stamps a round variant's first dispatch as
+    ``vcompile_*:<key>`` counters)."""
     return (_build.COMPILES["events"], _build.COMPILES["secs"])
+
+
+def compile_delta(mark):
+    """(events, secs) accumulated since ``mark``."""
+    ev0, s0 = mark
+    return (_build.COMPILES["events"] - ev0, _build.COMPILES["secs"] - s0)
 
 
 def host_rss_peak_bytes():
@@ -135,6 +156,11 @@ class Telemetry:
         # cost model; the trace's buckets derive roofline_utilization
         # from it
         self.expected_round_s = None
+        # optional CausalTracer (--causal_trace): every _Span also
+        # opens/closes a causal frame, and closing a round stamps its
+        # span DAG onto the record as the optional v7 ``causal`` key.
+        # None (the default) leaves the hot path as it was
+        self.causal = None
 
     # --- configuration --------------------------------------------------
 
@@ -146,6 +172,11 @@ class Telemetry:
         """Attach a sink mid-run (the trainers attach the TensorBoard
         sink once the run's log directory exists)."""
         self._sinks.append(sink)
+
+    def set_causal_tracer(self, tracer):
+        """Attach a CausalTracer (or None to detach). Only meaningful
+        on an enabled Telemetry: causal stamps ride round records."""
+        self.causal = tracer if self._sinks else None
 
     def emit(self, rec):
         for sink in self._sinks:
@@ -167,6 +198,8 @@ class Telemetry:
         self._records[index] = rec
         self._current = rec
         self._compile_mark = compile_mark()
+        if self.causal is not None:
+            self.causal.begin_round(index)
         return rec
 
     def _close_current(self):
@@ -179,6 +212,10 @@ class Telemetry:
         ev1, s1 = compile_mark()
         rec["counters"]["compile_events"] = ev1 - ev0
         rec["counters"]["compile_secs"] = round(s1 - s0, 6)
+        if self.causal is not None:
+            stamp = self.causal.end_round()
+            if stamp is not None:
+                rec["causal"] = stamp
         self._closed_rounds.add(rec["round"])
         self._drain()
 
@@ -187,7 +224,7 @@ class Telemetry:
         record; the shared no-op outside a round or when disabled."""
         if self._current is None:
             return NULL_SPAN
-        return _Span(self._current["spans"], name)
+        return _Span(self._current["spans"], name, self.causal)
 
     def count(self, name: str, n: int = 1):
         if self._current is not None:
@@ -215,6 +252,16 @@ class Telemetry:
         rec["dp_epsilon"] = float(epsilon)
         rec["dp_delta"] = float(delta)
         rec["dp_sigma"] = float(sigma)
+
+    def set_round_slo(self, index: int, stamp: dict):
+        """Attach the SLO engine's per-objective snapshot (schema v6
+        ``slo`` key) to round ``index``'s record. Arrives from the
+        round-finish hook (runtime/fed_model.py or the job service's
+        tick), always before emission."""
+        rec = self._records.get(index)
+        if rec is None or not stamp:
+            return
+        rec["slo"] = dict(stamp)
 
     def merge_round_probes(self, index: int, probes: dict):
         """Merge algorithm-probe values onto round ``index``'s record

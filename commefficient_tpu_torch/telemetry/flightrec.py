@@ -1,12 +1,13 @@
 """Flight recorder: bounded round ring + atomic postmortem bundles.
 
-Port of ``commefficient_tpu/telemetry/flightrec.py``. The reference
-attaches the recorder with its live exporter (``live.attach_live_plane``),
-which is not ported: the port's FedModel attaches the recorder as a
-sink of its own. The bundle's ``config``/``config_hash``/``environment``
-are the run registry's (``telemetry/registry.py``), and a run that
-writes a ledger stamps each bundle into the registry (``runs_dir``).
-The critical-path diff waits with ``--causal_trace``.
+Port of ``commefficient_tpu/telemetry/flightrec.py``, attached with
+the live exporter by ``live.attach_live_plane``. The bundle's
+``config``/``config_hash``/``environment`` are the run registry's
+(``telemetry/registry.py``), and a run that writes a ledger stamps each
+bundle into the registry (``runs_dir``). A bundle dumped for a
+latency-shaped rule on a ``--causal_trace`` run carries the firing
+round's critical path diffed against the ring's median round
+(``critpath_diff``, reference :120-153).
 
 A crashed or alarming run's most valuable evidence is the last few
 rounds of full-fidelity telemetry — exactly the records the ledger
@@ -121,9 +122,43 @@ class FlightRecorder:
             # the firing record is already IN the ring (appended
             # above), so the bundle always contains its own trigger;
             # dump() takes the lock itself, so call it outside ours
+            context = {"alarms": alarms, "round": rec.get("round")}
+            diff = self._critpath_diff(rec,
+                                       {str(a.get("rule"))
+                                        for a in alarms})
+            if diff is not None:
+                context["critpath_diff"] = diff
             self.dump("alarm", rule=str(alarms[0].get("rule")),
-                      context={"alarms": alarms,
-                               "round": rec.get("round")})
+                      context=context)
+
+    #: latency-shaped rules whose postmortems benefit from a causal
+    #: "why": the bundle gets the firing round's critical path diffed
+    #: against the ring's rolling-median round
+    CRITPATH_RULES = ("step_time_regression", "slo_burn")
+
+    def _critpath_diff(self, rec, rules):
+        """Critical-path diff of the firing round vs the per-bucket
+        median of the prior ring (--causal_trace runs only; any
+        failure degrades to None — this is bundle garnish, never a
+        reason to lose the bundle)."""
+        if not rules.intersection(self.CRITPATH_RULES) \
+                or not isinstance(rec.get("causal"), dict):
+            return None
+        try:
+            from commefficient_tpu_torch.telemetry.critpath import (
+                critical_path, critpath_diff, median_buckets)
+            with self._lock:
+                prior = [r for r in self._ring if r is not rec
+                         and isinstance(r.get("causal"), dict)]
+            cur = critical_path(rec["causal"], rec.get("device_time"))
+            base = median_buckets(
+                [critical_path(r["causal"], r.get("device_time"))
+                 for r in prior])
+            if base is None:
+                return None
+            return critpath_diff(cur, base)
+        except Exception:  # noqa: BLE001 — observability only
+            return None
 
     def close(self):
         pass  # the ring is only evidence; nothing to flush

@@ -1,22 +1,81 @@
 """Pluggable ledger sinks.
 
 Port of ``commefficient_tpu/telemetry/sinks.py``: ``JSONLSink`` (the
-run ledger, torn-tail recovery, one writer a path, resume
-deduplication), ``TensorBoardSink`` and ``ConsoleSink``. Every sink has
-``write(record)`` and ``close()`` and ignores the record kinds it does
-not use. The reference's per-process and per-job shard helpers belong
-to the multi-process runtime and the job service, neither ported.
+run ledger, torn-tail recovery, the single-writer claim a path, resume
+deduplication), ``TensorBoardSink``, ``ConsoleSink`` and the job
+service's shard helpers (``job_ledger_path`` :39,
+``job_index_of_ledger`` :51, ``recover_ledger_shards`` :62). Every sink
+has ``write(record)`` and ``close()`` and ignores the record kinds it
+does not use. The reference's per-process shards belong to the
+multi-process runtime, which is not ported: ``recover_ledger_shards``
+sweeps the ``.p<k>`` names all the same, so a ledger directory the
+reference wrote is recovered whole.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
+import re
 import threading
 
 import numpy as np
 
 from commefficient_tpu_torch.telemetry.record import make_summary_record
+
+#: lock-confinement declaration: the JSONLSink two-writer guard is a
+#: process-wide class dict — a job service opening per-job shards from
+#: worker threads races the check-then-claim, so claim and eviction
+#: hold ``_live_lock``.
+_LOCK_MAP = {"_live": "_live_lock"}
+
+
+def job_ledger_path(path: str, job_index: int) -> str:
+    """Per-job ledger path under a job service: job ``j``'s records go
+    to the ``<path>.job<j>.jsonl`` shard. Namespacing by job index
+    keeps J concurrent jobs pointed at one ``--ledger`` from ever
+    interleaving writes into one file — the shard file IS the job
+    identity, so the records themselves stay byte-identical to a solo
+    run's."""
+    return f"{path}.job{int(job_index)}.jsonl"
+
+
+def job_index_of_ledger(path: str):
+    """The job index a ledger shard path encodes (``<base>.job<j>
+    .jsonl`` → ``j``), or None for a canonical path — the live plane
+    derives its ``job`` metric label from this, since the shard file
+    IS the job identity and records carry no job stamp."""
+    m = re.search(r"\.job(\d+)\.jsonl(?:\.p\d+\.jsonl)?$",
+                  str(path or ""))
+    return int(m.group(1)) if m else None
+
+
+def recover_ledger_shards(path: str) -> dict:
+    """Sweep a canonical ledger path AND every sibling shard (the
+    ``.job<j>`` job shards, and ``.p<k>`` process shards) through
+    :func:`recover_torn_tail`.
+
+    Returns ``{shard_path: bytes_dropped}`` for shards that lost a
+    torn tail (empty when everything was clean). ``JSONLSink``
+    recovers its own file at open, but a job service restarted after
+    a SIGKILL may never re-admit the tenant that owned a torn shard —
+    this sweep runs at service start so no orphaned torn tail
+    survives."""
+    if not path:
+        return {}
+    candidates = [path]
+    candidates += sorted(
+        set(glob.glob(glob.escape(path) + ".job*.jsonl")
+            + glob.glob(glob.escape(path) + ".p*.jsonl")))
+    dropped = {}
+    for p in candidates:
+        if not os.path.isfile(p):
+            continue
+        n = recover_torn_tail(p)
+        if n:
+            dropped[p] = n
+    return dropped
 
 
 def recover_torn_tail(path: str) -> int:

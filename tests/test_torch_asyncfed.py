@@ -570,8 +570,14 @@ def test_config_asserts_as_the_reference(argv, match):
     cfg = parse_args(argv=BASE_ARGV + ["--async_buffer_size", "3",
                                        "--async_staleness_weight", "0.5"])
     assert (cfg.async_buffer_size, cfg.async_staleness_weight) == (3, 0.5)
-    with pytest.raises(NotImplementedError, match="--alarm_job_starvation"):
-        parse_args(argv=BASE_ARGV + ["--alarm_job_starvation", "2"])
+    # the job service's alarm knob parses as the reference's; a flag the
+    # port lacks (sequence parallelism) raises naming itself
+    assert parse_args(argv=BASE_ARGV + ["--alarm_job_starvation", "2"]
+                      ).alarm_job_starvation == jax_parse_args(
+        argv=BASE_ARGV + ["--alarm_job_starvation", "2"]
+    ).alarm_job_starvation == 2.0
+    with pytest.raises(NotImplementedError, match="--seq_devices"):
+        parse_args(argv=BASE_ARGV + ["--seq_devices", "2"])
 
 
 def test_both_trainers_run_buffered_rounds(tmp_path):

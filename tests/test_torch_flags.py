@@ -49,12 +49,71 @@ def _flag_field(flag):
     return flag[2:]
 
 
-def test_not_ported_flags_are_25():
-    assert len(NOT_PORTED_FLAGS) == 25
-    for flag in UNREAD:
+# the flags of the SLOs, the live exporter, causal tracing, the
+# autopilot and the job service, each set away from its default
+PORTED_OPS = ["--alarm_job_starvation", "2", "--live_port", "9100",
+              "--causal_trace", "--slo_round_p95", "0.5",
+              "--slo_staleness_max", "3", "--slo_eps_rounds", "40",
+              "--slo_starvation", "4", "--slo_error_budget", "0.1",
+              "--slo_window", "16", "--slo_fast_window", "4",
+              "--alarm_slo_burn", "2", "--autopilot", "on",
+              "--autopilot_band", "0.2:0.6", "--autopilot_cooldown", "3",
+              "--autopilot_cache_size", "6", "--autopilot_warm_ahead", "0",
+              "--autopilot_pin", "int8-k50000-r5-c250000-re9500",
+              "--autopilot_geometry"]
+# what those need to pass the reference's asserts
+PORTED_OPS_NEEDS = ["--probe_every", "1", "--dp", "sketch",
+                    "--dp_noise_mult", "1.0", "--dp_epsilon", "8"]
+
+
+def test_not_ported_flags_are_7():
+    assert sorted(NOT_PORTED_FLAGS) == sorted([
+        "--seq_devices", "--seq_impl", "--num_devices", "--mesh",
+        "--coordinator_address", "--num_processes", "--process_id"])
+    for flag in UNREAD + PORTED_OPS:
         assert flag not in NOT_PORTED_FLAGS
     assert "--approx_topk" not in NOT_PORTED_FLAGS
     assert "--approx_recall" not in NOT_PORTED_FLAGS
+
+
+def test_ported_ops_flags_take_the_reference_types_and_defaults():
+    ours, ref = parse_args(argv=[]), jax_parse_args(None, [])
+    argv = PORTED_OPS + PORTED_OPS_NEEDS
+    set_ours, set_ref = parse_args(argv=argv), jax_parse_args(None, argv)
+    flags = [f for f in PORTED_OPS if f.startswith("--")]
+    assert len(flags) == 18
+    for flag in flags:
+        field = _flag_field(flag)
+        assert getattr(ours, field) == getattr(ref, field), field
+        assert type(getattr(ours, field)) is type(getattr(ref, field)), \
+            field
+        assert getattr(set_ours, field) == getattr(set_ref, field), field
+        assert type(getattr(set_ours, field)) is \
+            type(getattr(set_ref, field)), field
+        assert getattr(set_ours, field) != getattr(ours, field), field
+
+
+@pytest.mark.parametrize("argv", [
+    ["--alarm_job_starvation", "-1"], ["--live_port", "70000"],
+    ["--slo_round_p95", "-1"], ["--slo_eps_rounds", "5"],
+    ["--slo_error_budget", "0"], ["--slo_window", "0"],
+    ["--slo_window", "4", "--slo_fast_window", "8"],
+    ["--alarm_slo_burn", "-1"], ["--autopilot_cooldown", "-1"],
+    ["--autopilot_cache_size", "0"],
+    ["--autopilot", "on", "--probe_every", "1"],
+    ["--autopilot", "on", "--autopilot_band", "0.6:0.2",
+     "--probe_every", "1"],
+    ["--autopilot", "on", "--autopilot_band", "x", "--probe_every", "1"],
+    ["--autopilot", "on", "--autopilot_band", "0.2:0.6"],
+    ["--autopilot", "on", "--autopilot_band", "0.2:0.6",
+     "--probe_every", "1", "--mode", "true_topk"],
+], ids=lambda a: "_".join(x.strip("-") for x in a[:2]))
+def test_ported_ops_flags_assert_as_the_reference(argv):
+    with pytest.raises(AssertionError) as ref:
+        jax_parse_args(None, argv)
+    with pytest.raises(AssertionError) as ours:
+        parse_args(argv=argv)
+    assert str(ours.value) == str(ref.value)
 
 
 def test_unread_flags_take_the_reference_types_and_defaults():
@@ -101,7 +160,8 @@ def _only_reference_keys():
      "--k", "123", "--dataset_name", "CIFAR10", "--iid"],
     ["--dataset_name", "ImageNet", "--model", "FixupResNet50",
      "--mixup", "--mixup_alpha", "0.2"],
-], ids=["defaults", "unread", "approx", "imagenet"])
+    PORTED_OPS + PORTED_OPS_NEEDS,
+], ids=["defaults", "unread", "approx", "imagenet", "ops"])
 def test_config_dict_equals_the_reference_key_by_key(argv):
     ref = jax_config_dict(jax_parse_args(None, argv))
     ours = config_dict(parse_args(argv=argv))

@@ -117,14 +117,48 @@ def test_fused_ce_on_raises_at_unsupported_width(tmp_path):
                          "--fused_ce", "on"] + ARGV)
 
 
-@pytest.mark.parametrize("flag", [["--alarm_job_starvation", "2"],
-                                  ["--seq_devices", "2"],
-                                  ["--live_port", "9"],
-                                  ["--causal_trace"]])
+@pytest.mark.parametrize("flag", [["--seq_devices", "2"]])
 def test_unported_options_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match=flag[0]):
         gpt2_train.main(["--device", "cpu", "--dataset_dir", str(tmp_path)]
                         + ARGV + flag)
+
+
+@pytest.mark.parametrize("flag", [["--alarm_job_starvation", "2"],
+                                  ["--live_port", "FREE"],
+                                  ["--causal_trace"]])
+def test_ops_options_run_the_trainer(tmp_path, flag):
+    """The job service's alarm knob, the live exporter and causal
+    tracing parse and the trainer runs with them as without: the same
+    validation numbers; the exporter serves the run's rounds, and a
+    traced ledger carries each round's span DAG."""
+    import json
+
+    from commefficient_tpu_torch.telemetry import live
+    from test_torch_slo_live import free_port, urlopen
+    flag = [free_port() if v == "FREE" else v for v in flag]
+    base = ["--device", "cpu", "--dataset_dir", str(tmp_path)] + ARGV
+    ledger = str(tmp_path / "run.jsonl")
+    live.shutdown_plane()
+    try:
+        plain = gpt2_train.main(base)
+        got = gpt2_train.main(base + flag + ["--ledger", ledger])
+        if flag[0] == "--live_port":
+            url = f"http://127.0.0.1:{flag[1]}/metrics"
+            with urlopen(url) as r:
+                text = r.read().decode()
+            assert "commeff_rounds_total" in text
+    finally:
+        live.shutdown_plane()
+    keep = lambda rows: [{k: v for k, v in r.items()  # noqa: E731
+                          if "time" not in k} for r in rows]
+    assert keep(got) == keep(plain)
+    with open(ledger) as f:
+        rounds = [json.loads(line) for line in f]
+    rounds = [r for r in rounds if r["kind"] == "round"]
+    assert rounds
+    assert all(("causal" in r) == (flag[0] == "--causal_trace")
+               for r in rounds)
 
 
 def test_finetune_is_one_validation_pass(tmp_path):

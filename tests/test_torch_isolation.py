@@ -70,7 +70,19 @@ new = {{"commefficient_tpu_torch.core.robust",
         "commefficient_tpu_torch.perf_gate",
         "commefficient_tpu_torch.analysis",
         "commefficient_tpu_torch.analysis.cost",
-        "commefficient_tpu_torch.data.fed_imagenet"}}
+        "commefficient_tpu_torch.data.fed_imagenet",
+        "commefficient_tpu_torch.telemetry.slo",
+        "commefficient_tpu_torch.telemetry.live",
+        "commefficient_tpu_torch.telemetry.causal",
+        "commefficient_tpu_torch.telemetry.critpath",
+        "commefficient_tpu_torch.autopilot",
+        "commefficient_tpu_torch.autopilot.lattice",
+        "commefficient_tpu_torch.autopilot.cache",
+        "commefficient_tpu_torch.autopilot.controller",
+        "commefficient_tpu_torch.autopilot.replay",
+        "commefficient_tpu_torch.fedservice",
+        "commefficient_tpu_torch.fedservice.job",
+        "commefficient_tpu_torch.fedservice.service"}}
 assert new <= set(names), sorted(new - set(names))
 for name in names:
     if name != "commefficient_tpu_torch.data.chaos":

@@ -445,10 +445,9 @@ def test_resnet9_ledger_matches_the_jax_trainers(ledger_runs):
     for r, j in zip(rounds, jrounds):
         assert sorted(r) == sorted(j)
         assert sorted(r["spans"]) == sorted(j["spans"])
-        # the reference also stamps its round variants' XLA compiles
-        # (vcompile_*: the autopilot's re-jit cache, not ported)
-        assert sorted(r["counters"]) == sorted(
-            k for k in j["counters"] if not k.startswith("vcompile_"))
+        # the round variants' first-dispatch stamps (vcompile_*:<key>)
+        # match by name; their values are the port's own
+        assert sorted(r["counters"]) == sorted(j["counters"])
         assert (r["uplink_bytes"], r["downlink_bytes"]) == \
             (j["uplink_bytes"], j["downlink_bytes"])
         _close(r["probes"], j["probes"], f"round {r['round']}")

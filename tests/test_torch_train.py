@@ -116,10 +116,39 @@ def test_mode_trainer_matches_jax_bytes_and_losses(mode, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,name", [
-    (["--resume"], "--resume"),
     (["--alarm_job_starvation", "2"], "--alarm_job_starvation"),
+    (["--slo_window", "4", "--slo_fast_window", "2", "--slo_round_p95",
+      "1e-9", "--alarm_slo_burn", "1"], "--slo_window"),
+])
+def test_ops_options_run_the_trainer(tmp_path, argv, name):
+    """The job service's alarm knob and the SLO engine parse and the
+    trainer runs with them as without, row for row; an SLO below every
+    round's wall burns from the fast window on, and its alarm fires."""
+    import json
+    base = ["--device", "cpu", "--test", "--local_momentum", "0",
+            "--num_clients", "10", "--num_workers", "2",
+            "--dataset_name", "Synthetic", "--num_epochs", "3"]
+    ledger = str(tmp_path / f"{name[2:]}.jsonl")
+    keep = lambda rows: [{k: v for k, v in r.items()  # noqa: E731
+                          if "time" not in k} for r in rows]
+    plain = keep(cv_train.main(base))
+    got = keep(cv_train.main(base + argv + ["--ledger", ledger]))
+    assert got == plain
+    with open(ledger) as f:
+        rounds = [r for r in map(json.loads, f) if r["kind"] == "round"]
+    assert len(rounds) == 3
+    if name == "--slo_window":
+        assert [r["slo"]["round_latency"]["burn"] for r in rounds] == \
+            [0.0, 20.0, 20.0]
+        assert [[a["rule"] for a in r["alarms"]] for r in rounds] == \
+            [[], ["slo_burn"], ["slo_burn"]]
+    else:
+        assert all(r["slo"] is None and not r["alarms"] for r in rounds)
+
+
+@pytest.mark.parametrize("argv,name", [
+    (["--resume"], "--resume"),
     (["--seq_devices", "2"], "--seq_devices"),
-    (["--slo_window", "4"], "--slo_window"),
 ])
 def test_unported_options_raise(argv, name):
     """Options the port lacks raise naming themselves; ``--resume`` is
