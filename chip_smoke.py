@@ -238,8 +238,29 @@ first two beside ``scaled_dot_product_attention``: forward, backward
 alone, forward + backward (a yardstick the port never calls); the
 ``ptxas_attn`` line gives their registers and spills (none allowed in a
 wgmma instantiation, nor a serialized wgmma).
-The operations plane and the round variants run last on the ResNet9
-cell: ``autopilot_paths`` (the dtype walk f32 -> bf16 -> int8 under a
+The multi-GPU round (``mesh_paths``) runs last, at ``world =
+min(cards, 4)`` over NCCL, one process a card through
+``parallel/mesh.py launch``: on one card the ResNet9 round at world 1
+bit-equal to the round without a mesh (``mesh_world1``); on 2-4 cards
+the ResNet9 cell at ``--num_devices world`` (f32 4 rounds, int8 +
+``delta`` 2, fp8 at ``--overlap_depth 2`` 2), ``--mesh 2x2`` (``1x2`` on
+two cards) at f32 and int8 and GPT-2 on both meshes, 2 rounds each:
+the weights bit-identical across ranks after every round, the launches
+a rank, round 1's crossing bit-equal to the one-card sum (int8, fp8),
+the first f32 table against the one-card round's, every 2-D support
+the 1-D selection of the same table, the wire bytes and the
+collectives' device seconds a round. ``sharded_selection_checks``
+(every card count) holds kernels 1 and 2 over windows and the search's
+per-pass launches with kernel 3's local need, over M = 2, 4 and 8
+virtual shards, bit-equal to the one-card selection at ResNet9's and
+GPT-2's padded d, ties across the boundaries, tail padding and k = 1
+included; the ``kernels`` line's ``sketch_window``,
+``estimates_window``, ``rs_hist``, ``rs_digit`` and ``take_mask_shard``
+rows carry their launches on the 2-D path (0 where no 2-D path ran).
+``python3 chip_smoke.py --mesh-only`` runs the build, those checks and
+``mesh_paths`` alone (the several-card run).
+The operations plane and the round variants run before them on the
+ResNet9 cell: ``autopilot_paths`` (the dtype walk f32 -> bf16 -> int8 under a
 band above the cell's recovery error, kernel 4 once an int8 round; the
 geometry walk, whose halved column count's kernels 1, 2 and 4 are held
 against their plain versions and whose server tables follow the shape;
@@ -307,6 +328,7 @@ from commefficient_tpu_torch.ops.sketch import CountSketch
 from commefficient_tpu_torch.ops.topk import (_threshold_topk_mask,
                                               _threshold_topk_mask_plain,
                                               keys_of,
+                                              sharded_threshold_masks,
                                               threshold_topk_mask_1d)
 from commefficient_tpu_torch.parallel.wire import row_chunks
 from commefficient_tpu_torch.privacy import (NOISE_TAG, PrivacyAccountant,
@@ -461,7 +483,8 @@ IMAGE_SKETCH = ["--mode", "sketch", "--error_type", "virtual",
                 "--virtual_momentum", "0.9", "--local_momentum", "0",
                 "--num_rows", "5", "--num_cols", "524288", "--k", "50000",
                 "--num_workers", "8", "--local_batch_size", "8",
-                "--seed", "21", "--lr_scale", "0.1", "--pivot_epoch", "0.2"]
+                "--seed", "21", "--lr_scale", "0.1", "--pivot_epoch", "0.2",
+                "--num_devices", "1"]
 EMNIST_ARGV = (["--dataset_name", "EMNIST", "--model", "ResNet101LN",
                 "--num_epochs", "0.45"] + IMAGE_SKETCH)
 # FixupResNet9 (its three LR groups) with mixup, and ResNet9 with
@@ -1124,17 +1147,25 @@ def sketch_kernel_name(mangled):
     r > 8 in groups of 8, the sign source: _row_mix, _one_mix or
     _stream), sketch_quant_RG5_C4_stream_int8 (kernel 4's all-rows
     route, the same and the wire), estimates_R5_one_mix (R0: r read at
-    run time), sketch_quant_K8_int8 (kernel 4's tile route); other names
-    as they are."""
-    m = re.search(r"cet_sketch(_quant_rows)?_kernelILi(\d+)ELi(\d+)ELb([01])"
-                  r"ELi([012])E(Lb([01])E)?", mangled)
+    run time), sketch_quant_K8_int8 (kernel 4's tile route), the 2-D
+    mesh's windows sketch_window_RG5_C4_stream and
+    estimates_window_R5_one_mix; other names as they are."""
+    m = re.search(r"cet_sketch(_quant_rows|_window)?_kernelILi(\d+)ELi(\d+)"
+                  r"ELb([01])ELi([012])E(Lb([01])E)?", mangled)
     if m:
-        return (("sketch_quant" if m.group(1) else "sketch")
+        kind = {"_quant_rows": "sketch_quant", "_window": "sketch_window",
+                None: "sketch"}[m.group(1)]
+        return (kind
                 + f"_RG{m.group(2)}_C{m.group(3)}"
                 + ("_ragged" if m.group(4) == "1" else "")
                 + ("_row_mix", "_one_mix", "_stream")[int(m.group(5))]
-                + ("" if not m.group(1) else
+                + ("" if kind != "sketch_quant" else
                    "_fp8" if m.group(7) == "1" else "_int8"))
+    m = re.search(r"cet_estimates(_window)?_kernelILi(\d+)ELb([01])E",
+                  mangled)
+    if m:
+        return (f"estimates{m.group(1) or ''}_R{m.group(2)}"
+                + ("_one_mix" if m.group(3) == "1" else "_row_mix"))
     m = re.search(r"cet_estimates_kernelILi(\d+)ELb([01])E", mangled)
     if m:
         return (f"estimates_R{m.group(1)}"
@@ -1150,8 +1181,10 @@ def sketch_ptxas_checks(report):
     """The main paths' sketch, sketch-and-quantize and estimates
     instantiations (r = 5, and kernel 4's r = 3 and 2 row chunks of
     ``--overlap_depth 2``, reading the sign stream; the estimates one
-    mix a coordinate) compiled without spills."""
+    mix a coordinate; the 2-D mesh's windows of kernels 1 and 2)
+    compiled without spills."""
     for name in ("sketch_RG5_C4_stream", "estimates_R5_one_mix",
+                 "sketch_window_RG5_C4_stream", "estimates_window_R5_one_mix",
                  "sketch_quant_RG5_C4_stream_int8",
                  "sketch_quant_RG3_C4_stream_fp8",
                  "sketch_quant_RG2_C4_stream_fp8"):
@@ -3204,7 +3237,8 @@ def gpt2_mode_paths():
         out[name] = gpt2_mode_run(name, flags, want_of)[0]
     cfg = parse_args(argv=["--mode", "local_topk", "--error_type", "local",
                            "--local_momentum", "0", "--clientstore", "auto",
-                           "--dataset_name", "PERSONA"])
+                           "--dataset_name", "PERSONA", "--num_devices",
+                           "1"])
     cfg.grad_size = GPT2_D
     placement = resolve_clientstore(cfg, cfg.resolved_num_clients)
     check(cfg.resolved_num_clients == 17_568 and placement == "host",
@@ -3937,7 +3971,7 @@ FIXUP50_D = 25_504_026
 def imagenet_argv(data_dir):
     """scripts/imagenet.sh's flags, one epoch of two rounds."""
     return recipe_argv(IMAGENET_SCRIPT, {"DATASET_DIR": data_dir}) + [
-        "--num_epochs", "1"]
+        "--num_epochs", "1", "--num_devices", "1"]
 
 
 def write_jpeg_tree(root, train, val, classes=8, seed=SEED):
@@ -4720,6 +4754,765 @@ def roofline_phase(resnet_recs, gpt2_recs):
 
 
 
+# --- the multi-GPU round (mesh_paths) -----------------------------------
+
+# the keys of each row of the kernels line
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+
+# kernels 1 and 2 over a window and the search's two per-pass launches:
+# the 2-D mesh's; kernel 3 takes the shard's local need
+MESH_KERNELS = (sk.sketch_window_kernel, sk.estimates_window_kernel,
+                tk.rs_hist_kernel, tk.rs_digit_kernel)
+MESH_MODELS = (2, 4, 8)
+SHARDED_TOL = ("exact: the windowed sketch torch.equal to the plain sketch "
+               "of the slice, the windowed estimates to the whole-range "
+               "kernel's and the plain version's, and the union of the "
+               "shards' masks to the one-card selection")
+# the mesh round's first table against the one-card round's from the same
+# weights and batch: C partial gradients (bf16 compute on a slice of the
+# clients each) summed, so relative L2
+MESH_F32_RTOL = 2 ** -6
+# round 1's f32 crossing against the one-card sum of every rank's input
+MESH_CROSS_F32_RTOL = 1e-6
+MESH_TOL = ("f32: relative L2 of round 1's table against the one-card "
+            "round's <= 2^-6 (bf16 compute on W/C clients a card, another "
+            "summation order); the wire crossing recomputed on one card "
+            "from every rank's input (the harmonized table, or the f32 "
+            "table): int8 and fp8 bit-equal, f32 within 1e-6 relative L2 "
+            "of the sum in rank order (NCCL's order differs)")
+# take_mask_kernel's launches with a shard's local need
+SHARD_TAKE = "take_mask_shard_kernel"
+
+
+def all_counts():
+    out = {k.__name__: k.launches
+           for k in KERNELS + FLCE + ATTN + MESH_KERNELS}
+    out[SHARD_TAKE] = tk.take_mask_kernel.shard_launches
+    return out
+
+
+def reset_all_launches():
+    for kern in KERNELS + FLCE + ATTN + MESH_KERNELS:
+        kern.launches = 0
+    tk.take_mask_kernel.shard_launches = 0
+
+
+@contextlib.contextmanager
+def launches_kept():
+    """Launches made inside the block (checks) do not count."""
+    saved = all_counts()
+    try:
+        yield
+    finally:
+        for kern in KERNELS + FLCE + ATTN + MESH_KERNELS:
+            kern.launches = saved[kern.__name__]
+        tk.take_mask_kernel.shard_launches = saved[SHARD_TAKE]
+
+
+def held(errs, name, got, want, msg):
+    """``got`` bit-equal to ``want``, its largest absolute difference
+    kept as ``errs[name]``'s max."""
+    diff = float((got.to(torch.float64) - want.to(torch.float64))
+                 .abs().max()) if got.numel() else 0.0
+    errs[name] = max(errs.get(name, 0.0), diff)
+    check(torch.equal(got, want), msg)
+
+
+def shard_bounds(d, m_shards, pd):
+    """Peer p's coordinates on a model axis of ``m_shards``: (lo, hi) of
+    its window of the padded space and its count of valid keys."""
+    n_loc = -(-d // m_shards)
+    out = []
+    for p in range(m_shards):
+        lo = min(p * n_loc, pd)
+        out.append((lo, min(lo + n_loc, pd), max(0, min(n_loc, d - p * n_loc))))
+    return n_loc, out
+
+
+def shard_keys(sq, m_shards):
+    """(d,) keys -> ``m_shards`` contiguous shards of ceil(d/M), the tail
+    zero-padded, and each one's count of valid keys."""
+    d = sq.numel()
+    n_loc = -(-d // m_shards)
+    padded = torch.nn.functional.pad(sq, (0, n_loc * m_shards - d))
+    return ([padded[p * n_loc:(p + 1) * n_loc] for p in range(m_shards)],
+            [max(0, min(n_loc, d - p * n_loc)) for p in range(m_shards)])
+
+
+def sharded_select_check(errs, sq, k, m_shards, tag, plain=False):
+    """The per-pass search and kernel 3 over ``m_shards`` virtual shards
+    (counts summed with torch between the passes): the union of the
+    shards' masks equal to the one-card selection (kernels), and with
+    ``plain`` to the plain versions' on the CPU."""
+    shards, nv = shard_keys(sq, m_shards)
+    got = torch.cat(sharded_threshold_masks(shards, k, nv))[:sq.numel()]
+    want = threshold_topk_mask_1d(sq, k)
+    held(errs, "take_mask_shard", got, want,
+         f"sharded selection {tag} M={m_shards}: mask != one-card")
+    if plain:
+        cpu = torch.cat(sharded_threshold_masks([s.cpu() for s in shards], k, nv))
+        held(errs, "take_mask_shard", cpu[:sq.numel()], got.cpu(),
+             f"sharded selection {tag} M={m_shards}: kernels != plain")
+    return got
+
+
+def sharded_selection_checks(dev, flush):
+    """Kernels 1 and 2 over windows, and the search per pass with kernel
+    3's local need, at ResNet9's and GPT-2's padded d over M = 2, 4 and 8
+    virtual model peers, against the one-card kernels and the plain
+    versions; the edges: ties across the shard boundaries, tail padding,
+    k = 1. Returns the kernels line's rows (times at GPT-2's shapes, M =
+    4, peer 0)."""
+    rows, errs = [], {}
+    for tag, d in (("ResNet9", D), ("GPT-2", GPT2_D)):
+        sketch = CountSketch(d=d, c=C, r=R, seed=SEED)
+        pd, rot = sketch._padded_d, sketch.rotations_on(dev)
+        seed, one_mix = sketch.sign_seed, sketch._one_mix_signs
+        signs = sketch.packed_signs_on(dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        v = torch.randn(d, generator=gen, device=dev)
+        vp = torch.nn.functional.pad(v, (0, pd - d))
+        table = sketch.sketch(v)
+        est = sketch.estimates(table, padded=True)
+        sq = (est[:d] * est[:d]).contiguous()
+        for m_sh in MESH_MODELS:
+            n_loc, bounds = shard_bounds(d, m_sh, pd)
+            win_sum = torch.zeros_like(table)
+            for p, (lo, hi, _) in enumerate(bounds):
+                hi_d = min(hi, d)
+                if tag == "ResNet9" or m_sh == 4:
+                    tw = sk.sketch_window_kernel(vp, rot, C, R, seed,
+                                                 one_mix, lo, hi_d, signs)
+                    held(errs, "sketch_window", tw, sk.sketch_window_plain(
+                        vp, rot, C, R, seed, one_mix, lo, hi_d),
+                        f"sketch window {tag} M={m_sh} p={p}: kernel != "
+                        "plain")
+                    win_sum += tw
+                ew = sk.estimates_window_kernel(table, rot, C, R, seed,
+                                                one_mix, d, lo, hi)
+                held(errs, "estimates_window", ew, est[lo:hi],
+                     f"estimates window {tag} M={m_sh} p={p}: != the "
+                     "whole-range kernel's")
+                if tag == "ResNet9":
+                    held(errs, "estimates_window", ew, sk.estimates_plain(
+                        table, rot, C, R, seed, one_mix, d,
+                        window=(lo, hi)),
+                        f"estimates window {tag} M={m_sh} p={p}: kernel "
+                        "!= plain")
+            if tag == "ResNet9" or m_sh == 4:
+                tol = 1e-5 * float(table.abs().max())
+                check(torch.allclose(win_sum, table, rtol=0, atol=tol),
+                      f"sketch windows {tag} M={m_sh}: their sum is not the"
+                      " table")
+            sharded_select_check(errs, sq, K, m_sh, tag,
+                                 plain=tag == "ResNet9" and m_sh == 4)
+        emit({"phase": "sharded_selection", "shape": tag, "d": d,
+              "padded_d": pd, "models": list(MESH_MODELS),
+              "tolerance": SHARDED_TOL})
+    # the edges, at ResNet9's d and an odd one: ties straddling every
+    # shard boundary taken in global index order, tail padding, k = 1
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for d in (D, 1_000_003):
+        base = torch.rand(d, generator=gen, device=dev)
+        for m_sh in MESH_MODELS:
+            sq = base.clone()
+            n_loc = -(-d // m_sh)
+            for p in range(1, m_sh):
+                sq[p * n_loc - 5:p * n_loc + 5] = 2.0  # 10 ties a boundary
+            for k in (1, 7, 15, 10 * (m_sh - 1), 10 * (m_sh - 1) + 3):
+                got = sharded_select_check(errs, sq, k, m_sh,
+                                           f"edge d={d}")
+                check(int(got.sum()) == k, f"sharded edge d={d} M={m_sh} "
+                      f"k={k}: {int(got.sum())} set")
+    emit({"phase": "sharded_selection_edges",
+          "cases": "ties across every boundary (k = 1, 7, 15, all the "
+                   "ties, all + 3), d = 6 584 000 and 1 000 003 (tail "
+                   "padding), M = 2, 4, 8", "tolerance": SHARDED_TOL})
+
+    # times at GPT-2's shapes, model axis 4, peer 0's window
+    sketch = CountSketch(d=GPT2_D, c=C, r=R, seed=SEED)
+    pd, rot = sketch._padded_d, sketch.rotations_on(dev)
+    seed, one_mix = sketch.sign_seed, sketch._one_mix_signs
+    signs = sketch.packed_signs_on(dev)
+    v = torch.randn(GPT2_D, generator=gen, device=dev)
+    vp = torch.nn.functional.pad(v, (0, pd - GPT2_D))
+    n_loc, bounds = shard_bounds(GPT2_D, 4, pd)
+    lo, hi, nv = bounds[0]
+    b_ms, b_by = bound(4 * n_loc + n_loc + 4 * R * sketch._m + 4 * R * C,
+                       R * n_loc)
+    rows.append(dict(
+        name="sketch_window", route="cuda",
+        source="commefficient_tpu_torch/csrc/sketch.cu",
+        replaces="commefficient_tpu/core/rounds.py:426 (the 2-D emission's "
+                 "sketch_sparse of one peer's slice)",
+        max_abs_err=errs["sketch_window"],
+        ms=time_ms(lambda: sk.sketch_window_kernel(
+            vp, rot, C, R, seed, one_mix, lo, hi, signs), 10, flush),
+        plain_ms=time_ms(lambda: sk.sketch_window_plain(
+            vp, rot, C, R, seed, one_mix, lo, hi), 2, flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        window=[lo, hi], model_axis=4))
+    emit({"phase": "kernel", **rows[-1], "tolerance": SKETCH_TOL})
+    table = sketch.sketch(v)
+    b_ms, b_by = bound(4 * R * C + 4 * R + 4 * n_loc, median_ops(R) * n_loc)
+    rows.append(dict(
+        name="estimates_window", route="cuda",
+        source="commefficient_tpu_torch/csrc/sketch.cu",
+        replaces="commefficient_tpu/ops/sketch.py:515 (estimates_at over "
+                 "one peer's slice)",
+        max_abs_err=errs["estimates_window"],
+        ms=time_ms(lambda: sk.estimates_window_kernel(
+            table, rot, C, R, seed, one_mix, GPT2_D, lo, hi), 20, flush),
+        plain_ms=time_ms(lambda: sk.estimates_plain(
+            table, rot, C, R, seed, one_mix, GPT2_D, window=(lo, hi)), 3,
+            flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        window=[lo, hi], model_axis=4))
+    emit({"phase": "kernel", **rows[-1], "tolerance": ESTIMATES_TOL})
+    est = sketch.estimates_window(table, lo, hi)
+    sq = (est * est).contiguous()
+    state, hist = tk.rs_state(dev)
+    pass_ms, plain_ms = [], []
+    for rs_pass in range(4):
+        st0 = state.clone()
+        pass_ms.append(time_ms(lambda: (hist.zero_(), tk.rs_hist_kernel(
+            sq, nv, st0, hist, rs_pass)), 10, flush))
+        plain_ms.append(time_ms(lambda: tk.rs_hist_plain(
+            sq, nv, st0, torch.zeros_like(hist), rs_pass), 2, flush))
+        hist.zero_()
+        tk.rs_hist_kernel(sq, nv, state, hist, rs_pass)
+        ref = torch.zeros_like(hist)
+        tk.rs_hist_plain(sq, nv, state, ref, rs_pass)
+        held(errs, "rs_hist", hist, ref, f"rs_hist pass {rs_pass}: kernel "
+             "!= plain")
+        # the digit step on a copy of the same counts and state
+        st_plain = state.clone()
+        tk.rs_digit_plain(hist.clone(), st_plain, K, rs_pass)
+        tk.rs_digit_kernel(hist, state, K, rs_pass)
+        held(errs, "rs_digit", state, st_plain, f"rs_digit pass {rs_pass}: "
+             "state != rs_digit_plain's")
+    b_ms, b_by = bound(4 * nv + 4 * 256 + 24, nv)
+    rows.append(dict(
+        name="rs_hist", route="cuda",
+        source="commefficient_tpu_torch/csrc/radix_select.cu",
+        replaces="commefficient_tpu/ops/topk.py:166 (a pass's histogram of "
+                 "distributed_threshold_mask_1d)",
+        max_abs_err=errs["rs_hist"], ms=pass_ms[0], plain_ms=plain_ms[0],
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(
+            lambda: torch.histc(sq, bins=256), 10, flush),
+        per_pass_ms=pass_ms, per_pass_plain_ms=plain_ms, model_axis=4))
+    emit({"phase": "kernel", **rows[-1], "tolerance": "exact (the 256 "
+          "counts torch.equal to rs_hist_plain each pass)",
+          "library": "torch.histc(sq, 256) (value bins, not digits)"})
+    counts = torch.arange(256, device=dev, dtype=torch.int32) * 97
+    st = tk.rs_state(dev)[0]
+
+    def digit():
+        h = counts.clone()
+        tk.rs_digit_kernel(h, st, K, 0)
+    b_ms, b_by = bound(2 * 4 * 256 + 24, 2 * 256)
+    rows.append(dict(
+        name="rs_digit", route="cuda",
+        source="commefficient_tpu_torch/csrc/radix_select.cu",
+        replaces="commefficient_tpu/ops/topk.py:166 (a pass's digit step)",
+        max_abs_err=errs["rs_digit"], ms=time_ms(digit, 20, flush),
+        plain_ms=time_ms(lambda: tk.rs_digit_plain(counts.clone(), st, K,
+                                                   0), 5, flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, model_axis=4))
+    emit({"phase": "kernel", **rows[-1], "tolerance": "exact (the state "
+          "after each of the 4 passes torch.equal to rs_digit_plain's on "
+          "a copy of the same counts and state)"})
+    t, need = state[0], state[1]
+    ties = torch.sum(keys_of(sq[:nv]) == t)
+    b_ms, b_by = bound(5 * nv + 16, 2 * nv)
+    mk = tk.take_mask_kernel(sq[:nv], t, need, ties, shard=True)
+    held(errs, "take_mask_shard", mk, tk.take_mask_plain(sq[:nv], t, need),
+         "take_mask shard: kernel != plain")
+    rows.append(dict(
+        name="take_mask_shard", route="cuda",
+        source="commefficient_tpu_torch/csrc/take_mask.cu",
+        replaces="commefficient_tpu/ops/topk.py:196 (the shard's take with "
+                 "its local need)",
+        max_abs_err=errs["take_mask_shard"],
+        ms=time_ms(lambda: tk.take_mask_kernel(sq[:nv], t, need, ties,
+                                               shard=True), 20, flush),
+        plain_ms=time_ms(lambda: tk.take_mask_plain(sq[:nv], t, need), 3,
+                         flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, model_axis=4))
+    emit({"phase": "kernel", **rows[-1], "tolerance": "exact"})
+    return rows
+
+
+def weights_checksum(ps):
+    """A bit-level checksum of the flat weights: their int32 bit patterns
+    weighted by position, summed in int64 on the device."""
+    bits = ps.contiguous().view(torch.int32).to(torch.int64)
+    pos = torch.arange(bits.numel(), device=bits.device) % 65_521 + 1
+    return torch.sum(bits * pos)
+
+
+class MeshRecorder:
+    """Installed in a mesh rank: after every server step, the weights'
+    checksum all-gathered over the world (every rank's must be the
+    same) and the collectives' device seconds since the last step (CUDA
+    events around every Axis collective); round 1's first wire crossing
+    (its input and output); and on the 2-D server each round's support
+    against the 1-D selection of the gathered table (launches of that
+    check not counted)."""
+
+    def __init__(self):
+        self.equal, self.coll_s, self.support_equal = [], [], []
+        self.first_agg, self.crossing = None, None
+        self._events = []
+        self._round = 0
+
+    @contextlib.contextmanager
+    def installed(self):
+        from commefficient_tpu_torch.core import rounds as core_rounds
+        from commefficient_tpu_torch.parallel import mesh as pm
+        from commefficient_tpu_torch.parallel.wire import gather_columns
+        rec = self
+        collectives = ("psum", "pmax", "all_gather", "reduce_scatter",
+                       "all_to_all")
+        orig_psum, orig_gather = pm.Axis.psum, pm.Axis.all_gather
+        orig_sum, orig_step = quant.wire_sum, fed_model.FedOptimizer.step
+        orig_2d = core_rounds.sketched_update_2d
+        saved = [(pm.Axis, n, getattr(pm.Axis, n)) for n in collectives]
+        saved += [(quant, "wire_sum", orig_sum),
+                  (fed_model.FedOptimizer, "step", orig_step),
+                  (core_rounds, "sketched_update_2d", orig_2d)]
+
+        def timed(orig):
+            def run(axis, t, *a, **kw):
+                if axis.group is None:
+                    return orig(axis, t, *a, **kw)
+                # round 1's f32 table crossing: its input, taken before
+                # the sum (in place), and its output
+                first = (rec._round == 0 and rec.crossing is None
+                         and orig is orig_psum and t.ndim == 2
+                         and t.dtype == torch.float32)
+                before = t.cpu() if first else None
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = orig(axis, t, *a, **kw)
+                end.record()
+                rec._events.append((start, end))
+                if first:
+                    rec.crossing = ("f32", before, out.cpu())
+                return out
+            return run
+
+        def crossing_sum(q, axis, scatter=False):
+            out = orig_sum(q, axis, scatter)
+            if rec._round == 0 and rec.crossing is None and not scatter:
+                # as bytes: fp8 tensors do not pickle
+                rec.crossing = (str(q.dtype).split(".")[-1],
+                                raw(q).cpu(), raw(out).cpu())
+            return out
+
+        def step(opt):
+            model = opt.model
+            if rec._round == 0:
+                rec.first_agg = model.pending_aggregated.cpu()
+            orig_step(opt)
+            mine = weights_checksum(model.ps_weights).reshape(1)
+            # the check's own gather is not timed
+            every = (mine if model.mesh is None else
+                     orig_gather(model.mesh.world, mine)).reshape(-1)
+            every = every.cpu().tolist()
+            torch.cuda.synchronize()
+            rec.equal.append(len(set(every)) == 1)
+            rec.coll_s.append(sum(s.elapsed_time(e) for s, e in rec._events)
+                              / 1e3)
+            rec._events = []
+            rec._round += 1
+
+        def checked_2d(cfg, sketch, agg, state, lr, axis, probes=False):
+            res = orig_2d(cfg, sketch, agg, state, lr, axis, probes)
+            with launches_kept():
+                verr = state.Verror + (agg + cfg.virtual_momentum
+                                       * state.Vvelocity)
+                table = gather_columns(verr, axis)
+                _, idx, vals = sketch.unsketch(table, cfg.k,
+                                               with_support=True,
+                                               with_dense=False)
+            rec.support_equal.append(
+                torch.equal(idx, res.support[0])
+                and torch.equal(vals * lr, res.support[1]))
+            return res
+
+        for name in collectives:
+            setattr(pm.Axis, name, timed(getattr(pm.Axis, name)))
+        quant.wire_sum = crossing_sum
+        fed_model.FedOptimizer.step = step
+        core_rounds.sketched_update_2d = checked_2d
+        try:
+            yield self
+        finally:
+            for owner, name, orig in saved:
+                setattr(owner, name, orig)
+
+
+def mesh_rank(kind, argv, root=None, det=False):
+    """One rank of a mesh run (``parallel/mesh.py launch``): the trainer's
+    main as a user calls it, under ``MeshRecorder`` (and with ``det``
+    ``deterministic()``), every launch count from 0. Returns what the
+    parent checks."""
+    rec = MeshRecorder()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with rec.installed(), (deterministic() if det
+                           else contextlib.nullcontext()):
+        if kind == "cv":
+            results = cv_train.main(argv)
+        else:
+            with working_dir(root):
+                results = gpt2_train.main(argv)
+    wall = time.perf_counter() - t0
+    model = fed_model._CURRENT_MODEL
+    return {"rank": model.rank, "row": results[-1], "counts": all_counts(),
+            "equal": rec.equal, "coll_s": rec.coll_s,
+            "support_equal": rec.support_equal, "first_agg": rec.first_agg,
+            "crossing": rec.crossing, "wall": wall,
+            "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def one_card_first_agg(argv):
+    """Round 1's aggregated table of the one-card run of ``argv``."""
+    rec = MeshRecorder()
+    with rec.installed():
+        cv_train.main(argv)
+    return rec.first_agg
+
+
+def crossing_check(tag, outs):
+    """Round 1's first wire crossing recomputed on one card from every
+    rank's input, and the output equal on every rank: int8 summed as
+    int8, bf16 and fp8 summed in f32 in rank order and rounded once,
+    bit-equal to what the collective gave; f32 within
+    ``MESH_CROSS_F32_RTOL`` relative L2 of the f32 sum in rank order."""
+    kinds = {o["crossing"][0] for o in outs}
+    check(len(kinds) == 1, f"{tag}: ranks crossed different dtypes {kinds}")
+    kind = kinds.pop()
+    got = outs[0]["crossing"][2]
+    for o in outs[1:]:
+        check(torch.equal(o["crossing"][2], got),
+              f"{tag}: the crossing's output differs across ranks")
+    if kind == "f32":
+        want = outs[0]["crossing"][1].clone()
+        for o in outs[1:]:
+            want += o["crossing"][1]
+        rel = float(torch.linalg.vector_norm(got - want)
+                    / torch.linalg.vector_norm(want))
+        check(rel <= MESH_CROSS_F32_RTOL, f"{tag}: the f32 crossing is "
+              f"{rel} from the one-card sum (relative L2)")
+        return {"dtype": kind, "bit_equal": "across ranks",
+                "rel_l2_vs_one_card_sum": rel}
+    dtype = getattr(torch, kind)
+    got = got.view(dtype)
+    ins = [o["crossing"][1].view(dtype) for o in outs]
+    if dtype == torch.int8:
+        want = torch.stack([q.to(torch.int32) for q in ins]).sum(0)
+        check(int(want.abs().max()) <= 127, f"{tag}: int8 sum overflows")
+        want = want.to(torch.int8)
+    else:
+        acc = ins[0].to(torch.float32)
+        for q in ins[1:]:
+            acc = acc + q.to(torch.float32)
+        want = acc.to(ins[0].dtype)
+    check(torch.equal(raw(want), raw(got)),
+          f"{tag}: the {kind} crossing != the one-card sum rounded once")
+    return {"dtype": kind, "bit_equal": "to the one-card sum"}
+
+
+def mesh_run(phase, kind, argv, world, want_per_round, root=None,
+             one_card=None):
+    """``argv`` over ``world`` ranks through ``parallel/mesh.launch``:
+    the weights bit-identical across ranks after every round, every
+    rank's losses the same, the launches a round ``want_per_round``
+    on every rank, round 1's crossing (``crossing_check``), on the 2-D
+    server every round's support the 1-D selection's, and against the
+    one-card round's first table (``one_card``) the relative L2. Returns
+    rank 0's launch counts."""
+    from commefficient_tpu_torch.parallel import mesh as pm
+    t0 = time.perf_counter()
+    outs = pm.launch(world, mesh_rank, kind, argv, root)
+    wall = time.perf_counter() - t0
+    row = outs[0]["row"]
+    rounds = len(row["round_times"])
+    for o in outs:
+        check(all(o["equal"]) and len(o["equal"]) == rounds,
+              f"{phase}: weights differ across ranks after a round "
+              f"({o['equal']})")
+        check(o["row"]["round_losses"] == row["round_losses"],
+              f"{phase}: rank {o['rank']} losses differ")
+        want = {k: v * rounds for k, v in want_per_round.items()}
+        got = {k: o["counts"].get(k, 0) for k in want}
+        check(got == want, f"{phase}: rank {o['rank']} launches {got}, "
+              f"want {want}")
+        check(all(o["support_equal"]),
+              f"{phase}: a 2-D support differs from the 1-D selection")
+    check(all(map(math.isfinite, row["round_losses"])),
+          f"{phase}: losses {row['round_losses']}")
+    # on the 2-D mesh a crossing sums over one row or column of ranks
+    crossing = (crossing_check(phase, outs) if "--mesh" not in argv
+                else None)
+    rel = None
+    if one_card is not None:
+        got = outs[0]["first_agg"]
+        rel = float(torch.linalg.vector_norm(got - one_card)
+                    / torch.linalg.vector_norm(one_card))
+        check(rel <= MESH_F32_RTOL, f"{phase}: round 1's table is "
+              f"{rel} from the one-card round's (relative L2)")
+    up_per_round = row["up (MiB)"] / rounds
+    emit({"phase": phase, "world": world, "argv_tail": argv[-6:],
+          "rounds": rounds, "launches_rank0": outs[0]["counts"],
+          "round_seconds": row["round_times"],
+          "round_losses": row["round_losses"],
+          "weights_bit_identical_every_round": True,
+          "supports_checked": len(outs[0]["support_equal"]),
+          "crossing": crossing, "first_table_rel_l2_vs_one_card": rel,
+          "wire_MiB_per_round": up_per_round,
+          "collective_s_per_round": [o["coll_s"] for o in outs],
+          "wall_seconds": wall,
+          "peak_mem_GiB": [o["peak_mem_GiB"] for o in outs],
+          "tolerance": MESH_TOL})
+    return outs[0]["counts"]
+
+
+# the NCCL log lines that name a channel's transport ("... via P2P/IPC")
+NCCL_TRANSPORT = re.compile(r" via (\S+)")
+
+
+def collective_probe_rank(reps):
+    """One rank of ``mesh_collectives``: each crossing of the ResNet9
+    table (5 x 524 288) over the world, timed after a barrier (median
+    CUDA-event ms of ``reps``): the all-reduce at f32, int8, fp8 and
+    bf16 (the harmonized table), the 2-D emission's reduce-scatter and
+    the 2-D server's all-gather of the column shards."""
+    import torch.distributed as dist
+    from commefficient_tpu_torch.parallel import mesh as pm
+    from commefficient_tpu_torch.parallel import wire as wirex
+    mesh = pm.make_mesh()
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(mesh.rank)
+    table = torch.randn(R, C, generator=gen, device=dev)
+    ax = mesh.world
+    cases = {"allreduce_f32": lambda: ax.psum(table.clone())}
+    for wire in ("int8", "fp8", "bf16"):
+        q, scale = wirex.quantize_for_collective(table, wire, ax, ax.size)
+        cases[f"allreduce_{wire}"] = (
+            lambda q=q, scale=scale: wirex.wire_allreduce(q, scale, ax))
+    cases["reduce_scatter_f32"] = lambda: wirex.wire_reduce_scatter(table,
+                                                                    ax)
+    shard = table[:, :C // ax.size].contiguous()
+    cases["all_gather_f32"] = lambda: wirex.gather_columns(shard, ax)
+    out = {}
+    for name, fn in cases.items():
+        fn()
+        times = []
+        for _ in range(reps):
+            dist.barrier()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[name] = float(np.median(times))
+    return out
+
+
+def mesh_collectives(world):
+    """The wire's crossings of the ResNet9 table over ``world`` ranks,
+    timed on each rank (``collective_probe_rank``), with NCCL's INIT log
+    written to a temporary directory: the transports its channels took
+    (P2P over NVLink, shared memory or the network)."""
+    from commefficient_tpu_torch.parallel import mesh as pm
+    with tempfile.TemporaryDirectory(prefix="nccl_log_") as logs:
+        env = {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT",
+               "NCCL_DEBUG_FILE": os.path.join(logs, "nccl.%p.log")}
+        outs = pm.launch(world, collective_probe_rank, 20, env=env)
+        transports = set()
+        for name in os.listdir(logs):
+            with open(os.path.join(logs, name)) as f:
+                for line in f:
+                    transports.update(NCCL_TRANSPORT.findall(line))
+    f32_bytes = 4 * R * C
+    row = {"phase": "mesh_collectives", "world": world, "backend": "nccl",
+           "nccl_env": env, "transports": sorted(transports),
+           "table_bytes_f32": f32_bytes,
+           "ms_by_rank": outs,
+           "what": "median CUDA-event ms of 20 calls each after a barrier; "
+                   "all-reduce bus bytes a rank 2(n-1)/n of the table at "
+                   "the wire width"}
+    for name in outs[0]:
+        ms = max(o[name] for o in outs)
+        width = {"int8": 1, "fp8": 1, "bf16": 2}.get(name.split("_")[-1], 4)
+        nbytes = width * R * C * (2 * (world - 1) / world
+                                  if name.startswith("allreduce")
+                                  else (world - 1) / world)
+        row[name] = {"ms": ms, "bus_GBps": nbytes / ms / 1e6}
+    emit(row)
+    check(transports, "mesh_collectives: no transport in NCCL's log")
+    return row
+
+
+def resnet_mesh_launches(wire_chunks=0, two_d=False):
+    """Launches a ResNet9 round makes on each rank."""
+    if two_d:
+        return {"sketch_kernel": 0, "sketch_window_kernel": 1,
+                "estimates_kernel": 0, "estimates_window_kernel": 1,
+                "threshold_key_kernel": 0, "rs_hist_kernel": 4,
+                "rs_digit_kernel": 4, "take_mask_kernel": 1,
+                SHARD_TAKE: 1, "sketch_quant_kernel": 0}
+    return {"sketch_kernel": 1 if wire_chunks else 2,
+            "sketch_quant_kernel": wire_chunks,
+            "estimates_kernel": 1, "threshold_key_kernel": 1,
+            "take_mask_kernel": 1, "sketch_window_kernel": 0,
+            "estimates_window_kernel": 0, "rs_hist_kernel": 0,
+            "rs_digit_kernel": 0, SHARD_TAKE: 0}
+
+
+def gpt2_mesh_launches(two_d=False):
+    """Launches a GPT-2 round makes on each rank (flce's validation
+    launches checked apart)."""
+    out = resnet_mesh_launches(two_d=two_d)
+    if not two_d:
+        out["sketch_kernel"] = 1  # the sparse re-sketch: no server sketch
+    out["flce_bwd_kernel"] = 1
+    return out
+
+
+def mesh_world1_path():
+    """One card: the ResNet9 round at world size 1 over NCCL (the 1-D
+    mesh's crossings over a group of one) against the same rounds with
+    no mesh, under ``deterministic()``: the tables and the weights bit
+    for bit. Returns the rank's launch counts of that run."""
+    from commefficient_tpu_torch.parallel import mesh as pm
+    argv = profile_round.ARGV + ["--num_epochs", "0.2", "--pivot_epoch",
+                                 "0.1", "--lr_scale", "0.1"]
+    rec = MeshRecorder()
+    with rec.installed(), deterministic():
+        plain = cv_train.main(argv)
+    plain_sum = weights_checksum(fed_model._CURRENT_MODEL.ps_weights).item()
+    outs = pm.launch(1, mesh_world1_rank, argv)
+    o = outs[0]
+    check(torch.equal(o["first_agg"], rec.first_agg),
+          "mesh world 1: round 1's table != the one-device round's")
+    check(o["checksum"] == plain_sum,
+          "mesh world 1: final weights != the one-device run's")
+    check(o["row"]["round_losses"] == plain[-1]["round_losses"],
+          "mesh world 1: losses differ")
+    want = {k: v * len(plain[-1]["round_times"])
+            for k, v in resnet_mesh_launches().items()}
+    got = {k: o["counts"][k] for k in want}
+    check(got == want, f"mesh world 1: launches {got}, want {want}")
+    emit({"phase": "mesh_world1", "world": 1, "backend": "nccl",
+          "rounds": len(plain[-1]["round_times"]), "launches": got,
+          "bit_equal_to_one_device": True,
+          "collective_s_per_round": o["coll_s"]})
+    return o["counts"]
+
+
+def mesh_world1_rank(argv):
+    out = mesh_rank("cv", argv + ["--num_devices", "1"], det=True)
+    out["checksum"] = weights_checksum(
+        fed_model._CURRENT_MODEL.ps_weights).item()
+    return out
+
+
+def mesh_row_launches(mesh_counts):
+    """The kernels line's launches of the windowed and per-pass rows, as
+    ``mesh_paths``' run counted them (rank 0's counters, read after the
+    reset in ``mesh_rank``)."""
+    return {name: mesh_counts[name] for name in
+            [k.__name__ for k in MESH_KERNELS] + [SHARD_TAKE]}
+
+
+def mesh_only_main(dev, name, smi):
+    """``python3 chip_smoke.py --mesh-only`` (the several-card run): the
+    build, the sharded-selection checks and ``mesh_paths``, and their
+    rows of the kernels line."""
+    _build.build_all()
+    report = ptxas_report(_build.BUILD_LOGS.get("sketch", ""))
+    emit({"phase": "ptxas_sketch", "kernels": report})
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    rows = sharded_selection_checks(dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    counts, run = mesh_paths()
+    launches = mesh_row_launches(counts)
+    sketch_ptxas_checks(report)
+    table = []
+    for row in rows:
+        row["launches"] = launches[f"{row['name']}_kernel"]
+        table.append({**{k: row[k] for k in KERNEL_KEYS},
+                      "launches_run": run})
+    emit({"kernels": table})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def mesh_paths():
+    """The multi-GPU round: at ``world = min(cards, 4)`` over NCCL, the
+    ResNet9 cell at ``--num_devices world`` (f32 4 rounds, int8 + delta
+    2, fp8 + overlap 2 2), ``--mesh 2x2`` (``1x2`` on two cards) at f32
+    and int8 2 rounds each, and GPT-2 at ``--num_devices world`` and on
+    the 2-D mesh 2 rounds each (``mesh_run``); on one card the round at
+    world 1 (``mesh_world1_path``). Returns rank 0's launch counts of
+    the run the kernels line reads (the 2-D ResNet9 f32 run; on one
+    card the world-1 run, which is 1-D: the 2-D mesh needs two cards,
+    as NCCL takes one rank a card) and that run's name."""
+    world = min(torch.cuda.device_count(), 4)
+    emit({"phase": "mesh_paths", "world": world, "backend": "nccl",
+          "nccl_env": {k: v for k, v in os.environ.items()
+                       if k.startswith("NCCL_")}})
+    if world == 1:
+        return (mesh_world1_path(),
+                "mesh_world1 (1-D; the 2-D mesh needs two cards)")
+    mesh_collectives(world)
+    nd = ["--num_devices", str(world)]
+    shape = "2x2" if world == 4 else f"1x{world}"
+    two_d = ["--mesh", shape, "--num_devices", str(world)]
+    f32 = profile_round.ARGV + ["--num_epochs", "0.4", "--pivot_epoch",
+                                "0.2", "--lr_scale", "0.1"]
+    short = profile_round.ARGV + ["--num_epochs", "0.2", "--pivot_epoch",
+                                  "0.1", "--lr_scale", "0.1"]
+    ref = one_card_first_agg(f32)
+    mesh_run("mesh_resnet9_f32", "cv", f32 + nd, world,
+             resnet_mesh_launches(), one_card=ref)
+    del ref
+    mesh_run("mesh_resnet9_int8", "cv", short + nd + [
+        "--sketch_dtype", "int8", "--downlink_encoding", "delta"], world,
+        resnet_mesh_launches(1))
+    mesh_run("mesh_resnet9_fp8", "cv", short + nd + [
+        "--sketch_dtype", "fp8", "--overlap_depth", "2"], world,
+        resnet_mesh_launches(len(row_chunks(R, 2))))
+    run = f"mesh2d_resnet9_f32_{shape}"
+    counts = mesh_run(run, "cv", short + two_d, world,
+                      resnet_mesh_launches(two_d=True))
+    mesh_run(f"mesh2d_resnet9_int8_{shape}", "cv", short + two_d + [
+        "--sketch_dtype", "int8"], world, resnet_mesh_launches(two_d=True))
+    with tempfile.TemporaryDirectory(prefix="gpt2_mesh_") as root:
+        # 8 clients: one epoch of 2 rounds of W = 4
+        data_dir, vocab_dir = gpt2_train.fabricate_assets(
+            root, num_personalities=8)
+        argv = profile_round.gpt2_argv(data_dir, vocab_dir)
+        for phase, extra, flat in (("mesh_gpt2", nd, False),
+                                   (f"mesh2d_gpt2_{shape}", two_d, True)):
+            mesh_run(phase, "gpt2", argv + extra, world,
+                     gpt2_mesh_launches(flat), root=root)
+    return counts, run
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4727,12 +5520,15 @@ def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+        check=True).stdout.strip().splitlines()
+    smi_all, smi = smi, smi[0]
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "nvidia_smi_all": smi_all, "torch": torch.__version__, "cuda": torch.version.cuda,
           "count": torch.cuda.device_count()})
+    if "--mesh-only" in sys.argv[1:]:
+        return mesh_only_main(dev, name, smi)
 
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -4782,6 +5578,7 @@ def main():
                             "resnet101ln_shapes", quant=False)
     torch.cuda.empty_cache()
     edge_phases(dev, flush, CountSketch(d=GPT2_D, c=C, r=R)._padded_d)
+    rows += sharded_selection_checks(dev, flush)
     del flush
     server_phase(dev)
     torch.cuda.empty_cache()
@@ -4878,17 +5675,20 @@ def main():
     torch.cuda.empty_cache()
     service_paths(dev)
     torch.cuda.empty_cache()
+    mesh_counts, mesh_run_name = mesh_paths()
+    torch.cuda.empty_cache()
     no_weights_left()
 
-    keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+    keys = KERNEL_KEYS
     # launches: the main path that runs the kernel (ResNet9 for the
     # sketch kernels, with their GPT-2 numbers beside; the int8 ResNet9
-    # path for sketch-and-quantize; GPT-2 for flce)
+    # path for sketch-and-quantize; GPT-2 for flce; the mesh's rows
+    # ``mesh_paths``' run)
+    mesh_rows = mesh_row_launches(mesh_counts)
     launches = {**gpt2_counts, **counts,
                 "sketch_quant_kernel": quant_counts["sketch_quant_kernel"],
-                **{k.__name__: flash_counts[k.__name__] for k in ATTN}}
+                **{k.__name__: flash_counts[k.__name__] for k in ATTN},
+                **mesh_rows}
     table = []
     for row in rows + attn_rows:
         kern = f"{row['name']}_kernel"
@@ -4900,6 +5700,8 @@ def main():
                       "design", "t1024"):
             if extra in row:
                 entry[extra] = row[extra]
+        if kern in mesh_rows:
+            entry["launches_run"] = mesh_run_name
         if kern in gpt2_counts:
             entry["gpt2_paths_launches"] = {
                 path: c[kern] for path, c in gpt2_paths.items()}

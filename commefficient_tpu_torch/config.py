@@ -42,10 +42,9 @@ NATURAL_NUM_CLIENTS = {
 }
 
 # the reference trainer's flags that the port does not have yet: the
-# multi-GPU runtime's and sequence parallelism's
+# multi-host runtime's (ROADMAP item 8c) and sequence parallelism's
 NOT_PORTED_FLAGS = (
     "--seq_devices", "--seq_impl",
-    "--num_devices", "--mesh",
     "--coordinator_address",
     "--num_processes", "--process_id",
 )
@@ -142,6 +141,12 @@ class Config:
     num_workers: int = 1  # participating clients per round
     # "cuda" (default) or "cpu"; there is no fallback between them
     device: str = "cuda"
+    # devices of the 1-D clients mesh, one process each (parallel/
+    # mesh.py); <= 0 = every visible card (one on the CPU)
+    num_devices: int = -1
+    # the 2-D mesh "CxM": C ranks data-parallel over clients x M ranks
+    # sharding the sketch server's state by columns; "" = the 1-D mesh
+    mesh: str = ""
     do_iid: bool = False
 
     local_batch_size: int = 8
@@ -413,6 +418,12 @@ class Config:
             "--pipeline_depth must be >= 1"
         assert self.clientstore in ("device", "host", "auto"), \
             "--clientstore must be device|host|auto"
+        if self.mesh:
+            import re
+            assert re.fullmatch(r"[0-9]+x[0-9]+", self.mesh.lower()), \
+                "--mesh must be CxM (e.g. 4x2)"
+            c, m = self.mesh2d
+            assert c >= 1 and m >= 1, "--mesh axes must be >= 1"
         assert self.clientstore_bytes >= 0, \
             "--clientstore_bytes must be >= 0"
         assert self.checkpoint_every_rounds >= 0, \
@@ -627,7 +638,95 @@ class Config:
         if self.mode == "uncompressed":
             assert self.error_type != "local", \
                 "local error accumulation is pointless uncompressed"
+        if self.model_axis > 1:
+            # the model axis shards the server state (reference
+            # config.py:750-770)
+            assert self.mode in ("sketch", "uncompressed"), \
+                "--mesh with model axis > 1 supports sketch and " \
+                "uncompressed modes only"
+            if self.mode == "sketch":
+                assert self.num_cols % self.model_axis == 0, \
+                    "--mesh model axis must divide --num_cols " \
+                    "(the sketch table shards by columns)"
+            assert self.client_chunk == 0, \
+                "--mesh with model axis > 1 is incompatible with " \
+                "--client_chunk (the chunked scan is single-device)"
+        if self.on_mesh:
+            self._check_mesh_ported()
         return self
+
+    def _check_mesh_ported(self):
+        """The combinations the reference runs on a mesh and the port
+        does not yet: each raises naming its ROADMAP item."""
+        def no(what, item):
+            raise NotImplementedError(
+                f"{what} on a mesh (--num_devices/--mesh) is not ported "
+                f"(ROADMAP item {item})")
+        if not self.fused_grad:
+            no("the per-client round (local state, clipping, "
+               "microbatches, robust folds, DP, local_topk, fedavg)",
+               "8a")
+        if self.dropout_prob > 0:
+            no("--dropout_prob", "8a")
+        if self.do_batchnorm:
+            no("--batchnorm's client statistics", "8a")
+        if self.model_axis > 1 and self.mode == "uncompressed":
+            no("the 2-D dense server (uncompressed with model axis > 1)",
+               "8b")
+        if self.clientstore == "host":
+            no("--clientstore host", "8d")
+        if (self.do_checkpoint or self.do_resume
+                or self.checkpoint_every_rounds > 0):
+            no("checkpoint and resume", "8d")
+        if self.async_buffer_size > 0:
+            no("--async_buffer_size", "8f")
+        if self.autopilot == "on":
+            no("--autopilot", "8f")
+
+    @property
+    def mesh2d(self):
+        """``--mesh "CxM"`` as (clients, model), or None for the 1-D
+        mesh (reference config.py:809)."""
+        if not self.mesh:
+            return None
+        c, m = (int(p) for p in self.mesh.lower().split("x"))
+        return (c, m)
+
+    @property
+    def fused_grad(self) -> bool:
+        """The aggregated quantity is exactly the gradient of the
+        sample-weighted mean loss (one backward) when no per-client
+        transform touches the gradient: no local momentum or error, no
+        topk_down, clip, DP, microbatching or robust fold. The mesh runs
+        only this round."""
+        return (self.mode in ("sketch", "uncompressed", "true_topk")
+                and self.local_momentum == 0
+                and self.error_type != "local"
+                and not self.do_topk_down and not self.do_dp
+                and self.dp == "off" and self.max_grad_norm is None
+                and self.microbatch_size <= 0
+                and self.robust_agg == "none")
+
+    @property
+    def model_axis(self) -> int:
+        """The model axis of the requested mesh (1 when unset or 1-D)."""
+        shape = self.mesh2d
+        return shape[1] if shape else 1
+
+    @property
+    def on_mesh(self) -> bool:
+        """Whether the run asks for more than one device: ``--mesh`` of
+        more than one, ``--num_devices`` > 1, or <= 0 with more than
+        one visible card."""
+        shape = self.mesh2d
+        if shape is not None:
+            return shape[0] * shape[1] > 1
+        if self.num_devices > 1:
+            return True
+        if self.num_devices <= 0 and self.device == "cuda":
+            import torch
+            return torch.cuda.device_count() > 1
+        return False
 
     @property
     def probe_period(self) -> int:
@@ -748,6 +847,12 @@ def build_parser(default_lr: Optional[float] = None
     parser.add_argument("--num_workers", type=int, default=1)
     parser.add_argument("--device", type=str, choices=["cuda", "cpu"],
                         default="cuda")
+    parser.add_argument("--num_devices", type=int, default=-1)
+    parser.add_argument("--mesh", type=str, default="",
+                        help="2D mesh 'CxM': C devices data-parallel "
+                        "over clients x M devices sharding the sketch "
+                        "server's state over model (per-device server "
+                        "memory ~1/M). Default: 1-D clients mesh")
     parser.add_argument("--share_ps_gpu", action="store_true")
     parser.add_argument("--iid", action="store_true", dest="do_iid")
     parser.add_argument("--train_dataloader_workers", type=int, default=0)

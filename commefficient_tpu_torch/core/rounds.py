@@ -27,7 +27,12 @@ datapoint count by ``(1 + staleness)^-alpha``. The schema-v2 probes
 ``_client_norm_stats`` :1059, the recovery error's dense ground truth
 :642-764, 891-912, 975-1042; the server's through
 ``build_server_round(probes=)``, :1340) are 0-dim tensors on the
-device; a round built without them is the plain round.
+device; a round built without them is the plain round. On a mesh
+(``mesh=``, parallel/mesh.py; reference ``client_round_fused`` :625-740,
+``_partial_table_emit`` :426-500 and ``build_server_round``'s 2-D
+dispatch :1340-1380, 1428-1475) the fused round runs each rank's slice
+of the clients and crosses the table once, and a model axis shards the
+sketch server.
 
 Batch layout: a dict of (W, B, ...) tensors with a (W, B) float "mask"
 marking real samples. Where no per-client transform touches the
@@ -65,9 +70,14 @@ from commefficient_tpu_torch.core.robust import robust_fold
 from commefficient_tpu_torch.core.server import (ServerState,
                                                  fold_row_chunks,
                                                  server_update,
+                                                 sketched_update_2d,
                                                  staleness_weights)
 from commefficient_tpu_torch.ops import quant
 from commefficient_tpu_torch.ops.sketch import CountSketch
+from commefficient_tpu_torch.parallel import wire as wirex
+from commefficient_tpu_torch.parallel.mesh import (client_axis_size,
+                                                   is_sharded,
+                                                   model_axis_size)
 from commefficient_tpu_torch.parallel.wire import row_chunks
 from commefficient_tpu_torch.privacy.mechanism import (NOISE_TAG,
                                                        WORKER_NOISE_TAG,
@@ -138,16 +148,9 @@ def sketch_is_late(cfg: Config) -> bool:
 
 
 def fused_grad_eligible(cfg: Config) -> bool:
-    """The aggregated quantity is exactly the gradient of the
-    sample-weighted mean loss (one backward) when no per-client
-    transform touches the gradient: no local momentum or error, no
-    topk_down, clip, DP, microbatching or robust fold."""
-    return (cfg.mode in ("sketch", "uncompressed", "true_topk")
-            and cfg.local_momentum == 0 and cfg.error_type != "local"
-            and not cfg.do_topk_down and not cfg.do_dp
-            and cfg.dp == "off"
-            and cfg.max_grad_norm is None and cfg.microbatch_size <= 0
-            and cfg.robust_agg == "none")
+    """Whether the round runs ONE backward of the sample-weighted mean
+    loss (``Config.fused_grad``)."""
+    return cfg.fused_grad
 
 
 def round_plan(cfg: Config) -> dict:
@@ -218,10 +221,30 @@ def build_client_round(cfg: Config, loss_fn: Callable,
                        dense_rows: bool = False,
                        client_weights: bool = False,
                        probes: bool = False,
-                       probe_recovery: bool = False) -> Callable:
+                       probe_recovery: bool = False,
+                       mesh=None) -> Callable:
     """Returns ``client_round(ps_weights, batch, client_states=None,
-    client_ids=None, fedavg_lr=1.0, round_index=0, staleness=None) ->
-    RoundResult``.
+    client_ids=None, fedavg_lr=1.0, round_index=0, staleness=None,
+    total=None, global_w=None) -> RoundResult``.
+
+    ``mesh`` (parallel/mesh.py; the fused round only, as
+    ``Config.validate_runtime`` enforces): ``batch`` is this rank's
+    slice of the round's ``global_w`` clients (``mesh.client_slice``),
+    ``total`` the WHOLE round's datapoint count (each rank's loss is
+    normalised by it, reference core/rounds.py:628-631), and the
+    weight decay is split over the C client shards so their sum adds
+    (wd/num_workers)·p once (:500-565). Each rank sketches its local
+    gradient once and the round all-reduces the table over ``clients``
+    (f32, or at wire width with ``n_addends = C``, in row chunks under
+    ``--overlap_depth``); on the 2-D mesh each model peer sketches its
+    ceil(d/M) coordinate slice (kernel 1 over the window), reduce-
+    scatters the partial tables over ``model`` (quantized before the
+    collective, headroom C·M) and all-reduces its (r, c/M) column shard
+    over ``clients``: the aggregate leaves column-sharded. A probed
+    round all-reduces the dense gradient too. The metrics are gathered,
+    so every rank holds all W. Where C does not divide W every rank
+    runs all W clients and no table crosses (the 2-D rank keeps its
+    columns of the table).
 
     ``loss_fn(flat_params, batch) -> (loss, metrics)`` returns masked
     means over the last batch axis: per-client (W,) values for the
@@ -274,7 +297,8 @@ def build_client_round(cfg: Config, loss_fn: Callable,
     them nothing of the probes is computed."""
     round_fn = _build_client_round(cfg, loss_fn, padded_batch_size,
                                    transmit_transform, dense_rows,
-                                   client_weights, probes, probe_recovery)
+                                   client_weights, probes, probe_recovery,
+                                   mesh)
     if stats_fn is None:
         return round_fn
 
@@ -308,7 +332,8 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
                         dense_rows: bool = False,
                         client_weights: bool = False,
                         probes: bool = False,
-                        probe_recovery: bool = False) -> Callable:
+                        probe_recovery: bool = False,
+                        mesh=None) -> Callable:
     cfg.validate_runtime()
     # the recovery probe needs probes on and a sketch to recover from
     probe_recovery = bool(probes and probe_recovery
@@ -364,11 +389,51 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
             return sketch.sketch(g)
         return fold_row_chunks(wire_crossing(g, rows) for rows in chunks)
 
-    def fused_round(ps_weights, batch, client_states, staleness=None):
+    C, M = client_axis_size(mesh), model_axis_size(mesh)
+    shard2d = M > 1 and cfg.mode == "sketch"
+    if mesh is not None:
+        assert fused_grad_eligible(cfg) and transmit_transform is None, \
+            "the mesh runs the fused round only (ROADMAP item 8a)"
+
+    def mesh_emit(g):
+        """The sharded round's transmit and its crossings (reference
+        ``_client_psum`` and ``_partial_table_emit``): the table summed
+        over ``clients`` (and on the 2-D mesh reduce-scattered over
+        ``model`` first), f32 or at wire width."""
+        if shard2d:
+            n_loc = -(-cfg.grad_size // M)
+            lo = min(mesh.model.index * n_loc, cfg.grad_size)
+            partial = sketch.sketch_window(
+                g, lo, min(lo + n_loc, cfg.grad_size))
+            # quantized before the collective: headroom for the M
+            # partials of the scatter times the C client shards
+            return wirex.chunked_quantize_allreduce(
+                wirex.local_rows(partial, wire), cfg.num_rows, wire,
+                mesh.clients, C * M, cfg.overlap_depth, scatter=mesh.model,
+                over=mesh.world)
+        if cfg.mode != "sketch":
+            return mesh.clients.psum(g.clone())
+        if wire == "f32":
+            produce = wirex.local_rows(sketch.sketch(g), wire)
+        else:
+            # kernel 4: each chunk's rows sketched and quantized at once
+            def produce(rows):
+                return sketch.sketch_quantized(g, wire, rows)
+        return wirex.chunked_quantize_allreduce(
+            produce, cfg.num_rows, wire, mesh.clients, C, cfg.overlap_depth)
+
+    def fused_round(ps_weights, batch, client_states, staleness=None,
+                    total=None, global_w=None):
         mask = batch["mask"]
         n = torch.sum(mask, dim=-1)
         cw = staleness_weights(staleness, alpha) if weighted else None
-        if cw is not None:
+        sharded = (mesh is not None and global_w is not None
+                   and is_sharded(global_w, mesh))
+        if total is not None:
+            # the whole round's datapoints (a mesh rank holds a slice)
+            total = torch.as_tensor(total, dtype=torch.float32,
+                                    device=mask.device)
+        elif cw is not None:
             total = torch.clamp(torch.sum(cw * n), min=1.0)
         else:
             total = torch.clamp(torch.sum(mask), min=1.0)
@@ -393,24 +458,44 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
                 # round whose clients all dropped, as the per-client
                 # round's dead transmits are
                 g = g + (wd_coef * (torch.sum(mask) / total)) * ps_weights
+            elif sharded:
+                # this shard's even share: the sum over the C shards
+                # adds (wd/num_workers)·p once
+                g = g + (wd_coef / C) * ps_weights
             else:
                 g = g + wd_coef * ps_weights
-        t = emit(g)
+        t = mesh_emit(g) if sharded else emit(g)
         mets = tuple(((n > 0) * m).detach()
                      for m in (loss,) + tuple(metrics))
+        if sharded:
+            # every rank holds the whole round's per-client metrics
+            mets = tuple(mesh.clients.all_gather(m).reshape(-1)
+                         for m in mets)
+        # the whole table for the probes (a sharded 2-D aggregate is
+        # this rank's columns)
+        full = (wirex.gather_columns(t, mesh.model)
+                if shard2d and sharded and probes else t)
         pr = None
         if probes:
-            pr = _agg_probes(t)
+            pr = _agg_probes(full)
             if probe_recovery:
-                # the dense gradient is this round's own
-                pr["recovery_error"] = sketch.recovery_error(t, g, cfg.k)
+                # the dense gradient is this round's own; on a
+                # sharded round it crosses the clients axis too
+                dense = mesh.clients.psum(g.clone()) if sharded else g
+                pr["recovery_error"] = sketch.recovery_error(full, dense,
+                                                             cfg.k)
+        if shard2d and not sharded:
+            # replicated: this rank's columns of the whole table
+            cl = cfg.num_cols // M
+            t = t[:, mesh.model.index * cl:(mesh.model.index + 1) * cl]
         return RoundResult(t, mets, client_states, probes=pr)
 
     if fused:
         return (lambda ps_weights, batch, client_states=None,
                 client_ids=None, fedavg_lr=1.0, round_index=0,
-                staleness=None:
-                fused_round(ps_weights, batch, client_states, staleness))
+                staleness=None, total=None, global_w=None:
+                fused_round(ps_weights, batch, client_states, staleness,
+                            total, global_w))
 
     if cfg.mode == "fedavg":
         per_client = _build_fedavg_client_step(cfg, loss_fn,
@@ -751,7 +836,8 @@ def _build_fedavg_client_step(cfg, loss_fn, padded_batch_size):
     return step
 
 
-def build_server_round(cfg: Config, probes: bool = False) -> Callable:
+def build_server_round(cfg: Config, probes: bool = False,
+                       mesh=None) -> Callable:
     """Returns ``server_round(ps_weights, server_state, aggregated, lr,
     client_velocities=None, client_ids=None, noise_gen=None) ->
     (new_ps_weights,
@@ -769,9 +855,22 @@ def build_server_round(cfg: Config, probes: bool = False) -> Callable:
     (``client_ids``, dead slots at the dead-slot row) are zeroed where
     the server sent, in place. ``noise_gen`` is the step's server noise
     stream under ``--do_dp --dp_mode server``. ``probes=True`` appends
-    a sixth output, the server's probe dict (core/server.py)."""
+    a sixth output, the server's probe dict (core/server.py).
+
+    ``mesh`` with a model axis of more than one rank (sketch mode):
+    the model-sharded FetchSGD server (reference
+    ``_build_server_round_2d_sketch``, core/rounds.py:1340-1380,
+    1428-1475; core/server.py ``sketched_update_2d``): the aggregate and
+    the state are this rank's (r, c/M) column shards, the dense update
+    and the support come back the same on every rank. Any other mesh
+    runs the one-device server, the same on every rank."""
     cfg.validate_runtime()
     sketch = args2sketch(cfg)
+    two_d = model_axis_size(mesh) > 1
+    if two_d:
+        # the config admits only sketch mode on a model axis here
+        # (ROADMAP item 8b: the 2-D dense server)
+        assert cfg.mode == "sketch", cfg.mode
 
     def server_round(ps_weights: torch.Tensor, server_state: ServerState,
                      aggregated: torch.Tensor, lr, client_velocities=None,
@@ -784,6 +883,12 @@ def build_server_round(cfg: Config, probes: bool = False) -> Callable:
             # made on the device: a copy up would stop the host
             lr = torch.full((), 1.0 if cfg.mode == "fedavg" else float(lr),
                             dtype=torch.float32, device=ps_weights.device)
+        if two_d:
+            res = sketched_update_2d(cfg, sketch, aggregated, server_state,
+                                     lr, mesh.model, probes)
+            out = (ps_weights - res.weight_update, res.state,
+                   client_velocities, res.weight_update, res.support)
+            return out + (res.probes,) if probes else out
         res = server_update(cfg, aggregated, server_state, lr, sketch,
                             noise_gen, probes)
         if res.weight_update is None:

@@ -9,7 +9,8 @@ Port of ``commefficient_tpu/core/server.py`` (``ServerState`` :28,
 --dp_mode server`` noise, ``_true_topk`` :225, ``_local_topk`` :267 and
 ``_sketched`` :279 with its dense and its sparse re-sketch branches),
 and their schema-v2 probes (``probes=True``: ``_state_probes`` :185,
-``_coverage`` :137).
+``_coverage`` :137), and the 2-D mesh's model-sharded sketch server
+(``sketched_update_2d`` and ``_psum_l2``, :364-470).
 ``gradient`` is the round's aggregated quantity: the client-transmit
 sum divided by the round's total datapoint count, a flat (d,) vector
 or, in sketch mode, an (r, c) table. Functions return new tensors;
@@ -34,18 +35,28 @@ class ServerState(NamedTuple):
     Verror: torch.Tensor
 
     @staticmethod
-    def init(cfg: Config, device="cuda") -> "ServerState":
+    def init(cfg: Config, device="cuda", model_axis: int = 1
+             ) -> "ServerState":
+        """Zeros of the transmit shape; on a model axis of M ranks a
+        sketch table's (r, c/M) column shard (reference
+        runtime/fed_model.py:1241-1265: 1/M of the state a rank)."""
+        shape = tuple(cfg.transmit_shape)
+        if model_axis > 1:
+            assert len(shape) == 2 and shape[1] % model_axis == 0, shape
+            shape = (shape[0], shape[1] // model_axis)
+
         def z():
-            return torch.zeros(cfg.transmit_shape, dtype=torch.float32,
-                               device=device)
+            return torch.zeros(shape, dtype=torch.float32, device=device)
         return ServerState(z(), z())
 
 
 def fold_row_chunks(chunks) -> torch.Tensor:
     """Reassemble the (r, c) table from its dequantized row chunks
     (``--overlap_depth``) in emission order. The chunks cover disjoint
-    row ranges, so the fold is concatenation, with no summation."""
-    return torch.cat(list(chunks), dim=0)
+    row ranges, so the fold is concatenation, with no summation; one
+    chunk is the table itself (no copy)."""
+    chunks = list(chunks)
+    return chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=0)
 
 
 def staleness_weights(staleness: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -281,3 +292,101 @@ def _sketched(cfg: Config, sketched_grad: torch.Tensor,
         # core/server.py:318)
         support = {"bitmap": packbits(weight_update != 0)}
     return ServerUpdate(weight_update, state, support=support, probes=pr)
+
+
+def _psum_l2(x: torch.Tensor, axis) -> torch.Tensor:
+    """The l2 norm of a vector sharded over a mesh axis."""
+    return torch.sqrt(axis.psum(torch.sum(x * x).reshape(1))[0])
+
+
+def sketched_update_2d(cfg: Config, sketch: CountSketch,
+                       sketched_grad_loc: torch.Tensor, state: ServerState,
+                       lr: torch.Tensor, axis,
+                       probes: bool = False) -> ServerUpdate:
+    """The FetchSGD server step of one model peer on the 2-D mesh
+    (reference ``sketched_update_2d``, core/server.py:364-470): the
+    aggregate, momentum and error are this peer's (r, c/M) column
+    shards of the tables (``axis``: the ``model`` axis, parallel/mesh.py),
+    so the accumulation runs on 1/M of the state. The full table is
+    gathered once; the peer estimates only its contiguous ceil(d/M)
+    slice of the coordinates (kernel 2 over the window), the global
+    k-th key is agreed through the all-reduced counts of each radix
+    pass and the ties are taken in global index order
+    (``distributed_threshold_mask_1d``); each peer compacts its winners
+    into k slots with no host read, the M·k (index, value) slots are
+    gathered and the first k valid ones are the update's support, in
+    ascending order. The set is the one-card selection's. The update is
+    re-sketched sparsely (as the reference's, whatever d) and a bucket
+    of this peer's columns is kept where no selected coordinate landed.
+    The dense update, the support and the probes come out the same on
+    every peer."""
+    from commefficient_tpu_torch.ops.topk import (
+        compact_mask, distributed_threshold_mask_1d)
+    from commefficient_tpu_torch.parallel.wire import gather_columns
+    assert cfg.error_type in ("none", "virtual", "local")
+    if cfg.error_type == "local":
+        assert cfg.virtual_momentum == 0
+    elif cfg.error_type == "virtual":
+        assert cfg.local_momentum == 0
+    d = cfg.grad_size
+    k = min(cfg.k, d)
+    Vvel = sketched_grad_loc + cfg.virtual_momentum * state.Vvelocity
+    if cfg.error_type == "local":
+        Verr = Vvel
+    elif cfg.error_type == "virtual":
+        Verr = state.Verror + Vvel
+    else:  # "none": zero updates forever, as the one-device server
+        Verr = state.Verror
+
+    table = gather_columns(Verr, axis)
+    # this peer's coordinates [start, start + n_loc); the tail shard's
+    # slots at and past d are kept out of the population
+    n_loc = -(-d // axis.size)
+    start = axis.index * n_loc
+    lo = min(start, sketch._padded_d)
+    hi = min(start + n_loc, sketch._padded_d)
+    est = sketch.estimates_window(table, lo, hi)  # zero at and past d
+    if hi - lo < n_loc:
+        est = torch.cat([est, est.new_zeros(n_loc - (hi - lo))])
+    n_valid = max(0, min(n_loc, d - start))
+    take = distributed_threshold_mask_1d(est * est, k, axis, n_valid)
+    # candidates: this peer's winners in k slots (index d = empty),
+    # all M·k slots gathered, the first k valid ones kept
+    pos = compact_mask(take, k)
+    n_take = torch.sum(take, dtype=torch.int64)
+    ok = torch.arange(k, device=est.device) < n_take
+    cand_idx = torch.where(ok, start + pos, torch.full_like(pos, d))
+    cand_val = torch.where(ok, est[torch.clamp(pos, max=n_loc - 1)],
+                           torch.zeros((), device=est.device))
+    cand_idx = axis.all_gather(cand_idx).reshape(-1)
+    cand_val = axis.all_gather(cand_val).reshape(-1)
+    sel = compact_mask(cand_idx < d, k)
+    idx = cand_idx[sel]  # ascending global order
+    vals = cand_val[sel]
+
+    dense_mass = (torch.square(CountSketch.l2estimate(table)) if probes
+                  else None)
+    update = torch.zeros(d, dtype=torch.float32, device=est.device)
+    # unchecked indices (in range by construction): the public
+    # index_put_ reads their range back to the host
+    torch.ops.aten._index_put_impl_(update, (idx,), vals, True, True)
+    support = _lr_scaled_support(idx, vals, lr)
+
+    st = sketch.sketch_sparse(idx, vals)
+    c_loc = Verr.shape[1]
+    keep = st[:, axis.index * c_loc:(axis.index + 1) * c_loc] == 0
+    zero = torch.zeros((), dtype=torch.float32, device=Verr.device)
+    if cfg.error_type == "virtual":
+        Verr = torch.where(keep, Verr, zero)
+    Vvel = torch.where(keep, Vvel, zero)
+    if cfg.error_type == "local":
+        Verr = Vvel
+    new_state = ServerState(Vvel, Verr)
+    pr = None
+    if probes:
+        pr = {"update_norm": _l2(update * lr),
+              "momentum_norm": _psum_l2(Vvel, axis),
+              "residual_norm": _psum_l2(Verr, axis),
+              "mass_coverage": _coverage(torch.sum(vals * vals),
+                                         dense_mass)}
+    return ServerUpdate(update * lr, new_state, support=support, probes=pr)

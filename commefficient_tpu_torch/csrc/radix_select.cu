@@ -14,8 +14,9 @@
 // takes every tie. All stay on the device.
 //
 // Four passes of 8-bit digits, most significant first. Each pass is two
-// launches, so that a multi-card form can all-reduce the 256 counts
-// between them:
+// launches, so that the 2-D mesh's sharded form (cet_rs_pass_hist and
+// cet_rs_pass_digit below, with an all-reduce of the 256 counts between
+// them) takes the same steps:
 //   cet_rs_hist<P>: the histogram of digit P among the keys whose higher
 //     digits equal the prefix found so far; the others are skipped. A
 //     grid of a few blocks an SM walks the keys with 16-byte loads.
@@ -182,6 +183,71 @@ static cudaError_t cet_rs_grid_cap(long long* cap) {
   return cudaSuccess;
 }
 
+static unsigned cet_rs_grid(long long d, long long cap) {
+  const long long want = (d / 4 + CET_RS_THREADS - 1) / CET_RS_THREADS;
+  return (unsigned)(want < 1 ? 1 : (want < cap ? want : cap));
+}
+
+// One pass of the search in two entry points, for a key vector cut into
+// shards (the 2-D mesh's model peers): each peer histograms its shard
+// (cet_rs_pass_hist: keys [0, n) only, so a tail shard's padding past
+// n stays out of the population), the 256 counts are summed over the
+// peers between the two launches, and each peer takes the same digit
+// from the global counts (cet_rs_pass_digit), so every peer ends with
+// the global T, need and tie count. hist must hold zeros before pass
+// 0's histogram (cet_rs_zero); the digit step zeroes it again. One
+// shard holding every key is cet_threshold_key, launch for launch.
+extern "C" int cet_rs_zero(unsigned* hist, void* stream) {
+  return (int)cudaMemsetAsync(hist, 0, sizeof(unsigned) * CET_RS_BINS,
+                              (cudaStream_t)stream);
+}
+
+extern "C" int cet_rs_pass_hist(int pass, const float* sq, long long n,
+                                const long long* state, unsigned* hist,
+                                void* stream) {
+  if (n < 0 || pass < 0 || pass > 3) return (int)cudaErrorInvalidValue;
+  long long cap = 0;
+  cudaError_t err = cet_rs_grid_cap(&cap);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = cet_rs_grid(n, cap);
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint32_t* keys = reinterpret_cast<const uint32_t*>(sq);
+  switch (pass) {
+    case 0:
+      cet_rs_hist<0><<<grid, CET_RS_THREADS, 0, s>>>(keys, n, state, hist);
+      break;
+    case 1:
+      cet_rs_hist<1><<<grid, CET_RS_THREADS, 0, s>>>(keys, n, state, hist);
+      break;
+    case 2:
+      cet_rs_hist<2><<<grid, CET_RS_THREADS, 0, s>>>(keys, n, state, hist);
+      break;
+    default:
+      cet_rs_hist<3><<<grid, CET_RS_THREADS, 0, s>>>(keys, n, state, hist);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cet_rs_pass_digit(int pass, unsigned* hist, long long* state,
+                                 long long k, void* stream) {
+  if (pass < 0 || pass > 3) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (pass) {
+    case 0:
+      cet_rs_digit<0><<<1, CET_RS_BINS, 0, s>>>(hist, state, k);
+      break;
+    case 1:
+      cet_rs_digit<1><<<1, CET_RS_BINS, 0, s>>>(hist, state, k);
+      break;
+    case 2:
+      cet_rs_digit<2><<<1, CET_RS_BINS, 0, s>>>(hist, state, k);
+      break;
+    default:
+      cet_rs_digit<3><<<1, CET_RS_BINS, 0, s>>>(hist, state, k);
+  }
+  return (int)cudaGetLastError();
+}
+
 // sq: (d,) f32 keys; state: 3 int64 (T, need, ties) written; hist: 256
 // uint32 counts, any contents (zeroed here)
 extern "C" int cet_threshold_key(const float* sq, long long d, long long k,
@@ -194,8 +260,7 @@ extern "C" int cet_threshold_key(const float* sq, long long d, long long k,
   if (err == cudaSuccess)
     err = cudaMemsetAsync(hist, 0, sizeof(unsigned) * CET_RS_BINS, s);
   if (err != cudaSuccess) return (int)err;
-  const long long want = (d / 4 + CET_RS_THREADS - 1) / CET_RS_THREADS;
-  const unsigned grid = (unsigned)(want < 1 ? 1 : (want < cap ? want : cap));
+  const unsigned grid = cet_rs_grid(d, cap);
   const uint32_t* keys = reinterpret_cast<const uint32_t*>(sq);
   cet_rs_pass<0>(keys, d, k, state, hist, grid, s);
   cet_rs_pass<1>(keys, d, k, state, hist, grid, s);

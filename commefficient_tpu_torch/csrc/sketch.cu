@@ -64,6 +64,23 @@
 // stream instead was slower here, 0.71 against 0.49 ms on the same
 // card (sketch_ablation `packed_signs`).
 //
+// --- cet_sketch_window, cet_estimates_window -- kernels 1 and 2 over
+// a window [lo, hi) of the coordinates, for the 2-D mesh (one model
+// peer's contiguous ceil(d/M) slice). The reference makes the peer's
+// partial table with sketch_sparse of the slice (commefficient_tpu/core/
+// rounds.py:426-500) and its estimates with estimates_at over the slice's
+// indices (ops/sketch.py:515-533); here they are the same kernels with
+// the chunk loop's bounds cut to the chunks that hold the window and the
+// two edge chunks masked (sketch: a template flag of cet_sketch_sums, so
+// the whole-range instantiations compile as before), or the grid cut to
+// those chunks and the stores to the window (estimates, whose coordinates
+// stay uint32). The windowed table is the plain sketch of the vector
+// zeroed outside the window, bit for bit (skipped terms would add +-0 to
+// an accumulator that is never -0); each windowed estimate is the
+// whole-range kernel's. Bound: bytes, the window's read (and, for the
+// sketch, its sign bytes) plus the table's write (sketch) or read
+// (estimates), at 1/M of the whole-range kernel's reads.
+//
 // --- cet_sketch_quant -- replaces sketch_quant_pallas (commefficient_
 // tpu/ops/sketch_pallas.py:293-411), the fused emit + quantize of the
 // --sketch_dtype int8|fp8 wire: the table of r rows (a row chunk under
@@ -163,11 +180,17 @@ __device__ __forceinline__ float cet_bucket(const float* __restrict__ v,
 // (CET_SIGNS_*) is a template argument so that each element takes one
 // sign source: with the choice made at run time the compiler computes
 // both mixes and selects. The core of kernels 1 and 4.
-template <int RG, int COLS, bool RAGGED, int SIGNS>
+// WIN: only the coordinates g in [lo, hi) count, from the chunks
+// t_begin .. t_end - 1 that hold them (the 2-D emission's slice); the
+// others add nothing, as zeros would (acc is never -0: it starts at
+// +0, and +0 + -0 is +0), so the table is the plain sketch of the
+// vector zeroed outside the window, bit for bit
+template <int RG, int COLS, bool RAGGED, int SIGNS, bool WIN = false>
 __device__ __forceinline__ void cet_sketch_sums(
     const float* __restrict__ v, const int* __restrict__ rot,
     const uint8_t* __restrict__ sgn, int m, int c, int r, uint32_t seed,
-    int row_offset, float (&acc)[RG][COLS]) {
+    int row_offset, float (&acc)[RG][COLS], int t_begin = 0, int t_end = 0,
+    uint32_t lo = 0, uint32_t hi = 0) {
   __shared__ int srot[RG * CET_SK_TT];
   const int row0 = blockIdx.y * RG;
   const int nr = RAGGED ? min(RG, r - row0) : RG;
@@ -181,8 +204,10 @@ __device__ __forceinline__ void cet_sketch_sums(
 #pragma unroll
     for (int row = 0; row < RG; ++row) acc[row][k] = 0.f;
   }
-  for (int t0 = 0; t0 < m; t0 += CET_SK_TT) {
-    const int nt = min(CET_SK_TT, m - t0);
+  const int tb = WIN ? t_begin : 0;
+  const int te = WIN ? t_end : m;
+  for (int t0 = tb; t0 < te; t0 += CET_SK_TT) {
+    const int nt = min(CET_SK_TT, te - t0);
     __syncthreads();
     for (int i = threadIdx.x; i < nr * nt; i += CET_SK_THREADS) {
       const int row = i / nt;
@@ -203,6 +228,7 @@ __device__ __forceinline__ void cet_sketch_sums(
             int j = col[k] - o;
             if (j < 0) j += c;
             const uint32_t g = tc + (uint32_t)j;
+            if (WIN && (g < lo || g >= hi)) continue;
             const float x = __ldg(v + g);
             const uint32_t flip =
                 SIGNS == CET_SIGNS_STREAM
@@ -226,6 +252,35 @@ __global__ void __launch_bounds__(CET_SK_THREADS, 4)
   float acc[RG][COLS];
   cet_sketch_sums<RG, COLS, RAGGED, SIGNS>(v, rot, sgn, m, c, r, seed,
                                            row_offset, acc);
+  const int row0 = blockIdx.y * RG;
+  const int nr = RAGGED ? min(RG, r - row0) : RG;
+  const int base = blockIdx.x * (CET_SK_THREADS * COLS) + threadIdx.x;
+#pragma unroll
+  for (int row = 0; row < RG; ++row) {
+    if (!RAGGED || row < nr) {
+#pragma unroll
+      for (int k = 0; k < COLS; ++k) {
+        const int cc = base + k * CET_SK_THREADS;
+        if (cc < c) table[(size_t)(row0 + row) * c + cc] = acc[row][k];
+      }
+    }
+  }
+}
+
+// kernel 1 over the window [lo, hi) of the coordinates (the 2-D mesh's
+// partial table: one model peer's slice): the chunks outside it are not
+// read, the two edge chunks are masked. The same store as cet_sketch_kernel
+template <int RG, int COLS, bool RAGGED, int SIGNS>
+__global__ void __launch_bounds__(CET_SK_THREADS, 4)
+    cet_sketch_window_kernel(const float* __restrict__ v,
+                             const int* __restrict__ rot,
+                             const uint8_t* __restrict__ sgn,
+                             float* __restrict__ table, int m, int c, int r,
+                             uint32_t seed, int row_offset, int t_begin,
+                             int t_end, uint32_t lo, uint32_t hi) {
+  float acc[RG][COLS];
+  cet_sketch_sums<RG, COLS, RAGGED, SIGNS, true>(
+      v, rot, sgn, m, c, r, seed, row_offset, acc, t_begin, t_end, lo, hi);
   const int row0 = blockIdx.y * RG;
   const int nr = RAGGED ? min(RG, r - row0) : RG;
   const int base = blockIdx.x * (CET_SK_THREADS * COLS) + threadIdx.x;
@@ -334,6 +389,64 @@ __global__ void __launch_bounds__(CET_ES_THREADS)
 #pragma unroll
       for (int e = 0; e < CET_ES_VEC; ++e)
         if (j0 + e < c) o[e] = res[e];
+    }
+  }
+}
+
+// kernel 2 over the window [lo, hi) of the coordinates, out[g - lo]:
+// one model peer's slice of the estimates (the 2-D server's estimates_at
+// of a contiguous index range). The grid walks only the chunks that
+// hold the window; a tile wholly outside it does nothing, one wholly
+// at or past `valid` writes zeros; each output is cet_estimate's, so
+// bit for bit the whole-range kernel's at the same g
+template <int R, bool ONE_MIX>
+__global__ void __launch_bounds__(CET_ES_THREADS)
+    cet_estimates_window_kernel(const float* __restrict__ table,
+                                const int* __restrict__ rot,
+                                float* __restrict__ out, int m, int c,
+                                int r_rt, uint32_t seed, long long valid,
+                                uint32_t lo, uint32_t hi, int t_begin,
+                                int t_end) {
+  // coordinates as uint32 (m*c < 2^32, checked by the wrapper), so the
+  // window's bounds cost no 64-bit registers
+  __shared__ int srot[R > 0 ? R : CET_MAX_ROWS];
+  const int r = R > 0 ? R : r_rt;
+  const int tile = blockIdx.x * (CET_ES_THREADS * CET_ES_VEC);
+  const int tile_end = min(tile + CET_ES_THREADS * CET_ES_VEC, c);
+  const int j0 = tile + threadIdx.x * CET_ES_VEC;
+  const bool aligned = (c & 3) == 0 && (lo & 3) == 0;
+  for (int t = t_begin + blockIdx.y; t < t_end; t += gridDim.y) {
+    const uint32_t gt = (uint32_t)t * (uint32_t)c;
+    if (gt + tile >= hi || gt + tile_end <= lo) continue;  // uniform
+    const uint32_t g0 = gt + j0;
+    float res[CET_ES_VEC];
+    if ((long long)(gt + tile) >= valid) {  // the whole tile: zeros
+#pragma unroll
+      for (int e = 0; e < CET_ES_VEC; ++e) res[e] = 0.f;
+    } else {
+      __syncthreads();
+      if (threadIdx.x < r)
+        srot[threadIdx.x] = __ldg(rot + (size_t)threadIdx.x * m + t);
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < CET_ES_VEC; ++e) {
+        const int j = min(j0 + e, c - 1);
+        const float x =
+            cet_estimate<R, ONE_MIX>(table, srot, r, c, j, g0 + e, seed);
+        res[e] = (long long)(g0 + e) < valid ? x : 0.f;
+      }
+    }
+    if (aligned && j0 + CET_ES_VEC <= c && g0 >= lo &&
+        g0 + CET_ES_VEC <= hi) {
+#pragma unroll
+      for (int e = 0; e < CET_ES_VEC; e += 4)
+        *reinterpret_cast<float4*>(out + (g0 - lo) + e) =
+            make_float4(res[e], res[e + 1], res[e + 2], res[e + 3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < CET_ES_VEC; ++e)
+        if (j0 + e < c && g0 + e >= lo && g0 + e < hi)
+          out[g0 + e - lo] = res[e];
     }
   }
 }
@@ -614,6 +727,69 @@ extern "C" int cet_sketch(const float* v, const int* rot, float* table,
   return (int)cudaGetLastError();
 }
 
+template <int RG, int COLS, bool RAGGED>
+static void cet_sketch_window_launch(const float* v, const int* rot,
+                                     const uint8_t* sgn, float* table, int m,
+                                     int c, int r, uint32_t seed, int one_mix,
+                                     int row_offset, int t_begin, int t_end,
+                                     uint32_t lo, uint32_t hi,
+                                     cudaStream_t s) {
+  const long long per_block = CET_SK_THREADS * COLS;
+  dim3 grid((unsigned)((c + per_block - 1) / per_block),
+            (unsigned)((r + RG - 1) / RG));
+#define CET_SKW_GO(SIGNS)                                                  \
+  cet_sketch_window_kernel<RG, COLS, RAGGED, SIGNS>                        \
+      <<<grid, CET_SK_THREADS, 0, s>>>(v, rot, sgn, table, m, c, r, seed,  \
+                                       row_offset, t_begin, t_end, lo, hi)
+  if constexpr (!RAGGED) {  // the stream holds 8 rows
+    if (sgn) {
+      CET_SKW_GO(CET_SIGNS_STREAM);
+      return;
+    }
+  }
+  if (one_mix)
+    CET_SKW_GO(CET_SIGNS_ONE_MIX);
+  else
+    CET_SKW_GO(CET_SIGNS_ROW_MIX);
+#undef CET_SKW_GO
+}
+
+// cet_sketch over the coordinates [lo, hi) of v only (0 <= lo <= hi <=
+// m*c): the table of v zeroed outside the window
+extern "C" int cet_sketch_window(const float* v, const int* rot,
+                                 float* table, long long m, long long c,
+                                 int r, unsigned int seed, int one_mix,
+                                 int row_offset, const unsigned char* signs,
+                                 long long lo, long long hi, void* stream) {
+  if (signs && (!one_mix || row_offset < 0 || row_offset + r > 8))
+    return (int)cudaErrorInvalidValue;
+  if (lo < 0 || hi < lo || hi > m * c) return (int)cudaErrorInvalidValue;
+  if (m > 0 && c > 0 && r > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    const int mi = (int)m, ci = (int)c;
+    // an empty window reads no chunk: the table is zeros
+    const int tb = (int)(lo / c);
+    const int te = hi > lo ? (int)((hi + c - 1) / c) : tb;
+#define CET_SKW_CASE(RG, COLS)                                              \
+  case RG:                                                                  \
+    cet_sketch_window_launch<RG, COLS, false>(v, rot, signs, table, mi, ci, \
+                                              r, seed, one_mix, row_offset, \
+                                              tb, te, (uint32_t)lo,         \
+                                              (uint32_t)hi, s);             \
+    break;
+    switch (r) {
+      CET_SK_GEOMETRY(CET_SKW_CASE)
+      default:
+        cet_sketch_window_launch<8, 2, true>(v, rot, signs, table, mi, ci, r,
+                                             seed, one_mix, row_offset, tb,
+                                             te, (uint32_t)lo, (uint32_t)hi,
+                                             s);
+    }
+#undef CET_SKW_CASE
+  }
+  return (int)cudaGetLastError();
+}
+
 typedef void (*cet_sqr_fn)(const float*, const int*, const uint8_t*, void*,
                            float*, int, int, int, uint32_t, int);
 
@@ -760,6 +936,47 @@ extern "C" int cet_estimates(const float* table, const int* rot,
       CET_ES_CASE(0)
     }
 #undef CET_ES_CASE
+  }
+  return (int)cudaGetLastError();
+}
+
+// cet_estimates over the coordinates [lo, hi) only (0 <= lo <= hi <=
+// m*c): out holds hi - lo floats, out[i] the estimate of lo + i (0 at
+// lo + i >= valid)
+extern "C" int cet_estimates_window(const float* table, const int* rot,
+                                    float* out, long long m, long long c,
+                                    int r, unsigned int seed, int one_mix,
+                                    long long valid, long long lo,
+                                    long long hi, void* stream) {
+  if (r > CET_MAX_ROWS) return (int)cudaErrorInvalidValue;
+  if (lo < 0 || hi < lo || hi > m * c) return (int)cudaErrorInvalidValue;
+  if (m > 0 && c > 0 && r > 0 && hi > lo) {
+    const int tb = (int)(lo / c);
+    const int te = (int)((hi + c - 1) / c);
+    const long long per_block = CET_ES_THREADS * CET_ES_VEC;
+    dim3 grid((unsigned)((c + per_block - 1) / per_block),
+              (unsigned)(te - tb < 65535 ? te - tb : 65535));
+    cudaStream_t s = (cudaStream_t)stream;
+    const int mi = (int)m, ci = (int)c;
+#define CET_ESW_CASE(R)                                                    \
+  if (one_mix)                                                             \
+    cet_estimates_window_kernel<R, true><<<grid, CET_ES_THREADS, 0, s>>>(  \
+        table, rot, out, mi, ci, r, seed, valid, (uint32_t)lo,             \
+        (uint32_t)hi, tb, te);                                             \
+  else                                                                     \
+    cet_estimates_window_kernel<R, false><<<grid, CET_ES_THREADS, 0, s>>>( \
+        table, rot, out, mi, ci, r, seed, valid, (uint32_t)lo,             \
+        (uint32_t)hi, tb, te);
+    if (r == 1) {
+      CET_ESW_CASE(1)
+    } else if (r == 3) {
+      CET_ESW_CASE(3)
+    } else if (r == 5) {
+      CET_ESW_CASE(5)
+    } else {
+      CET_ESW_CASE(0)
+    }
+#undef CET_ESW_CASE
   }
   return (int)cudaGetLastError();
 }

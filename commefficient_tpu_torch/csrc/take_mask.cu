@@ -47,6 +47,11 @@
 // trips: at GPT-2's 30 464 tiles the scan took 0.45 ms against 0.27
 // without it (H100 80GB HBM3 at 700 W, python -m
 // commefficient_tpu_torch.kernel_ab).
+//   On the 2-D mesh each model peer calls it on its shard's valid keys
+// with its local need, need less the ties on lower-ranked shards (an
+// all-gather of the shards' tie counts, ops/topk.py), and its own tie
+// count, so the all-or-none shortcut holds on every shard but the one
+// where the global need falls.
 //   Bound: bytes, one read of the keys (4*d) and one write of the mask
 // (d): 0.186 ms at d = 124 780 544 on 3.35 TB/s. Design floor: the
 // same one read and one write (plus, on the scan's path, 16 bytes of

@@ -248,6 +248,13 @@ class FedService:
                 and not getattr(spec.cfg, "causal_trace", False):
             plane["causal_trace"] = True
         cfg = dataclasses.replace(spec.cfg, ledger=shard, **plane)
+        if cfg.on_mesh:
+            # the service places every tenant on one card (a spatial
+            # job's sub-mesh is ROADMAP item 8e): a tenant's own
+            # --num_devices (-1: every visible card) builds no mesh.
+            # Where it asks for one card already, its config (and hash)
+            # stays the solo run's.
+            cfg = dataclasses.replace(cfg, num_devices=1)
         job = _Job(spec, index, cfg, device, devices)
         job.model, job.opt = spec.builder(cfg, device)
         if int(getattr(cfg, "checkpoint_every_rounds", 0) or 0) > 0:
@@ -537,10 +544,11 @@ def _host(weights) -> np.ndarray:
 
 
 def _one_card(job_id, need: int):
-    """A spatial job of more than one device needs the multi-GPU
-    runtime, which is not ported (ROADMAP item 8)."""
+    """A spatial job of more than one device needs sub-meshes of the
+    multi-GPU runtime, which are not ported (ROADMAP item 8e)."""
     if need > 1:
         raise NotImplementedError(
             f"job {job_id}: a spatial demand of {need} devices needs "
-            "the multi-GPU runtime, which is not ported (ROADMAP item "
-            "8); a spatial job reserves one card, mesh_demand (1, 1)")
+            "a sub-mesh of the multi-GPU runtime, which is not ported "
+            "(ROADMAP item 8e); a spatial job reserves one card, "
+            "mesh_demand (1, 1)")

@@ -19,8 +19,19 @@ Every function takes one (r, c) table or a (C, r, c) stack of them
 (the per-client wire, ``core/rounds.py``): scales are per row along
 the last axis, so a stack gives each table's own bytes.
 
-``bf16`` is scale-free: a cast. The reference's collectives
-(``wire_psum``, ``global_rowmax_over``) belong to the multi-GPU path.
+``bf16`` is scale-free: a cast. On a mesh (parallel/mesh.py), the
+collectives ``wire_psum`` (:139) and ``global_rowmax_over`` (:149) sum
+a harmonized table over a mesh axis at wire width and agree the shared
+scale's row maxima. Their summation is the reference's: XLA's psum of
+int8 sums in int8 (exact in any order; ``qeff``'s headroom keeps it
+from wrapping), and of bf16 and fp8 sums in f32 and rounds once. A
+process group's bf16 sum rounds at every hop and refuses fp8, so those
+cross as bytes (``_rounded_once``): a reduce-scatter by
+``all_to_all_single`` of the wire-width blocks, the f32 sum in rank
+order and one rounding, then an all-gather -- the bytes a ring
+all-reduce moves. fp8 sums of up to 8 addends are exact in f32, so they
+are bit-equal to XLA's; a bf16 f32 sum may round, in another order, one
+ulp apart.
 
 Rounding: ``torch.round`` (half to even, as ``jnp.round``) and true
 division by a *tensor*. PyTorch's CUDA division by a Python scalar
@@ -120,3 +131,59 @@ def dequantize(q: torch.Tensor, scale) -> torch.Tensor:
     if scale is None:
         return t
     return t * scale
+
+
+def _rounded_once(q: torch.Tensor, axis, scatter: bool = False):
+    """The sum over ``axis`` of a bf16 or fp8 tensor, computed in f32 in
+    rank order and rounded once to the wire dtype. ``scatter``: ``q`` is
+    (axis.size, ...) and this rank keeps the sum of block
+    ``axis.index`` (a reduce-scatter); otherwise every rank gets the
+    whole sum (an all-reduce). Moves the wire dtype's bytes."""
+    n = axis.size
+    if axis.group is None:
+        return q[0] if scatter else q
+    flat = q.contiguous().reshape(-1)
+    per = -(-flat.numel() // n)
+    if scatter:
+        assert q.shape[0] == n and flat.numel() == per * n, q.shape
+    pad = per * n - flat.numel()
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    got = axis.all_to_all(flat.view(torch.uint8).reshape(n, -1))
+    blocks = got.view(q.dtype).reshape(n, per)
+    acc = blocks[0].to(torch.float32)
+    for j in range(1, n):
+        acc = acc + blocks[j].to(torch.float32)
+    mine = acc.to(q.dtype)
+    if scatter:
+        return mine.reshape(q.shape[1:])
+    full = axis.all_gather(mine.view(torch.uint8)).view(q.dtype)
+    return full.reshape(-1)[:q.numel()].reshape(q.shape)
+
+
+def wire_sum(q: torch.Tensor, axis, scatter: bool = False) -> torch.Tensor:
+    """The sum of a wire-dtype (or f32) tensor over ``axis`` with the
+    reference's semantics (module docstring): int8 and f32 through the
+    group's own sum, bf16 and fp8 rounded once. ``scatter``: a
+    reduce-scatter of the (axis.size, ...) blocks."""
+    if q.dtype in (torch.int8, torch.float32):
+        if scatter:
+            return axis.reduce_scatter(q)
+        return axis.psum(q.clone())
+    return _rounded_once(q, axis, scatter)
+
+
+def wire_psum(q: torch.Tensor, scale, axis):
+    """The quantized wire crossing (reference ``wire_psum``,
+    ops/quant.py:139): the harmonized table summed over ``axis`` at wire
+    width; the scale is already the shared one, so only the table
+    moves. Returns ``(summed, scale)``."""
+    return wire_sum(q, axis), scale
+
+
+def global_rowmax_over(rowmax: torch.Tensor, axis) -> torch.Tensor:
+    """The elementwise max of the local (rows, 1) f32 row maxima over
+    ``axis`` (reference ``global_rowmax_over``, :149): the side-channel
+    collective that fixes the shared scale, r x 4 bytes. The local
+    rowmax is left as it was."""
+    return axis.pmax(rowmax.clone())

@@ -245,6 +245,26 @@ class CountSketch:
                              self.r, self.sign_seed, self._one_mix_signs,
                              signs=self.packed_signs_on(vp.device))
 
+    def sketch_window(self, v: torch.Tensor, lo: int,
+                      hi: int) -> torch.Tensor:
+        """The (r, c) table of the coordinates [lo, hi) of the dense
+        (d,) vector ``v`` alone: one model peer's partial table of the
+        2-D emission, the slices' tables summing to ``sketch(v)``
+        (reference ``_partial_table_emit``, core/rounds.py:426-500,
+        which scatters the slice through ``sketch_sparse``). Kernel 1
+        over the window on the card (``sketch_window_kernel``)."""
+        from commefficient_tpu_torch.ops.sketch_kernels import \
+            sketch_window_kernel
+        assert v.shape == (self.d,), v.shape
+        assert 0 <= lo <= hi <= self.d, (lo, hi, self.d)
+        vp = torch.nn.functional.pad(v.to(torch.float32),
+                                     (0, self._padded_d - self.d))
+        return sketch_window_kernel(vp.contiguous(),
+                                    self.rotations_on(vp.device), self.c,
+                                    self.r, self.sign_seed,
+                                    self._one_mix_signs, lo, hi,
+                                    signs=self.packed_signs_on(vp.device))
+
     def sketch_quantized(self, v: torch.Tensor, wire: str, rows=None):
         """Dense (d,) vector -> (wire-dtype table, (rows, 1) f32 rowmax),
         quantized per row at full range (``quant.quantize_local``):
@@ -295,6 +315,41 @@ class CountSketch:
                                self.r, self.sign_seed,
                                self._one_mix_signs, valid)
         return est if padded else est[: self.d]
+
+    def estimates_window(self, table: torch.Tensor, lo: int,
+                         hi: int) -> torch.Tensor:
+        """The (hi - lo,) estimates of coordinates lo .. hi - 1 (of the
+        padded space), zero at and past d: one model peer's slice on the
+        2-D server, ``estimates(table, padded=True)[lo:hi]`` bit for
+        bit. Kernel 2 over the window on the card
+        (``estimates_window_kernel``)."""
+        from commefficient_tpu_torch.ops.sketch_kernels import \
+            estimates_window_kernel
+        assert table.shape == (self.r, self.c), table.shape
+        assert 0 <= lo <= hi <= self._padded_d, (lo, hi, self._padded_d)
+        return estimates_window_kernel(
+            table.to(torch.float32).contiguous(),
+            self.rotations_on(table.device), self.c, self.r,
+            self.sign_seed, self._one_mix_signs, self.d, lo, hi)
+
+    def estimates_at(self, table: torch.Tensor,
+                     idx: torch.Tensor) -> torch.Tensor:
+        """Median-of-rows estimates at arbitrary coordinate indices in
+        [0, padded_d) (reference ``estimates_at``, ops/sketch.py:515),
+        by gathering each row's (bucket, sign) from ``hashes``: bit for
+        bit ``estimates(table, padded=True)[idx]`` below d (the same
+        products, the same median network); the padded tail reads
+        whatever its buckets hold, so callers mask it. The reference's
+        API, held by the tests: the 2-D server takes
+        ``estimates_window``, its kernel form over a contiguous
+        range."""
+        from commefficient_tpu_torch.ops.sketch_kernels import \
+            median_network
+        assert table.shape == (self.r, self.c), table.shape
+        buckets, signs = self.hashes(idx)
+        t = table.to(torch.float32)
+        return median_network([t[row][buckets[row]] * signs[row]
+                               for row in range(self.r)])
 
     def unsketch(self, table: torch.Tensor, k: int,
                  with_support: bool = False, with_dense: bool = True):

@@ -6,7 +6,10 @@ Port of ``commefficient_tpu/ops/sketch_pallas.py``:
 - ``sketch_kernel`` replaces ``sketch_pallas`` (sketch_pallas.py:216);
 - ``sketch_quant_kernel`` replaces ``sketch_quant_pallas`` (:293), the
   fused emit + quantize of the ``--sketch_dtype int8|fp8`` wire;
-- ``estimates_kernel`` replaces ``estimates_pallas`` (:414).
+- ``estimates_kernel`` replaces ``estimates_pallas`` (:414);
+- ``sketch_window_kernel`` and ``estimates_window_kernel`` are kernels
+  1 and 2 over a window [lo, hi) of the coordinates: one model peer's
+  slice on the 2-D mesh (core/rounds.py, core/server.py).
 
 The kernels live in ``csrc/sketch.cu``, whose header comment gives
 their design and bounds. Each wrapper launches its kernel for a CUDA
@@ -159,13 +162,15 @@ def median_network(vals):
 
 
 def estimates_plain(table, rot, c: int, r: int, sign_seed: int,
-                    one_mix: bool, valid: int) -> torch.Tensor:
+                    one_mix: bool, valid: int, window=None) -> torch.Tensor:
     """(r, c) table -> (m*c,) median-of-rows estimates, zero at
-    positions >= ``valid``."""
+    positions >= ``valid``; ``window=(lo, hi)``: only the (hi - lo,)
+    estimates of coordinates lo .. hi - 1, each the same value."""
     m = rot.shape[1]
     dev = table.device
     rot = rot.to(dev, torch.int64)
-    idx = torch.arange(m * c, dtype=torch.int64, device=dev)
+    lo, hi = window if window is not None else (0, m * c)
+    idx = torch.arange(lo, hi, dtype=torch.int64, device=dev)
     t = idx // c
     j = idx - t * c
     h = _mix(idx ^ sign_seed) if one_mix else None
@@ -173,7 +178,7 @@ def estimates_plain(table, rot, c: int, r: int, sign_seed: int,
             * _row_signs(idx, h, row, sign_seed, one_mix)
             for row in range(r)]
     med = median_network(vals)
-    if valid < m * c:
+    if valid < hi:
         med = torch.where(idx < valid, med, torch.zeros_like(med))
     return med
 
@@ -245,6 +250,62 @@ def sketch_kernel(vp, rot, c: int, r: int, sign_seed: int,
 
 
 sketch_kernel.launches = 0
+
+
+def _check_window(name, lo, hi, m, c):
+    if not 0 <= lo <= hi <= m * c:
+        raise ValueError(f"{name}: window [{lo}, {hi}) is not inside the "
+                         f"{m * c} padded coordinates")
+
+
+def sketch_window_plain(vp, rot, c: int, r: int, sign_seed: int,
+                        one_mix: bool, lo: int, hi: int,
+                        signs=None) -> torch.Tensor:
+    """``sketch_plain`` of ``vp`` zeroed outside the coordinates [lo,
+    hi): one model peer's partial table of the 2-D emission."""
+    _check_window("sketch_window_plain", lo, hi, vp.numel() // c, c)
+    win = torch.zeros_like(vp)
+    win[lo:hi] = vp[lo:hi]
+    return sketch_plain(win, rot, c, r, sign_seed, one_mix, 0, signs)
+
+
+def sketch_window_kernel(vp, rot, c: int, r: int, sign_seed: int,
+                         one_mix: bool, lo: int, hi: int,
+                         signs=None) -> torch.Tensor:
+    """(m*c,) f32 padded vector -> the (r, c) f32 table of its
+    coordinates [lo, hi) alone (the 2-D mesh's partial sketch of one
+    model peer's ceil(d/M) slice, which the reference makes with
+    ``sketch_sparse`` over the slice, core/rounds.py:426-500). Kernel
+    on CUDA (csrc/sketch.cu ``cet_sketch_window``: kernel 1 over the
+    chunks that hold the window, its edges masked), bit-equal to
+    ``sketch_window_plain``, the plain version, on the CPU."""
+    if vp.device.type == "cpu":
+        return sketch_window_plain(vp, rot, c, r, sign_seed, one_mix, lo,
+                                   hi, signs)
+    _check_rows("sketch_window_kernel", r, one_mix, 0)
+    dev, m = _check_sketch_args("sketch_window_kernel", vp, rot, c, r)
+    _check_window("sketch_window_kernel", lo, hi, m, c)
+    if signs is not None:
+        _check_signs("sketch_window_kernel", signs, m, c, r, one_mix, 0)
+        _check_cuda("sketch_window_kernel", vp=(vp, torch.float32),
+                    signs=(signs, torch.uint8))
+    fn = _build.bind("sketch", "cet_sketch_window",
+                     [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+                      ctypes.c_int, _P, ctypes.c_longlong,
+                      ctypes.c_longlong, _P])
+    out = torch.empty((r, c), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = fn(vp.data_ptr(), rot.data_ptr(), out.data_ptr(), m, c, r,
+                  sign_seed, int(one_mix), 0,
+                  None if signs is None else signs.data_ptr(), lo, hi,
+                  _stream(dev))
+    _build.check(code, "cet_sketch_window")
+    sketch_window_kernel.launches += 1
+    return out
+
+
+sketch_window_kernel.launches = 0
 
 
 def _check_wire(name, wire):
@@ -346,6 +407,47 @@ def estimates_kernel(table, rot, c: int, r: int, sign_seed: int,
 
 
 estimates_kernel.launches = 0
+
+
+def estimates_window_kernel(table, rot, c: int, r: int, sign_seed: int,
+                            one_mix: bool, valid: int, lo: int,
+                            hi: int) -> torch.Tensor:
+    """(r, c) f32 table -> the (hi - lo,) f32 estimates of coordinates
+    lo .. hi - 1 alone, zero at positions >= ``valid``: one model
+    peer's slice on the 2-D server (the reference's ``estimates_at``
+    over a contiguous index range, ops/sketch.py:515). Kernel on CUDA
+    (csrc/sketch.cu ``cet_estimates_window``), each output bit for bit
+    the whole-range kernel's; ``estimates_plain`` over the window on
+    the CPU."""
+    m = rot.shape[1]
+    if table.device.type == "cpu":
+        _check_window("estimates_window_kernel", lo, hi, m, c)
+        return estimates_plain(table, rot, c, r, sign_seed, one_mix,
+                               valid, window=(lo, hi))
+    dev = _check_cuda("estimates_window_kernel",
+                      table=(table, torch.float32), rot=(rot, torch.int32))
+    if tuple(table.shape) != (r, c) or rot.shape[0] != r:
+        raise ValueError(f"estimates_window_kernel: table "
+                         f"{tuple(table.shape)}, rot {tuple(rot.shape)} do "
+                         f"not fit r={r}, c={c}")
+    _check_max_rows("estimates_window_kernel", r)
+    _check_index_range("estimates_window_kernel", m, c)
+    _check_window("estimates_window_kernel", lo, hi, m, c)
+    fn = _build.bind("sketch", "cet_estimates_window",
+                     [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+                      ctypes.c_longlong, ctypes.c_longlong,
+                      ctypes.c_longlong, _P])
+    out = torch.empty(hi - lo, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = fn(table.data_ptr(), rot.data_ptr(), out.data_ptr(), m, c,
+                  r, sign_seed, int(one_mix), valid, lo, hi, _stream(dev))
+    _build.check(code, "cet_estimates_window")
+    estimates_window_kernel.launches += 1
+    return out
+
+
+estimates_window_kernel.launches = 0
 
 
 def l2_read_rate(dev, mib: int = 16, passes: int = 32,

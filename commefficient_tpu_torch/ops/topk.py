@@ -6,7 +6,9 @@ radix-select kernel), the 1-D threshold mask and its ascending index
 set (``threshold_topk_indices``), the mask batched over rows
 (``_threshold_topk_mask``), and the selections the modes use:
 ``topk`` (1-D and row-wise 2-D), ``topk_values_indices`` and
-``topk_with_support``. The selected set is exactly k coordinates, the
+``topk_with_support``, and the 2-D mesh's sharded selection
+(``distributed_threshold_mask_1d``; ``sharded_threshold_masks``, the
+same with every shard in one process). The selected set is exactly k coordinates, the
 lowest index winning ties -- lax.top_k's set. The reference takes
 lax.top_k below 2^20 coordinates and the threshold mask at or above;
 both give that set, so the port selects through the threshold mask at
@@ -18,6 +20,8 @@ order is the value order), held in int64.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -234,3 +238,96 @@ def topk_with_support(vec: torch.Tensor, k: int):
     dense = torch.zeros_like(vec)
     dense[idx] = vals
     return dense, idx, vals
+
+
+def _sharded_select(sqs, k: int, n_valids, reduce_counts, ties_before):
+    """The exact top-k masks of a key vector cut into contiguous shards
+    in ascending order (``sqs``: the shards this process holds). Four
+    passes of the radix search, each two launches (``rs_hist_kernel``
+    on every shard, ``reduce_counts`` summing the 256 counts over all
+    shards in place, ``rs_digit_kernel``), leave every shard with the
+    global T, need and tie count; shard p then takes its keys > T and
+    its first ``need - ties_before[p]`` keys == T (kernel 3 with the
+    shard's own tie count, so the no-scan shortcut holds where the
+    local need takes every local tie). Only each shard's first
+    ``n_valids[p]`` keys are in the population; the rest are never
+    taken."""
+    from commefficient_tpu_torch.ops.topk_kernels import (rs_digit_kernel,
+                                                          rs_hist_kernel,
+                                                          rs_state,
+                                                          take_mask_kernel)
+    sqs = [s.to(torch.float32).contiguous() for s in sqs]
+    states = [rs_state(s.device) for s in sqs]
+    local = None
+    for rs_pass in range(4):
+        for sq, n, (state, hist) in zip(sqs, n_valids, states):
+            rs_hist_kernel(sq, n, state, hist, rs_pass)
+        if rs_pass == 3:
+            # bin T's digit of this pass's local counts: #(local keys == T)
+            local = [hist.clone() for _, hist in states]
+        reduce_counts([hist for _, hist in states])
+        for state, hist in states:
+            rs_digit_kernel(hist, state, k, rs_pass)
+    ties = [loc[state[0] & 255].to(torch.int64)
+            for loc, (state, _) in zip(local, states)]
+    before = ties_before(ties)
+    masks = []
+    for sq, n, (state, _), tie, prior in zip(sqs, n_valids, states, ties,
+                                             before):
+        take = take_mask_kernel(sq[:n], state[0], state[1] - prior, tie,
+                                shard=True)
+        if n < sq.numel():
+            take = torch.cat([take, take.new_zeros(sq.numel() - n)])
+        masks.append(take)
+    return masks
+
+
+def sharded_threshold_masks(sqs, k: int, n_valids=None):
+    """``_sharded_select`` with every shard in this process (``sqs``, in
+    ascending order): the counts summed with torch between the passes,
+    the tie offsets an exclusive prefix. The union of the masks is the
+    one-card ``threshold_topk_mask_1d`` of the concatenated valid keys.
+    The distributed selection's kernels, checked on one card."""
+    n_valids = ([s.numel() for s in sqs] if n_valids is None
+                else list(n_valids))
+
+    def reduce_counts(hists):
+        total = torch.stack(hists).sum(0, dtype=torch.int32)
+        for h in hists:
+            h.copy_(total)
+
+    def ties_before(ties):
+        out, acc = [], torch.zeros_like(ties[0])
+        for t in ties:
+            out.append(acc)
+            acc = acc + t
+        return out
+
+    return _sharded_select(sqs, k, n_valids, reduce_counts, ties_before)
+
+
+def distributed_threshold_mask_1d(sq: torch.Tensor, k: int, axis,
+                                  n_valid: Optional[int] = None
+                                  ) -> torch.Tensor:
+    """Exact global top-k selection mask over non-negative keys sharded
+    along a mesh axis (reference ``distributed_threshold_mask_1d``,
+    ops/topk.py:166-202): ``sq`` is shard ``axis.index`` of ``axis.size``
+    contiguous ascending slices, of which the first ``n_valid`` keys are
+    in the population (a tail shard's padding is not). The 256 counts
+    of each search pass are all-reduced over the axis (int32), the tie
+    counts all-gathered once ((size,) int64). The union of the shards'
+    masks has exactly min(k, #valid) bits and is the one-card selection,
+    the lowest global index winning ties, across shard boundaries too."""
+    n_valid = sq.numel() if n_valid is None else int(n_valid)
+
+    def reduce_counts(hists):
+        axis.psum(hists[0])
+
+    def ties_before(ties):
+        counts = axis.all_gather(ties[0].reshape(1)).reshape(-1)
+        lower = torch.arange(axis.size, device=counts.device) < axis.index
+        return [torch.sum(torch.where(lower, counts,
+                                      torch.zeros_like(counts)))]
+
+    return _sharded_select([sq], k, [n_valid], reduce_counts,
+                           ties_before)[0]

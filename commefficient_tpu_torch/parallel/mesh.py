@@ -1,0 +1,388 @@
+"""The multi-GPU round's process topology: one process per card.
+
+Port of ``commefficient_tpu/parallel/mesh.py`` (``make_mesh`` :49,
+``make_mesh2d`` :53, ``client_axis_size`` :98, ``model_axis_size`` :107,
+``mesh_shape_dict`` :165, ``topology_summary`` :188, ``padded_rows``
+:263, ``shard_batch`` :276 and its once-per-(W, n) warning :296) onto
+``torch.distributed``: rank ``r`` owns ``cuda:r`` (NCCL) or, on the
+CPU, one process (gloo). JAX's mesh axes become process groups:
+
+- the 1-D ``clients`` mesh (``--num_devices N``): the world group; each
+  rank runs its contiguous ``W/N`` clients of the round and the round
+  all-reduces the table over the group once;
+- the 2-D mesh (``--mesh CxM``): rank = c·M + m, as the reference's
+  ``devices.reshape(C, M)``; the ``clients`` group of a rank is the C
+  ranks with its model coordinate m, the ``model`` group the M ranks
+  with its client coordinate c. A ``Cx1`` shape is the 1-D mesh.
+
+An ``Axis`` is one axis as this rank sees it: its group, this rank's
+index along it and its size, with the few collectives the round calls.
+An axis of size 1 made by ``make_mesh2d`` has no group and its
+collectives are the identity; the 1-D mesh's ``clients`` axis is the
+world group at any size, so a one-rank mesh still crosses NCCL.
+
+``launch(world, fn, *args)`` starts ``world`` ranks (start method
+spawn), each joining the group through a file rendezvous in a temporary
+directory (so parallel test workers never share a port), runs
+``fn(*args)`` in each and returns their results in rank order. The
+backend is NCCL on the card and gloo on the CPU, never the other way
+round: a CUDA run never takes gloo.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import shutil
+import sys
+import tempfile
+import warnings
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+CLIENT_AXIS = "clients"
+MODEL_AXIS = "model"
+
+# the tensor forms of all-gather and reduce-scatter under their newer
+# names where this torch has them
+_all_gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+_reduce_scatter = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+
+
+class Axis:
+    """One mesh axis from this rank: ``group`` (None where the axis has
+    size 1 and no collective is needed), ``index`` along it, ``size``."""
+
+    def __init__(self, group, index: int, size: int):
+        self.group, self.index, self.size = group, int(index), int(size)
+
+    def _live(self) -> bool:
+        return self.group is not None
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over the axis, in place (and returned)."""
+        if self._live():
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t
+
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise max over the axis, in place (and returned)."""
+        if self._live():
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(size, *t.shape): every rank's ``t`` in axis order."""
+        t = t.contiguous()
+        if not self._live():
+            return t.unsqueeze(0)
+        # flat buffers: gloo takes the gathered dim 0 only as one axis
+        out = t.new_empty(self.size * t.numel())
+        _all_gather(out, t.reshape(-1), group=self.group)
+        return out.reshape((self.size,) + tuple(t.shape))
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over the axis of (size, ...) blocks, this rank keeping
+        block ``index``."""
+        t = t.contiguous()
+        if not self._live():
+            return t[0]
+        out = t.new_empty(t[0].numel())
+        _reduce_scatter(out, t.reshape(-1), op=dist.ReduceOp.SUM,
+                        group=self.group)
+        return out.reshape(tuple(t.shape[1:]))
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """(size, ...) blocks: block j goes to rank j; returns the
+        (size, ...) blocks this rank received, in axis order."""
+        t = t.contiguous()
+        if not self._live():
+            return t
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=self.group)
+        return out
+
+
+class Mesh:
+    """This rank's view of the C x M mesh: ``clients``, ``model`` and
+    ``world`` axes, and its card (or the CPU)."""
+
+    def __init__(self, n_clients: int, n_model: int, clients: Axis,
+                 model: Axis, world: Axis, device: torch.device,
+                 backend: str):
+        self.n_clients, self.n_model = int(n_clients), int(n_model)
+        self.clients, self.model, self.world = clients, model, world
+        self.device, self.backend = device, backend
+
+    @property
+    def rank(self) -> int:
+        return self.world.index
+
+    @property
+    def shape(self) -> dict:
+        shape = {CLIENT_AXIS: self.n_clients}
+        if self.n_model > 1:
+            shape[MODEL_AXIS] = self.n_model
+        return shape
+
+    def __repr__(self):
+        return (f"Mesh({self.n_clients}x{self.n_model}, rank {self.rank}, "
+                f"{self.backend}, {self.device})")
+
+
+def _world_axis() -> Axis:
+    return Axis(dist.group.WORLD, dist.get_rank(), dist.get_world_size())
+
+
+def _device_of_rank(device_type: str) -> torch.device:
+    if device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def make_mesh(device_type: str = "cuda") -> Mesh:
+    """The 1-D ``clients`` mesh over every rank of the launched group."""
+    world = _world_axis()
+    return Mesh(world.size, 1, world, Axis(None, 0, 1), world,
+                _device_of_rank(device_type), dist.get_backend())
+
+
+def make_mesh2d(n_clients: int, n_model: int,
+                device_type: str = "cuda") -> Mesh:
+    """The ``clients`` x ``model`` mesh of the launched group, whose
+    size must be C·M; ``Cx1`` is ``make_mesh``. Every rank makes every
+    group, in one order, as ``torch.distributed.new_group`` asks."""
+    world = _world_axis()
+    if n_clients * n_model != world.size:
+        raise ValueError(f"mesh {n_clients}x{n_model} needs "
+                         f"{n_clients * n_model} ranks, the group has "
+                         f"{world.size}")
+    if n_model == 1:
+        return make_mesh(device_type)
+    ci, mi = divmod(world.index, n_model)
+    clients = Axis(None, ci, 1)
+    model = Axis(None, mi, n_model)
+    if n_clients > 1:
+        for m in range(n_model):
+            g = dist.new_group([c * n_model + m for c in range(n_clients)])
+            if m == mi:
+                clients = Axis(g, ci, n_clients)
+    for c in range(n_clients):
+        g = dist.new_group([c * n_model + m for m in range(n_model)])
+        if c == ci:
+            model = Axis(g, mi, n_model)
+    return Mesh(n_clients, n_model, clients, model, world,
+                _device_of_rank(device_type), dist.get_backend())
+
+
+def client_axis_size(mesh: Optional[Mesh]) -> int:
+    """Ranks along ``clients``: the divisor of the round's clients."""
+    return 1 if mesh is None else mesh.n_clients
+
+
+def model_axis_size(mesh: Optional[Mesh]) -> int:
+    """Ranks along ``model`` (1 for the 1-D mesh or none): the server
+    state's shard count. Every 2-D path gates on it being > 1."""
+    return 1 if mesh is None else mesh.n_model
+
+
+def mesh_shape_dict(mesh: Optional[Mesh]) -> dict:
+    """``{axis: size}`` for manifests and the ledger's meta record; the
+    one-card run is ``{"clients": 1}``."""
+    return {CLIENT_AXIS: 1} if mesh is None else dict(mesh.shape)
+
+
+def padded_rows(num_clients: int, mesh: Optional[Mesh]) -> int:
+    """Rows of client-axis-sharded state: ``num_clients`` rounded up to
+    the ``clients`` axis (reference :263). The reference's API, held by
+    the tests: the port's mesh shards no per-client state yet (ROADMAP
+    item 8a)."""
+    n = client_axis_size(mesh)
+    return -(-num_clients // n) * n
+
+
+def topology_summary() -> dict:
+    """The run's topology as manifests and ledger meta records give it:
+    {device_count, local_device_count, process_index, process_count,
+    backend, device_kind}."""
+    on = launched()
+    cuda = torch.cuda.is_available()
+    return {
+        "device_count": dist.get_world_size() if on else 1,
+        "local_device_count": torch.cuda.device_count() if cuda else 1,
+        "process_index": dist.get_rank() if on else 0,
+        "process_count": dist.get_world_size() if on else 1,
+        "backend": dist.get_backend() if on else (
+            "cuda" if cuda else "cpu"),
+        "device_kind": torch.cuda.get_device_name() if cuda else "cpu",
+    }
+
+
+def client_slice(w: int, mesh: Optional[Mesh]) -> slice:
+    """This rank's contiguous slice of a round's ``w`` clients: ``w/C``
+    of them where the ``clients`` axis divides w, else all w (every
+    rank computes every client, with the reference's once-per-(w, C)
+    warning: correct, not load-balanced)."""
+    n = client_axis_size(mesh)
+    if n == 1:
+        return slice(0, w)
+    if w % n:
+        _warn_unsharded(w, n)
+        return slice(0, w)
+    per = w // n
+    return slice(mesh.clients.index * per, (mesh.clients.index + 1) * per)
+
+
+def is_sharded(w: int, mesh: Optional[Mesh]) -> bool:
+    """Whether a mesh round of ``w`` clients runs sharded, each rank
+    its ``client_slice`` and the table crossing the mesh: on any mesh
+    (one rank too, whose crossing is the identity) where the
+    ``clients`` axis divides w. Otherwise every rank holds all w
+    clients and no table crosses."""
+    return mesh is not None and w % client_axis_size(mesh) == 0
+
+
+_WARNED_UNSHARDED = set()
+
+
+def _warn_unsharded(w: int, n: int):
+    if (w, n) in _WARNED_UNSHARDED:
+        return
+    _WARNED_UNSHARDED.add((w, n))
+    warnings.warn(
+        f"batch leading dim {w} does not divide the {n}-device mesh: "
+        f"replicating instead of sharding the client axis -- every "
+        f"device computes all {w} clients. Pick --num_workers "
+        f"divisible by the device count for full throughput.",
+        RuntimeWarning, stacklevel=3)
+
+
+# --- the ranks ---------------------------------------------------------
+
+def resolve_world(cfg) -> int:
+    """Ranks a run asks for: C·M under ``--mesh CxM``, else
+    ``--num_devices`` (<= 0: every visible card, as the reference reads
+    it; on the CPU, one). More than the visible cards raises."""
+    cpu = torch.device(cfg.device).type == "cpu"
+    visible = None if cpu else torch.cuda.device_count()
+    n = int(cfg.num_devices)
+    if n <= 0:
+        n = 1 if cpu else visible
+    shape = cfg.mesh2d
+    if shape is not None:
+        need = shape[0] * shape[1]
+        if need > n and int(cfg.num_devices) > 0:
+            raise ValueError(f"--mesh {cfg.mesh} needs {need} devices, "
+                             f"--num_devices gives {n}")
+        n = need
+    if visible is not None and n > visible:
+        raise ValueError(f"{n} devices requested, {visible} visible")
+    return max(1, n)
+
+
+def build_mesh(cfg) -> Optional[Mesh]:
+    """The run's mesh from the launched group, or None for a one-device
+    run outside one. Asking for more than one device outside a
+    launched group raises: the trainers' ``main`` launches the ranks."""
+    world = resolve_world(cfg)
+    if not launched():
+        if world > 1:
+            raise RuntimeError(
+                f"{world} devices asked for (--num_devices/--mesh) but "
+                "no process group is launched: start the run through "
+                "the trainer's main(), which launches one rank a "
+                "device (parallel/mesh.py launch)")
+        return None
+    if dist.get_world_size() != world:
+        raise RuntimeError(f"the launched group has "
+                           f"{dist.get_world_size()} ranks, the run asks "
+                           f"for {world} devices")
+    dev_type = torch.device(cfg.device).type
+    if (dev_type == "cuda") != (dist.get_backend() == "nccl"):
+        raise RuntimeError(f"a {dev_type} run on a "
+                           f"{dist.get_backend()} group")
+    shape = cfg.mesh2d
+    if shape is not None:
+        return make_mesh2d(shape[0], shape[1], dev_type)
+    return make_mesh(dev_type)
+
+
+def needs_launch(cfg) -> bool:
+    """Whether a trainer's ``main`` must start the ranks: the run asks
+    for more than one device and no group is launched yet."""
+    return not launched() and resolve_world(cfg) > 1
+
+
+def launched() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank() -> int:
+    return dist.get_rank() if launched() else 0
+
+
+def _rank_entry(r, world, backend, init_file, out_dir, threads, fn, args):
+    if backend == "nccl":
+        torch.cuda.set_device(r)
+    else:
+        torch.set_num_threads(threads)
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            rank=r, world_size=world)
+    quiet = None
+    if r > 0:
+        # rank 0 alone prints; the others keep their errors
+        quiet = open(os.devnull, "w")
+        sys.stdout = quiet
+    try:
+        res = fn(*args)
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+        if quiet is not None:
+            sys.stdout = sys.__stdout__
+            quiet.close()
+
+
+def launch(world: int, fn, *args, device_type: str = "cuda",
+           env: Optional[dict] = None) -> list:
+    """Run ``fn(*args)`` in ``world`` ranks (spawned; ``fn`` and
+    ``args`` must pickle) joined into one group, NCCL on the card and
+    gloo on the CPU; returns their results in rank order. ``env``: the
+    ranks' extra environment (``NCCL_*`` settings), each printed. Any
+    rank's exception is raised here, with its traceback."""
+    import torch.multiprocessing as mp
+    backend = "nccl" if device_type == "cuda" else "gloo"
+    if backend == "nccl" and world > torch.cuda.device_count():
+        raise ValueError(f"{world} ranks need {world} cards, "
+                         f"{torch.cuda.device_count()} visible")
+    for k in sorted(os.environ):
+        if k.startswith("NCCL_"):
+            print(f"mesh: inherited {k}={os.environ[k]}")
+    saved = {}
+    for k, v in (env or {}).items():
+        print(f"mesh: launcher sets {k}={v}")
+        saved[k] = os.environ.get(k)
+        os.environ[k] = str(v)
+    tmp = tempfile.mkdtemp(prefix="cet_mesh_")
+    threads = max(1, torch.get_num_threads() // world)
+    try:
+        mp.start_processes(
+            _rank_entry, args=(world, backend, os.path.join(tmp, "rdv"),
+                               tmp, threads, fn, args),
+            nprocs=world, join=True, start_method="spawn")
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v

@@ -68,7 +68,7 @@ ARGV = ["--dataset_name", "Synthetic", "--mode", "sketch",
         "--error_type", "virtual", "--virtual_momentum", "0.9",
         "--local_momentum", "0", "--num_rows", "5", "--num_cols", "524288",
         "--k", "50000", "--num_workers", "8", "--local_batch_size", "8",
-        "--bf16", "--seed", "21"]
+        "--bf16", "--seed", "21", "--num_devices", "1"]
 
 
 def _device_us(evt) -> float:
@@ -102,7 +102,7 @@ def gpt2_argv(data_dir, vocab_dir):
             "--num_candidates", "2", "--max_history", "2",
             "--lr_scale", "4e-2", "--k", "50000", "--num_rows", "5",
             "--num_cols", "524288", "--bf16", "--fused_ce", "on",
-            "--num_epochs", "1"]
+            "--num_epochs", "1", "--num_devices", "1"]
 
 
 def _cv(model, wire, extra, root):

@@ -127,7 +127,17 @@ shape. The first dispatch of each flavor of each variant stamps
 ``vcompile_programs:<key>`` (1) on the round's record, with the
 autopilot off too; a flavor built ahead under ``--autopilot_warm_ahead``
 is stamped on the switch round instead, with its build, as the
-reference stamps its ahead-of-time compile. Meshes are not ported.
+reference stamps its ahead-of-time compile.
+On a mesh (``--num_devices N`` / ``--mesh CxM``, reference
+fed_model.py:141-153, 424-429, 1241-1265) each launched rank builds its
+FedModel (``parallel/mesh.py build_mesh``: the run's devices outside a
+launched group raise), sends its contiguous slice of the round's
+clients to its card, runs the fused round with the whole round's
+datapoint total, and gets every client's metrics back; the server
+state is (r, c/M) column shards on a model axis; the ledger's meta
+record carries ``num_devices`` and ``mesh_shape``, and only rank 0
+writes the ledger and the live plane. Every rank keeps the same host
+accounting (the whole round's ids and masks).
 """
 
 from __future__ import annotations
@@ -159,6 +169,10 @@ from commefficient_tpu_torch.core.rounds import (ClientStates, _dead_row,
 from commefficient_tpu_torch.core.server import ServerState
 from commefficient_tpu_torch.device import resolve_device
 from commefficient_tpu_torch.ops.vec import packbits
+from commefficient_tpu_torch.parallel.mesh import (build_mesh, client_slice,
+                                                   mesh_shape_dict,
+                                                   model_axis_size,
+                                                   topology_summary)
 from commefficient_tpu_torch.privacy.accountant import build_accountant
 from commefficient_tpu_torch.privacy.mechanism import (SERVER_NOISE_TAG,
                                                        noise_generator)
@@ -219,6 +233,11 @@ class FedModel:
         self.module = module
         self.args = args
         self.device = resolve_device(args.device)
+        # the mesh of the launched ranks (parallel/mesh.py), None for a
+        # one-device run; more than one device asked for outside a
+        # launched group raises
+        self.mesh = build_mesh(args)
+        self.rank = 0 if self.mesh is None else self.mesh.rank
         self.compute_loss_train = compute_loss
         self.compute_loss_val = compute_loss_val or compute_loss
         # --batchnorm: ``stats_fn(ps_weights, batch)`` records every
@@ -246,6 +265,10 @@ class FedModel:
         # clients, plus the dead-slot row), or in the host store with
         # only the round's participants on the device
         self.clientstore = resolve_clientstore(args, num_clients)
+        if self.mesh is not None and self.clientstore == "host":
+            raise NotImplementedError(
+                "--clientstore host on a mesh (--num_devices/--mesh) is "
+                "not ported (ROADMAP item 8d)")
         self.client_store = None
         self._prefetcher = None
         self._participant_feed = None
@@ -305,7 +328,7 @@ class FedModel:
                 cfg, loss_fn, padded_batch_size, stats_fn,
                 dense_rows=self.client_store is not None,
                 client_weights=self.async_k > 0, probes=probes_on,
-                probe_recovery=with_recovery)
+                probe_recovery=with_recovery, mesh=self.mesh)
 
         # the round variants, keyed by the knob lattice point; the base
         # variant's config IS ``args`` (apply_knobs returns the same
@@ -374,7 +397,12 @@ class FedModel:
         # dict, _probe_log a pipelined round's device scalars until the
         # flush. The alarm engine (None with no rule armed) evaluates
         # without sinks too, so --on_divergence abort works ledgerless
-        self.telemetry = build_telemetry(args, device=self.device)
+        # rank 0 alone writes the ledger, the console summary, the live
+        # plane and the flight recorder of a mesh run
+        tel_args = args if self.rank == 0 else args.replace(
+            ledger="", telemetry_console=False, live_port=0,
+            flightrec_rounds=0)
+        self.telemetry = build_telemetry(tel_args, device=self.device)
         self._probe_host = {}
         self._probe_log = {}
         self._prev_residual = None
@@ -393,8 +421,8 @@ class FedModel:
         if job is not None:
             labels["job"] = job
         self.live_sink, self.flightrec = attach_live_plane(
-            self.telemetry, args, labels=labels,
-            runs_dir="runs" if args.ledger else "")
+            self.telemetry, tel_args, labels=labels,
+            runs_dir="runs" if tel_args.ledger else "")
         # the run's SLO engine (None unless a --slo_* target is set),
         # observed once a synchronous round
         self._slo = build_slo_engine(args)
@@ -407,10 +435,13 @@ class FedModel:
         # the roofline cost model (analysis/cost.py), made on the first
         # --profile'd round
         self._cost_model = None
+        topo = topology_summary()
         self.telemetry.emit_meta(
-            num_clients=num_clients, num_devices=1, process_index=0,
-            process_count=1, clientstore=self.clientstore,
-            mesh_shape={"clients": 1}, plan=round_plan(args))
+            num_clients=num_clients, num_devices=topo["device_count"],
+            process_index=topo["process_index"],
+            process_count=topo["process_count"],
+            clientstore=self.clientstore,
+            mesh_shape=mesh_shape_dict(self.mesh), plan=round_plan(args))
         _CURRENT_MODEL = self
 
     def train(self, training: bool):
@@ -461,9 +492,20 @@ class FedModel:
             with tel.span("async_fold"):
                 batch, staleness = self._async_driver.step(batch)
         ids_np = np.asarray(batch["client_ids"])
+        mesh_kw, part = {}, slice(None)
+        if self.mesh is not None:
+            # this rank's slice of the round's clients goes to its card;
+            # every rank holds the whole host batch, whose datapoint
+            # total normalises each rank's loss
+            W = ids_np.shape[0]
+            part = client_slice(W, self.mesh)
+            mesh_kw = dict(total=max(float(np.sum(batch["mask"])), 1.0),
+                           global_w=W)
         with tel.span("h2d"), trace.phase("h2d"):
-            dev_batch = self._to_device(batch)
-            ids = torch.as_tensor(ids_np.astype(np.int64)).to(
+            dev_batch = self._to_device(
+                batch if self.mesh is None else
+                {k: np.asarray(v)[part] for k, v in batch.items()})
+            ids = torch.as_tensor(ids_np[part].astype(np.int64)).to(
                 self.device, non_blocking=True)
             stale_dev = (None if staleness is None else torch.from_numpy(
                 staleness).to(self.device, non_blocking=True))
@@ -488,7 +530,7 @@ class FedModel:
         with tel.span("round_dispatch"), trace.phase("round_dispatch"):
             res = round_fn(self.ps_weights, dev_batch, cs_in, ids,
                            self.fedavg_lr, round_index=ridx,
-                           staleness=stale_dev)
+                           staleness=stale_dev, **mesh_kw)
         if first:
             var.compiled.add(flavor)
             self._stamp_vcompile(var.key, cmark, clock.tick() - t0)
@@ -1221,14 +1263,19 @@ class FedOptimizer:
                 ind[torch.as_tensor(np.asarray(group["index"], np.int64))] = 1
                 inds.append(ind.to(self.model.device))
             self._lr_indicators = inds
-        self.server_state = ServerState.init(self.args, self.model.device)
+        # on a model axis the momentum and error are this rank's column
+        # shards from the start (1/M of the state a rank)
+        mesh = self.model.mesh
+        self.server_state = ServerState.init(self.args, self.model.device,
+                                             model_axis_size(mesh))
         # the geometry the live server state was allocated for: a knob
         # move that changes transmit_shape (--autopilot_geometry)
         # re-seeds the momentum/error tables at the new shape
         self._server_geom = tuple(self.args.transmit_shape)
         self._probes = self.model.probe_period > 0
         self._server_round = build_server_round(self.args,
-                                                probes=self._probes)
+                                                probes=self._probes,
+                                                mesh=mesh)
         # the legacy --do_dp server noise: step s draws from the
         # (seed + 1, s) stream
         self._server_noise = (self.args.do_dp

@@ -67,6 +67,7 @@ from commefficient_tpu_torch.runtime import (FedModel, FedOptimizer,
                                              LambdaLR, drain_rounds)
 from commefficient_tpu_torch.runtime.checkpoint import (
     resume_manifest_extra, setup_resume)
+from commefficient_tpu_torch.parallel import mesh
 from commefficient_tpu_torch.telemetry import registry
 from commefficient_tpu_torch.telemetry.alarms import DivergenceAbort
 from commefficient_tpu_torch.telemetry.profiler import profile_epoch
@@ -335,7 +336,7 @@ def train(model, opt, lr_scheduler, train_loader, val_loader, args,
     tel = model.telemetry
     logdir = (make_logdir(args)
               if args.use_tensorboard or args.do_profile else None)
-    if args.use_tensorboard:
+    if args.use_tensorboard and mesh.rank() == 0:
         tel.add_sink(TensorBoardSink(logdir))
     try:
         for epoch in range(start_epoch, math.ceil(args.num_epochs)):
@@ -545,7 +546,13 @@ DEFAULT_LR = 0.4
 
 
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(default_lr=DEFAULT_LR, argv=argv)
+    if mesh.needs_launch(args):
+        # --num_devices N / --mesh CxM: one rank a device, each running
+        # this main; rank 0's results come back
+        return mesh.launch(mesh.resolve_world(args), main, argv,
+                           device_type=torch.device(args.device).type)[0]
     device = resolve_device(args.device)
     np.random.seed(args.seed)
 
@@ -620,7 +627,7 @@ def main(argv=None):
     # a manifest only for a run that wrote a ledger, never under --test
     # (reference cv_train.py)
     registry.maybe_write_manifest(
-        args, mesh_shape={"clients": 1},
+        args, mesh_shape=mesh.mesh_shape_dict(model.mesh),
         extra={"trainer": "cv_train", "epochs": len(results),
                "interrupted": interrupted,
                "diverged": bool(getattr(model, "diverged", False)),

@@ -109,6 +109,7 @@ from commefficient_tpu_torch.runtime import (FedModel, FedOptimizer,
                                              LambdaLR, drain_rounds)
 from commefficient_tpu_torch.runtime.checkpoint import (
     resume_manifest_extra, setup_resume)
+from commefficient_tpu_torch.parallel import mesh
 from commefficient_tpu_torch.telemetry import registry
 from commefficient_tpu_torch.serialization import msgpack_restore
 from commefficient_tpu_torch.telemetry.alarms import DivergenceAbort
@@ -306,7 +307,7 @@ def train_gpt2(model, opt, lr_scheduler, train_loader, val_loader, args,
     tel = model.telemetry
     if (args.use_tensorboard or args.do_profile) and logdir is None:
         logdir = make_logdir(args)
-    if args.use_tensorboard:
+    if args.use_tensorboard and mesh.rank() == 0:
         tel.add_sink(TensorBoardSink(logdir))
     try:
         for epoch in range(start_epoch, math.ceil(args.num_epochs)):
@@ -483,7 +484,13 @@ def fabricate_assets(root: str, num_personalities: int = 16,
 
 
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(default_lr=4e-2, argv=argv)
+    if mesh.needs_launch(args):
+        # --num_devices N / --mesh CxM: one rank a device, each running
+        # this main; rank 0's results come back
+        return mesh.launch(mesh.resolve_world(args), main, argv,
+                           device_type=torch.device(args.device).type)[0]
     device = resolve_device(args.device)
     np.random.seed(args.seed)
     # as the reference (gpt2_train.py:401); nothing reads it
@@ -542,7 +549,9 @@ def main(argv=None):
                "val_ppl": out[2]})
     # one log directory a run, for the final save (reference
     # gpt2_train.py:466-468)
-    logdir = make_logdir(args) if not args.do_test else None
+    # (rank 0's alone on a mesh)
+    logdir = (make_logdir(args) if not args.do_test and mesh.rank() == 0
+              else None)
     interrupted = False
     try:
         with sigterm_raises():
@@ -566,7 +575,7 @@ def main(argv=None):
     # a manifest only for a run that wrote a ledger, never under --test
     # (reference gpt2_train.py)
     registry.maybe_write_manifest(
-        args, mesh_shape={"clients": 1},
+        args, mesh_shape=mesh.mesh_shape_dict(model.mesh),
         extra={"trainer": "gpt2_train", "epochs": len(results),
                "interrupted": interrupted,
                "diverged": bool(getattr(model, "diverged", False)),

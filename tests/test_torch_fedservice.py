@@ -21,6 +21,7 @@
 """
 
 import torch_threads  # noqa: F401  (the worker's share of the cores)
+import dataclasses
 import json
 import threading
 
@@ -312,6 +313,31 @@ def test_one_card_reservation_and_the_multi_gpu_rule():
                           rounds=1, mesh_demand=(2, 1)))
     assert one._rejected == 1
     one.close()
+
+
+def test_a_tenant_is_pinned_to_one_card(monkeypatch):
+    """On a machine with several cards a tenant's own --num_devices
+    (-1: every visible card) would build a mesh: the service pins each
+    tenant to the one card it places it on (on one card, as in the other
+    tests here, the tenant's config is left as it is)."""
+    from commefficient_tpu_torch.parallel import mesh as pm
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    job = Config(device="cuda", seed=3, **JOB)
+    assert job.num_devices == -1 and job.on_mesh
+    seen = []
+
+    def builder(cfg, device):
+        seen.append((cfg.num_devices, cfg.on_mesh, pm.resolve_world(cfg),
+                     pm.build_mesh(cfg)))
+        return _builder(dataclasses.replace(cfg, device="cpu"), device)
+
+    svc = FedService(_svc_cfg(), devices=[CPU])
+    bs = _batches(7, 1)
+    svc.admit(JobSpec("a", job, builder, lambda r: bs[r], rounds=1,
+                      mesh_demand=(1, 1)))
+    svc.run()
+    svc.close()
+    assert seen == [(1, False, 1, None)]
 
 
 def test_migration_is_exact(tmp_path):

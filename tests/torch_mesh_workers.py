@@ -1,0 +1,192 @@
+"""Rank functions of the port's mesh tests (tests/test_torch_mesh*.py,
+tests/test_torch_wire_collectives.py).
+
+``commefficient_tpu_torch.parallel.mesh.launch`` spawns the ranks, which
+import this module to find their function: it imports torch and the
+port only, never JAX, so a rank starts in a few seconds. Each function
+runs inside a launched gloo group on the CPU and returns numpy arrays,
+which the test (in the parent, beside JAX) compares.
+"""
+
+import numpy as np
+import torch
+
+from commefficient_tpu_torch.config import Config
+from commefficient_tpu_torch.parallel import mesh as pm
+from commefficient_tpu_torch.parallel import wire as wirex
+
+WIRES = ("f32", "bf16", "int8", "fp8")
+
+
+def _np(t):
+    """A tensor as numpy; bf16 and fp8 as their raw bytes (uint16 /
+    uint8), which numpy holds bit for bit."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    if t.dtype == torch.float8_e4m3fn:
+        return t.view(torch.uint8).numpy()
+    return t.numpy()
+
+
+def topology(world, shape):
+    """Each axis as this rank sees it, and the ranks of its groups in axis
+    order (an all-gather of the world ranks over the axis)."""
+    cfg = Config(device="cpu", num_devices=world,
+                 mesh="" if shape is None else shape)
+    mesh = pm.build_mesh(cfg)
+    me = torch.tensor([mesh.rank])
+    return {"rank": mesh.rank, "shape": mesh.shape,
+            "clients": (mesh.clients.index, mesh.clients.size,
+                        mesh.clients.all_gather(me).reshape(-1).tolist()),
+            "model": (mesh.model.index, mesh.model.size,
+                      mesh.model.all_gather(me).reshape(-1).tolist()),
+            "slice8": (pm.client_slice(8, mesh).start,
+                       pm.client_slice(8, mesh).stop),
+            "sharded6": pm.is_sharded(6, mesh),
+            "padded10": pm.padded_rows(10, mesh),
+            "shape_dict": pm.mesh_shape_dict(mesh)}
+
+
+def wire_crossings(tables, shape=None):
+    """Every wire crossing of this rank's table ``tables[rank]`` over the
+    mesh's axes: the all-reduce over ``clients`` of each wire, whole and
+    in row chunks of --overlap_depth 2 and 3; on a 2-D mesh (``shape``),
+    the reduce-scatter over ``model`` of each wire's table quantized with
+    C·M headroom over the world, and the whole 2-D emission crossing
+    (scatter over ``model``, all-reduce over ``clients``) whole and in 2
+    row chunks; and the rowmax max."""
+    cfg = Config(device="cpu", num_devices=len(tables), mesh=shape or "")
+    mesh = pm.build_mesh(cfg)
+    t = torch.from_numpy(tables[mesh.rank])
+    c_ax, m_ax = mesh.clients, mesh.model
+    out = {}
+    for wire in WIRES:
+        for depth in (1, 2, 3):
+            out[("allreduce", wire, depth)] = _np(
+                wirex.chunked_quantize_allreduce(
+                    wirex.local_rows(t, wire), t.shape[0], wire, c_ax,
+                    c_ax.size, depth))
+        if wire != "f32":
+            q, scale = wirex.quantize_for_collective(t, wire, c_ax,
+                                                     c_ax.size)
+            out[("harmonized", wire)] = _np(q)
+            out[("wire_sum", wire)] = _np(
+                wirex.quant.wire_psum(q, scale, c_ax)[0])
+        if m_ax.size > 1:
+            n = c_ax.size * m_ax.size
+            for depth in (1, 2):
+                # the 2-D emission's crossing as the round runs it
+                out[("emit2d", wire, depth)] = _np(
+                    wirex.chunked_quantize_allreduce(
+                        wirex.local_rows(t, wire), t.shape[0], wire, c_ax,
+                        n, depth, scatter=m_ax, over=mesh.world))
+            if wire == "f32":
+                out[("scatter", wire)] = _np(wirex.wire_reduce_scatter(
+                    t, m_ax))
+            else:
+                q, scale = wirex.quantize_for_collective(t, wire,
+                                                         mesh.world, n)
+                out[("harmonized_world", wire)] = _np(q)
+                out[("scatter", wire)] = _np(wirex.wire_reduce_scatter(
+                    q, m_ax))
+    rowmax = torch.amax(torch.abs(t), dim=-1, keepdim=True)
+    out[("rowmax",)] = _np(wirex.quant.global_rowmax_over(rowmax,
+                                                          mesh.world))
+    return out
+
+
+def select_shards(cases):
+    """``distributed_threshold_mask_1d`` over the model axis of the 1xM
+    launched mesh, for each (key shards, k, valid counts) of ``cases``:
+    this rank's shard of each mask."""
+    from commefficient_tpu_torch.ops.topk import \
+        distributed_threshold_mask_1d
+    mesh = pm.build_mesh(Config(device="cpu",
+                                mesh=f"1x{len(cases[0][0])}"))
+    p = mesh.model.index
+    return [_np(distributed_threshold_mask_1d(
+        torch.from_numpy(shards[p]), k, mesh.model, n_valids[p]))
+        for shards, k, n_valids in cases]
+
+
+def linear_loss(p, batch):
+    """The reference tests' masked-mean MSE of y = w.x, per client of a
+    (W, B, d) round batch (the fused round's loss)."""
+    pred = batch["x"] @ p
+    sq = (pred - batch["y"]) ** 2
+    n = torch.clamp(torch.sum(batch["mask"], -1), min=1.0)
+    loss = torch.sum(sq * batch["mask"], -1) / n
+    return loss, (loss * 0.0 + 1.0,)
+
+
+def linear_rounds(cfg_kw, batches, ps0, lr=0.01):
+    """Chained rounds of ``build_client_round``/``build_server_round`` on
+    ``linear_loss`` over this rank's mesh (``cfg_kw``'s --num_devices /
+    --mesh; none: one device): per round the aggregate (this rank's
+    column shard on a model axis) and the weights, and the final server
+    state."""
+    from commefficient_tpu_torch.core.rounds import (build_client_round,
+                                                     build_server_round)
+    from commefficient_tpu_torch.core.server import ServerState
+    cfg = Config(device="cpu", **cfg_kw)
+    mesh = pm.build_mesh(cfg)
+    cr = build_client_round(cfg, linear_loss, batches[0]["x"].shape[1],
+                            mesh=mesh)
+    sr = build_server_round(cfg, mesh=mesh)
+    ps = torch.from_numpy(ps0)
+    ss = ServerState.init(cfg, "cpu", pm.model_axis_size(mesh))
+    aggs, weights = [], []
+    for b in batches:
+        w = b["mask"].shape[0]
+        part = pm.client_slice(w, mesh)
+        batch = {k: torch.from_numpy(v[part]) for k, v in b.items()}
+        kw = ({} if mesh is None else
+              dict(total=max(float(b["mask"].sum()), 1.0), global_w=w))
+        res = cr(ps, batch, **kw)
+        ps, ss, _, _, _ = sr(ps, ss, res.aggregated, lr)
+        aggs.append(_np(res.aggregated))
+        weights.append(_np(ps))
+    return {"rank": 0 if mesh is None else mesh.rank, "aggs": aggs,
+            "weights": weights, "Vvelocity": _np(ss.Vvelocity),
+            "Verror": _np(ss.Verror),
+            "model": (0, 1) if mesh is None else (mesh.model.index,
+                                                  mesh.model.size)}
+
+
+def resnet9_rounds(configs, flat, channels, batches, num_clients, lr):
+    """Chained rounds of the ResNet9 cell through ``FedModel`` /
+    ``FedOptimizer`` on this rank's mesh, for each of ``configs`` (Config
+    keyword dicts with --num_devices), from the flat weights ``flat``:
+    per round the aggregate, the weights, the metrics (every client's)
+    and the byte totals."""
+    from commefficient_tpu_torch.models.resnet9 import ResNet9
+    from commefficient_tpu_torch.runtime.fed_model import (FedModel,
+                                                           FedOptimizer)
+    from commefficient_tpu_torch.train.cv_train import make_compute_loss
+    out = []
+    for kw in configs:
+        cfg = Config(device="cpu", num_clients=num_clients,
+                     dataset_name="Synthetic", **kw)
+        module = ResNet9(num_classes=10, channels=channels)
+        model = FedModel(module, torch.from_numpy(flat),
+                         make_compute_loss(module), cfg)
+        opt = FedOptimizer([{"lr": lr}], cfg)
+        rounds = []
+        for b in batches:
+            met = model(dict(b))
+            agg = _np(model.pending_aggregated)
+            opt.step()
+            rounds.append({"agg": agg, "ps": _np(model.ps_weights),
+                           "loss": met[0], "down": met[-2], "up": met[-1],
+                           "last_updated": model.last_updated.copy()})
+        out.append({"rank": model.rank, "rounds": rounds,
+                    "state_shape": tuple(opt.server_state.Verror.shape)})
+    return out
+
+
+def trainer_main(argv):
+    """``cv_train.main(argv)`` in a rank (the ranks' results; the
+    trainer's own launch returns rank 0's)."""
+    from commefficient_tpu_torch.train import cv_train
+    return cv_train.main(argv)
