@@ -257,8 +257,23 @@ GPT-2's padded d, ties across the boundaries, tail padding and k = 1
 included; the ``kernels`` line's ``sketch_window``,
 ``estimates_window``, ``rs_hist``, ``rs_digit`` and ``take_mask_shard``
 rows carry their launches on the 2-D path (0 where no 2-D path ran).
-``python3 chip_smoke.py --mesh-only`` runs the build, those checks and
-``mesh_paths`` alone (the several-card run).
+On one card ``mesh_world1_clients`` runs the per-client local_topk
+round at world 1 over NCCL (the state rows' exchange and the fold's
+crossings over a group of one), in the fused round's launch, bit-equal
+to the round without a mesh, the rows included. ``python3 chip_smoke.py --mesh-only`` runs the
+build, those checks and ``mesh_paths`` alone (the several-card run),
+and on four cards ``mesh_clients``: the per-client configurations
+(``MESH_CLIENT_PATHS``: ResNet9 local_topk, fedavg, clipped f32 and
+int8, median, ``--dp sketch``, microbatches, dropout, ``--batchnorm``,
+true_topk ``--topk_down``, and on ``--mesh 2x2`` clipped, median and
+microbatched; GPT-2 local_topk and clipped, 8 clients) at full width, 2
+rounds each, in one launch after each one's one-card run: the weights
+bit-identical across ranks after every round, the launches a rank as
+predicted for its W/C clients (and the one-card run's for W), every
+rank's block of state rows against the one-card rows
+(``MESH_ROWS_TOL``), and the row exchange's device seconds and bytes a
+round; the kernels line then adds kernels 1, 2, S and 3 timed at
+ResNet9's shapes with the clipped run's launches.
 The operations plane and the round variants run before them on the
 ResNet9 cell: ``autopilot_paths`` (the dtype walk f32 -> bf16 -> int8 under a
 band above the cell's recovery error, kernel 4 once an int8 round; the
@@ -5058,20 +5073,25 @@ class MeshRecorder:
     checksum all-gathered over the world (every rank's must be the
     same) and the collectives' device seconds since the last step (CUDA
     events around every Axis collective); round 1's first wire crossing
-    (its input and output); and on the 2-D server each round's support
+    (its input and output); on the 2-D server each round's support
     against the 1-D selection of the gathered table (launches of that
-    check not counted)."""
+    check not counted); and the per-client round's row exchange
+    (parallel/rows.py gather and scatter): its device seconds and the
+    bytes its collectives send and receive on this rank a round."""
 
     def __init__(self):
         self.equal, self.coll_s, self.support_equal = [], [], []
+        self.rows_s, self.rows_bytes = [], []
         self.first_agg, self.crossing = None, None
-        self._events = []
+        self._events, self._row_events = [], []
+        self._row_bytes = 0
         self._round = 0
 
     @contextlib.contextmanager
     def installed(self):
         from commefficient_tpu_torch.core import rounds as core_rounds
         from commefficient_tpu_torch.parallel import mesh as pm
+        from commefficient_tpu_torch.parallel import rows as rowx
         from commefficient_tpu_torch.parallel.wire import gather_columns
         rec = self
         collectives = ("psum", "pmax", "all_gather", "reduce_scatter",
@@ -5082,7 +5102,28 @@ class MeshRecorder:
         saved = [(pm.Axis, n, getattr(pm.Axis, n)) for n in collectives]
         saved += [(quant, "wire_sum", orig_sum),
                   (fed_model.FedOptimizer, "step", orig_step),
-                  (core_rounds, "sketched_update_2d", orig_2d)]
+                  (core_rounds, "sketched_update_2d", orig_2d),
+                  (rowx, "gather_rows", rowx.gather_rows),
+                  (rowx, "scatter_rows", rowx.scatter_rows)]
+
+        def row_timed(orig, gather):
+            def run(local, all_ids, *a):
+                axis, sharded = a[-2], a[-1]
+                row = local[0].numel() * local.element_size()
+                w, n = all_ids.numel(), axis.size
+                if gather:
+                    moved = 2 * w * row if sharded else (1 + n) * w * row
+                else:
+                    moved = (w // n + w) * row if sharded else 0
+                rec._row_bytes += moved
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = orig(local, all_ids, *a)
+                end.record()
+                rec._row_events.append((start, end))
+                return out
+            return run
 
         def timed(orig):
             def run(axis, t, *a, **kw):
@@ -5127,7 +5168,11 @@ class MeshRecorder:
             rec.equal.append(len(set(every)) == 1)
             rec.coll_s.append(sum(s.elapsed_time(e) for s, e in rec._events)
                               / 1e3)
-            rec._events = []
+            rec.rows_s.append(sum(s.elapsed_time(e)
+                                  for s, e in rec._row_events) / 1e3)
+            rec.rows_bytes.append(rec._row_bytes)
+            rec._events, rec._row_events = [], []
+            rec._row_bytes = 0
             rec._round += 1
 
         def checked_2d(cfg, sketch, agg, state, lr, axis, probes=False):
@@ -5149,6 +5194,8 @@ class MeshRecorder:
         quant.wire_sum = crossing_sum
         fed_model.FedOptimizer.step = step
         core_rounds.sketched_update_2d = checked_2d
+        rowx.gather_rows = row_timed(rowx.gather_rows, True)
+        rowx.scatter_rows = row_timed(rowx.scatter_rows, False)
         try:
             yield self
         finally:
@@ -5174,9 +5221,14 @@ def mesh_rank(kind, argv, root=None, det=False):
     wall = time.perf_counter() - t0
     model = fed_model._CURRENT_MODEL
     return {"rank": model.rank, "row": results[-1], "counts": all_counts(),
+            # every epoch's rounds (a run of several epochs has a row
+            # an epoch)
+            "rounds": sum(len(r["round_times"]) for r in results),
+            "losses": [x for r in results for x in r["round_losses"]],
             "equal": rec.equal, "coll_s": rec.coll_s,
             "support_equal": rec.support_equal, "first_agg": rec.first_agg,
             "crossing": rec.crossing, "wall": wall,
+            "rows_s": rec.rows_s, "rows_bytes": rec.rows_bytes,
             "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30}
 
 
@@ -5389,41 +5441,77 @@ def gpt2_mesh_launches(two_d=False):
     return out
 
 
-def mesh_world1_path():
-    """One card: the ResNet9 round at world size 1 over NCCL (the 1-D
-    mesh's crossings over a group of one) against the same rounds with
-    no mesh, under ``deterministic()``: the tables and the weights bit
-    for bit. Returns the rank's launch counts of that run."""
-    from commefficient_tpu_torch.parallel import mesh as pm
-    argv = profile_round.ARGV + ["--num_epochs", "0.2", "--pivot_epoch",
-                                 "0.1", "--lr_scale", "0.1"]
+def plain_world1(argv):
+    """``argv`` on one card without a mesh, under ``deterministic()``:
+    (its result rows, its round 1 aggregate, the checksums of its final
+    weights and of its state rows, W)."""
     rec = MeshRecorder()
     with rec.installed(), deterministic():
         plain = cv_train.main(argv)
-    plain_sum = weights_checksum(fed_model._CURRENT_MODEL.ps_weights).item()
-    outs = pm.launch(1, mesh_world1_rank, argv)
-    o = outs[0]
-    check(torch.equal(o["first_agg"], rec.first_agg),
-          "mesh world 1: round 1's table != the one-device round's")
-    check(o["checksum"] == plain_sum,
-          "mesh world 1: final weights != the one-device run's")
-    check(o["row"]["round_losses"] == plain[-1]["round_losses"],
-          "mesh world 1: losses differ")
-    want = {k: v * len(plain[-1]["round_times"])
-            for k, v in resnet_mesh_launches().items()}
-    got = {k: o["counts"][k] for k in want}
-    check(got == want, f"mesh world 1: launches {got}, want {want}")
-    emit({"phase": "mesh_world1", "world": 1, "backend": "nccl",
-          "rounds": len(plain[-1]["round_times"]), "launches": got,
-          "bit_equal_to_one_device": True,
-          "collective_s_per_round": o["coll_s"]})
-    return o["counts"]
+    model = fed_model._CURRENT_MODEL
+    out = (plain, rec.first_agg, weights_checksum(model.ps_weights).item(),
+           [weights_checksum(a.reshape(-1)).item()
+            for a in model.client_states if a is not None],
+           model.args.num_workers)
+    fed_model._CURRENT_MODEL = None
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
-def mesh_world1_rank(argv):
-    out = mesh_rank("cv", argv + ["--num_devices", "1"], det=True)
-    out["checksum"] = weights_checksum(
-        fed_model._CURRENT_MODEL.ps_weights).item()
+def mesh_world1_path():
+    """One card: the ResNet9 round at world size 1 over NCCL (the 1-D
+    mesh's crossings over a group of one), fused and per client
+    (local_topk: the state rows' exchange and the fold's crossings over
+    the group of one), in one launch, against the same rounds with no
+    mesh, under ``deterministic()``: the tables, the state rows and the
+    weights bit for bit, and the launches a round. Returns the rank's
+    launch counts of the fused run."""
+    from commefficient_tpu_torch.parallel import mesh as pm
+    runs = (("mesh_world1", profile_round.ARGV + [
+                "--num_epochs", "0.2", "--pivot_epoch", "0.1",
+                "--lr_scale", "0.1"], lambda w: resnet_mesh_launches()),
+            ("mesh_world1_clients",
+             profile_round.ARGV + LTK_ARGV + CLIENT_ROUNDS, ltk_launches))
+    plains = [plain_world1(argv) for _, argv, _ in runs]
+    outs = pm.launch(1, mesh_world1_rank, [argv for _, argv, _ in runs])[0]
+    for (phase, argv, per_round), o, (plain, agg, ps_sum, rows, w) in zip(
+            runs, outs, plains):
+        check(torch.equal(o["first_agg"], agg),
+              f"{phase}: round 1's table != the one-device round's")
+        check(o["checksum"] == ps_sum,
+              f"{phase}: final weights != the one-device run's")
+        check(o["rows_checksums"] == rows,
+              f"{phase}: state rows != the one-device run's")
+        check(o["row"]["round_losses"] == plain[-1]["round_losses"],
+              f"{phase}: losses differ")
+        rounds = len(plain[-1]["round_times"])
+        want = {k: v * rounds for k, v in per_round(w).items()}
+        got = {k: o["counts"][k] for k in want}
+        check(got == want, f"{phase}: launches {got}, want {want}")
+        emit({"phase": phase, "world": 1, "backend": "nccl",
+              "argv_tail": argv[len(profile_round.ARGV):],
+              "rounds": rounds, "launches": got,
+              "bit_equal_to_one_device": True,
+              "row_exchange_s_per_round": o["rows_s"],
+              "row_exchange_bytes_per_round": o["rows_bytes"],
+              "collective_s_per_round": o["coll_s"]})
+    return outs[0]["counts"]
+
+
+def mesh_world1_rank(argvs):
+    """Each of ``argvs`` at ``--num_devices 1`` in this rank: what
+    ``mesh_rank`` returns, with the checksums of the final weights and
+    of the rank's state rows (its dead-slot row included)."""
+    out = []
+    for argv in argvs:
+        res = mesh_rank("cv", argv + ["--num_devices", "1"], det=True)
+        model = fed_model._CURRENT_MODEL
+        res["checksum"] = weights_checksum(model.ps_weights).item()
+        res["rows_checksums"] = [weights_checksum(a.reshape(-1)).item()
+                                 for a in model.client_states
+                                 if a is not None]
+        out.append(res)
     return out
 
 
@@ -5437,8 +5525,9 @@ def mesh_row_launches(mesh_counts):
 
 def mesh_only_main(dev, name, smi):
     """``python3 chip_smoke.py --mesh-only`` (the several-card run): the
-    build, the sharded-selection checks and ``mesh_paths``, and their
-    rows of the kernels line."""
+    build, the sharded-selection checks, ``mesh_paths`` and, on four
+    cards, the per-client round's configurations (``mesh_clients``), and
+    their rows of the kernels line."""
     _build.build_all()
     report = ptxas_report(_build.BUILD_LOGS.get("sketch", ""))
     emit({"phase": "ptxas_sketch", "kernels": report})
@@ -5454,6 +5543,22 @@ def mesh_only_main(dev, name, smi):
         row["launches"] = launches[f"{row['name']}_kernel"]
         table.append({**{k: row[k] for k in KERNEL_KEYS},
                       "launches_run": run})
+    world = min(torch.cuda.device_count(), 4)
+    if world == 4:
+        # the per-client round's kernels, timed at ResNet9's shapes, with
+        # their launches from the clipped 1-D run (rank 0)
+        client_counts = mesh_clients(world)
+        flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+        for row in kernel_phases(dev, flush, sk.l2_read_rate(dev)):
+            row["launches"] = client_counts["clip_f32"][
+                f"{row['name']}_kernel"]
+            table.append({**{k: row[k] for k in KERNEL_KEYS},
+                          "launches_run": "mesh_clients_clip_f32"})
+        del flush
+    else:
+        emit({"phase": "mesh_clients", "world": world,
+              "skipped": "the per-client configurations need 4 cards "
+                         "(the 2x2 mesh among them)"})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -5511,6 +5616,276 @@ def mesh_paths():
             mesh_run(phase, "gpt2", argv + extra, world,
                      gpt2_mesh_launches(flat), root=root)
     return counts, run
+
+
+# --- the per-client round on the mesh (mesh_clients) --------------------
+
+# the per-client configurations at full width, 2 rounds each: (phase,
+# argv beyond profile_round.ARGV, --mesh shape or None for the 1-D mesh,
+# launches a rank and round for its w clients). A rank's clients each
+# run their own selection (local_topk, --topk_down's downloads) or
+# sketch their own clipped or robust table; the late paths (--dp
+# sketch, microbatches) sketch the rank's sum once; the server adds its
+# own (the 2-D server's windows and per-pass search)
+CLIENT_ROUNDS = ["--num_epochs", "0.2", "--pivot_epoch", "0.1"]
+LTK_ARGV = ["--mode", "local_topk", "--error_type", "local",
+            "--local_momentum", "0.9", "--lr_scale", "0.001"]
+CLIP_ARGV = ["--max_grad_norm", "10", "--lr_scale", "0.01"]
+MESH_DROPOUT_P = 0.5
+
+
+def clip_launches(w):
+    return {"sketch_kernel": w + 1, "estimates_kernel": 1,
+            "threshold_key_kernel": 1, "take_mask_kernel": 1,
+            "sketch_quant_kernel": 0}
+
+
+def ltk_launches(w):
+    return {"sketch_kernel": 0, "estimates_kernel": 0,
+            "threshold_key_kernel": w, "take_mask_kernel": w}
+
+
+def clip2d_launches(w):
+    return dict(resnet_mesh_launches(two_d=True), sketch_kernel=w,
+                sketch_window_kernel=0)
+
+
+MESH_CLIENT_PATHS = (
+    ("local_topk", LTK_ARGV, None, ltk_launches),
+    ("fedavg", ["--mode", "fedavg", "--error_type", "none",
+                "--local_momentum", "0", "--local_batch_size", "-1",
+                "--fedavg_batch_size", "16", "--num_fedavg_epochs", "1",
+                "--lr_scale", "0.01", "--num_epochs", "2",
+                "--pivot_epoch", "1"], None,
+     lambda w: {"sketch_kernel": 0, "threshold_key_kernel": 0}),
+    ("clip_f32", CLIP_ARGV, None, clip_launches),
+    ("clip_int8", CLIP_ARGV + ["--sketch_dtype", "int8"], None,
+     clip_launches),
+    ("median", ["--robust_agg", "median", "--lr_scale", "0.01"], None,
+     clip_launches),
+    ("dp_sketch", DP_ARGV + ["--lr_scale", "0.01"], None,
+     lambda w: dict(LATE_SKETCH)),
+    ("microbatch", ["--microbatch_size", "4", "--lr_scale", "0.01"], None,
+     lambda w: dict(LATE_SKETCH)),
+    ("dropout", LTK_ARGV + ["--dropout_prob", str(MESH_DROPOUT_P)], None,
+     ltk_launches),
+    ("batchnorm", CLIP_ARGV + ["--batchnorm"], None, clip_launches),
+    ("topk_down", ["--mode", "true_topk", "--error_type", "virtual",
+                   "--local_momentum", "0.9", "--virtual_momentum", "0",
+                   "--topk_down", "--lr_scale", "0.001"], None,
+     lambda w: {"sketch_kernel": 0, "threshold_key_kernel": w + 1,
+                "take_mask_kernel": w + 1}),
+    ("clip_f32_2x2", CLIP_ARGV, "2x2", clip2d_launches),
+    ("median_2x2", ["--robust_agg", "median", "--lr_scale", "0.01"], "2x2",
+     clip2d_launches),
+    ("microbatch_2x2", ["--microbatch_size", "4", "--lr_scale", "0.01"],
+     "2x2", lambda w: resnet_mesh_launches(two_d=True)),
+)
+# GPT-2 per client, W = 8 fabricated clients (one round an epoch, 2
+# epochs): each rank's clients one flce backward each (the forward folds
+# them into the tokens) and, in local_topk, one selection each; the
+# clipped sketch W/C sketches (the sparse re-sketch needs no server one)
+GPT2_MESH_CLIENT_PATHS = (
+    ("gpt2_local_topk", ["--mode", "local_topk", "--error_type", "local",
+                         "--local_momentum", "0.9"],
+     lambda w: {"sketch_kernel": 0, "estimates_kernel": 0,
+                "threshold_key_kernel": w, "take_mask_kernel": w,
+                "flce_bwd_kernel": w}),
+    ("gpt2_clip", ["--max_grad_norm", "10"],
+     lambda w: {"sketch_kernel": w, "estimates_kernel": 1,
+                "threshold_key_kernel": 1, "take_mask_kernel": 1,
+                "flce_bwd_kernel": w}),
+)
+GPT2_CLIENTS_W = 8
+# coordinates of each state row held against the one-card run's
+ROW_SAMPLE = 1 << 20
+# the mesh's state rows against the one-card round's after 2 rounds
+# (relative L2 of each field's rows on a rank): bf16 compute on W/C
+# clients a card against W on one, and the selections near a threshold
+# that this moves; rows of the wrong clients are ~1 away
+MESH_ROWS_RTOL = 2 ** -2
+MESH_ROWS_TOL = ("each state field's rows on a rank (velocity, error, "
+                 "--topk_down weights; 2^20 coordinates a row) within "
+                 "2^-2 relative L2 of the one-card round's rows of the "
+                 "same clients after 2 rounds (bf16 compute on W/C "
+                 "clients a card, and the selections it moves); a rank "
+                 "whose clients never ran holds exact zeros")
+
+
+def sampled_rows(model):
+    """{field: the one-card run's client rows at ROW_SAMPLE evenly spaced
+    coordinates, on the host}."""
+    cs = model.client_states
+    out = {}
+    for field in ("velocities", "errors", "weights"):
+        arr = getattr(cs, field)
+        if arr is None:
+            continue
+        d = arr.shape[1]
+        idx = torch.arange(0, d, max(1, d // ROW_SAMPLE), device=arr.device)
+        out[field] = arr[:model.num_clients].index_select(1, idx).cpu()
+    return out
+
+
+def rows_against(model, ref):
+    """This rank's block of state rows against the one-card rows ``ref``
+    (``sampled_rows``): {field: (relative L2, max |difference|)}."""
+    out = {}
+    if not ref:
+        return out
+    per = next(getattr(model.client_states, f).shape[0] - 1 for f in ref)
+    lo = model.mesh.clients.index * per
+    cnt = max(0, min(per, model.num_clients - lo))
+    for field, want in ref.items():
+        arr = getattr(model.client_states, field)
+        d = arr.shape[1]
+        idx = torch.arange(0, d, max(1, d // ROW_SAMPLE), device=arr.device)
+        got = arr[:cnt].index_select(1, idx).cpu()
+        want = want[lo:lo + cnt]
+        diff = float(torch.linalg.vector_norm(got - want))
+        norm = float(torch.linalg.vector_norm(want))
+        rel = diff / norm if norm > 0 else (0.0 if diff == 0 else math.inf)
+        out[field] = (rel, float((got - want).abs().max()) if cnt else 0.0)
+    return out
+
+
+def mesh_clients_rank(runs):
+    """One rank of ``mesh_clients``: each of ``runs`` (phase, kind, argv,
+    root, the one-card rows' file) through ``mesh_rank`` in turn, with
+    its rows held against the one-card run's and its dead slots
+    counted."""
+    out = []
+    for phase, kind, argv, root, ref_file in runs:
+        res = mesh_rank(kind, argv, root)
+        model = fed_model._CURRENT_MODEL
+        res["rows"] = rows_against(model, torch.load(ref_file))
+        res["phase"] = phase
+        del model
+        fed_model._CURRENT_MODEL = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out.append(res)
+    return out
+
+
+def one_card_rows(kind, argv, root, path):
+    """The one-card run of ``argv`` (``--num_devices 1``): its state rows
+    sampled into ``path``, and its launch counts and rounds."""
+    reset_all_launches()
+    if kind == "cv":
+        results = cv_train.main(argv)
+    else:
+        with working_dir(root):
+            results = gpt2_train.main(argv)
+    counts = all_counts()
+    model = fed_model._CURRENT_MODEL
+    torch.save(sampled_rows(model), path)
+    fed_model._CURRENT_MODEL = None
+    del model
+    torch.cuda.empty_cache()
+    return counts, sum(len(r["round_times"]) for r in results)
+
+
+def mesh_clients(world):
+    """The per-client round on ``world`` ranks (4; the 2x2 runs need
+    them all): every configuration of ``MESH_CLIENT_PATHS`` and
+    ``GPT2_MESH_CLIENT_PATHS`` at full width, 2 rounds each, in one
+    launch. Each run's one-card run first
+    (its rows sampled to a file; its launches as the prediction at W
+    clients). Then on every rank: the weights bit-identical across
+    ranks after every round, the losses the same, the launches a round
+    as predicted for W/C clients, the state rows within
+    ``MESH_ROWS_TOL`` of the one-card rows. Returns rank 0's counts
+    by phase."""
+    from commefficient_tpu_torch.parallel import mesh as pm
+    nd = ["--num_devices", str(world)]
+    with tempfile.TemporaryDirectory(prefix="mesh_clients_") as tmp:
+        data_dir, vocab_dir = gpt2_train.fabricate_assets(
+            tmp, num_personalities=GPT2_CLIENTS_W)
+        gpt2 = profile_round.gpt2_argv(data_dir, vocab_dir) + [
+            "--num_workers", str(GPT2_CLIENTS_W), "--num_epochs", "2"]
+        runs, want, one = [], {}, {}
+        for phase, extra, shape, per_round in MESH_CLIENT_PATHS:
+            if shape and world != 4:
+                continue  # the 2x2 mesh takes four cards
+            argv = profile_round.ARGV + extra
+            if "--num_epochs" not in extra:
+                argv = argv + CLIENT_ROUNDS
+            base = phase.replace("_2x2", "")
+            ref = os.path.join(tmp, f"{base}.pt")
+            if base not in one:
+                t0 = time.perf_counter()
+                counts, rounds = one_card_rows("cv", argv, None, ref)
+                w = int(argv[argv.index("--num_workers") + 1])
+                pred = {k: v * rounds for k, v in per_round(w).items()}
+                got = {k: counts.get(k, 0) for k in pred}
+                check(got == pred, f"mesh_clients one card {base}: "
+                      f"launches {got}, predicted {pred}")
+                one[base] = time.perf_counter() - t0
+            mesh = (["--mesh", shape] if shape else []) + nd
+            c = int(shape.split("x")[0]) if shape else world
+            w = int(argv[argv.index("--num_workers") + 1]) // c
+            runs.append((phase, "cv", argv + mesh, None, ref))
+            want[phase] = per_round(w)
+        for phase, extra, per_round in GPT2_MESH_CLIENT_PATHS:
+            ref = os.path.join(tmp, f"{phase}.pt")
+            t0 = time.perf_counter()
+            counts, rounds = one_card_rows("gpt2", gpt2 + extra, tmp, ref)
+            pred = {k: v * rounds
+                    for k, v in per_round(GPT2_CLIENTS_W).items()}
+            got = {k: counts.get(k, 0) for k in pred}
+            check(got == pred, f"mesh_clients one card {phase}: launches "
+                  f"{got}, predicted {pred}")
+            one[phase] = time.perf_counter() - t0
+            runs.append((phase, "gpt2", gpt2 + extra + nd, tmp, ref))
+            want[phase] = per_round(GPT2_CLIENTS_W // world)
+        t0 = time.perf_counter()
+        outs = pm.launch(world, mesh_clients_rank, runs)
+        wall = time.perf_counter() - t0
+    counts = {}
+    for i, (phase, kind, argv, _, _) in enumerate(runs):
+        res = [o[i] for o in outs]
+        row, rounds, losses = (res[0]["row"], res[0]["rounds"],
+                               res[0]["losses"])
+        for o in res:
+            check(all(o["equal"]) and len(o["equal"]) == rounds,
+                  f"mesh_clients {phase}: weights differ across ranks "
+                  f"({o['equal']})")
+            check(o["losses"] == losses,
+                  f"mesh_clients {phase}: rank {o['rank']} losses differ")
+            pred = {k: v * rounds for k, v in want[phase].items()}
+            got = {k: o["counts"].get(k, 0) for k in pred}
+            check(got == pred, f"mesh_clients {phase}: rank {o['rank']} "
+                  f"launches {got}, predicted {pred}")
+            check(all(o["support_equal"]), f"mesh_clients {phase}: a 2-D "
+                  "support differs from the 1-D selection")
+            for field, (rel, _) in o["rows"].items():
+                check(rel <= MESH_ROWS_RTOL, f"mesh_clients {phase}: rank "
+                      f"{o['rank']} {field} rows {rel} from the one-card "
+                      "rows (relative L2)")
+        check(len(losses) == rounds and all(map(math.isfinite, losses)),
+              f"mesh_clients {phase}: losses {losses}")
+        counts[phase] = res[0]["counts"]
+        emit({"phase": f"mesh_clients_{phase}", "world": world,
+              "argv_tail": argv[len(profile_round.ARGV):] if kind == "cv"
+              else argv[-8:], "rounds": rounds,
+              "launches_rank0": res[0]["counts"],
+              "launches_predicted_per_round": want[phase],
+              "round_seconds": [o["row"]["round_times"] for o in res[:1]],
+              "round_losses": losses,
+              "weights_bit_identical_every_round": True,
+              "rows_vs_one_card": [o["rows"] for o in res],
+              "row_exchange_s_per_round": [o["rows_s"] for o in res],
+              "row_exchange_bytes_per_round": [o["rows_bytes"]
+                                               for o in res],
+              "collective_s_per_round": [o["coll_s"] for o in res],
+              "up_MiB": row["up (MiB)"], "down_MiB": row.get("down (MiB)"),
+              "peak_mem_GiB": [o["peak_mem_GiB"] for o in res],
+              "one_card_seconds": one.get(phase.replace("_2x2", "")),
+              "tolerance": MESH_ROWS_TOL})
+    emit({"phase": "mesh_clients", "world": world, "runs": len(runs),
+          "launch_wall_seconds": wall})
+    return counts
 
 
 def main():

@@ -662,14 +662,6 @@ class Config:
             raise NotImplementedError(
                 f"{what} on a mesh (--num_devices/--mesh) is not ported "
                 f"(ROADMAP item {item})")
-        if not self.fused_grad:
-            no("the per-client round (local state, clipping, "
-               "microbatches, robust folds, DP, local_topk, fedavg)",
-               "8a")
-        if self.dropout_prob > 0:
-            no("--dropout_prob", "8a")
-        if self.do_batchnorm:
-            no("--batchnorm's client statistics", "8a")
         if self.model_axis > 1 and self.mode == "uncompressed":
             no("the 2-D dense server (uncompressed with model axis > 1)",
                "8b")
@@ -697,8 +689,7 @@ class Config:
         """The aggregated quantity is exactly the gradient of the
         sample-weighted mean loss (one backward) when no per-client
         transform touches the gradient: no local momentum or error, no
-        topk_down, clip, DP, microbatching or robust fold. The mesh runs
-        only this round."""
+        topk_down, clip, DP, microbatching or robust fold."""
         return (self.mode in ("sketch", "uncompressed", "true_topk")
                 and self.local_momentum == 0
                 and self.error_type != "local"

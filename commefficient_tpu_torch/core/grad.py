@@ -45,7 +45,7 @@ where the batched pass holds every client's.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -172,15 +172,31 @@ def map_clients(fn: Callable, in_dims, serial: bool) -> Callable:
     return looped
 
 
-def worker_noise(cfg: Config, gen: Optional[torch.Generator], shape):
-    """The legacy ``--do_dp --dp_mode worker`` noise of ``shape``,
-    noise_multiplier · N(0, 1) · sqrt(num_workers) from ``gen``; None
+class NoiseSlice(NamedTuple):
+    """A mesh rank's share of the round's worker noise stream: the
+    stream is drawn for the round's ``total`` clients in slot order and
+    the rank's ``[lo, lo + n)`` kept, so its clients take the numbers
+    the one-card round gives them, not the stream's head."""
+    gen: torch.Generator
+    lo: int
+    total: int
+
+
+def worker_noise(cfg: Config, gen, shape):
+    """The legacy ``--do_dp --dp_mode worker`` noise of ``shape`` (the
+    client axis leading), noise_multiplier · N(0, 1) · sqrt(num_workers)
+    from ``gen`` (a generator, or a mesh rank's ``NoiseSlice``); None
     where the round adds none (no generator: DP off, server mode, or a
     zero multiplier, whose draw would add exact zeros)."""
     if gen is None:
         return None
-    return (gaussian_noise(gen, shape, std=cfg.noise_multiplier)
-            * math.sqrt(float(cfg.num_workers)))
+    if isinstance(gen, NoiseSlice):
+        full = gaussian_noise(gen.gen, (gen.total,) + tuple(shape[1:]),
+                              std=cfg.noise_multiplier)
+        noise = full[gen.lo:gen.lo + shape[0]]
+    else:
+        noise = gaussian_noise(gen, shape, std=cfg.noise_multiplier)
+    return noise * math.sqrt(float(cfg.num_workers))
 
 
 def _microbatching(cfg: Config, padded_batch_size: int):

@@ -32,7 +32,9 @@ device; a round built without them is the plain round. On a mesh
 ``_partial_table_emit`` :426-500 and ``build_server_round``'s 2-D
 dispatch :1340-1380, 1428-1475) the fused round runs each rank's slice
 of the clients and crosses the table once, and a model axis shards the
-sketch server.
+sketch server; the per-client round (reference ``client_round`` :766
+under its client-sharded jit) runs a rank's slots with their state
+rows from their owners (parallel/rows.py) and folds across the mesh.
 
 Batch layout: a dict of (W, B, ...) tensors with a (W, B) float "mask"
 marking real samples. Where no per-client transform touches the
@@ -62,7 +64,7 @@ import torch
 from commefficient_tpu_torch.config import Config
 from commefficient_tpu_torch.core.client import (accumulate_and_compress,
                                                  stale_weight_download)
-from commefficient_tpu_torch.core.grad import (make_client_grad,
+from commefficient_tpu_torch.core.grad import (NoiseSlice, make_client_grad,
                                                make_forward_grad,
                                                map_clients, pad_samples,
                                                padded_to, worker_noise)
@@ -74,10 +76,12 @@ from commefficient_tpu_torch.core.server import (ServerState,
                                                  staleness_weights)
 from commefficient_tpu_torch.ops import quant
 from commefficient_tpu_torch.ops.sketch import CountSketch
+from commefficient_tpu_torch.parallel import rows as rowx
 from commefficient_tpu_torch.parallel import wire as wirex
 from commefficient_tpu_torch.parallel.mesh import (client_axis_size,
-                                                   is_sharded,
-                                                   model_axis_size)
+                                                   client_slice, is_sharded,
+                                                   model_axis_size,
+                                                   padded_rows)
 from commefficient_tpu_torch.parallel.wire import row_chunks
 from commefficient_tpu_torch.privacy.mechanism import (NOISE_TAG,
                                                        WORKER_NOISE_TAG,
@@ -92,7 +96,11 @@ class ClientStates(NamedTuple):
     the dead-slot row: ``_state_ids`` sends a slot with an all-zero
     mask there, so its gathers and scatters touch no client's row
     (the reference's out-of-range sentinel, whose scatters drop).
-    Fields a mode does not use are None."""
+    Fields a mode does not use are None. On a mesh (``init(mesh=)``,
+    reference ``ClientStates.init(sharding=)``, core/rounds.py:51-75)
+    a rank holds its ``clients`` block of ``padded_rows / C`` rows plus
+    its own dead-slot row (parallel/rows.py), the same on its model
+    peers."""
     velocities: Optional[torch.Tensor]  # (rows, *transmit_shape)
     errors: Optional[torch.Tensor]      # (rows, *transmit_shape)
     weights: Optional[torch.Tensor]     # (rows, grad_size), topk_down
@@ -100,8 +108,11 @@ class ClientStates(NamedTuple):
     @staticmethod
     def init(cfg: Config, num_clients: int,
              ps_weights: Optional[torch.Tensor] = None,
-             device="cuda") -> "ClientStates":
-        shape = (num_clients + 1,) + tuple(cfg.transmit_shape)
+             device="cuda", mesh=None) -> "ClientStates":
+        rows = num_clients
+        if mesh is not None:
+            rows = padded_rows(num_clients, mesh) // client_axis_size(mesh)
+        shape = (rows + 1,) + tuple(cfg.transmit_shape)
 
         def z():
             return torch.zeros(shape, dtype=torch.float32, device=device)
@@ -112,7 +123,7 @@ class ClientStates(NamedTuple):
         if cfg.do_topk_down:
             assert ps_weights is not None
             wts = ps_weights.detach().to(device, torch.float32)[None, :] \
-                .repeat(num_clients + 1, 1)
+                .repeat(rows + 1, 1)
         return ClientStates(vel, err, wts)
 
 
@@ -227,24 +238,27 @@ def build_client_round(cfg: Config, loss_fn: Callable,
     client_ids=None, fedavg_lr=1.0, round_index=0, staleness=None,
     total=None, global_w=None) -> RoundResult``.
 
-    ``mesh`` (parallel/mesh.py; the fused round only, as
-    ``Config.validate_runtime`` enforces): ``batch`` is this rank's
-    slice of the round's ``global_w`` clients (``mesh.client_slice``),
-    ``total`` the WHOLE round's datapoint count (each rank's loss is
-    normalised by it, reference core/rounds.py:628-631), and the
-    weight decay is split over the C client shards so their sum adds
-    (wd/num_workers)·p once (:500-565). Each rank sketches its local
-    gradient once and the round all-reduces the table over ``clients``
-    (f32, or at wire width with ``n_addends = C``, in row chunks under
-    ``--overlap_depth``); on the 2-D mesh each model peer sketches its
-    ceil(d/M) coordinate slice (kernel 1 over the window), reduce-
-    scatters the partial tables over ``model`` (quantized before the
-    collective, headroom C·M) and all-reduces its (r, c/M) column shard
-    over ``clients``: the aggregate leaves column-sharded. A probed
-    round all-reduces the dense gradient too. The metrics are gathered,
-    so every rank holds all W. Where C does not divide W every rank
-    runs all W clients and no table crosses (the 2-D rank keeps its
-    columns of the table).
+    ``mesh`` (parallel/mesh.py): ``batch`` is this rank's slice of the
+    round's ``global_w`` clients (``mesh.client_slice``), ``total`` the
+    WHOLE round's datapoint count (each rank's loss is normalised by it,
+    reference core/rounds.py:628-631). The fused round splits the weight
+    decay over the C client shards so their sum adds (wd/num_workers)·p
+    once (:500-565); each rank sketches its local gradient once and the
+    round all-reduces the table over ``clients`` (f32, or at wire width
+    with ``n_addends = C``, in row chunks under ``--overlap_depth``); on
+    the 2-D mesh each model peer sketches its ceil(d/M) coordinate slice
+    (kernel 1 over the window), reduce-scatters the partial tables over
+    ``model`` (quantized before the collective, headroom C·M) and
+    all-reduces its (r, c/M) column shard over ``clients``: the
+    aggregate leaves column-sharded. A probed round all-reduces the
+    dense gradient too. The per-client round (reference
+    core/rounds.py:766-912) reads ``client_states`` as this rank's
+    block of the rows (``ClientStates.init(mesh=)``), its slots' rows
+    crossing from and to their owners (parallel/rows.py), and folds
+    across the mesh (``fold``); ``client_ids`` are its slots' ids. The
+    metrics are gathered, so every rank holds all W. Where C does not
+    divide W every rank runs all W clients and no table crosses (the
+    2-D rank keeps its columns of the table).
 
     ``loss_fn(flat_params, batch) -> (loss, metrics)`` returns masked
     means over the last batch axis: per-client (W,) values for the
@@ -304,26 +318,44 @@ def build_client_round(cfg: Config, loss_fn: Callable,
 
     def with_stats(ps_weights, batch, *args, **kw):
         res = round_fn(ps_weights, batch, *args, **kw)
+        gw = kw.get("global_w")
+        axis = (mesh.clients if mesh is not None and gw is not None
+                and is_sharded(gw, mesh) else None)
         return res._replace(bn_stats=round_bn_stats(stats_fn, ps_weights,
-                                                    batch))
+                                                    batch, axis))
 
     return with_stats
 
 
 def round_bn_stats(stats_fn: Callable, ps_weights: torch.Tensor,
-                   batch: dict) -> tuple:
+                   batch: dict, axis=None) -> tuple:
     """Sample-weighted mean of the participating clients' batch
     statistics (reference ``_round_bn_stats``, core/rounds.py:1082):
     one extra forward over the round's clients, each normalized by its
     own batch; dead and padded clients weigh zero, and the round's
-    sample count lets the server skip the blend of an empty round."""
+    sample count lets the server skip the blend of an empty round. On a
+    sharded mesh round (``axis``, the ``clients`` axis) Σ nᵢ·sᵢ and Σ nᵢ
+    are all-reduced, in one collective, before the division."""
     with torch.no_grad():
         n = torch.sum(batch["mask"], dim=-1)  # (W,)
-        w = n / torch.clamp(torch.sum(n), min=1.0)
         per_client = stats_fn(ps_weights, batch)
-        mean = {k: torch.tensordot(w.to(s.dtype), s, dims=([0], [0]))
-                for k, s in per_client.items()}
-    return mean, torch.sum(n)
+        if axis is None:
+            w = n / torch.clamp(torch.sum(n), min=1.0)
+            mean = {k: torch.tensordot(w.to(s.dtype), s, dims=([0], [0]))
+                    for k, s in per_client.items()}
+            return mean, torch.sum(n)
+        keys = list(per_client)
+        sums = [torch.tensordot(n.to(per_client[k].dtype), per_client[k],
+                                dims=([0], [0])) for k in keys]
+        flat = axis.psum(torch.cat([x.reshape(-1).to(torch.float32)
+                                    for x in sums] + [torch.sum(n)[None]]))
+        count = flat[-1]
+        mean, off = {}, 0
+        for k, x in zip(keys, sums):
+            mean[k] = (flat[off:off + x.numel()].reshape(x.shape)
+                       / torch.clamp(count, min=1.0)).to(x.dtype)
+            off += x.numel()
+    return mean, count
 
 
 def _build_client_round(cfg: Config, loss_fn: Callable,
@@ -391,15 +423,13 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
 
     C, M = client_axis_size(mesh), model_axis_size(mesh)
     shard2d = M > 1 and cfg.mode == "sketch"
-    if mesh is not None:
-        assert fused_grad_eligible(cfg) and transmit_transform is None, \
-            "the mesh runs the fused round only (ROADMAP item 8a)"
 
-    def mesh_emit(g):
+    def mesh_emit(g, wire=wire):
         """The sharded round's transmit and its crossings (reference
-        ``_client_psum`` and ``_partial_table_emit``): the table summed
-        over ``clients`` (and on the 2-D mesh reduce-scattered over
-        ``model`` first), f32 or at wire width."""
+        ``_client_psum``, ``_partial_table_emit`` and, after the
+        per-client round's local sum, ``_sketch_after_local_sum``): the
+        table summed over ``clients`` (and on the 2-D mesh reduce-
+        scattered over ``model`` first), f32 or at wire width."""
         if shard2d:
             n_loc = -(-cfg.grad_size // M)
             lo = min(mesh.model.index * n_loc, cfg.grad_size)
@@ -523,17 +553,34 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
                        and not late and not dp_on)
 
     def run_chunk(ps_weights, client_states, ids, batch, fedavg_lr,
-                  live=None, noise_gen=None):
+                  live=None, noise_gen=None, exchange=None):
         """The clients of one chunk (from ``live`` on, padding): gather
         their state rows, run the batched step, scatter the rows back;
-        their (C, ...) transmits and (C,) metrics."""
-        rows = [None if a is None else a.index_select(0, ids)
-                for a in client_states]
+        their (C, ...) transmits and (C,) metrics. On a mesh
+        (``exchange``: the round's exchange ids, this rank's slots and
+        whether the round is sharded) the rows cross the ``clients``
+        axis from and to their owners (parallel/rows.py)."""
+        if exchange is None:
+            def take(a):
+                return a.index_select(0, ids)
+
+            def put(a, new):
+                a.index_copy_(0, ids, new)
+        else:
+            all_ids, part, sharded = exchange
+
+            def take(a):
+                return rowx.gather_rows(a, all_ids, part, mesh.clients,
+                                        sharded)
+
+            def put(a, new):
+                rowx.scatter_rows(a, all_ids, new, mesh.clients, sharded)
+        rows = [None if a is None else take(a) for a in client_states]
         t, mets, *new_rows = per_client(ps_weights, *rows, batch,
                                         fedavg_lr, live, noise_gen)
         for arr, new in zip(client_states, new_rows):
             if arr is not None and new is not None:
-                arr.index_copy_(0, ids, new)
+                put(arr, new)
         return t, mets
 
     def release(aggregated, round_index):
@@ -549,22 +596,103 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
                                          for off, cnt in chunks)
         return aggregated
 
+    def everyone(x, sharded):
+        """The whole round's (W, ...) per-client values on every rank:
+        the ranks' slices all-gathered over ``clients`` in rank order,
+        which is slot order."""
+        if not sharded:
+            return x
+        return mesh.clients.all_gather(x).reshape((-1,) + tuple(x.shape[1:]))
+
+    def fold(t, metrics, batch, cw, total, round_index, client_states,
+             sharded):
+        """The round's (W, ...) transmit stack (a sharded rank's W/C
+        slice) folded into the aggregate, with the release, the metrics
+        and the probes. On a sharded round a dense transmit or an early
+        per-client table is summed locally and all-reduced at f32 over
+        ``clients``, a late sketch crosses through ``mesh_emit``, and a
+        robust fold runs on every rank over the all-gathered stack. On
+        the 2-D mesh the aggregate leaves as this rank's table
+        columns."""
+        mask = batch["mask"]
+        if per_client_wire:
+            t = qdq(t)
+        # the weighted fold scales each client's transmit; the robust
+        # folds take the weights themselves
+        t_fold = t if cw is None else t * _lead(cw, t)
+        fold_pr = {} if probes else None
+        # the aggregate is this rank's columns of the table (2-D)
+        cols = False
+        if robust:
+            aggregated = robust_fold(cfg, everyone(t, sharded),
+                                     {"mask": everyone(mask, sharded)},
+                                     weights=cw, probes=fold_pr)
+        elif late and sharded:
+            aggregated = mesh_emit(torch.sum(t_fold, dim=0),
+                                   "f32" if dp_on else wire) / total
+            cols = shard2d
+        elif late:
+            aggregated = emit(torch.sum(t_fold, dim=0)) / total
+        else:
+            aggregated = torch.sum(t_fold, dim=0)
+            if sharded:
+                aggregated = mesh.clients.psum(aggregated)
+            aggregated = aggregated / total
+        if dp_on:
+            if cols:
+                # the noise is the whole table's, as on one card
+                aggregated = wirex.gather_columns(aggregated, mesh.model)
+                cols = False
+            aggregated = release(aggregated, round_index)
+        metrics = tuple(everyone(m, sharded) for m in metrics)
+        pr = None
+        if probes:
+            full = (wirex.gather_columns(aggregated, mesh.model) if cols
+                    else aggregated)
+            # the clients' norms are of what they sent, unweighted
+            pr = _agg_probes(full)
+            pr.update(_client_norm_stats(everyone(_row_norms(t), sharded),
+                                         everyone(mask, sharded)))
+            pr.update(fold_pr)
+            if probe_recovery and late:
+                dense = torch.sum(t_fold, dim=0)
+                if sharded:
+                    dense = mesh.clients.psum(dense)
+                pr["recovery_error"] = sketch.recovery_error(
+                    full, dense / total, cfg.k)
+        if shard2d and not cols:
+            # this rank's columns of the whole table
+            cl = cfg.num_cols // M
+            aggregated = aggregated[:, mesh.model.index * cl:
+                                    (mesh.model.index + 1) * cl]
+        return RoundResult(aggregated, metrics, client_states, probes=pr)
+
     def client_round(ps_weights, batch, client_states=None,
                      client_ids=None, fedavg_lr=1.0,
-                     round_index=0, staleness=None) -> RoundResult:
+                     round_index=0, staleness=None, total=None,
+                     global_w=None) -> RoundResult:
         mask = batch["mask"]
         W = mask.shape[0]
         cw = staleness_weights(staleness, alpha) if weighted else None
+        sharded = (mesh is not None and global_w is not None
+                   and is_sharded(global_w, mesh))
+        # the round's clients: a sharded rank runs W/C of them
+        round_w = global_w if sharded else W
         if dp_on:
-            # the static padded capacity W·B: every client's share of
-            # the release stays within the sqrt(r)·C/W the accountant
-            # charges, on every round (reference core/rounds.py:836-858)
-            total = torch.full((), float(mask.numel()),
+            # the static padded capacity W·B of the WHOLE round: every
+            # client's share of the release stays within the sqrt(r)·C/W
+            # the accountant charges, on every round (reference
+            # core/rounds.py:836-858)
+            total = torch.full((), float(round_w * (mask.numel() // W)),
                                dtype=torch.float32, device=mask.device)
         elif cw is not None:
             # the weighted per-datapoint mean: Σ cw·transmit / Σ cw·n
             n = torch.sum(mask.reshape(W, -1), dim=1)
             total = torch.clamp(torch.sum(cw * n), min=1.0)
+        elif total is not None:
+            # the whole round's datapoints (a mesh rank holds a slice)
+            total = torch.as_tensor(total, dtype=torch.float32,
+                                    device=mask.device)
         else:
             total = torch.clamp(torch.sum(mask), min=1.0)
         if client_ids is None:
@@ -573,49 +701,42 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
         real_ids = client_ids
         if client_states is None:  # a mode with no per-client state
             client_states = ClientStates(None, None, None)
-        dead = _dead_row(client_states)
-        if dense_rows:
-            # state rows are slot positions; the real ids stay in
-            # real_ids
-            client_ids = torch.arange(W, dtype=torch.int64,
-                                      device=mask.device)
-        ids = _state_ids(client_ids, batch, dead)
         gen = (noise_generator(cfg.seed, round_index, WORKER_NOISE_TAG,
                                mask.device) if noisy_workers else None)
-        chunk = cfg.client_chunk
+        ids = exchange = None
+        hook_kw = {}
+        if mesh is not None:
+            # the per-client round on a mesh (reference client_round
+            # under its client-sharded jit, :766-912): this rank's slots,
+            # the round's ids with the dead slots routed to no owner,
+            # the hook's and the worker noise's draws the whole round's
+            # with this rank's share kept; no chunks (reference :793)
+            part = client_slice(round_w, mesh) if sharded else slice(0, W)
+            alive = torch.sum(mask.reshape(W, -1), dim=1) > 0
+            xids = rowx.exchange_ids(client_ids.to(mask.device), alive)
+            exchange = (everyone(xids, sharded), part, sharded)
+            hook_kw = {"slots": (part.start, round_w)}
+            if gen is not None and sharded:
+                gen = NoiseSlice(gen, part.start, round_w)
+        else:
+            dead = _dead_row(client_states)
+            if dense_rows:
+                # state rows are slot positions; the real ids stay in
+                # real_ids
+                client_ids = torch.arange(W, dtype=torch.int64,
+                                          device=mask.device)
+            ids = _state_ids(client_ids, batch, dead)
+        chunk = cfg.client_chunk if mesh is None else 0
         if not 0 < chunk < W:
             # all W clients in one batched pass (reference client_round)
             t, metrics = run_chunk(ps_weights, client_states, ids,
-                                   batch, fedavg_lr, noise_gen=gen)
+                                   batch, fedavg_lr, noise_gen=gen,
+                                   exchange=exchange)
             if transmit_transform is not None:
-                t = transmit_transform(t, batch, real_ids, round_index)
-            if per_client_wire:
-                t = qdq(t)
-            # the weighted fold scales each client's transmit; the
-            # robust folds take the weights themselves
-            t_fold = t if cw is None else t * _lead(cw, t)
-            fold_pr = {} if probes else None
-            if robust:
-                aggregated = robust_fold(cfg, t, batch, weights=cw,
-                                         probes=fold_pr)
-            elif late:
-                aggregated = emit(torch.sum(t_fold, dim=0)) / total
-            else:
-                aggregated = torch.sum(t_fold, dim=0) / total
-            if dp_on:
-                aggregated = release(aggregated, round_index)
-            pr = None
-            if probes:
-                # the clients' norms are of what they sent, unweighted
-                pr = _agg_probes(aggregated)
-                pr.update(_client_norm_stats(_row_norms(t), mask))
-                pr.update(fold_pr)
-                if probe_recovery and late:
-                    pr["recovery_error"] = sketch.recovery_error(
-                        aggregated, torch.sum(t_fold, dim=0) / total,
-                        cfg.k)
-            return RoundResult(aggregated, metrics, client_states,
-                               probes=pr)
+                t = transmit_transform(t, batch, real_ids, round_index,
+                                       **hook_kw)
+            return fold(t, metrics, batch, cw, total, round_index,
+                        client_states, sharded)
         # ceil(W / chunk) chunks, the last padded with dead slots
         # (reference _client_round_chunked): transmits summed within a
         # chunk, then across chunks; under a late sketch each chunk's

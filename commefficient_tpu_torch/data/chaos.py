@@ -138,13 +138,15 @@ class ChaosInjector:
         return batch
 
     def transmit_transform(self):
-        """``(transmit, batch, client_ids, round_index) -> transmit``
-        for ``build_client_round``, or None where the attack acts on the
-        data. Membership in the byzantine set is tested on the device
-        (``torch.isin``), so no client id is read on the host. The noise
-        attack draws from a generator on the transmit's device seeded
-        by (seed + 2, round, 7) (privacy/mechanism.py
-        ``noise_generator``): the same round gives the same bits."""
+        """``(transmit, batch, client_ids, round_index, slots=None) ->
+        transmit`` for ``build_client_round``, or None where the attack
+        acts on the data. Membership in the byzantine set is tested on
+        the device (``torch.isin``), so no client id is read on the
+        host. The noise attack draws from a generator on the transmit's
+        device seeded by (seed + 2, round, 7) (privacy/mechanism.py
+        ``noise_generator``): the same round gives the same bits. On a
+        mesh rank ``slots`` is ``(first slot, the round's W)``: the draw
+        is the whole round's and the rank keeps its slots' noise."""
         if self.cfg.attack not in ("sign_flip", "scale", "noise"):
             return None
         from commefficient_tpu_torch.privacy.mechanism import (
@@ -155,7 +157,8 @@ class ChaosInjector:
         sigma = float(self.cfg.noise_std)
         noise_seed = self._noise_seed
 
-        def transform(transmit, batch, client_ids, round_index):
+        def transform(transmit, batch, client_ids, round_index,
+                      slots=None):
             if byz_np.size == 0:
                 return transmit
             byz = torch.as_tensor(byz_np, device=transmit.device)
@@ -172,8 +175,11 @@ class ChaosInjector:
                 n = torch.sum(mask.reshape(mask.shape[0], -1), dim=1)
                 gen = noise_generator(noise_seed, round_index,
                                       _NOISE_ATTACK_TAG, transmit.device)
-                evil = gaussian_noise(gen, transmit.shape, transmit.dtype,
-                                      std=sigma) * n.reshape(badx.shape)
+                lo, w = (0, transmit.shape[0]) if slots is None else slots
+                noise = gaussian_noise(gen, (w,) + tuple(transmit.shape[1:]),
+                                       transmit.dtype, std=sigma)
+                evil = (noise[lo:lo + transmit.shape[0]]
+                        * n.reshape(badx.shape))
             return torch.where(badx, evil, transmit)
 
         return transform

@@ -197,9 +197,10 @@ def mesh_shape_dict(mesh: Optional[Mesh]) -> dict:
 
 def padded_rows(num_clients: int, mesh: Optional[Mesh]) -> int:
     """Rows of client-axis-sharded state: ``num_clients`` rounded up to
-    the ``clients`` axis (reference :263). The reference's API, held by
-    the tests: the port's mesh shards no per-client state yet (ROADMAP
-    item 8a)."""
+    the ``clients`` axis (reference :263). Rank c of the axis owns the
+    contiguous block of ``padded_rows / C`` rows from ``c·padded_rows/C``
+    (``core/rounds.py ClientStates.init``, parallel/rows.py); padded
+    rows are never indexed."""
     n = client_axis_size(mesh)
     return -(-num_clients // n) * n
 

@@ -132,9 +132,11 @@ On a mesh (``--num_devices N`` / ``--mesh CxM``, reference
 fed_model.py:141-153, 424-429, 1241-1265) each launched rank builds its
 FedModel (``parallel/mesh.py build_mesh``: the run's devices outside a
 launched group raise), sends its contiguous slice of the round's
-clients to its card, runs the fused round with the whole round's
-datapoint total, and gets every client's metrics back; the server
-state is (r, c/M) column shards on a model axis; the ledger's meta
+clients to its card, runs the round (fused or per client) with the
+whole round's datapoint total, and gets every client's metrics back;
+the per-client state rows are sharded over ``clients`` (each rank its
+block, parallel/rows.py), the server state is (r, c/M) column shards
+on a model axis; the ledger's meta
 record carries ``num_devices`` and ``mesh_shape``, and only rank 0
 writes the ledger and the live plane. Every rank keeps the same host
 accounting (the whole round's ids and masks).
@@ -169,6 +171,7 @@ from commefficient_tpu_torch.core.rounds import (ClientStates, _dead_row,
 from commefficient_tpu_torch.core.server import ServerState
 from commefficient_tpu_torch.device import resolve_device
 from commefficient_tpu_torch.ops.vec import packbits
+from commefficient_tpu_torch.parallel import rows as rowx
 from commefficient_tpu_torch.parallel.mesh import (build_mesh, client_slice,
                                                    mesh_shape_dict,
                                                    model_axis_size,
@@ -301,9 +304,10 @@ class FedModel:
                 self._prefetcher = StorePrefetcher(
                     self.client_store, pin=self.device.type == "cuda")
         else:
+            # on a mesh each rank holds its clients block of the rows
             self.client_states = ClientStates.init(args, num_clients,
                                                    self.ps_weights,
-                                                   self.device)
+                                                   self.device, self.mesh)
         # --async_buffer_size K: the buffered-arrival front end; the
         # host store's participants get issue-round stamps
         self.async_k = int(args.async_buffer_size)
@@ -546,6 +550,16 @@ class FedModel:
             alive = np.asarray(batch["mask"]).reshape(W, -1).sum(1) > 0
             self._store_pending = (ids_np.astype(np.int64), alive)
             self._submit_prefetch()
+        elif self.mesh is not None:
+            # the whole round's rows this rank owns (true_topk's
+            # velocity rewrite runs on every rank's own rows); the
+            # others and the dead slots at its dead row
+            W = ids_np.shape[0]
+            alive = np.asarray(batch["mask"]).reshape(W, -1).sum(1) > 0
+            xids = np.where(alive, ids_np.astype(np.int64), rowx.DEAD)
+            self.pending_client_ids = rowx.local_ids(
+                torch.as_tensor(xids).to(self.device, non_blocking=True),
+                _dead_row(self.client_states), self.mesh.clients)
         else:
             self.pending_client_ids = _state_ids(
                 ids, dev_batch, _dead_row(self.client_states))

@@ -18,8 +18,9 @@
 - **Flags.** ``--num_devices`` and ``--mesh`` parse; the reference's
   checks of ``--mesh`` hold with its messages; the combinations the
   reference runs on a mesh and the port does not raise
-  ``NotImplementedError`` naming their ROADMAP item (8a, 8b, 8d, 8e,
-  8f); the multi-host flags still raise at parse.
+  ``NotImplementedError`` naming their ROADMAP item (8b, 8d, 8e, 8f);
+  the per-client combinations (8a) validate and build their round; the
+  multi-host flags still raise at parse.
 """
 
 import torch_threads  # noqa: F401  (the worker's share of the cores)
@@ -179,15 +180,40 @@ SKETCH = dict(mode="sketch", error_type="virtual", local_momentum=0.0,
               device="cpu", num_devices=2, num_cols=32)
 
 
+@pytest.mark.parametrize("kw,fused", [
+    (dict(max_grad_norm=1.0), False),
+    (dict(microbatch_size=2), False),
+    (dict(robust_agg="median"), False),
+    (dict(dp="sketch", dp_clip=1.0, dp_noise_mult=1.0), False),
+    (dict(mode="local_topk", error_type="local", local_momentum=0.9), False),
+    (dict(mode="fedavg", error_type="none", local_batch_size=-1), False),
+    (dict(dropout_prob=0.25), True),
+    (dict(do_batchnorm=True), True),
+])
+def test_per_client_mesh_combinations_validate_and_build(kw, fused):
+    """The per-client round on a mesh (ROADMAP item 8a), once raising:
+    each combination validates on a 2-rank mesh and builds its round
+    there (the per-client round, or the fused one for dropout and the
+    batch statistics), with the state rows a rank holds its block of
+    the padded rows plus its dead-slot row."""
+    from commefficient_tpu_torch.core.rounds import (ClientStates,
+                                                     build_client_round)
+    cfg = Config(**dict(SKETCH, **kw))
+    cfg.validate_runtime()
+    assert cfg.fused_grad == fused
+    cfg.grad_size, cfg.k = 64, 4
+    mesh = pm.Mesh(2, 1, pm.Axis(None, 1, 2), pm.Axis(None, 0, 1),
+                   pm.Axis(None, 1, 2), torch.device("cpu"), "gloo")
+    stats = (lambda p, b: {}) if cfg.do_batchnorm else None
+    assert callable(build_client_round(
+        cfg, workers.linear_loss, 2, stats_fn=stats, mesh=mesh))
+    states = ClientStates.init(cfg, 5, torch.zeros(64), "cpu", mesh)
+    for arr in states:
+        if arr is not None:
+            assert arr.shape[0] == pm.padded_rows(5, mesh) // 2 + 1
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(max_grad_norm=1.0), "8a"),
-    (dict(microbatch_size=2), "8a"),
-    (dict(robust_agg="median"), "8a"),
-    (dict(dp="sketch", dp_clip=1.0, dp_noise_mult=1.0), "8a"),
-    (dict(mode="local_topk", error_type="local", local_momentum=0.9), "8a"),
-    (dict(mode="fedavg", error_type="none", local_batch_size=-1), "8a"),
-    (dict(dropout_prob=0.25), "8a"),
-    (dict(do_batchnorm=True), "8a"),
     (dict(mode="uncompressed", error_type="none", mesh="1x2"), "8b"),
     (dict(clientstore="host"), "8d"),
     (dict(do_checkpoint=True), "8d"),

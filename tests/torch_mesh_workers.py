@@ -190,3 +190,130 @@ def trainer_main(argv):
     trainer's own launch returns rank 0's)."""
     from commefficient_tpu_torch.train import cv_train
     return cv_train.main(argv)
+
+
+def _state_block(model):
+    """This rank's owned state rows (the dead-slot row left out) and its
+    first row's client id."""
+    cs = model.client_states
+    # copies: the round updates the rows in place
+    block = {name: _np(arr[:-1]).copy() for name, arr in
+             (("velocities", cs.velocities), ("errors", cs.errors),
+              ("weights", cs.weights)) if arr is not None}
+    per = next((a.shape[0] for a in block.values()), 0)
+    lo = 0 if model.mesh is None else model.mesh.clients.index * per
+    return lo, block
+
+
+def _fed_model(kind, cfg, flat, spec, padded_batch_size):
+    """The port's FedModel and FedOptimizer of the ResNet9 cell
+    (``spec`` its channels) or of GPT-2 (``spec`` its GPT2Config
+    keywords) on ``flat``."""
+    from commefficient_tpu_torch.runtime.fed_model import (FedModel,
+                                                           FedOptimizer)
+    if kind == "gpt2":
+        from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
+                                                         GPT2DoubleHeads)
+        from commefficient_tpu_torch.train.gpt2_train import \
+            make_compute_loss_train
+        module = GPT2DoubleHeads(GPT2Config(**spec))
+        model = FedModel(module, torch.from_numpy(flat),
+                         make_compute_loss_train(module, cfg, True), cfg,
+                         padded_batch_size=padded_batch_size)
+    else:
+        from commefficient_tpu_torch.models.resnet9 import ResNet9
+        from commefficient_tpu_torch.train import cv_train
+        module = ResNet9(num_classes=10, channels=spec,
+                         do_batchnorm=cfg.do_batchnorm)
+        extra = {}
+        if cfg.do_batchnorm:
+            extra = dict(stats_fn=cv_train.make_bn_stats_fn(module),
+                         init_model_state=module.init_state())
+        model = FedModel(module, torch.from_numpy(flat),
+                         cv_train.make_compute_loss(module), cfg,
+                         padded_batch_size=padded_batch_size, **extra)
+    return model, FedOptimizer([{"lr": 1.0}], cfg)
+
+
+def client_rounds(kind, configs, spec, num_clients, lr):
+    """Chained rounds of the ResNet9 cell or of GPT-2 (``kind``) through
+    ``FedModel`` / ``FedOptimizer`` on this rank's mesh (or on one
+    device, outside a launched group), for each ``(Config keywords,
+    batches, flat weights)`` of ``configs`` (under --batchnorm the
+    running statistics from their init). Per round: the
+    whole aggregate (a 2-D rank's columns gathered), the weights, the
+    metrics, the byte totals, the server's selection, this rank's block
+    of state rows and the running statistics. PyTorch's native CPU
+    convolutions, as the one-device tests run them
+    (tests/test_torch_cv_round.py)."""
+    out = []
+    for kw, batches, flat in configs:
+        cfg = Config(device="cpu", num_clients=num_clients, **kw)
+        with torch.backends.mkldnn.flags(enabled=False):
+            model, opt = _fed_model(kind, cfg, flat, spec,
+                                    batches[0]["mask"].shape[1])
+            rounds = []
+            for b in batches:
+                for g in opt.param_groups:
+                    g["lr"] = lr
+                met = model(dict(b))
+                agg = model.pending_aggregated
+                if pm.model_axis_size(model.mesh) > 1:
+                    agg = wirex.gather_columns(agg, model.mesh.model)
+                agg = _np(agg)
+                opt.step()
+                lo, block = _state_block(model)
+                rounds.append({
+                    "agg": agg, "ps": _np(model.ps_weights),
+                    "loss": met[0], "down": met[-2], "up": met[-1],
+                    "last_updated": model.last_updated.copy(),
+                    "lo": lo, "rows": block,
+                    "bn": (None if model.model_state is None else
+                           {k: _np(v) for k, v in
+                            model.model_state.items()})})
+        out.append({"rank": model.rank, "rounds": rounds})
+    return out
+
+
+def trainer_runs(argvs):
+    """``cv_train.main(argv)`` for each of ``argvs`` inside this launched
+    rank (main runs the rank's share; it launches nothing): each run's
+    last result row."""
+    from commefficient_tpu_torch.train import cv_train
+    return [cv_train.main(argv)[-1] for argv in argvs]
+
+
+def chaos_rounds(cfg_kw, chaos_kw, num_clients, batches, ps0, lr=0.01):
+    """Chained per-client rounds of ``linear_loss`` with the chaos
+    harness's transmit hook (data/chaos.py) on this rank's mesh (or on
+    one device, outside a launched group): per round the aggregate and
+    the weights."""
+    from commefficient_tpu_torch.core.rounds import (ClientStates,
+                                                     build_client_round,
+                                                     build_server_round)
+    from commefficient_tpu_torch.core.server import ServerState
+    from commefficient_tpu_torch.data.chaos import ChaosConfig, ChaosInjector
+    cfg = Config(device="cpu", **cfg_kw)
+    cfg.grad_size = ps0.size
+    mesh = pm.build_mesh(cfg)
+    hook = ChaosInjector(ChaosConfig(**chaos_kw),
+                         num_clients).transmit_transform()
+    cr = build_client_round(cfg, linear_loss, batches[0]["x"].shape[1],
+                            transmit_transform=hook, mesh=mesh)
+    sr = build_server_round(cfg, mesh=mesh)
+    ps = torch.from_numpy(ps0)
+    cs = ClientStates.init(cfg, num_clients, ps, "cpu", mesh)
+    ss = ServerState.init(cfg, "cpu", pm.model_axis_size(mesh))
+    aggs, weights = [], []
+    for r, b in enumerate(batches):
+        w = b["mask"].shape[0]
+        part = pm.client_slice(w, mesh)
+        batch = {k: torch.from_numpy(b[k][part]) for k in ("x", "y", "mask")}
+        ids = torch.from_numpy(b["client_ids"][part].astype(np.int64))
+        kw = ({} if mesh is None else
+              dict(total=max(float(b["mask"].sum()), 1.0), global_w=w))
+        res = cr(ps, batch, cs, ids, round_index=r, **kw)
+        ps, ss, _, _, _ = sr(ps, ss, res.aggregated, lr)
+        aggs.append(_np(res.aggregated))
+        weights.append(_np(ps))
+    return {"aggs": aggs, "weights": weights}
