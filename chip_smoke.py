@@ -259,8 +259,11 @@ included; the ``kernels`` line's ``sketch_window``,
 rows carry their launches on the 2-D path (0 where no 2-D path ran).
 On one card ``mesh_world1_clients`` runs the per-client local_topk
 round at world 1 over NCCL (the state rows' exchange and the fold's
-crossings over a group of one), in the fused round's launch, bit-equal
-to the round without a mesh, the rows included. ``python3 chip_smoke.py --mesh-only`` runs the
+crossings over a group of one), and ``mesh_world1_store`` the same
+round under the host store (the store's sum and all-gather over the
+group of one), in the fused round's launch, each bit-equal to the
+round without a mesh, every client's rows included. ``python3
+chip_smoke.py --mesh-only`` runs the
 build, those checks and ``mesh_paths`` alone (the several-card run),
 and on four cards ``mesh_clients``: the per-client configurations
 (``MESH_CLIENT_PATHS``: ResNet9 local_topk, fedavg, clipped f32 and
@@ -273,7 +276,21 @@ predicted for its W/C clients (and the one-card run's for W), every
 rank's block of state rows against the one-card rows
 (``MESH_ROWS_TOL``), and the row exchange's device seconds and bytes a
 round; the kernels line then adds kernels 1, 2, S and 3 timed at
-ResNet9's shapes with the clipped run's launches.
+ResNet9's shapes with the clipped run's launches. Then ``mesh_slice``
+(one launch of four ranks): the 2-D dense server (``mesh_dense2d_*``:
+ResNet9 and GPT-2 uncompressed on 2x2, each held to its one-card run
+within ``MESH_F32_RTOL`` over sampled coordinates, each rank holding
+ceil(d/2) of each server buffer), the host store on the mesh
+(``mesh_store_*``: local_topk and true_topk ``--topk_down`` at
+``--num_devices 4``, uncompressed with local momentum and
+``--topk_down`` on 2x2, each bit-equal to the device placement on the
+same mesh, weights and every client's rows, with the store's seconds
+and bytes a round), checkpoint and resume (``mesh_resume``: a run cut
+after round 1's autosave and resumed bit-equal to the uninterrupted
+one, its archive restored on 2 ranks and on one card bit-equal to the
+saved state); then ``mesh_multihost``: two launcher processes of two
+cards each joined through ``--coordinator_address`` on 127.0.0.1,
+their weights held to the one-launcher f32 run's bit for bit.
 The operations plane and the round variants run before them on the
 ResNet9 cell: ``autopilot_paths`` (the dtype walk f32 -> bf16 -> int8 under a
 band above the cell's recovery error, kernel 4 once an int8 round; the
@@ -5220,7 +5237,9 @@ def mesh_rank(kind, argv, root=None, det=False):
                 results = gpt2_train.main(argv)
     wall = time.perf_counter() - t0
     model = fed_model._CURRENT_MODEL
-    return {"rank": model.rank, "row": results[-1], "counts": all_counts(),
+    return {"rank": model.rank, "row": results[-1] if results else None,
+            "counts": all_counts(),
+            "ps_checksum": weights_checksum(model.ps_weights).item(),
             # every epoch's rounds (a run of several epochs has a row
             # an epoch)
             "rounds": sum(len(r["round_times"]) for r in results),
@@ -5280,19 +5299,45 @@ def crossing_check(tag, outs):
     return {"dtype": kind, "bit_equal": "to the one-card sum"}
 
 
-def mesh_run(phase, kind, argv, world, want_per_round, root=None,
-             one_card=None):
-    """``argv`` over ``world`` ranks through ``parallel/mesh.launch``:
-    the weights bit-identical across ranks after every round, every
-    rank's losses the same, the launches a round ``want_per_round``
-    on every rank, round 1's crossing (``crossing_check``), on the 2-D
-    server every round's support the 1-D selection's, and against the
-    one-card round's first table (``one_card``) the relative L2. Returns
-    rank 0's launch counts."""
+def mesh_rank_runs(runs):
+    """``mesh_rank`` for each ``(kind, argv, root, det)`` of ``runs`` in
+    turn, in this rank: several runs in one launch (each launch costs
+    seconds of process start and NCCL set-up)."""
+    out = []
+    for kind, argv, root, det in runs:
+        out.append(mesh_rank(kind, argv, root, det))
+        fed_model._CURRENT_MODEL = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def mesh_runs(world, specs):
+    """Each spec (``phase``, ``kind``, ``argv``, ``want`` launches a
+    round; ``root``, ``one_card``, ``det`` where given) over ``world``
+    ranks, all in one ``parallel/mesh.launch``, each held by
+    ``mesh_checks``. Returns rank 0's result of each."""
     from commefficient_tpu_torch.parallel import mesh as pm
     t0 = time.perf_counter()
-    outs = pm.launch(world, mesh_rank, kind, argv, root)
-    wall = time.perf_counter() - t0
+    outs = pm.launch(world, mesh_rank_runs,
+                     [(s["kind"], s["argv"], s.get("root"),
+                       s.get("det", False)) for s in specs])
+    emit({"phase": "mesh_runs", "world": world,
+          "runs": [s["phase"] for s in specs],
+          "launch_wall_seconds": time.perf_counter() - t0})
+    return [mesh_checks(s["phase"], s["argv"], world, s["want"],
+                        [o[i] for o in outs], s.get("one_card"))
+            for i, s in enumerate(specs)]
+
+
+def mesh_checks(phase, argv, world, want_per_round, outs, one_card=None):
+    """One run's results ``outs`` (every rank's): the weights
+    bit-identical across ranks after every round, every rank's losses
+    the same, the launches a round ``want_per_round`` on every rank,
+    round 1's crossing (``crossing_check``), on the 2-D server every
+    round's support the 1-D selection's, and against the one-card
+    round's first table (``one_card``) the relative L2. Returns rank 0's
+    result (its launch counts under ``counts``)."""
     row = outs[0]["row"]
     rounds = len(row["round_times"])
     for o in outs:
@@ -5329,10 +5374,10 @@ def mesh_run(phase, kind, argv, world, want_per_round, root=None,
           "crossing": crossing, "first_table_rel_l2_vs_one_card": rel,
           "wire_MiB_per_round": up_per_round,
           "collective_s_per_round": [o["coll_s"] for o in outs],
-          "wall_seconds": wall,
+          "wall_seconds": outs[0]["wall"],
           "peak_mem_GiB": [o["peak_mem_GiB"] for o in outs],
           "tolerance": MESH_TOL})
-    return outs[0]["counts"]
+    return outs[0]
 
 
 # the NCCL log lines that name a channel's transport ("... via P2P/IPC")
@@ -5444,15 +5489,16 @@ def gpt2_mesh_launches(two_d=False):
 def plain_world1(argv):
     """``argv`` on one card without a mesh, under ``deterministic()``:
     (its result rows, its round 1 aggregate, the checksums of its final
-    weights and of its state rows, W)."""
-    rec = MeshRecorder()
-    with rec.installed(), deterministic():
+    weights and of its state rows, W, and every client's row checksums,
+    ``state_checksums``, the host store's included)."""
+    rec, cap = MeshRecorder(), {}
+    with rec.installed(), deterministic(), capturing_state(cap):
         plain = cv_train.main(argv)
     model = fed_model._CURRENT_MODEL
     out = (plain, rec.first_agg, weights_checksum(model.ps_weights).item(),
            [weights_checksum(a.reshape(-1)).item()
             for a in model.client_states if a is not None],
-           model.args.num_workers)
+           model.args.num_workers, cap["state"]["rows"])
     fed_model._CURRENT_MODEL = None
     del model
     torch.cuda.empty_cache()
@@ -5463,25 +5509,31 @@ def mesh_world1_path():
     """One card: the ResNet9 round at world size 1 over NCCL (the 1-D
     mesh's crossings over a group of one), fused and per client
     (local_topk: the state rows' exchange and the fold's crossings over
-    the group of one), in one launch, against the same rounds with no
-    mesh, under ``deterministic()``: the tables, the state rows and the
-    weights bit for bit, and the launches a round. Returns the rank's
-    launch counts of the fused run."""
+    the group of one; and under the host store: the store's sum and
+    all-gather over the group of one), in one launch, against the same
+    rounds with no mesh, under ``deterministic()``: the tables, the
+    state rows (every client's, the store's too) and the weights bit for
+    bit, and the launches a round. Returns the rank's launch counts of
+    the fused run."""
     from commefficient_tpu_torch.parallel import mesh as pm
     runs = (("mesh_world1", profile_round.ARGV + [
                 "--num_epochs", "0.2", "--pivot_epoch", "0.1",
                 "--lr_scale", "0.1"], lambda w: resnet_mesh_launches()),
             ("mesh_world1_clients",
-             profile_round.ARGV + LTK_ARGV + CLIENT_ROUNDS, ltk_launches))
+             profile_round.ARGV + LTK_ARGV + CLIENT_ROUNDS, ltk_launches),
+            ("mesh_world1_store", profile_round.ARGV + LTK_ARGV
+             + CLIENT_ROUNDS + ["--clientstore", "host"], ltk_launches))
     plains = [plain_world1(argv) for _, argv, _ in runs]
     outs = pm.launch(1, mesh_world1_rank, [argv for _, argv, _ in runs])[0]
-    for (phase, argv, per_round), o, (plain, agg, ps_sum, rows, w) in zip(
-            runs, outs, plains):
+    for (phase, argv, per_round), o, (plain, agg, ps_sum, rows, w,
+                                      state_rows) in zip(runs, outs,
+                                                         plains):
         check(torch.equal(o["first_agg"], agg),
               f"{phase}: round 1's table != the one-device round's")
         check(o["checksum"] == ps_sum,
               f"{phase}: final weights != the one-device run's")
-        check(o["rows_checksums"] == rows,
+        check(o["rows_checksums"] == rows
+              and o["state_rows"] == state_rows,
               f"{phase}: state rows != the one-device run's")
         check(o["row"]["round_losses"] == plain[-1]["round_losses"],
               f"{phase}: losses differ")
@@ -5495,18 +5547,26 @@ def mesh_world1_path():
               "bit_equal_to_one_device": True,
               "row_exchange_s_per_round": o["rows_s"],
               "row_exchange_bytes_per_round": o["rows_bytes"],
-              "collective_s_per_round": o["coll_s"]})
+              "collective_s_per_round": o["coll_s"],
+              "rows_checked": {f: len(r) for f, r in state_rows.items()},
+              "store_by_round": o["store"] or None})
     return outs[0]["counts"]
 
 
 def mesh_world1_rank(argvs):
     """Each of ``argvs`` at ``--num_devices 1`` in this rank: what
     ``mesh_rank`` returns, with the checksums of the final weights and
-    of the rank's state rows (its dead-slot row included)."""
+    of the rank's state rows (its dead-slot row included), every
+    client's row checksums (``state_checksums``) and the host store's
+    timings."""
     out = []
     for argv in argvs:
-        res = mesh_rank("cv", argv + ["--num_devices", "1"], det=True)
+        cap = {}
+        with capturing_state(cap):
+            res = mesh_rank("cv", argv + ["--num_devices", "1"], det=True)
         model = fed_model._CURRENT_MODEL
+        res["state_rows"] = cap["state"]["rows"]
+        res["store"] = [dict(t) for t in model.store_timings]
         res["checksum"] = weights_checksum(model.ps_weights).item()
         res["rows_checksums"] = [weights_checksum(a.reshape(-1)).item()
                                  for a in model.client_states
@@ -5526,8 +5586,10 @@ def mesh_row_launches(mesh_counts):
 def mesh_only_main(dev, name, smi):
     """``python3 chip_smoke.py --mesh-only`` (the several-card run): the
     build, the sharded-selection checks, ``mesh_paths`` and, on four
-    cards, the per-client round's configurations (``mesh_clients``), and
-    their rows of the kernels line."""
+    cards, the per-client round's configurations (``mesh_clients``) and
+    the multi-process runtime's rest (``mesh_slice``: the 2-D dense
+    server, the host store and checkpoint and resume on the mesh, the
+    two-host launch), and their rows of the kernels line."""
     _build.build_all()
     report = ptxas_report(_build.BUILD_LOGS.get("sketch", ""))
     emit({"phase": "ptxas_sketch", "kernels": report})
@@ -5535,7 +5597,7 @@ def mesh_only_main(dev, name, smi):
     rows = sharded_selection_checks(dev, flush)
     del flush
     torch.cuda.empty_cache()
-    counts, run = mesh_paths()
+    counts, run, f32_run = mesh_paths()
     launches = mesh_row_launches(counts)
     sketch_ptxas_checks(report)
     table = []
@@ -5555,10 +5617,12 @@ def mesh_only_main(dev, name, smi):
             table.append({**{k: row[k] for k in KERNEL_KEYS},
                           "launches_run": "mesh_clients_clip_f32"})
         del flush
+        torch.cuda.empty_cache()
+        mesh_slice(world, f32_run)
     else:
         emit({"phase": "mesh_clients", "world": world,
-              "skipped": "the per-client configurations need 4 cards "
-                         "(the 2x2 mesh among them)"})
+              "skipped": "the per-client configurations and the mesh "
+                         "slice need 4 cards (the 2x2 mesh among them)"})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -5571,18 +5635,20 @@ def mesh_paths():
     ResNet9 cell at ``--num_devices world`` (f32 4 rounds, int8 + delta
     2, fp8 + overlap 2 2), ``--mesh 2x2`` (``1x2`` on two cards) at f32
     and int8 2 rounds each, and GPT-2 at ``--num_devices world`` and on
-    the 2-D mesh 2 rounds each (``mesh_run``); on one card the round at
-    world 1 (``mesh_world1_path``). Returns rank 0's launch counts of
+    the 2-D mesh 2 rounds each (``mesh_runs``: all seven in one launch);
+    on one card the round at world 1 (``mesh_world1_path``). Returns rank 0's launch counts of
     the run the kernels line reads (the 2-D ResNet9 f32 run; on one
     card the world-1 run, which is 1-D: the 2-D mesh needs two cards,
-    as NCCL takes one rank a card) and that run's name."""
+    as NCCL takes one rank a card), that run's name, and rank 0's result
+    of the deterministic f32 run at ``--num_devices world`` (None on one
+    card), which ``mesh_multihost`` is held to."""
     world = min(torch.cuda.device_count(), 4)
     emit({"phase": "mesh_paths", "world": world, "backend": "nccl",
           "nccl_env": {k: v for k, v in os.environ.items()
                        if k.startswith("NCCL_")}})
     if world == 1:
         return (mesh_world1_path(),
-                "mesh_world1 (1-D; the 2-D mesh needs two cards)")
+                "mesh_world1 (1-D; the 2-D mesh needs two cards)", None)
     mesh_collectives(world)
     nd = ["--num_devices", str(world)]
     shape = "2x2" if world == 4 else f"1x{world}"
@@ -5592,30 +5658,36 @@ def mesh_paths():
     short = profile_round.ARGV + ["--num_epochs", "0.2", "--pivot_epoch",
                                   "0.1", "--lr_scale", "0.1"]
     ref = one_card_first_agg(f32)
-    mesh_run("mesh_resnet9_f32", "cv", f32 + nd, world,
-             resnet_mesh_launches(), one_card=ref)
-    del ref
-    mesh_run("mesh_resnet9_int8", "cv", short + nd + [
-        "--sketch_dtype", "int8", "--downlink_encoding", "delta"], world,
-        resnet_mesh_launches(1))
-    mesh_run("mesh_resnet9_fp8", "cv", short + nd + [
-        "--sketch_dtype", "fp8", "--overlap_depth", "2"], world,
-        resnet_mesh_launches(len(row_chunks(R, 2))))
     run = f"mesh2d_resnet9_f32_{shape}"
-    counts = mesh_run(run, "cv", short + two_d, world,
-                      resnet_mesh_launches(two_d=True))
-    mesh_run(f"mesh2d_resnet9_int8_{shape}", "cv", short + two_d + [
-        "--sketch_dtype", "int8"], world, resnet_mesh_launches(two_d=True))
     with tempfile.TemporaryDirectory(prefix="gpt2_mesh_") as root:
         # 8 clients: one epoch of 2 rounds of W = 4
         data_dir, vocab_dir = gpt2_train.fabricate_assets(
             root, num_personalities=8)
         argv = profile_round.gpt2_argv(data_dir, vocab_dir)
-        for phase, extra, flat in (("mesh_gpt2", nd, False),
-                                   (f"mesh2d_gpt2_{shape}", two_d, True)):
-            mesh_run(phase, "gpt2", argv + extra, world,
-                     gpt2_mesh_launches(flat), root=root)
-    return counts, run
+        # one launch; the f32 run deterministic: the two-host run
+        # (mesh_multihost) is held to its weights bit for bit
+        res = mesh_runs(world, [
+            dict(phase="mesh_resnet9_f32", kind="cv", argv=f32 + nd,
+                 want=resnet_mesh_launches(), one_card=ref, det=True),
+            dict(phase="mesh_resnet9_int8", kind="cv", argv=short + nd + [
+                "--sketch_dtype", "int8", "--downlink_encoding", "delta"],
+                want=resnet_mesh_launches(1)),
+            dict(phase="mesh_resnet9_fp8", kind="cv", argv=short + nd + [
+                "--sketch_dtype", "fp8", "--overlap_depth", "2"],
+                want=resnet_mesh_launches(len(row_chunks(R, 2)))),
+            dict(phase=run, kind="cv", argv=short + two_d,
+                 want=resnet_mesh_launches(two_d=True)),
+            dict(phase=f"mesh2d_resnet9_int8_{shape}", kind="cv",
+                 argv=short + two_d + ["--sketch_dtype", "int8"],
+                 want=resnet_mesh_launches(two_d=True)),
+            dict(phase="mesh_gpt2", kind="gpt2", argv=argv + nd, root=root,
+                 want=gpt2_mesh_launches(False)),
+            dict(phase=f"mesh2d_gpt2_{shape}", kind="gpt2",
+                 argv=argv + two_d, root=root,
+                 want=gpt2_mesh_launches(True))])
+    del ref
+    f32_run, counts = res[0], res[3]["counts"]
+    return counts, run, f32_run
 
 
 # --- the per-client round on the mesh (mesh_clients) --------------------
@@ -5888,6 +5960,590 @@ def mesh_clients(world):
     return counts
 
 
+# --- the rest of the multi-process runtime (mesh_slice) -----------------
+
+# the 2-D dense server: ResNet9 and GPT-2 uncompressed with virtual
+# momentum on the 2x2 mesh, 2 rounds each
+DENSE2D_ARGV = ["--mode", "uncompressed", "--virtual_momentum", "0.9",
+                "--error_type", "none"]
+# the host store on the mesh: 16 clients (4 a rank's store), 2 rounds;
+# the 2-D mesh admits sketch and uncompressed modes only (config.py), so
+# its case is uncompressed with local momentum and --topk_down's rows
+STORE_MESH_ARGV = ["--num_clients", "16", "--iid"] + CLIENT_ROUNDS
+TOPK_DOWN_ARGV = ["--mode", "true_topk", "--error_type", "virtual",
+                  "--local_momentum", "0.9", "--virtual_momentum", "0",
+                  "--topk_down", "--lr_scale", "0.001"]
+MESH_STORE_PATHS = (
+    ("local_topk", LTK_ARGV, None),
+    ("topk_down", TOPK_DOWN_ARGV, None),
+    ("uncompressed_2x2", ["--mode", "uncompressed", "--error_type", "none",
+                          "--local_momentum", "0.9", "--virtual_momentum",
+                          "0.9", "--topk_down", "--lr_scale", "0.001"],
+     "2x2"),
+)
+# checkpoint and resume on the mesh: local_topk (local error, no local
+# momentum: one field of rows to save) under the host store, two epochs
+# of two rounds (RESUME_ARGV), cut after round 1's autosave (the one
+# round-cadence save: an archive takes seconds to compress)
+RESUME_MESH_ARGV = ["--mode", "local_topk", "--error_type", "local",
+                    "--local_momentum", "0", "--lr_scale", "0.001",
+                    "--clientstore", "host"] + RESUME_ARGV
+RESUME_MESH_CUT = 1
+# the dense run held to the one-card run: relative L2 at coordinates a
+# stride apart (at most 2^21 of them)
+DENSE_SAMPLE = 1 << 21
+
+
+def sample_of(t):
+    """``t`` (flat) at DENSE_SAMPLE evenly spaced coordinates, on the
+    host."""
+    step = max(1, t.numel() // DENSE_SAMPLE)
+    return t.reshape(-1)[::step].float().cpu()
+
+
+def rel_l2(got, want):
+    d = float(torch.linalg.vector_norm(got - want))
+    n = float(torch.linalg.vector_norm(want))
+    return d / n if n > 0 else (0.0 if d == 0 else math.inf)
+
+
+def state_checksums(model, opt):
+    """Bit-level checksums (``weights_checksum``) of what a checkpoint
+    holds, as this rank holds it: the weights, each server state buffer
+    made whole (gathered over ``model`` on the 2-D mesh: every rank
+    calls this), and {field: {client id: checksum}} of the client rows
+    this rank owns (its store's range under the host store, its block
+    of the rows under the device placement)."""
+    from commefficient_tpu_torch.runtime.checkpoint import _whole_server
+    out = {"ps": weights_checksum(model.ps_weights).item(),
+           "ss": [weights_checksum(_whole_server(t, model).reshape(-1))
+                  .item() for t in opt.server_state],
+           "ss_local_bytes": [t.numel() * t.element_size()
+                              for t in opt.server_state],
+           "rows": {}}
+    store = model.client_store
+    if store is not None:
+        lo, hi = store.owned
+        ids = np.arange(lo, hi, dtype=np.int64)
+        rows, _ = store.gather(ids)
+        for f, arr in rows.items():
+            out["rows"][f] = {int(i): weights_checksum(
+                torch.from_numpy(np.ascontiguousarray(arr[j])).reshape(-1))
+                .item() for j, i in enumerate(ids)}
+        return out
+    for f in ("velocities", "errors", "weights"):
+        arr = getattr(model.client_states, f)
+        if arr is None:
+            continue
+        per = arr.shape[0] - 1
+        lo = 0 if model.mesh is None else model.mesh.clients.index * per
+        out["rows"][f] = {lo + j: weights_checksum(arr[j].reshape(-1))
+                          .item()
+                          for j in range(max(0, min(per,
+                                                    model.num_clients - lo)))}
+    return out
+
+
+@contextlib.contextmanager
+def capturing_state(cap):
+    """While the block runs: ``cap["ps0"]`` the weights when the
+    optimizer is built, and ``cap["state"]`` the ``state_checksums`` as
+    ``FedModel.finalize`` begins (after the last write-back, before the
+    store closes)."""
+    init, fin = fed_model.FedOptimizer.__init__, fed_model.FedModel.finalize
+
+    def opt_init(self, *a, **kw):
+        init(self, *a, **kw)
+        cap["opt"] = self
+        cap["ps0"] = self.model.ps_weights.clone()
+
+    def finalize(self):
+        cap["state"] = state_checksums(self, cap["opt"])
+        fin(self)
+
+    fed_model.FedOptimizer.__init__ = opt_init
+    fed_model.FedModel.finalize = finalize
+    try:
+        yield cap
+    finally:
+        fed_model.FedOptimizer.__init__ = init
+        fed_model.FedModel.finalize = fin
+
+
+@contextlib.contextmanager
+def cut_after(round_index, keep_dir):
+    """A ``PreemptionDrill`` SIGTERM right after round ``round_index``'s
+    autosave (None: no cut); rank 0 first copies the archive and its side
+    shards into ``keep_dir``, the restores' source."""
+    if round_index is None:
+        yield
+        return
+    saver = checkpoint.RoundAutosaver.__call__
+    drill = PreemptionDrill(min_round=round_index, max_round=round_index,
+                            signals=(signal.SIGTERM,))
+
+    def autosave_then_drill(self, epoch):
+        saver(self, epoch)
+        if drill.should_kill(self.model.round_index):
+            if self.model.rank == 0:
+                os.makedirs(keep_dir, exist_ok=True)
+                base = os.path.basename(self.path)
+                for n in os.listdir(os.path.dirname(self.path)):
+                    if n.startswith(base):
+                        shutil.copy2(os.path.join(os.path.dirname(
+                            self.path), n), os.path.join(keep_dir, n))
+            drill.execute()
+
+    checkpoint.RoundAutosaver.__call__ = autosave_then_drill
+    try:
+        yield
+    finally:
+        checkpoint.RoundAutosaver.__call__ = saver
+
+
+@contextlib.contextmanager
+def no_saves(on):
+    """With ``on``: ``runtime/checkpoint.py save_checkpoint`` writes
+    nothing (a resumed run's end-of-training save, which nothing reads,
+    compresses every written row)."""
+    if not on:
+        yield
+        return
+    orig = checkpoint.save_checkpoint
+    checkpoint.save_checkpoint = lambda path, *a, **kw: path
+    try:
+        yield
+    finally:
+        checkpoint.save_checkpoint = orig
+
+
+@contextlib.contextmanager
+def no_training(on):
+    """With ``on``: the trainers' round loop runs no round, so ``main``
+    restores (``--resume``) and finalizes."""
+    if not on:
+        yield
+        return
+    orig = cv_train.train
+    cv_train.train = lambda *a, **kw: []
+    try:
+        yield
+    finally:
+        cv_train.train = orig
+
+
+def slice_task(t):
+    """One task of the mesh slice in this rank (or on one card outside a
+    launch): ``mesh_rank`` of ``t["argv"]`` with the state captured
+    (``capturing_state``), cut (``t["cut"]``: after that round's
+    autosave, the archive kept in ``t["keep"]``), restore-only
+    (``t["restore"]``) or saving nothing (``t["no_saves"]``). With ``t["ref"]`` (a file of the one-card run's
+    sampled first aggregate and weight change) rank 0 holds its own to
+    them (relative L2). The result drops the first aggregate (a (d,)
+    vector in uncompressed mode) and adds the state, the store's
+    seconds and bytes a round and the server state's bytes."""
+    cap = {}
+    with capturing_state(cap), cut_after(t.get("cut"), t.get("keep")), \
+            no_training(t.get("restore", False)), \
+            no_saves(t.get("no_saves", False)):
+        res = mesh_rank(t["kind"], t["argv"], t.get("root"),
+                        det=t.get("det", False))
+    model = fed_model._CURRENT_MODEL
+    res.update(phase=t["phase"], state=cap["state"],
+               argv_tail=t["argv"][len(profile_round.ARGV):],
+               store=[dict(x) for x in model.store_timings],
+               server_state_bytes=cap["state"]["ss_local_bytes"])
+    if t.get("ref") and res["rank"] == 0:
+        ref = torch.load(t["ref"])
+        res["first_agg_rel_l2"] = rel_l2(sample_of(res["first_agg"]),
+                                         ref["agg"])
+        res["weights_rel_l2"] = rel_l2(
+            sample_of(model.ps_weights - cap["ps0"]), ref["delta"])
+    res["first_agg"] = None
+    del model
+    fed_model._CURRENT_MODEL = None
+    cap.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return res
+
+
+def slice_rank(tasks):
+    """``slice_task`` for each of ``tasks`` in turn, in this rank."""
+    return [slice_task(t) for t in tasks]
+
+
+def one_card_ref(kind, argv, root, path):
+    """The one-card run of ``argv``: its first aggregate and its weights'
+    change, sampled (``sample_of``), saved to ``path``; its wall."""
+    rec, cap = MeshRecorder(), {}
+    t0 = time.perf_counter()
+    with rec.installed(), capturing_state(cap):
+        if kind == "cv":
+            cv_train.main(argv)
+        else:
+            with working_dir(root):
+                gpt2_train.main(argv)
+    model = fed_model._CURRENT_MODEL
+    torch.save({"agg": sample_of(rec.first_agg),
+                "delta": sample_of(model.ps_weights - cap["ps0"]),
+                "ss_bytes": cap["state"]["ss_local_bytes"]}, path)
+    wall = time.perf_counter() - t0
+    fed_model._CURRENT_MODEL = None
+    del model, rec
+    cap.clear()
+    torch.cuda.empty_cache()
+    return wall
+
+
+def merged_rows(results):
+    """{field: {client id: checksum}} from every rank's owned rows (the
+    model peers of the device placement hold the same block: their
+    checksums must agree)."""
+    out = {}
+    for r in results:
+        for f, rows in r["state"]["rows"].items():
+            mine = out.setdefault(f, {})
+            for i, c in rows.items():
+                check(mine.setdefault(i, c) == c,
+                      f"rank {r['rank']}: client {i}'s {f} row differs "
+                      "from a model peer's")
+    return out
+
+
+def check_ranks(phase, res, rounds, want_per_round=None):
+    """Every rank: the weights bit-identical across ranks after each
+    round, the same losses, finite; the launches a round where given."""
+    losses = res[0]["losses"]
+    for o in res:
+        check(all(o["equal"]) and len(o["equal"]) == rounds,
+              f"{phase}: weights differ across ranks ({o['equal']})")
+        check(o["losses"] == losses,
+              f"{phase}: rank {o['rank']} losses differ")
+        if want_per_round is not None:
+            want = {k: v * rounds for k, v in want_per_round.items()}
+            got = {k: o["counts"].get(k, 0) for k in want}
+            check(got == want, f"{phase}: rank {o['rank']} launches {got},"
+                  f" want {want}")
+    check(len(losses) == rounds and all(map(math.isfinite, losses)),
+          f"{phase}: losses {losses}")
+
+
+def store_round_summary(res):
+    """The host store's seconds and bytes a round on each rank: gather,
+    H2D, the exchange's sum (``sum_owned_rows``), the write-back's
+    all-gather (``all_slot_rows``), D2H and the write into the store."""
+    keys = ("gather_s", "h2d_s", "exchange_s", "exchange_bytes",
+            "wb_exchange_s", "wb_exchange_bytes", "d2h_s", "writeback_s")
+    return [[{k: t.get(k) for k in keys} for t in o["store"]] for o in res]
+
+
+def dense2d_tasks(world, tmp, gpt2_argv, root):
+    """``mesh_dense2d``'s tasks, each after its one-card run (whose
+    sampled first aggregate and weight change go to a file)."""
+    tasks, walls = [], {}
+    for kind, argv, r in (
+            ("cv", profile_round.ARGV + DENSE2D_ARGV + CLIENT_ROUNDS
+             + ["--lr_scale", "0.1"], None),
+            ("gpt2", gpt2_argv + DENSE2D_ARGV, root)):
+        phase = f"mesh_dense2d_{'resnet9' if kind == 'cv' else 'gpt2'}"
+        ref = os.path.join(tmp, f"{phase}.pt")
+        walls[phase] = one_card_ref(kind, argv, r, ref)
+        tasks.append({"phase": phase, "kind": kind, "root": r, "ref": ref,
+                      "argv": argv + ["--mesh", "2x2", "--num_devices",
+                                      str(world)]})
+    return tasks, walls
+
+
+def check_dense2d(res, walls, d_of):
+    """The 2-D dense rounds: rank 0 within ``MESH_F32_RTOL`` of the
+    one-card run (first aggregate and weight change, relative L2 over
+    sampled coordinates), each rank holding ceil(d/2) of each server
+    state buffer."""
+    phase = res[0]["phase"]
+    rounds = res[0]["rounds"]
+    per_round = {"sketch_kernel": 0, "estimates_kernel": 0,
+                 "threshold_key_kernel": 0, "take_mask_kernel": 0}
+    if "gpt2" in phase:
+        per_round["flce_bwd_kernel"] = 1
+    check(rounds == 2, f"{phase}: {rounds} rounds")
+    check_ranks(phase, res, rounds, per_round)
+    for key in ("first_agg_rel_l2", "weights_rel_l2"):
+        check(res[0][key] <= MESH_F32_RTOL,
+              f"{phase}: {key} {res[0][key]} against the one-card run")
+    d = d_of[phase]
+    half = -(-d // 2)
+    for o in res:
+        m = o["rank"] % 2
+        want = 4 * min(half, d - m * half)
+        check(o["server_state_bytes"] == [want, want],
+              f"{phase}: rank {o['rank']} server state "
+              f"{o['server_state_bytes']}, want 2 x {want}")
+    emit({"phase": phase, "world": len(res), "mesh": "2x2",
+          "rounds": rounds, "d": d,
+          "launches_rank0": res[0]["counts"],
+          "round_losses": res[0]["losses"],
+          "round_seconds": res[0]["row"]["round_times"],
+          "first_agg_rel_l2_vs_one_card": res[0]["first_agg_rel_l2"],
+          "weights_rel_l2_vs_one_card": res[0]["weights_rel_l2"],
+          "server_state_bytes_by_rank": [o["server_state_bytes"]
+                                         for o in res],
+          "server_state_bytes_one_card": [4 * d, 4 * d],
+          "peak_mem_GiB": [o["peak_mem_GiB"] for o in res],
+          "one_card_wall_s": walls[phase],
+          "wall_s": [o["wall"] for o in res],
+          "tolerance": f"relative L2 <= {MESH_F32_RTOL} at "
+                       f"{DENSE_SAMPLE} sampled coordinates"})
+
+
+def store_tasks(world):
+    """``mesh_store``'s tasks: each configuration under the device
+    placement and the host store on its mesh, deterministic."""
+    tasks = []
+    for name, extra, shape in MESH_STORE_PATHS:
+        mesh = (["--mesh", shape] if shape else []) + [
+            "--num_devices", str(world)]
+        for placement in ("device", "host"):
+            tasks.append({"phase": f"mesh_store_{name}_{placement}",
+                          "kind": "cv", "det": True,
+                          "argv": profile_round.ARGV + extra
+                          + STORE_MESH_ARGV + ["--clientstore", placement]
+                          + mesh})
+    return tasks
+
+
+def check_store(dev, host):
+    """The host store's rounds against the device placement's on the
+    same mesh: weights and every client's state row bit for bit."""
+    phase = host[0]["phase"][:-len("_host")]
+    rounds = dev[0]["rounds"]
+    check(rounds == 2 and host[0]["rounds"] == rounds,
+          f"{phase}: rounds {rounds} / {host[0]['rounds']}")
+    check_ranks(phase, dev, rounds)
+    check_ranks(phase, host, rounds)
+    check(dev[0]["ps_checksum"] == host[0]["ps_checksum"],
+          f"{phase}: host-store weights differ from the device's")
+    check(dev[0]["losses"] == host[0]["losses"], f"{phase}: losses differ")
+    rows_d, rows_h = merged_rows(dev), merged_rows(host)
+    check(rows_d == rows_h and rows_h,
+          f"{phase}: host-store rows differ from the device's")
+    check(dev[0]["counts"] == host[0]["counts"],
+          f"{phase}: launches {host[0]['counts']} against "
+          f"{dev[0]['counts']}")
+    emit({"phase": phase, "world": len(host),
+          "argv_tail": host[0]["argv_tail"],
+          "rounds": rounds, "bit_equal_to_device_placement": True,
+          "rows_checked": {f: len(r) for f, r in rows_h.items()},
+          "launches_rank0": host[0]["counts"],
+          "store_by_rank_and_round": store_round_summary(host),
+          "round_seconds": {"device": dev[0]["row"]["round_times"],
+                            "host": host[0]["row"]["round_times"]},
+          "prefetch": "none on a mesh of more than one rank",
+          "peak_mem_GiB": {"device": [o["peak_mem_GiB"] for o in dev],
+                           "host": [o["peak_mem_GiB"] for o in host]}})
+
+
+def resume_tasks(world, ck, keep):
+    """``mesh_resume``'s tasks on ``world`` ranks: the uninterrupted run,
+    the run cut after round ``RESUME_MESH_CUT``'s autosave (its archive
+    kept in ``keep``), the resumed run (its end-of-training save
+    skipped)."""
+    argv = profile_round.ARGV + RESUME_MESH_ARGV + [
+        "--num_devices", str(world)]
+    saved = ["--checkpoint", "--checkpoint_path", os.path.join(ck, "cut")]
+    return [{"phase": "mesh_resume_straight", "kind": "cv", "det": True,
+             "argv": argv},
+            {"phase": "mesh_resume_cut", "kind": "cv", "det": True,
+             "cut": RESUME_MESH_CUT, "keep": keep,
+             "argv": argv + saved + ["--checkpoint_every_rounds", "1"]},
+            {"phase": "mesh_resume_rest", "kind": "cv", "det": True,
+             "no_saves": True, "argv": argv + saved + ["--resume"]}]
+
+
+def restore_task(n, keep, tag):
+    """A restore of the kept archive on ``n`` ranks (``--num_devices
+    n``): ``main`` with ``--resume`` and no round."""
+    return {"phase": f"mesh_resume_restore_{tag}", "kind": "cv",
+            "restore": True,
+            "argv": profile_round.ARGV + RESUME_MESH_ARGV + [
+                "--num_devices", str(n), "--checkpoint",
+                "--checkpoint_path", keep, "--resume"]}
+
+
+def check_resume(straight, cut, rest, restores):
+    """The resumed run bit-equal to the uninterrupted one (weights, every
+    client's row), and each restore of the cut run's archive bit-equal
+    to the state it saved."""
+    # rounds run: the server steps each run took
+    total, done, more = (len(r[0]["equal"]) for r in (straight, cut, rest))
+    check(total == 4 and done == RESUME_MESH_CUT
+          and more == total - RESUME_MESH_CUT,
+          f"mesh_resume: rounds {total} / {done} / {more}")
+    check(cut[0]["row"] is None, "mesh_resume: the drill did not cut")
+    check_ranks("mesh_resume_straight", straight, total)
+    check_ranks("mesh_resume_rest", rest, more)
+    check(straight[0]["ps_checksum"] == rest[0]["ps_checksum"],
+          "mesh_resume: resumed weights differ from the straight run's")
+    check(straight[0]["losses"][done:] == rest[0]["losses"],
+          "mesh_resume: the resumed rounds' losses differ")
+    check(merged_rows(straight) == merged_rows(rest),
+          "mesh_resume: resumed rows differ from the straight run's")
+    saved = cut[0]["state"]
+    saved_rows = merged_rows(cut)
+    out = {}
+    for tag, res in restores.items():
+        got = res[0]["state"]
+        check(got["ps"] == saved["ps"] and got["ss"] == saved["ss"],
+              f"mesh_resume: restore on {tag}: weights or server state "
+              "differ from the saved")
+        check(merged_rows(res) == saved_rows,
+              f"mesh_resume: restore on {tag}: rows differ from the saved")
+        out[tag] = {"ranks": len(res), "wall_s": [o["wall"] for o in res]}
+    emit({"phase": "mesh_resume", "world": len(straight),
+          "argv_tail": RESUME_MESH_ARGV, "rounds": total,
+          "cut_after_round": RESUME_MESH_CUT,
+          "resume_bit_equal": True, "restores_bit_equal": out,
+          "rows_checked": {f: len(r) for f, r in saved_rows.items()},
+          "walls_s": {"straight": straight[0]["wall"],
+                      "cut": cut[0]["wall"], "rest": rest[0]["wall"]}})
+
+
+def mesh_host(index, port, tasks_file, out_file):
+    """One host's launcher of ``mesh_multihost`` (a subprocess with its
+    two cards in ``CUDA_VISIBLE_DEVICES``): the tasks of ``tasks_file``
+    through ``parallel/mesh.py launch_run`` of their flags (the hosts'
+    rendezvous at 127.0.0.1:``port``), this host's ranks' results
+    pickled to ``out_file``."""
+    import pickle
+    from commefficient_tpu_torch.parallel import mesh as pm
+    with open(tasks_file, "rb") as f:
+        tasks = pickle.load(f)
+    for t in tasks:
+        t["argv"] = t["argv"] + [
+            "--coordinator_address", f"127.0.0.1:{port}",
+            "--num_processes", "2", "--process_id", str(index)]
+    cfg = parse_args(argv=tasks[0]["argv"])
+    outs = pm.launch_run(cfg, slice_rank, tasks)
+    with open(out_file, "wb") as f:
+        pickle.dump(outs, f)
+    return 0
+
+
+def mesh_multihost(f32_run, tmp):
+    """Two launchers of two cards each (``CUDA_VISIBLE_DEVICES`` 0,1 and
+    2,3; ``--coordinator_address 127.0.0.1:<port> --num_processes 2
+    --process_id 0|1``), each ``cv_train.main``'s launch of its ranks as
+    the flags ask, running ``mesh_resnet9_f32``'s argv over NCCL,
+    deterministic: the weights bit-identical across the four ranks after
+    every round, and against that single-launcher four-rank run's (bit
+    for bit expected: the same ranks, cards and collectives; the
+    difference is recorded, and the weights must agree within the
+    first table's tolerance)."""
+    import pickle
+    import socket
+    argv = profile_round.ARGV + ["--num_epochs", "0.4", "--pivot_epoch",
+                                 "0.2", "--lr_scale", "0.1",
+                                 "--num_devices", "-1"]
+    task = {"phase": "mesh_multihost", "kind": "cv", "det": True,
+            "argv": argv}
+    tasks_file = os.path.join(tmp, "multihost_tasks.pkl")
+    with open(tasks_file, "wb") as f:
+        pickle.dump([task], f)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    for i, cards in enumerate(("0,1", "2,3")):
+        out = os.path.join(tmp, f"multihost{i}.pkl")
+        outs.append(out)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+             "chip_smoke.mesh_host(*sys.argv[1:]))", str(i), str(port),
+             tasks_file, out], cwd=here,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=cards),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    logs = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=600)
+            logs.append(o)
+            check(p.returncode == 0, f"mesh_multihost: a launcher exited "
+                  f"{p.returncode}: {e[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    wall = time.perf_counter() - t0
+    res = []
+    for out in outs:
+        with open(out, "rb") as f:
+            res += [r[0] for r in pickle.load(f)]
+    res.sort(key=lambda o: o["rank"])
+    check([o["rank"] for o in res] == [0, 1, 2, 3],
+          f"mesh_multihost: ranks {[o['rank'] for o in res]}")
+    for i, log in enumerate(logs):
+        check(f"multihost: process {i}/2, 4 devices" in log,
+              f"mesh_multihost: launcher {i} did not report its host")
+    rounds = res[0]["rounds"]
+    check_ranks("mesh_multihost", res, rounds, resnet_mesh_launches())
+    single = f32_run
+    bit_equal = res[0]["ps_checksum"] == single["ps_checksum"]
+    check(rounds == single["rounds"] and all(
+        math.isclose(a, b, rel_tol=MESH_F32_RTOL)
+        for a, b in zip(res[0]["losses"], single["losses"])),
+        f"mesh_multihost: losses {res[0]['losses']} against the single "
+        f"launcher's {single['losses']}")
+    emit({"phase": "mesh_multihost", "hosts": 2, "cards_per_host": 2,
+          "world": 4, "rounds": rounds,
+          "weights_bit_equal_to_single_launcher": bit_equal,
+          "losses_equal_to_single_launcher":
+              res[0]["losses"] == single["losses"],
+          "round_losses": res[0]["losses"],
+          "round_seconds": res[0]["row"]["round_times"],
+          "single_launcher_round_seconds": single["row"]["round_times"],
+          "launch_wall_s": wall, "rank_wall_s": [o["wall"] for o in res],
+          "collective_s_per_round": [o["coll_s"] for o in res],
+          "launches_rank0": res[0]["counts"]})
+
+
+def mesh_slice(world, f32_run):
+    """The 2-D dense server, the host store on the mesh, checkpoint and
+    resume on the mesh (one launch of ``world`` = 4 ranks, after the
+    dense runs' one-card runs), the restores on 2 ranks and on one card,
+    and the two-host launch."""
+    from commefficient_tpu_torch.parallel import mesh as pm
+    with tempfile.TemporaryDirectory(prefix="mesh_slice_") as tmp:
+        root = os.path.join(tmp, "gpt2")
+        data_dir, vocab_dir = gpt2_train.fabricate_assets(
+            root, num_personalities=8)
+        gpt2 = profile_round.gpt2_argv(data_dir, vocab_dir)
+        dense, walls = dense2d_tasks(world, tmp, gpt2, root)
+        keep = os.path.join(tmp, "kept_r1")
+        tasks = dense + store_tasks(world) + resume_tasks(world, tmp, keep)
+        t0 = time.perf_counter()
+        outs = pm.launch(world, slice_rank, tasks)
+        launch_wall = time.perf_counter() - t0
+        res = {t["phase"]: [o[i] for o in outs]
+               for i, t in enumerate(tasks)}
+        d_of = {"mesh_dense2d_resnet9": D, "mesh_dense2d_gpt2": GPT2_D}
+        for t in dense:
+            check_dense2d(res[t["phase"]], walls, d_of)
+        for name, _, _ in MESH_STORE_PATHS:
+            check_store(res[f"mesh_store_{name}_device"],
+                        res[f"mesh_store_{name}_host"])
+        restores = {"2_ranks": pm.launch(2, slice_rank,
+                                         [restore_task(2, keep, "2")])}
+        restores["2_ranks"] = [o[0] for o in restores["2_ranks"]]
+        restores["one_card"] = [slice_task(restore_task(1, keep, "1"))]
+        check_resume(res["mesh_resume_straight"], res["mesh_resume_cut"],
+                     res["mesh_resume_rest"], restores)
+        emit({"phase": "mesh_slice", "world": world, "tasks": len(tasks),
+              "launch_wall_seconds": launch_wall})
+        mesh_multihost(f32_run, tmp)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -6050,7 +6706,7 @@ def main():
     torch.cuda.empty_cache()
     service_paths(dev)
     torch.cuda.empty_cache()
-    mesh_counts, mesh_run_name = mesh_paths()
+    mesh_counts, mesh_run_name, _ = mesh_paths()
     torch.cuda.empty_cache()
     no_weights_left()
 

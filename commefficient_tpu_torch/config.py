@@ -41,13 +41,9 @@ NATURAL_NUM_CLIENTS = {
     "PERSONA": 17568,
 }
 
-# the reference trainer's flags that the port does not have yet: the
-# multi-host runtime's (ROADMAP item 8c) and sequence parallelism's
-NOT_PORTED_FLAGS = (
-    "--seq_devices", "--seq_impl",
-    "--coordinator_address",
-    "--num_processes", "--process_id",
-)
+# the reference trainer's flags that the port does not have yet:
+# sequence parallelism's
+NOT_PORTED_FLAGS = ("--seq_devices", "--seq_impl")
 
 
 def num_classes_of_dataset(dataset_name: str) -> int:
@@ -145,8 +141,17 @@ class Config:
     # mesh.py); <= 0 = every visible card (one on the CPU)
     num_devices: int = -1
     # the 2-D mesh "CxM": C ranks data-parallel over clients x M ranks
-    # sharding the sketch server's state by columns; "" = the 1-D mesh
+    # sharding the server's state (the sketch table's columns, the dense
+    # vector's coordinates); "" = the 1-D mesh
     mesh: str = ""
+    # a run over several hosts (reference config.py:196-203): the
+    # rendezvous "host:port" (host 0 listens there), the host count and
+    # this host's index; each host's launcher starts one rank a visible
+    # card (one on the CPU), global rank = process_id * L + local rank
+    # (parallel/mesh.py launch)
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
     do_iid: bool = False
 
     local_batch_size: int = 8
@@ -662,14 +667,6 @@ class Config:
             raise NotImplementedError(
                 f"{what} on a mesh (--num_devices/--mesh) is not ported "
                 f"(ROADMAP item {item})")
-        if self.model_axis > 1 and self.mode == "uncompressed":
-            no("the 2-D dense server (uncompressed with model axis > 1)",
-               "8b")
-        if self.clientstore == "host":
-            no("--clientstore host", "8d")
-        if (self.do_checkpoint or self.do_resume
-                or self.checkpoint_every_rounds > 0):
-            no("checkpoint and resume", "8d")
         if self.async_buffer_size > 0:
             no("--async_buffer_size", "8f")
         if self.autopilot == "on":
@@ -707,11 +704,14 @@ class Config:
     @property
     def on_mesh(self) -> bool:
         """Whether the run asks for more than one device: ``--mesh`` of
-        more than one, ``--num_devices`` > 1, or <= 0 with more than
-        one visible card."""
+        more than one, several hosts (``--num_processes``),
+        ``--num_devices`` > 1, or <= 0 with more than one visible
+        card."""
         shape = self.mesh2d
         if shape is not None:
             return shape[0] * shape[1] > 1
+        if (self.num_processes or 1) > 1:
+            return True
         if self.num_devices > 1:
             return True
         if self.num_devices <= 0 and self.device == "cuda":
@@ -844,6 +844,14 @@ def build_parser(default_lr: Optional[float] = None
                         "over clients x M devices sharding the sketch "
                         "server's state over model (per-device server "
                         "memory ~1/M). Default: 1-D clients mesh")
+    parser.add_argument("--coordinator_address", type=str, default=None,
+                        help="multi-host run: host:port of the "
+                        "rendezvous, where host 0's launcher listens")
+    parser.add_argument("--num_processes", type=int, default=None,
+                        help="multi-host run: the number of hosts, each "
+                        "launching one rank a visible card")
+    parser.add_argument("--process_id", type=int, default=None,
+                        help="multi-host run: this host's index")
     parser.add_argument("--share_ps_gpu", action="store_true")
     parser.add_argument("--iid", action="store_true", dest="do_iid")
     parser.add_argument("--train_dataloader_workers", type=int, default=0)

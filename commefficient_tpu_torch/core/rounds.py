@@ -32,9 +32,12 @@ device; a round built without them is the plain round. On a mesh
 ``_partial_table_emit`` :426-500 and ``build_server_round``'s 2-D
 dispatch :1340-1380, 1428-1475) the fused round runs each rank's slice
 of the clients and crosses the table once, and a model axis shards the
-sketch server; the per-client round (reference ``client_round`` :766
-under its client-sharded jit) runs a rank's slots with their state
-rows from their owners (parallel/rows.py) and folds across the mesh.
+server's state (the sketch server's columns, the dense server's
+windows of coordinates, :1477-1505); the per-client round (reference
+``client_round`` :766 under its client-sharded jit) runs a rank's slots
+with their state rows from their owners (parallel/rows.py), or under
+the host store with the rows its runtime gathered, and folds across
+the mesh.
 
 Batch layout: a dict of (W, B, ...) tensors with a (W, B) float "mask"
 marking real samples. Where no per-client transform touches the
@@ -73,7 +76,8 @@ from commefficient_tpu_torch.core.server import (ServerState,
                                                  fold_row_chunks,
                                                  server_update,
                                                  sketched_update_2d,
-                                                 staleness_weights)
+                                                 staleness_weights,
+                                                 uncompressed_update_2d)
 from commefficient_tpu_torch.ops import quant
 from commefficient_tpu_torch.ops.sketch import CountSketch
 from commefficient_tpu_torch.parallel import rows as rowx
@@ -286,7 +290,9 @@ def build_client_round(cfg: Config, loss_fn: Callable,
     only the round's W participant rows, ordered like ``client_ids``,
     plus the dead-slot row, so state rows are indexed by slot POSITION
     (``_state_ids`` of ``arange(W)``; dead slots still go to the
-    dead-slot row), while ``transmit_transform`` keeps the real ids.
+    dead-slot row), while ``transmit_transform`` keeps the real ids. On
+    a mesh the rows are this rank's slots' and no row crosses in the
+    round: the runtime's gather and write-back move them.
 
     ``client_weights`` (the asynchronous rounds, asyncfed/; reference
     core/rounds.py:238-330): the round takes ``staleness``, (W,) f32
@@ -712,13 +718,16 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
             # the hook's and the worker noise's draws the whole round's
             # with this rank's share kept; no chunks (reference :793)
             part = client_slice(round_w, mesh) if sharded else slice(0, W)
-            alive = torch.sum(mask.reshape(W, -1), dim=1) > 0
-            xids = rowx.exchange_ids(client_ids.to(mask.device), alive)
-            exchange = (everyone(xids, sharded), part, sharded)
+            if not dense_rows:
+                alive = torch.sum(mask.reshape(W, -1), dim=1) > 0
+                xids = rowx.exchange_ids(client_ids.to(mask.device), alive)
+                exchange = (everyone(xids, sharded), part, sharded)
             hook_kw = {"slots": (part.start, round_w)}
             if gen is not None and sharded:
                 gen = NoiseSlice(gen, part.start, round_w)
-        else:
+        if exchange is None:
+            # one device, or the host store on a mesh, whose runtime
+            # brought this rank's slots' rows (runtime/fed_model.py)
             dead = _dead_row(client_states)
             if dense_rows:
                 # state rows are slot positions; the real ids stay in
@@ -978,20 +987,24 @@ def build_server_round(cfg: Config, probes: bool = False,
     stream under ``--do_dp --dp_mode server``. ``probes=True`` appends
     a sixth output, the server's probe dict (core/server.py).
 
-    ``mesh`` with a model axis of more than one rank (sketch mode):
+    ``mesh`` with a model axis of more than one rank: in sketch mode
     the model-sharded FetchSGD server (reference
     ``_build_server_round_2d_sketch``, core/rounds.py:1340-1380,
     1428-1475; core/server.py ``sketched_update_2d``): the aggregate and
     the state are this rank's (r, c/M) column shards, the dense update
-    and the support come back the same on every rank. Any other mesh
-    runs the one-device server, the same on every rank."""
+    and the support come back the same on every rank; in uncompressed
+    mode the dense server (reference ``_build_server_round_2d_dense``,
+    :1477-1505; core/server.py ``uncompressed_update_2d``): the
+    aggregate is whole, the state this rank's window of ceil(d/M)
+    coordinates, the update all-gathered. Any other mesh runs the
+    one-device server, the same on every rank."""
     cfg.validate_runtime()
     sketch = args2sketch(cfg)
     two_d = model_axis_size(mesh) > 1
     if two_d:
-        # the config admits only sketch mode on a model axis here
-        # (ROADMAP item 8b: the 2-D dense server)
-        assert cfg.mode == "sketch", cfg.mode
+        # the config gate: a model axis shards sketch or uncompressed
+        # state only (reference config.py:752-768)
+        assert cfg.mode in ("sketch", "uncompressed"), cfg.mode
 
     def server_round(ps_weights: torch.Tensor, server_state: ServerState,
                      aggregated: torch.Tensor, lr, client_velocities=None,
@@ -1005,8 +1018,14 @@ def build_server_round(cfg: Config, probes: bool = False,
             lr = torch.full((), 1.0 if cfg.mode == "fedavg" else float(lr),
                             dtype=torch.float32, device=ps_weights.device)
         if two_d:
-            res = sketched_update_2d(cfg, sketch, aggregated, server_state,
-                                     lr, mesh.model, probes)
+            if cfg.mode == "sketch":
+                res = sketched_update_2d(cfg, sketch, aggregated,
+                                         server_state, lr, mesh.model,
+                                         probes)
+            else:
+                res = uncompressed_update_2d(cfg, aggregated, server_state,
+                                             lr, noise_gen, mesh.model,
+                                             probes)
             out = (ps_weights - res.weight_update, res.state,
                    client_velocities, res.weight_update, res.support)
             return out + (res.probes,) if probes else out

@@ -9,8 +9,11 @@ Port of ``commefficient_tpu/core/server.py`` (``ServerState`` :28,
 --dp_mode server`` noise, ``_true_topk`` :225, ``_local_topk`` :267 and
 ``_sketched`` :279 with its dense and its sparse re-sketch branches),
 and their schema-v2 probes (``probes=True``: ``_state_probes`` :185,
-``_coverage`` :137), and the 2-D mesh's model-sharded sketch server
-(``sketched_update_2d`` and ``_psum_l2``, :364-470).
+``_coverage`` :137), the 2-D mesh's model-sharded sketch server
+(``sketched_update_2d`` and ``_psum_l2``, :364-470), and its dense
+server (``uncompressed_update_2d``: ``_uncompressed`` on a window of
+the coordinates, the reference's ``_build_server_round_2d_dense``,
+core/rounds.py:1477-1505).
 ``gradient`` is the round's aggregated quantity: the client-transmit
 sum divided by the round's total datapoint count, a flat (d,) vector
 or, in sketch mode, an (r, c) table. Functions return new tensors;
@@ -35,19 +38,44 @@ class ServerState(NamedTuple):
     Verror: torch.Tensor
 
     @staticmethod
-    def init(cfg: Config, device="cuda", model_axis: int = 1
-             ) -> "ServerState":
-        """Zeros of the transmit shape; on a model axis of M ranks a
-        sketch table's (r, c/M) column shard (reference
-        runtime/fed_model.py:1241-1265: 1/M of the state a rank)."""
+    def init(cfg: Config, device="cuda", model_axis: int = 1,
+             model_index: int = 0) -> "ServerState":
+        """Zeros of the transmit shape; on a model axis of M ranks, rank
+        ``model_index``'s shard (reference runtime/fed_model.py:1241-1265
+        and parallel/mesh.py ``server_state_spec``: 1/M of the state a
+        rank): a sketch table's (r, c/M) column shard, a dense (d,)
+        vector's window of ceil(d/M) coordinates (``dense_window``; the
+        last one short)."""
         shape = tuple(cfg.transmit_shape)
-        if model_axis > 1:
-            assert len(shape) == 2 and shape[1] % model_axis == 0, shape
+        if model_axis > 1 and len(shape) == 2:
+            assert shape[1] % model_axis == 0, shape
             shape = (shape[0], shape[1] // model_axis)
+        elif model_axis > 1:
+            lo, hi = dense_window(shape[0], model_axis, model_index)
+            shape = (hi - lo,)
 
         def z():
             return torch.zeros(shape, dtype=torch.float32, device=device)
         return ServerState(z(), z())
+
+
+def dense_window(d: int, n: int, index: int) -> tuple:
+    """[lo, hi): model rank ``index``'s window of ``d`` coordinates split
+    over ``n`` ranks, ceil(d/n) each and the last ones short (empty
+    where the windows run past d)."""
+    per = -(-int(d) // int(n))
+    lo = min(int(index) * per, int(d))
+    return lo, min(lo + per, int(d))
+
+
+def gather_window(win: torch.Tensor, d: int, axis) -> torch.Tensor:
+    """The (d,) vector from the model ranks' ``dense_window`` pieces:
+    each padded to ceil(d/M), one all-gather over ``axis``, the padding
+    cut off."""
+    per = -(-int(d) // axis.size)
+    if win.shape[0] < per:
+        win = torch.cat([win, win.new_zeros(per - win.shape[0])])
+    return axis.all_gather(win).reshape(-1)[:d]
 
 
 def fold_row_chunks(chunks) -> torch.Tensor:
@@ -297,6 +325,42 @@ def _sketched(cfg: Config, sketched_grad: torch.Tensor,
 def _psum_l2(x: torch.Tensor, axis) -> torch.Tensor:
     """The l2 norm of a vector sharded over a mesh axis."""
     return torch.sqrt(axis.psum(torch.sum(x * x).reshape(1))[0])
+
+
+def uncompressed_update_2d(cfg: Config, gradient: torch.Tensor,
+                           state: ServerState, lr: torch.Tensor,
+                           noise_gen: Optional[torch.Generator], axis,
+                           probes: bool = False) -> ServerUpdate:
+    """The uncompressed server step of one model rank on the 2-D mesh
+    (reference ``_build_server_round_2d_dense``, core/rounds.py:1477-1505,
+    which XLA partitions along its sharding constraints): ``gradient``
+    is the whole (d,) aggregate (replicated: summed over ``clients``),
+    the momentum and error are this rank's ``dense_window`` of the
+    coordinates, and ``_uncompressed``'s update runs on the window. The
+    step is elementwise in d, so each window holds the one-device
+    step's bits. The server DP noise is the one-device draw's window
+    (the whole (d,) drawn from the step's stream), a per-coordinate LR
+    its window. The lr-scaled update is all-gathered over ``axis`` (the
+    ``model`` axis) into the (d,) vector every rank subtracts; the
+    probes' norms sum their squares over ``axis``."""
+    assert cfg.mode == "uncompressed", cfg.mode
+    d = gradient.shape[0]
+    lo, hi = dense_window(d, axis.size, axis.index)
+    Vvel = gradient[lo:hi] + cfg.virtual_momentum * state.Vvelocity
+    if cfg.do_dp and cfg.dp_mode == "server" and cfg.noise_multiplier != 0:
+        assert noise_gen is not None, \
+            "server-mode DP with noise needs a noise generator"
+        noise = gaussian_noise(noise_gen, (d,), Vvel.dtype,
+                               std=cfg.noise_multiplier)
+        Vvel = Vvel + noise[lo:hi]
+    upd = Vvel * (lr[lo:hi] if lr.ndim else lr)
+    new_state = ServerState(Vvel, state.Verror)
+    pr = None
+    if probes:
+        pr = {"update_norm": _psum_l2(upd, axis),
+              "momentum_norm": _psum_l2(Vvel, axis),
+              "residual_norm": _psum_l2(state.Verror, axis)}
+    return ServerUpdate(gather_window(upd, d, axis), new_state, probes=pr)
 
 
 def sketched_update_2d(cfg: Config, sketch: CountSketch,

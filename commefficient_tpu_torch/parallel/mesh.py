@@ -27,6 +27,22 @@ directory (so parallel test workers never share a port), runs
 ``fn(*args)`` in each and returns their results in rank order. The
 backend is NCCL on the card and gloo on the CPU, never the other way
 round: a CUDA run never takes gloo.
+
+Several hosts (``--coordinator_address --num_processes P --process_id
+i``; reference ``initialize_multihost`` :207 and
+``maybe_initialize_multihost_cli`` :242): each host runs the trainer's
+``main``, whose launcher starts one rank a visible card (L of them; one
+on the CPU) as global ranks ``i·L`` to ``i·L + L - 1`` of a world of
+``P·L``; each rank takes its card by its local index. Host 0's launcher
+serves the rendezvous (a ``torch.distributed.TCPStore``) at the
+coordinator address, every launcher publishes its L there and a
+mismatch raises in each, naming both counts; the ranks join the group
+through the same store. The rank order c·M + m is unchanged, so where M
+divides L a ``model`` group (which carries the 2-D server's table and
+window all-gathers) lies inside one host and only the ``clients``
+crossings leave it. ``topology_summary`` counts hosts as the
+reference counts processes: ``process_index`` this host's, its
+``local_device_count`` the host's L ranks.
 """
 
 from __future__ import annotations
@@ -37,6 +53,7 @@ import shutil
 import sys
 import tempfile
 import warnings
+from datetime import timedelta
 from typing import Optional
 
 import torch
@@ -205,17 +222,29 @@ def padded_rows(num_clients: int, mesh: Optional[Mesh]) -> int:
     return -(-num_clients // n) * n
 
 
+# this rank's host: (host index, host count, ranks on the host), set by
+# ``_rank_entry``; a process outside a launch is host 0 of 1
+_HOST = (0, 1, None)
+
+
 def topology_summary() -> dict:
     """The run's topology as manifests and ledger meta records give it:
     {device_count, local_device_count, process_index, process_count,
-    backend, device_kind}."""
+    backend, device_kind}. A process is a host, as in the reference:
+    ``process_index``/``process_count`` are this host's index and the
+    host count, ``local_device_count`` the ranks this host launched
+    (outside a launch, the visible cards), ``device_count`` the
+    world."""
     on = launched()
     cuda = torch.cuda.is_available()
+    host, hosts, local = _HOST
+    if local is None:
+        local = torch.cuda.device_count() if cuda else 1
     return {
         "device_count": dist.get_world_size() if on else 1,
-        "local_device_count": torch.cuda.device_count() if cuda else 1,
-        "process_index": dist.get_rank() if on else 0,
-        "process_count": dist.get_world_size() if on else 1,
+        "local_device_count": local,
+        "process_index": host,
+        "process_count": hosts,
         "backend": dist.get_backend() if on else (
             "cuda" if cuda else "cpu"),
         "device_kind": torch.cuda.get_device_name() if cuda else "cpu",
@@ -263,10 +292,62 @@ def _warn_unsharded(w: int, n: int):
 
 # --- the ranks ---------------------------------------------------------
 
+def hosts_of(cfg) -> Optional[tuple]:
+    """``(coordinator_address, num_processes, process_id)`` of a run
+    over several hosts, None for one host. The flags as the reference
+    takes them (parallel/mesh.py:242-262): ``--process_id`` or
+    ``--coordinator_address`` without ``--num_processes`` raises
+    instead of running alone, as does a host index out of range or a
+    multi-host run without an address; ``--num_processes 1`` is one
+    host."""
+    n = cfg.num_processes
+    if n is None:
+        if cfg.process_id is not None or cfg.coordinator_address:
+            raise ValueError(
+                "--process_id/--coordinator_address need --num_processes "
+                "(the host count); a host does not run alone")
+        return None
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"--num_processes {n} must be >= 1")
+    pid = 0 if cfg.process_id is None else int(cfg.process_id)
+    if not 0 <= pid < n:
+        raise ValueError(f"--process_id {pid} is outside the {n} hosts")
+    if n == 1:
+        return None
+    if cfg.process_id is None or not cfg.coordinator_address:
+        raise ValueError(f"--num_processes {n} needs --process_id and "
+                         "--coordinator_address host:port on every host")
+    if int(cfg.num_devices) > 0:
+        raise ValueError(
+            "--num_devices is a single-host knob; on several hosts the "
+            "mesh spans every host's cards (leave it at -1)")
+    return (cfg.coordinator_address, n, pid)
+
+
+def local_ranks(cfg) -> int:
+    """The ranks one host of a multi-host run launches: one a visible
+    card, one on the CPU."""
+    if torch.device(cfg.device).type == "cpu":
+        return 1
+    return torch.cuda.device_count()
+
+
 def resolve_world(cfg) -> int:
-    """Ranks a run asks for: C·M under ``--mesh CxM``, else
-    ``--num_devices`` (<= 0: every visible card, as the reference reads
-    it; on the CPU, one). More than the visible cards raises."""
+    """Ranks a run asks for: over several hosts (``hosts_of``) the
+    hosts times this host's ``local_ranks``, which ``--mesh CxM`` must
+    equal; else C·M under ``--mesh CxM``, else ``--num_devices`` (<= 0:
+    every visible card, as the reference reads it; on the CPU, one).
+    More than the visible cards raises."""
+    hosts = hosts_of(cfg)
+    if hosts is not None:
+        n = hosts[1] * local_ranks(cfg)
+        shape = cfg.mesh2d
+        if shape is not None and shape[0] * shape[1] != n:
+            raise ValueError(f"--mesh {cfg.mesh} needs {shape[0] * shape[1]}"
+                             f" devices, {hosts[1]} hosts of "
+                             f"{local_ranks(cfg)} give {n}")
+        return n
     cpu = torch.device(cfg.device).type == "cpu"
     visible = None if cpu else torch.cuda.device_count()
     n = int(cfg.num_devices)
@@ -312,9 +393,21 @@ def build_mesh(cfg) -> Optional[Mesh]:
 
 
 def needs_launch(cfg) -> bool:
-    """Whether a trainer's ``main`` must start the ranks: the run asks
-    for more than one device and no group is launched yet."""
-    return not launched() and resolve_world(cfg) > 1
+    """Whether a trainer's ``main`` must start the ranks: no group is
+    launched yet, and the run asks for more than one device or spans
+    several hosts."""
+    if launched():
+        return False
+    return resolve_world(cfg) > 1 or hosts_of(cfg) is not None
+
+
+def launch_run(cfg, fn, *args) -> list:
+    """``launch`` as a trainer's ``main`` calls it for ``cfg``: its
+    world, its device type, its hosts. Returns this launcher's ranks'
+    results."""
+    return launch(resolve_world(cfg), fn, *args,
+                  device_type=torch.device(cfg.device).type,
+                  hosts=hosts_of(cfg))
 
 
 def launched() -> bool:
@@ -325,22 +418,40 @@ def rank() -> int:
     return dist.get_rank() if launched() else 0
 
 
-def _rank_entry(r, world, backend, init_file, out_dir, threads, fn, args):
+def _rank_entry(r, world, backend, rdv, out_dir, threads, host, fn,
+                args):
+    """Local rank ``r`` of this host: global rank ``host[0]·L + r``.
+    ``rdv``: the file rendezvous of a one-host launch, or the
+    multi-host store's (address, port, timeout seconds)."""
+    global _HOST
+    g = host[0] * host[2] + r
+    _HOST = host
     if backend == "nccl":
         torch.cuda.set_device(r)
     else:
         torch.set_num_threads(threads)
-    dist.init_process_group(backend, init_method=f"file://{init_file}",
-                            rank=r, world_size=world)
+    if isinstance(rdv, str):
+        dist.init_process_group(backend, init_method=f"file://{rdv}",
+                                rank=g, world_size=world)
+    else:
+        addr, port, secs = rdv
+        store = dist.TCPStore(addr, port, is_master=False,
+                              timeout=timedelta(seconds=secs))
+        dist.init_process_group(backend,
+                                store=dist.PrefixStore("cet_group", store),
+                                rank=g, world_size=world)
     quiet = None
-    if r > 0:
-        # rank 0 alone prints; the others keep their errors
+    if g > 0:
+        # global rank 0 alone prints; the others keep their errors
         quiet = open(os.devnull, "w")
         sys.stdout = quiet
     try:
         res = fn(*args)
         with open(os.path.join(out_dir, f"rank{r}.pkl"), "wb") as f:
             pickle.dump(res, f)
+        # every rank done before any tears the group down (a rank that
+        # raised is stopped by the launcher instead)
+        dist.barrier()
     finally:
         dist.destroy_process_group()
         if quiet is not None:
@@ -348,18 +459,68 @@ def _rank_entry(r, world, backend, init_file, out_dir, threads, fn, args):
             quiet.close()
 
 
+# the multi-host rendezvous's wait for every host to connect (seconds)
+RENDEZVOUS_S = 300
+
+
+def _split_address(address: str) -> tuple:
+    host, _, port = str(address).rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"--coordinator_address {address!r} is not "
+                         "host:port")
+    return host.strip("[]"), int(port)
+
+
+def host_rendezvous(address: str, hosts: int, host: int, local: int,
+                    timeout_s: float = RENDEZVOUS_S):
+    """The launchers' rendezvous of a multi-host run: host 0 serves the
+    store at ``address``; every host publishes its ``local`` rank count
+    and reads every other's. Returns the store (host 0 must keep it
+    open while any rank runs). Unequal counts raise ``ValueError`` in
+    every launcher, naming both."""
+    addr, port = _split_address(address)
+    store = dist.TCPStore(addr, port, None, host == 0,
+                          timedelta(seconds=timeout_s),
+                          wait_for_workers=False)
+    store.set(f"cet_hosts/{host}", str(int(local)))
+    for q in range(hosts):
+        if q == host:
+            continue
+        other = int(store.get(f"cet_hosts/{q}"))
+        if other != int(local):
+            raise ValueError(
+                f"host {q} launches {other} ranks and host {host} "
+                f"launches {local}: every host needs the same count of "
+                "visible cards")
+    return store
+
+
 def launch(world: int, fn, *args, device_type: str = "cuda",
-           env: Optional[dict] = None) -> list:
+           env: Optional[dict] = None, hosts: Optional[tuple] = None
+           ) -> list:
     """Run ``fn(*args)`` in ``world`` ranks (spawned; ``fn`` and
     ``args`` must pickle) joined into one group, NCCL on the card and
-    gloo on the CPU; returns their results in rank order. ``env``: the
-    ranks' extra environment (``NCCL_*`` settings), each printed. Any
+    gloo on the CPU; returns this launcher's ranks' results in rank
+    order. ``env``: the ranks' extra environment (``NCCL_*`` settings),
+    each printed. ``hosts``: ``(coordinator_address, P, i)`` of a
+    multi-host run (``hosts_of``), where this launcher starts its
+    ``world / P`` ranks after the rendezvous (``host_rendezvous``) and
+    host 0 serves the store until every host's ranks are done. Any
     rank's exception is raised here, with its traceback."""
     import torch.multiprocessing as mp
     backend = "nccl" if device_type == "cuda" else "gloo"
-    if backend == "nccl" and world > torch.cuda.device_count():
-        raise ValueError(f"{world} ranks need {world} cards, "
+    n_hosts, host = (1, 0) if hosts is None else (hosts[1], hosts[2])
+    if world % n_hosts:
+        raise ValueError(f"{world} ranks do not split over {n_hosts} hosts")
+    local = world // n_hosts
+    if backend == "nccl" and local > torch.cuda.device_count():
+        raise ValueError(f"{local} ranks need {local} cards, "
                          f"{torch.cuda.device_count()} visible")
+    store = None
+    if hosts is not None:
+        store = host_rendezvous(hosts[0], n_hosts, host, local)
+        print(f"multihost: process {host}/{n_hosts}, {world} devices",
+              flush=True)
     for k in sorted(os.environ):
         if k.startswith("NCCL_"):
             print(f"mesh: inherited {k}={os.environ[k]}")
@@ -369,14 +530,24 @@ def launch(world: int, fn, *args, device_type: str = "cuda",
         saved[k] = os.environ.get(k)
         os.environ[k] = str(v)
     tmp = tempfile.mkdtemp(prefix="cet_mesh_")
-    threads = max(1, torch.get_num_threads() // world)
+    threads = max(1, torch.get_num_threads() // local)
+    rdv = (os.path.join(tmp, "rdv") if hosts is None else
+           _split_address(hosts[0]) + (RENDEZVOUS_S,))
     try:
-        mp.start_processes(
-            _rank_entry, args=(world, backend, os.path.join(tmp, "rdv"),
-                               tmp, threads, fn, args),
-            nprocs=world, join=True, start_method="spawn")
+        try:
+            mp.start_processes(
+                _rank_entry, args=(world, backend, rdv, tmp, threads,
+                                   (host, n_hosts, local), fn, args),
+                nprocs=local, join=True, start_method="spawn")
+        finally:
+            if store is not None:
+                # host 0's store outlives every host's ranks
+                store.set(f"cet_done/{host}", "1")
+        if store is not None and host == 0:
+            store.wait([f"cet_done/{q}" for q in range(n_hosts)],
+                       timedelta(seconds=RENDEZVOUS_S))
         out = []
-        for r in range(world):
+        for r in range(local):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
                 out.append(pickle.load(f))
         return out

@@ -19,6 +19,12 @@ scatter one all-gather of the new rows, each owner keeping its own. A
 zero-padded all-reduce would turn a ``-0.0`` into ``+0.0``; a selection
 keeps the owners' bits. A dead slot (id ``DEAD``) is routed to no
 owner: its gather reads the local dead row, its scatter writes nowhere.
+
+The host store on a mesh (``sum_owned_rows``, ``all_slot_rows``) keeps
+the rows in each rank's ``HostClientStore``, which owns
+``shard_range(num_clients, rank, world)`` of the ids: the round's rows
+are summed from their owners' gathers and gathered back for their
+owners' write-backs.
 """
 
 from __future__ import annotations
@@ -99,3 +105,39 @@ def scatter_rows(local: torch.Tensor, all_ids: torch.Tensor,
     local.index_copy_(0, local_ids(all_ids, per, axis), rows)
     local[per] = dead
 
+
+
+# --- the host store's rows (runtime/fed_model.py) -----------------------
+
+def sum_owned_rows(rows: torch.Tensor, mesh, sharded: bool) -> torch.Tensor:
+    """The host store's gather across the mesh (reference
+    ``_gather_rows``' ``process_allgather`` sum, runtime/fed_model.py:
+    495-515): ``rows`` are the round's W participants' rows as this
+    rank's store gave them, its own rows real and every other row
+    zeros. Ownership is by world rank, so one sum over the world holds
+    each row exactly once; this rank keeps its ``client_slice`` block
+    (``sharded``) or all W. The sum runs on the rows' bits as int32: an
+    owner's value plus zeros is that value's bits, a ``-0.0`` included,
+    so the rows cross bit for bit. On the 1-D mesh one reduce-scatter
+    over ``clients``; on the 2-D mesh an all-reduce over ``model`` (the
+    M peers of a ``clients`` coordinate own disjoint rows) and then the
+    reduce-scatter; unsharded, one all-reduce over the world."""
+    bits = rows.contiguous().view(torch.int32)
+    if not sharded:
+        return mesh.world.psum(bits).view(torch.float32)
+    bits = mesh.model.psum(bits)
+    n = mesh.clients.size
+    blocks = bits.reshape((n, bits.shape[0] // n) + tuple(bits.shape[1:]))
+    return mesh.clients.reduce_scatter(blocks).view(torch.float32)
+
+
+def all_slot_rows(rows: torch.Tensor, mesh, sharded: bool) -> torch.Tensor:
+    """The host store's write-back across the mesh: this rank's slots'
+    new rows ((W/C, ...) when ``sharded``) all-gathered over
+    ``clients`` into the round's (W, ...) slot order, which the model
+    peers hold alike; every rank then writes the rows it owns. Where
+    every rank ran all W, nothing crosses."""
+    if not sharded:
+        return rows
+    return mesh.clients.all_gather(rows).reshape(
+        (-1,) + tuple(rows.shape[1:]))

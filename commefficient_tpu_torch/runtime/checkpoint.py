@@ -1,9 +1,11 @@
 """Full-state checkpoint and resume of the federated runtime.
 
-Port of ``commefficient_tpu/runtime/checkpoint.py`` for one process on
-one device: ``TornCheckpointError`` :54, ``checkpoint_file`` :62,
-``_atomic_savez`` :71, ``_verify_archive`` :85, ``validate_checkpoint``
-:109, ``resume_manifest_extra`` :145, ``save_checkpoint`` :218,
+Port of ``commefficient_tpu/runtime/checkpoint.py``:
+``TornCheckpointError`` :54, ``checkpoint_file`` :62, ``_shard_file``
+:66, ``_atomic_savez`` :71, ``_verify_archive`` :85,
+``validate_checkpoint`` :109, ``current_topology`` :133,
+``resume_manifest_extra`` :145, ``_prune_stale_shards`` :164,
+``_merged_store_shard`` :181, ``save_checkpoint`` :218,
 ``load_checkpoint`` :450, ``history_file`` :762, ``RoundAutosaver``
 :768-846, ``_resolve_resume_source`` :849 and ``setup_resume`` :878.
 
@@ -25,9 +27,24 @@ restores them.
 
 Either placement restores into either: a device-placement archive
 fills the host store with every client's row, a host-store archive is
-densified over its init rows. An archive written by several processes
-(store side shards) raises ``NotImplementedError``: those come with the
-multi-GPU runtime. The asynchronous driver's backlog (reference
+densified over its init rows.
+
+On a mesh (parallel/mesh.py) every rank calls ``save_checkpoint`` and
+``load_checkpoint`` (the saves are collectives). The archive holds the
+whole state: the device placement's client rows all-gathered over
+``clients``, the 2-D sketch server's columns and the dense server's
+windows gathered over ``model``. Rank 0 writes the main archive (and
+drops side shards past the world, ``_prune_stale_shards``); every other
+rank writes its host store's shard beside it as ``<path>.shard<rank>.npz``
+(``_shard_file``), and ``meta["clientstore"]["processes"]`` is the
+world. A barrier and a failure exchange follow, so an I/O error on any
+rank fails every rank with its reason. A restore re-places the state
+on the reading run's topology, values untouched: client rows re-padded
+for its ``clients`` axis, server state re-sliced for its ``model`` axis,
+and store shards imported one a rank where the world is the writer's,
+else merged (``_merged_store_shard``) with each rank's store keeping
+the rows it owns. ``RoundAutosaver`` links the side shards with each
+history snapshot. The asynchronous driver's backlog (reference
 :326-343, 698-725) rides as ``meta["asyncfed"]`` (fold, seq, totals,
 pending, slot keys) and the ``async_arrive_at``, ``async_issue_seq``,
 ``async_issue`` and ``async:slot:<key>`` arrays; a resume rebuilds the
@@ -54,7 +71,12 @@ import torch
 
 from commefficient_tpu_torch.core.rounds import (ClientStates,
                                                  resolve_rot_lanes)
-from commefficient_tpu_torch.core.server import ServerState
+from commefficient_tpu_torch.core.server import (ServerState, dense_window,
+                                                 gather_window)
+from commefficient_tpu_torch.parallel.mesh import (mesh_shape_dict,
+                                                   model_axis_size,
+                                                   topology_summary)
+from commefficient_tpu_torch.parallel.wire import gather_columns
 
 _FMT = 1
 _FIELDS = ("velocities", "errors", "weights")
@@ -131,12 +153,20 @@ def validate_checkpoint(path: str) -> dict:
 
 
 def current_topology(model=None) -> dict:
-    """This run's topology, stamped into the meta: one process on one
-    device (its type, and the card's name on a CUDA run)."""
+    """This run's topology, stamped into the meta: its device count (the
+    world), its host count (``parallel/mesh.py topology_summary``), the
+    device type and, on a CUDA run, the card's name; on a mesh its
+    shape."""
     dev = getattr(model, "device", None)
     dev = torch.device("cpu") if dev is None else torch.device(dev)
+    mesh = getattr(model, "mesh", None)
     topo = {"device_count": 1, "process_count": 1,
             "platform": dev.type}
+    if mesh is not None:
+        hosts = topology_summary()
+        topo.update(device_count=int(mesh.world.size),
+                    process_count=int(hosts["process_count"]),
+                    mesh_shape=mesh_shape_dict(mesh))
     if dev.type == "cuda":
         topo["device_kind"] = torch.cuda.get_device_name(dev)
     return topo
@@ -155,8 +185,141 @@ def resume_manifest_extra(model) -> dict:
     return {"resumed_from": dict(info), "topology_segments": segments}
 
 
+def _prune_stale_shards(path: str, processes: int) -> None:
+    """Drop side shards whose index is at or past the writing world:
+    a larger earlier topology left them, the meta just written does not
+    record them, and a later resume on yet another world must not merge
+    rows of the dead layout."""
+    base = os.path.basename(path)
+    pat = re.compile(re.escape(base) + r"\.shard(\d+)\.npz$")
+    d = os.path.dirname(path) or "."
+    for name in os.listdir(d):
+        m = pat.fullmatch(name)
+        if m and int(m.group(1)) >= int(processes):
+            try:
+                os.unlink(os.path.join(d, name))
+            except OSError:
+                pass
+
+
+def _merged_store_shard(path: str, z, processes: int) -> dict:
+    """Every writing rank's sparse store shard merged into one: rank 0's
+    rows from the main archive ``z``, then each side file's. The ids are
+    disjoint (contiguous ownership), so the merge is a concatenation;
+    the init rows are the same everywhere and taken first seen.
+    ``import_shard`` on the reading side keeps the rows each rank now
+    owns."""
+    shards = [{k[len("store:"):]: np.asarray(z[k])
+               for k in z.files if k.startswith("store:")}]
+    for k in range(1, int(processes)):
+        sp = _shard_file(path, k)
+        _verify_archive(sp)
+        with np.load(sp, allow_pickle=False) as sz:
+            shards.append({n: np.asarray(sz[n]) for n in sz.files})
+    merged = {}
+    for sh in shards:
+        for n, v in sh.items():
+            if n.startswith("init:") and n not in merged:
+                merged[n] = v
+    merged["ids"] = np.concatenate(
+        [np.asarray(sh.get("ids", np.zeros((0,), np.int64)), np.int64)
+         for sh in shards])
+    fields = sorted({n for sh in shards for n in sh
+                     if n != "ids" and not n.startswith("init:")})
+    for f in fields:
+        parts = []
+        for i, sh in enumerate(shards):
+            if f not in sh:
+                raise TornCheckpointError(
+                    f"clientstore shard {i} of {path} lacks field "
+                    f"{f!r} — partial shard set")
+            parts.append(np.asarray(sh[f]))
+        merged[f] = np.concatenate(parts)
+    return merged
+
+
 def _host(t) -> np.ndarray:
     return t.detach().to("cpu").numpy()
+
+
+def _world(model) -> tuple:
+    """(this rank, the world) of the model's run: (0, 1) off a mesh."""
+    mesh = getattr(model, "mesh", None)
+    return (0, 1) if mesh is None else (mesh.rank, mesh.world.size)
+
+
+def _whole_rows(val: torch.Tensor, model) -> torch.Tensor:
+    """The device placement's (num_clients, ...) client rows: on a mesh
+    the ranks' blocks all-gathered over ``clients`` (the model peers
+    hold the same), the dead-slot rows and the padding left out."""
+    nc = int(model.num_clients)
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return val[:nc]
+    block = val[:-1]
+    return mesh.clients.all_gather(block).reshape(
+        (-1,) + tuple(block.shape[1:]))[:nc]
+
+
+def _whole_server(t: torch.Tensor, model) -> torch.Tensor:
+    """A server state buffer whole: on a model axis the sketch table's
+    columns or the dense vector's windows gathered over ``model``."""
+    mesh = getattr(model, "mesh", None)
+    if model_axis_size(mesh) <= 1:
+        return t
+    if t.ndim == 2:
+        return gather_columns(t, mesh.model)
+    return gather_window(t, int(model.args.grad_size), mesh.model)
+
+
+def _my_server(arr: np.ndarray, model) -> np.ndarray:
+    """This rank's piece of a whole server state buffer: its columns of
+    a sketch table or its window of the dense vector on a model axis."""
+    mesh = getattr(model, "mesh", None)
+    m = model_axis_size(mesh)
+    if m <= 1:
+        return arr
+    if arr.ndim == 2:
+        cl = arr.shape[1] // m
+        return arr[:, mesh.model.index * cl:(mesh.model.index + 1) * cl]
+    lo, hi = dense_window(arr.shape[0], m, mesh.model.index)
+    return arr[lo:hi]
+
+
+def _my_rows(base: np.ndarray, cur: torch.Tensor, model) -> torch.Tensor:
+    """This rank's block of the whole (num_clients, ...) rows ``base``
+    in the layout of ``cur`` (its block and its dead-slot row, which
+    stays as this run made it), re-padded for this run's ``clients``
+    axis."""
+    per = cur.shape[0] - 1
+    mesh = getattr(model, "mesh", None)
+    lo = 0 if mesh is None else mesh.clients.index * per
+    piece = np.asarray(base)[lo:lo + per]
+    out = cur.clone()
+    out[:per].zero_()
+    if len(piece):
+        out[:len(piece)] = torch.from_numpy(np.array(piece)).to(cur.device)
+    return out
+
+
+def _fail_together(err, model, path):
+    """On a mesh, after every rank's part of a save: a barrier that also
+    carries each rank's failure, so a write error on one rank fails
+    every rank with its reason instead of leaving the others waiting
+    (reference :425-445)."""
+    _, world = _world(model)
+    if world > 1:
+        import torch.distributed as dist
+        why = [None] * world
+        dist.all_gather_object(
+            why, None if err is None else f"{type(err).__name__}: {err}")
+        bad = [(r, w) for r, w in enumerate(why) if w is not None]
+        if bad and err is None:
+            raise RuntimeError(
+                f"checkpoint write failed on rank(s) "
+                + "; ".join(f"{r} ({w})" for r, w in bad) + f" ({path})")
+    if err is not None:
+        raise err
 
 
 def _bn_key(path) -> str:
@@ -181,9 +344,11 @@ def save_checkpoint(path: str, model, opt, scheduler=None,
         raise RuntimeError("checkpoint requested with pipelined rounds "
                            "inflight; drain with model.flush(force="
                            "True) (the trainers do this at epoch end)")
+    rank, world = _world(model)
     store = getattr(model, "client_store", None)
     if store is not None:
-        # land the round still awaiting write-back
+        # land the round still awaiting write-back (on a mesh, every
+        # rank: its exchange is a collective)
         model._store_writeback()
     nc = int(model.num_clients)
     arrays = {"ps_weights": _host(model.ps_weights)}
@@ -191,11 +356,12 @@ def save_checkpoint(path: str, model, opt, scheduler=None,
     for name in _FIELDS:
         val = getattr(cs, name)
         if val is not None:
-            # the device rows without the dead-slot row
-            arrays["cs_" + name] = _host(val[:nc])
+            # the device rows without the dead-slot row (on a mesh every
+            # rank's block, gathered by every rank)
+            arrays["cs_" + name] = _host(_whole_rows(val, model))
     ss = opt.server_state
-    arrays["ss_Vvelocity"] = _host(ss.Vvelocity)
-    arrays["ss_Verror"] = _host(ss.Verror)
+    arrays["ss_Vvelocity"] = _host(_whole_server(ss.Vvelocity, model))
+    arrays["ss_Verror"] = _host(_whole_server(ss.Verror, model))
     arrays["last_updated"] = model.last_updated
     arrays["client_last_seen"] = model.client_last_seen
     if getattr(model, "model_state", None) is not None:
@@ -221,13 +387,24 @@ def save_checkpoint(path: str, model, opt, scheduler=None,
     }
     if model.args.mode == "sketch":
         meta["rot_lanes"] = int(resolve_rot_lanes(model.args))
+    err = None
     if store is not None:
         # the sparse shard: the rows clients wrote, and each field's
-        # init row so never-seen clients keep the original run's init
+        # init row so never-seen clients keep the original run's init;
+        # rank 0's in the main archive, every other rank's beside it
         meta["clientstore"] = {"fields": list(store.field_names),
-                               "processes": 1}
-        for k, v in store.export_shard().items():
-            arrays["store:" + k] = v
+                               "processes": world}
+        shard = store.export_shard()
+        if rank == 0:
+            for k, v in shard.items():
+                arrays["store:" + k] = v
+        else:
+            try:
+                _atomic_savez(_shard_file(path, rank), **shard)
+            except Exception as e:
+                # reported to every rank after the barrier below
+                err = e
+        # the issue stamps are the same on every rank: rank 0's
         stamp_ids, stamp_rounds = store.export_stamps()
         if stamp_ids.size:
             arrays["store_stamp_ids"] = stamp_ids
@@ -291,7 +468,15 @@ def save_checkpoint(path: str, model, opt, scheduler=None,
                 arrays["sampler_mid_spec_workers"] = st["spec_workers"]
                 arrays["sampler_mid_spec_sizes"] = st["spec_sizes"]
                 arrays["sampler_mid_spec_idx"] = st["spec_idx"]
-    _atomic_savez(path, meta=json.dumps(meta), **arrays)
+    if rank == 0:
+        # one writer: concurrent writers on a shared file system would
+        # corrupt the archive
+        try:
+            _atomic_savez(path, meta=json.dumps(meta), **arrays)
+            _prune_stale_shards(path, world)
+        except Exception as e:
+            err = e
+    _fail_together(err, model, path)
     return path
 
 
@@ -303,11 +488,8 @@ def load_checkpoint(path: str, model, opt, scheduler=None,
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["meta"]))
         ck_store = meta.get("clientstore")
-        if ck_store is not None and int(ck_store.get("processes", 1)) > 1:
-            raise NotImplementedError(
-                f"checkpoint {path} holds client-store shards of "
-                f"{ck_store['processes']} processes; merging them comes "
-                "with the multi-GPU runtime")
+        ck_procs = int((ck_store or {}).get("processes", 1))
+        rank, world = _world(model)
         checks = [("format", _FMT),
                   ("grad_size", int(model.args.grad_size)),
                   ("mode", model.args.mode),
@@ -349,8 +531,19 @@ def load_checkpoint(path: str, model, opt, scheduler=None,
         store = getattr(model, "client_store", None)
         if store is not None:
             if ck_store is not None:
-                shard = {k[len("store:"):]: np.asarray(z[k])
-                         for k in z.files if k.startswith("store:")}
+                if ck_procs == world and rank == 0:
+                    # the shard files line up with the ownership: each
+                    # rank imports its own
+                    shard = {k[len("store:"):]: np.asarray(z[k])
+                             for k in z.files if k.startswith("store:")}
+                elif ck_procs == world:
+                    with np.load(_shard_file(path, rank),
+                                 allow_pickle=False) as sz:
+                        shard = {k: np.asarray(sz[k]) for k in sz.files}
+                else:
+                    # another world: every writer's rows, of which the
+                    # import keeps the ones this rank owns now
+                    shard = _merged_store_shard(path, z, ck_procs)
                 store.import_shard(shard)
                 if "store_stamp_ids" in z.files:
                     store.import_stamps(z["store_stamp_ids"],
@@ -364,32 +557,33 @@ def load_checkpoint(path: str, model, opt, scheduler=None,
             model.client_states = ClientStates(None, None, None)
         else:
             cs = model.client_states
+            merged = (_merged_store_shard(path, z, ck_procs)
+                      if ck_store is not None else None)
 
             def rows(field):
                 cur = getattr(cs, field)
                 if cur is None:
                     return None
-                if ck_store is not None:
-                    # a host-store archive, densified over its init row
-                    ids = np.asarray(z["store:ids"], np.int64)
-                    init = ("store:init:" + field)
-                    base = (np.broadcast_to(np.asarray(z[init]),
-                                            (nc,) + cur.shape[1:]).copy()
-                            if init in z.files
-                            else np.zeros((nc,) + cur.shape[1:],
-                                          np.float32))
-                    base[ids] = np.asarray(z["store:" + field])
+                if merged is not None:
+                    # a host-store archive (every writer's shard),
+                    # densified over its init row
+                    ids = np.asarray(merged["ids"], np.int64)
+                    init = merged.get("init:" + field)
+                    shape = (nc,) + tuple(cur.shape[1:])
+                    base = (np.broadcast_to(np.asarray(init), shape).copy()
+                            if init is not None
+                            else np.zeros(shape, np.float32))
+                    base[ids] = np.asarray(merged[field])
                 else:
                     base = np.asarray(z["cs_" + field])[:nc]
-                # the dead-slot row stays as this run made it
-                out = cur.clone()
-                out[:nc] = torch.from_numpy(np.array(base)).to(dev)
-                return out
+                # this rank's block; the dead-slot row stays as this run
+                # made it
+                return _my_rows(base, cur, model)
 
             model.client_states = ClientStates(*(rows(f) for f in _FIELDS))
-        opt.server_state = ServerState(
-            torch.from_numpy(np.array(z["ss_Vvelocity"])).to(dev),
-            torch.from_numpy(np.array(z["ss_Verror"])).to(dev))
+        opt.server_state = ServerState(*(
+            torch.from_numpy(np.array(_my_server(np.asarray(z[k]), model)))
+            .to(dev) for k in ("ss_Vvelocity", "ss_Verror")))
         model.last_updated = np.array(z["last_updated"])
         model.client_last_seen = np.array(z["client_last_seen"])
         if getattr(model, "model_state", None) is not None:
@@ -554,23 +748,36 @@ class RoundAutosaver:
                         self.sampler, epoch=int(epoch), loader=self.loader,
                         mid_epoch=True)
         self._last_saved = r
-        if self.keep > 0:
+        rank, _ = _world(self.model)
+        if self.keep > 0 and rank == 0:
             self._retain(r)
 
     def _retain(self, round_index: int):
-        hist = history_file(self.args.checkpoint_path, self.tag,
-                            round_index)
-        if not os.path.exists(hist):
+        """The snapshot of round ``round_index``: links to the archive
+        and to every side shard of this run's world, so a fallback
+        resume onto it finds the matching shard set; the oldest
+        snapshots past ``--checkpoint_keep`` removed with theirs."""
+        def link(src, dst):
+            if os.path.exists(dst) or not os.path.exists(src):
+                return
             try:
-                os.link(self.path, hist)
+                os.link(src, dst)
             except OSError:
-                shutil.copy2(self.path, hist)
-        for _, name in _snapshots(self.args.checkpoint_path,
-                                  self.tag)[:-self.keep]:
-            try:
-                os.unlink(os.path.join(self.args.checkpoint_path, name))
-            except OSError:
-                pass
+                shutil.copy2(src, dst)
+
+        directory = self.args.checkpoint_path
+        hist = history_file(directory, self.tag, round_index)
+        link(self.path, hist)
+        for k in range(1, _world(self.model)[1]):
+            link(_shard_file(self.path, k), _shard_file(hist, k))
+        for _, name in _snapshots(directory, self.tag)[:-self.keep]:
+            doomed = [name] + [n for n in os.listdir(directory)
+                               if n.startswith(name + ".shard")]
+            for victim in doomed:
+                try:
+                    os.unlink(os.path.join(directory, victim))
+                except OSError:
+                    pass
 
 
 def _resolve_resume_source(directory: str, path: str, tag: str) -> str:

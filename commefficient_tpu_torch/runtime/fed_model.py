@@ -136,10 +136,16 @@ clients to its card, runs the round (fused or per client) with the
 whole round's datapoint total, and gets every client's metrics back;
 the per-client state rows are sharded over ``clients`` (each rank its
 block, parallel/rows.py), the server state is (r, c/M) column shards
-on a model axis; the ledger's meta
-record carries ``num_devices`` and ``mesh_shape``, and only rank 0
+or ceil(d/M) windows of the dense vector on a model axis; the ledger's
+meta record carries ``num_devices`` and ``mesh_shape``, and only rank 0
 writes the ledger and the live plane. Every rank keeps the same host
-accounting (the whole round's ids and masks).
+accounting (the whole round's ids and masks). Under the host store on
+a mesh (reference fed_model.py:170-205, 495-515, 540-565) each rank's
+store owns ``shard_range(num_clients, rank, world)``; the gather sums
+the ranks' gathers over the mesh and the write-back all-gathers the
+slot rows over ``clients`` (``_gather_states``, ``_store_writeback``),
+both on the main thread, with no prefetch thread on more than one rank;
+``store_timings`` adds each round's exchange seconds and bytes.
 """
 
 from __future__ import annotations
@@ -173,6 +179,7 @@ from commefficient_tpu_torch.device import resolve_device
 from commefficient_tpu_torch.ops.vec import packbits
 from commefficient_tpu_torch.parallel import rows as rowx
 from commefficient_tpu_torch.parallel.mesh import (build_mesh, client_slice,
+                                                   is_sharded,
                                                    mesh_shape_dict,
                                                    model_axis_size,
                                                    topology_summary)
@@ -268,10 +275,6 @@ class FedModel:
         # clients, plus the dead-slot row), or in the host store with
         # only the round's participants on the device
         self.clientstore = resolve_clientstore(args, num_clients)
-        if self.mesh is not None and self.clientstore == "host":
-            raise NotImplementedError(
-                "--clientstore host on a mesh (--num_devices/--mesh) is "
-                "not ported (ROADMAP item 8d)")
         self.client_store = None
         self._prefetcher = None
         self._participant_feed = None
@@ -279,6 +282,7 @@ class FedModel:
         self._staging = {}
         self._d2h = {}
         self._h2d_events = None
+        self._xchg_events = None
         self.store_timings = []
         self.store_stats = None
         if self.clientstore == "host":
@@ -287,12 +291,8 @@ class FedModel:
                     "--clientstore host requires --pipeline_depth 1: "
                     "round N's write-back must land before round "
                     "N+1's gather reads the store")
+            # on a mesh this rank's store owns its block of the ids
             lo, hi = shard_range(num_clients)
-            if (lo, hi) != (0, num_clients):
-                raise NotImplementedError(
-                    "--clientstore host over several processes (the "
-                    "store shards of the multi-GPU runtime) is not "
-                    "ported")
             fields = state_fields(
                 args, init_weights=(self.ps_weights.to("cpu").numpy()
                                     if args.do_topk_down else None))
@@ -300,7 +300,10 @@ class FedModel:
                 num_clients, fields, budget_bytes=args.clientstore_bytes,
                 spill_dir=(args.clientstore_dir or None), owned=(lo, hi))
             self.client_states = ClientStates(None, None, None)
-            if fields:
+            # the prefetch thread serves one process: on a mesh of more
+            # the rows' exchange is a collective of the main thread
+            # (reference fed_model.py:197-201)
+            if fields and (self.mesh is None or self.mesh.world.size == 1):
                 self._prefetcher = StorePrefetcher(
                     self.client_store, pin=self.device.type == "cuda")
         else:
@@ -541,12 +544,14 @@ class FedModel:
         self.client_states = res.client_states
         self.pending_aggregated = res.aggregated
         if self.client_store is not None:
-            # state rows are slot positions (dense_rows): the server
-            # round's velocity rewrite scatters there too
+            # state rows are slot positions (dense_rows), this rank's
+            # slots on a mesh: the server round's velocity rewrite
+            # scatters there too
             W = ids_np.shape[0]
+            wl = dev_batch["mask"].shape[0]
             self.pending_client_ids = _state_ids(
-                torch.arange(W, dtype=torch.int64, device=self.device),
-                dev_batch, W)
+                torch.arange(wl, dtype=torch.int64, device=self.device),
+                dev_batch, wl)
             alive = np.asarray(batch["mask"]).reshape(W, -1).sum(1) > 0
             self._store_pending = (ids_np.astype(np.int64), alive)
             self._submit_prefetch()
@@ -823,10 +828,16 @@ class FedModel:
         """The round's participants' rows from the store (prefetched
         when the lookahead predicted them, else gathered now into
         page-locked staging on the card's runs), copied up as (W + 1,
-        ...) tensors, the last row the dead-slot row (zeros)."""
+        ...) tensors, the last row the dead-slot row (zeros). On a mesh
+        every rank gathers all W from its own store (zeros where another
+        rank owns the row), copies them up, and the sum over the ranks
+        (``parallel/rows.py sum_owned_rows``, on the main thread) leaves
+        this rank its slots' rows (``client_slice``), then the dead-slot
+        row."""
         ids64 = np.asarray(ids_np, np.int64)
         W = len(ids64)
         tel = self.telemetry
+        mesh = self.mesh
         t0 = time.perf_counter()
         with tel.span("gather"):
             rows = None
@@ -842,6 +853,7 @@ class FedModel:
                 rows, _ = self.client_store.gather(ids64, out=bufs)
         t1 = time.perf_counter()
         cuda = self.device.type == "cuda"
+        timing = {"gather_s": t1 - t0, "h2d_s": None, "prefetch_hit": hit}
         with tel.span("h2d_state"):
             if cuda:
                 start, end = (torch.cuda.Event(enable_timing=True)
@@ -849,19 +861,38 @@ class FedModel:
                 start.record()
             out = {}
             for name, arr in rows.items():
-                t = torch.empty((W + 1,) + arr.shape[1:],
+                n = W + 1 if mesh is None else W
+                t = torch.empty((n,) + arr.shape[1:],
                                 dtype=torch.float32, device=self.device)
                 t[:W].copy_(torch.from_numpy(arr), non_blocking=True)
-                t[W].zero_()
+                if mesh is None:
+                    t[W].zero_()
                 out[name] = t
-            h2d_s = None
             if cuda:
                 end.record()
                 self._h2d_events = (start, end)
             else:
-                h2d_s = time.perf_counter() - t1
-        self.store_timings.append({"gather_s": t1 - t0, "h2d_s": h2d_s,
-                                   "prefetch_hit": hit})
+                timing["h2d_s"] = time.perf_counter() - t1
+        if mesh is not None and out:
+            with tel.span("store_exchange"):
+                t2 = time.perf_counter()
+                if cuda:
+                    x0, x1 = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                    x0.record()
+                sharded = is_sharded(W, mesh)
+                for name, t in out.items():
+                    mine = rowx.sum_owned_rows(t, mesh, sharded)
+                    out[name] = torch.cat([mine, mine.new_zeros(
+                        (1,) + tuple(mine.shape[1:]))])
+                timing["exchange_bytes"] = sum(
+                    4 * a.size for a in rows.values())
+                if cuda:
+                    x1.record()
+                    self._xchg_events = (x0, x1)
+                else:
+                    timing["exchange_s"] = time.perf_counter() - t2
+        self.store_timings.append(timing)
         return ClientStates(out.get("velocities"), out.get("errors"),
                             out.get("weights"))
 
@@ -872,7 +903,11 @@ class FedModel:
         rewrite (true_topk's momentum masking lands in the store), and
         before the next gather, at a checkpoint save and at shutdown.
         Dead slots (dropout, padding) are not written, as the device
-        path's dead-slot row keeps them out of every client's row."""
+        path's dead-slot row keeps them out of every client's row. On a
+        mesh the ranks' slot rows are all-gathered over ``clients``
+        (``parallel/rows.py all_slot_rows``) and each rank copies down
+        and writes only the live rows its store owns; every rank must
+        call it (a collective)."""
         if self.client_store is None or self._store_pending is None:
             return
         with self.telemetry.span("writeback"):
@@ -881,27 +916,56 @@ class FedModel:
             cs = self.client_states
             self.client_states = ClientStates(None, None, None)
             W = len(ids_np)
-            dev = {name: val[:W] for name, val in
+            dev = {name: val[:-1] for name, val in
                    (("velocities", cs.velocities), ("errors", cs.errors),
                     ("weights", cs.weights)) if val is not None}
             if not dev:
                 return
             timing = self.store_timings[-1] if self.store_timings else {}
+            cuda = self.device.type == "cuda"
+            mesh = self.mesh
+            if mesh is not None:
+                t0 = time.perf_counter()
+                if cuda:
+                    x0, x1 = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                    x0.record()
+                sharded = is_sharded(W, mesh)
+                dev = {name: rowx.all_slot_rows(t, mesh, sharded)
+                       for name, t in dev.items()}
+                timing["wb_exchange_bytes"] = sum(
+                    4 * t.numel() for t in dev.values())
+                if cuda:
+                    x1.record()
+                else:
+                    timing["wb_exchange_s"] = time.perf_counter() - t0
+            # the live rows this rank's store owns (off a mesh, every
+            # live row), alone copied down
+            lo, hi = self.client_store.owned
+            keep = np.nonzero(alive & (ids_np >= lo) & (ids_np < hi))[0]
+            if len(keep) < W:
+                sel = torch.as_tensor(keep).to(self.device)
+                dev = {name: t.index_select(0, sel)
+                       for name, t in dev.items()}
             t0 = time.perf_counter()
-            if self.device.type == "cuda":
+            if cuda:
+                # page-locked buffers of W rows, reused: a round copies
+                # down its kept rows into their head
                 bufs = self._d2h
                 for name, t in dev.items():
+                    shape = (W,) + tuple(t.shape[1:])
                     buf = bufs.get(name)
-                    if buf is None or tuple(buf.shape) != tuple(t.shape):
+                    if buf is None or tuple(buf.shape) != shape:
                         bufs[name] = torch.empty(
-                            t.shape, dtype=torch.float32, pin_memory=True)
+                            shape, dtype=torch.float32, pin_memory=True)
                 start, end = (torch.cuda.Event(enable_timing=True)
                               for _ in range(2))
                 start.record()
                 rows = {}
                 for name, t in dev.items():
-                    bufs[name].copy_(t, non_blocking=True)
-                    rows[name] = bufs[name].numpy()
+                    head = bufs[name][:t.shape[0]]
+                    head.copy_(t, non_blocking=True)
+                    rows[name] = head.numpy()
                 end.record()
                 end.synchronize()
                 timing["d2h_s"] = start.elapsed_time(end) / 1e3
@@ -909,6 +973,12 @@ class FedModel:
                     h0, h1 = self._h2d_events
                     timing["h2d_s"] = h0.elapsed_time(h1) / 1e3
                     self._h2d_events = None
+                if self._xchg_events is not None:
+                    e0, e1 = self._xchg_events
+                    timing["exchange_s"] = e0.elapsed_time(e1) / 1e3
+                    self._xchg_events = None
+                if mesh is not None:
+                    timing["wb_exchange_s"] = x0.elapsed_time(x1) / 1e3
             else:
                 rows = {name: t.numpy() for name, t in dev.items()}
                 timing["d2h_s"] = time.perf_counter() - t0
@@ -919,11 +989,8 @@ class FedModel:
                 self._prefetcher.settle()
             t1 = time.perf_counter()
             spill0 = self.client_store.spill_s
-            if alive.all():
-                self.client_store.write(ids_np, rows)
-            elif alive.any():
-                self.client_store.write(
-                    ids_np[alive], {k: v[alive] for k, v in rows.items()})
+            if len(keep):
+                self.client_store.write(ids_np[keep], rows)
             timing["writeback_s"] = time.perf_counter() - t1
             timing["spill_s"] = self.client_store.spill_s - spill0
 
@@ -1278,10 +1345,12 @@ class FedOptimizer:
                 inds.append(ind.to(self.model.device))
             self._lr_indicators = inds
         # on a model axis the momentum and error are this rank's column
-        # shards from the start (1/M of the state a rank)
+        # shards or coordinate windows from the start (1/M of the state
+        # a rank)
         mesh = self.model.mesh
-        self.server_state = ServerState.init(self.args, self.model.device,
-                                             model_axis_size(mesh))
+        self.server_state = ServerState.init(
+            self.args, self.model.device, model_axis_size(mesh),
+            0 if mesh is None else mesh.model.index)
         # the geometry the live server state was allocated for: a knob
         # move that changes transmit_shape (--autopilot_geometry)
         # re-seeds the momentum/error tables at the new shape

@@ -549,10 +549,10 @@ def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(default_lr=DEFAULT_LR, argv=argv)
     if mesh.needs_launch(args):
-        # --num_devices N / --mesh CxM: one rank a device, each running
-        # this main; rank 0's results come back
-        return mesh.launch(mesh.resolve_world(args), main, argv,
-                           device_type=torch.device(args.device).type)[0]
+        # --num_devices N / --mesh CxM / several hosts: one rank a
+        # device, each running this main; this host's first rank's
+        # results come back (global rank 0's on host 0)
+        return mesh.launch_run(args, main, argv)[0]
     device = resolve_device(args.device)
     np.random.seed(args.seed)
 
@@ -632,7 +632,9 @@ def main(argv=None):
                "interrupted": interrupted,
                "diverged": bool(getattr(model, "diverged", False)),
                **resume_manifest_extra(model)})
-    if args.do_checkpoint and not interrupted and not model.diverged:
+    if (args.do_checkpoint and not interrupted and not model.diverged
+            and model.rank == 0):
+        # one writer on a mesh: every rank holds the same weights
         save_checkpoint(model, args)
     return results
 

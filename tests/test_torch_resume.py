@@ -18,8 +18,8 @@
   ``--checkpoint_keep`` keeps the newest snapshots, ``--resume`` without
   ``--checkpoint`` raises, an archive holding asynchronous updates in
   flight raises in a synchronous run (``ValueError``, as the
-  reference), and one of several processes raises
-  ``NotImplementedError``.
+  reference), and one of several ranks missing a side shard raises
+  ``TornCheckpointError`` naming it.
 """
 
 import torch_threads  # noqa: F401  (the worker's share of the cores)
@@ -256,9 +256,12 @@ def test_archives_the_port_cannot_restore_raise(what, tmp_path):
         meta["asyncfed"] = {"pending": 2}
         match, exc = "synchronous", ValueError
     else:
-        meta["clientstore"] = {"fields": [], "processes": 2}
+        # an archive of 3 ranks whose side shard 2 is gone: the restore
+        # names the missing shard (shards of several ranks restore since
+        # the store's process shards were ported)
+        meta["clientstore"] = {"fields": [], "processes": 3}
         np.savez(path + ".shard1.npz", ids=np.zeros(0, np.int64))
-        match, exc = "2 processes", NotImplementedError
+        match, exc = "shard2.npz", checkpoint.TornCheckpointError
     np.savez_compressed(path, meta=json.dumps(meta), **arrays)
     with pytest.raises(exc, match=match):
         cv_train.main(argv + ["--resume", "--num_epochs", "2"])

@@ -135,7 +135,8 @@ def linear_rounds(cfg_kw, batches, ps0, lr=0.01):
                             mesh=mesh)
     sr = build_server_round(cfg, mesh=mesh)
     ps = torch.from_numpy(ps0)
-    ss = ServerState.init(cfg, "cpu", pm.model_axis_size(mesh))
+    ss = ServerState.init(cfg, "cpu", pm.model_axis_size(mesh),
+                          0 if mesh is None else mesh.model.index)
     aggs, weights = [], []
     for b in batches:
         w = b["mask"].shape[0]
@@ -317,3 +318,177 @@ def chaos_rounds(cfg_kw, chaos_kw, num_clients, batches, ps0, lr=0.01):
         aggs.append(_np(res.aggregated))
         weights.append(_np(ps))
     return {"aggs": aggs, "weights": weights}
+
+
+def _owned_rows(model):
+    """(ids, {field: rows}) of the clients whose state this rank owns:
+    under the host store its store's range (``shard_range``), under the
+    device placement its block of the rows (the model peers alike)."""
+    store = model.client_store
+    if store is not None:
+        lo, hi = store.owned
+        ids = np.arange(lo, hi, dtype=np.int64)
+        rows, _ = store.gather(ids)
+        return ids, {k: np.array(v) for k, v in rows.items()}
+    lo, block = _state_block(model)
+    per = next((a.shape[0] for a in block.values()), 0)
+    cnt = max(0, min(per, model.num_clients - lo))
+    return (np.arange(lo, lo + cnt, dtype=np.int64),
+            {k: v[:cnt] for k, v in block.items()})
+
+
+def _snapshot(model, opt):
+    """The whole state a checkpoint holds, as this rank sees it: the
+    weights, the server state gathered whole, this rank's owned client
+    rows and the accounting arrays."""
+    from commefficient_tpu_torch.runtime.checkpoint import _whole_server
+    ss = opt.server_state
+    ids, rows = _owned_rows(model)
+    return {"ps": _np(model.ps_weights),
+            "ss": tuple(_np(_whole_server(t, model))
+                        for t in (ss.Vvelocity, ss.Verror)),
+            "ss_local_shape": tuple(ss.Vvelocity.shape),
+            "ids": ids, "rows": rows,
+            "last_updated": model.last_updated.copy(),
+            "client_last_seen": model.client_last_seen.copy(),
+            "round_index": model.round_index}
+
+
+def _failed_save(path, model, opt, bad):
+    """``save_checkpoint(path)`` on every rank, with rank ``bad``'s archive
+    write raising ``OSError``: the exception each rank raised, as (type
+    name, message), or None."""
+    from commefficient_tpu_torch.runtime import checkpoint as ck
+    orig = ck._atomic_savez
+
+    def broken(p, **arrays):
+        raise OSError(28, "No space left on device", p)
+
+    if model.rank == bad:
+        ck._atomic_savez = broken
+    try:
+        ck.save_checkpoint(path, model, opt)
+    except (OSError, RuntimeError) as e:
+        return (type(e).__name__, str(e))
+    finally:
+        ck._atomic_savez = orig
+    return None
+
+
+def store_runs(runs, spec, num_clients, lr):
+    """Runs of the ResNet9 cell (``spec`` its channels) through
+    ``FedModel``/``FedOptimizer`` on this rank's mesh (or one device,
+    outside a launched group). Each run is ``(Config keywords, flat
+    weights, ops)``, the ops in order: ``("round", batch)``,
+    ``("save", path)`` (``save_checkpoint``), ``("load", path)``
+    (``load_checkpoint`` into this run's model), ``("autosave", (path
+    dir, keep))`` (a ``RoundAutosaver`` called after every later round)
+    and ``("snap",)``. Returns per run the rounds' records (weights,
+    metrics, bytes, the store's timings), the snapshots (``_snapshot``)
+    and the rank."""
+    from commefficient_tpu_torch.runtime.checkpoint import (
+        RoundAutosaver, load_checkpoint, save_checkpoint)
+    out = []
+    for kw, flat, ops in runs:
+        cfg = Config(**{"device": "cpu", "num_clients": num_clients,
+                        "dataset_name": "Synthetic", **kw})
+        with torch.backends.mkldnn.flags(enabled=False):
+            model, opt = _fed_model("cv", cfg, flat, spec, 2)
+            for g in opt.param_groups:
+                g["lr"] = lr
+            rounds, snaps, saver = [], [], None
+            for op in ops:
+                if op[0] == "round":
+                    met = model(dict(op[1]))
+                    opt.step()
+                    rounds.append({"ps": _np(model.ps_weights),
+                                   "loss": met[0], "down": met[-2],
+                                   "up": met[-1]})
+                    if saver is not None:
+                        saver(0)
+                elif op[0] == "save":
+                    save_checkpoint(op[1], model, opt)
+                elif op[0] == "load":
+                    load_checkpoint(op[1], model, opt)
+                elif op[0] == "save_fails_on":
+                    # the save of ``path`` with rank ``bad``'s write
+                    # failing: every rank's exception, as (type, text)
+                    path, bad = op[1]
+                    snaps.append(_failed_save(path, model, opt, bad))
+                elif op[0] == "autosave":
+                    d, keep = op[1]
+                    saver = RoundAutosaver(
+                        cfg.replace(checkpoint_path=d,
+                                    checkpoint_every_rounds=1,
+                                    checkpoint_keep=keep),
+                        model, opt, None, None, None, "t")
+                else:
+                    snaps.append(_snapshot(model, opt))
+            timings = [dict(t) for t in model.store_timings]
+            owned = (None if model.client_store is None
+                     else tuple(model.client_store.owned))
+            model.finalize()
+        out.append({"rank": model.rank, "rounds": rounds, "snaps": snaps,
+                    "timings": timings, "store_owned": owned})
+    return out
+
+
+def dense2d_rounds(cfg_kw, batches, ps0, lr=0.01):
+    """Chained rounds of ``linear_loss`` through ``build_client_round`` and
+    the probed ``build_server_round`` on this rank's mesh (none: one
+    device), the legacy server noise of step s drawn from the (seed + 1,
+    s) stream as ``FedOptimizer`` draws it: per round the weights, this
+    rank's momentum window and the server's probes. ``lr``: a float or a
+    (d,) array of per-coordinate LRs."""
+    from commefficient_tpu_torch.core.rounds import (build_client_round,
+                                                     build_server_round)
+    from commefficient_tpu_torch.core.server import ServerState
+    from commefficient_tpu_torch.privacy.mechanism import (
+        SERVER_NOISE_TAG, noise_generator)
+    cfg = Config(device="cpu", **cfg_kw)
+    mesh = pm.build_mesh(cfg)
+    cr = build_client_round(cfg, linear_loss, batches[0]["x"].shape[1],
+                            mesh=mesh)
+    sr = build_server_round(cfg, probes=True, mesh=mesh)
+    if not np.isscalar(lr):
+        lr = torch.from_numpy(np.asarray(lr, np.float32))
+    ps = torch.from_numpy(ps0)
+    ss = ServerState.init(cfg, "cpu", pm.model_axis_size(mesh),
+                          0 if mesh is None else mesh.model.index)
+    out = {"rank": 0 if mesh is None else mesh.rank,
+           "model": (0, 1) if mesh is None else (mesh.model.index,
+                                                 mesh.model.size),
+           "weights": [], "Vvelocity": [], "probes": []}
+    for r, b in enumerate(batches):
+        w = b["mask"].shape[0]
+        part = pm.client_slice(w, mesh)
+        batch = {k: torch.from_numpy(v[part]) for k, v in b.items()}
+        kw = ({} if mesh is None else
+              dict(total=max(float(b["mask"].sum()), 1.0), global_w=w))
+        res = cr(ps, batch, **kw)
+        gen = (noise_generator(cfg.seed + 1, r + 1, SERVER_NOISE_TAG, "cpu")
+               if cfg.do_dp else None)
+        ps, ss, _, _, _, probes = sr(ps, ss, res.aggregated, lr, None,
+                                     None, gen)
+        out["weights"].append(_np(ps))
+        out["Vvelocity"].append(_np(ss.Vvelocity))
+        out["probes"].append({k: float(v) for k, v in probes.items()})
+    return out
+
+
+def owned_rows_exchange(cases, world_kw):
+    """``parallel/rows.py`` ``sum_owned_rows`` and ``all_slot_rows`` on
+    this rank's mesh for each ``(rows, owners)`` of ``cases``: the rank
+    contributes the rows ``owners`` gives it, zeros elsewhere; returns
+    this rank's summed slots and the all-gathered slot rows."""
+    from commefficient_tpu_torch.parallel import rows as rowx
+    mesh = pm.build_mesh(Config(device="cpu", **world_kw))
+    out = []
+    for rows, owners in cases:
+        t = torch.from_numpy(rows)
+        mine = torch.from_numpy(np.asarray(owners) == mesh.rank)
+        local = torch.where(mine.reshape(-1, 1), t, torch.zeros_like(t))
+        sharded = pm.is_sharded(t.shape[0], mesh)
+        got = rowx.sum_owned_rows(local, mesh, sharded)
+        out.append((_np(got), _np(rowx.all_slot_rows(got, mesh, sharded))))
+    return out
