@@ -290,7 +290,21 @@ after round 1's autosave and resumed bit-equal to the uninterrupted
 one, its archive restored on 2 ranks and on one card bit-equal to the
 saved state); then ``mesh_multihost``: two launcher processes of two
 cards each joined through ``--coordinator_address`` on 127.0.0.1,
-their weights held to the one-launcher f32 run's bit for bit.
+their weights held to the one-launcher f32 run's bit for bit; then
+``mesh_service``: the job service over the four cards, two ResNet9
+tenants at (2, 1) in worker processes of their own (a third refused
+while the pod is full, every card back on the drain), one migrated
+after a round from (2, 1) to (4, 1) at f32, restored bit-exact, its
+next round within ``MESH_F32_RTOL`` of one card's from the same archive
+and its finish within ``MESH_ROWS_RTOL`` of its one-card run. ``mesh_paths`` also runs
+the asynchronous round (``--async_buffer_size 4`` on the churny
+schedule) at ``--num_devices 4`` and on 2x2 and the autopilot's dtype
+walk at ``--num_devices 4``, each rank writing its ledger shard
+(``shard_checks``: p1-p3 with the canonical round ids, merged by
+telemetry/merge.py to every rank's host gap); the async round's first
+table is held to the one-card async round's, the walk's points to the
+one-card walk's. The host-store local_topk run of ``mesh_slice`` writes
+shards too, printing each rank's host gap beside its store spans.
 The operations plane and the round variants run before them on the
 ResNet9 cell: ``autopilot_paths`` (the dtype walk f32 -> bf16 -> int8 under a
 band above the cell's recovery error, kernel 4 once an int8 round; the
@@ -5220,21 +5234,23 @@ class MeshRecorder:
                 setattr(owner, name, orig)
 
 
-def mesh_rank(kind, argv, root=None, det=False):
+def mesh_rank(kind, argv, root=None, det=False, sched=False):
     """One rank of a mesh run (``parallel/mesh.py launch``): the trainer's
-    main as a user calls it, under ``MeshRecorder`` (and with ``det``
-    ``deterministic()``), every launch count from 0. Returns what the
-    parent checks."""
+    main as a user calls it, from ``root`` where given, under
+    ``MeshRecorder`` (and with ``det`` ``deterministic()``, with
+    ``sched`` the churny arrival schedule), every launch count from 0.
+    Returns what the parent checks."""
     rec = MeshRecorder()
     reset_all_launches()
     t0 = time.perf_counter()
     with rec.installed(), (deterministic() if det
-                           else contextlib.nullcontext()):
+                           else contextlib.nullcontext()), \
+            (arrivals(churny) if sched else contextlib.nullcontext()), \
+            (working_dir(root) if root else contextlib.nullcontext()):
         if kind == "cv":
             results = cv_train.main(argv)
         else:
-            with working_dir(root):
-                results = gpt2_train.main(argv)
+            results = gpt2_train.main(argv)
     wall = time.perf_counter() - t0
     model = fed_model._CURRENT_MODEL
     return {"rank": model.rank, "row": results[-1] if results else None,
@@ -5248,6 +5264,8 @@ def mesh_rank(kind, argv, root=None, det=False):
             "support_equal": rec.support_equal, "first_agg": rec.first_agg,
             "crossing": rec.crossing, "wall": wall,
             "rows_s": rec.rows_s, "rows_bytes": rec.rows_bytes,
+            "ap": model.autopilot_record(),
+            "async": async_stats_summary(model.async_round_stats),
             "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30}
 
 
@@ -5300,12 +5318,12 @@ def crossing_check(tag, outs):
 
 
 def mesh_rank_runs(runs):
-    """``mesh_rank`` for each ``(kind, argv, root, det)`` of ``runs`` in
+    """``mesh_rank`` for each ``(kind, argv, root, det, sched)`` of ``runs`` in
     turn, in this rank: several runs in one launch (each launch costs
     seconds of process start and NCCL set-up)."""
     out = []
-    for kind, argv, root, det in runs:
-        out.append(mesh_rank(kind, argv, root, det))
+    for kind, argv, root, det, sched in runs:
+        out.append(mesh_rank(kind, argv, root, det, sched))
         fed_model._CURRENT_MODEL = None
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -5321,7 +5339,8 @@ def mesh_runs(world, specs):
     t0 = time.perf_counter()
     outs = pm.launch(world, mesh_rank_runs,
                      [(s["kind"], s["argv"], s.get("root"),
-                       s.get("det", False)) for s in specs])
+                       s.get("det", False), s.get("sched", False))
+                      for s in specs])
     emit({"phase": "mesh_runs", "world": world,
           "runs": [s["phase"] for s in specs],
           "launch_wall_seconds": time.perf_counter() - t0})
@@ -5336,8 +5355,11 @@ def mesh_checks(phase, argv, world, want_per_round, outs, one_card=None):
     the same, the launches a round ``want_per_round`` on every rank,
     round 1's crossing (``crossing_check``), on the 2-D server every
     round's support the 1-D selection's, and against the one-card
-    round's first table (``one_card``) the relative L2. Returns rank 0's
-    result (its launch counts under ``counts``)."""
+    round's first table (``one_card``) the relative L2; under the
+    autopilot every rank's trajectory rank 0's. ``want_per_round`` may
+    instead be a function of a rank's result giving its whole run's
+    launches. Returns rank 0's result (its launch counts under
+    ``counts``)."""
     row = outs[0]["row"]
     rounds = len(row["round_times"])
     for o in outs:
@@ -5346,7 +5368,10 @@ def mesh_checks(phase, argv, world, want_per_round, outs, one_card=None):
               f"({o['equal']})")
         check(o["row"]["round_losses"] == row["round_losses"],
               f"{phase}: rank {o['rank']} losses differ")
-        want = {k: v * rounds for k, v in want_per_round.items()}
+        check(o["ap"] == outs[0]["ap"],
+              f"{phase}: rank {o['rank']}'s autopilot trajectory differs")
+        want = (want_per_round(o) if callable(want_per_round) else
+                {k: v * rounds for k, v in want_per_round.items()})
         got = {k: o["counts"].get(k, 0) for k in want}
         check(got == want, f"{phase}: rank {o['rank']} launches {got}, "
               f"want {want}")
@@ -5589,7 +5614,11 @@ def mesh_only_main(dev, name, smi):
     cards, the per-client round's configurations (``mesh_clients``) and
     the multi-process runtime's rest (``mesh_slice``: the 2-D dense
     server, the host store and checkpoint and resume on the mesh, the
-    two-host launch), and their rows of the kernels line."""
+    two-host launch; ``mesh_service``: the job service's spatial jobs),
+    and their rows of the kernels line. Each phase's end is printed in
+    seconds from the start (``phase_end``, its ``t_s``)."""
+    def ended(phase):
+        emit({"phase": "phase_end", "name": phase})
     _build.build_all()
     report = ptxas_report(_build.BUILD_LOGS.get("sketch", ""))
     emit({"phase": "ptxas_sketch", "kernels": report})
@@ -5597,7 +5626,9 @@ def mesh_only_main(dev, name, smi):
     rows = sharded_selection_checks(dev, flush)
     del flush
     torch.cuda.empty_cache()
+    ended("build_and_sharded_checks")
     counts, run, f32_run = mesh_paths()
+    ended("mesh_paths")
     launches = mesh_row_launches(counts)
     sketch_ptxas_checks(report)
     table = []
@@ -5610,6 +5641,7 @@ def mesh_only_main(dev, name, smi):
         # the per-client round's kernels, timed at ResNet9's shapes, with
         # their launches from the clipped 1-D run (rank 0)
         client_counts = mesh_clients(world)
+        ended("mesh_clients")
         flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
         for row in kernel_phases(dev, flush, sk.l2_read_rate(dev)):
             row["launches"] = client_counts["clip_f32"][
@@ -5618,7 +5650,9 @@ def mesh_only_main(dev, name, smi):
                           "launches_run": "mesh_clients_clip_f32"})
         del flush
         torch.cuda.empty_cache()
-        mesh_slice(world, f32_run)
+        mesh_slice(world, f32_run, ended)
+        mesh_service(world)
+        ended("mesh_service")
     else:
         emit({"phase": "mesh_clients", "world": world,
               "skipped": "the per-client configurations and the mesh "
@@ -5658,12 +5692,32 @@ def mesh_paths():
     short = profile_round.ARGV + ["--num_epochs", "0.2", "--pivot_epoch",
                                   "0.1", "--lr_scale", "0.1"]
     ref = one_card_first_agg(f32)
+    # the asynchronous rounds and the autopilot on the mesh (8f), each
+    # after its one-card run: the async round's first table, the walk's
+    # lattice points
+    async_argv = short + ASYNC_K4
+    with arrivals(churny):
+        ref_async = one_card_first_agg(async_argv)
+    ap_one, ap_keys, _, _ = autopilot_run("mesh_autopilot_one_card",
+                                          AP_ARGV, AP_BAND)
+    fed_model._CURRENT_MODEL = None
+    torch.cuda.empty_cache()
+    ap_argv = AP_ARGV + AP_WALK + ["--autopilot_band", AP_BAND]
     run = f"mesh2d_resnet9_f32_{shape}"
     with tempfile.TemporaryDirectory(prefix="gpt2_mesh_") as root:
         # 8 clients: one epoch of 2 rounds of W = 4
         data_dir, vocab_dir = gpt2_train.fabricate_assets(
             root, num_personalities=8)
         argv = profile_round.gpt2_argv(data_dir, vocab_dir)
+        # the 8f runs write a ledger a rank (8g) and trace their rounds
+        # (each rank's device_time, whose host gap the merge joins)
+        logs = os.path.join(root, "ledgers")
+        os.makedirs(logs)
+
+        def ledger(phase):
+            return ["--ledger", os.path.join(logs, f"{phase}.jsonl"),
+                    "--profile"]
+        async2d = f"mesh2d_async_resnet9_{shape}"
         # one launch; the f32 run deterministic: the two-host run
         # (mesh_multihost) is held to its weights bit for bit
         res = mesh_runs(world, [
@@ -5684,10 +5738,74 @@ def mesh_paths():
                  want=gpt2_mesh_launches(False)),
             dict(phase=f"mesh2d_gpt2_{shape}", kind="gpt2",
                  argv=argv + two_d, root=root,
-                 want=gpt2_mesh_launches(True))])
-    del ref
+                 want=gpt2_mesh_launches(True)),
+            dict(phase="mesh_async_resnet9", kind="cv",
+                 argv=async_argv + nd + ledger("mesh_async_resnet9"),
+                 want=resnet_mesh_launches(), one_card=ref_async,
+                 root=logs, sched=True),
+            dict(phase=async2d, kind="cv",
+                 argv=async_argv + two_d + ledger(async2d),
+                 want=resnet_mesh_launches(two_d=True), root=logs,
+                 sched=True),
+            dict(phase="mesh_autopilot_resnet9", kind="cv",
+                 argv=ap_argv + nd + ledger("mesh_autopilot_resnet9"),
+                 want=lambda o: walk_launches(dispatch_keys(
+                     o["ap"], o["rounds"])), root=logs)])
+        new = ["mesh_async_resnet9", async2d, "mesh_autopilot_resnet9"]
+        for name, r in zip(new[:2], res[7:9]):
+            check(max(r["async"]["backlog"]) > 0,
+                  f"{name}: no backlog in flight ({r['async']['backlog']})")
+            check(max(r["async"]["staleness_max"]) > 0,
+                  f"{name}: no fold was stale")
+        ap = res[9]["ap"]
+        keys = dispatch_keys(ap, res[9]["rounds"])
+        check(keys == ap_keys and [t["key"] for t in ap["trajectory"]]
+              == [t["key"] for t in ap_one["trajectory"]],
+              f"mesh_autopilot_resnet9: the points {keys} against one "
+              f"card's {ap_keys}")
+        emit({"phase": "mesh_8f", "world": world,
+              "async": {n: r["async"] for n, r in zip(new[:2], res[7:9])},
+              "autopilot_keys": keys, "one_card_keys": ap_keys,
+              "recovery_errors": [t["recovery_error"]
+                                  for t in ap["trajectory"]],
+              "one_card_recovery_errors": [t["recovery_error"]
+                                           for t in ap_one["trajectory"]]})
+        for name in new:
+            shard_checks(name, os.path.join(logs, f"{name}.jsonl"), world)
+    del ref, ref_async
     f32_run, counts = res[0], res[3]["counts"]
     return counts, run, f32_run
+
+
+def shard_checks(phase, led, world):
+    """A mesh run's ledgers (8g): shards p1 .. p(world - 1) beside the
+    canonical one, each with its round ids, merged (telemetry/merge.py)
+    to a ``host_gap_by_process`` of every rank on every round. Prints
+    each rank's host gap and host spans a round; returns them."""
+    from commefficient_tpu_torch.telemetry import merge
+    shards = merge.discover_shards(led)
+    check([k for k, _ in shards] == list(range(1, world)),
+          f"{phase}: ledger shards {shards}")
+    ids = [r["round"] for r in ledger_records(led) if r["kind"] == "round"]
+    for k, path in shards:
+        got = [r["round"] for r in ledger_records(path)
+               if r["kind"] == "round"]
+        check(got == ids and ids, f"{phase}: shard p{k} rounds {got}, the "
+              f"canonical ledger's {ids}")
+    merged, stats, _, problems, _ = merge.merge_path(led)
+    check(not problems, f"{phase}: the merge found {problems}")
+    joined = [r for r in merged if r["kind"] == "round" and r.get("shards")]
+    check(len(joined) == len(ids) and all(
+        len(r.get("host_gap_by_process") or {}) == world for r in joined),
+        f"{phase}: host_gap_by_process {[r.get('host_gap_by_process') for r in joined]}")
+    out = {"rounds": ids,
+           "host_gap_s_by_rank": [r["host_gap_by_process"] for r in joined],
+           "spans_s_by_rank": [
+               dict({"p0": r["spans"]},
+                    **{pk: v.get("spans") for pk, v in r["shards"].items()})
+               for r in joined]}
+    emit({"phase": f"{phase}_shards", "world": world, **out})
+    return out
 
 
 # --- the per-client round on the mesh (mesh_clients) --------------------
@@ -6296,20 +6414,30 @@ def check_dense2d(res, walls, d_of):
                        f"{DENSE_SAMPLE} sampled coordinates"})
 
 
-def store_tasks(world):
+def store_tasks(world, tmp):
     """``mesh_store``'s tasks: each configuration under the device
-    placement and the host store on its mesh, deterministic."""
+    placement and the host store on its mesh, deterministic. The host
+    store's local_topk run writes a ledger a rank and traces its rounds
+    (``STORE_LEDGER``): each rank's host gap beside its store spans."""
     tasks = []
     for name, extra, shape in MESH_STORE_PATHS:
         mesh = (["--mesh", shape] if shape else []) + [
             "--num_devices", str(world)]
         for placement in ("device", "host"):
-            tasks.append({"phase": f"mesh_store_{name}_{placement}",
-                          "kind": "cv", "det": True,
-                          "argv": profile_round.ARGV + extra
-                          + STORE_MESH_ARGV + ["--clientstore", placement]
-                          + mesh})
+            phase = f"mesh_store_{name}_{placement}"
+            task = {"phase": phase, "kind": "cv", "det": True,
+                    "argv": profile_round.ARGV + extra + STORE_MESH_ARGV
+                    + ["--clientstore", placement] + mesh}
+            if phase == STORE_LEDGER:
+                task["root"] = tmp
+                task["argv"] += ["--ledger", os.path.join(
+                    tmp, f"{phase}.jsonl"), "--profile"]
+            tasks.append(task)
     return tasks
+
+
+# the mesh store run whose ranks' ledgers split each rank's host gap
+STORE_LEDGER = "mesh_store_local_topk_host"
 
 
 def check_store(dev, host):
@@ -6508,7 +6636,7 @@ def mesh_multihost(f32_run, tmp):
           "launches_rank0": res[0]["counts"]})
 
 
-def mesh_slice(world, f32_run):
+def mesh_slice(world, f32_run, ended=None):
     """The 2-D dense server, the host store on the mesh, checkpoint and
     resume on the mesh (one launch of ``world`` = 4 ranks, after the
     dense runs' one-card runs), the restores on 2 ranks and on one card,
@@ -6521,7 +6649,8 @@ def mesh_slice(world, f32_run):
         gpt2 = profile_round.gpt2_argv(data_dir, vocab_dir)
         dense, walls = dense2d_tasks(world, tmp, gpt2, root)
         keep = os.path.join(tmp, "kept_r1")
-        tasks = dense + store_tasks(world) + resume_tasks(world, tmp, keep)
+        tasks = dense + store_tasks(world, tmp) + resume_tasks(world, tmp,
+                                                               keep)
         t0 = time.perf_counter()
         outs = pm.launch(world, slice_rank, tasks)
         launch_wall = time.perf_counter() - t0
@@ -6533,6 +6662,8 @@ def mesh_slice(world, f32_run):
         for name, _, _ in MESH_STORE_PATHS:
             check_store(res[f"mesh_store_{name}_device"],
                         res[f"mesh_store_{name}_host"])
+        shard_checks(STORE_LEDGER, os.path.join(tmp, f"{STORE_LEDGER}.jsonl"),
+                     world)
         restores = {"2_ranks": pm.launch(2, slice_rank,
                                          [restore_task(2, keep, "2")])}
         restores["2_ranks"] = [o[0] for o in restores["2_ranks"]]
@@ -6541,7 +6672,177 @@ def mesh_slice(world, f32_run):
                      res["mesh_resume_rest"], restores)
         emit({"phase": "mesh_slice", "world": world, "tasks": len(tasks),
               "launch_wall_seconds": launch_wall})
+        if ended is not None:
+            ended("mesh_slice")
         mesh_multihost(f32_run, tmp)
+        if ended is not None:
+            ended("mesh_multihost")
+
+
+def rank_launches(model, opt):
+    """A spatial job rank's launch counts (``SpatialJob.apply``)."""
+    return all_counts()
+
+
+def svc_builder_f32(cfg, device):
+    """``svc_builder`` with f32 compute in this process (TF32 off): the
+    migration check's tenant, whose selections a bf16 or TF32 rounding
+    moved near the threshold would carry apart over rounds."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return svc_builder(cfg, device)
+
+
+def service_ps0(cfg, dev):
+    """A tenant's initial weights (``svc_builder``'s seeded init)."""
+    return cv_train.build_model(cfg, dev)[1].float().cpu()
+
+
+def mesh_service(world, devs=None):
+    """The job service's spatial jobs of several cards (8e) over the
+    ``world`` = 4 cards, full-width ResNet9 tenants:
+
+    - two tenants at (2, 1), 2 rounds each, each in 2 worker processes
+      (fedservice/spatial.py); while they hold the pod a third spatial
+      admission is refused with the counted ``AdmissionError``; every
+      card comes back when they drain; each rank launched the 1-D
+      round's kernels twice; rank 1 wrote its job sub-shard;
+    - a tenant at (2, 1) migrated after its first of 3 rounds to
+      (4, 1), f32 compute with TF32 off (``svc_builder_f32``): the
+      restore bit-exact, each new rank's launches those of one round
+      after the next; the round after the migration moves the weights
+      within ``MESH_F32_RTOL`` relative L2 (sampled coordinates) of one
+      card's round from the same archive, and the finished weights'
+      change is within ``MESH_ROWS_RTOL`` of the same tenant run
+      straight on one card."""
+    from commefficient_tpu_torch.fedservice import (AdmissionError,
+                                                    FedService, JobSpec)
+    devs = devs or [torch.device("cuda", i) for i in range(world)]
+    t0 = time.perf_counter()
+    tenants = {seed: svc_tenant(seed, 2) for seed in (21, 22)}
+    with tempfile.TemporaryDirectory(prefix="mesh_svc_") as root, \
+            working_dir(root):
+        led = os.path.join(root, "svc.jsonl")
+        svc = FedService(svc_cfg(["--ledger", led]), devices=devs)
+        try:
+            for s, (a, b) in tenants.items():
+                svc.admit(JobSpec(f"t{s}", a, svc_builder,
+                                  lambda r, b=b: b[r], rounds=2,
+                                  mesh_demand=(2, 1)))
+            free_full = list(svc._free)
+            refused = None
+            try:
+                svc.admit(JobSpec("third", tenants[21][0].replace(seed=23),
+                                  svc_builder, lambda r: None, rounds=1,
+                                  mesh_demand=(1, 1)))
+            except AdmissionError as e:
+                refused = str(e)
+            svc.tick()
+            launches = {f"t{s}": svc._job(f"t{s}").spatial.apply(
+                rank_launches) for s in tenants}
+            ticks = 1 + svc.run()
+            free_after = sorted(map(str, svc._free))
+            states = {s: svc.job_state(f"t{s}") for s in tenants}
+            rejected = svc._rejected
+        finally:
+            svc.close()
+        check(free_full == [] and refused is not None and rejected == 1,
+              f"mesh_service: a full pod admitted a third job "
+              f"({free_full}, {refused})")
+        check(free_after == sorted(map(str, devs)),
+              f"mesh_service: the pod holds {free_after} after the drain")
+        # the launches of the one round before the apply: the job's
+        # build makes none
+        want = resnet_mesh_launches()
+        for job, per_rank in launches.items():
+            for r, counts in enumerate(per_rank):
+                got = {k: counts.get(k, 0) for k in want}
+                check(got == want, f"mesh_service: {job} rank {r} launches "
+                      f"{got}, want {want}")
+        for s, w in states.items():
+            check(np.isfinite(w).all(), f"mesh_service: t{s}'s weights")
+        for j in range(2):
+            shard = f"{led}.job{j}.jsonl"
+            check([r["round"] for r in ledger_records(shard + ".p1.jsonl")
+                   if r["kind"] == "round"] == [0, 1],
+                  f"mesh_service: job {j}'s rank-1 sub-shard")
+        split_s = time.perf_counter() - t0
+        # the migration (2, 1) -> (4, 1) after round 1 of 3, f32
+        a, b = svc_tenant(24, 3)
+        a = a.replace(do_bf16=False)
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        ps0 = service_ps0(a, devs[0])
+        straight = one_card_rounds(a, b)
+        ckpt = os.path.join(root, "ckpt")
+        svc = FedService(svc_cfg(), devices=devs, ckpt_dir=ckpt)
+        try:
+            svc.admit(JobSpec("m", a, svc_builder_f32, lambda r: b[r],
+                              rounds=3, mesh_demand=(2, 1)))
+            svc.tick()
+            before = svc.job_state("m")
+            svc.migrate("m", mesh_demand=(4, 1))
+            after = svc.job_state("m")
+            moved = len(svc._job("m").devices)
+            svc.tick()
+            round2 = torch.from_numpy(svc.job_state("m"))
+            mig_launches = svc._job("m").spatial.apply(rank_launches)
+            svc.run()
+            final = torch.from_numpy(svc.job_state("m"))
+        finally:
+            svc.close()
+        # the round after the migration on one card, from the same archive
+        one2 = one_card_rounds(a, b[1:2], os.path.join(
+            ckpt, "migrate_job0.npz"))
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+        check(np.array_equal(before, after), "mesh_service: the migration's "
+              "restore is not bit-exact")
+        check(moved == 4, f"mesh_service: the job moved to {moved} cards")
+        for r, counts in enumerate(mig_launches):
+            got = {k: counts.get(k, 0) for k in want}
+            check(got == want, f"mesh_service: the migrated job's rank {r} "
+                  f"launches {got}, want {want}")
+        restored = torch.from_numpy(after)
+        check(bool((round2 != restored).any() and (one2 != restored).any()),
+              "mesh_service: the round after the migration moved nothing")
+        rel_round = rel_l2(sample_of(round2 - restored),
+                           sample_of(one2 - restored))
+        check(rel_round <= MESH_F32_RTOL, f"mesh_service: the round after "
+              f"the migration moved the weights {rel_round} from one card's "
+              "round from the same archive")
+        rel = rel_l2(sample_of(final - ps0), sample_of(straight - ps0))
+        check(rel <= MESH_ROWS_RTOL, f"mesh_service: the migrated job's "
+              f"weight change is {rel} from the one-card run's")
+    emit({"phase": "mesh_service", "world": world, "ticks": ticks,
+          "refused": refused, "launches_per_rank": launches,
+          "migrated_launches_per_rank": mig_launches,
+          "restore_bit_exact": True,
+          "round_after_migration_rel_l2_vs_one_card": rel_round,
+          "weights_change_rel_l2_vs_one_card": rel,
+          "tolerance": f"relative L2 at {DENSE_SAMPLE} sampled coordinates: "
+                       f"the round after the migration <= {MESH_F32_RTOL} "
+                       "(a 1-D round's table against one card's), the "
+                       f"finish after 3 rounds <= {MESH_ROWS_RTOL} (the "
+                       "selections near the threshold that f32 rounding "
+                       "moves carry over rounds, as MESH_ROWS_TOL says)",
+          "split_wall_s": split_s,
+          "wall_s": time.perf_counter() - t0})
+
+
+def one_card_rounds(cfg, batches, restore=""):
+    """``svc_builder_f32``'s tenant on one card (from the archive
+    ``restore`` where given) through ``batches``: its weights on the
+    host."""
+    model, opt = svc_builder_f32(cfg, None)
+    if restore:
+        checkpoint.load_checkpoint(restore, model, opt)
+    for batch in batches:
+        model(batch)
+        opt.step()
+    out = model.ps_weights.to("cpu").clone()
+    model.finalize()
+    return out
 
 
 def main():

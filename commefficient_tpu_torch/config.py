@@ -656,21 +656,7 @@ class Config:
             assert self.client_chunk == 0, \
                 "--mesh with model axis > 1 is incompatible with " \
                 "--client_chunk (the chunked scan is single-device)"
-        if self.on_mesh:
-            self._check_mesh_ported()
         return self
-
-    def _check_mesh_ported(self):
-        """The combinations the reference runs on a mesh and the port
-        does not yet: each raises naming its ROADMAP item."""
-        def no(what, item):
-            raise NotImplementedError(
-                f"{what} on a mesh (--num_devices/--mesh) is not ported "
-                f"(ROADMAP item {item})")
-        if self.async_buffer_size > 0:
-            no("--async_buffer_size", "8f")
-        if self.autopilot == "on":
-            no("--autopilot", "8f")
 
     @property
     def mesh2d(self):

@@ -632,7 +632,9 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
         if robust:
             aggregated = robust_fold(cfg, everyone(t, sharded),
                                      {"mask": everyone(mask, sharded)},
-                                     weights=cw, probes=fold_pr)
+                                     weights=(None if cw is None
+                                              else everyone(cw, sharded)),
+                                     probes=fold_pr)
         elif late and sharded:
             aggregated = mesh_emit(torch.sum(t_fold, dim=0),
                                    "f32" if dp_on else wire) / total
@@ -691,14 +693,15 @@ def _build_client_round(cfg: Config, loss_fn: Callable,
             # core/rounds.py:836-858)
             total = torch.full((), float(round_w * (mask.numel() // W)),
                                dtype=torch.float32, device=mask.device)
+        elif total is not None:
+            # the whole round's datapoints, Σ cw·n under the weighted
+            # fold (a mesh rank holds a slice)
+            total = torch.as_tensor(total, dtype=torch.float32,
+                                    device=mask.device)
         elif cw is not None:
             # the weighted per-datapoint mean: Σ cw·transmit / Σ cw·n
             n = torch.sum(mask.reshape(W, -1), dim=1)
             total = torch.clamp(torch.sum(cw * n), min=1.0)
-        elif total is not None:
-            # the whole round's datapoints (a mesh rank holds a slice)
-            total = torch.as_tensor(total, dtype=torch.float32,
-                                    device=mask.device)
         else:
             total = torch.clamp(torch.sum(mask), min=1.0)
         if client_ids is None:

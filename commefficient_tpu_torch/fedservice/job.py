@@ -41,8 +41,9 @@ class JobSpec:
     retires the job after ``rounds`` completed rounds.
 
     ``mesh_demand=(C, M)`` requests ``C*M`` dedicated devices
-    (spatial partitioning; the port runs ``(1, 1)``, one card);
-    ``None`` time-slices the pod's first card instead.
+    (spatial partitioning; of more than one device the builder runs in
+    each of the job's worker processes, so it must pickle); ``None``
+    time-slices the pod's first card instead.
     """
 
     job_id: str

@@ -4,10 +4,15 @@ Port of ``commefficient_tpu/fedservice/service.py``: ``admit``, ``tick``
 under the ``fair`` and ``backlog`` policies, ``run``, ``_run_round``,
 ``_fairness_probes``, ``migrate``, ``slo_burning_jobs`` and ``close``,
 with ``_LOCK_MAP``'s locking. The pod is a list of ``torch.device``s
-(the visible cards by default; tests pass CPU devices), and a job's
-builder gets a device where the reference's gets a mesh (see the
-package docstring for the one-card rule). ``migrate`` goes through
-``runtime/checkpoint.py``.
+(the visible cards by default; tests pass CPU devices). A spatial job
+gets a consecutive block of C·M free devices (the reference's
+``carve_submeshes`` carves it into a mesh): a block of one
+card runs the job in the daemon, its builder handed the card where the
+reference's is handed a mesh; a block of more runs it in C·M worker
+processes, one a card, joined into a process group of their own
+(``fedservice/spatial.py``), the builder called in each rank with the
+block's ``--num_devices``/``--mesh``. ``migrate`` goes through
+``runtime/checkpoint.py`` between any two footprints.
 
 One service instance owns one pod and runs J admitted jobs over it.
 Each job is the ordinary single-job stack — its own FedModel (own
@@ -44,6 +49,9 @@ import numpy as np
 import torch
 
 from commefficient_tpu_torch.fedservice.job import AdmissionError, JobSpec
+from commefficient_tpu_torch.fedservice.spatial import (SpatialJob,
+                                                        SpatialJobError,
+                                                        spatial_cfg)
 from commefficient_tpu_torch.runtime.checkpoint import (RoundAutosaver,
                                                         load_checkpoint,
                                                         save_checkpoint)
@@ -55,7 +63,10 @@ from commefficient_tpu_torch.telemetry.causal import (SEQ_ADMIT, SEQ_GRANT,
                                                       build_causal_tracer,
                                                       span_id, trace_id)
 from commefficient_tpu_torch.telemetry.core import build_telemetry
-from commefficient_tpu_torch.telemetry.live import attach_live_plane
+from commefficient_tpu_torch.telemetry.live import (LiveMetricsSink,
+                                                    attach_live_plane,
+                                                    ensure_server,
+                                                    live_registry)
 from commefficient_tpu_torch.telemetry.sinks import (job_ledger_path,
                                                      recover_ledger_shards)
 from commefficient_tpu_torch.telemetry.slo import build_slo_engine
@@ -74,7 +85,9 @@ class _Job:
     """Internal per-tenant record: spec + live runtime objects +
     scheduler bookkeeping. ``device`` is the reserved card (None for
     time-sliced jobs — their FedModel runs on the pod's first card and
-    shares it with the other time-sliced jobs)."""
+    shares it with the other time-sliced jobs — and for a spatial job of
+    several cards, whose ranks run in ``spatial``'s worker processes
+    while ``model``/``opt`` stay None)."""
 
     def __init__(self, spec, index, cfg, device, devices):
         self.spec = spec
@@ -84,6 +97,8 @@ class _Job:
         self.devices = devices  # reserved pod devices (spatial only)
         self.model = None
         self.opt = None
+        self.spatial = None
+        self.error = None       # a failed spatial job's traceback
         self.autosaver = None
         self.rounds_done = 0
         self.ran_ticks = 0
@@ -205,7 +220,6 @@ class FedService:
         except AdmissionError:
             self._count_rejection()
             raise
-        _one_card(spec.job_id, need)
         admit_b = clock.tick()
 
         burning = self.slo_burning_jobs()
@@ -223,12 +237,7 @@ class FedService:
 
         index = self._admitted
         self._admitted += 1
-        device, devices = None, None
-        if need:
-            with self._lock:
-                devices = self._free[:need]
-                self._free = self._free[need:]
-            device = devices[0]
+        devices = self._carve(spec.mesh_demand) if need else None
         base = getattr(self.cfg, "ledger", "") or ""
         shard = job_ledger_path(base, index) if base else ""
         # the operations plane is pod-scoped: a daemon with
@@ -249,19 +258,17 @@ class FedService:
             plane["causal_trace"] = True
         cfg = dataclasses.replace(spec.cfg, ledger=shard, **plane)
         if cfg.on_mesh:
-            # the service places every tenant on one card (a spatial
-            # job's sub-mesh is ROADMAP item 8e): a tenant's own
-            # --num_devices (-1: every visible card) builds no mesh.
+            # a tenant's own --num_devices (-1: every visible card)
+            # builds no mesh: its footprint is the service's to place.
             # Where it asks for one card already, its config (and hash)
-            # stays the solo run's.
+            # stays the solo run's
             cfg = dataclasses.replace(cfg, num_devices=1)
-        job = _Job(spec, index, cfg, device, devices)
-        job.model, job.opt = spec.builder(cfg, device)
-        if int(getattr(cfg, "checkpoint_every_rounds", 0) or 0) > 0:
-            os.makedirs(cfg.checkpoint_path, exist_ok=True)
-            job.autosaver = RoundAutosaver(
-                cfg, job.model, job.opt, None, None, None,
-                tag=f"job{index}")
+        job = _Job(spec, index, cfg, None, devices)
+        try:
+            self._bring_up(job)
+        except BaseException:
+            self._release(job)
+            raise
         with self._lock:
             self._jobs.append(job)
             self._by_id[str(spec.job_id)] = job
@@ -275,15 +282,91 @@ class FedService:
                 trace=trace_id(index, 0),
                 sid=span_id(index, 0, SEQ_ADMIT), parent=None)
         if self.runs_dir:
+            c, m = spec.mesh_demand or (1, 1)
             registry.write_manifest(
                 self.runs_dir, args=cfg, ledger=shard,
-                mesh_shape={"clients": 1},
+                mesh_shape=dict({"clients": int(c)},
+                                **({"model": int(m)} if int(m) > 1
+                                   else {})),
                 extra={"job_id": str(spec.job_id),
                        "service_run": True,
                        "config_hash": registry.config_hash(cfg),
                        **({"slo_burning_at_admission": burning}
                           if burning else {})})
         return index
+
+    def _carve(self, demand) -> list:
+        """The first C·M free devices, the block of a (C, M) demand: rank
+        c·M + m of the job takes its (c·M + m)-th, as ``make_mesh2d``
+        lays a mesh out."""
+        need = int(demand[0]) * int(demand[1])
+        with self._lock:
+            devices, self._free = self._free[:need], self._free[need:]
+        return devices
+
+    def _release(self, job: _Job):
+        """Give the job's block back to the pod."""
+        if job.devices:
+            with self._lock:
+                self._free.extend(job.devices)
+            job.devices = None
+
+    def _bring_up(self, job: _Job, restore: str = ""):
+        """Build the job on its block (restoring the checkpoint at
+        ``restore``): a block of several devices in spatial worker
+        processes, else the builder in the daemon on the block's card
+        (None: time-sliced)."""
+        cfg, spec = job.cfg, job.spec
+        job.model = job.opt = job.spatial = job.autosaver = None
+        job.device = None
+        if job.devices and len(job.devices) > 1:
+            demand = tuple(int(x) for x in spec.mesh_demand)
+            job.spatial = SpatialJob(
+                spatial_cfg(dataclasses.replace(cfg, live_port=0), demand),
+                spec.builder, job.devices, demand,
+                autosave_tag=f"job{job.index}",
+                on_records=self._live_relay(cfg, job.index))
+            if restore:
+                job.spatial.restore(restore)
+            return
+        if job.devices:
+            job.device = job.devices[0]
+        job.model, job.opt = spec.builder(cfg, job.device)
+        if restore:
+            load_checkpoint(restore, job.model, job.opt)
+        if int(getattr(cfg, "checkpoint_every_rounds", 0) or 0) > 0:
+            os.makedirs(cfg.checkpoint_path, exist_ok=True)
+            job.autosaver = RoundAutosaver(
+                cfg, job.model, job.opt, None, None, None,
+                tag=f"job{job.index}")
+
+    def _live_relay(self, cfg, index):
+        """Where a spatial job's rank-0 records go in the daemon: the
+        live sink its FedModel would attach in the daemon's process
+        (the workers' own exporters are off), or None."""
+        port = int(getattr(cfg, "live_port", 0) or 0)
+        if port <= 0:
+            return None
+        ensure_server(port)
+        sink = LiveMetricsSink(live_registry(), {
+            "process": 0, "run": registry.config_hash(cfg)[:8],
+            "job": index})
+
+        def relay(records):
+            for rec in records:
+                sink.write(rec)
+        return relay
+
+    def _spatial_failed(self, job: _Job, err: SpatialJobError):
+        """A spatial job whose rank failed: it is done, its block goes
+        back to the pod, the service ledger's meta records the failure;
+        the other tenants run on."""
+        print(f"WARNING: job {job.spec.job_id!r} failed: {err}")
+        job.error = str(err)
+        job.done = True
+        job.spatial = None
+        self._release(job)
+        self.telemetry.emit_meta(job_failed=str(job.spec.job_id))
 
     def _count_rejection(self):
         """One service-ledger tick per rejection: the record carries
@@ -317,8 +400,13 @@ class FedService:
     def attach_arrival_process(self, job_id, fn):
         """Per-job arrival relay: forwards ``fn`` to the job's async
         driver. (Named ``attach_arrival_process`` on purpose — this
-        is a sanctioned arrival-confinement relay range.)"""
-        self._job(job_id).model.attach_arrival_process(fn)
+        is a sanctioned arrival-confinement relay range.) A spatial
+        job's ranks each get ``fn``, which must pickle."""
+        job = self._job(job_id)
+        if job.spatial is not None:
+            job.spatial.attach_arrival_process(fn)
+        else:
+            job.model.attach_arrival_process(fn)
 
     def active_jobs(self) -> int:
         with self._lock:
@@ -329,6 +417,10 @@ class FedService:
         job = self._job(job_id)
         if job.final_state is not None:
             return job.final_state
+        if job.error is not None:
+            raise RuntimeError(f"job {job_id!r} failed: {job.error}")
+        if job.spatial is not None:
+            return job.spatial.state()
         return _host(job.model.ps_weights)
 
     def job_rounds(self, job_id) -> int:
@@ -342,7 +434,11 @@ class FedService:
         with self._lock:
             jobs = list(self._jobs)
         for job in jobs:
-            if job.done or job.model is None:
+            if job.done:
+                continue
+            if job.spatial is not None:
+                if job.spatial.slo_burning:
+                    burning.append(str(job.spec.job_id))
                 continue
             slo = getattr(job.model, "_slo", None)
             if slo is not None and slo.burning:
@@ -420,8 +516,15 @@ class FedService:
                 now, trace=trace_id(job.index, r),
                 sid=span_id(job.index, r, SEQ_GRANT),
                 parent=span_id(job.index, r, SEQ_ROOT))
-        job.model(batch)
-        job.opt.step()
+        if job.spatial is not None:
+            try:
+                job.spatial.round(batch)
+            except SpatialJobError as e:
+                self._spatial_failed(job, e)
+                return
+        else:
+            job.model(batch)
+            job.opt.step()
         job.rounds_done += 1
         if job.autosaver is not None:
             if job.model.telemetry.causal is not None:
@@ -439,13 +542,18 @@ class FedService:
     def _finish(self, job: _Job):
         if job.done:
             return
-        job.final_state = _host(job.model.ps_weights)
-        job.model.finalize()
+        if job.spatial is not None:
+            try:
+                job.final_state = job.spatial.close()
+            except SpatialJobError as e:
+                self._spatial_failed(job, e)
+                return
+            job.spatial = None
+        else:
+            job.final_state = _host(job.model.ps_weights)
+            job.model.finalize()
         job.done = True
-        if job.devices:
-            with self._lock:
-                self._free.extend(job.devices)
-            job.devices = None
+        self._release(job)
 
     def _fairness_probes(self, runnable, chosen) -> dict:
         still = [job for job in runnable if not job.done]
@@ -469,13 +577,14 @@ class FedService:
     # ------------------------------------------------------------ elasticity
 
     def migrate(self, job_id, mesh_demand=None):
-        """Elastic migration: checkpoint the job, rebuild its model on
-        a freshly reserved card (``mesh_demand=(1, 1)``) or
-        time-sliced (``None``), and restore — the checkpoint format
-        (runtime/checkpoint.py) is device-free, so the restore is
-        bit-exact. The job's ledger shard survives: the old sink
-        closes before the rebuilt model reopens it, and round ids
-        continue where they left off."""
+        """Elastic migration: checkpoint the job, rebuild it on a freshly
+        carved block (``mesh_demand=(C, M)``: one card in the daemon,
+        several in spatial worker processes) or time-sliced (``None``),
+        and restore — the checkpoint format (runtime/checkpoint.py)
+        restores onto any world, so the restore is bit-exact. The job's
+        ledger shard survives: the old sinks close before the rebuilt
+        model reopens them, and round ids continue where they left
+        off."""
         job = self._job(job_id)
         if job.done:
             raise ValueError(f"job {job_id!r} already finished")
@@ -483,13 +592,14 @@ class FedService:
             prefix="fedservice_migrate_")
         os.makedirs(ckpt_dir, exist_ok=True)
         path = os.path.join(ckpt_dir, f"migrate_job{job.index}.npz")
-        save_checkpoint(path, job.model, job.opt)
-        job.model.finalize()
-        if job.devices:
-            with self._lock:
-                self._free.extend(job.devices)
-            job.devices = None
-        device, devices = None, None
+        if job.spatial is not None:
+            job.spatial.save(path)
+            job.spatial.close()
+            job.spatial = None
+        else:
+            save_checkpoint(path, job.model, job.opt)
+            job.model.finalize()
+        self._release(job)
         if mesh_demand is not None:
             c, m = mesh_demand
             need = int(c) * int(m)
@@ -497,18 +607,9 @@ class FedService:
                 raise AdmissionError(
                     f"job {job_id}: migration demand {c}x{m} needs "
                     f"{need} devices, {len(self._free)} free")
-            _one_card(job_id, need)
-            with self._lock:
-                devices = self._free[:need]
-                self._free = self._free[need:]
-            device = devices[0]
-        job.device, job.devices = device, devices
-        job.model, job.opt = job.spec.builder(job.cfg, device)
-        load_checkpoint(path, job.model, job.opt)
-        if job.autosaver is not None:
-            job.autosaver = RoundAutosaver(
-                job.cfg, job.model, job.opt, None, None, None,
-                tag=f"job{job.index}")
+            job.devices = self._carve(mesh_demand)
+        job.spec = dataclasses.replace(job.spec, mesh_demand=mesh_demand)
+        self._bring_up(job, restore=path)
         return job.index
 
     # ------------------------------------------------------------ teardown
@@ -520,9 +621,7 @@ class FedService:
             jobs = list(self._jobs)
         for job in jobs:
             if not job.done:
-                job.final_state = _host(job.model.ps_weights)
-                job.model.finalize()
-                job.done = True
+                self._finish(job)
         self.telemetry.emit_meta(
             service_jobs=self._admitted,
             service_policy=self.policy,
@@ -542,13 +641,3 @@ def _host(weights) -> np.ndarray:
     """A host copy of a job's server weights."""
     return weights.detach().to("cpu").numpy().copy()
 
-
-def _one_card(job_id, need: int):
-    """A spatial job of more than one device needs sub-meshes of the
-    multi-GPU runtime, which are not ported (ROADMAP item 8e)."""
-    if need > 1:
-        raise NotImplementedError(
-            f"job {job_id}: a spatial demand of {need} devices needs "
-            "a sub-mesh of the multi-GPU runtime, which is not ported "
-            "(ROADMAP item 8e); a spatial job reserves one card, "
-            "mesh_demand (1, 1)")

@@ -157,6 +157,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from commefficient_tpu_torch import accounting
 from commefficient_tpu_torch.asyncfed import AsyncRoundDriver
@@ -174,7 +175,8 @@ from commefficient_tpu_torch.core.rounds import (ClientStates, _dead_row,
                                                  build_client_round,
                                                  build_server_round,
                                                  round_plan)
-from commefficient_tpu_torch.core.server import ServerState
+from commefficient_tpu_torch.core.server import (ServerState,
+                                                 staleness_weights)
 from commefficient_tpu_torch.device import resolve_device
 from commefficient_tpu_torch.ops.vec import packbits
 from commefficient_tpu_torch.parallel import rows as rowx
@@ -404,11 +406,11 @@ class FedModel:
         # dict, _probe_log a pipelined round's device scalars until the
         # flush. The alarm engine (None with no rule armed) evaluates
         # without sinks too, so --on_divergence abort works ledgerless
-        # rank 0 alone writes the ledger, the console summary, the live
-        # plane and the flight recorder of a mesh run
+        # every rank of a mesh run writes its ledger, rank k > 0 to its
+        # ``.p<k>`` shard (its own host spans); rank 0 alone has the
+        # console summary, the live plane and the flight recorder
         tel_args = args if self.rank == 0 else args.replace(
-            ledger="", telemetry_console=False, live_port=0,
-            flightrec_rounds=0)
+            telemetry_console=False, live_port=0, flightrec_rounds=0)
         self.telemetry = build_telemetry(tel_args, device=self.device)
         self._probe_host = {}
         self._probe_log = {}
@@ -506,7 +508,8 @@ class FedModel:
             # total normalises each rank's loss
             W = ids_np.shape[0]
             part = client_slice(W, self.mesh)
-            mesh_kw = dict(total=max(float(np.sum(batch["mask"])), 1.0),
+            mesh_kw = dict(total=_round_total(batch["mask"], staleness,
+                                              self.args),
                            global_w=W)
         with tel.span("h2d"), trace.phase("h2d"):
             dev_batch = self._to_device(
@@ -514,8 +517,10 @@ class FedModel:
                 {k: np.asarray(v)[part] for k, v in batch.items()})
             ids = torch.as_tensor(ids_np[part].astype(np.int64)).to(
                 self.device, non_blocking=True)
+            # on a mesh this rank's slice of the round's staleness
             stale_dev = (None if staleness is None else torch.from_numpy(
-                staleness).to(self.device, non_blocking=True))
+                np.ascontiguousarray(staleness[part])).to(
+                    self.device, non_blocking=True))
         cs_in = self.client_states
         if self.client_store is not None:
             # normally a no-op: opt.step() already wrote the previous
@@ -702,8 +707,12 @@ class FedModel:
             # one observation a finished round, in dispatch order on
             # both the synchronous and the flush-replay path: the
             # controller (and its trajectory) sees the run's probe
-            # stream exactly
-            new_key = self._autopilot.observe(ridx, full)
+            # stream exactly. On a mesh every rank observes rank 0's
+            # values, so every rank moves on the same round to the same
+            # point and their collectives keep matching
+            obs = (full if self.mesh is None
+                   else _from_rank0(full, AUTOPILOT_PROBES, self.mesh))
+            new_key = self._autopilot.observe(ridx, obs)
             if new_key is not None:
                 self._switch_variant(new_key)
 
@@ -1266,6 +1275,45 @@ class FedModel:
         self.last_updated[idx] = r
 
 
+def _round_total(mask, staleness, cfg) -> float:
+    """The whole round's fold denominator, which a mesh rank holding a
+    slice of the clients cannot sum alone: its datapoints, or under the
+    staleness-weighted fold Σ cw·n in f32 as one device sums it
+    (core/rounds.py), at least 1."""
+    mask = np.asarray(mask)
+    alpha = float(cfg.async_staleness_weight)
+    if staleness is None or alpha == 0.0:
+        return max(float(np.sum(mask)), 1.0)
+    n = torch.from_numpy(mask.reshape(mask.shape[0], -1).astype(
+        np.float32)).sum(1)
+    cw = staleness_weights(torch.from_numpy(np.asarray(staleness)), alpha)
+    return float(torch.clamp(torch.sum(cw * n), min=1.0))
+
+
+#: the probes the autopilot's controller reads (autopilot/controller.py
+#: ``observe``)
+AUTOPILOT_PROBES = ("recovery_error", "agg_nan", "agg_inf")
+
+
+def _from_rank0(vals: dict, keys, mesh) -> dict:
+    """``vals``' ``keys`` as rank 0 holds them, broadcast over the
+    world group (a key rank 0 lacks is absent on every rank)."""
+    x = torch.tensor([float(vals[k]) if vals.get(k) is not None
+                      else float("nan") for k in keys],
+                     dtype=torch.float64, device=mesh.device)
+    present = torch.tensor([vals.get(k) is not None for k in keys],
+                           dtype=torch.float64, device=mesh.device)
+    both = torch.stack([x, present])
+    dist.broadcast(both, src=0, group=mesh.world.group)
+    out = dict(vals)
+    for k, v, on in zip(keys, both[0].tolist(), both[1].tolist()):
+        if on:
+            out[k] = v
+        else:
+            out.pop(k, None)
+    return out
+
+
 def _probe_values(probes: dict) -> dict:
     """A round's probe scalars (0-dim device tensors) as floats, copied
     to the host in one batch."""
@@ -1398,15 +1446,20 @@ class FedOptimizer:
             # its server round (the wire dequant and the unsketch
             # geometry) must match (reference fed_model.py:1305-1350)
             svar = m._variants.get(m.pending_variant_key)
+            mesh = m.mesh
             if svar.server_fn is None:
                 svar.server_fn = build_server_round(svar.cfg,
-                                                    probes=self._probes)
+                                                    probes=self._probes,
+                                                    mesh=mesh)
             geom = tuple(svar.cfg.transmit_shape)
             if geom != self._server_geom:
                 # a geometry move: the sketch-shaped server tables are
                 # re-seeded at the new shape (momentum restarts; the
-                # geometry steps are opt-in for this reason)
-                self.server_state = ServerState.init(svar.cfg, m.device)
+                # geometry steps are opt-in for this reason), this
+                # rank's shard of them on a model axis
+                self.server_state = ServerState.init(
+                    svar.cfg, m.device, model_axis_size(mesh),
+                    0 if mesh is None else mesh.model.index)
                 self._server_geom = geom
             server_fn = svar.server_fn
         sfirst = svar is not None and "server" not in svar.compiled

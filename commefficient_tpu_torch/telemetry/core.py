@@ -358,24 +358,54 @@ class Telemetry:
 NULL_TELEMETRY = Telemetry()
 
 
-def build_telemetry(args, device=None, extra_sinks=()) -> Telemetry:
-    """A run's Telemetry from its Config: ``--ledger PATH`` attaches a
-    JSONL sink, ``--telemetry_console`` the end-of-run console summary.
-    The TensorBoard sink is attached by the trainer, which owns the run
-    log directory. A ``--resume`` run appends to the same ledger: the
-    sink truncates a torn tail and drops replayed round records at or
-    below the file's last round id, so round ids stay monotone. (The
-    reference's per-process ledger shards belong to the multi-process
-    runtime, which is not ported.)"""
+def build_telemetry(args, device=None, extra_sinks=(), process_index=None,
+                    process_count=None) -> Telemetry:
+    """A run's Telemetry from its Config (reference telemetry/core.py
+    :399-458). ``--ledger PATH`` attaches a JSONL sink on every rank of
+    a mesh run: rank 0 writes the canonical ledger at ``PATH`` (its
+    round records carry the accounting every rank holds alike); rank
+    k > 0 writes the ``PATH.p<k>.jsonl`` shard, its own host spans, RSS
+    watermark and device time, announced once a run. ``python -m
+    commefficient_tpu_torch.telemetry.merge PATH`` joins the shards on
+    round id. On a mesh of more than one rank every record is stamped
+    with its rank (``process``). The reference's process is a JAX host;
+    the port's is one card's rank (parallel/mesh.py), so a one-host run
+    of four cards writes three shards. ``--telemetry_console`` attaches
+    the end-of-run console summary, on rank 0 only. The TensorBoard
+    sink is attached by the trainer, which owns the run log directory.
+
+    ``process_index``/``process_count`` default to the launched group's
+    rank and size (0 and 1 outside one); tests pass them to write the
+    shard layout without a group.
+
+    A ``--resume`` run appends to the same ledger (and each rank to its
+    own shard): the sink truncates a torn tail and drops replayed round
+    records at or below the file's last round id, so round ids stay
+    monotone."""
     from commefficient_tpu_torch.telemetry.sinks import (ConsoleSink,
                                                          JSONLSink,
-                                                         last_round_index)
+                                                         last_round_index,
+                                                         shard_ledger_path)
     sinks = list(extra_sinks)
     path = getattr(args, "ledger", "") or ""
+    console = bool(getattr(args, "telemetry_console", False))
+    if process_index is None or process_count is None:
+        import torch.distributed as dist
+        on = dist.is_available() and dist.is_initialized()
+        process_index = dist.get_rank() if on else 0
+        process_count = dist.get_world_size() if on else 1
+    pidx, pcount = int(process_index), int(process_count)
     if path:
-        resume_after = (last_round_index(path)
+        spath = shard_ledger_path(path, pidx)
+        resume_after = (last_round_index(spath)
                         if getattr(args, "do_resume", False) else None)
-        sinks.append(JSONLSink(path, resume_after=resume_after))
-    if getattr(args, "telemetry_console", False):
+        sinks.append(JSONLSink(spath, process=pidx if pcount > 1 else None,
+                               resume_after=resume_after))
+        if pidx != 0:
+            print(f"telemetry: process {pidx}/{pcount} writing ledger "
+                  f"shard {spath} (process 0 owns the canonical ledger; "
+                  "merge with python -m "
+                  "commefficient_tpu_torch.telemetry.merge)")
+    if console and pidx == 0:
         sinks.append(ConsoleSink())
     return Telemetry(sinks, device=device)

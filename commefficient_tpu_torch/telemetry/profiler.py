@@ -103,15 +103,18 @@ class trace_window:
 
 class profile_epoch(trace_window):
     """Trace ONE epoch (the first trained one) into
-    ``<logdir>/profile`` under ``--profile``."""
+    ``<logdir>/profile`` under ``--profile``; rank k > 0 of a mesh run
+    into ``<logdir>/profile.p<k>``, its own trace beside rank 0's."""
 
     def __init__(self, args, epoch, start_epoch=0, logdir=None,
                  telemetry=None):
+        from commefficient_tpu_torch.parallel.mesh import rank
         if logdir is None:
             from commefficient_tpu_torch.utils import make_logdir
             logdir = make_logdir(args)
+        k = rank()
         super().__init__(
-            os.path.join(logdir, "profile"),
+            os.path.join(logdir, "profile" if k == 0 else f"profile.p{k}"),
             active=(getattr(args, "do_profile", False)
                     and epoch == start_epoch),
             telemetry=telemetry,

@@ -299,9 +299,14 @@ def write_manifest(runs_dir: str = "runs", *, args=None,
         "mesh_shape": (dict(mesh_shape)
                        if isinstance(mesh_shape, dict) else mesh_shape),
     }
-    # one process until multi-GPU lands, so no per-process ledger
-    # shards to list (the reference's ``ledger_shards``)
     rec.update(_environment())
+    if rec.get("ledger") and (rec.get("process_count") or 1) > 1:
+        # every other rank's ledger shard (reference :285-289)
+        from commefficient_tpu_torch.telemetry.sinks import \
+            shard_ledger_path
+        rec["ledger_shards"] = [
+            shard_ledger_path(rec["ledger"], k)
+            for k in range(1, rec["process_count"])]
     if extra:
         rec.update(extra)
     out_dir = os.path.join(runs_dir, MANIFEST_DIR)

@@ -4,12 +4,13 @@ Port of ``commefficient_tpu/telemetry/sinks.py``: ``JSONLSink`` (the
 run ledger, torn-tail recovery, the single-writer claim a path, resume
 deduplication), ``TensorBoardSink``, ``ConsoleSink`` and the job
 service's shard helpers (``job_ledger_path`` :39,
-``job_index_of_ledger`` :51, ``recover_ledger_shards`` :62). Every sink
-has ``write(record)`` and ``close()`` and ignores the record kinds it
-does not use. The reference's per-process shards belong to the
-multi-process runtime, which is not ported: ``recover_ledger_shards``
-sweeps the ``.p<k>`` names all the same, so a ledger directory the
-reference wrote is recovered whole.
+``job_index_of_ledger`` :51, ``recover_ledger_shards`` :62) and the
+per-process shard path (``shard_ledger_path`` :29). Every sink has
+``write(record)`` and ``close()`` and ignores the record kinds it does
+not use. In the port a shard is a rank: rank ``k`` of a mesh run (one
+process a card, parallel/mesh.py) writes ``<ledger>.p<k>.jsonl``, where
+the reference's process ``k`` is a JAX host; ``python -m
+commefficient_tpu_torch.telemetry.merge LEDGER`` joins them on round id.
 """
 
 from __future__ import annotations
@@ -29,6 +30,15 @@ from commefficient_tpu_torch.telemetry.record import make_summary_record
 #: worker threads races the check-then-claim, so claim and eviction
 #: hold ``_live_lock``.
 _LOCK_MAP = {"_live": "_live_lock"}
+
+
+def shard_ledger_path(path: str, process_index: int) -> str:
+    """Per-rank ledger path: rank 0 owns the canonical ``path``; rank
+    k writes the ``<path>.p<k>.jsonl`` shard that ``telemetry/merge.py``
+    joins back on round id. Namespacing by rank means two ranks pointed
+    at the same ``--ledger`` never interleave writes into one file."""
+    k = int(process_index)
+    return path if k == 0 else f"{path}.p{k}.jsonl"
 
 
 def job_ledger_path(path: str, job_index: int) -> str:
@@ -145,7 +155,9 @@ class JSONLSink:
     checkpoint, and bit-exact replay would otherwise duplicate the
     rounds the previous run already recorded (pass
     ``last_round_index(path)`` to keep ledger round ids monotone and
-    deduplicated across a crash/resume cycle)."""
+    deduplicated across a crash/resume cycle). ``process``: every
+    record is stamped with that rank, so a shard's records stay
+    attributable after the merge."""
 
     #: absolute path -> the sink currently holding it in this process:
     #: a second writer on the same file would interleave its records
@@ -159,8 +171,9 @@ class JSONLSink:
     _live = {}
     _live_lock = threading.Lock()
 
-    def __init__(self, path: str, resume_after=None):
+    def __init__(self, path: str, process=None, resume_after=None):
         self.path = path
+        self.process = None if process is None else int(process)
         self.resume_after = (None if resume_after is None
                              else int(resume_after))
         abspath = os.path.abspath(path)
@@ -198,6 +211,8 @@ class JSONLSink:
                 and rec.get("round") is not None \
                 and int(rec["round"]) <= self.resume_after:
             return
+        if self.process is not None:
+            rec = dict(rec, process=self.process)
         line = json.dumps(rec, separators=(",", ":"),
                           default=_json_default) + "\n"
         self._f.write(line)

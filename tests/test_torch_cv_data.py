@@ -153,3 +153,15 @@ def test_datasets_and_loader_batches_match_jax(name, iid, tmp_path):
 def test_missing_archive_raises(tmp_path):
     with pytest.raises(FileNotFoundError, match="never downloads"):
         FedCIFAR10(str(tmp_path), "CIFAR10", train=True)
+
+
+@pytest.mark.parametrize("sep", [1.0, 0.025])
+def test_synthetic_bayes_accuracy_equals_jax(sep):
+    from commefficient_tpu.data.synthetic import FedSynthetic as JaxSynthetic
+    from commefficient_tpu_torch.data.synthetic import FedSynthetic
+    kw = dict(train=False, do_iid=False, num_clients=None, per_class=8,
+              num_val=400, separation=sep, seed=0)
+    want = JaxSynthetic("", "Synthetic", **kw).bayes_accuracy()
+    got = FedSynthetic("", "Synthetic", **kw).bayes_accuracy()
+    assert got == want
+    assert (got == 1.0) if sep == 1.0 else (0.5 < got < 0.95)

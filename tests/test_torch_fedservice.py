@@ -11,9 +11,11 @@
   pod, DP without a budget) are counted and fire ``admission_rejected``;
   the backlog policy starves a tenant into ``job_starvation``; a service
   SLO burns and flags a later admission.
-- The one-card device rule: ``(1, 1)`` reserves a device and gives it
-  back; more than one device raises ``NotImplementedError`` where the
-  pod has them. Migration to and from a reserved device is exact.
+- The device rule: ``(1, 1)`` reserves a device and gives it back; a
+  demand of two runs on a block in worker processes
+  (tests/test_torch_fedservice_spatial.py holds those to the reference)
+  and a job migrates onto one; on one card a demand of two is refused.
+  Migration to and from a reserved device is exact.
 - Per-job manifests, the single-writer ledger guard, the causal
   admission/grant spans stitched into the tenants' traces, one live
   scrape carrying the service's and the tenants' series, and the
@@ -47,6 +49,7 @@ from commefficient_tpu_torch.telemetry.causal import (assemble_traces,
 from commefficient_tpu_torch.telemetry.sinks import (JSONLSink,
                                                      job_ledger_path)
 
+import torch_mesh_workers as workers
 from test_modes import linear_loss
 from test_torch_modes import torch_linear_loss
 from test_torch_slo_live import free_port, urlopen
@@ -291,20 +294,30 @@ def test_a_burning_service_slo_flags_the_next_admission(tmp_path, capsys):
 
 
 def test_one_card_reservation_and_the_multi_gpu_rule():
+    """A (1, 1) demand reserves a device in the daemon; a (1, 2) demand
+    runs on a block of two in worker processes; a job migrates from one
+    card onto a block of two; on one card a demand of two is refused."""
     pod = [CPU, torch.device("cpu", 1), torch.device("cpu", 2)]
     svc = FedService(_svc_cfg(), devices=pod)
     bs = _batches(7, 2)
-    svc.admit(JobSpec("a", _job_cfg(3), _builder, lambda r: bs[r],
-                      rounds=2, mesh_demand=(1, 1)))
+    svc.admit(JobSpec("a", _job_cfg(3), workers.service_builder,
+                      lambda r: bs[r], rounds=2, mesh_demand=(1, 1)))
     assert svc._jobs[0].device == CPU and svc._free == pod[1:]
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        svc.admit(JobSpec("b", _job_cfg(4), _builder, lambda r: None,
-                          rounds=1, mesh_demand=(1, 2)))
-    assert svc._rejected == 0 and svc._admitted == 1
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        svc.migrate("a", mesh_demand=(2, 1))
+    svc.admit(JobSpec("b", _job_cfg(4, mode="uncompressed",
+                                    error_type="none", local_momentum=0.0),
+                      workers.service_builder, lambda r: None, rounds=1,
+                      mesh_demand=(1, 2)))
+    assert svc._jobs[1].spatial is not None and svc._free == []
+    assert svc._rejected == 0 and svc._admitted == 2
+    svc.tick()
+    # b ran out of work and gave its block back
+    assert svc._jobs[1].done and svc._free == pod[1:]
+    before = svc.job_state("a")
+    svc.migrate("a", mesh_demand=(2, 1))
+    assert svc._jobs[0].spatial is not None and svc._free == [CPU]
+    assert np.array_equal(before, svc.job_state("a"))
     svc.run()
-    assert svc._free == pod[1:] + [CPU]
+    assert sorted(map(str, svc._free)) == sorted(map(str, pod))
     svc.close()
     # on one card the reference's capacity check refuses it first
     one = FedService(_svc_cfg(), devices=[CPU])

@@ -17,9 +17,8 @@
   clients' gradients are summed over the ranks).
 - **Flags.** ``--num_devices`` and ``--mesh`` parse; the reference's
   checks of ``--mesh`` hold with its messages; the combinations the
-  reference runs on a mesh and the port does not raise
-  ``NotImplementedError`` naming their ROADMAP item (8e, 8f), and those
-  once raising (8b, 8d) validate; the per-client combinations (8a)
+  reference runs on a mesh and the port once did not (8b, 8d, 8f)
+  validate; the per-client combinations (8a)
   validate and build their round; the multi-host flags parse and the
   sequence-parallel ones still raise.
 """
@@ -223,16 +222,12 @@ def test_per_client_mesh_combinations_validate_and_build(kw, fused):
     (dict(autopilot="on", probe_every=1, autopilot_band="0.2:0.6"), "8f"),
 ])
 def test_unported_mesh_combinations_raise_naming_their_item(kw, item):
-    """8f's combinations raise naming the item; 8b's (the 2-D dense
-    server) and 8d's (the host store, checkpoint and resume on a mesh)
-    validate on the mesh now."""
+    """Every combination once raising on a mesh validates now: 8b's (the
+    2-D dense server), 8d's (the host store, checkpoint and resume on a
+    mesh) and 8f's (asynchronous rounds and the autopilot on a mesh)."""
     cfg = Config(**dict(SKETCH, **kw))
-    if item in ("8b", "8d"):
-        cfg.validate_runtime()
-    else:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP item {item}"):
-            cfg.validate_runtime()
+    assert cfg.on_mesh
+    cfg.validate_runtime()
     # the same run on one device is the port's today
     one = dict(SKETCH, **kw)
     one.pop("mesh", None)
@@ -240,9 +235,6 @@ def test_unported_mesh_combinations_raise_naming_their_item(kw, item):
 
 
 def test_spatial_jobs_and_multihost_flags_still_raise():
-    from commefficient_tpu_torch.fedservice.service import _one_card
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8e"):
-        _one_card("job", 2)
     for flag in ("--seq_devices", "--seq_impl"):
         with pytest.raises(NotImplementedError, match=flag):
             parse_args(argv=[flag, "1"])

@@ -492,3 +492,126 @@ def owned_rows_exchange(cases, world_kw):
         got = rowx.sum_owned_rows(local, mesh, sharded)
         out.append((_np(got), _np(rowx.all_slot_rows(got, mesh, sharded))))
     return out
+
+
+def lag(r, n):
+    """The reference elastic test's arrival process: client i of round
+    r's cohort arrives ``(i + r) % 3`` rounds late (a pure function of
+    its arguments, so it replays across a restore)."""
+    return (np.arange(n) + r) % 3
+
+
+def weighted_linear_loss(p, batch):
+    """The reference asynchronous fold test's linear loss: each client's
+    masked mean of ``c·p``."""
+    n = torch.clamp(torch.sum(batch["mask"], -1), min=1.0)
+    return torch.sum((batch["c"] @ p) * batch["mask"], -1) / n, \
+        (torch.zeros_like(n),)
+
+
+def weighted_folds(cases):
+    """The staleness-weighted fused round (``build_client_round(...,
+    client_weights=True)``) on this rank's mesh for each ``(Config
+    keywords, batch, staleness)`` of ``cases``: this rank's slice of the
+    clients and of their staleness, the whole round's Σ cw·n as the
+    runtime passes it; returns this rank's aggregate (its columns on a
+    model axis)."""
+    from commefficient_tpu_torch.core.rounds import build_client_round
+    from commefficient_tpu_torch.runtime.fed_model import _round_total
+    out = []
+    for kw, batch, stale in cases:
+        cfg = Config(device="cpu", **kw)
+        mesh = pm.build_mesh(cfg)
+        w = batch["mask"].shape[0]
+        part = pm.client_slice(w, mesh)
+        cr = build_client_round(cfg, weighted_linear_loss,
+                                batch["mask"].shape[1], mesh=mesh,
+                                client_weights=True)
+        res = cr(torch.zeros(cfg.grad_size),
+                 {k: torch.from_numpy(v[part]) for k, v in batch.items()},
+                 staleness=torch.from_numpy(stale[part]),
+                 total=_round_total(batch["mask"], stale, cfg), global_w=w)
+        out.append(_np(res.aggregated))
+    return out
+
+
+def fed_runs(runs):
+    """Runs of ``linear_loss`` through ``FedModel``/``FedOptimizer`` on
+    this rank's mesh (or one device outside a launched group). Each run
+    is ``(Config keywords, d, lr, ops)``, an asynchronous run taking the
+    ``lag`` arrival process; the ops in order: ``("round", batch)``,
+    ``("save", path)``, ``("load", path)`` and ``("snap",)``. Returns per
+    run the weights after every round, the dispatched variant keys, the
+    asynchronous round stats, the snapshots (weights and round index),
+    the autopilot's record, the ε spent and the rank."""
+    from commefficient_tpu_torch.runtime.checkpoint import (load_checkpoint,
+                                                            save_checkpoint)
+    from commefficient_tpu_torch.runtime.fed_model import (FedModel,
+                                                           FedOptimizer)
+    out = []
+    for kw, d, lr, ops in runs:
+        cfg = Config(**{"device": "cpu", **kw})
+        b = next(op[1] for op in ops if op[0] == "round")
+        model = FedModel(None, torch.zeros(d),
+                         lambda p, batch, a: linear_loss(p, batch), cfg,
+                         padded_batch_size=b["mask"].shape[1])
+        if cfg.async_buffer_size:
+            model.attach_arrival_process(lag)
+        opt = FedOptimizer([{"lr": lr}], cfg, model=model)
+        rec = {"weights": [], "keys": [], "snaps": []}
+        for op in ops:
+            if op[0] == "round":
+                rec["keys"].append(model._variant_key)
+                model(dict(op[1]))
+                opt.step()
+                rec["weights"].append(_np(model.ps_weights))
+            elif op[0] == "save":
+                save_checkpoint(op[1], model, opt)
+            elif op[0] == "load":
+                load_checkpoint(op[1], model, opt)
+            else:
+                rec["snaps"].append((_np(model.ps_weights),
+                                     model.round_index))
+        model.finalize()
+        out.append(dict(rec, rank=model.rank,
+                        async_stats=list(model.async_round_stats),
+                        ap=model.autopilot_record(),
+                        eps=model.privacy_epsilon()))
+    return out
+
+
+def manifest_shards(runs_dir, ledger):
+    """``registry.write_manifest`` on this rank of the launched group,
+    rank 0 alone: the manifest's ``ledger_shards`` (None elsewhere)."""
+    import json as _json
+    from commefficient_tpu_torch.telemetry import registry
+    if pm.rank() != 0:
+        return None
+    cfg = Config(device="cpu", num_devices=2, ledger=ledger)
+    with open(registry.write_manifest(runs_dir, args=cfg,
+                                      ledger=ledger)) as f:
+        return _json.load(f).get("ledger_shards")
+
+
+# the job service tests' linear model (tests/test_torch_fedservice.py)
+SERVICE_DIM, SERVICE_B = 48, 2
+
+
+def service_builder(cfg, device):
+    """A job service tenant's ``builder(cfg, device)`` that pickles and
+    imports no JAX: ``linear_loss`` through ``FedModel`` at lr 0.25 on
+    ``device`` (a spatial job's ranks build it in their processes)."""
+    from commefficient_tpu_torch.runtime.fed_model import (FedModel,
+                                                           FedOptimizer)
+    model = FedModel(None, torch.zeros(SERVICE_DIM),
+                     lambda p, b, a: linear_loss(p, b), cfg,
+                     padded_batch_size=SERVICE_B)
+    assert device is None or model.device == torch.device(device.type)
+    return model, FedOptimizer([{"lr": 0.25}], cfg, model=model)
+
+
+def broken_builder(cfg, device):
+    """``service_builder`` whose rank 1 raises."""
+    if pm.rank() == 1:
+        raise RuntimeError("rank 1 cannot build")
+    return service_builder(cfg, device)
