@@ -296,7 +296,20 @@ tenants at (2, 1) in worker processes of their own (a third refused
 while the pod is full, every card back on the drain), one migrated
 after a round from (2, 1) to (4, 1) at f32, restored bit-exact, its
 next round within ``MESH_F32_RTOL`` of one card's from the same archive
-and its finish within ``MESH_ROWS_RTOL`` of its one-card run. ``mesh_paths`` also runs
+and its finish within ``MESH_ROWS_RTOL`` of its one-card run. On four
+cards ``mesh_sp`` runs first, after the build (one launch of four
+ranks): ring attention on 1x4 and 2x2
+and Ulysses on 2x2 at GPT-2's 12 heads of 64 and T = 1024, at f32 and
+bf16, each rank's shard of the output and of dQ, dK, dV against one
+card's dense attention (``SP_ATTN_TOL``), with the seq collectives'
+device ms and bytes; the clients x seq round of GPT-2 124M at T = 1024
+(W = 4, B = 1, N = 2, f32) on 1x4 ring and 2x2 Ulysses against one
+card's dense oracle (``SP_AGG_RTOL``, ``SP_LOSS_ATOL``); and
+``gpt2_train.main`` at ``--seq_devices 4`` ring (a recovery probe on
+round 1), ``--seq_devices 2`` Ulysses and true_topk on 1x4, 2 rounds
+each: the weights bit-identical across ranks every round and the
+launches a rank as ``sp_launches`` predicts (kernels 1, 2, S and 3
+only). ``mesh_paths`` also runs
 the asynchronous round (``--async_buffer_size 4`` on the churny
 schedule) at ``--num_devices 4`` and on 2x2 and the autopilot's dtype
 walk at ``--num_devices 4``, each rank writing its ledger shard
@@ -328,6 +341,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -5126,7 +5140,7 @@ class MeshRecorder:
         from commefficient_tpu_torch.parallel.wire import gather_columns
         rec = self
         collectives = ("psum", "pmax", "all_gather", "reduce_scatter",
-                       "all_to_all")
+                       "all_to_all", "ring_shift")
         orig_psum, orig_gather = pm.Axis.psum, pm.Axis.all_gather
         orig_sum, orig_step = quant.wire_sum, fed_model.FedOptimizer.step
         orig_2d = core_rounds.sketched_update_2d
@@ -5608,14 +5622,397 @@ def mesh_row_launches(mesh_counts):
             [k.__name__ for k in MESH_KERNELS] + [SHARD_TAKE]}
 
 
+# --- sequence parallelism on the mesh (mesh_sp) --------------------------
+
+# ring and Ulysses attention at GPT-2's heads: 8 sequences (the 1x4
+# round's folded clients at B = 1, N = 2) of T = 1024, 12 heads of 64
+SP_ATTN_BTHD = (8, 1024, 12, 64)
+# (mesh shape, impl): Ulysses on 2x2, its seq axis of 2 dividing 12 heads
+SP_ATTN_CASES = (((1, 4), "ring"), ((2, 2), "ring"), ((2, 2), "ulysses"))
+SP_ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
+SP_ATTN_TOL_TEXT = ("max |sharded - one card| <= tol x max |one card| of "
+                    "the output and of dQ, dK, dV (tol 1e-4 at f32, 2^-7 at "
+                    "bf16 against the f32 dense attention of the same "
+                    "bf16 inputs), matmuls at full f32 (no TF32)")
+# the round: GPT-2 124M at f32, W = 4 clients of B = 1 example of N = 2
+# candidates, T = 1024
+SP_ROUND_WBNT = (4, 1, 2, 1024)
+SP_ROUND_CASES = (((1, 4), "ring"), ((2, 2), "ulysses"))
+SP_AGG_RTOL = 1e-4
+SP_LOSS_ATOL = 1e-4
+SP_ROUND_TOL_TEXT = ("the aggregate within 1e-4 relative L2 of the one-card "
+                     "dense oracle's (the reference test's objective, full "
+                     "logits and log_softmax, tests/test_rounds_sp.py:34-62)"
+                     ", each client's loss within 1e-4; f32, no TF32")
+
+
+@contextlib.contextmanager
+def seq_collectives_timed(rec):
+    """CUDA events and bytes sent around every ring shift and all-to-all
+    of the ``seq`` axis while the block runs: ``rec`` gets a list of
+    (name, start, end, bytes sent by this rank)."""
+    from commefficient_tpu_torch.parallel import mesh as pm
+    saved = {n: getattr(pm.Axis, n) for n in ("ring_shift", "all_to_all")}
+
+    def timed(name, orig):
+        def run(axis, t, *a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(axis, t, *a, **kw)
+            end.record()
+            sent = t.numel() * t.element_size()
+            if name == "all_to_all":
+                sent = sent * (axis.size - 1) // axis.size
+            rec.append((name, start, end, sent))
+            return out
+        return run
+
+    for name, orig in saved.items():
+        setattr(pm.Axis, name, timed(name, orig))
+    try:
+        yield rec
+    finally:
+        for name, orig in saved.items():
+            setattr(pm.Axis, name, orig)
+
+
+def seq_collective_summary(rec):
+    """{name: {calls, bytes_per_call, ms}} of ``seq_collectives_timed``'s
+    record (synchronised)."""
+    torch.cuda.synchronize()
+    out = {}
+    for name, start, end, sent in rec:
+        row = out.setdefault(name, {"calls": 0, "bytes": [], "ms": 0.0})
+        row["calls"] += 1
+        row["bytes"].append(sent)
+        row["ms"] += start.elapsed_time(end)
+    for row in out.values():
+        row["bytes_per_call"] = sorted(set(row.pop("bytes")))
+    return out
+
+
+def sp_attention_rank(meshes):
+    """This rank's attention checks: each ``SP_ATTN_CASES`` case at f32
+    and bf16, the forward and the gradients (of sum(out · dout)) of
+    this rank's sequence shard against the same rows of one card's
+    dense causal attention (``dense_reference``, the model's plain
+    branch, at f32 from the same inputs); a warm-up call, then a timed
+    forward + backward with the seq collectives' device ms and bytes."""
+    from commefficient_tpu_torch.parallel import ring_attention as ra
+    dev = meshes[SP_ATTN_CASES[0][0]].device
+    b, t, h, hd = SP_ATTN_BTHD
+    gen = torch.Generator().manual_seed(SEED)
+    full = [torch.randn(b, t, h, hd, generator=gen) for _ in range(4)]
+    out = []
+    for shape, impl in SP_ATTN_CASES:
+        mesh = meshes[shape]
+        n, idx = mesh.n_seq, mesh.seq.index
+        tl = t // n
+        cols = slice(idx * tl, (idx + 1) * tl)
+        fn = ra.ring_attention if impl == "ring" else ra.ulysses_attention
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (x.to(dev, dtype) for x in full)
+            qf, kf, vf = (x.float().clone().requires_grad_(True)
+                          for x in (q, k, v))
+            ref = ra.dense_reference(qf, kf, vf)
+            ref.backward(do.float())
+            want = {"out": ref.detach()[:, cols], "dq": qf.grad[:, cols],
+                    "dk": kf.grad[:, cols], "dv": vf.grad[:, cols]}
+            del ref, qf, kf, vf
+            rec = []
+            for timed in (False, True):
+                ql, kl, vl = (x[:, cols].clone().requires_grad_(True)
+                              for x in (q, k, v))
+                with (seq_collectives_timed(rec) if timed
+                      else contextlib.nullcontext()):
+                    torch.cuda.synchronize()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    o = fn(ql, kl, vl, mesh.seq, causal=True)
+                    o.backward(do[:, cols])
+                    end.record()
+                    end.synchronize()
+            got = {"out": o.detach(), "dq": ql.grad, "dk": kl.grad,
+                   "dv": vl.grad}
+            errs = {key: float((got[key].float() - want[key]).abs().max()
+                               / want[key].abs().max())
+                    for key in got}
+            out.append({"shape": f"{shape[0]}x{shape[1]}", "impl": impl,
+                        "dtype": str(dtype).split(".")[-1],
+                        "rank": mesh.rank, "seq_index": idx,
+                        "rel_max_err": errs,
+                        "fwd_bwd_ms": start.elapsed_time(end),
+                        "collectives": seq_collective_summary(rec)})
+            del q, k, v, do, o, ql, kl, vl, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_round_batch(vocab):
+    """The round's host batch (the reference test's ``_batch`` at
+    ``SP_ROUND_WBNT``): random ids, a quarter of each sequence's labels
+    ignored, shifted on the host."""
+    from commefficient_tpu_torch.core.rounds_sp import shift_lm_labels
+    w, b, n, t = SP_ROUND_WBNT
+    rng = np.random.RandomState(SEED)
+    ids = rng.randint(0, vocab, (w, b, n, t)).astype(np.int64)
+    labels = ids.copy()
+    labels[..., : t // 4] = -1
+    return {"input_ids": ids,
+            "token_type_ids": rng.randint(0, vocab, (w, b, n, t)),
+            "shifted_labels": shift_lm_labels(labels),
+            "mc_token_ids": rng.randint(0, t, (w, b, n)),
+            "mc_labels": rng.randint(0, n, (w, b)),
+            "mask": np.ones((w, b), np.float32)}
+
+
+def sp_dense_oracle(model, flat, batch, dev):
+    """One card's round with the reference test's objective: each
+    client's token-mean LM cross-entropy over its valid labels from the
+    full logits, plus its mean MC cross-entropy; the mean of the
+    clients' gradients, and their losses."""
+    grads, losses = [], []
+    for c in range(batch["input_ids"].shape[0]):
+        one = {k: torch.as_tensor(v[c]).to(dev) for k, v in batch.items()}
+        f = flat.detach().clone().requires_grad_(True)
+        lm_logits, mc_logits = model(f, one["input_ids"],
+                                     one["mc_token_ids"],
+                                     one["token_type_ids"])
+        labels = one["shifted_labels"]
+        valid = (labels != -1).float()
+        nll = -torch.log_softmax(lm_logits, -1).gather(
+            -1, labels.clamp(min=0)[..., None])[..., 0]
+        lm = (nll * valid).sum() / valid.sum().clamp(min=1.0)
+        mc = -torch.log_softmax(mc_logits, -1).gather(
+            -1, one["mc_labels"][..., None])[..., 0].mean()
+        loss = lm + mc
+        (g,) = torch.autograd.grad(loss, f)
+        grads.append(g)
+        losses.append(float(loss))
+        del lm_logits, mc_logits, nll, f
+    return torch.stack(grads).mean(0), losses
+
+
+def sp_round_rank(meshes):
+    """``build_sp_gpt2_round`` of GPT-2 124M (f32) at ``SP_ROUND_WBNT``
+    on each ``SP_ROUND_CASES`` mesh: its wall (CUDA events) and this
+    rank's peak memory; every rank's aggregate the same bits (a
+    checksum gathered over the world). Rank 0 holds the aggregate and
+    the losses to ``sp_dense_oracle`` on its own card."""
+    from commefficient_tpu_torch.core import rounds_sp
+    dev = meshes[SP_ROUND_CASES[0][0]].device
+    cfg = GPT2Config(vocab_size=GPT2_V)
+    model = gpt2_train.GPT2DoubleHeads(cfg)
+    flat = model.init_flat(SEED, dev)
+    check(flat.numel() == GPT2_D, f"mesh_sp: d {flat.numel()}")
+    batch = sp_round_batch(GPT2_V)
+    out, aggs = [], []
+    for shape, impl in SP_ROUND_CASES:
+        mesh = meshes[shape]
+        fn = rounds_sp.build_sp_gpt2_round(
+            dataclasses.replace(cfg, seq_impl=impl), mesh)
+        shard = {k: torch.as_tensor(v).to(dev) for k, v in
+                 rounds_sp.sp_shard(batch, mesh).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        rec = []
+        with seq_collectives_timed(rec):
+            start.record()
+            agg, losses = fn(flat, shard)
+            end.record()
+            end.synchronize()
+        every = mesh.world.all_gather(weights_checksum(agg).reshape(1))
+        out.append({"shape": f"{shape[0]}x{shape[1]}", "impl": impl,
+                    "rank": mesh.rank, "round_ms": start.elapsed_time(end),
+                    "peak_mem_GiB": torch.cuda.max_memory_allocated()
+                    / 2**30,
+                    "same_aggregate": len(set(every.reshape(-1).tolist())) == 1,
+                    "losses": losses.cpu().tolist(),
+                    "collectives": seq_collective_summary(rec)})
+        aggs.append(agg if mesh.rank == 0 else None)
+        del shard, fn
+    if meshes[SP_ROUND_CASES[0][0]].rank == 0:
+        want, want_losses = sp_dense_oracle(model, flat, batch, dev)
+        for row, agg in zip(out, aggs):
+            row["agg_rel_l2"] = rel_l2(agg, want)
+            row["agg_max_abs_err"] = float((agg - want).abs().max())
+            row["oracle_losses"] = want_losses
+    del aggs
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_trainer_rank(runs):
+    """``mesh_rank`` of each (phase, argv, root) in this rank."""
+    out = []
+    for phase, argv, root in runs:
+        torch.cuda.reset_peak_memory_stats()
+        res = mesh_rank("gpt2", argv, root)
+        res["sp_shape"] = dict(fed_model._CURRENT_MODEL._sp_mesh.shape)
+        fed_model._CURRENT_MODEL = None
+        torch.cuda.empty_cache()
+        out.append(res)
+    return out
+
+
+def sp_rank(runs):
+    """One rank of ``mesh_sp``: the meshes 1x4 and 2x2 (every rank makes
+    both, in one order), the attention checks, the round against the
+    dense oracle, then the trainer runs. Matmuls at full f32."""
+    from commefficient_tpu_torch.parallel import mesh as pm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = "cuda" if torch.distributed.get_backend() == "nccl" else "cpu"
+    meshes = {shape: pm.make_sp_mesh(shape[0], shape[1], kind)
+              for shape in ((1, 4), (2, 2))}
+    t0 = time.perf_counter()
+    attn = sp_attention_rank(meshes)
+    t1 = time.perf_counter()
+    rounds = sp_round_rank(meshes)
+    t2 = time.perf_counter()
+    trainer = sp_trainer_rank(runs)
+    return {"attention": attn, "round": rounds, "trainer": trainer,
+            "seconds": {"attention": t1 - t0, "round": t2 - t1,
+                        "trainer": time.perf_counter() - t2}}
+
+
+def sp_launches(rounds, probed=0, topk_only=False):
+    """A sequence-parallel GPT-2 run's launches on each rank over
+    ``rounds`` rounds: the aggregate sketched once a round (none in
+    true_topk), the server's estimates, search and take-mask (true_topk:
+    search and take-mask), a probed round's recovery probe + 1 of each
+    of those three; the flce and flash kernels never (the round's LM
+    loss is the chunked CE, its attention ring or Ulysses)."""
+    sketch = 0 if topk_only else rounds
+    want = {"sketch_kernel": sketch, "estimates_kernel": sketch + probed,
+            "threshold_key_kernel": rounds + probed,
+            "take_mask_kernel": rounds + probed, "sketch_quant_kernel": 0}
+    for kern in FLCE + ATTN:
+        want[kern.__name__] = 0
+    return want
+
+
+def mesh_sp(world):
+    """Sequence parallelism on ``world`` = 4 cards in one launch: ring
+    and Ulysses attention at GPT-2's heads against one card's, the
+    clients x seq round of GPT-2 124M at T = 1024 against one card's
+    dense oracle, and ``gpt2_train.main`` at ``--seq_devices 4
+    --seq_impl ring`` (1x4, sketch, a recovery probe on round 1),
+    ``--seq_devices 2 --seq_impl ulysses`` (2x2, sketch) and true_topk on
+    1x4, each 2 rounds and one validation step with a ledger a rank
+    (``--profile``: each round's busy time): the weights bit-identical
+    across ranks every round, the launches a rank as ``sp_launches``
+    predicts. Prints a line each and the phase's seconds."""
+    from commefficient_tpu_torch.parallel import mesh as pm
+    from commefficient_tpu_torch.telemetry.sinks import shard_ledger_path
+    nd = ["--num_devices", str(world)]
+    with tempfile.TemporaryDirectory(prefix="mesh_sp_") as root:
+        data_dir, vocab_dir = gpt2_train.fabricate_assets(
+            root, num_personalities=8)
+        # the cell's argv, naming the chunked CE the round runs
+        base = profile_round.gpt2_argv(data_dir, vocab_dir)
+        base[base.index("--fused_ce") + 1] = "off"
+        specs = [("mesh_sp_ring_1x4", ["--seq_devices", "4", "--seq_impl",
+                                       "ring", "--probe_every", "2"],
+                  dict(probed=1)),
+                 ("mesh_sp_ulysses_2x2", ["--seq_devices", "2",
+                                          "--seq_impl", "ulysses"], {}),
+                 ("mesh_sp_true_topk_1x4", ["--mode", "true_topk",
+                                            "--seq_devices", "4"],
+                  dict(topk_only=True))]
+        runs = []
+        for phase, extra, _ in specs:
+            led = os.path.join(root, f"{phase}.jsonl")
+            runs.append((phase, base + nd + extra + [
+                "--ledger", led, "--profile"], root))
+        t0 = time.perf_counter()
+        outs = pm.launch(world, sp_rank, runs)
+        wall = time.perf_counter() - t0
+        for i, case in enumerate(outs[0]["attention"]):
+            rows = [o["attention"][i] for o in outs]
+            tol = SP_ATTN_TOL[getattr(torch, case["dtype"])]
+            worst = {key: max(r["rel_max_err"][key] for r in rows)
+                     for key in case["rel_max_err"]}
+            check(all(e <= tol for e in worst.values()),
+                  f"mesh_sp: {case['impl']} {case['shape']} {case['dtype']}"
+                  f" off one card's attention: {worst} > {tol}")
+            emit({"phase": "mesh_sp_attention", "shape": case["shape"],
+                  "impl": case["impl"], "dtype": case["dtype"],
+                  "bthd": SP_ATTN_BTHD, "rel_max_err": worst,
+                  "tolerance": SP_ATTN_TOL_TEXT,
+                  "fwd_bwd_ms_by_rank": [r["fwd_bwd_ms"] for r in rows],
+                  "seq_collectives_by_rank": [r["collectives"]
+                                              for r in rows]})
+        for i, case in enumerate(outs[0]["round"]):
+            rows = [o["round"][i] for o in outs]
+            check(all(r["same_aggregate"] for r in rows),
+                  f"mesh_sp: {case['impl']} round: ranks hold different "
+                  "aggregates")
+            check(case["agg_rel_l2"] <= SP_AGG_RTOL,
+                  f"mesh_sp: {case['impl']} {case['shape']} aggregate "
+                  f"{case['agg_rel_l2']} from the dense oracle's")
+            loss_err = max(abs(a - b) for a, b in
+                           zip(case["losses"], case["oracle_losses"]))
+            check(loss_err <= SP_LOSS_ATOL and all(
+                r["losses"] == case["losses"] for r in rows),
+                f"mesh_sp: losses {case['losses']} against the oracle's "
+                f"{case['oracle_losses']}")
+            emit({"phase": "mesh_sp_round", "shape": case["shape"],
+                  "impl": case["impl"], "wbnt": SP_ROUND_WBNT, "d": GPT2_D,
+                  "agg_rel_l2": case["agg_rel_l2"],
+                  "agg_max_abs_err": case["agg_max_abs_err"],
+                  "loss_max_abs_err": loss_err, "losses": case["losses"],
+                  "tolerance": SP_ROUND_TOL_TEXT,
+                  "round_ms_by_rank": [r["round_ms"] for r in rows],
+                  "peak_mem_GiB_by_rank": [r["peak_mem_GiB"] for r in rows],
+                  "seq_collectives_rank0": case["collectives"]})
+        for i, (phase, extra, want_kw) in enumerate(specs):
+            res = [o["trainer"][i] for o in outs]
+            rounds = res[0]["rounds"]
+            check(rounds == 2, f"{phase}: {rounds} rounds")
+            want = sp_launches(rounds, **want_kw)
+            check_ranks(phase, res, rounds)
+            for o in res:
+                got = {k: o["counts"].get(k, 0) for k in want}
+                check(got == want, f"{phase}: rank {o['rank']} launches "
+                      f"{got}, want {want}")
+            n = int(extra[extra.index("--seq_devices") + 1])
+            check(all(o["sp_shape"] == {"clients": world // n, "seq": n}
+                      for o in res), f"{phase}: mesh {res[0]['sp_shape']}")
+            led = os.path.join(root, f"{phase}.jsonl")
+            busy = [[(r.get("device_time") or {}).get("busy_s")
+                     for r in ledger_records(shard_ledger_path(led, k))
+                     if r["kind"] == "round"] for k in range(world)]
+            emit({"phase": phase, "world": world, "rounds": rounds,
+                  "sp_shape": res[0]["sp_shape"],
+                  "launches_rank0": {k: res[0]["counts"][k] for k in want},
+                  "weights_equal_every_round": True,
+                  "round_losses": res[0]["losses"],
+                  "round_seconds_by_rank": [o["row"]["round_times"]
+                                            for o in res],
+                  "busy_s_by_rank": busy,
+                  "collective_s_per_round_by_rank": [o["coll_s"]
+                                                     for o in res],
+                  "peak_mem_GiB_by_rank": [o["peak_mem_GiB"] for o in res],
+                  "val_nll": res[0]["row"].get("val_nll")})
+        emit({"phase": "mesh_sp", "world": world,
+              "launch_wall_seconds": wall,
+              "rank0_seconds": outs[0]["seconds"]})
+
+
 def mesh_only_main(dev, name, smi):
     """``python3 chip_smoke.py --mesh-only`` (the several-card run): the
-    build, the sharded-selection checks, ``mesh_paths`` and, on four
-    cards, the per-client round's configurations (``mesh_clients``) and
-    the multi-process runtime's rest (``mesh_slice``: the 2-D dense
-    server, the host store and checkpoint and resume on the mesh, the
-    two-host launch; ``mesh_service``: the job service's spatial jobs),
-    and their rows of the kernels line. Each phase's end is printed in
+    build, the sharded-selection checks, on four cards sequence
+    parallelism (``mesh_sp``), ``mesh_paths`` and, on four cards, the
+    per-client round's configurations (``mesh_clients``) and the
+    multi-process runtime's rest (``mesh_slice``: the 2-D dense server,
+    the host store and checkpoint and resume on the mesh, the two-host
+    launch; ``mesh_service``: the job service's spatial jobs), and their
+    rows of the kernels line. Each phase's end is printed in
     seconds from the start (``phase_end``, its ``t_s``)."""
     def ended(phase):
         emit({"phase": "phase_end", "name": phase})
@@ -5627,6 +6024,14 @@ def mesh_only_main(dev, name, smi):
     del flush
     torch.cuda.empty_cache()
     ended("build_and_sharded_checks")
+    world = min(torch.cuda.device_count(), 4)
+    if world == 4:
+        mesh_sp(world)
+        ended("mesh_sp")
+    else:
+        emit({"phase": "mesh_sp", "world": world,
+              "skipped": "sequence parallelism's runs take 4 cards (1x4 "
+                         "and 2x2)"})
     counts, run, f32_run = mesh_paths()
     ended("mesh_paths")
     launches = mesh_row_launches(counts)
@@ -5636,7 +6041,6 @@ def mesh_only_main(dev, name, smi):
         row["launches"] = launches[f"{row['name']}_kernel"]
         table.append({**{k: row[k] for k in KERNEL_KEYS},
                       "launches_run": run})
-    world = min(torch.cuda.device_count(), 4)
     if world == 4:
         # the per-client round's kernels, timed at ResNet9's shapes, with
         # their launches from the clipped 1-D run (rank 0)

@@ -41,9 +41,9 @@ NATURAL_NUM_CLIENTS = {
     "PERSONA": 17568,
 }
 
-# the reference trainer's flags that the port does not have yet:
-# sequence parallelism's
-NOT_PORTED_FLAGS = ("--seq_devices", "--seq_impl")
+# the reference trainer's flags that the port does not have yet: none
+# (parse_args raises NotImplementedError for any listed here)
+NOT_PORTED_FLAGS = ()
 
 
 def num_classes_of_dataset(dataset_name: str) -> int:
@@ -59,6 +59,10 @@ class Config:
     mode: str = "sketch"
     # bfloat16 compute over float32 parameters and gradients
     do_bf16: bool = False
+    # GPT-2 sequence parallelism: each client's sequences sharded over
+    # this many ranks (ring or ulysses attention); 1 = off
+    seq_devices: int = 1
+    seq_impl: str = "ring"
     seed: int = 21
 
     # model/data
@@ -771,6 +775,9 @@ def build_parser(default_lr: Optional[float] = None
     parser.add_argument("--tensorboard", dest="use_tensorboard",
                         action="store_true")
     parser.add_argument("--bf16", action="store_true", dest="do_bf16")
+    parser.add_argument("--seq_devices", type=int, default=1)
+    parser.add_argument("--seq_impl", choices=["ring", "ulysses"],
+                        default="ring")
     parser.add_argument("--seed", type=int, default=21)
 
     parser.add_argument("--model", default="ResNet9",

@@ -140,14 +140,12 @@ class FedPERSONA(FedDataset):
             train_upd.extend(len(d["utterances"]) for d in dialogs)
 
         for cid, p in enumerate(personalities):
-            with open(self.client_fn(cid), "w") as f:
-                json.dump(client_datasets[p], f)
-        with open(self.validation_fn(), "w") as f:
-            json.dump(val_set, f)
-        with open(self.stats_fn(), "w") as f:
-            json.dump({"dialogs_per_client": dialogs_per_client,
-                       "train_utterances_per_dialog": train_upd,
-                       "val_utterances_per_dialog": val_upd}, f)
+            _dump_json(self.client_fn(cid), client_datasets[p])
+        _dump_json(self.validation_fn(), val_set)
+        _dump_json(self.stats_fn(),
+                   {"dialogs_per_client": dialogs_per_client,
+                    "train_utterances_per_dialog": train_upd,
+                    "val_utterances_per_dialog": val_upd})
 
     # --- items (reference fed_persona.py:180-260) ------------------------
 
@@ -450,8 +448,17 @@ def generate_learnable_personachat(path, word_list,
             "personality": [sentence(sig) for _ in range(3)],
             "utterances": dialog(sig, others)})
     os.makedirs(path, exist_ok=True)
-    with open(os.path.join(path, RAW_NAME), "w") as f:
-        json.dump(data, f)
+    _dump_json(os.path.join(path, RAW_NAME), data)
+
+
+def _dump_json(path, obj):
+    """``obj`` to ``path`` through a file of this process renamed into
+    place: the ranks of a mesh run prepare one directory at once, and a
+    reader never sees a file half written."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
 
 
 def generate_synthetic_personachat(path, num_personalities=8,
@@ -492,5 +499,4 @@ def generate_synthetic_personachat(path, num_personalities=8,
             "personality": [sentence() for _ in range(3)],
             "utterances": dialog()})
     os.makedirs(path, exist_ok=True)
-    with open(os.path.join(path, RAW_NAME), "w") as f:
-        json.dump(data, f)
+    _dump_json(os.path.join(path, RAW_NAME), data)

@@ -27,8 +27,18 @@ flash attention there (gpt2.py:115-135); other lengths take the plain
 branch, as in the reference. ``remat=True`` (``--remat``) recomputes
 each block's activations in the backward
 (``torch.utils.checkpoint``, the reference's ``nn.remat(Block)``,
-gpt2.py:183). Sequence parallelism is not ported (its flags raise at
-parse time).
+gpt2.py:183).
+
+Sequence parallelism (reference gpt2.py:46-56, 109-114, 176-178,
+222-231): with ``seq_axis`` set, ``forward`` takes the ``seq`` axis of
+``parallel/mesh.py make_sp_mesh`` (``seq=``) and token arrays sharded
+on T over it; position embeddings are global (``pos + index·T``),
+attention is ring or Ulysses (``seq_impl``, parallel/ring_attention.py;
+the flash branch is not taken), and the MC head reads the hidden state
+at the global position ``clip(mc_token_ids, 0, n·T - 1)``: each shard
+contributes a one-hot product and the sum over ``seq`` (whose backward
+sums the cotangents) gives every shard the whole. Hidden states and LM
+logits stay sequence-sharded.
 
 Weights in and out: ``convert_torch_gpt2`` (reference :399) reads a
 ``transformers`` GPT-2 state dict, ``convert_gpt2_to_hf`` (:327) writes
@@ -42,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -54,6 +65,8 @@ from commefficient_tpu_torch.ops.attention import flash_attention
 from commefficient_tpu_torch.ops.vec import (flat_size, flatten_params,
                                              params_tree, ravel_order,
                                              unravel)
+from commefficient_tpu_torch.parallel.ring_attention import (
+    dense_attention, ring_attention, seq_sum, ulysses_attention)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +80,12 @@ class GPT2Config:
     initializer_range: float = 0.02
     # computation dtype of the Dense layers (parameters stay float32)
     dtype: torch.dtype = torch.float32
+    # sequence parallelism: the name of the axis the token arrays are
+    # sharded over (the forward then takes that axis as ``seq=``), and
+    # its attention, "ring" or "ulysses" (n_head a multiple of the
+    # axis size)
+    seq_axis: Optional[str] = None
+    seq_impl: str = "ring"
     # attention lowering: "xla" = the plain causal softmax (the
     # reference's jax.nn.dot_product_attention branch), "flash" = the
     # flash attention kernels where T % 128 == 0
@@ -133,10 +152,18 @@ class CausalSelfAttention(nn.Module):
         return {"c_attn": _dense_shapes(c, 3 * c),
                 "c_proj": _dense_shapes(c, c)}
 
-    def forward(self, p, x):
+    def forward(self, p, x, seq=None):
         b, t, c = x.shape
         h = self.cfg.n_head
         qkv = _dense(x, p["c_attn"], self.cfg.dtype)
+        if seq is not None:
+            # (B, T_local, H, hd) shards of the sequence
+            q, k, v = (z.reshape(b, t, h, c // h)
+                       for z in qkv.split(c, dim=-1))
+            attn = (ring_attention if self.cfg.seq_impl == "ring"
+                    else ulysses_attention)
+            out = attn(q, k, v, seq, causal=True).reshape(b, t, c)
+            return _dense(out, p["c_proj"], self.cfg.dtype)
         q, k, v = (z.reshape(b, t, h, c // h).transpose(1, 2)
                    for z in qkv.split(c, dim=-1))
         if self.cfg.attn_impl == "flash" and t % 128 == 0:
@@ -146,13 +173,7 @@ class CausalSelfAttention(nn.Module):
             out = flash_attention(q, k, v, float((c // h) ** -0.5))
             out = out.transpose(1, 2).reshape(b, t, c)
             return _dense(out, p["c_proj"], self.cfg.dtype)
-        scores = (q.float() @ k.float().transpose(-1, -2)) \
-            * (c // h) ** -0.5
-        causal = torch.ones(t, t, dtype=torch.bool,
-                            device=x.device).tril()
-        scores = scores.masked_fill(~causal, float("-inf"))
-        probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        out = (probs @ v).transpose(1, 2).reshape(b, t, c)
+        out = dense_attention(q, k, v).transpose(1, 2).reshape(b, t, c)
         return _dense(out, p["c_proj"], self.cfg.dtype)
 
 
@@ -168,10 +189,11 @@ class Block(nn.Module):
         return {"attn": self.attn.leaf_shapes(), "ln_1": _ln_shapes(c),
                 "ln_2": _ln_shapes(c), "mlp": self.mlp.leaf_shapes()}
 
-    def forward(self, p, x):
+    def forward(self, p, x, seq=None):
         eps = self.cfg.layer_norm_epsilon
         dt = self.cfg.dtype
-        x = x + self.attn(p["attn"], _layer_norm(x, p["ln_1"], eps).to(dt))
+        x = x + self.attn(p["attn"], _layer_norm(x, p["ln_1"], eps).to(dt),
+                          seq)
         x = x + self.mlp(p["mlp"], _layer_norm(x, p["ln_2"], eps).to(dt))
         return x
 
@@ -191,21 +213,28 @@ class GPT2Transformer(nn.Module):
                       wte=(cfg.vocab_size, cfg.n_embd))
         return shapes
 
-    def forward(self, p, input_ids, token_type_ids=None):
+    def forward(self, p, input_ids, token_type_ids=None, seq=None):
         cfg = self.cfg
         t = input_ids.shape[1]
         wte = p["wte"]
-        h = F.embedding(input_ids.long(), wte) + p["wpe"][:t][None]
+        if seq is None:
+            pos = p["wpe"][:t]
+        else:
+            # T is the local shard: global positions (clamped into the
+            # table, as JAX's gather clamps)
+            idx = torch.arange(t, device=input_ids.device) + seq.index * t
+            pos = p["wpe"][torch.clamp(idx, max=cfg.n_positions - 1)]
+        h = F.embedding(input_ids.long(), wte) + pos[None]
         if token_type_ids is not None:
             # token types index the same embedding table, GPT-2 style
             h = h + F.embedding(token_type_ids.long(), wte)
         remat = cfg.remat and torch.is_grad_enabled()
         for i in range(cfg.n_layer):
             if remat:
-                h = checkpoint(self.block, p[f"h_{i}"], h,
+                h = checkpoint(self.block, p[f"h_{i}"], h, seq,
                                use_reentrant=False)
             else:
-                h = self.block(p[f"h_{i}"], h)
+                h = self.block(p[f"h_{i}"], h, seq)
         return _layer_norm(h, p["ln_f"], cfg.layer_norm_epsilon), wte
 
 
@@ -263,20 +292,36 @@ class GPT2DoubleHeads(nn.Module):
         return params_tree(flat, self.leaf_shapes())
 
     def forward(self, flat, input_ids, mc_token_ids, token_type_ids=None,
-                return_hidden=False):
+                return_hidden=False, seq=None):
         """input_ids / token_type_ids (B, N, T), mc_token_ids (B, N) ->
         (lm_logits (B, N, T, V) f32, mc_logits (B, N) f32), or with
-        ``return_hidden`` ((B*N, T, C) hidden states, wte, mc_logits)."""
+        ``return_hidden`` ((B*N, T, C) hidden states, wte, mc_logits).
+        Under ``cfg.seq_axis`` ``seq`` is that axis, T the local shard
+        and ``mc_token_ids`` global positions."""
+        if (self.cfg.seq_axis is None) != (seq is None):
+            raise ValueError(
+                f"GPT2Config.seq_axis={self.cfg.seq_axis!r} needs the "
+                "forward's seq axis (and a seq axis needs seq_axis set): "
+                "call it on the seq axis of make_sp_mesh")
         p = unravel(flat, self.leaf_shapes())
         b, n, t = input_ids.shape
         tt = (token_type_ids.reshape(b * n, t)
               if token_type_ids is not None else None)
         h, wte = self.transformer(p["transformer"],
-                                  input_ids.reshape(b * n, t), tt)
+                                  input_ids.reshape(b * n, t), tt, seq)
         h4 = h.reshape(b, n, t, -1)
-        idx = torch.clamp(mc_token_ids.long(), 0, t - 1)
-        cls_h = torch.gather(
-            h4, 2, idx[..., None, None].expand(b, n, 1, h4.shape[-1]))[:, :, 0]
+        if seq is not None:
+            # the owning shard contributes its hidden state, the sum
+            # over seq hands it to every shard
+            gpos = torch.arange(t, device=h.device) + seq.index * t
+            idx = torch.clamp(mc_token_ids.long(), 0, seq.size * t - 1)
+            sel = (gpos[None, None, :] == idx[..., None]).to(h4.dtype)
+            cls_h = seq_sum(torch.einsum("bnt,bntc->bnc", sel, h4), seq)
+        else:
+            idx = torch.clamp(mc_token_ids.long(), 0, t - 1)
+            cls_h = torch.gather(
+                h4, 2,
+                idx[..., None, None].expand(b, n, 1, h4.shape[-1]))[:, :, 0]
         mc = p["mc_head"]
         mc_logits = (cls_h @ mc["kernel"] + mc["bias"])[..., 0]
         if return_hidden:
@@ -348,23 +393,14 @@ def lm_nll_sums_chunked(h, wte, labels, dtype, ignore_index=-100,
     return sn, sv
 
 
-# the reference GPT2Config's sequence-parallel fields and their
-# defaults: not ported (--seq_devices and --seq_impl raise at parse
-# time), but a saved config.json carries them as the reference's does
-SEQ_PARALLEL_DEFAULTS = {"seq_axis": None, "seq_impl": "ring"}
-
-
 def saved_config(cfg: GPT2Config) -> dict:
     """The ``config.json`` of a saved run (reference
     ``FedModel.save_pretrained``, fed_model.py:623-628): the config's
     fields whose values are int, float, str, bool or None, in the
     reference's field order. ``dtype`` (a torch dtype here, a jnp dtype
-    there) is not such a value; the sequence-parallel fields take its
-    place in that order."""
+    there) is not such a value."""
     out = {}
     for key, val in dataclasses.asdict(cfg).items():
-        if key == "dtype":
-            out.update(SEQ_PARALLEL_DEFAULTS)
         if isinstance(val, (int, float, str, bool, type(None))):
             out[key] = val
     return out
@@ -374,13 +410,10 @@ def config_from_saved(blob: dict) -> GPT2Config:
     """The architecture of a saved ``config.json`` (a run's, or an HF
     export's), as the reference's reload reads it (gpt2_train.py:
     292-305): the GPT2Config fields it names, without ``attn_impl`` (a
-    runtime choice, not architecture). A config that asks for sequence
-    parallelism raises: the port has none."""
-    for key, default in SEQ_PARALLEL_DEFAULTS.items():
-        if blob.get(key, default) != default:
-            raise NotImplementedError(
-                f"config.json sets {key}={blob[key]!r}: sequence "
-                "parallelism is not ported")
+    runtime choice, not architecture). ``seq_axis`` and ``seq_impl``
+    are read as the reference reads them: a model whose config names a
+    ``seq_axis`` runs only on that axis (its forward raises without
+    one, as the reference's fails outside ``shard_map``)."""
     fields = {f.name for f in dataclasses.fields(GPT2Config)}
     fields -= {"attn_impl", "dtype"}
     return GPT2Config(**{k: v for k, v in blob.items() if k in fields})

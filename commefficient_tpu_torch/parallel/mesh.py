@@ -13,10 +13,17 @@ CPU, one process (gloo). JAX's mesh axes become process groups:
 - the 2-D mesh (``--mesh CxM``): rank = c·M + m, as the reference's
   ``devices.reshape(C, M)``; the ``clients`` group of a rank is the C
   ranks with its model coordinate m, the ``model`` group the M ranks
-  with its client coordinate c. A ``Cx1`` shape is the 1-D mesh.
+  with its client coordinate c. A ``Cx1`` shape is the 1-D mesh;
+- the sequence-parallel mesh (``--seq_devices N``, reference
+  core/rounds_sp.py ``make_sp_mesh`` :56-64): rank = c·N + s; the
+  ``clients`` group of a rank is the world/N ranks with its sequence
+  coordinate s, the ``seq`` group the N ranks with its client
+  coordinate c, over which each client's sequences are sharded.
 
 An ``Axis`` is one axis as this rank sees it: its group, this rank's
-index along it and its size, with the few collectives the round calls.
+index along it and its size, with the few collectives the round calls
+and the ring shift of ring attention (``ring_shift``: one
+``batch_isend_irecv`` to the next index and from the previous one).
 An axis of size 1 made by ``make_mesh2d`` has no group and its
 collectives are the identity; the 1-D mesh's ``clients`` axis is the
 world group at any size, so a one-rank mesh still crosses NCCL.
@@ -61,6 +68,7 @@ import torch.distributed as dist
 
 CLIENT_AXIS = "clients"
 MODEL_AXIS = "model"
+SEQ_AXIS = "seq"
 
 # the tensor forms of all-gather and reduce-scatter under their newer
 # names where this torch has them
@@ -71,10 +79,14 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single",
 
 class Axis:
     """One mesh axis from this rank: ``group`` (None where the axis has
-    size 1 and no collective is needed), ``index`` along it, ``size``."""
+    size 1 and no collective is needed), ``index`` along it, ``size``,
+    and ``ranks``, the group's global ranks in axis order (the peers of
+    ``ring_shift``)."""
 
-    def __init__(self, group, index: int, size: int):
+    def __init__(self, group, index: int, size: int, ranks=None):
         self.group, self.index, self.size = group, int(index), int(size)
+        self.ranks = (list(range(self.size)) if ranks is None
+                      else [int(r) for r in ranks])
 
     def _live(self) -> bool:
         return self.group is not None
@@ -122,17 +134,38 @@ class Axis:
         dist.all_to_all_single(out, t, group=self.group)
         return out
 
+    def ring_shift(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` sent to index + 1; returns what index - 1 sent (mod
+        size). Both transfers go in one ``batch_isend_irecv``: a blocking
+        send and receive around a ring deadlock, and on NCCL every rank
+        of the group must join the group's first point-to-point call."""
+        t = t.contiguous()
+        if not self._live() or self.size == 1:
+            return t
+        out = torch.empty_like(t)
+        nxt = self.ranks[(self.index + 1) % self.size]
+        prv = self.ranks[(self.index - 1) % self.size]
+        ops = [dist.P2POp(dist.isend, t, nxt, self.group),
+               dist.P2POp(dist.irecv, out, prv, self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+
 
 class Mesh:
     """This rank's view of the C x M mesh: ``clients``, ``model`` and
-    ``world`` axes, and its card (or the CPU)."""
+    ``world`` axes, and its card (or the CPU); on the sequence-parallel
+    mesh (``make_sp_mesh``) a ``seq`` axis of ``n_seq`` ranks in place
+    of ``model``."""
 
     def __init__(self, n_clients: int, n_model: int, clients: Axis,
                  model: Axis, world: Axis, device: torch.device,
-                 backend: str):
+                 backend: str, seq: Optional[Axis] = None):
         self.n_clients, self.n_model = int(n_clients), int(n_model)
         self.clients, self.model, self.world = clients, model, world
         self.device, self.backend = device, backend
+        self.seq = Axis(None, 0, 1) if seq is None else seq
+        self.n_seq = self.seq.size
 
     @property
     def rank(self) -> int:
@@ -143,15 +176,19 @@ class Mesh:
         shape = {CLIENT_AXIS: self.n_clients}
         if self.n_model > 1:
             shape[MODEL_AXIS] = self.n_model
+        if self.n_seq > 1:
+            shape[SEQ_AXIS] = self.n_seq
         return shape
 
     def __repr__(self):
-        return (f"Mesh({self.n_clients}x{self.n_model}, rank {self.rank}, "
+        inner = self.n_seq if self.n_seq > 1 else self.n_model
+        return (f"Mesh({self.n_clients}x{inner}, rank {self.rank}, "
                 f"{self.backend}, {self.device})")
 
 
 def _world_axis() -> Axis:
-    return Axis(dist.group.WORLD, dist.get_rank(), dist.get_world_size())
+    return Axis(dist.group.WORLD, dist.get_rank(), dist.get_world_size(),
+                range(dist.get_world_size()))
 
 
 def _device_of_rank(device_type: str) -> torch.device:
@@ -179,20 +216,47 @@ def make_mesh2d(n_clients: int, n_model: int,
                          f"{world.size}")
     if n_model == 1:
         return make_mesh(device_type)
-    ci, mi = divmod(world.index, n_model)
-    clients = Axis(None, ci, 1)
-    model = Axis(None, mi, n_model)
-    if n_clients > 1:
-        for m in range(n_model):
-            g = dist.new_group([c * n_model + m for c in range(n_clients)])
-            if m == mi:
-                clients = Axis(g, ci, n_clients)
-    for c in range(n_clients):
-        g = dist.new_group([c * n_model + m for m in range(n_model)])
-        if c == ci:
-            model = Axis(g, mi, n_model)
+    clients, model = _grid_axes(n_clients, n_model, world.index)
     return Mesh(n_clients, n_model, clients, model, world,
                 _device_of_rank(device_type), dist.get_backend())
+
+
+def _grid_axes(n_outer: int, n_inner: int, rank: int) -> tuple:
+    """The two axes of rank ``rank`` = o·n_inner + i on an n_outer x
+    n_inner grid: (outer axis, inner axis). An outer axis of size 1 has
+    no group; every rank makes every other group, in one order."""
+    oi, ii = divmod(rank, n_inner)
+    outer = Axis(None, oi, 1)
+    inner = None
+    if n_outer > 1:
+        for i in range(n_inner):
+            ranks = [o * n_inner + i for o in range(n_outer)]
+            g = dist.new_group(ranks)
+            if i == ii:
+                outer = Axis(g, oi, n_outer, ranks)
+    for o in range(n_outer):
+        ranks = [o * n_inner + i for i in range(n_inner)]
+        g = dist.new_group(ranks)
+        if o == oi:
+            inner = Axis(g, ii, n_inner, ranks)
+    return outer, inner
+
+
+def make_sp_mesh(n_clients: int, n_seq: int,
+                 device_type: str = "cuda") -> Mesh:
+    """The ``clients`` x ``seq`` mesh of the launched group (reference
+    core/rounds_sp.py ``make_sp_mesh``), whose size must be C·N: rank
+    c·N + s, as the reference's ``devices.reshape(C, N)``. The ``seq``
+    axis always has its group (a one-rank ring is the identity); the
+    ``model`` axis has size 1."""
+    world = _world_axis()
+    if n_clients * n_seq != world.size:
+        raise ValueError(f"sequence-parallel mesh {n_clients}x{n_seq} "
+                         f"needs {n_clients * n_seq} ranks, the group has "
+                         f"{world.size}")
+    clients, seq = _grid_axes(n_clients, n_seq, world.index)
+    return Mesh(n_clients, 1, clients, Axis(None, 0, 1), world,
+                _device_of_rank(device_type), dist.get_backend(), seq=seq)
 
 
 def client_axis_size(mesh: Optional[Mesh]) -> int:
@@ -327,7 +391,10 @@ def hosts_of(cfg) -> Optional[tuple]:
 
 def local_ranks(cfg) -> int:
     """The ranks one host of a multi-host run launches: one a visible
-    card, one on the CPU."""
+    card, one on the CPU; inside a launched rank, the count its
+    launcher started."""
+    if _HOST[2] is not None:
+        return _HOST[2]
     if torch.device(cfg.device).type == "cpu":
         return 1
     return torch.cuda.device_count()

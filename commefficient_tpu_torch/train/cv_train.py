@@ -548,6 +548,11 @@ DEFAULT_LR = 0.4
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(default_lr=DEFAULT_LR, argv=argv)
+    if args.seq_devices > 1:
+        # as the reference (cv_train.py:485-487)
+        raise ValueError("--seq_devices is a GPT-2 trainer feature "
+                         "(sequence parallelism); cv models have no "
+                         "sequence axis")
     if mesh.needs_launch(args):
         # --num_devices N / --mesh CxM / several hosts: one rank a
         # device, each running this main; this host's first rank's

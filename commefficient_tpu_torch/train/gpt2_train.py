@@ -44,6 +44,12 @@ client sketching its own table; the noise streams are the port's
 asynchronous rounds (asyncfed/) through the FedModel, as in the CV
 trainer.
 
+``--seq_devices N --seq_impl ring|ulysses`` (with ``--num_devices``,
+or every visible card) shards each client's sequences over N ranks
+(``runtime/fed_model_sp.py SeqParallelFedModel``, the clients x seq
+round of ``core/rounds_sp.py``), in uncompressed, sketch and true_topk
+mode.
+
 Every ``--mode`` runs. ``true_topk`` and ``uncompressed`` with virtual
 state run the fused round (one forward and backward over every token);
 ``local_topk``, ``fedavg`` and any local state run the per-client
@@ -107,6 +113,8 @@ from commefficient_tpu_torch.ops.flce import (lm_nll_sums_fused,
                                               resolve_fused_ce)
 from commefficient_tpu_torch.runtime import (FedModel, FedOptimizer,
                                              LambdaLR, drain_rounds)
+from commefficient_tpu_torch.runtime.fed_model_sp import (
+    SeqParallelFedModel, check_seq_parallel)
 from commefficient_tpu_torch.runtime.checkpoint import (
     resume_manifest_extra, setup_resume)
 from commefficient_tpu_torch.parallel import mesh
@@ -486,6 +494,9 @@ def fabricate_assets(root: str, num_personalities: int = 16,
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(default_lr=4e-2, argv=argv)
+    if args.seq_devices > 1:
+        # the sequence-parallel run's refusals, before any rank starts
+        check_seq_parallel(args, mesh.resolve_world(args))
     if mesh.needs_launch(args):
         # --num_devices N / --mesh CxM / several hosts: one rank a
         # device, each running this main; this host's first rank's
@@ -518,11 +529,16 @@ def main(argv=None):
     if args.num_clients is None:
         args.num_clients = int(train_ds.num_clients)
 
-    model = FedModel(module, params,
-                     make_compute_loss_train(module, args, fused), args,
-                     compute_loss_val=make_compute_loss_val(module, args,
-                                                            fused),
-                     padded_batch_size=train_loader.B)
+    loss = make_compute_loss_train(module, args, fused)
+    kw = dict(compute_loss_val=make_compute_loss_val(module, args, fused),
+              padded_batch_size=train_loader.B)
+    if args.seq_devices > 1:
+        # the clients x seq round (its LM term is always the chunked
+        # CE); validation and the server step are the base FedModel's
+        model = SeqParallelFedModel(module, params, loss, args,
+                                    gpt2_cfg=module.cfg, **kw)
+    else:
+        model = FedModel(module, params, loss, args, **kw)
     # the host store's prefetch follows the loader's lookahead
     model.attach_participant_feed(train_loader.peek_next_client_ids)
     opt = FedOptimizer([{"lr": 1.0}], args)

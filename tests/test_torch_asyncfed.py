@@ -570,14 +570,17 @@ def test_config_asserts_as_the_reference(argv, match):
     cfg = parse_args(argv=BASE_ARGV + ["--async_buffer_size", "3",
                                        "--async_staleness_weight", "0.5"])
     assert (cfg.async_buffer_size, cfg.async_staleness_weight) == (3, 0.5)
-    # the job service's alarm knob parses as the reference's; a flag the
-    # port lacks (sequence parallelism) raises naming itself
+    # the job service's alarm knob parses as the reference's, and so does
+    # --async_buffer_size beside --seq_devices (whose round the
+    # reference's sequence-parallel model runs synchronously)
     assert parse_args(argv=BASE_ARGV + ["--alarm_job_starvation", "2"]
                       ).alarm_job_starvation == jax_parse_args(
         argv=BASE_ARGV + ["--alarm_job_starvation", "2"]
     ).alarm_job_starvation == 2.0
-    with pytest.raises(NotImplementedError, match="--seq_devices"):
-        parse_args(argv=BASE_ARGV + ["--seq_devices", "2"])
+    argv = BASE_ARGV + ["--async_buffer_size", "2", "--seq_devices", "2"]
+    for cfg in (parse_args(argv=argv), jax_parse_args(argv=argv)):
+        cfg.validate_runtime()
+        assert (cfg.async_buffer_size, cfg.seq_devices) == (2, 2)
 
 
 def test_both_trainers_run_buffered_rounds(tmp_path):

@@ -67,9 +67,16 @@ PORTED_OPS_NEEDS = ["--probe_every", "1", "--dp", "sketch",
 
 
 def test_not_ported_flags_are_7():
-    # named when seven were left; the multi-host flags are ported
-    assert sorted(NOT_PORTED_FLAGS) == sorted(["--seq_devices",
-                                               "--seq_impl"])
+    # named when seven were left; the multi-host flags are ported, and
+    # since sequence parallelism none is left
+    assert NOT_PORTED_FLAGS == ()
+    argv = ["--seq_devices", "4", "--seq_impl", "ulysses"]
+    ours, ref = parse_args(argv=argv), jax_parse_args(None, argv)
+    assert (ours.seq_devices, ours.seq_impl) == \
+        (ref.seq_devices, ref.seq_impl) == (4, "ulysses")
+    ours, ref = parse_args(argv=[]), jax_parse_args(None, [])
+    assert (ours.seq_devices, ours.seq_impl) == \
+        (ref.seq_devices, ref.seq_impl) == (1, "ring")
     for flag in ("--coordinator_address", "--num_processes",
                  "--process_id"):
         assert flag not in NOT_PORTED_FLAGS

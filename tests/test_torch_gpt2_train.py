@@ -119,9 +119,15 @@ def test_fused_ce_on_raises_at_unsupported_width(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--seq_devices", "2"]])
 def test_unported_options_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        gpt2_train.main(["--device", "cpu", "--dataset_dir", str(tmp_path)]
-                        + ARGV + flag)
+    # ported: the sequence-parallel run's refusals are the reference's
+    # ValueErrors (fed_model_sp.py:52-68), raised before any rank starts:
+    # local_topk needs client state, and one device has no seq axis of 2
+    base = ["--device", "cpu", "--dataset_dir", str(tmp_path)] + ARGV + flag
+    with pytest.raises(ValueError, match="mode=local_topk"):
+        gpt2_train.main(base + ["--mode", "local_topk", "--error_type",
+                                "local", "--num_devices", "2"])
+    with pytest.raises(ValueError, match="seq_devices=2 must divide"):
+        gpt2_train.main(base + ["--num_devices", "1"])
 
 
 @pytest.mark.parametrize("flag", [["--alarm_job_starvation", "2"],

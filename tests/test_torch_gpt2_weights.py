@@ -251,8 +251,18 @@ def test_flax_msgpack_without_config_raises(tmp_path):
 
 
 def test_saved_sequence_parallel_config_raises():
-    with pytest.raises(NotImplementedError, match="seq_axis"):
-        tgpt2.config_from_saved(dict(GEOM, seq_axis="seq"))
+    # the saved fields are real ones now: a model of a config naming a
+    # seq axis runs only on that axis, and its forward raises without
+    # one (the reference's fails outside shard_map)
+    cfg = tgpt2.config_from_saved(dict(GEOM, seq_axis="seq",
+                                       seq_impl="ulysses"))
+    assert (cfg.seq_axis, cfg.seq_impl) == ("seq", "ulysses")
+    assert tgpt2.saved_config(cfg)["seq_axis"] == "seq"
+    model = tgpt2.GPT2DoubleHeads(cfg)
+    flat = torch.zeros(model.num_params)
+    ids = torch.zeros(1, 2, 8, dtype=torch.int64)
+    with pytest.raises(ValueError, match="seq_axis"):
+        model(flat, ids, torch.zeros(1, 2, dtype=torch.int64))
 
 
 # --- save_pretrained out --------------------------------------------------

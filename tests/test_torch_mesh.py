@@ -235,9 +235,11 @@ def test_unported_mesh_combinations_raise_naming_their_item(kw, item):
 
 
 def test_spatial_jobs_and_multihost_flags_still_raise():
-    for flag in ("--seq_devices", "--seq_impl"):
-        with pytest.raises(NotImplementedError, match=flag):
-            parse_args(argv=[flag, "1"])
+    # the sequence-parallel flags parse beside the mesh flags
+    cfg = parse_args(argv=["--seq_devices", "2", "--seq_impl", "ulysses",
+                           "--num_devices", "4", "--mesh", "2x1"])
+    assert (cfg.seq_devices, cfg.seq_impl, cfg.num_devices,
+            cfg.mesh2d) == (2, "ulysses", 4, (2, 1))
     # the multi-host flags parse (ROADMAP item 8c)
     cfg = parse_args(argv=["--coordinator_address", "h:1",
                            "--num_processes", "2", "--process_id", "1"])
